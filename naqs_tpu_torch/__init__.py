@@ -1,0 +1,16 @@
+"""naqs_tpu_torch: the NAQS-VMC framework in PyTorch, for NVIDIA Hopper.
+
+A port of `naqs_tpu` (JAX) that mirrors its module layout. It imports
+neither JAX nor `naqs_tpu`. Entry points run on the CUDA card unless the
+caller passes `device="cpu"`. The rank engine's psi lookup is a
+hand-written CUDA kernel (`csrc/rank_gather.cu`), built with nvcc on first
+use.
+"""
+
+__version__ = "0.1.0"
+
+from naqs_tpu_torch.hamiltonian import PauliTerms, compile_pauli_terms  # noqa: F401
+from naqs_tpu_torch.models.nade import NAQSConfig  # noqa: F401
+from naqs_tpu_torch.trainer import TrainConfig, VMCTrainer  # noqa: F401
+from naqs_tpu_torch.utils.hilbert import Hilbert  # noqa: F401
+from naqs_tpu_torch.utils.molecule import Molecule, load_molecule  # noqa: F401

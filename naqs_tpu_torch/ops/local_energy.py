@@ -1,0 +1,252 @@
+"""Local-energy engine: E_loc(s) = sum_s' H_{ss'} psi(s')/psi(s).
+
+Port of the rank engine of `naqs_tpu/ops/local_energy.py`. No sparse matrix
+is materialized: coupled states are `s XOR flip_mask`, signs are popcount
+parities, and psi(s') is read from the dense rank-indexed value table of the
+sampled set (psi = 0 for unsampled states, the truncated estimator). Per
+chunk of C sampled states:
+
+  * the diagonal, sum_k coeff_k (-1)^popcount(s & yz_k), in f64;
+  * psi of the C x Kxy coupled states through the fused rank+gather kernel
+    (ops/dyn_gather.py::rank_gather2);
+  * the H row as parity(s & yz) @ A, a (C, Kyz) x (Kyz, Kxy) fp32 matmul
+    with TF32 off (TF32 costs ~1e-3 Ha), or a per-term segment sum when a
+    dense A would be too large.
+
+The sort-based lookup for spaces without a RankSpec (over 32 qubits) and the
+dense/factored grid engines are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from naqs_tpu_torch.hamiltonian import PauliTerms
+from naqs_tpu_torch.ops.dyn_gather import rank_gather2
+from naqs_tpu_torch.ops.rank import _MISS_THRESHOLD, RankSpec, build_value_table
+from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
+from naqs_tpu_torch.utils.device import resolve_device
+
+# full-fp32 products: TF32 passes put ~1e-3 Ha of error on E_loc
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+# target elements per (chunk x term) intermediate; bounds peak memory
+_CHUNK_BUDGET = 1 << 25
+# above this many dense A entries, fall back to the per-term segment sum
+_DENSE_A_MAX = 1 << 26
+
+
+@dataclass(frozen=True)
+class DeviceTerms:
+    """PauliTerms on the device, every term axis zero-padded to `pad_to`.
+
+    Pad entries are exact no-ops: xy=0 couples the diagonal with
+    coefficient 0, yz=0 has parity +1 and coefficient 0.
+    """
+
+    diag_yz: torch.Tensor     # (Kd,) int64
+    diag_coeff: torch.Tensor  # (Kd,) float64
+    xy_unique: torch.Tensor   # (Kxy,) int64
+    yz_unique: torch.Tensor   # (Kyz,) int64
+    gxy: torch.Tensor         # (K,) int64
+    gyz: torch.Tensor         # (K,) int64
+    coeff: torch.Tensor       # (K,) float32
+    a_mat: torch.Tensor | None  # (Kyz, Kxy) f32 dense coupling matrix, or None
+    rank_spec: RankSpec | None = None
+    dense: None = None        # grid engines: not ported yet
+
+    @staticmethod
+    def from_terms(
+        terms: PauliTerms,
+        dense_a: bool | None = None,
+        hilbert=None,
+        pad_to: int = 256,
+        device=None,
+    ) -> "DeviceTerms":
+        dev = resolve_device(device)
+
+        def pad(arr, n, dtype):
+            out = np.zeros((n,), dtype=arr.dtype)
+            out[: len(arr)] = arr
+            return torch.as_tensor(out.astype(dtype), device=dev)
+
+        up = lambda n: max(pad_to, -(-n // pad_to) * pad_to)
+        kyz, kxy = up(len(terms.yz_unique)), up(len(terms.xy_unique))
+        k, kd = up(len(terms.coeff)), up(len(terms.diag_yz))
+        if dense_a is None:
+            dense_a = kyz * kxy <= _DENSE_A_MAX
+        a_mat = None
+        if dense_a:
+            a = np.zeros((kyz, kxy), dtype=np.float32)
+            np.add.at(a, (terms.gyz, terms.gxy), terms.coeff)
+            a_mat = torch.as_tensor(a, device=dev)
+        return DeviceTerms(
+            diag_yz=pad(terms.diag_yz, kd, np.int64),
+            diag_coeff=pad(terms.diag_coeff, kd, np.float64),
+            xy_unique=pad(terms.xy_unique, kxy, np.int64),
+            yz_unique=pad(terms.yz_unique, kyz, np.int64),
+            gxy=pad(terms.gxy, k, np.int64),
+            gyz=pad(terms.gyz, k, np.int64),
+            coeff=pad(terms.coeff, k, np.float32),
+            a_mat=a_mat,
+            rank_spec=RankSpec.for_hilbert(hilbert) if hilbert is not None else None,
+        )
+
+
+def _chunk_rows(n_xy: int, n_yz: int) -> int:
+    c = max(64, _CHUNK_BUDGET // max(6 * n_xy + n_yz, 1))
+    return 1 << int(math.floor(math.log2(c)))
+
+
+def diagonal_energy(dt: DeviceTerms, states: torch.Tensor) -> torch.Tensor:
+    """<s|H|s> in f64 for packed states (any shape)."""
+    par = parity_pm1(states[..., None] & dt.diag_yz).to(torch.float64)
+    return torch.sum(par * dt.diag_coeff, dim=-1)
+
+
+def _offdiag_h(dt: DeviceTerms, s: torch.Tensor) -> torch.Tensor:
+    """(C, Kxy) f32 off-diagonal H row entries for chunk states s."""
+    par = parity_pm1(s[:, None] & dt.yz_unique[None, :]).to(torch.float32)
+    if dt.a_mat is not None:
+        return torch.matmul(par, dt.a_mat)
+    contrib = par[:, dt.gyz] * dt.coeff
+    out = torch.zeros((s.shape[0], dt.xy_unique.shape[0]), dtype=torch.float32,
+                      device=s.device)
+    return out.index_add_(1, dt.gxy, contrib)
+
+
+def _local_energy_chunk(dt, s, tables, my_log_amp, my_phase):
+    e_diag = diagonal_energy(dt, s)
+    g_la, g_ph = rank_gather2(dt.rank_spec, s, dt.xy_unique, *tables)
+    found = g_la > _MISS_THRESHOLD
+    # clip the log-ratio: psi'/psi beyond e^30 only occurs for states with
+    # negligible sampling weight, and unclipped it overflows f32
+    dlog = torch.clamp(g_la - my_log_amp[:, None], -30.0, 30.0)
+    dph = g_ph - my_phase[:, None]
+    mag = torch.where(found, torch.exp(dlog), 0.0)
+    r_re = mag * torch.cos(dph)
+    r_im = mag * torch.sin(dph)
+    h = _offdiag_h(dt, s)
+    e_re = torch.sum(h * r_re, dim=-1).to(torch.float64)
+    e_im = torch.sum(h * r_im, dim=-1).to(torch.float64)
+    return e_diag + e_re, e_im
+
+
+def _chunks(dt, u, chunk_rows):
+    c = chunk_rows or _chunk_rows(int(dt.xy_unique.shape[0]),
+                                  int(dt.yz_unique.shape[0]))
+    return min(c, u)
+
+
+def _require_rank(dt):
+    if dt.rank_spec is None:
+        raise NotImplementedError(
+            "local energy without a RankSpec (over 32 qubits, or a space too "
+            "large for a dense value table) needs the sort-based lookup, "
+            "which is not ported yet")
+
+
+@torch.no_grad()
+def local_energy(
+    dt: DeviceTerms,
+    states: torch.Tensor,
+    log_amp: torch.Tensor,
+    phase: torch.Tensor,
+    n_valid,
+    chunk_rows: int | None = None,
+    queries: Tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Local energies (re, im) f64 for a sorted, SENTINEL-padded state buffer.
+
+    Rows beyond n_valid produce garbage values; callers mask by weight.
+    `queries=(q_states, q_la, q_ph)` computes E_loc only for those rows,
+    while psi(s') is still resolved against the full (states, log_amp,
+    phase, n_valid) table.
+    """
+    _require_rank(dt)
+    q_states, q_la, q_ph = (states, log_amp, phase) if queries is None else queries
+    u = q_states.shape[0]
+    c = _chunks(dt, u, chunk_rows)
+    tables = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
+    e_re, e_im = [], []
+    for i in range(0, u, c):
+        s = q_states[i:i + c]
+        la = q_la[i:i + c].to(torch.float32)
+        ph = q_ph[i:i + c].to(torch.float32)
+        n = s.shape[0]
+        if n < c:  # the JAX engine pads the last chunk with SENTINEL rows
+            pad = c - n
+            s = torch.cat([s, s.new_full((pad,), SENTINEL)])
+            la = torch.cat([la, la.new_zeros(pad)])
+            ph = torch.cat([ph, ph.new_zeros(pad)])
+        r, im = _local_energy_chunk(dt, s, tables, la, ph)
+        e_re.append(r[:n])
+        e_im.append(im[:n])
+    return torch.cat(e_re), torch.cat(e_im)
+
+
+@torch.no_grad()
+def quadratic_energy(
+    dt: DeviceTerms,
+    states: torch.Tensor,
+    log_amp: torch.Tensor,
+    phase: torch.Tensor,
+    n_valid,
+    chunk_rows: int | None = None,
+) -> torch.Tensor:
+    """Exact <psi|H|psi> / <psi|psi> over a sorted state buffer (f64).
+
+    Symmetric product form exp(la_m + la_k) cos(ph_k - ph_m) with log-amps
+    shifted so the largest is 0: overflow-free for any amplitude range. Miss
+    slots hold la = -200, so unsampled pairs contribute exactly 0. The
+    imaginary part cancels by Hermiticity and is not computed.
+    """
+    _require_rank(dt)
+    u = states.shape[0]
+    live = torch.arange(u, device=states.device) < n_valid
+    ref = torch.max(torch.where(live, log_amp, -torch.inf))
+    la = torch.where(live, log_amp - ref, -200.0).to(torch.float32)
+    ph = phase.to(torch.float32)
+    tables = build_value_table(dt.rank_spec, states, la, ph, n_valid,
+                               miss_log_amp=-200.0)
+    c = _chunks(dt, u, chunk_rows)
+    num = torch.zeros((), dtype=torch.float64, device=states.device)
+    den = torch.zeros((), dtype=torch.float64, device=states.device)
+    for i in range(0, u, c):
+        s, my_la, my_ph, my_live = (states[i:i + c], la[i:i + c],
+                                    ph[i:i + c], live[i:i + c])
+        w_m = torch.where(my_live, torch.exp(2.0 * my_la.to(torch.float64)), 0.0)
+        num += torch.sum(w_m * diagonal_energy(dt, s))
+        g_la, g_ph = rank_gather2(dt.rank_spec, s, dt.xy_unique, *tables)
+        amp = torch.where(my_live[:, None], torch.exp(g_la + my_la[:, None]), 0.0)
+        r_re = amp * torch.cos(g_ph - my_ph[:, None])
+        num_off = torch.sum(_offdiag_h(dt, s) * r_re, dim=-1)
+        num += torch.sum(num_off.to(torch.float64))
+        den += torch.sum(w_m)
+    return num / den
+
+
+@torch.no_grad()
+def expectation_energy(
+    dt: DeviceTerms,
+    states: torch.Tensor,
+    log_amp: torch.Tensor,
+    phase: torch.Tensor,
+    weights: torch.Tensor,
+    n_valid,
+    chunk_rows: int | None = None,
+):
+    """Weighted <E_loc>, its variance and per-state E_loc. weights sum to 1."""
+    e_re, e_im = local_energy(dt, states, log_amp, phase, n_valid, chunk_rows)
+    live = torch.arange(states.shape[0], device=states.device) < n_valid
+    e_re = torch.where(live, e_re, 0.0)
+    e_im = torch.where(live, e_im, 0.0)
+    e_mean = torch.sum(weights * e_re)
+    e_var = torch.sum(weights * (e_re - e_mean) ** 2)
+    return e_mean, e_var, (e_re, e_im)

@@ -5,20 +5,37 @@
     python3 chip_smoke.py --profile  # also one torch.profiler-traced step
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
-  1. build every CUDA kernel of the main path with nvcc (in parallel);
+  1. build every CUDA kernel of the main path with nvcc (one nvcc per source,
+     started together);
   2. print the card's name and power limit (nvidia-smi);
   3. set up H2O 6-31G (26 qubits, sector (5, 5), 1,656,369 states) and the
      paper-scale model (amp 64, phase 512x512, global phase net, partial
      masking) with random weights from a seed, capacity 100,000;
-  4. hold rank_gather2 against its plain PyTorch version on the real value
-     table at the main path's chunk shape (C=512, Kxy=4,608), bitwise, and
-     time kernel, plain version and the one-call PyTorch gather;
-  5. drive 5 VMCTrainer.step()s with every launch count set to 0, and fail
-     if a kernel of the path was never launched or an energy is not finite;
-  6. on one batch, check local_energy through the kernel equals the same
-     call through the plain version, and a few rows against an independent
-     float64 numpy E_loc (5e-4 Ha: fp32 off-diagonal sums).
-Prints a {"kernels": [...]} JSON line, and last
+  4. on the real packed value table at the main path's chunk shape (C=512,
+     Kxy=4,608): hold rank_gather2 bitwise against its plain version, and
+     rank_ratio_rowsum with the real h per row within ROWSUM_ATOL +
+     ROWSUM_RTOL * sum_k |h| |r| (fp32 summation order over 4,608 terms,
+     expf/sincosf ulps); then time, in turns, REPEATS repeats of LAUNCHES
+     launches each (median and min-max of the repeats): rank_gather2, its
+     plain version, the library gather tab[idx] on a precomputed idx,
+     rank_ratio_rowsum, its plain version, and the unfused composition
+     (rank_gather2 kernel + eager epilogue). Each is timed held (behind a
+     card sleep that covers the host's enqueue, so the launches run back to
+     back: the card's time, reported as "ms") and unheld (a plain loop,
+     which reads the host's rate where the wrapper is slower than the
+     kernel: "unheld_ms"); see naqs_tpu_torch/utils/cuda_timing.py;
+  5. the main path: 5 VMCTrainer.step()s with every launch count set to 0;
+     fails unless rank_ratio_rowsum ran 196 times per E_loc call (capacity
+     100,000 in chunks of 512) and every energy is finite;
+  6. quadratic_energy over the sampled buffer with the counts set to 0,
+     through rank_gather2 and through rank_gather2_ref: within 1e-6
+     relative, and rank_gather2 launched;
+  7. on one batch, local_energy through the kernel against the same call
+     through the plain version (per row, the tolerance of phase 4), and a
+     few rows against an independent float64 numpy E_loc (5e-4 Ha: fp32
+     off-diagonal sums).
+Prints a {"kernels": [...]} JSON line (launches from phase 5 for
+rank_ratio_rowsum, from phase 6 for rank_gather2), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -35,21 +52,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12   # non-tensor float32 (used for integer ops too)
 ELOC_TOL = 5e-4               # Ha, fp32 off-diagonal vs float64 reference
+QUAD_RTOL = 1e-6              # quadratic_energy, kernel vs plain gather
+REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
+RANK_OPS = 25                 # integer ops per element of the kernels' rank_of
+EPILOGUE_OPS = 11             # per found element: 3 transcendentals + 8 flops
 
 
-def _cuda_ms(fn, n_iter=20, n_warm=3):
-    import torch
-
-    for _ in range(n_warm):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(n_iter):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n_iter
+def _bound(n_bytes, n_ops):
+    b, o = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_FP32_OPS_PER_S * 1e3
+    return max(b, o), ("bytes" if b >= o else "operations")
 
 
 def _numpy_eloc(terms, states, la, ph, rows):
@@ -82,8 +93,12 @@ def main(argv) -> int:
     from naqs_tpu_torch.models.nade import log_psi
     from naqs_tpu_torch.ops import _build
     from naqs_tpu_torch.ops import local_energy as le
-    from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_gather2_ref
+    from naqs_tpu_torch.ops.dyn_gather import (ROWSUM_ATOL, ROWSUM_RTOL, rank_gather2,
+                                               rank_gather2_ref, rank_ratio_rowsum,
+                                               rank_ratio_rowsum_ref, ratio_rowsum,
+                                               rowsum_tolerance)
     from naqs_tpu_torch.ops.rank import build_value_table, rank_index
+    from naqs_tpu_torch.utils.cuda_timing import hold_ms, time_in_turns
 
     dev = torch.device("cuda")
     t0 = time.time()
@@ -115,42 +130,87 @@ def main(argv) -> int:
           f"{sum(p.numel() for p in tr.model.parameters())} params; "
           f"{time.time() - t1:.1f}s", flush=True)
 
-    # 4. kernel against its plain version on the real table
+    # 4. both kernels against their plain versions on the real table
     batch = tr._sample()
     with torch.no_grad():
         la, ph = log_psi(tr.model, batch.states)
-    tables = build_value_table(spec, batch.states, la, ph, batch.n_unique)
+    table = build_value_table(spec, batch.states, la, ph, batch.n_unique)
     chunk = le._chunks(dt, batch.states.shape[0], None)
     s = batch.states[:chunk].contiguous()
+    my_la, my_ph = la[:chunk].float().contiguous(), ph[:chunk].float().contiguous()
     xy = dt.xy_unique
-    got = rank_gather2(spec, s, xy, *tables)
-    want = rank_gather2_ref(spec, s, xy, *tables)
+    h = le._offdiag_h(dt, s)
+    got = rank_gather2(spec, s, xy, table)
+    want = rank_gather2_ref(spec, s, xy, table)
     torch.cuda.synchronize()
     same = all(torch.equal(g, w) for g, w in zip(got, want))
     live = torch.isfinite(got[0]) & torch.isfinite(want[0])
-    max_err = max(float((g - w)[live].abs().max()) for g, w in zip(got, want))
-    n_hit = int((got[0] > -1e29).sum())
+    gather_err = max(float((g - w)[live].abs().max()) for g, w in zip(got, want))
+    found = want[0] > -1e29
+    n_found = int(found.sum())
     print(f"[kernel] rank_gather2 (C={chunk}, Kxy={xy.shape[0]}): bitwise equal={same}, "
-          f"max_abs_err={max_err}, hits={n_hit}", flush=True)
+          f"max_abs_err={gather_err}, hits={n_found}", flush=True)
     if not same:
         raise SystemExit("rank_gather2 disagrees with rank_gather2_ref")
-    ms = _cuda_ms(lambda: rank_gather2(spec, s, xy, *tables))
-    plain_ms = _cuda_ms(lambda: rank_gather2_ref(spec, s, xy, *tables))
+    e_got = rank_ratio_rowsum(spec, s, xy, table, my_la, my_ph, h)
+    e_want = rank_ratio_rowsum_ref(spec, s, xy, table, my_la, my_ph, h)
+    tol = rowsum_tolerance(want[0], my_la, h)
+    torch.cuda.synchronize()
+    diffs = [(g - w).abs() for g, w in zip(e_got, e_want)]
+    rowsum_err = max(float(d.max()) for d in diffs)
+    worst = max(float((d / tol).max()) for d in diffs)
+    ok = all(bool((d <= tol).all()) for d in diffs) and all(
+        bool(torch.isfinite(g).all()) for g in e_got)
+    print(f"[kernel] rank_ratio_rowsum (C={chunk}, Kxy={xy.shape[0]}, real h): "
+          f"max_abs_err={rowsum_err:.3e} Ha, worst row at {worst:.3f} of its tolerance "
+          f"({ROWSUM_ATOL} Ha + {ROWSUM_RTOL} * sum_k |h||r|), within={ok}", flush=True)
+    if not ok:
+        raise SystemExit("rank_ratio_rowsum disagrees with rank_ratio_rowsum_ref")
+
     idx = rank_index(spec, s[:, None] ^ xy[None, :])
-    tab2 = torch.stack(tables, dim=1)
-    library_ms = _cuda_ms(lambda: tab2[idx])
-    n_rows = int(torch.unique(idx).numel())
-    n_bytes = s.numel() * 8 + xy.numel() * 8 + n_rows * 8 + 2 * idx.numel() * 4
-    n_ops = idx.numel() * (8 * spec.n_shells + 8)  # shifts, ands, adds, loads per shell
-    bound_b, bound_o = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_FP32_OPS_PER_S * 1e3
-    bound_ms, bound_by = max(bound_b, bound_o), ("bytes" if bound_b >= bound_o else "operations")
-    print(f"[kernel] rank_gather2 {ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{n_bytes} B with {n_rows} table rows touched, {n_ops} ops) | plain {plain_ms:.4f} ms | "
-          f"tab2[idx] on a precomputed idx {library_ms:.4f} ms", flush=True)
-    del idx, tab2, got, want
+    fns = {
+        "rank_gather2": lambda: rank_gather2(spec, s, xy, table),
+        "rank_gather2_ref": lambda: rank_gather2_ref(spec, s, xy, table),
+        "tab[idx]": lambda: table[idx],
+        "rank_ratio_rowsum": lambda: rank_ratio_rowsum(spec, s, xy, table, my_la, my_ph, h),
+        "rank_ratio_rowsum_ref": lambda: rank_ratio_rowsum_ref(spec, s, xy, table, my_la,
+                                                               my_ph, h),
+        "rank_gather2 + eager epilogue": lambda: ratio_rowsum(
+            *rank_gather2(spec, s, xy, table), my_la, my_ph, h),
+    }
+    hold = hold_ms()
+    times = time_in_turns(fns, REPEATS, LAUNCHES)
+    calls = time_in_turns(fns, REPEATS, LAUNCHES, hold=False)
+    print(f"[time] {REPEATS} repeats of {LAUNCHES} launches, the functions in turns; held: "
+          f"behind a {hold:.1f} ms card sleep, so the launches run back to back (the card's "
+          f"time); unheld: a plain loop (the host's rate where that is slower)", flush=True)
+    for name, (med, spread) in times.items():
+        print(f"[time] {name}: held median {med:.4f} ms, spread {spread[0]:.4f}-{spread[1]:.4f}"
+              f" ms; unheld median {calls[name][0]:.4f} ms, spread {calls[name][1][0]:.4f}-"
+              f"{calls[name][1][1]:.4f} ms", flush=True)
+    slow = [n for n in ("rank_gather2", "rank_ratio_rowsum", "tab[idx]")
+            if calls[n][1][1] * LAUNCHES >= hold]
+    if slow:
+        raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times invalid")
+    n_el, n_rows = idx.numel(), int(torch.unique(idx).numel())
+    head = s.numel() * 8 + xy.numel() * 8 + n_rows * 8
+    g_bytes = head + 2 * n_el * 4
+    g_bound = _bound(g_bytes, n_el * RANK_OPS)
+    r_bytes = head + h.numel() * 4 + 2 * chunk * 4 + 2 * chunk * 4
+    r_ops = n_el * RANK_OPS + n_found * EPILOGUE_OPS
+    r_bound = _bound(r_bytes, r_ops)
+    print(f"[bound] rank_gather2 {g_bound[0]:.5f} ms ({g_bound[1]}: {g_bytes} B = s, xy, "
+          f"{n_rows} touched table rows x 8 B, outputs 2 x {n_el} x 4 B; "
+          f"{n_el * RANK_OPS} ops)", flush=True)
+    print(f"[bound] rank_ratio_rowsum {r_bound[0]:.5f} ms ({r_bound[1]}: {r_bytes} B = s, xy, "
+          f"{n_rows} touched rows x 8 B, h {h.numel() * 4} B, my_la, my_ph, outputs "
+          f"{2 * chunk * 4} B; {r_ops} ops of which {3 * n_found} transcendentals on the "
+          f"{n_found} found elements, {3 * n_el} if every element counted)", flush=True)
+    del idx, got, want, e_got, e_want, h
 
     # 5. the main path: 5 training steps through the port's entry points
-    rank_gather2.launches = 0
+    per_call = -(-tr.capacity // chunk)
+    rank_gather2.launches = rank_ratio_rowsum.launches = 0
     for i in range(5):
         torch.cuda.synchronize()
         t = time.time()
@@ -161,27 +221,46 @@ def main(argv) -> int:
               f"e_loc_var={out['e_loc_var']:.6f}", flush=True)
         if not (math.isfinite(out["e_loc"]) and math.isfinite(out["e_loc_var"])):
             raise SystemExit(f"non-finite energy at step {i + 1}: {out}")
-    launches = rank_gather2.launches
-    print(f"[path] rank_gather2 launches in 5 steps: {launches} "
-          f"({tr.capacity // chunk + (tr.capacity % chunk > 0)} per local_energy call)",
-          flush=True)
-    if launches == 0:
-        raise SystemExit("the main path never launched rank_gather2")
+    ratio_launches = rank_ratio_rowsum.launches
+    print(f"[path] rank_ratio_rowsum launches in 5 steps: {ratio_launches} "
+          f"({per_call} per local_energy call, {ratio_launches / per_call:g} calls); "
+          f"rank_gather2: {rank_gather2.launches}", flush=True)
+    if ratio_launches == 0 or ratio_launches % per_call:
+        raise SystemExit("the main path did not run rank_ratio_rowsum once per chunk")
 
-    # 6. local_energy through the kernel vs through the plain version
+    # 6. quadratic_energy through rank_gather2 and through its plain version
     batch = tr._sample()
     with torch.no_grad():
         la, ph = log_psi(tr.model, batch.states)
-    e_k = le.local_energy(dt, batch.states, la, ph, batch.n_unique)
+    rank_gather2.launches = 0
+    q_k = float(le.quadratic_energy(dt, batch.states, la, ph, batch.n_unique))
+    gather_launches = rank_gather2.launches
     le.rank_gather2 = rank_gather2_ref
-    try:
-        e_p = le.local_energy(dt, batch.states, la, ph, batch.n_unique)
-    finally:
-        le.rank_gather2 = rank_gather2
+    q_p = float(le.quadratic_energy(dt, batch.states, la, ph, batch.n_unique))
+    le.rank_gather2 = rank_gather2
+    q_rel = abs(q_k - q_p) / abs(q_p)
+    print(f"[quad] quadratic_energy kernel {q_k:.10f} vs plain {q_p:.10f}: rel {q_rel:.2e} "
+          f"(tol {QUAD_RTOL}); rank_gather2 launches {gather_launches}", flush=True)
+    if not (q_rel <= QUAD_RTOL and gather_launches > 0 and math.isfinite(q_k)):
+        raise SystemExit("quadratic_energy through rank_gather2 disagrees or never launched it")
+
+    # 7. local_energy through the kernel vs through the plain version
+    e_k = le.local_energy(dt, batch.states, la, ph, batch.n_unique)
+    le.rank_ratio_rowsum = rank_ratio_rowsum_ref
+    e_p = le.local_energy(dt, batch.states, la, ph, batch.n_unique)
+    le.rank_ratio_rowsum = rank_ratio_rowsum
     nu = int(batch.n_unique)
-    eq = all(torch.equal(a[:nu], b[:nu]) for a, b in zip(e_k, e_p))
-    diff = float((e_k[0][:nu] - e_p[0][:nu]).abs().max())
-    print(f"[eloc] kernel vs plain on {nu} rows: equal={eq}, max_abs_diff={diff}", flush=True)
+    table = build_value_table(spec, batch.states, la, ph, batch.n_unique)
+    tol = []
+    for i in range(0, nu, chunk):
+        sc = batch.states[i:min(i + chunk, nu)]
+        g_la = rank_gather2_ref(spec, sc, xy, table)[0]
+        tol.append(rowsum_tolerance(g_la, la[i:i + sc.shape[0]].float(), le._offdiag_h(dt, sc)))
+    tol = torch.cat(tol).double()
+    d_re, d_im = ((a[:nu] - b[:nu]).abs() for a, b in zip(e_k, e_p))
+    eq = bool((d_re <= tol).all() and (d_im <= tol).all())
+    print(f"[eloc] kernel vs plain on {nu} rows: within the per-row tolerance={eq}, "
+          f"max_abs_diff re {float(d_re.max()):.3e} im {float(d_im.max()):.3e} Ha", flush=True)
     if not eq:
         raise SystemExit("local_energy through the kernel differs from the plain version")
     states_np = batch.states[:nu].cpu().numpy()
@@ -207,15 +286,33 @@ def main(argv) -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             tr.step()
             torch.cuda.synchronize()
-        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25),
-              flush=True)
+        events = prof.key_averages()
+        print(events.table(sort_by="cuda_time_total", row_limit=25), flush=True)
+        for e in events:
+            if "rank_" in e.key and e.self_device_time_total > 0:
+                print(f"[profile] {e.key}: {e.count} launches, "
+                      f"{e.self_device_time_total / 1e3:.3f} ms device time, "
+                      f"{e.self_device_time_total / e.count:.2f} us each", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "rank_gather2", "route": "cuda",
-        "source": "naqs_tpu_torch/csrc/rank_gather.cu",
-        "replaces": "naqs_tpu/ops/dyn_gather.py:83",
-        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}]}))
+    def entry(name, launches, err, t_plain, bound, t_library, **more):
+        return {"name": name, "route": "cuda", "source": "naqs_tpu_torch/csrc/rank_gather.cu",
+                "replaces": "naqs_tpu/ops/dyn_gather.py:83", "launches": launches,
+                "max_abs_err": err, "ms": times[name][0], "spread": times[name][1],
+                "unheld_ms": calls[name][0], "plain_ms": times[t_plain][0],
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": times[t_library][0] if t_library else None, **more}
+
+    unfused = "rank_gather2 + eager epilogue"
+    print(json.dumps({"kernels": [
+        entry("rank_gather2", gather_launches, gather_err, "rank_gather2_ref", g_bound,
+              "tab[idx]",
+              library_note="tab[idx] on a precomputed idx: skips the rank arithmetic"),
+        entry("rank_ratio_rowsum", ratio_launches, rowsum_err, "rank_ratio_rowsum_ref",
+              r_bound, None,
+              library_note="no single PyTorch call computes the fused gather, ratio and "
+                           "row sum",
+              unfused_ms=times[unfused][0], unfused_spread=times[unfused][1]),
+    ]}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,24 +1,49 @@
-// rank_gather2: fused combinadic rank + two-channel table gather, sm_90a.
+// The rank engine's psi lookup for sm_90a: two kernels on one device core.
 //
 // Replaces the TPU kernel naqs_tpu/ops/dyn_gather.py::table_gather2
-// (_gather2_kernel) together with the rank_index that fed it
-// (naqs_tpu/ops/local_energy.py::_local_energy_chunk). For chunk states
-// s (C,) and flip masks xy (K,) it writes
+// (_gather2_kernel; pl.pallas_call at :106) together with the rank_index that
+// fed it and, for rank_ratio_rowsum, the ratio/row-sum epilogue that followed
+// it (naqs_tpu/ops/local_energy.py::_local_energy_chunk). For chunk states
+// s (C,), flip masks xy (K,), x = s[c] ^ xy[k] and tab the packed (size+1, 2)
+// f32 value table of ops/rank.py::build_value_table (log_amp, phase):
 //
-//     out_la[c, k] = la_tab[rank(s[c] ^ xy[k])],  out_ph likewise,
+//   rank_gather2:      (out_la[c, k], out_ph[c, k]) = tab[rank(x)]
+//   rank_ratio_rowsum: e_re[c] + i e_im[c] = sum_k h[c, k] * r[c, k], with
+//                      r = la' > -1e29 ? exp(clamp(la' - my_la[c], -30, 30))
+//                                        * (cos, sin)(ph' - my_ph[c]) : 0
 //
-// where rank() is the colex rank of ops/rank.py and invalid states map to
-// the sentinel slot `size` (which holds the miss marker).
+// rank() is the colex rank of ops/rank.py; states outside every sector map
+// to the sentinel row `size`, which holds the miss marker.
 //
-// What bounds it: the (C, K) outputs, 8 B per element, written once; the
-// table reads are random 4 B loads, but the tables (2 x 4 B x (size+1),
-// 13.3 MB for H2O 6-31G) stay resident in the 50 MB L2. The integer rank
-// arithmetic is O(n_shells) per element and far under the card's rate.
-// Design: one thread per (c, k), so the (C, K) index array of the TPU
-// version never reaches device memory; the binomial and sector tables
-// (at most 16 x 18 + 3 x 18 ints) are staged in shared memory once per
-// block; the grid strides over the flat (C, K) range so neighbouring threads
-// write neighbouring outputs. No tile sweep: Hopper loads per thread.
+// What bounds them: bytes. At the main path's chunk (C = 512, K = 4,608,
+// H2O 6-31G) rank_gather2 must write 18.9 MB of outputs and read each touched
+// table row (8 B) once, about 20.5 MB; rank_ratio_rowsum must read h
+// (9.4 MB) and the touched rows and write 8 B per row, about 11.1 MB. The
+// table (13.3 MB) stays resident in the 50 MB L2. The rank arithmetic is a
+// few dozen integer operations per element, under the byte time.
+//
+// Design:
+// * No per-element loop, division or modulo. Alpha (even) and beta (odd)
+//   bits are compacted into S-bit words with mask/shift steps. Compaction
+//   commutes with xor, so it runs once per state and once per flip mask; per
+//   element, x's words are one xor of the two. colex(w) is two lookups in a
+//   small shared-memory table: lo[w & (2^L - 1)] + hi[w >> L][popc(low)].
+//   One 16-byte record per n_alpha (offset, stride, expected n_beta) decides
+//   the sector.
+// * One 8-byte load (float2) reads both channels of a table row.
+// * rank_gather2: a persistent grid, sized to what the card keeps resident,
+//   walks tiles of kTileRows rows x 256 columns. A thread owns one column of
+//   a tile: its flip mask is loaded once per tile, the tile's states once
+//   (compacted into shared memory), and a warp stores 128 contiguous bytes
+//   per channel and row, with an evict-first hint so the outputs do not push
+//   the table out of L2. The spec tables are staged in shared memory once
+//   per block. (A c-fastest mapping, rank_gather2_cfast_kernel, was slower.)
+// * rank_ratio_rowsum: a block owns kRowsPerBlock whole rows, so nothing of
+//   size (C, K) reaches device memory and each row's sum has a fixed order
+//   (columns in order per thread, a warp-shuffle tree, then the warps in
+//   order through shared memory): no atomics, the same result every run.
+//   h is read once, coalesced, with an evict-first hint; kUnroll columns'
+//   loads are issued before their arithmetic.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Plain C interface, bound with ctypes by naqs_tpu_torch/ops/dyn_gather.py.
@@ -26,66 +51,362 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// Tile shapes, picked by naqs_tpu_torch/tools/tune_rank_gather.py, which
+// builds the other values with -D (numbers in PERF.md).
+#ifndef RG_TILE_ROWS
+#define RG_TILE_ROWS 4
+#endif
+#ifndef RG_C_FASTEST
+#define RG_C_FASTEST 0
+#endif
+#ifndef RR_ROWS
+#define RR_ROWS 1
+#endif
+#ifndef RR_UNROLL
+#define RR_UNROLL 8
+#endif
+#ifndef RR_THREADS
+#define RR_THREADS 256
+#endif
+// For that script's diagnosis only, wrong results by design: ABLATE=1 drops
+// the table loads (rank_gather2 stores the rank; rank_ratio_rowsum finds
+// nothing), ABLATE=2 replaces rank_ratio_rowsum's expf/sincosf by a
+// subtract, ABLATE=3 drops the rank arithmetic too (every element reads the
+// sentinel row), which leaves the streams of s, xy, h and the outputs.
+#ifndef ABLATE
+#define ABLATE 0
+#endif
+
 namespace {
 
-__global__ void rank_gather2_kernel(
-    const int64_t* __restrict__ s, int64_t n_rows,
-    const int64_t* __restrict__ xy, int64_t n_cols,
-    const int32_t* __restrict__ spec, int n_shells, int32_t size,
-    const float* __restrict__ la_tab, const float* __restrict__ ph_tab,
-    float* __restrict__ out_la, float* __restrict__ out_ph) {
-  // spec layout: binom (S, S+2) row-major, then offset, stride, expected_nb
-  // (S+2 each), as built by ops/rank.py::spec_arrays
-  extern __shared__ int32_t sh[];
-  const int w = n_shells + 2;
-  const int n_spec = n_shells * w + 3 * w;
-  for (int i = threadIdx.x; i < n_spec; i += blockDim.x) sh[i] = spec[i];
-  __syncthreads();
-  const int32_t* binom = sh;
-  const int32_t* offset = sh + n_shells * w;
-  const int32_t* stride = offset + w;
-  const int32_t* exp_nb = stride + w;
+constexpr int kThreads = 256;           // threads per block of rank_gather2
+constexpr int kTileRows = RG_TILE_ROWS; // rank_gather2 tile: kTileRows x kThreads
+constexpr int kCfRows = 32;             // c-fastest tile: one row per lane ...
+constexpr int kCfCols = 64;             // ... x 64 columns
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerBlock = RR_ROWS;  // rank_ratio_rowsum: rows a block owns,
+constexpr int kUnroll = RR_UNROLL;      // columns in flight per thread,
+constexpr int kRrThreads = RR_THREADS;  // threads per block
+constexpr int kRrWarps = kRrThreads / 32;
+constexpr float kMiss = -1.0e30f;
+constexpr float kMissThreshold = -1.0e29f;
 
-  const int64_t total = n_rows * n_cols;
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += step) {
-    const int64_t c = e / n_cols;
-    const int64_t k = e - c * n_cols;
-    const uint64_t x = (uint64_t)(s[c] ^ xy[k]);
-    int ca = 0, cb = 0, ra = 0, rb = 0;
-    for (int j = 0; j < n_shells; ++j) {
-      const int ba = (int)((x >> (2 * j)) & 1u);
-      const int bb = (int)((x >> (2 * j + 1)) & 1u);
-      ca += ba;
-      cb += bb;
-      ra += ba * binom[j * w + ca];
-      rb += bb * binom[j * w + cb];
+// Spec table (int32), built by ops/dyn_gather.py::spec_table:
+//   sect[S + 1] int4: per n_alpha (offset, stride, expected n_beta or -1, 0)
+//   lo[2^L]:          colex rank of the low L bits of a spin word
+//   hi[2^(S-L)][L+1]: colex rank of its high bits, given popc of the low bits
+struct Spec {
+  const int4* sect;
+  const int32_t* lo;
+  const int32_t* hi;
+  uint32_t lo_mask;
+  int lo_bits;
+  int size;
+};
+
+__device__ __forceinline__ Spec stage_spec(int4* sh, const int32_t* __restrict__ spec,
+                                           int n_spec, int n_shells, int lo_bits,
+                                           int size) {
+  int32_t* dst = reinterpret_cast<int32_t*>(sh);
+  for (int i = threadIdx.x; i < n_spec; i += blockDim.x) dst[i] = spec[i];
+  __syncthreads();
+  Spec sp;
+  sp.sect = sh;
+  sp.lo = dst + 4 * (n_shells + 1);
+  sp.hi = sp.lo + (1 << lo_bits);
+  sp.lo_mask = (1u << lo_bits) - 1u;
+  sp.lo_bits = lo_bits;
+  sp.size = size;
+  return sp;
+}
+
+// the even bits of x, packed into the low 16 bits
+__device__ __forceinline__ uint32_t even_bits(uint32_t x) {
+  x &= 0x55555555u;
+  x = (x | (x >> 1)) & 0x33333333u;
+  x = (x | (x >> 2)) & 0x0F0F0F0Fu;
+  x = (x | (x >> 4)) & 0x00FF00FFu;
+  x = (x | (x >> 8)) & 0x0000FFFFu;
+  return x;
+}
+
+// alpha word | beta word << 16 of the low 2S bits (qmask) of a packed state
+__device__ __forceinline__ uint32_t spin_words(int64_t state, uint32_t qmask) {
+  const uint32_t x = static_cast<uint32_t>(static_cast<uint64_t>(state)) & qmask;
+  return even_bits(x) | (even_bits(x >> 1) << 16);
+}
+
+__device__ __forceinline__ int colex(const Spec& sp, uint32_t w) {
+  const uint32_t low = w & sp.lo_mask;
+  return sp.lo[low] + sp.hi[(w >> sp.lo_bits) * (sp.lo_bits + 1) + __popc(low)];
+}
+
+// dense-table row of the state whose spin words are w
+__device__ __forceinline__ int rank_of(const Spec& sp, uint32_t w) {
+  const uint32_t a = w & 0xFFFFu;
+  const uint32_t b = w >> 16;
+  const int4 r = sp.sect[__popc(a)];
+  if (r.z != __popc(b)) return sp.size;  // r.z == -1: no sector with this n_alpha
+  return r.x + colex(sp, a) * r.y + colex(sp, b);
+}
+
+// (log_amp, phase): the table row of the state whose spin words are w, in one
+// 8-byte load
+__device__ __forceinline__ float2 lookup(const Spec& sp, const float2* __restrict__ tab,
+                                         uint32_t w) {
+#if ABLATE == 1
+  return make_float2(__int_as_float(rank_of(sp, w)), 0.f);
+#elif ABLATE == 3
+  return __ldg(tab + sp.size);
+#else
+  return __ldg(tab + rank_of(sp, w));
+#endif
+}
+
+__global__ void __launch_bounds__(kThreads) rank_gather2_kernel(
+    const int64_t* __restrict__ s, int n_rows, const int64_t* __restrict__ xy,
+    int n_cols, const int32_t* __restrict__ spec, int n_spec, int n_shells,
+    int lo_bits, uint32_t qmask, int size, const float2* __restrict__ tab,
+    float* __restrict__ out_la, float* __restrict__ out_ph, int n_col_tiles,
+    int n_tiles) {
+  extern __shared__ int4 sh_spec[];
+  __shared__ uint32_t row_w[kTileRows];
+  const Spec sp = stage_spec(sh_spec, spec, n_spec, n_shells, lo_bits, size);
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int rt = t / n_col_tiles;  // once per tile, not per element
+    const int c0 = rt * kTileRows;
+    const int k = (t - rt * n_col_tiles) * kThreads + threadIdx.x;
+    if (threadIdx.x < kTileRows) {
+      const int c = c0 + threadIdx.x;
+      row_w[threadIdx.x] = c < n_rows ? spin_words(s[c], qmask) : 0u;
     }
-    const int nb = exp_nb[ca];
-    const int32_t idx =
-        (nb >= 0 && nb == cb) ? offset[ca] + ra * stride[ca] + rb : size;
-    out_la[e] = la_tab[idx];
-    out_ph[e] = ph_tab[idx];
+    __syncthreads();
+    if (k < n_cols) {
+      const uint32_t cw = spin_words(xy[k], qmask);
+      const size_t base = static_cast<size_t>(c0) * n_cols + k;
+      const int n = min(kTileRows, n_rows - c0);
+      if (n == kTileRows) {
+        float2 v[kTileRows];
+#pragma unroll
+        for (int r = 0; r < kTileRows; ++r) v[r] = lookup(sp, tab, row_w[r] ^ cw);
+#pragma unroll
+        for (int r = 0; r < kTileRows; ++r) {
+          __stcs(out_la + base + static_cast<size_t>(r) * n_cols, v[r].x);
+          __stcs(out_ph + base + static_cast<size_t>(r) * n_cols, v[r].y);
+        }
+      } else {
+        for (int r = 0; r < n; ++r) {
+          const float2 v = lookup(sp, tab, row_w[r] ^ cw);
+          __stcs(out_la + base + static_cast<size_t>(r) * n_cols, v.x);
+          __stcs(out_ph + base + static_cast<size_t>(r) * n_cols, v.y);
+        }
+      }
+    }
+    __syncthreads();  // row_w is rewritten by the next tile
   }
+}
+
+// The same function with c fastest in the warp: the 32 lanes take 32 sorted
+// rows of one column, whose coupled states share their high bits, so their
+// table rows lie closer together. Tiles of kCfRows x kCfCols go through
+// shared memory so the stores stay coalesced along k.
+__global__ void __launch_bounds__(kThreads) rank_gather2_cfast_kernel(
+    const int64_t* __restrict__ s, int n_rows, const int64_t* __restrict__ xy,
+    int n_cols, const int32_t* __restrict__ spec, int n_spec, int n_shells,
+    int lo_bits, uint32_t qmask, int size, const float2* __restrict__ tab,
+    float* __restrict__ out_la, float* __restrict__ out_ph, int n_col_tiles,
+    int n_tiles) {
+  extern __shared__ int4 sh_spec[];
+  __shared__ uint32_t col_w[kCfCols];
+  __shared__ float t_la[kCfRows][kCfCols + 1];  // +1: no bank conflicts
+  __shared__ float t_ph[kCfRows][kCfCols + 1];
+  const Spec sp = stage_spec(sh_spec, spec, n_spec, n_shells, lo_bits, size);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int rt = t / n_col_tiles;
+    const int c0 = rt * kCfRows;
+    const int k0 = (t - rt * n_col_tiles) * kCfCols;
+    if (threadIdx.x < kCfCols) {
+      const int k = k0 + threadIdx.x;
+      col_w[threadIdx.x] = k < n_cols ? spin_words(xy[k], qmask) : 0u;
+    }
+    const uint32_t rw = c0 + lane < n_rows ? spin_words(s[c0 + lane], qmask) : 0u;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kCfCols / kWarps; ++j) {
+      const int col = warp + j * kWarps;
+      const float2 v = lookup(sp, tab, rw ^ col_w[col]);
+      t_la[lane][col] = v.x;
+      t_ph[lane][col] = v.y;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kCfRows * kCfCols; i += kThreads) {
+      const int r = i / kCfCols;
+      const int col = i % kCfCols;
+      const int c = c0 + r;
+      const int k = k0 + col;
+      if (c < n_rows && k < n_cols) {
+        const size_t o = static_cast<size_t>(c) * n_cols + k;
+        __stcs(out_la + o, t_la[r][col]);
+        __stcs(out_ph + o, t_ph[r][col]);
+      }
+    }
+    __syncthreads();  // col_w and the tile are rewritten by the next tile
+  }
+}
+
+__global__ void __launch_bounds__(kRrThreads) rank_ratio_rowsum_kernel(
+    const int64_t* __restrict__ s, int n_rows, const int64_t* __restrict__ xy,
+    int n_cols, const int32_t* __restrict__ spec, int n_spec, int n_shells,
+    int lo_bits, uint32_t qmask, int size, const float2* __restrict__ tab,
+    const float* __restrict__ my_la, const float* __restrict__ my_ph,
+    const float* __restrict__ h, float* __restrict__ e_re,
+    float* __restrict__ e_im) {
+  extern __shared__ int4 sh_spec[];
+  __shared__ float partial[2 * kRowsPerBlock][kRrWarps];
+  const Spec sp = stage_spec(sh_spec, spec, n_spec, n_shells, lo_bits, size);
+  const int c0 = blockIdx.x * kRowsPerBlock;
+
+  bool live[kRowsPerBlock];
+  uint32_t rw[kRowsPerBlock];
+  float la0[kRowsPerBlock], ph0[kRowsPerBlock];
+  const float* h_row[kRowsPerBlock];
+  float acc_re[kRowsPerBlock], acc_im[kRowsPerBlock];
+#pragma unroll
+  for (int r = 0; r < kRowsPerBlock; ++r) {
+    const int c = c0 + r;
+    live[r] = c < n_rows;
+    rw[r] = live[r] ? spin_words(s[c], qmask) : 0u;
+    la0[r] = live[r] ? my_la[c] : 0.f;
+    ph0[r] = live[r] ? my_ph[c] : 0.f;
+    h_row[r] = h + static_cast<size_t>(live[r] ? c : 0) * n_cols;
+    acc_re[r] = 0.f;
+    acc_im[r] = 0.f;
+  }
+
+  for (int k0 = threadIdx.x; k0 < n_cols; k0 += kRrThreads * kUnroll) {
+    // issue every load of kUnroll columns before the arithmetic
+    float2 v[kUnroll][kRowsPerBlock];
+    float hv[kUnroll][kRowsPerBlock];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u * kRrThreads;
+      const bool in = k < n_cols;
+      const uint32_t cw = in ? spin_words(xy[k], qmask) : 0u;
+#pragma unroll
+      for (int r = 0; r < kRowsPerBlock; ++r) {
+        const bool ok = in && live[r];
+        v[u][r] = ok ? lookup(sp, tab, rw[r] ^ cw) : make_float2(kMiss, 0.f);
+        hv[u][r] = ok ? __ldcs(h_row[r] + k) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int r = 0; r < kRowsPerBlock; ++r) {
+#if ABLATE == 1
+        if (__float_as_int(v[u][r].x) == -1) {  // never: a rank is >= 0
+#else
+        if (v[u][r].x > kMissThreshold) {
+#endif
+#if ABLATE == 2
+          const float mag = v[u][r].x - la0[r];
+          const float sn = v[u][r].y - ph0[r], cs = sn;
+#else
+          const float mag = expf(fminf(fmaxf(v[u][r].x - la0[r], -30.f), 30.f));
+          float sn, cs;
+          sincosf(v[u][r].y - ph0[r], &sn, &cs);
+#endif
+          acc_re[r] += hv[u][r] * (mag * cs);
+          acc_im[r] += hv[u][r] * (mag * sn);
+        }
+#if ABLATE == 1 || ABLATE == 3
+        acc_re[r] += hv[u][r];  // keeps the h loads
+#endif
+      }
+    }
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < kRowsPerBlock; ++r) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      acc_re[r] += __shfl_xor_sync(0xFFFFFFFFu, acc_re[r], off);
+      acc_im[r] += __shfl_xor_sync(0xFFFFFFFFu, acc_im[r], off);
+    }
+    if (lane == 0) {
+      partial[2 * r][warp] = acc_re[r];
+      partial[2 * r + 1][warp] = acc_im[r];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * kRowsPerBlock) {
+    const int q = threadIdx.x;
+    const int c = c0 + q / 2;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kRrWarps; ++w) sum += partial[q][w];
+    if (c < n_rows) (q & 1 ? e_im : e_re)[c] = sum;
+  }
+}
+
+// blocks the card keeps resident at once for `kernel`
+template <typename Kernel>
+int resident_blocks(Kernel kernel, size_t smem) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  return per_sm * n_sm > 0 ? per_sm * n_sm : 1;
 }
 
 }  // namespace
 
-extern "C" int rank_gather2(const void* s, int64_t n_rows, const void* xy,
-                            int64_t n_cols, const void* spec, int n_shells,
-                            int size, const void* la_tab, const void* ph_tab,
-                            void* out_la, void* out_ph, int n_blocks,
-                            void* stream) {
-  const int threads = 256;
-  const size_t smem = sizeof(int32_t) * (size_t)(n_shells + 2) * (n_shells + 3);
-  rank_gather2_kernel<<<n_blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const int64_t*)s, n_rows, (const int64_t*)xy, n_cols,
-      (const int32_t*)spec, n_shells, (int32_t)size, (const float*)la_tab,
-      (const float*)ph_tab, (float*)out_la, (float*)out_ph);
-  return (int)cudaGetLastError();
+extern "C" int rank_gather2(const void* s, int n_rows, const void* xy, int n_cols,
+                            const void* spec, int n_spec, int n_shells, int lo_bits,
+                            unsigned qmask, int size, const void* tab, void* out_la,
+                            void* out_ph, void* stream) {
+  const size_t smem = sizeof(int32_t) * static_cast<size_t>(n_spec);
+#if RG_C_FASTEST
+  const auto kernel = rank_gather2_cfast_kernel;
+  const int tile_rows = kCfRows, tile_cols = kCfCols;
+#else
+  const auto kernel = rank_gather2_kernel;
+  const int tile_rows = kTileRows, tile_cols = kThreads;
+#endif
+  const int n_col_tiles = (n_cols + tile_cols - 1) / tile_cols;
+  const int n_tiles = n_col_tiles * ((n_rows + tile_rows - 1) / tile_rows);
+  // as many blocks as stay resident, each walking the same number of tiles
+  const int max_blocks = resident_blocks(kernel, smem);
+  const int rounds = (n_tiles + max_blocks - 1) / max_blocks;
+  const int grid = (n_tiles + rounds - 1) / rounds;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(s), n_rows, static_cast<const int64_t*>(xy), n_cols,
+      static_cast<const int32_t*>(spec), n_spec, n_shells, lo_bits, qmask, size,
+      static_cast<const float2*>(tab), static_cast<float*>(out_la),
+      static_cast<float*>(out_ph), n_col_tiles, n_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* rank_gather2_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+extern "C" int rank_ratio_rowsum(const void* s, int n_rows, const void* xy, int n_cols,
+                                 const void* spec, int n_spec, int n_shells,
+                                 int lo_bits, unsigned qmask, int size, const void* tab,
+                                 const void* my_la, const void* my_ph, const void* h,
+                                 void* e_re, void* e_im, void* stream) {
+  const size_t smem = sizeof(int32_t) * static_cast<size_t>(n_spec);
+  const int grid = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  rank_ratio_rowsum_kernel<<<grid, kRrThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(s), n_rows, static_cast<const int64_t*>(xy), n_cols,
+      static_cast<const int32_t*>(spec), n_spec, n_shells, lo_bits, qmask, size,
+      static_cast<const float2*>(tab), static_cast<const float*>(my_la),
+      static_cast<const float*>(my_ph), static_cast<const float*>(h),
+      static_cast<float*>(e_re), static_cast<float*>(e_im));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* rank_gather_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -7,11 +7,12 @@ sampled set (psi = 0 for unsampled states, the truncated estimator). Per
 chunk of C sampled states:
 
   * the diagonal, sum_k coeff_k (-1)^popcount(s & yz_k), in f64;
-  * psi of the C x Kxy coupled states through the fused rank+gather kernel
-    (ops/dyn_gather.py::rank_gather2);
-  * the H row as parity(s & yz) @ A, a (C, Kyz) x (Kyz, Kxy) fp32 matmul
+  * the H row h as parity(s & yz) @ A, a (C, Kyz) x (Kyz, Kxy) fp32 matmul
     with TF32 off (TF32 costs ~1e-3 Ha), or a per-term segment sum when a
-    dense A would be too large.
+    dense A would be too large;
+  * sum_k h psi(s ^ xy_k)/psi(s) through the fused rank + gather + ratio +
+    row-sum kernel (ops/dyn_gather.py::rank_ratio_rowsum), which reads psi
+    from the packed (size+1, 2) value table and writes only (C,) sums.
 
 The sort-based lookup for spaces without a RankSpec (over 32 qubits) and the
 dense/factored grid engines are not ported yet.
@@ -27,8 +28,8 @@ import numpy as np
 import torch
 
 from naqs_tpu_torch.hamiltonian import PauliTerms
-from naqs_tpu_torch.ops.dyn_gather import rank_gather2
-from naqs_tpu_torch.ops.rank import _MISS_THRESHOLD, RankSpec, build_value_table
+from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_ratio_rowsum
+from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
 from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
 from naqs_tpu_torch.utils.device import resolve_device
 
@@ -121,21 +122,12 @@ def _offdiag_h(dt: DeviceTerms, s: torch.Tensor) -> torch.Tensor:
     return out.index_add_(1, dt.gxy, contrib)
 
 
-def _local_energy_chunk(dt, s, tables, my_log_amp, my_phase):
+def _local_energy_chunk(dt, s, table, my_log_amp, my_phase):
     e_diag = diagonal_energy(dt, s)
-    g_la, g_ph = rank_gather2(dt.rank_spec, s, dt.xy_unique, *tables)
-    found = g_la > _MISS_THRESHOLD
-    # clip the log-ratio: psi'/psi beyond e^30 only occurs for states with
-    # negligible sampling weight, and unclipped it overflows f32
-    dlog = torch.clamp(g_la - my_log_amp[:, None], -30.0, 30.0)
-    dph = g_ph - my_phase[:, None]
-    mag = torch.where(found, torch.exp(dlog), 0.0)
-    r_re = mag * torch.cos(dph)
-    r_im = mag * torch.sin(dph)
     h = _offdiag_h(dt, s)
-    e_re = torch.sum(h * r_re, dim=-1).to(torch.float64)
-    e_im = torch.sum(h * r_im, dim=-1).to(torch.float64)
-    return e_diag + e_re, e_im
+    e_re, e_im = rank_ratio_rowsum(dt.rank_spec, s, dt.xy_unique, table,
+                                   my_log_amp, my_phase, h)
+    return e_diag + e_re.to(torch.float64), e_im.to(torch.float64)
 
 
 def _chunks(dt, u, chunk_rows):
@@ -173,7 +165,7 @@ def local_energy(
     q_states, q_la, q_ph = (states, log_amp, phase) if queries is None else queries
     u = q_states.shape[0]
     c = _chunks(dt, u, chunk_rows)
-    tables = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
+    table = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
     e_re, e_im = [], []
     for i in range(0, u, c):
         s = q_states[i:i + c]
@@ -185,7 +177,7 @@ def local_energy(
             s = torch.cat([s, s.new_full((pad,), SENTINEL)])
             la = torch.cat([la, la.new_zeros(pad)])
             ph = torch.cat([ph, ph.new_zeros(pad)])
-        r, im = _local_energy_chunk(dt, s, tables, la, ph)
+        r, im = _local_energy_chunk(dt, s, table, la, ph)
         e_re.append(r[:n])
         e_im.append(im[:n])
     return torch.cat(e_re), torch.cat(e_im)
@@ -213,8 +205,8 @@ def quadratic_energy(
     ref = torch.max(torch.where(live, log_amp, -torch.inf))
     la = torch.where(live, log_amp - ref, -200.0).to(torch.float32)
     ph = phase.to(torch.float32)
-    tables = build_value_table(dt.rank_spec, states, la, ph, n_valid,
-                               miss_log_amp=-200.0)
+    table = build_value_table(dt.rank_spec, states, la, ph, n_valid,
+                              miss_log_amp=-200.0)
     c = _chunks(dt, u, chunk_rows)
     num = torch.zeros((), dtype=torch.float64, device=states.device)
     den = torch.zeros((), dtype=torch.float64, device=states.device)
@@ -223,7 +215,7 @@ def quadratic_energy(
                                     ph[i:i + c], live[i:i + c])
         w_m = torch.where(my_live, torch.exp(2.0 * my_la.to(torch.float64)), 0.0)
         num += torch.sum(w_m * diagonal_energy(dt, s))
-        g_la, g_ph = rank_gather2(dt.rank_spec, s, dt.xy_unique, *tables)
+        g_la, g_ph = rank_gather2(dt.rank_spec, s, dt.xy_unique, table)
         amp = torch.where(my_live[:, None], torch.exp(g_la + my_la[:, None]), 0.0)
         r_re = amp * torch.cos(g_ph - my_ph[:, None])
         num_off = torch.sum(_offdiag_h(dt, s) * r_re, dim=-1)

@@ -21,7 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-# dense (|basis|+1,) f32 value tables, two channels: 2 * 4 B * 2^26 = 537 MB
+# dense (|basis|+1, 2) f32 value table: 8 B * 2^26 = 537 MB
 RANK_SIZE_MAX = 1 << 26
 
 _MISS = -1.0e30         # log-amp stored in empty / sentinel slots
@@ -149,31 +149,28 @@ def build_value_table(
     phase: torch.Tensor,
     n_valid,
     miss_log_amp: float = _MISS,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scatter sampled (log_amp, phase) into dense rank-indexed tables.
+) -> torch.Tensor:
+    """Scatter sampled (log_amp, phase) into the dense rank-indexed table.
 
-    Returns the channels (la_tab, ph_tab), each (size+1,) f32; empty slots
-    and the sentinel slot hold (miss_log_amp, 0). Rows at or beyond n_valid
-    land on the sentinel slot, which is restored afterwards.
+    Returns (size+1, 2) f32, column 0 log_amp and column 1 phase; empty
+    slots and the sentinel slot hold (miss_log_amp, 0). Rows at or beyond
+    n_valid land on the sentinel slot, which is restored afterwards.
     """
     n = states.shape[0]
     idx = rank_index(spec, states)
     live = torch.arange(n, device=states.device) < n_valid
     idx = torch.where(live, idx, spec.size)
-    la_tab = torch.full((spec.size + 1,), miss_log_amp, dtype=torch.float32,
-                        device=states.device)
-    ph_tab = torch.zeros((spec.size + 1,), dtype=torch.float32,
-                         device=states.device)
-    la_tab[idx] = log_amp.to(torch.float32)
-    ph_tab[idx] = phase.to(torch.float32)
-    la_tab[spec.size] = miss_log_amp
-    ph_tab[spec.size] = 0.0
-    return la_tab, ph_tab
+    table = torch.zeros((spec.size + 1, 2), dtype=torch.float32, device=states.device)
+    table[:, 0] = miss_log_amp
+    table[idx] = torch.stack([log_amp.to(torch.float32), phase.to(torch.float32)], dim=1)
+    table[spec.size, 0] = miss_log_amp
+    table[spec.size, 1] = 0.0
+    return table
 
 
-def lookup(spec: RankSpec, tables, queries: torch.Tensor):
+def lookup(spec: RankSpec, table: torch.Tensor, queries: torch.Tensor):
     """(found, log_amp, phase) of packed query states via direct addressing."""
-    la_tab, ph_tab = tables
-    idx = rank_index(spec, queries)
-    g_la, g_ph = la_tab[idx], ph_tab[idx]
+    g = table[rank_index(spec, queries)]
+    g_la = g[..., 0]
+    g_ph = g[..., 1]
     return g_la > _MISS_THRESHOLD, g_la, g_ph

@@ -4,6 +4,10 @@ Skips without a CUDA card: a CUDA kernel has no CPU mode. Imports nothing
 of JAX, so it runs on a machine that has only the port's dependencies:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
+
+`rank_gather2` must equal its plain version bitwise; `rank_ratio_rowsum`
+per row within `rowsum_tolerance` (2e-5 Ha + 1e-6 * sum_k |h| |r|: fp32
+summation order over K terms and expf/sincosf ulps).
 """
 
 import numpy as np
@@ -11,21 +15,28 @@ import pytest
 import torch
 
 import naqs_tpu_torch as nt
-from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_gather2_ref
+from naqs_tpu_torch.ops.dyn_gather import (rank_gather2, rank_gather2_ref, rank_ratio_rowsum,
+                                           rank_ratio_rowsum_ref, rowsum_tolerance)
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
 
 pytestmark = pytest.mark.cuda
 
-
-@pytest.mark.parametrize("sectors,n_qubits,n_rows,n_cols", [
+SHAPES = [
     (((5, 5),), 14, 400, 256),
     (((5, 3), (4, 4), (3, 5)), 14, 77, 1000),   # ragged shapes, three sectors
     (((5, 5),), 26, 512, 4608),                 # H2O 6-31G table, main-path chunk
-])
-def test_rank_gather2_kernel_matches_plain(sectors, n_qubits, n_rows, n_cols):
+]
+
+
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    dev = torch.device("cuda")
+    return torch.device("cuda")
+
+
+def _inputs(sectors, n_qubits, n_rows, n_cols, dev, hits=False):
+    """(spec, table, s, xy, my_la, my_ph) on the card. With hits=True half of
+    the flip masks join two table states, so many coupled states are found."""
     h = nt.Hilbert(n_qubits=n_qubits, sectors=sectors)
     spec = RankSpec.for_hilbert(h)
     rng = np.random.default_rng(0)
@@ -34,28 +45,80 @@ def test_rank_gather2_kernel_matches_plain(sectors, n_qubits, n_rows, n_cols):
     la = -rng.uniform(0, 3, size=len(states)).astype(np.float32)
     ph = rng.uniform(-np.pi, np.pi, size=len(states)).astype(np.float32)
     t = lambda a: torch.as_tensor(a, device=dev)
-    tabs = build_value_table(spec, t(states), t(la), t(ph), len(states))
-    s = t(states[:n_rows])
-    xy = t(rng.integers(0, 2 ** n_qubits, size=n_cols).astype(np.int64))
+    table = build_value_table(spec, t(states), t(la), t(ph), len(states))
+    xy = rng.integers(0, 2 ** n_qubits, size=n_cols).astype(np.int64)
+    if hits:
+        pick = lambda: rng.integers(0, min(n_rows, len(states)), size=n_cols // 2)
+        xy[: n_cols // 2] = states[pick()] ^ states[pick()]
+    return (spec, table, t(states[:n_rows]), t(xy), t(la[:n_rows]), t(ph[:n_rows]))
+
+
+@pytest.mark.parametrize("sectors,n_qubits,n_rows,n_cols", SHAPES)
+def test_rank_gather2_kernel_matches_plain(sectors, n_qubits, n_rows, n_cols):
+    dev = _card()
+    spec, table, s, xy, _, _ = _inputs(sectors, n_qubits, n_rows, n_cols, dev)
     before = rank_gather2.launches
-    got = rank_gather2(spec, s, xy, *tabs)
+    got = rank_gather2(spec, s, xy, table)
     torch.cuda.synchronize()
     assert rank_gather2.launches == before + 1
-    want = rank_gather2_ref(spec, s, xy, *tabs)
+    want = rank_gather2_ref(spec, s, xy, table)
     for g, w in zip(got, want):
         assert g.shape == (n_rows, n_cols) and torch.equal(g, w)
 
 
+@pytest.mark.parametrize("sectors,n_qubits,n_rows,n_cols", SHAPES + [
+    (((9, 7),), 20, 301, 777),                  # open shell; C, K off every tile
+])
+def test_rank_ratio_rowsum_kernel_matches_plain(sectors, n_qubits, n_rows, n_cols):
+    dev = _card()
+    spec, table, s, xy, my_la, my_ph = _inputs(sectors, n_qubits, n_rows, n_cols, dev,
+                                               hits=True)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    h = (0.1 * torch.randn((s.shape[0], n_cols), generator=gen)).to(dev)
+    before = rank_ratio_rowsum.launches
+    got = rank_ratio_rowsum(spec, s, xy, table, my_la, my_ph, h)
+    torch.cuda.synchronize()
+    assert rank_ratio_rowsum.launches == before + 1
+    want = rank_ratio_rowsum_ref(spec, s, xy, table, my_la, my_ph, h)
+    tol = rowsum_tolerance(rank_gather2_ref(spec, s, xy, table)[0], my_la, h)
+    for g, w in zip(got, want):
+        assert g.shape == (s.shape[0],) and bool(torch.isfinite(g).all())
+        assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+    assert float(want[0].abs().max()) > 1e-3  # hits: the sums are not all 0
+    again = rank_ratio_rowsum(spec, s, xy, table, my_la, my_ph, h)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))  # no atomics
+
+
 def test_rank_gather2_rejects_bad_inputs():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    dev = torch.device("cuda")
+    dev = _card()
     spec = RankSpec.for_hilbert(nt.Hilbert(n_qubits=14, sectors=((5, 5),)))
-    tab = torch.zeros(spec.size + 1, device=dev)
+    table = torch.zeros((spec.size + 1, 2), device=dev)
     s = torch.zeros(4, dtype=torch.int64, device=dev)
-    with pytest.raises(ValueError):
-        rank_gather2(spec, s.int(), s, tab, tab)
-    with pytest.raises(ValueError):
-        rank_gather2(spec, s, s, tab[:-1], tab[:-1])
-    with pytest.raises(ValueError):
-        rank_gather2(spec, s, s.cpu(), tab, tab)
+    for bad in (lambda: rank_gather2(spec, s.int(), s, table),
+                lambda: rank_gather2(spec, s, s, table[:-1]),
+                lambda: rank_gather2(spec, s, s, torch.zeros((spec.size + 1, 4),
+                                                             device=dev)[:, :2]),
+                lambda: rank_gather2(spec, s, s, torch.zeros(2 * spec.size + 3,
+                                                             device=dev)[1:].view(-1, 2)),
+                lambda: rank_gather2(spec, s, s.cpu(), table)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def test_rank_ratio_rowsum_rejects_bad_inputs():
+    dev = _card()
+    spec = RankSpec.for_hilbert(nt.Hilbert(n_qubits=14, sectors=((5, 5),)))
+    table = torch.zeros((spec.size + 1, 2), device=dev)
+    s = torch.zeros(4, dtype=torch.int64, device=dev)
+    v = torch.zeros(4, device=dev)
+    h = torch.zeros((4, 4), device=dev)
+    strided = torch.zeros((spec.size + 1, 4), device=dev)[:, :2]
+    for bad in (lambda: rank_ratio_rowsum(spec, s, s, strided, v, v, h),
+                lambda: rank_ratio_rowsum(spec, s, s, table, v, v, h[:, :3]),
+                lambda: rank_ratio_rowsum(spec, s, s, table, v, v, h.double()),
+                lambda: rank_ratio_rowsum(spec, s, s, table, v, v,
+                                          torch.zeros((4, 8), device=dev)[:, ::2]),
+                lambda: rank_ratio_rowsum(spec, s, s, table, v, v.cpu(), h),
+                lambda: rank_ratio_rowsum(spec, s, s, table, v, v, h.cpu())):
+        with pytest.raises(ValueError):
+            bad()

@@ -2,6 +2,8 @@
 
 Integers and gathered floats must agree bitwise. The JAX gather is the
 Pallas kernel `table_gather2` run in interpret mode, fed JAX's rank_index.
+The CUDA kernels' rank arithmetic (spin-word compaction and the two-lookup
+colex tables of `dyn_gather.spec_table`) is replayed here in numpy.
 """
 
 import jax.numpy as jnp
@@ -14,7 +16,7 @@ import naqs_tpu_torch as nt
 from naqs_tpu.ops import rank as rank_j
 from naqs_tpu.ops.dyn_gather import pad_tables, table_gather2
 from naqs_tpu_torch.ops import rank as rank_t
-from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_gather2_ref
+from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_gather2_ref, spec_table
 from naqs_tpu_torch.utils.bits import SENTINEL
 from test_torch_support import case, to_u64
 
@@ -89,11 +91,11 @@ def test_build_value_table_matches_jax():
         tab_j = np.asarray(rank_j.build_value_table(
             sj, jnp.asarray(to_u64(s_pad)), jnp.asarray(la_p), jnp.asarray(ph_p),
             jnp.int32(120), miss_log_amp=miss))
-        la_t, ph_t = rank_t.build_value_table(
+        tab_t = rank_t.build_value_table(
             st, torch.as_tensor(s_pad), torch.as_tensor(la_p), torch.as_tensor(ph_p),
             120, miss_log_amp=miss)
-        np.testing.assert_array_equal(la_t.numpy(), tab_j[:, 0])
-        np.testing.assert_array_equal(ph_t.numpy(), tab_j[:, 1])
+        assert tab_t.shape == (st.size + 1, 2) and tab_t.is_contiguous()
+        np.testing.assert_array_equal(tab_t.numpy(), tab_j)
 
 
 def test_rank_gather2_ref_matches_pallas_interpret():
@@ -105,8 +107,8 @@ def test_rank_gather2_ref_matches_pallas_interpret():
     states, la, ph = _table_inputs(c, 200, 3)
     tab_j = rank_j.build_value_table(sj, jnp.asarray(to_u64(states)), jnp.asarray(la),
                                      jnp.asarray(ph), jnp.int32(200))
-    la_t, ph_t = rank_t.build_value_table(st, torch.as_tensor(states), torch.as_tensor(la),
-                                          torch.as_tensor(ph), 200)
+    tab_t = rank_t.build_value_table(st, torch.as_tensor(states), torch.as_tensor(la),
+                                     torch.as_tensor(ph), 200)
     s = states[::5]                              # (40,) chunk rows
     xy = c.terms_t.xy_unique                     # (Kxy,) real flip masks
     idx_j = rank_j.rank_index(sj, jnp.asarray(to_u64(s))[:, None]
@@ -115,8 +117,8 @@ def test_rank_gather2_ref_matches_pallas_interpret():
     g_la_j, g_ph_j = table_gather2(la_pad, ph_pad, idx_j, tile_w=128, block_rows=8,
                                    interpret=True)
     before = rank_gather2.launches
-    g_la_t, g_ph_t = rank_gather2_ref(st, torch.as_tensor(s), torch.as_tensor(xy), la_t, ph_t)
-    g2_la, g2_ph = rank_gather2(st, torch.as_tensor(s), torch.as_tensor(xy), la_t, ph_t)
+    g_la_t, g_ph_t = rank_gather2_ref(st, torch.as_tensor(s), torch.as_tensor(xy), tab_t)
+    g2_la, g2_ph = rank_gather2(st, torch.as_tensor(s), torch.as_tensor(xy), tab_t)
     assert rank_gather2.launches == before  # CPU tensors take the plain version
     np.testing.assert_array_equal(g_la_t.numpy(), np.asarray(g_la_j))
     np.testing.assert_array_equal(g_ph_t.numpy(), np.asarray(g_ph_j))
@@ -133,12 +135,61 @@ def test_lookup_matches_jax():
     states, la, ph = _table_inputs(c, 150, 4)
     tab_j = rank_j.build_value_table(sj, jnp.asarray(to_u64(states)), jnp.asarray(la),
                                      jnp.asarray(ph), jnp.int32(150))
-    tabs = rank_t.build_value_table(st, torch.as_tensor(states), torch.as_tensor(la),
-                                    torch.as_tensor(ph), 150)
+    tab_t = rank_t.build_value_table(st, torch.as_tensor(states), torch.as_tensor(la),
+                                     torch.as_tensor(ph), 150)
     q = c.h_t.basis
     fj, laj, phj = rank_j.lookup(sj, tab_j, jnp.asarray(to_u64(q)))
-    ft, lat, pht = rank_t.lookup(st, tabs, torch.as_tensor(q))
+    ft, lat, pht = rank_t.lookup(st, tab_t, torch.as_tensor(q))
     np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
     np.testing.assert_array_equal(lat.numpy(), np.asarray(laj))
     np.testing.assert_array_equal(pht.numpy(), np.asarray(phj))
     assert ft.sum().item() == 150
+
+
+def _even_bits(x):
+    """csrc/rank_gather.cu::even_bits on uint32 values held in int64."""
+    x = x & 0x55555555
+    for shift, mask in ((1, 0x33333333), (2, 0x0F0F0F0F), (4, 0x00FF00FF),
+                        (8, 0x0000FFFF)):
+        x = (x | (x >> shift)) & mask
+    return x
+
+
+def _popc(x):
+    return sum((x >> j) & 1 for j in range(16))
+
+
+def _kernel_rank(st, states):
+    """csrc/rank_gather.cu::rank_of, replayed in numpy on int64 states."""
+    flat, lo_bits, qmask = spec_table(st)
+    flat = flat.astype(np.int64)
+    n = st.n_shells
+    sect = flat[:4 * (n + 1)].reshape(n + 1, 4)
+    lo = flat[4 * (n + 1):4 * (n + 1) + (1 << lo_bits)]
+    hi = flat[4 * (n + 1) + (1 << lo_bits):]
+    lo_mask = (1 << lo_bits) - 1
+
+    def colex(w):
+        low = w & lo_mask
+        return lo[low] + hi[(w >> lo_bits) * (lo_bits + 1) + _popc(low)]
+
+    x = np.asarray(states, np.int64) & 0xFFFFFFFF & qmask
+    a, b = _even_bits(x), _even_bits(x >> 1)
+    rec = sect[_popc(a)]
+    ok = rec[:, 2] == _popc(b)
+    return np.where(ok, rec[:, 0] + colex(a) * rec[:, 1] + colex(b), st.size)
+
+
+@pytest.mark.parametrize("sectors,n_qubits", SPACES)
+def test_kernel_rank_tables_match_rank_index(sectors, n_qubits):
+    """The kernels' compacted-word, two-lookup rank equals rank_index on the
+    whole basis, on random (mostly invalid) states and on SENTINEL."""
+    _, ht, _, st = _specs(sectors, n_qubits)
+    rng = np.random.default_rng(5)
+    x = np.concatenate([ht.basis, rng.integers(0, 2 ** n_qubits, size=3000),
+                        rng.integers(0, 2 ** 62, size=500), [SENTINEL]]).astype(np.int64)
+    np.testing.assert_array_equal(_kernel_rank(st, x), rank_t.np_rank_index(st, x))
+    flat, lo_bits, qmask = spec_table(st)
+    assert flat.dtype == np.int32 and qmask == (1 << n_qubits) - 1
+    n, n_hi = st.n_shells, st.n_shells - lo_bits
+    assert flat.size == 4 * (n + 1) + (1 << lo_bits) + (1 << n_hi) * (lo_bits + 1)

@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py            # one card; the whole check
     python3 chip_smoke.py --profile  # also one torch.profiler-traced step
+    python3 chip_smoke.py --before DIR  # also time the two-channel
+                                        # rank_gather2 of the port's first
+                                        # slice, unpacked at DIR
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. build every CUDA kernel of the main path with nvcc (one nvcc per source,
@@ -18,12 +21,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      expf/sincosf ulps); then time, in turns, REPEATS repeats of LAUNCHES
      launches each (median and min-max of the repeats): rank_gather2, its
      plain version, the library gather tab[idx] on a precomputed idx,
-     rank_ratio_rowsum, its plain version, and the unfused composition
-     (rank_gather2 kernel + eager epilogue). Each is timed held (behind a
-     card sleep that covers the host's enqueue, so the launches run back to
-     back: the card's time, reported as "ms") and unheld (a plain loop,
-     which reads the host's rate where the wrapper is slower than the
-     kernel: "unheld_ms"); see naqs_tpu_torch/utils/cuda_timing.py;
+     rank_ratio_rowsum, its plain version, the unfused composition
+     (rank_gather2 kernel + eager epilogue) and, with --before, the first
+     slice's rank_gather2 (its own source and wrapper, two-channel tables;
+     first held bitwise against this tree's) alone and with the eager
+     epilogue (that slice's composition of rank_ratio_rowsum). Each is timed held (behind a card
+     sleep that covers the host's enqueue, so the launches run back to
+     back: the card's time, reported as "ms"); the fast ones also unheld
+     (a plain loop, which reads the host's rate where the wrapper is slower
+     than the kernel: "unheld_ms"), and the run fails if the hold did not
+     cover their enqueue; see naqs_tpu_torch/utils/cuda_timing.py;
   5. the main path: 5 VMCTrainer.step()s with every launch count set to 0;
      fails unless rank_ratio_rowsum ran 196 times per E_loc call (capacity
      100,000 in chunks of 512) and every energy is finite;
@@ -79,6 +86,28 @@ def _numpy_eloc(terms, states, la, ph, rows):
         ratios = np.array([psi.get(int(x), 0.0) for x in coupled.tolist()]) / psi[s]
         out.append(e + np.sum(terms.coeff * par * ratios.real))
     return np.array(out)
+
+
+def _before_dyn_gather(before):
+    """ops/dyn_gather.py of the port's first slice (two-channel value
+    tables), unpacked at `before`, imported beside this tree's, with its
+    kernel built from its own csrc/rank_gather.cu."""
+    import importlib
+
+    def ours(name):
+        return name.split(".")[0] == "naqs_tpu_torch"
+
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if ours(k)}
+    sys.path.insert(0, before)
+    try:
+        mod = importlib.import_module("naqs_tpu_torch.ops.dyn_gather")
+        mod._lib()  # builds and binds that library while its package is loaded
+    finally:
+        sys.path.remove(before)
+        for k in [k for k in sys.modules if ours(k)]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+    return mod
 
 
 def main(argv) -> int:
@@ -167,6 +196,7 @@ def main(argv) -> int:
     if not ok:
         raise SystemExit("rank_ratio_rowsum disagrees with rank_ratio_rowsum_ref")
 
+    fast = ["rank_gather2", "rank_ratio_rowsum", "tab[idx]"]
     idx = rank_index(spec, s[:, None] ^ xy[None, :])
     fns = {
         "rank_gather2": lambda: rank_gather2(spec, s, xy, table),
@@ -178,18 +208,32 @@ def main(argv) -> int:
         "rank_gather2 + eager epilogue": lambda: ratio_rowsum(
             *rank_gather2(spec, s, xy, table), my_la, my_ph, h),
     }
+    old_name = "two-channel rank_gather2"
+    if "--before" in argv:
+        old = _before_dyn_gather(os.path.abspath(argv[argv.index("--before") + 1]))
+        la_c, ph_c = table[:, 0].contiguous(), table[:, 1].contiguous()
+        same_old = all(torch.equal(g, w) for g, w in
+                       zip(old.rank_gather2(spec, s, xy, la_c, ph_c), want))
+        print(f"[kernel] {old_name} (its own build): bitwise equal to this tree's={same_old}",
+              flush=True)
+        if not same_old:
+            raise SystemExit(f"{old_name} disagrees with rank_gather2_ref")
+        fns[old_name] = lambda: old.rank_gather2(spec, s, xy, la_c, ph_c)
+        fns[f"{old_name} + eager epilogue"] = lambda: ratio_rowsum(
+            *old.rank_gather2(spec, s, xy, la_c, ph_c), my_la, my_ph, h)
+        fast.append(old_name)
     hold = hold_ms()
     times = time_in_turns(fns, REPEATS, LAUNCHES)
-    calls = time_in_turns(fns, REPEATS, LAUNCHES, hold=False)
+    calls = time_in_turns({n: fns[n] for n in fast}, REPEATS, LAUNCHES, hold=False)
     print(f"[time] {REPEATS} repeats of {LAUNCHES} launches, the functions in turns; held: "
           f"behind a {hold:.1f} ms card sleep, so the launches run back to back (the card's "
           f"time); unheld: a plain loop (the host's rate where that is slower)", flush=True)
     for name, (med, spread) in times.items():
+        unheld = (f"; unheld median {calls[name][0]:.4f} ms, spread {calls[name][1][0]:.4f}-"
+                  f"{calls[name][1][1]:.4f} ms" if name in calls else "")
         print(f"[time] {name}: held median {med:.4f} ms, spread {spread[0]:.4f}-{spread[1]:.4f}"
-              f" ms; unheld median {calls[name][0]:.4f} ms, spread {calls[name][1][0]:.4f}-"
-              f"{calls[name][1][1]:.4f} ms", flush=True)
-    slow = [n for n in ("rank_gather2", "rank_ratio_rowsum", "tab[idx]")
-            if calls[n][1][1] * LAUNCHES >= hold]
+              f" ms{unheld}", flush=True)
+    slow = [n for n in fast if calls[n][1][1] * LAUNCHES >= hold]
     if slow:
         raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times invalid")
     n_el, n_rows = idx.numel(), int(torch.unique(idx).numel())
@@ -306,12 +350,16 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [
         entry("rank_gather2", gather_launches, gather_err, "rank_gather2_ref", g_bound,
               "tab[idx]",
-              library_note="tab[idx] on a precomputed idx: skips the rank arithmetic"),
+              library_note="tab[idx] on a precomputed idx: skips the rank arithmetic",
+              **({"before_ms": times[old_name][0], "before_spread": times[old_name][1]}
+                 if old_name in times else {})),
         entry("rank_ratio_rowsum", ratio_launches, rowsum_err, "rank_ratio_rowsum_ref",
               r_bound, None,
               library_note="no single PyTorch call computes the fused gather, ratio and "
                            "row sum",
-              unfused_ms=times[unfused][0], unfused_spread=times[unfused][1]),
+              unfused_ms=times[unfused][0], unfused_spread=times[unfused][1],
+              **({"before_composition_ms": times[f"{old_name} + eager epilogue"][0]}
+                 if old_name in times else {})),
     ]}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,7 @@
 //   (compacted into shared memory), and a warp stores 128 contiguous bytes
 //   per channel and row, with an evict-first hint so the outputs do not push
 //   the table out of L2. The spec tables are staged in shared memory once
-//   per block. (A c-fastest mapping, rank_gather2_cfast_kernel, was slower.)
+//   per block.
 // * rank_ratio_rowsum: a block owns kRowsPerBlock whole rows, so nothing of
 //   size (C, K) reaches device memory and each row's sum has a fixed order
 //   (columns in order per thread, a warp-shuffle tree, then the warps in
@@ -51,42 +51,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// Tile shapes, picked by naqs_tpu_torch/tools/tune_rank_gather.py, which
-// builds the other values with -D (numbers in PERF.md).
-#ifndef RG_TILE_ROWS
-#define RG_TILE_ROWS 4
-#endif
-#ifndef RG_C_FASTEST
-#define RG_C_FASTEST 0
-#endif
-#ifndef RR_ROWS
-#define RR_ROWS 1
-#endif
-#ifndef RR_UNROLL
-#define RR_UNROLL 8
-#endif
-#ifndef RR_THREADS
-#define RR_THREADS 256
-#endif
-// For that script's diagnosis only, wrong results by design: ABLATE=1 drops
-// the table loads (rank_gather2 stores the rank; rank_ratio_rowsum finds
-// nothing), ABLATE=2 replaces rank_ratio_rowsum's expf/sincosf by a
-// subtract, ABLATE=3 drops the rank arithmetic too (every element reads the
-// sentinel row), which leaves the streams of s, xy, h and the outputs.
-#ifndef ABLATE
-#define ABLATE 0
-#endif
-
 namespace {
 
-constexpr int kThreads = 256;           // threads per block of rank_gather2
-constexpr int kTileRows = RG_TILE_ROWS; // rank_gather2 tile: kTileRows x kThreads
-constexpr int kCfRows = 32;             // c-fastest tile: one row per lane ...
-constexpr int kCfCols = 64;             // ... x 64 columns
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerBlock = RR_ROWS;  // rank_ratio_rowsum: rows a block owns,
-constexpr int kUnroll = RR_UNROLL;      // columns in flight per thread,
-constexpr int kRrThreads = RR_THREADS;  // threads per block
+// Tile shapes, chosen by timing variants on the card (PERF.md).
+constexpr int kThreads = 256;    // threads per block of rank_gather2
+constexpr int kTileRows = 4;     // rank_gather2 tile: kTileRows x kThreads
+constexpr int kRowsPerBlock = 1; // rank_ratio_rowsum: rows a block owns,
+constexpr int kUnroll = 8;       // columns in flight per thread,
+constexpr int kRrThreads = 256;  // threads per block
 constexpr int kRrWarps = kRrThreads / 32;
 constexpr float kMiss = -1.0e30f;
 constexpr float kMissThreshold = -1.0e29f;
@@ -154,13 +126,7 @@ __device__ __forceinline__ int rank_of(const Spec& sp, uint32_t w) {
 // 8-byte load
 __device__ __forceinline__ float2 lookup(const Spec& sp, const float2* __restrict__ tab,
                                          uint32_t w) {
-#if ABLATE == 1
-  return make_float2(__int_as_float(rank_of(sp, w)), 0.f);
-#elif ABLATE == 3
-  return __ldg(tab + sp.size);
-#else
   return __ldg(tab + rank_of(sp, w));
-#endif
 }
 
 __global__ void __launch_bounds__(kThreads) rank_gather2_kernel(
@@ -203,56 +169,6 @@ __global__ void __launch_bounds__(kThreads) rank_gather2_kernel(
       }
     }
     __syncthreads();  // row_w is rewritten by the next tile
-  }
-}
-
-// The same function with c fastest in the warp: the 32 lanes take 32 sorted
-// rows of one column, whose coupled states share their high bits, so their
-// table rows lie closer together. Tiles of kCfRows x kCfCols go through
-// shared memory so the stores stay coalesced along k.
-__global__ void __launch_bounds__(kThreads) rank_gather2_cfast_kernel(
-    const int64_t* __restrict__ s, int n_rows, const int64_t* __restrict__ xy,
-    int n_cols, const int32_t* __restrict__ spec, int n_spec, int n_shells,
-    int lo_bits, uint32_t qmask, int size, const float2* __restrict__ tab,
-    float* __restrict__ out_la, float* __restrict__ out_ph, int n_col_tiles,
-    int n_tiles) {
-  extern __shared__ int4 sh_spec[];
-  __shared__ uint32_t col_w[kCfCols];
-  __shared__ float t_la[kCfRows][kCfCols + 1];  // +1: no bank conflicts
-  __shared__ float t_ph[kCfRows][kCfCols + 1];
-  const Spec sp = stage_spec(sh_spec, spec, n_spec, n_shells, lo_bits, size);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int rt = t / n_col_tiles;
-    const int c0 = rt * kCfRows;
-    const int k0 = (t - rt * n_col_tiles) * kCfCols;
-    if (threadIdx.x < kCfCols) {
-      const int k = k0 + threadIdx.x;
-      col_w[threadIdx.x] = k < n_cols ? spin_words(xy[k], qmask) : 0u;
-    }
-    const uint32_t rw = c0 + lane < n_rows ? spin_words(s[c0 + lane], qmask) : 0u;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kCfCols / kWarps; ++j) {
-      const int col = warp + j * kWarps;
-      const float2 v = lookup(sp, tab, rw ^ col_w[col]);
-      t_la[lane][col] = v.x;
-      t_ph[lane][col] = v.y;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kCfRows * kCfCols; i += kThreads) {
-      const int r = i / kCfCols;
-      const int col = i % kCfCols;
-      const int c = c0 + r;
-      const int k = k0 + col;
-      if (c < n_rows && k < n_cols) {
-        const size_t o = static_cast<size_t>(c) * n_cols + k;
-        __stcs(out_la + o, t_la[r][col]);
-        __stcs(out_ph + o, t_ph[r][col]);
-      }
-    }
-    __syncthreads();  // col_w and the tile are rewritten by the next tile
   }
 }
 
@@ -305,25 +221,13 @@ __global__ void __launch_bounds__(kRrThreads) rank_ratio_rowsum_kernel(
     for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
       for (int r = 0; r < kRowsPerBlock; ++r) {
-#if ABLATE == 1
-        if (__float_as_int(v[u][r].x) == -1) {  // never: a rank is >= 0
-#else
         if (v[u][r].x > kMissThreshold) {
-#endif
-#if ABLATE == 2
-          const float mag = v[u][r].x - la0[r];
-          const float sn = v[u][r].y - ph0[r], cs = sn;
-#else
           const float mag = expf(fminf(fmaxf(v[u][r].x - la0[r], -30.f), 30.f));
           float sn, cs;
           sincosf(v[u][r].y - ph0[r], &sn, &cs);
-#endif
           acc_re[r] += hv[u][r] * (mag * cs);
           acc_im[r] += hv[u][r] * (mag * sn);
         }
-#if ABLATE == 1 || ABLATE == 3
-        acc_re[r] += hv[u][r];  // keeps the h loads
-#endif
       }
     }
   }
@@ -353,13 +257,17 @@ __global__ void __launch_bounds__(kRrThreads) rank_ratio_rowsum_kernel(
   }
 }
 
-// blocks the card keeps resident at once for `kernel`
-template <typename Kernel>
-int resident_blocks(Kernel kernel, size_t smem) {
+// rank_gather2 blocks the card keeps resident at once, with the largest spec
+// table (16 shells) in shared memory: asked once per process, as the launch
+// sizes its persistent grid from it (the grid's size changes no result)
+int resident_blocks() {
+  constexpr size_t kMaxSpecBytes =
+      sizeof(int32_t) * (4 * (16 + 1) + (1 << 8) + (1 << 8) * (8 + 1));
   int dev = 0, n_sm = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rank_gather2_kernel, kThreads,
+                                                kMaxSpecBytes);
   return per_sm * n_sm > 0 ? per_sm * n_sm : 1;
 }
 
@@ -370,20 +278,13 @@ extern "C" int rank_gather2(const void* s, int n_rows, const void* xy, int n_col
                             unsigned qmask, int size, const void* tab, void* out_la,
                             void* out_ph, void* stream) {
   const size_t smem = sizeof(int32_t) * static_cast<size_t>(n_spec);
-#if RG_C_FASTEST
-  const auto kernel = rank_gather2_cfast_kernel;
-  const int tile_rows = kCfRows, tile_cols = kCfCols;
-#else
-  const auto kernel = rank_gather2_kernel;
-  const int tile_rows = kTileRows, tile_cols = kThreads;
-#endif
-  const int n_col_tiles = (n_cols + tile_cols - 1) / tile_cols;
-  const int n_tiles = n_col_tiles * ((n_rows + tile_rows - 1) / tile_rows);
+  const int n_col_tiles = (n_cols + kThreads - 1) / kThreads;
+  const int n_tiles = n_col_tiles * ((n_rows + kTileRows - 1) / kTileRows);
   // as many blocks as stay resident, each walking the same number of tiles
-  const int max_blocks = resident_blocks(kernel, smem);
+  static const int max_blocks = resident_blocks();
   const int rounds = (n_tiles + max_blocks - 1) / max_blocks;
   const int grid = (n_tiles + rounds - 1) / rounds;
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  rank_gather2_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(s), n_rows, static_cast<const int64_t*>(xy), n_cols,
       static_cast<const int32_t*>(spec), n_spec, n_shells, lo_bits, qmask, size,
       static_cast<const float2*>(tab), static_cast<float*>(out_la),

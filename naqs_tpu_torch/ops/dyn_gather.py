@@ -113,8 +113,11 @@ def _spec_device(spec: RankSpec, device: torch.device):
     return (t.data_ptr(), flat.size, spec.n_shells, lo_bits, qmask, spec.size), t
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a library built from csrc/rank_gather.cu."""
+@lru_cache(maxsize=1)
+def _lib():
+    from naqs_tpu_torch.ops import _build
+
+    lib = _build.load("rank_gather")
     lib.rank_gather2.argtypes = [_PTR, _INT, _PTR, _INT, *_SPEC_ARGS,
                                  _PTR, _PTR, _PTR, _PTR]
     lib.rank_ratio_rowsum.argtypes = [_PTR, _INT, _PTR, _INT, *_SPEC_ARGS,
@@ -125,19 +128,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-@lru_cache(maxsize=1)
-def _lib():
-    from naqs_tpu_torch.ops import _build
-
-    return bind(_build.load("rank_gather"))
-
-
-def launch(name, spec: RankSpec, s, xy, tensors, lib=None):
-    """Launch kernel `name` ("rank_gather2" or "rank_ratio_rowsum") of `lib`
-    (default: the built csrc/rank_gather.cu) on s's current stream. `tensors`
-    are the pointer arguments after the spec, in the C signature's order.
-    Checks nothing and counts nothing: the public wrappers do both."""
-    lib = lib or _lib()
+def _launch(name, spec: RankSpec, s, xy, tensors):
+    """Launch kernel `name` of csrc/rank_gather.cu on s's current stream.
+    `tensors` are the pointer arguments after the spec, in the C signature's
+    order. Checks nothing and counts nothing: the public wrappers do both."""
+    lib = _lib()
     spec_args, _ = _spec_device(spec, s.device)
     with torch.cuda.device(s.device):
         rc = getattr(lib, name)(
@@ -190,7 +185,7 @@ def rank_gather2(spec: RankSpec, s: torch.Tensor, xy: torch.Tensor,
     out_ph = torch.empty_like(out_la)
     if out_la.numel() == 0:
         return out_la, out_ph
-    launch("rank_gather2", spec, s, xy, (table, out_la, out_ph))
+    _launch("rank_gather2", spec, s, xy, (table, out_la, out_ph))
     rank_gather2.launches += 1
     return out_la, out_ph
 
@@ -207,7 +202,7 @@ def rank_ratio_rowsum(spec: RankSpec, s: torch.Tensor, xy: torch.Tensor,
     e_im = torch.empty_like(e_re)
     if e_re.numel() == 0:
         return e_re, e_im
-    launch("rank_ratio_rowsum", spec, s, xy, (table, my_la, my_ph, h, e_re, e_im))
+    _launch("rank_ratio_rowsum", spec, s, xy, (table, my_la, my_ph, h, e_re, e_im))
     rank_ratio_rowsum.launches += 1
     return e_re, e_im
 

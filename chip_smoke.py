@@ -3,51 +3,76 @@
 
     python3 chip_smoke.py            # one card; the whole check
     python3 chip_smoke.py --profile  # also one torch.profiler-traced step
+                                     # per E_loc engine
     python3 chip_smoke.py --before DIR  # also time the two-channel
                                         # rank_gather2 of the port's first
                                         # slice, unpacked at DIR
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
-  1. build every CUDA kernel of the main path with nvcc (one nvcc per source,
-     started together);
+  1. build every CUDA kernel with nvcc (one nvcc per source, started
+     together): csrc/rank_gather.cu and csrc/grid_engine.cu;
   2. print the card's name and power limit (nvidia-smi);
   3. set up H2O 6-31G (26 qubits, sector (5, 5), 1,656,369 states) and the
      paper-scale model (amp 64, phase 512x512, global phase net, partial
-     masking) with random weights from a seed, capacity 100,000;
-  4. on the real packed value table at the main path's chunk shape (C=512,
-     Kxy=4,608): hold rank_gather2 bitwise against its plain version, and
-     rank_ratio_rowsum with the real h per row within ROWSUM_ATOL +
+     masking) with random weights from a seed, capacity 100,000. The default
+     dispatch must carry a FactorTerms grid program; the rank engine is the
+     same DeviceTerms with dense=None;
+  4. the rank engine's kernels on the real packed value table at its chunk
+     shape (C=512, Kxy=4,608): rank_gather2 bitwise against its plain
+     version, rank_ratio_rowsum with the real h per row within ROWSUM_ATOL +
      ROWSUM_RTOL * sum_k |h| |r| (fp32 summation order over 4,608 terms,
-     expf/sincosf ulps); then time, in turns, REPEATS repeats of LAUNCHES
-     launches each (median and min-max of the repeats): rank_gather2, its
-     plain version, the library gather tab[idx] on a precomputed idx,
-     rank_ratio_rowsum, its plain version, the unfused composition
-     (rank_gather2 kernel + eager epilogue) and, with --before, the first
-     slice's rank_gather2 (its own source and wrapper, two-channel tables;
-     first held bitwise against this tree's) alone and with the eager
-     epilogue (that slice's composition of rank_ratio_rowsum). Each is timed held (behind a card
-     sleep that covers the host's enqueue, so the launches run back to
-     back: the card's time, reported as "ms"); the fast ones also unheld
-     (a plain loop, which reads the host's rate where the wrapper is slower
-     than the kernel: "unheld_ms"), and the run fails if the hold did not
-     cover their enqueue; see naqs_tpu_torch/utils/cuda_timing.py;
-  5. the main path: 5 VMCTrainer.step()s with every launch count set to 0;
-     fails unless rank_ratio_rowsum ran 196 times per E_loc call (capacity
-     100,000 in chunks of 512) and every energy is finite;
-  6. quadratic_energy over the sampled buffer with the counts set to 0,
+     expf/sincosf ulps);
+  5. factored_grid_accumulate on the real sampled grid against its plain
+     version at full size (the padded einsum and the R1t buffer), per cell
+     within GRID_ATOL + GRID_RTOL * sum_k sum_r |fcoeff| |T_k| (fp32 order
+     over up to 4,502 masks, fma against mul + add), and twice bitwise;
+  6. the main path: 5 VMCTrainer.step()s through the default dispatch with
+     every launch count set to 0 just before; fails unless
+     factored_grid_accumulate ran exactly once per E_loc call (one call per
+     vmc_update), no rank kernel ran, and every energy is finite;
+  7. the earlier main path: 2 more steps of the same trainer on the rank
+     engine (dense=None), counts set to 0 just before; fails unless
+     rank_ratio_rowsum ran 196 times per E_loc call (capacity 100,000 in
+     chunks of 512) and no grid kernel ran;
+  8. quadratic_energy over the sampled buffer with the counts set to 0,
      through rank_gather2 and through rank_gather2_ref: within 1e-6
      relative, and rank_gather2 launched;
-  7. on one batch, local_energy through the kernel against the same call
-     through the plain version (per row, the tolerance of phase 4), and a
-     few rows against an independent float64 numpy E_loc (5e-4 Ha: fp32
-     off-diagonal sums).
-Prints a {"kernels": [...]} JSON line (launches from phase 5 for
-rank_ratio_rowsum, from phase 6 for rank_gather2), and last
+  9. on one batch: local_energy through the rank kernel against the same
+     call through its plain version (per row, the tolerance of phase 4);
+     local_energy through FactorTerms against the rank engine per live row
+     within 2e-4 Ha (the grid engines clip the amplitude ratio per row, the
+     rank engine per pair; the JAX package's own bar between its engines);
+     and 8 rows of each against the float64 host oracle local_energy_np
+     (5e-4 Ha: fp32 off-diagonal sums);
+ 10. the dense engine: N2 STO-3G (20 qubits, sector (7, 7), 14,400 states;
+     DenseTerms asserted), a smaller model, capacity 8,192: 3 steps with the
+     counts at 0 before (dense_grid_accumulate once per E_loc call),
+     dense_grid_accumulate against its plain version and twice bitwise, and
+     local_energy against the rank engine and the oracle as in phase 9;
+ 11. times, in turns: REPEATS repeats of LAUNCHES launches each (median and
+     min-max of the repeats) of rank_gather2, its plain version, the library
+     gather tab[idx] on a precomputed idx, rank_ratio_rowsum, its plain
+     version, the unfused composition (rank_gather2 kernel + eager epilogue)
+     and, with --before, the first slice's rank_gather2 (its own source and
+     wrapper, two-channel tables; first held bitwise against this tree's)
+     alone and with the eager epilogue; then SLOW_REPEATS repeats of
+     SLOW_LAUNCHES of both grid kernels, their plain versions and one full
+     local_energy call per engine at capacity 100,000 (factored against
+     rank: printed, not asserted). Each is timed held (behind a card sleep
+     that covers the host's enqueue, so the launches run back to back: the
+     card's time, reported as "ms"); the fast ones also unheld (a plain loop,
+     which reads the host's rate where the wrapper is slower than the
+     kernel: "unheld_ms"), and the run fails if the hold did not cover their
+     enqueue; see naqs_tpu_torch/utils/cuda_timing.py.
+Prints a {"kernels": [...]} JSON line (launches from phase 6 for
+factored_grid_accumulate, 7 for rank_ratio_rowsum, 8 for rank_gather2, 10
+for dense_grid_accumulate), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -59,10 +84,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12   # non-tensor float32 (used for integer ops too)
 ELOC_TOL = 5e-4               # Ha, fp32 off-diagonal vs float64 reference
+ENGINE_TOL = 2e-4             # Ha per live row, grid engine vs rank engine
 QUAD_RTOL = 1e-6              # quadratic_energy, kernel vs plain gather
 REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
+SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and more
 RANK_OPS = 25                 # integer ops per element of the kernels' rank_of
 EPILOGUE_OPS = 11             # per found element: 3 transcendentals + 8 flops
+GRID_SRC = {"source": "naqs_tpu_torch/csrc/grid_engine.cu",
+            "note": "no Pallas counterpart: XLA-lowered in JAX"}
 
 
 def _bound(n_bytes, n_ops):
@@ -70,22 +99,140 @@ def _bound(n_bytes, n_ops):
     return max(b, o), ("bytes" if b >= o else "operations")
 
 
-def _numpy_eloc(terms, states, la, ph, rows):
-    """Independent float64 truncated E_loc by dict lookup, for a few rows."""
+def _oracle_rows(terms, states, la, ph, rows):
+    """float64 host-oracle E_loc (real part) of a few rows of a sorted sample:
+    local_energy_np over those rows and every sampled state they couple to,
+    which is all their truncated sums can see."""
     import numpy as np
 
-    from naqs_tpu_torch.utils.bits import np_parity_pm1 as parity
+    from naqs_tpu_torch.hamiltonian import local_energy_np
 
-    psi = dict(zip(states.tolist(), (np.exp(la + 1j * ph)).tolist()))
-    out = []
-    for r in rows:
-        s = int(states[r])
-        e = float(np.sum(parity(s & terms.diag_yz) * terms.diag_coeff))
-        par = parity(s & terms.yz)
-        coupled = s ^ terms.xy
-        ratios = np.array([psi.get(int(x), 0.0) for x in coupled.tolist()]) / psi[s]
-        out.append(e + np.sum(terms.coeff * par * ratios.real))
-    return np.array(out)
+    coupled = (states[rows][:, None] ^ terms.xy_unique[None, :]).ravel()
+    keep = np.isin(states, coupled)
+    keep[rows] = True
+    sub = np.flatnonzero(keep)
+    psi = np.exp(la[sub] + 1j * ph[sub])
+    return local_energy_np(terms, states[sub], psi)[np.searchsorted(sub, rows)].real
+
+
+def _grid_work(prog):
+    """What a grid program's accumulation must do: (bytes, operations, valid
+    (mask, cell) pairs, multiply-adds of the on-the-fly H). Bytes: every
+    input tensor and the grid read once, the output written once.
+    Operations: per pair with a valid image 2 fused multiply-adds into the
+    sum, plus for the factored program one per rank-1 factor of the mask."""
+    import torch
+
+    idx = prog.pa_idx if hasattr(prog, "pa_idx") else prog.r1_idx
+    sa, sb = prog.sa, prog.sb
+    nb_valid = (prog.row_map % (sb + 1) < sb).sum(dim=1)
+    na_valid = (idx < sa).sum(dim=1)[(prog.row_map[:, 0] // (sb + 1)).long()]
+    pairs = nb_valid * na_valid
+    # e_diag is the readout's, and par_a the plain version's: the kernel
+    # computes that sign from alpha_words and ya_words
+    tensors = [t for name, t in vars(prog).items()
+               if torch.is_tensor(t) and name not in ("e_diag", "par_a")]
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    n_bytes += (sa + 1) * (sb + 1) * 8 + sa * sb * 8
+    if hasattr(prog, "n_fact"):
+        live = prog.n_fact > 0
+        macs = int((pairs * prog.n_fact).sum())
+    else:
+        live = prog.h_dense.flatten(1).abs().amax(dim=1) > 0    # not a pad mask
+        macs = 0
+    n_pairs = int(pairs[live].sum())
+    return n_bytes, 2 * macs + 4 * n_pairs, n_pairs, macs
+
+
+def _check_grid_kernel(name, wrapper, ref, prog, grid):
+    """Hold a grid kernel against its plain version on `grid`; returns its
+    max abs error. Raises SystemExit on disagreement or a run-to-run change."""
+    import torch
+
+    from naqs_tpu_torch.ops.grid_kernels import GRID_ATOL, GRID_RTOL, grid_tolerance
+
+    torch.cuda.reset_peak_memory_stats()
+    got = wrapper(prog, grid)
+    torch.cuda.synchronize()
+    peak_kernel = torch.cuda.max_memory_allocated()
+    again = wrapper(prog, grid)
+    t = time.time()
+    want = ref(prog, grid)
+    torch.cuda.synchronize()
+    t_plain = time.time() - t
+    peak_plain = torch.cuda.max_memory_allocated()
+    tol = grid_tolerance(prog, grid)
+    diff = (got - want).abs()
+    err, worst = float(diff.max()), float((diff / tol).max())
+    ok = bool((diff <= tol).all()) and bool(torch.isfinite(got).all())
+    same = torch.equal(got, again)
+    print(f"[kernel] {name} (Kxy_pad={prog.row_map.shape[0]}, Sb={prog.sb}, Sa={prog.sa}; "
+          f"{int((grid[..., 0] ** 2 + grid[..., 1] ** 2 > 0).sum())} cells of the grid set): "
+          f"max_abs_err={err:.3e} (sums up to {float(want.abs().max()):.3e}), worst cell at "
+          f"{worst:.3f} of its tolerance ({GRID_ATOL} + {GRID_RTOL} * sum_k sum_r |c||T|), "
+          f"within={ok}, twice bitwise equal={same}; plain version {t_plain:.2f} s; peak "
+          f"device memory {peak_kernel / 2**30:.2f} GiB with the kernel, "
+          f"{peak_plain / 2**30:.2f} GiB with the plain version", flush=True)
+    if not (ok and same and float(want.abs().max()) > 0):
+        raise SystemExit(f"{name} disagrees with its plain version or with itself")
+    return err
+
+
+def _engines_agree(label, le, dt, terms, batch, la, ph):
+    """local_energy through dt's grid program against the rank engine
+    (dense=None) per live row, and 8 rows of both against the host oracle."""
+    import numpy as np
+
+    nu = int(batch.n_unique)
+    e_grid = le.local_energy(dt, batch.states, la, ph, batch.n_unique)
+    e_rank = le.local_energy(dataclasses.replace(dt, dense=None), batch.states, la, ph,
+                             batch.n_unique)
+    d_re, d_im = (float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_grid, e_rank))
+    rows = np.sort(np.random.default_rng(0).choice(nu, size=min(8, nu), replace=False))
+    ref = _oracle_rows(terms, batch.states[:nu].cpu().numpy(), la[:nu].double().cpu().numpy(),
+                       ph[:nu].double().cpu().numpy(), rows)
+    err_grid = float(np.abs(e_grid[0][:nu].cpu().numpy()[rows] - ref).max())
+    err_rank = float(np.abs(e_rank[0][:nu].cpu().numpy()[rows] - ref).max())
+    finite = bool(np.all(np.isfinite(e_grid[0][:nu].cpu().numpy())))
+    print(f"[eloc] {label}: {type(dt.dense).__name__} vs rank engine on {nu} live rows: "
+          f"max_abs_diff re {d_re:.3e} im {d_im:.3e} Ha (tol {ENGINE_TOL}); vs float64 "
+          f"local_energy_np on {len(rows)} rows: grid {err_grid:.2e}, rank {err_rank:.2e} "
+          f"(tol {ELOC_TOL})", flush=True)
+    if not (max(d_re, d_im) <= ENGINE_TOL and max(err_grid, err_rank) < ELOC_TOL and finite):
+        raise SystemExit(f"{label}: the engines disagree with each other or with the oracle")
+    return e_rank
+
+
+def _steps(tr, n, label):
+    """n training steps, timed; returns (vmc_update calls, step times)."""
+    import torch
+
+    from naqs_tpu_torch import trainer as trainer_mod
+
+    calls = [0]
+    update = trainer_mod.vmc_update
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return update(*args, **kw)
+
+    trainer_mod.vmc_update = counted
+    times = []
+    try:
+        for i in range(n):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = tr.step()
+            torch.cuda.synchronize()
+            times.append(time.time() - t)
+            print(f"[step {label} {i + 1}] {times[-1]:.3f} s  n_unique={out['n_unique']} "
+                  f"n_samples={out['n_samples']:.0e} e_loc={out['e_loc']:.6f} "
+                  f"e_loc_var={out['e_loc_var']:.6f}", flush=True)
+            if not (math.isfinite(out["e_loc"]) and math.isfinite(out["e_loc_var"])):
+                raise SystemExit(f"non-finite energy at {label} step {i + 1}: {out}")
+    finally:
+        trainer_mod.vmc_update = update
+    return calls[0], times
 
 
 def _before_dyn_gather(before):
@@ -122,18 +269,29 @@ def main(argv) -> int:
     from naqs_tpu_torch.models.nade import log_psi
     from naqs_tpu_torch.ops import _build
     from naqs_tpu_torch.ops import local_energy as le
+    from naqs_tpu_torch.ops.dense_engine import value_grid
     from naqs_tpu_torch.ops.dyn_gather import (ROWSUM_ATOL, ROWSUM_RTOL, rank_gather2,
                                                rank_gather2_ref, rank_ratio_rowsum,
                                                rank_ratio_rowsum_ref, ratio_rowsum,
                                                rowsum_tolerance)
+    from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate,
+                                                 dense_grid_accumulate_ref,
+                                                 factored_grid_accumulate,
+                                                 factored_grid_accumulate_ref)
     from naqs_tpu_torch.ops.rank import build_value_table, rank_index
     from naqs_tpu_torch.utils.cuda_timing import hold_ms, time_in_turns
 
     dev = torch.device("cuda")
     t0 = time.time()
+    wrappers = (rank_gather2, rank_ratio_rowsum, factored_grid_accumulate,
+                dense_grid_accumulate)
+
+    def zero_counts():
+        for w in wrappers:
+            w.launches = 0
 
     # 1. build
-    for name, out in _build.build_all(["rank_gather"]).items():
+    for name, out in _build.build_all(["rank_gather", "grid_engine"]).items():
         print(f"[build] {name}: nvcc {time.time() - t0:.1f}s\n{out.strip()}", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -150,16 +308,29 @@ def main(argv) -> int:
                         amp_hidden=(64,), phase_hidden=(512, 512))
     tc = nt.TrainConfig(n_samples=1e6, n_unq_samples_min=50_000,
                         n_unq_samples_max=100_000, seed=0)
+    t2 = time.time()
     tr = nt.VMCTrainer(cfg, terms, hil, tc, device=dev)
     dt = tr.dt
+    fn = dt.dense
+    if type(fn).__name__ != "FactorTerms":
+        raise SystemExit(f"H2O 6-31G must carry FactorTerms, got {type(fn).__name__}")
+    dt_rank = dataclasses.replace(dt, dense=None)
     spec = dt.rank_spec
     print(f"[setup] H2O 6-31G: {mol.n_qubits} qubits, |basis|={hil.size}, "
           f"K={len(terms.coeff)} Kxy={len(terms.xy_unique)} (pad {dt.xy_unique.shape[0]}) "
           f"Kyz={len(terms.yz_unique)} Kd={len(terms.diag_yz)}; "
           f"{sum(p.numel() for p in tr.model.parameters())} params; "
-          f"{time.time() - t1:.1f}s", flush=True)
+          f"{time.time() - t1:.1f}s, of which the trainer with its DeviceTerms "
+          f"{time.time() - t2:.1f}s", flush=True)
+    f_bytes, f_ops, f_pairs, f_macs = _grid_work(fn)
+    print(f"[setup] FactorTerms: Sa={fn.sa} Sb={fn.sb} Kxy_pad={fn.row_map.shape[0]} "
+          f"Ka={fn.pa_idx.shape[0]} Kya={fn.par_a.shape[0]} Kyb={fn.par_b.shape[0]}, "
+          f"factors per mask max {int(fn.n_fact.max())} mean "
+          f"{float(fn.n_fact.sum()) / len(terms.xy_unique):.2f}; {f_pairs} valid (mask, cell) "
+          f"pairs of {len(terms.xy_unique) * fn.sa * fn.sb}, {f_macs} multiply-adds for H",
+          flush=True)
 
-    # 4. both kernels against their plain versions on the real table
+    # 4. both rank kernels against their plain versions on the real table
     batch = tr._sample()
     with torch.no_grad():
         la, ph = log_psi(tr.model, batch.states)
@@ -196,6 +367,13 @@ def main(argv) -> int:
     if not ok:
         raise SystemExit("rank_ratio_rowsum disagrees with rank_ratio_rowsum_ref")
 
+    # 5. the factored kernel against its plain version on the real sampled grid
+    grid, _, _ = value_grid(spec, batch.states, la, ph, batch.n_unique, fn.sa, fn.sb)
+    if bool(grid[fn.sa].any()) or bool(grid[:, fn.sb].any()):
+        raise SystemExit("the value grid's pad row or column is not zero")
+    factored_err = _check_grid_kernel("factored_grid_accumulate", factored_grid_accumulate,
+                                      factored_grid_accumulate_ref, fn, grid)
+
     fast = ["rank_gather2", "rank_ratio_rowsum", "tab[idx]"]
     idx = rank_index(spec, s[:, None] ^ xy[None, :])
     fns = {
@@ -222,61 +400,48 @@ def main(argv) -> int:
         fns[f"{old_name} + eager epilogue"] = lambda: ratio_rowsum(
             *old.rank_gather2(spec, s, xy, la_c, ph_c), my_la, my_ph, h)
         fast.append(old_name)
-    hold = hold_ms()
-    times = time_in_turns(fns, REPEATS, LAUNCHES)
-    calls = time_in_turns({n: fns[n] for n in fast}, REPEATS, LAUNCHES, hold=False)
-    print(f"[time] {REPEATS} repeats of {LAUNCHES} launches, the functions in turns; held: "
-          f"behind a {hold:.1f} ms card sleep, so the launches run back to back (the card's "
-          f"time); unheld: a plain loop (the host's rate where that is slower)", flush=True)
-    for name, (med, spread) in times.items():
-        unheld = (f"; unheld median {calls[name][0]:.4f} ms, spread {calls[name][1][0]:.4f}-"
-                  f"{calls[name][1][1]:.4f} ms" if name in calls else "")
-        print(f"[time] {name}: held median {med:.4f} ms, spread {spread[0]:.4f}-{spread[1]:.4f}"
-              f" ms{unheld}", flush=True)
-    slow = [n for n in fast if calls[n][1][1] * LAUNCHES >= hold]
-    if slow:
-        raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times invalid")
     n_el, n_rows = idx.numel(), int(torch.unique(idx).numel())
-    head = s.numel() * 8 + xy.numel() * 8 + n_rows * 8
-    g_bytes = head + 2 * n_el * 4
-    g_bound = _bound(g_bytes, n_el * RANK_OPS)
-    r_bytes = head + h.numel() * 4 + 2 * chunk * 4 + 2 * chunk * 4
-    r_ops = n_el * RANK_OPS + n_found * EPILOGUE_OPS
-    r_bound = _bound(r_bytes, r_ops)
-    print(f"[bound] rank_gather2 {g_bound[0]:.5f} ms ({g_bound[1]}: {g_bytes} B = s, xy, "
-          f"{n_rows} touched table rows x 8 B, outputs 2 x {n_el} x 4 B; "
-          f"{n_el * RANK_OPS} ops)", flush=True)
-    print(f"[bound] rank_ratio_rowsum {r_bound[0]:.5f} ms ({r_bound[1]}: {r_bytes} B = s, xy, "
-          f"{n_rows} touched rows x 8 B, h {h.numel() * 4} B, my_la, my_ph, outputs "
-          f"{2 * chunk * 4} B; {r_ops} ops of which {3 * n_found} transcendentals on the "
-          f"{n_found} found elements, {3 * n_el} if every element counted)", flush=True)
-    del idx, got, want, e_got, e_want, h
+    del got, want, e_got, e_want
 
-    # 5. the main path: 5 training steps through the port's entry points
+    # 6. the main path: 5 training steps through the default dispatch
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    n_updates, t_fact = _steps(tr, 5, "factored")
+    fact_launches = factored_grid_accumulate.launches
+    print(f"[path] default dispatch ({type(tr.dt.dense).__name__}): factored_grid_accumulate "
+          f"launches in 5 steps: {fact_launches} (expected one per local_energy call, "
+          f"{n_updates} vmc_update calls); rank_ratio_rowsum {rank_ratio_rowsum.launches}, "
+          f"rank_gather2 {rank_gather2.launches}, dense_grid_accumulate "
+          f"{dense_grid_accumulate.launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if (fact_launches != n_updates or n_updates < 5 or rank_ratio_rowsum.launches
+            or rank_gather2.launches or dense_grid_accumulate.launches):
+        raise SystemExit("the main path did not run factored_grid_accumulate once per "
+                         "E_loc call, or ran another engine's kernel")
+
+    # 7. the earlier main path: the same trainer on the rank engine
     per_call = -(-tr.capacity // chunk)
-    rank_gather2.launches = rank_ratio_rowsum.launches = 0
-    for i in range(5):
-        torch.cuda.synchronize()
-        t = time.time()
-        out = tr.step()
-        torch.cuda.synchronize()
-        print(f"[step {i + 1}] {time.time() - t:.3f} s  n_unique={out['n_unique']} "
-              f"n_samples={out['n_samples']:.0e} e_loc={out['e_loc']:.6f} "
-              f"e_loc_var={out['e_loc_var']:.6f}", flush=True)
-        if not (math.isfinite(out["e_loc"]) and math.isfinite(out["e_loc_var"])):
-            raise SystemExit(f"non-finite energy at step {i + 1}: {out}")
+    tr.dt = dt_rank
+    zero_counts()
+    n_updates, t_rank = _steps(tr, 2, "rank")
     ratio_launches = rank_ratio_rowsum.launches
-    print(f"[path] rank_ratio_rowsum launches in 5 steps: {ratio_launches} "
-          f"({per_call} per local_energy call, {ratio_launches / per_call:g} calls); "
-          f"rank_gather2: {rank_gather2.launches}", flush=True)
-    if ratio_launches == 0 or ratio_launches % per_call:
-        raise SystemExit("the main path did not run rank_ratio_rowsum once per chunk")
+    print(f"[path] rank engine (dense=None): rank_ratio_rowsum launches in 2 steps: "
+          f"{ratio_launches} ({per_call} per local_energy call, {n_updates} vmc_update calls); "
+          f"rank_gather2: {rank_gather2.launches}; factored_grid_accumulate: "
+          f"{factored_grid_accumulate.launches}", flush=True)
+    if ratio_launches != per_call * n_updates or n_updates < 2 or \
+            factored_grid_accumulate.launches:
+        raise SystemExit("the rank path did not run rank_ratio_rowsum once per chunk")
+    tr.dt = dt
+    print(f"[path] step time, same trainer, same call: factored steps 2-5 "
+          f"{min(t_fact[1:]):.3f}-{max(t_fact[1:]):.3f} s, rank steps 6-7 "
+          f"{min(t_rank):.3f}-{max(t_rank):.3f} s", flush=True)
 
-    # 6. quadratic_energy through rank_gather2 and through its plain version
+    # 8. quadratic_energy through rank_gather2 and through its plain version
     batch = tr._sample()
     with torch.no_grad():
         la, ph = log_psi(tr.model, batch.states)
-    rank_gather2.launches = 0
+    zero_counts()
     q_k = float(le.quadratic_energy(dt, batch.states, la, ph, batch.n_unique))
     gather_launches = rank_gather2.launches
     le.rank_gather2 = rank_gather2_ref
@@ -288,65 +453,157 @@ def main(argv) -> int:
     if not (q_rel <= QUAD_RTOL and gather_launches > 0 and math.isfinite(q_k)):
         raise SystemExit("quadratic_energy through rank_gather2 disagrees or never launched it")
 
-    # 7. local_energy through the kernel vs through the plain version
-    e_k = le.local_energy(dt, batch.states, la, ph, batch.n_unique)
+    # 9. local_energy: rank kernel vs its plain version, grid engine vs rank
+    # engine, both vs the host oracle
+    e_k = _engines_agree("H2O 6-31G", le, dt, terms, batch, la, ph)
     le.rank_ratio_rowsum = rank_ratio_rowsum_ref
-    e_p = le.local_energy(dt, batch.states, la, ph, batch.n_unique)
+    e_p = le.local_energy(dt_rank, batch.states, la, ph, batch.n_unique)
     le.rank_ratio_rowsum = rank_ratio_rowsum
     nu = int(batch.n_unique)
-    table = build_value_table(spec, batch.states, la, ph, batch.n_unique)
+    table2 = build_value_table(spec, batch.states, la, ph, batch.n_unique)
     tol = []
     for i in range(0, nu, chunk):
         sc = batch.states[i:min(i + chunk, nu)]
-        g_la = rank_gather2_ref(spec, sc, xy, table)[0]
+        g_la = rank_gather2_ref(spec, sc, xy, table2)[0]
         tol.append(rowsum_tolerance(g_la, la[i:i + sc.shape[0]].float(), le._offdiag_h(dt, sc)))
     tol = torch.cat(tol).double()
     d_re, d_im = ((a[:nu] - b[:nu]).abs() for a, b in zip(e_k, e_p))
     eq = bool((d_re <= tol).all() and (d_im <= tol).all())
-    print(f"[eloc] kernel vs plain on {nu} rows: within the per-row tolerance={eq}, "
+    print(f"[eloc] rank kernel vs plain on {nu} rows: within the per-row tolerance={eq}, "
           f"max_abs_diff re {float(d_re.max()):.3e} im {float(d_im.max()):.3e} Ha", flush=True)
     if not eq:
         raise SystemExit("local_energy through the kernel differs from the plain version")
-    states_np = batch.states[:nu].cpu().numpy()
-    rows = np.random.default_rng(0).choice(nu, size=min(8, nu), replace=False)
-    ref = _numpy_eloc(terms, states_np, la[:nu].double().cpu().numpy(),
-                      ph[:nu].double().cpu().numpy(), rows)
-    got_rows = e_k[0][:nu].cpu().numpy()[rows]
-    err = float(np.abs(got_rows - ref).max())
-    print(f"[eloc] vs float64 numpy reference on {len(rows)} rows: max_abs_err={err:.2e} "
-          f"(tol {ELOC_TOL})", flush=True)
-    if not (err < ELOC_TOL and np.all(np.isfinite(e_k[0][:nu].cpu().numpy()))):
-        raise SystemExit("local energies disagree with the float64 reference")
+    del table2, tol
+
+    # 10. the dense engine on N2 STO-3G
+    t1 = time.time()
+    mol2 = nt.load_molecule("N2_STO-3G_gen")
+    hil2 = nt.Hilbert.for_molecule(mol2)
+    terms2 = nt.compile_pauli_terms(mol2.qubit_hamiltonian, mol2.n_qubits)
+    cfg2 = nt.NAQSConfig(n_qubits=mol2.n_qubits, sectors=hil2.sectors,
+                         amp_hidden=(64,), phase_hidden=(128, 128))
+    tc2 = nt.TrainConfig(n_samples=1e5, n_unq_samples_min=1000, n_unq_samples_max=8192, seed=0)
+    tr2 = nt.VMCTrainer(cfg2, terms2, hil2, tc2, device=dev)
+    dn = tr2.dt.dense
+    if type(dn).__name__ != "DenseTerms":
+        raise SystemExit(f"N2 STO-3G must carry DenseTerms, got {type(dn).__name__}")
+    d_bytes, d_ops, d_pairs, _ = _grid_work(dn)
+    print(f"[setup] N2 STO-3G: {mol2.n_qubits} qubits, |basis|={hil2.size}, "
+          f"K={len(terms2.coeff)} Kxy={len(terms2.xy_unique)} (pad {dn.row_map.shape[0]}), "
+          f"DenseTerms Sa={dn.sa} Sb={dn.sb} Ka={dn.r1_idx.shape[0]}, h_dense "
+          f"{dn.h_dense.numel() * 4 / 2**20:.1f} MiB, {d_pairs} valid (mask, cell) pairs; "
+          f"{time.time() - t1:.1f}s", flush=True)
+    zero_counts()
+    n_updates, _ = _steps(tr2, 3, "dense")
+    dense_launches = dense_grid_accumulate.launches
+    print(f"[path] N2 default dispatch (DenseTerms): dense_grid_accumulate launches in 3 "
+          f"steps: {dense_launches} ({n_updates} vmc_update calls); others "
+          f"{[w.launches for w in wrappers[:3]]}", flush=True)
+    if dense_launches != n_updates or n_updates < 3 or any(w.launches for w in wrappers[:3]):
+        raise SystemExit("N2 did not run dense_grid_accumulate once per E_loc call")
+    batch2 = tr2._sample()
+    with torch.no_grad():
+        la2, ph2 = log_psi(tr2.model, batch2.states)
+    grid2, _, _ = value_grid(tr2.dt.rank_spec, batch2.states, la2, ph2, batch2.n_unique,
+                             dn.sa, dn.sb)
+    dense_err = _check_grid_kernel("dense_grid_accumulate", dense_grid_accumulate,
+                                   dense_grid_accumulate_ref, dn, grid2)
+    _engines_agree("N2 STO-3G", le, tr2.dt, terms2, batch2, la2, ph2)
+
+    # 11. times, in turns
+    hold = hold_ms()
+    times = time_in_turns(fns, REPEATS, LAUNCHES)
+    calls = time_in_turns({n: fns[n] for n in fast}, REPEATS, LAUNCHES, hold=False)
+    slow_fns = {
+        "factored_grid_accumulate": lambda: factored_grid_accumulate(fn, grid),
+        "factored_grid_accumulate_ref": lambda: factored_grid_accumulate_ref(fn, grid),
+        "dense_grid_accumulate": lambda: dense_grid_accumulate(dn, grid2),
+        "dense_grid_accumulate_ref": lambda: dense_grid_accumulate_ref(dn, grid2),
+        "local_energy (FactorTerms)": lambda: le.local_energy(
+            dt, batch.states, la, ph, batch.n_unique),
+        "local_energy (rank engine)": lambda: le.local_energy(
+            dt_rank, batch.states, la, ph, batch.n_unique),
+    }
+    times.update(time_in_turns(slow_fns, SLOW_REPEATS, SLOW_LAUNCHES))
+    print(f"[time] {REPEATS} repeats of {LAUNCHES} launches ({SLOW_REPEATS} of "
+          f"{SLOW_LAUNCHES} for the grid kernels, their plain versions and local_energy), the "
+          f"functions in turns; held: behind a {hold:.1f} ms card sleep, so the launches run "
+          f"back to back (the card's time); unheld: a plain loop (the host's rate where that "
+          f"is slower)", flush=True)
+    for name, (med, spread) in times.items():
+        unheld = (f"; unheld median {calls[name][0]:.4f} ms, spread {calls[name][1][0]:.4f}-"
+                  f"{calls[name][1][1]:.4f} ms" if name in calls else "")
+        print(f"[time] {name}: held median {med:.4f} ms, spread {spread[0]:.4f}-{spread[1]:.4f}"
+              f" ms{unheld}", flush=True)
+    slow = [n for n in fast if calls[n][1][1] * LAUNCHES >= hold]
+    if slow:
+        raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times invalid")
+    head = s.numel() * 8 + xy.numel() * 8 + n_rows * 8
+    g_bytes = head + 2 * n_el * 4
+    g_bound = _bound(g_bytes, n_el * RANK_OPS)
+    r_bytes = head + h.numel() * 4 + 2 * chunk * 4 + 2 * chunk * 4
+    r_ops = n_el * RANK_OPS + n_found * EPILOGUE_OPS
+    r_bound = _bound(r_bytes, r_ops)
+    f_bound, d_bound = _bound(f_bytes, f_ops), _bound(d_bytes, d_ops)
+    print(f"[bound] rank_gather2 {g_bound[0]:.5f} ms ({g_bound[1]}: {g_bytes} B = s, xy, "
+          f"{n_rows} touched table rows x 8 B, outputs 2 x {n_el} x 4 B; "
+          f"{n_el * RANK_OPS} ops)", flush=True)
+    print(f"[bound] rank_ratio_rowsum {r_bound[0]:.5f} ms ({r_bound[1]}: {r_bytes} B = s, xy, "
+          f"{n_rows} touched rows x 8 B, h {h.numel() * 4} B, my_la, my_ph, outputs "
+          f"{2 * chunk * 4} B; {r_ops} ops of which {3 * n_found} transcendentals on the "
+          f"{n_found} found elements, {3 * n_el} if every element counted)", flush=True)
+    print(f"[bound] factored_grid_accumulate {f_bound[0]:.5f} ms ({f_bound[1]}: {f_ops} "
+          f"float32 operations = 2 x {f_macs} multiply-adds for H + 4 x {f_pairs} valid "
+          f"pairs, {f_ops / H100_FP32_OPS_PER_S * 1e3:.5f} ms; {f_bytes} B = every table, the "
+          f"grid and the output once, {f_bytes / H100_BYTES_PER_S * 1e3:.5f} ms; one 8 B read "
+          f"of T per valid pair from device memory would be "
+          f"{f_pairs * 8 / H100_BYTES_PER_S * 1e3:.3f} ms)", flush=True)
+    print(f"[bound] dense_grid_accumulate {d_bound[0]:.5f} ms ({d_bound[1]}: {d_bytes} B = "
+          f"h_dense, the maps, the grid and the output once; {d_ops} float32 operations on "
+          f"{d_pairs} valid pairs)", flush=True)
 
     if "--profile" in argv:
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        for name, fn in (("sample", tr._sample), ("step", tr.step)):
-            torch.cuda.synchronize()
-            t = time.time()
-            fn()
-            torch.cuda.synchronize()
-            print(f"[profile] {name}: {time.time() - t:.3f} s", flush=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            tr.step()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        print(events.table(sort_by="cuda_time_total", row_limit=25), flush=True)
-        for e in events:
-            if "rank_" in e.key and e.self_device_time_total > 0:
-                print(f"[profile] {e.key}: {e.count} launches, "
-                      f"{e.self_device_time_total / 1e3:.3f} ms device time, "
-                      f"{e.self_device_time_total / e.count:.2f} us each", flush=True)
+        for label, terms_dev in (("factored", dt), ("rank", dt_rank)):
+            tr.dt = terms_dev
+            for name, step in (("sample", tr._sample), ("step", tr.step)):
+                torch.cuda.synchronize()
+                t = time.time()
+                step()
+                torch.cuda.synchronize()
+                print(f"[profile] {label} {name}: {time.time() - t:.3f} s", flush=True)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tr.step()
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            print(f"[profile] one step on the {label} path", flush=True)
+            print(events.table(sort_by="cuda_time_total", row_limit=25), flush=True)
+            total = sum(e.self_device_time_total for e in events
+                        if e.device_type == DeviceType.CUDA)
+            print(f"[profile] {label}: {total / 1e3:.1f} ms device time in the step", flush=True)
+            for e in events:
+                if ("rank_" in e.key or "grid_accumulate" in e.key) \
+                        and e.self_device_time_total > 0:
+                    print(f"[profile] {label} {e.key}: {e.count} launches, "
+                          f"{e.self_device_time_total / 1e3:.3f} ms device time, "
+                          f"{e.self_device_time_total / e.count:.2f} us each", flush=True)
+        tr.dt = dt
 
-    def entry(name, launches, err, t_plain, bound, t_library, **more):
-        return {"name": name, "route": "cuda", "source": "naqs_tpu_torch/csrc/rank_gather.cu",
-                "replaces": "naqs_tpu/ops/dyn_gather.py:83", "launches": launches,
-                "max_abs_err": err, "ms": times[name][0], "spread": times[name][1],
-                "unheld_ms": calls[name][0], "plain_ms": times[t_plain][0],
+    def entry(name, launches, err, t_plain, bound, t_library,
+              source="naqs_tpu_torch/csrc/rank_gather.cu",
+              replaces="naqs_tpu/ops/dyn_gather.py:83", **more):
+        fast_keys = {"unheld_ms": calls[name][0]} if name in calls else {}
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": times[name][0],
+                "spread": times[name][1], **fast_keys, "plain_ms": times[t_plain][0],
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": times[t_library][0] if t_library else None, **more}
 
     unfused = "rank_gather2 + eager epilogue"
+    no_call = "no single PyTorch call computes the gather by two static maps fused with " \
+              "the sum over masks"
     print(json.dumps({"kernels": [
         entry("rank_gather2", gather_launches, gather_err, "rank_gather2_ref", g_bound,
               "tab[idx]",
@@ -360,6 +617,12 @@ def main(argv) -> int:
               unfused_ms=times[unfused][0], unfused_spread=times[unfused][1],
               **({"before_composition_ms": times[f"{old_name} + eager epilogue"][0]}
                  if old_name in times else {})),
+        entry("factored_grid_accumulate", fact_launches, factored_err,
+              "factored_grid_accumulate_ref", f_bound, None,
+              replaces="naqs_tpu/ops/dense_engine.py:507", library_note=no_call, **GRID_SRC),
+        entry("dense_grid_accumulate", dense_launches, dense_err, "dense_grid_accumulate_ref",
+              d_bound, None, replaces="naqs_tpu/ops/dense_engine.py:279",
+              library_note=no_call, **GRID_SRC),
     ]}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 A port of `naqs_tpu` (JAX) that mirrors its module layout. It imports
 neither JAX nor `naqs_tpu`. Entry points run on the CUDA card unless the
-caller passes `device="cpu"`. The rank engine's psi lookup is a
-hand-written CUDA kernel (`csrc/rank_gather.cu`), built with nvcc on first
-use.
+caller passes `device="cpu"`. Its kernels are hand-written CUDA
+(`csrc/rank_gather.cu`: the rank engine's psi lookup; `csrc/grid_engine.cu`:
+the grid engines' accumulation), built with nvcc on first use.
 """
 
 __version__ = "0.1.0"

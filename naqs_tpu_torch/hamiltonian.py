@@ -9,7 +9,8 @@ gives exactly one coupled state |s ^ xy_k> with matrix element
 where xy_k has bits at X/Y sites (the flip mask), yz_k has bits at Y/Z sites
 (the sign mask), and c_k = (i^{n_Y} * coeff), real for Hermitian
 Hamiltonians with real orbitals. Masks are int64 (see utils/bits.py).
-Mirrors `naqs_tpu/hamiltonian.py::compile_pauli_terms` term for term.
+Mirrors `naqs_tpu/hamiltonian.py::compile_pauli_terms` term for term, and
+keeps its numpy host oracles `diagonal_energy_np` and `local_energy_np`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from naqs_tpu_torch.utils.bits import np_parity_pm1
 
 PauliTermDict = Dict[Tuple[Tuple[int, str], ...], complex]
 
@@ -139,3 +142,37 @@ def compile_pauli_terms(
         yz_unique=yz_unique.astype(np.int64),
         gyz=gyz.astype(np.int32),
     )
+
+
+# --------------------------------------------------------------- host oracle
+
+def diagonal_energy_np(terms: PauliTerms, states: np.ndarray) -> np.ndarray:
+    """<s|H|s> for packed states (float64)."""
+    states = np.asarray(states, dtype=np.int64)
+    par = np_parity_pm1(states[:, None] & terms.diag_yz[None, :]).astype(np.float64)
+    return par @ terms.diag_coeff
+
+
+def local_energy_np(terms: PauliTerms, states: np.ndarray, psi: np.ndarray) -> np.ndarray:
+    """Host-oracle local energy E_loc(s) = sum_s' H_{s s'} psi(s') / psi(s),
+    complex128, independent of every device engine.
+
+    `states` must be sorted ascending, psi aligned. States outside the sample
+    contribute zero (the truncated estimator), and a row with psi == 0 has
+    ratio 0 by definition.
+    """
+    states = np.asarray(states, dtype=np.int64)
+    e = diagonal_energy_np(terms, states).astype(np.complex128)
+    denom = np.where(psi == 0, 1.0, psi)
+    for j, xy in enumerate(terms.xy_unique):
+        sel = terms.gxy == j
+        coupled = states ^ xy
+        pos = np.minimum(np.searchsorted(states, coupled), len(states) - 1)
+        found = (states[pos] == coupled) & (psi != 0)
+        if not found.any():
+            continue
+        h = np.zeros(len(states), dtype=np.float64)
+        for yz, c in zip(terms.yz[sel], terms.coeff[sel]):
+            h += c * np_parity_pm1(states & yz)
+        e += h * np.where(found, psi[pos] / denom, 0.0)
+    return e

@@ -1,0 +1,197 @@
+"""The grid E_loc engines' accumulation: sum_k H_k * T_k over the sector grid.
+
+For a grid program `fn` (`ops/dense_engine.py::FactorTerms`) or `dn`
+(`DenseTerms`) and the (Sa+1, Sb+1, 2) f32 value grid of the sampled set
+(psi / max|psi| per cell, zero pad row and column):
+
+* `factored_grid_accumulate(fn, grid)` -> (Sb, Sa, 2) f32,
+  n[rb, ra] = sum_k H_k(rb, ra) T_k(rb, ra) with H_k built on the fly from
+  the mask's rank-1 parity factors and T_k(rb, ra) =
+  grid[pa_idx[ka, ra], pb], row_map[k, rb] = ka (Sb+1) + pb;
+* `dense_grid_accumulate(dn, grid)`: the same with H_k read from
+  `h_dense[k, rb, ra]`.
+
+They stand for the alpha gather, the transpose and the term-chunk scan of
+`naqs_tpu/ops/dense_engine.py::factored_local_energy` / `dense_local_energy`,
+which the JAX package left to XLA. On a CUDA tensor each wrapper launches its
+hand-written kernel in `csrc/grid_engine.cu` (built by nvcc at first use) or
+raises; on a CPU tensor it runs the plain PyTorch version (`*_ref`), which
+keeps the JAX order of steps: materialise R1t = grid[pa_idx] transposed, then
+gather R1t rows by `row_map`, build H (per chunk of masks) and contract. There
+is no fallback from one to the other. `<wrapper>.launches` counts kernel
+launches.
+
+The kernels read T straight from the grid (transposed by the wrapper, so a
+block's reads for one mask fall into one row) and never build R1t. The
+factored kernel does not read `par_a` either: it computes the sign
+(-1)^popcount(alpha_words[ra] & ya_words[fa]) from the program's two word
+tables, which `FactorTerms.build` keeps beside the JAX package's fields.
+Each thread sums its cells' masks in index order with fused multiply-adds
+and builds H factor by factor, where the plain version builds H by a batched
+matrix product, so the two agree per cell within
+GRID_ATOL + GRID_RTOL * sum_k sum_r |fcoeff| |T_k| (`grid_tolerance`), not
+bitwise; the kernels themselves give the same bits in every run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from functools import lru_cache
+
+import torch
+
+# the builds pad the term axis to these multiples, as the JAX package's do;
+# FACT_CHUNK_PAIRS masks also share one batched H build in the plain version
+CHUNK_TERMS = 256
+FACT_CHUNK_PAIRS = 16
+
+GRID_ATOL = 1e-6   # of psi / max|psi| = 1: fp32 sums of up to Kxy terms near 0
+GRID_RTOL = 1e-5   # of sum_k |H_k| |T_k|: fp32 order, fma against mul + add
+
+# full-fp32 products in the plain version: TF32 passes cost ~1e-3 Ha on E_loc
+torch.backends.cuda.matmul.allow_tf32 = False
+
+_INT = ctypes.c_int
+_PTR = ctypes.c_void_p
+
+
+def _r1t(grid, idx, sa):
+    """(Ka * (Sb+1), Sa, 2): the alpha-permuted grid, transposed."""
+    return grid[idx.long()].transpose(1, 2).reshape(-1, sa, 2)
+
+
+def _contract(n, h, r1t, rows):
+    """n += sum_k h[k] * r1t[rows[k]], mask by mask: no (KC, Sb, Sa, 2) copy."""
+    for k in range(rows.shape[0]):
+        n.addcmul_(h[k].unsqueeze(-1), r1t[rows[k]])
+
+
+def factored_grid_accumulate_ref(fn, grid):
+    """Plain PyTorch version: R1t, then per chunk gather / build H / contract."""
+    r1t = _r1t(grid, fn.pa_idx, fn.sa)
+    n = torch.zeros((fn.sb, fn.sa, 2), dtype=torch.float32, device=grid.device)
+    for c in range(0, fn.row_map.shape[0], FACT_CHUNK_PAIRS):
+        sl = slice(c, c + FACT_CHUNK_PAIRS)
+        pa = fn.par_a[fn.fa_idx[sl].long()]                  # (KC, R, Sa)
+        pb = fn.par_b[fn.fb_idx[sl].long()] * fn.fcoeff[sl, :, None]  # (KC, R, Sb)
+        _contract(n, torch.einsum("krb,kra->kba", pb, pa), r1t, fn.row_map[sl].long())
+    return n
+
+
+def dense_grid_accumulate_ref(dn, grid):
+    """Plain PyTorch version: R1t, then the row gather and contraction."""
+    r1t = _r1t(grid, dn.r1_idx, dn.sa)
+    n = torch.zeros((dn.sb, dn.sa, 2), dtype=torch.float32, device=grid.device)
+    _contract(n, dn.h_dense, r1t, dn.row_map.long())
+    return n
+
+
+def grid_tolerance(prog, grid):
+    """Per-cell (Sb, Sa, 2) bound on |kernel - plain version|: the plain version
+    run on absolute values (|fcoeff| with parities of 1, or |h_dense|, and
+    |grid|), which bounds sum_k |H_k| |T_k| from above."""
+    if hasattr(prog, "h_dense"):
+        mag = dense_grid_accumulate_ref(
+            dataclasses.replace(prog, h_dense=prog.h_dense.abs()), grid.abs())
+    else:
+        mag = factored_grid_accumulate_ref(
+            dataclasses.replace(prog, fcoeff=prog.fcoeff.abs(),
+                                par_a=torch.ones_like(prog.par_a),
+                                par_b=torch.ones_like(prog.par_b)), grid.abs())
+    return GRID_ATOL + GRID_RTOL * mag
+
+
+@lru_cache(maxsize=1)
+def _lib():
+    from naqs_tpu_torch.ops import _build
+
+    lib = _build.load("grid_engine")
+    lib.factored_grid_accumulate.argtypes = [_PTR] * 11 + [_INT] * 4 + [_PTR]
+    lib.dense_grid_accumulate.argtypes = [_PTR] * 5 + [_INT] * 3 + [_PTR]
+    lib.factored_grid_accumulate.restype = lib.dense_grid_accumulate.restype = _INT
+    lib.grid_engine_error_string.argtypes = [_INT]
+    lib.grid_engine_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name, grid, sa, sb, want):
+    """Raise on anything the kernels do not take: device, dtype, shape and, on
+    the card, layout and index widths. `want` maps a field's name to (tensor,
+    dtype, shape); the plain versions take strided CPU tensors."""
+    dev = grid.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    want = dict(want, grid=(grid, torch.float32, (sa + 1, sb + 1, 2)))
+    for key, (t, dtype, shape) in want.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {key} on {t.device}, grid on {dev}")
+        dense = t.is_contiguous() or dev.type == "cpu"
+        if t.dtype != dtype or tuple(t.shape) != shape or not dense:
+            raise ValueError(
+                f"{name}: {key} must be a contiguous {dtype} of shape {shape}, got "
+                f"{t.dtype} of shape {tuple(t.shape)}"
+                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+    if max(t.numel() for t, _, _ in want.values()) >= 1 << 31:
+        raise ValueError(f"{name}: every tensor must hold fewer than 2^31 elements")
+
+
+def _launch(name, tensors, ints, grid):
+    """Launch kernel `name` of csrc/grid_engine.cu on grid's current stream, on
+    the transposed grid; returns the (Sb, Sa, 2) sums. Checks and counts
+    nothing: the public wrappers do both."""
+    lib = _lib()
+    sa, sb = ints[-2:]
+    grid_t = grid.transpose(0, 1).contiguous()   # (Sb+1, Sa+1, 2): one row per beta image
+    out = torch.empty((sb, sa, 2), dtype=torch.float32, device=grid.device)
+    with torch.cuda.device(grid.device):
+        rc = getattr(lib, name)(*(t.data_ptr() for t in tensors), grid_t.data_ptr(),
+                                out.data_ptr(), *ints,
+                                torch.cuda.current_stream(grid.device).cuda_stream)
+    if rc != 0:
+        msg = lib.grid_engine_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+    return out
+
+
+def factored_grid_accumulate(fn, grid: torch.Tensor) -> torch.Tensor:
+    """(Sb, Sa, 2) f32 numerator grid of the factored program `fn`."""
+    sa, sb = fn.sa, fn.sb
+    k, r = fn.fcoeff.shape
+    i32, f32 = torch.int32, torch.float32
+    _check("factored_grid_accumulate", grid, sa, sb, {
+        "pa_idx": (fn.pa_idx, i32, (fn.pa_idx.shape[0], sa)),
+        "row_map": (fn.row_map, i32, (k, sb)),
+        "par_a": (fn.par_a, f32, (fn.par_a.shape[0], sa)),
+        "par_b": (fn.par_b, f32, (fn.par_b.shape[0], sb)),
+        "fa_idx": (fn.fa_idx, i32, (k, r)), "fb_idx": (fn.fb_idx, i32, (k, r)),
+        "fcoeff": (fn.fcoeff, f32, (k, r)), "n_fact": (fn.n_fact, i32, (k,)),
+        "alpha_words": (fn.alpha_words, i32, (sa,)),
+        "ya_words": (fn.ya_words, i32, (fn.par_a.shape[0],))})
+    if grid.device.type == "cpu":
+        return factored_grid_accumulate_ref(fn, grid)
+    out = _launch("factored_grid_accumulate",
+                  (fn.pa_idx, fn.row_map, fn.alpha_words, fn.ya_words, fn.par_b, fn.fa_idx,
+                   fn.fb_idx, fn.fcoeff, fn.n_fact), (k, r, sa, sb), grid)
+    factored_grid_accumulate.launches += 1
+    return out
+
+
+def dense_grid_accumulate(dn, grid: torch.Tensor) -> torch.Tensor:
+    """(Sb, Sa, 2) f32 numerator grid of the dense program `dn`."""
+    sa, sb = dn.sa, dn.sb
+    k = dn.row_map.shape[0]
+    _check("dense_grid_accumulate", grid, sa, sb, {
+        "r1_idx": (dn.r1_idx, torch.int32, (dn.r1_idx.shape[0], sa)),
+        "row_map": (dn.row_map, torch.int32, (k, sb)),
+        "h_dense": (dn.h_dense, torch.float32, (k, sb, sa))})
+    if grid.device.type == "cpu":
+        return dense_grid_accumulate_ref(dn, grid)
+    out = _launch("dense_grid_accumulate", (dn.r1_idx, dn.row_map, dn.h_dense),
+                  (k, sa, sb), grid)
+    dense_grid_accumulate.launches += 1
+    return out
+
+
+factored_grid_accumulate.launches = 0
+dense_grid_accumulate.launches = 0

@@ -1,9 +1,18 @@
 """Local-energy engine: E_loc(s) = sum_s' H_{ss'} psi(s')/psi(s).
 
-Port of the rank engine of `naqs_tpu/ops/local_energy.py`. No sparse matrix
-is materialized: coupled states are `s XOR flip_mask`, signs are popcount
-parities, and psi(s') is read from the dense rank-indexed value table of the
-sampled set (psi = 0 for unsampled states, the truncated estimator). Per
+Port of `naqs_tpu/ops/local_energy.py`. No sparse matrix is materialized:
+coupled states are `s XOR flip_mask`, signs are popcount parities, and psi(s')
+is read from the sampled set (psi = 0 for unsampled states, the truncated
+estimator).
+
+`DeviceTerms.from_terms(terms, hilbert=...)` picks the engine as the JAX
+package does: on a single-sector space it builds a grid program
+(`ops/dense_engine.py`: `DenseTerms` if the static H tensor fits, else
+`FactorTerms`), and `local_energy` then computes the numerator for the whole
+sector grid at once; otherwise, and for `quadratic_energy`, the rank engine
+below runs. `dataclasses.replace(dt, dense=None)` forces the rank engine.
+
+The rank engine reads psi(s') from the dense rank-indexed value table. Per
 chunk of C sampled states:
 
   * the diagonal, sum_k coeff_k (-1)^popcount(s & yz_k), in f64;
@@ -15,7 +24,8 @@ chunk of C sampled states:
     from the packed (size+1, 2) value table and writes only (C,) sums.
 
 The sort-based lookup for spaces without a RankSpec (over 32 qubits) and the
-dense/factored grid engines are not ported yet.
+staircase grid engine for n_exc-filtered sectors (`FactorTermsXL`) are not
+ported yet: where only the latter would apply, the rank engine runs.
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ import numpy as np
 import torch
 
 from naqs_tpu_torch.hamiltonian import PauliTerms
+from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, dense_local_energy,
+                                             factored_local_energy)
 from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_ratio_rowsum
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
 from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
@@ -60,7 +72,7 @@ class DeviceTerms:
     coeff: torch.Tensor       # (K,) float32
     a_mat: torch.Tensor | None  # (Kyz, Kxy) f32 dense coupling matrix, or None
     rank_spec: RankSpec | None = None
-    dense: None = None        # grid engines: not ported yet
+    dense: DenseTerms | FactorTerms | None = None  # grid program, or None: rank engine
 
     @staticmethod
     def from_terms(
@@ -87,6 +99,13 @@ class DeviceTerms:
             a = np.zeros((kyz, kxy), dtype=np.float32)
             np.add.at(a, (terms.gyz, terms.gxy), terms.coeff)
             a_mat = torch.as_tensor(a, device=dev)
+        rank_spec = RankSpec.for_hilbert(hilbert) if hilbert is not None else None
+        dense = None
+        if rank_spec is not None:
+            if DenseTerms.supported(terms, hilbert):
+                dense = DenseTerms.build(terms, hilbert, device=dev)
+            elif FactorTerms.supported(terms, hilbert):
+                dense = FactorTerms.build(terms, hilbert, device=dev)
         return DeviceTerms(
             diag_yz=pad(terms.diag_yz, kd, np.int64),
             diag_coeff=pad(terms.diag_coeff, kd, np.float64),
@@ -96,7 +115,8 @@ class DeviceTerms:
             gyz=pad(terms.gyz, k, np.int64),
             coeff=pad(terms.coeff, k, np.float32),
             a_mat=a_mat,
-            rank_spec=RankSpec.for_hilbert(hilbert) if hilbert is not None else None,
+            rank_spec=rank_spec,
+            dense=dense,
         )
 
 
@@ -157,10 +177,17 @@ def local_energy(
     """Local energies (re, im) f64 for a sorted, SENTINEL-padded state buffer.
 
     Rows beyond n_valid produce garbage values; callers mask by weight.
+    Dispatches to the grid engine (ops/dense_engine.py) when the terms carry
+    a grid program; the rank engine below handles everything else.
     `queries=(q_states, q_la, q_ph)` computes E_loc only for those rows,
     while psi(s') is still resolved against the full (states, log_amp,
     phase, n_valid) table.
     """
+    if dt.dense is not None:
+        impl = (factored_local_energy if isinstance(dt.dense, FactorTerms)
+                else dense_local_energy)
+        return impl(dt.dense, dt.rank_spec, states, log_amp, phase, n_valid,
+                    queries=queries)
     _require_rank(dt)
     q_states, q_la, q_ph = (states, log_amp, phase) if queries is None else queries
     u = q_states.shape[0]

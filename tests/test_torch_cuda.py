@@ -7,8 +7,13 @@ of JAX, so it runs on a machine that has only the port's dependencies:
 
 `rank_gather2` must equal its plain version bitwise; `rank_ratio_rowsum`
 per row within `rowsum_tolerance` (2e-5 Ha + 1e-6 * sum_k |h| |r|: fp32
-summation order over K terms and expf/sincosf ulps).
+summation order over K terms and expf/sincosf ulps); the grid kernels
+`factored_grid_accumulate` and `dense_grid_accumulate` per cell within
+`grid_tolerance` (1e-6 + 1e-5 * sum_k sum_r |fcoeff| |T_k|: fp32 order over
+the masks, fma against mul + add), and bitwise equal to themselves run twice.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -17,6 +22,11 @@ import torch
 import naqs_tpu_torch as nt
 from naqs_tpu_torch.ops.dyn_gather import (rank_gather2, rank_gather2_ref, rank_ratio_rowsum,
                                            rank_ratio_rowsum_ref, rowsum_tolerance)
+from naqs_tpu_torch.ops import local_energy as le
+from naqs_tpu_torch.ops.dense_engine import DenseTerms, FactorTerms, value_grid
+from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, dense_grid_accumulate_ref,
+                                             factored_grid_accumulate,
+                                             factored_grid_accumulate_ref, grid_tolerance)
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
 
 pytestmark = pytest.mark.cuda
@@ -120,5 +130,103 @@ def test_rank_ratio_rowsum_rejects_bad_inputs():
                                           torch.zeros((4, 8), device=dev)[:, ::2]),
                 lambda: rank_ratio_rowsum(spec, s, s, table, v, v.cpu(), h),
                 lambda: rank_ratio_rowsum(spec, s, s, table, v, v, h.cpu())):
+        with pytest.raises(ValueError):
+            bad()
+
+
+GRID_KERNELS = {
+    "dense": (DenseTerms, dense_grid_accumulate, dense_grid_accumulate_ref),
+    "factored": (FactorTerms, factored_grid_accumulate, factored_grid_accumulate_ref),
+}
+_n2_cache = {}
+
+
+def _n2():
+    """(terms, hilbert) of the N2 STO-3G molecule the port ships (14,400 states)."""
+    if not _n2_cache:
+        mol = nt.load_molecule("N2_STO-3G_gen")
+        _n2_cache["v"] = (nt.compile_pauli_terms(mol.qubit_hamiltonian, mol.n_qubits),
+                          nt.Hilbert.for_molecule(mol))
+    return _n2_cache["v"]
+
+
+def _n2_sample(hil, m, cap, dev, seed=0):
+    """A sorted SENTINEL-padded buffer of m random basis states on the card."""
+    from naqs_tpu_torch.utils.bits import SENTINEL
+
+    rng = np.random.default_rng(seed)
+    s = np.full(cap, SENTINEL, np.int64)
+    s[:m] = np.sort(rng.choice(hil.basis, size=m, replace=False))
+    la = np.zeros(cap, np.float32)
+    la[:m] = rng.normal(size=m) - 1.0
+    ph = np.zeros(cap, np.float32)
+    ph[:m] = rng.uniform(-np.pi, np.pi, size=m)
+    return tuple(torch.as_tensor(a, device=dev) for a in (s, la, ph))
+
+
+@pytest.mark.parametrize("fill", ["sampled", "full"])
+@pytest.mark.parametrize("engine", ["dense", "factored"])
+def test_grid_kernel_matches_plain(engine, fill):
+    dev = _card()
+    terms, hil = _n2()
+    cls, wrapper, ref = GRID_KERNELS[engine]
+    prog = cls.build(terms, hil, device=dev)
+    if fill == "sampled":
+        s, la, ph = _n2_sample(hil, 3000, 4096, dev)
+        grid, _, _ = value_grid(RankSpec.for_hilbert(hil), s, la, ph, 3000, prog.sa, prog.sb)
+    else:   # every cell set, the pad row and column zero
+        gen = torch.Generator(device="cpu").manual_seed(2)
+        grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2))
+        grid[:-1, :-1] = torch.rand((prog.sa, prog.sb, 2), generator=gen) - 0.5
+        grid = grid.to(dev)
+    before = wrapper.launches
+    got = wrapper(prog, grid)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = ref(prog, grid)
+    tol = grid_tolerance(prog, grid)
+    assert got.shape == (prog.sb, prog.sa, 2) and bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= tol).all()), float(((got - want).abs() / tol).max())
+    assert float(want.abs().max()) > 1e-3   # the sums are not all 0
+    assert torch.equal(wrapper(prog, grid), got)   # fixed order, no atomics
+
+
+@pytest.mark.parametrize("engine", ["dense", "factored"])
+def test_grid_engine_matches_rank_engine_on_the_card(engine):
+    dev = _card()
+    terms, hil = _n2()
+    dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
+    assert type(dt.dense).__name__ == "DenseTerms"
+    if engine == "factored":
+        dt = dataclasses.replace(dt, dense=FactorTerms.build(terms, hil, device=dev))
+    m = 3000
+    s, la, ph = _n2_sample(hil, m, 4096, dev, seed=1)
+    e_grid = le.local_energy(dt, s, la, ph, m)
+    e_rank = le.local_energy(dataclasses.replace(dt, dense=None), s, la, ph, m)
+    for g, r in zip(e_grid, e_rank):
+        assert float((g[:m] - r[:m]).abs().max()) < 2e-4
+    rows = torch.arange(5, m, 11, device=dev)
+    e_q = le.local_energy(dt, s, la, ph, m, queries=(s[rows], la[rows], ph[rows]))
+    assert torch.equal(e_q[0], e_grid[0][rows]) and torch.equal(e_q[1], e_grid[1][rows])
+
+
+@pytest.mark.parametrize("engine", ["dense", "factored"])
+def test_grid_kernel_rejects_bad_inputs(engine):
+    dev = _card()
+    terms, hil = _n2()
+    cls, wrapper, _ = GRID_KERNELS[engine]
+    prog = cls.build(terms, hil, device=dev)
+    grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2), device=dev)
+    wide = torch.zeros((prog.sa + 1, prog.sb + 1, 4), device=dev)[..., :2]
+    field = "h_dense" if engine == "dense" else "fcoeff"
+    for bad in (lambda: wrapper(prog, grid.double()),
+                lambda: wrapper(prog, wide),
+                lambda: wrapper(prog, grid.cpu()),
+                lambda: wrapper(prog, grid[:-1]),
+                lambda: wrapper(dataclasses.replace(prog, row_map=prog.row_map.long()), grid),
+                lambda: wrapper(dataclasses.replace(prog, row_map=prog.row_map.cpu()), grid),
+                lambda: wrapper(dataclasses.replace(prog, sa=prog.sa - 1), grid),
+                lambda: wrapper(dataclasses.replace(
+                    prog, **{field: getattr(prog, field).transpose(0, 1)}), grid)):
         with pytest.raises(ValueError):
             bad()

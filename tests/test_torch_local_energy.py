@@ -1,5 +1,10 @@
 """Port local_energy against naqs_tpu on one shared sorted batch.
 
+`_engines` gives the port's rank engine (`dataclasses.replace(dt, dense=None)`,
+as for JAX); the port's default dispatch (the grid engines) is held against
+both JAX engines in `test_local_energy_matches_jax_engines`, and module by
+module in test_torch_dense_engine.py.
+
 Tolerances: 1e-10 Ha for the f64 diagonal; 2e-5 Ha per E_loc row and 5e-6
 Ha on the weighted mean, because the fp32 off-diagonal sums run in another
 order (matmul blocking) than XLA's. The chunk epilogue's plain version
@@ -28,11 +33,14 @@ MEAN_TOL = 5e-6
 
 
 def _engines(c):
-    """(JAX rank engine, JAX default engine, port) DeviceTerms."""
+    """(JAX rank engine, JAX default engine, port rank engine) DeviceTerms."""
     dt_default = le_j.DeviceTerms.from_terms(c.terms_j, hilbert=c.h_j)
     dt_rank = dataclasses.replace(dt_default, dense=None)
-    dt_t = le_t.DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu")
-    return dt_rank, dt_default, dt_t
+    return dt_rank, dt_default, dataclasses.replace(_port_default(c), dense=None)
+
+
+def _port_default(c):
+    return le_t.DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu")
 
 
 def _batch(c, m, cap, seed):
@@ -55,18 +63,23 @@ def _jax(dt, s, la, ph, m, **kw):
 
 @pytest.mark.parametrize("name,m,cap", [("H2O", 150, 160), ("H2O_6-31G", 64, 80)])
 def test_local_energy_matches_jax_engines(name, m, cap):
+    """Both port engines (rank, and the default dispatch's grid engine: the
+    main path) against both JAX engines on one batch."""
     c = case(name)
     dt_rank, dt_default, dt_t = _engines(c)
-    assert dt_t.rank_spec is not None and dt_t.a_mat is not None
-    assert type(dt_default.dense).__name__ == ("DenseTerms" if name == "H2O" else "FactorTerms")
+    dt_t_default = _port_default(c)
+    assert dt_t.rank_spec is not None and dt_t.a_mat is not None and dt_t.dense is None
+    engine = "DenseTerms" if name == "H2O" else "FactorTerms"
+    assert type(dt_default.dense).__name__ == type(dt_t_default.dense).__name__ == engine
     s, la, ph, w = _batch(c, m, cap, 0)
 
-    re_t, im_t = _port(dt_t, s, la, ph, m)
-    for dt in (dt_rank, dt_default):
-        re_j, im_j = _jax(dt, s, la, ph, m)
-        np.testing.assert_allclose(re_t[:m], re_j[:m], rtol=0, atol=ROW_TOL)
-        np.testing.assert_allclose(im_t[:m], im_j[:m], rtol=0, atol=ROW_TOL)
-        assert abs(np.sum(w[:m] * re_t[:m]) - np.sum(w[:m] * re_j[:m])) < MEAN_TOL
+    jax_runs = [_jax(dt, s, la, ph, m) for dt in (dt_rank, dt_default)]
+    for dt_port in (dt_t, dt_t_default):
+        re_t, im_t = _port(dt_port, s, la, ph, m)
+        for re_j, im_j in jax_runs:
+            np.testing.assert_allclose(re_t[:m], re_j[:m], rtol=0, atol=ROW_TOL)
+            np.testing.assert_allclose(im_t[:m], im_j[:m], rtol=0, atol=ROW_TOL)
+            assert abs(np.sum(w[:m] * re_t[:m]) - np.sum(w[:m] * re_j[:m])) < MEAN_TOL
     # the off-diagonal part is non-trivial: E_loc differs from the diagonal
     e_diag = le_t.diagonal_energy(dt_t, torch.as_tensor(s[:m])).numpy()
     assert np.abs(re_t[:m] - e_diag).max() > 1e-3
@@ -111,8 +124,9 @@ def test_chunking_does_not_change_results():
 def test_segment_sum_path_matches_dense_a():
     c = case("H2O")
     _, _, dt_t = _engines(c)
-    dt_seg = le_t.DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, dense_a=False,
-                                         device="cpu")
+    dt_seg = dataclasses.replace(
+        le_t.DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, dense_a=False, device="cpu"),
+        dense=None)
     assert dt_seg.a_mat is None
     s, la, ph, _ = _batch(c, 150, 160, 4)
     a = _port(dt_t, s, la, ph, 150)
@@ -185,7 +199,8 @@ def test_rank_ratio_rowsum_ref_matches_jax_chunk(name, sectors, n_rows):
                                                                         sectors=sectors)
     dt_j = dataclasses.replace(le_j.DeviceTerms.from_terms(c.terms_j, hilbert=h_j),
                                dense=None)
-    dt_t = le_t.DeviceTerms.from_terms(c.terms_t, hilbert=h_t, device="cpu")
+    dt_t = dataclasses.replace(
+        le_t.DeviceTerms.from_terms(c.terms_t, hilbert=h_t, device="cpu"), dense=None)
     rng = np.random.default_rng(8)
     if sectors is None:
         states = near_hf_states(c, 2 * n_rows, rng)

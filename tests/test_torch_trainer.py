@@ -5,6 +5,16 @@ rtol 1e-4 / atol 1e-6; Adam parameters rtol 1e-5 / atol 1e-7 when both are
 fed the same gradients (end-to-end parameters are not compared: with eps =
 1e-15 the first Adam step is ~lr * sign(g), so a near-zero gradient that
 rounds differently flips sign).
+
+The file runs torch on one thread (`_one_torch_thread`): torch's CPU
+reductions and matmuls split their work by the thread count, so their fp32
+summation order, and with it the last digits of the gradients held to rtol
+1e-4 here, would otherwise depend on how many threads the process gets.
+
+Tests that mean the rank engine take `_rank_terms` (the default dispatch's
+DeviceTerms with `dense=None`, as for JAX); the grid engine, which the
+default dispatch picks for these single-sector molecules, has tests of its
+own below.
 """
 
 import dataclasses
@@ -29,6 +39,20 @@ from naqs_tpu_torch.trainer import TrainConfig, VMCTrainer, vmc_update
 from test_torch_support import case, near_hf_states, padded_batch, to_u64
 
 CHEM_ACC = 1.6e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _rank_terms(c):
+    """The port's rank-engine DeviceTerms of a case."""
+    return dataclasses.replace(
+        DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu"), dense=None)
 
 
 def _grab_grads():
@@ -81,7 +105,21 @@ def test_vmc_update_matches_jax(reweight):
     c, cfg_j, params, model = _setup()
     bj, bt = _batches(c)
     dt_j = dataclasses.replace(DeviceTermsJ.from_terms(c.terms_j, hilbert=c.h_j), dense=None)
+    dt_t = _rank_terms(c)
+    _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, reweight)
+
+
+def test_vmc_update_through_the_grid_engine_matches_jax():
+    """The default dispatch on both sides: DenseTerms for H2O STO-3G."""
+    c, cfg_j, params, model = _setup()
+    bj, bt = _batches(c)
+    dt_j = DeviceTermsJ.from_terms(c.terms_j, hilbert=c.h_j)
     dt_t = DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu")
+    assert type(dt_j.dense).__name__ == type(dt_t.dense).__name__ == "DenseTerms"
+    _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, False)
+
+
+def _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, reweight):
     grab = _grab_grads()
     _, g_j, m_j = trainer_j._vmc_update_impl(cfg_j, grab, params, grab.init(params),
                                              dt_j, bj, reweight)
@@ -139,7 +177,18 @@ def test_adam_matches_optax_on_the_same_gradients():
 @pytest.mark.parametrize("fault", ["overflow", "nan"])
 def test_update_is_withheld(fault):
     c, _, _, model = _setup()
+    _check_update_is_withheld(c, model, _rank_terms(c), fault)
+
+
+@pytest.mark.parametrize("fault", ["overflow", "nan"])
+def test_update_is_withheld_through_the_grid_engine(fault):
+    c, _, _, model = _setup()
     dt_t = DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu")
+    assert dt_t.dense is not None
+    _check_update_is_withheld(c, model, dt_t, fault)
+
+
+def _check_update_is_withheld(c, model, dt_t, fault):
     opt, sched = TrainConfig().make_optimizer(model.parameters())
     _, good = _batches(c, seed=1)
     vmc_update(model, opt, sched, dt_t, good)  # Adam state now non-empty
@@ -161,7 +210,7 @@ def test_tempered_energy_matches_full_support():
     """Full support + reweight_by_psi: the sampled E equals the full-basis
     one whatever the sampling distribution."""
     c, _, _, model = _setup()
-    dt_t = DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu")
+    dt_t = _rank_terms(c)
     from naqs_tpu_torch.trainer import vmc_loss
 
     batch = sample(model, torch.Generator().manual_seed(3), 1e8, 512, beta=0.3)
@@ -181,6 +230,7 @@ def test_controller_backs_off_on_overflow():
                         phase_hidden=(8,), masking="full")
     tc = TrainConfig(n_samples=1e6, n_unq_samples_min=4, n_unq_samples_max=32, seed=2)
     tr = VMCTrainer(cfg, c.terms_t, c.h_t, tc, device="cpu")
+    assert type(tr.dt.dense).__name__ == "DenseTerms"   # single sector: a grid program
     out = tr.step()
     assert out["n_unique"] <= 32 and out["n_samples"] < 1e6
     assert tr._ovf_n <= 1e6  # the overflow was noted for the hysteresis
@@ -189,6 +239,14 @@ def test_controller_backs_off_on_overflow():
 
 
 def test_h2_trains_to_chemical_accuracy():
+    _check_h2_trains(rank_engine=True)
+
+
+def test_h2_trains_through_the_grid_engine():
+    _check_h2_trains(rank_engine=False)
+
+
+def _check_h2_trains(rank_engine):
     c = case("H2")
     cfg = nt.NAQSConfig(n_qubits=c.mol_t.n_qubits, sectors=c.h_t.sectors,
                         amp_hidden=(16,), phase_hidden=(16,))
@@ -196,6 +254,9 @@ def test_h2_trains_to_chemical_accuracy():
                      n_samples_max=1e7, n_unq_samples_min=2, n_unq_samples_max=16,
                      seed=1)
     tr = VMCTrainer(cfg, c.terms_t, c.h_t, tc, device="cpu")
+    assert type(tr.dt.dense).__name__ == "DenseTerms"
+    if rank_engine:
+        tr.dt = dataclasses.replace(tr.dt, dense=None)
     tr.run(300, output_freq=1000)
     e = tr.exact_energy()
     assert e - c.mol_t.fci_energy < CHEM_ACC, (e, c.mol_t.fci_energy)

@@ -36,16 +36,17 @@
 //   for the whole block.
 // * What is zero is skipped: a mask with an invalid beta image (the whole
 //   block skips it), padded masks and padded factor slots (the factor list
-//   ends at n_fact[k]), and a mask for which no lane of a warp has a valid
-//   alpha image. A lane with an invalid alpha image in a warp that goes on
-//   reads the grid's zero pad cell, so no result depends on what was skipped.
+//   ends at n_fact[k]) and, in the factored kernel, a mask for which no lane
+//   of a warp has a valid alpha image; there a lane with an invalid alpha
+//   image in a warp that goes on reads the grid's zero pad cell. The dense
+//   kernel skips per lane. No result depends on what was skipped.
 // * Each thread sums its cells' masks in index order and each mask's factors
 //   in slot order, in fp32 registers; no atomics, so every run gives the
 //   same bits.
 //
-// factored_grid_accumulate (measured on the card, variant by variant: the
-// factor loop was 24 of the first design's 30 ms, and its cost was the count
-// of load and shuffle instructions per factor, not their bytes or latency):
+// factored_grid_accumulate (chosen by timing variants on the card, PERF.md:
+// the factor loop took most of a first design's time, and its cost was the
+// count of load and shuffle instructions per factor, not bytes or latency):
 // * The sign par_a[fa, ra] = (-1)^popc(alpha_words[ra] & ya_words[fa]) is
 //   computed from the cell's alpha word, which sits in a register, and the
 //   factor's sign mask: no load of par_a. A factor costs an and, a popc, a
@@ -85,22 +86,6 @@ int block_threads(int sa, int cells) {
   return ((per + 31) / 32) * 32;
 }
 
-// The cell a thread of the dense kernel owns. Threads past the row's end stay
-// in the warp for its shuffles: they read the grid's pad cell, store nothing.
-struct Cell {
-  int rb, ra, lane;
-  bool in;
-};
-
-__device__ __forceinline__ Cell my_cell(int sa) {
-  Cell c;
-  c.rb = blockIdx.x;
-  c.ra = blockIdx.y * blockDim.x + threadIdx.x;
-  c.in = c.ra < sa;
-  c.lane = threadIdx.x & 31;
-  return c;
-}
-
 // Lane j's look at mask k0 + j: (ka, pb) of row_map[k0 + j, rb]; pb = sb
 // (the pad column: nothing to do) past the last mask.
 __device__ __forceinline__ void beta_image(const int32_t* __restrict__ row_map, int kk,
@@ -112,14 +97,6 @@ __device__ __forceinline__ void beta_image(const int32_t* __restrict__ row_map, 
     *ka = rm / (sb + 1);
     *pb = rm - *ka * (sb + 1);
   }
-}
-
-// The alpha image of the thread's cell under alpha flip ka (sa = none), and
-// whether any lane of the warp has one.
-__device__ __forceinline__ bool alpha_image(const int32_t* __restrict__ pa_idx, const Cell& c,
-                                            int ka, int sa, int* pa) {
-  *pa = c.in ? __ldg(pa_idx + static_cast<size_t>(ka) * sa + c.ra) : sa;
-  return __any_sync(kFull, *pa < sa);
 }
 
 constexpr int kCells = 3;   // cells a thread of the factored kernel owns
@@ -248,30 +225,32 @@ __global__ void __launch_bounds__(kMaxThreads) dense_grid_accumulate_kernel(
     const int32_t* __restrict__ r1_idx, const int32_t* __restrict__ row_map,
     const float* __restrict__ h_dense, const float2* __restrict__ grid_t,
     float2* __restrict__ out, int n_masks, int sa, int sb) {
-  const Cell c = my_cell(sa);
+  const int rb = blockIdx.x;
+  const int ra = blockIdx.y * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // threads past the row's end stay in the warp for its shuffles, with no image
+  const bool in = ra < sa;
   float acc_re = 0.f, acc_im = 0.f;
   for (int k0 = 0; k0 < n_masks; k0 += 32) {
     int ka, pb;
-    beta_image(row_map, k0 + c.lane, n_masks, sb, c.rb, &ka, &pb);
+    beta_image(row_map, k0 + lane, n_masks, sb, rb, &ka, &pb);
     unsigned todo = __ballot_sync(kFull, pb < sb);
-    while (todo) {
+    while (todo) {  // todo, j and all they select are the same in every lane
       const int j = __ffs(todo) - 1;
       todo &= todo - 1;
-      const int k = k0 + j;
       const int ka_k = __shfl_sync(kFull, ka, j);
       const int pb_k = __shfl_sync(kFull, pb, j);
-      int pa;
-      if (!alpha_image(r1_idx, c, ka_k, sa, &pa)) continue;
+      const int pa = in ? __ldg(r1_idx + static_cast<size_t>(ka_k) * sa + ra) : sa;
       if (pa < sa) {
         // h_dense is read once in all: stream it past the grid in L2
-        const float h = __ldcs(h_dense + (static_cast<size_t>(k) * sb + c.rb) * sa + c.ra);
+        const float h = __ldcs(h_dense + (static_cast<size_t>(k0 + j) * sb + rb) * sa + ra);
         const float2 t = __ldg(grid_t + static_cast<size_t>(pb_k) * (sa + 1) + pa);
         acc_re = fmaf(h, t.x, acc_re);
         acc_im = fmaf(h, t.y, acc_im);
       }
     }
   }
-  if (c.in) out[static_cast<size_t>(c.rb) * sa + c.ra] = make_float2(acc_re, acc_im);
+  if (in) out[static_cast<size_t>(rb) * sa + ra] = make_float2(acc_re, acc_im);
 }
 
 dim3 cell_blocks(int sa, int sb, int cells_per_block) {

@@ -141,13 +141,15 @@ GRID_KERNELS = {
 _n2_cache = {}
 
 
-def _n2():
-    """(terms, hilbert) of the N2 STO-3G molecule the port ships (14,400 states)."""
+def _n2(sectors=None):
+    """(terms, hilbert) of the N2 STO-3G molecule the port ships: its own sector
+    (7, 7) with 14,400 states, or another sector of the same 20 qubits."""
     if not _n2_cache:
         mol = nt.load_molecule("N2_STO-3G_gen")
         _n2_cache["v"] = (nt.compile_pauli_terms(mol.qubit_hamiltonian, mol.n_qubits),
                           nt.Hilbert.for_molecule(mol))
-    return _n2_cache["v"]
+    terms, hil = _n2_cache["v"]
+    return terms, hil if sectors is None else nt.Hilbert(n_qubits=20, sectors=sectors)
 
 
 def _n2_sample(hil, m, cap, dev, seed=0):
@@ -164,16 +166,21 @@ def _n2_sample(hil, m, cap, dev, seed=0):
     return tuple(torch.as_tensor(a, device=dev) for a in (s, la, ph))
 
 
-@pytest.mark.parametrize("fill", ["sampled", "full"])
+# (7, 7), the molecule's own: 120 x 120 cells. Rectangular grids, so that no exchange
+# of the spins' sizes goes unseen: (9, 2) with Sa = 10 (under one warp) and Sb = 45,
+# (3, 6) with Sa = 120 and Sb = 210
+@pytest.mark.parametrize("fill,sectors", [("sampled", None), ("full", None),
+                                          ("sampled", ((9, 2),)), ("full", ((3, 6),))])
 @pytest.mark.parametrize("engine", ["dense", "factored"])
-def test_grid_kernel_matches_plain(engine, fill):
+def test_grid_kernel_matches_plain(engine, fill, sectors):
     dev = _card()
-    terms, hil = _n2()
+    terms, hil = _n2(sectors)
     cls, wrapper, ref = GRID_KERNELS[engine]
     prog = cls.build(terms, hil, device=dev)
     if fill == "sampled":
-        s, la, ph = _n2_sample(hil, 3000, 4096, dev)
-        grid, _, _ = value_grid(RankSpec.for_hilbert(hil), s, la, ph, 3000, prog.sa, prog.sb)
+        m = min(3000, hil.size // 2)
+        s, la, ph = _n2_sample(hil, m, 4096, dev)
+        grid, _, _ = value_grid(RankSpec.for_hilbert(hil), s, la, ph, m, prog.sa, prog.sb)
     else:   # every cell set, the pad row and column zero
         gen = torch.Generator(device="cpu").manual_seed(2)
         grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2))

@@ -138,6 +138,42 @@ def test_grid_engine_matches_jax_and_oracle(engine, full):
     np.testing.assert_allclose(q_re, np.asarray(j_re), rtol=0, atol=ROW_TOL)
 
 
+@pytest.mark.parametrize("engine", ["dense", "factored"])
+def test_rectangular_sector_matches_jax_and_oracle(engine):
+    """Sa != Sb (sector (4, 2) of H2O STO-3G: a 35 x 21 grid), so that no
+    exchange of the two spins' sizes or maps goes unseen; with the numpy
+    replay of the kernels' index arithmetic on the same grid."""
+    import naqs_tpu as nq
+    import naqs_tpu_torch as nt
+
+    c = case("H2O")
+    sectors = ((4, 2),)
+    h_t, h_j = nt.Hilbert(n_qubits=14, sectors=sectors), nq.Hilbert(n_qubits=14,
+                                                                   sectors=sectors)
+    cls_t, fn_t, wrapper, cls_j, fn_j = ENGINES[engine]
+    prog_t, prog_j = cls_t.build(c.terms_t, h_t, device="cpu"), cls_j.build(c.terms_j, h_j)
+    assert (prog_t.sa, prog_t.sb) == (prog_j.sa, prog_j.sb) == (35, 21)
+    spec_t, spec_j = RankSpec.for_hilbert(h_t), RankSpecJ.for_hilbert(h_j)
+    m, cap = 300, 320
+    rng = np.random.default_rng(13)
+    s, la, ph, _ = padded_batch(np.sort(rng.choice(h_t.basis, size=m, replace=False)), cap,
+                                rng)
+    re_t, im_t = _port(fn_t, prog_t, spec_t, s, la, ph, m)
+    re_j, im_j = fn_j(prog_j, spec_j, jnp.asarray(to_u64(s)), jnp.asarray(la),
+                      jnp.asarray(ph), jnp.int32(m))
+    np.testing.assert_allclose(re_t[:m], np.asarray(re_j)[:m], rtol=0, atol=ROW_TOL)
+    np.testing.assert_allclose(im_t[:m], np.asarray(im_j)[:m], rtol=0, atol=ROW_TOL)
+    psi = np.exp(la[:m].astype(np.float64) + 1j * ph[:m].astype(np.float64))
+    e_np = local_energy_np(c.terms_t, s[:m], psi)
+    np.testing.assert_allclose(re_t[:m], e_np.real, rtol=0, atol=ORACLE_TOL)
+    np.testing.assert_allclose(im_t[:m], e_np.imag, rtol=0, atol=ORACLE_TOL)
+    grid, _, _ = de_t.value_grid(spec_t, torch.as_tensor(s), torch.as_tensor(la),
+                                 torch.as_tensor(ph), m, prog_t.sa, prog_t.sb)
+    want = wrapper(prog_t, grid).numpy()
+    assert want.shape == (21, 35, 2) and np.abs(want).max() > 1e-3
+    np.testing.assert_allclose(_replay_kernel(prog_t, grid), want, rtol=0, atol=2e-6)
+
+
 def test_host_oracle_matches_jax_oracle():
     from naqs_tpu.hamiltonian import local_energy_np as local_energy_np_j
 

@@ -10,7 +10,8 @@
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. build every CUDA kernel with nvcc (one nvcc per source, started
-     together): csrc/rank_gather.cu and csrc/grid_engine.cu;
+     together): csrc/rank_gather.cu, csrc/grid_engine.cu and
+     csrc/sampler_step.cu;
   2. print the card's name and power limit (nvidia-smi);
   3. set up H2O 6-31G (26 qubits, sector (5, 5), 1,656,369 states) and the
      paper-scale model (amp 64, phase 512x512, global phase net, partial
@@ -26,14 +27,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      version at full size (the padded einsum and the R1t buffer), per cell
      within GRID_ATOL + GRID_RTOL * sum_k sum_r |fcoeff| |T_k| (fp32 order
      over up to 4,502 masks, fma against mul + add), and twice bitwise;
+ 5b. the sampler's shell step on real inputs: two sample() calls at capacity
+     100,000 (one at the trainer's first n_samples, which overflows, one at
+     1e5, the steady state) with the inputs of every shell kept; on each of
+     the 26 shells multinomial4_split against its plain version and
+     compact_children against its plain version, both bitwise (should a
+     transcendental's last bit differ, the split is held instead to: row sums
+     exact, at most 1 row in 10^4 differs, each by one sample moved between
+     two children; the count is printed); the binomials by branch and the
+     longest CDF loop; a synthetic split of 100,000 rows that takes the CDF
+     branch everywhere (n = 20..5,000, p from 1e-4 to 0.9, the p > 1/2
+     flip) plus corner rows (q = 0 and 1, n = 0 and 1e12, all-zero probs),
+     an overflowing compaction, and one sample_density call (d_p = 1e-6)
+     through the kernel against the same call through the plain version:
+     states and masses bitwise;
   6. the main path: 5 VMCTrainer.step()s through the default dispatch with
      every launch count set to 0 just before; fails unless
      factored_grid_accumulate ran exactly once per E_loc call (one call per
-     vmc_update), no rank kernel ran, and every energy is finite;
+     vmc_update), multinomial4_split and compact_children each ran n_shells =
+     13 times per sample() call, no rank kernel ran, and every energy is
+     finite;
   7. the earlier main path: 2 more steps of the same trainer on the rank
      engine (dense=None), counts set to 0 just before; fails unless
      rank_ratio_rowsum ran 196 times per E_loc call (capacity 100,000 in
-     chunks of 512) and no grid kernel ran;
+     chunks of 512), the sampler's kernels 13 times per sample() call, and no
+     grid kernel ran;
   8. quadratic_energy over the sampled buffer with the counts set to 0,
      through rank_gather2 and through rank_gather2_ref: within 1e-6
      relative, and rank_gather2 launched;
@@ -46,7 +64,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      (5e-4 Ha: fp32 off-diagonal sums);
  10. the dense engine: N2 STO-3G (20 qubits, sector (7, 7), 14,400 states;
      DenseTerms asserted), a smaller model, capacity 8,192: 3 steps with the
-     counts at 0 before (dense_grid_accumulate once per E_loc call),
+     counts at 0 before (dense_grid_accumulate once per E_loc call, the
+     sampler's kernels 10 times per sample() call),
      dense_grid_accumulate against its plain version and twice bitwise, and
      local_energy against the rank engine and the oracle as in phase 9;
  11. times, in turns: REPEATS repeats of LAUNCHES launches each (median and
@@ -55,18 +74,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      version, the unfused composition (rank_gather2 kernel + eager epilogue)
      and, with --before, the first slice's rank_gather2 (its own source and
      wrapper, two-channel tables; first held bitwise against this tree's)
-     alone and with the eager epilogue; then SLOW_REPEATS repeats of
-     SLOW_LAUNCHES of both grid kernels, their plain versions and one full
+     alone and with the eager epilogue, and of the sampler's two kernels on
+     the inputs of the steady-state shell with the most live rows, the
+     compaction's plain version (the cumsum/index_copy_ composition the step
+     ran before the kernel), torch.masked_select of the weights and three
+     torch.binomial calls on the cascade's (n, p) (another algorithm for the
+     same distribution: a reference time); then SLOW_REPEATS repeats of
+     SLOW_LAUNCHES of both grid kernels, their plain versions, one full
      local_energy call per engine at capacity 100,000 (factored against
-     rank: printed, not asserted). Each is timed held (behind a card sleep
+     rank: printed, not asserted), the split's plain version, the (U, 127)
+     cumprod/cumsum split the step ran before the kernel, and one whole
+     sample() call at capacity 100,000. Each is timed held (behind a card sleep
      that covers the host's enqueue, so the launches run back to back: the
      card's time, reported as "ms"); the fast ones also unheld (a plain loop,
      which reads the host's rate where the wrapper is slower than the
      kernel: "unheld_ms"), and the run fails if the hold did not cover their
      enqueue; see naqs_tpu_torch/utils/cuda_timing.py.
 Prints a {"kernels": [...]} JSON line (launches from phase 6 for
-factored_grid_accumulate, 7 for rank_ratio_rowsum, 8 for rank_gather2, 10
-for dense_grid_accumulate), and last
+factored_grid_accumulate, multinomial4_split and compact_children, 7 for
+rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -90,6 +116,12 @@ REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
 SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and more
 RANK_OPS = 25                 # integer ops per element of the kernels' rank_of
 EPILOGUE_OPS = 11             # per found element: 3 transcendentals + 8 flops
+H100_FP64_OPS_PER_S = 33.5e12  # non-tensor float64: half the float32 rate
+SPLIT_ROW_OPS = 90            # float64 operations of a live row: condp and 3 binomials
+CDF_LOOK_OPS = 7              # float32 operations of one look of the inverse CDF
+COMPACT_ROW_OPS = 40          # integer operations per row: flag counts and two scans
+SHELL_SRC = {"source": "naqs_tpu_torch/csrc/sampler_step.cu",
+             "note": "no Pallas counterpart: XLA-lowered in JAX"}
 GRID_SRC = {"source": "naqs_tpu_torch/csrc/grid_engine.cu",
             "note": "no Pallas counterpart: XLA-lowered in JAX"}
 
@@ -204,19 +236,24 @@ def _engines_agree(label, le, dt, terms, batch, la, ph):
 
 
 def _steps(tr, n, label):
-    """n training steps, timed; returns (vmc_update calls, step times)."""
+    """n training steps, timed; returns (vmc_update calls, step times, sample
+    calls)."""
     import torch
 
     from naqs_tpu_torch import trainer as trainer_mod
 
-    calls = [0]
-    update = trainer_mod.vmc_update
+    calls = [0, 0]
+    update, draw = trainer_mod.vmc_update, trainer_mod.sample
 
     def counted(*args, **kw):
         calls[0] += 1
         return update(*args, **kw)
 
-    trainer_mod.vmc_update = counted
+    def counted_sample(*args, **kw):
+        calls[1] += 1
+        return draw(*args, **kw)
+
+    trainer_mod.vmc_update, trainer_mod.sample = counted, counted_sample
     times = []
     try:
         for i in range(n):
@@ -231,8 +268,153 @@ def _steps(tr, n, label):
             if not (math.isfinite(out["e_loc"]) and math.isfinite(out["e_loc_var"])):
                 raise SystemExit(f"non-finite energy at {label} step {i + 1}: {out}")
     finally:
-        trainer_mod.vmc_update = update
-    return calls[0], times
+        trainer_mod.vmc_update, trainer_mod.sample = update, draw
+    return calls[0], times, calls[1]
+
+
+class _Keep:
+    """A wrapper's stand-in that hands every call's arguments to `sink` first.
+    Its launch count is the wrapper's own, so a wrapper that finds this object
+    under its name still counts on itself."""
+
+    def __init__(self, wrapper, sink):
+        self.wrapper, self.sink = wrapper, sink
+
+    def __call__(self, *args):
+        self.sink(args)
+        return self.wrapper(*args)
+
+    launches = property(lambda self: self.wrapper.launches,
+                        lambda self, n: setattr(self.wrapper, "launches", n))
+
+
+def _record_sample(sampler_mod, fn):
+    """fn() with the sampler's two wrappers keeping their inputs: returns
+    (fn's result, one [split arguments, compaction arguments] per shell)."""
+    shells = []
+    split, compact = sampler_mod.multinomial4_split, sampler_mod._compact_children
+    sampler_mod.multinomial4_split = _Keep(split, lambda args: shells.append([args]))
+    sampler_mod._compact_children = _Keep(compact, lambda args: shells[-1].append(args))
+    try:
+        out = fn()
+    finally:
+        sampler_mod.multinomial4_split, sampler_mod._compact_children = split, compact
+    return out, shells
+
+
+def _split_before(counts, probs, z, u, mask):
+    """The split as the step ran it before its kernel: every binomial's
+    inverse CDF as a (U, 127) cumprod and cumsum over all rows. A time to
+    compare with, and a second opinion on the counts (it forms the pmf ratio
+    first, so a count may differ by a last bit of the CDF)."""
+    import torch
+
+    rem = counts
+    p = probs.to(torch.float64)
+    ps = torch.cumsum(p, dim=-1)
+    condp = torch.where(ps > 0, p / torch.clamp(ps, min=1e-300), 0.0)
+    j = torch.arange(1, 128, device=counts.device, dtype=torch.float32)
+    out = []
+    for i in (3, 2, 1):
+        n = rem
+        p64 = torch.clamp(condp[:, i], 0.0, 1.0)
+        flip = p64 > 0.5
+        q = torch.where(flip, 1.0 - p64, p64)
+        mean = n * q
+        var = mean * (1.0 - q)
+        gauss = torch.round(mean + torch.sqrt(torch.clamp(var, min=0.0)) * z[3 - i].double())
+        pmf0 = torch.exp((n * torch.log1p(-torch.clamp(q, max=1.0 - 1e-15))).float())
+        nf = n.float()[..., None]
+        qf = q.float()
+        odds = (qf / torch.clamp(1.0 - qf, min=1e-30))[..., None]
+        ratio = torch.clamp(nf - j + 1.0, min=0.0) / j * odds
+        pmf = torch.cat([pmf0[..., None], pmf0[..., None] * torch.cumprod(ratio, dim=-1)],
+                        dim=-1)
+        cdf = torch.cumsum(pmf[..., :-1], dim=-1)
+        small = torch.sum(u[3 - i][..., None] > cdf, dim=-1).double()
+        k = torch.where(var > 25.0, gauss, small)
+        k = torch.minimum(torch.clamp(k, min=0.0), n)
+        k = torch.where(q <= 0.0, 0.0, torch.where(q >= 1.0, n, k))
+        c = torch.minimum(torch.where(flip, n - k, k), rem)
+        out.append(c)
+        rem = rem - c
+    out.append(rem)
+    return torch.stack(out[::-1], dim=-1) * mask
+
+
+def _check_split(label, args, totals):
+    """multinomial4_split against its plain version on `args` = (counts, probs,
+    z, u, mask, valid): bitwise, else the stated bar; with mask=None the row
+    sums must equal the counts on live rows. Adds to `totals`; returns the
+    plain version's branch tally."""
+    import torch
+
+    from naqs_tpu_torch.ops.multinomial import multinomial4_split, multinomial4_split_ref
+
+    counts, probs, z, u, mask, valid = args
+    got = multinomial4_split(*args)
+    stats = {}
+    want = multinomial4_split_ref(*args, stats=stats)
+    free = multinomial4_split(counts, probs, z, u, None, valid)[0]
+    torch.cuda.synchronize()
+    live_counts = counts if valid is None else torch.where(valid, counts, 0.0)
+    sums = torch.equal(free.sum(-1), live_counts)
+    differ = (got[0] != want[0]).any(-1)
+    n_diff = int(differ.sum())
+    d = (got[0] - want[0])[differ].abs()
+    ok = torch.equal(got[1], want[1]) if n_diff == 0 else (
+        n_diff <= 1e-4 * counts.shape[0] and bool((d.amax(-1) == 1).all())
+        and bool((d.sum(-1) <= 2).all()))
+    totals["rows"] += counts.shape[0]
+    totals["differ"] += n_diff
+    totals["err"] = max(totals["err"], float((got[0] - want[0]).abs().max()))
+    if not (ok and sums):
+        raise SystemExit(f"{label}: multinomial4_split disagrees with its plain version "
+                         f"({n_diff} rows differ, row sums exact={sums})")
+    return stats
+
+
+def _check_compact(label, args):
+    """compact_children against its plain version on `args`: all five outputs
+    bitwise. Returns n_children."""
+    import torch
+
+    from naqs_tpu_torch.sampler import _compact_children, _compact_children_ref
+
+    got = _compact_children(*args)
+    want = _compact_children_ref(*args)
+    torch.cuda.synchronize()
+    if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit(f"{label}: compact_children disagrees with its plain version")
+    return int(got[4])
+
+
+def _synthetic_split(n_rows, dev):
+    """(counts, probs, z, u) that take the inverse CDF on every binomial: n from
+    20 to 5,000, conditional p log-uniform in [1e-4, 0.9] (so the p > 1/2 flip
+    too), cut to 20 / n where the variance would pass 25; and 64 rows of
+    corners at the end: q = 0 and 1, n = 0 and 1e12 (both branches), all-zero
+    probs."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(4)
+    n = np.floor(10 ** rng.uniform(np.log10(20), np.log10(5000), n_rows))
+    c = 10 ** rng.uniform(-4, np.log10(0.9), (n_rows, 4))
+    c = np.where(n[:, None] * c * (1 - c) > 24.0, 20.0 / n[:, None], c)
+    keep = np.cumprod(1 - c[:, ::-1], axis=1)[:, ::-1]    # prod_{i' >= i} (1 - c[i'])
+    probs = c * np.concatenate([keep[:, 1:], np.ones((n_rows, 1))], axis=1)
+    probs[:, 0] = keep[:, 1]
+    corners = [(17.0, [0, 0, 1, 0]), (1e12, [0, 0, 0, 1]), (1e12, [1, 1e-11, 2e-11, 3e-12]),
+               (1e12, [0.1, 0.2, 0.3, 0.4]), (0.0, [0.25] * 4), (5e3, [0, 0, 0, 0]),
+               (1.0, [0.5, 0.5, 0, 0]), (1e12, [1e-13, 0, 1, 1e-12])]
+    n[-64:] = [corners[i % 8][0] for i in range(64)]
+    probs[-64:] = [corners[i % 8][1] for i in range(64)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    z = torch.randn((3, n_rows), generator=gen, device=dev)
+    u = torch.rand((3, n_rows), generator=gen, device=dev)
+    return (torch.as_tensor(n, device=dev), torch.as_tensor(probs.astype(np.float32), device=dev),
+            z, u)
 
 
 def _before_dyn_gather(before):
@@ -266,6 +448,7 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, REPO)
     import naqs_tpu_torch as nt
+    from naqs_tpu_torch import sampler as sampler_mod
     from naqs_tpu_torch.models.nade import log_psi
     from naqs_tpu_torch.ops import _build
     from naqs_tpu_torch.ops import local_energy as le
@@ -278,20 +461,22 @@ def main(argv) -> int:
                                                  dense_grid_accumulate_ref,
                                                  factored_grid_accumulate,
                                                  factored_grid_accumulate_ref)
+    from naqs_tpu_torch.ops.multinomial import multinomial4_split, multinomial4_split_ref
     from naqs_tpu_torch.ops.rank import build_value_table, rank_index
+    from naqs_tpu_torch.sampler import _compact_children, _compact_children_ref
     from naqs_tpu_torch.utils.cuda_timing import hold_ms, time_in_turns
 
     dev = torch.device("cuda")
     t0 = time.time()
     wrappers = (rank_gather2, rank_ratio_rowsum, factored_grid_accumulate,
-                dense_grid_accumulate)
+                dense_grid_accumulate, multinomial4_split, _compact_children)
 
     def zero_counts():
         for w in wrappers:
             w.launches = 0
 
     # 1. build
-    for name, out in _build.build_all(["rank_gather", "grid_engine"]).items():
+    for name, out in _build.build_all().items():
         print(f"[build] {name}: nvcc {time.time() - t0:.1f}s\n{out.strip()}", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -374,7 +559,67 @@ def main(argv) -> int:
     factored_err = _check_grid_kernel("factored_grid_accumulate", factored_grid_accumulate,
                                       factored_grid_accumulate_ref, fn, grid)
 
-    fast = ["rank_gather2", "rank_ratio_rowsum", "tab[idx]"]
+    # 5b. the sampler's shell step on the inputs of real sample() calls
+    cap = tr.capacity
+    n_shells = cfg.n_shells
+    totals = {"rows": 0, "differ": 0, "err": 0.0}
+    fullest, fullest_live, fullest_stats = None, -1, None
+    for label, n_samp in (("first", tr.n_samples), ("steady", 1e5)):
+        b_rec, shells = _record_sample(
+            sampler_mod, lambda: sampler_mod.sample(tr.model, tr.gen, n_samp, cap))
+        if len(shells) != n_shells or any(len(sh) != 2 for sh in shells):
+            raise SystemExit("sample() did not call both wrappers once per shell")
+        print(f"[shell] sample() at n_samples={n_samp:.0e}, capacity {cap}: n_unique="
+              f"{int(b_rec.n_unique)} overflow={bool(b_rec.overflow)}", flush=True)
+        for j, (split_args, compact_args) in enumerate(shells):
+            st = _check_split(f"{label} shell {j}", split_args, totals)
+            n_kids = _check_compact(f"{label} shell {j}", compact_args)
+            live = cap - st["dead_rows"]
+            print(f"[shell] {label} j={j}: live rows {live}, binomials of live rows: "
+                  f"{st['gauss']} Gaussian, {st['cdf']} inverse CDF ({st['cdf_steps']} looks, "
+                  f"longest {st['cdf_longest']}); dead rows {st['dead_rows']}; n_children="
+                  f"{n_kids}; split and compaction bitwise equal to their plain versions",
+                  flush=True)
+            if label == "steady" and live > fullest_live:
+                fullest, fullest_live, fullest_stats = (split_args, compact_args), live, st
+    syn = _synthetic_split(cap, dev)
+    st = _check_split("synthetic", (*syn, None, None), totals)
+    print(f"[shell] synthetic split of {cap} rows: {st['gauss']} Gaussian, {st['cdf']} inverse "
+          f"CDF binomials ({st['cdf_steps']} looks, longest {st['cdf_longest']}), dead rows "
+          f"{st['dead_rows']}", flush=True)
+    if st["gauss"] > 0.01 * st["cdf"] or st["cdf_longest"] < 40:
+        raise SystemExit("the synthetic split did not force the inverse CDF")
+    print(f"[kernel] multinomial4_split: {totals['differ']} of {totals['rows']} rows differ "
+          f"from the plain version over {2 * n_shells} real shells and the synthetic case "
+          f"(max_abs_err={totals['err']}); row sums exact with mask=None", flush=True)
+    gen5 = torch.Generator(device=dev).manual_seed(6)
+    over = (torch.randint(0, 1 << n_shells, (cap,), generator=gen5, device=dev),
+            torch.randint(0, 1 << n_shells, (cap,), generator=gen5, device=dev),
+            torch.rand((cap, 4), generator=gen5, device=dev, dtype=torch.float64),
+            torch.rand((cap, 4), generator=gen5, device=dev) < 0.5, n_shells - 1, cap)
+    n_kids = _check_compact("overflowing compaction", over)
+    print(f"[kernel] compact_children: bitwise equal to its plain version on {2 * n_shells} "
+          f"real shells and on {n_kids} valid children into {cap} slots", flush=True)
+    if n_kids <= cap:
+        raise SystemExit("the overflowing compaction did not overflow")
+    zero_counts()
+    dens_k = sampler_mod.sample_density(tr.model, 1e-6, cap)
+    dens_launches = _compact_children.launches
+    sampler_mod._compact_children = _compact_children_ref
+    dens_p = sampler_mod.sample_density(tr.model, 1e-6, cap)
+    sampler_mod._compact_children = _compact_children
+    dens_same = all(torch.equal(getattr(dens_k, f), getattr(dens_p, f))
+                    for f in ("states", "counts", "n_unique", "overflow"))
+    print(f"[density] sample_density(d_p=1e-6, capacity {cap}): n_unique="
+          f"{int(dens_k.n_unique)} overflow={bool(dens_k.overflow)} mass="
+          f"{float(dens_k.counts.sum()):.6f}; through compact_children ({dens_launches} "
+          f"launches) and through its plain version: bitwise equal={dens_same}", flush=True)
+    if not (dens_same and dens_launches == n_shells and int(dens_k.n_unique) > 0):
+        raise SystemExit("sample_density through the kernel differs from the plain version")
+    del shells, syn, over
+
+    fast = ["rank_gather2", "rank_ratio_rowsum", "tab[idx]", "multinomial4_split",
+            "compact_children"]
     idx = rank_index(spec, s[:, None] ^ xy[None, :])
     fns = {
         "rank_gather2": lambda: rank_gather2(spec, s, xy, table),
@@ -386,6 +631,30 @@ def main(argv) -> int:
         "rank_gather2 + eager epilogue": lambda: ratio_rowsum(
             *rank_gather2(spec, s, xy, table), my_la, my_ph, h),
     }
+    split_args, compact_args = fullest
+    s_counts, s_probs, s_z, s_u, s_mask, s_valid = split_args
+    free = multinomial4_split(s_counts, s_probs, s_z, s_u, None, s_valid)[0]
+    p64 = s_probs.double()
+    ps64 = torch.cumsum(p64, dim=-1)
+    condp = torch.where(ps64 > 0, p64 / torch.clamp(ps64, min=1e-300), 0.0)
+    n3 = torch.where(s_valid, s_counts, 0.0)
+    binom_np = [(n3, condp[:, 3].contiguous()), (n3 - free[:, 3], condp[:, 2].contiguous()),
+                (n3 - free[:, 3] - free[:, 2], condp[:, 1].contiguous())]
+    flat_w, flat_valid = compact_args[2].reshape(-1), compact_args[3].reshape(-1)
+    fns.update({
+        "multinomial4_split": lambda: multinomial4_split(*split_args),
+        "compact_children": lambda: _compact_children(*compact_args),
+        "compact_children_ref": lambda: _compact_children_ref(*compact_args),
+        "masked_select(weights)": lambda: torch.masked_select(flat_w, flat_valid),
+        "3 x torch.binomial": lambda: [torch.binomial(n, p) for n, p in binom_np],
+    })
+    before = _split_before(s_counts, s_probs, s_z, s_u, s_mask)
+    want_split = multinomial4_split_ref(*split_args)[0]
+    n_before = int((before != want_split).any(-1).sum())
+    print(f"[shell] the steady-state shell with the most live rows: {fullest_live} live of "
+          f"{cap}; the (U, 127) cumprod/cumsum split of before gives other counts than the "
+          f"plain version on {n_before} rows (it forms the pmf ratio first)", flush=True)
+    del before, want_split
     old_name = "two-channel rank_gather2"
     if "--before" in argv:
         old = _before_dyn_gather(os.path.abspath(argv[argv.index("--before") + 1]))
@@ -406,32 +675,41 @@ def main(argv) -> int:
     # 6. the main path: 5 training steps through the default dispatch
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    n_updates, t_fact = _steps(tr, 5, "factored")
+    n_updates, t_fact, n_draws = _steps(tr, 5, "factored")
     fact_launches = factored_grid_accumulate.launches
+    split_launches, compact_launches = multinomial4_split.launches, _compact_children.launches
     print(f"[path] default dispatch ({type(tr.dt.dense).__name__}): factored_grid_accumulate "
           f"launches in 5 steps: {fact_launches} (expected one per local_energy call, "
           f"{n_updates} vmc_update calls); rank_ratio_rowsum {rank_ratio_rowsum.launches}, "
           f"rank_gather2 {rank_gather2.launches}, dense_grid_accumulate "
-          f"{dense_grid_accumulate.launches}; peak device memory "
+          f"{dense_grid_accumulate.launches}; multinomial4_split {split_launches} and "
+          f"compact_children {compact_launches} ({n_shells} shells x {n_draws} sample() "
+          f"calls); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if (fact_launches != n_updates or n_updates < 5 or rank_ratio_rowsum.launches
             or rank_gather2.launches or dense_grid_accumulate.launches):
         raise SystemExit("the main path did not run factored_grid_accumulate once per "
                          "E_loc call, or ran another engine's kernel")
+    if not (split_launches == compact_launches == n_shells * n_draws and n_draws >= 5):
+        raise SystemExit("the main path did not run the sampler's kernels once per shell")
 
     # 7. the earlier main path: the same trainer on the rank engine
     per_call = -(-tr.capacity // chunk)
     tr.dt = dt_rank
     zero_counts()
-    n_updates, t_rank = _steps(tr, 2, "rank")
+    n_updates, t_rank, n_draws = _steps(tr, 2, "rank")
     ratio_launches = rank_ratio_rowsum.launches
     print(f"[path] rank engine (dense=None): rank_ratio_rowsum launches in 2 steps: "
           f"{ratio_launches} ({per_call} per local_energy call, {n_updates} vmc_update calls); "
           f"rank_gather2: {rank_gather2.launches}; factored_grid_accumulate: "
-          f"{factored_grid_accumulate.launches}", flush=True)
+          f"{factored_grid_accumulate.launches}; multinomial4_split "
+          f"{multinomial4_split.launches}, compact_children {_compact_children.launches} "
+          f"({n_draws} sample() calls)", flush=True)
     if ratio_launches != per_call * n_updates or n_updates < 2 or \
             factored_grid_accumulate.launches:
         raise SystemExit("the rank path did not run rank_ratio_rowsum once per chunk")
+    if not multinomial4_split.launches == _compact_children.launches == n_shells * n_draws:
+        raise SystemExit("the rank path did not run the sampler's kernels once per shell")
     tr.dt = dt
     print(f"[path] step time, same trainer, same call: factored steps 2-5 "
           f"{min(t_fact[1:]):.3f}-{max(t_fact[1:]):.3f} s, rank steps 6-7 "
@@ -494,13 +772,18 @@ def main(argv) -> int:
           f"{dn.h_dense.numel() * 4 / 2**20:.1f} MiB, {d_pairs} valid (mask, cell) pairs; "
           f"{time.time() - t1:.1f}s", flush=True)
     zero_counts()
-    n_updates, _ = _steps(tr2, 3, "dense")
+    n_updates, _, n_draws = _steps(tr2, 3, "dense")
     dense_launches = dense_grid_accumulate.launches
     print(f"[path] N2 default dispatch (DenseTerms): dense_grid_accumulate launches in 3 "
           f"steps: {dense_launches} ({n_updates} vmc_update calls); others "
-          f"{[w.launches for w in wrappers[:3]]}", flush=True)
+          f"{[w.launches for w in wrappers[:3]]}; multinomial4_split "
+          f"{multinomial4_split.launches}, compact_children {_compact_children.launches} "
+          f"({cfg2.n_shells} shells x {n_draws} sample() calls)", flush=True)
     if dense_launches != n_updates or n_updates < 3 or any(w.launches for w in wrappers[:3]):
         raise SystemExit("N2 did not run dense_grid_accumulate once per E_loc call")
+    if not (multinomial4_split.launches == _compact_children.launches
+            == cfg2.n_shells * n_draws):
+        raise SystemExit("N2 did not run the sampler's kernels once per shell")
     batch2 = tr2._sample()
     with torch.no_grad():
         la2, ph2 = log_psi(tr2.model, batch2.states)
@@ -523,10 +806,15 @@ def main(argv) -> int:
             dt, batch.states, la, ph, batch.n_unique),
         "local_energy (rank engine)": lambda: le.local_energy(
             dt_rank, batch.states, la, ph, batch.n_unique),
+        "multinomial4_split_ref": lambda: multinomial4_split_ref(*split_args),
+        "(U, 127) cumprod/cumsum split": lambda: _split_before(s_counts, s_probs, s_z, s_u,
+                                                               s_mask),
+        "sample() at capacity 100,000": lambda: sampler_mod.sample(tr.model, tr.gen, 1e5, cap),
     }
     times.update(time_in_turns(slow_fns, SLOW_REPEATS, SLOW_LAUNCHES))
     print(f"[time] {REPEATS} repeats of {LAUNCHES} launches ({SLOW_REPEATS} of "
-          f"{SLOW_LAUNCHES} for the grid kernels, their plain versions and local_energy), the "
+          f"{SLOW_LAUNCHES} for the grid kernels, their plain versions, local_energy, the "
+          f"split's plain version, the split of before and sample()), the "
           f"functions in turns; held: behind a {hold:.1f} ms card sleep, so the launches run "
           f"back to back (the card's time); unheld: a plain loop (the host's rate where that "
           f"is slower)", flush=True)
@@ -562,6 +850,30 @@ def main(argv) -> int:
           f"h_dense, the maps, the grid and the output once; {d_ops} float32 operations on "
           f"{d_pairs} valid pairs)", flush=True)
 
+    # the sampler's kernels: a dead row reads its count and its flag and writes zeros; a
+    # live row also reads its probs, mask and six draws. The compaction reads the flags,
+    # a and b of the rows with a valid child and each kept child's weight, and writes
+    # every slot of the four outputs.
+    st = fullest_stats
+    p_size = s_probs.element_size() * 4
+    sp_bytes = cap * (8 + 1 + 32 + 4) + fullest_live * (p_size + 4 + 24)
+    sp_f64, sp_f32 = fullest_live * SPLIT_ROW_OPS, st["cdf_steps"] * CDF_LOOK_OPS
+    sp_ops_ms = (sp_f64 / H100_FP64_OPS_PER_S + sp_f32 / H100_FP32_OPS_PER_S) * 1e3
+    sp_bytes_ms = sp_bytes / H100_BYTES_PER_S * 1e3
+    sp_bound = (max(sp_bytes_ms, sp_ops_ms), "bytes" if sp_bytes_ms >= sp_ops_ms else "operations")
+    flags = compact_args[3]
+    n_parents, n_kids = int(flags.any(-1).sum()), int(flags.sum())
+    cp_bytes = cap * 4 + n_parents * 16 + min(n_kids, cap) * 8 + cap * (24 + 1) + 8
+    cp_bound = _bound(cp_bytes, cap * COMPACT_ROW_OPS)
+    print(f"[bound] multinomial4_split {sp_bound[0]:.5f} ms ({sp_bound[1]}: {sp_bytes} B = "
+          f"{cap} rows x 45 B (count, flag, outputs) + {fullest_live} live rows x "
+          f"{p_size + 28} B (probs, mask, six draws); {sp_f64} float64 operations at "
+          f"{H100_FP64_OPS_PER_S:.3g}/s + {sp_f32} float32 operations on {st['cdf_steps']} "
+          f"looks of the inverse CDF: {sp_ops_ms:.5f} ms)", flush=True)
+    print(f"[bound] compact_children {cp_bound[0]:.5f} ms ({cp_bound[1]}: {cp_bytes} B = flags "
+          f"{cap * 4} B, a and b of {n_parents} parents, {min(n_kids, cap)} weights, four "
+          f"outputs {cap * 25} B; {cap * COMPACT_ROW_OPS} integer operations)", flush=True)
+
     if "--profile" in argv:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -584,7 +896,8 @@ def main(argv) -> int:
                         if e.device_type == DeviceType.CUDA)
             print(f"[profile] {label}: {total / 1e3:.1f} ms device time in the step", flush=True)
             for e in events:
-                if ("rank_" in e.key or "grid_accumulate" in e.key) \
+                if any(k in e.key for k in ("rank_", "grid_accumulate", "multinomial4_split",
+                                            "compact_children", "cumsum", "cumprod")) \
                         and e.self_device_time_total > 0:
                     print(f"[profile] {label} {e.key}: {e.count} launches, "
                           f"{e.self_device_time_total / 1e3:.3f} ms device time, "
@@ -623,6 +936,18 @@ def main(argv) -> int:
         entry("dense_grid_accumulate", dense_launches, dense_err, "dense_grid_accumulate_ref",
               d_bound, None, replaces="naqs_tpu/ops/dense_engine.py:279",
               library_note=no_call, **GRID_SRC),
+        entry("multinomial4_split", split_launches, totals["err"], "multinomial4_split_ref",
+              sp_bound, "3 x torch.binomial", replaces="naqs_tpu/ops/multinomial.py:76",
+              library_note="three torch.binomial calls on the cascade's (n, p): the same "
+                           "distribution by another algorithm, without the mask",
+              before_ms=times["(U, 127) cumprod/cumsum split"][0],
+              rows_differing=totals["differ"], **SHELL_SRC),
+        entry("compact_children", compact_launches, 0.0, "compact_children_ref", cp_bound,
+              "masked_select(weights)", replaces="naqs_tpu/sampler.py:49",
+              library_note="torch.masked_select of the weights: one of the three arrays, "
+                           "no zero fill, no flags, no count",
+              before_ms=times["compact_children_ref"][0],
+              sample_call_ms=times["sample() at capacity 100,000"][0], **SHELL_SRC),
     ]}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,15 @@ A port of `naqs_tpu` (JAX) that mirrors its module layout. It imports
 neither JAX nor `naqs_tpu`. Entry points run on the CUDA card unless the
 caller passes `device="cpu"`. Its kernels are hand-written CUDA
 (`csrc/rank_gather.cu`: the rank engine's psi lookup; `csrc/grid_engine.cu`:
-the grid engines' accumulation), built with nvcc on first use.
+the grid engines' accumulation; `csrc/sampler_step.cu`: the sampler's count
+split and frontier compaction), built with nvcc on first use.
 """
 
 __version__ = "0.1.0"
 
 from naqs_tpu_torch.hamiltonian import PauliTerms, compile_pauli_terms  # noqa: F401
 from naqs_tpu_torch.models.nade import NAQSConfig  # noqa: F401
+from naqs_tpu_torch.sampler import SampleBatch, sample, sample_density  # noqa: F401
 from naqs_tpu_torch.trainer import TrainConfig, VMCTrainer  # noqa: F401
 from naqs_tpu_torch.utils.hilbert import Hilbert  # noqa: F401
 from naqs_tpu_torch.utils.molecule import Molecule, load_molecule  # noqa: F401

@@ -17,6 +17,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "naqs_tpu_torch")
+SOURCES = ("rank_gather", "grid_engine", "sampler_step")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -64,7 +65,7 @@ def _finish(job) -> str:
     return out
 
 
-def build_all(names) -> dict:
+def build_all(names=SOURCES) -> dict:
     """Compile every stale kernel in parallel; returns nvcc's output by name
     (its -Xptxas -v register and shared-memory report)."""
     jobs = {n: _start(n) for n in names if _stale(n)}

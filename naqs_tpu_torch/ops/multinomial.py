@@ -7,50 +7,217 @@ of `naqs_tpu/ops/multinomial.py`, with the same sampler:
     far below VMC sampling noise),
   * else: exact inverse-CDF over a 128-wide support window using the pmf
     ratio recurrence, with the p > 1/2 flip so the window starts at 0.
-The inverse CDF is evaluated for all 128 support points at once (a cumulative
-product over a (U, 127) tensor) instead of a 127-step loop. Per-row sums are
-conserved exactly by construction. Random numbers come from the caller's
-torch.Generator, so they differ from the JAX stream.
+Per-row sums are conserved exactly by construction.
+
+The draws are separate from the arithmetic. `split_draws` takes the normal
+and uniform numbers of one split from the caller's torch.Generator (so they
+differ from the JAX stream); `multinomial4_split(counts, probs, z, u, mask,
+valid)` is a pure function of its inputs. On a CUDA tensor it launches the
+hand-written kernel `multinomial4_split` of `csrc/sampler_step.cu` (one
+thread per frontier row, built by nvcc at first use) or raises; on a CPU
+tensor it runs the plain PyTorch version `multinomial4_split_ref`, which
+keeps the JAX order of operations, step by step. There is no fallback from
+one to the other. `multinomial4_split.launches` counts kernel launches.
+
+The kernel does the plain version's arithmetic in the same order with no
+fused multiply-add (it names the rounding of every product and sum), leaves
+the CDF loop once u <= cdf (the CDF never falls, so no later step can count)
+and skips dead rows, whose result is zero in the plain version too.
 """
 
 from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
 
 import torch
 
 _SMALL_SUPPORT = 128
 _GAUSS_VAR_MIN = 25.0
 
+_INT = ctypes.c_int
+_PTR = ctypes.c_void_p
 
-def binomial(gen: torch.Generator, n: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """Sample k ~ Binomial(n, p) elementwise. n: f64 counts >= 0, p in [0, 1]."""
-    n = n.to(torch.float64)
+
+def split_draws(gen: torch.Generator, n_rows: int, device):
+    """(z, u), each (3, n_rows) f32: the standard normal and the uniform [0, 1)
+    numbers of one 4-way split, one row per binomial of the cascade."""
+    z = torch.randn((3, n_rows), generator=gen, device=device, dtype=torch.float32)
+    u = torch.rand((3, n_rows), generator=gen, device=device, dtype=torch.float32)
+    return z, u
+
+
+def _binomial_from_draws(n, p, z, u):
+    """k ~ Binomial(n, p) elementwise from a normal z and a uniform u (f32).
+    Returns (k, var, small): the sample, the variance that picks the branch
+    and the inverse CDF's count. Follows naqs_tpu/ops/multinomial.py::binomial
+    operation by operation; the loop index is a device tensor, so that the
+    division by it is a true division on every device."""
     p64 = torch.clamp(p.to(torch.float64), 0.0, 1.0)
     flip = p64 > 0.5
     q = torch.where(flip, 1.0 - p64, p64)
     mean = n * q
     var = mean * (1.0 - q)
 
-    z = torch.randn(n.shape, generator=gen, device=n.device, dtype=torch.float32)
     gauss = torch.round(mean + torch.sqrt(torch.clamp(var, min=0.0)) * z.to(torch.float64))
 
     # inverse CDF over k = 0..127 in f32: pmf_k = pmf_{k-1} (n-k+1)/k * odds,
     # small = #{k in 1..127 : u > cdf_{k-1}}
-    u = torch.rand(n.shape, generator=gen, device=n.device, dtype=torch.float32)
-    pmf0 = torch.exp((n * torch.log1p(-torch.clamp(q, max=1.0 - 1e-15))).to(torch.float32))
-    nf = n.to(torch.float32)[..., None]
+    pmf = torch.exp((n * torch.log1p(-torch.clamp(q, max=1.0 - 1e-15))).to(torch.float32))
+    nf = n.to(torch.float32)
     qf = q.to(torch.float32)
-    odds = (qf / torch.clamp(1.0 - qf, min=1e-30))[..., None]
-    j = torch.arange(1, _SMALL_SUPPORT, device=n.device, dtype=torch.float32)
-    ratio = torch.clamp(nf - j + 1.0, min=0.0) / j * odds
-    pmf = torch.cat([pmf0[..., None], pmf0[..., None] * torch.cumprod(ratio, dim=-1)],
-                    dim=-1)
-    cdf = torch.cumsum(pmf[..., :-1], dim=-1)   # cdf_{k-1}, k = 1..127
-    small = torch.sum(u[..., None] > cdf, dim=-1).to(torch.float64)
+    odds = qf / torch.clamp(1.0 - qf, min=1e-30)
+    cdf = pmf
+    small = torch.zeros_like(pmf)
+    for kf in torch.arange(1, _SMALL_SUPPORT, device=n.device, dtype=torch.float32):
+        pmf = pmf * torch.clamp(nf - kf + 1.0, min=0.0) / kf * odds
+        small = small + (u > cdf)
+        cdf = cdf + pmf
+    small = small.to(torch.float64)
 
     k = torch.where(var > _GAUSS_VAR_MIN, gauss, small)
     k = torch.minimum(torch.clamp(k, min=0.0), n)
     k = torch.where(q <= 0.0, 0.0, torch.where(q >= 1.0, n, k))
-    return torch.where(flip, n - k, k)
+    return torch.where(flip, n - k, k), var, small
+
+
+def binomial(gen: torch.Generator, n: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Sample k ~ Binomial(n, p) elementwise. n: f64 counts >= 0, p in [0, 1].
+    The plain arithmetic of the split, on any device."""
+    n = n.to(torch.float64)
+    z = torch.randn(n.shape, generator=gen, device=n.device, dtype=torch.float32)
+    u = torch.rand(n.shape, generator=gen, device=n.device, dtype=torch.float32)
+    return _binomial_from_draws(n, p, z, u)[0]
+
+
+def multinomial4_split_ref(counts, probs, z, u, mask=None, valid=None, stats=None):
+    """Plain PyTorch version of `multinomial4_split`, in the JAX order of
+    operations (naqs_tpu/ops/multinomial.py::multinomial4). A dict passed as
+    `stats` receives how many binomials of live rows took each branch, the
+    dead rows and the longest inverse-CDF loop."""
+    rem = counts.to(torch.float64)
+    p = probs.to(torch.float64)
+    ps = [p[:, 0]]
+    for i in (1, 2, 3):
+        ps.append(ps[-1] + p[:, i])
+    ps = torch.stack(ps, dim=-1)
+    condp = torch.where(ps > 0, p / torch.clamp(ps, min=1e-300), 0.0)
+    live = counts > 0 if valid is None else (counts > 0) & valid
+    tally = {"gauss": 0, "cdf": 0, "cdf_steps": 0, "cdf_longest": 0,
+             "dead_rows": int((~live).sum())} if stats is not None else None
+    out = []
+    for i in (3, 2, 1):
+        k, var, small = _binomial_from_draws(rem, condp[:, i], z[3 - i], u[3 - i])
+        if tally is not None:
+            in_cdf = live & ~(var > _GAUSS_VAR_MIN)
+            # the kernel compares u with cdf_0 .. cdf_small: small + 1 looks, 127 at most
+            looks = torch.clamp(small[in_cdf] + 1, max=_SMALL_SUPPORT - 1)
+            tally["gauss"] += int((live & (var > _GAUSS_VAR_MIN)).sum())
+            tally["cdf"] += int(in_cdf.sum())
+            tally["cdf_steps"] += int(looks.sum())
+            if looks.numel():
+                tally["cdf_longest"] = max(tally["cdf_longest"], int(looks.max()))
+        c = torch.minimum(k, rem)
+        out.append(c)
+        rem = rem - c
+    out.append(rem)
+    child = torch.stack(out[::-1], dim=-1)
+    if mask is not None:
+        child = child * mask
+    child_valid = child > 0
+    if valid is not None:
+        child = torch.where(valid[:, None], child, 0.0)
+        child_valid = child_valid & valid[:, None]
+    if stats is not None:
+        stats.update(tally)
+    return child, child_valid
+
+
+@lru_cache(maxsize=1)
+def _lib():
+    from naqs_tpu_torch.ops import _build
+
+    lib = _build.load("sampler_step")
+    lib.multinomial4_split.argtypes = [_PTR] * 8 + [_INT, _INT, _PTR]
+    lib.compact_children.argtypes = [_PTR] * 9 + [_INT, _INT, _PTR]
+    lib.multinomial4_split.restype = lib.compact_children.restype = _INT
+    lib.sampler_step_error_string.argtypes = [_INT]
+    lib.sampler_step_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_tensors(name, anchor, want):
+    """Raise on anything the kernels of csrc/sampler_step.cu do not take.
+    `want` maps a field's name to (tensor, dtypes, shape); every tensor must
+    lie on `anchor`'s device and, on the card, be contiguous, 16-byte aligned
+    and hold fewer than 2^31 elements. The plain versions take strided CPU
+    tensors."""
+    dev = anchor.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for key, (t, dtypes, shape) in want.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {key} on {t.device}, expected {dev}")
+        dense = t.is_contiguous() or dev.type == "cpu"
+        if t.dtype not in dtypes or tuple(t.shape) != shape or not dense:
+            raise ValueError(
+                f"{name}: {key} must be a contiguous {' or '.join(map(str, dtypes))} of "
+                f"shape {shape}, got {t.dtype} of shape {tuple(t.shape)}"
+                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+        if dev.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+        if t.numel() >= 1 << 31:
+            raise ValueError(f"{name}: {key} must hold fewer than 2^31 elements")
+
+
+def launch(name, args, device):
+    """Launch kernel `name` of csrc/sampler_step.cu on the device's current
+    stream; tensors among `args` pass as pointers (None as a null pointer),
+    ints as they are. Checks and counts nothing: the public wrappers do both."""
+    lib = _lib()
+    flat = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*flat, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        msg = lib.sampler_step_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+
+
+def multinomial4_split(counts, probs, z, u, mask=None, valid=None):
+    """Split counts (U,) f64 >= 0 over 4 children by probs (U, 4) f32 or f64
+    (>= 0, need not be normalized) with the draws z, u (3, U) f32 of
+    `split_draws`.
+
+    Returns (child_counts (U, 4) f64, child_valid (U, 4) bool): per row
+    child_counts ~ Multinomial(counts, probs / sum(probs)), with row sums
+    preserved exactly and the full count on child 0 where probs are all zero;
+    then multiplied by `mask` (U, 4) bool where given (children that are not
+    allowed lose their count) and zero in rows where `valid` (U,) bool is
+    false. child_valid = child_counts > 0.
+    """
+    n = counts.shape[0]
+    b = (torch.bool,)
+    want = {"counts": (counts, (torch.float64,), (n,)),
+            "probs": (probs, (torch.float32, torch.float64), (n, 4)),
+            "z": (z, (torch.float32,), (3, n)), "u": (u, (torch.float32,), (3, n))}
+    if mask is not None:
+        want["mask"] = (mask, b, (n, 4))
+    if valid is not None:
+        want["valid"] = (valid, b, (n,))
+    check_tensors("multinomial4_split", counts, want)
+    if counts.device.type == "cpu":
+        return multinomial4_split_ref(counts, probs, z, u, mask, valid)
+    child = torch.empty((n, 4), dtype=torch.float64, device=counts.device)
+    child_valid = torch.empty((n, 4), dtype=torch.bool, device=counts.device)
+    if n == 0:
+        return child, child_valid
+    launch("multinomial4_split", (counts, probs, z, u, mask, valid, child, child_valid,
+                                  n, int(probs.dtype == torch.float64)), counts.device)
+    multinomial4_split.launches += 1
+    return child, child_valid
+
+
+multinomial4_split.launches = 0
 
 
 def multinomial4(gen: torch.Generator, counts: torch.Tensor,
@@ -61,14 +228,6 @@ def multinomial4(gen: torch.Generator, counts: torch.Tensor,
     out[u] ~ Multinomial(counts[u], probs[u] / sum(probs[u])).
     Rows with all-zero probs put their full count on child 0.
     """
-    rem = counts.to(torch.float64)
-    p = probs.to(torch.float64)
-    ps = torch.cumsum(p, dim=-1)
-    condp = torch.where(ps > 0, p / torch.clamp(ps, min=1e-300), 0.0)
-    out = []
-    for i in (3, 2, 1):
-        c = torch.minimum(binomial(gen, rem, condp[:, i]), rem)
-        out.append(c)
-        rem = rem - c
-    out.append(rem)
-    return torch.stack(out[::-1], dim=-1)
+    counts = counts.to(torch.float64)
+    z, u = split_draws(gen, counts.shape[0], counts.device)
+    return multinomial4_split(counts, probs, z, u)[0]

@@ -1,13 +1,24 @@
 """Exact autoregressive ancestral sampling over unique states.
 
-Port of `naqs_tpu/sampler.py::sample`: samples are counted over UNIQUE
+Port of `naqs_tpu/sampler.py`: samples are counted over UNIQUE
 configurations, so cost scales with support size, not sample count. The
 frontier is a fixed-capacity buffer; at each shell every frontier state's
-count is split over its 4 child occupations (multinomial4) and the valid
-children are compacted into a fresh buffer by a cumsum-scatter. Exceeding
-capacity sets an overflow flag, which the trainer's controller answers by
-shrinking the sample count. The shell loop is a Python loop; sampling is
-gradient-free.
+count is split over its 4 child occupations (`multinomial4_split`) and the
+valid children are compacted, in order, into a fresh buffer
+(`_compact_children`). Exceeding capacity sets an overflow flag, which the
+trainer's controller answers by shrinking the sample count. The shell loop is
+a Python loop; sampling is gradient-free. `sample_density` walks the same
+shells deterministically and keeps every child whose probability mass
+reaches a threshold.
+
+On the card the shell step is two hand-written kernels of
+`csrc/sampler_step.cu`, `multinomial4_split` (`ops/multinomial.py`) and
+`compact_children` (here), and reads nothing back to the host. On a CUDA
+tensor `_compact_children` launches its kernel or raises; on a CPU tensor it
+runs the plain PyTorch version `_compact_children_ref`, a cumsum-scatter as
+in the JAX package. There is no fallback from one to the other; the integer
+scan makes the two equal bit for bit. `_compact_children.launches` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -18,7 +29,8 @@ import numpy as np
 import torch
 
 from naqs_tpu_torch.models.nade import NADE, amp_conditional_shell
-from naqs_tpu_torch.ops.multinomial import multinomial4
+from naqs_tpu_torch.ops.multinomial import (check_tensors, launch, multinomial4_split,
+                                            split_draws)
 from naqs_tpu_torch.utils.bits import SENTINEL
 
 
@@ -32,11 +44,9 @@ class SampleBatch:
     overflow: torch.Tensor  # () bool: frontier exceeded capacity
 
 
-def _compact_children(a, b, child_weights, child_valid, j: int, cap: int):
-    """Scatter the valid (parent, occupation) children of a (cap, 4) frontier
-    expansion into a fresh cap-sized buffer, preserving order. Children
-    beyond capacity land on a dummy slot and are dropped (callers flag
-    overflow from the returned n_children)."""
+def _compact_children_ref(a, b, child_weights, child_valid, j: int, cap: int):
+    """Plain PyTorch version of `_compact_children`: a cumsum-scatter. Children
+    beyond capacity land on a dummy slot and are dropped."""
     dev = a.device
     flat_w = child_weights.reshape(-1)
     flat_valid = child_valid.reshape(-1)
@@ -55,6 +65,70 @@ def _compact_children(a, b, child_weights, child_valid, j: int, cap: int):
 
     valid_new = torch.arange(cap, device=dev) < torch.clamp(n_children, max=cap)
     return scatter(a_vals), scatter(b_vals), scatter(flat_w), valid_new, n_children
+
+
+def _compact_children(a, b, child_weights, child_valid, j: int, cap: int):
+    """Scatter the valid (parent, occupation) children of a (cap, 4) frontier
+    expansion into a fresh cap-sized buffer, preserving row-major order.
+
+    a, b: (cap,) int64 prefix occupation bits; child_weights: (cap, 4) f64;
+    child_valid: (cap, 4) bool. Child (parent, occ) lands on the slot that
+    counts the valid children before it and carries a[parent] | (occ & 1) << j,
+    b[parent] | (occ >> 1) << j and its weight. Returns (a_new, b_new, w_new,
+    valid_new, n_children): slots from n_children on hold zeros, children at
+    slots >= cap are dropped, and n_children, a () int64 on the device, is
+    the true count (callers flag overflow from it without a readback).
+    """
+    i64, f64 = (torch.int64,), (torch.float64,)
+    check_tensors("compact_children", a, {
+        "a": (a, i64, (cap,)), "b": (b, i64, (cap,)),
+        "child_weights": (child_weights, f64, (cap, 4)),
+        "child_valid": (child_valid, (torch.bool,), (cap, 4))})
+    if not 0 <= j < 63:
+        raise ValueError(f"compact_children: shell {j} does not fit an int64 word")
+    if not 0 < 4 * cap < 1 << 31:
+        raise ValueError("compact_children: 4 * cap must be positive and below 2^31")
+    if a.device.type == "cpu":
+        return _compact_children_ref(a, b, child_weights, child_valid, j, cap)
+    a_new, b_new = torch.empty_like(a), torch.empty_like(b)
+    w_new = torch.empty((cap,), dtype=torch.float64, device=a.device)
+    valid_new = torch.empty((cap,), dtype=torch.bool, device=a.device)
+    n_children = torch.empty((), dtype=torch.int64, device=a.device)
+    launch("compact_children", (a, b, child_weights, child_valid, a_new, b_new, w_new,
+                                valid_new, n_children, cap, j), a.device)
+    _compact_children.launches += 1
+    return a_new, b_new, w_new, valid_new, n_children
+
+
+_compact_children.launches = 0
+
+
+def _root(cap: int, weight: float, dev):
+    """The frontier before shell 0: one live state carrying `weight`."""
+    a = torch.zeros((cap,), dtype=torch.int64, device=dev)
+    w = torch.zeros((cap,), dtype=torch.float64, device=dev)
+    w[0] = weight
+    valid = torch.zeros((cap,), dtype=torch.bool, device=dev)
+    valid[0] = True
+    return a, torch.zeros_like(a), w, valid, torch.zeros((), dtype=torch.bool, device=dev)
+
+
+def _prefix_bits(a, b, shells):
+    return (a[:, None] >> shells) & 1, (b[:, None] >> shells) & 1
+
+
+def _batch(cfg, a, b, weights, valid, overflow, shells) -> SampleBatch:
+    """Pack model-order spin bits into state-order int64 bitstrings and sort."""
+    order = np.asarray(cfg.shell_order, dtype=np.int64)
+    wa = torch.as_tensor(np.int64(1) << (2 * order), device=a.device)
+    alpha, beta_bits = _prefix_bits(a, b, shells)
+    states = torch.sum(alpha * wa + beta_bits * (wa << 1), dim=-1)
+    states = torch.where(valid, states, SENTINEL)
+
+    states, perm = torch.sort(states)
+    weights = torch.where(valid[perm], weights[perm], 0.0)
+    return SampleBatch(states=states, counts=weights, n_unique=valid.sum(),
+                       overflow=overflow)
 
 
 @torch.no_grad()
@@ -76,40 +150,46 @@ def sample(
     s = cfg.n_shells
     cap = capacity
     dev = next(model.parameters()).device
-
-    a = torch.zeros((cap,), dtype=torch.int64, device=dev)
-    b = torch.zeros_like(a)
-    counts = torch.zeros((cap,), dtype=torch.float64, device=dev)
-    counts[0] = float(n_samples)
-    valid = torch.zeros((cap,), dtype=torch.bool, device=dev)
-    valid[0] = True
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    a, b, counts, valid, overflow = _root(cap, float(n_samples), dev)
     shells = torch.arange(s, device=dev)
 
     for j in range(s):
-        alpha = (a[:, None] >> shells) & 1
-        beta_bits = (b[:, None] >> shells) & 1
-        log_amp4, mask, probs = amp_conditional_shell(model, j, alpha, beta_bits)
+        log_amp4, mask, probs = amp_conditional_shell(model, j, *_prefix_bits(a, b, shells))
         if beta != 1.0:
             # log-space tempering: masked options carry log_amp -> -inf-ish,
             # so exp gives exact zeros; renormalize over the valid options
             pt = torch.exp(2.0 * beta * log_amp4.to(torch.float64))
             probs = pt / torch.clamp(pt.sum(dim=-1, keepdim=True), min=1e-300)
-        child_counts = multinomial4(gen, counts, probs) * mask   # drop unphysical
-        child_valid = (child_counts > 0) & valid[:, None]
+        z, u = split_draws(gen, cap, dev)
+        # the mask drops unphysical children; valid = (count > 0) on live rows
+        child_counts, child_valid = multinomial4_split(counts, probs, z, u, mask, valid)
         a, b, counts, valid, n_children = _compact_children(
             a, b, child_counts, child_valid, j, cap)
         overflow = overflow | (n_children > cap)
+    return _batch(cfg, a, b, counts, valid, overflow, shells)
 
-    # pack model-order spin bits into state-order int64 bitstrings
-    order = np.asarray(cfg.shell_order, dtype=np.int64)
-    wa = torch.as_tensor(np.int64(1) << (2 * order), device=dev)
-    alpha = (a[:, None] >> shells) & 1
-    beta_bits = (b[:, None] >> shells) & 1
-    states = torch.sum(alpha * wa + beta_bits * (wa << 1), dim=-1)
-    states = torch.where(valid, states, SENTINEL)
 
-    states, perm = torch.sort(states)
-    counts = torch.where(valid[perm], counts[perm], 0.0)
-    return SampleBatch(states=states, counts=counts, n_unique=valid.sum(),
-                       overflow=overflow)
+@torch.no_grad()
+def sample_density(model: NADE, d_p: float, capacity: int) -> SampleBatch:
+    """Deterministic density sampling: enumerate every configuration whose
+    probability mass reaches `d_p` (beam search over shells). Port of
+    `naqs_tpu/sampler.py::sample_density`.
+
+    The returned `counts` hold the probability mass |psi|^2 of each state
+    (not sample multiplicities); overflow flags a beam wider than `capacity`.
+    """
+    cfg = model.cfg
+    s = cfg.n_shells
+    cap = capacity
+    dev = next(model.parameters()).device
+    a, b, prob, valid, overflow = _root(cap, 1.0, dev)
+    shells = torch.arange(s, device=dev)
+
+    for j in range(s):
+        _, mask, probs = amp_conditional_shell(model, j, *_prefix_bits(a, b, shells))
+        child_prob = prob[:, None] * probs.to(torch.float64) * mask
+        child_valid = (child_prob >= d_p) & valid[:, None]
+        a, b, prob, valid, n_children = _compact_children(
+            a, b, child_prob, child_valid, j, cap)
+        overflow = overflow | (n_children > cap)
+    return _batch(cfg, a, b, prob, valid, overflow, shells)

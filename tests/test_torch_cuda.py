@@ -10,7 +10,10 @@ per row within `rowsum_tolerance` (2e-5 Ha + 1e-6 * sum_k |h| |r|: fp32
 summation order over K terms and expf/sincosf ulps); the grid kernels
 `factored_grid_accumulate` and `dense_grid_accumulate` per cell within
 `grid_tolerance` (1e-6 + 1e-5 * sum_k sum_r |fcoeff| |T_k|: fp32 order over
-the masks, fma against mul + add), and bitwise equal to themselves run twice.
+the masks, fma against mul + add), and bitwise equal to themselves run twice;
+the sampler's `multinomial4_split` and `compact_children` bitwise (the first
+does its plain version's arithmetic with one rounding per operation, the
+second is an integer scan).
 """
 
 import dataclasses
@@ -27,7 +30,10 @@ from naqs_tpu_torch.ops.dense_engine import DenseTerms, FactorTerms, value_grid
 from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, dense_grid_accumulate_ref,
                                              factored_grid_accumulate,
                                              factored_grid_accumulate_ref, grid_tolerance)
+from naqs_tpu_torch.ops.multinomial import (multinomial4_split, multinomial4_split_ref,
+                                            split_draws)
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
+from naqs_tpu_torch.sampler import _compact_children, _compact_children_ref, sample
 
 pytestmark = pytest.mark.cuda
 
@@ -235,5 +241,118 @@ def test_grid_kernel_rejects_bad_inputs(engine):
                 lambda: wrapper(dataclasses.replace(prog, sa=prog.sa - 1), grid),
                 lambda: wrapper(dataclasses.replace(
                     prog, **{field: getattr(prog, field).transpose(0, 1)}), grid)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def _split_inputs(n, kind, dev, f64=False):
+    """(counts, probs, z, u, mask, valid) on the card: 'mixed' rows of both
+    branches with corners (p = 0 and 1, n = 0, 1, 1e12), 'cdf' small variances
+    only, 'dead' no live row."""
+    rng = np.random.default_rng(n)
+    if kind == "cdf":
+        counts = np.floor(10 ** rng.uniform(np.log10(20), np.log10(5000), n))
+        p = 10 ** rng.uniform(-4, np.log10(0.9), (n, 4))
+        p[::2] /= counts[::2, None]
+    else:
+        counts = np.floor(10 ** rng.uniform(0, 12, n))
+        counts[::9] = rng.choice([0.0, 1.0, 1e12], len(counts[::9]))
+        p = rng.uniform(0, 1, (n, 4)) * (rng.uniform(0, 1, (n, 4)) < 0.8)
+        p[::3] *= 10 ** rng.uniform(-8, 0, (len(p[::3]), 4))
+    mask = rng.uniform(0, 1, (n, 4)) < 0.8
+    valid = rng.uniform(0, 1, n) < (0.0 if kind == "dead" else 0.7)
+    t = lambda x: torch.as_tensor(x, device=dev)
+    z, u = split_draws(torch.Generator(device=dev).manual_seed(n), n, dev)
+    return (t(counts), t(p.astype(np.float64 if f64 else np.float32)), z, u, t(mask), t(valid))
+
+
+@pytest.mark.parametrize("n", [1, 31, 257, 100_000])
+@pytest.mark.parametrize("kind,f64,masked", [("mixed", False, True), ("mixed", True, False),
+                                             ("cdf", False, False), ("dead", False, True)])
+def test_multinomial4_split_kernel_matches_plain(n, kind, f64, masked):
+    dev = _card()
+    counts, probs, z, u, mask, valid = _split_inputs(n, kind, dev, f64)
+    more = (mask, valid) if masked else ()
+    before = multinomial4_split.launches
+    got = multinomial4_split(counts, probs, z, u, *more)
+    torch.cuda.synchronize()
+    assert multinomial4_split.launches == before + 1
+    stats = {}
+    want = multinomial4_split_ref(counts, probs, z, u, *more, stats=stats)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    again = multinomial4_split(counts, probs, z, u, *more)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    if not masked:
+        assert torch.equal(got[0].sum(-1), counts)          # row sums exact
+    if kind == "cdf":
+        assert stats["gauss"] < stats["cdf"] and stats["cdf_longest"] > (0 if n < 257 else 20)
+    if kind == "dead":
+        assert stats["dead_rows"] == n and not bool(got[1].any())
+
+
+@pytest.mark.parametrize("cap", [1, 31, 257, 1027, 100_000])
+@pytest.mark.parametrize("fill", [0.0, 0.07, 0.3, 1.0])
+def test_compact_children_kernel_matches_plain(cap, fill):
+    dev = _card()
+    rng = np.random.default_rng(cap)
+    t = lambda x: torch.as_tensor(x, device=dev)
+    a, b = t(rng.integers(0, 1 << 12, cap)), t(rng.integers(0, 1 << 12, cap))
+    w = t(rng.uniform(0, 1, (cap, 4)))
+    flags = t(rng.uniform(0, 1, (cap, 4)) < fill)
+    before = _compact_children.launches
+    got = _compact_children(a, b, w, flags, 12, cap)
+    torch.cuda.synchronize()
+    assert _compact_children.launches == before + 1
+    want = _compact_children_ref(a, b, w, flags, 12, cap)
+    again = _compact_children(a, b, w, flags, 12, cap)
+    for g, x, y in zip(got, want, again):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert torch.equal(g, x) and torch.equal(g, y)
+    if cap > 1000:
+        assert (int(got[4]) > cap) == (fill > 0.25)        # 0.3 and 1.0 overflow
+
+
+def test_sample_on_the_card_conserves_and_sorts():
+    dev = _card()
+    cfg = nt.NAQSConfig(n_qubits=14, sectors=((5, 5),), amp_hidden=(16,), phase_hidden=(8,),
+                        masking="full")
+    from naqs_tpu_torch.models.nade import NADE
+
+    model = NADE(cfg, torch.Generator().manual_seed(0)).to(dev)
+    hil = nt.Hilbert(n_qubits=14, sectors=((5, 5),))
+    counts = (multinomial4_split.launches, _compact_children.launches)
+    batch = sample(model, torch.Generator(device=dev).manual_seed(1), 1e6, 512)
+    assert (multinomial4_split.launches - counts[0], _compact_children.launches - counts[1]) \
+        == (cfg.n_shells, cfg.n_shells)
+    nu = int(batch.n_unique)
+    states = batch.states.cpu().numpy()
+    assert not bool(batch.overflow) and 0 < nu <= hil.size
+    assert np.all(np.diff(states[:nu]) > 0) and np.all(hil.contains(states[:nu]))
+    assert batch.counts.sum().item() == 1e6                  # full masking: nothing lost
+    assert bool((batch.counts[nu:] == 0).all())
+    dense = nt.sample_density(model, 1e-4, 512)
+    assert 0 < int(dense.n_unique) <= nu + 512 and bool((dense.counts[:int(dense.n_unique)]
+                                                         >= 1e-4).all())
+
+
+def test_sampler_kernels_reject_bad_inputs():
+    dev = _card()
+    n = 8
+    counts, probs, z, u, mask, valid = _split_inputs(n, "mixed", dev)
+    a = torch.zeros(n, dtype=torch.int64, device=dev)
+    w = torch.ones((n, 4), dtype=torch.float64, device=dev)
+    wide = torch.ones((n, 8), device=dev)[:, :4]
+    for bad in (lambda: multinomial4_split(counts.float(), probs, z, u),
+                lambda: multinomial4_split(counts, wide, z, u),
+                lambda: multinomial4_split(counts, probs.cpu(), z, u),
+                lambda: multinomial4_split(counts, probs, z[:2], u),
+                lambda: multinomial4_split(counts, probs, z, u, mask.int()),
+                lambda: multinomial4_split(counts, probs, z, u, mask, valid[:-1]),
+                lambda: multinomial4_split(torch.ones(n + 1, dtype=torch.float64,
+                                                      device=dev)[1:], probs, z, u),
+                lambda: _compact_children(a.int(), a, w, mask, 0, n),
+                lambda: _compact_children(a, a, w.t().contiguous().t(), mask, 0, n),
+                lambda: _compact_children(a, a, w, mask.cpu(), 0, n),
+                lambda: _compact_children(a, a, w, mask, 0, n - 1)):
         with pytest.raises(ValueError):
             bad()

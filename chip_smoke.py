@@ -272,34 +272,60 @@ def _steps(tr, n, label):
     return calls[0], times, calls[1]
 
 
-class _Keep:
-    """A wrapper's stand-in that hands every call's arguments to `sink` first.
-    Its launch count is the wrapper's own, so a wrapper that finds this object
-    under its name still counts on itself."""
+def _shell_inputs(model, gen, n_samples, cap):
+    """sampler.sample's shell loop (beta = 1) through the same calls, keeping
+    every shell's inputs: returns (the batch, one (split arguments, compaction
+    arguments) per shell). The caller holds the batch against sample()'s from
+    the same generator state."""
+    import torch
 
-    def __init__(self, wrapper, sink):
-        self.wrapper, self.sink = wrapper, sink
+    from naqs_tpu_torch.models.nade import amp_conditional_shell
+    from naqs_tpu_torch.ops.multinomial import multinomial4_split, split_draws
+    from naqs_tpu_torch.sampler import _batch, _compact_children, _prefix_bits, _root
 
-    def __call__(self, *args):
-        self.sink(args)
-        return self.wrapper(*args)
+    dev = next(model.parameters()).device
+    a, b, counts, valid, overflow = _root(cap, float(n_samples), dev)
+    shells = torch.arange(model.cfg.n_shells, device=dev)
+    kept = []
+    with torch.no_grad():
+        for j in range(model.cfg.n_shells):
+            _, mask, probs = amp_conditional_shell(model, j, *_prefix_bits(a, b, shells))
+            z, u = split_draws(gen, cap, dev)
+            split_args = (counts, probs, z, u, mask, valid)
+            child_counts, child_valid = multinomial4_split(*split_args)
+            compact_args = (a, b, child_counts, child_valid, j, cap)
+            a, b, counts, valid, n_children = _compact_children(*compact_args)
+            overflow = overflow | (n_children > cap)
+            kept.append((split_args, compact_args))
+    return _batch(model.cfg, a, b, counts, valid, overflow, shells), kept
 
-    launches = property(lambda self: self.wrapper.launches,
-                        lambda self, n: setattr(self.wrapper, "launches", n))
+
+def _max_diff(got, want):
+    """Largest absolute difference of two tensors of any dtype, in float64."""
+    return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
 
 
-def _record_sample(sampler_mod, fn):
-    """fn() with the sampler's two wrappers keeping their inputs: returns
-    (fn's result, one [split arguments, compaction arguments] per shell)."""
-    shells = []
-    split, compact = sampler_mod.multinomial4_split, sampler_mod._compact_children
-    sampler_mod.multinomial4_split = _Keep(split, lambda args: shells.append([args]))
-    sampler_mod._compact_children = _Keep(compact, lambda args: shells[-1].append(args))
-    try:
-        out = fn()
-    finally:
-        sampler_mod.multinomial4_split, sampler_mod._compact_children = split, compact
-    return out, shells
+def _split_tally(counts, probs, z, u, valid):
+    """How the plain cascade's binomials of live rows divide: Gaussian or
+    inverse CDF, the looks the kernel's CDF loops take in all and the longest
+    of them, and the dead rows."""
+    import torch
+
+    from naqs_tpu_torch.ops.multinomial import _GAUSS_VAR_MIN, _SMALL_SUPPORT, _cascade
+
+    live = counts > 0 if valid is None else (counts > 0) & valid
+    tally = {"gauss": 0, "cdf": 0, "cdf_steps": 0, "cdf_longest": 0,
+             "dead_rows": int((~live).sum())}
+    for _, var, small in _cascade(counts, probs, z, u)[1]:
+        in_cdf = live & ~(var > _GAUSS_VAR_MIN)
+        # the kernel compares u with cdf_0 .. cdf_small: small + 1 looks, 127 at most
+        looks = torch.clamp(small[in_cdf] + 1, max=_SMALL_SUPPORT - 1)
+        tally["gauss"] += int((live & (var > _GAUSS_VAR_MIN)).sum())
+        tally["cdf"] += int(in_cdf.sum())
+        tally["cdf_steps"] += int(looks.sum())
+        if looks.numel():
+            tally["cdf_longest"] = max(tally["cdf_longest"], int(looks.max()))
+    return tally
 
 
 def _split_before(counts, probs, z, u, mask):
@@ -353,8 +379,7 @@ def _check_split(label, args, totals):
 
     counts, probs, z, u, mask, valid = args
     got = multinomial4_split(*args)
-    stats = {}
-    want = multinomial4_split_ref(*args, stats=stats)
+    want = multinomial4_split_ref(*args)
     free = multinomial4_split(counts, probs, z, u, None, valid)[0]
     torch.cuda.synchronize()
     live_counts = counts if valid is None else torch.where(valid, counts, 0.0)
@@ -367,16 +392,16 @@ def _check_split(label, args, totals):
         and bool((d.sum(-1) <= 2).all()))
     totals["rows"] += counts.shape[0]
     totals["differ"] += n_diff
-    totals["err"] = max(totals["err"], float((got[0] - want[0]).abs().max()))
+    totals["err"] = max(totals["err"], _max_diff(got[0], want[0]))
     if not (ok and sums):
         raise SystemExit(f"{label}: multinomial4_split disagrees with its plain version "
                          f"({n_diff} rows differ, row sums exact={sums})")
-    return stats
+    return _split_tally(counts, probs, z, u, valid)
 
 
-def _check_compact(label, args):
+def _check_compact(label, args, totals):
     """compact_children against its plain version on `args`: all five outputs
-    bitwise. Returns n_children."""
+    bitwise. Adds the largest difference seen to `totals`; returns n_children."""
     import torch
 
     from naqs_tpu_torch.sampler import _compact_children, _compact_children_ref
@@ -384,8 +409,11 @@ def _check_compact(label, args):
     got = _compact_children(*args)
     want = _compact_children_ref(*args)
     torch.cuda.synchronize()
-    if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)):
-        raise SystemExit(f"{label}: compact_children disagrees with its plain version")
+    same = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+    totals["err"] = max([totals["err"]] + [_max_diff(g, w) for g, w in zip(got, want)])
+    if not same:
+        raise SystemExit(f"{label}: compact_children disagrees with its plain version "
+                         f"(max_abs_err={totals['err']})")
     return int(got[4])
 
 
@@ -563,17 +591,22 @@ def main(argv) -> int:
     cap = tr.capacity
     n_shells = cfg.n_shells
     totals = {"rows": 0, "differ": 0, "err": 0.0}
+    compact_totals = {"err": 0.0}
+    batch_fields = ("states", "counts", "n_unique", "overflow")
     fullest, fullest_live, fullest_stats = None, -1, None
     for label, n_samp in (("first", tr.n_samples), ("steady", 1e5)):
-        b_rec, shells = _record_sample(
-            sampler_mod, lambda: sampler_mod.sample(tr.model, tr.gen, n_samp, cap))
-        if len(shells) != n_shells or any(len(sh) != 2 for sh in shells):
-            raise SystemExit("sample() did not call both wrappers once per shell")
+        gen_state = tr.gen.get_state()
+        b_own = sampler_mod.sample(tr.model, tr.gen, n_samp, cap)
+        tr.gen.set_state(gen_state)
+        b_rec, shells = _shell_inputs(tr.model, tr.gen, n_samp, cap)
+        if not all(torch.equal(getattr(b_rec, f), getattr(b_own, f)) for f in batch_fields):
+            raise SystemExit("the kept shell loop is not sample()'s: the batches differ")
         print(f"[shell] sample() at n_samples={n_samp:.0e}, capacity {cap}: n_unique="
-              f"{int(b_rec.n_unique)} overflow={bool(b_rec.overflow)}", flush=True)
+              f"{int(b_rec.n_unique)} overflow={bool(b_rec.overflow)}; the shell loop that "
+              f"keeps its inputs gives the same batch bitwise", flush=True)
         for j, (split_args, compact_args) in enumerate(shells):
             st = _check_split(f"{label} shell {j}", split_args, totals)
-            n_kids = _check_compact(f"{label} shell {j}", compact_args)
+            n_kids = _check_compact(f"{label} shell {j}", compact_args, compact_totals)
             live = cap - st["dead_rows"]
             print(f"[shell] {label} j={j}: live rows {live}, binomials of live rows: "
                   f"{st['gauss']} Gaussian, {st['cdf']} inverse CDF ({st['cdf_steps']} looks, "
@@ -597,9 +630,10 @@ def main(argv) -> int:
             torch.randint(0, 1 << n_shells, (cap,), generator=gen5, device=dev),
             torch.rand((cap, 4), generator=gen5, device=dev, dtype=torch.float64),
             torch.rand((cap, 4), generator=gen5, device=dev) < 0.5, n_shells - 1, cap)
-    n_kids = _check_compact("overflowing compaction", over)
+    n_kids = _check_compact("overflowing compaction", over, compact_totals)
     print(f"[kernel] compact_children: bitwise equal to its plain version on {2 * n_shells} "
-          f"real shells and on {n_kids} valid children into {cap} slots", flush=True)
+          f"real shells and on {n_kids} valid children into {cap} slots (max_abs_err="
+          f"{compact_totals['err']} over a, b, weights, flags and n_children)", flush=True)
     if n_kids <= cap:
         raise SystemExit("the overflowing compaction did not overflow")
     zero_counts()
@@ -609,7 +643,9 @@ def main(argv) -> int:
     dens_p = sampler_mod.sample_density(tr.model, 1e-6, cap)
     sampler_mod._compact_children = _compact_children
     dens_same = all(torch.equal(getattr(dens_k, f), getattr(dens_p, f))
-                    for f in ("states", "counts", "n_unique", "overflow"))
+                    for f in batch_fields)
+    compact_totals["err"] = max([compact_totals["err"]] + [
+        _max_diff(getattr(dens_k, f), getattr(dens_p, f)) for f in batch_fields])
     print(f"[density] sample_density(d_p=1e-6, capacity {cap}): n_unique="
           f"{int(dens_k.n_unique)} overflow={bool(dens_k.overflow)} mass="
           f"{float(dens_k.counts.sum()):.6f}; through compact_children ({dens_launches} "
@@ -942,8 +978,9 @@ def main(argv) -> int:
                            "distribution by another algorithm, without the mask",
               before_ms=times["(U, 127) cumprod/cumsum split"][0],
               rows_differing=totals["differ"], **SHELL_SRC),
-        entry("compact_children", compact_launches, 0.0, "compact_children_ref", cp_bound,
-              "masked_select(weights)", replaces="naqs_tpu/sampler.py:49",
+        entry("compact_children", compact_launches, compact_totals["err"],
+              "compact_children_ref", cp_bound, "masked_select(weights)",
+              replaces="naqs_tpu/sampler.py:49",
               library_note="torch.masked_select of the weights: one of the three arrays, "
                            "no zero fill, no flags, no count",
               before_ms=times["compact_children_ref"][0],

@@ -27,16 +27,12 @@ and skips dead rows, whose result is zero in the plain version too.
 
 from __future__ import annotations
 
-import ctypes
-from functools import lru_cache
-
 import torch
+
+from naqs_tpu_torch.ops.sampler_kernels import check_tensors, launch
 
 _SMALL_SUPPORT = 128
 _GAUSS_VAR_MIN = 25.0
-
-_INT = ctypes.c_int
-_PTR = ctypes.c_void_p
 
 
 def split_draws(gen: torch.Generator, n_rows: int, device):
@@ -83,18 +79,20 @@ def _binomial_from_draws(n, p, z, u):
 
 def binomial(gen: torch.Generator, n: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Sample k ~ Binomial(n, p) elementwise. n: f64 counts >= 0, p in [0, 1].
-    The plain arithmetic of the split, on any device."""
+
+    The split's plain arithmetic on one binomial, kept for tests of the
+    distribution: on every device it runs the 127-step loop of elementwise
+    calls and launches no kernel. The sampler's path is `multinomial4_split`."""
     n = n.to(torch.float64)
     z = torch.randn(n.shape, generator=gen, device=n.device, dtype=torch.float32)
     u = torch.rand(n.shape, generator=gen, device=n.device, dtype=torch.float32)
     return _binomial_from_draws(n, p, z, u)[0]
 
 
-def multinomial4_split_ref(counts, probs, z, u, mask=None, valid=None, stats=None):
-    """Plain PyTorch version of `multinomial4_split`, in the JAX order of
-    operations (naqs_tpu/ops/multinomial.py::multinomial4). A dict passed as
-    `stats` receives how many binomials of live rows took each branch, the
-    dead rows and the longest inverse-CDF loop."""
+def _cascade(counts, probs, z, u):
+    """The binomial cascade over children 3, 2, 1 in the JAX order of
+    operations (naqs_tpu/ops/multinomial.py::multinomial4). Returns (what is
+    left for child 0, [(count, var, small) of each binomial in that order])."""
     rem = counts.to(torch.float64)
     p = probs.to(torch.float64)
     ps = [p[:, 0]]
@@ -102,85 +100,26 @@ def multinomial4_split_ref(counts, probs, z, u, mask=None, valid=None, stats=Non
         ps.append(ps[-1] + p[:, i])
     ps = torch.stack(ps, dim=-1)
     condp = torch.where(ps > 0, p / torch.clamp(ps, min=1e-300), 0.0)
-    live = counts > 0 if valid is None else (counts > 0) & valid
-    tally = {"gauss": 0, "cdf": 0, "cdf_steps": 0, "cdf_longest": 0,
-             "dead_rows": int((~live).sum())} if stats is not None else None
-    out = []
+    steps = []
     for i in (3, 2, 1):
         k, var, small = _binomial_from_draws(rem, condp[:, i], z[3 - i], u[3 - i])
-        if tally is not None:
-            in_cdf = live & ~(var > _GAUSS_VAR_MIN)
-            # the kernel compares u with cdf_0 .. cdf_small: small + 1 looks, 127 at most
-            looks = torch.clamp(small[in_cdf] + 1, max=_SMALL_SUPPORT - 1)
-            tally["gauss"] += int((live & (var > _GAUSS_VAR_MIN)).sum())
-            tally["cdf"] += int(in_cdf.sum())
-            tally["cdf_steps"] += int(looks.sum())
-            if looks.numel():
-                tally["cdf_longest"] = max(tally["cdf_longest"], int(looks.max()))
         c = torch.minimum(k, rem)
-        out.append(c)
+        steps.append((c, var, small))
         rem = rem - c
-    out.append(rem)
-    child = torch.stack(out[::-1], dim=-1)
+    return rem, steps
+
+
+def multinomial4_split_ref(counts, probs, z, u, mask=None, valid=None):
+    """Plain PyTorch version of `multinomial4_split`."""
+    rem, steps = _cascade(counts, probs, z, u)
+    child = torch.stack([rem] + [c for c, _, _ in steps[::-1]], dim=-1)
     if mask is not None:
         child = child * mask
     child_valid = child > 0
     if valid is not None:
         child = torch.where(valid[:, None], child, 0.0)
         child_valid = child_valid & valid[:, None]
-    if stats is not None:
-        stats.update(tally)
     return child, child_valid
-
-
-@lru_cache(maxsize=1)
-def _lib():
-    from naqs_tpu_torch.ops import _build
-
-    lib = _build.load("sampler_step")
-    lib.multinomial4_split.argtypes = [_PTR] * 8 + [_INT, _INT, _PTR]
-    lib.compact_children.argtypes = [_PTR] * 9 + [_INT, _INT, _PTR]
-    lib.multinomial4_split.restype = lib.compact_children.restype = _INT
-    lib.sampler_step_error_string.argtypes = [_INT]
-    lib.sampler_step_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def check_tensors(name, anchor, want):
-    """Raise on anything the kernels of csrc/sampler_step.cu do not take.
-    `want` maps a field's name to (tensor, dtypes, shape); every tensor must
-    lie on `anchor`'s device and, on the card, be contiguous, 16-byte aligned
-    and hold fewer than 2^31 elements. The plain versions take strided CPU
-    tensors."""
-    dev = anchor.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}")
-    for key, (t, dtypes, shape) in want.items():
-        if t.device != dev:
-            raise ValueError(f"{name}: {key} on {t.device}, expected {dev}")
-        dense = t.is_contiguous() or dev.type == "cpu"
-        if t.dtype not in dtypes or tuple(t.shape) != shape or not dense:
-            raise ValueError(
-                f"{name}: {key} must be a contiguous {' or '.join(map(str, dtypes))} of "
-                f"shape {shape}, got {t.dtype} of shape {tuple(t.shape)}"
-                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
-        if dev.type == "cuda" and t.data_ptr() % 16:
-            raise ValueError(f"{name}: {key} must be 16-byte aligned")
-        if t.numel() >= 1 << 31:
-            raise ValueError(f"{name}: {key} must hold fewer than 2^31 elements")
-
-
-def launch(name, args, device):
-    """Launch kernel `name` of csrc/sampler_step.cu on the device's current
-    stream; tensors among `args` pass as pointers (None as a null pointer),
-    ints as they are. Checks and counts nothing: the public wrappers do both."""
-    lib = _lib()
-    flat = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
-    with torch.cuda.device(device):
-        rc = getattr(lib, name)(*flat, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        msg = lib.sampler_step_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
 
 def multinomial4_split(counts, probs, z, u, mask=None, valid=None):

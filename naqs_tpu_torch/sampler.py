@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from naqs_tpu_torch.models.nade import NADE, amp_conditional_shell
-from naqs_tpu_torch.ops.multinomial import (check_tensors, launch, multinomial4_split,
-                                            split_draws)
+from naqs_tpu_torch.ops.multinomial import multinomial4_split, split_draws
+from naqs_tpu_torch.ops.sampler_kernels import check_tensors, launch
 from naqs_tpu_torch.utils.bits import SENTINEL
 
 

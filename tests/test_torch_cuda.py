@@ -30,8 +30,8 @@ from naqs_tpu_torch.ops.dense_engine import DenseTerms, FactorTerms, value_grid
 from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, dense_grid_accumulate_ref,
                                              factored_grid_accumulate,
                                              factored_grid_accumulate_ref, grid_tolerance)
-from naqs_tpu_torch.ops.multinomial import (multinomial4_split, multinomial4_split_ref,
-                                            split_draws)
+from naqs_tpu_torch.ops.multinomial import (_GAUSS_VAR_MIN, _cascade, multinomial4_split,
+                                            multinomial4_split_ref, split_draws)
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
 from naqs_tpu_torch.sampler import _compact_children, _compact_children_ref, sample
 
@@ -266,6 +266,22 @@ def _split_inputs(n, kind, dev, f64=False):
     return (t(counts), t(p.astype(np.float64 if f64 else np.float32)), z, u, t(mask), t(valid))
 
 
+def split_branches(counts, probs, z, u, valid=None):
+    """How the plain cascade's binomials of live rows divide: {'gauss', 'cdf':
+    binomials by branch, 'cdf_longest': the longest inverse-CDF loop,
+    'dead_rows'}."""
+    live = counts > 0 if valid is None else (counts > 0) & valid
+    tally = {"gauss": 0, "cdf": 0, "cdf_longest": 0, "dead_rows": int((~live).sum())}
+    for _, var, small in _cascade(counts, probs, z, u)[1]:
+        in_cdf = live & ~(var > _GAUSS_VAR_MIN)
+        tally["gauss"] += int((live & (var > _GAUSS_VAR_MIN)).sum())
+        tally["cdf"] += int(in_cdf.sum())
+        # the kernel compares u with cdf_0 .. cdf_small: small + 1 looks, 127 at most
+        looks = torch.clamp(small[in_cdf] + 1, max=127)
+        tally["cdf_longest"] = max(tally["cdf_longest"], int(looks.max()) if len(looks) else 0)
+    return tally
+
+
 @pytest.mark.parametrize("n", [1, 31, 257, 100_000])
 @pytest.mark.parametrize("kind,f64,masked", [("mixed", False, True), ("mixed", True, False),
                                              ("cdf", False, False), ("dead", False, True)])
@@ -277,8 +293,8 @@ def test_multinomial4_split_kernel_matches_plain(n, kind, f64, masked):
     got = multinomial4_split(counts, probs, z, u, *more)
     torch.cuda.synchronize()
     assert multinomial4_split.launches == before + 1
-    stats = {}
-    want = multinomial4_split_ref(counts, probs, z, u, *more, stats=stats)
+    want = multinomial4_split_ref(counts, probs, z, u, *more)
+    stats = split_branches(counts, probs, z, u, *more[1:])
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     again = multinomial4_split(counts, probs, z, u, *more)
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])

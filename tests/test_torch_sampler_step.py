@@ -30,6 +30,7 @@ from naqs_tpu_torch import sample_density
 from naqs_tpu_torch.ops.multinomial import (multinomial4, multinomial4_split,
                                             multinomial4_split_ref, split_draws)
 from naqs_tpu_torch.sampler import _compact_children, _compact_children_ref
+from test_torch_cuda import split_branches
 from test_torch_sampler import _setup
 from test_torch_support import to_u64
 
@@ -77,9 +78,9 @@ def test_split_matches_jax_on_the_same_draws(monkeypatch, name, dtype):
     probs = probs.astype(dtype)
     z = rng.standard_normal((3, n)).astype(np.float32)
     u = rng.uniform(0, 1, (3, n)).astype(np.float32)
-    stats = {}
-    got, got_valid = multinomial4_split_ref(*map(torch.as_tensor, (counts, probs, z, u)),
-                                            stats=stats)
+    tensors = tuple(map(torch.as_tensor, (counts, probs, z, u)))
+    got, got_valid = multinomial4_split_ref(*tensors)
+    stats = split_branches(*tensors)
     want = _jax_split(monkeypatch, counts, probs, z, u)
     np.testing.assert_array_equal(got.numpy(), want)          # every count, exactly
     np.testing.assert_array_equal(got.numpy().sum(-1), counts)

@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # one card; the whole check
     python3 chip_smoke.py --profile  # also one torch.profiler-traced step
                                      # per E_loc engine
-    python3 chip_smoke.py --before DIR  # also time the two-channel
-                                        # rank_gather2 of the port's first
-                                        # slice, unpacked at DIR
+    python3 chip_smoke.py --before DIR  # also time an earlier slice's
+                                        # kernels, unpacked at DIR, in turns
+                                        # with this tree's
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. build every CUDA kernel with nvcc (one nvcc per source, started
@@ -72,16 +72,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      min-max of the repeats) of rank_gather2, its plain version, the library
      gather tab[idx] on a precomputed idx, rank_ratio_rowsum, its plain
      version, the unfused composition (rank_gather2 kernel + eager epilogue)
-     and, with --before, the first slice's rank_gather2 (its own source and
-     wrapper, two-channel tables; first held bitwise against this tree's)
-     alone and with the eager epilogue, and of the sampler's two kernels on
-     the inputs of the steady-state shell with the most live rows, the
-     compaction's plain version (the cumsum/index_copy_ composition the step
-     ran before the kernel), torch.masked_select of the weights and three
-     torch.binomial calls on the cascade's (n, p) (another algorithm for the
-     same distribution: a reference time); then SLOW_REPEATS repeats of
-     SLOW_LAUNCHES of both grid kernels, their plain versions, one full
-     local_energy call per engine at capacity 100,000 (factored against
+     and of the sampler's two kernels on the inputs of the steady-state shell
+     with the most live rows, the compaction's plain version (the
+     cumsum/index_copy_ composition the step ran before the kernel),
+     torch.masked_select of the weights, three torch.binomial calls on the
+     cascade's (n, p) (another algorithm for the same distribution: a
+     reference time) and dense_grid_accumulate on N2's grid. With --before
+     DIR, in the same turns, the kernels of the tree unpacked at DIR, each
+     built from DIR's own source into a library of its own name
+     (lib<name>_before.so) and called through DIR's own wrapper: the first
+     slice's two-channel rank_gather2 (first held bitwise against this
+     tree's), alone and with the eager epilogue, where DIR's rank_gather2
+     takes two tables; dense_grid_accumulate (first held against its plain
+     version, per cell within its tolerance) where DIR has
+     csrc/grid_engine.cu; compact_children (first held bitwise against this
+     tree's) where DIR has csrc/sampler_step.cu. Then SLOW_REPEATS repeats of
+     SLOW_LAUNCHES of the factored kernel, both grid kernels' plain versions,
+     one full local_energy call per engine at capacity 100,000 (factored against
      rank: printed, not asserted), the split's plain version, the (U, 127)
      cumprod/cumsum split the step ran before the kernel, and one whole
      sample() call at capacity 100,000. Each is timed held (behind a card sleep
@@ -90,10 +97,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      which reads the host's rate where the wrapper is slower than the
      kernel: "unheld_ms"), and the run fails if the hold did not cover their
      enqueue; see naqs_tpu_torch/utils/cuda_timing.py.
+With --profile, the profiled step of each engine must show one device
+kernel per wrapper call of the sampler's kernels and of the engine's own.
 Prints a {"kernels": [...]} JSON line (launches from phase 6 for
 factored_grid_accumulate, multinomial4_split and compact_children, 7 for
-rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate), and last
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate; with
+--before, "before_ms" and "before_spread" of the earlier tree's kernel), and
+last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -445,26 +455,46 @@ def _synthetic_split(n_rows, dev):
             z, u)
 
 
-def _before_dyn_gather(before):
-    """ops/dyn_gather.py of the port's first slice (two-channel value
-    tables), unpacked at `before`, imported beside this tree's, with its
-    kernel built from its own csrc/rank_gather.cu."""
+def _before_modules(before):
+    """The kernel wrappers of the port's tree unpacked at `before`, imported
+    beside this tree's, each library built from that tree's own source
+    under its own name, lib<name>_before.so: {"rank_gather2": its
+    ops/dyn_gather} where its rank_gather2 takes the two-channel tables of
+    the first slice, {"grid": its ops/grid_kernels} where it has
+    csrc/grid_engine.cu, {"sampler": its sampler} where it has
+    csrc/sampler_step.cu."""
     import importlib
+    import inspect
 
     def ours(name):
         return name.split(".")[0] == "naqs_tpu_torch"
 
+    def has(source):
+        return os.path.exists(os.path.join(before, "naqs_tpu_torch", "csrc", source))
+
     saved = {k: sys.modules.pop(k) for k in list(sys.modules) if ours(k)}
     sys.path.insert(0, before)
+    mods = {}
     try:
-        mod = importlib.import_module("naqs_tpu_torch.ops.dyn_gather")
-        mod._lib()  # builds and binds that library while its package is loaded
+        build = importlib.import_module("naqs_tpu_torch.ops._build")
+        paths = build._paths
+        build._paths = lambda name: (paths(name)[0], paths(f"{name}_before")[1])
+        dyn = importlib.import_module("naqs_tpu_torch.ops.dyn_gather")
+        if len(inspect.signature(dyn.rank_gather2).parameters) == 5:   # (spec, s, xy, la, ph)
+            dyn._lib()   # builds and binds that library while its package is loaded
+            mods["rank_gather2"] = dyn
+        if has("grid_engine.cu"):
+            mods["grid"] = importlib.import_module("naqs_tpu_torch.ops.grid_kernels")
+            mods["grid"]._lib()
+        if has("sampler_step.cu"):
+            mods["sampler"] = importlib.import_module("naqs_tpu_torch.sampler")
+            importlib.import_module("naqs_tpu_torch.ops.sampler_kernels")._lib()
     finally:
         sys.path.remove(before)
         for k in [k for k in sys.modules if ours(k)]:
             del sys.modules[k]
         sys.modules.update(saved)
-    return mod
+    return mods
 
 
 def main(argv) -> int:
@@ -488,7 +518,7 @@ def main(argv) -> int:
     from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate,
                                                  dense_grid_accumulate_ref,
                                                  factored_grid_accumulate,
-                                                 factored_grid_accumulate_ref)
+                                                 factored_grid_accumulate_ref, grid_tolerance)
     from naqs_tpu_torch.ops.multinomial import multinomial4_split, multinomial4_split_ref
     from naqs_tpu_torch.ops.rank import build_value_table, rank_index
     from naqs_tpu_torch.sampler import _compact_children, _compact_children_ref
@@ -692,8 +722,22 @@ def main(argv) -> int:
           f"plain version on {n_before} rows (it forms the pmf ratio first)", flush=True)
     del before, want_split
     old_name = "two-channel rank_gather2"
+    old_compact = "compact_children (earlier tree)"
+    old_mods = {}
     if "--before" in argv:
-        old = _before_dyn_gather(os.path.abspath(argv[argv.index("--before") + 1]))
+        old_mods = _before_modules(os.path.abspath(argv[argv.index("--before") + 1]))
+        print(f"[before] built and bound from the earlier tree: {sorted(old_mods)}", flush=True)
+    if "sampler" in old_mods:
+        compact_old = old_mods["sampler"]._compact_children
+        same_old = all(torch.equal(g, w) for g, w in zip(compact_old(*compact_args),
+                                                         _compact_children(*compact_args)))
+        print(f"[kernel] {old_compact}: bitwise equal to this tree's={same_old}", flush=True)
+        if not same_old:
+            raise SystemExit(f"{old_compact} disagrees with this tree's compact_children")
+        fns[old_compact] = lambda: compact_old(*compact_args)
+        fast.append(old_compact)
+    if "rank_gather2" in old_mods:
+        old = old_mods["rank_gather2"]
         la_c, ph_c = table[:, 0].contiguous(), table[:, 1].contiguous()
         same_old = all(torch.equal(g, w) for g, w in
                        zip(old.rank_gather2(spec, s, xy, la_c, ph_c), want))
@@ -829,6 +873,18 @@ def main(argv) -> int:
                                    dense_grid_accumulate_ref, dn, grid2)
     _engines_agree("N2 STO-3G", le, tr2.dt, terms2, batch2, la2, ph2)
 
+    old_dense = "dense_grid_accumulate (earlier tree)"
+    fns["dense_grid_accumulate"] = lambda: dense_grid_accumulate(dn, grid2)
+    if "grid" in old_mods:
+        dense_old = old_mods["grid"].dense_grid_accumulate
+        d_diff = (dense_old(dn, grid2) - dense_grid_accumulate_ref(dn, grid2)).abs()
+        d_ok = bool((d_diff <= grid_tolerance(dn, grid2)).all())
+        print(f"[kernel] {old_dense}: within its tolerance of the plain version={d_ok} "
+              f"(max_abs_err={float(d_diff.max()):.3e})", flush=True)
+        if not d_ok:
+            raise SystemExit(f"{old_dense} disagrees with its plain version")
+        fns[old_dense] = lambda: dense_old(dn, grid2)
+
     # 11. times, in turns
     hold = hold_ms()
     times = time_in_turns(fns, REPEATS, LAUNCHES)
@@ -836,7 +892,6 @@ def main(argv) -> int:
     slow_fns = {
         "factored_grid_accumulate": lambda: factored_grid_accumulate(fn, grid),
         "factored_grid_accumulate_ref": lambda: factored_grid_accumulate_ref(fn, grid),
-        "dense_grid_accumulate": lambda: dense_grid_accumulate(dn, grid2),
         "dense_grid_accumulate_ref": lambda: dense_grid_accumulate_ref(dn, grid2),
         "local_energy (FactorTerms)": lambda: le.local_energy(
             dt, batch.states, la, ph, batch.n_unique),
@@ -849,7 +904,8 @@ def main(argv) -> int:
     }
     times.update(time_in_turns(slow_fns, SLOW_REPEATS, SLOW_LAUNCHES))
     print(f"[time] {REPEATS} repeats of {LAUNCHES} launches ({SLOW_REPEATS} of "
-          f"{SLOW_LAUNCHES} for the grid kernels, their plain versions, local_energy, the "
+          f"{SLOW_LAUNCHES} for the factored kernel, the grid kernels' plain versions, "
+          f"local_energy, the "
           f"split's plain version, the split of before and sample()), the "
           f"functions in turns; held: behind a {hold:.1f} ms card sleep, so the launches run "
           f"back to back (the card's time); unheld: a plain loop (the host's rate where that "
@@ -914,6 +970,10 @@ def main(argv) -> int:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
+        kernel_of = {"compact_children_kernel": _compact_children,
+                     "multinomial4_split_kernel": multinomial4_split,
+                     "factored_grid_accumulate_kernel": factored_grid_accumulate,
+                     "rank_ratio_rowsum_kernel": rank_ratio_rowsum}
         for label, terms_dev in (("factored", dt), ("rank", dt_rank)):
             tr.dt = terms_dev
             for name, step in (("sample", tr._sample), ("step", tr.step)):
@@ -922,10 +982,19 @@ def main(argv) -> int:
                 step()
                 torch.cuda.synchronize()
                 print(f"[profile] {label} {name}: {time.time() - t:.3f} s", flush=True)
+            zero_counts()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 tr.step()
                 torch.cuda.synchronize()
             events = prof.key_averages()
+            seen = {name: sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                              and name in e.key) for name in kernel_of}
+            launched = {name: w.launches for name, w in kernel_of.items()}
+            print(f"[profile] {label}: device kernels {seen}, wrapper calls {launched}",
+                  flush=True)
+            if seen != launched or not launched["compact_children_kernel"]:
+                raise SystemExit(f"the {label} step's device kernels are not one per wrapper "
+                                 f"call")
             print(f"[profile] one step on the {label} path", flush=True)
             print(events.table(sort_by="cuda_time_total", row_limit=25), flush=True)
             total = sum(e.self_device_time_total for e in events
@@ -950,6 +1019,11 @@ def main(argv) -> int:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": times[t_library][0] if t_library else None, **more}
 
+    def before(name):
+        """the earlier tree's time of a kernel, timed in turns with this tree's"""
+        return {"before_ms": times[name][0], "before_spread": times[name][1]} \
+            if name in times else {}
+
     unfused = "rank_gather2 + eager epilogue"
     no_call = "no single PyTorch call computes the gather by two static maps fused with " \
               "the sum over masks"
@@ -957,8 +1031,7 @@ def main(argv) -> int:
         entry("rank_gather2", gather_launches, gather_err, "rank_gather2_ref", g_bound,
               "tab[idx]",
               library_note="tab[idx] on a precomputed idx: skips the rank arithmetic",
-              **({"before_ms": times[old_name][0], "before_spread": times[old_name][1]}
-                 if old_name in times else {})),
+              **before(old_name)),
         entry("rank_ratio_rowsum", ratio_launches, rowsum_err, "rank_ratio_rowsum_ref",
               r_bound, None,
               library_note="no single PyTorch call computes the fused gather, ratio and "
@@ -971,7 +1044,7 @@ def main(argv) -> int:
               replaces="naqs_tpu/ops/dense_engine.py:507", library_note=no_call, **GRID_SRC),
         entry("dense_grid_accumulate", dense_launches, dense_err, "dense_grid_accumulate_ref",
               d_bound, None, replaces="naqs_tpu/ops/dense_engine.py:279",
-              library_note=no_call, **GRID_SRC),
+              library_note=no_call, **before(old_dense), **GRID_SRC),
         entry("multinomial4_split", split_launches, totals["err"], "multinomial4_split_ref",
               sp_bound, "3 x torch.binomial", replaces="naqs_tpu/ops/multinomial.py:76",
               library_note="three torch.binomial calls on the cascade's (n, p): the same "
@@ -983,8 +1056,8 @@ def main(argv) -> int:
               replaces="naqs_tpu/sampler.py:49",
               library_note="torch.masked_select of the weights: one of the three arrays, "
                            "no zero fill, no flags, no count",
-              before_ms=times["compact_children_ref"][0],
-              sample_call_ms=times["sample() at capacity 100,000"][0], **SHELL_SRC),
+              sample_call_ms=times["sample() at capacity 100,000"][0], **before(old_compact),
+              **SHELL_SRC),
     ]}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,8 +41,9 @@
 //   image in a warp that goes on reads the grid's zero pad cell. The dense
 //   kernel skips per lane. No result depends on what was skipped.
 // * Each thread sums its cells' masks in index order and each mask's factors
-//   in slot order, in fp32 registers; no atomics, so every run gives the
-//   same bits.
+//   in slot order, in fp32 registers; the dense kernel then adds its mask
+//   ranges' partial sums in range order. No atomic touches a sum, so every
+//   run gives the same bits.
 //
 // factored_grid_accumulate (chosen by timing variants on the card, PERF.md:
 // the factor loop took most of a first design's time, and its cost was the
@@ -62,9 +63,29 @@
 //   its loads and the mask walk are shared by kCells times more cells, and
 //   the cells' loads of pa_idx and T are independent and in flight together.
 //
-// dense_grid_accumulate keeps the first design: one cell a thread; each warp
-// looks up 32 masks at a time, one per lane, and hands (ka, pb) round by
-// shuffle: no shared memory, no __syncthreads.
+// dense_grid_accumulate (one block per rb walking all masks would give N2
+// STO-3G 120 blocks, each waiting on one chain of loads per mask):
+// * The mask axis is cut into n_ranges contiguous ranges (the wrapper takes
+//   the JAX package's term chunks, 256 masks), one block per (range, rb,
+//   tile of ra): 960 blocks for N2 STO-3G.
+// * Each warp streams its cells' h_dense values and alpha images into a
+//   two-stage ring in shared memory with 4-byte cp.async, one stage per 32
+//   masks: lane j looks up mask k0 + j, a ballot lists the masks with a valid
+//   beta image, and every lane copies its own cell of each listed mask
+//   (h_dense with an L2 evict-first hint: it is read once). While one stage
+//   lands, the warp sums the other and the row_map lookup of the stage after
+//   is in flight; each lane reads back only what it copied itself, so the
+//   ring needs no __syncthreads. A lane with an invalid alpha image skips the
+//   grid load and the multiply-add.
+// * Each block writes its range's (Sa tile) partial sums to a scratch
+//   (n_ranges, Sb, Sa, 2) tensor; the last block of each (rb, tile) to arrive
+//   (a __threadfence, then an atomicAdd on its arrival counter) adds the
+//   partials in range order 0 .. n_ranges-1, writes out and sets the counter
+//   back to 0, so the counters need no clearing launch.
+// * Timed against variants on the card (PERF.md): batching a lane's grid
+//   loads, copying h_dense in 16-byte pieces, loading the alpha images with
+//   __ldg instead of staging them, or ordering the blocks range-major gained
+//   at most 5%, or lost.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Plain C interface, bound with ctypes by naqs_tpu_torch/ops/grid_kernels.py.
@@ -78,10 +99,10 @@ constexpr int kMaxThreads = 256;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // Threads per block: a row of sa cells is cut into the fewest tiles of at most
-// kMaxThreads threads with `cells` cells each, every tile a whole number of
+// max_threads threads with `cells` cells each, every tile a whole number of
 // warps (1,287 cells: 6 tiles of 224 threads, or 2 of 224 with 3 cells each).
-int block_threads(int sa, int cells) {
-  const int tiles = (sa + kMaxThreads * cells - 1) / (kMaxThreads * cells);
+int block_threads(int sa, int cells, int max_threads = kMaxThreads) {
+  const int tiles = (sa + max_threads * cells - 1) / (max_threads * cells);
   const int per = (sa + tiles * cells - 1) / (tiles * cells);
   return ((per + 31) / 32) * 32;
 }
@@ -221,36 +242,143 @@ __global__ void __launch_bounds__(kMaxThreads) factored_grid_accumulate_kernel(
     if (in[j]) out[static_cast<size_t>(rb) * sa + ra[j]] = make_float2(acc_re[j], acc_im[j]);
 }
 
-__global__ void __launch_bounds__(kMaxThreads) dense_grid_accumulate_kernel(
+constexpr int kDenseThreads = 128;  // at most 4 warps a dense block: a 65 KB ring
+constexpr int kStage = 32;          // masks a ring stage looks up: one per lane
+static_assert(kStage == 32, "a stage's lookup gives each lane of the warp one mask");
+
+// One warp's stage of the dense ring: for each mask of the stage with a valid
+// beta image, in index order, every lane's h_dense value and alpha image, and
+// the mask's beta image.
+struct DenseStage {
+  float h[kStage][32];
+  int pa[kStage][32];
+  int pb[kStage];
+};
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(shared_address(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4_evict_first(void* dst, const void* src, uint64_t policy) {
+  asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;"
+               ::"r"(shared_address(dst)), "l"(src), "l"(policy) : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's committed copy groups are in flight
+template <int pending>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
+}
+
+__global__ void __launch_bounds__(kDenseThreads) dense_grid_accumulate_kernel(
     const int32_t* __restrict__ r1_idx, const int32_t* __restrict__ row_map,
     const float* __restrict__ h_dense, const float2* __restrict__ grid_t,
-    float2* __restrict__ out, int n_masks, int sa, int sb) {
-  const int rb = blockIdx.x;
-  const int ra = blockIdx.y * blockDim.x + threadIdx.x;
+    float2* __restrict__ out, float2* __restrict__ partial, unsigned* __restrict__ arrivals,
+    int n_masks, int n_ranges, int sa, int sb) {
+  extern __shared__ int4 ring_words[];
+  __shared__ bool s_last;
   const int lane = threadIdx.x & 31;
-  // threads past the row's end stay in the warp for its shuffles, with no image
+  DenseStage* ring = reinterpret_cast<DenseStage*>(ring_words) + 2 * (threadIdx.x >> 5);
+  // blockIdx.x = (rb * n_tiles + tile) * n_ranges + range: a cell's ranges are neighbours
+  const int range = blockIdx.x % n_ranges;
+  const int slot = blockIdx.x / n_ranges;   // (rb, tile of ra): one arrival counter
+  const int n_tiles = (sa + blockDim.x - 1) / blockDim.x;
+  const int rb = slot / n_tiles;
+  const int ra = (slot - rb * n_tiles) * blockDim.x + threadIdx.x;
+  // lanes past the row's end stay in the warp for its ballots, copying nothing
   const bool in = ra < sa;
-  float acc_re = 0.f, acc_im = 0.f;
-  for (int k0 = 0; k0 < n_masks; k0 += 32) {
-    int ka, pb;
-    beta_image(row_map, k0 + lane, n_masks, sb, rb, &ka, &pb);
-    unsigned todo = __ballot_sync(kFull, pb < sb);
-    while (todo) {  // todo, j and all they select are the same in every lane
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int ka_k = __shfl_sync(kFull, ka, j);
-      const int pb_k = __shfl_sync(kFull, pb, j);
-      const int pa = in ? __ldg(r1_idx + static_cast<size_t>(ka_k) * sa + ra) : sa;
-      if (pa < sa) {
-        // h_dense is read once in all: stream it past the grid in L2
-        const float h = __ldcs(h_dense + (static_cast<size_t>(k0 + j) * sb + rb) * sa + ra);
-        const float2 t = __ldg(grid_t + static_cast<size_t>(pb_k) * (sa + 1) + pa);
-        acc_re = fmaf(h, t.x, acc_re);
-        acc_im = fmaf(h, t.y, acc_im);
+  const int k_begin = static_cast<int>(static_cast<int64_t>(range) * n_masks / n_ranges);
+  const int k_end = static_cast<int>(static_cast<int64_t>(range + 1) * n_masks / n_ranges);
+  const uint64_t policy = evict_first_policy();
+
+  // lane j's row_map entry for mask k0 + j of the range; -1 past its end
+  auto lookup = [&](int k0) {
+    const int kk = k0 + lane;
+    return kk < k_end ? __ldg(row_map + static_cast<size_t>(kk) * sb + rb) : -1;
+  };
+  // lists the stage's masks with a valid beta image (the lookups `rm` of masks
+  // k0 + lane) and starts the copies of this lane's cell of each; returns the
+  // count, the same in every lane
+  auto fill = [&](int rm, int k0, DenseStage& st) {
+    __syncwarp();   // every lane is done with this stage's previous list
+    const int ka = rm >= 0 ? rm / (sb + 1) : 0;
+    const int pb = rm >= 0 ? rm - ka * (sb + 1) : sb;
+    const unsigned todo = __ballot_sync(kFull, pb < sb);
+    if (pb < sb) st.pb[__popc(todo & ((1u << lane) - 1u))] = pb;
+    int m = 0;
+    for (unsigned left = todo; left; left &= left - 1, ++m) {
+      const int j = __ffs(left) - 1;
+      const int ka_j = __shfl_sync(kFull, ka, j);
+      if (in) {
+        copy4_evict_first(&st.h[m][lane],
+                          h_dense + (static_cast<size_t>(k0 + j) * sb + rb) * sa + ra, policy);
+        copy4(&st.pa[m][lane], r1_idx + static_cast<size_t>(ka_j) * sa + ra);
       }
     }
+    copies_commit();
+    return __popc(todo);
+  };
+
+  float acc_re = 0.f, acc_im = 0.f;
+  int n_cur = fill(lookup(k_begin), k_begin, ring[0]);
+  int rm = lookup(k_begin + kStage);
+  for (int k0 = k_begin, s = 0; k0 < k_end; k0 += kStage, s ^= 1) {
+    const int n_next = fill(rm, k0 + kStage, ring[s ^ 1]);
+    rm = lookup(k0 + 2 * kStage);
+    copies_wait<1>();   // this lane's copies of stage s have landed
+    __syncwarp();       // and the stage's list, written by other lanes, is seen
+    if (in) {
+      const DenseStage& st = ring[s];
+#pragma unroll 4
+      for (int m = 0; m < n_cur; ++m) {
+        const int pa = st.pa[m][lane];
+        if (pa < sa) {
+          const float h = st.h[m][lane];
+          const float2 t = __ldg(grid_t + static_cast<size_t>(st.pb[m]) * (sa + 1) + pa);
+          acc_re = fmaf(h, t.x, acc_re);
+          acc_im = fmaf(h, t.y, acc_im);
+        }
+      }
+    }
+    n_cur = n_next;
   }
-  if (in) out[static_cast<size_t>(rb) * sa + ra] = make_float2(acc_re, acc_im);
+  copies_wait<0>();
+
+  // the range's partial sums; the last block of the cell tile to arrive adds
+  // all ranges' in range order
+  const size_t cell = static_cast<size_t>(rb) * sa + ra;
+  const size_t plane = static_cast<size_t>(sb) * sa;
+  if (in) partial[range * plane + cell] = make_float2(acc_re, acc_im);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(arrivals + slot, 1u) == static_cast<unsigned>(n_ranges - 1);
+  __syncthreads();
+  if (!s_last) return;
+  if (in) {
+    float2 sum = __ldcg(partial + cell);
+    for (int r = 1; r < n_ranges; ++r) {
+      const float2 p = __ldcg(partial + r * plane + cell);
+      sum.x += p.x;
+      sum.y += p.y;
+    }
+    out[cell] = sum;
+  }
+  if (threadIdx.x == 0) arrivals[slot] = 0u;   // every range has arrived: ready for the next launch
 }
 
 dim3 cell_blocks(int sa, int sb, int cells_per_block) {
@@ -282,13 +410,20 @@ extern "C" int factored_grid_accumulate(const void* pa_idx, const void* row_map,
 
 extern "C" int dense_grid_accumulate(const void* r1_idx, const void* row_map,
                                      const void* h_dense, const void* grid_t, void* out,
-                                     int n_masks, int sa, int sb, void* stream) {
-  const int threads = block_threads(sa, 1);
-  dense_grid_accumulate_kernel<<<cell_blocks(sa, sb, threads), threads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+                                     void* partial, void* arrivals, int n_masks, int n_ranges,
+                                     int sa, int sb, void* stream) {
+  const int threads = block_threads(sa, 1, kDenseThreads);
+  const int tiles = (sa + threads - 1) / threads;
+  const int ring = static_cast<int>(sizeof(DenseStage)) * 2 * (threads / 32);
+  cudaError_t rc = cudaFuncSetAttribute(dense_grid_accumulate_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, ring);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const unsigned blocks = static_cast<unsigned>(sb) * tiles * n_ranges;
+  dense_grid_accumulate_kernel<<<blocks, threads, ring, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(r1_idx), static_cast<const int32_t*>(row_map),
       static_cast<const float*>(h_dense), static_cast<const float2*>(grid_t),
-      static_cast<float2*>(out), n_masks, sa, sb);
+      static_cast<float2*>(out), static_cast<float2*>(partial),
+      static_cast<unsigned*>(arrivals), n_masks, n_ranges, sa, sb);
   return static_cast<int>(cudaGetLastError());
 }
 

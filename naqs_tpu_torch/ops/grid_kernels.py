@@ -31,6 +31,14 @@ and builds H factor by factor, where the plain version builds H by a batched
 matrix product, so the two agree per cell within
 GRID_ATOL + GRID_RTOL * sum_k sum_r |fcoeff| |T_k| (`grid_tolerance`), not
 bitwise; the kernels themselves give the same bits in every run.
+
+The dense kernel cuts the masks into `dense_ranges(K)` contiguous ranges,
+range s holding masks [s K // S, (s + 1) K // S): each range's sums go to a
+scratch (S, Sb, Sa, 2) tensor, and the last block of a cell tile to arrive
+adds them in range order. It finds that it is last by an arrival counter
+per (rb, tile of ra), which it sets back to 0: the counters
+(`_arrival_counters`, one set per device and stream) are cleared once, when
+they are made.
 """
 
 from __future__ import annotations
@@ -108,7 +116,7 @@ def _lib():
 
     lib = _build.load("grid_engine")
     lib.factored_grid_accumulate.argtypes = [_PTR] * 11 + [_INT] * 4 + [_PTR]
-    lib.dense_grid_accumulate.argtypes = [_PTR] * 5 + [_INT] * 3 + [_PTR]
+    lib.dense_grid_accumulate.argtypes = [_PTR] * 7 + [_INT] * 4 + [_PTR]
     lib.factored_grid_accumulate.restype = lib.dense_grid_accumulate.restype = _INT
     lib.grid_engine_error_string.argtypes = [_INT]
     lib.grid_engine_error_string.restype = ctypes.c_char_p
@@ -136,17 +144,38 @@ def _check(name, grid, sa, sb, want):
         raise ValueError(f"{name}: every tensor must hold fewer than 2^31 elements")
 
 
-def _launch(name, tensors, ints, grid):
+def dense_ranges(n_masks: int) -> int:
+    """How many mask ranges the dense kernel sums apart: the JAX package's term
+    chunks of CHUNK_TERMS masks, at least one."""
+    return max(1, n_masks // CHUNK_TERMS)
+
+
+_arrivals: dict = {}
+
+
+def _arrival_counters(device, sb, sa):
+    """The dense kernel's int32 arrival counters for an (Sb, Sa) grid on the
+    device's current stream: one per (rb, tile of ra), at most one tile per
+    warp. Zero between launches; made zero once, and again only to grow."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    need = sb * -(-sa // 32)
+    if key not in _arrivals or _arrivals[key].numel() < need:
+        _arrivals[key] = torch.zeros(need, dtype=torch.int32, device=device)
+    return _arrivals[key]
+
+
+def _launch(name, tensors, ints, grid, scratch=()):
     """Launch kernel `name` of csrc/grid_engine.cu on grid's current stream, on
-    the transposed grid; returns the (Sb, Sa, 2) sums. Checks and counts
-    nothing: the public wrappers do both."""
+    the transposed grid, with the scratch tensors after the output; returns
+    the (Sb, Sa, 2) sums. Checks and counts nothing: the public wrappers do
+    both."""
     lib = _lib()
     sa, sb = ints[-2:]
     grid_t = grid.transpose(0, 1).contiguous()   # (Sb+1, Sa+1, 2): one row per beta image
     out = torch.empty((sb, sa, 2), dtype=torch.float32, device=grid.device)
     with torch.cuda.device(grid.device):
         rc = getattr(lib, name)(*(t.data_ptr() for t in tensors), grid_t.data_ptr(),
-                                out.data_ptr(), *ints,
+                                out.data_ptr(), *(t.data_ptr() for t in scratch), *ints,
                                 torch.cuda.current_stream(grid.device).cuda_stream)
     if rc != 0:
         msg = lib.grid_engine_error_string(rc).decode()
@@ -187,8 +216,11 @@ def dense_grid_accumulate(dn, grid: torch.Tensor) -> torch.Tensor:
         "h_dense": (dn.h_dense, torch.float32, (k, sb, sa))})
     if grid.device.type == "cpu":
         return dense_grid_accumulate_ref(dn, grid)
+    n_ranges = dense_ranges(k)
+    partial = torch.empty((n_ranges, sb, sa, 2), dtype=torch.float32, device=grid.device)
     out = _launch("dense_grid_accumulate", (dn.r1_idx, dn.row_map, dn.h_dense),
-                  (k, sa, sb), grid)
+                  (k, n_ranges, sa, sb), grid,
+                  (partial, _arrival_counters(grid.device, sb, sa)))
     dense_grid_accumulate.launches += 1
     return out
 

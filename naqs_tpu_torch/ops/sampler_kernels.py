@@ -17,6 +17,10 @@ import torch
 _INT = ctypes.c_int
 _PTR = ctypes.c_void_p
 
+# rows of one compact_children tile, one a thread of a block; the kernel's
+# scratch holds one int a tile
+COMPACT_TILE_ROWS = 1024
+
 
 @lru_cache(maxsize=1)
 def _lib():
@@ -24,7 +28,7 @@ def _lib():
 
     lib = _build.load("sampler_step")
     lib.multinomial4_split.argtypes = [_PTR] * 8 + [_INT, _INT, _PTR]
-    lib.compact_children.argtypes = [_PTR] * 9 + [_INT, _INT, _PTR]
+    lib.compact_children.argtypes = [_PTR] * 10 + [_INT, _INT, _PTR]
     lib.multinomial4_split.restype = lib.compact_children.restype = _INT
     lib.sampler_step_error_string.argtypes = [_INT]
     lib.sampler_step_error_string.restype = ctypes.c_char_p

@@ -13,7 +13,9 @@ reaches a threshold.
 
 On the card the shell step is two hand-written kernels of
 `csrc/sampler_step.cu`, `multinomial4_split` (`ops/multinomial.py`) and
-`compact_children` (here), and reads nothing back to the host. On a CUDA
+`compact_children` (here, one cooperative launch: tiles of 1,024 rows count
+their children, one grid-wide barrier, then each tile scans and scatters),
+and reads nothing back to the host. On a CUDA
 tensor `_compact_children` launches its kernel or raises; on a CPU tensor it
 runs the plain PyTorch version `_compact_children_ref`, a cumsum-scatter as
 in the JAX package. There is no fallback from one to the other; the integer
@@ -30,7 +32,7 @@ import torch
 
 from naqs_tpu_torch.models.nade import NADE, amp_conditional_shell
 from naqs_tpu_torch.ops.multinomial import multinomial4_split, split_draws
-from naqs_tpu_torch.ops.sampler_kernels import check_tensors, launch
+from naqs_tpu_torch.ops.sampler_kernels import COMPACT_TILE_ROWS, check_tensors, launch
 from naqs_tpu_torch.utils.bits import SENTINEL
 
 
@@ -94,8 +96,10 @@ def _compact_children(a, b, child_weights, child_valid, j: int, cap: int):
     w_new = torch.empty((cap,), dtype=torch.float64, device=a.device)
     valid_new = torch.empty((cap,), dtype=torch.bool, device=a.device)
     n_children = torch.empty((), dtype=torch.int64, device=a.device)
+    tile_counts = torch.empty((-(-cap // COMPACT_TILE_ROWS),), dtype=torch.int32,
+                              device=a.device)
     launch("compact_children", (a, b, child_weights, child_valid, a_new, b_new, w_new,
-                                valid_new, n_children, cap, j), a.device)
+                                valid_new, n_children, tile_counts, cap, j), a.device)
     _compact_children.launches += 1
     return a_new, b_new, w_new, valid_new, n_children
 

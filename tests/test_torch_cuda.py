@@ -174,9 +174,11 @@ def _n2_sample(hil, m, cap, dev, seed=0):
 
 # (7, 7), the molecule's own: 120 x 120 cells. Rectangular grids, so that no exchange
 # of the spins' sizes goes unseen: (9, 2) with Sa = 10 (under one warp) and Sb = 45,
-# (3, 6) with Sa = 120 and Sb = 210
+# (3, 6) with Sa = 120 and Sb = 210, (6, 3) with Sa = 210 (two tiles of ra for the
+# dense kernel's 128-thread blocks) and Sb = 120, (2, 9) with Sa = 45 and Sb = 10
 @pytest.mark.parametrize("fill,sectors", [("sampled", None), ("full", None),
-                                          ("sampled", ((9, 2),)), ("full", ((3, 6),))])
+                                          ("sampled", ((9, 2),)), ("full", ((3, 6),)),
+                                          ("sampled", ((6, 3),)), ("full", ((2, 9),))])
 @pytest.mark.parametrize("engine", ["dense", "factored"])
 def test_grid_kernel_matches_plain(engine, fill, sectors):
     dev = _card()
@@ -202,6 +204,30 @@ def test_grid_kernel_matches_plain(engine, fill, sectors):
     assert bool(((got - want).abs() <= tol).all()), float(((got - want).abs() / tol).max())
     assert float(want.abs().max()) > 1e-3   # the sums are not all 0
     assert torch.equal(wrapper(prog, grid), got)   # fixed order, no atomics
+
+
+def test_dense_grid_kernel_repeatable_and_its_counters_come_back_to_zero():
+    """Three launches on one set of arrival counters: the same bits each time
+    (partials added in range order, whatever order the blocks finish in), and
+    every counter 0 after each."""
+    from naqs_tpu_torch.ops import grid_kernels as gk
+
+    dev = _card()
+    terms, hil = _n2()
+    prog = DenseTerms.build(terms, hil, device=dev)
+    assert gk.dense_ranges(prog.row_map.shape[0]) == 8       # N2 STO-3G: 2,048 masks
+    s, la, ph = _n2_sample(hil, 3000, 4096, dev, seed=3)
+    grid, _, _ = value_grid(RankSpec.for_hilbert(hil), s, la, ph, 3000, prog.sa, prog.sb)
+    outs = []
+    for _ in range(3):
+        outs.append(dense_grid_accumulate(prog, grid))
+        torch.cuda.synchronize()
+        counters = gk._arrival_counters(grid.device, prog.sb, prog.sa)
+        assert not bool(counters.any())
+    assert len(gk._arrivals) >= 1
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    tol = grid_tolerance(prog, grid)
+    assert bool(((outs[0] - dense_grid_accumulate_ref(prog, grid)).abs() <= tol).all())
 
 
 @pytest.mark.parametrize("engine", ["dense", "factored"])
@@ -306,7 +332,7 @@ def test_multinomial4_split_kernel_matches_plain(n, kind, f64, masked):
         assert stats["dead_rows"] == n and not bool(got[1].any())
 
 
-@pytest.mark.parametrize("cap", [1, 31, 257, 1027, 100_000])
+@pytest.mark.parametrize("cap", [1, 31, 257, 1027, 4099, 100_000, 1_000_003])
 @pytest.mark.parametrize("fill", [0.0, 0.07, 0.3, 1.0])
 def test_compact_children_kernel_matches_plain(cap, fill):
     dev = _card()
@@ -326,6 +352,32 @@ def test_compact_children_kernel_matches_plain(cap, fill):
         assert torch.equal(g, x) and torch.equal(g, y)
     if cap > 1000:
         assert (int(got[4]) > cap) == (fill > 0.25)        # 0.3 and 1.0 overflow
+
+
+@pytest.mark.parametrize("beyond", [False, True])
+def test_compact_children_kernel_owns_several_tiles_a_block(beyond):
+    """A capacity of 1,000,000 (977 tiles of 1,024 rows), and a smaller one
+    that still has more tiles than 1,024-thread blocks fit on the card at
+    once (two an SM at most), so that blocks own several tiles; two calls in
+    a row with other flags, so that the tile counts of the first cannot leak
+    into the second."""
+    from naqs_tpu_torch.ops.sampler_kernels import COMPACT_TILE_ROWS
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cap = COMPACT_TILE_ROWS * (2 * sms + 5) + 3 if beyond else 1_000_000
+    if beyond:
+        assert -(-cap // COMPACT_TILE_ROWS) > 2 * sms
+    gen = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randint(0, 1 << 20, (cap,), generator=gen, device=dev)
+    b = torch.randint(0, 1 << 20, (cap,), generator=gen, device=dev)
+    w = torch.rand((cap, 4), generator=gen, device=dev, dtype=torch.float64)
+    for fill in (0.3, 0.05):
+        flags = torch.rand((cap, 4), generator=gen, device=dev) < fill
+        got = _compact_children(a, b, w, flags, 20, cap)
+        want = _compact_children_ref(a, b, w, flags, 20, cap)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
+        assert (int(got[4]) > cap) == (fill > 0.25)
 
 
 def test_sample_on_the_card_conserves_and_sorts():

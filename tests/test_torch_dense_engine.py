@@ -256,33 +256,46 @@ def test_grid_tolerance_bounds_the_sums():
         assert bool((n.abs() * gk.GRID_RTOL <= tol).all()) and float(n.abs().max()) > 1e-3
 
 
-def _replay_kernel(prog, grid):
+def _replay_kernel(prog, grid, n_ranges=None):
     """The index arithmetic of csrc/grid_engine.cu in numpy: the transposed
     grid, (ka, pb) decoded from row_map, masks skipped on an invalid beta
     image or an empty factor list, the factor loop ended at n_fact[k], the
     factored sign taken from the word tables (not from par_a), and the zero
-    pad cell read for an invalid alpha image."""
+    pad cell read for an invalid alpha image; in float64 over all masks.
+    With n_ranges (dense programs), the dense kernel's partition instead:
+    range s holds masks [s K // S, (s + 1) K // S), each range is summed in
+    float32 in mask order, then the partials in range order."""
     sa, sb = prog.sa, prog.sb
     grid_t = grid.numpy().transpose(1, 0, 2)             # (Sb+1, Sa+1, 2)
     idx = (prog.pa_idx if hasattr(prog, "pa_idx") else prog.r1_idx).numpy()
     row_map = prog.row_map.numpy()
-    out = np.zeros((sb, sa, 2), np.float64)
-    for k in range(row_map.shape[0]):
-        ka, pb = row_map[k] // (sb + 1), row_map[k] % (sb + 1)
-        if hasattr(prog, "h_dense"):
-            h = prog.h_dense.numpy()[k].astype(np.float64)
-        else:
-            nf = int(prog.n_fact[k])
-            h = np.zeros((sb, sa))
-            for r in range(nf):
-                sign = np_parity_pm1(prog.alpha_words.numpy()
-                                     & int(prog.ya_words[prog.fa_idx[k, r]]))
-                h += (float(prog.fcoeff[k, r])
-                      * prog.par_b.numpy()[prog.fb_idx[k, r]][:, None] * sign[None, :])
-            if nf == 0:
-                continue
-        for rb in np.flatnonzero(pb < sb):
-            out[rb] += h[rb][:, None] * grid_t[pb[rb], idx[ka[rb]]]
+    n_masks = row_map.shape[0]
+    bounds = [0, n_masks] if n_ranges is None else \
+        [s * n_masks // n_ranges for s in range(n_ranges + 1)]
+    dtype = np.float64 if n_ranges is None else np.float32
+    partials = []
+    for k_begin, k_end in zip(bounds[:-1], bounds[1:]):
+        acc = np.zeros((sb, sa, 2), dtype)
+        for k in range(k_begin, k_end):
+            ka, pb = row_map[k] // (sb + 1), row_map[k] % (sb + 1)
+            if hasattr(prog, "h_dense"):
+                h = prog.h_dense.numpy()[k].astype(dtype)
+            else:
+                nf = int(prog.n_fact[k])
+                h = np.zeros((sb, sa))
+                for r in range(nf):
+                    sign = np_parity_pm1(prog.alpha_words.numpy()
+                                         & int(prog.ya_words[prog.fa_idx[k, r]]))
+                    h += (float(prog.fcoeff[k, r])
+                          * prog.par_b.numpy()[prog.fb_idx[k, r]][:, None] * sign[None, :])
+                if nf == 0:
+                    continue
+            for rb in np.flatnonzero(pb < sb):
+                acc[rb] += h[rb][:, None] * grid_t[pb[rb], idx[ka[rb]]].astype(dtype)
+        partials.append(acc)
+    out = partials[0]
+    for p in partials[1:]:
+        out = out + p
     return out
 
 
@@ -295,4 +308,28 @@ def test_kernel_index_arithmetic_replayed_in_numpy(engine):
                                  torch.as_tensor(ph), 200, prog_t.sa, prog_t.sb)
     want = ENGINES[engine][2](prog_t, grid).numpy()
     np.testing.assert_allclose(_replay_kernel(prog_t, grid), want, rtol=0, atol=2e-6)
+    assert np.abs(want).max() > 1e-3
+
+
+# the wrapper's choice (one range per 256 masks), ranges that do not divide the
+# masks, and more ranges than a term chunk would give
+@pytest.mark.parametrize("n_ranges", ["wrapper", 3, 7])
+def test_dense_kernel_partition_replayed_in_numpy(n_ranges):
+    c = case("H2O")
+    prog_t, _, spec_t, _ = _programs("dense", "H2O")
+    n_masks = prog_t.row_map.shape[0]
+    assert gk.dense_ranges(n_masks) == n_masks // gk.CHUNK_TERMS
+    assert gk.dense_ranges(8 * gk.CHUNK_TERMS) == 8 and gk.dense_ranges(1) == 1
+    if n_ranges == "wrapper":
+        n_ranges = gk.dense_ranges(n_masks)
+    else:
+        assert n_masks % n_ranges
+    s, la, ph = _buffer(c, 200, 208, 10)
+    grid, _, _ = de_t.value_grid(spec_t, torch.as_tensor(s), torch.as_tensor(la),
+                                 torch.as_tensor(ph), 200, prog_t.sa, prog_t.sb)
+    got = _replay_kernel(prog_t, grid, n_ranges)
+    assert got.dtype == np.float32
+    want = gk.dense_grid_accumulate_ref(prog_t, grid).numpy()
+    tol = gk.grid_tolerance(prog_t, grid).numpy()
+    assert np.all(np.abs(got - want) <= tol), float((np.abs(got - want) / tol).max())
     assert np.abs(want).max() > 1e-3

@@ -13,8 +13,9 @@ On the CPU the port's wrappers run their plain versions
 * `sample_density` against the JAX function on H2O STO-3G with converted
   parameters: states, n_unique and overflow equal, masses within 1e-6
   relative (the models' f32 conditionals differ by ulps between XLA and torch);
-* a numpy replay of the compaction kernel's index arithmetic (whole-grid
-  count, block offset, warp scans, zero fill) against the plain version;
+* a numpy replay of the compaction kernel's index arithmetic (tile counts,
+  a grid-wide barrier, tile offsets, warp scans, zero fill, blocks that own
+  several tiles) against the plain version;
 * the wrappers' input checks.
 """
 
@@ -157,52 +158,82 @@ def _warp_scan(x):
     return x
 
 
-def _compact_replay(a, b, w, valid, j, cap, block=1024):
-    """csrc/sampler_step.cu::compact_children_kernel in numpy, block by block:
-    the count of all flags and of those before the block from 16-byte words,
-    the exclusive scan inside the block by warp scans, the scatter, and the
-    block's own slots' flags and zeros."""
+def _block_exclusive_scan(x):
+    """The kernel's exclusive scan of one block's per-thread counts: warp
+    scans, then a warp scan of the warps' sums."""
+    block = len(x)
+    incl = _warp_scan(x)
+    warps = _warp_scan(np.resize(incl[:, 31], 32) * (np.arange(32) < block // 32))[0]
+    below = np.concatenate([[0], warps[:block // 32 - 1]])
+    return (below[:, None] + incl - x.reshape(-1, 32)).ravel()
+
+
+def _compact_replay(a, b, w, valid, j, cap, block=1024, n_blocks=3, seed=0):
+    """csrc/sampler_step.cu::compact_children_kernel in numpy: a cooperative
+    grid of min(tiles, n_blocks) blocks of `block` threads, tiles of one row a
+    thread, block i owning tiles i, i + n_blocks, ... Phase 1 counts each
+    tile's children into its scratch word, the blocks in a shuffled order;
+    after the barrier each block, again in a shuffled order, takes n_children
+    and its first tile's offset from the tile counts, adds the counts since
+    its previous tile for each later one, scans the threads' counts, scatters
+    the children and writes its tiles' own slots."""
+    rng = np.random.default_rng(seed)
     flags = valid.astype(np.int64).reshape(cap, 4)
-    n_vec = cap // 4
-    per_vec = flags[:4 * n_vec].reshape(n_vec, 16).sum(-1)
+    n_tiles = -(-cap // block)
+    grid = min(n_tiles, n_blocks)
+    owned = [range(i, n_tiles, grid) for i in range(grid)]
+
+    def thread_counts(tile):
+        """each thread's row and its count of flags, 0 past cap"""
+        rows = tile * block + np.arange(block)
+        return rows, np.where(rows < cap, flags[np.minimum(rows, cap - 1)].sum(-1), 0)
+
+    tile_counts = np.full(n_tiles, -7, np.int64)   # last launch's words: overwritten
+    for i in rng.permutation(grid):
+        for tile in owned[i]:
+            tile_counts[tile] = thread_counts(tile)[1].sum()
     a_new, b_new = np.full(cap, -1, np.int64), np.full(cap, -1, np.int64)
     w_new, valid_new = np.full(cap, np.nan), np.zeros(cap, bool)
     n_children = None
-    for blk in range(-(-cap // block)):
-        first = blk * block
-        total = int(per_vec.sum()) + int(flags[4 * n_vec:].sum())
-        before = int(per_vec[:first // 4].sum())
-        rows = first + np.arange(block)
-        count = np.where(rows < cap, flags[np.minimum(rows, cap - 1)].sum(-1), 0)
-        incl = _warp_scan(count)
-        warps = _warp_scan(np.resize(incl[:, 31], 32) * (np.arange(32) < block // 32))[0]
-        below = np.concatenate([[0], warps[:block // 32 - 1]])
-        dest = before + (below[:, None] + incl - count.reshape(-1, 32)).ravel()
-        for t in np.flatnonzero(count):
-            d = dest[t]
-            for occ in np.flatnonzero(flags[rows[t]]):
-                if d < cap:
-                    assert a_new[d] == -1                        # one writer per slot
-                    a_new[d] = a[rows[t]] | ((occ & 1) << j)
-                    b_new[d] = b[rows[t]] | ((occ >> 1) << j)
-                    w_new[d] = w[rows[t], occ]
-                d += 1
-        own = rows[rows < cap]
-        valid_new[own] = own < total
-        dead = own[own >= total]
-        assert np.all(a_new[dead] == -1)
-        a_new[dead], b_new[dead], w_new[dead] = 0, 0, 0.0
-        if blk == 0:
+    for i in rng.permutation(grid):
+        total = int(tile_counts.sum())
+        before = int(tile_counts[:i].sum())
+        if i == 0:
             n_children = total
+        for tile in owned[i]:
+            if tile != i:
+                before += int(tile_counts[tile - grid:tile].sum())
+            rows, count = thread_counts(tile)
+            dest = before + _block_exclusive_scan(count)
+            for t in np.flatnonzero(count):
+                d, r = dest[t], rows[t]
+                for occ in np.flatnonzero(flags[r]):
+                    if d < cap:
+                        assert a_new[d] == -1                        # one writer per slot
+                        a_new[d] = a[r] | ((occ & 1) << j)
+                        b_new[d] = b[r] | ((occ >> 1) << j)
+                        w_new[d] = w[r, occ]
+                    d += 1
+            own = rows[rows < cap]
+            valid_new[own] = own < total
+            dead = own[own >= total]
+            assert np.all(a_new[dead] == -1)
+            a_new[dead], b_new[dead], w_new[dead] = 0, 0, 0.0
     return a_new, b_new, w_new, valid_new, n_children
 
 
+# block: threads a block (tiles of `block` rows), over a grid of at most 3
+# blocks: (203, 0.15, 64), (4096, 0.0, 1024) and the last five cases have more
+# tiles than blocks (one of them overflows)
 @pytest.mark.parametrize("cap,fill,block", [(2500, 0.2, 1024), (2500, 0.3, 1024),
                                             (1027, 0.05, 1024), (5, 0.5, 1024),
-                                            (203, 0.15, 64), (4096, 0.0, 1024)])
+                                            (203, 0.15, 64), (4096, 0.0, 1024),
+                                            (2500, 0.2, 64), (2500, 0.3, 64),
+                                            (1027, 0.05, 32), (4099, 0.1, 128),
+                                            (1030, 0.0, 32)])
 def test_compaction_kernel_index_arithmetic(cap, fill, block):
     a, b, w, valid = _compact_case(np.random.default_rng(cap), cap, fill)
-    got = _compact_replay(a, b, w, valid, 7, cap, block)
+    got = _compact_replay(a, b, w, valid, 7, cap, block, n_blocks=3, seed=cap)
     want = _compact_children_ref(*map(torch.as_tensor, (a, b, w, valid)), 7, cap)
     assert (got[4] > cap) == (fill > 0.25)
     for g, x in zip(got, want):

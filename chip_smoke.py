@@ -79,8 +79,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      cascade's (n, p) (another algorithm for the same distribution: a
      reference time) and dense_grid_accumulate on N2's grid. With --before
      DIR, in the same turns, the kernels of the tree unpacked at DIR, each
-     built from DIR's own source into a library of its own name
-     (lib<name>_before.so) and called through DIR's own wrapper: the first
+     built from DIR's own source into DIR's build/ and called through DIR's
+     own wrapper: the first
      slice's two-channel rank_gather2 (first held bitwise against this
      tree's), alone and with the eager epilogue, where DIR's rank_gather2
      takes two tables; dense_grid_accumulate (first held against its plain
@@ -159,31 +159,43 @@ def _oracle_rows(terms, states, la, ph, rows):
 
 def _grid_work(prog):
     """What a grid program's accumulation must do: (bytes, operations, valid
-    (mask, cell) pairs, multiply-adds of the on-the-fly H). Bytes: every
-    input tensor and the grid read once, the output written once.
-    Operations: per pair with a valid image 2 fused multiply-adds into the
+    (mask, cell) pairs, multiply-adds of the on-the-fly H, h_dense's share of
+    the bytes). Bytes: every map and table and the grid read once, the output
+    written once; of h_dense, the dense program's bulk, only the 32-byte
+    sectors that hold a valid (mask, cell) pair of a mask that is not padding
+    (no other value of it enters the sum). h_dense's share is a dict: those
+    sectors' bytes, the bytes of its rows with a valid beta image, and the
+    whole tensor's. Operations: per valid pair 2 fused multiply-adds into the
     sum, plus for the factored program one per rank-1 factor of the mask."""
     import torch
 
     idx = prog.pa_idx if hasattr(prog, "pa_idx") else prog.r1_idx
     sa, sb = prog.sa, prog.sb
-    nb_valid = (prog.row_map % (sb + 1) < sb).sum(dim=1)
+    beta_ok = prog.row_map % (sb + 1) < sb
+    nb_valid = beta_ok.sum(dim=1)
     na_valid = (idx < sa).sum(dim=1)[(prog.row_map[:, 0] // (sb + 1)).long()]
     pairs = nb_valid * na_valid
     # e_diag is the readout's, and par_a the plain version's: the kernel
     # computes that sign from alpha_words and ya_words
     tensors = [t for name, t in vars(prog).items()
-               if torch.is_tensor(t) and name not in ("e_diag", "par_a")]
+               if torch.is_tensor(t) and name not in ("e_diag", "par_a", "h_dense")]
     n_bytes = sum(t.numel() * t.element_size() for t in tensors)
     n_bytes += (sa + 1) * (sb + 1) * 8 + sa * sb * 8
+    h_bytes = {}
     if hasattr(prog, "n_fact"):
         live = prog.n_fact > 0
         macs = int((pairs * prog.n_fact).sum())
     else:
         live = prog.h_dense.flatten(1).abs().amax(dim=1) > 0    # not a pad mask
         macs = 0
+        rows = beta_ok & live[:, None]
+        need = rows[..., None] & (idx < sa)[(prog.row_map // (sb + 1)).long()]
+        need = torch.nn.functional.pad(need.flatten(), (0, -need.numel() % 8))
+        h_bytes = {"sectors": int(need.view(-1, 8).any(dim=1).sum()) * 32,
+                   "rows": int(rows.sum()) * sa * 4, "whole": prog.h_dense.numel() * 4}
+        n_bytes += h_bytes["sectors"]
     n_pairs = int(pairs[live].sum())
-    return n_bytes, 2 * macs + 4 * n_pairs, n_pairs, macs
+    return n_bytes, 2 * macs + 4 * n_pairs, n_pairs, macs, h_bytes
 
 
 def _check_grid_kernel(name, wrapper, ref, prog, grid):
@@ -457,9 +469,9 @@ def _synthetic_split(n_rows, dev):
 
 def _before_modules(before):
     """The kernel wrappers of the port's tree unpacked at `before`, imported
-    beside this tree's, each library built from that tree's own source
-    under its own name, lib<name>_before.so: {"rank_gather2": its
-    ops/dyn_gather} where its rank_gather2 takes the two-channel tables of
+    beside this tree's, each library built from that tree's own source into
+    that tree's build/ and bound while its package is loaded: {"rank_gather2":
+    its ops/dyn_gather} where its rank_gather2 takes the two-channel tables of
     the first slice, {"grid": its ops/grid_kernels} where it has
     csrc/grid_engine.cu, {"sampler": its sampler} where it has
     csrc/sampler_step.cu."""
@@ -476,9 +488,6 @@ def _before_modules(before):
     sys.path.insert(0, before)
     mods = {}
     try:
-        build = importlib.import_module("naqs_tpu_torch.ops._build")
-        paths = build._paths
-        build._paths = lambda name: (paths(name)[0], paths(f"{name}_before")[1])
         dyn = importlib.import_module("naqs_tpu_torch.ops.dyn_gather")
         if len(inspect.signature(dyn.rank_gather2).parameters) == 5:   # (spec, s, xy, la, ph)
             dyn._lib()   # builds and binds that library while its package is loaded
@@ -565,7 +574,7 @@ def main(argv) -> int:
           f"{sum(p.numel() for p in tr.model.parameters())} params; "
           f"{time.time() - t1:.1f}s, of which the trainer with its DeviceTerms "
           f"{time.time() - t2:.1f}s", flush=True)
-    f_bytes, f_ops, f_pairs, f_macs = _grid_work(fn)
+    f_bytes, f_ops, f_pairs, f_macs, _ = _grid_work(fn)
     print(f"[setup] FactorTerms: Sa={fn.sa} Sb={fn.sb} Kxy_pad={fn.row_map.shape[0]} "
           f"Ka={fn.pa_idx.shape[0]} Kya={fn.par_a.shape[0]} Kyb={fn.par_b.shape[0]}, "
           f"factors per mask max {int(fn.n_fact.max())} mean "
@@ -845,7 +854,7 @@ def main(argv) -> int:
     dn = tr2.dt.dense
     if type(dn).__name__ != "DenseTerms":
         raise SystemExit(f"N2 STO-3G must carry DenseTerms, got {type(dn).__name__}")
-    d_bytes, d_ops, d_pairs, _ = _grid_work(dn)
+    d_bytes, d_ops, d_pairs, _, d_h = _grid_work(dn)
     print(f"[setup] N2 STO-3G: {mol2.n_qubits} qubits, |basis|={hil2.size}, "
           f"K={len(terms2.coeff)} Kxy={len(terms2.xy_unique)} (pad {dn.row_map.shape[0]}), "
           f"DenseTerms Sa={dn.sa} Sb={dn.sb} Ka={dn.r1_idx.shape[0]}, h_dense "
@@ -939,8 +948,10 @@ def main(argv) -> int:
           f"of T per valid pair from device memory would be "
           f"{f_pairs * 8 / H100_BYTES_PER_S * 1e3:.3f} ms)", flush=True)
     print(f"[bound] dense_grid_accumulate {d_bound[0]:.5f} ms ({d_bound[1]}: {d_bytes} B = "
-          f"h_dense, the maps, the grid and the output once; {d_ops} float32 operations on "
-          f"{d_pairs} valid pairs)", flush=True)
+          f"h_dense {d_h['sectors']} B (the 32-byte sectors that hold the {d_pairs} valid "
+          f"pairs of the masks that are not padding; its rows with a valid beta image "
+          f"{d_h['rows']} B, the whole tensor {d_h['whole']} B) + the maps, the grid and the "
+          f"output once {d_bytes - d_h['sectors']} B; {d_ops} float32 operations)", flush=True)
 
     # the sampler's kernels: a dead row reads its count and its flag and writes zeros; a
     # live row also reads its probs, mask and six draws. The compaction reads the flags,

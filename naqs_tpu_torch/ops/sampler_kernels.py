@@ -17,22 +17,26 @@ import torch
 _INT = ctypes.c_int
 _PTR = ctypes.c_void_p
 
-# rows of one compact_children tile, one a thread of a block; the kernel's
-# scratch holds one int a tile
-COMPACT_TILE_ROWS = 1024
-
-
 @lru_cache(maxsize=1)
 def _lib():
     from naqs_tpu_torch.ops import _build
 
     lib = _build.load("sampler_step")
     lib.multinomial4_split.argtypes = [_PTR] * 8 + [_INT, _INT, _PTR]
-    lib.compact_children.argtypes = [_PTR] * 10 + [_INT, _INT, _PTR]
+    lib.compact_children.argtypes = [_PTR] * 10 + [_INT, _INT, _INT, _PTR]
+    lib.compact_tile_rows.argtypes = []
     lib.multinomial4_split.restype = lib.compact_children.restype = _INT
+    lib.compact_tile_rows.restype = _INT
     lib.sampler_step_error_string.argtypes = [_INT]
     lib.sampler_step_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@lru_cache(maxsize=1)
+def compact_tile_rows() -> int:
+    """Rows of one compact_children tile, as the kernel's library has it: its
+    scratch holds one int32 a tile."""
+    return _lib().compact_tile_rows()
 
 
 def check_tensors(name, anchor, want):

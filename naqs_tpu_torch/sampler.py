@@ -32,7 +32,7 @@ import torch
 
 from naqs_tpu_torch.models.nade import NADE, amp_conditional_shell
 from naqs_tpu_torch.ops.multinomial import multinomial4_split, split_draws
-from naqs_tpu_torch.ops.sampler_kernels import COMPACT_TILE_ROWS, check_tensors, launch
+from naqs_tpu_torch.ops.sampler_kernels import check_tensors, compact_tile_rows, launch
 from naqs_tpu_torch.utils.bits import SENTINEL
 
 
@@ -96,10 +96,11 @@ def _compact_children(a, b, child_weights, child_valid, j: int, cap: int):
     w_new = torch.empty((cap,), dtype=torch.float64, device=a.device)
     valid_new = torch.empty((cap,), dtype=torch.bool, device=a.device)
     n_children = torch.empty((), dtype=torch.int64, device=a.device)
-    tile_counts = torch.empty((-(-cap // COMPACT_TILE_ROWS),), dtype=torch.int32,
+    tile_counts = torch.empty((-(-cap // compact_tile_rows()),), dtype=torch.int32,
                               device=a.device)
     launch("compact_children", (a, b, child_weights, child_valid, a_new, b_new, w_new,
-                                valid_new, n_children, tile_counts, cap, j), a.device)
+                                valid_new, n_children, tile_counts, tile_counts.numel(), cap,
+                                j), a.device)
     _compact_children.launches += 1
     return a_new, b_new, w_new, valid_new, n_children
 

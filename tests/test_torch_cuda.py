@@ -361,13 +361,14 @@ def test_compact_children_kernel_owns_several_tiles_a_block(beyond):
     once (two an SM at most), so that blocks own several tiles; two calls in
     a row with other flags, so that the tile counts of the first cannot leak
     into the second."""
-    from naqs_tpu_torch.ops.sampler_kernels import COMPACT_TILE_ROWS
+    from naqs_tpu_torch.ops.sampler_kernels import compact_tile_rows
 
     dev = _card()
+    tile = compact_tile_rows()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    cap = COMPACT_TILE_ROWS * (2 * sms + 5) + 3 if beyond else 1_000_000
+    cap = tile * (2 * sms + 5) + 3 if beyond else 1_000_000
     if beyond:
-        assert -(-cap // COMPACT_TILE_ROWS) > 2 * sms
+        assert -(-cap // tile) > 2 * sms
     gen = torch.Generator(device=dev).manual_seed(7)
     a = torch.randint(0, 1 << 20, (cap,), generator=gen, device=dev)
     b = torch.randint(0, 1 << 20, (cap,), generator=gen, device=dev)
@@ -424,3 +425,16 @@ def test_sampler_kernels_reject_bad_inputs():
                 lambda: _compact_children(a, a, w, mask, 0, n - 1)):
         with pytest.raises(ValueError):
             bad()
+    # the library refuses a tile-count scratch shorter than the capacity's tiles
+    from naqs_tpu_torch.ops.sampler_kernels import compact_tile_rows, launch
+
+    cap = compact_tile_rows() + 1
+    ab = torch.zeros(cap, dtype=torch.int64, device=dev)
+    args = (ab, ab, torch.zeros((cap, 4), dtype=torch.float64, device=dev),
+            torch.zeros((cap, 4), dtype=torch.bool, device=dev), torch.empty_like(ab),
+            torch.empty_like(ab), torch.empty(cap, dtype=torch.float64, device=dev),
+            torch.empty(cap, dtype=torch.bool, device=dev),
+            torch.empty((), dtype=torch.int64, device=dev),
+            torch.empty(1, dtype=torch.int32, device=dev), 1, cap, 0)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        launch("compact_children", args, dev)

@@ -30,28 +30,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  5b. the sampler's shell step on real inputs: two sample() calls at capacity
      100,000 (one at the trainer's first n_samples, which overflows, one at
      1e5, the steady state) with the inputs of every shell kept; on each of
-     the 26 shells multinomial4_split against its plain version and
-     compact_children against its plain version, both bitwise (should a
+     the 26 shells split_and_compact (the shell step sample() runs: split and
+     compaction in one launch) against its plain version, multinomial4_split
+     against its plain version and compact_children against its plain
+     version on the plain split's outputs, all bitwise (should a
      transcendental's last bit differ, the split is held instead to: row sums
      exact, at most 1 row in 10^4 differs, each by one sample moved between
-     two children; the count is printed); the binomials by branch and the
-     longest CDF loop; a synthetic split of 100,000 rows that takes the CDF
-     branch everywhere (n = 20..5,000, p from 1e-4 to 0.9, the p > 1/2
-     flip) plus corner rows (q = 0 and 1, n = 0 and 1e12, all-zero probs),
-     an overflowing compaction, and one sample_density call (d_p = 1e-6)
-     through the kernel against the same call through the plain version:
-     states and masses bitwise;
+     two children; the count is printed; split_and_compact has no such
+     allowance); the binomials by branch and the longest CDF loop; a
+     synthetic split of 100,000 rows that takes the CDF branch everywhere (n
+     = 20..5,000, p from 1e-4 to 0.9, the p > 1/2 flip) plus corner rows (q =
+     0 and 1, n = 0 and 1e12, all-zero probs), through both split kernels;
+     an overflowing compaction through both compaction kernels; a shell step
+     of 1,000,003 rows, whose blocks own several tiles; and one
+     sample_density call (d_p = 1e-6) through compact_children against the
+     same call through the plain version: states and masses bitwise;
   6. the main path: 5 VMCTrainer.step()s through the default dispatch with
      every launch count set to 0 just before; fails unless
      factored_grid_accumulate ran exactly once per E_loc call (one call per
-     vmc_update), multinomial4_split and compact_children each ran n_shells =
-     13 times per sample() call, no rank kernel ran, and every energy is
-     finite;
+     vmc_update), split_and_compact ran n_shells = 13 times per sample()
+     call and the standalone multinomial4_split and compact_children never,
+     no rank kernel ran, and every energy is finite;
   7. the earlier main path: 2 more steps of the same trainer on the rank
      engine (dense=None), counts set to 0 just before; fails unless
      rank_ratio_rowsum ran 196 times per E_loc call (capacity 100,000 in
-     chunks of 512), the sampler's kernels 13 times per sample() call, and no
-     grid kernel ran;
+     chunks of 512), split_and_compact 13 times per sample() call and the
+     standalone sampler kernels never, and no grid kernel ran;
   8. quadratic_energy over the sampled buffer with the counts set to 0,
      through rank_gather2 and through rank_gather2_ref: within 1e-6
      relative, and rank_gather2 launched;
@@ -64,16 +68,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      (5e-4 Ha: fp32 off-diagonal sums);
  10. the dense engine: N2 STO-3G (20 qubits, sector (7, 7), 14,400 states;
      DenseTerms asserted), a smaller model, capacity 8,192: 3 steps with the
-     counts at 0 before (dense_grid_accumulate once per E_loc call, the
-     sampler's kernels 10 times per sample() call),
+     counts at 0 before (dense_grid_accumulate once per E_loc call,
+     split_and_compact 10 times per sample() call, the standalone sampler
+     kernels never),
      dense_grid_accumulate against its plain version and twice bitwise, and
      local_energy against the rank engine and the oracle as in phase 9;
  11. times, in turns: REPEATS repeats of LAUNCHES launches each (median and
      min-max of the repeats) of rank_gather2, its plain version, the library
      gather tab[idx] on a precomputed idx, rank_ratio_rowsum, its plain
      version, the unfused composition (rank_gather2 kernel + eager epilogue)
-     and of the sampler's two kernels on the inputs of the steady-state shell
-     with the most live rows, the compaction's plain version (the
+     and of the sampler's kernels on the inputs of the steady-state shell
+     with the most live rows (split_and_compact, and in turns with it this
+     tree's two-kernel composition multinomial4_split + compact_children on
+     the same inputs), the compaction's plain version (the
      cumsum/index_copy_ composition the step ran before the kernel),
      torch.masked_select of the weights, three torch.binomial calls on the
      cascade's (n, p) (another algorithm for the same distribution: a
@@ -86,12 +93,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      takes two tables; dense_grid_accumulate (first held against its plain
      version, per cell within its tolerance) where DIR has
      csrc/grid_engine.cu; compact_children (first held bitwise against this
-     tree's) where DIR has csrc/sampler_step.cu. Then SLOW_REPEATS repeats of
+     tree's) and its split + compaction (two launches, first held bitwise
+     against split_and_compact) where DIR has csrc/sampler_step.cu. Then
+     SLOW_REPEATS repeats of
      SLOW_LAUNCHES of the factored kernel, both grid kernels' plain versions,
      one full local_energy call per engine at capacity 100,000 (factored against
-     rank: printed, not asserted), the split's plain version, the (U, 127)
+     rank: printed, not asserted), the split's plain version, the fused
+     shell step's plain version, the (U, 127)
      cumprod/cumsum split the step ran before the kernel, and one whole
-     sample() call at capacity 100,000. Each is timed held (behind a card sleep
+     sample() call at capacity 100,000 (with --before, also DIR's sample()
+     on the same model, in turns). Each is timed held (behind a card sleep
      that covers the host's enqueue, so the launches run back to back: the
      card's time, reported as "ms"); the fast ones also unheld (a plain loop,
      which reads the host's rate where the wrapper is slower than the
@@ -100,10 +111,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 With --profile, the profiled step of each engine must show one device
 kernel per wrapper call of the sampler's kernels and of the engine's own.
 Prints a {"kernels": [...]} JSON line (launches from phase 6 for
-factored_grid_accumulate, multinomial4_split and compact_children, 7 for
-rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate; with
---before, "before_ms" and "before_spread" of the earlier tree's kernel), and
-last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+factored_grid_accumulate, split_and_compact, multinomial4_split and
+compact_children (0: the standalone kernels left sample()'s path; their
+launches in phase 5b's sample_density call as "launches_sample_density"), 7
+for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate;
+with --before, "before_ms" and "before_spread" of the earlier tree's
+kernel), and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}.
 """
 
 from __future__ import annotations
@@ -127,8 +141,14 @@ SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and mo
 RANK_OPS = 25                 # integer ops per element of the kernels' rank_of
 EPILOGUE_OPS = 11             # per found element: 3 transcendentals + 8 flops
 H100_FP64_OPS_PER_S = 33.5e12  # non-tensor float64: half the float32 rate
-SPLIT_ROW_OPS = 90            # float64 operations of a live row: condp and 3 binomials
-CDF_LOOK_OPS = 7              # float32 operations of one look of the inverse CDF
+# floating-point instructions of the split's operations that are not one
+# instruction, before the first EXIT (the path a normal operand takes), by the
+# type they work in: counted by naqs_tpu_torch/tools/sass_ops.py in the SASS of
+# one-operation probe kernels built with the library's flags (CUDA 12.8,
+# sm_90a; an f64 division is MUFU.RCP64H, 7 DFMA, a DMUL and an FFMA test)
+SASS_OPS = {"f64_div": {"f64": 9, "f32": 1}, "log1p": {"f64": 55, "f32": 1},
+            "sqrt": {"f64": 9, "f32": 0}, "f32_div": {"f64": 0, "f32": 6},
+            "expf": {"f64": 0, "f32": 7}}
 COMPACT_ROW_OPS = 40          # integer operations per row: flag counts and two scans
 SHELL_SRC = {"source": "naqs_tpu_torch/csrc/sampler_step.cu",
              "note": "no Pallas counterpart: XLA-lowered in JAX"}
@@ -296,14 +316,15 @@ def _steps(tr, n, label):
 
 def _shell_inputs(model, gen, n_samples, cap):
     """sampler.sample's shell loop (beta = 1) through the same calls, keeping
-    every shell's inputs: returns (the batch, one (split arguments, compaction
-    arguments) per shell). The caller holds the batch against sample()'s from
-    the same generator state."""
+    every shell's inputs: returns (the batch, the arguments of each shell's
+    _split_and_compact call: a, b, counts, valid, probs, z, u, mask, j, cap).
+    The caller holds the batch against sample()'s from the same generator
+    state."""
     import torch
 
     from naqs_tpu_torch.models.nade import amp_conditional_shell
-    from naqs_tpu_torch.ops.multinomial import multinomial4_split, split_draws
-    from naqs_tpu_torch.sampler import _batch, _compact_children, _prefix_bits, _root
+    from naqs_tpu_torch.ops.multinomial import split_draws
+    from naqs_tpu_torch.sampler import _batch, _prefix_bits, _root, _split_and_compact
 
     dev = next(model.parameters()).device
     a, b, counts, valid, overflow = _root(cap, float(n_samples), dev)
@@ -313,18 +334,52 @@ def _shell_inputs(model, gen, n_samples, cap):
         for j in range(model.cfg.n_shells):
             _, mask, probs = amp_conditional_shell(model, j, *_prefix_bits(a, b, shells))
             z, u = split_draws(gen, cap, dev)
-            split_args = (counts, probs, z, u, mask, valid)
-            child_counts, child_valid = multinomial4_split(*split_args)
-            compact_args = (a, b, child_counts, child_valid, j, cap)
-            a, b, counts, valid, n_children = _compact_children(*compact_args)
+            args = (a, b, counts, valid, probs, z, u, mask, j, cap)
+            a, b, counts, valid, n_children = _split_and_compact(*args)
             overflow = overflow | (n_children > cap)
-            kept.append((split_args, compact_args))
+            kept.append(args)
     return _batch(model.cfg, a, b, counts, valid, overflow, shells), kept
+
+
+def _split_of(args):
+    """multinomial4_split's arguments in a shell step's: (counts, probs, z, u,
+    mask, valid)."""
+    a, b, counts, valid, probs, z, u, mask, j, cap = args
+    return counts, probs, z, u, mask, valid
+
+
+def _compaction_of(args):
+    """compact_children's arguments after the plain split of a shell step:
+    (a, b, child_counts, child_valid, j, cap)."""
+    from naqs_tpu_torch.ops.multinomial import multinomial4_split_ref
+
+    return (args[0], args[1], *multinomial4_split_ref(*_split_of(args)), args[8], args[9])
 
 
 def _max_diff(got, want):
     """Largest absolute difference of two tensors of any dtype, in float64."""
     return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+
+
+def _split_ops(live, tally):
+    """(float64, float32) operations the split does on these rows, from the
+    plain cascade's tally: per live row three running sums and three
+    divisions; per binomial 1 - p, 1 - q, log1p, the mean, the variance, n - k
+    and the count left, and in f32 1 - q and the odds; per Gaussian binomial
+    sqrt, a product, a sum and rint; per inverse-CDF binomial n * log1p(-q) and
+    expf, then per step of the pmf recurrence four sums and products and a
+    division. An operation that is not one instruction counts the
+    instructions SASS_OPS gives it."""
+    binomials = tally["gauss"] + tally["cdf"]
+    steps = tally["cdf_steps"] - tally["cdf"]     # each look but the last updates the pmf
+    calls = {"f64_div": 3 * live, "log1p": binomials, "sqrt": tally["gauss"],
+             "f32_div": binomials + steps, "expf": tally["cdf"]}
+    f64 = 3 * live + 6 * binomials + 3 * tally["gauss"] + tally["cdf"]
+    f32 = binomials + 4 * steps
+    for op, n in calls.items():
+        f64 += n * SASS_OPS[op]["f64"]
+        f32 += n * SASS_OPS[op]["f32"]
+    return f64, f32
 
 
 def _split_tally(counts, probs, z, u, valid):
@@ -421,22 +476,36 @@ def _check_split(label, args, totals):
     return _split_tally(counts, probs, z, u, valid)
 
 
-def _check_compact(label, args, totals):
-    """compact_children against its plain version on `args`: all five outputs
-    bitwise. Adds the largest difference seen to `totals`; returns n_children."""
+def _check_frontier(label, wrapper, ref, args, totals):
+    """A compaction's wrapper (`_compact_children` or `_split_and_compact`)
+    against its plain version on `args`: all five outputs bitwise. Adds the
+    largest difference seen and one case to `totals`; returns n_children."""
     import torch
 
-    from naqs_tpu_torch.sampler import _compact_children, _compact_children_ref
-
-    got = _compact_children(*args)
-    want = _compact_children_ref(*args)
+    got = wrapper(*args)
+    want = ref(*args)
     torch.cuda.synchronize()
     same = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
     totals["err"] = max([totals["err"]] + [_max_diff(g, w) for g, w in zip(got, want)])
+    totals["cases"] += 1
     if not same:
-        raise SystemExit(f"{label}: compact_children disagrees with its plain version "
+        raise SystemExit(f"{label}: {wrapper.__name__} disagrees with its plain version "
                          f"(max_abs_err={totals['err']})")
     return int(got[4])
+
+
+def _shell_step(split, cap, dev, seed):
+    """A shell step's arguments around the split inputs `split` = (counts,
+    probs, z, u) of cap rows: every row valid, every child allowed, random
+    prefix bits below 2^12, shell 12."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randint(0, 1 << 12, (cap,), generator=gen, device=dev)
+    b = torch.randint(0, 1 << 12, (cap,), generator=gen, device=dev)
+    ones = torch.ones((cap, 4), dtype=torch.bool, device=dev)
+    counts, probs, z, u = split
+    return a, b, counts, ones[:, 0].clone(), probs, z, u, ones, 12, cap
 
 
 def _synthetic_split(n_rows, dev):
@@ -530,13 +599,15 @@ def main(argv) -> int:
                                                  factored_grid_accumulate_ref, grid_tolerance)
     from naqs_tpu_torch.ops.multinomial import multinomial4_split, multinomial4_split_ref
     from naqs_tpu_torch.ops.rank import build_value_table, rank_index
-    from naqs_tpu_torch.sampler import _compact_children, _compact_children_ref
+    from naqs_tpu_torch.ops.sampler_kernels import split_tile_rows
+    from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref,
+                                        _split_and_compact, _split_and_compact_ref)
     from naqs_tpu_torch.utils.cuda_timing import hold_ms, time_in_turns
 
     dev = torch.device("cuda")
     t0 = time.time()
     wrappers = (rank_gather2, rank_ratio_rowsum, factored_grid_accumulate,
-                dense_grid_accumulate, multinomial4_split, _compact_children)
+                dense_grid_accumulate, multinomial4_split, _compact_children, _split_and_compact)
 
     def zero_counts():
         for w in wrappers:
@@ -630,7 +701,16 @@ def main(argv) -> int:
     cap = tr.capacity
     n_shells = cfg.n_shells
     totals = {"rows": 0, "differ": 0, "err": 0.0}
-    compact_totals = {"err": 0.0}
+    compact_totals = {"err": 0.0, "cases": 0}
+    fused_totals = {"err": 0.0, "cases": 0}
+
+    def check_fused(label, args):
+        return _check_frontier(label, _split_and_compact, _split_and_compact_ref, args,
+                               fused_totals)
+
+    def check_compact(label, args):
+        return _check_frontier(label, _compact_children, _compact_children_ref, args,
+                               compact_totals)
     batch_fields = ("states", "counts", "n_unique", "overflow")
     fullest, fullest_live, fullest_stats = None, -1, None
     for label, n_samp in (("first", tr.n_samples), ("steady", 1e5)):
@@ -643,22 +723,28 @@ def main(argv) -> int:
         print(f"[shell] sample() at n_samples={n_samp:.0e}, capacity {cap}: n_unique="
               f"{int(b_rec.n_unique)} overflow={bool(b_rec.overflow)}; the shell loop that "
               f"keeps its inputs gives the same batch bitwise", flush=True)
-        for j, (split_args, compact_args) in enumerate(shells):
-            st = _check_split(f"{label} shell {j}", split_args, totals)
-            n_kids = _check_compact(f"{label} shell {j}", compact_args, compact_totals)
+        for j, args in enumerate(shells):
+            n_fused = check_fused(f"{label} shell {j}", args)
+            st = _check_split(f"{label} shell {j}", _split_of(args), totals)
+            n_kids = check_compact(f"{label} shell {j}", _compaction_of(args))
             live = cap - st["dead_rows"]
             print(f"[shell] {label} j={j}: live rows {live}, binomials of live rows: "
                   f"{st['gauss']} Gaussian, {st['cdf']} inverse CDF ({st['cdf_steps']} looks, "
                   f"longest {st['cdf_longest']}); dead rows {st['dead_rows']}; n_children="
-                  f"{n_kids}; split and compaction bitwise equal to their plain versions",
-                  flush=True)
+                  f"{n_kids}; split_and_compact, split and compaction bitwise equal to their "
+                  f"plain versions", flush=True)
+            if n_fused != n_kids:
+                raise SystemExit(f"{label} shell {j}: the fused and the two-kernel shell step "
+                                 f"count other children")
             if label == "steady" and live > fullest_live:
-                fullest, fullest_live, fullest_stats = (split_args, compact_args), live, st
+                fullest, fullest_live, fullest_stats = args, live, st
     syn = _synthetic_split(cap, dev)
     st = _check_split("synthetic", (*syn, None, None), totals)
+    n_syn = check_fused("synthetic", _shell_step(syn, cap, dev, 7))
     print(f"[shell] synthetic split of {cap} rows: {st['gauss']} Gaussian, {st['cdf']} inverse "
           f"CDF binomials ({st['cdf_steps']} looks, longest {st['cdf_longest']}), dead rows "
-          f"{st['dead_rows']}", flush=True)
+          f"{st['dead_rows']}; through split_and_compact (every row valid, every child "
+          f"allowed): {n_syn} children, bitwise", flush=True)
     if st["gauss"] > 0.01 * st["cdf"] or st["cdf_longest"] < 40:
         raise SystemExit("the synthetic split did not force the inverse CDF")
     print(f"[kernel] multinomial4_split: {totals['differ']} of {totals['rows']} rows differ "
@@ -669,7 +755,31 @@ def main(argv) -> int:
             torch.randint(0, 1 << n_shells, (cap,), generator=gen5, device=dev),
             torch.rand((cap, 4), generator=gen5, device=dev, dtype=torch.float64),
             torch.rand((cap, 4), generator=gen5, device=dev) < 0.5, n_shells - 1, cap)
-    n_kids = _check_compact("overflowing compaction", over, compact_totals)
+    n_kids = check_compact("overflowing compaction", over)
+    gen5.manual_seed(8)
+    n_over = check_fused("overflowing shell step", _shell_step(
+        (torch.full((cap,), 1e12, dtype=torch.float64, device=dev),
+         torch.rand((cap, 4), generator=gen5, device=dev),
+         torch.randn((3, cap), generator=gen5, device=dev),
+         torch.rand((3, cap), generator=gen5, device=dev)), cap, dev, 9))
+    wide = 1_000_003   # more tiles than the card holds blocks at once
+    wide_syn = _synthetic_split(wide, dev)
+    wide_args = list(_shell_step(wide_syn, wide, dev, 10))
+    wide_args[3] = torch.rand(wide, generator=gen5, device=dev) < 0.3      # valid
+    wide_args[7] = torch.rand((wide, 4), generator=gen5, device=dev) < 0.8  # mask
+    n_wide = check_fused("1,000,003 rows", tuple(wide_args))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile = split_tile_rows()
+    wide_tiles, most_blocks = -(-wide // tile), 2048 // tile * sms   # 2,048 threads an SM
+    print(f"[kernel] split_and_compact: bitwise equal to its plain version in "
+          f"{fused_totals['cases']} cases: {2 * n_shells} real shells, the synthetic split, an "
+          f"overflowing step ({n_over} children into {cap} slots) and {wide} rows in "
+          f"{wide_tiles} tiles of {tile} ({n_wide} children; the card holds at most "
+          f"{most_blocks} such blocks at once, so blocks own several tiles); "
+          f"max_abs_err={fused_totals['err']}", flush=True)
+    if not (n_over > cap and wide_tiles > most_blocks):
+        raise SystemExit("the fused cases did not overflow or did not give blocks several tiles")
+    del wide_syn, wide_args
     print(f"[kernel] compact_children: bitwise equal to its plain version on {2 * n_shells} "
           f"real shells and on {n_kids} valid children into {cap} slots (max_abs_err="
           f"{compact_totals['err']} over a, b, weights, flags and n_children)", flush=True)
@@ -693,8 +803,9 @@ def main(argv) -> int:
         raise SystemExit("sample_density through the kernel differs from the plain version")
     del shells, syn, over
 
+    two_kernels = "multinomial4_split + compact_children"
     fast = ["rank_gather2", "rank_ratio_rowsum", "tab[idx]", "multinomial4_split",
-            "compact_children"]
+            "compact_children", "split_and_compact", two_kernels]
     idx = rank_index(spec, s[:, None] ^ xy[None, :])
     fns = {
         "rank_gather2": lambda: rank_gather2(spec, s, xy, table),
@@ -706,7 +817,8 @@ def main(argv) -> int:
         "rank_gather2 + eager epilogue": lambda: ratio_rowsum(
             *rank_gather2(spec, s, xy, table), my_la, my_ph, h),
     }
-    split_args, compact_args = fullest
+    step_args = fullest
+    split_args, compact_args = _split_of(step_args), _compaction_of(step_args)
     s_counts, s_probs, s_z, s_u, s_mask, s_valid = split_args
     free = multinomial4_split(s_counts, s_probs, s_z, s_u, None, s_valid)[0]
     p64 = s_probs.double()
@@ -720,6 +832,9 @@ def main(argv) -> int:
         "multinomial4_split": lambda: multinomial4_split(*split_args),
         "compact_children": lambda: _compact_children(*compact_args),
         "compact_children_ref": lambda: _compact_children_ref(*compact_args),
+        "split_and_compact": lambda: _split_and_compact(*step_args),
+        two_kernels: lambda: _compact_children(
+            step_args[0], step_args[1], *multinomial4_split(*split_args), *step_args[8:]),
         "masked_select(weights)": lambda: torch.masked_select(flat_w, flat_valid),
         "3 x torch.binomial": lambda: [torch.binomial(n, p) for n, p in binom_np],
     })
@@ -732,6 +847,7 @@ def main(argv) -> int:
     del before, want_split
     old_name = "two-channel rank_gather2"
     old_compact = "compact_children (earlier tree)"
+    old_two = f"{two_kernels} (earlier tree)"
     old_mods = {}
     if "--before" in argv:
         old_mods = _before_modules(os.path.abspath(argv[argv.index("--before") + 1]))
@@ -744,7 +860,20 @@ def main(argv) -> int:
         if not same_old:
             raise SystemExit(f"{old_compact} disagrees with this tree's compact_children")
         fns[old_compact] = lambda: compact_old(*compact_args)
-        fast.append(old_compact)
+        split_old = old_mods["sampler"].multinomial4_split
+
+        def two_old():
+            return compact_old(step_args[0], step_args[1], *split_old(*split_args),
+                               *step_args[8:])
+
+        same_old = all(torch.equal(g, w) for g, w in zip(two_old(),
+                                                         _split_and_compact(*step_args)))
+        print(f"[kernel] {old_two}: bitwise equal to this tree's split_and_compact={same_old}",
+              flush=True)
+        if not same_old:
+            raise SystemExit(f"{old_two} disagrees with this tree's split_and_compact")
+        fns[old_two] = two_old
+        fast += [old_compact, old_two]
     if "rank_gather2" in old_mods:
         old = old_mods["rank_gather2"]
         la_c, ph_c = table[:, 0].contiguous(), table[:, 1].contiguous()
@@ -767,20 +896,23 @@ def main(argv) -> int:
     n_updates, t_fact, n_draws = _steps(tr, 5, "factored")
     fact_launches = factored_grid_accumulate.launches
     split_launches, compact_launches = multinomial4_split.launches, _compact_children.launches
+    fused_launches = _split_and_compact.launches
     print(f"[path] default dispatch ({type(tr.dt.dense).__name__}): factored_grid_accumulate "
           f"launches in 5 steps: {fact_launches} (expected one per local_energy call, "
           f"{n_updates} vmc_update calls); rank_ratio_rowsum {rank_ratio_rowsum.launches}, "
           f"rank_gather2 {rank_gather2.launches}, dense_grid_accumulate "
-          f"{dense_grid_accumulate.launches}; multinomial4_split {split_launches} and "
-          f"compact_children {compact_launches} ({n_shells} shells x {n_draws} sample() "
-          f"calls); peak device memory "
+          f"{dense_grid_accumulate.launches}; split_and_compact {fused_launches} ({n_shells} "
+          f"shells x {n_draws} sample() calls), the standalone multinomial4_split "
+          f"{split_launches} and compact_children {compact_launches}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if (fact_launches != n_updates or n_updates < 5 or rank_ratio_rowsum.launches
             or rank_gather2.launches or dense_grid_accumulate.launches):
         raise SystemExit("the main path did not run factored_grid_accumulate once per "
                          "E_loc call, or ran another engine's kernel")
-    if not (split_launches == compact_launches == n_shells * n_draws and n_draws >= 5):
-        raise SystemExit("the main path did not run the sampler's kernels once per shell")
+    if not (fused_launches == n_shells * n_draws and n_draws >= 5
+            and split_launches == compact_launches == 0):
+        raise SystemExit("the main path did not run split_and_compact once per shell, or ran "
+                         "the standalone sampler kernels")
 
     # 7. the earlier main path: the same trainer on the rank engine
     per_call = -(-tr.capacity // chunk)
@@ -791,14 +923,17 @@ def main(argv) -> int:
     print(f"[path] rank engine (dense=None): rank_ratio_rowsum launches in 2 steps: "
           f"{ratio_launches} ({per_call} per local_energy call, {n_updates} vmc_update calls); "
           f"rank_gather2: {rank_gather2.launches}; factored_grid_accumulate: "
-          f"{factored_grid_accumulate.launches}; multinomial4_split "
-          f"{multinomial4_split.launches}, compact_children {_compact_children.launches} "
-          f"({n_draws} sample() calls)", flush=True)
+          f"{factored_grid_accumulate.launches}; split_and_compact "
+          f"{_split_and_compact.launches} ({n_draws} sample() calls), multinomial4_split "
+          f"{multinomial4_split.launches}, compact_children {_compact_children.launches}",
+          flush=True)
     if ratio_launches != per_call * n_updates or n_updates < 2 or \
             factored_grid_accumulate.launches:
         raise SystemExit("the rank path did not run rank_ratio_rowsum once per chunk")
-    if not multinomial4_split.launches == _compact_children.launches == n_shells * n_draws:
-        raise SystemExit("the rank path did not run the sampler's kernels once per shell")
+    if not (_split_and_compact.launches == n_shells * n_draws
+            and multinomial4_split.launches == _compact_children.launches == 0):
+        raise SystemExit("the rank path did not run split_and_compact once per shell, or ran "
+                         "the standalone sampler kernels")
     tr.dt = dt
     print(f"[path] step time, same trainer, same call: factored steps 2-5 "
           f"{min(t_fact[1:]):.3f}-{max(t_fact[1:]):.3f} s, rank steps 6-7 "
@@ -865,14 +1000,16 @@ def main(argv) -> int:
     dense_launches = dense_grid_accumulate.launches
     print(f"[path] N2 default dispatch (DenseTerms): dense_grid_accumulate launches in 3 "
           f"steps: {dense_launches} ({n_updates} vmc_update calls); others "
-          f"{[w.launches for w in wrappers[:3]]}; multinomial4_split "
-          f"{multinomial4_split.launches}, compact_children {_compact_children.launches} "
-          f"({cfg2.n_shells} shells x {n_draws} sample() calls)", flush=True)
+          f"{[w.launches for w in wrappers[:3]]}; split_and_compact "
+          f"{_split_and_compact.launches} ({cfg2.n_shells} shells x {n_draws} sample() calls), "
+          f"multinomial4_split {multinomial4_split.launches}, compact_children "
+          f"{_compact_children.launches}", flush=True)
     if dense_launches != n_updates or n_updates < 3 or any(w.launches for w in wrappers[:3]):
         raise SystemExit("N2 did not run dense_grid_accumulate once per E_loc call")
-    if not (multinomial4_split.launches == _compact_children.launches
-            == cfg2.n_shells * n_draws):
-        raise SystemExit("N2 did not run the sampler's kernels once per shell")
+    if not (_split_and_compact.launches == cfg2.n_shells * n_draws
+            and multinomial4_split.launches == _compact_children.launches == 0):
+        raise SystemExit("N2 did not run split_and_compact once per shell, or ran the "
+                         "standalone sampler kernels")
     batch2 = tr2._sample()
     with torch.no_grad():
         la2, ph2 = log_psi(tr2.model, batch2.states)
@@ -907,15 +1044,19 @@ def main(argv) -> int:
         "local_energy (rank engine)": lambda: le.local_energy(
             dt_rank, batch.states, la, ph, batch.n_unique),
         "multinomial4_split_ref": lambda: multinomial4_split_ref(*split_args),
+        "split_and_compact_ref": lambda: _split_and_compact_ref(*step_args),
         "(U, 127) cumprod/cumsum split": lambda: _split_before(s_counts, s_probs, s_z, s_u,
                                                                s_mask),
         "sample() at capacity 100,000": lambda: sampler_mod.sample(tr.model, tr.gen, 1e5, cap),
     }
+    old_sample = "sample() at capacity 100,000 (earlier tree)"
+    if "sampler" in old_mods:
+        slow_fns[old_sample] = lambda: old_mods["sampler"].sample(tr.model, tr.gen, 1e5, cap)
     times.update(time_in_turns(slow_fns, SLOW_REPEATS, SLOW_LAUNCHES))
     print(f"[time] {REPEATS} repeats of {LAUNCHES} launches ({SLOW_REPEATS} of "
           f"{SLOW_LAUNCHES} for the factored kernel, the grid kernels' plain versions, "
-          f"local_energy, the "
-          f"split's plain version, the split of before and sample()), the "
+          f"local_energy, the split's and the shell step's plain versions, the split of "
+          f"before and sample()), the "
           f"functions in turns; held: behind a {hold:.1f} ms card sleep, so the launches run "
           f"back to back (the card's time); unheld: a plain loop (the host's rate where that "
           f"is slower)", flush=True)
@@ -960,7 +1101,7 @@ def main(argv) -> int:
     st = fullest_stats
     p_size = s_probs.element_size() * 4
     sp_bytes = cap * (8 + 1 + 32 + 4) + fullest_live * (p_size + 4 + 24)
-    sp_f64, sp_f32 = fullest_live * SPLIT_ROW_OPS, st["cdf_steps"] * CDF_LOOK_OPS
+    sp_f64, sp_f32 = _split_ops(fullest_live, st)
     sp_ops_ms = (sp_f64 / H100_FP64_OPS_PER_S + sp_f32 / H100_FP32_OPS_PER_S) * 1e3
     sp_bytes_ms = sp_bytes / H100_BYTES_PER_S * 1e3
     sp_bound = (max(sp_bytes_ms, sp_ops_ms), "bytes" if sp_bytes_ms >= sp_ops_ms else "operations")
@@ -968,20 +1109,33 @@ def main(argv) -> int:
     n_parents, n_kids = int(flags.any(-1).sum()), int(flags.sum())
     cp_bytes = cap * 4 + n_parents * 16 + min(n_kids, cap) * 8 + cap * (24 + 1) + 8
     cp_bound = _bound(cp_bytes, cap * COMPACT_ROW_OPS)
+    # the fused step reads the split's inputs and the parents' prefix bits and writes
+    # the compaction's outputs; the split's outputs never reach device memory
+    fu_bytes = cap * (8 + 1) + fullest_live * (p_size + 4 + 24) + n_parents * 16 + cap * 25 + 8
+    fu_ops_ms = sp_ops_ms + cap * COMPACT_ROW_OPS / H100_FP32_OPS_PER_S * 1e3
+    fu_bytes_ms = fu_bytes / H100_BYTES_PER_S * 1e3
+    fu_bound = (max(fu_bytes_ms, fu_ops_ms), "bytes" if fu_bytes_ms >= fu_ops_ms else "operations")
     print(f"[bound] multinomial4_split {sp_bound[0]:.5f} ms ({sp_bound[1]}: {sp_bytes} B = "
           f"{cap} rows x 45 B (count, flag, outputs) + {fullest_live} live rows x "
           f"{p_size + 28} B (probs, mask, six draws); {sp_f64} float64 operations at "
-          f"{H100_FP64_OPS_PER_S:.3g}/s + {sp_f32} float32 operations on {st['cdf_steps']} "
-          f"looks of the inverse CDF: {sp_ops_ms:.5f} ms)", flush=True)
+          f"{H100_FP64_OPS_PER_S:.3g}/s + {sp_f32} float32 operations ({st['gauss']} Gaussian "
+          f"and {st['cdf']} inverse-CDF binomials, {st['cdf_steps']} looks; instructions a "
+          f"division, log1p, sqrt or expf takes: {SASS_OPS}): {sp_ops_ms:.5f} ms)", flush=True)
     print(f"[bound] compact_children {cp_bound[0]:.5f} ms ({cp_bound[1]}: {cp_bytes} B = flags "
           f"{cap * 4} B, a and b of {n_parents} parents, {min(n_kids, cap)} weights, four "
           f"outputs {cap * 25} B; {cap * COMPACT_ROW_OPS} integer operations)", flush=True)
+    print(f"[bound] split_and_compact {fu_bound[0]:.5f} ms ({fu_bound[1]}: {fu_bytes} B = "
+          f"{cap} rows x 9 B (count, flag) + {fullest_live} live rows x {p_size + 28} B (probs, "
+          f"mask, six draws) + a and b of {n_parents} parents + four outputs {cap * 25 + 8} B, "
+          f"{fu_bytes_ms:.5f} ms; the split's operations and {cap * COMPACT_ROW_OPS} integer "
+          f"operations: {fu_ops_ms:.5f} ms)", flush=True)
 
     if "--profile" in argv:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        kernel_of = {"compact_children_kernel": _compact_children,
+        kernel_of = {"split_and_compact_kernel": _split_and_compact,
+                     "compact_children_kernel": _compact_children,
                      "multinomial4_split_kernel": multinomial4_split,
                      "factored_grid_accumulate_kernel": factored_grid_accumulate,
                      "rank_ratio_rowsum_kernel": rank_ratio_rowsum}
@@ -1003,7 +1157,7 @@ def main(argv) -> int:
             launched = {name: w.launches for name, w in kernel_of.items()}
             print(f"[profile] {label}: device kernels {seen}, wrapper calls {launched}",
                   flush=True)
-            if seen != launched or not launched["compact_children_kernel"]:
+            if seen != launched or not launched["split_and_compact_kernel"]:
                 raise SystemExit(f"the {label} step's device kernels are not one per wrapper "
                                  f"call")
             print(f"[profile] one step on the {label} path", flush=True)
@@ -1013,7 +1167,8 @@ def main(argv) -> int:
             print(f"[profile] {label}: {total / 1e3:.1f} ms device time in the step", flush=True)
             for e in events:
                 if any(k in e.key for k in ("rank_", "grid_accumulate", "multinomial4_split",
-                                            "compact_children", "cumsum", "cumprod")) \
+                                            "compact_children", "split_and_compact", "cumsum",
+                                            "cumprod")) \
                         and e.self_device_time_total > 0:
                     print(f"[profile] {label} {e.key}: {e.count} launches, "
                           f"{e.self_device_time_total / 1e3:.3f} ms device time, "
@@ -1056,10 +1211,22 @@ def main(argv) -> int:
         entry("dense_grid_accumulate", dense_launches, dense_err, "dense_grid_accumulate_ref",
               d_bound, None, replaces="naqs_tpu/ops/dense_engine.py:279",
               library_note=no_call, **before(old_dense), **GRID_SRC),
+        entry("split_and_compact", fused_launches, fused_totals["err"], "split_and_compact_ref",
+              fu_bound, None,
+              replaces="naqs_tpu/ops/multinomial.py:76 + naqs_tpu/sampler.py:49",
+              library_note="no single PyTorch call computes the split and the compaction",
+              two_kernel_ms=times[two_kernels][0], two_kernel_spread=times[two_kernels][1],
+              two_kernel_unheld_ms=calls[two_kernels][0],
+              sample_call_ms=times["sample() at capacity 100,000"][0],
+              **({"sample_call_before_ms": times[old_sample][0]} if old_sample in times else {}),
+              **before(old_two),
+              **SHELL_SRC),
         entry("multinomial4_split", split_launches, totals["err"], "multinomial4_split_ref",
               sp_bound, "3 x torch.binomial", replaces="naqs_tpu/ops/multinomial.py:76",
               library_note="three torch.binomial calls on the cascade's (n, p): the same "
                            "distribution by another algorithm, without the mask",
+              path_note="not on the main path: sample() runs split_and_compact, which does "
+                        "this kernel's arithmetic (one device function)",
               before_ms=times["(U, 127) cumprod/cumsum split"][0],
               rows_differing=totals["differ"], **SHELL_SRC),
         entry("compact_children", compact_launches, compact_totals["err"],
@@ -1067,8 +1234,9 @@ def main(argv) -> int:
               replaces="naqs_tpu/sampler.py:49",
               library_note="torch.masked_select of the weights: one of the three arrays, "
                            "no zero fill, no flags, no count",
-              sample_call_ms=times["sample() at capacity 100,000"][0], **before(old_compact),
-              **SHELL_SRC),
+              path_note="not on the main path: sample() runs split_and_compact; "
+                        "sample_density launches this kernel",
+              launches_sample_density=dens_launches, **before(old_compact), **SHELL_SRC),
     ]}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

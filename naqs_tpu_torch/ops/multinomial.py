@@ -18,6 +18,8 @@ thread per frontier row, built by nvcc at first use) or raises; on a CPU
 tensor it runs the plain PyTorch version `multinomial4_split_ref`, which
 keeps the JAX order of operations, step by step. There is no fallback from
 one to the other. `multinomial4_split.launches` counts kernel launches.
+`sample()` runs the same arithmetic (the kernels share one device function)
+inside the fused shell step `sampler._split_and_compact`.
 
 The kernel does the plain version's arithmetic in the same order with no
 fused multiply-add (it names the rounding of every product and sum), leaves
@@ -82,7 +84,8 @@ def binomial(gen: torch.Generator, n: torch.Tensor, p: torch.Tensor) -> torch.Te
 
     The split's plain arithmetic on one binomial, kept for tests of the
     distribution: on every device it runs the 127-step loop of elementwise
-    calls and launches no kernel. The sampler's path is `multinomial4_split`."""
+    calls and launches no kernel. The sampler's path is
+    `sampler._split_and_compact`, which splits as `multinomial4_split` does."""
     n = n.to(torch.float64)
     z = torch.randn(n.shape, generator=gen, device=n.device, dtype=torch.float32)
     u = torch.rand(n.shape, generator=gen, device=n.device, dtype=torch.float32)

@@ -1,10 +1,11 @@
 """Loader of `csrc/sampler_step.cu`, the sampler's shell step on the card.
 
-The source holds two hand-written kernels, `multinomial4_split` and
-`compact_children`, built by nvcc at first use (`ops/_build.py`) and bound
-through ctypes. Their public wrappers live beside their plain versions, in
-`ops/multinomial.py` and `sampler.py`; both check their tensors with
-`check_tensors` and launch through `launch`, and each counts its own launches.
+The source holds three hand-written kernels, `multinomial4_split`,
+`compact_children` and `split_and_compact` (the two in one launch), built by
+nvcc at first use (`ops/_build.py`) and bound through ctypes. Their public
+wrappers live beside their plain versions, in `ops/multinomial.py` and
+`sampler.py`; each checks its tensors with `check_tensors`, launches through
+`launch` and counts its own launches.
 """
 
 from __future__ import annotations
@@ -24,9 +25,11 @@ def _lib():
     lib = _build.load("sampler_step")
     lib.multinomial4_split.argtypes = [_PTR] * 8 + [_INT, _INT, _PTR]
     lib.compact_children.argtypes = [_PTR] * 10 + [_INT, _INT, _INT, _PTR]
-    lib.compact_tile_rows.argtypes = []
+    lib.split_and_compact.argtypes = [_PTR] * 14 + [_INT, _INT, _INT, _PTR]
+    lib.compact_tile_rows.argtypes = lib.split_tile_rows.argtypes = []
     lib.multinomial4_split.restype = lib.compact_children.restype = _INT
-    lib.compact_tile_rows.restype = _INT
+    lib.split_and_compact.restype = _INT
+    lib.compact_tile_rows.restype = lib.split_tile_rows.restype = _INT
     lib.sampler_step_error_string.argtypes = [_INT]
     lib.sampler_step_error_string.restype = ctypes.c_char_p
     return lib
@@ -37,6 +40,13 @@ def compact_tile_rows() -> int:
     """Rows of one compact_children tile, as the kernel's library has it: its
     scratch holds one int32 a tile."""
     return _lib().compact_tile_rows()
+
+
+@lru_cache(maxsize=1)
+def split_tile_rows() -> int:
+    """Rows of one split_and_compact tile, as the kernel's library has it: its
+    scratch holds one int32 a tile."""
+    return _lib().split_tile_rows()
 
 
 def check_tensors(name, anchor, want):

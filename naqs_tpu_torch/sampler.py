@@ -5,21 +5,24 @@ configurations, so cost scales with support size, not sample count. The
 frontier is a fixed-capacity buffer; at each shell every frontier state's
 count is split over its 4 child occupations (`multinomial4_split`) and the
 valid children are compacted, in order, into a fresh buffer
-(`_compact_children`). Exceeding capacity sets an overflow flag, which the
-trainer's controller answers by shrinking the sample count. The shell loop is
-a Python loop; sampling is gradient-free. `sample_density` walks the same
-shells deterministically and keeps every child whose probability mass
-reaches a threshold.
+(`_compact_children`); `_split_and_compact` does both at once. Exceeding
+capacity sets an overflow flag, which the trainer's controller answers by
+shrinking the sample count. The shell loop is a Python loop; sampling is
+gradient-free. `sample_density` walks the same shells deterministically and
+keeps every child whose probability mass reaches a threshold.
 
-On the card the shell step is two hand-written kernels of
-`csrc/sampler_step.cu`, `multinomial4_split` (`ops/multinomial.py`) and
-`compact_children` (here, one cooperative launch: tiles of 1,024 rows count
-their children, one grid-wide barrier, then each tile scans and scatters),
-and reads nothing back to the host. On a CUDA
-tensor `_compact_children` launches its kernel or raises; on a CPU tensor it
-runs the plain PyTorch version `_compact_children_ref`, a cumsum-scatter as
-in the JAX package. There is no fallback from one to the other; the integer
-scan makes the two equal bit for bit. `_compact_children.launches` counts
+On the card the shell step is one hand-written kernel of
+`csrc/sampler_step.cu`, `split_and_compact` (`_split_and_compact` here: one
+cooperative launch a shell; tiles of 256 rows split their rows' counts and
+count their children, one grid-wide barrier, then each tile scans and
+scatters), and reads nothing back to the host. `sample_density` launches the
+compaction alone, `compact_children` (`_compact_children`), and the split
+alone is `multinomial4_split` (`ops/multinomial.py`). On a CUDA tensor a
+wrapper launches its kernel or raises; on a CPU tensor it runs its plain
+PyTorch version (`_compact_children_ref`, a cumsum-scatter as in the JAX
+package; `_split_and_compact_ref`, the plain split followed by it). There is
+no fallback from one to the other; the split's arithmetic and the integer
+scan make the two equal bit for bit. Each wrapper's `.launches` counts its
 kernel launches.
 """
 
@@ -31,8 +34,9 @@ import numpy as np
 import torch
 
 from naqs_tpu_torch.models.nade import NADE, amp_conditional_shell
-from naqs_tpu_torch.ops.multinomial import multinomial4_split, split_draws
-from naqs_tpu_torch.ops.sampler_kernels import check_tensors, compact_tile_rows, launch
+from naqs_tpu_torch.ops.multinomial import multinomial4_split_ref, split_draws
+from naqs_tpu_torch.ops.sampler_kernels import (check_tensors, compact_tile_rows, launch,
+                                                split_tile_rows)
 from naqs_tpu_torch.utils.bits import SENTINEL
 
 
@@ -69,6 +73,25 @@ def _compact_children_ref(a, b, child_weights, child_valid, j: int, cap: int):
     return scatter(a_vals), scatter(b_vals), scatter(flat_w), valid_new, n_children
 
 
+def _check_shell(name, j: int, cap: int):
+    if not 0 <= j < 63:
+        raise ValueError(f"{name}: shell {j} does not fit an int64 word")
+    if not 0 < 4 * cap < 1 << 31:
+        raise ValueError(f"{name}: 4 * cap must be positive and below 2^31")
+
+
+def _fresh_frontier(cap: int, dev, tile_rows: int):
+    """The outputs of a compaction kernel, (a_new, b_new, w_new, valid_new,
+    n_children), and its scratch of one int32 a tile of `tile_rows` rows."""
+    i64 = torch.int64
+    return (torch.empty((cap,), dtype=i64, device=dev),
+            torch.empty((cap,), dtype=i64, device=dev),
+            torch.empty((cap,), dtype=torch.float64, device=dev),
+            torch.empty((cap,), dtype=torch.bool, device=dev),
+            torch.empty((), dtype=i64, device=dev),
+            torch.empty((-(-cap // tile_rows),), dtype=torch.int32, device=dev))
+
+
 def _compact_children(a, b, child_weights, child_valid, j: int, cap: int):
     """Scatter the valid (parent, occupation) children of a (cap, 4) frontier
     expansion into a fresh cap-sized buffer, preserving row-major order.
@@ -86,26 +109,55 @@ def _compact_children(a, b, child_weights, child_valid, j: int, cap: int):
         "a": (a, i64, (cap,)), "b": (b, i64, (cap,)),
         "child_weights": (child_weights, f64, (cap, 4)),
         "child_valid": (child_valid, (torch.bool,), (cap, 4))})
-    if not 0 <= j < 63:
-        raise ValueError(f"compact_children: shell {j} does not fit an int64 word")
-    if not 0 < 4 * cap < 1 << 31:
-        raise ValueError("compact_children: 4 * cap must be positive and below 2^31")
+    _check_shell("compact_children", j, cap)
     if a.device.type == "cpu":
         return _compact_children_ref(a, b, child_weights, child_valid, j, cap)
-    a_new, b_new = torch.empty_like(a), torch.empty_like(b)
-    w_new = torch.empty((cap,), dtype=torch.float64, device=a.device)
-    valid_new = torch.empty((cap,), dtype=torch.bool, device=a.device)
-    n_children = torch.empty((), dtype=torch.int64, device=a.device)
-    tile_counts = torch.empty((-(-cap // compact_tile_rows()),), dtype=torch.int32,
-                              device=a.device)
-    launch("compact_children", (a, b, child_weights, child_valid, a_new, b_new, w_new,
-                                valid_new, n_children, tile_counts, tile_counts.numel(), cap,
-                                j), a.device)
+    out = _fresh_frontier(cap, a.device, compact_tile_rows())
+    tiles = out[-1]
+    launch("compact_children", (a, b, child_weights, child_valid, *out, tiles.numel(), cap, j),
+           a.device)
     _compact_children.launches += 1
-    return a_new, b_new, w_new, valid_new, n_children
+    return out[:5]
 
 
 _compact_children.launches = 0
+
+
+def _split_and_compact_ref(a, b, counts, valid, probs, z, u, mask, j: int, cap: int):
+    """Plain PyTorch version of `_split_and_compact`: `multinomial4_split_ref`
+    followed by `_compact_children_ref`."""
+    child_counts, child_valid = multinomial4_split_ref(counts, probs, z, u, mask, valid)
+    return _compact_children_ref(a, b, child_counts, child_valid, j, cap)
+
+
+def _split_and_compact(a, b, counts, valid, probs, z, u, mask, j: int, cap: int):
+    """One shell step of `sample`: split every frontier row's count over its
+    four children as `multinomial4_split(counts, probs, z, u, mask, valid)`
+    does, then compact the children with a count as `_compact_children(a, b,
+    child_counts, child_valid, j, cap)` does, in one launch on the card.
+
+    a, b: (cap,) int64; counts: (cap,) f64; valid: (cap,) bool; probs: (cap, 4)
+    f32; z, u: (3, cap) f32 from `split_draws`; mask: (cap, 4) bool. Returns
+    `_compact_children`'s (a_new, b_new, w_new, valid_new, n_children).
+    """
+    i64, f32, bl = (torch.int64,), (torch.float32,), (torch.bool,)
+    check_tensors("split_and_compact", a, {
+        "a": (a, i64, (cap,)), "b": (b, i64, (cap,)),
+        "counts": (counts, (torch.float64,), (cap,)), "valid": (valid, bl, (cap,)),
+        "probs": (probs, f32, (cap, 4)), "z": (z, f32, (3, cap)), "u": (u, f32, (3, cap)),
+        "mask": (mask, bl, (cap, 4))})
+    _check_shell("split_and_compact", j, cap)
+    if a.device.type == "cpu":
+        return _split_and_compact_ref(a, b, counts, valid, probs, z, u, mask, j, cap)
+    out = _fresh_frontier(cap, a.device, split_tile_rows())
+    tiles = out[-1]
+    launch("split_and_compact", (a, b, counts, valid, probs, z, u, mask, *out, tiles.numel(),
+                                 cap, j), a.device)
+    _split_and_compact.launches += 1
+    return out[:5]
+
+
+_split_and_compact.launches = 0
 
 
 def _root(cap: int, weight: float, dev):
@@ -136,6 +188,15 @@ def _batch(cfg, a, b, weights, valid, overflow, shells) -> SampleBatch:
                        overflow=overflow)
 
 
+def _temper(log_amp4, probs, beta: float):
+    """A shell's conditionals tempered to p^beta and renormalized, in probs'
+    dtype as in naqs_tpu/sampler.py:122-127. In log space: masked options
+    carry log_amp -> -inf-ish, so exp gives exact zeros and the sum runs over
+    the valid options."""
+    pt = torch.exp(2.0 * beta * log_amp4.to(torch.float64))
+    return (pt / torch.clamp(pt.sum(dim=-1, keepdim=True), min=1e-300)).to(probs.dtype)
+
+
 @torch.no_grad()
 def sample(
     model: NADE,
@@ -161,15 +222,11 @@ def sample(
     for j in range(s):
         log_amp4, mask, probs = amp_conditional_shell(model, j, *_prefix_bits(a, b, shells))
         if beta != 1.0:
-            # log-space tempering: masked options carry log_amp -> -inf-ish,
-            # so exp gives exact zeros; renormalize over the valid options
-            pt = torch.exp(2.0 * beta * log_amp4.to(torch.float64))
-            probs = pt / torch.clamp(pt.sum(dim=-1, keepdim=True), min=1e-300)
+            probs = _temper(log_amp4, probs, beta)
         z, u = split_draws(gen, cap, dev)
         # the mask drops unphysical children; valid = (count > 0) on live rows
-        child_counts, child_valid = multinomial4_split(counts, probs, z, u, mask, valid)
-        a, b, counts, valid, n_children = _compact_children(
-            a, b, child_counts, child_valid, j, cap)
+        a, b, counts, valid, n_children = _split_and_compact(
+            a, b, counts, valid, probs, z, u, mask, j, cap)
         overflow = overflow | (n_children > cap)
     return _batch(cfg, a, b, counts, valid, overflow, shells)
 

@@ -11,9 +11,10 @@ summation order over K terms and expf/sincosf ulps); the grid kernels
 `factored_grid_accumulate` and `dense_grid_accumulate` per cell within
 `grid_tolerance` (1e-6 + 1e-5 * sum_k sum_r |fcoeff| |T_k|: fp32 order over
 the masks, fma against mul + add), and bitwise equal to themselves run twice;
-the sampler's `multinomial4_split` and `compact_children` bitwise (the first
-does its plain version's arithmetic with one rounding per operation, the
-second is an integer scan).
+the sampler's `multinomial4_split`, `compact_children` and the two fused in
+one launch, `split_and_compact`, bitwise (the split does its plain version's
+arithmetic with one rounding per operation, the compaction is an integer
+scan).
 """
 
 import dataclasses
@@ -33,7 +34,9 @@ from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, dense_grid_a
 from naqs_tpu_torch.ops.multinomial import (_GAUSS_VAR_MIN, _cascade, multinomial4_split,
                                             multinomial4_split_ref, split_draws)
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
-from naqs_tpu_torch.sampler import _compact_children, _compact_children_ref, sample
+from naqs_tpu_torch import sampler as sampler_mod
+from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref, _split_and_compact,
+                                    _split_and_compact_ref, sample)
 
 pytestmark = pytest.mark.cuda
 
@@ -381,6 +384,91 @@ def test_compact_children_kernel_owns_several_tiles_a_block(beyond):
         assert (int(got[4]) > cap) == (fill > 0.25)
 
 
+def _shell_step_inputs(cap, fill, dev):
+    """(a, b, counts, valid, probs, z, u, mask) of one shell step on the card:
+    the 'mixed' split rows of `_split_inputs` (both branches, corners), a
+    share `fill` of them valid, prefix bits below 2^20."""
+    counts, probs, z, u, mask, _ = _split_inputs(cap, "mixed", dev)
+    gen = torch.Generator(device=dev).manual_seed(cap + 1)
+    valid = torch.rand(cap, generator=gen, device=dev) < fill
+    a = torch.randint(0, 1 << 20, (cap,), generator=gen, device=dev)
+    b = torch.randint(0, 1 << 20, (cap,), generator=gen, device=dev)
+    return a, b, counts, valid, probs, z, u, mask
+
+
+# 1,000,003 rows are 3,907 tiles, more than the card holds blocks at once: blocks
+# own several tiles and split their later tiles again after the barrier
+@pytest.mark.parametrize("cap", [1, 31, 257, 1027, 4099, 100_000, 1_000_003])
+@pytest.mark.parametrize("fill", [0.0, 0.07, 0.3, 1.0])
+def test_split_and_compact_kernel_matches_plain(cap, fill):
+    from naqs_tpu_torch.ops.sampler_kernels import split_tile_rows
+
+    dev = _card()
+    args = _shell_step_inputs(cap, fill, dev)
+    before = _split_and_compact.launches
+    got = _split_and_compact(*args, 20, cap)
+    torch.cuda.synchronize()
+    assert _split_and_compact.launches == before + 1
+    want = _split_and_compact_ref(*args, 20, cap)
+    again = _split_and_compact(*args, 20, cap)
+    for g, x, y in zip(got, want, again):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert torch.equal(g, x) and torch.equal(g, y)
+    if fill == 0.0:
+        assert int(got[4]) == 0
+    if cap > 1000 and fill == 1.0:
+        assert int(got[4]) > cap                                   # overflows
+    if cap == 1_000_003:   # more tiles than blocks of 2,048 threads an SM
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert -(-cap // split_tile_rows()) > 2048 // split_tile_rows() * sms
+
+
+@torch.no_grad()
+def _two_kernel_sample(model, gen, n_samples, cap, beta):
+    """sample()'s shell loop with the split and the compaction as two launches
+    (multinomial4_split, then compact_children) on the same draws."""
+    from naqs_tpu_torch.models.nade import amp_conditional_shell
+
+    dev = next(model.parameters()).device
+    a, b, counts, valid, overflow = sampler_mod._root(cap, float(n_samples), dev)
+    shells = torch.arange(model.cfg.n_shells, device=dev)
+    for j in range(model.cfg.n_shells):
+        log_amp4, mask, probs = amp_conditional_shell(
+            model, j, *sampler_mod._prefix_bits(a, b, shells))
+        if beta != 1.0:
+            probs = sampler_mod._temper(log_amp4, probs, beta)
+        z, u = split_draws(gen, cap, dev)
+        child_counts, child_valid = multinomial4_split(counts, probs, z, u, mask, valid)
+        a, b, counts, valid, n_children = _compact_children(a, b, child_counts, child_valid, j,
+                                                            cap)
+        overflow = overflow | (n_children > cap)
+    return sampler_mod._batch(model.cfg, a, b, counts, valid, overflow, shells)
+
+
+@pytest.mark.parametrize("beta,cap", [(1.0, 512), (0.5, 512), (1.0, 64)])
+def test_sample_on_the_card_equals_the_two_kernel_loop(beta, cap):
+    """sample() through split_and_compact gives the batch, bit for bit, that the
+    split and the compaction as two launches give from the same generator
+    state; capacity 64 overflows."""
+    from naqs_tpu_torch.models.nade import NADE
+
+    dev = _card()
+    cfg = nt.NAQSConfig(n_qubits=14, sectors=((5, 5),), amp_hidden=(16,), phase_hidden=(8,))
+    model = NADE(cfg, torch.Generator().manual_seed(3)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    state = gen.get_state()
+    counts = (_split_and_compact.launches, multinomial4_split.launches,
+              _compact_children.launches)
+    got = sample(model, gen, 1e6, cap, beta=beta)
+    assert (_split_and_compact.launches - counts[0], multinomial4_split.launches - counts[1],
+            _compact_children.launches - counts[2]) == (cfg.n_shells, 0, 0)
+    gen.set_state(state)
+    want = _two_kernel_sample(model, gen, 1e6, cap, beta)
+    for f in ("states", "counts", "n_unique", "overflow"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert bool(got.overflow) == (cap == 64) and int(got.n_unique) > 0
+
+
 def test_sample_on_the_card_conserves_and_sorts():
     dev = _card()
     cfg = nt.NAQSConfig(n_qubits=14, sectors=((5, 5),), amp_hidden=(16,), phase_hidden=(8,),
@@ -389,10 +477,11 @@ def test_sample_on_the_card_conserves_and_sorts():
 
     model = NADE(cfg, torch.Generator().manual_seed(0)).to(dev)
     hil = nt.Hilbert(n_qubits=14, sectors=((5, 5),))
-    counts = (multinomial4_split.launches, _compact_children.launches)
+    counts = (_split_and_compact.launches, multinomial4_split.launches,
+              _compact_children.launches)
     batch = sample(model, torch.Generator(device=dev).manual_seed(1), 1e6, 512)
-    assert (multinomial4_split.launches - counts[0], _compact_children.launches - counts[1]) \
-        == (cfg.n_shells, cfg.n_shells)
+    assert (_split_and_compact.launches - counts[0], multinomial4_split.launches - counts[1],
+            _compact_children.launches - counts[2]) == (cfg.n_shells, 0, 0)
     nu = int(batch.n_unique)
     states = batch.states.cpu().numpy()
     assert not bool(batch.overflow) and 0 < nu <= hil.size
@@ -422,7 +511,12 @@ def test_sampler_kernels_reject_bad_inputs():
                 lambda: _compact_children(a.int(), a, w, mask, 0, n),
                 lambda: _compact_children(a, a, w.t().contiguous().t(), mask, 0, n),
                 lambda: _compact_children(a, a, w, mask.cpu(), 0, n),
-                lambda: _compact_children(a, a, w, mask, 0, n - 1)):
+                lambda: _compact_children(a, a, w, mask, 0, n - 1),
+                lambda: _split_and_compact(a, a, counts, valid, probs.double(), z, u, mask, 0,
+                                           n),
+                lambda: _split_and_compact(a, a, counts, valid, wide, z, u, mask, 0, n),
+                lambda: _split_and_compact(a, a, counts, valid.cpu(), probs, z, u, mask, 0, n),
+                lambda: _split_and_compact(a, a.int(), counts, valid, probs, z, u, mask, 0, n)):
         with pytest.raises(ValueError):
             bad()
     # the library refuses a tile-count scratch shorter than the capacity's tiles
@@ -438,3 +532,8 @@ def test_sampler_kernels_reject_bad_inputs():
             torch.empty(1, dtype=torch.int32, device=dev), 1, cap, 0)
     with pytest.raises(RuntimeError, match="invalid argument"):
         launch("compact_children", args, dev)
+    f32 = torch.zeros((cap, 4), device=dev)
+    draws = torch.zeros((3, cap), device=dev)
+    fused = (ab, ab, args[6], args[7], f32, draws, draws, args[3], *args[4:])
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        launch("split_and_compact", fused, dev)

@@ -10,12 +10,18 @@ On the CPU the port's wrappers run their plain versions
   `jax.random`: child counts equal exactly;
 * the compaction against `naqs_tpu.sampler._compact_children`: all five
   outputs equal;
+* the fused shell step's plain version `_split_and_compact_ref` against the
+  JAX scan body (`multinomial4`, `* mask`, `& valid`, `_compact_children`) on
+  the same draws: all five outputs equal;
+* the tempered conditionals `sample(beta=...)` hands the shell step: float32
+  and bit-equal to the JAX expression on the same log_amp4;
 * `sample_density` against the JAX function on H2O STO-3G with converted
   parameters: states, n_unique and overflow equal, masses within 1e-6
   relative (the models' f32 conditionals differ by ulps between XLA and torch);
-* a numpy replay of the compaction kernel's index arithmetic (tile counts,
+* a numpy replay of the cooperative kernels' index arithmetic (tile counts,
   a grid-wide barrier, tile offsets, warp scans, zero fill, blocks that own
-  several tiles) against the plain version;
+  several tiles and, in the fused kernel, split their later tiles again after
+  the barrier) against the plain versions;
 * the wrappers' input checks.
 """
 
@@ -28,9 +34,11 @@ import torch
 from naqs_tpu import sampler as sampler_j
 from naqs_tpu.ops import multinomial as multinomial_j
 from naqs_tpu_torch import sample_density
+from naqs_tpu_torch import sampler as sampler_t
 from naqs_tpu_torch.ops.multinomial import (multinomial4, multinomial4_split,
                                             multinomial4_split_ref, split_draws)
-from naqs_tpu_torch.sampler import _compact_children, _compact_children_ref
+from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref,
+                                    _split_and_compact, _split_and_compact_ref, sample)
 from test_torch_cuda import split_branches
 from test_torch_sampler import _setup
 from test_torch_support import to_u64
@@ -135,6 +143,69 @@ def test_compact_children_ref_matches_jax(cap, fill, j):
     assert _compact_children.launches == 0
 
 
+def _shell_case(name, fill, n, seed):
+    """(a, b, counts, valid, probs, z, u, mask) of one shell step as numpy: the
+    rows of `_split_case`, a share `fill` of them valid, 80% of the children
+    allowed, prefix bits below 2^12."""
+    rng = np.random.default_rng(seed)
+    counts, probs = _split_case(name, rng, n)
+    z = rng.standard_normal((3, n)).astype(np.float32)
+    u = rng.uniform(0, 1, (3, n)).astype(np.float32)
+    mask = rng.uniform(0, 1, (n, 4)) < 0.8
+    valid = rng.uniform(0, 1, n) < fill
+    a, b = rng.integers(0, 1 << 12, n), rng.integers(0, 1 << 12, n)
+    return a, b, counts, valid, probs, z, u, mask
+
+
+@pytest.mark.parametrize("name,fill", [("cdf", 0.2), ("gauss", 0.2), ("corners", 0.2),
+                                       ("gauss", 1.0)])
+def test_split_and_compact_ref_matches_jax_scan_body(monkeypatch, name, fill):
+    """naqs_tpu/sampler.py:128-134 on the same draws: multinomial4, * mask,
+    & valid, _compact_children; ("gauss", 1.0) overflows."""
+    n, j = 1024, 12
+    a, b, counts, valid, probs, z, u, mask = _shell_case(name, fill, n, 8)
+    got = _split_and_compact_ref(*map(torch.as_tensor, (a, b, counts, valid, probs, z, u, mask)),
+                                 j, n)
+    child = jnp.asarray(_jax_split(monkeypatch, counts, probs, z, u)) * jnp.asarray(mask)
+    child_valid = (child > 0) & jnp.asarray(valid)[:, None]
+    want = sampler_j._compact_children(jnp.asarray(a, jnp.uint32), jnp.asarray(b, jnp.uint32),
+                                       child, child_valid, jnp.int32(j), n)
+    assert (int(got[4]) > n) == (fill == 1.0) and int(got[4]) > 0
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+    assert _split_and_compact.launches == 0
+
+
+@pytest.mark.parametrize("beta", [0.25, 0.5, 0.8])
+def test_tempered_probabilities_are_the_references(monkeypatch, beta):
+    """The probabilities sample(beta=...) hands the shell step, caught at the
+    split's wrapper, against naqs_tpu/sampler.py:125-127 on the same log_amp4:
+    float32 and bit-equal."""
+    _, _, _, model = _setup()
+    seen = []
+    shell, step = sampler_t.amp_conditional_shell, sampler_t._split_and_compact
+
+    def caught_shell(*args):
+        out = shell(*args)
+        seen.append([out[0]])
+        return out
+
+    def caught_step(a, b, counts, valid, probs, *rest):
+        seen[-1].append(probs)
+        return step(a, b, counts, valid, probs, *rest)
+
+    monkeypatch.setattr(sampler_t, "amp_conditional_shell", caught_shell)
+    monkeypatch.setattr(sampler_t, "_split_and_compact", caught_step)
+    batch = sample(model, torch.Generator().manual_seed(0), 1e5, 256, beta=beta)
+    assert len(seen) == model.cfg.n_shells and int(batch.n_unique) > 0
+    for log_amp4, probs in seen:
+        pt = jnp.exp(2.0 * beta * jnp.asarray(log_amp4.numpy()).astype(jnp.float64))
+        want = (pt / jnp.maximum(jnp.sum(pt, axis=-1, keepdims=True), 1e-300)).astype(
+            jnp.float32)
+        assert probs.dtype == torch.float32
+        np.testing.assert_array_equal(probs.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("d_p,capacity", [(1e-3, 512), (1e-5, 512), (1e-5, 64)])
 def test_sample_density_matches_jax(d_p, capacity):
     _, cfg_j, params, model = _setup()
@@ -168,30 +239,42 @@ def _block_exclusive_scan(x):
     return (below[:, None] + incl - x.reshape(-1, 32)).ravel()
 
 
-def _compact_replay(a, b, w, valid, j, cap, block=1024, n_blocks=3, seed=0):
-    """csrc/sampler_step.cu::compact_children_kernel in numpy: a cooperative
-    grid of min(tiles, n_blocks) blocks of `block` threads, tiles of one row a
-    thread, block i owning tiles i, i + n_blocks, ... Phase 1 counts each
-    tile's children into its scratch word, the blocks in a shuffled order;
-    after the barrier each block, again in a shuffled order, takes n_children
-    and its first tile's offset from the tile counts, adds the counts since
-    its previous tile for each later one, scans the threads' counts, scatters
-    the children and writes its tiles' own slots."""
+def _tiled_replay(row_of, j, cap, block=1024, n_blocks=3, seed=0):
+    """The cooperative kernels of csrc/sampler_step.cu (count_tiles, the grid
+    barrier, scatter_tiles) in numpy: a grid of min(tiles, n_blocks) blocks of
+    `block` threads, tiles of one row a thread, block i owning tiles i, i +
+    n_blocks, ... row_of(rows) gives the rows' (flags (len, 4) bool, a, b,
+    weights (len, 4)). Phase 1 gets the rows of each tile and counts its
+    children into its scratch word, the blocks in a shuffled order, and each
+    block keeps the rows of its first tile; after the barrier each block,
+    again in a shuffled order, takes n_children and its first tile's offset
+    from the tile counts, adds the counts since its previous tile for each
+    later one (whose rows it gets again), scans the threads' counts, scatters
+    the children and writes its tiles' own slots. Returns the five outputs and
+    how often each tile's rows were got."""
     rng = np.random.default_rng(seed)
-    flags = valid.astype(np.int64).reshape(cap, 4)
     n_tiles = -(-cap // block)
     grid = min(n_tiles, n_blocks)
     owned = [range(i, n_tiles, grid) for i in range(grid)]
+    made = np.zeros(n_tiles, np.int64)
 
-    def thread_counts(tile):
-        """each thread's row and its count of flags, 0 past cap"""
+    def tile_rows(tile):
+        """each thread's row, flags (none past cap), a, b and weights"""
+        made[tile] += 1
         rows = tile * block + np.arange(block)
-        return rows, np.where(rows < cap, flags[np.minimum(rows, cap - 1)].sum(-1), 0)
+        pad = int((rows >= cap).sum())
+        flags, ra, rb, rw = row_of(rows[rows < cap])
+        return (rows, np.pad(np.asarray(flags, np.int64), ((0, pad), (0, 0))),
+                np.pad(ra, (0, pad)), np.pad(rb, (0, pad)), np.pad(rw, ((0, pad), (0, 0))))
 
+    kept = {}
     tile_counts = np.full(n_tiles, -7, np.int64)   # last launch's words: overwritten
     for i in rng.permutation(grid):
         for tile in owned[i]:
-            tile_counts[tile] = thread_counts(tile)[1].sum()
+            got = tile_rows(tile)
+            if tile == i:
+                kept[i] = got
+            tile_counts[tile] = got[1].sum()
     a_new, b_new = np.full(cap, -1, np.int64), np.full(cap, -1, np.int64)
     w_new, valid_new = np.full(cap, np.nan), np.zeros(cap, bool)
     n_children = None
@@ -203,23 +286,31 @@ def _compact_replay(a, b, w, valid, j, cap, block=1024, n_blocks=3, seed=0):
         for tile in owned[i]:
             if tile != i:
                 before += int(tile_counts[tile - grid:tile].sum())
-            rows, count = thread_counts(tile)
+            rows, flags, ra, rb, rw = kept[i] if tile == i else tile_rows(tile)
+            count = flags.sum(-1)
             dest = before + _block_exclusive_scan(count)
             for t in np.flatnonzero(count):
-                d, r = dest[t], rows[t]
-                for occ in np.flatnonzero(flags[r]):
+                d = dest[t]
+                for occ in np.flatnonzero(flags[t]):
                     if d < cap:
                         assert a_new[d] == -1                        # one writer per slot
-                        a_new[d] = a[r] | ((occ & 1) << j)
-                        b_new[d] = b[r] | ((occ >> 1) << j)
-                        w_new[d] = w[r, occ]
+                        a_new[d] = ra[t] | ((occ & 1) << j)
+                        b_new[d] = rb[t] | ((occ >> 1) << j)
+                        w_new[d] = rw[t, occ]
                     d += 1
             own = rows[rows < cap]
             valid_new[own] = own < total
             dead = own[own >= total]
             assert np.all(a_new[dead] == -1)
             a_new[dead], b_new[dead], w_new[dead] = 0, 0, 0.0
-    return a_new, b_new, w_new, valid_new, n_children
+    return (a_new, b_new, w_new, valid_new, n_children), made
+
+
+def _compact_replay(a, b, w, valid, j, cap, block=1024, n_blocks=3, seed=0):
+    """compact_children_kernel: `_tiled_replay` on the given flags and weights."""
+    flags = valid.reshape(cap, 4)
+    return _tiled_replay(lambda rows: (flags[rows], a[rows], b[rows], w[rows]), j, cap, block,
+                         n_blocks, seed)[0]
 
 
 # block: threads a block (tiles of `block` rows), over a grid of at most 3
@@ -236,6 +327,36 @@ def test_compaction_kernel_index_arithmetic(cap, fill, block):
     got = _compact_replay(a, b, w, valid, 7, cap, block, n_blocks=3, seed=cap)
     want = _compact_children_ref(*map(torch.as_tensor, (a, b, w, valid)), 7, cap)
     assert (got[4] > cap) == (fill > 0.25)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, x.numpy())
+
+
+# as above, with the split inside, in the kernel's tiles of 256 rows and in
+# others: (2500, 0.5, 64) overflows
+@pytest.mark.parametrize("cap,fill,block", [(2500, 0.2, 256), (1027, 0.1, 256),
+                                            (5, 0.4, 256), (203, 0.15, 64),
+                                            (2500, 0.2, 64), (2500, 0.5, 64),
+                                            (4099, 0.1, 128), (5000, 0.25, 1024),
+                                            (1030, 0.0, 32)])
+def test_split_and_compact_kernel_index_arithmetic(cap, fill, block):
+    """split_and_compact_kernel: each block splits its first tile's rows once and
+    keeps them across the barrier, and splits its later tiles' rows in both
+    phases, from the same inputs."""
+    a, b, counts, valid, probs, z, u, mask = _shell_case("cdf", fill, cap, cap)
+    inputs = tuple(map(torch.as_tensor, (counts, probs, z, u, mask, valid)))
+
+    def split_rows(rows):
+        c, p, zz, uu, m, v = inputs
+        child, flags = multinomial4_split_ref(c[rows], p[rows], zz[:, rows], uu[:, rows],
+                                              m[rows], v[rows])
+        return flags.numpy(), a[rows], b[rows], child.numpy()
+
+    got, made = _tiled_replay(split_rows, 7, cap, block, n_blocks=3, seed=cap)
+    want = _split_and_compact_ref(*map(torch.as_tensor, (a, b, counts, valid, probs, z, u, mask)),
+                                  7, cap)
+    grid = min(len(made), 3)
+    assert np.all(made[:grid] == 1) and np.all(made[grid:] == 2)
+    assert (got[4] > cap) == (fill == 0.5)
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g, x.numpy())
 
@@ -263,6 +384,21 @@ def test_wrappers_reject_bad_inputs():
                 lambda: _compact_children(a, a, w, flags.to(torch.uint8), 0, n),
                 lambda: _compact_children(a, a, w, flags, 0, n + 1),
                 lambda: _compact_children(a, a, w, flags, 63, n),
-                lambda: _compact_children(a, a.to("meta"), w, flags, 0, n)):
+                lambda: _compact_children(a, a.to("meta"), w, flags, 0, n),
+                lambda: _split_and_compact(a, a, counts, flags[:, 0], probs.double(), z, u,
+                                           flags, 0, n),
+                lambda: _split_and_compact(a, a, counts.float(), flags[:, 0], probs, z, u, flags,
+                                           0, n),
+                lambda: _split_and_compact(a, a, counts, flags[:, 0].int(), probs, z, u, flags,
+                                           0, n),
+                lambda: _split_and_compact(a, a, counts, flags[:, 0], probs, z[:2], u, flags, 0,
+                                           n),
+                lambda: _split_and_compact(a, a, counts, flags[:, 0], probs, z, u, flags[:, :3],
+                                           0, n),
+                lambda: _split_and_compact(a, a, counts, flags[:, 0], probs, z, u, flags, 63, n),
+                lambda: _split_and_compact(a, a, counts, flags[:, 0], probs, z, u, flags, 0,
+                                           n + 1),
+                lambda: _split_and_compact(a.to("meta"), a, counts, flags[:, 0], probs, z, u,
+                                           flags, 0, n)):
         with pytest.raises(ValueError):
             bad()

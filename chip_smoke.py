@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py            # one card; the whole check
     python3 chip_smoke.py --profile  # also one torch.profiler-traced step
-                                     # per E_loc engine
+                                     # per E_loc engine (factored, rank,
+                                     # staircase)
     python3 chip_smoke.py --before DIR  # also time an earlier slice's
                                         # kernels, unpacked at DIR, in turns
                                         # with this tree's
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. build every CUDA kernel with nvcc (one nvcc per source, started
-     together): csrc/rank_gather.cu, csrc/grid_engine.cu and
-     csrc/sampler_step.cu;
+     together): csrc/rank_gather.cu, csrc/grid_engine.cu (the factored, dense
+     and staircase accumulations) and csrc/sampler_step.cu;
   2. print the card's name and power limit (nvidia-smi);
   3. set up H2O 6-31G (26 qubits, sector (5, 5), 1,656,369 states) and the
      paper-scale model (amp 64, phase 512x512, global phase net, partial
@@ -73,6 +74,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      kernels never),
      dense_grid_accumulate against its plain version and twice bitwise, and
      local_energy against the rank engine and the oracle as in phase 9;
+ 10b. the staircase engine: Li2O STO-3G CISDTQ (30 qubits, sector (7, 7),
+     at most XL_EXC = 4 excitations in the space and X/Y sites in the
+     terms; naqs_tpu_torch/data/Li2O_STO-3G_gen.npz), the paper-scale model
+     of phase 3, capacity 100,000. The dispatch must carry FactorTermsXL
+     with 644,365 cells; 3 steps with the counts at 0 before (xl_grid_accumulate
+     once per E_loc call, split_and_compact 15 times per sample() call, no
+     other kernel); the share of a sampled batch's weight outside the
+     staircase; xl_grid_accumulate on that batch's grid against its plain
+     version per cell (grid_tolerance) and twice bitwise; local_energy through
+     FactorTermsXL against the rank engine on XL_QUERIES staircase rows as
+     queries= over a buffer of the batch's staircase states (ENGINE_TOL), and
+     8 staircase rows of the sampled buffer against local_energy_np with psi
+     zeroed outside the restricted rectangle (ELOC_TOL);
  11. times, in turns: REPEATS repeats of LAUNCHES launches each (median and
      min-max of the repeats) of rank_gather2, its plain version, the library
      gather tab[idx] on a precomputed idx, rank_ratio_rowsum, its plain
@@ -96,9 +110,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      tree's) and its split + compaction (two launches, first held bitwise
      against split_and_compact) where DIR has csrc/sampler_step.cu. Then
      SLOW_REPEATS repeats of
-     SLOW_LAUNCHES of the factored kernel, both grid kernels' plain versions,
-     one full local_energy call per engine at capacity 100,000 (factored against
-     rank: printed, not asserted), the split's plain version, the fused
+     SLOW_LAUNCHES of the factored and staircase kernels (with --before, DIR's
+     factored kernel, first held bitwise against this tree's on H2O 6-31G's
+     grid), the grid kernels' plain versions, one full local_energy call per
+     engine at capacity 100,000 (factored against rank on H2O 6-31G, and
+     FactorTermsXL against rank on Li2O: printed, not asserted), the split's
+     plain version, the fused
      shell step's plain version, the (U, 127)
      cumprod/cumsum split the step ran before the kernel, and one whole
      sample() call at capacity 100,000 (with --before, also DIR's sample()
@@ -108,13 +125,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      which reads the host's rate where the wrapper is slower than the
      kernel: "unheld_ms"), and the run fails if the hold did not cover their
      enqueue; see naqs_tpu_torch/utils/cuda_timing.py.
-With --profile, the profiled step of each engine must show one device
-kernel per wrapper call of the sampler's kernels and of the engine's own.
+With --profile, the profiled step of each engine (H2O 6-31G factored and
+rank, Li2O staircase) must show one device kernel per wrapper call of the
+sampler's kernels and of the engine's own; it prints the step's device time
+and the card's busy share of the step before it.
 Prints a {"kernels": [...]} JSON line (launches from phase 6 for
 factored_grid_accumulate, split_and_compact, multinomial4_split and
 compact_children (0: the standalone kernels left sample()'s path; their
 launches in phase 5b's sample_density call as "launches_sample_density"), 7
-for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate;
+for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
+for xl_grid_accumulate;
 with --before, "before_ms" and "before_spread" of the earlier tree's
 kernel), and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
@@ -135,6 +155,9 @@ H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12   # non-tensor float32 (used for integer ops too)
 ELOC_TOL = 5e-4               # Ha, fp32 off-diagonal vs float64 reference
 ENGINE_TOL = 2e-4             # Ha per live row, grid engine vs rank engine
+XL_EXC = 4                    # Li2O STO-3G CISDTQ: at most 4 excitations
+LI2O_CELLS = 644_365          # its staircase cells
+XL_QUERIES = 4096             # staircase rows held against the rank engine
 QUAD_RTOL = 1e-6              # quadratic_energy, kernel vs plain gather
 REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
 SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and more
@@ -218,6 +241,42 @@ def _grid_work(prog):
     return n_bytes, 2 * macs + 4 * n_pairs, n_pairs, macs, h_bytes
 
 
+def _xl_work(fn):
+    """What the staircase accumulation must do: (bytes, operations, valid
+    (mask, cell) pairs, multiply-adds of the on-the-fly H, grid cells the
+    valid pairs read). A pair is valid when both spin images lie in the
+    restricted rectangle. Bytes: the grid cells those pairs read, once; the
+    maps, factor lists and word tables once; of par_a and par_b only the
+    columns the blocks' programs read; the packed output once. Operations:
+    per valid pair 2 fused multiply-adds into the sum, and one per rank-1
+    factor of the mask."""
+    import torch
+
+    sa, sb = fn.sa, fn.sb
+    va, vb = fn.pa_idx < sa, fn.pb_idx < sb
+    a_ok = torch.stack([va[:, off:off + cnt].sum(1) for off, cnt, _ in fn.blocks], 1)
+    b_ok = torch.stack([vb[:, :pw].sum(1) for _, _, pw in fn.blocks], 1)
+    pairs = (a_ok[fn.ga.long()] * b_ok[fn.gb.long()]).sum(1)
+    macs = int((pairs * fn.n_fact).sum())
+    touched = torch.zeros((sa, sb), dtype=torch.bool, device=fn.ga.device)
+    for g in range(fn.pa_idx.shape[0]):
+        gbs = torch.unique(fn.gb[fn.ga == g]).long()
+        for off, cnt, pw in fn.blocks:
+            rows = fn.pa_idx[g, off:off + cnt]
+            cols = torch.unique(fn.pb_idx[gbs, :pw])
+            touched[rows[rows < sa].long()[:, None], cols[cols < sb].long()[None, :]] = True
+    n_touched = int(touched.sum())
+    program_p = {orient: torch.unique(fn.tiles[fn.tiles[:, 0] == orient, 1]).numel()
+                 for orient in (0, 1)}
+    tables = [fn.ga, fn.gb, fn.pa_idx, fn.pb_idx, fn.alpha_words, fn.beta_words, fn.ya_words,
+              fn.yb_words, fn.fa_idx, fn.fb_idx, fn.fcoeff, fn.n_fact, fn.cells_off, fn.tiles]
+    n_bytes = sum(t.numel() * t.element_size() for t in tables)
+    n_bytes += (fn.par_b.shape[0] * program_p[0] + fn.par_a.shape[0] * program_p[1]) * 4
+    n_bytes += n_touched * 8 + fn.n_cells * 8
+    n_pairs = int(pairs.sum())
+    return n_bytes, 2 * macs + 4 * n_pairs, n_pairs, macs, n_touched
+
+
 def _check_grid_kernel(name, wrapper, ref, prog, grid):
     """Hold a grid kernel against its plain version on `grid`; returns its
     max abs error. Raises SystemExit on disagreement or a run-to-run change."""
@@ -240,7 +299,11 @@ def _check_grid_kernel(name, wrapper, ref, prog, grid):
     err, worst = float(diff.max()), float((diff / tol).max())
     ok = bool((diff <= tol).all()) and bool(torch.isfinite(got).all())
     same = torch.equal(got, again)
-    print(f"[kernel] {name} (Kxy_pad={prog.row_map.shape[0]}, Sb={prog.sb}, Sa={prog.sa}; "
+    shape = (f"Kxy_pad={prog.row_map.shape[0]}, Sb={prog.sb}, Sa={prog.sa}"
+             if hasattr(prog, "row_map") else
+             f"Kxy={prog.ga.shape[0]}, {prog.n_cells} staircase cells of Sa*={prog.sa} x "
+             f"Sb*={prog.sb}, {prog.tiles.shape[0]} blocks")
+    print(f"[kernel] {name} ({shape}; "
           f"{int((grid[..., 0] ** 2 + grid[..., 1] ** 2 > 0).sum())} cells of the grid set): "
           f"max_abs_err={err:.3e} (sums up to {float(want.abs().max()):.3e}), worst cell at "
           f"{worst:.3f} of its tolerance ({GRID_ATOL} + {GRID_RTOL} * sum_k sum_r |c||T|), "
@@ -542,8 +605,8 @@ def _before_modules(before):
     that tree's build/ and bound while its package is loaded: {"rank_gather2":
     its ops/dyn_gather} where its rank_gather2 takes the two-channel tables of
     the first slice, {"grid": its ops/grid_kernels} where it has
-    csrc/grid_engine.cu, {"sampler": its sampler} where it has
-    csrc/sampler_step.cu."""
+    csrc/grid_engine.cu, {"sampler": its sampler, "multinomial": its
+    ops/multinomial} where it has csrc/sampler_step.cu."""
     import importlib
     import inspect
 
@@ -566,6 +629,7 @@ def _before_modules(before):
             mods["grid"]._lib()
         if has("sampler_step.cu"):
             mods["sampler"] = importlib.import_module("naqs_tpu_torch.sampler")
+            mods["multinomial"] = importlib.import_module("naqs_tpu_torch.ops.multinomial")
             importlib.import_module("naqs_tpu_torch.ops.sampler_kernels")._lib()
     finally:
         sys.path.remove(before)
@@ -588,7 +652,7 @@ def main(argv) -> int:
     from naqs_tpu_torch.models.nade import log_psi
     from naqs_tpu_torch.ops import _build
     from naqs_tpu_torch.ops import local_energy as le
-    from naqs_tpu_torch.ops.dense_engine import value_grid
+    from naqs_tpu_torch.ops.dense_engine import _xl_blocked_idx, value_grid, xl_value_grid
     from naqs_tpu_torch.ops.dyn_gather import (ROWSUM_ATOL, ROWSUM_RTOL, rank_gather2,
                                                rank_gather2_ref, rank_ratio_rowsum,
                                                rank_ratio_rowsum_ref, ratio_rowsum,
@@ -596,18 +660,21 @@ def main(argv) -> int:
     from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate,
                                                  dense_grid_accumulate_ref,
                                                  factored_grid_accumulate,
-                                                 factored_grid_accumulate_ref, grid_tolerance)
+                                                 factored_grid_accumulate_ref, grid_tolerance,
+                                                 xl_grid_accumulate, xl_grid_accumulate_ref)
     from naqs_tpu_torch.ops.multinomial import multinomial4_split, multinomial4_split_ref
     from naqs_tpu_torch.ops.rank import build_value_table, rank_index
     from naqs_tpu_torch.ops.sampler_kernels import split_tile_rows
     from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref,
                                         _split_and_compact, _split_and_compact_ref)
+    from naqs_tpu_torch.utils.bits import SENTINEL
     from naqs_tpu_torch.utils.cuda_timing import hold_ms, time_in_turns
 
     dev = torch.device("cuda")
     t0 = time.time()
     wrappers = (rank_gather2, rank_ratio_rowsum, factored_grid_accumulate,
-                dense_grid_accumulate, multinomial4_split, _compact_children, _split_and_compact)
+                dense_grid_accumulate, multinomial4_split, _compact_children, _split_and_compact,
+                xl_grid_accumulate)
 
     def zero_counts():
         for w in wrappers:
@@ -860,7 +927,7 @@ def main(argv) -> int:
         if not same_old:
             raise SystemExit(f"{old_compact} disagrees with this tree's compact_children")
         fns[old_compact] = lambda: compact_old(*compact_args)
-        split_old = old_mods["sampler"].multinomial4_split
+        split_old = old_mods["multinomial"].multinomial4_split
 
         def two_old():
             return compact_old(step_args[0], step_args[1], *split_old(*split_args),
@@ -906,7 +973,8 @@ def main(argv) -> int:
           f"{split_launches} and compact_children {compact_launches}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if (fact_launches != n_updates or n_updates < 5 or rank_ratio_rowsum.launches
-            or rank_gather2.launches or dense_grid_accumulate.launches):
+            or rank_gather2.launches or dense_grid_accumulate.launches
+            or xl_grid_accumulate.launches):
         raise SystemExit("the main path did not run factored_grid_accumulate once per "
                          "E_loc call, or ran another engine's kernel")
     if not (fused_launches == n_shells * n_draws and n_draws >= 5
@@ -928,7 +996,7 @@ def main(argv) -> int:
           f"{multinomial4_split.launches}, compact_children {_compact_children.launches}",
           flush=True)
     if ratio_launches != per_call * n_updates or n_updates < 2 or \
-            factored_grid_accumulate.launches:
+            factored_grid_accumulate.launches or xl_grid_accumulate.launches:
         raise SystemExit("the rank path did not run rank_ratio_rowsum once per chunk")
     if not (_split_and_compact.launches == n_shells * n_draws
             and multinomial4_split.launches == _compact_children.launches == 0):
@@ -1004,7 +1072,8 @@ def main(argv) -> int:
           f"{_split_and_compact.launches} ({cfg2.n_shells} shells x {n_draws} sample() calls), "
           f"multinomial4_split {multinomial4_split.launches}, compact_children "
           f"{_compact_children.launches}", flush=True)
-    if dense_launches != n_updates or n_updates < 3 or any(w.launches for w in wrappers[:3]):
+    if (dense_launches != n_updates or n_updates < 3 or any(w.launches for w in wrappers[:3])
+            or xl_grid_accumulate.launches):
         raise SystemExit("N2 did not run dense_grid_accumulate once per E_loc call")
     if not (_split_and_compact.launches == cfg2.n_shells * n_draws
             and multinomial4_split.launches == _compact_children.launches == 0):
@@ -1020,8 +1089,15 @@ def main(argv) -> int:
     _engines_agree("N2 STO-3G", le, tr2.dt, terms2, batch2, la2, ph2)
 
     old_dense = "dense_grid_accumulate (earlier tree)"
+    old_fact = "factored_grid_accumulate (earlier tree)"
     fns["dense_grid_accumulate"] = lambda: dense_grid_accumulate(dn, grid2)
     if "grid" in old_mods:
+        fact_old = old_mods["grid"].factored_grid_accumulate
+        same_fact = torch.equal(fact_old(fn, grid), factored_grid_accumulate(fn, grid))
+        print(f"[kernel] {old_fact} on H2O 6-31G's sampled grid: bitwise equal to this "
+              f"tree's={same_fact}", flush=True)
+        if not same_fact:
+            raise SystemExit(f"{old_fact} and this tree's factored_grid_accumulate differ")
         dense_old = old_mods["grid"].dense_grid_accumulate
         d_diff = (dense_old(dn, grid2) - dense_grid_accumulate_ref(dn, grid2)).abs()
         d_ok = bool((d_diff <= grid_tolerance(dn, grid2)).all())
@@ -1030,6 +1106,103 @@ def main(argv) -> int:
         if not d_ok:
             raise SystemExit(f"{old_dense} disagrees with its plain version")
         fns[old_dense] = lambda: dense_old(dn, grid2)
+
+    # 10b. the staircase engine: Li2O STO-3G CISDTQ, the paper-scale model
+    t1 = time.time()
+    mol3 = nt.load_molecule("Li2O_STO-3G_gen")
+    hil3 = nt.Hilbert.for_molecule(mol3)
+    hil3 = nt.Hilbert(n_qubits=hil3.n_qubits, sectors=hil3.sectors, n_exc_max=XL_EXC)
+    terms3 = nt.compile_pauli_terms(mol3.qubit_hamiltonian, mol3.n_qubits,
+                                    n_excitations_max=XL_EXC)
+    cfg3 = nt.NAQSConfig(n_qubits=mol3.n_qubits, sectors=hil3.sectors,
+                         amp_hidden=(64,), phase_hidden=(512, 512))
+    t2 = time.time()
+    tr3 = nt.VMCTrainer(cfg3, terms3, hil3, tc, device=dev)
+    xl = tr3.dt.dense
+    if type(xl).__name__ != "FactorTermsXL" or xl.n_cells != LI2O_CELLS:
+        raise SystemExit(f"Li2O CISDTQ must carry FactorTermsXL with {LI2O_CELLS} cells, got "
+                         f"{type(xl).__name__} {getattr(xl, 'n_cells', None)}")
+    dt3_rank = dataclasses.replace(tr3.dt, dense=None)
+    spec3 = tr3.dt.rank_spec
+    x_bytes, x_ops, x_pairs, x_macs, x_touched = _xl_work(xl)
+    tiles = xl.tiles[:, 0]
+    print(f"[setup] Li2O STO-3G CISDTQ: {mol3.n_qubits} qubits, sector {hil3.sectors[0]}, "
+          f"HF {mol3.hf_energy:.4f} Ha, n_exc_max={XL_EXC}; K={len(terms3.coeff)} "
+          f"Kxy={len(terms3.xy_unique)} Kyz={len(terms3.yz_unique)} Kd={len(terms3.diag_yz)}; "
+          f"FactorTermsXL Sa*={xl.sa} Sb*={xl.sb} Ka={xl.pa_idx.shape[0]} "
+          f"Kb={xl.pb_idx.shape[0]} Kya={xl.par_a.shape[0]} Kyb={xl.par_b.shape[0]}, blocks "
+          f"(offset, rows, beta prefix) {xl.blocks}, {xl.n_cells} staircase cells of "
+          f"{xl.sa * xl.sb} in the rectangle and {hil3.sector_size} in the sector; "
+          f"{int((tiles == 0).sum())} column and {int((tiles == 1).sum())} row blocks; factors "
+          f"per mask max {int(xl.n_fact.max())} mean {float(xl.n_fact.float().mean()):.2f}; "
+          f"{x_pairs} valid (mask, cell) pairs, {x_macs} multiply-adds for H, {x_touched} grid "
+          f"cells read; {sum(p.numel() for p in tr3.model.parameters())} params; "
+          f"{time.time() - t1:.1f}s, of which the trainer with its DeviceTerms "
+          f"{time.time() - t2:.1f}s", flush=True)
+    zero_counts()
+    n_updates, t_xl, n_draws = _steps(tr3, 3, "staircase")
+    xl_launches = xl_grid_accumulate.launches
+    others = {w.__name__: w.launches for w in wrappers
+              if w not in (xl_grid_accumulate, _split_and_compact)}
+    print(f"[path] Li2O default dispatch (FactorTermsXL): xl_grid_accumulate launches in 3 "
+          f"steps: {xl_launches} ({n_updates} vmc_update calls); split_and_compact "
+          f"{_split_and_compact.launches} ({cfg3.n_shells} shells x {n_draws} sample() calls); "
+          f"the other kernels {others}; steps 2-3 {min(t_xl[1:]):.3f}-{max(t_xl[1:]):.3f} s",
+          flush=True)
+    if xl_launches != n_updates or n_updates < 3 or any(others.values()):
+        raise SystemExit("Li2O did not run xl_grid_accumulate once per E_loc call, or ran "
+                         "another engine's or the standalone sampler kernels")
+    if _split_and_compact.launches != cfg3.n_shells * n_draws:
+        raise SystemExit("Li2O did not run split_and_compact once per shell")
+    batch3 = tr3._sample()
+    with torch.no_grad():
+        la3, ph3 = log_psi(tr3.model, batch3.states)
+    nu3 = int(batch3.n_unique)
+    st3 = batch3.states[:nu3].cpu().numpy()
+    stair = hil3.contains(st3)
+    ah3, bh3 = _xl_blocked_idx(xl, spec3, batch3.states[:nu3])
+    rect = ((ah3 < xl.sa) & (bh3 < xl.sb)).cpu().numpy()
+    w3 = batch3.counts[:nu3].cpu().numpy()
+    print(f"[xl] a sampled batch at n_samples={tr3.n_samples:.0e}: {nu3} unique states, "
+          f"{int((~stair).sum())} outside the staircase ({int((rect & ~stair).sum())} of them "
+          f"inside the rectangle); share of the sampled weight outside the staircase "
+          f"{float(w3[~stair].sum() / w3.sum()):.6f}, outside the rectangle "
+          f"{float(w3[~rect].sum() / w3.sum()):.6f}", flush=True)
+    grid3, _ = xl_value_grid(xl, spec3, batch3.states, la3, ph3, batch3.n_unique)
+    if bool(grid3[xl.sa].any()) or bool(grid3[:, xl.sb].any()):
+        raise SystemExit("the staircase value grid's pad row or column is not zero")
+    xl_err = _check_grid_kernel("xl_grid_accumulate", xl_grid_accumulate,
+                                xl_grid_accumulate_ref, xl, grid3)
+    # the staircase engine against the rank engine on a buffer of staircase
+    # states (both read the same psi there), XL_QUERIES rows as queries=
+    keep = torch.as_tensor(stair, device=dev)
+    n_st = int(keep.sum())
+    pad = lambda t, fill: torch.cat([t, t.new_full((64,), fill)])
+    buf = (pad(batch3.states[:nu3][keep], SENTINEL), pad(la3[:nu3][keep], 0.0),
+           pad(ph3[:nu3][keep], 0.0))
+    rows = torch.as_tensor(np.sort(np.random.default_rng(1).choice(
+        n_st, size=min(XL_QUERIES, n_st), replace=False)), device=dev)
+    q = tuple(t[rows] for t in buf)
+    e_x = le.local_energy(tr3.dt, *buf, n_st, queries=q)
+    e_r = le.local_energy(dt3_rank, *buf, n_st, queries=q)
+    d_xr = max(float((a - b).abs().max()) for a, b in zip(e_x, e_r))
+    # 8 staircase rows of the real sampled buffer against the float64 oracle,
+    # psi zeroed outside the rectangle (the staircase engine reads psi there)
+    e_full = le.local_energy(tr3.dt, batch3.states, la3, ph3, batch3.n_unique)
+    rows8 = np.sort(np.random.default_rng(2).choice(np.flatnonzero(stair), 8, replace=False))
+    in_rect = np.flatnonzero(rect)
+    ref8 = _oracle_rows(terms3, st3[in_rect], la3[:nu3].double().cpu().numpy()[in_rect],
+                        ph3[:nu3].double().cpu().numpy()[in_rect],
+                        np.searchsorted(in_rect, rows8))
+    err8 = float(np.abs(e_full[0][:nu3].cpu().numpy()[rows8] - ref8).max())
+    finite = bool(torch.isfinite(e_full[0][:nu3]).all())
+    print(f"[eloc] Li2O CISDTQ: FactorTermsXL vs rank engine on {len(rows)} staircase queries "
+          f"over {n_st} staircase states: max_abs_diff {d_xr:.3e} Ha (tol {ENGINE_TOL}); 8 "
+          f"staircase rows of the sampled buffer vs float64 local_energy_np (psi zeroed outside "
+          f"the rectangle): {err8:.2e} (tol {ELOC_TOL})", flush=True)
+    if not (d_xr <= ENGINE_TOL and err8 < ELOC_TOL and finite):
+        raise SystemExit("Li2O: the staircase engine disagrees with the rank engine or the "
+                         "oracle")
 
     # 11. times, in turns
     hold = hold_ms()
@@ -1043,18 +1216,27 @@ def main(argv) -> int:
             dt, batch.states, la, ph, batch.n_unique),
         "local_energy (rank engine)": lambda: le.local_energy(
             dt_rank, batch.states, la, ph, batch.n_unique),
+        "xl_grid_accumulate": lambda: xl_grid_accumulate(xl, grid3),
+        "xl_grid_accumulate_ref": lambda: xl_grid_accumulate_ref(xl, grid3),
+        "local_energy (FactorTermsXL, Li2O)": lambda: le.local_energy(
+            tr3.dt, batch3.states, la3, ph3, batch3.n_unique),
+        "local_energy (rank engine, Li2O)": lambda: le.local_energy(
+            dt3_rank, batch3.states, la3, ph3, batch3.n_unique),
         "multinomial4_split_ref": lambda: multinomial4_split_ref(*split_args),
         "split_and_compact_ref": lambda: _split_and_compact_ref(*step_args),
         "(U, 127) cumprod/cumsum split": lambda: _split_before(s_counts, s_probs, s_z, s_u,
                                                                s_mask),
         "sample() at capacity 100,000": lambda: sampler_mod.sample(tr.model, tr.gen, 1e5, cap),
     }
+    if "grid" in old_mods:
+        slow_fns[old_fact] = lambda: fact_old(fn, grid)
     old_sample = "sample() at capacity 100,000 (earlier tree)"
     if "sampler" in old_mods:
         slow_fns[old_sample] = lambda: old_mods["sampler"].sample(tr.model, tr.gen, 1e5, cap)
     times.update(time_in_turns(slow_fns, SLOW_REPEATS, SLOW_LAUNCHES))
     print(f"[time] {REPEATS} repeats of {LAUNCHES} launches ({SLOW_REPEATS} of "
-          f"{SLOW_LAUNCHES} for the factored kernel, the grid kernels' plain versions, "
+          f"{SLOW_LAUNCHES} for the factored and staircase kernels, the grid kernels' plain "
+          f"versions, "
           f"local_energy, the split's and the shell step's plain versions, the split of "
           f"before and sample()), the "
           f"functions in turns; held: behind a {hold:.1f} ms card sleep, so the launches run "
@@ -1075,6 +1257,7 @@ def main(argv) -> int:
     r_ops = n_el * RANK_OPS + n_found * EPILOGUE_OPS
     r_bound = _bound(r_bytes, r_ops)
     f_bound, d_bound = _bound(f_bytes, f_ops), _bound(d_bytes, d_ops)
+    x_bound = _bound(x_bytes, x_ops)
     print(f"[bound] rank_gather2 {g_bound[0]:.5f} ms ({g_bound[1]}: {g_bytes} B = s, xy, "
           f"{n_rows} touched table rows x 8 B, outputs 2 x {n_el} x 4 B; "
           f"{n_el * RANK_OPS} ops)", flush=True)
@@ -1088,6 +1271,13 @@ def main(argv) -> int:
           f"grid and the output once, {f_bytes / H100_BYTES_PER_S * 1e3:.5f} ms; one 8 B read "
           f"of T per valid pair from device memory would be "
           f"{f_pairs * 8 / H100_BYTES_PER_S * 1e3:.3f} ms)", flush=True)
+    print(f"[bound] xl_grid_accumulate {x_bound[0]:.5f} ms ({x_bound[1]}: {x_ops} float32 "
+          f"operations = 2 x {x_macs} multiply-adds for H + 4 x {x_pairs} valid pairs, "
+          f"{x_ops / H100_FP32_OPS_PER_S * 1e3:.5f} ms; {x_bytes} B = the {x_touched} grid cells "
+          f"the valid pairs read x 8 B, the maps, factor lists and word tables, the par_a / "
+          f"par_b columns the programs read and the {xl.n_cells} packed cells written, "
+          f"{x_bytes / H100_BYTES_PER_S * 1e3:.5f} ms; the whole rectangle's grid would be "
+          f"{(xl.sa + 1) * (xl.sb + 1) * 8} B)", flush=True)
     print(f"[bound] dense_grid_accumulate {d_bound[0]:.5f} ms ({d_bound[1]}: {d_bytes} B = "
           f"h_dense {d_h['sectors']} B (the 32-byte sectors that hold the {d_pairs} valid "
           f"pairs of the masks that are not padding; its rows with a valid beta image "
@@ -1138,18 +1328,22 @@ def main(argv) -> int:
                      "compact_children_kernel": _compact_children,
                      "multinomial4_split_kernel": multinomial4_split,
                      "factored_grid_accumulate_kernel": factored_grid_accumulate,
-                     "rank_ratio_rowsum_kernel": rank_ratio_rowsum}
-        for label, terms_dev in (("factored", dt), ("rank", dt_rank)):
-            tr.dt = terms_dev
-            for name, step in (("sample", tr._sample), ("step", tr.step)):
+                     "rank_ratio_rowsum_kernel": rank_ratio_rowsum,
+                     "xl_grid_accumulate_kernel": xl_grid_accumulate}
+        xl_dt = tr3.dt
+        for label, trainer, terms_dev in (("factored", tr, dt), ("rank", tr, dt_rank),
+                                          ("staircase (Li2O CISDTQ)", tr3, xl_dt)):
+            trainer.dt = terms_dev
+            for name, step in (("sample", trainer._sample), ("step", trainer.step)):
                 torch.cuda.synchronize()
                 t = time.time()
                 step()
                 torch.cuda.synchronize()
-                print(f"[profile] {label} {name}: {time.time() - t:.3f} s", flush=True)
+                wall = time.time() - t
+                print(f"[profile] {label} {name}: {wall:.3f} s", flush=True)
             zero_counts()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                tr.step()
+                trainer.step()
                 torch.cuda.synchronize()
             events = prof.key_averages()
             seen = {name: sum(e.count for e in events if e.device_type == DeviceType.CUDA
@@ -1164,7 +1358,9 @@ def main(argv) -> int:
             print(events.table(sort_by="cuda_time_total", row_limit=25), flush=True)
             total = sum(e.self_device_time_total for e in events
                         if e.device_type == DeviceType.CUDA)
-            print(f"[profile] {label}: {total / 1e3:.1f} ms device time in the step", flush=True)
+            print(f"[profile] {label}: {total / 1e3:.1f} ms device time in the step; the step "
+                  f"before it (not profiled) took {wall:.3f} s of wall time: the card busy "
+                  f"{total / 1e6 / wall:.0%} of it", flush=True)
             for e in events:
                 if any(k in e.key for k in ("rank_", "grid_accumulate", "multinomial4_split",
                                             "compact_children", "split_and_compact", "cumsum",
@@ -1174,6 +1370,7 @@ def main(argv) -> int:
                           f"{e.self_device_time_total / 1e3:.3f} ms device time, "
                           f"{e.self_device_time_total / e.count:.2f} us each", flush=True)
         tr.dt = dt
+        tr3.dt = xl_dt
 
     def entry(name, launches, err, t_plain, bound, t_library,
               source="naqs_tpu_torch/csrc/rank_gather.cu",
@@ -1207,10 +1404,15 @@ def main(argv) -> int:
                  if old_name in times else {})),
         entry("factored_grid_accumulate", fact_launches, factored_err,
               "factored_grid_accumulate_ref", f_bound, None,
-              replaces="naqs_tpu/ops/dense_engine.py:507", library_note=no_call, **GRID_SRC),
+              replaces="naqs_tpu/ops/dense_engine.py:507", library_note=no_call,
+              **before(old_fact), **GRID_SRC),
         entry("dense_grid_accumulate", dense_launches, dense_err, "dense_grid_accumulate_ref",
               d_bound, None, replaces="naqs_tpu/ops/dense_engine.py:279",
               library_note=no_call, **before(old_dense), **GRID_SRC),
+        entry("xl_grid_accumulate", xl_launches, xl_err, "xl_grid_accumulate_ref", x_bound,
+              None, replaces="naqs_tpu/ops/dense_engine.py:877", library_note=no_call,
+              local_energy_ms=times["local_energy (FactorTermsXL, Li2O)"][0],
+              rank_local_energy_ms=times["local_energy (rank engine, Li2O)"][0], **GRID_SRC),
         entry("split_and_compact", fused_launches, fused_totals["err"], "split_and_compact_ref",
               fu_bound, None,
               replaces="naqs_tpu/ops/multinomial.py:76 + naqs_tpu/sampler.py:49",

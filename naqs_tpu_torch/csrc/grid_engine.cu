@@ -1,10 +1,11 @@
-// The grid E_loc engines' accumulation for sm_90a: two kernels in one source.
+// The grid E_loc engines' accumulation for sm_90a: three kernels in one source.
 //
 // They replace the term-chunk scans of naqs_tpu/ops/dense_engine.py
 // (factored_local_energy :507-522 with the alpha gather and transpose of
-// :496-497, dense_local_energy :279-289 with :270-271). Those have no Pallas
-// counterpart: the JAX package left them to XLA. For every cell (rb, ra) of
-// the (Sb, Sa) sector grid
+// :496-497, dense_local_energy :279-289 with :270-271) and the two stages per
+// alpha-flip group of factored_xl_local_energy (:877-928). Those have no
+// Pallas counterpart: the JAX package left them to XLA. For every cell
+// (rb, ra) of the (Sb, Sa) sector grid
 //
 //   out[rb, ra, :] = sum_k H_k(rb, ra) * T_k(rb, ra, :)
 //   T_k(rb, ra, :) = grid[pa_idx[ka, ra], pb, :],  row_map[k, rb] = ka*(Sb+1) + pb
@@ -28,6 +29,28 @@
 // What bounds them: the factored kernel, operations (for H2O 6-31G 14.1 G
 // multiply-adds on the valid (mask, cell) pairs against tables that fit L2);
 // the dense kernel, bytes (h_dense is read once from device memory).
+//
+// xl_grid_accumulate does the factored kernel's sum on the staircase of an
+// n_exc_max-filtered sector (ops/dense_engine.py::FactorTermsXL): alpha and
+// beta combinations in (excitations, colex) order, the cells (ra, rb) with
+// rb < width[ra] written packed at cells_off[ra] + rb, the grid that of the
+// restricted rectangle. On Li2O STO-3G CISDTQ it is bound by operations too
+// (3.73 G multiply-adds for 644,365 cells: 0.150 ms, against 0.032 ms for
+// the 108 MB it must move), but its grid, (5,056, 5,056, 2) f32 = 204.5 MB,
+// no longer fits L2; the valid pairs read 9.9 M of its 25.6 M cells.
+// The staircase is skewed: 2,450 of its 5,055 beta columns hold one cell
+// and 1,960 hold 57, so a block per column (the factored kernel's layout)
+// would build a program of 3,115 masks for one cell and leave most lanes
+// idle. Since exc_a + exc_b <= E, every cell has exc_b <= E / 2 or
+// exc_a < E - E / 2: the wrapper's tile table (FactorTermsXL.tiles) runs the
+// columns of at most E / 2 beta excitations as the factored kernel does (a
+// program per column, the threads over its >= 645 alpha rows, reading the
+// transposed grid), and the rest as rows (a program per alpha row, the
+// threads over its >= 1,960 beta columns, reading the grid as it is): 820
+// column and 175 row blocks of at most 672 cells, no program for fewer than
+// 630 cells. Both orientations walk the factored kernel's program
+// (accumulate_program below, one device function): masks in index order,
+// the sign by popcount, the sums in registers in a fixed order, no atomics.
 //
 // Design, both kernels:
 // * A block works on one rb and a tile of ra, neighbouring threads on
@@ -107,20 +130,7 @@ int block_threads(int sa, int cells, int max_threads = kMaxThreads) {
   return ((per + 31) / 32) * 32;
 }
 
-// Lane j's look at mask k0 + j: (ka, pb) of row_map[k0 + j, rb]; pb = sb
-// (the pad column: nothing to do) past the last mask.
-__device__ __forceinline__ void beta_image(const int32_t* __restrict__ row_map, int kk,
-                                           int n_masks, int sb, int rb, int* ka, int* pb) {
-  *ka = 0;
-  *pb = sb;
-  if (kk < n_masks) {
-    const int rm = __ldg(row_map + static_cast<size_t>(kk) * sb + rb);
-    *ka = rm / (sb + 1);
-    *pb = rm - *ka * (sb + 1);
-  }
-}
-
-constexpr int kCells = 3;   // cells a thread of the factored kernel owns
+constexpr int kCells = 3;   // cells a thread of the factored and XL kernels owns
 constexpr int kTile = 32;   // masks per shared-memory program: one per lane of warp 0
 
 // coefficient with its sign flipped where the word has odd parity
@@ -128,42 +138,45 @@ __device__ __forceinline__ float signed_by_parity(int coeff_bits, int word) {
   return __int_as_float(coeff_bits ^ (__popc(word) << 31));
 }
 
-__global__ void __launch_bounds__(kMaxThreads) factored_grid_accumulate_kernel(
-    const int32_t* __restrict__ pa_idx, const int32_t* __restrict__ row_map,
-    const int32_t* __restrict__ alpha_words, const int32_t* __restrict__ ya_words,
-    const float* __restrict__ par_b, const int32_t* __restrict__ fa_idx,
-    const int32_t* __restrict__ fb_idx, const float* __restrict__ fcoeff,
-    const int32_t* __restrict__ n_fact, const float2* __restrict__ grid_t,
-    float2* __restrict__ out, int n_masks, int n_slots, int sa, int sb) {
+// The factor program shared by the factored and the XL kernels. A block
+// fixes one index p of one spin (the program's spin); each thread owns kCells
+// indices q[j] of the other spin (the cells' spin), in[j] false past the
+// block's cells. For every mask in index order with a valid image of p, the
+// block writes the mask's factors into shared memory as (sign mask, fcoeff *
+// par_p[fp, p]) pairs, 32 masks at a time, and every thread adds
+// H * T for its cells, H = sum of the pairs with the coefficient's sign
+// flipped by the parity of q_words & sign mask, T = grid_p[image of p,
+// q_img[g, q]] (grid_p (S_p + 1, sq + 1) float2, its pad column sq zero).
+//   lookup(kk, &g, &img): mask kk's row g of q_img and the image of p; false
+//     when that image is outside its spin's range (the mask adds nothing);
+//   factor(f): the pair of flat factor slot f = k * n_slots + r.
+template <class Lookup, class Factor>
+__device__ __forceinline__ void accumulate_program(
+    const Lookup& lookup, const Factor& factor, const int32_t* __restrict__ n_fact,
+    int n_masks, int n_slots, const int32_t* __restrict__ q_img, int sq,
+    const float2* __restrict__ grid_p, const int (&q)[kCells], const bool (&in)[kCells],
+    const int (&qw)[kCells], float (&acc_re)[kCells], float (&acc_im)[kCells]) {
   // the tile's program: (sign mask, coefficient bits) pairs, an even number per mask
   extern __shared__ int4 program_pairs[];
   int2* prog = reinterpret_cast<int2*>(program_pairs);
-  // the tile's valid masks: alpha flip, beta image of rb, mask, start in prog
-  __shared__ int t_ka[kTile], t_pb[kTile], t_k[kTile], t_off[kTile + 1];
+  // the tile's valid masks: row of q_img, image of p, mask, start in prog
+  __shared__ int t_g[kTile], t_img[kTile], t_k[kTile], t_off[kTile + 1];
   __shared__ int s_valid;
 
   const int n_warps = blockDim.x >> 5;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int rb = blockIdx.x;
-  int ra[kCells], aw[kCells];
-  bool in[kCells];
-  float acc_re[kCells], acc_im[kCells];
-#pragma unroll
-  for (int j = 0; j < kCells; ++j) {
-    ra[j] = (blockIdx.y * kCells + j) * blockDim.x + threadIdx.x;
-    in[j] = ra[j] < sa;
-    aw[j] = __ldg(alpha_words + (in[j] ? ra[j] : sa - 1));
-    acc_re[j] = acc_im[j] = 0.f;
-  }
   for (int k0 = 0; k0 < n_masks; k0 += kTile) {
     __syncthreads();  // the previous tile's program is consumed
     if (warp == 0) {
       const int kk = k0 + lane;
-      int ka, pb;
-      beta_image(row_map, kk, n_masks, sb, rb, &ka, &pb);
-      const int nf = kk < n_masks ? __ldg(n_fact + kk) : 0;
-      const bool valid = pb < sb && nf > 0;
+      int g = 0, img = 0, nf = 0;
+      bool ok = false;
+      if (kk < n_masks) {
+        ok = lookup(kk, &g, &img);
+        nf = __ldg(n_fact + kk);
+      }
+      const bool valid = ok && nf > 0;
       const unsigned todo = __ballot_sync(kFull, valid);
       const int room = valid ? (nf + 1) & ~1 : 0;  // pairs, rounded up to 16 bytes
       int end = room;                              // inclusive prefix sum over the lanes
@@ -174,8 +187,8 @@ __global__ void __launch_bounds__(kMaxThreads) factored_grid_accumulate_kernel(
       }
       const int m = __popc(todo & ((1u << lane) - 1u));
       if (valid) {
-        t_ka[m] = ka;
-        t_pb[m] = pb;
+        t_g[m] = g;
+        t_img[m] = img;
         t_k[m] = kk;
         t_off[m] = end - room;
       }
@@ -191,33 +204,24 @@ __global__ void __launch_bounds__(kMaxThreads) factored_grid_accumulate_kernel(
       const int off = t_off[m];
       const int nf = __ldg(n_fact + k);
       const int room = t_off[m + 1] - off;
-      for (int r = lane; r < room; r += 32) {
-        int ya = 0;
-        float cb = 0.f;  // the pad pair of an odd list adds +0
-        if (r < nf) {
-          const size_t f = static_cast<size_t>(k) * n_slots + r;
-          ya = __ldg(ya_words + __ldg(fa_idx + f));
-          cb = __ldg(fcoeff + f) *
-               __ldg(par_b + static_cast<size_t>(__ldg(fb_idx + f)) * sb + rb);
-        }
-        prog[off + r] = make_int2(ya, __float_as_int(cb));
-      }
+      for (int r = lane; r < room; r += 32)   // the pad pair of an odd list adds +0
+        prog[off + r] = r < nf ? factor(static_cast<size_t>(k) * n_slots + r) : make_int2(0, 0);
     }
     __syncthreads();
     for (int m = 0; m < n_valid; ++m) {
-      int pa[kCells];
+      int qi[kCells];
       bool any = false;
 #pragma unroll
       for (int j = 0; j < kCells; ++j) {
-        pa[j] = in[j] ? __ldg(pa_idx + static_cast<size_t>(t_ka[m]) * sa + ra[j]) : sa;
-        any = any || pa[j] < sa;
+        qi[j] = in[j] ? __ldg(q_img + static_cast<size_t>(t_g[m]) * sq + q[j]) : sq;
+        any = any || qi[j] < sq;
       }
       if (!__any_sync(kFull, any)) continue;
       float2 t[kCells];
       float h[kCells];
 #pragma unroll
       for (int j = 0; j < kCells; ++j) {
-        t[j] = __ldg(grid_t + static_cast<size_t>(t_pb[m]) * (sa + 1) + pa[j]);
+        t[j] = __ldg(grid_p + static_cast<size_t>(t_img[m]) * (sq + 1) + qi[j]);
         h[j] = 0.f;
       }
       const int4* p = reinterpret_cast<const int4*>(prog + t_off[m]);
@@ -226,8 +230,8 @@ __global__ void __launch_bounds__(kMaxThreads) factored_grid_accumulate_kernel(
         const int4 two = *p;  // the same address in every lane: one broadcast
 #pragma unroll
         for (int j = 0; j < kCells; ++j) {
-          h[j] += signed_by_parity(two.y, aw[j] & two.x);
-          h[j] += signed_by_parity(two.w, aw[j] & two.z);
+          h[j] += signed_by_parity(two.y, qw[j] & two.x);
+          h[j] += signed_by_parity(two.w, qw[j] & two.z);
         }
       }
 #pragma unroll
@@ -237,9 +241,116 @@ __global__ void __launch_bounds__(kMaxThreads) factored_grid_accumulate_kernel(
       }
     }
   }
+}
+
+// the factored kernel: the program's spin is beta (p = rb, one per blockIdx.x),
+// the cells' spin alpha (tiles of ra along blockIdx.y), over the whole grid
+__global__ void __launch_bounds__(kMaxThreads) factored_grid_accumulate_kernel(
+    const int32_t* __restrict__ pa_idx, const int32_t* __restrict__ row_map,
+    const int32_t* __restrict__ alpha_words, const int32_t* __restrict__ ya_words,
+    const float* __restrict__ par_b, const int32_t* __restrict__ fa_idx,
+    const int32_t* __restrict__ fb_idx, const float* __restrict__ fcoeff,
+    const int32_t* __restrict__ n_fact, const float2* __restrict__ grid_t,
+    float2* __restrict__ out, int n_masks, int n_slots, int sa, int sb) {
+  const int rb = blockIdx.x;
+  int ra[kCells], aw[kCells];
+  bool in[kCells];
+  float acc_re[kCells], acc_im[kCells];
+#pragma unroll
+  for (int j = 0; j < kCells; ++j) {
+    ra[j] = (blockIdx.y * kCells + j) * blockDim.x + threadIdx.x;
+    in[j] = ra[j] < sa;
+    aw[j] = __ldg(alpha_words + (in[j] ? ra[j] : sa - 1));
+    acc_re[j] = acc_im[j] = 0.f;
+  }
+  // lane j's look at mask kk: (ka, pb) of row_map[kk, rb]; pb = sb is the pad column
+  const auto lookup = [&](int kk, int* ka, int* pb) {
+    const int rm = __ldg(row_map + static_cast<size_t>(kk) * sb + rb);
+    *ka = rm / (sb + 1);
+    *pb = rm - *ka * (sb + 1);
+    return *pb < sb;
+  };
+  const auto factor = [&](size_t f) {
+    const int ya = __ldg(ya_words + __ldg(fa_idx + f));
+    const float cb = __ldg(fcoeff + f) * __ldg(par_b + static_cast<size_t>(__ldg(fb_idx + f)) * sb + rb);
+    return make_int2(ya, __float_as_int(cb));
+  };
+  accumulate_program(lookup, factor, n_fact, n_masks, n_slots, pa_idx, sa, grid_t, ra, in, aw,
+                     acc_re, acc_im);
 #pragma unroll
   for (int j = 0; j < kCells; ++j)
     if (in[j]) out[static_cast<size_t>(rb) * sa + ra[j]] = make_float2(acc_re[j], acc_im[j]);
+}
+
+struct XlProgram {
+  const int32_t *ga, *gb, *pa_idx, *pb_idx, *alpha_words, *beta_words, *ya_words, *yb_words;
+  const float *par_a, *par_b;
+  const int32_t *fa_idx, *fb_idx;
+  const float* fcoeff;
+  const int32_t *n_fact, *cells_off;
+  const int4* tiles;          // (orientation, p, q_lo, q_hi) per block
+  const float2 *grid, *grid_t;
+  float2* out;                // (n_cells,) packed staircase cells
+  int n_masks, n_slots, sa, sb;
+};
+
+// the staircase kernel: block b takes tile b. A column tile (orientation 0)
+// fixes rb and gives its threads the alpha rows [q_lo, q_hi), reading the
+// transposed grid as the factored kernel does; a row tile fixes ra and gives
+// its threads the beta columns, reading the grid as it is. Cell (ra, rb) is
+// written at cells_off[ra] + rb.
+__global__ void __launch_bounds__(kMaxThreads) xl_grid_accumulate_kernel(const XlProgram x) {
+  const int4 tile = __ldg(x.tiles + blockIdx.x);
+  const bool column = tile.x == 0;
+  const int p = tile.y;
+  const int sq = column ? x.sa : x.sb;
+  const int32_t* q_words = column ? x.alpha_words : x.beta_words;
+  int q[kCells], qw[kCells];
+  bool in[kCells];
+  float acc_re[kCells], acc_im[kCells];
+#pragma unroll
+  for (int j = 0; j < kCells; ++j) {
+    q[j] = tile.z + j * blockDim.x + threadIdx.x;
+    in[j] = q[j] < tile.w;
+    qw[j] = __ldg(q_words + (in[j] ? q[j] : tile.z));
+    acc_re[j] = acc_im[j] = 0.f;
+  }
+  if (column) {   // p = rb: beta images and par_b in the program, alpha in the cells
+    const auto lookup = [&](int kk, int* g, int* img) {
+      *g = __ldg(x.ga + kk);
+      *img = __ldg(x.pb_idx + static_cast<size_t>(__ldg(x.gb + kk)) * x.sb + p);
+      return *img < x.sb;
+    };
+    const auto factor = [&](size_t f) {
+      const int ya = __ldg(x.ya_words + __ldg(x.fa_idx + f));
+      const float cb = __ldg(x.fcoeff + f) *
+                       __ldg(x.par_b + static_cast<size_t>(__ldg(x.fb_idx + f)) * x.sb + p);
+      return make_int2(ya, __float_as_int(cb));
+    };
+    accumulate_program(lookup, factor, x.n_fact, x.n_masks, x.n_slots, x.pa_idx, sq, x.grid_t,
+                       q, in, qw, acc_re, acc_im);
+  } else {        // p = ra: alpha images and par_a in the program, beta in the cells
+    const auto lookup = [&](int kk, int* g, int* img) {
+      *g = __ldg(x.gb + kk);
+      *img = __ldg(x.pa_idx + static_cast<size_t>(__ldg(x.ga + kk)) * x.sa + p);
+      return *img < x.sa;
+    };
+    const auto factor = [&](size_t f) {
+      const int yb = __ldg(x.yb_words + __ldg(x.fb_idx + f));
+      const float ca = __ldg(x.fcoeff + f) *
+                       __ldg(x.par_a + static_cast<size_t>(__ldg(x.fa_idx + f)) * x.sa + p);
+      return make_int2(yb, __float_as_int(ca));
+    };
+    accumulate_program(lookup, factor, x.n_fact, x.n_masks, x.n_slots, x.pb_idx, sq, x.grid,
+                       q, in, qw, acc_re, acc_im);
+  }
+#pragma unroll
+  for (int j = 0; j < kCells; ++j) {
+    if (!in[j]) continue;
+    const int ra = column ? q[j] : p;
+    const int rb = column ? p : q[j];
+    x.out[__ldg(x.cells_off + ra) + rb] = make_float2(acc_re[j], acc_im[j]);
+  }
 }
 
 constexpr int kDenseThreads = 128;  // at most 4 warps a dense block: a 65 KB ring
@@ -424,6 +535,49 @@ extern "C" int dense_grid_accumulate(const void* r1_idx, const void* row_map,
       static_cast<const float*>(h_dense), static_cast<const float2*>(grid_t),
       static_cast<float2*>(out), static_cast<float2*>(partial),
       static_cast<unsigned*>(arrivals), n_masks, n_ranges, sa, sb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int xl_grid_accumulate(const void* ga, const void* gb, const void* pa_idx,
+                                  const void* pb_idx, const void* alpha_words,
+                                  const void* beta_words, const void* ya_words,
+                                  const void* yb_words, const void* par_a, const void* par_b,
+                                  const void* fa_idx, const void* fb_idx, const void* fcoeff,
+                                  const void* n_fact, const void* cells_off, const void* tiles,
+                                  const void* grid, const void* grid_t, void* out, int n_masks,
+                                  int n_slots, int sa, int sb, int n_tiles, int tile_cells,
+                                  void* stream) {
+  // a block of tile_cells / kCells threads, a whole number of warps, covers a tile
+  const int threads = tile_cells / kCells;
+  if (tile_cells % (kCells * 32) != 0 || threads > kMaxThreads || n_tiles < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles == 0) return 0;
+  XlProgram x;
+  x.ga = static_cast<const int32_t*>(ga);
+  x.gb = static_cast<const int32_t*>(gb);
+  x.pa_idx = static_cast<const int32_t*>(pa_idx);
+  x.pb_idx = static_cast<const int32_t*>(pb_idx);
+  x.alpha_words = static_cast<const int32_t*>(alpha_words);
+  x.beta_words = static_cast<const int32_t*>(beta_words);
+  x.ya_words = static_cast<const int32_t*>(ya_words);
+  x.yb_words = static_cast<const int32_t*>(yb_words);
+  x.par_a = static_cast<const float*>(par_a);
+  x.par_b = static_cast<const float*>(par_b);
+  x.fa_idx = static_cast<const int32_t*>(fa_idx);
+  x.fb_idx = static_cast<const int32_t*>(fb_idx);
+  x.fcoeff = static_cast<const float*>(fcoeff);
+  x.n_fact = static_cast<const int32_t*>(n_fact);
+  x.cells_off = static_cast<const int32_t*>(cells_off);
+  x.tiles = static_cast<const int4*>(tiles);
+  x.grid = static_cast<const float2*>(grid);
+  x.grid_t = static_cast<const float2*>(grid_t);
+  x.out = static_cast<float2*>(out);
+  x.n_masks = n_masks;
+  x.n_slots = n_slots;
+  x.sa = sa;
+  x.sb = sb;
+  const size_t smem = sizeof(int2) * kTile * static_cast<size_t>(n_slots + 1);
+  xl_grid_accumulate_kernel<<<n_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(x);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,11 +25,14 @@ depend on the sample count.
 * `FactorTerms` stores nothing of size Kxy x grid: H_k is rebuilt from its
   rank-1 parity factors sum_r coeff_r par_a[ya_r] (x) par_b[yb_r]: mid-size
   single-sector spaces (H2O 6-31G).
+* `FactorTermsXL` is the factored program on the staircase of an
+  n_exc_max-filtered sector (Li2O STO-3G CISDTQ: 644,365 cells of a 41.4 M
+  sector grid): alpha and beta combinations ordered by (excitations, colex),
+  so the kept cells form a staircase of alpha blocks, each over a beta prefix.
 
 The accumulation over masks is the hand-written part
 (ops/grid_kernels.py -> csrc/grid_engine.cu); the scatter into the grid and
 the readout are single PyTorch indexing calls, as in the JAX package.
-`FactorTermsXL` (n_exc-filtered sectors) is not ported.
 """
 
 from __future__ import annotations
@@ -44,9 +47,11 @@ import torch
 
 from naqs_tpu_torch.ops.grid_kernels import CHUNK_TERMS as _CHUNK_TERMS
 from naqs_tpu_torch.ops.grid_kernels import FACT_CHUNK_PAIRS as _FACT_CHUNK_PAIRS
-from naqs_tpu_torch.ops.grid_kernels import dense_grid_accumulate, factored_grid_accumulate
+from naqs_tpu_torch.ops.grid_kernels import XL_TILE_CELLS as _XL_TILE_CELLS
+from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, factored_grid_accumulate,
+                                             xl_grid_accumulate)
 from naqs_tpu_torch.ops.rank import rank_index
-from naqs_tpu_torch.utils.bits import np_parity_pm1
+from naqs_tpu_torch.utils.bits import np_parity_pm1, parity_pm1
 from naqs_tpu_torch.utils.device import resolve_device
 
 # dense-mode caps: sector grid cells and static H tensor bytes. 2^17 cells
@@ -59,6 +64,11 @@ DENSE_H_BYTES_MAX = 1 << 30
 FACT_SIZE_MAX = 1 << 21
 FACT_R1_BYTES_MAX = 6 << 30
 _FACT_R = 64  # rank-1 factor slots per flip mask (padded)
+# XL caps: staircase cells, and the bytes of the (Sa*+1, Sb*+1, 2) f32 value
+# grid. They cover Li2O CISDTQ (644,365 cells; 5,056^2 * 8 B = 204.5 MB)
+XL_CELLS_MAX = 1 << 23
+XL_U_BYTES_MAX = 1 << 28
+_XL_CHUNK = 64  # masks per chunk of the plain version's scan
 
 
 def _colex_ranks(s: int, n: int) -> np.ndarray:
@@ -128,6 +138,26 @@ def _grid_diagonal(terms, alpha_packed, beta_packed, s) -> np.ndarray:
     par_b = np_parity_pm1(beta_packed[None, :] & yb[:, None]).astype(np.float64)
     e_diag = (par_a * terms.diag_coeff[None, :]) @ par_b
     return np.concatenate([e_diag.reshape(-1), [0.0]])
+
+
+def _flat_factors(terms, s):
+    """Each mask's flat terms as rank-1 factors, slots in term order:
+    (fa_idx, fb_idx, fcoeff) of shape (Kxy, R), n_fact (Kxy,), and the
+    unique alpha and beta sign masks (uya, uyb) the factor rows point to."""
+    ya, yb = _split_spin(terms.yz_unique[terms.gyz], s)
+    uya, ja = np.unique(ya, return_inverse=True)
+    uyb, jb = np.unique(yb, return_inverse=True)
+    kxy = len(terms.xy_unique)
+    gxy = terms.gxy.astype(np.int64)
+    order = np.argsort(gxy, kind="stable")
+    n_fact = np.bincount(gxy, minlength=kxy)
+    slot = np.empty(len(gxy), np.int64)
+    slot[order] = np.arange(len(gxy)) - np.repeat(np.cumsum(n_fact) - n_fact, n_fact)
+    fa_idx = np.zeros((kxy, _FACT_R), np.int32)
+    fb_idx = np.zeros((kxy, _FACT_R), np.int32)
+    fcoeff = np.zeros((kxy, _FACT_R), np.float32)
+    fa_idx[gxy, slot], fb_idx[gxy, slot], fcoeff[gxy, slot] = ja, jb, terms.coeff
+    return fa_idx, fb_idx, fcoeff, n_fact, uya, uyb
 
 
 def _pad_rows(arr: np.ndarray, multiple: int) -> np.ndarray:
@@ -213,24 +243,9 @@ class FactorTerms:
             raise ValueError("FactorTerms does not support this space")
         dev = resolve_device(device)
         s, alpha_packed, beta_packed, pa_idx, row_map = _flip_maps(terms, hilbert)
-        ya, yb = _split_spin(terms.yz_unique[terms.gyz], s)
-        uya, ja = np.unique(ya, return_inverse=True)
-        uyb, jb = np.unique(yb, return_inverse=True)
+        fa_idx, fb_idx, fcoeff, n_fact, uya, uyb = _flat_factors(terms, s)
         par_a = np_parity_pm1(alpha_packed[None, :] & uya[:, None]).astype(np.float32)
         par_b = np_parity_pm1(beta_packed[None, :] & uyb[:, None]).astype(np.float32)
-
-        # slot of each flat term inside its mask: its position among the
-        # terms of that mask, in term order
-        kxy = len(terms.xy_unique)
-        gxy = terms.gxy.astype(np.int64)
-        order = np.argsort(gxy, kind="stable")
-        n_fact = np.bincount(gxy, minlength=kxy)
-        slot = np.empty(len(gxy), np.int64)
-        slot[order] = np.arange(len(gxy)) - np.repeat(np.cumsum(n_fact) - n_fact, n_fact)
-        fa_idx = np.zeros((kxy, _FACT_R), np.int32)
-        fb_idx = np.zeros((kxy, _FACT_R), np.int32)
-        fcoeff = np.zeros((kxy, _FACT_R), np.float32)
-        fa_idx[gxy, slot], fb_idx[gxy, slot], fcoeff[gxy, slot] = ja, jb, terms.coeff
 
         put = lambda a: torch.as_tensor(a, device=dev)
         pad = lambda a: put(_pad_rows(a, _FACT_CHUNK_PAIRS))
@@ -240,6 +255,200 @@ class FactorTerms:
             e_diag=put(_grid_diagonal(terms, alpha_packed, beta_packed, s)),
             n_fact=pad(n_fact.astype(np.int32)), alpha_words=put(alpha_packed.astype(np.int32)),
             ya_words=put(uya.astype(np.int32)), sa=len(alpha_packed), sb=len(beta_packed))
+
+
+def _blocked(s: int, n_occ: int, e_max: int):
+    """One spin's combinations in the (excitations, colex) order of the XL
+    staircase: (packed shell bits in colex order, the kept colex ranks in
+    blocked order, perm: colex rank -> blocked index (n kept for dropped
+    ranks and for the sentinel rank C(s, n_occ)), kept count per excitation
+    level 0..e_max). Excitations: bits outside the lowest n_occ shells."""
+    packed = _colex_ranks(s, n_occ)
+    hf = (1 << n_occ) - 1
+    exc = np.bitwise_count((packed & ~hf).astype(np.uint64)).astype(np.int64)
+    order = np.lexsort((np.arange(len(packed)), exc))
+    order = order[exc[order] <= e_max]
+    perm = np.full(len(packed) + 1, len(order), np.int32)
+    perm[order] = np.arange(len(order), dtype=np.int32)
+    return packed, order, perm, np.bincount(exc[order], minlength=e_max + 1)
+
+
+def _xl_tiles(width: np.ndarray, b_cum: np.ndarray, e_max: int, tile_cells: int):
+    """The kernel's blocks: (n_tiles, 4) int32 rows (orientation, p, q_lo,
+    q_hi), each covering at most tile_cells staircase cells, every cell once.
+    Orientation 0, a column: p = rb, the threads over ra in [q_lo, q_hi);
+    orientation 1, a row: p = ra, the threads over rb. Columns of at most
+    e_max // 2 beta excitations run as columns (their alpha extent is at
+    least the prefix of e_max - e_max // 2 alpha excitations), the rest of
+    the staircase as rows (at most e_max - e_max // 2 - 1 alpha
+    excitations): no program serves a short run of cells."""
+    rows = []
+
+    def cut(orient, p, lo, hi):
+        n = hi - lo
+        t = -(-n // tile_cells)
+        rows.extend((orient, p, lo + i * n // t, lo + (i + 1) * n // t) for i in range(t))
+
+    w = width[:-1]
+    cb = int(b_cum[e_max // 2])
+    extent = np.searchsorted(-w, -np.arange(cb), side="left")    # #ra with width > rb
+    for rb in range(cb):
+        cut(0, rb, 0, int(extent[rb]))
+    for ra in np.flatnonzero(w > cb):
+        cut(1, int(ra), cb, int(w[ra]))
+    return np.asarray(rows, np.int32).reshape(-1, 4)
+
+
+@dataclass(frozen=True)
+class FactorTermsXL:
+    """Factored grid program on the staircase of an n_exc_max-filtered sector.
+
+    The excitation count is separable, exc(s) = exc_a(alpha) + exc_b(beta),
+    so with alpha combinations ordered by (exc_a, colex) and beta ones by
+    (exc_b, colex) the kept cells form a staircase: alpha block ka sees the
+    beta prefix of width P[E - ka]. The numerator is computed on those cells
+    only, packed row by row (`cells_off`), reading psi from the restricted
+    rectangle's (Sa*+1, Sb*+1, 2) value grid. An image outside the rectangle
+    reads the zero pad row or column (psi = 0 there); a sampled state inside
+    the rectangle but outside the staircase is read as sampled, as the JAX
+    package does. Fields as in JAX's FactorTermsXL; beside them the flat
+    program the kernel reads."""
+
+    perm_a: torch.Tensor     # (Sa_full+1,) int32 colex rank -> blocked idx | Sa*
+    perm_b: torch.Tensor     # (Sb_full+1,) int32
+    width: torch.Tensor      # (Sa*+1,) int32 staircase row width (0 at the sentinel)
+    cells_off: torch.Tensor  # (Sa*+1,) int32 packed row offset (n_cells at the sentinel)
+    pa_idx: torch.Tensor     # (Ka, Sa*) int32 alpha image under each flip | Sa*
+    pb_idx: torch.Tensor     # (Kb, Sb*) int32
+    par_a: torch.Tensor      # (Kya, Sa*) f32 +-1 parities, blocked order
+    par_b: torch.Tensor      # (Kyb, Sb*) f32
+    e_diag: torch.Tensor     # (n_cells + 1,) f64, 0 at the sentinel
+    # the plain version's scan inputs per bucket of chunks (each stacked (G, ...)):
+    b_pa_row: tuple          # (G,) int32 row of pa_idx of the chunk's alpha flip
+    b_pb_row: tuple          # (G, gsz) int32 rows of pb_idx (0 pad)
+    b_fa: tuple              # (G, gsz, R) int32 rows of par_a (0 pad)
+    b_fb: tuple              # (G, gsz, R) int32 rows of par_b (0 pad)
+    b_fc: tuple              # (G, gsz, R) f32 coefficients (0 pad: no-op)
+    b_pneed: tuple           # per bucket, per alpha block: the beta prefix its reads need
+    # beside the JAX package's fields, for the kernel:
+    ga: torch.Tensor         # (Kxy,) int32 row of pa_idx of each mask
+    gb: torch.Tensor         # (Kxy,) int32 row of pb_idx
+    fa_idx: torch.Tensor     # (Kxy, R) int32 rows of par_a / ya_words
+    fb_idx: torch.Tensor     # (Kxy, R) int32 rows of par_b / yb_words
+    fcoeff: torch.Tensor     # (Kxy, R) f32 flat-term coefficients (0 pad)
+    n_fact: torch.Tensor     # (Kxy,) int32 filled slots per mask
+    alpha_words: torch.Tensor  # (Sa*,) int32 shell bits of blocked alpha row ra
+    beta_words: torch.Tensor   # (Sb*,) int32
+    ya_words: torch.Tensor   # (Kya,) int32: par_a[j, ra] = (-1)^popc(alpha_words[ra] & ya_words[j])
+    yb_words: torch.Tensor   # (Kyb,) int32
+    tiles: torch.Tensor      # (n_tiles, 4) int32 the kernel's blocks (`_xl_tiles`)
+    sa: int                  # Sa* (kept alpha combinations)
+    sb: int                  # Sb*
+    sa_full: int
+    sb_full: int
+    blocks: tuple            # ((a_off, a_cnt, p_width), ...) per alpha excitation block
+    n_cells: int
+
+    @staticmethod
+    def supported(terms, hilbert) -> bool:
+        if hilbert.n_exc_max is None or len(set(hilbert.sectors)) != 1:
+            return False
+        if int(np.bincount(terms.gxy).max()) > _FACT_R:
+            return False
+        s, na, nb = _sector(hilbert)
+        e = hilbert.n_exc_max
+        a_cnt = [comb(na, k) * comb(s - na, k) for k in range(min(e, na, s - na) + 1)]
+        b_cnt = [comb(nb, k) * comb(s - nb, k) for k in range(min(e, nb, s - nb) + 1)]
+        cells = sum(ca * sum(b_cnt[: max(0, e - k + 1)]) for k, ca in enumerate(a_cnt))
+        return (cells <= XL_CELLS_MAX
+                and (sum(a_cnt) + 1) * (sum(b_cnt) + 1) * 8 <= XL_U_BYTES_MAX)
+
+    @staticmethod
+    def build(terms, hilbert, device=None) -> "FactorTermsXL":
+        if not FactorTermsXL.supported(terms, hilbert):
+            raise ValueError("FactorTermsXL does not support this space")
+        dev = resolve_device(device)
+        s, na, nb = _sector(hilbert)
+        e = hilbert.n_exc_max
+        alpha_packed, a_sel, perm_a, a_cnt = _blocked(s, na, e)
+        beta_packed, b_sel, perm_b, b_cnt = _blocked(s, nb, e)
+        sa, sb = len(a_sel), len(b_sel)
+        b_cum = np.cumsum(b_cnt)
+        p_of_k = b_cum[e - np.arange(e + 1)]          # beta prefix of alpha block k
+
+        width = np.zeros(sa + 1, np.int32)
+        width[:sa] = p_of_k[np.repeat(np.arange(e + 1), a_cnt)]
+        cells_off = np.zeros(sa + 1, np.int32)
+        cells_off[1:] = np.cumsum(width[:sa])
+        n_cells = int(cells_off[sa])
+        a_off = np.concatenate([[0], np.cumsum(a_cnt)])
+        blocks = tuple((int(a_off[k]), int(a_cnt[k]), int(p_of_k[k]))
+                       for k in range(e + 1) if a_cnt[k] > 0)
+
+        xa, xb = _split_spin(terms.xy_unique, s)
+        ua, ga = np.unique(xa, return_inverse=True)
+        ub, gb = np.unique(xb, return_inverse=True)
+        pa_idx = np.stack([perm_a[_perm_map(alpha_packed, int(f), len(alpha_packed))][a_sel]
+                           for f in ua])
+        pb_idx = np.stack([perm_b[_perm_map(beta_packed, int(f), len(beta_packed))][b_sel]
+                           for f in ub])
+        a_words, b_words = alpha_packed[a_sel], beta_packed[b_sel]
+        fa_idx, fb_idx, fcoeff, n_fact, uya, uyb = _flat_factors(terms, s)
+        par_a = np_parity_pm1(a_words[None, :] & uya[:, None]).astype(np.float32)
+        par_b = np_parity_pm1(b_words[None, :] & uyb[:, None]).astype(np.float32)
+
+        # the plain version's scan: masks grouped by alpha flip, groups cut
+        # into chunks of at most _XL_CHUNK masks, chunks bucketed by (padded
+        # size, beta excursion): a spin-conserving flip of db beta bits moves
+        # exc_b by at most db / 2, so alpha block k's reads stay inside the
+        # beta prefix P[E - k + excursion]
+        db = np.bitwise_count(ub.astype(np.uint64)).astype(np.int64)
+        buckets = {}
+        for g in range(len(ua)):
+            masks = np.flatnonzero(ga == g)
+            for i in range(0, len(masks), _XL_CHUNK):
+                ms = masks[i:i + _XL_CHUNK]
+                gsz = 1 << int(np.ceil(np.log2(len(ms))))
+                dbmax = int(((db[gb[ms]] + 1) // 2).max())
+                buckets.setdefault((max(1, gsz), min(dbmax, e)), []).append((g, ms))
+        put = lambda a: torch.as_tensor(a, device=dev)
+        b_pa_row, b_pb_row, b_fa, b_fb, b_fc, b_pneed = [], [], [], [], [], []
+        for (gsz, dbmax), entries in sorted(buckets.items()):
+            b_pneed.append(tuple(int(p_of_k[max(0, k - dbmax)])
+                                 for k in range(e + 1) if a_cnt[k] > 0))
+            shape = (len(entries), gsz, _FACT_R)
+            pb_row = np.zeros(shape[:2], np.int32)
+            fa, fb = np.zeros(shape, np.int32), np.zeros(shape, np.int32)
+            fc = np.zeros(shape, np.float32)
+            for i, (_, ms) in enumerate(entries):
+                n = len(ms)
+                pb_row[i, :n], fa[i, :n], fb[i, :n], fc[i, :n] = (gb[ms], fa_idx[ms], fb_idx[ms],
+                                                                  fcoeff[ms])
+            b_pa_row.append(put(np.array([g for g, _ in entries], np.int32)))
+            b_pb_row.append(put(pb_row))
+            b_fa.append(put(fa))
+            b_fb.append(put(fb))
+            b_fc.append(put(fc))
+
+        # f64 diagonal over the staircase cells in packed order; the sign
+        # factors over the spins, so each block is one product
+        dya, dyb = _split_spin(terms.diag_yz, s)
+        da = np_parity_pm1(a_words[:, None] & dya[None, :]).astype(np.float64) * terms.diag_coeff
+        d_b = np_parity_pm1(b_words[None, :] & dyb[:, None]).astype(np.float64)
+        e_diag = np.concatenate([(da[off:off + cnt] @ d_b[:, :pw]).reshape(-1)
+                                 for off, cnt, pw in blocks] + [[0.0]])
+        return FactorTermsXL(
+            perm_a=put(perm_a), perm_b=put(perm_b), width=put(width), cells_off=put(cells_off),
+            pa_idx=put(pa_idx), pb_idx=put(pb_idx), par_a=put(par_a), par_b=put(par_b),
+            e_diag=put(e_diag), b_pa_row=tuple(b_pa_row), b_pb_row=tuple(b_pb_row),
+            b_fa=tuple(b_fa), b_fb=tuple(b_fb), b_fc=tuple(b_fc), b_pneed=tuple(b_pneed),
+            ga=put(ga.astype(np.int32)), gb=put(gb.astype(np.int32)), fa_idx=put(fa_idx),
+            fb_idx=put(fb_idx), fcoeff=put(fcoeff), n_fact=put(n_fact.astype(np.int32)),
+            alpha_words=put(a_words.astype(np.int32)), beta_words=put(b_words.astype(np.int32)),
+            ya_words=put(uya.astype(np.int32)), yb_words=put(uyb.astype(np.int32)),
+            tiles=put(_xl_tiles(width, b_cum, e, _XL_TILE_CELLS)),
+            sa=sa, sb=sb, sa_full=len(alpha_packed), sb_full=len(beta_packed),
+            blocks=blocks, n_cells=n_cells)
 
 
 def value_grid(rank_spec, states, log_amp, phase, n_valid, sa: int, sb: int):
@@ -319,3 +528,67 @@ def factored_local_energy(fn: FactorTerms, rank_spec, states, log_amp, phase, n_
     semantics and `queries=` as in dense_local_energy."""
     return _grid_local_energy(factored_grid_accumulate, fn, rank_spec, states, log_amp,
                               phase, n_valid, queries)
+
+
+def _xl_blocked_idx(fn: FactorTermsXL, rank_spec, states):
+    """(a_hat, b_hat) blocked combination indices of packed states: Sa* and
+    Sb* for states outside the restricted rectangle, the sector or the
+    buffer (SENTINEL)."""
+    idx = rank_index(rank_spec, states)
+    full = fn.sa_full * fn.sb_full
+    ra = torch.clamp(idx // fn.sb_full, max=fn.sa_full)
+    rb = torch.where(idx >= full, fn.sb_full, idx % fn.sb_full)
+    return fn.perm_a[ra].long(), fn.perm_b[rb].long()
+
+
+def xl_value_grid(fn: FactorTermsXL, rank_spec, states, log_amp, phase, n_valid):
+    """The sampled set on the restricted rectangle: (grid, ref), grid
+    (Sa*+1, Sb*+1, 2) f32 psi / max|psi| (re, im) at [a_hat, b_hat], zero
+    elsewhere and on the pad row and column; ref the live maximum of log_amp.
+    Every live state inside the rectangle is set, inside the staircase or
+    not, as in the JAX package."""
+    sa, sb = fn.sa, fn.sb
+    live = torch.arange(states.shape[0], device=states.device) < n_valid
+    ref = torch.max(torch.where(live, log_amp, -torch.inf))
+    w = torch.where(live, torch.exp(log_amp - ref), 0.0).to(torch.float32)
+    u = torch.stack([w * torch.cos(phase).to(torch.float32),
+                     w * torch.sin(phase).to(torch.float32)], dim=-1)
+    ah, bh = _xl_blocked_idx(fn, rank_spec, states)
+    ah = torch.where(live, ah, sa)
+    bh = torch.where(live, bh, sb)
+    grid = torch.zeros((sa + 1, sb + 1, 2), dtype=torch.float32, device=states.device)
+    grid[ah, bh] = u
+    grid[sa] = 0.0       # the pad row and column read as psi = 0 (SENTINEL rows land there)
+    grid[:, sb] = 0.0
+    return grid, ref
+
+
+@torch.no_grad()
+def factored_xl_local_energy(fn: FactorTermsXL, rank_spec, states, log_amp, phase, n_valid,
+                             queries=None, diag=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E_loc (re, im) f64 via the staircase program (see FactorTermsXL).
+
+    Semantics as in dense_local_energy: psi = 0 outside the sampled set and
+    outside the restricted rectangle, rows past n_valid are garbage.
+    `diag=(diag_yz, diag_coeff)`: queries outside the staircase get their
+    true diagonal (their off-diagonal sum stays 0); without it, 0."""
+    q_states, q_la, q_ph = (states, log_amp, phase) if queries is None else queries
+    sa = fn.sa
+    grid, ref = xl_value_grid(fn, rank_spec, states, log_amp, phase, n_valid)
+    n = xl_grid_accumulate(fn, grid)                                 # (n_cells, 2)
+    n_pack = torch.cat([n, n.new_zeros((1, 2))])
+    ahq, bhq = _xl_blocked_idx(fn, rank_spec, q_states)
+    row = torch.clamp(ahq, max=sa)
+    valid = (ahq < sa) & (bhq < fn.width[row])
+    cell = torch.where(valid, fn.cells_off[row] + bhq, fn.n_cells)
+    n_s = n_pack[cell]
+    ratio = torch.exp(torch.clamp(ref - q_la, -30.0, 30.0)).to(torch.float32)
+    c, s_ = torch.cos(q_ph).to(torch.float32), torch.sin(q_ph).to(torch.float32)
+    e_re = (ratio * (n_s[:, 0] * c + n_s[:, 1] * s_)).to(torch.float64)
+    e_im = (ratio * (n_s[:, 1] * c - n_s[:, 0] * s_)).to(torch.float64)
+    e_diag = fn.e_diag[cell]
+    if diag is not None:
+        diag_yz, diag_coeff = diag
+        par = parity_pm1(q_states[:, None] & diag_yz).to(torch.float64)
+        e_diag = torch.where(valid, e_diag, torch.sum(par * diag_coeff, dim=-1))
+    return e_diag + e_re, e_im

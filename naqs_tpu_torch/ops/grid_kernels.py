@@ -9,11 +9,17 @@ For a grid program `fn` (`ops/dense_engine.py::FactorTerms`) or `dn`
   the mask's rank-1 parity factors and T_k(rb, ra) =
   grid[pa_idx[ka, ra], pb], row_map[k, rb] = ka (Sb+1) + pb;
 * `dense_grid_accumulate(dn, grid)`: the same with H_k read from
-  `h_dense[k, rb, ra]`.
+  `h_dense[k, rb, ra]`;
+* `xl_grid_accumulate(fn, grid)` for the staircase program `FactorTermsXL`
+  and the (Sa*+1, Sb*+1, 2) grid of the restricted rectangle -> (n_cells, 2)
+  f32, the numerator on the staircase cells in packed order (cell
+  cells_off[ra] + rb): n = sum_k H_k(ra, rb) grid[pa_idx[ga_k, ra],
+  pb_idx[gb_k, rb]], H_k from the mask's rank-1 factors.
 
 They stand for the alpha gather, the transpose and the term-chunk scan of
-`naqs_tpu/ops/dense_engine.py::factored_local_energy` / `dense_local_energy`,
-which the JAX package left to XLA. On a CUDA tensor each wrapper launches its
+`naqs_tpu/ops/dense_engine.py::factored_local_energy` / `dense_local_energy`
+and the two stages per alpha-flip group of `factored_xl_local_energy`, which
+the JAX package left to XLA. On a CUDA tensor each wrapper launches its
 hand-written kernel in `csrc/grid_engine.cu` (built by nvcc at first use) or
 raises; on a CPU tensor it runs the plain PyTorch version (`*_ref`), which
 keeps the JAX order of steps: materialise R1t = grid[pa_idx] transposed, then
@@ -56,6 +62,9 @@ FACT_CHUNK_PAIRS = 16
 
 GRID_ATOL = 1e-6   # of psi / max|psi| = 1: fp32 sums of up to Kxy terms near 0
 GRID_RTOL = 1e-5   # of sum_k |H_k| |T_k|: fp32 order, fma against mul + add
+# staircase cells one block of the XL kernel covers: 224 threads of 3 cells
+# (csrc/grid_engine.cu's kCells); FactorTermsXL.build cuts its tiles to it
+XL_TILE_CELLS = 672
 
 # full-fp32 products in the plain version: TF32 passes cost ~1e-3 Ha on E_loc
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -95,11 +104,45 @@ def dense_grid_accumulate_ref(dn, grid):
     return n
 
 
+def xl_grid_accumulate_ref(fn, grid):
+    """Plain PyTorch version in the JAX package's order of steps: per bucket
+    of chunks and per chunk (one alpha flip, up to 64 masks), per alpha block,
+    stage 1 gathers the block's alpha-permuted rows of the grid sliced to the
+    bucket's beta prefix `b_pneed` plus an explicit zero row (beta images past
+    the prefix, or outside the rectangle, read it), stage 2 gathers the beta
+    images and contracts them with H built by a batched product."""
+    f32 = dict(dtype=torch.float32, device=grid.device)
+    n_blocks = [torch.zeros((pw, cnt, 2), **f32) for _, cnt, pw in fn.blocks]
+    sliced = {p: grid[:, :p] for p in {p for pn in fn.b_pneed for p in pn}}
+    for pa_row, pb_row, fa, fb, fc, pneed in zip(fn.b_pa_row, fn.b_pb_row, fn.b_fa, fn.b_fb,
+                                                 fn.b_fc, fn.b_pneed):
+        for c in range(pa_row.shape[0]):
+            pa_full = fn.pa_idx[pa_row[c].long()].long()           # (Sa*,)
+            pbsel = fn.pb_idx[pb_row[c].long()]                    # (g, Sb*)
+            par_a = fn.par_a[fa[c].long()]                         # (g, R, Sa*)
+            par_b = fn.par_b[fb[c].long()] * fc[c][:, :, None]     # (g, R, Sb*)
+            for k, (a_off, a_cnt, pw) in enumerate(fn.blocks):
+                gk = sliced[pneed[k]][pa_full[a_off:a_off + a_cnt]]   # (a_cnt, pneed, 2)
+                r1t = torch.cat([gk.transpose(0, 1), torch.zeros((1, a_cnt, 2), **f32)])
+                t = r1t[torch.clamp(pbsel[:, :pw], max=pneed[k]).long()]  # (g, pw, a_cnt, 2)
+                h = torch.einsum("grp,gra->gpa", par_b[:, :, :pw],
+                                 par_a[:, :, a_off:a_off + a_cnt])
+                n_blocks[k] += torch.stack([torch.einsum("gpa,gpa->pa", h, t[..., 0]),
+                                            torch.einsum("gpa,gpa->pa", h, t[..., 1])], dim=-1)
+    return torch.cat([blk.transpose(0, 1).reshape(-1, 2) for blk in n_blocks])
+
+
 def grid_tolerance(prog, grid):
-    """Per-cell (Sb, Sa, 2) bound on |kernel - plain version|: the plain version
-    run on absolute values (|fcoeff| with parities of 1, or |h_dense|, and
-    |grid|), which bounds sum_k |H_k| |T_k| from above."""
-    if hasattr(prog, "h_dense"):
+    """Per-cell bound on |kernel - plain version| ((Sb, Sa, 2), or
+    (n_cells, 2) for the staircase): the plain version run on absolute values
+    (|fcoeff| with parities of 1, or |h_dense|, and |grid|), which bounds
+    sum_k |H_k| |T_k| from above."""
+    if hasattr(prog, "b_fc"):
+        mag = xl_grid_accumulate_ref(
+            dataclasses.replace(prog, b_fc=tuple(fc.abs() for fc in prog.b_fc),
+                                par_a=torch.ones_like(prog.par_a),
+                                par_b=torch.ones_like(prog.par_b)), grid.abs())
+    elif hasattr(prog, "h_dense"):
         mag = dense_grid_accumulate_ref(
             dataclasses.replace(prog, h_dense=prog.h_dense.abs()), grid.abs())
     else:
@@ -117,7 +160,9 @@ def _lib():
     lib = _build.load("grid_engine")
     lib.factored_grid_accumulate.argtypes = [_PTR] * 11 + [_INT] * 4 + [_PTR]
     lib.dense_grid_accumulate.argtypes = [_PTR] * 7 + [_INT] * 4 + [_PTR]
+    lib.xl_grid_accumulate.argtypes = [_PTR] * 19 + [_INT] * 6 + [_PTR]
     lib.factored_grid_accumulate.restype = lib.dense_grid_accumulate.restype = _INT
+    lib.xl_grid_accumulate.restype = _INT
     lib.grid_engine_error_string.argtypes = [_INT]
     lib.grid_engine_error_string.restype = ctypes.c_char_p
     return lib
@@ -164,22 +209,28 @@ def _arrival_counters(device, sb, sa):
     return _arrivals[key]
 
 
+def _call(name, tensors, ints, device):
+    """Call kernel `name`'s C entry of csrc/grid_engine.cu with the tensors'
+    pointers and the ints, on the device's current stream; raise if the launch
+    failed."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*(t.data_ptr() for t in tensors), *ints,
+                                torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        msg = lib.grid_engine_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+
+
 def _launch(name, tensors, ints, grid, scratch=()):
     """Launch kernel `name` of csrc/grid_engine.cu on grid's current stream, on
     the transposed grid, with the scratch tensors after the output; returns
     the (Sb, Sa, 2) sums. Checks and counts nothing: the public wrappers do
     both."""
-    lib = _lib()
     sa, sb = ints[-2:]
     grid_t = grid.transpose(0, 1).contiguous()   # (Sb+1, Sa+1, 2): one row per beta image
     out = torch.empty((sb, sa, 2), dtype=torch.float32, device=grid.device)
-    with torch.cuda.device(grid.device):
-        rc = getattr(lib, name)(*(t.data_ptr() for t in tensors), grid_t.data_ptr(),
-                                out.data_ptr(), *(t.data_ptr() for t in scratch), *ints,
-                                torch.cuda.current_stream(grid.device).cuda_stream)
-    if rc != 0:
-        msg = lib.grid_engine_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+    _call(name, (*tensors, grid_t, out, *scratch), ints, grid.device)
     return out
 
 
@@ -225,5 +276,35 @@ def dense_grid_accumulate(dn, grid: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def xl_grid_accumulate(fn, grid: torch.Tensor) -> torch.Tensor:
+    """(n_cells, 2) f32 numerator of the staircase program `fn` (FactorTermsXL)
+    on the packed staircase cells."""
+    sa, sb = fn.sa, fn.sb
+    k, r = fn.fcoeff.shape
+    i32, f32 = torch.int32, torch.float32
+    ka, kb = fn.pa_idx.shape[0], fn.pb_idx.shape[0]
+    kya, kyb = fn.par_a.shape[0], fn.par_b.shape[0]
+    want = {
+        "ga": (fn.ga, i32, (k,)), "gb": (fn.gb, i32, (k,)),
+        "pa_idx": (fn.pa_idx, i32, (ka, sa)), "pb_idx": (fn.pb_idx, i32, (kb, sb)),
+        "alpha_words": (fn.alpha_words, i32, (sa,)), "beta_words": (fn.beta_words, i32, (sb,)),
+        "ya_words": (fn.ya_words, i32, (kya,)), "yb_words": (fn.yb_words, i32, (kyb,)),
+        "par_a": (fn.par_a, f32, (kya, sa)), "par_b": (fn.par_b, f32, (kyb, sb)),
+        "fa_idx": (fn.fa_idx, i32, (k, r)), "fb_idx": (fn.fb_idx, i32, (k, r)),
+        "fcoeff": (fn.fcoeff, f32, (k, r)), "n_fact": (fn.n_fact, i32, (k,)),
+        "cells_off": (fn.cells_off, i32, (sa + 1,)),
+        "tiles": (fn.tiles, i32, (fn.tiles.shape[0], 4))}
+    _check("xl_grid_accumulate", grid, sa, sb, want)
+    if grid.device.type == "cpu":
+        return xl_grid_accumulate_ref(fn, grid)
+    grid_t = grid.transpose(0, 1).contiguous()   # column programs read one row per beta image
+    out = torch.empty((fn.n_cells, 2), dtype=f32, device=grid.device)
+    _call("xl_grid_accumulate", (*(t for t, _, _ in want.values()), grid, grid_t, out),
+          (k, r, sa, sb, fn.tiles.shape[0], XL_TILE_CELLS), grid.device)
+    xl_grid_accumulate.launches += 1
+    return out
+
+
 factored_grid_accumulate.launches = 0
 dense_grid_accumulate.launches = 0
+xl_grid_accumulate.launches = 0

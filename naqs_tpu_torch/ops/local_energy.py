@@ -8,9 +8,11 @@ estimator).
 `DeviceTerms.from_terms(terms, hilbert=...)` picks the engine as the JAX
 package does: on a single-sector space it builds a grid program
 (`ops/dense_engine.py`: `DenseTerms` if the static H tensor fits, else
-`FactorTerms`), and `local_energy` then computes the numerator for the whole
-sector grid at once; otherwise, and for `quadratic_energy`, the rank engine
-below runs. `dataclasses.replace(dt, dense=None)` forces the rank engine.
+`FactorTerms`, else, for an n_exc_max-filtered sector, the staircase program
+`FactorTermsXL`), and `local_energy` then computes the numerator for the
+whole grid, or staircase, at once; otherwise, and for `quadratic_energy`, the
+rank engine below runs. `dataclasses.replace(dt, dense=None)` forces the rank
+engine.
 
 The rank engine reads psi(s') from the dense rank-indexed value table. Per
 chunk of C sampled states:
@@ -23,9 +25,8 @@ chunk of C sampled states:
     row-sum kernel (ops/dyn_gather.py::rank_ratio_rowsum), which reads psi
     from the packed (size+1, 2) value table and writes only (C,) sums.
 
-The sort-based lookup for spaces without a RankSpec (over 32 qubits) and the
-staircase grid engine for n_exc-filtered sectors (`FactorTermsXL`) are not
-ported yet: where only the latter would apply, the rank engine runs.
+The sort-based lookup for spaces without a RankSpec (over 32 qubits) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -38,8 +39,9 @@ import numpy as np
 import torch
 
 from naqs_tpu_torch.hamiltonian import PauliTerms
-from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, dense_local_energy,
-                                             factored_local_energy)
+from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTermsXL,
+                                             dense_local_energy, factored_local_energy,
+                                             factored_xl_local_energy)
 from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_ratio_rowsum
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
 from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
@@ -72,7 +74,7 @@ class DeviceTerms:
     coeff: torch.Tensor       # (K,) float32
     a_mat: torch.Tensor | None  # (Kyz, Kxy) f32 dense coupling matrix, or None
     rank_spec: RankSpec | None = None
-    dense: DenseTerms | FactorTerms | None = None  # grid program, or None: rank engine
+    dense: DenseTerms | FactorTerms | FactorTermsXL | None = None  # None: the rank engine
 
     @staticmethod
     def from_terms(
@@ -106,6 +108,8 @@ class DeviceTerms:
                 dense = DenseTerms.build(terms, hilbert, device=dev)
             elif FactorTerms.supported(terms, hilbert):
                 dense = FactorTerms.build(terms, hilbert, device=dev)
+            elif FactorTermsXL.supported(terms, hilbert):
+                dense = FactorTermsXL.build(terms, hilbert, device=dev)
         return DeviceTerms(
             diag_yz=pad(terms.diag_yz, kd, np.int64),
             diag_coeff=pad(terms.diag_coeff, kd, np.float64),
@@ -183,6 +187,13 @@ def local_energy(
     while psi(s') is still resolved against the full (states, log_amp,
     phase, n_valid) table.
     """
+    if isinstance(dt.dense, FactorTermsXL):
+        # the staircase's diagonal table covers only its own cells: states
+        # outside it (the model masks per spin, so the sampler emits them)
+        # get their true diagonal from the terms
+        return factored_xl_local_energy(dt.dense, dt.rank_spec, states, log_amp, phase,
+                                        n_valid, queries=queries,
+                                        diag=(dt.diag_yz, dt.diag_coeff))
     if dt.dense is not None:
         impl = (factored_local_energy if isinstance(dt.dense, FactorTerms)
                 else dense_local_energy)

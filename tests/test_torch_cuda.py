@@ -8,9 +8,11 @@ of JAX, so it runs on a machine that has only the port's dependencies:
 `rank_gather2` must equal its plain version bitwise; `rank_ratio_rowsum`
 per row within `rowsum_tolerance` (2e-5 Ha + 1e-6 * sum_k |h| |r|: fp32
 summation order over K terms and expf/sincosf ulps); the grid kernels
-`factored_grid_accumulate` and `dense_grid_accumulate` per cell within
-`grid_tolerance` (1e-6 + 1e-5 * sum_k sum_r |fcoeff| |T_k|: fp32 order over
-the masks, fma against mul + add), and bitwise equal to themselves run twice;
+`factored_grid_accumulate`, `dense_grid_accumulate` and the staircase's
+`xl_grid_accumulate` per cell within `grid_tolerance` (1e-6 + 1e-5 * sum_k
+sum_r |fcoeff| |T_k|: fp32 order over the masks, fma against mul + add), and
+bitwise equal to themselves run twice (the factored kernel's bits against an
+earlier tree's build are held by `chip_smoke.py --before DIR`);
 the sampler's `multinomial4_split`, `compact_children` and the two fused in
 one launch, `split_and_compact`, bitwise (the split does its plain version's
 arithmetic with one rounding per operation, the compaction is an integer
@@ -27,10 +29,13 @@ import naqs_tpu_torch as nt
 from naqs_tpu_torch.ops.dyn_gather import (rank_gather2, rank_gather2_ref, rank_ratio_rowsum,
                                            rank_ratio_rowsum_ref, rowsum_tolerance)
 from naqs_tpu_torch.ops import local_energy as le
-from naqs_tpu_torch.ops.dense_engine import DenseTerms, FactorTerms, value_grid
+from naqs_tpu_torch.ops import dense_engine as de
+from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTermsXL, value_grid,
+                                             xl_value_grid)
 from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, dense_grid_accumulate_ref,
                                              factored_grid_accumulate,
-                                             factored_grid_accumulate_ref, grid_tolerance)
+                                             factored_grid_accumulate_ref, grid_tolerance,
+                                             xl_grid_accumulate, xl_grid_accumulate_ref)
 from naqs_tpu_torch.ops.multinomial import (_GAUSS_VAR_MIN, _cascade, multinomial4_split,
                                             multinomial4_split_ref, split_draws)
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
@@ -209,6 +214,31 @@ def test_grid_kernel_matches_plain(engine, fill, sectors):
     assert torch.equal(wrapper(prog, grid), got)   # fixed order, no atomics
 
 
+# sha256 of factored_grid_accumulate's (Sb, Sa, 2) output on N2 STO-3G sectors
+# with the full random grid of test_grid_kernel_matches_plain, from the kernel
+# as built from commit d07998a's source, before it shared its factor program
+# with the staircase kernel (NVIDIA H100 80GB HBM3)
+FACTORED_BITS = {
+    (7, 7): "d8c8b5202c77d45f920862a24b91cb84e2eae0507e946ab3e25b71b667e07253",
+    (3, 6): "f647978c5f453655ad04fb9830f76aa30788ebee11697e89445d6dbdf9adf2ba",
+    (6, 3): "50f3e233bc876fb53fdfae4badf3c249609318b8c168edb2ac496fd674bbc460",
+}
+
+
+@pytest.mark.parametrize("sector", list(FACTORED_BITS))
+def test_factored_grid_kernel_keeps_its_bits(sector):
+    import hashlib
+
+    dev = _card()
+    terms, hil = _n2((sector,))
+    prog = FactorTerms.build(terms, hil, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2))
+    grid[:-1, :-1] = torch.rand((prog.sa, prog.sb, 2), generator=gen) - 0.5
+    out = factored_grid_accumulate(prog, grid.to(dev))
+    assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() == FACTORED_BITS[sector]
+
+
 def test_dense_grid_kernel_repeatable_and_its_counters_come_back_to_zero():
     """Three launches on one set of arrival counters: the same bits each time
     (partials added in range order, whatever order the blocks finish in), and
@@ -270,6 +300,107 @@ def test_grid_kernel_rejects_bad_inputs(engine):
                 lambda: wrapper(dataclasses.replace(prog, sa=prog.sa - 1), grid),
                 lambda: wrapper(dataclasses.replace(
                     prog, **{field: getattr(prog, field).transpose(0, 1)}), grid)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def _staircase(name, e, dev):
+    """(terms, hilbert, FactorTermsXL on the card) of a shipped molecule
+    restricted to at most e excitations (terms with at most e X/Y sites, as
+    the CLI's -n_excitations_max gives them)."""
+    mol = nt.load_molecule(name)
+    hil = nt.Hilbert.for_molecule(mol)
+    hil = nt.Hilbert(n_qubits=hil.n_qubits, sectors=hil.sectors, n_exc_max=e)
+    terms = nt.compile_pauli_terms(mol.qubit_hamiltonian, mol.n_qubits, n_excitations_max=e)
+    return terms, hil, FactorTermsXL.build(terms, hil, device=dev)
+
+
+# N2 STO-3G at 2 and 4 excitations (caps forced: its sector would take the
+# dense program), and Li2O STO-3G CISDTQ (644,365 cells), the card's shape;
+# sampled grids hold staircase states and states of the rectangle outside it
+@pytest.mark.parametrize("fill", ["sampled", "full"])
+@pytest.mark.parametrize("name,e", [("N2_STO-3G_gen", 2), ("N2_STO-3G_gen", 4),
+                                    ("Li2O_STO-3G_gen", 4)])
+def test_xl_grid_kernel_matches_plain(name, e, fill, monkeypatch):
+    dev = _card()
+    monkeypatch.setattr(de, "DENSE_SIZE_MAX", 1)
+    monkeypatch.setattr(de, "FACT_SIZE_MAX", 1)
+    terms, hil, prog = _staircase(name, e, dev)
+    dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
+    assert type(dt.dense).__name__ == "FactorTermsXL" and dt.dense.n_cells == prog.n_cells
+    if fill == "sampled":
+        from naqs_tpu_torch.utils.bits import SENTINEL
+
+        rng = np.random.default_rng(5)
+        pool = hil.basis if hil.size < 300_000 else rng.choice(hil.basis, 300_000, replace=False)
+        m = min(20_000, len(pool) // 2)
+        # random cells of the rectangle: most lie outside the staircase
+        words = lambda w, n: rng.choice(w.cpu().numpy().astype(np.int64), n)
+        n_shells = hil.n_qubits // 2
+        rect = (de._expand_qubits(words(prog.alpha_words, m // 4), 0, n_shells)
+                | de._expand_qubits(words(prog.beta_words, m // 4), 1, n_shells))
+        states = np.unique(np.concatenate([rng.choice(pool, m, replace=False), rect]))
+        assert not hil.contains(states).all()
+        cap = len(states) + 100
+        s = np.full(cap, SENTINEL, np.int64)
+        s[:len(states)] = states
+        la = (rng.normal(size=cap) - 1.0).astype(np.float32)
+        ph = rng.uniform(-np.pi, np.pi, size=cap).astype(np.float32)
+        t = lambda a: torch.as_tensor(a, device=dev)
+        grid, _ = xl_value_grid(prog, RankSpec.for_hilbert(hil), t(s), t(la), t(ph),
+                                len(states))
+    else:   # every cell of the rectangle set, the pad row and column zero
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2))
+        grid[:-1, :-1] = torch.rand((prog.sa, prog.sb, 2), generator=gen) - 0.5
+        grid = grid.to(dev)
+    before = xl_grid_accumulate.launches
+    got = xl_grid_accumulate(prog, grid)
+    torch.cuda.synchronize()
+    assert xl_grid_accumulate.launches == before + 1
+    want = xl_grid_accumulate_ref(prog, grid)
+    tol = grid_tolerance(prog, grid)
+    assert got.shape == (prog.n_cells, 2) and bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= tol).all()), float(((got - want).abs() / tol).max())
+    assert float(want.abs().max()) > 1e-3
+    assert torch.equal(xl_grid_accumulate(prog, grid), got)   # fixed order, no atomics
+
+
+def test_xl_engine_matches_rank_engine_on_the_card(monkeypatch):
+    """N2 STO-3G at 4 excitations through the staircase engine against the
+    rank engine on staircase states, and its queries= readout."""
+    dev = _card()
+    monkeypatch.setattr(de, "DENSE_SIZE_MAX", 1)
+    monkeypatch.setattr(de, "FACT_SIZE_MAX", 1)
+    terms, hil, _ = _staircase("N2_STO-3G_gen", 4, dev)
+    dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
+    assert type(dt.dense).__name__ == "FactorTermsXL"
+    m = 3000
+    s, la, ph = _n2_sample(hil, m, 4096, dev, seed=4)
+    e_grid = le.local_energy(dt, s, la, ph, m)
+    e_rank = le.local_energy(dataclasses.replace(dt, dense=None), s, la, ph, m)
+    for g, r in zip(e_grid, e_rank):
+        assert float((g[:m] - r[:m]).abs().max()) < 2e-4
+    rows = torch.arange(5, m, 11, device=dev)
+    e_q = le.local_energy(dt, s, la, ph, m, queries=(s[rows], la[rows], ph[rows]))
+    assert torch.equal(e_q[0], e_grid[0][rows]) and torch.equal(e_q[1], e_grid[1][rows])
+
+
+def test_xl_grid_kernel_rejects_bad_inputs():
+    dev = _card()
+    _, _, prog = _staircase("N2_STO-3G_gen", 4, dev)
+    grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2), device=dev)
+    wide = torch.zeros((prog.sa + 1, prog.sb + 1, 4), device=dev)[..., :2]
+    for bad in (lambda: xl_grid_accumulate(prog, grid.double()),
+                lambda: xl_grid_accumulate(prog, wide),
+                lambda: xl_grid_accumulate(prog, grid.cpu()),
+                lambda: xl_grid_accumulate(prog, grid[:-1]),
+                lambda: xl_grid_accumulate(dataclasses.replace(prog, ga=prog.ga.long()), grid),
+                lambda: xl_grid_accumulate(dataclasses.replace(prog, tiles=prog.tiles.cpu()),
+                                           grid),
+                lambda: xl_grid_accumulate(dataclasses.replace(prog, sb=prog.sb - 1), grid),
+                lambda: xl_grid_accumulate(dataclasses.replace(
+                    prog, fcoeff=prog.fcoeff.transpose(0, 1)), grid)):
         with pytest.raises(ValueError):
             bad()
 

@@ -1,7 +1,7 @@
 """Shared inputs for the port's parity tests (no tests here).
 
-Molecules come from `naqs_tpu.chem.generate.generate_molecule_data` (H2 and
-H2O STO-3G, a few seconds each) and from the checked-in H2O 6-31G folder,
+Molecules come from `naqs_tpu.chem.generate.generate_molecule_data` (H2,
+LiH and H2O STO-3G, a few seconds each) and from the checked-in H2O 6-31G folder,
 and are cached per process. Each `Case` holds the same molecule as seen by
 both packages: `*_j` objects are naqs_tpu (JAX), `*_t` objects
 naqs_tpu_torch.
@@ -25,6 +25,7 @@ H2O_631G_DIR = os.path.join(REPO, "data", "generated", "H2O_6-31G_gen")
 
 _GEOMETRIES = {
     "H2": (["H", "H"], [[0.0, 0.0, 0.0], [0.0, 0.0, 0.7414]]),
+    "LiH": (["Li", "H"], [[0.0, 0.0, 0.0], [0.0, 0.0, 1.5949]]),
     "H2O": (["O", "H", "H"], [[0.0, 0.0, 0.0], [0.2774, 0.8929, 0.2544],
                               [0.6068, -0.2383, -0.7169]]),
 }
@@ -62,7 +63,7 @@ def _jax_molecule(d: dict):
 
 @lru_cache(maxsize=None)
 def case(name: str) -> Case:
-    """'H2' or 'H2O' (STO-3G, generated), or 'H2O_6-31G' (checked in).
+    """'H2', 'LiH' or 'H2O' (STO-3G, generated), or 'H2O_6-31G' (checked in).
 
     For H2O 6-31G the port reads its own .npz and reuses the JAX package's
     Jordan-Wigner term dict (the two JW codes are compared in

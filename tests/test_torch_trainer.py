@@ -119,6 +119,66 @@ def test_vmc_update_through_the_grid_engine_matches_jax():
     _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, False)
 
 
+def _cisd(c):
+    """(port, JAX) Hilbert spaces of a case restricted to at most 2 excitations."""
+    import naqs_tpu as nq
+
+    return (nt.Hilbert(n_qubits=c.h_t.n_qubits, sectors=c.h_t.sectors, n_exc_max=2),
+            nq.Hilbert(n_qubits=c.h_j.n_qubits, sectors=c.h_j.sectors, n_exc_max=2))
+
+
+@pytest.fixture
+def force_xl(monkeypatch):
+    """Both packages past their DenseTerms and FactorTerms caps: a filtered
+    single-sector space gets the staircase program FactorTermsXL."""
+    from naqs_tpu.ops import dense_engine as de_j
+    from naqs_tpu_torch.ops import dense_engine as de_t
+
+    for mod in (de_j, de_t):
+        monkeypatch.setattr(mod, "DENSE_SIZE_MAX", 1)
+        monkeypatch.setattr(mod, "FACT_SIZE_MAX", 1)
+
+
+def test_vmc_update_through_the_staircase_engine_matches_jax(force_xl):
+    """FactorTermsXL on both sides (H2O STO-3G, at most 2 excitations). The
+    batch holds states outside the staircase, as the sampler's per-spin
+    masking emits them: they get their diagonal as E_loc on both sides."""
+    c, cfg_j, params, model = _setup()
+    h_t, h_j = _cisd(c)
+    bj, bt = _batches(c)
+    assert not h_t.contains(bt.states[:120].numpy()).all()
+    dt_j = DeviceTermsJ.from_terms(c.terms_j, hilbert=h_j)
+    dt_t = DeviceTerms.from_terms(c.terms_t, hilbert=h_t, device="cpu")
+    assert type(dt_j.dense).__name__ == type(dt_t.dense).__name__ == "FactorTermsXL"
+    _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, False)
+
+
+def test_exact_energy_over_the_filtered_basis_matches_jax():
+    c, cfg_j, params, model = _setup(seed=2)
+    h_t, h_j = _cisd(c)
+    tr = VMCTrainer(nt.NAQSConfig(n_qubits=14, sectors=c.h_t.sectors, amp_hidden=(16,),
+                                  phase_hidden=(16,)), c.terms_t, h_t, device="cpu")
+    tr.model = model
+    want = trainer_j.exact_energy(cfg_j, params, DeviceTermsJ.from_terms(c.terms_j, hilbert=h_j),
+                                  jnp.asarray(h_j.basis))
+    assert abs(tr.exact_energy() - float(want)) < 5e-6
+
+
+def test_sampled_steps_run_on_a_filtered_space(force_xl):
+    """The trainer unchanged on a filtered Hilbert space: the default
+    dispatch carries FactorTermsXL and the sampled steps give finite
+    energies."""
+    c = case("H2O")
+    h_t, _ = _cisd(c)
+    cfg = nt.NAQSConfig(n_qubits=14, sectors=h_t.sectors, amp_hidden=(16,), phase_hidden=(16,))
+    tc = TrainConfig(n_samples=1e4, n_unq_samples_min=8, n_unq_samples_max=256, seed=4)
+    tr = VMCTrainer(cfg, c.terms_t, h_t, tc, device="cpu")
+    assert type(tr.dt.dense).__name__ == "FactorTermsXL"
+    for _ in range(3):
+        out = tr.step()
+        assert np.isfinite(out["e_loc"]) and np.isfinite(out["e_loc_var"])
+
+
 def _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, reweight):
     grab = _grab_grads()
     _, g_j, m_j = trainer_j._vmc_update_impl(cfg_j, grab, params, grab.init(params),

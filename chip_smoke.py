@@ -82,7 +82,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      once per E_loc call, split_and_compact 15 times per sample() call, no
      other kernel); the share of a sampled batch's weight outside the
      staircase; xl_grid_accumulate on that batch's grid against its plain
-     version per cell (grid_tolerance) and twice bitwise; local_energy through
+     version per cell (grid_tolerance) and twice bitwise; the grid's set cells
+     and set (mask, cell) pairs and the kernel's schedule on it (chunks staged,
+     entries listed, pairs probed); with --before, DIR's xl_grid_accumulate
+     within grid_tolerance of this tree's on that grid; local_energy through
      FactorTermsXL against the rank engine on XL_QUERIES staircase rows as
      queries= over a buffer of the batch's staircase states (ENGINE_TOL), and
      8 staircase rows of the sampled buffer against local_energy_np with psi
@@ -110,9 +113,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      tree's) and its split + compaction (two launches, first held bitwise
      against split_and_compact) where DIR has csrc/sampler_step.cu. Then
      SLOW_REPEATS repeats of
-     SLOW_LAUNCHES of the factored and staircase kernels (with --before, DIR's
-     factored kernel, first held bitwise against this tree's on H2O 6-31G's
-     grid), the grid kernels' plain versions, one full local_energy call per
+     SLOW_LAUNCHES of the factored and staircase kernels, the staircase kernel
+     also on a fully set grid of the rectangle (with --before, DIR's factored
+     kernel, first held bitwise against this tree's on H2O 6-31G's grid, and
+     DIR's staircase kernel on both grids), the grid kernels' plain versions, one full local_energy call per
      engine at capacity 100,000 (factored against rank on H2O 6-31G, and
      FactorTermsXL against rank on Li2O: printed, not asserted), the split's
      plain version, the fused
@@ -134,8 +138,9 @@ factored_grid_accumulate, split_and_compact, multinomial4_split and
 compact_children (0: the standalone kernels left sample()'s path; their
 launches in phase 5b's sample_density call as "launches_sample_density"), 7
 for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
-for xl_grid_accumulate;
-with --before, "before_ms" and "before_spread" of the earlier tree's
+for xl_grid_accumulate, whose bound_ms counts the work its set-cells design
+must do on the sampled grid and dense_bound_ms PR 7's count over every valid
+pair; with --before, "before_ms" and "before_spread" of the earlier tree's
 kernel), and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """
@@ -275,6 +280,61 @@ def _xl_work(fn):
     n_bytes += n_touched * 8 + fn.n_cells * 8
     n_pairs = int(pairs.sum())
     return n_bytes, 2 * macs + 4 * n_pairs, n_pairs, macs, n_touched
+
+
+def _xl_sampled_work(fn, grid):
+    """What the set-cells staircase kernel must do on `grid`: a dict of its
+    schedule's counts and (bytes, operations). A pair (mask, staircase cell)
+    is set where both images lie in the rectangle and its grid cell is set.
+    Per tile the kernel stages the chunks of its orientation whose fixed
+    image's bitmap row is not clear (a bulk copy of the row and of the chunk's
+    program); a row of at most 64 set cells and no pad cell is listed (one
+    entry per set cell and mask), any other row probed (one per tile cell and
+    mask). Bytes: the grid, every map, word table and the program once, the
+    packed output once. Operations: one per grid cell (is it set), one per
+    listed entry or probe, per set pair 2 fused multiply-adds and 2 per
+    factor of its mask (the sign and the add)."""
+    import torch
+
+    from naqs_tpu_torch.ops.grid_kernels import xl_occupancy_ref
+
+    occ = (grid != 0).any(-1)
+    sa, sb = fn.sa, fn.sb
+    width = fn.width[:-1].long()
+    ra_c = torch.repeat_interleave(torch.arange(sa, device=grid.device), width)
+    rb_c = torch.arange(fn.n_cells, device=grid.device) - fn.cells_off[:-1].long()[ra_c]
+    set_pairs = torch.zeros(fn.ga.shape[0], dtype=torch.int64, device=grid.device)
+    for k in range(fn.ga.shape[0]):
+        set_pairs[k] = occ[fn.pa_idx[fn.ga[k], ra_c].long(), fn.pb_idx[fn.gb[k], rb_c].long()].sum()
+    n_set_pairs = int(set_pairs.sum())
+    factor_ops = int((set_pairs * fn.n_fact).sum())
+    _, _, any_a, any_b = xl_occupancy_ref(grid)
+    row_bytes = {0: -(-(sa + 1) // 128) * 16, 1: -(-(sb + 1) // 128) * 16}
+    staged = staged_bytes = listed = probed = 0
+    for orient in (0, 1):
+        c_lo, c_hi = (0, fn.n_col_chunks) if orient == 0 else (fn.n_col_chunks,
+                                                                fn.chunks.shape[0])
+        ch = fn.chunks[c_lo:c_hi].long()
+        tl = fn.tiles[fn.tiles[:, 0] == orient].long()
+        p_idx, n_rows, pad = (fn.pb_idx, occ.sum(0), occ[sa]) if orient == 0 else \
+            (fn.pa_idx, occ.sum(1), occ[:, sb])
+        anyf = any_b if orient == 0 else any_a
+        img = p_idx[ch[:, 0]][:, tl[:, 1]].long()               # (chunks, tiles)
+        on = anyf[img] > 0
+        staged += int(on.sum())
+        staged_bytes += int((on * (row_bytes[orient] + 16 * ch[:, 2:3])).sum())
+        is_listed = (n_rows[img] <= 64) & ~pad[img]
+        per = ch[:, 3:4] * on
+        listed += int((per * is_listed * n_rows[img]).sum())
+        probed += int((per * ~is_listed * (tl[:, 3] - tl[:, 2])[None, :]).sum())
+    tables = [fn.pa_idx, fn.pb_idx, fn.alpha_words, fn.beta_words, fn.cells_off, fn.tiles,
+              fn.prog, fn.chunks]
+    n_bytes = sum(t.numel() * t.element_size() for t in tables) + grid.numel() * 4 \
+        + fn.n_cells * 8
+    n_ops = occ.numel() + listed + probed + 4 * n_set_pairs + 2 * factor_ops
+    return dict(set_cells=int(occ.sum()), set_pairs=n_set_pairs, factors=factor_ops,
+                staged_chunks=staged, staged_bytes=staged_bytes, listed=listed, probed=probed,
+                bytes=n_bytes, ops=n_ops)
 
 
 def _check_grid_kernel(name, wrapper, ref, prog, grid):
@@ -1173,6 +1233,27 @@ def main(argv) -> int:
         raise SystemExit("the staircase value grid's pad row or column is not zero")
     xl_err = _check_grid_kernel("xl_grid_accumulate", xl_grid_accumulate,
                                 xl_grid_accumulate_ref, xl, grid3)
+    x_work = _xl_sampled_work(xl, grid3)
+    print(f"[xl] the sampled grid: {x_work['set_cells']} set cells of {grid3.numel() // 2}; "
+          f"{x_work['set_pairs']} set (mask, cell) pairs of the {x_pairs} valid ones (share "
+          f"{x_work['set_pairs'] / x_pairs:.6f}), {x_work['factors']} factors on them; the "
+          f"kernel stages {x_work['staged_chunks']} chunks ({x_work['staged_bytes']} B of "
+          f"bitmap rows and program), lists {x_work['listed']} (mask, set cell) entries and "
+          f"probes {x_work['probed']} (mask, cell) pairs", flush=True)
+    old_xl = "xl_grid_accumulate (earlier tree)"
+    if "grid" in old_mods and hasattr(old_mods["grid"], "xl_grid_accumulate"):
+        xl_old = old_mods["grid"].xl_grid_accumulate
+        x_diff = (xl_old(xl, grid3) - xl_grid_accumulate(xl, grid3)).abs()
+        x_ok = bool((x_diff <= grid_tolerance(xl, grid3)).all())
+        print(f"[kernel] {old_xl} on Li2O's sampled grid: within grid_tolerance of this "
+              f"tree's={x_ok} (max_abs_diff={float(x_diff.max()):.3e})", flush=True)
+        if not x_ok:
+            raise SystemExit(f"{old_xl} and this tree's xl_grid_accumulate differ")
+    # every cell of the rectangle set: every bitmap row too full to list
+    gen3 = torch.Generator(device="cpu").manual_seed(3)
+    full3 = torch.zeros((xl.sa + 1, xl.sb + 1, 2))
+    full3[:-1, :-1] = torch.rand((xl.sa, xl.sb, 2), generator=gen3) - 0.5
+    full3 = full3.to(dev)
     # the staircase engine against the rank engine on a buffer of staircase
     # states (both read the same psi there), XL_QUERIES rows as queries=
     keep = torch.as_tensor(stair, device=dev)
@@ -1217,6 +1298,7 @@ def main(argv) -> int:
         "local_energy (rank engine)": lambda: le.local_energy(
             dt_rank, batch.states, la, ph, batch.n_unique),
         "xl_grid_accumulate": lambda: xl_grid_accumulate(xl, grid3),
+        "xl_grid_accumulate (full grid)": lambda: xl_grid_accumulate(xl, full3),
         "xl_grid_accumulate_ref": lambda: xl_grid_accumulate_ref(xl, grid3),
         "local_energy (FactorTermsXL, Li2O)": lambda: le.local_energy(
             tr3.dt, batch3.states, la3, ph3, batch3.n_unique),
@@ -1230,6 +1312,9 @@ def main(argv) -> int:
     }
     if "grid" in old_mods:
         slow_fns[old_fact] = lambda: fact_old(fn, grid)
+    if "grid" in old_mods and hasattr(old_mods["grid"], "xl_grid_accumulate"):
+        slow_fns[old_xl] = lambda: xl_old(xl, grid3)
+        slow_fns[f"{old_xl} (full grid)"] = lambda: xl_old(xl, full3)
     old_sample = "sample() at capacity 100,000 (earlier tree)"
     if "sampler" in old_mods:
         slow_fns[old_sample] = lambda: old_mods["sampler"].sample(tr.model, tr.gen, 1e5, cap)
@@ -1257,7 +1342,8 @@ def main(argv) -> int:
     r_ops = n_el * RANK_OPS + n_found * EPILOGUE_OPS
     r_bound = _bound(r_bytes, r_ops)
     f_bound, d_bound = _bound(f_bytes, f_ops), _bound(d_bytes, d_ops)
-    x_bound = _bound(x_bytes, x_ops)
+    x_dense = _bound(x_bytes, x_ops)
+    x_bound = _bound(x_work["bytes"], x_work["ops"])
     print(f"[bound] rank_gather2 {g_bound[0]:.5f} ms ({g_bound[1]}: {g_bytes} B = s, xy, "
           f"{n_rows} touched table rows x 8 B, outputs 2 x {n_el} x 4 B; "
           f"{n_el * RANK_OPS} ops)", flush=True)
@@ -1271,13 +1357,21 @@ def main(argv) -> int:
           f"grid and the output once, {f_bytes / H100_BYTES_PER_S * 1e3:.5f} ms; one 8 B read "
           f"of T per valid pair from device memory would be "
           f"{f_pairs * 8 / H100_BYTES_PER_S * 1e3:.3f} ms)", flush=True)
-    print(f"[bound] xl_grid_accumulate {x_bound[0]:.5f} ms ({x_bound[1]}: {x_ops} float32 "
-          f"operations = 2 x {x_macs} multiply-adds for H + 4 x {x_pairs} valid pairs, "
+    print(f"[bound] xl_grid_accumulate {x_bound[0]:.5f} ms on the sampled grid ({x_bound[1]}: "
+          f"{x_work['bytes']} B = the grid, every map, word table and the program once and the "
+          f"{xl.n_cells} packed cells written, "
+          f"{x_work['bytes'] / H100_BYTES_PER_S * 1e3:.5f} ms; {x_work['ops']} operations = "
+          f"one a grid cell, one a listed entry or probe ({x_work['listed']} + "
+          f"{x_work['probed']}), 4 a set pair ({x_work['set_pairs']}) and 2 a factor of a set "
+          f"pair ({x_work['factors']}), {x_work['ops'] / H100_FP32_OPS_PER_S * 1e3:.5f} ms)",
+          flush=True)
+    print(f"[bound] xl_grid_accumulate dense count (PR 7's, every valid pair): "
+          f"{x_dense[0]:.5f} ms ({x_dense[1]}: {x_ops} float32 operations = 2 x {x_macs} "
+          f"multiply-adds for H + 4 x {x_pairs} valid pairs, "
           f"{x_ops / H100_FP32_OPS_PER_S * 1e3:.5f} ms; {x_bytes} B = the {x_touched} grid cells "
           f"the valid pairs read x 8 B, the maps, factor lists and word tables, the par_a / "
           f"par_b columns the programs read and the {xl.n_cells} packed cells written, "
-          f"{x_bytes / H100_BYTES_PER_S * 1e3:.5f} ms; the whole rectangle's grid would be "
-          f"{(xl.sa + 1) * (xl.sb + 1) * 8} B)", flush=True)
+          f"{x_bytes / H100_BYTES_PER_S * 1e3:.5f} ms)", flush=True)
     print(f"[bound] dense_grid_accumulate {d_bound[0]:.5f} ms ({d_bound[1]}: {d_bytes} B = "
           f"h_dense {d_h['sectors']} B (the 32-byte sectors that hold the {d_pairs} valid "
           f"pairs of the masks that are not padding; its rows with a valid beta image "
@@ -1411,8 +1505,14 @@ def main(argv) -> int:
               library_note=no_call, **before(old_dense), **GRID_SRC),
         entry("xl_grid_accumulate", xl_launches, xl_err, "xl_grid_accumulate_ref", x_bound,
               None, replaces="naqs_tpu/ops/dense_engine.py:877", library_note=no_call,
+              dense_bound_ms=x_dense[0], set_pairs=x_work["set_pairs"],
+              set_pair_share=x_work["set_pairs"] / x_pairs,
+              full_grid_ms=times["xl_grid_accumulate (full grid)"][0],
               local_energy_ms=times["local_energy (FactorTermsXL, Li2O)"][0],
-              rank_local_energy_ms=times["local_energy (rank engine, Li2O)"][0], **GRID_SRC),
+              rank_local_energy_ms=times["local_energy (rank engine, Li2O)"][0],
+              **({"before_full_grid_ms": times[f"{old_xl} (full grid)"][0]}
+                 if f"{old_xl} (full grid)" in times else {}),
+              **before(old_xl), **GRID_SRC),
         entry("split_and_compact", fused_launches, fused_totals["err"], "split_and_compact_ref",
               fu_bound, None,
               replaces="naqs_tpu/ops/multinomial.py:76 + naqs_tpu/sampler.py:49",

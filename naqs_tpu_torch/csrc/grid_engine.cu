@@ -34,25 +34,52 @@
 // n_exc_max-filtered sector (ops/dense_engine.py::FactorTermsXL): alpha and
 // beta combinations in (excitations, colex) order, the cells (ra, rb) with
 // rb < width[ra] written packed at cells_off[ra] + rb, the grid that of the
-// restricted rectangle. On Li2O STO-3G CISDTQ it is bound by operations too
-// (3.73 G multiply-adds for 644,365 cells: 0.150 ms, against 0.032 ms for
-// the 108 MB it must move), but its grid, (5,056, 5,056, 2) f32 = 204.5 MB,
-// no longer fits L2; the valid pairs read 9.9 M of its 25.6 M cells.
-// The staircase is skewed: 2,450 of its 5,055 beta columns hold one cell
-// and 1,960 hold 57, so a block per column (the factored kernel's layout)
-// would build a program of 3,115 masks for one cell and leave most lanes
-// idle. Since exc_a + exc_b <= E, every cell has exc_b <= E / 2 or
-// exc_a < E - E / 2: the wrapper's tile table (FactorTermsXL.tiles) runs the
-// columns of at most E / 2 beta excitations as the factored kernel does (a
-// program per column, the threads over its >= 645 alpha rows, reading the
-// transposed grid), and the rest as rows (a program per alpha row, the
-// threads over its >= 1,960 beta columns, reading the grid as it is): 820
-// column and 175 row blocks of at most 672 cells, no program for fewer than
-// 630 cells. Both orientations walk the factored kernel's program
-// (accumulate_program below, one device function): masks in index order,
-// the sign by popcount, the sums in registers in a fixed order, no atomics.
+// restricted rectangle, read as it is (no transposed copy). It has code of
+// its own (below the dense kernel); the factored kernel keeps
+// accumulate_program to itself. On Li2O STO-3G CISDTQ the grid is (5,056,
+// 5,056, 2) f32 = 204.5 MB, which L2 cannot hold, and a sampled batch sets
+// about 13,600 of its 25.6 M cells: of the 639.4 M valid (mask, cell) pairs
+// only 1.2 M (0.19%) read a set cell; every other pair adds exactly zero.
+// PR 7's design ran the factor loop and the T load on every valid pair; on the
+// card (PERF.md, PR 8's step 0) skipping the factor loop took 1.40 ms of its
+// 3.88 ms, a constant T 0.53 ms, both 2.45 ms, while a persistent grid was
+// slower. And since the sampled cells are spread over 3,846 of the 5,056
+// columns, skipping the masks whose fixed image has no set cell leaves 921 M
+// of 1.16 G probes: work has to follow the set cells themselves. So:
+// * Phase 1 packs the set cells (either part nonzero) into two bitmaps, one
+//   row per alpha image (bits over beta) and one per beta image (bits over
+//   alpha), rows of whole 16-byte pieces, and flags the rows that are not
+//   all clear; it reads the grid once. A grid-wide barrier (one cooperative
+//   launch of the blocks the card holds) ends it.
+// * The tile table (FactorTermsXL.tiles) is PR 7's: columns of at most E / 2
+//   beta excitations (rb fixed, cells over ra) and rows for the rest (ra
+//   fixed, cells over rb), at most 672 cells each; block b takes tiles b,
+//   b + gridDim.x, ... in that static order. The static program
+//   (FactorTermsXL.prog, built once) holds per orientation the masks ordered
+//   by the row of the fixed spin's image map, each as a header and its
+//   factors (cells' sign word, fixed sign word, coefficient): a factor's sign
+//   is the parity of both words against the cell's, so no par_a or par_b is
+//   read. Its chunks are runs of one map row of at most 384 int4s.
+// * A producer warp stages, for each chunk whose image of the tile's fixed
+//   index has a non-clear bitmap row, that row and the chunk's program with
+//   two 1-D bulk copies (cp.async.bulk, complete_tx on the stage's full
+//   mbarrier) into a ring of three stages of up to 8 chunks; the consumer
+//   warps free a stage through its empty mbarrier. No __syncthreads per tile.
+// * Chunk i of a tile goes to consumer warp i % 7. Per mask it lists the
+//   set pairs: a row of at most 64 set cells (and no pad cell) is listed and
+//   each set cell q' mapped back by the mask's flip, q = map[q'] (a flip is
+//   its own inverse), kept when q lies in the tile; a fuller row (a fully set
+//   grid) is probed cell by cell. Set pairs join the warp's queue in mask
+//   order; 32 at a time, one a lane, each runs its factor loop and T load,
+//   and the lanes of one cell add their terms into the warp's sum of that cell
+//   in lane order (__match_any_sync), so no lane idles on a clear pair.
+// * Each cell's terms arrive in the static order (chunks, masks), and at the
+//   tile's end the 7 warps' sums of a cell are added in warp order: the same
+//   bits in every run, no atomics on a sum.
+// What bounds it then: the bytes of the grid's one pass (204.5 MB, about
+// 0.06 ms), against a few million listed entries and 1.2 M set pairs.
 //
-// Design, both kernels:
+// Design, the factored and dense kernels:
 // * A block works on one rb and a tile of ra, neighbouring threads on
 //   neighbouring ra: pa_idx rows and h_dense rows are read coalesced, and
 //   row_map[k, rb], the factor list of mask k and par_b[., rb] are the same
@@ -113,6 +140,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Plain C interface, bound with ctypes by naqs_tpu_torch/ops/grid_kernels.py.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -282,77 +310,6 @@ __global__ void __launch_bounds__(kMaxThreads) factored_grid_accumulate_kernel(
     if (in[j]) out[static_cast<size_t>(rb) * sa + ra[j]] = make_float2(acc_re[j], acc_im[j]);
 }
 
-struct XlProgram {
-  const int32_t *ga, *gb, *pa_idx, *pb_idx, *alpha_words, *beta_words, *ya_words, *yb_words;
-  const float *par_a, *par_b;
-  const int32_t *fa_idx, *fb_idx;
-  const float* fcoeff;
-  const int32_t *n_fact, *cells_off;
-  const int4* tiles;          // (orientation, p, q_lo, q_hi) per block
-  const float2 *grid, *grid_t;
-  float2* out;                // (n_cells,) packed staircase cells
-  int n_masks, n_slots, sa, sb;
-};
-
-// the staircase kernel: block b takes tile b. A column tile (orientation 0)
-// fixes rb and gives its threads the alpha rows [q_lo, q_hi), reading the
-// transposed grid as the factored kernel does; a row tile fixes ra and gives
-// its threads the beta columns, reading the grid as it is. Cell (ra, rb) is
-// written at cells_off[ra] + rb.
-__global__ void __launch_bounds__(kMaxThreads) xl_grid_accumulate_kernel(const XlProgram x) {
-  const int4 tile = __ldg(x.tiles + blockIdx.x);
-  const bool column = tile.x == 0;
-  const int p = tile.y;
-  const int sq = column ? x.sa : x.sb;
-  const int32_t* q_words = column ? x.alpha_words : x.beta_words;
-  int q[kCells], qw[kCells];
-  bool in[kCells];
-  float acc_re[kCells], acc_im[kCells];
-#pragma unroll
-  for (int j = 0; j < kCells; ++j) {
-    q[j] = tile.z + j * blockDim.x + threadIdx.x;
-    in[j] = q[j] < tile.w;
-    qw[j] = __ldg(q_words + (in[j] ? q[j] : tile.z));
-    acc_re[j] = acc_im[j] = 0.f;
-  }
-  if (column) {   // p = rb: beta images and par_b in the program, alpha in the cells
-    const auto lookup = [&](int kk, int* g, int* img) {
-      *g = __ldg(x.ga + kk);
-      *img = __ldg(x.pb_idx + static_cast<size_t>(__ldg(x.gb + kk)) * x.sb + p);
-      return *img < x.sb;
-    };
-    const auto factor = [&](size_t f) {
-      const int ya = __ldg(x.ya_words + __ldg(x.fa_idx + f));
-      const float cb = __ldg(x.fcoeff + f) *
-                       __ldg(x.par_b + static_cast<size_t>(__ldg(x.fb_idx + f)) * x.sb + p);
-      return make_int2(ya, __float_as_int(cb));
-    };
-    accumulate_program(lookup, factor, x.n_fact, x.n_masks, x.n_slots, x.pa_idx, sq, x.grid_t,
-                       q, in, qw, acc_re, acc_im);
-  } else {        // p = ra: alpha images and par_a in the program, beta in the cells
-    const auto lookup = [&](int kk, int* g, int* img) {
-      *g = __ldg(x.gb + kk);
-      *img = __ldg(x.pa_idx + static_cast<size_t>(__ldg(x.ga + kk)) * x.sa + p);
-      return *img < x.sa;
-    };
-    const auto factor = [&](size_t f) {
-      const int yb = __ldg(x.yb_words + __ldg(x.fb_idx + f));
-      const float ca = __ldg(x.fcoeff + f) *
-                       __ldg(x.par_a + static_cast<size_t>(__ldg(x.fa_idx + f)) * x.sa + p);
-      return make_int2(yb, __float_as_int(ca));
-    };
-    accumulate_program(lookup, factor, x.n_fact, x.n_masks, x.n_slots, x.pb_idx, sq, x.grid,
-                       q, in, qw, acc_re, acc_im);
-  }
-#pragma unroll
-  for (int j = 0; j < kCells; ++j) {
-    if (!in[j]) continue;
-    const int ra = column ? q[j] : p;
-    const int rb = column ? p : q[j];
-    x.out[__ldg(x.cells_off + ra) + rb] = make_float2(acc_re[j], acc_im[j]);
-  }
-}
-
 constexpr int kDenseThreads = 128;  // at most 4 warps a dense block: a 65 KB ring
 constexpr int kStage = 32;          // masks a ring stage looks up: one per lane
 static_assert(kStage == 32, "a stage's lookup gives each lane of the warp one mask");
@@ -492,6 +449,425 @@ __global__ void __launch_bounds__(kDenseThreads) dense_grid_accumulate_kernel(
   if (threadIdx.x == 0) arrivals[slot] = 0u;   // every range has arrived: ready for the next launch
 }
 
+// ---------------------------------------------------------------- staircase
+
+constexpr int kXlWarps = 7;            // consumer warps
+constexpr int kXlThreads = (kXlWarps + 1) * 32;   // and one producer warp
+constexpr int kXlTileCells = 672;      // cells a tile holds at most (XL_TILE_CELLS)
+constexpr int kRing = 3;               // stages of a consumer warp's ring, one chunk each
+constexpr int kChunkHeads = 64;        // mask headers a chunk holds at most: a chunk is at
+                                       // most XL_CHUNK_INT4 = 128 int4s, 2 or more a mask
+constexpr int kFlush = 2;              // set pairs a lane sums at once
+constexpr int kQueue = 128;            // a warp's pending set pairs: < kFlush * 32 + 32
+constexpr int kEnumMax = 64;           // set cells of a row that are listed, not probed
+constexpr int kProbe = 4;              // cells a lane probes at once
+constexpr int kFactors = 8;            // factor loads in flight a pair
+constexpr int kHeadBits = 21;          // a queue entry: header index | cell << kHeadBits
+static_assert((kQueue & (kQueue - 1)) == 0 && kQueue >= kFlush * 32 + 32 &&
+              kXlTileCells <= 1 << (31 - kHeadBits), "the queue's entries");
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_address(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(shared_address(bar)) : "memory");
+}
+
+// one arrival that also expects `bytes` of bulk copies on the barrier
+__device__ __forceinline__ void bar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(shared_address(bar)), "r"(bytes) : "memory");
+}
+
+// until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(shared_address(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from device memory into this block's shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(shared_address(dst)), "l"(src), "r"(bytes), "r"(shared_address(bar)) : "memory");
+}
+
+struct XlArgs {
+  const int32_t *pa_idx, *pb_idx, *alpha_words, *beta_words, *cells_off;
+  const int4* tiles;      // (orientation, p, q_lo, q_hi) per tile
+  const int4* prog;       // static factor program: per chunk its masks' headers, then factors
+  const int4* chunks;     // (image row, start, int4s, masks); column chunks first
+  const float2* grid;     // (sa + 1, sb + 1)
+  uint32_t* bits_a;       // (sa + 1, wb): bit c of word w of row a' is cell (a', 32 w + c)
+  uint32_t* bits_b;       // (sb + 1, wa): bit i of word w of row b' is cell (32 w + i, b')
+  int *any_a, *any_b;     // 1 where a row of bits_a (bits_b) is not all clear; zero on entry
+  float2* out;            // (n_cells,) packed staircase cells
+  int n_tiles, n_chunks, n_col_chunks, sa, sb, wa, wb;
+};
+
+// The shared memory of one consumer warp's ring: per stage the descriptor of
+// its chunk (masks, image of p, start in the program, last) and its bitmap
+// row and mask headers (in dynamic shared memory), and the full and empty
+// barriers.
+struct XlRing {
+  int4 desc[kRing];
+  uint64_t full[kRing], empty[kRing];
+};
+
+// Phase 1: both occupancy bitmaps of the grid. A warp reads 32 x 32 cells,
+// 16 rows at a time (one ballot a row gives lane i the word of row a0 + i),
+// and transposes them with 32 more ballots (lane c the word of column b0 + c).
+// Every word of both bitmaps is written, the pad bits past sa and sb too.
+__device__ void xl_occupancy(const XlArgs& x) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int n_tasks = x.wa * x.wb;
+  for (int t = blockIdx.x * warps + (threadIdx.x >> 5); t < n_tasks; t += gridDim.x * warps) {
+    const int wa_i = t / x.wb, wb_i = t - wa_i * x.wb;
+    const int a0 = wa_i * 32, b = wb_i * 32 + lane;
+    uint32_t rw = 0;
+#pragma unroll
+    for (int i0 = 0; i0 < 32; i0 += 16) {
+      float2 v[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        v[i] = a0 + i0 + i <= x.sa && b <= x.sb
+                   ? __ldcs(x.grid + static_cast<size_t>(a0 + i0 + i) * (x.sb + 1) + b)
+                   : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const uint32_t w = __ballot_sync(kFull, v[i].x != 0.f || v[i].y != 0.f);
+        if (lane == i0 + i) rw = w;
+      }
+    }
+    uint32_t cw = 0;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const uint32_t w = __ballot_sync(kFull, (rw >> c) & 1u);
+      if (lane == c) cw = w;
+    }
+    if (a0 + lane <= x.sa) {
+      x.bits_a[static_cast<size_t>(a0 + lane) * x.wb + wb_i] = rw;
+      if (rw) x.any_a[a0 + lane] = 1;
+    }
+    if (b <= x.sb) {
+      x.bits_b[static_cast<size_t>(b) * x.wa + wa_i] = cw;
+      if (cw) x.any_b[b] = 1;
+    }
+  }
+}
+
+// The producer warp: for each tile of this block, in order, the chunks of the
+// tile's orientation whose image of the fixed index p has a bitmap row that
+// is not all clear are staged, the i-th of them into the ring of consumer warp
+// i % kXlWarps: that row and the chunk's mask headers, by two bulk copies
+// completing on the stage's full barrier. (The factors are read only for set
+// pairs, from device memory.) After the tile's chunks every ring gets a stage
+// marked last. Lane w keeps the count of stages sent to warp w; the next 32
+// chunks' descriptors and images are loaded while the current 32 are staged.
+__device__ void xl_produce(const XlArgs& x, uint32_t* rows, int4* heads, int row_words,
+                           XlRing* rings) {
+  const int lane = threadIdx.x & 31;
+  int sent = 0;   // lane w < kXlWarps: stages sent to consumer warp w
+  // the next stage of warp w: wait until it is free; returns its index
+  const auto take = [&](int w) {
+    const int k = __shfl_sync(kFull, sent, w);
+    const int st = k % kRing;
+    bar_wait(rings[w].empty + st, ((k / kRing) & 1) ^ 1);
+    if (lane == w) ++sent;
+    return st;
+  };
+  for (int b = blockIdx.x; b < x.n_tiles; b += gridDim.x) {
+    const int4 tile = __ldg(x.tiles + b);
+    const bool column = tile.x == 0;
+    const int p = tile.y;
+    const int sp = column ? x.sb : x.sa;            // the fixed index's spin
+    const int32_t* p_idx = column ? x.pb_idx : x.pa_idx;
+    const uint32_t* bits = column ? x.bits_b : x.bits_a;
+    const int src_words = column ? x.wa : x.wb;     // the words of one of its rows
+    const int* any = column ? x.any_b : x.any_a;
+    const int c_begin = column ? 0 : x.n_col_chunks;
+    const int c_end = column ? x.n_col_chunks : x.n_chunks;
+    // lane j's look at chunk c0 + j: its descriptor and its image of p
+    const auto look = [&](int c0, int4& ch, int& img) {
+      const int c = c0 + lane;
+      ch = make_int4(0, 0, 0, 0);
+      img = sp;
+      if (c < c_end) {
+        ch = __ldg(x.chunks + c);
+        img = __ldg(p_idx + static_cast<size_t>(ch.x) * sp + p);
+      }
+    };
+    int4 ch, ch_next;
+    int img, img_next, ord = 0;
+    look(c_begin, ch_next, img_next);
+    for (int c0 = c_begin; c0 < c_end; c0 += 32) {
+      ch = ch_next;
+      img = img_next;
+      const bool ok = c0 + lane < c_end && __ldcg(any + img) != 0;   // phase 1's: not __ldg
+      if (c0 + 32 < c_end) look(c0 + 32, ch_next, img_next);
+      for (unsigned left = __ballot_sync(kFull, ok); left; left &= left - 1, ++ord) {
+        const int j = __ffs(left) - 1;
+        const int start = __shfl_sync(kFull, ch.y, j);
+        const int masks = __shfl_sync(kFull, ch.w, j);
+        const int img_j = __shfl_sync(kFull, img, j);
+        const int w = ord % kXlWarps;
+        const int st = take(w);
+        if (lane == 0) {
+          const int slot = w * kRing + st;
+          const unsigned row_bytes = static_cast<unsigned>(src_words) * 4u;
+          const unsigned head_bytes = static_cast<unsigned>(masks) * 16u;
+          rings[w].desc[st] = make_int4(masks, img_j, start, 0);
+          bar_arrive_tx(rings[w].full + st, row_bytes + head_bytes);
+          bulk_copy(rows + static_cast<size_t>(slot) * row_words,
+                    bits + static_cast<size_t>(img_j) * src_words, row_bytes, rings[w].full + st);
+          bulk_copy(heads + static_cast<size_t>(slot) * kChunkHeads, x.prog + start, head_bytes,
+                    rings[w].full + st);
+        }
+      }
+    }
+    for (int w = 0; w < kXlWarps; ++w) {   // the tile's end
+      const int st = take(w);
+      if (lane == 0) {
+        rings[w].desc[st] = make_int4(0, 0, 0, 1);
+        bar_arrive(rings[w].full + st);
+      }
+    }
+  }
+}
+
+// The consumer warps. Warp w takes the chunks of its ring, in order, and adds
+// their masks' terms into its own sums of every cell of the tile (acc_w,
+// shared memory); at the tile's end the warps' sums of a cell are added in
+// warp order. For each mask of a chunk the warp lists the pairs whose grid
+// cell is set, in one of two ways, chosen per chunk from its staged bitmap
+// row (the cells (image of p, .) of the grid):
+// * the row holds at most kEnumMax set cells and not the pad cell: each set
+//   cell q' of the row is an image of the cell q = q_idx[g, q'] under the
+//   mask's flip (a flip is its own inverse), which is a pair of the tile when
+//   q lies in [q_lo, q_hi). The work follows the set cells;
+// * otherwise every cell q of the tile probes bit q_idx[g, q] of the row.
+// The pairs join the warp's queue in mask order, each as (the mask's header in
+// the program, the cell, the grid cell); every kFlush * 32 of them, and at the
+// tile's end, they are summed with kFlush pairs a lane: H by the mask's
+// factors, T from the grid, H * T added to the cell's sum in queue order
+// (lanes of one cell add in lane order). So each cell adds its masks in a
+// fixed order, with no atomics.
+__device__ void xl_consume(const XlArgs& x, const uint32_t* rows, const int4* heads,
+                           int row_words, XlRing* ring, float2* acc, int2* queue,
+                           float4* contrib, int* bit_list) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  float2* acc_w = acc + warp * kXlTileCells;
+  int2* queue_w = queue + warp * kQueue;
+  float4* contrib_w = contrib + warp * 32;
+  int* list_w = bit_list + warp * kEnumMax;
+  int got = 0;   // stages taken from the ring
+  for (int b = blockIdx.x; b < x.n_tiles; b += gridDim.x) {
+    const int4 tile = __ldg(x.tiles + b);
+    const bool column = tile.x == 0;
+    const int p = tile.y, q_lo = tile.z, n_q = tile.w - tile.z;
+    const int sq = column ? x.sa : x.sb;            // the cells' spin
+    const int q_words_n = column ? x.wa : x.wb;     // words of a staged row
+    const int32_t* q_idx = column ? x.pa_idx : x.pb_idx;
+    const int32_t* q_words = column ? x.alpha_words : x.beta_words;
+    const int pw = __ldg((column ? x.beta_words : x.alpha_words) + p);
+    for (int c = lane; c < kXlTileCells; c += 32) acc_w[c] = make_float2(0.f, 0.f);
+    int head = 0, count = 0;   // the queue's pending pairs, the same in every lane
+
+    // sums queue entries head .. head + k - 1 (k <= kFlush * 32): each lane
+    // loads kFlush of them, then they are added 32 at a time in queue order
+    const auto flush = [&](int k) {
+      float h[kFlush];
+      float2 t[kFlush];
+      int cell[kFlush];
+#pragma unroll
+      for (int i = 0; i < kFlush; ++i) {
+        const int at = i * 32 + lane;
+        h[i] = 0.f;
+        t[i] = make_float2(0.f, 0.f);
+        cell[i] = -1;
+        if (at < k) {
+          const int2 e = queue_w[(head + at) & (kQueue - 1)];
+          cell[i] = e.x >> kHeadBits;
+          t[i] = __ldg(x.grid + e.y);
+          const int4* hp = x.prog + (e.x & ((1 << kHeadBits) - 1));
+          const int4 hd = __ldg(hp);   // (row of the cells' map, factors, mask, to the factors)
+          const int cw = __ldg(q_words + q_lo + cell[i]);
+          for (int r0 = 0; r0 < hd.y; r0 += kFactors) {
+            int4 f[kFactors];
+#pragma unroll
+            for (int r = 0; r < kFactors; ++r)
+              f[r] = r0 + r < hd.y ? __ldg(hp + hd.w + r0 + r) : make_int4(0, 0, 0, 0);
+#pragma unroll
+            for (int r = 0; r < kFactors; ++r)   // a pad factor adds +0
+              h[i] += signed_by_parity(f[r].z, (cw & f[r].x) ^ (pw & f[r].y));
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kFlush; ++i) {
+        if (i * 32 >= k) break;
+        contrib_w[lane] = make_float4(h[i], t[i].x, t[i].y, 0.f);
+        const unsigned peers = __match_any_sync(kFull, cell[i] >= 0 ? cell[i] : kXlTileCells + lane);
+        __syncwarp();
+        if (cell[i] >= 0 && lane == __ffs(peers) - 1) {
+          float2 a = acc_w[cell[i]];
+          for (unsigned left = peers; left; left &= left - 1) {
+            const float4 c = contrib_w[__ffs(left) - 1];
+            a.x = fmaf(c.x, c.y, a.x);
+            a.y = fmaf(c.x, c.z, a.y);
+          }
+          acc_w[cell[i]] = a;
+        }
+        __syncwarp();
+      }
+      head += k;
+      count -= k;
+    };
+    // queues the pair (mask whose header is prog[hd_at], cell, grid cell at)
+    // of each lane with `hit`; sums kFlush * 32 when as many are pending
+    const auto push = [&](bool hit, int hd_at, int cell, int at) {
+      const unsigned who = __ballot_sync(kFull, hit);
+      if (hit)
+        queue_w[(head + count + __popc(who & below)) & (kQueue - 1)] =
+            make_int2(hd_at | (cell << kHeadBits), at);
+      count += __popc(who);
+      __syncwarp();
+      if (count >= kFlush * 32) flush(kFlush * 32);
+    };
+
+    for (;;) {
+      const int st = got % kRing;
+      bar_wait(ring->full + st, (got / kRing) & 1);
+      ++got;
+      const int4 d = ring->desc[st];   // (masks, image of p, start in the program, last)
+      if (d.w) {
+        __syncwarp();
+        if (lane == 0) bar_arrive(ring->empty + st);
+        break;
+      }
+      const int slot = warp * kRing + st;
+      const uint32_t* row = rows + static_cast<size_t>(slot) * row_words;
+      const int4* hs = heads + static_cast<size_t>(slot) * kChunkHeads;
+      const int img = d.y;
+      // grid cell of (image q' of the cell, image of p)
+      const auto at = [&](int qi) {
+        return column ? qi * (x.sb + 1) + img : img * (x.sb + 1) + qi;
+      };
+      int mine = 0;
+      for (int w = lane; w < q_words_n; w += 32) mine += __popc(row[w]);
+      const int n_set = __reduce_add_sync(kFull, mine);
+      const bool pad = (row[sq >> 5] >> (sq & 31)) & 1u;
+      if (n_set <= kEnumMax && !pad) {
+        int pos = mine;   // exclusive prefix of the lanes' counts
+#pragma unroll
+        for (int dd = 1; dd < 32; dd <<= 1) {
+          const int v = __shfl_up_sync(kFull, pos, dd);
+          if (lane >= dd) pos += v;
+        }
+        pos -= mine;
+        for (int w = lane; w < q_words_n; w += 32)
+          for (uint32_t bits = row[w]; bits; bits &= bits - 1)
+            list_w[pos++] = w * 32 + __ffs(bits) - 1;
+        __syncwarp();
+        // every (mask, set cell) of the chunk, mask-major, 32 at a time: the
+        // map lookups of a round are in flight together
+        const int n_e = d.x * n_set;
+        for (int e0 = 0; e0 < n_e; e0 += 32) {
+          const int e = e0 + lane;
+          int m = 0, a = 0, t = -1;
+          if (e < n_e) {
+            m = e / n_set;
+            a = list_w[e - m * n_set];
+            t = __ldg(q_idx + static_cast<size_t>(hs[m].x) * sq + a) - q_lo;
+          }
+          const bool hit = t >= 0 && t < n_q;
+          push(hit, d.z + m, hit ? t : 0, at(a));
+        }
+      } else {
+        for (int m = 0; m < d.x; ++m) {   // kProbe map lookups a lane in flight
+          const int32_t* map = q_idx + static_cast<size_t>(hs[m].x) * sq;
+          for (int c0 = 0; c0 < n_q; c0 += 32 * kProbe) {
+            int qi[kProbe];
+#pragma unroll
+            for (int j = 0; j < kProbe; ++j) {
+              const int c = c0 + 32 * j + lane;
+              qi[j] = c < n_q ? __ldg(map + q_lo + c) : sq;
+            }
+#pragma unroll
+            for (int j = 0; j < kProbe; ++j) {
+              const int c = c0 + 32 * j + lane;
+              push(c < n_q && ((row[qi[j] >> 5] >> (qi[j] & 31)) & 1u), d.z + m, c, at(qi[j]));
+            }
+          }
+        }
+      }
+      __syncwarp();   // the row, headers and list are read before the stage is freed
+      if (lane == 0) bar_arrive(ring->empty + st);
+    }
+    while (count > 0) flush(count < kFlush * 32 ? count : kFlush * 32);
+    // every consumer warp's sums are complete: add them in warp order
+    asm volatile("bar.sync 1, %0;" ::"r"(kXlWarps * 32) : "memory");
+    for (int c = threadIdx.x; c < n_q; c += kXlWarps * 32) {
+      float2 sum = acc[c];
+      for (int w = 1; w < kXlWarps; ++w) {
+        const float2 v = acc[w * kXlTileCells + c];
+        sum.x += v.x;
+        sum.y += v.y;
+      }
+      const int ra = column ? q_lo + c : p;
+      const int rb = column ? p : q_lo + c;
+      x.out[__ldg(x.cells_off + ra) + rb] = sum;
+    }
+    asm volatile("bar.sync 1, %0;" ::"r"(kXlWarps * 32) : "memory");   // before they are cleared
+  }
+}
+
+// One cooperative launch: phase 1 (both bitmaps), one grid-wide barrier, then
+// every block walks the tiles b, b + gridDim.x, ... with its producer warp and
+// kXlWarps consumer warps.
+__global__ void __launch_bounds__(kXlThreads) xl_grid_accumulate_kernel(const XlArgs x) {
+  extern __shared__ int4 xl_smem[];
+  __shared__ XlRing rings[kXlWarps];
+  __shared__ int2 queue[kXlWarps * kQueue];
+  __shared__ float4 contrib[kXlWarps * 32];
+  __shared__ int bit_list[kXlWarps * kEnumMax];
+  const int row_words = x.wa > x.wb ? x.wa : x.wb;
+  int4* heads = xl_smem;
+  float2* acc = reinterpret_cast<float2*>(heads + kXlWarps * kRing * kChunkHeads);
+  uint32_t* rows = reinterpret_cast<uint32_t*>(acc + kXlWarps * kXlTileCells);
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kXlWarps; ++w)
+      for (int i = 0; i < kRing; ++i) {
+        bar_init(rings[w].full + i, 1);
+        bar_init(rings[w].empty + i, 1);
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  xl_occupancy(x);
+  // the bitmaps' words, stored through the generic proxy, are read by bulk copies
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+  cooperative_groups::this_grid().sync();
+  if (threadIdx.x >> 5 == kXlWarps) {
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    xl_produce(x, rows, heads, row_words, rings);
+  } else {
+    xl_consume(x, rows, heads, row_words, rings + (threadIdx.x >> 5), acc, queue, contrib,
+               bit_list);
+  }
+}
+
 dim3 cell_blocks(int sa, int sb, int cells_per_block) {
   return dim3(static_cast<unsigned>(sb),
               static_cast<unsigned>((sa + cells_per_block - 1) / cells_per_block));
@@ -538,47 +914,62 @@ extern "C" int dense_grid_accumulate(const void* r1_idx, const void* row_map,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int xl_grid_accumulate(const void* ga, const void* gb, const void* pa_idx,
-                                  const void* pb_idx, const void* alpha_words,
-                                  const void* beta_words, const void* ya_words,
-                                  const void* yb_words, const void* par_a, const void* par_b,
-                                  const void* fa_idx, const void* fb_idx, const void* fcoeff,
-                                  const void* n_fact, const void* cells_off, const void* tiles,
-                                  const void* grid, const void* grid_t, void* out, int n_masks,
-                                  int n_slots, int sa, int sb, int n_tiles, int tile_cells,
-                                  void* stream) {
-  // a block of tile_cells / kCells threads, a whole number of warps, covers a tile
-  const int threads = tile_cells / kCells;
-  if (tile_cells % (kCells * 32) != 0 || threads > kMaxThreads || n_tiles < 0)
+// words of a bitmap row of n bits: whole 16-byte pieces, for the bulk copies
+int xl_row_words(int n_bits) { return (n_bits + 127) / 128 * 4; }
+
+extern "C" int xl_grid_accumulate(const void* pa_idx, const void* pb_idx,
+                                  const void* alpha_words, const void* beta_words,
+                                  const void* cells_off, const void* tiles, const void* prog,
+                                  const void* chunks, const void* grid, void* bits_a,
+                                  void* bits_b, void* any_a, void* any_b, void* out, int n_tiles,
+                                  int n_chunks, int n_col_chunks, int n_prog, int sa, int sb,
+                                  int tile_cells, void* stream) {
+  // a tile is at most what the consumer warps own
+  if (tile_cells != kXlTileCells || n_tiles < 0 || n_col_chunks < 0 ||
+      n_col_chunks > n_chunks || n_prog >= 1 << kHeadBits ||
+      static_cast<int64_t>(sa + 1) * (sb + 1) >= INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
-  XlProgram x;
-  x.ga = static_cast<const int32_t*>(ga);
-  x.gb = static_cast<const int32_t*>(gb);
+  XlArgs x;
   x.pa_idx = static_cast<const int32_t*>(pa_idx);
   x.pb_idx = static_cast<const int32_t*>(pb_idx);
   x.alpha_words = static_cast<const int32_t*>(alpha_words);
   x.beta_words = static_cast<const int32_t*>(beta_words);
-  x.ya_words = static_cast<const int32_t*>(ya_words);
-  x.yb_words = static_cast<const int32_t*>(yb_words);
-  x.par_a = static_cast<const float*>(par_a);
-  x.par_b = static_cast<const float*>(par_b);
-  x.fa_idx = static_cast<const int32_t*>(fa_idx);
-  x.fb_idx = static_cast<const int32_t*>(fb_idx);
-  x.fcoeff = static_cast<const float*>(fcoeff);
-  x.n_fact = static_cast<const int32_t*>(n_fact);
   x.cells_off = static_cast<const int32_t*>(cells_off);
   x.tiles = static_cast<const int4*>(tiles);
+  x.prog = static_cast<const int4*>(prog);
+  x.chunks = static_cast<const int4*>(chunks);
   x.grid = static_cast<const float2*>(grid);
-  x.grid_t = static_cast<const float2*>(grid_t);
+  x.bits_a = static_cast<uint32_t*>(bits_a);
+  x.bits_b = static_cast<uint32_t*>(bits_b);
+  x.any_a = static_cast<int*>(any_a);
+  x.any_b = static_cast<int*>(any_b);
   x.out = static_cast<float2*>(out);
-  x.n_masks = n_masks;
-  x.n_slots = n_slots;
+  x.n_tiles = n_tiles;
+  x.n_chunks = n_chunks;
+  x.n_col_chunks = n_col_chunks;
   x.sa = sa;
   x.sb = sb;
-  const size_t smem = sizeof(int2) * kTile * static_cast<size_t>(n_slots + 1);
-  xl_grid_accumulate_kernel<<<n_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(x);
-  return static_cast<int>(cudaGetLastError());
+  x.wa = xl_row_words(sa + 1);
+  x.wb = xl_row_words(sb + 1);
+  const int row_words = x.wa > x.wb ? x.wa : x.wb;
+  const int smem = static_cast<int>(sizeof(int4)) * kXlWarps * kRing * kChunkHeads +
+                   static_cast<int>(sizeof(float2)) * kXlWarps * kXlTileCells +
+                   4 * kXlWarps * kRing * row_words;
+  cudaError_t rc = cudaFuncSetAttribute(xl_grid_accumulate_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // as many blocks as the card holds at once: a cooperative launch may not ask for more
+  int device = 0, per_sm = 0, sms = 0;
+  if (rc == cudaSuccess) rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, xl_grid_accumulate_kernel,
+                                                       kXlThreads, smem);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  void* params[] = {&x};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(xl_grid_accumulate_kernel), dim3(per_sm * sms),
+      dim3(kXlThreads), params, smem, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* grid_engine_error_string(int code) {

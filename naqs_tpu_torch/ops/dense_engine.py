@@ -47,6 +47,7 @@ import torch
 
 from naqs_tpu_torch.ops.grid_kernels import CHUNK_TERMS as _CHUNK_TERMS
 from naqs_tpu_torch.ops.grid_kernels import FACT_CHUNK_PAIRS as _FACT_CHUNK_PAIRS
+from naqs_tpu_torch.ops.grid_kernels import XL_CHUNK_INT4 as _XL_CHUNK_INT4
 from naqs_tpu_torch.ops.grid_kernels import XL_TILE_CELLS as _XL_TILE_CELLS
 from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, factored_grid_accumulate,
                                              xl_grid_accumulate)
@@ -299,6 +300,61 @@ def _xl_tiles(width: np.ndarray, b_cum: np.ndarray, e_max: int, tile_cells: int)
     return np.asarray(rows, np.int32).reshape(-1, 4)
 
 
+def _xl_program(ga, gb, fa_idx, fb_idx, fcoeff, n_fact, ya_words, yb_words, max_run):
+    """The kernel's static factor program for both tile orientations: (prog
+    (P, 4) int32, chunks (C, 4) int32, the number of column chunks, which come
+    first). Per orientation the masks with factors run in the order (row of
+    the fixed spin's image map, mask): gb for column tiles (rb fixed), ga for
+    row tiles (ra fixed), so masks that share an image of the fixed index are
+    neighbours. They are cut into chunks of one map row and at most max_run
+    int4s, (row, start, int4s, masks); a chunk holds its masks' headers (row
+    of the cells' image map, factor count, mask, offset of its factors from
+    the header), then their factors (the cells' spin's sign word, the fixed spin's
+    sign word, the coefficient's bits, 0): H_k at (ra, rb) is the sum of the
+    coefficients, each with its sign flipped by the parity of both words
+    against the cell's."""
+    coef = np.ascontiguousarray(fcoeff).view(np.int32)
+    blocks, chunks, n_col, pos = [], [], 0, 0
+    orients = ((gb, ga, fa_idx, ya_words, fb_idx, yb_words),   # column tiles
+               (ga, gb, fb_idx, yb_words, fa_idx, ya_words))   # row tiles
+
+    def close(cur):
+        row, masks = cur
+        heads = np.zeros((len(masks), 4), np.int32)
+        facs = []
+        off = len(masks)
+        for i, (g_q, k, f) in enumerate(masks):
+            heads[i] = g_q, len(f), k, off - i
+            facs.append(f)
+            off += len(f)
+        blocks.extend([heads] + facs)
+        chunks.append((row, pos, off, len(masks)))
+        return pos + off
+
+    for orient, (g_fix, g_cell, f_cell, y_cell, f_fix, y_fix) in enumerate(orients):
+        cur, used = None, 0
+        for k in np.lexsort((np.arange(len(g_fix)), g_fix)):
+            nf = int(n_fact[k])
+            if nf == 0:
+                continue
+            f = np.zeros((nf, 4), np.int32)
+            f[:, 0] = y_cell[f_cell[k, :nf]]
+            f[:, 1] = y_fix[f_fix[k, :nf]]
+            f[:, 2] = coef[k, :nf]
+            if cur is None or cur[0] != g_fix[k] or used + 1 + nf > max_run:
+                if cur is not None:
+                    pos = close(cur)
+                cur, used = (int(g_fix[k]), []), 0
+            cur[1].append((int(g_cell[k]), int(k), f))
+            used += 1 + nf
+        if cur is not None:
+            pos = close(cur)
+        if orient == 0:
+            n_col = len(chunks)
+    prog = np.concatenate(blocks) if blocks else np.zeros((0, 4), np.int32)
+    return prog, np.asarray(chunks, np.int32).reshape(-1, 4), n_col
+
+
 @dataclass(frozen=True)
 class FactorTermsXL:
     """Factored grid program on the staircase of an n_exc_max-filtered sector.
@@ -312,7 +368,8 @@ class FactorTermsXL:
     reads the zero pad row or column (psi = 0 there); a sampled state inside
     the rectangle but outside the staircase is read as sampled, as the JAX
     package does. Fields as in JAX's FactorTermsXL; beside them the flat
-    program the kernel reads."""
+    program (masks' image rows, factor lists, word tables), the kernel's
+    tiles and its static program built from the flat one (`_xl_program`)."""
 
     perm_a: torch.Tensor     # (Sa_full+1,) int32 colex rank -> blocked idx | Sa*
     perm_b: torch.Tensor     # (Sb_full+1,) int32
@@ -330,7 +387,7 @@ class FactorTermsXL:
     b_fb: tuple              # (G, gsz, R) int32 rows of par_b (0 pad)
     b_fc: tuple              # (G, gsz, R) f32 coefficients (0 pad: no-op)
     b_pneed: tuple           # per bucket, per alpha block: the beta prefix its reads need
-    # beside the JAX package's fields, for the kernel:
+    # beside the JAX package's fields, the flat program the kernel's is built from:
     ga: torch.Tensor         # (Kxy,) int32 row of pa_idx of each mask
     gb: torch.Tensor         # (Kxy,) int32 row of pb_idx
     fa_idx: torch.Tensor     # (Kxy, R) int32 rows of par_a / ya_words
@@ -341,7 +398,10 @@ class FactorTermsXL:
     beta_words: torch.Tensor   # (Sb*,) int32
     ya_words: torch.Tensor   # (Kya,) int32: par_a[j, ra] = (-1)^popc(alpha_words[ra] & ya_words[j])
     yb_words: torch.Tensor   # (Kyb,) int32
-    tiles: torch.Tensor      # (n_tiles, 4) int32 the kernel's blocks (`_xl_tiles`)
+    tiles: torch.Tensor      # (n_tiles, 4) int32 the kernel's tiles (`_xl_tiles`)
+    prog: torch.Tensor       # (P, 4) int32 the kernel's static factor program (`_xl_program`)
+    chunks: torch.Tensor     # (C, 4) int32 its chunks: (image row, start, int4s, masks)
+    n_col_chunks: int        # chunks of column tiles (the first ones)
     sa: int                  # Sa* (kept alpha combinations)
     sb: int                  # Sb*
     sa_full: int
@@ -394,6 +454,9 @@ class FactorTermsXL:
                            for f in ub])
         a_words, b_words = alpha_packed[a_sel], beta_packed[b_sel]
         fa_idx, fb_idx, fcoeff, n_fact, uya, uyb = _flat_factors(terms, s)
+        prog, chunks, n_col_chunks = _xl_program(ga, gb, fa_idx, fb_idx, fcoeff, n_fact,
+                                                 uya.astype(np.int32), uyb.astype(np.int32),
+                                                 _XL_CHUNK_INT4)
         par_a = np_parity_pm1(a_words[None, :] & uya[:, None]).astype(np.float32)
         par_b = np_parity_pm1(b_words[None, :] & uyb[:, None]).astype(np.float32)
 
@@ -446,7 +509,8 @@ class FactorTermsXL:
             fb_idx=put(fb_idx), fcoeff=put(fcoeff), n_fact=put(n_fact.astype(np.int32)),
             alpha_words=put(a_words.astype(np.int32)), beta_words=put(b_words.astype(np.int32)),
             ya_words=put(uya.astype(np.int32)), yb_words=put(uyb.astype(np.int32)),
-            tiles=put(_xl_tiles(width, b_cum, e, _XL_TILE_CELLS)),
+            tiles=put(_xl_tiles(width, b_cum, e, _XL_TILE_CELLS)), prog=put(prog),
+            chunks=put(chunks), n_col_chunks=n_col_chunks,
             sa=sa, sb=sb, sa_full=len(alpha_packed), sb_full=len(beta_packed),
             blocks=blocks, n_cells=n_cells)
 

@@ -27,11 +27,16 @@ gather R1t rows by `row_map`, build H (per chunk of masks) and contract. There
 is no fallback from one to the other. `<wrapper>.launches` counts kernel
 launches.
 
-The kernels read T straight from the grid (transposed by the wrapper, so a
-block's reads for one mask fall into one row) and never build R1t. The
-factored kernel does not read `par_a` either: it computes the sign
-(-1)^popcount(alpha_words[ra] & ya_words[fa]) from the program's two word
-tables, which `FactorTerms.build` keeps beside the JAX package's fields.
+The factored and dense kernels read T straight from the grid (transposed by
+the wrapper, so a block's reads for one mask fall into one row) and never
+build R1t. The factored kernel does not read `par_a` either: it computes the
+sign (-1)^popcount(alpha_words[ra] & ya_words[fa]) from the program's two word
+tables, which `FactorTerms.build` keeps beside the JAX package's fields. The
+XL kernel reads the grid as it is: its first phase packs the set cells into
+two occupancy bitmaps (`xl_occupancy_ref` is their plain version), and it
+runs a pair's T load and factor loop only where the pair's grid cell is set
+(a clear cell adds exactly zero), walking `FactorTermsXL.prog`, a static
+program of sign words and coefficients, in an order of its own.
 Each thread sums its cells' masks in index order with fused multiply-adds
 and builds H factor by factor, where the plain version builds H by a batched
 matrix product, so the two agree per cell within
@@ -62,9 +67,13 @@ FACT_CHUNK_PAIRS = 16
 
 GRID_ATOL = 1e-6   # of psi / max|psi| = 1: fp32 sums of up to Kxy terms near 0
 GRID_RTOL = 1e-5   # of sum_k |H_k| |T_k|: fp32 order, fma against mul + add
-# staircase cells one block of the XL kernel covers: 224 threads of 3 cells
-# (csrc/grid_engine.cu's kCells); FactorTermsXL.build cuts its tiles to it
+# staircase cells one tile of the XL kernel covers: its 7 consumer warps of 32
+# lanes with 3 cells each (csrc/grid_engine.cu's kXlWarps, kCells);
+# FactorTermsXL.build cuts its tiles to it
 XL_TILE_CELLS = 672
+# int4s one chunk of the XL kernel's static program holds at most (a stage of
+# its rings holds a chunk's headers: csrc/grid_engine.cu's kChunkHeads)
+XL_CHUNK_INT4 = 128
 
 # full-fp32 products in the plain version: TF32 passes cost ~1e-3 Ha on E_loc
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -132,6 +141,28 @@ def xl_grid_accumulate_ref(fn, grid):
     return torch.cat([blk.transpose(0, 1).reshape(-1, 2) for blk in n_blocks])
 
 
+def _bit_words(occ):
+    """(R, C) bool -> (R, W) int32 bitmap rows, bit c of word w = column
+    32 w + c, W whole 16-byte pieces (csrc/grid_engine.cu's xl_row_words)."""
+    rows, cols = occ.shape
+    words = -(-cols // 128) * 4
+    bits = torch.nn.functional.pad(occ, (0, words * 32 - cols)).view(rows, words, 32)
+    w = (bits.to(torch.int64) << torch.arange(32, device=occ.device)).sum(-1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def xl_occupancy_ref(grid):
+    """Plain version of the XL kernel's first phase: the set cells of the
+    (Sa*+1, Sb*+1, 2) grid (either part nonzero) as (bits_a, bits_b, any_a,
+    any_b): bits_a (Sa*+1, Wb) int32, bit c of word w of row a' the cell
+    (a', 32 w + c); bits_b (Sb*+1, Wa) its transpose, bit i of word w of row b'
+    the cell (32 w + i, b'); any_a, any_b int32 1 where a row of either is not
+    all clear."""
+    occ = (grid != 0).any(-1)
+    return (_bit_words(occ), _bit_words(occ.t()), occ.any(1).to(torch.int32),
+            occ.any(0).to(torch.int32))
+
+
 def grid_tolerance(prog, grid):
     """Per-cell bound on |kernel - plain version| ((Sb, Sa, 2), or
     (n_cells, 2) for the staircase): the plain version run on absolute values
@@ -160,7 +191,7 @@ def _lib():
     lib = _build.load("grid_engine")
     lib.factored_grid_accumulate.argtypes = [_PTR] * 11 + [_INT] * 4 + [_PTR]
     lib.dense_grid_accumulate.argtypes = [_PTR] * 7 + [_INT] * 4 + [_PTR]
-    lib.xl_grid_accumulate.argtypes = [_PTR] * 19 + [_INT] * 6 + [_PTR]
+    lib.xl_grid_accumulate.argtypes = [_PTR] * 14 + [_INT] * 7 + [_PTR]
     lib.factored_grid_accumulate.restype = lib.dense_grid_accumulate.restype = _INT
     lib.xl_grid_accumulate.restype = _INT
     lib.grid_engine_error_string.argtypes = [_INT]
@@ -276,31 +307,45 @@ def dense_grid_accumulate(dn, grid: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _xl_launch(fn, grid):
+    """Launch the XL kernel on grid's current stream: (out, bits_a, bits_b,
+    any_a, any_b), the packed sums and the first phase's bitmaps as
+    `xl_occupancy_ref` gives them. Checks and counts nothing."""
+    sa, sb, dev = fn.sa, fn.sb, grid.device
+    words = lambda n: -(-n // 128) * 4
+    bits_a = torch.empty((sa + 1, words(sb + 1)), dtype=torch.int32, device=dev)
+    bits_b = torch.empty((sb + 1, words(sa + 1)), dtype=torch.int32, device=dev)
+    anys = torch.zeros(sa + sb + 2, dtype=torch.int32, device=dev)
+    out = torch.empty((fn.n_cells, 2), dtype=torch.float32, device=dev)
+    any_a, any_b = anys[:sa + 1], anys[sa + 1:]
+    _call("xl_grid_accumulate",
+          (fn.pa_idx, fn.pb_idx, fn.alpha_words, fn.beta_words, fn.cells_off, fn.tiles, fn.prog,
+           fn.chunks, grid, bits_a, bits_b, any_a, any_b, out),
+          (fn.tiles.shape[0], fn.chunks.shape[0], fn.n_col_chunks, fn.prog.shape[0], sa, sb,
+           XL_TILE_CELLS), dev)
+    return out, bits_a, bits_b, any_a, any_b
+
+
 def xl_grid_accumulate(fn, grid: torch.Tensor) -> torch.Tensor:
     """(n_cells, 2) f32 numerator of the staircase program `fn` (FactorTermsXL)
     on the packed staircase cells."""
     sa, sb = fn.sa, fn.sb
-    k, r = fn.fcoeff.shape
-    i32, f32 = torch.int32, torch.float32
-    ka, kb = fn.pa_idx.shape[0], fn.pb_idx.shape[0]
-    kya, kyb = fn.par_a.shape[0], fn.par_b.shape[0]
+    i32 = torch.int32
+    n_chunks = fn.chunks.shape[0]
     want = {
-        "ga": (fn.ga, i32, (k,)), "gb": (fn.gb, i32, (k,)),
-        "pa_idx": (fn.pa_idx, i32, (ka, sa)), "pb_idx": (fn.pb_idx, i32, (kb, sb)),
+        "pa_idx": (fn.pa_idx, i32, (fn.pa_idx.shape[0], sa)),
+        "pb_idx": (fn.pb_idx, i32, (fn.pb_idx.shape[0], sb)),
         "alpha_words": (fn.alpha_words, i32, (sa,)), "beta_words": (fn.beta_words, i32, (sb,)),
-        "ya_words": (fn.ya_words, i32, (kya,)), "yb_words": (fn.yb_words, i32, (kyb,)),
-        "par_a": (fn.par_a, f32, (kya, sa)), "par_b": (fn.par_b, f32, (kyb, sb)),
-        "fa_idx": (fn.fa_idx, i32, (k, r)), "fb_idx": (fn.fb_idx, i32, (k, r)),
-        "fcoeff": (fn.fcoeff, f32, (k, r)), "n_fact": (fn.n_fact, i32, (k,)),
         "cells_off": (fn.cells_off, i32, (sa + 1,)),
-        "tiles": (fn.tiles, i32, (fn.tiles.shape[0], 4))}
+        "tiles": (fn.tiles, i32, (fn.tiles.shape[0], 4)),
+        "prog": (fn.prog, i32, (fn.prog.shape[0], 4)), "chunks": (fn.chunks, i32, (n_chunks, 4))}
     _check("xl_grid_accumulate", grid, sa, sb, want)
+    if not 0 <= fn.n_col_chunks <= n_chunks:
+        raise ValueError(f"xl_grid_accumulate: n_col_chunks {fn.n_col_chunks} is not in "
+                         f"[0, {n_chunks}]")
     if grid.device.type == "cpu":
         return xl_grid_accumulate_ref(fn, grid)
-    grid_t = grid.transpose(0, 1).contiguous()   # column programs read one row per beta image
-    out = torch.empty((fn.n_cells, 2), dtype=f32, device=grid.device)
-    _call("xl_grid_accumulate", (*(t for t, _, _ in want.values()), grid, grid_t, out),
-          (k, r, sa, sb, fn.tiles.shape[0], XL_TILE_CELLS), grid.device)
+    out = _xl_launch(fn, grid)[0]
     xl_grid_accumulate.launches += 1
     return out
 

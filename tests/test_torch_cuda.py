@@ -35,7 +35,8 @@ from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTerm
 from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, dense_grid_accumulate_ref,
                                              factored_grid_accumulate,
                                              factored_grid_accumulate_ref, grid_tolerance,
-                                             xl_grid_accumulate, xl_grid_accumulate_ref)
+                                             xl_grid_accumulate, xl_grid_accumulate_ref,
+                                             xl_occupancy_ref, _xl_launch)
 from naqs_tpu_torch.ops.multinomial import (_GAUSS_VAR_MIN, _cascade, multinomial4_split,
                                             multinomial4_split_ref, split_draws)
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
@@ -317,8 +318,13 @@ def _staircase(name, e, dev):
 
 # N2 STO-3G at 2 and 4 excitations (caps forced: its sector would take the
 # dense program), and Li2O STO-3G CISDTQ (644,365 cells), the card's shape;
-# sampled grids hold staircase states and states of the rectangle outside it
-@pytest.mark.parametrize("fill", ["sampled", "full"])
+# sampled grids hold staircase states and states of the rectangle outside it.
+# Beside them: an all-zero grid (the sums exactly zero), one set cell, the
+# sampled grid with its Hartree-Fock cell set too (a cell that every single
+# and double flip of a staircase cell near it reaches, so one cell of the sums
+# gets many masks' terms), and every cell of the rectangle set (every row of
+# the bitmaps too full to list: the kernel probes every cell)
+@pytest.mark.parametrize("fill", ["sampled", "full", "zero", "one", "crowded"])
 @pytest.mark.parametrize("name,e", [("N2_STO-3G_gen", 2), ("N2_STO-3G_gen", 4),
                                     ("Li2O_STO-3G_gen", 4)])
 def test_xl_grid_kernel_matches_plain(name, e, fill, monkeypatch):
@@ -328,7 +334,7 @@ def test_xl_grid_kernel_matches_plain(name, e, fill, monkeypatch):
     terms, hil, prog = _staircase(name, e, dev)
     dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
     assert type(dt.dense).__name__ == "FactorTermsXL" and dt.dense.n_cells == prog.n_cells
-    if fill == "sampled":
+    if fill in ("sampled", "crowded"):
         from naqs_tpu_torch.utils.bits import SENTINEL
 
         rng = np.random.default_rng(5)
@@ -349,11 +355,17 @@ def test_xl_grid_kernel_matches_plain(name, e, fill, monkeypatch):
         t = lambda a: torch.as_tensor(a, device=dev)
         grid, _ = xl_value_grid(prog, RankSpec.for_hilbert(hil), t(s), t(la), t(ph),
                                 len(states))
-    else:   # every cell of the rectangle set, the pad row and column zero
+        if fill == "crowded":
+            grid[0, 0] = torch.tensor([1.0, 0.25], device=dev)
+    elif fill == "full":   # every cell of the rectangle set, the pad row and column zero
         gen = torch.Generator(device="cpu").manual_seed(3)
         grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2))
         grid[:-1, :-1] = torch.rand((prog.sa, prog.sb, 2), generator=gen) - 0.5
         grid = grid.to(dev)
+    else:
+        grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2), device=dev)
+        if fill == "one":
+            grid[1, 0] = torch.tensor([0.6, -0.8], device=dev)
     before = xl_grid_accumulate.launches
     got = xl_grid_accumulate(prog, grid)
     torch.cuda.synchronize()
@@ -362,8 +374,14 @@ def test_xl_grid_kernel_matches_plain(name, e, fill, monkeypatch):
     tol = grid_tolerance(prog, grid)
     assert got.shape == (prog.n_cells, 2) and bool(torch.isfinite(got).all())
     assert bool(((got - want).abs() <= tol).all()), float(((got - want).abs() / tol).max())
-    assert float(want.abs().max()) > 1e-3
+    if fill == "zero":
+        assert not bool(got.any())
+    else:
+        assert float(want.abs().max()) > 1e-3
     assert torch.equal(xl_grid_accumulate(prog, grid), got)   # fixed order, no atomics
+    # the first phase's bitmaps are the plain build's, bit for bit
+    for g, w in zip(_xl_launch(prog, grid)[1:], xl_occupancy_ref(grid)):
+        assert torch.equal(g, w)
 
 
 def test_xl_engine_matches_rank_engine_on_the_card(monkeypatch):
@@ -395,12 +413,19 @@ def test_xl_grid_kernel_rejects_bad_inputs():
                 lambda: xl_grid_accumulate(prog, wide),
                 lambda: xl_grid_accumulate(prog, grid.cpu()),
                 lambda: xl_grid_accumulate(prog, grid[:-1]),
-                lambda: xl_grid_accumulate(dataclasses.replace(prog, ga=prog.ga.long()), grid),
+                lambda: xl_grid_accumulate(dataclasses.replace(prog, prog=prog.prog.long()),
+                                           grid),
+                lambda: xl_grid_accumulate(dataclasses.replace(prog, chunks=prog.chunks[:, :3]),
+                                           grid),
+                lambda: xl_grid_accumulate(dataclasses.replace(prog, chunks=prog.chunks.cpu()),
+                                           grid),
+                lambda: xl_grid_accumulate(dataclasses.replace(
+                    prog, n_col_chunks=prog.chunks.shape[0] + 1), grid),
                 lambda: xl_grid_accumulate(dataclasses.replace(prog, tiles=prog.tiles.cpu()),
                                            grid),
                 lambda: xl_grid_accumulate(dataclasses.replace(prog, sb=prog.sb - 1), grid),
                 lambda: xl_grid_accumulate(dataclasses.replace(
-                    prog, fcoeff=prog.fcoeff.transpose(0, 1)), grid)):
+                    prog, pa_idx=prog.pa_idx.transpose(0, 1)), grid)):
         with pytest.raises(ValueError):
             bad()
 

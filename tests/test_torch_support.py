@@ -1,8 +1,9 @@
 """Shared inputs for the port's parity tests (no tests here).
 
 Molecules come from `naqs_tpu.chem.generate.generate_molecule_data` (H2,
-LiH and H2O STO-3G, a few seconds each) and from the checked-in H2O 6-31G folder,
-and are cached per process. Each `Case` holds the same molecule as seen by
+LiH and H2O STO-3G, a few seconds each), from the port's N2 STO-3G `.npz`
+(the same integrals for both packages) and from the checked-in H2O 6-31G
+folder, and are cached per process. Each `Case` holds the same molecule as seen by
 both packages: `*_j` objects are naqs_tpu (JAX), `*_t` objects
 naqs_tpu_torch.
 """
@@ -44,6 +45,10 @@ class Case:
 
 @lru_cache(maxsize=None)
 def fields(name: str) -> dict:
+    if name == "N2":
+        path = os.path.join(REPO, "naqs_tpu_torch", "data", "N2_STO-3G_gen.npz")
+        with np.load(path, allow_pickle=False) as z:
+            return {k: z[k].item() if z[k].ndim == 0 else z[k] for k in z.files}
     syms, pos = _GEOMETRIES[name]
     return generate_molecule_data(syms, np.asarray(pos), name=name)
 
@@ -63,7 +68,8 @@ def _jax_molecule(d: dict):
 
 @lru_cache(maxsize=None)
 def case(name: str) -> Case:
-    """'H2', 'LiH' or 'H2O' (STO-3G, generated), or 'H2O_6-31G' (checked in).
+    """'H2', 'LiH' or 'H2O' (STO-3G, generated), 'N2' (STO-3G, the port's
+    .npz) or 'H2O_6-31G' (checked in).
 
     For H2O 6-31G the port reads its own .npz and reuses the JAX package's
     Jordan-Wigner term dict (the two JW codes are compared in

@@ -379,8 +379,10 @@ def test_xl_wrapper_checks_its_inputs_and_counts_no_cpu_launch():
     for bad in (grid.double(), grid[:-1], grid[..., :1]):
         with pytest.raises(ValueError):
             gk.xl_grid_accumulate(prog, bad)
-    for field, value in (("ga", prog.ga.long()), ("tiles", prog.tiles[:, :3]),
-                         ("pb_idx", prog.pb_idx[:, :-1]), ("cells_off", prog.cells_off[:-1])):
+    for field, value in (("prog", prog.prog.long()), ("tiles", prog.tiles[:, :3]),
+                         ("pb_idx", prog.pb_idx[:, :-1]), ("cells_off", prog.cells_off[:-1]),
+                         ("chunks", prog.chunks[:, :3]),
+                         ("n_col_chunks", prog.chunks.shape[0] + 1), ("n_col_chunks", -1)):
         with pytest.raises(ValueError):
             gk.xl_grid_accumulate(dataclasses.replace(prog, **{field: value}), grid)
 
@@ -407,3 +409,256 @@ def test_cisd_ground_state_energy(force_xl, name):
                                 torch.as_tensor(ph), len(basis))
     e = float(np.sum(vec ** 2 * e_re.numpy()))
     assert abs(e - w[0]) < 5e-6, (e, w[0])
+
+
+# ------------------------------------- (h) the kernel's static program and schedule
+
+_progs = {}
+
+
+def _programs(name, e):
+    """(port FactorTermsXL, JAX FactorTermsXL, port Hilbert) at e
+    excitations, terms with at most e X/Y sites; cached per process."""
+    if (name, e) not in _progs:
+        _, h_t, h_j, t_t, t_j = _space(name, e)
+        _progs[name, e] = (de_t.FactorTermsXL.build(t_t, h_t, device="cpu"),
+                           de_j.FactorTermsXL.build(t_j, h_j), h_t)
+    return _progs[name, e]
+
+
+def _program_runs(prog):
+    """Per orientation (columns, rows), the runs of `prog.prog` in chunk
+    order: (chunk, row of the fixed spin's map, row of the cells' map, mask,
+    factors (n, 4) int32)."""
+    pg, ch = prog.prog.numpy(), prog.chunks.numpy()
+    runs = ([], [])
+    for c, (row, start, length, masks) in enumerate(ch):
+        off = masks
+        for i, (g_q, nf, k, f_off) in enumerate(pg[start:start + masks]):
+            assert i + f_off == off   # the factors follow the headers, mask by mask
+            runs[int(c >= prog.n_col_chunks)].append(
+                (c, row, g_q, k, pg[start + off:start + off + nf]))
+            off += nf
+        assert off == length and 0 < length <= gk.XL_CHUNK_INT4
+    return runs
+
+
+XL_SPACES = [(n, e) for n in ("LiH", "H2O", "N2") for e in (2, 4)]
+
+
+@pytest.mark.parametrize("name,e", XL_SPACES)
+def test_static_program_expands_to_the_jax_factors(name, e):
+    """For every mask, H_k over the rectangle's cells (all of them, or 400
+    random ones for N2) summed factor by factor in float64 from the static
+    program, its signs by the parity of both words against the cell's, equals
+    the same sum of fc * par_a * par_b from the JAX package's bucket fields,
+    in both orientations: each term is +-fc, so the sums agree exactly."""
+    prog_t, prog_j, _ = _programs(name, e)
+    sa, sb = prog_t.sa, prog_t.sb
+    rng = np.random.default_rng(7)
+    n = min(sa * sb, 400)
+    cells = rng.choice(sa * sb, n, replace=False) if n < sa * sb else np.arange(n)
+    ra, rb = cells // sb, cells % sb
+    par_a, par_b = np.asarray(prog_j.par_a), np.asarray(prog_j.par_b)
+    want = {}
+    for pa_row, pb_row, fa, fb, fc in zip(prog_j.b_pa_row, prog_j.b_pb_row, prog_j.b_fa,
+                                          prog_j.b_fb, prog_j.b_fc):
+        pa_row, pb_row, fa, fb, fc = map(np.asarray, (pa_row, pb_row, fa, fb, fc))
+        for c, g in enumerate(pa_row):
+            for i in np.flatnonzero(fc[c].any(axis=1)):
+                h = np.zeros(n)
+                for r in range(fc.shape[2]):
+                    h += (np.float64(fc[c, i, r]) * par_a[fa[c, i, r], ra].astype(np.float64)
+                          * par_b[fb[c, i, r], rb])
+                want[int(g), int(pb_row[c, i])] = h
+    aw, bw = prog_t.alpha_words.numpy(), prog_t.beta_words.numpy()
+    for orient, runs in enumerate(_program_runs(prog_t)):
+        cell_w, fix_w = (aw[ra], bw[rb]) if orient == 0 else (bw[rb], aw[ra])
+        got = {}
+        for _, row, g_q, _, f in runs:
+            coef = f[:, 2].copy().view(np.float32).astype(np.float64)
+            h = np.zeros(n)
+            for r in range(len(f)):
+                h += coef[r] * np_parity_pm1((cell_w & f[r, 0]) ^ (fix_w & f[r, 1]))
+            got[(int(g_q), int(row)) if orient == 0 else (int(row), int(g_q))] = h
+        assert got.keys() == want.keys()
+        for key, h in want.items():
+            np.testing.assert_array_equal(got[key], h, err_msg=str(key))
+
+
+@pytest.mark.parametrize("name,e", XL_SPACES)
+def test_static_program_orders_each_orientation(name, e):
+    """Each orientation lists every mask once (a permutation of the masks),
+    ordered by the row of the fixed spin's image map (gb for columns, ga for
+    rows) and then by mask; a chunk holds masks of one row; each header's
+    row of the cells' map is the mask's, and its factors are the mask's
+    slots in order."""
+    prog, _, _ = _programs(name, e)
+    ga, gb = prog.ga.numpy(), prog.gb.numpy()
+    fa, fb, fc = prog.fa_idx.numpy(), prog.fb_idx.numpy(), prog.fcoeff.numpy()
+    ya, yb = prog.ya_words.numpy(), prog.yb_words.numpy()
+    for orient, runs in enumerate(_program_runs(prog)):
+        g_fix, g_cell = (gb, ga) if orient == 0 else (ga, gb)
+        ks = np.array([k for _, _, _, k, _ in runs])
+        np.testing.assert_array_equal(np.sort(ks), np.arange(len(ga)))
+        np.testing.assert_array_equal(ks, np.lexsort((np.arange(len(ga)), g_fix)))
+        for c, row, g_q, k, f in runs:
+            assert row == g_fix[k] and g_q == g_cell[k] and len(f) == prog.n_fact[k]
+            y_cell, y_fix = (ya[fa[k]], yb[fb[k]]) if orient == 0 else (yb[fb[k]], ya[fa[k]])
+            np.testing.assert_array_equal(f[:, 0], y_cell[:len(f)])
+            np.testing.assert_array_equal(f[:, 1], y_fix[:len(f)])
+            np.testing.assert_array_equal(f[:, 2].copy().view(np.float32), fc[k, :len(f)])
+            assert not f[:, 3].any()
+    assert prog.chunks.numpy()[:prog.n_col_chunks, 0].tolist() == sorted(
+        prog.chunks.numpy()[:prog.n_col_chunks, 0].tolist())
+
+
+def _sampled_grid(name, e, seed):
+    """A sampled value grid of the rectangle with staircase states, states of
+    the rectangle outside the staircase and states outside it, SENTINEL rows
+    and stale values past n_valid."""
+    prog, _, h_t = _programs(name, e)
+    s, la, ph, kinds = _mixed_buffer(h_t, e, np.random.default_rng(seed))
+    m = len(kinds)
+    la[m:], ph[m:] = 0.7, 1.3
+    grid, _ = de_t.xl_value_grid(prog, RankSpec.for_hilbert(h_t), torch.as_tensor(s),
+                                 torch.as_tensor(la), torch.as_tensor(ph), m)
+    return prog, grid, kinds
+
+
+def _unpack(words, n):
+    """(R, W) int32 bitmap rows -> (R, n) bool, bit c of word w = column 32 w + c."""
+    u = words.numpy().view(np.uint32)
+    return ((u[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(len(u), -1)[:, :n] > 0
+
+
+@pytest.mark.parametrize("name,e", XL_SPACES)
+def test_occupancy_bitmaps_are_the_set_cells(name, e):
+    """The plain build of the kernel's first phase: bits_a is grid != 0 (either
+    part), bits_b its transpose, both padded to 16-byte rows with clear bits;
+    the pad row and column (where SENTINEL rows, dead rows and states outside
+    the rectangle land) are clear; any_a / any_b flag the rows that are not."""
+    prog, grid, kinds = _sampled_grid(name, e, 12)
+    sa, sb = prog.sa, prog.sb
+    bits_a, bits_b, any_a, any_b = gk.xl_occupancy_ref(grid)
+    occ = (grid != 0).any(-1).numpy()
+    assert occ.sum() == (kinds < 2).sum()   # every live state inside the rectangle, once
+    assert bits_a.shape == (sa + 1, -(-(sb + 1) // 128) * 4) and bits_a.dtype == torch.int32
+    assert bits_b.shape == (sb + 1, -(-(sa + 1) // 128) * 4) and bits_b.dtype == torch.int32
+    full_a, full_b = _unpack(bits_a, bits_a.shape[1] * 32), _unpack(bits_b, bits_b.shape[1] * 32)
+    np.testing.assert_array_equal(full_a[:, :sb + 1], occ)
+    np.testing.assert_array_equal(full_b[:, :sa + 1], occ.T)
+    assert not full_a[:, sb + 1:].any() and not full_b[:, sa + 1:].any()
+    assert not full_a[sa].any() and not full_a[:, sb].any()
+    assert not full_b[sb].any() and not full_b[:, sa].any()
+    np.testing.assert_array_equal(any_a.numpy(), occ.any(1))
+    np.testing.assert_array_equal(any_b.numpy(), occ.any(0))
+
+
+@pytest.mark.parametrize("name,e", XL_SPACES)
+def test_flip_maps_are_their_own_inverse(name, e):
+    """What the kernel's listing of a row's set cells rests on: for every
+    flip, pa_idx[g, pa_idx[g, ra]] = ra wherever the image lies in the
+    rectangle (and no other cell maps there); the same for pb_idx."""
+    prog, _, _ = _programs(name, e)
+    for idx, s in ((prog.pa_idx.numpy(), prog.sa), (prog.pb_idx.numpy(), prog.sb)):
+        for row in idx:
+            ok = row < s
+            np.testing.assert_array_equal(row[row[ok]], np.flatnonzero(ok))
+
+
+def _replay_kernel(prog, grid):
+    """The XL kernel's schedule in numpy (float64 sums): per tile, the chunks
+    of its orientation whose fixed image's bitmap row is not clear, each
+    either listing the row's set cells and mapping them back through the
+    mask's flip (at most 64 and no pad cell) or probing the tile's cells;
+    H from the static program. Returns (sums, pairs run, pairs listed)."""
+    bits_a, bits_b, any_a, any_b = gk.xl_occupancy_ref(grid)
+    g = grid.numpy().astype(np.float64)
+    pg, ch = prog.prog.numpy(), prog.chunks.numpy()
+    pa, pb = prog.pa_idx.numpy(), prog.pb_idx.numpy()
+    aw, bw = prog.alpha_words.numpy(), prog.beta_words.numpy()
+    sa, sb = prog.sa, prog.sb
+    out = np.zeros((prog.n_cells, 2))
+    n_pairs = n_listed = 0
+    for orient, p, lo, hi in prog.tiles.numpy():
+        column = orient == 0
+        sq, q_idx, q_w = (sa, pa, aw) if column else (sb, pb, bw)
+        p_idx, pw = (pb, bw[p]) if column else (pa, aw[p])
+        bits = _unpack(bits_b if column else bits_a, sq + 1)
+        anyf = (any_b if column else any_a).numpy()
+        acc = np.zeros((hi - lo, 2))
+        for c in range(*((0, prog.n_col_chunks) if column else (prog.n_col_chunks, len(ch)))):
+            row, start, _, masks = ch[c]
+            img = p_idx[row, p]
+            if not anyf[img]:
+                continue
+            set_q = np.flatnonzero(bits[img])
+            listed = len(set_q) <= 64 and sq not in set_q
+            for i, (g_q, nf, _, f_off) in enumerate(pg[start:start + masks]):
+                if listed:
+                    t = q_idx[g_q, set_q]
+                    hit = (t >= lo) & (t < hi)
+                    cells, qi = t[hit] - lo, set_q[hit]
+                    n_listed += len(cells)
+                else:
+                    qi_all = q_idx[g_q, lo:hi]
+                    cells = np.flatnonzero(bits[img, qi_all])
+                    qi = qi_all[cells]
+                f = pg[start + i + f_off:start + i + f_off + nf]
+                coef = f[:, 2].copy().view(np.float32).astype(np.float64)
+                cw = q_w[lo + cells]
+                h = (coef[None, :] * np_parity_pm1((cw[:, None] & f[None, :, 0])
+                                                   ^ (pw & f[None, :, 1]))).sum(1)
+                acc[cells] += h[:, None] * (g[qi, img] if column else g[img, qi])
+                n_pairs += len(cells)
+        q = np.arange(lo, hi)
+        ra, rb = (q, np.full_like(q, p)) if column else (np.full_like(q, p), q)
+        out[prog.cells_off.numpy()[ra] + rb] = acc
+    return out, n_pairs, n_listed
+
+
+def _fill(prog, grid, fill):
+    """Test grids beside the sampled one: all zero; one set cell (a staircase
+    cell near the Hartree-Fock corner); one cell that many masks reach
+    together with the sampled ones; every cell of the rectangle set."""
+    if fill == "sampled":
+        return grid
+    if fill == "zero":
+        return torch.zeros_like(grid)
+    if fill == "one":
+        out = torch.zeros_like(grid)
+        out[1, 0] = torch.tensor([0.6, -0.8])
+        return out
+    if fill == "crowded":   # the HF cell: every single and double flip reaches it
+        out = grid.clone()
+        out[0, 0] = torch.tensor([1.0, 0.25])
+        return out
+    gen = torch.Generator().manual_seed(3)
+    out = torch.zeros_like(grid)
+    out[:-1, :-1] = torch.rand((prog.sa, prog.sb, 2), generator=gen) - 0.5
+    return out
+
+
+@pytest.mark.parametrize("fill", ["sampled", "zero", "one", "crowded", "full"])
+@pytest.mark.parametrize("name,e", [("H2O", 2), ("H2O", 4), ("N2", 2)])
+def test_kernel_schedule_replay_matches_plain(name, e, fill):
+    """The kernel's schedule replayed in numpy (tiles, chunks of non-empty
+    rows, listed or probed set cells, H from the static program) gives the
+    plain version's sums within grid_tolerance; exactly zero on the zero
+    grid. The sampled grids run every row listed; the full grid of N2 runs
+    every row probed (its rows hold 85 set cells)."""
+    prog, grid, _ = _sampled_grid(name, e, 13)
+    grid = _fill(prog, grid, fill)
+    got, n_pairs, n_listed = _replay_kernel(prog, grid)
+    want = gk.xl_grid_accumulate(prog, grid).numpy()
+    tol = gk.grid_tolerance(prog, grid).numpy()
+    assert np.all(np.abs(got - want) <= tol), float((np.abs(got - want) / tol).max())
+    if fill == "zero":
+        assert n_pairs == 0 and not want.any() and not got.any()
+    else:
+        assert n_pairs > 0 and np.abs(want).max() > 1e-3
+    if fill in ("sampled", "one"):
+        assert n_listed == n_pairs
+    if fill == "full" and min(prog.sa, prog.sb) > 64:   # rows of more than 64 set cells
+        assert n_listed == 0

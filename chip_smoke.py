@@ -287,16 +287,16 @@ def _xl_sampled_work(fn, grid):
     schedule's counts and (bytes, operations). A pair (mask, staircase cell)
     is set where both images lie in the rectangle and its grid cell is set.
     Per tile the kernel stages the chunks of its orientation whose fixed
-    image's bitmap row is not clear (a bulk copy of the row and of the chunk's
-    program); a row of at most 64 set cells and no pad cell is listed (one
-    entry per set cell and mask), any other row probed (one per tile cell and
-    mask). Bytes: the grid, every map, word table and the program once, the
+    image's bitmap row is not clear (a bulk copy of the row and, for a chunk of
+    more than one mask, of its headers); a row of at most XL_LIST_MAX set cells
+    and no pad cell is listed (one entry per set cell and mask), any other row
+    probed (one per tile cell and mask). Bytes: the grid, every map, word table and the program once, the
     packed output once. Operations: one per grid cell (is it set), one per
     listed entry or probe, per set pair 2 fused multiply-adds and 2 per
     factor of its mask (the sign and the add)."""
     import torch
 
-    from naqs_tpu_torch.ops.grid_kernels import xl_occupancy_ref
+    from naqs_tpu_torch.ops.grid_kernels import XL_LIST_MAX, xl_occupancy_ref
 
     occ = (grid != 0).any(-1)
     sa, sb = fn.sa, fn.sb
@@ -322,9 +322,10 @@ def _xl_sampled_work(fn, grid):
         img = p_idx[ch[:, 0]][:, tl[:, 1]].long()               # (chunks, tiles)
         on = anyf[img] > 0
         staged += int(on.sum())
-        staged_bytes += int((on * (row_bytes[orient] + 16 * ch[:, 2:3])).sum())
-        is_listed = (n_rows[img] <= 64) & ~pad[img]
-        per = ch[:, 3:4] * on
+        masks = ch[:, 2:3]       # a chunk of one mask stages no headers
+        staged_bytes += int((on * (row_bytes[orient] + 16 * masks * (masks > 1))).sum())
+        is_listed = (n_rows[img] <= XL_LIST_MAX) & ~pad[img]
+        per = masks * on
         listed += int((per * is_listed * n_rows[img]).sum())
         probed += int((per * ~is_listed * (tl[:, 3] - tl[:, 2])[None, :]).sum())
     tables = [fn.pa_idx, fn.pb_idx, fn.alpha_words, fn.beta_words, fn.cells_off, fn.tiles,

@@ -59,23 +59,27 @@
 //   by the row of the fixed spin's image map, each as a header and its
 //   factors (cells' sign word, fixed sign word, coefficient): a factor's sign
 //   is the parity of both words against the cell's, so no par_a or par_b is
-//   read. Its chunks are runs of one map row of at most 384 int4s.
+//   read. Its chunks are runs of one map row of at most 64 int4s.
 // * A producer warp stages, for each chunk whose image of the tile's fixed
-//   index has a non-clear bitmap row, that row and the chunk's program with
-//   two 1-D bulk copies (cp.async.bulk, complete_tx on the stage's full
-//   mbarrier) into a ring of three stages of up to 8 chunks; the consumer
-//   warps free a stage through its empty mbarrier. No __syncthreads per tile.
-// * Chunk i of a tile goes to consumer warp i % 7. Per mask it lists the
-//   set pairs: a row of at most 64 set cells (and no pad cell) is listed and
-//   each set cell q' mapped back by the mask's flip, q = map[q'] (a flip is
-//   its own inverse), kept when q lies in the tile; a fuller row (a fully set
-//   grid) is probed cell by cell. Set pairs join the warp's queue in mask
-//   order; 32 at a time, one a lane, each runs its factor loop and T load,
-//   and the lanes of one cell add their terms into the warp's sum of that cell
-//   in lane order (__match_any_sync), so no lane idles on a clear pair.
-// * Each cell's terms arrive in the static order (chunks, masks), and at the
-//   tile's end the 7 warps' sums of a cell are added in warp order: the same
-//   bits in every run, no atomics on a sum.
+//   index has a non-clear bitmap row, that row and the chunk's mask headers
+//   with two 1-D bulk copies (cp.async.bulk, complete_tx on the stage's full
+//   mbarrier; a chunk of one mask, the most common, needs no headers), chunk
+//   i into the ring of consumer warp i % 7, six stages deep; the warp frees a stage through its empty mbarrier. No
+//   __syncthreads per tile, and a warp that is busy summing holds up the
+//   others only once its ring is full. The factors are read from device
+//   memory for set pairs only.
+// * A consumer warp lists, per mask, the set pairs: a row of at most 64 set
+//   cells (and no pad cell) is listed and each set cell q' mapped back by
+//   the mask's flip, q = map[q'] (a flip is its own inverse), kept when q lies
+//   in the tile, the (mask, set cell) entries of a chunk looked up 32 at a
+//   time; a fuller row (a fully set grid) is probed cell by cell. Set pairs
+//   join the warp's queue in order; 64 at a time, two a lane, each runs its
+//   factor loop and T load, and the lanes of one cell add their terms into
+//   the warp's sum of that cell in lane order (__match_any_sync), so no lane
+//   idles on a clear pair.
+// * Each cell's terms arrive in the static order (chunks, masks),
+//   and at the tile's end the 7 warps' sums of a cell are added in warp
+//   order: the same bits in every run, no atomics on a sum.
 // What bounds it then: the bytes of the grid's one pass (204.5 MB, about
 // 0.06 ms), against a few million listed entries and 1.2 M set pairs.
 //
@@ -454,12 +458,13 @@ __global__ void __launch_bounds__(kDenseThreads) dense_grid_accumulate_kernel(
 constexpr int kXlWarps = 7;            // consumer warps
 constexpr int kXlThreads = (kXlWarps + 1) * 32;   // and one producer warp
 constexpr int kXlTileCells = 672;      // cells a tile holds at most (XL_TILE_CELLS)
-constexpr int kRing = 3;               // stages of a consumer warp's ring, one chunk each
-constexpr int kChunkHeads = 64;        // mask headers a chunk holds at most: a chunk is at
-                                       // most XL_CHUNK_INT4 = 128 int4s, 2 or more a mask
+constexpr int kRing = 6;               // stages of a consumer warp's ring, one chunk each
+constexpr int kChunkHeads = 32;        // mask headers a chunk holds at most: a chunk is at
+                                       // most XL_CHUNK_INT4 = 64 int4s, 2 or more a mask
 constexpr int kFlush = 2;              // set pairs a lane sums at once
 constexpr int kQueue = 128;            // a warp's pending set pairs: < kFlush * 32 + 32
 constexpr int kEnumMax = 64;           // set cells of a row that are listed, not probed
+                                       // (XL_LIST_MAX)
 constexpr int kProbe = 4;              // cells a lane probes at once
 constexpr int kFactors = 8;            // factor loads in flight a pair
 constexpr int kHeadBits = 21;          // a queue entry: header index | cell << kHeadBits
@@ -505,7 +510,8 @@ struct XlArgs {
   const int32_t *pa_idx, *pb_idx, *alpha_words, *beta_words, *cells_off;
   const int4* tiles;      // (orientation, p, q_lo, q_hi) per tile
   const int4* prog;       // static factor program: per chunk its masks' headers, then factors
-  const int4* chunks;     // (image row, start, int4s, masks); column chunks first
+  const int4* chunks;     // (image row, start, masks, first mask's cells' map row);
+                          // column chunks first
   const float2* grid;     // (sa + 1, sb + 1)
   uint32_t* bits_a;       // (sa + 1, wb): bit c of word w of row a' is cell (a', 32 w + c)
   uint32_t* bits_b;       // (sb + 1, wa): bit i of word w of row b' is cell (32 w + i, b')
@@ -618,27 +624,30 @@ __device__ void xl_produce(const XlArgs& x, uint32_t* rows, int4* heads, int row
       for (unsigned left = __ballot_sync(kFull, ok); left; left &= left - 1, ++ord) {
         const int j = __ffs(left) - 1;
         const int start = __shfl_sync(kFull, ch.y, j);
-        const int masks = __shfl_sync(kFull, ch.w, j);
+        const int masks = __shfl_sync(kFull, ch.z, j);
+        const int g_first = __shfl_sync(kFull, ch.w, j);
         const int img_j = __shfl_sync(kFull, img, j);
         const int w = ord % kXlWarps;
         const int st = take(w);
         if (lane == 0) {
           const int slot = w * kRing + st;
           const unsigned row_bytes = static_cast<unsigned>(src_words) * 4u;
-          const unsigned head_bytes = static_cast<unsigned>(masks) * 16u;
-          rings[w].desc[st] = make_int4(masks, img_j, start, 0);
+          // a chunk of one mask needs no headers: its map row rides in the descriptor
+          const unsigned head_bytes = masks > 1 ? static_cast<unsigned>(masks) * 16u : 0u;
+          rings[w].desc[st] = make_int4(masks, img_j, start, g_first);
           bar_arrive_tx(rings[w].full + st, row_bytes + head_bytes);
           bulk_copy(rows + static_cast<size_t>(slot) * row_words,
                     bits + static_cast<size_t>(img_j) * src_words, row_bytes, rings[w].full + st);
-          bulk_copy(heads + static_cast<size_t>(slot) * kChunkHeads, x.prog + start, head_bytes,
-                    rings[w].full + st);
+          if (head_bytes)
+            bulk_copy(heads + static_cast<size_t>(slot) * kChunkHeads, x.prog + start, head_bytes,
+                      rings[w].full + st);
         }
       }
     }
     for (int w = 0; w < kXlWarps; ++w) {   // the tile's end
       const int st = take(w);
       if (lane == 0) {
-        rings[w].desc[st] = make_int4(0, 0, 0, 1);
+        rings[w].desc[st] = make_int4(0, 0, 0, 0);   // no masks: the tile's end
         bar_arrive(rings[w].full + st);
       }
     }
@@ -751,8 +760,9 @@ __device__ void xl_consume(const XlArgs& x, const uint32_t* rows, const int4* he
       const int st = got % kRing;
       bar_wait(ring->full + st, (got / kRing) & 1);
       ++got;
-      const int4 d = ring->desc[st];   // (masks, image of p, start in the program, last)
-      if (d.w) {
+      // (masks, image of p, start in the program, the first mask's map row)
+      const int4 d = ring->desc[st];
+      if (d.x == 0) {
         __syncwarp();
         if (lane == 0) bar_arrive(ring->empty + st);
         break;
@@ -790,14 +800,14 @@ __device__ void xl_consume(const XlArgs& x, const uint32_t* rows, const int4* he
           if (e < n_e) {
             m = e / n_set;
             a = list_w[e - m * n_set];
-            t = __ldg(q_idx + static_cast<size_t>(hs[m].x) * sq + a) - q_lo;
+            t = __ldg(q_idx + static_cast<size_t>(m ? hs[m].x : d.w) * sq + a) - q_lo;
           }
           const bool hit = t >= 0 && t < n_q;
           push(hit, d.z + m, hit ? t : 0, at(a));
         }
       } else {
         for (int m = 0; m < d.x; ++m) {   // kProbe map lookups a lane in flight
-          const int32_t* map = q_idx + static_cast<size_t>(hs[m].x) * sq;
+          const int32_t* map = q_idx + static_cast<size_t>(m ? hs[m].x : d.w) * sq;
           for (int c0 = 0; c0 < n_q; c0 += 32 * kProbe) {
             int qi[kProbe];
 #pragma unroll

@@ -307,12 +307,13 @@ def _xl_program(ga, gb, fa_idx, fb_idx, fcoeff, n_fact, ya_words, yb_words, max_
     the fixed spin's image map, mask): gb for column tiles (rb fixed), ga for
     row tiles (ra fixed), so masks that share an image of the fixed index are
     neighbours. They are cut into chunks of one map row and at most max_run
-    int4s, (row, start, int4s, masks); a chunk holds its masks' headers (row
-    of the cells' image map, factor count, mask, offset of its factors from
-    the header), then their factors (the cells' spin's sign word, the fixed spin's
-    sign word, the coefficient's bits, 0): H_k at (ra, rb) is the sum of the
-    coefficients, each with its sign flipped by the parity of both words
-    against the cell's."""
+    int4s, (row, start, masks, the first mask's row of the cells' map). A
+    chunk holds its masks' headers (row of the cells' image map, factor
+    count, mask, offset of its factors from the header), then their factors
+    (the cells' spin's sign word, the fixed spin's sign word, the
+    coefficient's bits, 0): H_k at (ra, rb) is the sum of the coefficients,
+    each with its sign flipped by the parity of both words against the
+    cell's."""
     coef = np.ascontiguousarray(fcoeff).view(np.int32)
     blocks, chunks, n_col, pos = [], [], 0, 0
     orients = ((gb, ga, fa_idx, ya_words, fb_idx, yb_words),   # column tiles
@@ -328,7 +329,7 @@ def _xl_program(ga, gb, fa_idx, fb_idx, fcoeff, n_fact, ya_words, yb_words, max_
             facs.append(f)
             off += len(f)
         blocks.extend([heads] + facs)
-        chunks.append((row, pos, off, len(masks)))
+        chunks.append((row, pos, len(masks), masks[0][0]))
         return pos + off
 
     for orient, (g_fix, g_cell, f_cell, y_cell, f_fix, y_fix) in enumerate(orients):
@@ -400,7 +401,7 @@ class FactorTermsXL:
     yb_words: torch.Tensor   # (Kyb,) int32
     tiles: torch.Tensor      # (n_tiles, 4) int32 the kernel's tiles (`_xl_tiles`)
     prog: torch.Tensor       # (P, 4) int32 the kernel's static factor program (`_xl_program`)
-    chunks: torch.Tensor     # (C, 4) int32 its chunks: (image row, start, int4s, masks)
+    chunks: torch.Tensor     # (C, 4) int32 its chunks: (image row, start, masks, first g)
     n_col_chunks: int        # chunks of column tiles (the first ones)
     sa: int                  # Sa* (kept alpha combinations)
     sb: int                  # Sb*

@@ -73,7 +73,10 @@ GRID_RTOL = 1e-5   # of sum_k |H_k| |T_k|: fp32 order, fma against mul + add
 XL_TILE_CELLS = 672
 # int4s one chunk of the XL kernel's static program holds at most (a stage of
 # its rings holds a chunk's headers: csrc/grid_engine.cu's kChunkHeads)
-XL_CHUNK_INT4 = 128
+XL_CHUNK_INT4 = 64
+# set cells of a bitmap row that the XL kernel lists (and maps back through a
+# mask's flip) rather than probing every cell of the tile (its kEnumMax)
+XL_LIST_MAX = 64
 
 # full-fp32 products in the plain version: TF32 passes cost ~1e-3 Ha on E_loc
 torch.backends.cuda.matmul.allow_tf32 = False

@@ -12,7 +12,8 @@ summation order over K terms and expf/sincosf ulps); the grid kernels
 `xl_grid_accumulate` per cell within `grid_tolerance` (1e-6 + 1e-5 * sum_k
 sum_r |fcoeff| |T_k|: fp32 order over the masks, fma against mul + add), and
 bitwise equal to themselves run twice (the factored kernel's bits against an
-earlier tree's build are held by `chip_smoke.py --before DIR`);
+earlier tree's build are held by `chip_smoke.py --before DIR`); the XL
+kernel's occupancy bitmaps bit for bit against `xl_occupancy_ref`;
 the sampler's `multinomial4_split`, `compact_children` and the two fused in
 one launch, `split_and_compact`, bitwise (the split does its plain version's
 arithmetic with one rounding per operation, the compaction is an integer

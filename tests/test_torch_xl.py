@@ -432,14 +432,15 @@ def _program_runs(prog):
     factors (n, 4) int32)."""
     pg, ch = prog.prog.numpy(), prog.chunks.numpy()
     runs = ([], [])
-    for c, (row, start, length, masks) in enumerate(ch):
+    for c, (row, start, masks, g_first) in enumerate(ch):
         off = masks
         for i, (g_q, nf, k, f_off) in enumerate(pg[start:start + masks]):
             assert i + f_off == off   # the factors follow the headers, mask by mask
             runs[int(c >= prog.n_col_chunks)].append(
                 (c, row, g_q, k, pg[start + off:start + off + nf]))
             off += nf
-        assert off == length and 0 < length <= gk.XL_CHUNK_INT4
+        assert 0 < off <= gk.XL_CHUNK_INT4 and g_first == pg[start, 0]
+        assert start + off == (ch[c + 1, 1] if c + 1 < len(ch) else len(pg))
     return runs
 
 
@@ -571,7 +572,8 @@ def _replay_kernel(prog, grid):
     """The XL kernel's schedule in numpy (float64 sums): per tile, the chunks
     of its orientation whose fixed image's bitmap row is not clear, each
     either listing the row's set cells and mapping them back through the
-    mask's flip (at most 64 and no pad cell) or probing the tile's cells;
+    mask's flip (at most XL_LIST_MAX and no pad cell) or probing the tile's
+    cells;
     H from the static program. Returns (sums, pairs run, pairs listed)."""
     bits_a, bits_b, any_a, any_b = gk.xl_occupancy_ref(grid)
     g = grid.numpy().astype(np.float64)
@@ -589,12 +591,12 @@ def _replay_kernel(prog, grid):
         anyf = (any_b if column else any_a).numpy()
         acc = np.zeros((hi - lo, 2))
         for c in range(*((0, prog.n_col_chunks) if column else (prog.n_col_chunks, len(ch)))):
-            row, start, _, masks = ch[c]
+            row, start, masks, _ = ch[c]
             img = p_idx[row, p]
             if not anyf[img]:
                 continue
             set_q = np.flatnonzero(bits[img])
-            listed = len(set_q) <= 64 and sq not in set_q
+            listed = len(set_q) <= gk.XL_LIST_MAX and sq not in set_q
             for i, (g_q, nf, _, f_off) in enumerate(pg[start:start + masks]):
                 if listed:
                     t = q_idx[g_q, set_q]
@@ -660,5 +662,5 @@ def test_kernel_schedule_replay_matches_plain(name, e, fill):
         assert n_pairs > 0 and np.abs(want).max() > 1e-3
     if fill in ("sampled", "one"):
         assert n_listed == n_pairs
-    if fill == "full" and min(prog.sa, prog.sb) > 64:   # rows of more than 64 set cells
+    if fill == "full" and min(prog.sa, prog.sb) > gk.XL_LIST_MAX:   # rows too full to list
         assert n_listed == 0

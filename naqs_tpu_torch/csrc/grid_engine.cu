@@ -41,11 +41,11 @@
 // about 13,600 of its 25.6 M cells: of the 639.4 M valid (mask, cell) pairs
 // only 1.2 M (0.19%) read a set cell; every other pair adds exactly zero.
 // PR 7's design ran the factor loop and the T load on every valid pair; on the
-// card (PERF.md, PR 8's step 0) skipping the factor loop took 1.40 ms of its
-// 3.88 ms, a constant T 0.53 ms, both 2.45 ms, while a persistent grid was
-// slower. And since the sampled cells are spread over 3,846 of the 5,056
-// columns, skipping the masks whose fixed image has no set cell leaves 921 M
-// of 1.16 G probes: work has to follow the set cells themselves. So:
+// card (PERF.md, PR 8's step 0) skipping the factor loop took 1.69 ms of its
+// 4.11 ms, a constant T 0.54 ms, both 2.62 ms, while a persistent grid was
+// slower. And since the sampled cells lie in most beta columns, skipping only
+// the masks whose fixed image has no set cell would still leave nearly a
+// probe a valid pair: work has to follow the set cells themselves. So:
 // * Phase 1 packs the set cells (either part nonzero) into two bitmaps, one
 //   row per alpha image (bits over beta) and one per beta image (bits over
 //   alpha), rows of whole 16-byte pieces, and flags the rows that are not
@@ -80,8 +80,9 @@
 // * Each cell's terms arrive in the static order (chunks, masks),
 //   and at the tile's end the 7 warps' sums of a cell are added in warp
 //   order: the same bits in every run, no atomics on a sum.
-// What bounds it then: the bytes of the grid's one pass (204.5 MB, about
-// 0.06 ms), against a few million listed entries and 1.2 M set pairs.
+// What bounds it then: the bytes of the grid's one pass (204.5 MB, 0.06 ms),
+// against 10.5 M listed entries and 1.2 M set pairs. On the card it takes
+// 0.85 ms, the producer's staging the largest part (PERF.md, PR 8).
 //
 // Design, the factored and dense kernels:
 // * A block works on one rb and a tile of ra, neighbouring threads on

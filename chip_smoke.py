@@ -139,8 +139,8 @@ compact_children (0: the standalone kernels left sample()'s path; their
 launches in phase 5b's sample_density call as "launches_sample_density"), 7
 for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
 for xl_grid_accumulate, whose bound_ms counts the work its set-cells design
-must do on the sampled grid and dense_bound_ms PR 7's count over every valid
-pair; with --before, "before_ms" and "before_spread" of the earlier tree's
+must do on the sampled grid and dense_bound_ms the earlier design's count over
+every valid pair; with --before, "before_ms" and "before_spread" of the earlier tree's
 kernel), and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """
@@ -1366,7 +1366,7 @@ def main(argv) -> int:
           f"{x_work['probed']}), 4 a set pair ({x_work['set_pairs']}) and 2 a factor of a set "
           f"pair ({x_work['factors']}), {x_work['ops'] / H100_FP32_OPS_PER_S * 1e3:.5f} ms)",
           flush=True)
-    print(f"[bound] xl_grid_accumulate dense count (PR 7's, every valid pair): "
+    print(f"[bound] xl_grid_accumulate dense count (every valid pair): "
           f"{x_dense[0]:.5f} ms ({x_dense[1]}: {x_ops} float32 operations = 2 x {x_macs} "
           f"multiply-adds for H + 4 x {x_pairs} valid pairs, "
           f"{x_ops / H100_FP32_OPS_PER_S * 1e3:.5f} ms; {x_bytes} B = the {x_touched} grid cells "

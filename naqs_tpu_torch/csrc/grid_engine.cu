@@ -40,10 +40,10 @@
 // 5,056, 2) f32 = 204.5 MB, which L2 cannot hold, and a sampled batch sets
 // about 13,600 of its 25.6 M cells: of the 639.4 M valid (mask, cell) pairs
 // only 1.2 M (0.19%) read a set cell; every other pair adds exactly zero.
-// PR 7's design ran the factor loop and the T load on every valid pair; on the
-// card (PERF.md, PR 8's step 0) skipping the factor loop took 1.69 ms of its
-// 4.11 ms, a constant T 0.54 ms, both 2.62 ms, while a persistent grid was
-// slower. And since the sampled cells lie in most beta columns, skipping only
+// The earlier dense design ran the factor loop and the T load on every valid
+// pair; on the card (PERF.md, step 0 of this design) skipping the factor loop
+// took 1.69 ms of its 4.11 ms, a constant T 0.54 ms, both 2.62 ms, while a
+// persistent grid was slower. And since the sampled cells lie in most beta columns, skipping only
 // the masks whose fixed image has no set cell would still leave nearly a
 // probe a valid pair: work has to follow the set cells themselves. So:
 // * Phase 1 packs the set cells (either part nonzero) into two bitmaps, one
@@ -51,7 +51,7 @@
 //   alpha), rows of whole 16-byte pieces, and flags the rows that are not
 //   all clear; it reads the grid once. A grid-wide barrier (one cooperative
 //   launch of the blocks the card holds) ends it.
-// * The tile table (FactorTermsXL.tiles) is PR 7's: columns of at most E / 2
+// * The tile table (FactorTermsXL.tiles) is the dense design's: columns of at most E / 2
 //   beta excitations (rb fixed, cells over ra) and rows for the rest (ra
 //   fixed, cells over rb), at most 672 cells each; block b takes tiles b,
 //   b + gridDim.x, ... in that static order. The static program
@@ -82,7 +82,7 @@
 //   order: the same bits in every run, no atomics on a sum.
 // What bounds it then: the bytes of the grid's one pass (204.5 MB, 0.06 ms),
 // against 10.5 M listed entries and 1.2 M set pairs. On the card it takes
-// 0.85 ms, the producer's staging the largest part (PERF.md, PR 8).
+// 0.85 ms, the producer's staging the largest part (PERF.md).
 //
 // Design, the factored and dense kernels:
 // * A block works on one rb and a tile of ra, neighbouring threads on

@@ -144,11 +144,17 @@ def xl_grid_accumulate_ref(fn, grid):
     return torch.cat([blk.transpose(0, 1).reshape(-1, 2) for blk in n_blocks])
 
 
+def _xl_row_words(n_bits):
+    """int32 words of a bitmap row of n_bits: whole 16-byte pieces, for the
+    XL kernel's bulk copies (csrc/grid_engine.cu's xl_row_words)."""
+    return -(-n_bits // 128) * 4
+
+
 def _bit_words(occ):
     """(R, C) bool -> (R, W) int32 bitmap rows, bit c of word w = column
-    32 w + c, W whole 16-byte pieces (csrc/grid_engine.cu's xl_row_words)."""
+    32 w + c, W = _xl_row_words(C)."""
     rows, cols = occ.shape
-    words = -(-cols // 128) * 4
+    words = _xl_row_words(cols)
     bits = torch.nn.functional.pad(occ, (0, words * 32 - cols)).view(rows, words, 32)
     w = (bits.to(torch.int64) << torch.arange(32, device=occ.device)).sum(-1)
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
@@ -315,9 +321,8 @@ def _xl_launch(fn, grid):
     any_a, any_b), the packed sums and the first phase's bitmaps as
     `xl_occupancy_ref` gives them. Checks and counts nothing."""
     sa, sb, dev = fn.sa, fn.sb, grid.device
-    words = lambda n: -(-n // 128) * 4
-    bits_a = torch.empty((sa + 1, words(sb + 1)), dtype=torch.int32, device=dev)
-    bits_b = torch.empty((sb + 1, words(sa + 1)), dtype=torch.int32, device=dev)
+    bits_a = torch.empty((sa + 1, _xl_row_words(sb + 1)), dtype=torch.int32, device=dev)
+    bits_b = torch.empty((sb + 1, _xl_row_words(sa + 1)), dtype=torch.int32, device=dev)
     anys = torch.zeros(sa + sb + 2, dtype=torch.int32, device=dev)
     out = torch.empty((fn.n_cells, 2), dtype=torch.float32, device=dev)
     any_a, any_b = anys[:sa + 1], anys[sa + 1:]

@@ -282,7 +282,7 @@ def _xl_work(fn):
     return n_bytes, 2 * macs + 4 * n_pairs, n_pairs, macs, n_touched
 
 
-def _xl_sampled_work(fn, grid):
+def _xl_sampled_work(fn, grid, n_touched):
     """What the set-cells staircase kernel must do on `grid`: a dict of its
     schedule's counts and (bytes, operations). A pair (mask, staircase cell)
     is set where both images lie in the rectangle and its grid cell is set.
@@ -290,13 +290,16 @@ def _xl_sampled_work(fn, grid):
     image's bitmap row is not clear (a bulk copy of the row and, for a chunk of
     more than one mask, of its headers); a row of at most XL_LIST_MAX set cells
     and no pad cell is listed (one entry per set cell and mask), any other row
-    probed (one per tile cell and mask). Bytes: the grid, every map, word table and the program once, the
-    packed output once. Operations: one per grid cell (is it set), one per
-    listed entry or probe, per set pair 2 fused multiply-adds and 2 per
-    factor of its mask (the sign and the add)."""
+    probed (one per tile cell and mask). Bytes, what the function itself
+    needs: the n_touched grid cells that some valid pair reads (a cell is
+    known to be clear only once it is read), the maps, word tables and the
+    program once, the packed output once; not the rest of the grid, nor the
+    bitmaps and staged rows, which are this design's own. Operations: one per
+    grid cell (is it set), one per listed entry or probe, per set pair 2
+    fused multiply-adds and 2 per factor of its mask (the sign and the add)."""
     import torch
 
-    from naqs_tpu_torch.ops.grid_kernels import XL_LIST_MAX, xl_occupancy_ref
+    from naqs_tpu_torch.ops.grid_kernels import XL_LIST_MAX, _xl_row_words, xl_occupancy_ref
 
     occ = (grid != 0).any(-1)
     sa, sb = fn.sa, fn.sb
@@ -309,7 +312,7 @@ def _xl_sampled_work(fn, grid):
     n_set_pairs = int(set_pairs.sum())
     factor_ops = int((set_pairs * fn.n_fact).sum())
     _, _, any_a, any_b = xl_occupancy_ref(grid)
-    row_bytes = {0: -(-(sa + 1) // 128) * 16, 1: -(-(sb + 1) // 128) * 16}
+    row_bytes = {0: _xl_row_words(sa + 1) * 4, 1: _xl_row_words(sb + 1) * 4}
     staged = staged_bytes = listed = probed = 0
     for orient in (0, 1):
         c_lo, c_hi = (0, fn.n_col_chunks) if orient == 0 else (fn.n_col_chunks,
@@ -328,10 +331,8 @@ def _xl_sampled_work(fn, grid):
         per = masks * on
         listed += int((per * is_listed * n_rows[img]).sum())
         probed += int((per * ~is_listed * (tl[:, 3] - tl[:, 2])[None, :]).sum())
-    tables = [fn.pa_idx, fn.pb_idx, fn.alpha_words, fn.beta_words, fn.cells_off, fn.tiles,
-              fn.prog, fn.chunks]
-    n_bytes = sum(t.numel() * t.element_size() for t in tables) + grid.numel() * 4 \
-        + fn.n_cells * 8
+    tables = [fn.pa_idx, fn.pb_idx, fn.alpha_words, fn.beta_words, fn.cells_off, fn.prog]
+    n_bytes = sum(t.numel() * t.element_size() for t in tables) + n_touched * 8 + fn.n_cells * 8
     n_ops = occ.numel() + listed + probed + 4 * n_set_pairs + 2 * factor_ops
     return dict(set_cells=int(occ.sum()), set_pairs=n_set_pairs, factors=factor_ops,
                 staged_chunks=staged, staged_bytes=staged_bytes, listed=listed, probed=probed,
@@ -1234,13 +1235,23 @@ def main(argv) -> int:
         raise SystemExit("the staircase value grid's pad row or column is not zero")
     xl_err = _check_grid_kernel("xl_grid_accumulate", xl_grid_accumulate,
                                 xl_grid_accumulate_ref, xl, grid3)
-    x_work = _xl_sampled_work(xl, grid3)
-    print(f"[xl] the sampled grid: {x_work['set_cells']} set cells of {grid3.numel() // 2}; "
-          f"{x_work['set_pairs']} set (mask, cell) pairs of the {x_pairs} valid ones (share "
-          f"{x_work['set_pairs'] / x_pairs:.6f}), {x_work['factors']} factors on them; the "
-          f"kernel stages {x_work['staged_chunks']} chunks ({x_work['staged_bytes']} B of "
-          f"bitmap rows and program), lists {x_work['listed']} (mask, set cell) entries and "
-          f"probes {x_work['probed']} (mask, cell) pairs", flush=True)
+    # every staircase cell set, as the batch of the whole filtered basis sets it
+    gen3 = torch.Generator(device="cpu").manual_seed(3)
+    stair3 = torch.zeros((xl.sa + 1, xl.sb + 1, 2))
+    in_stair = torch.arange(xl.sb)[None, :] < xl.width[:-1].cpu()[:, None]
+    stair3[:-1, :-1][in_stair] = torch.rand((xl.n_cells, 2), generator=gen3) - 0.5
+    stair3 = stair3.to(dev)
+    x_work = _xl_sampled_work(xl, grid3, x_touched)
+    for what, g3, w3 in (("sampled", grid3, x_work),
+                         ("staircase", stair3, _xl_sampled_work(xl, stair3, x_touched))):
+        print(f"[xl] the {what} grid: {w3['set_cells']} set cells of {g3.numel() // 2}; "
+              f"{w3['set_pairs']} set (mask, cell) pairs of the {x_pairs} valid ones (share "
+              f"{w3['set_pairs'] / x_pairs:.6f}), {w3['factors']} factors on them; the "
+              f"kernel stages {w3['staged_chunks']} chunks ({w3['staged_bytes']} B of "
+              f"bitmap rows and program), lists {w3['listed']} (mask, set cell) entries and "
+              f"probes {w3['probed']} (mask, cell) pairs", flush=True)
+    _check_grid_kernel("xl_grid_accumulate (staircase grid)", xl_grid_accumulate,
+                       xl_grid_accumulate_ref, xl, stair3)
     old_xl = "xl_grid_accumulate (earlier tree)"
     if "grid" in old_mods and hasattr(old_mods["grid"], "xl_grid_accumulate"):
         xl_old = old_mods["grid"].xl_grid_accumulate
@@ -1251,7 +1262,6 @@ def main(argv) -> int:
         if not x_ok:
             raise SystemExit(f"{old_xl} and this tree's xl_grid_accumulate differ")
     # every cell of the rectangle set: every bitmap row too full to list
-    gen3 = torch.Generator(device="cpu").manual_seed(3)
     full3 = torch.zeros((xl.sa + 1, xl.sb + 1, 2))
     full3[:-1, :-1] = torch.rand((xl.sa, xl.sb, 2), generator=gen3) - 0.5
     full3 = full3.to(dev)
@@ -1300,6 +1310,7 @@ def main(argv) -> int:
             dt_rank, batch.states, la, ph, batch.n_unique),
         "xl_grid_accumulate": lambda: xl_grid_accumulate(xl, grid3),
         "xl_grid_accumulate (full grid)": lambda: xl_grid_accumulate(xl, full3),
+        "xl_grid_accumulate (staircase grid)": lambda: xl_grid_accumulate(xl, stair3),
         "xl_grid_accumulate_ref": lambda: xl_grid_accumulate_ref(xl, grid3),
         "local_energy (FactorTermsXL, Li2O)": lambda: le.local_energy(
             tr3.dt, batch3.states, la3, ph3, batch3.n_unique),
@@ -1316,6 +1327,7 @@ def main(argv) -> int:
     if "grid" in old_mods and hasattr(old_mods["grid"], "xl_grid_accumulate"):
         slow_fns[old_xl] = lambda: xl_old(xl, grid3)
         slow_fns[f"{old_xl} (full grid)"] = lambda: xl_old(xl, full3)
+        slow_fns[f"{old_xl} (staircase grid)"] = lambda: xl_old(xl, stair3)
     old_sample = "sample() at capacity 100,000 (earlier tree)"
     if "sampler" in old_mods:
         slow_fns[old_sample] = lambda: old_mods["sampler"].sample(tr.model, tr.gen, 1e5, cap)
@@ -1359,8 +1371,8 @@ def main(argv) -> int:
           f"of T per valid pair from device memory would be "
           f"{f_pairs * 8 / H100_BYTES_PER_S * 1e3:.3f} ms)", flush=True)
     print(f"[bound] xl_grid_accumulate {x_bound[0]:.5f} ms on the sampled grid ({x_bound[1]}: "
-          f"{x_work['bytes']} B = the grid, every map, word table and the program once and the "
-          f"{xl.n_cells} packed cells written, "
+          f"{x_work['bytes']} B = the {x_touched} grid cells the valid pairs read x 8 B, every "
+          f"map, word table and the program once and the {xl.n_cells} packed cells written, "
           f"{x_work['bytes'] / H100_BYTES_PER_S * 1e3:.5f} ms; {x_work['ops']} operations = "
           f"one a grid cell, one a listed entry or probe ({x_work['listed']} + "
           f"{x_work['probed']}), 4 a set pair ({x_work['set_pairs']}) and 2 a factor of a set "
@@ -1509,9 +1521,11 @@ def main(argv) -> int:
               dense_bound_ms=x_dense[0], set_pairs=x_work["set_pairs"],
               set_pair_share=x_work["set_pairs"] / x_pairs,
               full_grid_ms=times["xl_grid_accumulate (full grid)"][0],
+              staircase_grid_ms=times["xl_grid_accumulate (staircase grid)"][0],
               local_energy_ms=times["local_energy (FactorTermsXL, Li2O)"][0],
               rank_local_energy_ms=times["local_energy (rank engine, Li2O)"][0],
-              **({"before_full_grid_ms": times[f"{old_xl} (full grid)"][0]}
+              **({"before_full_grid_ms": times[f"{old_xl} (full grid)"][0],
+                  "before_staircase_grid_ms": times[f"{old_xl} (staircase grid)"][0]}
                  if f"{old_xl} (full grid)" in times else {}),
               **before(old_xl), **GRID_SRC),
         entry("split_and_compact", fused_launches, fused_totals["err"], "split_and_compact_ref",

@@ -48,13 +48,16 @@
 // probe a valid pair: work has to follow the set cells themselves. So:
 // * Phase 1 packs the set cells (either part nonzero) into two bitmaps, one
 //   row per alpha image (bits over beta) and one per beta image (bits over
-//   alpha), rows of whole 16-byte pieces, and flags the rows that are not
-//   all clear; it reads the grid once. A grid-wide barrier (one cooperative
-//   launch of the blocks the card holds) ends it.
-// * The tile table (FactorTermsXL.tiles) is the dense design's: columns of at most E / 2
-//   beta excitations (rb fixed, cells over ra) and rows for the rest (ra
-//   fixed, cells over rb), at most 672 cells each; block b takes tiles b,
-//   b + gridDim.x, ... in that static order. The static program
+//   alpha), rows of whole 16-byte pieces, flags the rows that are not all
+//   clear, and writes the set cells, transposed, into a scratch grid_t,
+//   where column tiles read T along a row (down a grid column, each 8-byte
+//   cell would cost a 32-byte sector with no reuse). It reads the grid once.
+//   A grid-wide barrier (one cooperative launch of the blocks the card
+//   holds) ends it.
+// * The tile table (FactorTermsXL.tiles) is the dense design's: columns of
+//   at most E / 2 beta excitations (rb fixed, cells over ra) and rows for
+//   the rest (ra fixed, cells over rb), at most 672 cells each; block b takes
+//   tiles b, b + gridDim.x, ... in that static order. The static program
 //   (FactorTermsXL.prog, built once) holds per orientation the masks ordered
 //   by the row of the fixed spin's image map, each as a header and its
 //   factors (cells' sign word, fixed sign word, coefficient): a factor's sign
@@ -64,25 +67,31 @@
 //   index has a non-clear bitmap row, that row and the chunk's mask headers
 //   with two 1-D bulk copies (cp.async.bulk, complete_tx on the stage's full
 //   mbarrier; a chunk of one mask, the most common, needs no headers), chunk
-//   i into the ring of consumer warp i % 7, six stages deep; the warp frees a stage through its empty mbarrier. No
-//   __syncthreads per tile, and a warp that is busy summing holds up the
-//   others only once its ring is full. The factors are read from device
-//   memory for set pairs only.
-// * A consumer warp lists, per mask, the set pairs: a row of at most 64 set
-//   cells (and no pad cell) is listed and each set cell q' mapped back by
-//   the mask's flip, q = map[q'] (a flip is its own inverse), kept when q lies
-//   in the tile, the (mask, set cell) entries of a chunk looked up 32 at a
-//   time; a fuller row (a fully set grid) is probed cell by cell. Set pairs
-//   join the warp's queue in order; 64 at a time, two a lane, each runs its
-//   factor loop and T load, and the lanes of one cell add their terms into
-//   the warp's sum of that cell in lane order (__match_any_sync), so no lane
-//   idles on a clear pair.
+//   i into the ring of consumer warp i % 7, six stages deep; the warp frees
+//   a stage through its empty mbarrier. No __syncthreads per tile, and a
+//   warp that is busy summing holds up the others only once its ring is full.
+// * A consumer warp takes a row of at most 128 set cells (and no pad cell),
+//   as a sampled batch's rows nearly all are, by its set cells: each set
+//   cell q' is mapped back by the mask's flip, q = map[q'] (a flip is its own
+//   inverse), and kept when q lies in the tile, the (mask, set cell) entries
+//   of a chunk looked up 32 at a time. These set pairs join the warp's queue
+//   in order; 64 at a time, two a lane, each runs its factor loop and T load
+//   (the factors from device memory), and the lanes of one cell add their
+//   terms into the warp's sum of that cell in lane order (__match_any_sync),
+//   so no lane idles on a clear pair.
+// * A fuller row (as every row of a grid that holds the whole staircase) is
+//   probed: the queue is summed first, then each lane tests 7 cells of the
+//   tile at a time (a tile's 672 cells are 3 such rounds) and sums a set pair
+//   at once, the mask's header and factors the same for the whole warp, the
+//   next round's map lookups in flight. A queued pair waits on its own
+//   header and factor loads, which a fuller row cannot afford.
 // * Each cell's terms arrive in the static order (chunks, masks),
 //   and at the tile's end the 7 warps' sums of a cell are added in warp
 //   order: the same bits in every run, no atomics on a sum.
-// What bounds it then: the bytes of the grid's one pass (204.5 MB, 0.06 ms),
-// against 10.5 M listed entries and 1.2 M set pairs. On the card it takes
-// 0.85 ms, the producer's staging the largest part (PERF.md).
+// What bounds it: the bytes of the grid cells the valid pairs can read
+// (9.95 M cells, 79.6 MB, 0.03 ms), against 10.5 M listed entries and 1.2 M
+// set pairs of a sampled grid (PERF.md has the times, on a grid of every
+// staircase cell too).
 //
 // Design, the factored and dense kernels:
 // * A block works on one rb and a tile of ra, neighbouring threads on
@@ -460,14 +469,16 @@ constexpr int kXlWarps = 7;            // consumer warps
 constexpr int kXlThreads = (kXlWarps + 1) * 32;   // and one producer warp
 constexpr int kXlTileCells = 672;      // cells a tile holds at most (XL_TILE_CELLS)
 constexpr int kRing = 6;               // stages of a consumer warp's ring, one chunk each
-constexpr int kChunkHeads = 32;        // mask headers a chunk holds at most: a chunk is at
-                                       // most XL_CHUNK_INT4 = 64 int4s, 2 or more a mask
+constexpr int kChunkInt4 = 64;         // int4s a chunk of several masks holds at most
+                                       // (XL_CHUNK_INT4)
+constexpr int kChunkHeads = kChunkInt4 / 2;   // and so its headers: 2 or more int4s a mask
 constexpr int kFlush = 2;              // set pairs a lane sums at once
 constexpr int kQueue = 128;            // a warp's pending set pairs: < kFlush * 32 + 32
-constexpr int kEnumMax = 64;           // set cells of a row that are listed, not probed
+constexpr int kEnumMax = 128;          // set cells of a row that are listed, not probed
                                        // (XL_LIST_MAX)
-constexpr int kProbe = 4;              // cells a lane probes at once
-constexpr int kFactors = 8;            // factor loads in flight a pair
+constexpr int kDirect = 7;             // cells a lane probes and sums at once in a fuller row
+constexpr int kDirectFactors = 4;      // factors loaded at once for them
+constexpr int kFactors = 8;            // factor loads in flight a queued pair
 constexpr int kHeadBits = 21;          // a queue entry: header index | cell << kHeadBits
 static_assert((kQueue & (kQueue - 1)) == 0 && kQueue >= kFlush * 32 + 32 &&
               kXlTileCells <= 1 << (31 - kHeadBits), "the queue's entries");
@@ -514,6 +525,7 @@ struct XlArgs {
   const int4* chunks;     // (image row, start, masks, first mask's cells' map row);
                           // column chunks first
   const float2* grid;     // (sa + 1, sb + 1)
+  float2* grid_t;         // (sb + 1, sa + 1): phase 1 writes the set cells, transposed
   uint32_t* bits_a;       // (sa + 1, wb): bit c of word w of row a' is cell (a', 32 w + c)
   uint32_t* bits_b;       // (sb + 1, wa): bit i of word w of row b' is cell (32 w + i, b')
   int *any_a, *any_b;     // 1 where a row of bits_a (bits_b) is not all clear; zero on entry
@@ -533,7 +545,9 @@ struct XlRing {
 // Phase 1: both occupancy bitmaps of the grid. A warp reads 32 x 32 cells,
 // 16 rows at a time (one ballot a row gives lane i the word of row a0 + i),
 // and transposes them with 32 more ballots (lane c the word of column b0 + c).
-// Every word of both bitmaps is written, the pad bits past sa and sb too.
+// Every word of both bitmaps is written, the pad bits past sa and sb too. The
+// set cells are also written into grid_t, transposed, where column tiles read
+// them along a row; a clear cell of grid_t is never read, nor written.
 __device__ void xl_occupancy(const XlArgs& x) {
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -552,8 +566,10 @@ __device__ void xl_occupancy(const XlArgs& x) {
                    : make_float2(0.f, 0.f);
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
-        const uint32_t w = __ballot_sync(kFull, v[i].x != 0.f || v[i].y != 0.f);
+        const bool set = v[i].x != 0.f || v[i].y != 0.f;
+        const uint32_t w = __ballot_sync(kFull, set);
         if (lane == i0 + i) rw = w;
+        if (set) x.grid_t[static_cast<size_t>(b) * (x.sa + 1) + a0 + i0 + i] = v[i];
       }
     }
     uint32_t cw = 0;
@@ -658,20 +674,22 @@ __device__ void xl_produce(const XlArgs& x, uint32_t* rows, int4* heads, int row
 // The consumer warps. Warp w takes the chunks of its ring, in order, and adds
 // their masks' terms into its own sums of every cell of the tile (acc_w,
 // shared memory); at the tile's end the warps' sums of a cell are added in
-// warp order. For each mask of a chunk the warp lists the pairs whose grid
+// warp order. For each mask of a chunk the warp finds the pairs whose grid
 // cell is set, in one of two ways, chosen per chunk from its staged bitmap
 // row (the cells (image of p, .) of the grid):
 // * the row holds at most kEnumMax set cells and not the pad cell: each set
 //   cell q' of the row is an image of the cell q = q_idx[g, q'] under the
 //   mask's flip (a flip is its own inverse), which is a pair of the tile when
-//   q lies in [q_lo, q_hi). The work follows the set cells;
-// * otherwise every cell q of the tile probes bit q_idx[g, q] of the row.
-// The pairs join the warp's queue in mask order, each as (the mask's header in
-// the program, the cell, the grid cell); every kFlush * 32 of them, and at the
-// tile's end, they are summed with kFlush pairs a lane: H by the mask's
-// factors, T from the grid, H * T added to the cell's sum in queue order
-// (lanes of one cell add in lane order). So each cell adds its masks in a
-// fixed order, with no atomics.
+//   q lies in [q_lo, q_hi). The work follows the set cells. The pairs join
+//   the warp's queue in mask order, each as (the mask's header in the
+//   program, the cell, the grid cell); every kFlush * 32 of them, and at the
+//   tile's end, they are summed with kFlush pairs a lane: H by the mask's
+//   factors, T from the grid, H * T added to the cell's sum in queue order
+//   (lanes of one cell add in lane order);
+// * otherwise the queue is summed, then every cell q of the tile probes bit
+//   q_idx[g, q] of the row, kDirect cells a lane, and its lane sums a set
+//   pair at once (the mask's factors are the same for the whole warp).
+// So each cell adds its masks in a fixed order, with no atomics.
 __device__ void xl_consume(const XlArgs& x, const uint32_t* rows, const int4* heads,
                            int row_words, XlRing* ring, float2* acc, int2* queue,
                            float4* contrib, int* bit_list) {
@@ -692,6 +710,7 @@ __device__ void xl_consume(const XlArgs& x, const uint32_t* rows, const int4* he
     const int32_t* q_idx = column ? x.pa_idx : x.pb_idx;
     const int32_t* q_words = column ? x.alpha_words : x.beta_words;
     const int pw = __ldg((column ? x.beta_words : x.alpha_words) + p);
+    const float2* t_grid = column ? x.grid_t : x.grid;   // T of (image q', image of p) ...
     for (int c = lane; c < kXlTileCells; c += 32) acc_w[c] = make_float2(0.f, 0.f);
     int head = 0, count = 0;   // the queue's pending pairs, the same in every lane
 
@@ -710,7 +729,7 @@ __device__ void xl_consume(const XlArgs& x, const uint32_t* rows, const int4* he
         if (at < k) {
           const int2 e = queue_w[(head + at) & (kQueue - 1)];
           cell[i] = e.x >> kHeadBits;
-          t[i] = __ldg(x.grid + e.y);
+          t[i] = __ldcg(t_grid + e.y);   // grid_t is phase 1's: not __ldg
           const int4* hp = x.prog + (e.x & ((1 << kHeadBits) - 1));
           const int4 hd = __ldg(hp);   // (row of the cells' map, factors, mask, to the factors)
           const int cw = __ldg(q_words + q_lo + cell[i]);
@@ -772,10 +791,8 @@ __device__ void xl_consume(const XlArgs& x, const uint32_t* rows, const int4* he
       const uint32_t* row = rows + static_cast<size_t>(slot) * row_words;
       const int4* hs = heads + static_cast<size_t>(slot) * kChunkHeads;
       const int img = d.y;
-      // grid cell of (image q' of the cell, image of p)
-      const auto at = [&](int qi) {
-        return column ? qi * (x.sb + 1) + img : img * (x.sb + 1) + qi;
-      };
+      // ... at t_grid[at(q')]: row img of grid_t or of the grid
+      const auto at = [&](int qi) { return img * (column ? x.sa + 1 : x.sb + 1) + qi; };
       int mine = 0;
       for (int w = lane; w < q_words_n; w += 32) mine += __popc(row[w]);
       const int n_set = __reduce_add_sync(kFull, mine);
@@ -807,21 +824,80 @@ __device__ void xl_consume(const XlArgs& x, const uint32_t* rows, const int4* he
           push(hit, d.z + m, hit ? t : 0, at(a));
         }
       } else {
-        for (int m = 0; m < d.x; ++m) {   // kProbe map lookups a lane in flight
-          const int32_t* map = q_idx + static_cast<size_t>(m ? hs[m].x : d.w) * sq;
-          for (int c0 = 0; c0 < n_q; c0 += 32 * kProbe) {
-            int qi[kProbe];
+        // the queue's earlier pairs first: each cell keeps its masks' order
+        while (count > 0) flush(count < kFlush * 32 ? count : kFlush * 32);
+        // the masks' headers (staged for a chunk of several) and factors are the
+        // same for the whole warp; a lane takes kDirect cells of the tile at a
+        // time, and the next (mask, cells) item's map lookups are in flight while
+        // this one's T and factor loads are
+        const auto header = [&](int m) { return d.x > 1 ? hs[m] : __ldg(x.prog + d.z); };
+        const auto lookups = [&](const int4& hd, int c0, int (&qi)[kDirect]) {
+          const int32_t* map = q_idx + static_cast<size_t>(hd.x) * sq + q_lo;
 #pragma unroll
-            for (int j = 0; j < kProbe; ++j) {
-              const int c = c0 + 32 * j + lane;
-              qi[j] = c < n_q ? __ldg(map + q_lo + c) : sq;
+          for (int j = 0; j < kDirect; ++j) {
+            const int c = c0 + 32 * j + lane;
+            qi[j] = c < n_q ? __ldg(map + c) : sq;
+          }
+        };
+        int m = 0, c0 = 0;
+        int4 hd = header(0);
+        int qi[kDirect];
+        lookups(hd, 0, qi);
+        for (;;) {
+          int m_next = m, c_next = c0 + 32 * kDirect;
+          if (c_next >= n_q) {
+            c_next = 0;
+            ++m_next;
+          }
+          const bool more = m_next < d.x;
+          const int4 hd_next = more && m_next != m ? header(m_next) : hd;
+          int qi_next[kDirect];
+          if (more) lookups(hd_next, c_next, qi_next);
+          bool hit[kDirect];
+          bool any = false;
+#pragma unroll
+          for (int j = 0; j < kDirect; ++j) {
+            hit[j] = c0 + 32 * j + lane < n_q && ((row[qi[j] >> 5] >> (qi[j] & 31)) & 1u);
+            any |= hit[j];
+          }
+          if (__any_sync(kFull, any)) {
+            const int4* fp = x.prog + d.z + m + hd.w;
+            float2 t[kDirect];
+            int cw[kDirect];
+            float h[kDirect];
+#pragma unroll
+            for (int j = 0; j < kDirect; ++j) {
+              t[j] = hit[j] ? __ldcg(t_grid + at(qi[j])) : make_float2(0.f, 0.f);
+              cw[j] = hit[j] ? __ldg(q_words + q_lo + c0 + 32 * j + lane) : 0;
+              h[j] = 0.f;
+            }
+            for (int r0 = 0; r0 < hd.y; r0 += kDirectFactors) {
+              int4 f[kDirectFactors];
+#pragma unroll
+              for (int r = 0; r < kDirectFactors; ++r)
+                f[r] = r0 + r < hd.y ? __ldg(fp + r0 + r) : make_int4(0, 0, 0, 0);
+#pragma unroll
+              for (int r = 0; r < kDirectFactors; ++r) {   // a pad factor adds +0
+                const int fixed = pw & f[r].y;
+#pragma unroll
+                for (int j = 0; j < kDirect; ++j)
+                  h[j] += signed_by_parity(f[r].z, (cw[j] & f[r].x) ^ fixed);
+              }
             }
 #pragma unroll
-            for (int j = 0; j < kProbe; ++j) {
-              const int c = c0 + 32 * j + lane;
-              push(c < n_q && ((row[qi[j] >> 5] >> (qi[j] & 31)) & 1u), d.z + m, c, at(qi[j]));
+            for (int j = 0; j < kDirect; ++j) {
+              if (!hit[j]) continue;
+              float2& a = acc_w[c0 + 32 * j + lane];
+              a.x = fmaf(h[j], t[j].x, a.x);
+              a.y = fmaf(h[j], t[j].y, a.y);
             }
           }
+          if (!more) break;
+          m = m_next;
+          c0 = c_next;
+          hd = hd_next;
+#pragma unroll
+          for (int j = 0; j < kDirect; ++j) qi[j] = qi_next[j];
         }
       }
       __syncwarp();   // the row, headers and list are read before the stage is freed
@@ -931,12 +1007,12 @@ int xl_row_words(int n_bits) { return (n_bits + 127) / 128 * 4; }
 extern "C" int xl_grid_accumulate(const void* pa_idx, const void* pb_idx,
                                   const void* alpha_words, const void* beta_words,
                                   const void* cells_off, const void* tiles, const void* prog,
-                                  const void* chunks, const void* grid, void* bits_a,
+                                  const void* chunks, const void* grid, void* grid_t, void* bits_a,
                                   void* bits_b, void* any_a, void* any_b, void* out, int n_tiles,
                                   int n_chunks, int n_col_chunks, int n_prog, int sa, int sb,
-                                  int tile_cells, void* stream) {
-  // a tile is at most what the consumer warps own
-  if (tile_cells != kXlTileCells || n_tiles < 0 || n_col_chunks < 0 ||
+                                  int tile_cells, int chunk_int4, void* stream) {
+  // a tile is at most what the consumer warps own, a chunk's headers what a stage holds
+  if (tile_cells != kXlTileCells || chunk_int4 != kChunkInt4 || n_tiles < 0 || n_col_chunks < 0 ||
       n_col_chunks > n_chunks || n_prog >= 1 << kHeadBits ||
       static_cast<int64_t>(sa + 1) * (sb + 1) >= INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -951,6 +1027,7 @@ extern "C" int xl_grid_accumulate(const void* pa_idx, const void* pb_idx,
   x.prog = static_cast<const int4*>(prog);
   x.chunks = static_cast<const int4*>(chunks);
   x.grid = static_cast<const float2*>(grid);
+  x.grid_t = static_cast<float2*>(grid_t);
   x.bits_a = static_cast<uint32_t*>(bits_a);
   x.bits_b = static_cast<uint32_t*>(bits_b);
   x.any_a = static_cast<int*>(any_a);

@@ -72,11 +72,12 @@ GRID_RTOL = 1e-5   # of sum_k |H_k| |T_k|: fp32 order, fma against mul + add
 # FactorTermsXL.build cuts its tiles to it
 XL_TILE_CELLS = 672
 # int4s one chunk of the XL kernel's static program holds at most (a stage of
-# its rings holds a chunk's headers: csrc/grid_engine.cu's kChunkHeads)
+# its rings holds a chunk's headers: csrc/grid_engine.cu's kChunkInt4, which
+# its C entry holds this value to)
 XL_CHUNK_INT4 = 64
 # set cells of a bitmap row that the XL kernel lists (and maps back through a
 # mask's flip) rather than probing every cell of the tile (its kEnumMax)
-XL_LIST_MAX = 64
+XL_LIST_MAX = 128
 
 # full-fp32 products in the plain version: TF32 passes cost ~1e-3 Ha on E_loc
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -200,7 +201,7 @@ def _lib():
     lib = _build.load("grid_engine")
     lib.factored_grid_accumulate.argtypes = [_PTR] * 11 + [_INT] * 4 + [_PTR]
     lib.dense_grid_accumulate.argtypes = [_PTR] * 7 + [_INT] * 4 + [_PTR]
-    lib.xl_grid_accumulate.argtypes = [_PTR] * 14 + [_INT] * 7 + [_PTR]
+    lib.xl_grid_accumulate.argtypes = [_PTR] * 15 + [_INT] * 8 + [_PTR]
     lib.factored_grid_accumulate.restype = lib.dense_grid_accumulate.restype = _INT
     lib.xl_grid_accumulate.restype = _INT
     lib.grid_engine_error_string.argtypes = [_INT]
@@ -325,12 +326,13 @@ def _xl_launch(fn, grid):
     bits_b = torch.empty((sb + 1, _xl_row_words(sa + 1)), dtype=torch.int32, device=dev)
     anys = torch.zeros(sa + sb + 2, dtype=torch.int32, device=dev)
     out = torch.empty((fn.n_cells, 2), dtype=torch.float32, device=dev)
+    grid_t = torch.empty((sb + 1, sa + 1, 2), dtype=torch.float32, device=dev)   # set cells only
     any_a, any_b = anys[:sa + 1], anys[sa + 1:]
     _call("xl_grid_accumulate",
           (fn.pa_idx, fn.pb_idx, fn.alpha_words, fn.beta_words, fn.cells_off, fn.tiles, fn.prog,
-           fn.chunks, grid, bits_a, bits_b, any_a, any_b, out),
+           fn.chunks, grid, grid_t, bits_a, bits_b, any_a, any_b, out),
           (fn.tiles.shape[0], fn.chunks.shape[0], fn.n_col_chunks, fn.prog.shape[0], sa, sb,
-           XL_TILE_CELLS), dev)
+           XL_TILE_CELLS, XL_CHUNK_INT4), dev)
     return out, bits_a, bits_b, any_a, any_b
 
 

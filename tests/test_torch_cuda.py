@@ -323,9 +323,11 @@ def _staircase(name, e, dev):
 # Beside them: an all-zero grid (the sums exactly zero), one set cell, the
 # sampled grid with its Hartree-Fock cell set too (a cell that every single
 # and double flip of a staircase cell near it reaches, so one cell of the sums
-# gets many masks' terms), and every cell of the rectangle set (every row of
-# the bitmaps too full to list: the kernel probes every cell)
-@pytest.mark.parametrize("fill", ["sampled", "full", "zero", "one", "crowded"])
+# gets many masks' terms), every staircase cell set (the whole filtered
+# basis, as exact E_loc over it sets it) and every cell of the rectangle set
+# (on Li2O, every row of the bitmaps in both too full to list: the kernel
+# probes every cell and sums set pairs at once)
+@pytest.mark.parametrize("fill", ["sampled", "full", "staircase", "zero", "one", "crowded"])
 @pytest.mark.parametrize("name,e", [("N2_STO-3G_gen", 2), ("N2_STO-3G_gen", 4),
                                     ("Li2O_STO-3G_gen", 4)])
 def test_xl_grid_kernel_matches_plain(name, e, fill, monkeypatch):
@@ -362,6 +364,12 @@ def test_xl_grid_kernel_matches_plain(name, e, fill, monkeypatch):
         gen = torch.Generator(device="cpu").manual_seed(3)
         grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2))
         grid[:-1, :-1] = torch.rand((prog.sa, prog.sb, 2), generator=gen) - 0.5
+        grid = grid.to(dev)
+    elif fill == "staircase":
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2))
+        in_stair = torch.arange(prog.sb)[None, :] < prog.width[:-1].cpu()[:, None]
+        grid[:-1, :-1][in_stair] = torch.rand((prog.n_cells, 2), generator=gen) - 0.5
         grid = grid.to(dev)
     else:
         grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2), device=dev)
@@ -429,6 +437,22 @@ def test_xl_grid_kernel_rejects_bad_inputs():
                     prog, pa_idx=prog.pa_idx.transpose(0, 1)), grid)):
         with pytest.raises(ValueError):
             bad()
+    # the C entry refuses a tile or chunk size other than the kernel's own: a
+    # chunk of more masks than a stage's headers would overrun its stage
+    from naqs_tpu_torch.ops import grid_kernels as gk
+
+    _, bits_a, bits_b, any_a, any_b = gk._xl_launch(prog, grid)
+    out = torch.empty((prog.n_cells, 2), device=dev)
+    grid_t = torch.empty((prog.sb + 1, prog.sa + 1, 2), device=dev)
+    tensors = (prog.pa_idx, prog.pb_idx, prog.alpha_words, prog.beta_words, prog.cells_off,
+               prog.tiles, prog.prog, prog.chunks, grid, grid_t, bits_a, bits_b, any_a, any_b,
+               out)
+    for tile_cells, chunk_int4 in ((gk.XL_TILE_CELLS, 2 * gk.XL_CHUNK_INT4),
+                                   (gk.XL_TILE_CELLS + 96, gk.XL_CHUNK_INT4)):
+        with pytest.raises(RuntimeError):
+            gk._call("xl_grid_accumulate", tensors,
+                     (prog.tiles.shape[0], prog.chunks.shape[0], prog.n_col_chunks,
+                      prog.prog.shape[0], prog.sa, prog.sb, tile_cells, chunk_int4), dev)
 
 
 def _split_inputs(n, kind, dev, f64=False):

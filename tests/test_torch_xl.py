@@ -544,8 +544,11 @@ def test_occupancy_bitmaps_are_the_set_cells(name, e):
     bits_a, bits_b, any_a, any_b = gk.xl_occupancy_ref(grid)
     occ = (grid != 0).any(-1).numpy()
     assert occ.sum() == (kinds < 2).sum()   # every live state inside the rectangle, once
-    assert bits_a.shape == (sa + 1, -(-(sb + 1) // 128) * 4) and bits_a.dtype == torch.int32
-    assert bits_b.shape == (sb + 1, -(-(sa + 1) // 128) * 4) and bits_b.dtype == torch.int32
+    for n in (sa + 1, sb + 1):   # the fewest whole 16-byte pieces that hold n bits
+        words = gk._xl_row_words(n)
+        assert words % 4 == 0 and words * 32 >= n > (words - 4) * 32
+    assert bits_a.shape == (sa + 1, gk._xl_row_words(sb + 1)) and bits_a.dtype == torch.int32
+    assert bits_b.shape == (sb + 1, gk._xl_row_words(sa + 1)) and bits_b.dtype == torch.int32
     full_a, full_b = _unpack(bits_a, bits_a.shape[1] * 32), _unpack(bits_b, bits_b.shape[1] * 32)
     np.testing.assert_array_equal(full_a[:, :sb + 1], occ)
     np.testing.assert_array_equal(full_b[:, :sa + 1], occ.T)
@@ -568,11 +571,11 @@ def test_flip_maps_are_their_own_inverse(name, e):
             np.testing.assert_array_equal(row[row[ok]], np.flatnonzero(ok))
 
 
-def _replay_kernel(prog, grid):
+def _replay_kernel(prog, grid, list_max=gk.XL_LIST_MAX):
     """The XL kernel's schedule in numpy (float64 sums): per tile, the chunks
     of its orientation whose fixed image's bitmap row is not clear, each
     either listing the row's set cells and mapping them back through the
-    mask's flip (at most XL_LIST_MAX and no pad cell) or probing the tile's
+    mask's flip (at most list_max and no pad cell) or probing the tile's
     cells;
     H from the static program. Returns (sums, pairs run, pairs listed)."""
     bits_a, bits_b, any_a, any_b = gk.xl_occupancy_ref(grid)
@@ -596,7 +599,7 @@ def _replay_kernel(prog, grid):
             if not anyf[img]:
                 continue
             set_q = np.flatnonzero(bits[img])
-            listed = len(set_q) <= gk.XL_LIST_MAX and sq not in set_q
+            listed = len(set_q) <= list_max and sq not in set_q
             for i, (g_q, nf, _, f_off) in enumerate(pg[start:start + masks]):
                 if listed:
                     t = q_idx[g_q, set_q]
@@ -623,7 +626,8 @@ def _replay_kernel(prog, grid):
 def _fill(prog, grid, fill):
     """Test grids beside the sampled one: all zero; one set cell (a staircase
     cell near the Hartree-Fock corner); one cell that many masks reach
-    together with the sampled ones; every cell of the rectangle set."""
+    together with the sampled ones; every staircase cell set; every cell of
+    the rectangle set."""
     if fill == "sampled":
         return grid
     if fill == "zero":
@@ -638,18 +642,22 @@ def _fill(prog, grid, fill):
         return out
     gen = torch.Generator().manual_seed(3)
     out = torch.zeros_like(grid)
+    if fill == "staircase":   # the whole filtered basis, as exact E_loc over it sets it
+        in_stair = torch.arange(prog.sb)[None, :] < prog.width[:-1, None]
+        out[:-1, :-1][in_stair] = torch.rand((prog.n_cells, 2), generator=gen) - 0.5
+        return out
     out[:-1, :-1] = torch.rand((prog.sa, prog.sb, 2), generator=gen) - 0.5
     return out
 
 
-@pytest.mark.parametrize("fill", ["sampled", "zero", "one", "crowded", "full"])
+@pytest.mark.parametrize("fill", ["sampled", "zero", "one", "crowded", "staircase", "full"])
 @pytest.mark.parametrize("name,e", [("H2O", 2), ("H2O", 4), ("N2", 2)])
 def test_kernel_schedule_replay_matches_plain(name, e, fill):
     """The kernel's schedule replayed in numpy (tiles, chunks of non-empty
     rows, listed or probed set cells, H from the static program) gives the
     plain version's sums within grid_tolerance; exactly zero on the zero
-    grid. The sampled grids run every row listed; the full grid of N2 runs
-    every row probed (its rows hold 85 set cells)."""
+    grid. The sampled grids run every row listed; rows of more set cells
+    than XL_LIST_MAX are probed."""
     prog, grid, _ = _sampled_grid(name, e, 13)
     grid = _fill(prog, grid, fill)
     got, n_pairs, n_listed = _replay_kernel(prog, grid)
@@ -663,4 +671,22 @@ def test_kernel_schedule_replay_matches_plain(name, e, fill):
     if fill in ("sampled", "one"):
         assert n_listed == n_pairs
     if fill == "full" and min(prog.sa, prog.sb) > gk.XL_LIST_MAX:   # rows too full to list
+        assert n_listed == 0
+
+
+@pytest.mark.parametrize("fill", ["sampled", "staircase", "full"])
+@pytest.mark.parametrize("name,e", [("H2O", 4), ("N2", 2)])
+def test_kernel_schedule_replay_probes_fuller_rows(name, e, fill):
+    """The replay with rows of more than 2 set cells probed, as the kernel
+    probes rows of more than XL_LIST_MAX on larger grids (every row of
+    Li2O's staircase grid): the same sums; the fully set grid probes every
+    row and lists nothing."""
+    prog, grid, _ = _sampled_grid(name, e, 13)
+    grid = _fill(prog, grid, fill)
+    got, n_pairs, n_listed = _replay_kernel(prog, grid, list_max=2)
+    want = gk.xl_grid_accumulate(prog, grid).numpy()
+    tol = gk.grid_tolerance(prog, grid).numpy()
+    assert np.all(np.abs(got - want) <= tol), float((np.abs(got - want) / tol).max())
+    assert n_pairs > 0 and n_listed < n_pairs
+    if fill == "full":
         assert n_listed == 0

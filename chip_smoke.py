@@ -84,8 +84,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      staircase; xl_grid_accumulate on that batch's grid against its plain
      version per cell (grid_tolerance) and twice bitwise; the grid's set cells
      and set (mask, cell) pairs and the kernel's schedule on it (chunks staged,
-     entries listed, pairs probed); with --before, DIR's xl_grid_accumulate
-     within grid_tolerance of this tree's on that grid; local_energy through
+     entries listed, pairs probed), and the same on a grid of every staircase
+     cell set (the whole filtered basis, as local_energy over it sets it),
+     the kernel there against its plain version too; with --before, DIR's
+     xl_grid_accumulate within grid_tolerance of this tree's on the sampled
+     grid; local_energy through
      FactorTermsXL against the rank engine on XL_QUERIES staircase rows as
      queries= over a buffer of the batch's staircase states (ENGINE_TOL), and
      8 staircase rows of the sampled buffer against local_energy_np with psi
@@ -114,9 +117,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      against split_and_compact) where DIR has csrc/sampler_step.cu. Then
      SLOW_REPEATS repeats of
      SLOW_LAUNCHES of the factored and staircase kernels, the staircase kernel
-     also on a fully set grid of the rectangle (with --before, DIR's factored
-     kernel, first held bitwise against this tree's on H2O 6-31G's grid, and
-     DIR's staircase kernel on both grids), the grid kernels' plain versions, one full local_energy call per
+     also on the grid of every staircase cell and on a fully set grid of the
+     rectangle (with --before, DIR's factored kernel, first held bitwise
+     against this tree's on H2O 6-31G's grid, and DIR's staircase kernel on
+     all three grids), the grid kernels' plain versions, one full local_energy call per
      engine at capacity 100,000 (factored against rank on H2O 6-31G, and
      FactorTermsXL against rank on Li2O: printed, not asserted), the split's
      plain version, the fused
@@ -138,9 +142,11 @@ factored_grid_accumulate, split_and_compact, multinomial4_split and
 compact_children (0: the standalone kernels left sample()'s path; their
 launches in phase 5b's sample_density call as "launches_sample_density"), 7
 for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
-for xl_grid_accumulate, whose bound_ms counts the work its set-cells design
-must do on the sampled grid and dense_bound_ms the earlier design's count over
-every valid pair; with --before, "before_ms" and "before_spread" of the earlier tree's
+for xl_grid_accumulate, whose bound_ms counts what the function needs on the
+sampled grid (the grid cells the valid pairs read, the maps, the program and
+the output; the set pairs' operations) and dense_bound_ms the earlier design's
+count over every valid pair, beside its times on the staircase and the fully
+set grid; with --before, "before_ms" and "before_spread" of the earlier tree's
 kernel), and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """

@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # one card; the whole check
     python3 chip_smoke.py --profile  # also one torch.profiler-traced step
                                      # per E_loc engine (factored, rank,
-                                     # staircase)
+                                     # staircase, sort)
     python3 chip_smoke.py --before DIR  # also time an earlier slice's
                                         # kernels, unpacked at DIR, in turns
                                         # with this tree's
@@ -12,7 +12,8 @@
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. build every CUDA kernel with nvcc (one nvcc per source, started
      together): csrc/rank_gather.cu, csrc/grid_engine.cu (the factored, dense
-     and staircase accumulations) and csrc/sampler_step.cu;
+     and staircase accumulations), csrc/sampler_step.cu, csrc/sort_lookup.cu
+     (the sort engine's lookups) and csrc/offdiag_h.cu (the per-term H row);
   2. print the card's name and power limit (nvidia-smi);
   3. set up H2O 6-31G (26 qubits, sector (5, 5), 1,656,369 states) and the
      paper-scale model (amp 64, phase 512x512, global phase net, partial
@@ -93,6 +94,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      queries= over a buffer of the batch's staircase states (ENGINE_TOL), and
      8 staircase rows of the sampled buffer against local_energy_np with psi
      zeroed outside the restricted rectangle (ELOC_TOL);
+ 10c. the sort engine, for spaces with no RankSpec. On phase 8-9's H2O 6-31G
+     batch: local_energy through it (rank_spec=None, dense=None) against the
+     rank engine per live row within phase 9's tolerance, the same with the
+     per-term H row (a_mat=None, so offdiag_h_terms) within ENGINE_TOL, and
+     quadratic_energy through sorted_gather2 within QUAD_RTOL of phase 8's; each
+     kernel launched once per chunk and no other. Then N2 6-31G
+     (naqs_tpu_torch/data/N2_6-31G_gen.npz: 36 qubits, sector (7, 7) of
+     1,012,766,976 states, 137,872 terms; the dispatch must carry no RankSpec,
+     no grid program and no dense A) with the paper-scale model of phase 3 and
+     capacity 100,000: offdiag_h_terms (per entry within offdiag_tolerance),
+     sorted_ratio_rowsum (per row within rowsum_tolerance) and sorted_gather2
+     (bitwise) against their plain versions on a real chunk (C=128,
+     Kxy=27,392), each twice bitwise; N2_STEPS training steps with the counts
+     at 0 before (sorted_ratio_rowsum and offdiag_h_terms once per chunk, 782
+     per local_energy call, split_and_compact 18 times per sample() call, no
+     other kernel); 8 rows of a fresh batch against local_energy_np
+     (ELOC_TOL). The host layer: the native library builds, its COO assembly
+     of N2 STO-3G's 14,400-state sector equals numpy's, and the ground state of
+     assemble_sparse_hamiltonian_np is the stored FCI energy within 1e-6 Ha;
  11. times, in turns: REPEATS repeats of LAUNCHES launches each (median and
      min-max of the repeats) of rank_gather2, its plain version, the library
      gather tab[idx] on a precomputed idx, rank_ratio_rowsum, its plain
@@ -127,7 +147,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      shell step's plain version, the (U, 127)
      cumprod/cumsum split the step ran before the kernel, and one whole
      sample() call at capacity 100,000 (with --before, also DIR's sample()
-     on the same model, in turns). Each is timed held (behind a card sleep
+     on the same model, in turns). Then REPEATS repeats of SORT_LAUNCHES of
+     the sort engine's three kernels on N2 6-31G's chunk, their plain versions
+     and the library calls beside them (torch.searchsorted of the coupled
+     states and a gather; Tensor.index_add of the products computed
+     beforehand), and SLOW_REPEATS unheld repeats of one whole N2 6-31G
+     local_energy call, through the kernels and through all three plain
+     versions (first held against each other within ENGINE_TOL). Each is
+     timed held (behind a card sleep
      that covers the host's enqueue, so the launches run back to back: the
      card's time, reported as "ms"); the fast ones also unheld (a plain loop,
      which reads the host's rate where the wrapper is slower than the
@@ -142,7 +169,9 @@ factored_grid_accumulate, split_and_compact, multinomial4_split and
 compact_children (0: the standalone kernels left sample()'s path; their
 launches in phase 5b's sample_density call as "launches_sample_density"), 7
 for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
-for xl_grid_accumulate, whose bound_ms counts what the function needs on the
+for xl_grid_accumulate, 10c's N2 steps for sorted_ratio_rowsum and
+offdiag_h_terms and its H2O quadratic_energy call for sorted_gather2; the
+staircase kernel's bound_ms counts what the function needs on the
 sampled grid (the grid cells the valid pairs read, the maps, the program and
 the output; the set pairs' operations) and dense_bound_ms the earlier design's
 count over every valid pair, beside its times on the staircase and the fully
@@ -170,6 +199,9 @@ XL_EXC = 4                    # Li2O STO-3G CISDTQ: at most 4 excitations
 LI2O_CELLS = 644_365          # its staircase cells
 XL_QUERIES = 4096             # staircase rows held against the rank engine
 QUAD_RTOL = 1e-6              # quadratic_energy, kernel vs plain gather
+N2_STEPS = 2                  # training steps of N2 6-31G on the sort engine
+SORT_LAUNCHES = 10            # timing of the sort engine's kernels: launches per repeat
+SEARCH_OPS = 3                # integer operations per level of a search: load, compare, select
 REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
 SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and more
 RANK_OPS = 25                 # integer ops per element of the kernels' rank_of
@@ -731,18 +763,30 @@ def main(argv) -> int:
                                                  factored_grid_accumulate_ref, grid_tolerance,
                                                  xl_grid_accumulate, xl_grid_accumulate_ref)
     from naqs_tpu_torch.ops.multinomial import multinomial4_split, multinomial4_split_ref
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import eigsh
+
+    from naqs_tpu_torch import native
+    from naqs_tpu_torch.hamiltonian import (_assemble_rows_np, assemble_sparse_hamiltonian_np,
+                                            diagonal_energy_np)
+    from naqs_tpu_torch.ops.offdiag_h import (OFFDIAG_ATOL, OFFDIAG_RTOL, offdiag_h_terms,
+                                              offdiag_h_terms_ref, offdiag_tolerance)
     from naqs_tpu_torch.ops.rank import build_value_table, rank_index
+    from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_gather2_ref,
+                                                sorted_log_amps, sorted_ratio_rowsum,
+                                                sorted_ratio_rowsum_ref)
     from naqs_tpu_torch.ops.sampler_kernels import split_tile_rows
     from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref,
                                         _split_and_compact, _split_and_compact_ref)
-    from naqs_tpu_torch.utils.bits import SENTINEL
+    from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
     from naqs_tpu_torch.utils.cuda_timing import hold_ms, time_in_turns
 
     dev = torch.device("cuda")
     t0 = time.time()
     wrappers = (rank_gather2, rank_ratio_rowsum, factored_grid_accumulate,
                 dense_grid_accumulate, multinomial4_split, _compact_children, _split_and_compact,
-                xl_grid_accumulate)
+                xl_grid_accumulate, sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms)
+    sort_wrappers = wrappers[-3:]
 
     def zero_counts():
         for w in wrappers:
@@ -1042,7 +1086,7 @@ def main(argv) -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if (fact_launches != n_updates or n_updates < 5 or rank_ratio_rowsum.launches
             or rank_gather2.launches or dense_grid_accumulate.launches
-            or xl_grid_accumulate.launches):
+            or xl_grid_accumulate.launches or any(w.launches for w in sort_wrappers)):
         raise SystemExit("the main path did not run factored_grid_accumulate once per "
                          "E_loc call, or ran another engine's kernel")
     if not (fused_launches == n_shells * n_draws and n_draws >= 5
@@ -1064,7 +1108,8 @@ def main(argv) -> int:
           f"{multinomial4_split.launches}, compact_children {_compact_children.launches}",
           flush=True)
     if ratio_launches != per_call * n_updates or n_updates < 2 or \
-            factored_grid_accumulate.launches or xl_grid_accumulate.launches:
+            factored_grid_accumulate.launches or xl_grid_accumulate.launches or \
+            any(w.launches for w in sort_wrappers):
         raise SystemExit("the rank path did not run rank_ratio_rowsum once per chunk")
     if not (_split_and_compact.launches == n_shells * n_draws
             and multinomial4_split.launches == _compact_children.launches == 0):
@@ -1088,7 +1133,8 @@ def main(argv) -> int:
     q_rel = abs(q_k - q_p) / abs(q_p)
     print(f"[quad] quadratic_energy kernel {q_k:.10f} vs plain {q_p:.10f}: rel {q_rel:.2e} "
           f"(tol {QUAD_RTOL}); rank_gather2 launches {gather_launches}", flush=True)
-    if not (q_rel <= QUAD_RTOL and gather_launches > 0 and math.isfinite(q_k)):
+    if not (q_rel <= QUAD_RTOL and gather_launches > 0 and math.isfinite(q_k)
+            and not sorted_gather2.launches):
         raise SystemExit("quadratic_energy through rank_gather2 disagrees or never launched it")
 
     # 9. local_energy: rank kernel vs its plain version, grid engine vs rank
@@ -1111,7 +1157,7 @@ def main(argv) -> int:
           f"max_abs_diff re {float(d_re.max()):.3e} im {float(d_im.max()):.3e} Ha", flush=True)
     if not eq:
         raise SystemExit("local_energy through the kernel differs from the plain version")
-    del table2, tol
+    del table2
 
     # 10. the dense engine on N2 STO-3G
     t1 = time.time()
@@ -1141,7 +1187,7 @@ def main(argv) -> int:
           f"multinomial4_split {multinomial4_split.launches}, compact_children "
           f"{_compact_children.launches}", flush=True)
     if (dense_launches != n_updates or n_updates < 3 or any(w.launches for w in wrappers[:3])
-            or xl_grid_accumulate.launches):
+            or xl_grid_accumulate.launches or any(w.launches for w in sort_wrappers)):
         raise SystemExit("N2 did not run dense_grid_accumulate once per E_loc call")
     if not (_split_and_compact.launches == cfg2.n_shells * n_draws
             and multinomial4_split.launches == _compact_children.launches == 0):
@@ -1302,6 +1348,187 @@ def main(argv) -> int:
         raise SystemExit("Li2O: the staircase engine disagrees with the rank engine or the "
                          "oracle")
 
+    # 10c. the sort engine (no RankSpec): on H2O 6-31G's batch of phases 8-9
+    # against the rank engine, then N2 6-31G (36 qubits) at the paper's widths
+    dt_sort = dataclasses.replace(dt, rank_spec=None, dense=None)
+    dt_seg = dataclasses.replace(dt_sort, a_mat=None)
+    if dt_sort.a_mat is None:
+        raise SystemExit("H2O 6-31G's DeviceTerms must carry a dense A")
+    zero_counts()
+    e_s = le.local_energy(dt_sort, batch.states, la, ph, batch.n_unique)
+    e_g = le.local_energy(dt_seg, batch.states, la, ph, batch.n_unique)
+    q_s = float(le.quadratic_energy(dt_sort, batch.states, la, ph, batch.n_unique))
+    h2o_counts = {w.__name__: w.launches for w in wrappers}
+    quad_launches = sorted_gather2.launches
+    d_sr = [(a[:nu] - b[:nu]).abs() for a, b in zip(e_s, e_k)]
+    sr_ok = all(bool((d <= tol).all()) for d in d_sr)
+    sr_same = all(torch.equal(a[:nu], b[:nu]) for a, b in zip(e_s, e_k))
+    d_seg = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_g, e_s))
+    q_rel_s = abs(q_s - q_k) / abs(q_k)
+    print(f"[eloc] H2O 6-31G, sort engine (rank_spec=None, dense=None) vs rank engine on {nu} "
+          f"rows: within the per-row tolerance of phase 9={sr_ok} (bitwise equal={sr_same}), "
+          f"max_abs_diff re {float(d_sr[0].max()):.3e} im {float(d_sr[1].max()):.3e} Ha; the "
+          f"per-term H row (a_mat=None) vs the dense A: {d_seg:.3e} Ha (tol {ENGINE_TOL}); "
+          f"quadratic_energy through sorted_gather2 {q_s:.10f} vs rank {q_k:.10f}: rel "
+          f"{q_rel_s:.2e} (tol {QUAD_RTOL}); launches {h2o_counts}", flush=True)
+    want_counts = {w.__name__: 0 for w in wrappers}
+    want_counts.update(sorted_ratio_rowsum=2 * per_call, offdiag_h_terms=per_call,
+                       sorted_gather2=per_call)
+    if not (sr_ok and d_seg <= ENGINE_TOL and q_rel_s <= QUAD_RTOL
+            and h2o_counts == want_counts and math.isfinite(q_s)):
+        raise SystemExit("H2O 6-31G: the sort engine disagrees with the rank engine, or ran "
+                         "other kernels than its own")
+    del e_s, e_g, d_sr
+
+    t1 = time.time()
+    mol4 = nt.load_molecule("N2_6-31G_gen")
+    t_jw = time.time() - t1
+    hil4 = nt.Hilbert.for_molecule(mol4)
+    terms4 = nt.compile_pauli_terms(mol4.qubit_hamiltonian, mol4.n_qubits)
+    cfg4 = nt.NAQSConfig(n_qubits=mol4.n_qubits, sectors=hil4.sectors,
+                         amp_hidden=(64,), phase_hidden=(512, 512))
+    t2 = time.time()
+    tr4 = nt.VMCTrainer(cfg4, terms4, hil4, tc, device=dev)
+    dt4 = tr4.dt
+    if not (dt4.rank_spec is None and dt4.dense is None and dt4.a_mat is None):
+        raise SystemExit("N2 6-31G must dispatch to the sort engine with the per-term H row")
+    cap4 = tr4.capacity
+    chunk4 = le._chunks(dt4, cap4, None)
+    per_call4 = -(-cap4 // chunk4)
+    groups4 = np.bincount(terms4.gxy)
+    print(f"[setup] N2 6-31G: {mol4.n_qubits} qubits, sector {hil4.sectors[0]} of "
+          f"{hil4.sector_size} states, HF {mol4.hf_energy:.6f} Ha; K={len(terms4.coeff)} "
+          f"Kxy={len(terms4.xy_unique)} (pad {dt4.xy_unique.shape[0]}) Kyz="
+          f"{len(terms4.yz_unique)} (pad {dt4.yz_unique.shape[0]}) Kd={len(terms4.diag_yz)}, "
+          f"terms per flip mask max {int(groups4.max())} mean {groups4.mean():.2f}; no RankSpec, "
+          f"no grid program, no dense A ({dt4.yz_unique.shape[0] * dt4.xy_unique.shape[0]} "
+          f"entries); chunks of {chunk4} rows, {per_call4} per local_energy call at capacity "
+          f"{cap4}; {sum(p.numel() for p in tr4.model.parameters())} params; "
+          f"{time.time() - t1:.1f}s, of which the Jordan-Wigner transform {t_jw:.1f}s and the "
+          f"trainer with its DeviceTerms {time.time() - t2:.1f}s", flush=True)
+    # the three kernels on a real chunk of a sampled batch
+    batch4 = tr4._sample()
+    with torch.no_grad():
+        la4, ph4 = log_psi(tr4.model, batch4.states)
+    s4 = batch4.states[:chunk4].contiguous()
+    my_la4, my_ph4 = la4[:chunk4].float().contiguous(), ph4[:chunk4].float().contiguous()
+    xy4 = dt4.xy_unique
+    h_args = (s4, dt4.yz_unique, dt4.xy_ptr, dt4.term_yz, dt4.term_coeff)
+    h4, h4_again = offdiag_h_terms(*h_args), offdiag_h_terms(*h_args)
+    h4_ref = offdiag_h_terms_ref(*h_args)
+    h_diff = (h4 - h4_ref).abs()
+    h_tol = offdiag_tolerance(dt4.xy_ptr, dt4.term_coeff)[None, :]
+    offdiag_err = float(h_diff.max())
+    h_ok = bool((h_diff <= h_tol).all()) and bool(torch.isfinite(h4).all())
+    h_same = torch.equal(h4, h4_again)
+    table4 = pack_table(batch4.states, la4, ph4)
+    nv4 = le._count(batch4.n_unique, dev)
+    r_args = (*table4, nv4, s4, xy4, my_la4, my_ph4, h4)
+    r_got, r_again = sorted_ratio_rowsum(*r_args), sorted_ratio_rowsum(*r_args)
+    r_want = sorted_ratio_rowsum_ref(*r_args)
+    g_la4 = sorted_log_amps(table4[0], table4[1], nv4, s4, xy4)
+    r_tol = rowsum_tolerance(g_la4, my_la4, h4)
+    r_diff = [(g - w).abs() for g, w in zip(r_got, r_want)]
+    ratio_err4 = max(float(d.max()) for d in r_diff)
+    r_ok = all(bool((d <= r_tol).all()) for d in r_diff) and all(
+        bool(torch.isfinite(g).all()) for g in r_got)
+    r_same = all(torch.equal(a, b) for a, b in zip(r_got, r_again))
+    live4 = torch.arange(chunk4, device=dev) < batch4.n_unique
+    g_args = (*table4, nv4, s4, xy4, live4)
+    g_got, g_again = sorted_gather2(*g_args), sorted_gather2(*g_args)
+    g_want = sorted_gather2_ref(*g_args)
+    g_same = all(torch.equal(a, b) for a, b in zip(g_got, g_want))
+    g_twice = all(torch.equal(a, b) for a, b in zip(g_got, g_again))
+    gather_err4 = max(_max_diff(a, b) for a, b in zip(g_got, g_want))
+    n_found4 = int((g_la4 > -1e29).sum())
+    n_hits4 = n_found4 - chunk4 * (xy4.shape[0] - len(terms4.xy_unique))   # pad xy = 0 finds s
+    n_levels4 = max(math.ceil(math.log2(max(int(batch4.n_unique), 1))), 0)
+    torch.cuda.synchronize()
+    print(f"[kernel] offdiag_h_terms (C={chunk4}, Kxy={xy4.shape[0]}, {len(terms4.coeff)} "
+          f"terms): max_abs_err={offdiag_err:.3e}, worst entry at "
+          f"{float((h_diff / h_tol).max()):.3f} of its tolerance ({OFFDIAG_ATOL} + "
+          f"{OFFDIAG_RTOL} * sum_k |coeff_k|), within={h_ok}, twice bitwise equal={h_same}",
+          flush=True)
+    print(f"[kernel] sorted_ratio_rowsum (C={chunk4}, Kxy={xy4.shape[0]}, a table of "
+          f"{int(batch4.n_unique)} live states in {cap4}, {n_levels4} search levels, real h): "
+          f"max_abs_err={ratio_err4:.3e} Ha, worst row at "
+          f"{max(float((d / r_tol).max()) for d in r_diff):.3f} of its tolerance, within={r_ok}, "
+          f"twice bitwise equal={r_same}; coupled states found {n_found4} of "
+          f"{chunk4 * xy4.shape[0]} ({n_hits4} beyond the padded flip masks)", flush=True)
+    print(f"[kernel] sorted_gather2 (C={chunk4}, Kxy={xy4.shape[0]}): bitwise equal to its "
+          f"plain version={g_same}, twice bitwise equal={g_twice}", flush=True)
+    if not (h_ok and h_same and r_ok and r_same and g_same and g_twice):
+        raise SystemExit("a sort-engine kernel disagrees with its plain version or itself")
+
+    zero_counts()
+    n_updates4, t_n2, n_draws4 = _steps(tr4, N2_STEPS, "sort (N2 6-31G)")
+    n2_counts = {w.__name__: w.launches for w in wrappers}
+    want_counts = {w.__name__: 0 for w in wrappers}
+    want_counts.update(sorted_ratio_rowsum=per_call4 * n_updates4,
+                       offdiag_h_terms=per_call4 * n_updates4,
+                       _split_and_compact=cfg4.n_shells * n_draws4)
+    print(f"[path] N2 6-31G default dispatch (sort engine): launches in {N2_STEPS} steps "
+          f"{n2_counts} ({n_updates4} vmc_update calls, {per_call4} chunks per local_energy "
+          f"call; {n_draws4} sample() calls of {cfg4.n_shells} shells); steps "
+          f"{', '.join(f'{t:.3f}' for t in t_n2)} s", flush=True)
+    if n2_counts != want_counts or n_updates4 < N2_STEPS:
+        raise SystemExit(f"N2 6-31G did not run sorted_ratio_rowsum and offdiag_h_terms once "
+                         f"per chunk and split_and_compact once per shell, or ran other "
+                         f"kernels: {n2_counts} against {want_counts}")
+    sort_launches = n2_counts["sorted_ratio_rowsum"]
+    offdiag_launches = n2_counts["offdiag_h_terms"]
+    # 8 rows of a fresh batch against the float64 oracle: 4 at random and the 4
+    # whose off-diagonal part is largest (few sampled states couple at random weights)
+    batch4 = tr4._sample()
+    with torch.no_grad():
+        la4, ph4 = log_psi(tr4.model, batch4.states)
+    nu4 = int(batch4.n_unique)
+    e4 = le.local_energy(dt4, batch4.states, la4, ph4, batch4.n_unique)
+    off4 = (e4[0][:nu4] - le.diagonal_energy(dt4, batch4.states[:nu4])).abs()
+    top4 = torch.topk(off4, 4).indices.cpu().numpy()
+    rest4 = np.setdiff1d(np.arange(nu4), top4)
+    rows8 = np.sort(np.concatenate([top4, np.random.default_rng(3).choice(rest4, 4,
+                                                                          replace=False)]))
+    t1 = time.time()
+    ref4 = _oracle_rows(terms4, batch4.states[:nu4].cpu().numpy(),
+                        la4[:nu4].double().cpu().numpy(), ph4[:nu4].double().cpu().numpy(), rows8)
+    err4 = float(np.abs(e4[0][:nu4].cpu().numpy()[rows8] - ref4).max())
+    finite4 = bool(torch.isfinite(e4[0][:nu4]).all() and torch.isfinite(e4[1][:nu4]).all())
+    print(f"[eloc] N2 6-31G, sort engine: {nu4} live rows, all finite={finite4}, rows with a "
+          f"found coupled state {int((off4 > 0).sum())}; 8 rows (the 4 of the largest "
+          f"off-diagonal part and 4 at random) vs float64 local_energy_np: {err4:.2e} Ha (tol "
+          f"{ELOC_TOL}; the oracle "
+          f"{time.time() - t1:.1f}s); their E_loc - E_diag up to "
+          f"{float(np.abs(ref4 - diagonal_energy_np(terms4, batch4.states[:nu4].cpu().numpy()[rows8])).max()):.3e} Ha",
+          flush=True)
+    if not (err4 < ELOC_TOL and finite4):
+        raise SystemExit("N2 6-31G: the sort engine disagrees with the float64 oracle")
+
+    # the host layer: the native library against numpy, and N2 STO-3G's ground state
+    t1 = time.time()
+    if not native.available():
+        raise SystemExit("the native host library did not build")
+    basis2 = hil2.basis
+    coo = native.assemble_h_coo(terms2, basis2)
+    t_nat = time.time() - t1
+    h_nat = sp.csr_matrix((coo[2], (coo[0], coo[1])), shape=(len(basis2), len(basis2)))
+    t1 = time.time()
+    coo_np = _assemble_rows_np(terms2, basis2, 0, len(basis2))
+    t_np = time.time() - t1
+    h_np = sp.csr_matrix((coo_np[2], (coo_np[0], coo_np[1])), shape=h_nat.shape)
+    d_csr = abs(h_nat - h_np)
+    csr_diff = float(d_csr.max()) if d_csr.nnz else 0.0
+    h_csr = assemble_sparse_hamiltonian_np(terms2, basis2)
+    e0 = float(eigsh(h_csr, k=1, which="SA")[0][0])
+    fci_err = abs(e0 - mol2.fci_energy)
+    print(f"[host] native library {native._LIB}: N2 STO-3G's {len(basis2)}-state sector, "
+          f"{h_nat.nnz} nonzeros, native COO {t_nat:.2f}s and numpy {t_np:.2f}s: max difference "
+          f"{csr_diff:.1e}; assemble_sparse_hamiltonian_np's ground state {e0:.8f} Ha vs FCI "
+          f"{mol2.fci_energy:.8f}: {fci_err:.1e} Ha (tol 1e-6)", flush=True)
+    if not (csr_diff <= 1e-12 and h_nat.nnz == h_np.nnz and fci_err < 1e-6):
+        raise SystemExit("the host layer: native and numpy assembly differ, or the ground "
+                         "state misses FCI")
+
     # 11. times, in turns
     hold = hold_ms()
     times = time_in_turns(fns, REPEATS, LAUNCHES)
@@ -1338,6 +1565,67 @@ def main(argv) -> int:
     if "sampler" in old_mods:
         slow_fns[old_sample] = lambda: old_mods["sampler"].sample(tr.model, tr.gen, 1e5, cap)
     times.update(time_in_turns(slow_fns, SLOW_REPEATS, SLOW_LAUNCHES))
+    # the sort engine's kernels on N2 6-31G's chunk, their plain versions and the
+    # library calls (each computes less than its kernel: no found test, no ratio,
+    # no row sum; the segment sum of products computed beforehand)
+    q4 = s4[:, None] ^ xy4[None, :]
+    group4 = torch.repeat_interleave(torch.arange(xy4.shape[0], device=dev),
+                                     torch.diff(dt4.xy_ptr.long()),
+                                     output_size=dt4.term_yz.shape[0])
+    contrib4 = (parity_pm1(s4[:, None] & dt4.yz_unique[None, :]).float()[:, dt4.term_yz.long()]
+                * dt4.term_coeff)
+    h_zero = torch.zeros_like(h4)
+
+    def searchsorted_gather():
+        pos = torch.searchsorted(table4[0], q4)
+        return table4[1][pos], table4[2][pos]
+
+    sort_fns = {
+        "sorted_ratio_rowsum": lambda: sorted_ratio_rowsum(*r_args),
+        "sorted_gather2": lambda: sorted_gather2(*g_args),
+        "offdiag_h_terms": lambda: offdiag_h_terms(*h_args),
+        "searchsorted + gather": searchsorted_gather,
+        "index_add (precomputed products)": lambda: h_zero.index_add(1, group4, contrib4),
+        "sorted_ratio_rowsum_ref": lambda: sorted_ratio_rowsum_ref(*r_args),
+        "sorted_gather2_ref": lambda: sorted_gather2_ref(*g_args),
+        "offdiag_h_terms_ref": lambda: offdiag_h_terms_ref(*h_args),
+    }
+    sort_fast = ["sorted_ratio_rowsum", "sorted_gather2", "offdiag_h_terms"]
+    times.update(time_in_turns(sort_fns, REPEATS, SORT_LAUNCHES))
+    calls.update(time_in_turns({n: sort_fns[n] for n in sort_fast}, REPEATS, SORT_LAUNCHES,
+                               hold=False))
+    slow = [n for n in sort_fast if calls[n][1][1] * SORT_LAUNCHES >= hold]
+    if slow:
+        raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times invalid")
+    # one whole local_energy call at capacity 100,000 through the kernels and through
+    # all three plain versions, unheld: the call's wall time on the card, host included
+    plain_names = ("sorted_ratio_rowsum", "sorted_gather2", "offdiag_h_terms")
+
+    def plain_call():
+        saved = [getattr(le, n) for n in plain_names]
+        for n, f in zip(plain_names, (sorted_ratio_rowsum_ref, sorted_gather2_ref,
+                                      offdiag_h_terms_ref)):
+            setattr(le, n, f)
+        try:
+            return le.local_energy(dt4, batch4.states, la4, ph4, batch4.n_unique)
+        finally:
+            for n, f in zip(plain_names, saved):
+                setattr(le, n, f)
+
+    e4_plain = plain_call()
+    d_plain = max(float((a[:nu4] - b[:nu4]).abs().max()) for a, b in zip(e4, e4_plain))
+    print(f"[eloc] N2 6-31G: local_energy through the plain versions vs through the kernels on "
+          f"{nu4} rows: max_abs_diff {d_plain:.3e} Ha (tol {ENGINE_TOL})", flush=True)
+    if d_plain > ENGINE_TOL:
+        raise SystemExit("N2 6-31G: local_energy through the kernels and through their plain "
+                         "versions differ")
+    del e4_plain
+    le_name = "local_energy (sort engine, N2 6-31G)"
+    le_plain = f"{le_name} through the plain versions"
+    e2e = time_in_turns({le_name: lambda: le.local_energy(dt4, batch4.states, la4, ph4,
+                                                           batch4.n_unique),
+                         le_plain: plain_call}, SLOW_REPEATS, 1, hold=False)
+    calls.update(e2e)
     print(f"[time] {REPEATS} repeats of {LAUNCHES} launches ({SLOW_REPEATS} of "
           f"{SLOW_LAUNCHES} for the factored and staircase kernels, the grid kernels' plain "
           f"versions, "
@@ -1351,6 +1639,15 @@ def main(argv) -> int:
                   f"{calls[name][1][1]:.4f} ms" if name in calls else "")
         print(f"[time] {name}: held median {med:.4f} ms, spread {spread[0]:.4f}-{spread[1]:.4f}"
               f" ms{unheld}", flush=True)
+    print(f"[time] the sort engine's kernels, plain versions and library calls: {REPEATS} "
+          f"repeats of {SORT_LAUNCHES} launches in turns; one whole local_energy call: "
+          f"{SLOW_REPEATS} repeats of 1, unheld (the host's enqueue of {per_call4} chunks "
+          f"included)", flush=True)
+    for name, (med, spread) in e2e.items():
+        print(f"[time] {name}: unheld median {med:.2f} ms, spread {spread[0]:.2f}-"
+              f"{spread[1]:.2f} ms; held kernel time of its {per_call4} chunks: "
+              f"{per_call4 * (times['sorted_ratio_rowsum'][0] + times['offdiag_h_terms'][0]):.2f}"
+              f" ms", flush=True)
     slow = [n for n in fast if calls[n][1][1] * LAUNCHES >= hold]
     if slow:
         raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times invalid")
@@ -1397,6 +1694,33 @@ def main(argv) -> int:
           f"{d_h['rows']} B, the whole tensor {d_h['whole']} B) + the maps, the grid and the "
           f"output once {d_bytes - d_h['sectors']} B; {d_ops} float32 operations)", flush=True)
 
+    # the sort engine's kernels on N2 6-31G's chunk: each input read once (the whole
+    # sorted table of states, la and ph), each output written once; per coupled state
+    # the xor, SEARCH_OPS per level of the search and the equality test, per found
+    # state the epilogue's operations; per term and row of the H row an and, a
+    # popcount, a sign flip and an add
+    n_q4 = s4.numel() * xy4.numel()
+    tab_bytes = sum(t.numel() * t.element_size() for t in table4)
+    head4 = s4.numel() * 8 + xy4.numel() * 8 + tab_bytes + 8
+    search_ops = n_q4 * (2 + SEARCH_OPS * n_levels4)
+    sr_bytes = head4 + h4.numel() * 4 + 4 * chunk4 * 4
+    sr_bound = _bound(sr_bytes, search_ops + n_found4 * EPILOGUE_OPS)
+    sg_bytes = head4 + chunk4 + 2 * n_q4 * 4
+    sg_bound = _bound(sg_bytes, search_ops)
+    oh_bytes = (s4.numel() * 8 + dt4.yz_unique.numel() * 8 + dt4.xy_ptr.numel() * 4
+                + dt4.term_yz.numel() * 8 + h4.numel() * 4)
+    oh_ops = chunk4 * dt4.term_yz.numel() * 4
+    oh_bound = _bound(oh_bytes, oh_ops)
+    print(f"[bound] sorted_ratio_rowsum {sr_bound[0]:.5f} ms ({sr_bound[1]}: {sr_bytes} B = h "
+          f"{h4.numel() * 4} B, the table {tab_bytes} B, s, xy, my_la, my_ph, outputs; "
+          f"{search_ops + n_found4 * EPILOGUE_OPS} operations = {n_q4} coupled states x (2 + "
+          f"{SEARCH_OPS} x {n_levels4} levels) + {n_found4} found x {EPILOGUE_OPS})", flush=True)
+    print(f"[bound] sorted_gather2 {sg_bound[0]:.5f} ms ({sg_bound[1]}: {sg_bytes} B = outputs "
+          f"{2 * n_q4 * 4} B, the table, s, xy, live; {search_ops} operations)", flush=True)
+    print(f"[bound] offdiag_h_terms {oh_bound[0]:.5f} ms ({oh_bound[1]}: {oh_bytes} B = h "
+          f"{h4.numel() * 4} B, the grouped terms, yz_unique, xy_ptr, s; {oh_ops} integer and "
+          f"float32 operations = {chunk4} rows x {dt4.term_yz.numel()} terms x 4)", flush=True)
+
     # the sampler's kernels: a dead row reads its count and its flag and writes zeros; a
     # live row also reads its probs, mask and six draws. The compaction reads the flags,
     # a and b of the rows with a valid child and each kept child's weight, and writes
@@ -1442,10 +1766,14 @@ def main(argv) -> int:
                      "multinomial4_split_kernel": multinomial4_split,
                      "factored_grid_accumulate_kernel": factored_grid_accumulate,
                      "rank_ratio_rowsum_kernel": rank_ratio_rowsum,
-                     "xl_grid_accumulate_kernel": xl_grid_accumulate}
+                     "xl_grid_accumulate_kernel": xl_grid_accumulate,
+                     "sorted_ratio_rowsum_kernel": sorted_ratio_rowsum,
+                     "sorted_gather2_kernel": sorted_gather2,
+                     "offdiag_h_terms_kernel": offdiag_h_terms}
         xl_dt = tr3.dt
         for label, trainer, terms_dev in (("factored", tr, dt), ("rank", tr, dt_rank),
-                                          ("staircase (Li2O CISDTQ)", tr3, xl_dt)):
+                                          ("staircase (Li2O CISDTQ)", tr3, xl_dt),
+                                          ("sort (N2 6-31G)", tr4, dt4)):
             trainer.dt = terms_dev
             for name, step in (("sample", trainer._sample), ("step", trainer.step)):
                 torch.cuda.synchronize()
@@ -1477,7 +1805,7 @@ def main(argv) -> int:
             for e in events:
                 if any(k in e.key for k in ("rank_", "grid_accumulate", "multinomial4_split",
                                             "compact_children", "split_and_compact", "cumsum",
-                                            "cumprod")) \
+                                            "cumprod", "sorted_", "offdiag_h")) \
                         and e.self_device_time_total > 0:
                     print(f"[profile] {label} {e.key}: {e.count} launches, "
                           f"{e.self_device_time_total / 1e3:.3f} ms device time, "
@@ -1534,6 +1862,27 @@ def main(argv) -> int:
                   "before_staircase_grid_ms": times[f"{old_xl} (staircase grid)"][0]}
                  if f"{old_xl} (full grid)" in times else {}),
               **before(old_xl), **GRID_SRC),
+        entry("sorted_ratio_rowsum", sort_launches, ratio_err4, "sorted_ratio_rowsum_ref",
+              sr_bound, "searchsorted + gather", source="naqs_tpu_torch/csrc/sort_lookup.cu",
+              replaces="naqs_tpu/ops/local_energy.py:183",
+              library_note="torch.searchsorted of the (C, K) coupled states and two gathers: no "
+                           "found test, ratio or row sum",
+              per_local_energy_call=per_call4, local_energy_ms=calls[le_name][0],
+              local_energy_plain_ms=calls[le_plain][0],
+              path_note="N2 6-31G (36 qubits, no RankSpec): the training step's E_loc chunks"),
+        entry("sorted_gather2", quad_launches, gather_err4, "sorted_gather2_ref", sg_bound,
+              "searchsorted + gather", source="naqs_tpu_torch/csrc/sort_lookup.cu",
+              replaces="naqs_tpu/ops/local_energy.py:363",
+              library_note="torch.searchsorted of the (C, K) coupled states and two gathers: no "
+                           "found test or live mask",
+              path_note="quadratic_energy without a RankSpec; launches: one such call on H2O "
+                        "6-31G's batch (phase 10c), none in the training step"),
+        entry("offdiag_h_terms", offdiag_launches, offdiag_err, "offdiag_h_terms_ref", oh_bound,
+              "index_add (precomputed products)", source="naqs_tpu_torch/csrc/offdiag_h.cu",
+              replaces="naqs_tpu/ops/local_energy.py:209",
+              library_note="Tensor.index_add of the (C, K) products computed beforehand: the "
+                           "segment sum alone",
+              path_note="every E_loc chunk where a dense A would exceed 2^26 entries"),
         entry("split_and_compact", fused_launches, fused_totals["err"], "split_and_compact_ref",
               fu_bound, None,
               replaces="naqs_tpu/ops/multinomial.py:76 + naqs_tpu/sampler.py:49",

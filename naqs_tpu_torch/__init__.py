@@ -3,9 +3,12 @@
 A port of `naqs_tpu` (JAX) that mirrors its module layout. It imports
 neither JAX nor `naqs_tpu`. Entry points run on the CUDA card unless the
 caller passes `device="cpu"`. Its kernels are hand-written CUDA
-(`csrc/rank_gather.cu`: the rank engine's psi lookup; `csrc/grid_engine.cu`:
-the grid engines' accumulation; `csrc/sampler_step.cu`: the sampler's count
-split and frontier compaction), built with nvcc on first use.
+(`csrc/rank_gather.cu`: the rank engine's psi lookup; `csrc/sort_lookup.cu`:
+the sort engine's, for spaces with no rank table; `csrc/offdiag_h.cu`: the H
+row term by term; `csrc/grid_engine.cu`: the grid engines' accumulation;
+`csrc/sampler_step.cu`: the sampler's count split and frontier compaction),
+built with nvcc on first use; `csrc/naqs_host.cpp` is the host library
+(`native.py`), built with g++.
 """
 
 __version__ = "0.1.0"

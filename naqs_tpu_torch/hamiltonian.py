@@ -9,8 +9,11 @@ gives exactly one coupled state |s ^ xy_k> with matrix element
 where xy_k has bits at X/Y sites (the flip mask), yz_k has bits at Y/Z sites
 (the sign mask), and c_k = (i^{n_Y} * coeff), real for Hermitian
 Hamiltonians with real orbitals. Masks are int64 (see utils/bits.py).
-Mirrors `naqs_tpu/hamiltonian.py::compile_pauli_terms` term for term, and
-keeps its numpy host oracles `diagonal_energy_np` and `local_energy_np`.
+Mirrors `naqs_tpu/hamiltonian.py`: `compile_pauli_terms` term for term, its
+numpy host oracles `diagonal_energy_np` and `local_energy_np`, the host
+assembly of H over a sorted basis (dense, sparse CSR by row blocks through the
+native C++ assembler of `naqs_tpu_torch/native.py` or numpy, and a scipy
+LinearOperator over the blocks), and `freeze_core`.
 """
 
 from __future__ import annotations
@@ -176,3 +179,148 @@ def local_energy_np(terms: PauliTerms, states: np.ndarray, psi: np.ndarray) -> n
             h += c * np_parity_pm1(states & yz)
         e += h * np.where(found, psi[pos] / denom, 0.0)
     return e
+
+
+# ---------------------------------------------------------- host assembly
+
+def assemble_dense_hamiltonian_np(terms: PauliTerms, basis: np.ndarray) -> np.ndarray:
+    """Dense H over a sorted packed-state basis (an oracle for tests and small
+    solves). Couplings to states outside `basis` are dropped."""
+    basis = np.asarray(basis, dtype=np.int64)
+    n = len(basis)
+    H = np.zeros((n, n), dtype=np.float64)
+    H[np.arange(n), np.arange(n)] = diagonal_energy_np(terms, basis)
+    for xy, yz, c in zip(terms.xy, terms.yz, terms.coeff):
+        coupled = basis ^ xy
+        pos_c = np.minimum(np.searchsorted(basis, coupled), n - 1)
+        found = basis[pos_c] == coupled
+        sign = np_parity_pm1(basis & yz).astype(np.float64)
+        rows = np.flatnonzero(found)
+        H[rows, pos_c[rows]] += c * sign[rows]
+    return H
+
+
+def _assemble_rows_np(terms: PauliTerms, basis: np.ndarray, r0: int, r1: int):
+    """numpy COO (rows, cols, vals) of H rows [r0, r1) of a sorted basis; rows
+    are absolute indices, columns search the whole basis."""
+    n = len(basis)
+    blk = basis[r0:r1]
+    rows = [np.arange(r0, r1, dtype=np.int64)]
+    cols = [np.arange(r0, r1, dtype=np.int64)]
+    vals = [diagonal_energy_np(terms, blk)]
+    for xy in terms.xy_unique:
+        sel = terms.xy == xy
+        coupled = blk ^ xy
+        pos_c = np.minimum(np.searchsorted(basis, coupled), n - 1)
+        idx = np.flatnonzero(basis[pos_c] == coupled)
+        if len(idx) == 0:
+            continue
+        h = np.zeros(len(idx), dtype=np.float64)
+        for yz, c in zip(terms.yz[sel], terms.coeff[sel]):
+            h += c * np_parity_pm1(blk[idx] & yz)
+        rows.append(idx + r0)
+        cols.append(pos_c[idx])
+        vals.append(h)
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+
+
+# row granularity of the blocked assembly: the COO staging of a block holds at
+# most block * (Kxy + 1) entries of 24 B (one 1.66 M-state block of the H2O
+# 6-31G sector would take over 125 GB); 2.5e5 rows keeps it a few GB for every
+# shipped system
+_ASSEMBLE_ROW_BLOCK = 250_000
+
+
+def assemble_sparse_hamiltonian_blocks(terms: PauliTerms, basis: np.ndarray,
+                                       row_block: int | None = None):
+    """H as a list of scipy CSR row blocks over a sorted packed-state basis,
+    each with int32 indices (a block's nnz stays below 2^31 at the default
+    granularity), assembled by the native library where it builds, else by
+    numpy."""
+    import scipy.sparse as sp
+
+    from naqs_tpu_torch import native
+
+    basis = np.asarray(basis, dtype=np.int64)
+    n = len(basis)
+    row_block = row_block or _ASSEMBLE_ROW_BLOCK
+    blocks = []
+    for r0 in range(0, n, row_block):
+        r1 = min(r0 + row_block, n)
+        coo = native.assemble_h_coo(terms, basis, r0, r1)
+        if coo is None:
+            coo = _assemble_rows_np(terms, basis, r0, r1)
+        rows, cols, vals = coo
+        blocks.append(sp.csr_matrix((vals, (rows - r0, cols)), shape=(r1 - r0, n)))
+    return blocks
+
+
+def assemble_sparse_hamiltonian_np(terms: PauliTerms, basis: np.ndarray,
+                                   row_block: int | None = None):
+    """scipy CSR H over a sorted packed-state basis (for Lanczos solves),
+    assembled block by block so that the COO staging stays O(row_block); for a
+    space whose matrix does not fit either, use hamiltonian_linear_operator."""
+    import scipy.sparse as sp
+
+    blocks = assemble_sparse_hamiltonian_blocks(terms, basis, row_block)
+    return blocks[0] if len(blocks) == 1 else sp.vstack(blocks, format="csr")
+
+
+def hamiltonian_linear_operator(terms: PauliTerms, basis: np.ndarray,
+                                row_block: int | None = None):
+    """H as a scipy LinearOperator over int32-indexed CSR row blocks: eigsh
+    without one monolithic CSR (its vstack alone doubles the footprint)."""
+    from scipy.sparse.linalg import LinearOperator
+
+    basis = np.asarray(basis, dtype=np.int64)
+    blocks = assemble_sparse_hamiltonian_blocks(terms, basis, row_block)
+    n = len(basis)
+
+    def mv(x):
+        x = np.asarray(x)
+        if x.ndim == 2:  # eigsh probes with column vectors
+            x = x[:, 0]
+        return np.concatenate([b @ x for b in blocks])
+
+    return LinearOperator((n, n), matvec=mv, dtype=np.float64)
+
+
+def freeze_core(terms: PauliTerms, n_occ: int) -> PauliTerms:
+    """Project the Hamiltonian onto the subspace whose first `n_occ` qubits
+    are occupied, and renumber the other qubits from 0.
+
+    Terms that flip a frozen qubit are dropped; Z factors on frozen qubits
+    give a fixed sign, folded into the coefficient.
+    """
+    if n_occ == 0:
+        return terms
+    frozen = np.int64((1 << n_occ) - 1)
+
+    def fold(xy, yz, coeff):
+        keep = (xy & frozen) == 0
+        xy, yz, coeff = xy[keep], yz[keep], coeff[keep]
+        sign = np_parity_pm1(yz & frozen).astype(np.float64)
+        return xy >> n_occ, yz >> n_occ, coeff * sign
+
+    dxy, dyz, dco = fold(np.zeros_like(terms.diag_yz), terms.diag_yz, terms.diag_coeff)
+    xy, yz, coeff = fold(terms.xy, terms.yz, terms.coeff)
+
+    # merge duplicates through the compiler
+    out: dict = {}
+    for m_xy, m_yz, c in zip(np.concatenate([np.zeros_like(dyz), xy]),
+                             np.concatenate([dyz, yz]), np.concatenate([dco, coeff])):
+        ops = []
+        q = 0
+        bits = int(m_xy) | int(m_yz)
+        while bits:
+            if bits & 1:
+                in_xy = (int(m_xy) >> q) & 1
+                in_yz = (int(m_yz) >> q) & 1
+                ops.append((q, "Y" if in_xy and in_yz else "X" if in_xy else "Z"))
+            bits >>= 1
+            q += 1
+        key = tuple(ops)
+        # undo the i^n_Y folding, which compile_pauli_terms does again
+        n_y = sum(1 for _, p in ops if p == "Y")
+        out[key] = out.get(key, 0.0) + complex(c) / (1j ** n_y).real
+    return compile_pauli_terms(out, terms.n_qubits - n_occ)

@@ -17,7 +17,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "naqs_tpu_torch")
-SOURCES = ("rank_gather", "grid_engine", "sampler_step")
+SOURCES = ("rank_gather", "grid_engine", "sampler_step", "sort_lookup", "offdiag_h")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

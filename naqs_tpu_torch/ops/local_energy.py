@@ -10,23 +10,23 @@ package does: on a single-sector space it builds a grid program
 (`ops/dense_engine.py`: `DenseTerms` if the static H tensor fits, else
 `FactorTerms`, else, for an n_exc_max-filtered sector, the staircase program
 `FactorTermsXL`), and `local_energy` then computes the numerator for the
-whole grid, or staircase, at once; otherwise, and for `quadratic_energy`, the
-rank engine below runs. `dataclasses.replace(dt, dense=None)` forces the rank
-engine.
+whole grid, or staircase, at once; otherwise, and for `quadratic_energy`, a
+membership engine below runs: the rank engine where the space has a RankSpec,
+else the sort engine. `dataclasses.replace(dt, dense=None)` forces the rank
+engine, `dataclasses.replace(dt, rank_spec=None, dense=None)` the sort engine.
 
-The rank engine reads psi(s') from the dense rank-indexed value table. Per
-chunk of C sampled states:
+Per chunk of C sampled states, both membership engines compute:
 
   * the diagonal, sum_k coeff_k (-1)^popcount(s & yz_k), in f64;
   * the H row h as parity(s & yz) @ A, a (C, Kyz) x (Kyz, Kxy) fp32 matmul
-    with TF32 off (TF32 costs ~1e-3 Ha), or a per-term segment sum when a
-    dense A would be too large;
-  * sum_k h psi(s ^ xy_k)/psi(s) through the fused rank + gather + ratio +
-    row-sum kernel (ops/dyn_gather.py::rank_ratio_rowsum), which reads psi
-    from the packed (size+1, 2) value table and writes only (C,) sums.
-
-The sort-based lookup for spaces without a RankSpec (over 32 qubits) is not
-ported yet.
+    with TF32 off (TF32 costs ~1e-3 Ha), or, when a dense A would be too
+    large, term by term per flip mask (ops/offdiag_h.py::offdiag_h_terms);
+  * sum_k h psi(s ^ xy_k)/psi(s) in one kernel that finds psi(s') and sums
+    the ratios, writing only (C,) sums: the rank engine reads psi from the
+    dense rank-indexed (size+1, 2) value table (ops/dyn_gather.py::
+    rank_ratio_rowsum); the sort engine, for spaces with no RankSpec (over 32
+    qubits, or a sector of more than 2^26 states), binary-searches the sorted
+    sample buffer itself (ops/sort_lookup.py::sorted_ratio_rowsum).
 """
 
 from __future__ import annotations
@@ -43,7 +43,9 @@ from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTerm
                                              dense_local_energy, factored_local_energy,
                                              factored_xl_local_energy)
 from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_ratio_rowsum
+from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms, term_groups
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
+from naqs_tpu_torch.ops.sort_lookup import pack_table, sorted_gather2, sorted_ratio_rowsum
 from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
 from naqs_tpu_torch.utils.device import resolve_device
 
@@ -53,7 +55,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 # target elements per (chunk x term) intermediate; bounds peak memory
 _CHUNK_BUDGET = 1 << 25
-# above this many dense A entries, fall back to the per-term segment sum
+# above this many dense A entries, sum the H row term by term instead
 _DENSE_A_MAX = 1 << 26
 
 
@@ -62,7 +64,9 @@ class DeviceTerms:
     """PauliTerms on the device, every term axis zero-padded to `pad_to`.
 
     Pad entries are exact no-ops: xy=0 couples the diagonal with
-    coefficient 0, yz=0 has parity +1 and coefficient 0.
+    coefficient 0, yz=0 has parity +1 and coefficient 0. The off-diagonal
+    terms are also kept grouped by flip mask (`ops/offdiag_h.py::term_groups`,
+    without the padding), for the H row where there is no dense A.
     """
 
     diag_yz: torch.Tensor     # (Kd,) int64
@@ -72,9 +76,12 @@ class DeviceTerms:
     gxy: torch.Tensor         # (K,) int64
     gyz: torch.Tensor         # (K,) int64
     coeff: torch.Tensor       # (K,) float32
+    xy_ptr: torch.Tensor      # (Kxy + 1,) int32: group g's terms at xy_ptr[g] .. xy_ptr[g+1]-1
+    term_yz: torch.Tensor     # (K_terms,) int32 sign-mask index of each grouped term
+    term_coeff: torch.Tensor  # (K_terms,) float32 coefficient of each grouped term
     a_mat: torch.Tensor | None  # (Kyz, Kxy) f32 dense coupling matrix, or None
     rank_spec: RankSpec | None = None
-    dense: DenseTerms | FactorTerms | FactorTermsXL | None = None  # None: the rank engine
+    dense: DenseTerms | FactorTerms | FactorTermsXL | None = None  # None: rank or sort engine
 
     @staticmethod
     def from_terms(
@@ -110,6 +117,7 @@ class DeviceTerms:
                 dense = FactorTerms.build(terms, hilbert, device=dev)
             elif FactorTermsXL.supported(terms, hilbert):
                 dense = FactorTermsXL.build(terms, hilbert, device=dev)
+        xy_ptr, term_yz, term_coeff = term_groups(terms.gxy, terms.gyz, terms.coeff, kxy)
         return DeviceTerms(
             diag_yz=pad(terms.diag_yz, kd, np.int64),
             diag_coeff=pad(terms.diag_coeff, kd, np.float64),
@@ -118,6 +126,9 @@ class DeviceTerms:
             gxy=pad(terms.gxy, k, np.int64),
             gyz=pad(terms.gyz, k, np.int64),
             coeff=pad(terms.coeff, k, np.float32),
+            xy_ptr=torch.as_tensor(xy_ptr, device=dev),
+            term_yz=torch.as_tensor(term_yz, device=dev),
+            term_coeff=torch.as_tensor(term_coeff, device=dev),
             a_mat=a_mat,
             rank_spec=rank_spec,
             dense=dense,
@@ -137,20 +148,24 @@ def diagonal_energy(dt: DeviceTerms, states: torch.Tensor) -> torch.Tensor:
 
 def _offdiag_h(dt: DeviceTerms, s: torch.Tensor) -> torch.Tensor:
     """(C, Kxy) f32 off-diagonal H row entries for chunk states s."""
-    par = parity_pm1(s[:, None] & dt.yz_unique[None, :]).to(torch.float32)
     if dt.a_mat is not None:
+        par = parity_pm1(s[:, None] & dt.yz_unique[None, :]).to(torch.float32)
         return torch.matmul(par, dt.a_mat)
-    contrib = par[:, dt.gyz] * dt.coeff
-    out = torch.zeros((s.shape[0], dt.xy_unique.shape[0]), dtype=torch.float32,
-                      device=s.device)
-    return out.index_add_(1, dt.gxy, contrib)
+    return offdiag_h_terms(s, dt.yz_unique, dt.xy_ptr, dt.term_yz, dt.term_coeff)
 
 
-def _local_energy_chunk(dt, s, table, my_log_amp, my_phase):
+def _local_energy_chunk(dt, s, table, n_valid, my_log_amp, my_phase):
+    """(e_re, e_im) f64 of chunk states s: the rank engine's psi lookup where
+    `table` is the rank value table, else the sort engine's in the sorted
+    buffer `table` = (states, la, ph) with n_valid live states."""
     e_diag = diagonal_energy(dt, s)
     h = _offdiag_h(dt, s)
-    e_re, e_im = rank_ratio_rowsum(dt.rank_spec, s, dt.xy_unique, table,
-                                   my_log_amp, my_phase, h)
+    if dt.rank_spec is not None:
+        e_re, e_im = rank_ratio_rowsum(dt.rank_spec, s, dt.xy_unique, table,
+                                       my_log_amp, my_phase, h)
+    else:
+        e_re, e_im = sorted_ratio_rowsum(*table, n_valid, s, dt.xy_unique,
+                                         my_log_amp, my_phase, h)
     return e_diag + e_re.to(torch.float64), e_im.to(torch.float64)
 
 
@@ -160,12 +175,9 @@ def _chunks(dt, u, chunk_rows):
     return min(c, u)
 
 
-def _require_rank(dt):
-    if dt.rank_spec is None:
-        raise NotImplementedError(
-            "local energy without a RankSpec (over 32 qubits, or a space too "
-            "large for a dense value table) needs the sort-based lookup, "
-            "which is not ported yet")
+def _count(n_valid, device) -> torch.Tensor:
+    """n_valid as the 0-d int64 tensor the sort kernels read on the device."""
+    return torch.as_tensor(n_valid, dtype=torch.int64, device=device)
 
 
 @torch.no_grad()
@@ -182,7 +194,8 @@ def local_energy(
 
     Rows beyond n_valid produce garbage values; callers mask by weight.
     Dispatches to the grid engine (ops/dense_engine.py) when the terms carry
-    a grid program; the rank engine below handles everything else.
+    a grid program; the rank engine below handles everything else that has a
+    RankSpec, the sort engine what has none.
     `queries=(q_states, q_la, q_ph)` computes E_loc only for those rows,
     while psi(s') is still resolved against the full (states, log_amp,
     phase, n_valid) table.
@@ -199,11 +212,13 @@ def local_energy(
                 else dense_local_energy)
         return impl(dt.dense, dt.rank_spec, states, log_amp, phase, n_valid,
                     queries=queries)
-    _require_rank(dt)
     q_states, q_la, q_ph = (states, log_amp, phase) if queries is None else queries
     u = q_states.shape[0]
     c = _chunks(dt, u, chunk_rows)
-    table = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
+    if dt.rank_spec is not None:
+        table = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
+    else:
+        table, n_valid = pack_table(states, log_amp, phase), _count(n_valid, states.device)
     e_re, e_im = [], []
     for i in range(0, u, c):
         s = q_states[i:i + c]
@@ -215,7 +230,7 @@ def local_energy(
             s = torch.cat([s, s.new_full((pad,), SENTINEL)])
             la = torch.cat([la, la.new_zeros(pad)])
             ph = torch.cat([ph, ph.new_zeros(pad)])
-        r, im = _local_energy_chunk(dt, s, table, la, ph)
+        r, im = _local_energy_chunk(dt, s, table, n_valid, la, ph)
         e_re.append(r[:n])
         e_im.append(im[:n])
     return torch.cat(e_re), torch.cat(e_im)
@@ -234,17 +249,20 @@ def quadratic_energy(
 
     Symmetric product form exp(la_m + la_k) cos(ph_k - ph_m) with log-amps
     shifted so the largest is 0: overflow-free for any amplitude range. Miss
-    slots hold la = -200, so unsampled pairs contribute exactly 0. The
-    imaginary part cancels by Hermiticity and is not computed.
+    slots hold la = -200, so unsampled pairs contribute exactly 0 (the sort
+    engine's lookup returns -200 for a miss). The imaginary part cancels by
+    Hermiticity and is not computed.
     """
-    _require_rank(dt)
     u = states.shape[0]
     live = torch.arange(u, device=states.device) < n_valid
     ref = torch.max(torch.where(live, log_amp, -torch.inf))
     la = torch.where(live, log_amp - ref, -200.0).to(torch.float32)
     ph = phase.to(torch.float32)
-    table = build_value_table(dt.rank_spec, states, la, ph, n_valid,
-                              miss_log_amp=-200.0)
+    if dt.rank_spec is not None:
+        table = build_value_table(dt.rank_spec, states, la, ph, n_valid,
+                                  miss_log_amp=-200.0)
+    else:
+        table, n_valid = pack_table(states, la, ph), _count(n_valid, states.device)
     c = _chunks(dt, u, chunk_rows)
     num = torch.zeros((), dtype=torch.float64, device=states.device)
     den = torch.zeros((), dtype=torch.float64, device=states.device)
@@ -253,7 +271,10 @@ def quadratic_energy(
                                     ph[i:i + c], live[i:i + c])
         w_m = torch.where(my_live, torch.exp(2.0 * my_la.to(torch.float64)), 0.0)
         num += torch.sum(w_m * diagonal_energy(dt, s))
-        g_la, g_ph = rank_gather2(dt.rank_spec, s, dt.xy_unique, table)
+        if dt.rank_spec is not None:
+            g_la, g_ph = rank_gather2(dt.rank_spec, s, dt.xy_unique, table)
+        else:
+            g_la, g_ph = sorted_gather2(*table, n_valid, s, dt.xy_unique, my_live)
         amp = torch.where(my_live[:, None], torch.exp(g_la + my_la[:, None]), 0.0)
         r_re = amp * torch.cos(g_ph - my_ph[:, None])
         num_off = torch.sum(_offdiag_h(dt, s) * r_re, dim=-1)

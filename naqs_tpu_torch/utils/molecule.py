@@ -4,12 +4,16 @@ The port's native format is a flat `.npz` of the OpenFermion MolecularData
 fields (scalars and integral arrays), because the machines that run the port
 need not have h5py. An `.hdf5` molecule folder in the stored-data layout is
 still read where h5py imports; `save_molecule_npz` converts one. The qubit
-Hamiltonian is always rebuilt from the integrals by `naqs_tpu_torch.jw`.
+Hamiltonian is rebuilt from the integrals by `naqs_tpu_torch.jw`; a pickled
+OpenFermion QubitOperator of the stored-data layout loads, without
+OpenFermion, through `load_qubit_hamiltonian_pickle`.
 """
 
 from __future__ import annotations
 
+import io
 import os
+import pickle
 from dataclasses import dataclass, field, fields
 from typing import Dict, Optional, Tuple
 
@@ -58,6 +62,48 @@ class Molecule:
     @property
     def n_beta_electrons(self) -> int:
         return (self.n_electrons - self.multiplicity + 1) // 2
+
+
+class _QubitOperatorShim:
+    """Stand-in for openfermion's QubitOperator while unpickling: only its
+    `.terms` dict (Pauli-string tuple -> coefficient) is read."""
+
+    terms: PauliTermDict
+
+
+# a pickle from a data directory is untrusted: only these classes may be
+# rebuilt (a plain Unpickler runs any __reduce__ gadget it is given)
+_SAFE_CLASSES = {
+    ("builtins", "complex"): complex,
+    ("builtins", "float"): float,
+    ("builtins", "int"): int,
+    ("builtins", "dict"): dict,
+    ("builtins", "tuple"): tuple,
+    ("builtins", "list"): list,
+    ("builtins", "str"): str,
+    ("builtins", "frozenset"): frozenset,
+    ("builtins", "set"): set,
+}
+_SAFE_NUMPY = {"ndarray", "dtype", "_reconstruct", "scalar", "float64", "complex128", "int64"}
+
+
+class _ShimUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):  # noqa: D102
+        if name == "QubitOperator" and module.startswith("openfermion"):
+            return _QubitOperatorShim
+        if (module, name) in _SAFE_CLASSES:
+            return _SAFE_CLASSES[(module, name)]
+        if module.startswith("numpy") and name in _SAFE_NUMPY:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"refusing to unpickle {module}.{name} from untrusted molecule data")
+
+
+def load_qubit_hamiltonian_pickle(path: str) -> PauliTermDict:
+    """The term dict of a pickled (OpenFermion) qubit operator."""
+    with open(path, "rb") as f:
+        op = _ShimUnpickler(io.BytesIO(f.read())).load()
+    return {k: complex(v) for k, v in op.terms.items()}
 
 
 def _scalar(val, cast):

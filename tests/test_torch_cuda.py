@@ -17,7 +17,10 @@ kernel's occupancy bitmaps bit for bit against `xl_occupancy_ref`;
 the sampler's `multinomial4_split`, `compact_children` and the two fused in
 one launch, `split_and_compact`, bitwise (the split does its plain version's
 arithmetic with one rounding per operation, the compaction is an integer
-scan).
+scan); the sort engine's `sorted_gather2` bitwise and `sorted_ratio_rowsum`
+per row within `rowsum_tolerance`, and `offdiag_h_terms` per entry within
+`offdiag_tolerance` (1e-12 + 1e-5 * sum_k |coeff_k| of the flip mask's group:
+fp32 add order), each bitwise equal to itself run twice.
 """
 
 import dataclasses
@@ -40,7 +43,12 @@ from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, dense_grid_a
                                              xl_occupancy_ref, _xl_launch)
 from naqs_tpu_torch.ops.multinomial import (_GAUSS_VAR_MIN, _cascade, multinomial4_split,
                                             multinomial4_split_ref, split_draws)
+from naqs_tpu_torch.ops.offdiag_h import (offdiag_h_terms, offdiag_h_terms_ref,
+                                          offdiag_tolerance, term_groups)
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
+from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_gather2_ref,
+                                            sorted_log_amps, sorted_ratio_rowsum,
+                                            sorted_ratio_rowsum_ref)
 from naqs_tpu_torch import sampler as sampler_mod
 from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref, _split_and_compact,
                                     _split_and_compact_ref, sample)
@@ -60,9 +68,10 @@ def _card():
     return torch.device("cuda")
 
 
-def _inputs(sectors, n_qubits, n_rows, n_cols, dev, hits=False):
+def _inputs(sectors, n_qubits, n_rows, n_cols, dev, hits=False, buffer=False):
     """(spec, table, s, xy, my_la, my_ph) on the card. With hits=True half of
-    the flip masks join two table states, so many coupled states are found."""
+    the flip masks join two table states, so many coupled states are found;
+    with buffer=True also the sorted states, la and ph the table holds."""
     h = nt.Hilbert(n_qubits=n_qubits, sectors=sectors)
     spec = RankSpec.for_hilbert(h)
     rng = np.random.default_rng(0)
@@ -76,7 +85,8 @@ def _inputs(sectors, n_qubits, n_rows, n_cols, dev, hits=False):
     if hits:
         pick = lambda: rng.integers(0, min(n_rows, len(states)), size=n_cols // 2)
         xy[: n_cols // 2] = states[pick()] ^ states[pick()]
-    return (spec, table, t(states[:n_rows]), t(xy), t(la[:n_rows]), t(ph[:n_rows]))
+    out = (spec, table, t(states[:n_rows]), t(xy), t(la[:n_rows]), t(ph[:n_rows]))
+    return out + (t(states), t(la), t(ph)) if buffer else out
 
 
 @pytest.mark.parametrize("sectors,n_qubits,n_rows,n_cols", SHAPES)
@@ -718,3 +728,194 @@ def test_sampler_kernels_reject_bad_inputs():
     fused = (ab, ab, args[6], args[7], f32, draws, draws, args[3], *args[4:])
     with pytest.raises(RuntimeError, match="invalid argument"):
         launch("split_and_compact", fused, dev)
+
+
+# (table rows U, live n_valid, chunk rows C, flip masks K, qubits): small and
+# ragged shapes, n_valid 0, 1 and U (no padding), and the N2 6-31G chunk of
+# the main path (C = 128, Kxy = 27,392, capacity 100,000, 36 qubits)
+SORT_SHAPES = [(1, 1, 3, 5, 12), (300, 0, 17, 33, 20), (300, 1, 17, 33, 20),
+               (4096, 3000, 77, 1000, 40), (5000, 5000, 64, 513, 36),
+               (100_000, 81_234, 128, 27_392, 36)]
+
+
+def _sort_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev):
+    """(states, la, ph, n_valid, s, xy, my_la, my_ph, live) on the card: a
+    sorted buffer of n_valid random states padded with SENTINEL to u; chunk
+    rows from the buffer and two SENTINEL rows; a third of the flip masks join
+    two buffer states (hits), a tenth are 0 (padding), the rest random."""
+    from naqs_tpu_torch.utils.bits import SENTINEL
+
+    rng = np.random.default_rng(n_rows + n_cols)
+    states = np.full(u, SENTINEL, np.int64)
+    pool = np.unique(rng.integers(0, 1 << n_qubits, size=2 * n_valid + 8, dtype=np.int64))
+    states[:n_valid] = np.sort(rng.choice(pool, size=n_valid, replace=False))
+    la = (-rng.uniform(0, 3, size=u)).astype(np.float32)
+    ph = rng.uniform(-np.pi, np.pi, size=u).astype(np.float32)
+    s = states[rng.integers(0, max(n_valid, 1), size=n_rows)]
+    s[-min(2, n_rows):] = SENTINEL
+    xy = rng.integers(1, 1 << n_qubits, size=n_cols, dtype=np.int64)
+    if n_valid > 1:
+        third = n_cols // 3
+        xy[:third] = s[rng.integers(0, n_rows, size=third)] ^ states[
+            rng.integers(0, n_valid, size=third)]
+        xy[:third] = np.where(xy[:third] < 0, 1, xy[:third])   # a SENTINEL row's
+    xy[rng.random(n_cols) < 0.1] = 0
+    my_la = (-rng.uniform(0, 3, size=n_rows)).astype(np.float32)
+    my_ph = rng.uniform(-np.pi, np.pi, size=n_rows).astype(np.float32)
+    live = rng.random(n_rows) < 0.8
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return (t(states), t(la), t(ph), torch.tensor(n_valid, device=dev), t(s), t(xy),
+            t(my_la), t(my_ph), t(live))
+
+
+@pytest.mark.parametrize("u,n_valid,n_rows,n_cols,n_qubits", SORT_SHAPES)
+def test_sorted_ratio_rowsum_kernel_matches_plain(u, n_valid, n_rows, n_cols, n_qubits):
+    dev = _card()
+    states, la, ph, nv, s, xy, my_la, my_ph, _ = _sort_inputs(u, n_valid, n_rows, n_cols,
+                                                              n_qubits, dev)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    h = (0.1 * torch.randn((n_rows, n_cols), generator=gen)).to(dev)
+    args = (states, la, ph, nv, s, xy, my_la, my_ph, h)
+    before = sorted_ratio_rowsum.launches
+    got = sorted_ratio_rowsum(*args)
+    torch.cuda.synchronize()
+    assert sorted_ratio_rowsum.launches == before + 1
+    want = sorted_ratio_rowsum_ref(*args)
+    tol = rowsum_tolerance(sorted_log_amps(states, la, nv, s, xy), my_la, h)
+    for g, w in zip(got, want):
+        assert g.shape == (n_rows,) and bool(torch.isfinite(g).all())
+        assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+    if n_valid > 1:
+        assert float(want[0].abs().max()) > 1e-3   # hits: the sums are not all 0
+    again = sorted_ratio_rowsum(*args)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))   # no atomics
+
+
+@pytest.mark.parametrize("u,n_valid,n_rows,n_cols,n_qubits", SORT_SHAPES)
+def test_sorted_gather2_kernel_matches_plain(u, n_valid, n_rows, n_cols, n_qubits):
+    dev = _card()
+    states, la, ph, nv, s, xy, _, _, live = _sort_inputs(u, n_valid, n_rows, n_cols,
+                                                         n_qubits, dev)
+    args = (states, la, ph, nv, s, xy, live)
+    before = sorted_gather2.launches
+    got = sorted_gather2(*args)
+    torch.cuda.synchronize()
+    assert sorted_gather2.launches == before + 1
+    want = sorted_gather2_ref(*args)
+    for g, w in zip(got, want):
+        assert g.shape == (n_rows, n_cols) and torch.equal(g, w)
+    if n_valid > 1:
+        assert int((want[0] > -200).sum()) > n_rows   # found beyond the rows themselves
+
+
+def test_sort_kernels_agree_with_the_rank_kernels():
+    """On a space that has a RankSpec the sort kernels find what the rank
+    kernels find: sorted_gather2 equals rank_gather2's gather bitwise where
+    found, and sorted_ratio_rowsum gives rank_ratio_rowsum's bits (the same
+    loop and reduction on the same hits)."""
+    dev = _card()
+    spec, table, s, xy, my_la, my_ph, states, la, ph = _inputs(((5, 5),), 26, 512, 4608, dev,
+                                                              hits=True, buffer=True)
+    h = torch.full((s.shape[0], xy.shape[0]), 0.01, device=dev)
+    nv = torch.tensor(states.shape[0], device=dev)
+    r = rank_ratio_rowsum(spec, s, xy, table, my_la, my_ph, h)
+    q = sorted_ratio_rowsum(states, la, ph, nv, s, xy, my_la, my_ph, h)
+    assert all(torch.equal(a, b) for a, b in zip(r, q))
+    live = torch.ones(s.shape[0], dtype=torch.bool, device=dev)
+    g_la, g_ph = rank_gather2(spec, s, xy, table)
+    q_la, q_ph = sorted_gather2(states, la, ph, nv, s, xy, live)
+    hit = g_la > -1e29
+    assert torch.equal(hit, q_la > -200) and int(hit.sum()) > 0
+    assert torch.equal(g_la[hit], q_la[hit]) and torch.equal(g_ph[hit], q_ph[hit])
+
+
+def _grouped(terms, dev, pad_to=256):
+    n_groups = max(pad_to, -(-len(terms.xy_unique) // pad_to) * pad_to)
+    ptr, yz, co = term_groups(terms.gxy, terms.gyz, terms.coeff, n_groups)
+    yz_u = np.zeros(max(pad_to, -(-len(terms.yz_unique) // pad_to) * pad_to), np.int64)
+    yz_u[:len(terms.yz_unique)] = terms.yz_unique
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return t(yz_u), t(ptr), t(yz), t(co)
+
+
+@pytest.mark.parametrize("name,n_rows", [("N2_STO-3G_gen", 1), ("N2_STO-3G_gen", 37),
+                                         ("N2_STO-3G_gen", 2048), ("H2O_6-31G_gen", 512)])
+def test_offdiag_h_terms_kernel_matches_plain(name, n_rows):
+    """The H row of real terms (groups of 1 to 50 terms, padded empty groups)
+    on random sector states and a SENTINEL row, against the plain segment sum."""
+    from naqs_tpu_torch.utils.bits import SENTINEL
+
+    dev = _card()
+    mol = nt.load_molecule(name)
+    terms = nt.compile_pauli_terms(mol.qubit_hamiltonian, mol.n_qubits)
+    hil = nt.Hilbert.for_molecule(mol)
+    rng = np.random.default_rng(n_rows)
+    s = hil.basis[rng.integers(0, hil.size, size=n_rows)]
+    if n_rows > 1:   # (every qubit occupied: the off-diagonal terms cancel there)
+        s[-1] = SENTINEL
+    args = (torch.as_tensor(s, device=dev), *_grouped(terms, dev))
+    before = offdiag_h_terms.launches
+    got = offdiag_h_terms(*args)
+    torch.cuda.synchronize()
+    assert offdiag_h_terms.launches == before + 1
+    want = offdiag_h_terms_ref(*args)
+    tol = offdiag_tolerance(args[2], args[4])
+    assert got.shape == want.shape == (n_rows, args[2].shape[0] - 1)
+    assert bool(((got - want).abs() <= tol[None, :]).all()), float((got - want).abs().max())
+    assert float(want.abs().max()) > 1e-2
+    assert torch.equal(offdiag_h_terms(*args), got)
+
+
+def test_sort_engine_matches_rank_engine_on_the_card():
+    """local_energy and quadratic_energy through the sort engine (rank_spec
+    and dense set to None) against the rank engine on N2 STO-3G, with the dense
+    A and with the per-term H row; the main path's launch counts."""
+    dev = _card()
+    terms, hil = _n2()
+    dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
+    dt_rank = dataclasses.replace(dt, dense=None)
+    dt_sort = dataclasses.replace(dt, rank_spec=None, dense=None)
+    dt_seg = dataclasses.replace(dt_sort, a_mat=None)
+    m = 3000
+    s, la, ph = _n2_sample(hil, m, 4096, dev, seed=2)
+    e_rank = le.local_energy(dt_rank, s, la, ph, m)
+    counts = (sorted_ratio_rowsum.launches, offdiag_h_terms.launches)
+    e_sort = le.local_energy(dt_sort, s, la, ph, m)
+    assert sorted_ratio_rowsum.launches == counts[0] + 2   # 4,096 rows in chunks of 2,048
+    assert offdiag_h_terms.launches == counts[1]
+    e_seg = le.local_energy(dt_seg, s, la, ph, m)
+    assert offdiag_h_terms.launches == counts[1] + 2
+    for r, a, b in zip(e_rank, e_sort, e_seg):
+        assert torch.equal(r[:m], a[:m])
+        assert float((a[:m] - b[:m]).abs().max()) < 2e-4
+    q_rank = float(le.quadratic_energy(dt_rank, s, la, ph, m))
+    before = sorted_gather2.launches
+    q_sort = float(le.quadratic_energy(dt_sort, s, la, ph, m))
+    assert sorted_gather2.launches == before + 2
+    assert abs(q_sort - q_rank) <= 1e-6 * abs(q_rank)
+
+
+def test_sort_kernels_reject_bad_inputs():
+    dev = _card()
+    states, la, ph, nv, s, xy, my_la, my_ph, live = _sort_inputs(300, 200, 8, 16, 20, dev)
+    h = torch.zeros((8, 16), device=dev)
+    for bad in (lambda: sorted_ratio_rowsum(states, la, ph, 200, s, xy, my_la, my_ph, h),
+                lambda: sorted_ratio_rowsum(states, la, ph, nv.int(), s, xy, my_la, my_ph, h),
+                lambda: sorted_ratio_rowsum(states, la, ph, nv.cpu(), s, xy, my_la, my_ph, h),
+                lambda: sorted_ratio_rowsum(states, la.double(), ph, nv, s, xy, my_la, my_ph, h),
+                lambda: sorted_ratio_rowsum(states, la, ph, nv, s, xy, my_la, my_ph, h[:, :8]),
+                lambda: sorted_ratio_rowsum(states, la, ph, nv, s, xy, my_la, my_ph,
+                                            torch.zeros((8, 32), device=dev)[:, ::2]),
+                lambda: sorted_gather2(states, la, ph, nv, s, xy, live.int()),
+                lambda: sorted_gather2(states[:-1], la, ph, nv, s, xy, live),
+                lambda: sorted_gather2(states, la, ph, nv, s.cpu(), xy, live)):
+        with pytest.raises(ValueError):
+            bad()
+    terms, _ = _n2()
+    yz_u, ptr, yz, co = _grouped(terms, dev)
+    for bad in (lambda: offdiag_h_terms(s, yz_u, ptr.long(), yz, co),
+                lambda: offdiag_h_terms(s, yz_u, ptr, yz, co.double()),
+                lambda: offdiag_h_terms(s, yz_u, ptr, yz[:-1], co),
+                lambda: offdiag_h_terms(s.cpu(), yz_u, ptr, yz, co)):
+        with pytest.raises(ValueError):
+            bad()

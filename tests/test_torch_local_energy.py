@@ -172,11 +172,19 @@ def test_quadratic_energy_is_the_rayleigh_quotient():
 
 
 def test_no_rank_spec_is_not_ported():
+    """With no Hilbert space there is no RankSpec: the port takes its sort
+    engine, as JAX does, and matches JAX's sort path per row and on the mean.
+    (Cases of the sort engine: test_torch_sort_engine.py.)"""
     c = case("H2O")
     dt = le_t.DeviceTerms.from_terms(c.terms_t, device="cpu")  # no hilbert
-    s, la, ph, _ = _batch(c, 20, 32, 7)
-    with pytest.raises(NotImplementedError):
-        _port(dt, s, la, ph, 20)
+    dt_j = le_j.DeviceTerms.from_terms(c.terms_j)
+    assert dt.rank_spec is None and dt.dense is None and dt_j.rank_spec is None
+    s, la, ph, w = _batch(c, 20, 32, 7)
+    re_t, im_t = _port(dt, s, la, ph, 20)
+    re_j, im_j = _jax(dt_j, s, la, ph, 20)
+    np.testing.assert_allclose(re_t[:20], re_j[:20], rtol=0, atol=ROW_TOL)
+    np.testing.assert_allclose(im_t[:20], im_j[:20], rtol=0, atol=ROW_TOL)
+    assert abs(np.sum(w[:20] * re_t[:20]) - np.sum(w[:20] * re_j[:20])) < MEAN_TOL
 
 
 CHUNK_CASES = [

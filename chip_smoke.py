@@ -770,7 +770,8 @@ def main(argv) -> int:
     from naqs_tpu_torch.hamiltonian import (_assemble_rows_np, assemble_sparse_hamiltonian_np,
                                             diagonal_energy_np)
     from naqs_tpu_torch.ops.offdiag_h import (OFFDIAG_ATOL, OFFDIAG_RTOL, offdiag_h_terms,
-                                              offdiag_h_terms_ref, offdiag_tolerance)
+                                              offdiag_h_terms_ref, offdiag_tolerance,
+                                              term_group)
     from naqs_tpu_torch.ops.rank import build_value_table, rank_index
     from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_gather2_ref,
                                                 sorted_log_amps, sorted_ratio_rowsum,
@@ -1569,9 +1570,7 @@ def main(argv) -> int:
     # library calls (each computes less than its kernel: no found test, no ratio,
     # no row sum; the segment sum of products computed beforehand)
     q4 = s4[:, None] ^ xy4[None, :]
-    group4 = torch.repeat_interleave(torch.arange(xy4.shape[0], device=dev),
-                                     torch.diff(dt4.xy_ptr.long()),
-                                     output_size=dt4.term_yz.shape[0])
+    group4 = term_group(dt4.xy_ptr, dt4.term_yz.shape[0])
     contrib4 = (parity_pm1(s4[:, None] & dt4.yz_unique[None, :]).float()[:, dt4.term_yz.long()]
                 * dt4.term_coeff)
     h_zero = torch.zeros_like(h4)

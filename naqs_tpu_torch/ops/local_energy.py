@@ -45,7 +45,8 @@ from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTerm
 from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_ratio_rowsum
 from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms, term_groups
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
-from naqs_tpu_torch.ops.sort_lookup import pack_table, sorted_gather2, sorted_ratio_rowsum
+from naqs_tpu_torch.ops.sort_lookup import (QUAD_MISS, pack_table, sorted_gather2,
+                                            sorted_ratio_rowsum)
 from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
 from naqs_tpu_torch.utils.device import resolve_device
 
@@ -61,24 +62,21 @@ _DENSE_A_MAX = 1 << 26
 
 @dataclass(frozen=True)
 class DeviceTerms:
-    """PauliTerms on the device, every term axis zero-padded to `pad_to`.
+    """PauliTerms on the device, the masks and diagonal terms zero-padded to `pad_to`.
 
     Pad entries are exact no-ops: xy=0 couples the diagonal with
     coefficient 0, yz=0 has parity +1 and coefficient 0. The off-diagonal
-    terms are also kept grouped by flip mask (`ops/offdiag_h.py::term_groups`,
-    without the padding), for the H row where there is no dense A.
+    terms are kept grouped by flip mask (`ops/offdiag_h.py::term_groups`),
+    for the H row where there is no dense A.
     """
 
     diag_yz: torch.Tensor     # (Kd,) int64
     diag_coeff: torch.Tensor  # (Kd,) float64
     xy_unique: torch.Tensor   # (Kxy,) int64
     yz_unique: torch.Tensor   # (Kyz,) int64
-    gxy: torch.Tensor         # (K,) int64
-    gyz: torch.Tensor         # (K,) int64
-    coeff: torch.Tensor       # (K,) float32
     xy_ptr: torch.Tensor      # (Kxy + 1,) int32: group g's terms at xy_ptr[g] .. xy_ptr[g+1]-1
-    term_yz: torch.Tensor     # (K_terms,) int32 sign-mask index of each grouped term
-    term_coeff: torch.Tensor  # (K_terms,) float32 coefficient of each grouped term
+    term_yz: torch.Tensor     # (K,) int32 sign-mask index of each grouped term
+    term_coeff: torch.Tensor  # (K,) float32 coefficient of each grouped term
     a_mat: torch.Tensor | None  # (Kyz, Kxy) f32 dense coupling matrix, or None
     rank_spec: RankSpec | None = None
     dense: DenseTerms | FactorTerms | FactorTermsXL | None = None  # None: rank or sort engine
@@ -100,7 +98,7 @@ class DeviceTerms:
 
         up = lambda n: max(pad_to, -(-n // pad_to) * pad_to)
         kyz, kxy = up(len(terms.yz_unique)), up(len(terms.xy_unique))
-        k, kd = up(len(terms.coeff)), up(len(terms.diag_yz))
+        kd = up(len(terms.diag_yz))
         if dense_a is None:
             dense_a = kyz * kxy <= _DENSE_A_MAX
         a_mat = None
@@ -123,9 +121,6 @@ class DeviceTerms:
             diag_coeff=pad(terms.diag_coeff, kd, np.float64),
             xy_unique=pad(terms.xy_unique, kxy, np.int64),
             yz_unique=pad(terms.yz_unique, kyz, np.int64),
-            gxy=pad(terms.gxy, k, np.int64),
-            gyz=pad(terms.gyz, k, np.int64),
-            coeff=pad(terms.coeff, k, np.float32),
             xy_ptr=torch.as_tensor(xy_ptr, device=dev),
             term_yz=torch.as_tensor(term_yz, device=dev),
             term_coeff=torch.as_tensor(term_coeff, device=dev),
@@ -256,11 +251,11 @@ def quadratic_energy(
     u = states.shape[0]
     live = torch.arange(u, device=states.device) < n_valid
     ref = torch.max(torch.where(live, log_amp, -torch.inf))
-    la = torch.where(live, log_amp - ref, -200.0).to(torch.float32)
+    la = torch.where(live, log_amp - ref, QUAD_MISS).to(torch.float32)
     ph = phase.to(torch.float32)
     if dt.rank_spec is not None:
         table = build_value_table(dt.rank_spec, states, la, ph, n_valid,
-                                  miss_log_amp=-200.0)
+                                  miss_log_amp=QUAD_MISS)
     else:
         table, n_valid = pack_table(states, la, ph), _count(n_valid, states.device)
     c = _chunks(dt, u, chunk_rows)

@@ -55,26 +55,25 @@ def term_groups(gxy, gyz, coeff, n_groups: int):
             coeff[order].astype(np.float32))
 
 
+def term_group(xy_ptr, n_terms: int):
+    """(K,) int64 flip-mask group of each grouped term."""
+    return torch.repeat_interleave(torch.arange(xy_ptr.shape[0] - 1, device=xy_ptr.device),
+                                   torch.diff(xy_ptr.long()), output_size=n_terms)
+
+
 def offdiag_h_terms_ref(s, yz_unique, xy_ptr, term_yz, term_coeff):
     """Plain PyTorch version: the parity matrix, the per-term product and a
     segment sum into the groups with `index_add_`."""
     par = parity_pm1(s[:, None] & yz_unique[None, :]).to(torch.float32)
     contrib = par[:, term_yz.long()] * term_coeff
-    n_groups = xy_ptr.shape[0] - 1
-    group = torch.repeat_interleave(torch.arange(n_groups, device=s.device),
-                                    torch.diff(xy_ptr.long()), output_size=term_yz.shape[0])
-    out = torch.zeros((s.shape[0], n_groups), dtype=torch.float32, device=s.device)
-    return out.index_add_(1, group, contrib)
+    out = torch.zeros((s.shape[0], xy_ptr.shape[0] - 1), dtype=torch.float32, device=s.device)
+    return out.index_add_(1, term_group(xy_ptr, term_yz.shape[0]), contrib)
 
 
 def offdiag_tolerance(xy_ptr, term_coeff):
     """(Kxy,) bound on |kernel - plain version| per entry of a row."""
-    n_groups = xy_ptr.shape[0] - 1
-    group = torch.repeat_interleave(torch.arange(n_groups, device=term_coeff.device),
-                                    torch.diff(xy_ptr.long()),
-                                    output_size=term_coeff.shape[0])
-    mass = torch.zeros(n_groups, dtype=torch.float64, device=term_coeff.device)
-    mass.index_add_(0, group, term_coeff.double().abs())
+    mass = torch.zeros(xy_ptr.shape[0] - 1, dtype=torch.float64, device=term_coeff.device)
+    mass.index_add_(0, term_group(xy_ptr, term_coeff.shape[0]), term_coeff.double().abs())
     return OFFDIAG_ATOL + OFFDIAG_RTOL * mass
 
 

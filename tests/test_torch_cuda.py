@@ -43,8 +43,7 @@ from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, dense_grid_a
                                              xl_occupancy_ref, _xl_launch)
 from naqs_tpu_torch.ops.multinomial import (_GAUSS_VAR_MIN, _cascade, multinomial4_split,
                                             multinomial4_split_ref, split_draws)
-from naqs_tpu_torch.ops.offdiag_h import (offdiag_h_terms, offdiag_h_terms_ref,
-                                          offdiag_tolerance, term_groups)
+from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms, offdiag_h_terms_ref, offdiag_tolerance
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
 from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_gather2_ref,
                                             sorted_log_amps, sorted_ratio_rowsum,
@@ -829,13 +828,11 @@ def test_sort_kernels_agree_with_the_rank_kernels():
     assert torch.equal(g_la[hit], q_la[hit]) and torch.equal(g_ph[hit], q_ph[hit])
 
 
-def _grouped(terms, dev, pad_to=256):
-    n_groups = max(pad_to, -(-len(terms.xy_unique) // pad_to) * pad_to)
-    ptr, yz, co = term_groups(terms.gxy, terms.gyz, terms.coeff, n_groups)
-    yz_u = np.zeros(max(pad_to, -(-len(terms.yz_unique) // pad_to) * pad_to), np.int64)
-    yz_u[:len(terms.yz_unique)] = terms.yz_unique
-    t = lambda a: torch.as_tensor(a, device=dev)
-    return t(yz_u), t(ptr), t(yz), t(co)
+def _grouped(terms, dev):
+    """(yz_unique, xy_ptr, term_yz, term_coeff) of the terms, as DeviceTerms
+    holds them on the card."""
+    dt = le.DeviceTerms.from_terms(terms, dense_a=False, device=dev)
+    return dt.yz_unique, dt.xy_ptr, dt.term_yz, dt.term_coeff
 
 
 @pytest.mark.parametrize("name,n_rows", [("N2_STO-3G_gen", 1), ("N2_STO-3G_gen", 37),

@@ -151,9 +151,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      the sort engine's three kernels on N2 6-31G's chunk, their plain versions
      and the library calls beside them (torch.searchsorted of the coupled
      states and a gather; Tensor.index_add of the products computed
-     beforehand), and SLOW_REPEATS unheld repeats of one whole N2 6-31G
-     local_energy call, through the kernels and through all three plain
-     versions (first held against each other within ENGINE_TOL). Each is
+     beforehand), held and unheld, and SLOW_REPEATS unheld repeats of one
+     whole N2 6-31G local_energy call, through the kernels and through all
+     three plain versions (first held against each other within
+     ENGINE_TOL). Each is
      timed held (behind a card sleep
      that covers the host's enqueue, so the launches run back to back: the
      card's time, reported as "ms"); the fast ones also unheld (a plain loop,
@@ -1589,11 +1590,9 @@ def main(argv) -> int:
         "sorted_gather2_ref": lambda: sorted_gather2_ref(*g_args),
         "offdiag_h_terms_ref": lambda: offdiag_h_terms_ref(*h_args),
     }
-    sort_fast = ["sorted_ratio_rowsum", "sorted_gather2", "offdiag_h_terms"]
     times.update(time_in_turns(sort_fns, REPEATS, SORT_LAUNCHES))
-    calls.update(time_in_turns({n: sort_fns[n] for n in sort_fast}, REPEATS, SORT_LAUNCHES,
-                               hold=False))
-    slow = [n for n in sort_fast if calls[n][1][1] * SORT_LAUNCHES >= hold]
+    calls.update(time_in_turns(sort_fns, REPEATS, SORT_LAUNCHES, hold=False))
+    slow = [n for n in sort_fns if calls[n][1][1] * SORT_LAUNCHES >= hold]
     if slow:
         raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times invalid")
     # one whole local_energy call at capacity 100,000 through the kernels and through
@@ -1639,7 +1638,8 @@ def main(argv) -> int:
         print(f"[time] {name}: held median {med:.4f} ms, spread {spread[0]:.4f}-{spread[1]:.4f}"
               f" ms{unheld}", flush=True)
     print(f"[time] the sort engine's kernels, plain versions and library calls: {REPEATS} "
-          f"repeats of {SORT_LAUNCHES} launches in turns; one whole local_energy call: "
+          f"repeats of {SORT_LAUNCHES} launches in turns, held and unheld; one whole "
+          f"local_energy call: "
           f"{SLOW_REPEATS} repeats of 1, unheld (the host's enqueue of {per_call4} chunks "
           f"included)", flush=True)
     for name, (med, spread) in e2e.items():

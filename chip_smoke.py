@@ -110,7 +110,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      at 0 before (sorted_ratio_rowsum and offdiag_h_terms once per chunk, 782
      per local_energy call, split_and_compact 18 times per sample() call, no
      other kernel); 8 rows of a fresh batch against local_energy_np
-     (ELOC_TOL). The host layer: the native library builds, its COO assembly
+     (ELOC_TOL); quadratic_energy on that batch with the counts at 0 before
+     (sorted_gather2 and offdiag_h_terms once per chunk, 782 each, no other
+     kernel) within QUAD_RTOL of the same call through sorted_gather2's plain
+     version. The host layer: the native library builds, its COO assembly
      of N2 STO-3G's 14,400-state sector equals numpy's, and the ground state of
      assemble_sparse_hamiltonian_np is the stored FCI energy within 1e-6 Ha;
  11. times, in turns: REPEATS repeats of LAUNCHES launches each (median and
@@ -171,7 +174,7 @@ compact_children (0: the standalone kernels left sample()'s path; their
 launches in phase 5b's sample_density call as "launches_sample_density"), 7
 for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
 for xl_grid_accumulate, 10c's N2 steps for sorted_ratio_rowsum and
-offdiag_h_terms and its H2O quadratic_energy call for sorted_gather2; the
+offdiag_h_terms and its N2 quadratic_energy call for sorted_gather2; the
 staircase kernel's bound_ms counts what the function needs on the
 sampled grid (the grid cells the valid pairs read, the maps, the program and
 the output; the set pairs' operations) and dense_bound_ms the earlier design's
@@ -1361,7 +1364,6 @@ def main(argv) -> int:
     e_g = le.local_energy(dt_seg, batch.states, la, ph, batch.n_unique)
     q_s = float(le.quadratic_energy(dt_sort, batch.states, la, ph, batch.n_unique))
     h2o_counts = {w.__name__: w.launches for w in wrappers}
-    quad_launches = sorted_gather2.launches
     d_sr = [(a[:nu] - b[:nu]).abs() for a, b in zip(e_s, e_k)]
     sr_ok = all(bool((d <= tol).all()) for d in d_sr)
     sr_same = all(torch.equal(a[:nu], b[:nu]) for a, b in zip(e_s, e_k))
@@ -1442,7 +1444,11 @@ def main(argv) -> int:
     g_same = all(torch.equal(a, b) for a, b in zip(g_got, g_want))
     g_twice = all(torch.equal(a, b) for a, b in zip(g_got, g_again))
     gather_err4 = max(_max_diff(a, b) for a, b in zip(g_got, g_want))
-    n_found4 = int((g_la4 > -1e29).sum())
+    found4 = g_la4 > -1e29
+    n_found4 = int(found4.sum())
+    q4 = s4[:, None] ^ xy4[None, :]
+    n_live4 = int(batch4.n_unique)
+    n_rows4 = int(torch.unique(torch.searchsorted(table4[0], q4)[found4]).numel())
     n_hits4 = n_found4 - chunk4 * (xy4.shape[0] - len(terms4.xy_unique))   # pad xy = 0 finds s
     n_levels4 = max(math.ceil(math.log2(max(int(batch4.n_unique), 1))), 0)
     torch.cuda.synchronize()
@@ -1505,6 +1511,28 @@ def main(argv) -> int:
           flush=True)
     if not (err4 < ELOC_TOL and finite4):
         raise SystemExit("N2 6-31G: the sort engine disagrees with the float64 oracle")
+    # quadratic_energy on the same batch: sorted_gather2 (and the per-term H row)
+    # once per chunk, against the same call through sorted_gather2's plain version
+    zero_counts()
+    qe4 = float(le.quadratic_energy(dt4, batch4.states, la4, ph4, batch4.n_unique))
+    quad4_counts = {w.__name__: w.launches for w in wrappers}
+    le.sorted_gather2 = sorted_gather2_ref
+    try:
+        qe4_plain = float(le.quadratic_energy(dt4, batch4.states, la4, ph4, batch4.n_unique))
+    finally:
+        le.sorted_gather2 = sorted_gather2
+    qe4_rel = abs(qe4 - qe4_plain) / abs(qe4_plain)
+    want_counts = {w.__name__: 0 for w in wrappers}
+    want_counts.update(sorted_gather2=per_call4, offdiag_h_terms=per_call4)
+    print(f"[quad] N2 6-31G: quadratic_energy through sorted_gather2 {qe4:.10f} vs its plain "
+          f"version {qe4_plain:.10f}: rel {qe4_rel:.2e} (tol {QUAD_RTOL}); launches "
+          f"{quad4_counts}", flush=True)
+    if not (quad4_counts == want_counts and math.isfinite(qe4) and qe4_rel <= QUAD_RTOL):
+        raise SystemExit(f"N2 6-31G: quadratic_energy through sorted_gather2 disagrees with its "
+                         f"plain version, or did not run sorted_gather2 and offdiag_h_terms "
+                         f"once per chunk and nothing else: {quad4_counts} against "
+                         f"{want_counts}")
+    quad_launches = quad4_counts["sorted_gather2"]
 
     # the host layer: the native library against numpy, and N2 STO-3G's ground state
     t1 = time.time()
@@ -1570,7 +1598,6 @@ def main(argv) -> int:
     # the sort engine's kernels on N2 6-31G's chunk, their plain versions and the
     # library calls (each computes less than its kernel: no found test, no ratio,
     # no row sum; the segment sum of products computed beforehand)
-    q4 = s4[:, None] ^ xy4[None, :]
     group4 = term_group(dt4.xy_ptr, dt4.term_yz.shape[0])
     contrib4 = (parity_pm1(s4[:, None] & dt4.yz_unique[None, :]).float()[:, dt4.term_yz.long()]
                 * dt4.term_coeff)
@@ -1644,9 +1671,11 @@ def main(argv) -> int:
           f"included)", flush=True)
     for name, (med, spread) in e2e.items():
         print(f"[time] {name}: unheld median {med:.2f} ms, spread {spread[0]:.2f}-"
-              f"{spread[1]:.2f} ms; held kernel time of its {per_call4} chunks: "
-              f"{per_call4 * (times['sorted_ratio_rowsum'][0] + times['offdiag_h_terms'][0]):.2f}"
-              f" ms", flush=True)
+              f"{spread[1]:.2f} ms", flush=True)
+    print(f"[time] {per_call4} x one chunk's held time of sorted_ratio_rowsum + "
+          f"offdiag_h_terms (a product, not a reading; --profile sums the step's kernels): "
+          f"{per_call4 * (times['sorted_ratio_rowsum'][0] + times['offdiag_h_terms'][0]):.2f}"
+          f" ms", flush=True)
     slow = [n for n in fast if calls[n][1][1] * LAUNCHES >= hold]
     if slow:
         raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times invalid")
@@ -1693,13 +1722,15 @@ def main(argv) -> int:
           f"{d_h['rows']} B, the whole tensor {d_h['whole']} B) + the maps, the grid and the "
           f"output once {d_bytes - d_h['sectors']} B; {d_ops} float32 operations)", flush=True)
 
-    # the sort engine's kernels on N2 6-31G's chunk: each input read once (the whole
-    # sorted table of states, la and ph), each output written once; per coupled state
+    # the sort engine's kernels on N2 6-31G's chunk: each input read once (of the
+    # table the keys of the n_valid live states and la and ph of the distinct rows
+    # found, as the rank kernels' bound counts the rows they touch; the SENTINEL
+    # padding beyond n_valid is never read), each output written once; per coupled state
     # the xor, SEARCH_OPS per level of the search and the equality test, per found
     # state the epilogue's operations; per term and row of the H row an and, a
     # popcount, a sign flip and an add
     n_q4 = s4.numel() * xy4.numel()
-    tab_bytes = sum(t.numel() * t.element_size() for t in table4)
+    tab_bytes = n_live4 * 8 + n_rows4 * 8
     head4 = s4.numel() * 8 + xy4.numel() * 8 + tab_bytes + 8
     search_ops = n_q4 * (2 + SEARCH_OPS * n_levels4)
     sr_bytes = head4 + h4.numel() * 4 + 4 * chunk4 * 4
@@ -1711,11 +1742,13 @@ def main(argv) -> int:
     oh_ops = chunk4 * dt4.term_yz.numel() * 4
     oh_bound = _bound(oh_bytes, oh_ops)
     print(f"[bound] sorted_ratio_rowsum {sr_bound[0]:.5f} ms ({sr_bound[1]}: {sr_bytes} B = h "
-          f"{h4.numel() * 4} B, the table {tab_bytes} B, s, xy, my_la, my_ph, outputs; "
+          f"{h4.numel() * 4} B, the table {tab_bytes} B = {n_live4} live keys x 8 B + la, ph "
+          f"of the {n_rows4} distinct rows found x 8 B, s, xy, my_la, my_ph, outputs; "
           f"{search_ops + n_found4 * EPILOGUE_OPS} operations = {n_q4} coupled states x (2 + "
           f"{SEARCH_OPS} x {n_levels4} levels) + {n_found4} found x {EPILOGUE_OPS})", flush=True)
     print(f"[bound] sorted_gather2 {sg_bound[0]:.5f} ms ({sg_bound[1]}: {sg_bytes} B = outputs "
-          f"{2 * n_q4 * 4} B, the table, s, xy, live; {search_ops} operations)", flush=True)
+          f"{2 * n_q4 * 4} B, the table's live keys and found rows, s, xy, live; {search_ops} "
+          f"operations)", flush=True)
     print(f"[bound] offdiag_h_terms {oh_bound[0]:.5f} ms ({oh_bound[1]}: {oh_bytes} B = h "
           f"{h4.numel() * 4} B, the grouped terms, yz_unique, xy_ptr, s; {oh_ops} integer and "
           f"float32 operations = {chunk4} rows x {dt4.term_yz.numel()} terms x 4)", flush=True)
@@ -1874,7 +1907,7 @@ def main(argv) -> int:
               replaces="naqs_tpu/ops/local_energy.py:363",
               library_note="torch.searchsorted of the (C, K) coupled states and two gathers: no "
                            "found test or live mask",
-              path_note="quadratic_energy without a RankSpec; launches: one such call on H2O "
+              path_note="quadratic_energy without a RankSpec; launches: one such call on N2 "
                         "6-31G's batch (phase 10c), none in the training step"),
         entry("offdiag_h_terms", offdiag_launches, offdiag_err, "offdiag_h_terms_ref", oh_bound,
               "index_add (precomputed products)", source="naqs_tpu_torch/csrc/offdiag_h.cu",

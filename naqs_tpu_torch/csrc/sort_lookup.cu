@@ -27,9 +27,11 @@
 //
 // What bounds them: bytes, by the count of each input read once. At the N2
 // 6-31G chunk (C = 128, K = 27,392, U = 100,000) sorted_ratio_rowsum must read
-// h (14.0 MB) and the 1.6 MB table; sorted_gather2 must write its two (C, K)
-// outputs. What the design pays instead is the search: 17 dependent loads per
-// coupled state, from L2 (the table stays resident in the 50 MB L2).
+// h (14.0 MB), and of the table only the keys of the n_valid live states
+// (about 21,000: 0.17 MB) and la, ph of the rows it finds; sorted_gather2 must
+// write its two (C, K) outputs. What the design pays instead is the search:
+// 15-17 dependent loads per coupled state, from L2 (the table stays resident
+// in the 50 MB L2).
 //
 // Design (a first, simple kernel; a search structure that needs fewer
 // dependent loads is later work):

@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from naqs_tpu_torch.ops.offdiag_h import term_groups
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_PKG, "csrc", "naqs_host.cpp")
 _LIB_DIR = os.path.join(os.path.dirname(_PKG), "build", "naqs_tpu_torch")
@@ -96,13 +98,9 @@ def _u64(a) -> np.ndarray:
 def _grouped_terms(terms) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """The off-diagonal terms sorted by flip-mask group: (xy_unique, off, yz,
     coeff), group g's terms at off[g] .. off[g+1] - 1."""
-    order = np.argsort(terms.gxy, kind="stable")
-    gxy = terms.gxy[order]
-    yz = _u64(terms.yz[order])
-    coeff = np.ascontiguousarray(terms.coeff[order], dtype=np.float64)
-    off = np.zeros(len(terms.xy_unique) + 1, dtype=np.int64)
-    np.add.at(off, gxy + 1, 1)
-    return _u64(terms.xy_unique), np.cumsum(off).astype(np.int64), yz, coeff
+    off, yz, coeff = term_groups(terms.gxy, len(terms.xy_unique), terms.yz, terms.coeff)
+    return (_u64(terms.xy_unique), off, _u64(yz),
+            np.ascontiguousarray(coeff, dtype=np.float64))
 
 
 def _diag(terms):

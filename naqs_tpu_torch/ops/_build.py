@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+"""Build, load and launch the port's CUDA kernels (nvcc -> shared library ->
+ctypes).
 
 Each `csrc/<name>.cu` compiles on first use into
 `<repo>/build/naqs_tpu_torch/lib<name>.so` for sm_90a, with a plain C
 interface; nothing here includes PyTorch's headers, so a build takes
 seconds. A library is rebuilt when its source is newer. `build_all` starts
-one nvcc per source at once.
+one nvcc per source at once. Every library exports
+`<name>_error_string(int)`, bound as `lib.error_string`; `check_tensors` and
+`launch` are what the kernels' wrappers share.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import ctypes
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -77,5 +82,45 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         if _stale(name):
             _finish(_start(name))
-        _loaded[name] = ctypes.CDLL(_paths(name)[1])
+        lib = ctypes.CDLL(_paths(name)[1])
+        lib.error_string = getattr(lib, f"{name}_error_string")
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
     return _loaded[name]
+
+
+def check_tensors(name, anchor, want, align: int = 1):
+    """Raise on anything a kernel does not take. `want` maps a field's name to
+    (tensor, dtypes, shape); every tensor must lie on `anchor`'s device and,
+    on the card, be contiguous, start at a multiple of `align` bytes and hold
+    fewer than 2^31 elements. The plain versions take strided CPU tensors."""
+    dev = anchor.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for key, (t, dtypes, shape) in want.items():
+        if not torch.is_tensor(t):
+            raise ValueError(f"{name}: {key} must be a tensor, got {type(t).__name__}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {key} on {t.device}, expected {dev}")
+        dense = t.is_contiguous() or dev.type == "cpu"
+        if t.dtype not in dtypes or tuple(t.shape) != shape or not dense:
+            raise ValueError(
+                f"{name}: {key} must be a contiguous {' or '.join(map(str, dtypes))} of "
+                f"shape {shape}, got {t.dtype} of shape {tuple(t.shape)}"
+                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+        if dev.type == "cuda" and t.data_ptr() % align:
+            raise ValueError(f"{name}: {key} must be {align}-byte aligned")
+        if t.numel() >= 1 << 31:
+            raise ValueError(f"{name}: {key} must hold fewer than 2^31 elements")
+
+
+def launch(lib, name, args, device):
+    """Launch kernel `name` of the loaded library `lib` on the device's current
+    stream; tensors among `args` pass as pointers (None as a null pointer),
+    ints as they are. Checks and counts nothing: the public wrappers do both."""
+    flat = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*flat, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.error_string(rc).decode()} ({rc})")

@@ -123,8 +123,6 @@ def _lib():
     lib.rank_ratio_rowsum.argtypes = [_PTR, _INT, _PTR, _INT, *_SPEC_ARGS,
                                       _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
     lib.rank_gather2.restype = lib.rank_ratio_rowsum.restype = _INT
-    lib.rank_gather_error_string.argtypes = [_INT]
-    lib.rank_gather_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -140,7 +138,7 @@ def _launch(name, spec: RankSpec, s, xy, tensors):
             *(t.data_ptr() for t in tensors),
             torch.cuda.current_stream(s.device).cuda_stream)
     if rc != 0:
-        msg = lib.rank_gather_error_string(rc).decode()
+        msg = lib.error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
 

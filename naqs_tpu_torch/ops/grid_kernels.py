@@ -204,8 +204,6 @@ def _lib():
     lib.xl_grid_accumulate.argtypes = [_PTR] * 15 + [_INT] * 8 + [_PTR]
     lib.factored_grid_accumulate.restype = lib.dense_grid_accumulate.restype = _INT
     lib.xl_grid_accumulate.restype = _INT
-    lib.grid_engine_error_string.argtypes = [_INT]
-    lib.grid_engine_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -259,7 +257,7 @@ def _call(name, tensors, ints, device):
         rc = getattr(lib, name)(*(t.data_ptr() for t in tensors), *ints,
                                 torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        msg = lib.grid_engine_error_string(rc).decode()
+        msg = lib.error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
 

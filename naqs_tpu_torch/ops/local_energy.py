@@ -115,15 +115,15 @@ class DeviceTerms:
                 dense = FactorTerms.build(terms, hilbert, device=dev)
             elif FactorTermsXL.supported(terms, hilbert):
                 dense = FactorTermsXL.build(terms, hilbert, device=dev)
-        xy_ptr, term_yz, term_coeff = term_groups(terms.gxy, terms.gyz, terms.coeff, kxy)
+        xy_ptr, term_yz, term_coeff = term_groups(terms.gxy, kxy, terms.gyz, terms.coeff)
         return DeviceTerms(
             diag_yz=pad(terms.diag_yz, kd, np.int64),
             diag_coeff=pad(terms.diag_coeff, kd, np.float64),
             xy_unique=pad(terms.xy_unique, kxy, np.int64),
             yz_unique=pad(terms.yz_unique, kyz, np.int64),
-            xy_ptr=torch.as_tensor(xy_ptr, device=dev),
-            term_yz=torch.as_tensor(term_yz, device=dev),
-            term_coeff=torch.as_tensor(term_coeff, device=dev),
+            xy_ptr=torch.as_tensor(xy_ptr.astype(np.int32), device=dev),
+            term_yz=torch.as_tensor(term_yz.astype(np.int32), device=dev),
+            term_coeff=torch.as_tensor(term_coeff.astype(np.float32), device=dev),
             a_mat=a_mat,
             rank_spec=rank_spec,
             dense=dense,

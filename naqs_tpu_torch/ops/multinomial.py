@@ -31,7 +31,8 @@ from __future__ import annotations
 
 import torch
 
-from naqs_tpu_torch.ops.sampler_kernels import check_tensors, launch
+from naqs_tpu_torch.ops._build import check_tensors
+from naqs_tpu_torch.ops.sampler_kernels import launch
 
 _SMALL_SUPPORT = 128
 _GAUSS_VAR_MIN = 25.0
@@ -146,7 +147,7 @@ def multinomial4_split(counts, probs, z, u, mask=None, valid=None):
         want["mask"] = (mask, b, (n, 4))
     if valid is not None:
         want["valid"] = (valid, b, (n,))
-    check_tensors("multinomial4_split", counts, want)
+    check_tensors("multinomial4_split", counts, want, align=16)
     if counts.device.type == "cpu":
         return multinomial4_split_ref(counts, probs, z, u, mask, valid)
     child = torch.empty((n, 4), dtype=torch.float64, device=counts.device)

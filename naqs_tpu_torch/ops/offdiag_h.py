@@ -33,7 +33,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from naqs_tpu_torch.ops.sort_lookup import check_tensors
+from naqs_tpu_torch.ops import _build
 from naqs_tpu_torch.utils.bits import parity_pm1
 
 OFFDIAG_ATOL = 1e-12  # Ha
@@ -43,16 +43,16 @@ _INT = ctypes.c_int
 _PTR = ctypes.c_void_p
 
 
-def term_groups(gxy, gyz, coeff, n_groups: int):
-    """(xy_ptr (n_groups + 1,) int32, term_yz (K,) int32, term_coeff (K,) f32),
-    numpy: the off-diagonal terms ordered by flip-mask group (stably, so a
-    group keeps its terms' order), group g's terms at xy_ptr[g] ..
-    xy_ptr[g+1] - 1, each by its sign mask's index and its coefficient."""
+def term_groups(gxy, n_groups: int, *fields):
+    """(ptr (n_groups + 1,) int64, *fields), numpy: the per-term `fields`
+    ordered by the terms' flip-mask group `gxy` (stably, so a group keeps its
+    terms' order), group g's terms at ptr[g] .. ptr[g+1] - 1. DeviceTerms
+    takes the sign mask's index and the coefficient of each term, the native
+    host library its sign mask and coefficient."""
     order = np.argsort(gxy, kind="stable")
     ptr = np.zeros(n_groups + 1, dtype=np.int64)
     np.cumsum(np.bincount(gxy, minlength=n_groups), out=ptr[1:])
-    return (ptr.astype(np.int32), gyz[order].astype(np.int32),
-            coeff[order].astype(np.float32))
+    return (ptr, *(f[order] for f in fields))
 
 
 def term_group(xy_ptr, n_terms: int):
@@ -79,13 +79,9 @@ def offdiag_tolerance(xy_ptr, term_coeff):
 
 @lru_cache(maxsize=1)
 def _lib():
-    from naqs_tpu_torch.ops import _build
-
     lib = _build.load("offdiag_h")
     lib.offdiag_h_terms.argtypes = [_PTR, _INT, _PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR]
     lib.offdiag_h_terms.restype = _INT
-    lib.offdiag_h_error_string.argtypes = [_INT]
-    lib.offdiag_h_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -93,12 +89,11 @@ def offdiag_h_terms(s, yz_unique, xy_ptr, term_yz, term_coeff):
     """h (C, Kxy) f32, Kxy = len(xy_ptr) - 1: the off-diagonal H row entries
     of chunk states s (C,) int64, from the terms grouped by flip mask."""
     n_rows, n_groups, n_terms = s.shape[0], xy_ptr.shape[0] - 1, term_yz.shape[0]
-    check_tensors("offdiag_h_terms", s, {
-        "s": (s, torch.int64, (n_rows,)),
-        "yz_unique": (yz_unique, torch.int64, (yz_unique.shape[0],)),
-        "xy_ptr": (xy_ptr, torch.int32, (n_groups + 1,)),
-        "term_yz": (term_yz, torch.int32, (n_terms,)),
-        "term_coeff": (term_coeff, torch.float32, (n_terms,))})
+    i64, i32 = (torch.int64,), (torch.int32,)
+    _build.check_tensors("offdiag_h_terms", s, {
+        "s": (s, i64, (n_rows,)), "yz_unique": (yz_unique, i64, (yz_unique.shape[0],)),
+        "xy_ptr": (xy_ptr, i32, (n_groups + 1,)), "term_yz": (term_yz, i32, (n_terms,)),
+        "term_coeff": (term_coeff, (torch.float32,), (n_terms,))})
     if s.device.type == "cpu":
         return offdiag_h_terms_ref(s, yz_unique, xy_ptr, term_yz, term_coeff)
     if n_rows * n_groups >= 1 << 31:
@@ -106,14 +101,8 @@ def offdiag_h_terms(s, yz_unique, xy_ptr, term_yz, term_coeff):
     h = torch.empty((n_rows, n_groups), dtype=torch.float32, device=s.device)
     if h.numel() == 0:
         return h
-    lib = _lib()
-    with torch.cuda.device(s.device):
-        rc = lib.offdiag_h_terms(s.data_ptr(), n_rows, yz_unique.data_ptr(), xy_ptr.data_ptr(),
-                                 n_groups, term_yz.data_ptr(), term_coeff.data_ptr(),
-                                 h.data_ptr(), torch.cuda.current_stream(s.device).cuda_stream)
-    if rc != 0:
-        msg = lib.offdiag_h_error_string(rc).decode()
-        raise RuntimeError(f"offdiag_h_terms launch failed: {msg} ({rc})")
+    _build.launch(_lib(), "offdiag_h_terms",
+                  (s, n_rows, yz_unique, xy_ptr, n_groups, term_yz, term_coeff, h), s.device)
     offdiag_h_terms.launches += 1
     return h
 

@@ -36,6 +36,7 @@ from functools import lru_cache
 
 import torch
 
+from naqs_tpu_torch.ops import _build
 from naqs_tpu_torch.ops.dyn_gather import ratio_rowsum
 from naqs_tpu_torch.ops.rank import _MISS
 
@@ -88,66 +89,28 @@ def sorted_log_amps(states, la, n_valid, s, xy):
 
 @lru_cache(maxsize=1)
 def _lib():
-    from naqs_tpu_torch.ops import _build
-
     lib = _build.load("sort_lookup")
     lib.sorted_ratio_rowsum.argtypes = [_PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _PTR,
                                         _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
     lib.sorted_gather2.argtypes = [_PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _INT,
                                    _PTR, _PTR, _PTR, _PTR]
     lib.sorted_ratio_rowsum.restype = lib.sorted_gather2.restype = _INT
-    lib.sort_lookup_error_string.argtypes = [_INT]
-    lib.sort_lookup_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def check_tensors(name, anchor, want):
-    """Raise on anything a kernel does not take. `want` maps a field's name to
-    (tensor, dtype, shape); every tensor must lie on `anchor`'s device and, on
-    the card, be contiguous and hold fewer than 2^31 elements. The plain
-    versions take strided CPU tensors."""
-    dev = anchor.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}")
-    for key, (t, dtype, shape) in want.items():
-        if not torch.is_tensor(t):
-            raise ValueError(f"{name}: {key} must be a tensor, got {type(t).__name__}")
-        if t.device != dev:
-            raise ValueError(f"{name}: {key} on {t.device}, expected {dev}")
-        dense = t.is_contiguous() or dev.type == "cpu"
-        if t.dtype != dtype or tuple(t.shape) != shape or not dense:
-            raise ValueError(
-                f"{name}: {key} must be a contiguous {dtype} of shape {shape}, got "
-                f"{t.dtype} of shape {tuple(t.shape)}"
-                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
-        if t.numel() >= 1 << 31:
-            raise ValueError(f"{name}: {key} must hold fewer than 2^31 elements")
 
 
 def _check(name, states, la, ph, n_valid, s, xy, **more):
     u, n_rows, n_cols = states.shape[0], s.shape[0], xy.shape[0]
     shapes = {"my_la": (n_rows,), "my_ph": (n_rows,), "h": (n_rows, n_cols),
               "live": (n_rows,)}
-    want = {"states": (states, torch.int64, (u,)), "la": (la, torch.float32, (u,)),
-            "ph": (ph, torch.float32, (u,)), "n_valid": (n_valid, torch.int64, ()),
-            "s": (s, torch.int64, (n_rows,)), "xy": (xy, torch.int64, (n_cols,))}
-    want.update({k: (t, torch.bool if k == "live" else torch.float32, shapes[k])
+    i64, f32 = (torch.int64,), (torch.float32,)
+    want = {"states": (states, i64, (u,)), "la": (la, f32, (u,)), "ph": (ph, f32, (u,)),
+            "n_valid": (n_valid, i64, ()), "s": (s, i64, (n_rows,)),
+            "xy": (xy, i64, (n_cols,))}
+    want.update({k: (t, (torch.bool,) if k == "live" else f32, shapes[k])
                  for k, t in more.items()})
-    check_tensors(name, s, want)
+    _build.check_tensors(name, s, want)
     if n_rows * n_cols >= 1 << 31:
         raise ValueError(f"{name}: C * K = {n_rows * n_cols} must be below 2^31")
-
-
-def _launch(name, args, device):
-    """Launch kernel `name` of csrc/sort_lookup.cu on the device's current
-    stream; tensors pass as pointers, ints as they are."""
-    lib = _lib()
-    flat = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
-    with torch.cuda.device(device):
-        rc = getattr(lib, name)(*flat, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        msg = lib.sort_lookup_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
 
 def sorted_ratio_rowsum(states, la, ph, n_valid, s, xy, my_la, my_ph, h):
@@ -161,8 +124,9 @@ def sorted_ratio_rowsum(states, la, ph, n_valid, s, xy, my_la, my_ph, h):
     e_im = torch.empty_like(e_re)
     if e_re.numel() == 0:
         return e_re, e_im
-    _launch("sorted_ratio_rowsum", (states, states.shape[0], la, ph, n_valid, s, s.shape[0],
-                                    xy, xy.shape[0], my_la, my_ph, h, e_re, e_im), s.device)
+    _build.launch(_lib(), "sorted_ratio_rowsum",
+                  (states, states.shape[0], la, ph, n_valid, s, s.shape[0], xy, xy.shape[0],
+                   my_la, my_ph, h, e_re, e_im), s.device)
     sorted_ratio_rowsum.launches += 1
     return e_re, e_im
 
@@ -177,8 +141,9 @@ def sorted_gather2(states, la, ph, n_valid, s, xy, live):
     out_ph = torch.empty_like(out_la)
     if out_la.numel() == 0:
         return out_la, out_ph
-    _launch("sorted_gather2", (states, states.shape[0], la, ph, n_valid, s, s.shape[0], xy,
-                               xy.shape[0], live, out_la, out_ph), s.device)
+    _build.launch(_lib(), "sorted_gather2",
+                  (states, states.shape[0], la, ph, n_valid, s, s.shape[0], xy, xy.shape[0],
+                   live, out_la, out_ph), s.device)
     sorted_gather2.launches += 1
     return out_la, out_ph
 

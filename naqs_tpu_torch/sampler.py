@@ -35,7 +35,8 @@ import torch
 
 from naqs_tpu_torch.models.nade import NADE, amp_conditional_shell
 from naqs_tpu_torch.ops.multinomial import multinomial4_split_ref, split_draws
-from naqs_tpu_torch.ops.sampler_kernels import (check_tensors, compact_tile_rows, launch,
+from naqs_tpu_torch.ops._build import check_tensors
+from naqs_tpu_torch.ops.sampler_kernels import (compact_tile_rows, launch,
                                                 split_tile_rows)
 from naqs_tpu_torch.utils.bits import SENTINEL
 
@@ -108,7 +109,7 @@ def _compact_children(a, b, child_weights, child_valid, j: int, cap: int):
     check_tensors("compact_children", a, {
         "a": (a, i64, (cap,)), "b": (b, i64, (cap,)),
         "child_weights": (child_weights, f64, (cap, 4)),
-        "child_valid": (child_valid, (torch.bool,), (cap, 4))})
+        "child_valid": (child_valid, (torch.bool,), (cap, 4))}, align=16)
     _check_shell("compact_children", j, cap)
     if a.device.type == "cpu":
         return _compact_children_ref(a, b, child_weights, child_valid, j, cap)
@@ -145,7 +146,7 @@ def _split_and_compact(a, b, counts, valid, probs, z, u, mask, j: int, cap: int)
         "a": (a, i64, (cap,)), "b": (b, i64, (cap,)),
         "counts": (counts, (torch.float64,), (cap,)), "valid": (valid, bl, (cap,)),
         "probs": (probs, f32, (cap, 4)), "z": (z, f32, (3, cap)), "u": (u, f32, (3, cap)),
-        "mask": (mask, bl, (cap, 4))})
+        "mask": (mask, bl, (cap, 4))}, align=16)
     _check_shell("split_and_compact", j, cap)
     if a.device.type == "cpu":
         return _split_and_compact_ref(a, b, counts, valid, probs, z, u, mask, j, cap)

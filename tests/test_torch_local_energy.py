@@ -171,7 +171,7 @@ def test_quadratic_energy_is_the_rayleigh_quotient():
     assert abs(got - want) < 1e-5
 
 
-def test_no_rank_spec_is_not_ported():
+def test_no_rank_spec_takes_the_sort_engine_and_matches_jax():
     """With no Hilbert space there is no RankSpec: the port takes its sort
     engine, as JAX does, and matches JAX's sort path per row and on the mean.
     (Cases of the sort engine: test_torch_sort_engine.py.)"""

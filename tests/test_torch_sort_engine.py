@@ -285,13 +285,12 @@ def test_term_groups_are_the_terms_by_flip_mask():
     its flip mask's group, in the compiled order; padding is left out."""
     c = case("H2O")
     t = c.terms_t
-    ptr, yz, co = term_groups(t.gxy, t.gyz, t.coeff, len(t.xy_unique) + 3)  # 3 pad groups
+    ptr, yz, co = term_groups(t.gxy, len(t.xy_unique) + 3, t.gyz, t.coeff)  # 3 pad groups
     assert ptr[0] == 0 and ptr[-1] == len(t.coeff) and np.all(np.diff(ptr) >= 0)
     g = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))
     np.testing.assert_array_equal(g, np.sort(t.gxy))
     np.testing.assert_array_equal(t.yz_unique[yz], t.yz[np.argsort(t.gxy, kind="stable")])
-    np.testing.assert_array_equal(co, t.coeff[np.argsort(t.gxy, kind="stable")].astype(
-        np.float32))
+    np.testing.assert_array_equal(co, t.coeff[np.argsort(t.gxy, kind="stable")])
     assert OFFDIAG_RTOL * np.abs(co).sum() > OFFDIAG_ATOL
 
 

@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   1. build every CUDA kernel with nvcc (one nvcc per source, started
      together): csrc/rank_gather.cu, csrc/grid_engine.cu (the factored, dense
      and staircase accumulations), csrc/sampler_step.cu, csrc/sort_lookup.cu
-     (the sort engine's lookups) and csrc/offdiag_h.cu (the per-term H row);
+     (the sort engine's lookups and its one-launch E_loc) and csrc/offdiag_h.cu
+     (the per-term H row);
   2. print the card's name and power limit (nvidia-smi);
   3. set up H2O 6-31G (26 qubits, sector (5, 5), 1,656,369 states) and the
      paper-scale model (amp 64, phase 512x512, global phase net, partial
@@ -96,19 +97,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      zeroed outside the restricted rectangle (ELOC_TOL);
  10c. the sort engine, for spaces with no RankSpec. On phase 8-9's H2O 6-31G
      batch: local_energy through it (rank_spec=None, dense=None) against the
-     rank engine per live row within phase 9's tolerance, the same with the
-     per-term H row (a_mat=None, so offdiag_h_terms) within ENGINE_TOL, and
-     quadratic_energy through sorted_gather2 within QUAD_RTOL of phase 8's; each
-     kernel launched once per chunk and no other. Then N2 6-31G
+     rank engine per live row within phase 9's tolerance, and with no dense A
+     (a_mat=None: one sorted_local_energy launch, no other kernel) within
+     ENGINE_TOL, and quadratic_energy through sorted_gather2 within QUAD_RTOL of
+     phase 8's; each kernel launched once per chunk and no other. Then N2 6-31G
      (naqs_tpu_torch/data/N2_6-31G_gen.npz: 36 qubits, sector (7, 7) of
      1,012,766,976 states, 137,872 terms; the dispatch must carry no RankSpec,
      no grid program and no dense A) with the paper-scale model of phase 3 and
      capacity 100,000: offdiag_h_terms (per entry within offdiag_tolerance),
      sorted_ratio_rowsum (per row within rowsum_tolerance) and sorted_gather2
      (bitwise) against their plain versions on a real chunk (C=128,
-     Kxy=27,392), each twice bitwise; N2_STEPS training steps with the counts
-     at 0 before (sorted_ratio_rowsum and offdiag_h_terms once per chunk, 782
-     per local_energy call, split_and_compact 18 times per sample() call, no
+     Kxy=27,392), each twice bitwise; sorted_local_energy on the whole sampled
+     buffer (capacity 100,000) per row within sorted_local_energy_tolerance of
+     its plain version, within that bound without the H entries' term of this
+     tree's offdiag_h_terms + sorted_ratio_rowsum composed over the 782 chunks,
+     twice bitwise, and through local_energy(queries=) with two SENTINEL rows
+     after each of 2,048 live ones (those rows e_im 0 and e_re their diagonal,
+     the live rows bitwise as in the whole call, one launch); N2_STEPS training
+     steps with the counts at 0 before (sorted_local_energy once per
+     local_energy call, split_and_compact 18 times per sample() call, no
      other kernel); 8 rows of a fresh batch against local_energy_np
      (ELOC_TOL); quadratic_energy on that batch with the counts at 0 before
      (sorted_gather2 and offdiag_h_terms once per chunk, 782 each, no other
@@ -154,10 +161,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      the sort engine's three kernels on N2 6-31G's chunk, their plain versions
      and the library calls beside them (torch.searchsorted of the coupled
      states and a gather; Tensor.index_add of the products computed
-     beforehand), held and unheld, and SLOW_REPEATS unheld repeats of one
-     whole N2 6-31G local_energy call, through the kernels and through all
-     three plain versions (first held against each other within
-     ENGINE_TOL). Each is
+     beforehand), held and unheld; REPEATS of ENERGY_LAUNCHES of
+     sorted_local_energy on the N2 call with its shared-memory top, with
+     the global search alone and with every flip mask's group cut to one term
+     (the same searches), held (LONG_HOLD_CYCLES) and unheld;
+     SLOW_REPEATS of one of it in
+     turns with this tree's offdiag_h_terms + sorted_ratio_rowsum composed over
+     the 782 chunks (with --before, DIR's too, first held against the kernel
+     within the composition's bound) and with its plain version, held behind
+     a sleep of COMPOSITION_HOLD_CYCLES (1,564 enqueues) and unheld; and
+     SLOW_REPEATS unheld repeats of one whole N2 6-31G local_energy call,
+     through the kernel (first held against the call through its plain
+     version within ENGINE_TOL) and, with --before, through DIR's chunk loop.
+     Each is
      timed held (behind a card sleep
      that covers the host's enqueue, so the launches run back to back: the
      card's time, reported as "ms"); the fast ones also unheld (a plain loop,
@@ -173,8 +189,10 @@ factored_grid_accumulate, split_and_compact, multinomial4_split and
 compact_children (0: the standalone kernels left sample()'s path; their
 launches in phase 5b's sample_density call as "launches_sample_density"), 7
 for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
-for xl_grid_accumulate, 10c's N2 steps for sorted_ratio_rowsum and
-offdiag_h_terms and its N2 quadratic_energy call for sorted_gather2; the
+for xl_grid_accumulate, 10c's N2 steps for sorted_local_energy,
+sorted_ratio_rowsum and offdiag_h_terms (0: the last two run where a dense A
+exists, and in quadratic_energy, beside which their launches there stand)
+and its N2 quadratic_energy call for sorted_gather2; the
 staircase kernel's bound_ms counts what the function needs on the
 sampled grid (the grid cells the valid pairs read, the maps, the program and
 the output; the set pairs' operations) and dense_bound_ms the earlier design's
@@ -205,6 +223,9 @@ XL_QUERIES = 4096             # staircase rows held against the rank engine
 QUAD_RTOL = 1e-6              # quadratic_energy, kernel vs plain gather
 N2_STEPS = 2                  # training steps of N2 6-31G on the sort engine
 SORT_LAUNCHES = 10            # timing of the sort engine's kernels: launches per repeat
+ENERGY_LAUNCHES = 5           # timing of sorted_local_energy: launches per repeat
+LONG_HOLD_CYCLES = 200_000_000  # ~0.1 s of card sleep: 5 calls of milliseconds
+COMPOSITION_HOLD_CYCLES = 3_000_000_000  # ~1.5 s: 2 x 782 launches, the plain version's ops
 SEARCH_OPS = 3                # integer operations per level of a search: load, compare, select
 REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
 SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and more
@@ -710,7 +731,8 @@ def _before_modules(before):
     its ops/dyn_gather} where its rank_gather2 takes the two-channel tables of
     the first slice, {"grid": its ops/grid_kernels} where it has
     csrc/grid_engine.cu, {"sampler": its sampler, "multinomial": its
-    ops/multinomial} where it has csrc/sampler_step.cu."""
+    ops/multinomial} where it has csrc/sampler_step.cu, {"sort_lookup",
+    "offdiag_h", "local_energy": its ops/...} where it has csrc/sort_lookup.cu."""
     import importlib
     import inspect
 
@@ -735,6 +757,11 @@ def _before_modules(before):
             mods["sampler"] = importlib.import_module("naqs_tpu_torch.sampler")
             mods["multinomial"] = importlib.import_module("naqs_tpu_torch.ops.multinomial")
             importlib.import_module("naqs_tpu_torch.ops.sampler_kernels")._lib()
+        if has("sort_lookup.cu"):
+            for name in ("sort_lookup", "offdiag_h", "local_energy"):
+                mods[name] = importlib.import_module(f"naqs_tpu_torch.ops.{name}")
+            mods["sort_lookup"]._lib()
+            mods["offdiag_h"]._lib()
     finally:
         sys.path.remove(before)
         for k in [k for k in sys.modules if ours(k)]:
@@ -777,9 +804,11 @@ def main(argv) -> int:
                                               offdiag_h_terms_ref, offdiag_tolerance,
                                               term_group)
     from naqs_tpu_torch.ops.rank import build_value_table, rank_index
-    from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_gather2_ref,
-                                                sorted_log_amps, sorted_ratio_rowsum,
-                                                sorted_ratio_rowsum_ref)
+    from naqs_tpu_torch.ops.sort_lookup import (DIAG_RTOL, _launch_energy, lookup, pack_table,
+                                                sorted_gather2, sorted_gather2_ref,
+                                                sorted_local_energy, sorted_local_energy_ref,
+                                                sorted_local_energy_tolerance, sorted_log_amps,
+                                                sorted_ratio_rowsum, sorted_ratio_rowsum_ref)
     from naqs_tpu_torch.ops.sampler_kernels import split_tile_rows
     from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref,
                                         _split_and_compact, _split_and_compact_ref)
@@ -790,8 +819,9 @@ def main(argv) -> int:
     t0 = time.time()
     wrappers = (rank_gather2, rank_ratio_rowsum, factored_grid_accumulate,
                 dense_grid_accumulate, multinomial4_split, _compact_children, _split_and_compact,
-                xl_grid_accumulate, sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms)
-    sort_wrappers = wrappers[-3:]
+                xl_grid_accumulate, sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms,
+                sorted_local_energy)
+    sort_wrappers = (sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms, sorted_local_energy)
 
     def zero_counts():
         for w in wrappers:
@@ -1360,26 +1390,30 @@ def main(argv) -> int:
     if dt_sort.a_mat is None:
         raise SystemExit("H2O 6-31G's DeviceTerms must carry a dense A")
     zero_counts()
-    e_s = le.local_energy(dt_sort, batch.states, la, ph, batch.n_unique)
     e_g = le.local_energy(dt_seg, batch.states, la, ph, batch.n_unique)
+    seg_counts = {w.__name__: w.launches for w in wrappers}
+    zero_counts()
+    e_s = le.local_energy(dt_sort, batch.states, la, ph, batch.n_unique)
     q_s = float(le.quadratic_energy(dt_sort, batch.states, la, ph, batch.n_unique))
     h2o_counts = {w.__name__: w.launches for w in wrappers}
     d_sr = [(a[:nu] - b[:nu]).abs() for a, b in zip(e_s, e_k)]
     sr_ok = all(bool((d <= tol).all()) for d in d_sr)
     sr_same = all(torch.equal(a[:nu], b[:nu]) for a, b in zip(e_s, e_k))
-    d_seg = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_g, e_s))
+    d_seg = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_g, e_k))
     q_rel_s = abs(q_s - q_k) / abs(q_k)
     print(f"[eloc] H2O 6-31G, sort engine (rank_spec=None, dense=None) vs rank engine on {nu} "
           f"rows: within the per-row tolerance of phase 9={sr_ok} (bitwise equal={sr_same}), "
-          f"max_abs_diff re {float(d_sr[0].max()):.3e} im {float(d_sr[1].max()):.3e} Ha; the "
-          f"per-term H row (a_mat=None) vs the dense A: {d_seg:.3e} Ha (tol {ENGINE_TOL}); "
+          f"max_abs_diff re {float(d_sr[0].max()):.3e} im {float(d_sr[1].max()):.3e} Ha; "
+          f"with no dense A (a_mat=None: sorted_local_energy, launches {seg_counts}) vs "
+          f"the rank engine: {d_seg:.3e} Ha (tol {ENGINE_TOL}); "
           f"quadratic_energy through sorted_gather2 {q_s:.10f} vs rank {q_k:.10f}: rel "
-          f"{q_rel_s:.2e} (tol {QUAD_RTOL}); launches {h2o_counts}", flush=True)
+          f"{q_rel_s:.2e} (tol {QUAD_RTOL}); launches with the dense A {h2o_counts}",
+          flush=True)
     want_counts = {w.__name__: 0 for w in wrappers}
-    want_counts.update(sorted_ratio_rowsum=2 * per_call, offdiag_h_terms=per_call,
-                       sorted_gather2=per_call)
+    want_seg = dict(want_counts, sorted_local_energy=1)
+    want_counts.update(sorted_ratio_rowsum=per_call, sorted_gather2=per_call)
     if not (sr_ok and d_seg <= ENGINE_TOL and q_rel_s <= QUAD_RTOL
-            and h2o_counts == want_counts and math.isfinite(q_s)):
+            and h2o_counts == want_counts and seg_counts == want_seg and math.isfinite(q_s)):
         raise SystemExit("H2O 6-31G: the sort engine disagrees with the rank engine, or ran "
                          "other kernels than its own")
     del e_s, e_g, d_sr
@@ -1468,23 +1502,105 @@ def main(argv) -> int:
     if not (h_ok and h_same and r_ok and r_same and g_same and g_twice):
         raise SystemExit("a sort-engine kernel disagrees with its plain version or itself")
 
+    # sorted_local_energy on the whole sampled buffer at capacity 100,000, as the
+    # training step's E_loc call gives it: against its plain version, against this
+    # tree's two kernels composed over the same chunks as the chunk loop ran them,
+    # twice bitwise, and with SENTINEL query rows between live ones
+    e_args = (*table4, nv4, *table4, xy4, dt4.xy_ptr, dt4.term_yz, dt4.yz_unique,
+              dt4.term_coeff, dt4.diag_yz, dt4.diag_coeff)
+    tol_args = (table4[0], table4[1], nv4, table4[0], table4[1], xy4, dt4.xy_ptr, dt4.term_yz,
+                dt4.yz_unique, dt4.term_coeff, dt4.diag_coeff)
+    e_new, e_twice = sorted_local_energy(*e_args), sorted_local_energy(*e_args)
+    e_plain = sorted_local_energy_ref(*e_args, chunk_rows=chunk4)
+    e_tol = sorted_local_energy_tolerance(*tol_args, chunk_rows=chunk4)
+    e_diff = [(a - b).abs() for a, b in zip(e_new, e_plain)]
+    eloc_err4 = max(float(d.max()) for d in e_diff)
+    e_ok = all(bool((d <= e_tol).all()) for d in e_diff) and all(
+        bool(torch.isfinite(a).all()) for a in e_new)
+    e_same = all(torch.equal(a, b) for a, b in zip(e_new, e_twice))
+    chunks4 = [(slice(i, i + chunk4), table4[0][i:i + chunk4], table4[1][i:i + chunk4],
+                table4[2][i:i + chunk4]) for i in range(0, cap4, chunk4)]
+
+    def composition(h_fn, r_fn):
+        """the chunk loop's two kernels over the whole buffer: (re, im) f32"""
+        out = [r_fn(*table4, nv4, s, xy4, my_la, my_ph,
+                    h_fn(s, dt4.yz_unique, dt4.xy_ptr, dt4.term_yz, dt4.term_coeff))
+               for _, s, my_la, my_ph in chunks4]
+        return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+    diag4 = le.diagonal_energy(dt4, table4[0])
+    comp4 = composition(offdiag_h_terms, sorted_ratio_rowsum)
+    comp_tol = sorted_local_energy_tolerance(*tol_args, chunk_rows=chunk4, h_exact=True)
+    c_diff = [(e_new[0] - diag4 - comp4[0].double()).abs(),
+              (e_new[1] - comp4[1].double()).abs()]
+    comp_err4 = max(float(d.max()) for d in c_diff)
+    c_ok = all(bool((d <= comp_tol).all()) for d in c_diff)
+    im_bits = torch.equal(e_new[1], comp4[1].double())
+    # queries=: the first live rows with two SENTINEL rows after every one of them
+    n_q = min(2048, n_live4)
+    pads = torch.full((3 * n_q,), SENTINEL, dtype=torch.int64, device=dev)
+    q_rows = [pads.clone(), torch.zeros(3 * n_q, device=dev), torch.zeros(3 * n_q, device=dev)]
+    for q_t, src_t in zip(q_rows, (batch4.states, la4, ph4)):
+        q_t[::3] = src_t[:n_q].to(q_t.dtype)
+    before_q = sorted_local_energy.launches
+    q_e = le.local_energy(dt4, batch4.states, la4, ph4, batch4.n_unique, queries=tuple(q_rows))
+    q_launches = sorted_local_energy.launches - before_q
+    pad_q = q_rows[0] == SENTINEL
+    pad_diag = le.diagonal_energy(dt4, q_rows[0][pad_q])
+    diag_tol = DIAG_RTOL * float(dt4.diag_coeff.abs().sum())
+    q_ok = (bool((q_e[1][pad_q] == 0).all())
+            and float((q_e[0][pad_q] - pad_diag).abs().max()) <= diag_tol
+            and torch.equal(q_e[0][~pad_q], e_new[0][:n_q])
+            and torch.equal(q_e[1][~pad_q], e_new[1][:n_q]) and q_launches == 1)
+    # what the call searches and finds: the live rows' coupled states, the real
+    # found pairs (a flip mask with terms) and their groups' terms, the distinct
+    # table rows found
+    sizes4 = torch.diff(dt4.xy_ptr.long())
+    real4 = sizes4 > 0
+    n_found_pairs, n_found_terms, found_rows = 0, 0, []
+    for c_rows in chunks4[: -(-n_live4 // chunk4)]:
+        s_live = c_rows[1][c_rows[1] != SENTINEL]
+        q_live = s_live[:, None] ^ xy4[real4][None, :]
+        hit = lookup(table4[0], table4[1], table4[2], nv4, q_live)[0]
+        n_found_pairs += int(hit.sum())
+        n_found_terms += int((hit * sizes4[real4][None, :]).sum())
+        found_rows.append(torch.searchsorted(table4[0], q_live[hit]))
+    n_found_rows = int(torch.unique(torch.cat(found_rows)).numel())
+    torch.cuda.synchronize()
+    print(f"[kernel] sorted_local_energy ({cap4} query rows of which {n_live4} live, Kxy="
+          f"{xy4.shape[0]} ({int(real4.sum())} with terms), Kd={dt4.diag_yz.shape[0]}): vs its "
+          f"plain version max_abs_err={eloc_err4:.3e} Ha, worst row at "
+          f"{max(float((d / e_tol).max()) for d in e_diff):.3f} of its tolerance (rowsum "
+          f"{ROWSUM_ATOL} + {ROWSUM_RTOL} sum|h||r|, + sum_k |r_k| offdiag_tolerance_k, + "
+          f"{DIAG_RTOL} sum|diag_coeff| = {diag_tol:.2e}), within={e_ok}; vs this tree's "
+          f"offdiag_h_terms + sorted_ratio_rowsum composed over {len(chunks4)} chunks "
+          f"{comp_err4:.3e} Ha, within (no H term)={c_ok}, e_im bitwise equal={im_bits}; "
+          f"twice bitwise equal={e_same}; queries= with {int(pad_q.sum())} SENTINEL rows "
+          f"between {n_q} live ones: padding rows e_im 0 and e_re their diagonal, live rows "
+          f"bitwise as in the whole call, one launch={q_ok}; the live rows' {n_live4} x "
+          f"{int(real4.sum())} coupled states found {n_found_pairs} (flip masks with terms), "
+          f"{n_found_terms} terms walked, {n_found_rows} distinct table rows", flush=True)
+    if not (e_ok and c_ok and e_same and q_ok):
+        raise SystemExit("sorted_local_energy disagrees with its plain version, with the two "
+                         "kernels composed or with itself, or mishandles SENTINEL query rows")
+
     zero_counts()
     n_updates4, t_n2, n_draws4 = _steps(tr4, N2_STEPS, "sort (N2 6-31G)")
     n2_counts = {w.__name__: w.launches for w in wrappers}
     want_counts = {w.__name__: 0 for w in wrappers}
-    want_counts.update(sorted_ratio_rowsum=per_call4 * n_updates4,
-                       offdiag_h_terms=per_call4 * n_updates4,
+    want_counts.update(sorted_local_energy=n_updates4,
                        _split_and_compact=cfg4.n_shells * n_draws4)
-    print(f"[path] N2 6-31G default dispatch (sort engine): launches in {N2_STEPS} steps "
-          f"{n2_counts} ({n_updates4} vmc_update calls, {per_call4} chunks per local_energy "
-          f"call; {n_draws4} sample() calls of {cfg4.n_shells} shells); steps "
+    print(f"[path] N2 6-31G default dispatch (sort engine, no dense A): launches in {N2_STEPS} "
+          f"steps {n2_counts} ({n_updates4} vmc_update calls, one sorted_local_energy launch "
+          f"per local_energy call; {n_draws4} sample() calls of {cfg4.n_shells} shells); steps "
           f"{', '.join(f'{t:.3f}' for t in t_n2)} s", flush=True)
     if n2_counts != want_counts or n_updates4 < N2_STEPS:
-        raise SystemExit(f"N2 6-31G did not run sorted_ratio_rowsum and offdiag_h_terms once "
-                         f"per chunk and split_and_compact once per shell, or ran other "
-                         f"kernels: {n2_counts} against {want_counts}")
+        raise SystemExit(f"N2 6-31G did not run sorted_local_energy once per E_loc call and "
+                         f"split_and_compact once per shell, or ran other kernels: "
+                         f"{n2_counts} against {want_counts}")
     sort_launches = n2_counts["sorted_ratio_rowsum"]
     offdiag_launches = n2_counts["offdiag_h_terms"]
+    energy_launches = n2_counts["sorted_local_energy"]
     # 8 rows of a fresh batch against the float64 oracle: 4 at random and the 4
     # whose off-diagonal part is largest (few sampled states couple at random weights)
     batch4 = tr4._sample()
@@ -1622,34 +1738,83 @@ def main(argv) -> int:
     slow = [n for n in sort_fns if calls[n][1][1] * SORT_LAUNCHES >= hold]
     if slow:
         raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times invalid")
-    # one whole local_energy call at capacity 100,000 through the kernels and through
-    # all three plain versions, unheld: the call's wall time on the card, host included
-    plain_names = ("sorted_ratio_rowsum", "sorted_gather2", "offdiag_h_terms")
+    # sorted_local_energy on the N2 call, with the shared top, with the global
+    # search alone (the search it replaced) and with every group cut to its first
+    # term (the same searches and finds, one term walked a found pair: what
+    # queueing the walks could save at most); then, held long enough for the
+    # 2 x 782 enqueues, in turns with the chunk loop's two kernels composed over
+    # the same rows (this tree's, and with --before DIR's, first held against the
+    # kernel) and with the plain version
+    e_name, e_glob = "sorted_local_energy", "sorted_local_energy (global search)"
+    e_one = "sorted_local_energy (one term a group)"
+    one_ptr = torch.cat([dt4.xy_ptr[:1], torch.cumsum(real4.int(), 0, dtype=torch.int32)])
+    one_args = (*e_args[:8], one_ptr, *e_args[9:])
+    energy_fns = {e_name: lambda: sorted_local_energy(*e_args),
+                  e_glob: lambda: _launch_energy(e_args, shared_top=False),
+                  e_one: lambda: _launch_energy(one_args)}
+    long_hold = hold_ms(LONG_HOLD_CYCLES)
+    times.update(time_in_turns(energy_fns, REPEATS, ENERGY_LAUNCHES,
+                               hold_cycles=LONG_HOLD_CYCLES))
+    calls.update(time_in_turns(energy_fns, REPEATS, ENERGY_LAUNCHES, hold=False))
+    slow = [n for n in energy_fns if calls[n][1][1] * ENERGY_LAUNCHES >= long_hold]
+    if slow:
+        raise SystemExit(f"the {long_hold:.1f} ms hold did not cover the enqueue of {slow}: "
+                         f"held times invalid")
+    e_comp = "offdiag_h_terms + sorted_ratio_rowsum (782 chunks)"
+    e_comp_old = f"{e_comp}, earlier tree"
+    e_plain_name = "sorted_local_energy_ref"
+    comp_fns = {e_name: energy_fns[e_name],
+                e_comp: lambda: composition(offdiag_h_terms, sorted_ratio_rowsum),
+                e_plain_name: lambda: sorted_local_energy_ref(*e_args, chunk_rows=chunk4)}
+    if "sort_lookup" in old_mods:
+        comp_old = composition(old_mods["offdiag_h"].offdiag_h_terms,
+                               old_mods["sort_lookup"].sorted_ratio_rowsum)
+        d_old = [(e_new[0] - diag4 - comp_old[0].double()).abs(),
+                 (e_new[1] - comp_old[1].double()).abs()]
+        old_ok = all(bool((d <= comp_tol).all()) for d in d_old)
+        print(f"[before] the earlier tree's offdiag_h_terms + sorted_ratio_rowsum over "
+              f"{len(chunks4)} chunks vs sorted_local_energy: "
+              f"{max(float(d.max()) for d in d_old):.3e} Ha, within={old_ok}, e_im bitwise "
+              f"equal={torch.equal(e_new[1], comp_old[1].double())}", flush=True)
+        if not old_ok:
+            raise SystemExit("the earlier tree's composition disagrees with sorted_local_energy")
+        comp_fns[e_comp_old] = lambda: composition(old_mods["offdiag_h"].offdiag_h_terms,
+                                                   old_mods["sort_lookup"].sorted_ratio_rowsum)
+    comp_hold = hold_ms(COMPOSITION_HOLD_CYCLES)
+    comp_times = time_in_turns(comp_fns, SLOW_REPEATS, 1, hold_cycles=COMPOSITION_HOLD_CYCLES)
+    comp_calls = time_in_turns(comp_fns, SLOW_REPEATS, 1, hold=False)
+    slow = [n for n in comp_fns if comp_calls[n][1][1] >= comp_hold]
+    if slow:
+        raise SystemExit(f"the {comp_hold:.1f} ms hold did not cover the enqueue of {slow}: "
+                         f"held times invalid")
+    times.update({n: t for n, t in comp_times.items() if n != e_name})
+    calls.update({n: t for n, t in comp_calls.items() if n != e_name})
+    # one whole local_energy call at capacity 100,000 through the kernel (first held
+    # against the call through its plain version) and, with --before, through the
+    # earlier tree's chunk loop, unheld: the call's wall time on the card, host included
 
     def plain_call():
-        saved = [getattr(le, n) for n in plain_names]
-        for n, f in zip(plain_names, (sorted_ratio_rowsum_ref, sorted_gather2_ref,
-                                      offdiag_h_terms_ref)):
-            setattr(le, n, f)
+        le.sorted_local_energy = sorted_local_energy_ref
         try:
             return le.local_energy(dt4, batch4.states, la4, ph4, batch4.n_unique)
         finally:
-            for n, f in zip(plain_names, saved):
-                setattr(le, n, f)
+            le.sorted_local_energy = sorted_local_energy
 
     e4_plain = plain_call()
     d_plain = max(float((a[:nu4] - b[:nu4]).abs().max()) for a, b in zip(e4, e4_plain))
-    print(f"[eloc] N2 6-31G: local_energy through the plain versions vs through the kernels on "
+    print(f"[eloc] N2 6-31G: local_energy through the plain version vs through the kernel on "
           f"{nu4} rows: max_abs_diff {d_plain:.3e} Ha (tol {ENGINE_TOL})", flush=True)
     if d_plain > ENGINE_TOL:
-        raise SystemExit("N2 6-31G: local_energy through the kernels and through their plain "
-                         "versions differ")
+        raise SystemExit("N2 6-31G: local_energy through the kernel and through its plain "
+                         "version differ")
     del e4_plain
     le_name = "local_energy (sort engine, N2 6-31G)"
-    le_plain = f"{le_name} through the plain versions"
-    e2e = time_in_turns({le_name: lambda: le.local_energy(dt4, batch4.states, la4, ph4,
-                                                           batch4.n_unique),
-                         le_plain: plain_call}, SLOW_REPEATS, 1, hold=False)
+    le_old = f"{le_name}, earlier tree"
+    e2e_fns = {le_name: lambda: le.local_energy(dt4, batch4.states, la4, ph4, batch4.n_unique)}
+    if "local_energy" in old_mods:
+        e2e_fns[le_old] = lambda: old_mods["local_energy"].local_energy(
+            dt4, batch4.states, la4, ph4, batch4.n_unique)
+    e2e = time_in_turns(e2e_fns, SLOW_REPEATS, 1, hold=False)
     calls.update(e2e)
     print(f"[time] {REPEATS} repeats of {LAUNCHES} launches ({SLOW_REPEATS} of "
           f"{SLOW_LAUNCHES} for the factored and staircase kernels, the grid kernels' plain "
@@ -1672,6 +1837,13 @@ def main(argv) -> int:
     for name, (med, spread) in e2e.items():
         print(f"[time] {name}: unheld median {med:.2f} ms, spread {spread[0]:.2f}-"
               f"{spread[1]:.2f} ms", flush=True)
+    print(f"[time] sorted_local_energy in turns with the {len(chunks4)}-chunk compositions and "
+          f"its plain version: {SLOW_REPEATS} repeats of 1, held behind a {comp_hold:.1f} ms "
+          f"card sleep, and unheld", flush=True)
+    for name, (med, spread) in comp_times.items():
+        print(f"[time] {name}: held median {med:.4f} ms, spread {spread[0]:.4f}-{spread[1]:.4f}"
+              f" ms; unheld median {comp_calls[name][0]:.4f} ms, spread "
+              f"{comp_calls[name][1][0]:.4f}-{comp_calls[name][1][1]:.4f} ms", flush=True)
     print(f"[time] {per_call4} x one chunk's held time of sorted_ratio_rowsum + "
           f"offdiag_h_terms (a product, not a reading; --profile sums the step's kernels): "
           f"{per_call4 * (times['sorted_ratio_rowsum'][0] + times['offdiag_h_terms'][0]):.2f}"
@@ -1749,6 +1921,27 @@ def main(argv) -> int:
     print(f"[bound] sorted_gather2 {sg_bound[0]:.5f} ms ({sg_bound[1]}: {sg_bytes} B = outputs "
           f"{2 * n_q4 * 4} B, the table's live keys and found rows, s, xy, live; {search_ops} "
           f"operations)", flush=True)
+    # sorted_local_energy on the N2 call, counted over the live rows (a padding row's
+    # result is known in advance): per coupled state of a flip mask with terms the xor
+    # and SEARCH_OPS per level, per found pair 3 per term of its group and the
+    # epilogue, 3 per diagonal term; each input read once (of the table the live keys
+    # and la, ph of the rows found; the terms of the groups walked), each output
+    # written once
+    n_real4 = int(real4.sum())
+    le_ops = (n_live4 * n_real4 * (1 + SEARCH_OPS * n_levels4) + 3 * n_found_terms
+              + EPILOGUE_OPS * n_found_pairs + 3 * n_live4 * dt4.diag_yz.numel())
+    le_bytes = (n_live4 * 8 + n_found_rows * 8 + xy4.numel() * 12 + n_found_terms * 16
+                + dt4.diag_yz.numel() * 16 + cap4 * 8 + n_live4 * 8 + cap4 * 16)
+    le_bound = _bound(le_bytes, le_ops)
+    print(f"[bound] sorted_local_energy {le_bound[0]:.5f} ms ({le_bound[1]}: {le_ops} "
+          f"operations = {n_live4} live rows x {n_real4} flip masks with terms x (1 + "
+          f"{SEARCH_OPS} x {n_levels4} levels) + 3 x {n_found_terms} terms of the "
+          f"{n_found_pairs} found pairs + {EPILOGUE_OPS} a found pair + 3 x "
+          f"{dt4.diag_yz.numel()} diagonal terms a live row, "
+          f"{le_ops / H100_FP32_OPS_PER_S * 1e3:.5f} ms; {le_bytes} B = the live keys, la and "
+          f"ph of the {n_found_rows} rows found, xy and xy_ptr, the walked terms, the "
+          f"diagonal terms, the query rows and the outputs, "
+          f"{le_bytes / H100_BYTES_PER_S * 1e3:.5f} ms)", flush=True)
     print(f"[bound] offdiag_h_terms {oh_bound[0]:.5f} ms ({oh_bound[1]}: {oh_bytes} B = h "
           f"{h4.numel() * 4} B, the grouped terms, yz_unique, xy_ptr, s; {oh_ops} integer and "
           f"float32 operations = {chunk4} rows x {dt4.term_yz.numel()} terms x 4)", flush=True)
@@ -1801,7 +1994,8 @@ def main(argv) -> int:
                      "xl_grid_accumulate_kernel": xl_grid_accumulate,
                      "sorted_ratio_rowsum_kernel": sorted_ratio_rowsum,
                      "sorted_gather2_kernel": sorted_gather2,
-                     "offdiag_h_terms_kernel": offdiag_h_terms}
+                     "offdiag_h_terms_kernel": offdiag_h_terms,
+                     "sorted_local_energy_kernel": sorted_local_energy}
         xl_dt = tr3.dt
         for label, trainer, terms_dev in (("factored", tr, dt), ("rank", tr, dt_rank),
                                           ("staircase (Li2O CISDTQ)", tr3, xl_dt),
@@ -1894,14 +2088,30 @@ def main(argv) -> int:
                   "before_staircase_grid_ms": times[f"{old_xl} (staircase grid)"][0]}
                  if f"{old_xl} (full grid)" in times else {}),
               **before(old_xl), **GRID_SRC),
+        entry("sorted_local_energy", energy_launches, eloc_err4, e_plain_name, le_bound, None,
+              source="naqs_tpu_torch/csrc/sort_lookup.cu",
+              replaces="naqs_tpu/ops/local_energy.py:183 + :209 + :164",
+              library_note="none: no single call computes the search, the per-group H and "
+                           "the row sum",
+              path_note="N2 6-31G (36 qubits, no RankSpec, no dense A): one launch per "
+                        "training step's E_loc call",
+              **before(e_comp_old), composition_ms=times[e_comp][0],
+              composition_unheld_ms=calls[e_comp][0],
+              in_turns_with_compositions_ms=comp_times[e_name][0],
+              global_search_ms=times[e_glob][0], global_search_spread=times[e_glob][1],
+              one_term_a_group_ms=times[e_one][0],
+              found_pairs=n_found_pairs, live_rows=n_live4,
+              local_energy_ms=calls[le_name][0],
+              **({"local_energy_before_ms": calls[le_old][0]} if le_old in calls else {})),
         entry("sorted_ratio_rowsum", sort_launches, ratio_err4, "sorted_ratio_rowsum_ref",
               sr_bound, "searchsorted + gather", source="naqs_tpu_torch/csrc/sort_lookup.cu",
               replaces="naqs_tpu/ops/local_energy.py:183",
               library_note="torch.searchsorted of the (C, K) coupled states and two gathers: no "
                            "found test, ratio or row sum",
-              per_local_energy_call=per_call4, local_energy_ms=calls[le_name][0],
-              local_energy_plain_ms=calls[le_plain][0],
-              path_note="N2 6-31G (36 qubits, no RankSpec): the training step's E_loc chunks"),
+              launches_dense_a_call=h2o_counts["sorted_ratio_rowsum"],
+              path_note="launches: N2 6-31G's training steps (sorted_local_energy there); it "
+                        "runs per chunk where the sort engine has a dense A "
+                        "(launches_dense_a_call: one H2O 6-31G call, phase 10c)"),
         entry("sorted_gather2", quad_launches, gather_err4, "sorted_gather2_ref", sg_bound,
               "searchsorted + gather", source="naqs_tpu_torch/csrc/sort_lookup.cu",
               replaces="naqs_tpu/ops/local_energy.py:363",
@@ -1914,7 +2124,10 @@ def main(argv) -> int:
               replaces="naqs_tpu/ops/local_energy.py:209",
               library_note="Tensor.index_add of the (C, K) products computed beforehand: the "
                            "segment sum alone",
-              path_note="every E_loc chunk where a dense A would exceed 2^26 entries"),
+              launches_quadratic_energy=quad4_counts["offdiag_h_terms"],
+              path_note="launches: N2 6-31G's training steps (sorted_local_energy there); it "
+                        "runs per chunk of quadratic_energy where a dense A would exceed 2^26 "
+                        "entries, and of the rank engine with no dense A"),
         entry("split_and_compact", fused_launches, fused_totals["err"], "split_and_compact_ref",
               fu_bound, None,
               replaces="naqs_tpu/ops/multinomial.py:76 + naqs_tpu/sampler.py:49",

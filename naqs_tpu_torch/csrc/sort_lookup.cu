@@ -1,15 +1,17 @@
 // The sort engine's psi lookup for sm_90a: a binary search in the sorted
-// sample buffer, two kernels on one search core.
+// sample buffer, three kernels on one search core.
 //
 // Replaces the sort-based lookup of naqs_tpu/ops/local_energy.py, which the
 // JAX package runs where no rank table exists (over 32 qubits, or a sector of
 // more than 2^26 states): pack_table (:170) and _lookup (:183), a
 // searchsorted(method="sort") of the coupled states in the sorted buffer
 // followed by a record gather, with the ratio/row-sum epilogue of
-// _local_energy_chunk (:236-247) for sorted_ratio_rowsum and the lookup of
-// _quadratic_energy_chunk (:363-372) for sorted_gather2. For chunk states
-// s (C,), flip masks xy (K,), q = s[c] ^ xy[k], the sorted int64 buffer
-// states (U,) with la, ph (U,) f32 beside it and n = min(*n_valid, U):
+// _local_energy_chunk (:236-247) for sorted_ratio_rowsum, that epilogue with
+// the segment-sum branch of _offdiag_h (:209-213) and diagonal_energy (:164)
+// for sorted_local_energy, and the lookup of _quadratic_energy_chunk
+// (:363-372) for sorted_gather2. For chunk states s (C,), flip masks xy (K,),
+// q = s[c] ^ xy[k], the sorted int64 buffer states (U,) with la, ph (U,) f32
+// beside it and n = min(*n_valid, U):
 //
 //   pos(q)   = the last index i < n with states[i] <= q (0 if none)
 //   found(q) = n > 0 && states[pos] == q
@@ -18,6 +20,11 @@
 //                                    * (cos, sin)(ph[pos] - my_ph[c]) : 0
 //   sorted_gather2:      (out_la, out_ph)[c, k] = found && live[c]
 //                        ? (la[pos], ph[pos]) : (-200, 0)
+//   sorted_local_energy: for every query row, (double) the same sum with
+//                        h[c, k] = sum over group k's terms of coeff *
+//                        (-1)^popcount(s & yz) (csrc/offdiag_h.cu's sum),
+//                        plus in f64 sum_d diag_coeff[d] *
+//                        (-1)^popcount(s & diag_yz[d]) on the real part.
 //
 // found equals JAX's (states[pos'] == q) & (pos' < n_valid) for pos' the
 // searchsorted position in the whole buffer: the padding beyond n_valid is
@@ -25,16 +32,15 @@
 // n_valid stays on the card: the kernels read it through a pointer, so a
 // chunk loop never waits for the host.
 //
-// What bounds them: bytes, by the count of each input read once. At the N2
-// 6-31G chunk (C = 128, K = 27,392, U = 100,000) sorted_ratio_rowsum must read
-// h (14.0 MB), and of the table only the keys of the n_valid live states
-// (about 21,000: 0.17 MB) and la, ph of the rows it finds; sorted_gather2 must
-// write its two (C, K) outputs. What the design pays instead is the search:
-// 15-17 dependent loads per coupled state, from L2 (the table stays resident
-// in the 50 MB L2).
+// What bounds the first two: bytes, by the count of each input read once. At
+// the N2 6-31G chunk (C = 128, K = 27,392, U = 100,000) sorted_ratio_rowsum
+// must read h (14.0 MB), and of the table only the keys of the n_valid live
+// states (about 21,000: 0.17 MB) and la, ph of the rows it finds;
+// sorted_gather2 must write its two (C, K) outputs. What the design pays
+// instead is the search: 15-17 dependent loads per coupled state, from L2
+// (the table stays resident in the 50 MB L2).
 //
-// Design (a first, simple kernel; a search structure that needs fewer
-// dependent loads is later work):
+// Design of sorted_ratio_rowsum and sorted_gather2 (first, simple kernels):
 // * The search is branchless and has the same trip count for every query,
 //   so a warp never diverges in it; each thread keeps kUnroll (ratio) or
 //   kRows (gather) searches in flight, one level of each at a time.
@@ -47,6 +53,46 @@
 // * sorted_gather2 tiles kRows rows x 256 columns a block: a thread loads its
 //   flip mask once and writes each output row's 128 contiguous bytes per
 //   warp with an evict-first hint.
+//
+// sorted_local_energy is the whole E_loc call of the sort engine with no
+// dense A in one launch. Its bound is operations: per coupled state of a live
+// row the xor and a search; the bytes (the live keys, xy, the grouped terms,
+// the rows and the outputs) are a few MB. What held the two-kernel chunk loop
+// back, and what this design does about it:
+// * Padding rows. About four fifths of a capacity-100,000 buffer is SENTINEL,
+//   and their off-diagonal part is exactly 0: for xy != 0, SENTINEL ^ xy has
+//   bit 62 set, which no state of at most 62 qubits has, and xy == 0 is a
+//   padded flip mask with no terms. A SENTINEL row costs one load and two
+//   stores: its diagonal is computed once per block. Rows go to a persistent
+//   grid (the blocks the card holds at once) by a stride, block b taking
+//   rows b, b + gridDim.x, ..., so the live rows at the front of the buffer
+//   spread over every SM; a block reads kThreads of its rows at once, writes
+//   the padding rows' outputs and then walks its live rows.
+// * H only for found pairs. No (C, K) H exists: a thread that finds a
+//   coupled state walks that flip mask's terms (xy_ptr[k] .. xy_ptr[k+1]-1)
+//   in index order with offdiag_h_terms_kernel's fp32 adds, so it gets the
+//   same h bits, then adds h * r as sorted_ratio_rowsum_kernel does, in the
+//   same per-thread order, shuffle tree and warp order: the off-diagonal
+//   sums are that kernel's bits on the same h. An empty group (a padded flip
+//   mask) is never looked up. Real hits are rare (a few per row of 27,257
+//   flip masks on N2 6-31G), so a finding lane walks its group alone.
+// * The search. The block stages the top of the table in shared memory once:
+//   every 2^shift-th of the n live keys, at most kTopKeys (32 KB), with
+//   2^shift >= 16 the smallest power of two that fits (16 keys, one
+//   128-byte line, up to 65,536 live keys; 32 up to 131,072; any n < 2^31
+//   fits). A query searches the top there, then the one window of 2^shift
+//   keys of the global table below it, which L1 and L2 hold: at N2 6-31G's
+//   ~20,000 live keys 11 levels in shared memory and 4 in one line, against
+//   15 dependent loads from L2. The keys are strided, so the staging is a
+//   gather by plain loads, all in flight at once, not a bulk copy. Lanes of
+//   a warp take consecutive flip masks, which are sorted, so their queries
+//   share high bits and mostly the same path through the top (broadcast
+//   reads). The global-only search stays as a variant (shared_top = 0) to
+//   measure against.
+// * No host loop. The diagonal is summed in f64 in the same launch, each
+//   thread its terms d = tid + j * 256 in order, then a shuffle tree and the
+//   warps in order; n_valid is read through its pointer. One launch per call.
+// Every sum is in a fixed order with no atomics: bitwise repeatable.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Plain C interface, bound with ctypes by naqs_tpu_torch/ops/sort_lookup.py.
@@ -189,6 +235,239 @@ __global__ void __launch_bounds__(kThreads) sorted_gather2_kernel(
   }
 }
 
+
+// ---------------------------------------------------------------- sorted_local_energy
+
+constexpr int64_t kSentinel = INT64_MAX;  // naqs_tpu_torch/utils/bits.py's SENTINEL
+constexpr int kTopKeys = 4096;             // keys of the shared-memory top: 32 KB
+constexpr int kMinShift = 4;               // windows of at least 16 keys: one 128-byte line
+constexpr int kLeUnroll = 4;               // coupled states in flight per thread
+
+struct EnergyArgs {
+  const int64_t* states;
+  int n_states;
+  const float* la;
+  const float* ph;
+  const int64_t* n_valid;
+  const int64_t* q_states;
+  int n_rows;
+  const float* q_la;
+  const float* q_ph;
+  const int64_t* xy;
+  const int32_t* xy_ptr;
+  int n_cols;
+  const int32_t* term_yz;
+  const int64_t* yz_unique;
+  const float* term_coeff;
+  const int64_t* diag_yz;
+  const double* diag_coeff;
+  int n_diag;
+  double* e_re;
+  double* e_im;
+};
+
+// this thread's part of s's diagonal: its terms d = tid + j * kThreads, in order
+__device__ __forceinline__ double diag_part(const EnergyArgs& a, int64_t s) {
+  double d = 0.0;
+  for (int k = threadIdx.x; k < a.n_diag; k += kThreads) {
+    const double c = __ldg(a.diag_coeff + k);
+    d += (__popcll(static_cast<uint64_t>(s & __ldg(a.diag_yz + k))) & 1) ? -c : c;
+  }
+  return d;
+}
+
+// h of flip-mask group [lo, hi) for state s: offdiag_h_terms_kernel's adds
+__device__ __forceinline__ float group_h(const EnergyArgs& a, int64_t s, int lo, int hi) {
+  float h = 0.f;
+  for (int t = lo; t < hi; ++t) {
+    const uint64_t yz = static_cast<uint64_t>(__ldg(a.yz_unique + __ldg(a.term_yz + t)));
+    const uint32_t coeff = __float_as_uint(__ldg(a.term_coeff + t));
+    const uint32_t sign = static_cast<uint32_t>(__popcll(static_cast<uint64_t>(s) & yz) & 1)
+                          << 31;
+    h += __uint_as_float(coeff ^ sign);
+  }
+  return h;
+}
+
+// kQ searches at once, as search() above, through the shared top: j = the last
+// index < m with top[j] <= q (0 if none), then within the window of 2^shift
+// keys from j << shift, positions at or past n counted as above every query.
+// pos and val as search()'s; n > 0 (so m > 0).
+template <int kQ>
+__device__ __forceinline__ void search_top(const int64_t* top, int m, int shift,
+                                           const int64_t* __restrict__ states, int64_t n,
+                                           const int64_t (&q)[kQ], uint32_t (&pos)[kQ],
+                                           int64_t (&val)[kQ]) {
+  uint32_t j[kQ];
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) j[u] = 0;
+  for (int len = m; len > 1;) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      if (top[j[u] + half] <= q[u]) j[u] += half;
+    }
+    len -= half;
+  }
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    pos[u] = j[u] << shift;
+    val[u] = top[j[u]];
+  }
+  const uint32_t end = static_cast<uint32_t>(n);
+  for (uint32_t len = 1u << shift; len > 1;) {
+    const uint32_t half = len >> 1;
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      const uint32_t i = pos[u] + half;
+      const int64_t x = i < end ? __ldg(states + i) : kSentinel;
+      if (i < end && x <= q[u]) {
+        pos[u] = i;
+        val[u] = x;
+      }
+    }
+    len -= half;
+  }
+}
+
+// the block's sums in a fixed order (each warp's shuffle tree, then the warps
+// in order, as sorted_ratio_rowsum_kernel): valid on thread 0
+struct RowSums {
+  float re, im;
+  double diag;
+};
+
+__device__ __forceinline__ RowSums block_sums(float re, float im, double diag,
+                                              float (&part)[2][kWarps],
+                                              double (&dpart)[kWarps]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    re += __shfl_xor_sync(0xFFFFFFFFu, re, off);
+    im += __shfl_xor_sync(0xFFFFFFFFu, im, off);
+    diag += __shfl_xor_sync(0xFFFFFFFFu, diag, off);
+  }
+  if (lane == 0) {
+    part[0][warp] = re;
+    part[1][warp] = im;
+    dpart[warp] = diag;
+  }
+  __syncthreads();
+  RowSums out = {0.f, 0.f, 0.0};
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      out.re += part[0][w];
+      out.im += part[1][w];
+      out.diag += dpart[w];
+    }
+  }
+  __syncthreads();  // part and dpart are free for the next row
+  return out;
+}
+
+template <bool kTop>
+__global__ void __launch_bounds__(kThreads, 4) sorted_local_energy_kernel(const EnergyArgs a) {
+  __shared__ int64_t top[kTop ? kTopKeys : 1];
+  __shared__ int64_t batch[kThreads];
+  __shared__ float part[2][kWarps];
+  __shared__ double dpart[kWarps];
+  __shared__ double pad_diag;
+  const int64_t n = live_count(a.n_valid, a.n_states);
+  int shift = kMinShift;
+  while (n > (static_cast<int64_t>(kTopKeys) << shift)) ++shift;
+  const int m = static_cast<int>((n + (int64_t{1} << shift) - 1) >> shift);
+  if constexpr (kTop) {
+    for (int j = threadIdx.x; j < m; j += kThreads)
+      top[j] = __ldg(a.states + (static_cast<int64_t>(j) << shift));
+  }
+  const RowSums pad = block_sums(0.f, 0.f, diag_part(a, kSentinel), part, dpart);
+  if (threadIdx.x == 0) pad_diag = pad.diag;
+  __syncthreads();  // top[] and pad_diag
+
+  const int64_t stride = gridDim.x;
+  for (int64_t i0 = blockIdx.x; i0 < a.n_rows; i0 += stride * kThreads) {
+    // kThreads of this block's rows at once: the padding rows' outputs here
+    const int64_t c = i0 + threadIdx.x * stride;
+    int64_t s = kSentinel;
+    if (c < a.n_rows) {
+      s = __ldg(a.q_states + c);
+      if (s == kSentinel) {
+        a.e_re[c] = pad_diag;
+        a.e_im[c] = 0.0;
+      }
+    }
+    batch[threadIdx.x] = s;
+    __syncthreads();
+    for (int t = 0; t < kThreads; ++t) {
+      const int64_t sc = batch[t];
+      if (sc == kSentinel) continue;  // the same for the whole block
+      const int64_t row = i0 + t * stride;
+      const float la0 = __ldg(a.q_la + row);
+      const float ph0 = __ldg(a.q_ph + row);
+      float acc_re = 0.f, acc_im = 0.f;
+      for (int k0 = threadIdx.x; n > 0 && k0 < a.n_cols; k0 += kThreads * kLeUnroll) {
+        int64_t q[kLeUnroll], val[kLeUnroll];
+        uint32_t pos[kLeUnroll];
+        int lo[kLeUnroll], hi[kLeUnroll];
+#pragma unroll
+        for (int u = 0; u < kLeUnroll; ++u) {
+          const int k = k0 + u * kThreads;
+          const bool in = k < a.n_cols;
+          lo[u] = in ? __ldg(a.xy_ptr + k) : 0;
+          hi[u] = in ? __ldg(a.xy_ptr + k + 1) : 0;
+          q[u] = in ? sc ^ __ldg(a.xy + k) : 0;
+        }
+        if constexpr (kTop) {
+          search_top(top, m, shift, a.states, n, q, pos, val);
+        } else {
+          int64_t base[kLeUnroll];
+          search(a.states, n, q, base, val);
+#pragma unroll
+          for (int u = 0; u < kLeUnroll; ++u) pos[u] = static_cast<uint32_t>(base[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kLeUnroll; ++u) {
+          if (lo[u] < hi[u] && val[u] == q[u]) {
+            const float h = group_h(a, sc, lo[u], hi[u]);
+            const float mag = expf(fminf(fmaxf(__ldg(a.la + pos[u]) - la0, -30.f), 30.f));
+            float sn, cs;
+            sincosf(__ldg(a.ph + pos[u]) - ph0, &sn, &cs);
+            acc_re += h * (mag * cs);
+            acc_im += h * (mag * sn);
+          }
+        }
+      }
+      const RowSums r = block_sums(acc_re, acc_im, diag_part(a, sc), part, dpart);
+      if (threadIdx.x == 0) {
+        a.e_re[row] = r.diag + static_cast<double>(r.re);
+        a.e_im[row] = static_cast<double>(r.im);
+      }
+    }
+    __syncthreads();  // batch[] is rewritten next
+  }
+}
+
+// blocks of kernel the card holds at once, asked once per device
+template <class Kernel>
+int resident_blocks(Kernel kernel, int (&resident)[64], int* out) {
+  int device = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[device] == 0) {
+    int per_sm = 0, sms = 0;
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    if (rc == cudaSuccess)
+      rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    resident[device] = per_sm * sms;
+  }
+  *out = resident[device];
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int sorted_ratio_rowsum(const void* states, int n_states, const void* la,
@@ -216,6 +495,43 @@ extern "C" int sorted_gather2(const void* states, int n_states, const void* la,
       static_cast<const int64_t*>(s), n_rows, static_cast<const int64_t*>(xy), n_cols,
       static_cast<const uint8_t*>(live), static_cast<float*>(out_la),
       static_cast<float*>(out_ph));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sorted_local_energy(const void* states, int n_states, const void* la,
+                                   const void* ph, const void* n_valid, const void* q_states,
+                                   int n_rows, const void* q_la, const void* q_ph,
+                                   const void* xy, const void* xy_ptr, int n_cols,
+                                   const void* term_yz, const void* yz_unique,
+                                   const void* term_coeff, const void* diag_yz,
+                                   const void* diag_coeff, int n_diag, int shared_top,
+                                   void* e_re, void* e_im, void* stream) {
+  static int resident_top[64] = {}, resident_global[64] = {};
+  const EnergyArgs a = {static_cast<const int64_t*>(states), n_states,
+                        static_cast<const float*>(la), static_cast<const float*>(ph),
+                        static_cast<const int64_t*>(n_valid),
+                        static_cast<const int64_t*>(q_states), n_rows,
+                        static_cast<const float*>(q_la), static_cast<const float*>(q_ph),
+                        static_cast<const int64_t*>(xy), static_cast<const int32_t*>(xy_ptr),
+                        n_cols, static_cast<const int32_t*>(term_yz),
+                        static_cast<const int64_t*>(yz_unique),
+                        static_cast<const float*>(term_coeff),
+                        static_cast<const int64_t*>(diag_yz),
+                        static_cast<const double*>(diag_coeff), n_diag,
+                        static_cast<double*>(e_re), static_cast<double*>(e_im)};
+  int blocks = 0;
+  const int rc = shared_top ? resident_blocks(sorted_local_energy_kernel<true>, resident_top,
+                                              &blocks)
+                            : resident_blocks(sorted_local_energy_kernel<false>,
+                                              resident_global, &blocks);
+  if (rc != 0) return rc;
+  if (blocks > n_rows) blocks = n_rows;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (shared_top) {
+    sorted_local_energy_kernel<true><<<blocks, kThreads, 0, st>>>(a);
+  } else {
+    sorted_local_energy_kernel<false><<<blocks, kThreads, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,11 @@ membership engine below runs: the rank engine where the space has a RankSpec,
 else the sort engine. `dataclasses.replace(dt, dense=None)` forces the rank
 engine, `dataclasses.replace(dt, rank_spec=None, dense=None)` the sort engine.
 
-Per chunk of C sampled states, both membership engines compute:
+Where the sort engine has no dense A either (N2 6-31G: 36 qubits, 736 M
+entries), the whole call is one launch (ops/sort_lookup.py::
+sorted_local_energy: the diagonal, the search, and H only for the found
+pairs, over every query row). Everywhere else, per chunk of C sampled
+states, both membership engines compute:
 
   * the diagonal, sum_k coeff_k (-1)^popcount(s & yz_k), in f64;
   * the H row h as parity(s & yz) @ A, a (C, Kyz) x (Kyz, Kxy) fp32 matmul
@@ -46,7 +50,7 @@ from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_ratio_rowsum
 from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms, term_groups
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
 from naqs_tpu_torch.ops.sort_lookup import (QUAD_MISS, pack_table, sorted_gather2,
-                                            sorted_ratio_rowsum)
+                                            sorted_local_energy, sorted_ratio_rowsum)
 from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
 from naqs_tpu_torch.utils.device import resolve_device
 
@@ -190,7 +194,8 @@ def local_energy(
     Rows beyond n_valid produce garbage values; callers mask by weight.
     Dispatches to the grid engine (ops/dense_engine.py) when the terms carry
     a grid program; the rank engine below handles everything else that has a
-    RankSpec, the sort engine what has none.
+    RankSpec, the sort engine what has none: in one `sorted_local_energy`
+    call where there is no dense A, else chunk by chunk.
     `queries=(q_states, q_la, q_ph)` computes E_loc only for those rows,
     while psi(s') is still resolved against the full (states, log_amp,
     phase, n_valid) table.
@@ -210,6 +215,12 @@ def local_energy(
     q_states, q_la, q_ph = (states, log_amp, phase) if queries is None else queries
     u = q_states.shape[0]
     c = _chunks(dt, u, chunk_rows)
+    if dt.rank_spec is None and dt.a_mat is None:
+        table = pack_table(states, log_amp, phase)
+        rows = table if queries is None else pack_table(*queries)
+        return sorted_local_energy(*table, _count(n_valid, states.device), *rows,
+                                   dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique,
+                                   dt.term_coeff, dt.diag_yz, dt.diag_coeff, chunk_rows=c)
     if dt.rank_spec is not None:
         table = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
     else:

@@ -23,10 +23,30 @@ nvcc at first use) or raises; on a CPU tensor it runs the plain PyTorch
 version (`torch.searchsorted`, then gathers: `lookup`). There is no fallback
 from one to the other. `<wrapper>.launches` counts kernel launches.
 
+* `sorted_local_energy(states, la, ph, n_valid, q_states, q_la, q_ph,
+  xy_unique, xy_ptr, term_yz, yz_unique, term_coeff, diag_yz, diag_coeff)` ->
+  (e_re, e_im), each (U_q,) f64: the whole E_loc of the query rows in one
+  launch, the diagonal in f64 plus sum_k h[c, k] psi(s ^ xy_k) / psi(s) with
+  h summed per flip mask from the grouped terms (`ops/offdiag_h.py`) only
+  where the coupled state is found: what `local_energy` computes on the sort
+  engine with no dense A. SENTINEL query rows get their diagonal and an
+  off-diagonal part of 0, as every other computation of them does (flip
+  masks and live states below 2^62: at most 62 qubits).
+
 `sorted_gather2` equals its plain version bitwise. `sorted_ratio_rowsum` sums
 each row in another order than `torch.sum` and uses CUDA's `expf`/`sincosf`,
 so it agrees with its plain version per row within `rowsum_tolerance`
 (ROWSUM_ATOL + ROWSUM_RTOL * sum_k |h| |r|, as `rank_ratio_rowsum`).
+`sorted_local_energy` computes h with `offdiag_h_terms`' adds and sums the
+row as `sorted_ratio_rowsum` does, so against the plain version
+(`sorted_local_energy_ref`, whose h comes from `index_add_`) it agrees per row
+within `sorted_local_energy_tolerance`: that bound, plus sum_k |r_k| times
+`offdiag_tolerance`_k for the H entries, plus DIAG_RTOL * sum_d
+|diag_coeff_d| for the f64 diagonal (its 768 adds in another order than
+`torch.sum`'s: each order errs by at most (Kd - 1) 2^-53 sum_d |diag_coeff_d|,
+1.7e-13 of it for both at Kd = 768). Against `offdiag_h_terms` +
+`sorted_ratio_rowsum` composed (`h_exact=True`) the h bits are the same, and
+only the first and last terms remain.
 """
 
 from __future__ import annotations
@@ -37,10 +57,13 @@ from functools import lru_cache
 import torch
 
 from naqs_tpu_torch.ops import _build
-from naqs_tpu_torch.ops.dyn_gather import ratio_rowsum
-from naqs_tpu_torch.ops.rank import _MISS
+from naqs_tpu_torch.ops.dyn_gather import ratio_rowsum, rowsum_tolerance
+from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms_ref, offdiag_tolerance
+from naqs_tpu_torch.ops.rank import _MISS, _MISS_THRESHOLD
+from naqs_tpu_torch.utils.bits import parity_pm1
 
 QUAD_MISS = -200.0   # quadratic_energy's log-amp of a miss: exp(-200 + la) is 0 in f32
+DIAG_RTOL = 1e-12    # of sum_d |diag_coeff_d|: the f64 diagonal's add order
 
 _INT = ctypes.c_int
 _PTR = ctypes.c_void_p
@@ -80,6 +103,51 @@ def sorted_gather2_ref(states, la, ph, n_valid, s, xy, live):
     return torch.where(found, g_la, QUAD_MISS), torch.where(found, g_ph, 0.0)
 
 
+def _row_chunks(n_rows, chunk_rows):
+    c = max(chunk_rows or n_rows, 1)
+    return [slice(i, i + c) for i in range(0, n_rows, c)] or [slice(0, 0)]
+
+
+def sorted_local_energy_ref(states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique, xy_ptr,
+                            term_yz, yz_unique, term_coeff, diag_yz, diag_coeff,
+                            chunk_rows=None):
+    """Plain PyTorch version, per chunk of `chunk_rows` query rows (all at
+    once if None): the diagonal's parity fold in f64, `offdiag_h_terms_ref`
+    and `sorted_ratio_rowsum_ref`."""
+    e_re, e_im = [], []
+    for rows in _row_chunks(q_states.shape[0], chunk_rows):
+        s = q_states[rows]
+        e_diag = torch.sum(parity_pm1(s[:, None] & diag_yz).to(torch.float64) * diag_coeff,
+                           dim=-1)
+        h = offdiag_h_terms_ref(s, yz_unique, xy_ptr, term_yz, term_coeff)
+        r, i = sorted_ratio_rowsum_ref(states, la, ph, n_valid, s, xy_unique, q_la[rows],
+                                       q_ph[rows], h)
+        e_re.append(e_diag + r.to(torch.float64))
+        e_im.append(i.to(torch.float64))
+    return torch.cat(e_re), torch.cat(e_im)
+
+
+def sorted_local_energy_tolerance(states, la, n_valid, q_states, q_la, xy_unique, xy_ptr,
+                                  term_yz, yz_unique, term_coeff, diag_coeff,
+                                  chunk_rows=None, h_exact=False):
+    """(U_q,) f64 bound on |sorted_local_energy - its plain version| per row;
+    h_exact: against a composition whose h has the kernel's bits."""
+    h_tol = offdiag_tolerance(xy_ptr, term_coeff)
+    diag = DIAG_RTOL * float(diag_coeff.abs().sum())
+    out = []
+    for rows in _row_chunks(q_states.shape[0], chunk_rows):
+        s, my_la = q_states[rows], q_la[rows]
+        g_la = sorted_log_amps(states, la, n_valid, s, xy_unique)
+        h = offdiag_h_terms_ref(s, yz_unique, xy_ptr, term_yz, term_coeff)
+        tol = rowsum_tolerance(g_la, my_la, h).to(torch.float64) + diag
+        if not h_exact:
+            mag = torch.where(g_la > _MISS_THRESHOLD,
+                              torch.exp(torch.clamp(g_la - my_la[:, None], -30.0, 30.0)), 0.0)
+            tol += torch.sum(mag.to(torch.float64) * h_tol, dim=-1)
+        out.append(tol)
+    return torch.cat(out)
+
+
 def sorted_log_amps(states, la, n_valid, s, xy):
     """(C, K) log-amps of the coupled states, -1e30 for a miss: what
     `rowsum_tolerance` reads."""
@@ -94,7 +162,11 @@ def _lib():
                                         _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
     lib.sorted_gather2.argtypes = [_PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _INT,
                                    _PTR, _PTR, _PTR, _PTR]
+    lib.sorted_local_energy.argtypes = [_PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR,
+                                        _PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
+                                        _INT, _PTR, _PTR, _PTR]
     lib.sorted_ratio_rowsum.restype = lib.sorted_gather2.restype = _INT
+    lib.sorted_local_energy.restype = _INT
     return lib
 
 
@@ -148,5 +220,51 @@ def sorted_gather2(states, la, ph, n_valid, s, xy, live):
     return out_la, out_ph
 
 
+def _launch_energy(args, shared_top=True):
+    """(e_re, e_im) of `sorted_local_energy`'s kernel on its checked CUDA
+    arguments; shared_top=False searches the global table alone (the search
+    it replaced, kept to time against). Counts nothing."""
+    (states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique, xy_ptr, term_yz, yz_unique,
+     term_coeff, diag_yz, diag_coeff) = args
+    e_re = torch.empty((q_states.shape[0],), dtype=torch.float64, device=q_states.device)
+    e_im = torch.empty_like(e_re)
+    if e_re.numel():
+        _build.launch(_lib(), "sorted_local_energy",
+                      (states, states.shape[0], la, ph, n_valid, q_states, q_states.shape[0],
+                       q_la, q_ph, xy_unique, xy_ptr, xy_unique.shape[0], term_yz, yz_unique,
+                       term_coeff, diag_yz, diag_coeff, diag_yz.shape[0], int(shared_top),
+                       e_re, e_im), q_states.device)
+    return e_re, e_im
+
+
+def sorted_local_energy(states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique, xy_ptr,
+                        term_yz, yz_unique, term_coeff, diag_yz, diag_coeff, chunk_rows=None):
+    """(e_re, e_im), each (U_q,) f64: the local energy of every query row
+    q_states (U_q,) with psi(s) = exp(q_la + i q_ph), psi(s') read from the
+    sorted table (0 where not found). `chunk_rows` bounds the plain version's
+    (chunk, K) intermediates on a CPU tensor; the kernel has none."""
+    u, n_rows, n_cols = states.shape[0], q_states.shape[0], xy_unique.shape[0]
+    i64, i32, f32 = (torch.int64,), (torch.int32,), (torch.float32,)
+    _build.check_tensors("sorted_local_energy", q_states, {
+        "states": (states, i64, (u,)), "la": (la, f32, (u,)), "ph": (ph, f32, (u,)),
+        "n_valid": (n_valid, i64, ()), "q_states": (q_states, i64, (n_rows,)),
+        "q_la": (q_la, f32, (n_rows,)), "q_ph": (q_ph, f32, (n_rows,)),
+        "xy_unique": (xy_unique, i64, (n_cols,)), "xy_ptr": (xy_ptr, i32, (n_cols + 1,)),
+        "term_yz": (term_yz, i32, (term_yz.shape[0],)),
+        "yz_unique": (yz_unique, i64, (yz_unique.shape[0],)),
+        "term_coeff": (term_coeff, f32, (term_yz.shape[0],)),
+        "diag_yz": (diag_yz, i64, (diag_yz.shape[0],)),
+        "diag_coeff": (diag_coeff, (torch.float64,), (diag_yz.shape[0],))})
+    args = (states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique, xy_ptr, term_yz,
+            yz_unique, term_coeff, diag_yz, diag_coeff)
+    if q_states.device.type == "cpu":
+        return sorted_local_energy_ref(*args, chunk_rows=chunk_rows)
+    out = _launch_energy(args)
+    if q_states.shape[0]:
+        sorted_local_energy.launches += 1
+    return out
+
+
 sorted_ratio_rowsum.launches = 0
 sorted_gather2.launches = 0
+sorted_local_energy.launches = 0

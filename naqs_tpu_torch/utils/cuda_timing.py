@@ -10,7 +10,8 @@ Two readings per function, both in ms per call:
   device work reads the host's rate instead.
 
 A function whose unheld time exceeds its held time is bound by its host
-side when it is called in a loop.
+side when it is called in a loop. A function that enqueues many launches
+per call needs a longer hold (`hold_cycles`).
 """
 
 from __future__ import annotations
@@ -22,12 +23,12 @@ import torch
 HOLD_CYCLES = 50_000_000  # ~25 ms of card sleep at the H100's ~2 GHz clock
 
 
-def per_call_ms(fn, n_iter: int, hold: bool) -> float:
+def per_call_ms(fn, n_iter: int, hold: bool, hold_cycles: int = HOLD_CYCLES) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     if hold:
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold_cycles)
     start.record()
     for _ in range(n_iter):
         fn()
@@ -36,19 +37,20 @@ def per_call_ms(fn, n_iter: int, hold: bool) -> float:
     return start.elapsed_time(end) / n_iter
 
 
-def hold_ms() -> float:
+def hold_ms(hold_cycles: int = HOLD_CYCLES) -> float:
     """How long the hold lasts on this card (it must exceed the enqueue)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    torch.cuda._sleep(HOLD_CYCLES)
+    torch.cuda._sleep(hold_cycles)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
 
 
-def time_in_turns(fns: dict, repeats: int, launches: int, hold: bool = True) -> dict:
+def time_in_turns(fns: dict, repeats: int, launches: int, hold: bool = True,
+                  hold_cycles: int = HOLD_CYCLES) -> dict:
     """name -> (median ms, [min, max] ms) over `repeats` repeats of `launches`
     calls each; within a repeat the functions take turns in dict order."""
     for fn in fns.values():
@@ -57,5 +59,5 @@ def time_in_turns(fns: dict, repeats: int, launches: int, hold: bool = True) -> 
     runs = {name: [] for name in fns}
     for _ in range(repeats):
         for name, fn in fns.items():
-            runs[name].append(per_call_ms(fn, launches, hold))
+            runs[name].append(per_call_ms(fn, launches, hold, hold_cycles))
     return {name: (statistics.median(v), [min(v), max(v)]) for name, v in runs.items()}

@@ -20,7 +20,12 @@ arithmetic with one rounding per operation, the compaction is an integer
 scan); the sort engine's `sorted_gather2` bitwise and `sorted_ratio_rowsum`
 per row within `rowsum_tolerance`, and `offdiag_h_terms` per entry within
 `offdiag_tolerance` (1e-12 + 1e-5 * sum_k |coeff_k| of the flip mask's group:
-fp32 add order), each bitwise equal to itself run twice.
+fp32 add order), each bitwise equal to itself run twice; the one-launch
+`sorted_local_energy` per row within `sorted_local_energy_tolerance` of its
+plain version (the row sum's, the H entries' and the f64 diagonal's add
+order), of `offdiag_h_terms` + `sorted_ratio_rowsum` composed within that
+bound without the H entries' term (the same h bits), bitwise equal to itself
+and to its global-search variant.
 """
 
 import dataclasses
@@ -45,9 +50,11 @@ from naqs_tpu_torch.ops.multinomial import (_GAUSS_VAR_MIN, _cascade, multinomia
                                             multinomial4_split_ref, split_draws)
 from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms, offdiag_h_terms_ref, offdiag_tolerance
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
-from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_gather2_ref,
-                                            sorted_log_amps, sorted_ratio_rowsum,
-                                            sorted_ratio_rowsum_ref)
+from naqs_tpu_torch.ops.sort_lookup import (_launch_energy, pack_table, sorted_gather2,
+                                            sorted_gather2_ref, sorted_local_energy,
+                                            sorted_local_energy_ref,
+                                            sorted_local_energy_tolerance, sorted_log_amps,
+                                            sorted_ratio_rowsum, sorted_ratio_rowsum_ref)
 from naqs_tpu_torch import sampler as sampler_mod
 from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref, _split_and_compact,
                                     _split_and_compact_ref, sample)
@@ -866,7 +873,8 @@ def test_offdiag_h_terms_kernel_matches_plain(name, n_rows):
 def test_sort_engine_matches_rank_engine_on_the_card():
     """local_energy and quadratic_energy through the sort engine (rank_spec
     and dense set to None) against the rank engine on N2 STO-3G, with the dense
-    A and with the per-term H row; the main path's launch counts."""
+    A (chunk by chunk) and without (one sorted_local_energy launch); the main
+    path's launch counts."""
     dev = _card()
     terms, hil = _n2()
     dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
@@ -880,8 +888,10 @@ def test_sort_engine_matches_rank_engine_on_the_card():
     e_sort = le.local_energy(dt_sort, s, la, ph, m)
     assert sorted_ratio_rowsum.launches == counts[0] + 2   # 4,096 rows in chunks of 2,048
     assert offdiag_h_terms.launches == counts[1]
+    before = sorted_local_energy.launches
     e_seg = le.local_energy(dt_seg, s, la, ph, m)
-    assert offdiag_h_terms.launches == counts[1] + 2
+    assert sorted_local_energy.launches == before + 1   # the whole call, no chunks
+    assert (sorted_ratio_rowsum.launches, offdiag_h_terms.launches) == (counts[0] + 2, counts[1])
     for r, a, b in zip(e_rank, e_sort, e_seg):
         assert torch.equal(r[:m], a[:m])
         assert float((a[:m] - b[:m]).abs().max()) < 2e-4
@@ -916,3 +926,134 @@ def test_sort_kernels_reject_bad_inputs():
                 lambda: offdiag_h_terms(s.cpu(), yz_u, ptr, yz, co)):
         with pytest.raises(ValueError):
             bad()
+
+
+# (table rows U, live n_valid, query rows (None: the table itself), flip masks K,
+# qubits): n_valid 0, 1 and around one 16-key window of the shared top (31, 32,
+# 33); 100,000 live keys (a top of every 32nd); 600,000 (every 256th); and a
+# 36-qubit buffer at capacity 100,000 with 20,000 live rows queried whole at
+# N2 6-31G's flip-mask count, as local_energy queries it
+ENERGY_SHAPES = [(1, 1, 3, 5, 12), (300, 0, 17, 33, 20), (300, 1, 17, 33, 20),
+                 (300, 31, 40, 64, 20), (300, 32, 40, 64, 20), (300, 33, 40, 64, 20),
+                 (4096, 3000, 77, 1000, 40), (100_000, 100_000, 300, 2048, 36),
+                 (600_000, 600_000, 64, 512, 40), (100_000, 20_000, None, 27_392, 36)]
+
+
+def _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev):
+    """sorted_local_energy's arguments on the card: a sorted buffer of n_valid
+    random states padded with SENTINEL to u; n_rows query rows drawn from its
+    live states, every fifth SENTINEL (None: the buffer itself); n_cols flip
+    masks below 2^n_qubits, a third joining a live query row to a live state,
+    the last tenth 0 with no terms (padding); groups of 1-6 random terms; 257
+    random diagonal terms."""
+    from naqs_tpu_torch.utils.bits import SENTINEL
+
+    rng = np.random.default_rng(n_cols + n_valid)
+    states = np.full(u, SENTINEL, np.int64)
+    pool = np.unique(rng.integers(0, 1 << n_qubits, size=2 * n_valid + 8, dtype=np.int64))
+    states[:n_valid] = np.sort(rng.choice(pool, size=n_valid, replace=False))
+    la = (-rng.uniform(0, 3, size=u)).astype(np.float32)
+    ph = rng.uniform(-np.pi, np.pi, size=u).astype(np.float32)
+    if n_rows is None:
+        q, q_la, q_ph = states, la, ph
+    else:
+        q = (states[rng.integers(0, n_valid, size=n_rows)] if n_valid
+             else rng.integers(0, 1 << n_qubits, size=n_rows, dtype=np.int64))
+        q[::5] = SENTINEL
+        q_la = (-rng.uniform(0, 3, size=n_rows)).astype(np.float32)
+        q_ph = rng.uniform(-np.pi, np.pi, size=n_rows).astype(np.float32)
+    live_q = q[q != SENTINEL]
+    n_pad = n_cols // 10
+    xy = rng.integers(1, 1 << n_qubits, size=n_cols, dtype=np.int64)
+    if n_valid > 1 and len(live_q):
+        third = n_cols // 3
+        xy[:third] = live_q[rng.integers(0, len(live_q), size=third)] ^ states[
+            rng.integers(0, n_valid, size=third)]
+        xy[:third] = np.where(xy[:third] == 0, 1, xy[:third])
+    xy[:n_cols - n_pad] = np.sort(xy[:n_cols - n_pad])
+    xy[n_cols - n_pad:] = 0
+    sizes = rng.integers(1, 7, size=n_cols)
+    sizes[n_cols - n_pad:] = 0
+    ptr = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    n_terms, n_yz = int(ptr[-1]), max(int(ptr[-1]) // 2, 1)
+    yz_unique = np.sort(rng.integers(0, 1 << n_qubits, size=n_yz, dtype=np.int64))
+    term_yz = rng.integers(0, n_yz, size=n_terms).astype(np.int32)
+    term_coeff = (0.1 * rng.normal(size=n_terms)).astype(np.float32)
+    diag_yz = rng.integers(0, 1 << n_qubits, size=257, dtype=np.int64)
+    diag_coeff = rng.normal(size=257)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return (t(states), t(la), t(ph), torch.tensor(n_valid, device=dev), t(q), t(q_la),
+            t(q_ph), t(xy), t(ptr), t(term_yz), t(yz_unique), t(term_coeff), t(diag_yz),
+            t(diag_coeff))
+
+
+def _tolerance(args, chunk, h_exact=False):
+    (states, la, _, nv, q, q_la, _, xy, ptr, term_yz, yz_unique, term_coeff, _,
+     diag_coeff) = args
+    return sorted_local_energy_tolerance(states, la, nv, q, q_la, xy, ptr, term_yz, yz_unique,
+                                         term_coeff, diag_coeff, chunk_rows=chunk,
+                                         h_exact=h_exact)
+
+
+@pytest.mark.parametrize("u,n_valid,n_rows,n_cols,n_qubits", ENERGY_SHAPES)
+def test_sorted_local_energy_kernel_matches_plain(u, n_valid, n_rows, n_cols, n_qubits):
+    """Per row within the stated tolerance of the plain version and of this
+    tree's two kernels composed chunk by chunk (the same h bits); padding rows
+    their diagonal and 0; twice bitwise; the global-search variant's bits."""
+    from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
+
+    dev = _card()
+    args = _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev)
+    before = sorted_local_energy.launches
+    got = sorted_local_energy(*args)
+    torch.cuda.synchronize()
+    assert sorted_local_energy.launches == before + 1
+    rows = args[4].shape[0]
+    chunk = max(1, min(rows, (1 << 24) // n_cols))
+    want = sorted_local_energy_ref(*args, chunk_rows=chunk)
+    tol = _tolerance(args, chunk)
+    for g, w in zip(got, want):
+        assert g.shape == (rows,) and g.dtype == torch.float64 and bool(torch.isfinite(g).all())
+        assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+    pad = args[4] == SENTINEL
+    assert bool((got[1][pad] == 0).all())
+    if bool(pad.any()):
+        assert bool((got[0][pad] == got[0][pad][0]).all())
+    if n_valid > 1:
+        assert float(want[1].abs().max()) > 1e-3   # hits: the sums are not all 0
+    # this tree's two kernels, chunk by chunk: the same h bits
+    (states, la, ph, nv, q, q_la, q_ph, xy, ptr, term_yz, yz_unique, term_coeff, diag_yz,
+     diag_coeff) = args
+    comp = []
+    for i in range(0, rows, chunk):
+        s = q[i:i + chunk]
+        h = offdiag_h_terms(s, yz_unique, ptr, term_yz, term_coeff)
+        comp.append(sorted_ratio_rowsum(states, la, ph, nv, s, xy, q_la[i:i + chunk],
+                                        q_ph[i:i + chunk], h))
+    diag = torch.sum(torch.where(parity_pm1(q[:, None] & diag_yz[None, :]) < 0, -diag_coeff,
+                                 diag_coeff), dim=-1)
+    exact = _tolerance(args, chunk, h_exact=True)
+    for g, w in zip(got, (diag + torch.cat([c[0] for c in comp]).double(),
+                          torch.cat([c[1] for c in comp]).double())):
+        assert bool(((g - w).abs() <= exact).all()), float((g - w).abs().max())
+    again = sorted_local_energy(*args)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))   # no atomics
+    variant = _launch_energy(args, shared_top=False)
+    assert all(torch.equal(a, g) for a, g in zip(variant, got))   # the same hits, order
+
+
+def test_sorted_local_energy_rejects_bad_inputs():
+    dev = _card()
+    args = list(_energy_inputs(300, 200, 8, 16, 20, dev))
+
+    def bad(i, value):
+        return lambda: sorted_local_energy(*args[:i], value, *args[i + 1:])
+
+    for call in (bad(3, 200), bad(3, args[3].int()), bad(3, args[3].cpu()),
+                 bad(1, args[1].double()), bad(5, args[5][:-1]), bad(6, args[6].cpu()),
+                 bad(8, args[8].long()), bad(11, args[11][:-1]), bad(13, args[13].float()),
+                 bad(4, args[4].cpu()), bad(4, torch.zeros(16, dtype=torch.int64,
+                                                            device=dev)[::2]),
+                 bad(7, args[7][:-1])):
+        with pytest.raises(ValueError):
+            call()

@@ -27,7 +27,9 @@ from naqs_tpu_torch.ops.dyn_gather import rowsum_tolerance
 from naqs_tpu_torch.ops.offdiag_h import (OFFDIAG_ATOL, OFFDIAG_RTOL, offdiag_h_terms,
                                           offdiag_h_terms_ref, offdiag_tolerance, term_groups)
 from naqs_tpu_torch.ops.sort_lookup import (QUAD_MISS, lookup, pack_table, sorted_gather2,
-                                            sorted_gather2_ref, sorted_log_amps,
+                                            sorted_gather2_ref, sorted_local_energy,
+                                            sorted_local_energy_ref,
+                                            sorted_local_energy_tolerance, sorted_log_amps,
                                             sorted_ratio_rowsum, sorted_ratio_rowsum_ref)
 from naqs_tpu_torch.utils.bits import SENTINEL
 from test_torch_support import case, near_hf_states, padded_batch, to_u64
@@ -331,3 +333,122 @@ def test_trainer_step_on_the_sort_engine():
     for a, b in zip(*runs):
         assert a["n_unique"] == b["n_unique"]
         assert abs(a["e_loc"] - b["e_loc"]) < MEAN_TOL
+
+
+def _energy_args(dt_t, s, la, ph, m, rows=None):
+    """sorted_local_energy's arguments: the whole batch as the table, the
+    given rows of it (all if None) as the queries."""
+    table = pack_table(torch.as_tensor(s), torch.as_tensor(la), torch.as_tensor(ph))
+    q = table if rows is None else tuple(t[rows] for t in table)
+    return (*table, torch.tensor(m), *q, dt_t.xy_unique, dt_t.xy_ptr, dt_t.term_yz,
+            dt_t.yz_unique, dt_t.term_coeff, dt_t.diag_yz, dt_t.diag_coeff)
+
+
+@pytest.mark.parametrize("name,m,cap", CASES)
+def test_sorted_local_energy_ref_matches_jax(name, m, cap):
+    """The one-launch E_loc's plain version against JAX's local_energy on the
+    sort path with no dense A (the per-term H row), per row; the wrapper on
+    CPU tensors is the plain version and counts nothing; the tolerance it
+    is held to on the card covers found pairs."""
+    c = _case(name)
+    dt_j, dt_t = _terms(c, False)
+    s, la, ph, _ = _batch(c, m, cap, 0)
+    args = _energy_args(dt_t, s, la, ph, m)
+    e_re, e_im = sorted_local_energy_ref(*args, chunk_rows=64)
+    re_j, im_j = _jax(dt_j, s, la, ph, m, chunk_rows=64)
+    assert e_re.dtype == e_im.dtype == torch.float64 and e_re.shape == (cap,)
+    np.testing.assert_allclose(e_re.numpy()[:m], re_j[:m], rtol=0, atol=ROW_TOL)
+    np.testing.assert_allclose(e_im.numpy()[:m], im_j[:m], rtol=0, atol=ROW_TOL)
+    whole = sorted_local_energy_ref(*args)   # one chunk: the same rows
+    assert torch.equal(whole[0], e_re) and torch.equal(whole[1], e_im)
+    before = sorted_local_energy.launches
+    w_re, w_im = sorted_local_energy(*args, chunk_rows=64)
+    assert sorted_local_energy.launches == before
+    assert torch.equal(w_re, e_re) and torch.equal(w_im, e_im)
+    tol = sorted_local_energy_tolerance(args[0], args[1], args[3], args[4], args[5],
+                                        *args[7:12], args[13], chunk_rows=64)
+    exact = sorted_local_energy_tolerance(args[0], args[1], args[3], args[4], args[5],
+                                          *args[7:12], args[13], h_exact=True)
+    assert tol.shape == (cap,) and bool((tol >= exact).all()) and bool((tol > exact).any())
+    assert float(exact.min()) > 2e-5   # ROWSUM_ATOL and the diagonal's term
+
+
+@pytest.mark.parametrize("name", ["H2O", "LiH", "synthetic"])
+def test_local_energy_dispatches_to_sorted_local_energy(name, monkeypatch):
+    """local_energy takes sorted_local_energy exactly where rank_spec, dense and
+    a_mat are all None: once per call, with queries= too, and never with a
+    dense A, a RankSpec or a grid program."""
+    c = _case(name)
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(args[4].shape[0])
+        return sorted_local_energy(*args, **kw)
+
+    monkeypatch.setattr(le_t, "sorted_local_energy", spy)
+    s, la, ph, _ = _batch(c, 60, 64, 2)
+    if name == "synthetic":
+        engines = {"sort, dense A": _terms(c, True)[1], "sort": _terms(c, False)[1]}
+    else:
+        dt = le_t.DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu")
+        assert dt.dense is not None and dt.a_mat is not None
+        engines = {"grid": dt, "rank": dataclasses.replace(dt, dense=None),
+                   "rank, no A": dataclasses.replace(dt, dense=None, a_mat=None),
+                   "sort, dense A": dataclasses.replace(dt, rank_spec=None, dense=None),
+                   "sort": dataclasses.replace(dt, rank_spec=None, dense=None, a_mat=None)}
+    for label, dt in engines.items():
+        calls.clear()
+        _port(dt, s, la, ph, 60)
+        _port(dt, s, la, ph, 60, queries=tuple(torch.as_tensor(a[5:20]) for a in (s, la, ph)))
+        assert calls == ([64, 15] if label == "sort" else []), label
+
+
+@pytest.mark.parametrize("name", ["H2O", "synthetic"])
+def test_sorted_local_energy_sentinel_query_rows(name):
+    """queries= with SENTINEL rows between live ones: those rows get e_im == 0
+    and e_re == their diagonal_energy exactly, and every live row the value it
+    gets without the padding."""
+    c = _case(name)
+    _, dt_t = _terms(c, False)
+    m, cap = (150, 160) if name == "H2O" else (200, 224)
+    s, la, ph, _ = _batch(c, m, cap, 8)
+    live = np.arange(0, m, 3)
+    q_s = np.full(3 * len(live), SENTINEL, np.int64)
+    q_la, q_ph = np.zeros(len(q_s), np.float32), np.zeros(len(q_s), np.float32)
+    q_s[::3], q_la[::3], q_ph[::3] = s[live], la[live], ph[live]   # two padding rows after each
+    table = pack_table(torch.as_tensor(s), torch.as_tensor(la), torch.as_tensor(ph))
+    rest = (dt_t.xy_unique, dt_t.xy_ptr, dt_t.term_yz, dt_t.yz_unique, dt_t.term_coeff,
+            dt_t.diag_yz, dt_t.diag_coeff)
+    e_re, e_im = sorted_local_energy(*table, torch.tensor(m), torch.as_tensor(q_s),
+                                     torch.as_tensor(q_la), torch.as_tensor(q_ph), *rest,
+                                     chunk_rows=64)
+    pad = q_s == SENTINEL
+    diag = le_t.diagonal_energy(dt_t, torch.as_tensor(q_s[pad])).numpy()
+    assert np.all(e_im.numpy()[pad] == 0) and np.array_equal(e_re.numpy()[pad], diag)
+    alone = sorted_local_energy(*table, torch.tensor(m), *(t[live] for t in table), *rest,
+                                chunk_rows=64)
+    assert np.array_equal(e_re.numpy()[~pad], alone[0].numpy())
+    assert np.array_equal(e_im.numpy()[~pad], alone[1].numpy())
+    assert np.abs(alone[1].numpy()).max() > 1e-4   # the live rows found coupled states
+
+
+@pytest.mark.parametrize("fill", ["empty", "full"])
+@pytest.mark.parametrize("name", ["H2O", "synthetic"])
+def test_sorted_local_energy_n_valid_0_and_all(name, fill):
+    """n_valid 0: no coupled state is found, every row gets its diagonal and 0;
+    n_valid = U (no padding): JAX's local_energy on the same buffer."""
+    c = _case(name)
+    dt_j, dt_t = _terms(c, False)
+    cap = 96
+    s, la, ph, _ = _batch(c, cap, cap, 9)
+    m = 0 if fill == "empty" else cap
+    e_re, e_im = le_t.local_energy(dt_t, torch.as_tensor(s), torch.as_tensor(la),
+                                   torch.as_tensor(ph), m, chunk_rows=64)
+    re_j, im_j = _jax(dt_j, s, la, ph, m, chunk_rows=64)
+    np.testing.assert_allclose(e_re.numpy(), re_j, rtol=0, atol=ROW_TOL)
+    np.testing.assert_allclose(e_im.numpy(), im_j, rtol=0, atol=ROW_TOL)
+    diag = le_t.diagonal_energy(dt_t, torch.as_tensor(s)).numpy()
+    if fill == "empty":
+        assert np.array_equal(e_re.numpy(), diag) and np.all(e_im.numpy() == 0)
+    else:
+        assert np.abs(e_re.numpy() - diag).max() > 1e-3

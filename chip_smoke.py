@@ -162,24 +162,21 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      and the library calls beside them (torch.searchsorted of the coupled
      states and a gather; Tensor.index_add of the products computed
      beforehand), held and unheld; REPEATS of ENERGY_LAUNCHES of
-     sorted_local_energy on the N2 call with its shared-memory top, with
-     the global search alone and with every flip mask's group cut to one term
-     (the same searches), held (LONG_HOLD_CYCLES) and unheld;
-     SLOW_REPEATS of one of it in
-     turns with this tree's offdiag_h_terms + sorted_ratio_rowsum composed over
-     the 782 chunks (with --before, DIR's too, first held against the kernel
-     within the composition's bound) and with its plain version, held behind
-     a sleep of COMPOSITION_HOLD_CYCLES (1,564 enqueues) and unheld; and
+     sorted_local_energy on the N2 call, held and unheld; SLOW_REPEATS of one
+     of it in turns with this tree's offdiag_h_terms + sorted_ratio_rowsum
+     composed over the 782 chunks (with --before, DIR's too, first held
+     against the kernel within the composition's bound) and with its plain
+     version, held and unheld; and
      SLOW_REPEATS unheld repeats of one whole N2 6-31G local_energy call,
      through the kernel (first held against the call through its plain
      version within ENGINE_TOL) and, with --before, through DIR's chunk loop.
      Each is
-     timed held (behind a card sleep
-     that covers the host's enqueue, so the launches run back to back: the
-     card's time, reported as "ms"); the fast ones also unheld (a plain loop,
-     which reads the host's rate where the wrapper is slower than the
-     kernel: "unheld_ms"), and the run fails if the hold did not cover their
-     enqueue; see naqs_tpu_torch/utils/cuda_timing.py.
+     timed held (behind a card sleep of twice its unheld run in the warm-up,
+     so the launches run back to back: the card's time, reported as "ms");
+     the fast ones also unheld (a plain loop, which reads the host's rate
+     where the wrapper is slower than the kernel: "unheld_ms"), and the run
+     fails if the hold did not outlast their unheld runs; see
+     naqs_tpu_torch/utils/cuda_timing.py.
 With --profile, the profiled step of each engine (H2O 6-31G factored and
 rank, Li2O staircase) must show one device kernel per wrapper call of the
 sampler's kernels and of the engine's own; it prints the step's device time
@@ -224,8 +221,6 @@ QUAD_RTOL = 1e-6              # quadratic_energy, kernel vs plain gather
 N2_STEPS = 2                  # training steps of N2 6-31G on the sort engine
 SORT_LAUNCHES = 10            # timing of the sort engine's kernels: launches per repeat
 ENERGY_LAUNCHES = 5           # timing of sorted_local_energy: launches per repeat
-LONG_HOLD_CYCLES = 200_000_000  # ~0.1 s of card sleep: 5 calls of milliseconds
-COMPOSITION_HOLD_CYCLES = 3_000_000_000  # ~1.5 s: 2 x 782 launches, the plain version's ops
 SEARCH_OPS = 3                # integer operations per level of a search: load, compare, select
 REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
 SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and more
@@ -804,7 +799,7 @@ def main(argv) -> int:
                                               offdiag_h_terms_ref, offdiag_tolerance,
                                               term_group)
     from naqs_tpu_torch.ops.rank import build_value_table, rank_index
-    from naqs_tpu_torch.ops.sort_lookup import (DIAG_RTOL, _launch_energy, lookup, pack_table,
+    from naqs_tpu_torch.ops.sort_lookup import (DIAG_RTOL, lookup, pack_table,
                                                 sorted_gather2, sorted_gather2_ref,
                                                 sorted_local_energy, sorted_local_energy_ref,
                                                 sorted_local_energy_tolerance, sorted_log_amps,
@@ -813,7 +808,7 @@ def main(argv) -> int:
     from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref,
                                         _split_and_compact, _split_and_compact_ref)
     from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
-    from naqs_tpu_torch.utils.cuda_timing import hold_ms, time_in_turns
+    from naqs_tpu_torch.utils.cuda_timing import HOLD_CYCLES, time_in_turns
 
     dev = torch.device("cuda")
     t0 = time.time()
@@ -1676,7 +1671,14 @@ def main(argv) -> int:
                          "state misses FCI")
 
     # 11. times, in turns
-    hold = hold_ms()
+
+    def check_hold(names, launches, unheld):
+        # the held times are the card's only where the hold outlasted the unheld run
+        slow = [n for n in names if unheld[n][1][1] * launches >= times[n][2]]
+        if slow:
+            raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times "
+                             f"invalid")
+
     times = time_in_turns(fns, REPEATS, LAUNCHES)
     calls = time_in_turns({n: fns[n] for n in fast}, REPEATS, LAUNCHES, hold=False)
     slow_fns = {
@@ -1735,31 +1737,15 @@ def main(argv) -> int:
     }
     times.update(time_in_turns(sort_fns, REPEATS, SORT_LAUNCHES))
     calls.update(time_in_turns(sort_fns, REPEATS, SORT_LAUNCHES, hold=False))
-    slow = [n for n in sort_fns if calls[n][1][1] * SORT_LAUNCHES >= hold]
-    if slow:
-        raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times invalid")
-    # sorted_local_energy on the N2 call, with the shared top, with the global
-    # search alone (the search it replaced) and with every group cut to its first
-    # term (the same searches and finds, one term walked a found pair: what
-    # queueing the walks could save at most); then, held long enough for the
-    # 2 x 782 enqueues, in turns with the chunk loop's two kernels composed over
-    # the same rows (this tree's, and with --before DIR's, first held against the
-    # kernel) and with the plain version
-    e_name, e_glob = "sorted_local_energy", "sorted_local_energy (global search)"
-    e_one = "sorted_local_energy (one term a group)"
-    one_ptr = torch.cat([dt4.xy_ptr[:1], torch.cumsum(real4.int(), 0, dtype=torch.int32)])
-    one_args = (*e_args[:8], one_ptr, *e_args[9:])
-    energy_fns = {e_name: lambda: sorted_local_energy(*e_args),
-                  e_glob: lambda: _launch_energy(e_args, shared_top=False),
-                  e_one: lambda: _launch_energy(one_args)}
-    long_hold = hold_ms(LONG_HOLD_CYCLES)
-    times.update(time_in_turns(energy_fns, REPEATS, ENERGY_LAUNCHES,
-                               hold_cycles=LONG_HOLD_CYCLES))
+    check_hold(sort_fns, SORT_LAUNCHES, calls)
+    # sorted_local_energy on the N2 call; then in turns with the chunk loop's two
+    # kernels composed over the same rows (this tree's, and with --before DIR's,
+    # first held against the kernel) and with the plain version
+    e_name = "sorted_local_energy"
+    energy_fns = {e_name: lambda: sorted_local_energy(*e_args)}
+    times.update(time_in_turns(energy_fns, REPEATS, ENERGY_LAUNCHES))
     calls.update(time_in_turns(energy_fns, REPEATS, ENERGY_LAUNCHES, hold=False))
-    slow = [n for n in energy_fns if calls[n][1][1] * ENERGY_LAUNCHES >= long_hold]
-    if slow:
-        raise SystemExit(f"the {long_hold:.1f} ms hold did not cover the enqueue of {slow}: "
-                         f"held times invalid")
+    check_hold(energy_fns, ENERGY_LAUNCHES, calls)
     e_comp = "offdiag_h_terms + sorted_ratio_rowsum (782 chunks)"
     e_comp_old = f"{e_comp}, earlier tree"
     e_plain_name = "sorted_local_energy_ref"
@@ -1780,14 +1766,10 @@ def main(argv) -> int:
             raise SystemExit("the earlier tree's composition disagrees with sorted_local_energy")
         comp_fns[e_comp_old] = lambda: composition(old_mods["offdiag_h"].offdiag_h_terms,
                                                    old_mods["sort_lookup"].sorted_ratio_rowsum)
-    comp_hold = hold_ms(COMPOSITION_HOLD_CYCLES)
-    comp_times = time_in_turns(comp_fns, SLOW_REPEATS, 1, hold_cycles=COMPOSITION_HOLD_CYCLES)
+    comp_times = time_in_turns(comp_fns, SLOW_REPEATS, 1)
     comp_calls = time_in_turns(comp_fns, SLOW_REPEATS, 1, hold=False)
-    slow = [n for n in comp_fns if comp_calls[n][1][1] >= comp_hold]
-    if slow:
-        raise SystemExit(f"the {comp_hold:.1f} ms hold did not cover the enqueue of {slow}: "
-                         f"held times invalid")
     times.update({n: t for n, t in comp_times.items() if n != e_name})
+    check_hold([n for n in comp_fns if n != e_name], 1, comp_calls)
     calls.update({n: t for n, t in comp_calls.items() if n != e_name})
     # one whole local_energy call at capacity 100,000 through the kernel (first held
     # against the call through its plain version) and, with --before, through the
@@ -1821,36 +1803,29 @@ def main(argv) -> int:
           f"versions, "
           f"local_energy, the split's and the shell step's plain versions, the split of "
           f"before and sample()), the "
-          f"functions in turns; held: behind a {hold:.1f} ms card sleep, so the launches run "
-          f"back to back (the card's time); unheld: a plain loop (the host's rate where that "
-          f"is slower)", flush=True)
-    for name, (med, spread) in times.items():
+          f"functions in turns; held: behind a card sleep of twice the function's unheld run "
+          f"(at least {HOLD_CYCLES} cycles), so the launches run back to back (the card's "
+          f"time); unheld: a plain loop (the host's rate where that is slower)", flush=True)
+    for name, (med, spread, held) in times.items():
         unheld = (f"; unheld median {calls[name][0]:.4f} ms, spread {calls[name][1][0]:.4f}-"
                   f"{calls[name][1][1]:.4f} ms" if name in calls else "")
-        print(f"[time] {name}: held median {med:.4f} ms, spread {spread[0]:.4f}-{spread[1]:.4f}"
-              f" ms{unheld}", flush=True)
+        print(f"[time] {name}: held ({held:.1f} ms) median {med:.4f} ms, spread "
+              f"{spread[0]:.4f}-{spread[1]:.4f} ms{unheld}", flush=True)
     print(f"[time] the sort engine's kernels, plain versions and library calls: {REPEATS} "
           f"repeats of {SORT_LAUNCHES} launches in turns, held and unheld; one whole "
           f"local_energy call: "
-          f"{SLOW_REPEATS} repeats of 1, unheld (the host's enqueue of {per_call4} chunks "
-          f"included)", flush=True)
-    for name, (med, spread) in e2e.items():
+          f"{SLOW_REPEATS} repeats of 1, unheld (the host's side included)", flush=True)
+    for name, (med, spread, _) in e2e.items():
         print(f"[time] {name}: unheld median {med:.2f} ms, spread {spread[0]:.2f}-"
               f"{spread[1]:.2f} ms", flush=True)
     print(f"[time] sorted_local_energy in turns with the {len(chunks4)}-chunk compositions and "
-          f"its plain version: {SLOW_REPEATS} repeats of 1, held behind a {comp_hold:.1f} ms "
-          f"card sleep, and unheld", flush=True)
-    for name, (med, spread) in comp_times.items():
-        print(f"[time] {name}: held median {med:.4f} ms, spread {spread[0]:.4f}-{spread[1]:.4f}"
-              f" ms; unheld median {comp_calls[name][0]:.4f} ms, spread "
-              f"{comp_calls[name][1][0]:.4f}-{comp_calls[name][1][1]:.4f} ms", flush=True)
-    print(f"[time] {per_call4} x one chunk's held time of sorted_ratio_rowsum + "
-          f"offdiag_h_terms (a product, not a reading; --profile sums the step's kernels): "
-          f"{per_call4 * (times['sorted_ratio_rowsum'][0] + times['offdiag_h_terms'][0]):.2f}"
-          f" ms", flush=True)
-    slow = [n for n in fast if calls[n][1][1] * LAUNCHES >= hold]
-    if slow:
-        raise SystemExit(f"the hold did not cover the enqueue of {slow}: held times invalid")
+          f"its plain version: {SLOW_REPEATS} repeats of 1, held and unheld", flush=True)
+    for name, (med, spread, held) in comp_times.items():
+        print(f"[time] {name}: held ({held:.1f} ms) median {med:.4f} ms, spread "
+              f"{spread[0]:.4f}-{spread[1]:.4f} ms; unheld median {comp_calls[name][0]:.4f} "
+              f"ms, spread {comp_calls[name][1][0]:.4f}-{comp_calls[name][1][1]:.4f} ms",
+              flush=True)
+    check_hold(fast, LAUNCHES, calls)
     head = s.numel() * 8 + xy.numel() * 8 + n_rows * 8
     g_bytes = head + 2 * n_el * 4
     g_bound = _bound(g_bytes, n_el * RANK_OPS)
@@ -2098,8 +2073,6 @@ def main(argv) -> int:
               **before(e_comp_old), composition_ms=times[e_comp][0],
               composition_unheld_ms=calls[e_comp][0],
               in_turns_with_compositions_ms=comp_times[e_name][0],
-              global_search_ms=times[e_glob][0], global_search_spread=times[e_glob][1],
-              one_term_a_group_ms=times[e_one][0],
               found_pairs=n_found_pairs, live_rows=n_live4,
               local_energy_ms=calls[le_name][0],
               **({"local_energy_before_ms": calls[le_old][0]} if le_old in calls else {})),

@@ -87,8 +87,7 @@
 //   gather by plain loads, all in flight at once, not a bulk copy. Lanes of
 //   a warp take consecutive flip masks, which are sorted, so their queries
 //   share high bits and mostly the same path through the top (broadcast
-//   reads). The global-only search stays as a variant (shared_top = 0) to
-//   measure against.
+//   reads).
 // * No host loop. The diagonal is summed in f64 in the same launch, each
 //   thread its terms d = tid + j * 256 in order, then a shuffle tree and the
 //   warps in order; n_valid is read through its pointer. One launch per call.
@@ -367,9 +366,8 @@ __device__ __forceinline__ RowSums block_sums(float re, float im, double diag,
   return out;
 }
 
-template <bool kTop>
 __global__ void __launch_bounds__(kThreads, 4) sorted_local_energy_kernel(const EnergyArgs a) {
-  __shared__ int64_t top[kTop ? kTopKeys : 1];
+  __shared__ int64_t top[kTopKeys];
   __shared__ int64_t batch[kThreads];
   __shared__ float part[2][kWarps];
   __shared__ double dpart[kWarps];
@@ -378,10 +376,8 @@ __global__ void __launch_bounds__(kThreads, 4) sorted_local_energy_kernel(const 
   int shift = kMinShift;
   while (n > (static_cast<int64_t>(kTopKeys) << shift)) ++shift;
   const int m = static_cast<int>((n + (int64_t{1} << shift) - 1) >> shift);
-  if constexpr (kTop) {
-    for (int j = threadIdx.x; j < m; j += kThreads)
-      top[j] = __ldg(a.states + (static_cast<int64_t>(j) << shift));
-  }
+  for (int j = threadIdx.x; j < m; j += kThreads)
+    top[j] = __ldg(a.states + (static_cast<int64_t>(j) << shift));
   const RowSums pad = block_sums(0.f, 0.f, diag_part(a, kSentinel), part, dpart);
   if (threadIdx.x == 0) pad_diag = pad.diag;
   __syncthreads();  // top[] and pad_diag
@@ -419,14 +415,7 @@ __global__ void __launch_bounds__(kThreads, 4) sorted_local_energy_kernel(const 
           hi[u] = in ? __ldg(a.xy_ptr + k + 1) : 0;
           q[u] = in ? sc ^ __ldg(a.xy + k) : 0;
         }
-        if constexpr (kTop) {
-          search_top(top, m, shift, a.states, n, q, pos, val);
-        } else {
-          int64_t base[kLeUnroll];
-          search(a.states, n, q, base, val);
-#pragma unroll
-          for (int u = 0; u < kLeUnroll; ++u) pos[u] = static_cast<uint32_t>(base[u]);
-        }
+        search_top(top, m, shift, a.states, n, q, pos, val);
 #pragma unroll
         for (int u = 0; u < kLeUnroll; ++u) {
           if (lo[u] < hi[u] && val[u] == q[u]) {
@@ -449,16 +438,17 @@ __global__ void __launch_bounds__(kThreads, 4) sorted_local_energy_kernel(const 
   }
 }
 
-// blocks of kernel the card holds at once, asked once per device
-template <class Kernel>
-int resident_blocks(Kernel kernel, int (&resident)[64], int* out) {
+// blocks of sorted_local_energy_kernel the card holds at once, asked once per device
+int resident_blocks(int* out) {
+  static int resident[64] = {};
   int device = 0;
   cudaError_t rc = cudaGetDevice(&device);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (resident[device] == 0) {
     int per_sm = 0, sms = 0;
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sorted_local_energy_kernel,
+                                                       kThreads, 0);
     if (rc == cudaSuccess)
       rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (rc != cudaSuccess) return static_cast<int>(rc);
@@ -504,9 +494,8 @@ extern "C" int sorted_local_energy(const void* states, int n_states, const void*
                                    const void* xy, const void* xy_ptr, int n_cols,
                                    const void* term_yz, const void* yz_unique,
                                    const void* term_coeff, const void* diag_yz,
-                                   const void* diag_coeff, int n_diag, int shared_top,
-                                   void* e_re, void* e_im, void* stream) {
-  static int resident_top[64] = {}, resident_global[64] = {};
+                                   const void* diag_coeff, int n_diag, void* e_re, void* e_im,
+                                   void* stream) {
   const EnergyArgs a = {static_cast<const int64_t*>(states), n_states,
                         static_cast<const float*>(la), static_cast<const float*>(ph),
                         static_cast<const int64_t*>(n_valid),
@@ -520,18 +509,10 @@ extern "C" int sorted_local_energy(const void* states, int n_states, const void*
                         static_cast<const double*>(diag_coeff), n_diag,
                         static_cast<double*>(e_re), static_cast<double*>(e_im)};
   int blocks = 0;
-  const int rc = shared_top ? resident_blocks(sorted_local_energy_kernel<true>, resident_top,
-                                              &blocks)
-                            : resident_blocks(sorted_local_energy_kernel<false>,
-                                              resident_global, &blocks);
+  const int rc = resident_blocks(&blocks);
   if (rc != 0) return rc;
   if (blocks > n_rows) blocks = n_rows;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (shared_top) {
-    sorted_local_energy_kernel<true><<<blocks, kThreads, 0, st>>>(a);
-  } else {
-    sorted_local_energy_kernel<false><<<blocks, kThreads, 0, st>>>(a);
-  }
+  sorted_local_energy_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -164,7 +164,7 @@ def _lib():
                                    _PTR, _PTR, _PTR, _PTR]
     lib.sorted_local_energy.argtypes = [_PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR,
                                         _PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
-                                        _INT, _PTR, _PTR, _PTR]
+                                        _PTR, _PTR, _PTR]
     lib.sorted_ratio_rowsum.restype = lib.sorted_gather2.restype = _INT
     lib.sorted_local_energy.restype = _INT
     return lib
@@ -220,23 +220,6 @@ def sorted_gather2(states, la, ph, n_valid, s, xy, live):
     return out_la, out_ph
 
 
-def _launch_energy(args, shared_top=True):
-    """(e_re, e_im) of `sorted_local_energy`'s kernel on its checked CUDA
-    arguments; shared_top=False searches the global table alone (the search
-    it replaced, kept to time against). Counts nothing."""
-    (states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique, xy_ptr, term_yz, yz_unique,
-     term_coeff, diag_yz, diag_coeff) = args
-    e_re = torch.empty((q_states.shape[0],), dtype=torch.float64, device=q_states.device)
-    e_im = torch.empty_like(e_re)
-    if e_re.numel():
-        _build.launch(_lib(), "sorted_local_energy",
-                      (states, states.shape[0], la, ph, n_valid, q_states, q_states.shape[0],
-                       q_la, q_ph, xy_unique, xy_ptr, xy_unique.shape[0], term_yz, yz_unique,
-                       term_coeff, diag_yz, diag_coeff, diag_yz.shape[0], int(shared_top),
-                       e_re, e_im), q_states.device)
-    return e_re, e_im
-
-
 def sorted_local_energy(states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique, xy_ptr,
                         term_yz, yz_unique, term_coeff, diag_yz, diag_coeff, chunk_rows=None):
     """(e_re, e_im), each (U_q,) f64: the local energy of every query row
@@ -255,14 +238,20 @@ def sorted_local_energy(states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique
         "term_coeff": (term_coeff, f32, (term_yz.shape[0],)),
         "diag_yz": (diag_yz, i64, (diag_yz.shape[0],)),
         "diag_coeff": (diag_coeff, (torch.float64,), (diag_yz.shape[0],))})
-    args = (states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique, xy_ptr, term_yz,
-            yz_unique, term_coeff, diag_yz, diag_coeff)
     if q_states.device.type == "cpu":
-        return sorted_local_energy_ref(*args, chunk_rows=chunk_rows)
-    out = _launch_energy(args)
-    if q_states.shape[0]:
-        sorted_local_energy.launches += 1
-    return out
+        return sorted_local_energy_ref(states, la, ph, n_valid, q_states, q_la, q_ph,
+                                       xy_unique, xy_ptr, term_yz, yz_unique, term_coeff,
+                                       diag_yz, diag_coeff, chunk_rows=chunk_rows)
+    e_re = torch.empty((n_rows,), dtype=torch.float64, device=q_states.device)
+    e_im = torch.empty_like(e_re)
+    if n_rows == 0:
+        return e_re, e_im
+    _build.launch(_lib(), "sorted_local_energy",
+                  (states, u, la, ph, n_valid, q_states, n_rows, q_la, q_ph, xy_unique, xy_ptr,
+                   n_cols, term_yz, yz_unique, term_coeff, diag_yz, diag_coeff,
+                   diag_yz.shape[0], e_re, e_im), q_states.device)
+    sorted_local_energy.launches += 1
+    return e_re, e_im
 
 
 sorted_ratio_rowsum.launches = 0

@@ -50,9 +50,8 @@ from naqs_tpu_torch.ops.multinomial import (_GAUSS_VAR_MIN, _cascade, multinomia
                                             multinomial4_split_ref, split_draws)
 from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms, offdiag_h_terms_ref, offdiag_tolerance
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
-from naqs_tpu_torch.ops.sort_lookup import (_launch_energy, pack_table, sorted_gather2,
-                                            sorted_gather2_ref, sorted_local_energy,
-                                            sorted_local_energy_ref,
+from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_gather2_ref,
+                                            sorted_local_energy, sorted_local_energy_ref,
                                             sorted_local_energy_tolerance, sorted_log_amps,
                                             sorted_ratio_rowsum, sorted_ratio_rowsum_ref)
 from naqs_tpu_torch import sampler as sampler_mod
@@ -999,7 +998,7 @@ def _tolerance(args, chunk, h_exact=False):
 def test_sorted_local_energy_kernel_matches_plain(u, n_valid, n_rows, n_cols, n_qubits):
     """Per row within the stated tolerance of the plain version and of this
     tree's two kernels composed chunk by chunk (the same h bits); padding rows
-    their diagonal and 0; twice bitwise; the global-search variant's bits."""
+    their diagonal and 0; twice bitwise."""
     from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
 
     dev = _card()
@@ -1038,8 +1037,6 @@ def test_sorted_local_energy_kernel_matches_plain(u, n_valid, n_rows, n_cols, n_
         assert bool(((g - w).abs() <= exact).all()), float((g - w).abs().max())
     again = sorted_local_energy(*args)
     assert all(torch.equal(a, g) for a, g in zip(again, got))   # no atomics
-    variant = _launch_energy(args, shared_top=False)
-    assert all(torch.equal(a, g) for a, g in zip(variant, got))   # the same hits, order
 
 
 def test_sorted_local_energy_rejects_bad_inputs():

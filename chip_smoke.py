@@ -177,6 +177,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      where the wrapper is slower than the kernel: "unheld_ms"), and the run
      fails if the hold did not outlast their unheld runs; see
      naqs_tpu_torch/utils/cuda_timing.py.
+ 12. the trainer's extras at the paper width on phase 3's H2O 6-31G, in a
+     temporary working directory, each sub-phase timed on the wall clock: a
+     fresh trainer (capacity 100,000, grad_clip_factor CLIP_FACTOR);
+     pre_train_hf for HF_EPOCHS epochs (the HF state's -log|psi| must fall),
+     pre_flatten for one epoch over the 1,656,369-state basis at batch 2^17;
+     EXTRAS_STEPS clipped steps, each update's pre-clip norm, scale and
+     whether the clip's ring moved printed (it must move on every applied
+     update and on no withheld one, and a forced overflow update must leave
+     it as it was), the record steps' and the other steps' times and the
+     record's own; the counter equal to the sums of the recorded batches,
+     which are the record steps' batches; solve_h over the counter's top
+     SOLVE_K states, E0 at or below the lowest diagonal element and within
+     1e-8 Ha of the ground state of H assembled by numpy and by the native
+     library; exact_energy over the basis (rank_gather2 alone, its launches
+     counted) before and after warm_start_from_solve_h (WS_EPOCHS epochs,
+     overlap loss); a trainer with train_terms = H + S2_PENALTY S^2 (built
+     with NAQS_TPU_DENSE=0) whose exact_energy equals the plain trainer's
+     within 1e-9 Ha on the same parameters; pre_train_hf for
+     DENSITY_HF_EPOCHS epochs, then DENSITY_STEPS run_density steps
+     (compact_children once per shell of every sample_density call, the
+     E_loc engine's kernel once per update, nothing else); save, load into
+     a fresh trainer (parameters, Adam, clip ring, generator, counter, log
+     and controller bitwise equal), and one more step of each (e_loc within
+     ENGINE_TOL, whether bitwise equal printed); save_psi on phase 10's N2
+     STO-3G trainer (the written amplitudes' squares sum to 1 within 1e-6).
 With --profile, the profiled step of each engine (H2O 6-31G factored and
 rank, Li2O staircase) must show one device kernel per wrapper call of the
 sampler's kernels and of the engine's own; it prints the step's device time
@@ -189,7 +214,9 @@ for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
 for xl_grid_accumulate, 10c's N2 steps for sorted_local_energy,
 sorted_ratio_rowsum and offdiag_h_terms (0: the last two run where a dense A
 exists, and in quadratic_energy, beside which their launches there stand)
-and its N2 quadratic_energy call for sorted_gather2; the
+and its N2 quadratic_energy call for sorted_gather2; phase 12's
+exact_energy call for rank_gather2's "launches_exact_energy" and its
+run_density steps for compact_children's "launches_run_density"; the
 staircase kernel's bound_ms counts what the function needs on the
 sampled grid (the grid cells the valid pairs read, the maps, the program and
 the output; the set pairs' operations) and dense_bound_ms the earlier design's
@@ -224,6 +251,13 @@ ENERGY_LAUNCHES = 5           # timing of sorted_local_energy: launches per repe
 SEARCH_OPS = 3                # integer operations per level of a search: load, compare, select
 REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
 SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and more
+CLIP_FACTOR = 1.0             # phase 12: clip to the trailing mean (bites on a rising norm)
+EXTRAS_STEPS = 11             # phase 12: clipped steps (the counter records steps 1, 6, 11)
+HF_EPOCHS, WS_EPOCHS = 5, 20  # phase 12: pre_train_hf and warm-start epochs
+SOLVE_K = 10_000              # phase 12: solve_h's subspace, the counter's top states
+S2_PENALTY = 0.5              # phase 12: train_terms = H + 0.5 S^2
+DENSITY_STEPS = 2             # phase 12: run_density steps
+DENSITY_HF_EPOCHS = 20        # phase 12: pre_train_hf epochs before run_density
 RANK_OPS = 25                 # integer ops per element of the kernels' rank_of
 EPILOGUE_OPS = 11             # per found element: 3 transcendentals + 8 flops
 H100_FP64_OPS_PER_S = 33.5e12  # non-tensor float64: half the float32 rate
@@ -763,6 +797,310 @@ def _before_modules(before):
             del sys.modules[k]
         sys.modules.update(saved)
     return mods
+
+
+def _trainer_extras(dev, mol, hil, terms, cfg, tr2, zero_counts, wrappers):
+    """Phase 12: the trainer's extras at the paper width on H2O 6-31G, in a
+    temporary working directory. Returns the launch counts and wall times
+    the kernels line and the summary print."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.linalg import eigsh
+
+    import naqs_tpu_torch as nt
+    from naqs_tpu_torch import native
+    from naqs_tpu_torch import trainer as trainer_mod
+    from naqs_tpu_torch.hamiltonian import _assemble_rows_np, diagonal_energy_np
+    from naqs_tpu_torch.models.nade import log_psi
+    from naqs_tpu_torch.utils.spin import penalized_termdict
+
+    walls, out = {}, {}
+    kern = {w.__name__: w for w in wrappers}
+    rank_gather2, _compact_children = kern["rank_gather2"], kern["_compact_children"]
+    _split_and_compact = kern["_split_and_compact"]
+
+    def lap(name, t):
+        torch.cuda.synchronize()
+        walls[name] = time.time() - t
+        print(f"[extras] {name}: {walls[name]:.2f} s wall", flush=True)
+
+    def others(allowed):
+        return {w.__name__: w.launches for w in wrappers
+                if w.launches and w.__name__ not in allowed}
+
+    cwd = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_extras_")
+    os.chdir(work)  # the warm start's eigenvector cache path is relative
+    try:
+        # 1. warm starts that need no eigensolve
+        t = time.time()
+        # n_unq_samples_min=1: the density controller (d_p x/÷10 per try)
+        # accepts any support it can hold; with a floor of 1,000 it swings
+        # between an overflowing beam and a few states on a wavefunction whose
+        # tail is as flat as a few steps after pre_flatten leave it
+        tc = nt.TrainConfig(n_samples=1e6, n_unq_samples_min=1, n_unq_samples_max=100_000,
+                            grad_clip_factor=CLIP_FACTOR, seed=12)
+        tr = nt.VMCTrainer(cfg, terms, hil, tc, device=dev, save_loc=os.path.join(work, "ck"))
+        lap("trainer with its DeviceTerms", t)
+        eloc = kern[{"FactorTerms": "factored_grid_accumulate",
+                     "DenseTerms": "dense_grid_accumulate"}[type(tr.dt.dense).__name__]]
+        t = time.time()
+        hf = torch.tensor([hil.hf_state()], device=dev)
+        with torch.no_grad():
+            bce0 = -float(log_psi(tr.model, hf)[0])
+        tr.pre_train_hf(HF_EPOCHS)
+        with torch.no_grad():
+            bce1 = -float(log_psi(tr.model, hf)[0])
+        print(f"[extras] pre_train_hf, {HF_EPOCHS} epochs: the HF state's BCE (-log|psi|) "
+              f"{bce0:.4f} -> {bce1:.4f}", flush=True)
+        lap("pre_train_hf", t)
+        t = time.time()
+        tr.pre_flatten(1, batch_size=2**17)
+        lap(f"pre_flatten, 1 epoch over {hil.size} states at batch 2^17", t)
+        if not (math.isfinite(bce1) and bce1 < bce0):
+            raise SystemExit("pre_train_hf did not raise the HF amplitude")
+
+        # 2. clipped steps: the ring moves once per applied update and never on
+        # a withheld one
+        records, rec_times, calls = [], [], []
+        record_arrays, record_samples = tr._record_arrays, tr._record_samples
+        update = trainer_mod.vmc_update
+
+        def keep_records(states, counts):
+            records.append((states.copy(), counts.copy()))
+            record_arrays(states, counts)
+
+        def timed_record(*a, **kw):
+            t0 = time.time()
+            record_samples(*a, **kw)
+            rec_times.append(time.time() - t0)
+
+        def watched(*a, **kw):
+            clip = kw["clip"]
+            before = clip.state_dict()
+            m = update(*a, **kw)
+            moved = not (torch.equal(before["norms"], clip.norms)
+                         and torch.equal(before["count"], clip.count))
+            calls.append((m, moved, a[4]))
+            print(f"[extras] update {len(calls)}: overflow={m['overflow']} "
+                  f"applied={m['applied']} grad_norm={m['grad_norm']:.5e} (before the clip) "
+                  f"clip_scale={m['clip_scale']:.5f} ring moved={moved} "
+                  f"(count {int(clip.count)})", flush=True)
+            return m
+
+        tr._record_arrays, tr._record_samples = keep_records, timed_record
+        trainer_mod.vmc_update = watched
+        steps, last_batch, t = [], {}, time.time()
+        try:
+            for i in range(EXTRAS_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                recorded = tr.n_steps % tr.RECORD_FREQ == 0
+                o = tr.step()
+                torch.cuda.synchronize()
+                steps.append((time.time() - t0, recorded, len(calls)))
+                last_batch[tr.n_steps] = calls[-1][2]
+                print(f"[step extras {i + 1}] {steps[-1][0]:.3f} s  record={recorded} "
+                      f"n_unique={o['n_unique']} e_loc={o['e_loc']:.6f} "
+                      f"grad_norm={o['grad_norm']:.5e} clip_scale={o['clip_scale']:.5f}",
+                      flush=True)
+                if not math.isfinite(o["e_loc"]):
+                    raise SystemExit("a clipped step gave a non-finite energy")
+        finally:
+            trainer_mod.vmc_update = update
+            tr._record_arrays, tr._record_samples = record_arrays, record_samples
+        lap(f"{EXTRAS_STEPS} clipped steps", t)
+        if any(m["applied"] != moved for m, moved, _ in calls):
+            raise SystemExit("the clip's ring moved on a withheld update or stood still on an "
+                             "applied one")
+        ring = tr.clip.state_dict()
+        bad = dataclasses.replace(calls[-1][2], overflow=torch.tensor(True, device=dev))
+        m = trainer_mod.vmc_update(tr.model, tr.optimizer, tr.scheduler, tr.dt, bad,
+                                   clip=tr.clip)
+        moved = not (torch.equal(ring["norms"], tr.clip.norms)
+                     and torch.equal(ring["count"], tr.clip.count))
+        n_withheld = sum(not c[0]["applied"] for c in calls) + (not m["applied"])
+        n_clipped = sum(c[0]["applied"] and c[0]["clip_scale"] < 1.0 for c in calls)
+        print(f"[extras] a forced overflow update: applied={m['applied']}, ring moved={moved}; "
+              f"{n_withheld} withheld updates in all, {n_clipped} of {len(calls)} updates "
+              f"clipped (factor {CLIP_FACTOR})", flush=True)
+        if m["applied"] or moved:
+            raise SystemExit("a withheld update moved the clip's ring")
+        rec = [s for s, r, _ in steps[1:] if r]
+        plain = [s for s, r, _ in steps[1:] if not r]
+        out["record_step_s"], out["plain_step_s"] = rec, plain
+        print(f"[extras] step time: record steps (after the first) {rec} s, other steps "
+              f"{min(plain):.3f}-{max(plain):.3f} s (median {np.median(plain):.3f}); the "
+              f"record itself on steps {[i + 1 for i, st in enumerate(steps) if st[1]]}: "
+              f"{[round(x, 4) for x, st in zip(rec_times, steps) if st[1]]} s (the device->host "
+              f"copy of the capacity-sized buffer, which waits for the step's Adam update, and "
+              f"the counter update)", flush=True)
+
+        # 3. the counter and solve_h
+        t = time.time()
+        want = {}
+        for s_rec, c_rec in records:
+            for s, c in zip(s_rec.tolist(), c_rec.tolist()):
+                want[s] = want.get(s, 0.0) + c
+        rec_steps = [n for n in last_batch if (n - 1) % tr.RECORD_FREQ == 0]
+        same_batches = len(rec_steps) == len(records) and all(
+            np.array_equal(r[0], last_batch[n].states[:len(r[0])].cpu().numpy())
+            and len(r[0]) == int(last_batch[n].n_unique) for n, r in zip(rec_steps, records))
+        print(f"[extras] counter: {len(tr.sampled_counter)} states from {len(records)} recorded "
+              f"steps {rec_steps}; equal to the recorded batches' sums={tr.sampled_counter == want}"
+              f", the recorded arrays are the steps' batches={same_batches}", flush=True)
+        if not (tr.sampled_counter == want and same_batches and len(records) >= 2):
+            raise SystemExit("the counter does not hold the states of the recorded steps")
+        if not native.available():
+            raise SystemExit("the native host library did not build")
+        e0, n0 = tr.solve_h(k_max=SOLVE_K)
+        lap(f"solve_h over the counter's top {n0}", t)
+        states = tr._subspace(None, True, SOLVE_K, None)
+        d_min = float(diagonal_energy_np(terms, states).min())
+        t = time.time()
+        r, c, v = _assemble_rows_np(terms, states, 0, len(states))
+        h_np = sp.csr_matrix((v, (r, c)), shape=(len(states),) * 2)
+        e_np = float(eigsh(h_np, k=1, which="SA")[0][0])
+        lap("the same solve, H assembled by numpy", t)
+        r, c, v = native.assemble_h_coo(terms, states)
+        h_nat = sp.csr_matrix((v, (r, c)), shape=(len(states),) * 2)
+        e_nat = float(eigsh(h_nat, k=1, which="SA")[0][0])
+        print(f"[extras] solve_h: E0 {e0:.10f} Ha over {n0} states (lowest diagonal element "
+              f"{d_min:.10f}); numpy assembly {e_np:.10f}, native {e_nat:.10f}: "
+              f"{abs(e_np - e_nat):.1e} Ha apart (tol 1e-8)", flush=True)
+        if not (n0 == min(SOLVE_K, len(want)) and e0 <= d_min + 1e-9
+                and abs(e_np - e_nat) <= 1e-8 and abs(e0 - e_nat) <= 1e-8):
+            raise SystemExit("solve_h: E0 above the lowest diagonal element, or the numpy and "
+                             "native assemblies disagree")
+
+        # 4. warm start on those states; exact_energy before and after
+        t = time.time()
+        zero_counts()
+        e_before = tr.exact_energy()
+        out["gather_launches_exact_energy"] = rank_gather2.launches
+        lap(f"exact_energy over the {hil.size}-state basis", t)
+        if others({"rank_gather2"}) or not rank_gather2.launches:
+            raise SystemExit(f"exact_energy did not run rank_gather2 alone: {others(set())}")
+        t = time.time()
+        e0w, nw = tr.warm_start_from_solve_h(WS_EPOCHS, k_max=SOLVE_K, loss="overlap")
+        lap(f"warm_start_from_solve_h, {WS_EPOCHS} epochs over {nw} states", t)
+        t = time.time()
+        e_after = tr.exact_energy()
+        lap("exact_energy after the warm start", t)
+        print(f"[extras] exact_energy (rank_gather2 launched "
+              f"{out['gather_launches_exact_energy']} times a call): {e_before:.8f} Ha before "
+              f"the warm start, {e_after:.8f} after "
+              f"(its subspace E0 {e0w:.8f})", flush=True)
+        if not (math.isfinite(e_before) and math.isfinite(e_after) and abs(e0w - e0) <= 1e-8):
+            raise SystemExit("the warm start or exact_energy failed")
+
+        # 5. training on H + lam S^2 reports pure <H>: its trainer built with
+        # NAQS_TPU_DENSE=0 (exact_energy needs no grid program)
+        t = time.time()
+        pen = nt.compile_pauli_terms(penalized_termdict(mol.qubit_hamiltonian, mol.n_qubits,
+                                                        S2_PENALTY), mol.n_qubits)
+        dense_env = os.environ.get("NAQS_TPU_DENSE")
+        os.environ["NAQS_TPU_DENSE"] = "0"
+        try:
+            tr_pen = nt.VMCTrainer(cfg, terms, hil, tc, device=dev, train_terms=pen)
+        finally:
+            if dense_env is None:
+                del os.environ["NAQS_TPU_DENSE"]
+            else:
+                os.environ["NAQS_TPU_DENSE"] = dense_env
+        tr_pen.model.load_state_dict(tr.model.state_dict())
+        e_pen = tr_pen.exact_energy()
+        lap("the H + 0.5 S^2 trainer and its exact_energy", t)
+        print(f"[extras] train_terms = H + {S2_PENALTY} S^2 ({len(pen.coeff)} off-diagonal "
+              f"terms against H's {len(terms.coeff)}): exact_energy {e_pen:.10f} Ha, the plain "
+              f"trainer's {e_after:.10f}, bitwise equal={e_pen == e_after}", flush=True)
+        if abs(e_pen - e_after) > 1e-9 or tr_pen.dt is tr_pen.dt_h:
+            raise SystemExit("the train_terms trainer does not report pure <H>")
+        del tr_pen
+
+        # 6. density training, after pre_train_hf has made the HF state hold
+        # a share of the mass that no other state holds (so some threshold
+        # d_p keeps the beam within capacity and finds at least one state)
+        t = time.time()
+        tr.pre_train_hf(DENSITY_HF_EPOCHS)
+        with torch.no_grad():
+            hf_mass = math.exp(2 * float(log_psi(tr.model, hf)[0]))
+        lap(f"pre_train_hf, {DENSITY_HF_EPOCHS} epochs (the HF state's mass {hf_mass:.4f})", t)
+        t = time.time()
+        n_density = [0]
+        density = trainer_mod.sample_density
+
+        def counted_density(*a, **kw):
+            n_density[0] += 1
+            return density(*a, **kw)
+
+        trainer_mod.sample_density = counted_density
+        zero_counts()
+        try:
+            tr.run_density(DENSITY_STEPS, output_freq=1)
+        finally:
+            trainer_mod.sample_density = density
+        out["compact_launches_run_density"] = _compact_children.launches
+        out["density_calls"] = n_density[0]
+        lap(f"run_density, {DENSITY_STEPS} steps", t)
+        print(f"[extras] run_density: {n_density[0]} sample_density calls, compact_children "
+              f"launched {_compact_children.launches} times ({cfg.n_shells} a call), "
+              f"split_and_compact {_split_and_compact.launches}, {eloc.__name__} "
+              f"{eloc.launches}; d_p {tr.d_p:.1e}", flush=True)
+        if not (_compact_children.launches == cfg.n_shells * n_density[0] >= DENSITY_STEPS
+                * cfg.n_shells and eloc.launches == DENSITY_STEPS
+                and not others({"_compact_children", eloc.__name__})):
+            raise SystemExit(f"run_density did not run compact_children once per shell and "
+                             f"nothing else of the sampler: {others(set())}")
+
+        # 7. save, load into a fresh trainer, one more step of each
+        t = time.time()
+        tr.save()
+        back = nt.VMCTrainer(cfg, terms, hil, tc, device=dev, save_loc=tr.save_loc).load()
+        lap("save, and load into a fresh trainer (its DeviceTerms built)", t)
+        sa, sb = tr.optimizer.state_dict()["state"], back.optimizer.state_dict()["state"]
+        same = {
+            "parameters": all(torch.equal(a, b) for a, b in zip(tr.model.state_dict().values(),
+                                                                back.model.state_dict().values())),
+            "adam": sa.keys() == sb.keys() and all(torch.equal(sa[i][k], sb[i][k])
+                                                  for i in sa for k in sa[i]),
+            "clip": torch.equal(tr.clip.norms, back.clip.norms)
+            and torch.equal(tr.clip.count, back.clip.count),
+            "generator": torch.equal(tr.gen.get_state(), back.gen.get_state()),
+            "counter": tr.sampled_counter == back.sampled_counter,
+            "log": tr.log == back.log,
+            "controller": (tr.n_samples, tr.n_steps) == (back.n_samples, back.n_steps)}
+        a, b = tr.step(), back.step()
+        out["resume_bitwise"] = a["e_loc"] == b["e_loc"]
+        print(f"[extras] checkpoint: equal bitwise {same}; the next step's e_loc "
+              f"{a['e_loc']:.10f} (never saved) and {b['e_loc']:.10f} (loaded): bitwise "
+              f"equal={out['resume_bitwise']}, {abs(a['e_loc'] - b['e_loc']):.1e} Ha apart "
+              f"(tol {ENGINE_TOL})", flush=True)
+        if not all(same.values()) or abs(a["e_loc"] - b["e_loc"]) > ENGINE_TOL:
+            raise SystemExit("the checkpoint did not restore the trainer")
+        del back
+
+        # 8. save_psi on N2 STO-3G
+        t = time.time()
+        nt.trainer.save_psi(tr2, os.path.join(work, "psi"))
+        amps = np.loadtxt(os.path.join(work, "psi.txt"))[:, 0]
+        norm = float(np.sum(amps ** 2))
+        lap(f"save_psi over N2 STO-3G's {tr2.hilbert.size} states", t)
+        print(f"[extras] save_psi: {len(amps)} rows, the squares of the written amplitudes sum "
+              f"to {norm:.9f} (tol 1e-6)", flush=True)
+        if not (len(amps) == tr2.hilbert.size and abs(norm - 1.0) <= 1e-6):
+            raise SystemExit("save_psi's amplitudes are not normalised")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    out["walls"] = walls
+    print(f"[extras] phase 12 wall times: {json.dumps({k: round(v, 2) for k, v in walls.items()})}; "
+          f"total {sum(walls.values()):.1f} s", flush=True)
+    return out
 
 
 def main(argv) -> int:
@@ -2014,6 +2352,9 @@ def main(argv) -> int:
         tr.dt = dt
         tr3.dt = xl_dt
 
+    # 12. the trainer's extras at the paper width on H2O 6-31G
+    extras = _trainer_extras(dev, mol, hil, terms, cfg, tr2, zero_counts, wrappers)
+
     def entry(name, launches, err, t_plain, bound, t_library,
               source="naqs_tpu_torch/csrc/rank_gather.cu",
               replaces="naqs_tpu/ops/dyn_gather.py:83", **more):
@@ -2036,6 +2377,7 @@ def main(argv) -> int:
         entry("rank_gather2", gather_launches, gather_err, "rank_gather2_ref", g_bound,
               "tab[idx]",
               library_note="tab[idx] on a precomputed idx: skips the rank arithmetic",
+              launches_exact_energy=extras["gather_launches_exact_energy"],
               **before(old_name)),
         entry("rank_ratio_rowsum", ratio_launches, rowsum_err, "rank_ratio_rowsum_ref",
               r_bound, None,
@@ -2126,7 +2468,11 @@ def main(argv) -> int:
                            "no zero fill, no flags, no count",
               path_note="not on the main path: sample() runs split_and_compact; "
                         "sample_density launches this kernel",
-              launches_sample_density=dens_launches, **before(old_compact), **SHELL_SRC),
+              launches_sample_density=dens_launches,
+              launches_run_density=extras["compact_launches_run_density"],
+              run_density_steps=DENSITY_STEPS,
+              run_density_sample_density_calls=extras["density_calls"],
+              **before(old_compact), **SHELL_SRC),
     ]}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,7 @@ the readout are single PyTorch indexing calls, as in the JAX package.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from itertools import combinations
 from math import comb
@@ -55,20 +56,24 @@ from naqs_tpu_torch.ops.rank import rank_index
 from naqs_tpu_torch.utils.bits import np_parity_pm1, parity_pm1
 from naqs_tpu_torch.utils.device import resolve_device
 
+# The caps below are read at import from the JAX package's environment
+# variables, with its defaults, so that one environment picks one engine in
+# both packages (NAQS_TPU_DENSE=0, read by DeviceTerms.from_terms, turns the
+# grid programs off).
 # dense-mode caps: sector grid cells and static H tensor bytes. 2^17 cells
 # covers the closed-shell STO-3G molecules through LiCl (286^2 = 81,796)
-DENSE_SIZE_MAX = 1 << 17
-DENSE_H_BYTES_MAX = 1 << 30
+DENSE_SIZE_MAX = int(os.environ.get("NAQS_TPU_DENSE_MAX", 1 << 17))
+DENSE_H_BYTES_MAX = int(os.environ.get("NAQS_TPU_DENSE_H_MAX", 1 << 30))
 # factored-mode caps: grid cells, and the bytes of the (Ka, Sb+1, Sa, 2)
 # alpha-permuted buffer that the plain version materialises. 2^21 cells
 # covers H2O 6-31G (1287^2 = 1.66M) and the water dimer (1001^2 = 1.00M)
-FACT_SIZE_MAX = 1 << 21
-FACT_R1_BYTES_MAX = 6 << 30
+FACT_SIZE_MAX = int(os.environ.get("NAQS_TPU_FACT_MAX", 1 << 21))
+FACT_R1_BYTES_MAX = int(os.environ.get("NAQS_TPU_FACT_R1_MAX", 6 << 30))
 _FACT_R = 64  # rank-1 factor slots per flip mask (padded)
 # XL caps: staircase cells, and the bytes of the (Sa*+1, Sb*+1, 2) f32 value
 # grid. They cover Li2O CISDTQ (644,365 cells; 5,056^2 * 8 B = 204.5 MB)
-XL_CELLS_MAX = 1 << 23
-XL_U_BYTES_MAX = 1 << 28
+XL_CELLS_MAX = int(os.environ.get("NAQS_TPU_XL_CELLS_MAX", 1 << 23))
+XL_U_BYTES_MAX = int(os.environ.get("NAQS_TPU_XL_U_MAX", 1 << 28))
 _XL_CHUNK = 64  # masks per chunk of the plain version's scan
 
 

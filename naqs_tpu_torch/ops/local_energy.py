@@ -36,6 +36,7 @@ states, both membership engines compute:
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -112,7 +113,9 @@ class DeviceTerms:
             a_mat = torch.as_tensor(a, device=dev)
         rank_spec = RankSpec.for_hilbert(hilbert) if hilbert is not None else None
         dense = None
-        if rank_spec is not None:
+        # NAQS_TPU_DENSE=0 (read at each call, as the JAX package reads it)
+        # builds no grid program: the rank engine, or the sort engine, runs
+        if rank_spec is not None and os.environ.get("NAQS_TPU_DENSE", "1") != "0":
             if DenseTerms.supported(terms, hilbert):
                 dense = DenseTerms.build(terms, hilbert, device=dev)
             elif FactorTerms.supported(terms, hilbert):

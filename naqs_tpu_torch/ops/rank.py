@@ -13,6 +13,7 @@ unrolling them as constants, with the same integer results.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from functools import lru_cache
 from math import comb
@@ -21,8 +22,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-# dense (|basis|+1, 2) f32 value table: 8 B * 2^26 = 537 MB
-RANK_SIZE_MAX = 1 << 26
+# dense (|basis|+1, 2) f32 value table: 8 B * 2^26 = 537 MB. Read at import
+# from NAQS_TPU_RANK_MAX, the JAX package's switch (a smaller cap sends a space
+# to the sort engine). Its NAQS_TPU_GATHER and NAQS_TPU_PALLAS_TABLE_MAX
+# choose among TPU lowerings of the gather and have no counterpart here.
+RANK_SIZE_MAX = int(os.environ.get("NAQS_TPU_RANK_MAX", 1 << 26))
 
 _MISS = -1.0e30         # log-amp stored in empty / sentinel slots
 _MISS_THRESHOLD = -1.0e29

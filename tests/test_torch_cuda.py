@@ -24,8 +24,15 @@ fp32 add order), each bitwise equal to itself run twice; the one-launch
 `sorted_local_energy` per row within `sorted_local_energy_tolerance` of its
 plain version (the row sum's, the H entries' and the f64 diagonal's add
 order), of `offdiag_h_terms` + `sorted_ratio_rowsum` composed within that
-bound without the H entries' term (the same h bits), bitwise equal to itself
-and to its global-search variant.
+bound without the H entries' term (the same h bits), and bitwise equal to
+itself.
+
+The trainer's extras on the card (N2 STO-3G): clipped steps keep the clip's
+ring on the card and move it once per applied update, never on a withheld
+one; `run_density` launches `compact_children` once per shell and never
+`split_and_compact`; a checkpoint round trip restores every tensor and the
+card's generator bitwise, and the next step draws the same batch and gives
+its energy within 2e-4 Ha (the engines' bar).
 """
 
 import dataclasses
@@ -1054,3 +1061,71 @@ def test_sorted_local_energy_rejects_bad_inputs():
                  bad(7, args[7][:-1])):
         with pytest.raises(ValueError):
             call()
+
+
+# ------------------------------------------------------------ the trainer's extras
+
+def _n2_trainer(dev, save_loc=None, **tc):
+    terms, hil = _n2()
+    cfg = nt.NAQSConfig(n_qubits=20, sectors=hil.sectors, amp_hidden=(32,), phase_hidden=(64,))
+    kw = dict(n_samples=1e5, n_unq_samples_min=100, n_unq_samples_max=4096, seed=5)
+    return nt.VMCTrainer(cfg, terms, hil, nt.TrainConfig(**dict(kw, **tc)), device=dev,
+                         save_loc=save_loc)
+
+
+def test_clipped_steps_on_the_card_keep_the_ring_on_the_card():
+    """Clipped training steps on N2 STO-3G: the ring and its count live on the
+    card, move once per applied update, and a withheld (overflowing) update
+    leaves them as they were."""
+    dev = _card()
+    tr = _n2_trainer(dev, grad_clip_factor=1.2)
+    assert tr.clip.norms.device.type == "cuda" and tr.clip.count.device.type == "cuda"
+    for i in range(4):
+        out = tr.step()
+        assert np.isfinite(out["e_loc"]) and 0 < out["clip_scale"] <= 1.0
+        assert int(tr.clip.count) == i + 1
+    assert bool((tr.clip.norms[:4] > 0).all())
+    ring = tr.clip.state_dict()
+    batch = tr._sample()
+    bad = dataclasses.replace(batch, overflow=torch.tensor(True, device=dev))
+    m = nt.trainer.vmc_update(tr.model, tr.optimizer, tr.scheduler, tr.dt, bad, clip=tr.clip)
+    assert not m["applied"]
+    assert torch.equal(tr.clip.norms, ring["norms"]) and int(tr.clip.count) == 4
+
+
+def test_run_density_on_the_card_runs_compact_children():
+    dev = _card()
+    tr = _n2_trainer(dev)
+    before = (_compact_children.launches, _split_and_compact.launches)
+    tr.run_density(1, d_p=1e-5)
+    assert _split_and_compact.launches == before[1]
+    assert (_compact_children.launches - before[0]) % tr.cfg.n_shells == 0
+    assert _compact_children.launches > before[0]
+    assert tr.n_steps == 1 and tr.sampled_counter and np.isfinite(tr.log["E_LOC"][-1][1])
+
+
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """save / load restores the model, Adam, the clip ring and the card's
+    generator bitwise; the next step draws the same batch and gives the same
+    energy within the engines' 2e-4 Ha (bitwise where every kernel of the
+    step repeats its bits)."""
+    dev = _card()
+    tr = _n2_trainer(dev, save_loc=str(tmp_path), grad_clip_factor=2.0)
+    for _ in range(6):
+        tr.step()
+    tr.save()
+    back = _n2_trainer(dev, save_loc=str(tmp_path), grad_clip_factor=2.0, seed=9).load()
+    for (k, a), (_, b) in zip(tr.model.state_dict().items(), back.model.state_dict().items()):
+        assert torch.equal(a, b), k
+    assert torch.equal(tr.clip.norms, back.clip.norms)
+    assert torch.equal(tr.gen.get_state(), back.gen.get_state())
+    assert back.sampled_counter == tr.sampled_counter and back.n_steps == tr.n_steps
+    state = tr.gen.get_state()
+    b1 = tr._sample()
+    tr.gen.set_state(state)
+    b2 = back._sample()
+    assert torch.equal(b1.states, b2.states) and torch.equal(b1.counts, b2.counts)
+    tr.gen.set_state(state)
+    back.gen.set_state(state)
+    a, b = tr.step(), back.step()
+    assert a["n_unique"] == b["n_unique"] and abs(a["e_loc"] - b["e_loc"]) <= 2e-4

@@ -119,7 +119,8 @@ def test_no_jax_or_naqs_tpu_imports_in_port_sources():
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "naqs_tpu", "flax", "optax"), (path, mod)
+            assert top not in ("jax", "jaxlib", "naqs_tpu", "flax", "optax", "msgpack"), \
+                (path, mod)
 
 
 def test_bit_helpers_match_jax():

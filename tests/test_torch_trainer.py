@@ -100,13 +100,17 @@ def _same(a, b):
             assert torch.equal(torch.as_tensor(sa[i][k]), torch.as_tensor(sb[i][k]))
 
 
-@pytest.mark.parametrize("reweight", [False, True])
-def test_vmc_update_matches_jax(reweight):
+@pytest.mark.parametrize("reweight,clip", [(False, None), (True, None), (False, 0.5)],
+                         ids=["False", "True", "clip"])
+def test_vmc_update_matches_jax(reweight, clip):
+    """With `clip`, also the clipped gradients and the clip's ring after the
+    update, against optax.chain(adaptive_trailing_clip, ...) from the same
+    ring (5 norms of 0.3x this batch's gradient norm: the clip bites)."""
     c, cfg_j, params, model = _setup()
     bj, bt = _batches(c)
     dt_j = dataclasses.replace(DeviceTermsJ.from_terms(c.terms_j, hilbert=c.h_j), dense=None)
     dt_t = _rank_terms(c)
-    _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, reweight)
+    _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, reweight, clip)
 
 
 def test_vmc_update_through_the_grid_engine_matches_jax():
@@ -179,7 +183,19 @@ def test_sampled_steps_run_on_a_filtered_space(force_xl):
         assert np.isfinite(out["e_loc"]) and np.isfinite(out["e_loc_var"])
 
 
-def _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, reweight):
+class _GrabOptimizer(torch.optim.Optimizer):
+    """An optimizer whose step keeps the gradients it is given and applies
+    nothing."""
+
+    def __init__(self, params):
+        super().__init__(params, {})
+
+    def step(self, closure=None):
+        self.grads = [p.grad.clone() for g in self.param_groups for p in g["params"]]
+
+
+def _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, reweight,
+                              clip=None):
     grab = _grab_grads()
     _, g_j, m_j = trainer_j._vmc_update_impl(cfg_j, grab, params, grab.init(params),
                                              dt_j, bj, reweight)
@@ -202,6 +218,26 @@ def _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, rewei
     assert m_t["applied"] and not m_t["overflow"] and m_t["n_unique"] == 120
     assert abs(m_t["e_loc"] - float(m_j["e_loc"])) < 5e-6
     np.testing.assert_allclose(m_t["grad_norm"], float(m_j["grad_norm"]), rtol=1e-4)
+    if clip is None:
+        return
+    ring = np.zeros(50, np.float32)
+    ring[:5] = 0.3 * float(m_j["grad_norm"])
+    chain = optax.chain(trainer_j.adaptive_trailing_clip(clip, 50), grab)
+    state = (dict(norms=jnp.asarray(ring), count=jnp.int32(5)), grab.init(params))
+    _, (ring_j, g_j), m_j = trainer_j._vmc_update_impl(cfg_j, chain, params, state, dt_j, bj,
+                                                       reweight)
+    clip_t = TrainConfig(grad_clip_factor=clip).make_clip()
+    clip_t.load_state_dict({"norms": ring, "count": 5})
+    opt_g = _GrabOptimizer(model.parameters())
+    m_t = vmc_update(model, opt_g, type("NoSchedule", (), {"step": lambda self: None})(),
+                     dt_t, bt, reweight, clip=clip_t)
+    assert m_t["applied"] and m_t["clip_scale"] < 0.2
+    np.testing.assert_allclose(m_t["grad_norm"], float(m_j["grad_norm"]), rtol=1e-4)
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, g_j))
+    for (k, _), g in zip(model.named_parameters(), opt_g.grads):
+        np.testing.assert_allclose(g.numpy(), want[k].numpy(), rtol=1e-4, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(clip_t.norms.numpy(), np.asarray(ring_j["norms"]), rtol=1e-4)
+    assert int(clip_t.count) == int(ring_j["count"]) == 6
 
 
 def test_adam_matches_optax_on_the_same_gradients():
@@ -325,10 +361,10 @@ def _check_h2_trains(rank_engine):
 
 
 def test_unported_train_options_raise():
-    for kw in (dict(use_sr=True), dict(use_kfac=True), dict(exact_eloc=True),
-               dict(grad_clip_factor=2.0)):
+    for kw in (dict(use_sr=True), dict(use_kfac=True), dict(exact_eloc=True)):
         with pytest.raises(NotImplementedError):
             TrainConfig(**kw)
+    assert TrainConfig(grad_clip_factor=2.0).make_clip() is not None  # ported
 
 
 def test_sample_controller_overflow_hysteresis():

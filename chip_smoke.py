@@ -11,8 +11,8 @@
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. build every CUDA kernel with nvcc (one nvcc per source, started
-     together): csrc/rank_gather.cu, csrc/grid_engine.cu (the factored, dense
-     and staircase accumulations), csrc/sampler_step.cu, csrc/sort_lookup.cu
+     together): csrc/rank_gather.cu, csrc/grid_engine.cu (the factored cells,
+     dense and staircase accumulations), csrc/sampler_step.cu, csrc/sort_lookup.cu
      (the sort engine's lookups and its one-launch E_loc) and csrc/offdiag_h.cu
      (the per-term H row);
   2. print the card's name and power limit (nvidia-smi);
@@ -26,10 +26,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      version, rank_ratio_rowsum with the real h per row within ROWSUM_ATOL +
      ROWSUM_RTOL * sum_k |h| |r| (fp32 summation order over 4,608 terms,
      expf/sincosf ulps);
-  5. factored_grid_accumulate on the real sampled grid against its plain
-     version at full size (the padded einsum and the R1t buffer), per cell
-     within GRID_ATOL + GRID_RTOL * sum_k sum_r |fcoeff| |T_k| (fp32 order
-     over up to 4,502 masks, fma against mul + add), and twice bitwise;
+  5. factored_cells_accumulate on the real sampled grid over the whole
+     capacity-100,000 buffer (the rows E_loc reads: the first n_unique)
+     against its plain version, per row within GRID_ATOL + GRID_RTOL * sum_k
+     sum_r |fcoeff| |T_k| (fp32 order over up to 4,502 masks, fma against mul
+     + add), every other row exactly 0, and twice bitwise; the work its bound
+     counts on this call's data (_cells_work);
  5b. the sampler's shell step on real inputs: two sample() calls at capacity
      100,000 (one at the trainer's first n_samples, which overflows, one at
      1e5, the steady state) with the inputs of every shell kept; on each of
@@ -50,8 +52,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      same call through the plain version: states and masses bitwise;
   6. the main path: 5 VMCTrainer.step()s through the default dispatch with
      every launch count set to 0 just before; fails unless
-     factored_grid_accumulate ran exactly once per E_loc call (one call per
-     vmc_update), split_and_compact ran n_shells = 13 times per sample()
+     factored_cells_accumulate ran exactly once per E_loc call (one call per
+     vmc_update) and no other grid kernel ran, split_and_compact ran n_shells = 13 times per sample()
      call and the standalone multinomial4_split and compact_children never,
      no rank kernel ran, and every energy is finite;
   7. the earlier main path: 2 more steps of the same trainer on the rank
@@ -146,13 +148,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      tree's) and its split + compaction (two launches, first held bitwise
      against split_and_compact) where DIR has csrc/sampler_step.cu. Then
      SLOW_REPEATS repeats of
-     SLOW_LAUNCHES of the factored and staircase kernels, the staircase kernel
-     also on the grid of every staircase cell and on a fully set grid of the
-     rectangle (with --before, DIR's factored kernel, first held bitwise
-     against this tree's on H2O 6-31G's grid, and DIR's staircase kernel on
-     all three grids), the grid kernels' plain versions, one full local_energy call per
-     engine at capacity 100,000 (factored against rank on H2O 6-31G, and
-     FactorTermsXL against rank on Li2O: printed, not asserted), the split's
+     SLOW_LAUNCHES of the factored cells and staircase kernels (the cells
+     kernel also in its other design, variant 0, and on the live rows ordered
+     by beta rank), the staircase kernel also on the grid of every staircase
+     cell and on a fully set grid of the rectangle (with --before, DIR's
+     whole-grid factored_grid_accumulate, first held read at the live cells
+     within grid_tolerance of this tree's rows, and DIR's
+     factored_local_energy on the same call, and DIR's staircase kernel on
+     all three grids), the grid kernels' plain versions, one
+     factored_local_energy call and one full local_energy call per engine at
+     capacity 100,000 (rank on H2O 6-31G, and FactorTermsXL against rank on
+     Li2O: printed, not asserted), the split's
      plain version, the fused
      shell step's plain version, the (U, 127)
      cumprod/cumsum split the step ran before the kernel, and one whole
@@ -207,7 +213,7 @@ rank, Li2O staircase) must show one device kernel per wrapper call of the
 sampler's kernels and of the engine's own; it prints the step's device time
 and the card's busy share of the step before it.
 Prints a {"kernels": [...]} JSON line (launches from phase 6 for
-factored_grid_accumulate, split_and_compact, multinomial4_split and
+factored_cells_accumulate, split_and_compact, multinomial4_split and
 compact_children (0: the standalone kernels left sample()'s path; their
 launches in phase 5b's sample_density call as "launches_sample_density"), 7
 for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
@@ -221,8 +227,10 @@ staircase kernel's bound_ms counts what the function needs on the
 sampled grid (the grid cells the valid pairs read, the maps, the program and
 the output; the set pairs' operations) and dense_bound_ms the earlier design's
 count over every valid pair, beside its times on the staircase and the fully
-set grid; with --before, "before_ms" and "before_spread" of the earlier tree's
-kernel), and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
+set grid; the cells kernel's bound counts what this call's data needs (the
+valid and found pairs of the live rows, _cells_work), beside its ablations'
+times and one factored_local_energy call's; with --before, "before_ms" and
+"before_spread" of the earlier tree's kernel), and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.
 """
 
@@ -298,44 +306,75 @@ def _oracle_rows(terms, states, la, ph, rows):
 
 
 def _grid_work(prog):
-    """What a grid program's accumulation must do: (bytes, operations, valid
-    (mask, cell) pairs, multiply-adds of the on-the-fly H, h_dense's share of
-    the bytes). Bytes: every map and table and the grid read once, the output
-    written once; of h_dense, the dense program's bulk, only the 32-byte
+    """What the dense program's accumulation must do: (bytes, operations, valid
+    (mask, cell) pairs, h_dense's share of the bytes). Bytes: every map and
+    the grid read once, the output written once; of h_dense only the 32-byte
     sectors that hold a valid (mask, cell) pair of a mask that is not padding
     (no other value of it enters the sum). h_dense's share is a dict: those
     sectors' bytes, the bytes of its rows with a valid beta image, and the
-    whole tensor's. Operations: per valid pair 2 fused multiply-adds into the
-    sum, plus for the factored program one per rank-1 factor of the mask."""
+    whole tensor's. Operations: per valid pair 2 fused multiply-adds."""
     import torch
 
-    idx = prog.pa_idx if hasattr(prog, "pa_idx") else prog.r1_idx
-    sa, sb = prog.sa, prog.sb
+    idx, sa, sb = prog.r1_idx, prog.sa, prog.sb
     beta_ok = prog.row_map % (sb + 1) < sb
     nb_valid = beta_ok.sum(dim=1)
     na_valid = (idx < sa).sum(dim=1)[(prog.row_map[:, 0] // (sb + 1)).long()]
     pairs = nb_valid * na_valid
-    # e_diag is the readout's, and par_a the plain version's: the kernel
-    # computes that sign from alpha_words and ya_words
-    tensors = [t for name, t in vars(prog).items()
-               if torch.is_tensor(t) and name not in ("e_diag", "par_a", "h_dense")]
-    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    n_bytes = sum(t.numel() * t.element_size() for t in (prog.r1_idx, prog.row_map))
     n_bytes += (sa + 1) * (sb + 1) * 8 + sa * sb * 8
-    h_bytes = {}
-    if hasattr(prog, "n_fact"):
-        live = prog.n_fact > 0
-        macs = int((pairs * prog.n_fact).sum())
-    else:
-        live = prog.h_dense.flatten(1).abs().amax(dim=1) > 0    # not a pad mask
-        macs = 0
-        rows = beta_ok & live[:, None]
-        need = rows[..., None] & (idx < sa)[(prog.row_map // (sb + 1)).long()]
-        need = torch.nn.functional.pad(need.flatten(), (0, -need.numel() % 8))
-        h_bytes = {"sectors": int(need.view(-1, 8).any(dim=1).sum()) * 32,
-                   "rows": int(rows.sum()) * sa * 4, "whole": prog.h_dense.numel() * 4}
-        n_bytes += h_bytes["sectors"]
+    live = prog.h_dense.flatten(1).abs().amax(dim=1) > 0    # not a pad mask
+    rows = beta_ok & live[:, None]
+    need = rows[..., None] & (idx < sa)[(prog.row_map // (sb + 1)).long()]
+    need = torch.nn.functional.pad(need.flatten(), (0, -need.numel() % 8))
+    h_bytes = {"sectors": int(need.view(-1, 8).any(dim=1).sum()) * 32,
+               "rows": int(rows.sum()) * sa * 4, "whole": prog.h_dense.numel() * 4}
+    n_bytes += h_bytes["sectors"]
     n_pairs = int(pairs[live].sum())
-    return n_bytes, 2 * macs + 4 * n_pairs, n_pairs, macs, h_bytes
+    return n_bytes, 4 * n_pairs, n_pairs, h_bytes
+
+
+def _cells_work(fn, grid, idx, n_rows, chunk=256):
+    """What the factored cells function must do on this call's data: a dict of
+    counts and (bytes, operations). A pair (mask, live cell) is valid where
+    both images lie in the sector, found where its grid cell is set. Bytes,
+    each read once: the image rows of the distinct ra and rb of the live
+    cells (Ka and Kb int32 each) and their words, every mask's (ga, gb), the
+    packed factor slots (ya, yb, coefficient: 12 B) of the masks of found
+    pairs, the distinct grid cells the valid pairs read, idx, n_rows and the
+    output. Operations: 4 per valid pair (the two image looks, the test, the
+    T test), and 2 n_fact + 4 per found pair (a sign and an add a factor, the
+    two fused multiply-adds and the lane's share of the sum)."""
+    import torch
+
+    from naqs_tpu_torch.ops.grid_kernels import _live_cells
+
+    sa, sb = fn.sa, fn.sb
+    rows, ra, rb = _live_cells(idx, n_rows, sa, sb)
+    ia_all, ib_all = fn.pa_idx[:, ra].long(), fn.pb_idx[:, rb].long()   # (Ka, V), (Kb, V)
+    occ = (grid != 0).any(-1)
+    touched = torch.zeros_like(occ)
+    n_masks = int((fn.n_fact > 0).sum())
+    valid = found = fact = 0
+    found_masks = torch.zeros(fn.ga.shape[0], dtype=torch.bool, device=grid.device)
+    for c in range(0, n_masks, chunk):
+        k = torch.arange(c, min(c + chunk, n_masks), device=grid.device)
+        ia, ib = ia_all[fn.ga[k].long()], ib_all[fn.gb[k].long()]          # (KC, V)
+        ok = (ia < sa) & (ib < sb)
+        touched[ia[ok], ib[ok]] = True
+        hit = ok & occ[ia, ib]
+        valid += int(ok.sum())
+        per = hit.sum(1)
+        found += int(per.sum())
+        fact += int((per * fn.n_fact[k]).sum())
+        found_masks[k] |= per > 0
+    n_ra, n_rb = int(torch.unique(ra).numel()), int(torch.unique(rb).numel())
+    n_bytes = (n_ra * (fn.pa_idx.shape[0] * 4 + 4) + n_rb * (fn.pb_idx.shape[0] * 4 + 4)
+               + n_masks * 8 + int(fn.n_fact[found_masks].sum()) * 12
+               + int(touched.sum()) * 8 + idx.numel() * 8 + 8 + idx.numel() * 8)
+    n_ops = 4 * valid + 2 * fact + 4 * found
+    return dict(live=int(rows.numel()), distinct_ra=n_ra, distinct_rb=n_rb, masks=n_masks,
+                valid_pairs=valid, found_pairs=found, factors=fact,
+                grid_cells=int(touched.sum()), bytes=n_bytes, ops=n_ops)
 
 
 def _xl_work(fn):
@@ -431,32 +470,43 @@ def _xl_sampled_work(fn, grid, n_touched):
                 bytes=n_bytes, ops=n_ops)
 
 
-def _check_grid_kernel(name, wrapper, ref, prog, grid):
-    """Hold a grid kernel against its plain version on `grid`; returns its
-    max abs error. Raises SystemExit on disagreement or a run-to-run change."""
+def _check_grid_kernel(name, wrapper, ref, prog, grid, *rows):
+    """Hold a grid kernel against its plain version on `grid` (and, for the
+    factored cells kernel, the rows (idx, n_rows)); returns its max abs
+    error. Raises SystemExit on disagreement or a run-to-run change."""
     import torch
 
     from naqs_tpu_torch.ops.grid_kernels import GRID_ATOL, GRID_RTOL, grid_tolerance
 
     torch.cuda.reset_peak_memory_stats()
-    got = wrapper(prog, grid)
+    got = wrapper(prog, grid, *rows)
     torch.cuda.synchronize()
     peak_kernel = torch.cuda.max_memory_allocated()
-    again = wrapper(prog, grid)
+    again = wrapper(prog, grid, *rows)
     t = time.time()
-    want = ref(prog, grid)
+    want = ref(prog, grid, *rows)
     torch.cuda.synchronize()
     t_plain = time.time() - t
     peak_plain = torch.cuda.max_memory_allocated()
-    tol = grid_tolerance(prog, grid)
+    tol = grid_tolerance(prog, grid, *rows)
     diff = (got - want).abs()
     err, worst = float(diff.max()), float((diff / tol).max())
     ok = bool((diff <= tol).all()) and bool(torch.isfinite(got).all())
     same = torch.equal(got, again)
-    shape = (f"Kxy_pad={prog.row_map.shape[0]}, Sb={prog.sb}, Sa={prog.sa}"
-             if hasattr(prog, "row_map") else
-             f"Kxy={prog.ga.shape[0]}, {prog.n_cells} staircase cells of Sa*={prog.sa} x "
-             f"Sb*={prog.sb}, {prog.tiles.shape[0]} blocks")
+    if hasattr(prog, "h_dense"):
+        shape = f"Kxy_pad={prog.row_map.shape[0]}, Sb={prog.sb}, Sa={prog.sa}"
+    elif rows:
+        idx, n_rows = rows
+        live = (torch.arange(idx.shape[0], device=grid.device) < n_rows) & \
+            (idx < prog.sa * prog.sb)
+        zeros = bool((got[~live] == 0).all())
+        ok = ok and zeros
+        shape = (f"Kxy_pad={prog.ga.shape[0]}, Sb={prog.sb}, Sa={prog.sa}; {idx.shape[0]} "
+                 f"rows, {int(live.sum())} of them live cells, every other row exactly "
+                 f"0={zeros}")
+    else:
+        shape = (f"Kxy={prog.ga.shape[0]}, {prog.n_cells} staircase cells of Sa*={prog.sa} x "
+                 f"Sb*={prog.sb}, {prog.tiles.shape[0]} blocks")
     print(f"[kernel] {name} ({shape}; "
           f"{int((grid[..., 0] ** 2 + grid[..., 1] ** 2 > 0).sum())} cells of the grid set): "
           f"max_abs_err={err:.3e} (sums up to {float(want.abs().max()):.3e}), worst cell at "
@@ -758,8 +808,8 @@ def _before_modules(before):
     beside this tree's, each library built from that tree's own source into
     that tree's build/ and bound while its package is loaded: {"rank_gather2":
     its ops/dyn_gather} where its rank_gather2 takes the two-channel tables of
-    the first slice, {"grid": its ops/grid_kernels} where it has
-    csrc/grid_engine.cu, {"sampler": its sampler, "multinomial": its
+    the first slice, {"grid", "dense_engine": its ops/grid_kernels and
+    ops/dense_engine} where it has csrc/grid_engine.cu, {"sampler": its sampler, "multinomial": its
     ops/multinomial} where it has csrc/sampler_step.cu, {"sort_lookup",
     "offdiag_h", "local_energy": its ops/...} where it has csrc/sort_lookup.cu."""
     import importlib
@@ -782,6 +832,7 @@ def _before_modules(before):
         if has("grid_engine.cu"):
             mods["grid"] = importlib.import_module("naqs_tpu_torch.ops.grid_kernels")
             mods["grid"]._lib()
+            mods["dense_engine"] = importlib.import_module("naqs_tpu_torch.ops.dense_engine")
         if has("sampler_step.cu"):
             mods["sampler"] = importlib.import_module("naqs_tpu_torch.sampler")
             mods["multinomial"] = importlib.import_module("naqs_tpu_torch.ops.multinomial")
@@ -846,7 +897,7 @@ def _trainer_extras(dev, mol, hil, terms, cfg, tr2, zero_counts, wrappers):
                             grad_clip_factor=CLIP_FACTOR, seed=12)
         tr = nt.VMCTrainer(cfg, terms, hil, tc, device=dev, save_loc=os.path.join(work, "ck"))
         lap("trainer with its DeviceTerms", t)
-        eloc = kern[{"FactorTerms": "factored_grid_accumulate",
+        eloc = kern[{"FactorTerms": "factored_cells_accumulate",
                      "DenseTerms": "dense_grid_accumulate"}[type(tr.dt.dense).__name__]]
         t = time.time()
         hf = torch.tensor([hil.hf_state()], device=dev)
@@ -1121,10 +1172,12 @@ def main(argv) -> int:
                                                rank_gather2_ref, rank_ratio_rowsum,
                                                rank_ratio_rowsum_ref, ratio_rowsum,
                                                rowsum_tolerance)
-    from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate,
+    from naqs_tpu_torch.ops.dense_engine import factored_local_energy
+    from naqs_tpu_torch.ops.grid_kernels import (_cells_launch, _live_cells,
+                                                 dense_grid_accumulate,
                                                  dense_grid_accumulate_ref,
-                                                 factored_grid_accumulate,
-                                                 factored_grid_accumulate_ref, grid_tolerance,
+                                                 factored_cells_accumulate,
+                                                 factored_cells_accumulate_ref, grid_tolerance,
                                                  xl_grid_accumulate, xl_grid_accumulate_ref)
     from naqs_tpu_torch.ops.multinomial import multinomial4_split, multinomial4_split_ref
     import scipy.sparse as sp
@@ -1150,7 +1203,7 @@ def main(argv) -> int:
 
     dev = torch.device("cuda")
     t0 = time.time()
-    wrappers = (rank_gather2, rank_ratio_rowsum, factored_grid_accumulate,
+    wrappers = (rank_gather2, rank_ratio_rowsum, factored_cells_accumulate,
                 dense_grid_accumulate, multinomial4_split, _compact_children, _split_and_compact,
                 xl_grid_accumulate, sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms,
                 sorted_local_energy)
@@ -1192,13 +1245,11 @@ def main(argv) -> int:
           f"{sum(p.numel() for p in tr.model.parameters())} params; "
           f"{time.time() - t1:.1f}s, of which the trainer with its DeviceTerms "
           f"{time.time() - t2:.1f}s", flush=True)
-    f_bytes, f_ops, f_pairs, f_macs, _ = _grid_work(fn)
-    print(f"[setup] FactorTerms: Sa={fn.sa} Sb={fn.sb} Kxy_pad={fn.row_map.shape[0]} "
-          f"Ka={fn.pa_idx.shape[0]} Kya={fn.par_a.shape[0]} Kyb={fn.par_b.shape[0]}, "
-          f"factors per mask max {int(fn.n_fact.max())} mean "
-          f"{float(fn.n_fact.sum()) / len(terms.xy_unique):.2f}; {f_pairs} valid (mask, cell) "
-          f"pairs of {len(terms.xy_unique) * fn.sa * fn.sb}, {f_macs} multiply-adds for H",
-          flush=True)
+    print(f"[setup] FactorTerms: Sa={fn.sa} Sb={fn.sb} Kxy_pad={fn.ga.shape[0]} "
+          f"Ka={fn.pa_idx.shape[0]} Kb={fn.pb_idx.shape[0]} Kya={fn.par_a.shape[0]} "
+          f"Kyb={fn.par_b.shape[0]}, factors per mask max {int(fn.n_fact.max())} mean "
+          f"{float(fn.n_fact.sum()) / len(terms.xy_unique):.2f} ({fn.slots.shape[0]} packed "
+          f"slots)", flush=True)
 
     # 4. both rank kernels against their plain versions on the real table
     batch = tr._sample()
@@ -1237,12 +1288,15 @@ def main(argv) -> int:
     if not ok:
         raise SystemExit("rank_ratio_rowsum disagrees with rank_ratio_rowsum_ref")
 
-    # 5. the factored kernel against its plain version on the real sampled grid
-    grid, _, _ = value_grid(spec, batch.states, la, ph, batch.n_unique, fn.sa, fn.sb)
+    # 5. the factored cells kernel against its plain version on the real sampled
+    # grid, over the whole buffer (the rows E_loc reads: the first n_unique)
+    grid, _, g_idx = value_grid(spec, batch.states, la, ph, batch.n_unique, fn.sa, fn.sb)
     if bool(grid[fn.sa].any()) or bool(grid[:, fn.sb].any()):
         raise SystemExit("the value grid's pad row or column is not zero")
-    factored_err = _check_grid_kernel("factored_grid_accumulate", factored_grid_accumulate,
-                                      factored_grid_accumulate_ref, fn, grid)
+    g_n = batch.n_unique
+    factored_err = _check_grid_kernel("factored_cells_accumulate", factored_cells_accumulate,
+                                      factored_cells_accumulate_ref, fn, grid, g_idx, g_n)
+    f_work = _cells_work(fn, grid, g_idx, g_n)
 
     # 5b. the sampler's shell step on the inputs of real sample() calls
     cap = tr.capacity
@@ -1441,10 +1495,10 @@ def main(argv) -> int:
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     n_updates, t_fact, n_draws = _steps(tr, 5, "factored")
-    fact_launches = factored_grid_accumulate.launches
+    fact_launches = factored_cells_accumulate.launches
     split_launches, compact_launches = multinomial4_split.launches, _compact_children.launches
     fused_launches = _split_and_compact.launches
-    print(f"[path] default dispatch ({type(tr.dt.dense).__name__}): factored_grid_accumulate "
+    print(f"[path] default dispatch ({type(tr.dt.dense).__name__}): factored_cells_accumulate "
           f"launches in 5 steps: {fact_launches} (expected one per local_energy call, "
           f"{n_updates} vmc_update calls); rank_ratio_rowsum {rank_ratio_rowsum.launches}, "
           f"rank_gather2 {rank_gather2.launches}, dense_grid_accumulate "
@@ -1455,7 +1509,7 @@ def main(argv) -> int:
     if (fact_launches != n_updates or n_updates < 5 or rank_ratio_rowsum.launches
             or rank_gather2.launches or dense_grid_accumulate.launches
             or xl_grid_accumulate.launches or any(w.launches for w in sort_wrappers)):
-        raise SystemExit("the main path did not run factored_grid_accumulate once per "
+        raise SystemExit("the main path did not run factored_cells_accumulate once per "
                          "E_loc call, or ran another engine's kernel")
     if not (fused_launches == n_shells * n_draws and n_draws >= 5
             and split_launches == compact_launches == 0):
@@ -1470,13 +1524,13 @@ def main(argv) -> int:
     ratio_launches = rank_ratio_rowsum.launches
     print(f"[path] rank engine (dense=None): rank_ratio_rowsum launches in 2 steps: "
           f"{ratio_launches} ({per_call} per local_energy call, {n_updates} vmc_update calls); "
-          f"rank_gather2: {rank_gather2.launches}; factored_grid_accumulate: "
-          f"{factored_grid_accumulate.launches}; split_and_compact "
+          f"rank_gather2: {rank_gather2.launches}; factored_cells_accumulate: "
+          f"{factored_cells_accumulate.launches}; split_and_compact "
           f"{_split_and_compact.launches} ({n_draws} sample() calls), multinomial4_split "
           f"{multinomial4_split.launches}, compact_children {_compact_children.launches}",
           flush=True)
     if ratio_launches != per_call * n_updates or n_updates < 2 or \
-            factored_grid_accumulate.launches or xl_grid_accumulate.launches or \
+            factored_cells_accumulate.launches or xl_grid_accumulate.launches or \
             any(w.launches for w in sort_wrappers):
         raise SystemExit("the rank path did not run rank_ratio_rowsum once per chunk")
     if not (_split_and_compact.launches == n_shells * n_draws
@@ -1539,7 +1593,7 @@ def main(argv) -> int:
     dn = tr2.dt.dense
     if type(dn).__name__ != "DenseTerms":
         raise SystemExit(f"N2 STO-3G must carry DenseTerms, got {type(dn).__name__}")
-    d_bytes, d_ops, d_pairs, _, d_h = _grid_work(dn)
+    d_bytes, d_ops, d_pairs, d_h = _grid_work(dn)
     print(f"[setup] N2 STO-3G: {mol2.n_qubits} qubits, |basis|={hil2.size}, "
           f"K={len(terms2.coeff)} Kxy={len(terms2.xy_unique)} (pad {dn.row_map.shape[0]}), "
           f"DenseTerms Sa={dn.sa} Sb={dn.sb} Ka={dn.r1_idx.shape[0]}, h_dense "
@@ -1572,14 +1626,22 @@ def main(argv) -> int:
 
     old_dense = "dense_grid_accumulate (earlier tree)"
     old_fact = "factored_grid_accumulate (earlier tree)"
+    old_fle = "factored_local_energy (H2O 6-31G, earlier tree)"
     fns["dense_grid_accumulate"] = lambda: dense_grid_accumulate(dn, grid2)
-    if "grid" in old_mods:
+    if "grid" in old_mods and hasattr(old_mods["grid"], "factored_grid_accumulate"):
+        # the earlier tree's whole-grid numerator, read at the live rows' cells,
+        # against this tree's rows (another order of summation: not bitwise)
         fact_old = old_mods["grid"].factored_grid_accumulate
-        same_fact = torch.equal(fact_old(fn, grid), factored_grid_accumulate(fn, grid))
-        print(f"[kernel] {old_fact} on H2O 6-31G's sampled grid: bitwise equal to this "
-              f"tree's={same_fact}", flush=True)
-        if not same_fact:
-            raise SystemExit(f"{old_fact} and this tree's factored_grid_accumulate differ")
+        l_rows, l_ra, l_rb = _live_cells(g_idx, g_n, fn.sa, fn.sb)
+        f_new = factored_cells_accumulate(fn, grid, g_idx, g_n)
+        f_diff = (fact_old(fn, grid)[l_rb, l_ra] - f_new[l_rows]).abs()
+        f_ok = bool((f_diff <= grid_tolerance(fn, grid, g_idx, g_n)[l_rows]).all())
+        print(f"[kernel] {old_fact} on H2O 6-31G's sampled grid, read at the {l_rows.numel()} "
+              f"live cells: within grid_tolerance of this tree's factored_cells_accumulate="
+              f"{f_ok} (max_abs_err={float(f_diff.max()):.3e})", flush=True)
+        if not f_ok:
+            raise SystemExit(f"{old_fact} and this tree's factored_cells_accumulate differ")
+        del f_new, f_diff
         dense_old = old_mods["grid"].dense_grid_accumulate
         d_diff = (dense_old(dn, grid2) - dense_grid_accumulate_ref(dn, grid2)).abs()
         d_ok = bool((d_diff <= grid_tolerance(dn, grid2)).all())
@@ -2019,12 +2081,22 @@ def main(argv) -> int:
 
     times = time_in_turns(fns, REPEATS, LAUNCHES)
     calls = time_in_turns({n: fns[n] for n in fast}, REPEATS, LAUNCHES, hold=False)
+    # the cells kernel's ablations: its other design (a found pair's factor loop in
+    # the lane that found it), and the live rows ordered by beta rank
+    l_rows, _, l_rb = _live_cells(g_idx, g_n, fn.sa, fn.sb)
+    by_beta = g_idx.clone()
+    by_beta[l_rows] = g_idx[l_rows][torch.argsort(l_rb, stable=True)]
+    fle_name = "factored_local_energy (H2O 6-31G)"
     slow_fns = {
-        "factored_grid_accumulate": lambda: factored_grid_accumulate(fn, grid),
-        "factored_grid_accumulate_ref": lambda: factored_grid_accumulate_ref(fn, grid),
+        "factored_cells_accumulate": lambda: factored_cells_accumulate(fn, grid, g_idx, g_n),
+        "factored_cells_accumulate (variant 0: factor loop in the finding lane)":
+            lambda: _cells_launch(fn, grid, g_idx, g_n, 0),
+        "factored_cells_accumulate (rows by beta rank)":
+            lambda: factored_cells_accumulate(fn, grid, by_beta, g_n),
+        "factored_cells_accumulate_ref": lambda: factored_cells_accumulate_ref(fn, grid, g_idx,
+                                                                               g_n),
         "dense_grid_accumulate_ref": lambda: dense_grid_accumulate_ref(dn, grid2),
-        "local_energy (FactorTerms)": lambda: le.local_energy(
-            dt, batch.states, la, ph, batch.n_unique),
+        fle_name: lambda: factored_local_energy(fn, spec, batch.states, la, ph, batch.n_unique),
         "local_energy (rank engine)": lambda: le.local_energy(
             dt_rank, batch.states, la, ph, batch.n_unique),
         "xl_grid_accumulate": lambda: xl_grid_accumulate(xl, grid3),
@@ -2041,8 +2113,10 @@ def main(argv) -> int:
                                                                s_mask),
         "sample() at capacity 100,000": lambda: sampler_mod.sample(tr.model, tr.gen, 1e5, cap),
     }
-    if "grid" in old_mods:
+    if "grid" in old_mods and hasattr(old_mods["grid"], "factored_grid_accumulate"):
         slow_fns[old_fact] = lambda: fact_old(fn, grid)
+        slow_fns[old_fle] = lambda: old_mods["dense_engine"].factored_local_energy(
+            fn, spec, batch.states, la, ph, batch.n_unique)
     if "grid" in old_mods and hasattr(old_mods["grid"], "xl_grid_accumulate"):
         slow_fns[old_xl] = lambda: xl_old(xl, grid3)
         slow_fns[f"{old_xl} (full grid)"] = lambda: xl_old(xl, full3)
@@ -2170,7 +2244,7 @@ def main(argv) -> int:
     r_bytes = head + h.numel() * 4 + 2 * chunk * 4 + 2 * chunk * 4
     r_ops = n_el * RANK_OPS + n_found * EPILOGUE_OPS
     r_bound = _bound(r_bytes, r_ops)
-    f_bound, d_bound = _bound(f_bytes, f_ops), _bound(d_bytes, d_ops)
+    f_bound, d_bound = _bound(f_work["bytes"], f_work["ops"]), _bound(d_bytes, d_ops)
     x_dense = _bound(x_bytes, x_ops)
     x_bound = _bound(x_work["bytes"], x_work["ops"])
     print(f"[bound] rank_gather2 {g_bound[0]:.5f} ms ({g_bound[1]}: {g_bytes} B = s, xy, "
@@ -2180,12 +2254,15 @@ def main(argv) -> int:
           f"{n_rows} touched rows x 8 B, h {h.numel() * 4} B, my_la, my_ph, outputs "
           f"{2 * chunk * 4} B; {r_ops} ops of which {3 * n_found} transcendentals on the "
           f"{n_found} found elements, {3 * n_el} if every element counted)", flush=True)
-    print(f"[bound] factored_grid_accumulate {f_bound[0]:.5f} ms ({f_bound[1]}: {f_ops} "
-          f"float32 operations = 2 x {f_macs} multiply-adds for H + 4 x {f_pairs} valid "
-          f"pairs, {f_ops / H100_FP32_OPS_PER_S * 1e3:.5f} ms; {f_bytes} B = every table, the "
-          f"grid and the output once, {f_bytes / H100_BYTES_PER_S * 1e3:.5f} ms; one 8 B read "
-          f"of T per valid pair from device memory would be "
-          f"{f_pairs * 8 / H100_BYTES_PER_S * 1e3:.3f} ms)", flush=True)
+    fw = f_work
+    print(f"[bound] factored_cells_accumulate {f_bound[0]:.5f} ms ({f_bound[1]} set it: "
+          f"{fw['ops']} operations = 4 x {fw['valid_pairs']} valid (mask, live cell) pairs + "
+          f"2 x {fw['factors']} factors + 4 x {fw['found_pairs']} found pairs, "
+          f"{fw['ops'] / H100_FP32_OPS_PER_S * 1e3:.5f} ms; {fw['bytes']} B = the image rows "
+          f"of the {fw['distinct_ra']} distinct ra and {fw['distinct_rb']} distinct rb of the "
+          f"{fw['live']} live cells, (ga, gb) of {fw['masks']} masks, the factor slots of the "
+          f"masks of found pairs, the {fw['grid_cells']} grid cells the valid pairs read, idx "
+          f"and the output, {fw['bytes'] / H100_BYTES_PER_S * 1e3:.5f} ms)", flush=True)
     print(f"[bound] xl_grid_accumulate {x_bound[0]:.5f} ms on the sampled grid ({x_bound[1]}: "
           f"{x_work['bytes']} B = the {x_touched} grid cells the valid pairs read x 8 B, every "
           f"map, word table and the program once and the {xl.n_cells} packed cells written, "
@@ -2302,7 +2379,7 @@ def main(argv) -> int:
         kernel_of = {"split_and_compact_kernel": _split_and_compact,
                      "compact_children_kernel": _compact_children,
                      "multinomial4_split_kernel": multinomial4_split,
-                     "factored_grid_accumulate_kernel": factored_grid_accumulate,
+                     "factored_cells_kernel": factored_cells_accumulate,
                      "rank_ratio_rowsum_kernel": rank_ratio_rowsum,
                      "xl_grid_accumulate_kernel": xl_grid_accumulate,
                      "sorted_ratio_rowsum_kernel": sorted_ratio_rowsum,
@@ -2342,7 +2419,8 @@ def main(argv) -> int:
                   f"before it (not profiled) took {wall:.3f} s of wall time: the card busy "
                   f"{total / 1e6 / wall:.0%} of it", flush=True)
             for e in events:
-                if any(k in e.key for k in ("rank_", "grid_accumulate", "multinomial4_split",
+                if any(k in e.key for k in ("rank_", "grid_accumulate", "factored_cells",
+                                            "multinomial4_split",
                                             "compact_children", "split_and_compact", "cumsum",
                                             "cumprod", "sorted_", "offdiag_h")) \
                         and e.self_device_time_total > 0:
@@ -2386,10 +2464,17 @@ def main(argv) -> int:
               unfused_ms=times[unfused][0], unfused_spread=times[unfused][1],
               **({"before_composition_ms": times[f"{old_name} + eager epilogue"][0]}
                  if old_name in times else {})),
-        entry("factored_grid_accumulate", fact_launches, factored_err,
-              "factored_grid_accumulate_ref", f_bound, None,
-              replaces="naqs_tpu/ops/dense_engine.py:507", library_note=no_call,
-              **before(old_fact), **GRID_SRC),
+        entry("factored_cells_accumulate", fact_launches, factored_err,
+              "factored_cells_accumulate_ref", f_bound, None,
+              replaces="naqs_tpu/ops/dense_engine.py:496-540", library_note=no_call,
+              **before(old_fact), **{k: f_work[k] for k in ("live", "valid_pairs",
+                                                            "found_pairs", "factors")},
+              variant0_ms=times[
+                  "factored_cells_accumulate (variant 0: factor loop in the finding lane)"][0],
+              rows_by_beta_rank_ms=times["factored_cells_accumulate (rows by beta rank)"][0],
+              local_energy_ms=times[fle_name][0],
+              **({"local_energy_before_ms": times[old_fle][0]} if old_fle in times else {}),
+              **GRID_SRC),
         entry("dense_grid_accumulate", dense_launches, dense_err, "dense_grid_accumulate_ref",
               d_bound, None, replaces="naqs_tpu/ops/dense_engine.py:279",
               library_note=no_call, **before(old_dense), **GRID_SRC),

@@ -1,42 +1,77 @@
 // The grid E_loc engines' accumulation for sm_90a: three kernels in one source.
 //
-// They replace the term-chunk scans of naqs_tpu/ops/dense_engine.py
-// (factored_local_energy :507-522 with the alpha gather and transpose of
-// :496-497, dense_local_energy :279-289 with :270-271) and the two stages per
-// alpha-flip group of factored_xl_local_energy (:877-928). Those have no
-// Pallas counterpart: the JAX package left them to XLA. For every cell
-// (rb, ra) of the (Sb, Sa) sector grid
+// They replace, in naqs_tpu/ops/dense_engine.py, the term-chunk scan of
+// factored_local_energy (:496-522) read at the cells its readout reads
+// (:526-540), the scan of dense_local_energy (:279-289 with :270-271) and the
+// two stages per alpha-flip group of factored_xl_local_energy (:877-928).
+// Those have no Pallas counterpart: the JAX package left them to XLA. With
+// grid the (Sa+1, Sb+1, 2) f32 table of psi / max|psi| (a zero pad row and
+// column: an invalid alpha image reads row Sa, an invalid beta image column
+// Sb, so both read psi = 0) and a mask's images of a cell (ra, rb),
+// ia = pa_idx[ga_k, ra] and ib = pb_idx[gb_k, rb],
 //
-//   out[rb, ra, :] = sum_k H_k(rb, ra) * T_k(rb, ra, :)
-//   T_k(rb, ra, :) = grid[pa_idx[ka, ra], pb, :],  row_map[k, rb] = ka*(Sb+1) + pb
-//
-// where grid is the (Sa+1, Sb+1, 2) f32 table of psi / max|psi| with a zero
-// pad row and column (an invalid alpha image reads row Sa, an invalid beta
-// image column Sb, so both read psi = 0), and
-//
-//   factored_grid_accumulate: H_k = sum_{r < n_fact[k]} fcoeff[k, r]
-//                                   * par_b[fb_idx[k, r], rb] * par_a[fa_idx[k, r], ra]
-//   dense_grid_accumulate:    H_k = h_dense[k, rb, ra]
+//   factored_cells_accumulate: for buffer row i below n_rows whose rank index
+//     is a cell (ra, rb) of the sector,
+//       out[i, :] = sum_k H_k(ra, rb) * grid[ia, ib, :],
+//       H_k = sum_{r < n_fact[k]} fcoeff[k, r] * par_a[fa_idx[k, r], ra]
+//                                              * par_b[fb_idx[k, r], rb],
+//     and (0, 0) for every other row;
+//   dense_grid_accumulate: for every cell of the grid,
+//       out[rb, ra, :] = sum_k h_dense[k, rb, ra] * grid[ia, ib, :].
 //
 // Neither H as a (Kxy, Sb, Sa) tensor (29.9 GB for H2O 6-31G), nor the
 // alpha-permuted copy R1t (Ka, Sb+1, Sa, 2) that the JAX code materialises
-// (6.15 GB there), nor the (KC, Sb, Sa, 2) chunk gather reaches device
-// memory: T is read straight from the grid, which is 13.3 MB for H2O 6-31G
-// and stays in the 50 MB L2. The kernels take the grid transposed,
-// (Sb+1, Sa+1, 2): a block works on one rb, so all its reads for one mask
-// fall into one row of Sa+1 cells, each cell of which is read at most once.
+// (6.15 GB there), nor a (KC, Sb, Sa, 2) chunk gather reaches device memory:
+// T is read straight from the grid, which is 13.3 MB for H2O 6-31G and stays
+// in the 50 MB L2.
 //
-// What bounds them: the factored kernel, operations (for H2O 6-31G 14.1 G
-// multiply-adds on the valid (mask, cell) pairs against tables that fit L2);
-// the dense kernel, bytes (h_dense is read once from device memory).
+// factored_cells_accumulate. The JAX scan computes the numerator on all
+// 1,287 x 1,287 cells of H2O 6-31G's grid: 2.17 G valid (mask, cell) pairs
+// and 14.1 G factor multiply-adds. E_loc reads it at the live buffer rows
+// only (about 26,000 cells, 1.6% of the grid), and there T is zero wherever
+// the image was not sampled (about 90% of the valid pairs). So the kernel's
+// work follows the cells E_loc reads, and within them the sampled images:
+// * One warp owns one live row at a time, rows w, w + W, ... on a persistent
+//   grid; rows at or past n_rows (a 0-d device tensor, never read back) and
+//   rows with no cell are written (0, 0) on the way.
+// * The warp stages the cell's alpha-image row and beta-image row (the image
+//   maps transposed, FactorTerms.pa_t / pb_t, rows of whole 16-byte pieces)
+//   with two 1-D bulk copies (cp.async.bulk) into one of its two stages,
+//   complete_tx on the stage's mbarrier: the next row's images land while
+//   this row is summed. The block stages every mask's (ga, gb) once (36 KB for
+//   H2O 6-31G) where it fits beside the stages, else reads them through the
+//   read-only cache.
+// * Lane j walks masks j, j + 32, ..., kCellsBatch at a time (their grid
+//   loads in flight together): both images from the stage, and one 8-byte
+//   grid load only where both lie in the sector. A pair whose T is (0, 0)
+//   adds nothing and runs no factor loop.
+// * The found pairs join the warp's ring in mask order; every 32 of them (and
+//   the rest at the row's end) are summed one a lane: H_k from the mask's
+//   packed slots (FactorTerms.slots: alpha sign word, beta sign word,
+//   coefficient), each sign (-1)^popc((aw & ya) ^ (bw & yb)) from the cell's
+//   two words, with no par_a or par_b load; then two fused multiply-adds.
+//   Found pair p of a row goes to lane p % 32, each lane adds its pairs in
+//   mask order and the lanes' sums are added in a fixed xor tree: the same
+//   bits in every run, no atomics.
+// What bounds it: bytes, 17 MB on H2O 6-31G's sampled batch (the image rows
+// of the live cells' distinct ra and rb, the masks, the slots of the masks
+// of found pairs, the 1.56 M grid cells the valid pairs read), 0.005 ms,
+// against 0.3 G operations (4 a valid pair, 2 a factor and 4 a found pair of
+// 51 M valid and 5.2 M found pairs), 0.0046 ms; the kernel takes some 0.95 ms
+// (PERF.md). How that splits between the look-ups with their grid loads from
+// L2 and the found pairs' factor loops is not measured (no ncu there).
+// Timed against variants on the card (PERF.md): running a found pair's
+// factor loop in the lane that found it (kVariant 0, kept for that
+// comparison: the lanes of a warp wait on the longest loop of any round)
+// took twice as long; the live rows ordered by beta rank, so that the warps
+// of a block stage the same beta-image row, gained 1%.
 //
 // xl_grid_accumulate does the factored kernel's sum on the staircase of an
 // n_exc_max-filtered sector (ops/dense_engine.py::FactorTermsXL): alpha and
 // beta combinations in (excitations, colex) order, the cells (ra, rb) with
 // rb < width[ra] written packed at cells_off[ra] + rb, the grid that of the
 // restricted rectangle, read as it is (no transposed copy). It has code of
-// its own (below the dense kernel); the factored kernel keeps
-// accumulate_program to itself. On Li2O STO-3G CISDTQ the grid is (5,056,
+// its own (below the dense kernel). On Li2O STO-3G CISDTQ the grid is (5,056,
 // 5,056, 2) f32 = 204.5 MB, which L2 cannot hold, and a sampled batch sets
 // about 13,600 of its 25.6 M cells: of the 639.4 M valid (mask, cell) pairs
 // only 1.2 M (0.19%) read a set cell; every other pair adds exactly zero.
@@ -93,39 +128,18 @@
 // set pairs of a sampled grid (PERF.md has the times, on a grid of every
 // staircase cell too).
 //
-// Design, the factored and dense kernels:
+// Design of the dense kernel:
 // * A block works on one rb and a tile of ra, neighbouring threads on
-//   neighbouring ra: pa_idx rows and h_dense rows are read coalesced, and
-//   row_map[k, rb], the factor list of mask k and par_b[., rb] are the same
-//   for the whole block.
+//   neighbouring ra: r1_idx rows and h_dense rows are read coalesced, and
+//   row_map[k, rb] is the same for the whole block. The kernel takes the grid
+//   transposed, (Sb+1, Sa+1, 2): all a block's reads for one mask fall into
+//   one row of Sa+1 cells.
 // * What is zero is skipped: a mask with an invalid beta image (the whole
-//   block skips it), padded masks and padded factor slots (the factor list
-//   ends at n_fact[k]) and, in the factored kernel, a mask for which no lane
-//   of a warp has a valid alpha image; there a lane with an invalid alpha
-//   image in a warp that goes on reads the grid's zero pad cell. The dense
-//   kernel skips per lane. No result depends on what was skipped.
-// * Each thread sums its cells' masks in index order and each mask's factors
-//   in slot order, in fp32 registers; the dense kernel then adds its mask
-//   ranges' partial sums in range order. No atomic touches a sum, so every
-//   run gives the same bits.
-//
-// factored_grid_accumulate (chosen by timing variants on the card, PERF.md:
-// the factor loop took most of a first design's time, and its cost was the
-// count of load and shuffle instructions per factor, not bytes or latency):
-// * The sign par_a[fa, ra] = (-1)^popc(alpha_words[ra] & ya_words[fa]) is
-//   computed from the cell's alpha word, which sits in a register, and the
-//   factor's sign mask: no load of par_a. A factor costs an and, a popc, a
-//   shift, an xor into the coefficient's sign bit and an add.
-// * The block writes a tile of 32 masks as a program into shared memory:
-//   warp 0 looks the masks up (lane j: the beta image of rb under mask
-//   k0 + j by one division, its factor count; a ballot and a prefix sum lay
-//   the valid masks out), then the warps expand the factor lists, one mask
-//   each, into (sign mask, fcoeff * par_b[fb, rb]) pairs. Every thread then
-//   walks the program; one 16-byte shared-memory load brings two factors to
-//   a whole warp. An odd list is padded with a (0, +0.0) pair.
-// * A thread owns kCells cells, ra apart by the block's width: the program,
-//   its loads and the mask walk are shared by kCells times more cells, and
-//   the cells' loads of pa_idx and T are independent and in flight together.
+//   block skips it), and per lane an invalid alpha image. No result depends
+//   on what was skipped.
+// * Each thread sums its cell's masks in index order in fp32 registers, then
+//   the mask ranges' partial sums are added in range order. No atomic
+//   touches a sum, so every run gives the same bits.
 //
 // dense_grid_accumulate (one block per rb walking all masks would give N2
 // STO-3G 120 blocks, each waiting on one chain of loads per mask):
@@ -160,168 +174,20 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // Threads per block: a row of sa cells is cut into the fewest tiles of at most
-// max_threads threads with `cells` cells each, every tile a whole number of
-// warps (1,287 cells: 6 tiles of 224 threads, or 2 of 224 with 3 cells each).
-int block_threads(int sa, int cells, int max_threads = kMaxThreads) {
-  const int tiles = (sa + max_threads * cells - 1) / (max_threads * cells);
-  const int per = (sa + tiles * cells - 1) / (tiles * cells);
+// max_threads threads, every tile a whole number of warps (N2 STO-3G's 120
+// cells: one tile of 128 threads).
+int block_threads(int sa, int max_threads) {
+  const int tiles = (sa + max_threads - 1) / max_threads;
+  const int per = (sa + tiles - 1) / tiles;
   return ((per + 31) / 32) * 32;
 }
-
-constexpr int kCells = 3;   // cells a thread of the factored and XL kernels owns
-constexpr int kTile = 32;   // masks per shared-memory program: one per lane of warp 0
 
 // coefficient with its sign flipped where the word has odd parity
 __device__ __forceinline__ float signed_by_parity(int coeff_bits, int word) {
   return __int_as_float(coeff_bits ^ (__popc(word) << 31));
-}
-
-// The factor program shared by the factored and the XL kernels. A block
-// fixes one index p of one spin (the program's spin); each thread owns kCells
-// indices q[j] of the other spin (the cells' spin), in[j] false past the
-// block's cells. For every mask in index order with a valid image of p, the
-// block writes the mask's factors into shared memory as (sign mask, fcoeff *
-// par_p[fp, p]) pairs, 32 masks at a time, and every thread adds
-// H * T for its cells, H = sum of the pairs with the coefficient's sign
-// flipped by the parity of q_words & sign mask, T = grid_p[image of p,
-// q_img[g, q]] (grid_p (S_p + 1, sq + 1) float2, its pad column sq zero).
-//   lookup(kk, &g, &img): mask kk's row g of q_img and the image of p; false
-//     when that image is outside its spin's range (the mask adds nothing);
-//   factor(f): the pair of flat factor slot f = k * n_slots + r.
-template <class Lookup, class Factor>
-__device__ __forceinline__ void accumulate_program(
-    const Lookup& lookup, const Factor& factor, const int32_t* __restrict__ n_fact,
-    int n_masks, int n_slots, const int32_t* __restrict__ q_img, int sq,
-    const float2* __restrict__ grid_p, const int (&q)[kCells], const bool (&in)[kCells],
-    const int (&qw)[kCells], float (&acc_re)[kCells], float (&acc_im)[kCells]) {
-  // the tile's program: (sign mask, coefficient bits) pairs, an even number per mask
-  extern __shared__ int4 program_pairs[];
-  int2* prog = reinterpret_cast<int2*>(program_pairs);
-  // the tile's valid masks: row of q_img, image of p, mask, start in prog
-  __shared__ int t_g[kTile], t_img[kTile], t_k[kTile], t_off[kTile + 1];
-  __shared__ int s_valid;
-
-  const int n_warps = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int k0 = 0; k0 < n_masks; k0 += kTile) {
-    __syncthreads();  // the previous tile's program is consumed
-    if (warp == 0) {
-      const int kk = k0 + lane;
-      int g = 0, img = 0, nf = 0;
-      bool ok = false;
-      if (kk < n_masks) {
-        ok = lookup(kk, &g, &img);
-        nf = __ldg(n_fact + kk);
-      }
-      const bool valid = ok && nf > 0;
-      const unsigned todo = __ballot_sync(kFull, valid);
-      const int room = valid ? (nf + 1) & ~1 : 0;  // pairs, rounded up to 16 bytes
-      int end = room;                              // inclusive prefix sum over the lanes
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(kFull, end, d);
-        if (lane >= d) end += v;
-      }
-      const int m = __popc(todo & ((1u << lane) - 1u));
-      if (valid) {
-        t_g[m] = g;
-        t_img[m] = img;
-        t_k[m] = kk;
-        t_off[m] = end - room;
-      }
-      if (lane == 31) {
-        t_off[__popc(todo)] = end;
-        s_valid = __popc(todo);
-      }
-    }
-    __syncthreads();
-    const int n_valid = s_valid;
-    for (int m = warp; m < n_valid; m += n_warps) {
-      const int k = t_k[m];
-      const int off = t_off[m];
-      const int nf = __ldg(n_fact + k);
-      const int room = t_off[m + 1] - off;
-      for (int r = lane; r < room; r += 32)   // the pad pair of an odd list adds +0
-        prog[off + r] = r < nf ? factor(static_cast<size_t>(k) * n_slots + r) : make_int2(0, 0);
-    }
-    __syncthreads();
-    for (int m = 0; m < n_valid; ++m) {
-      int qi[kCells];
-      bool any = false;
-#pragma unroll
-      for (int j = 0; j < kCells; ++j) {
-        qi[j] = in[j] ? __ldg(q_img + static_cast<size_t>(t_g[m]) * sq + q[j]) : sq;
-        any = any || qi[j] < sq;
-      }
-      if (!__any_sync(kFull, any)) continue;
-      float2 t[kCells];
-      float h[kCells];
-#pragma unroll
-      for (int j = 0; j < kCells; ++j) {
-        t[j] = __ldg(grid_p + static_cast<size_t>(t_img[m]) * (sq + 1) + qi[j]);
-        h[j] = 0.f;
-      }
-      const int4* p = reinterpret_cast<const int4*>(prog + t_off[m]);
-      const int4* p_end = reinterpret_cast<const int4*>(prog + t_off[m + 1]);
-      for (; p < p_end; ++p) {
-        const int4 two = *p;  // the same address in every lane: one broadcast
-#pragma unroll
-        for (int j = 0; j < kCells; ++j) {
-          h[j] += signed_by_parity(two.y, qw[j] & two.x);
-          h[j] += signed_by_parity(two.w, qw[j] & two.z);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kCells; ++j) {
-        acc_re[j] = fmaf(h[j], t[j].x, acc_re[j]);
-        acc_im[j] = fmaf(h[j], t[j].y, acc_im[j]);
-      }
-    }
-  }
-}
-
-// the factored kernel: the program's spin is beta (p = rb, one per blockIdx.x),
-// the cells' spin alpha (tiles of ra along blockIdx.y), over the whole grid
-__global__ void __launch_bounds__(kMaxThreads) factored_grid_accumulate_kernel(
-    const int32_t* __restrict__ pa_idx, const int32_t* __restrict__ row_map,
-    const int32_t* __restrict__ alpha_words, const int32_t* __restrict__ ya_words,
-    const float* __restrict__ par_b, const int32_t* __restrict__ fa_idx,
-    const int32_t* __restrict__ fb_idx, const float* __restrict__ fcoeff,
-    const int32_t* __restrict__ n_fact, const float2* __restrict__ grid_t,
-    float2* __restrict__ out, int n_masks, int n_slots, int sa, int sb) {
-  const int rb = blockIdx.x;
-  int ra[kCells], aw[kCells];
-  bool in[kCells];
-  float acc_re[kCells], acc_im[kCells];
-#pragma unroll
-  for (int j = 0; j < kCells; ++j) {
-    ra[j] = (blockIdx.y * kCells + j) * blockDim.x + threadIdx.x;
-    in[j] = ra[j] < sa;
-    aw[j] = __ldg(alpha_words + (in[j] ? ra[j] : sa - 1));
-    acc_re[j] = acc_im[j] = 0.f;
-  }
-  // lane j's look at mask kk: (ka, pb) of row_map[kk, rb]; pb = sb is the pad column
-  const auto lookup = [&](int kk, int* ka, int* pb) {
-    const int rm = __ldg(row_map + static_cast<size_t>(kk) * sb + rb);
-    *ka = rm / (sb + 1);
-    *pb = rm - *ka * (sb + 1);
-    return *pb < sb;
-  };
-  const auto factor = [&](size_t f) {
-    const int ya = __ldg(ya_words + __ldg(fa_idx + f));
-    const float cb = __ldg(fcoeff + f) * __ldg(par_b + static_cast<size_t>(__ldg(fb_idx + f)) * sb + rb);
-    return make_int2(ya, __float_as_int(cb));
-  };
-  accumulate_program(lookup, factor, n_fact, n_masks, n_slots, pa_idx, sa, grid_t, ra, in, aw,
-                     acc_re, acc_im);
-#pragma unroll
-  for (int j = 0; j < kCells; ++j)
-    if (in[j]) out[static_cast<size_t>(rb) * sa + ra[j]] = make_float2(acc_re[j], acc_im[j]);
 }
 
 constexpr int kDenseThreads = 128;  // at most 4 warps a dense block: a 65 KB ring
@@ -955,38 +821,273 @@ __global__ void __launch_bounds__(kXlThreads) xl_grid_accumulate_kernel(const Xl
   }
 }
 
-dim3 cell_blocks(int sa, int sb, int cells_per_block) {
-  return dim3(static_cast<unsigned>(sb),
-              static_cast<unsigned>((sa + cells_per_block - 1) / cells_per_block));
+// ----------------------------------------------------------- factored cells
+
+constexpr int kCellsWarps = 8;     // warps a block at most: one row of the buffer each at a time
+constexpr int kCellsStages = 2;    // image-row stages a warp: the next row lands while one is summed
+constexpr int kCellsBatch = 8;     // masks a lane looks up at once: their grid loads in flight
+constexpr int kCellsQueue = 64;    // a warp's ring of found pairs: < 32 pending + 32 new
+constexpr int kCellsFactors = 4;   // factor loads in flight for one found pair
+
+struct CellsArgs {
+  const int32_t *pa_t, *pb_t;      // (sa, ka4), (sb, kb4): the alpha (beta) images of ra (rb)
+  const int32_t *ga, *gb;          // (n_masks,) each mask's column of pa_t and of pb_t
+  const int32_t *alpha_words, *beta_words;
+  const int32_t* slot_off;         // (n_masks + 1,) mask k's factors: slots[slot_off[k] ..]
+  const int4* slots;               // (alpha sign word, beta sign word, coefficient bits, 0)
+  const float2* grid;              // (sa + 1, sb + 1), zero pad row and column
+  const int64_t* idx;              // (n_buf,) rank indices; sa * sb and up hold no cell
+  const int64_t* n_rows;           // 0-d: only rows below it are summed
+  float2* out;                     // (n_buf,)
+  int n_masks, n_buf, sa, sb, ka4, kb4;
+};
+
+// H_k at the cell with words (aw, bw): mask k's packed factors in slot order,
+// the sign of each the parity of both words against its sign words
+__device__ __forceinline__ float cells_h(const CellsArgs& x, int k, int aw, int bw) {
+  const int s0 = __ldg(x.slot_off + k), s1 = __ldg(x.slot_off + k + 1);
+  float h = 0.f;
+  for (int r0 = s0; r0 < s1; r0 += kCellsFactors) {
+    int4 f[kCellsFactors];
+#pragma unroll
+    for (int r = 0; r < kCellsFactors; ++r)
+      f[r] = r0 + r < s1 ? __ldg(x.slots + r0 + r) : make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int r = 0; r < kCellsFactors; ++r)   // a pad factor adds +0
+      h += signed_by_parity(f[r].z, (aw & f[r].x) ^ (bw & f[r].y));
+  }
+  return h;
+}
+
+// One warp per buffer row that holds a cell, rows i = w, w + W, ... for warp w
+// of the W the launch holds. The warp stages the cell's alpha-image and
+// beta-image rows by two bulk copies into one of its two stages (the next
+// row's land while this one is summed); lane j walks masks j, j + 32, ...
+// in kCellsBatch look-ups at a time, reads (ga, gb) (from shared memory where
+// the block staged them) and both images from the stage, and loads T from the
+// grid only where both images lie in the sector. A pair whose T is (0, 0)
+// adds nothing. For the others H_k is built from the packed factors:
+//   kVariant 0: by the lane that found the pair, at once;
+//   kVariant 1: the found pairs join the warp's ring in mask order and every
+//     32 of them (and the rest at the row's end) are summed one a lane, so
+//     found pair p of the row goes to lane p % 32.
+// Each lane adds its pairs in mask order, the lanes' sums are then added in a
+// fixed xor tree: every run gives the same bits. Rows past n_rows, and rows
+// whose index is no cell, get (0, 0).
+template <int kVariant, bool kMasksShared>
+__global__ void __launch_bounds__(kCellsWarps * 32) factored_cells_kernel(const CellsArgs x) {
+  extern __shared__ int4 cells_smem[];
+  __shared__ uint64_t full[kCellsWarps * kCellsStages];
+  __shared__ int4 ring[kVariant == 1 ? kCellsWarps * kCellsQueue : 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int row_ints = x.ka4 + x.kb4;
+  int2* masks = reinterpret_cast<int2*>(cells_smem);
+  // 16-byte aligned: the masks take a whole number of int4s
+  int* stage_rows = reinterpret_cast<int*>(cells_smem) +
+                    (kMasksShared ? 2 * ((x.n_masks + 1) & ~1) : 0) +
+                    warp * kCellsStages * row_ints;
+  uint64_t* bars = full + warp * kCellsStages;
+  if (kMasksShared)
+    for (int k = threadIdx.x; k < x.n_masks; k += blockDim.x)
+      masks[k] = make_int2(__ldg(x.ga + k), __ldg(x.gb + k));
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n_warps * kCellsStages; ++i) bar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const auto mask = [&](int k) {
+    return kMasksShared ? masks[k] : make_int2(__ldg(x.ga + k), __ldg(x.gb + k));
+  };
+  const int64_t n_req = *x.n_rows;
+  const int n_live = static_cast<int>(n_req < 0 ? 0 : (n_req > x.n_buf ? x.n_buf : n_req));
+  const int64_t n_cells = static_cast<int64_t>(x.sa) * x.sb;
+  const int stride = gridDim.x * n_warps;
+  // this warp's first row at or after i that holds a cell (n_buf if none) and
+  // that cell; every row it passes gets (0, 0)
+  const auto next = [&](int i, int64_t* c) {
+    for (; i < x.n_buf; i += stride) {
+      if (i < n_live) {
+        *c = __ldg(x.idx + i);
+        if (*c >= 0 && *c < n_cells) return i;
+      }
+      if (lane == 0) x.out[i] = make_float2(0.f, 0.f);
+    }
+    return x.n_buf;
+  };
+  // the images of cell c into stage st, counted on its barrier
+  const auto stage = [&](int64_t c, int st) {
+    if (lane == 0) {
+      const int ra = static_cast<int>(c / x.sb);
+      const int rb = static_cast<int>(c - static_cast<int64_t>(ra) * x.sb);
+      int* dst = stage_rows + st * row_ints;
+      // the stage's earlier reads were generic, the copy writes through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      bar_arrive_tx(bars + st, static_cast<unsigned>(row_ints) * 4u);
+      bulk_copy(dst, x.pa_t + static_cast<size_t>(ra) * x.ka4, x.ka4 * 4u, bars + st);
+      bulk_copy(dst + x.ka4, x.pb_t + static_cast<size_t>(rb) * x.kb4, x.kb4 * 4u, bars + st);
+    }
+  };
+
+  int64_t c = 0;
+  int i = next(blockIdx.x * n_warps + warp, &c);
+  if (i < x.n_buf) stage(c, 0);
+  for (int it = 0; i < x.n_buf; ++it) {
+    int64_t c_next = 0;
+    const int i_next = next(i + stride, &c_next);
+    const int st = it & 1;
+    if (i_next < x.n_buf) stage(c_next, st ^ 1);
+    bar_wait(bars + st, (it >> 1) & 1);
+    const int* pa_row = stage_rows + st * row_ints;
+    const int* pb_row = pa_row + x.ka4;
+    const int ra = static_cast<int>(c / x.sb);
+    const int rb = static_cast<int>(c - static_cast<int64_t>(ra) * x.sb);
+    const int aw = __ldg(x.alpha_words + ra), bw = __ldg(x.beta_words + rb);
+    float re = 0.f, im = 0.f;
+    int4* q = ring + (kVariant == 1 ? warp * kCellsQueue : 0);
+    int head = 0, count = 0;   // the ring's pending pairs, the same in every lane
+    // sums the next min(count, 32) pending pairs, one a lane
+    const auto flush = [&]() {
+      if (lane < count) {
+        const int4 e = q[(head + lane) & (kCellsQueue - 1)];
+        const float h = cells_h(x, e.x, aw, bw);
+        re = fmaf(h, __int_as_float(e.y), re);
+        im = fmaf(h, __int_as_float(e.z), im);
+      }
+      const int took = count < 32 ? count : 32;
+      head += took;
+      count -= took;
+      __syncwarp();
+    };
+    for (int k0 = 0; k0 < x.n_masks; k0 += 32 * kCellsBatch) {
+      float2 t[kCellsBatch];
+#pragma unroll
+      for (int b = 0; b < kCellsBatch; ++b) {
+        const int k = k0 + 32 * b + lane;
+        t[b] = make_float2(0.f, 0.f);
+        if (k < x.n_masks) {
+          const int2 g = mask(k);
+          const int ia = pa_row[g.x], ib = pb_row[g.y];
+          if (ia < x.sa && ib < x.sb)
+            t[b] = __ldg(x.grid + static_cast<size_t>(ia) * (x.sb + 1) + ib);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kCellsBatch; ++b) {
+        const int k = k0 + 32 * b + lane;
+        const bool found = t[b].x != 0.f || t[b].y != 0.f;
+        if (kVariant == 0) {
+          if (found) {
+            const float h = cells_h(x, k, aw, bw);
+            re = fmaf(h, t[b].x, re);
+            im = fmaf(h, t[b].y, im);
+          }
+        } else {
+          const unsigned who = __ballot_sync(kFull, found);
+          if (found)
+            q[(head + count + __popc(who & ((1u << lane) - 1u))) & (kCellsQueue - 1)] =
+                make_int4(k, __float_as_int(t[b].x), __float_as_int(t[b].y), 0);
+          count += __popc(who);
+          __syncwarp();
+          if (count >= 32) flush();
+        }
+      }
+    }
+    if (kVariant == 1 && count > 0) flush();
+#pragma unroll
+    for (int d = 16; d; d >>= 1) {
+      re += __shfl_xor_sync(kFull, re, d);
+      im += __shfl_xor_sync(kFull, im, d);
+    }
+    if (lane == 0) x.out[i] = make_float2(re, im);
+    __syncwarp();   // the stage is read before a later row is staged into it
+    i = i_next;
+    c = c_next;
+  }
+}
+
+template <int kVariant, bool kMasksShared>
+int launch_cells(const CellsArgs& x, int warps, int smem, cudaStream_t stream) {
+  const auto kernel = factored_cells_kernel<kVariant, kMasksShared>;
+  cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // a persistent grid: as many blocks as the card holds at once, no more warps than rows
+  int device = 0, per_sm = 0, sms = 0;
+  if (rc == cudaSuccess) rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int need = (x.n_buf + warps - 1) / warps;
+  const int blocks = per_sm * sms < need ? per_sm * sms : need;
+  kernel<<<blocks, warps * 32, smem, stream>>>(x);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int factored_grid_accumulate(const void* pa_idx, const void* row_map,
-                                        const void* alpha_words, const void* ya_words,
-                                        const void* par_b, const void* fa_idx,
-                                        const void* fb_idx, const void* fcoeff,
-                                        const void* n_fact, const void* grid_t, void* out,
-                                        int n_masks, int n_slots, int sa, int sb,
-                                        void* stream) {
-  const int threads = block_threads(sa, kCells);
-  const size_t smem = sizeof(int2) * kTile * static_cast<size_t>(n_slots + 1);
-  factored_grid_accumulate_kernel<<<cell_blocks(sa, sb, threads * kCells), threads, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(pa_idx), static_cast<const int32_t*>(row_map),
-      static_cast<const int32_t*>(alpha_words), static_cast<const int32_t*>(ya_words),
-      static_cast<const float*>(par_b), static_cast<const int32_t*>(fa_idx),
-      static_cast<const int32_t*>(fb_idx), static_cast<const float*>(fcoeff),
-      static_cast<const int32_t*>(n_fact), static_cast<const float2*>(grid_t),
-      static_cast<float2*>(out), n_masks, n_slots, sa, sb);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int factored_cells_accumulate(const void* pa_t, const void* pb_t, const void* ga,
+                                         const void* gb, const void* alpha_words,
+                                         const void* beta_words, const void* slot_off,
+                                         const void* slots, const void* grid, const void* idx,
+                                         const void* n_rows, void* out, int n_masks, int n_buf,
+                                         int sa, int sb, int ka4, int kb4, int variant,
+                                         void* stream) {
+  // an image row is whole 16-byte pieces, for the bulk copies
+  if (ka4 <= 0 || kb4 <= 0 || ka4 % 4 || kb4 % 4 || n_masks < 0 || n_buf < 0 ||
+      (variant != 0 && variant != 1) || static_cast<int64_t>(sa + 1) * (sb + 1) >= INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_buf == 0) return 0;
+  CellsArgs x;
+  x.pa_t = static_cast<const int32_t*>(pa_t);
+  x.pb_t = static_cast<const int32_t*>(pb_t);
+  x.ga = static_cast<const int32_t*>(ga);
+  x.gb = static_cast<const int32_t*>(gb);
+  x.alpha_words = static_cast<const int32_t*>(alpha_words);
+  x.beta_words = static_cast<const int32_t*>(beta_words);
+  x.slot_off = static_cast<const int32_t*>(slot_off);
+  x.slots = static_cast<const int4*>(slots);
+  x.grid = static_cast<const float2*>(grid);
+  x.idx = static_cast<const int64_t*>(idx);
+  x.n_rows = static_cast<const int64_t*>(n_rows);
+  x.out = static_cast<float2*>(out);
+  x.n_masks = n_masks;
+  x.n_buf = n_buf;
+  x.sa = sa;
+  x.sb = sb;
+  x.ka4 = ka4;
+  x.kb4 = kb4;
+  int device = 0, optin = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  // the masks' (ga, gb) go to shared memory where they fit beside every warp's
+  // stages; else they are read through the read-only cache, and a block has
+  // as many warps as their stages leave room for
+  const int64_t room = optin - static_cast<int64_t>(sizeof(uint64_t)) * kCellsWarps * kCellsStages -
+                       static_cast<int64_t>(sizeof(int4)) * kCellsWarps * kCellsQueue;
+  const int64_t warp_bytes = int64_t{4} * (ka4 + kb4) * kCellsStages;
+  const int64_t mask_bytes = int64_t{8} * ((n_masks + 1) & ~1);
+  const bool masks_shared = mask_bytes + kCellsWarps * warp_bytes <= room;
+  const int64_t fit = room / warp_bytes;
+  const int warps = masks_shared ? kCellsWarps : static_cast<int>(fit < kCellsWarps ? fit : kCellsWarps);
+  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>((masks_shared ? mask_bytes : 0) + warps * warp_bytes);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (variant == 0)
+    return masks_shared ? launch_cells<0, true>(x, warps, smem, st)
+                        : launch_cells<0, false>(x, warps, smem, st);
+  return masks_shared ? launch_cells<1, true>(x, warps, smem, st)
+                      : launch_cells<1, false>(x, warps, smem, st);
 }
 
 extern "C" int dense_grid_accumulate(const void* r1_idx, const void* row_map,
                                      const void* h_dense, const void* grid_t, void* out,
                                      void* partial, void* arrivals, int n_masks, int n_ranges,
                                      int sa, int sb, void* stream) {
-  const int threads = block_threads(sa, 1, kDenseThreads);
+  const int threads = block_threads(sa, kDenseThreads);
   const int tiles = (sa + threads - 1) / threads;
   const int ring = static_cast<int>(sizeof(DenseStage)) * 2 * (threads / 32);
   cudaError_t rc = cudaFuncSetAttribute(dense_grid_accumulate_kernel,

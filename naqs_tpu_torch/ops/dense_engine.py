@@ -24,7 +24,9 @@ depend on the sample count.
   static (Kxy, Sb, Sa) f32 tensor: small single-sector spaces (STO-3G).
 * `FactorTerms` stores nothing of size Kxy x grid: H_k is rebuilt from its
   rank-1 parity factors sum_r coeff_r par_a[ya_r] (x) par_b[yb_r]: mid-size
-  single-sector spaces (H2O 6-31G).
+  single-sector spaces (H2O 6-31G). Its numerator is computed only at the
+  cells the readout reads (the live rows, or the queries), not over the
+  whole grid: the JAX package's scan read at those cells.
 * `FactorTermsXL` is the factored program on the staircase of an
   n_exc_max-filtered sector (Li2O STO-3G CISDTQ: 644,365 cells of a 41.4 M
   sector grid): alpha and beta combinations ordered by (excitations, colex),
@@ -50,7 +52,7 @@ from naqs_tpu_torch.ops.grid_kernels import CHUNK_TERMS as _CHUNK_TERMS
 from naqs_tpu_torch.ops.grid_kernels import FACT_CHUNK_PAIRS as _FACT_CHUNK_PAIRS
 from naqs_tpu_torch.ops.grid_kernels import XL_CHUNK_INT4 as _XL_CHUNK_INT4
 from naqs_tpu_torch.ops.grid_kernels import XL_TILE_CELLS as _XL_TILE_CELLS
-from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, factored_grid_accumulate,
+from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, factored_cells_accumulate,
                                              xl_grid_accumulate)
 from naqs_tpu_torch.ops.rank import rank_index
 from naqs_tpu_torch.utils.bits import np_parity_pm1, parity_pm1
@@ -122,7 +124,9 @@ def _sector(hilbert) -> Tuple[int, int, int]:
 def _flip_maps(terms, hilbert):
     """What both grid programs share: the spin combinations in rank order,
     the (Ka, Sa) alpha image map and the (Kxy, Sb) combined row map
-    row_map[k, rb] = ka * (Sb+1) + beta image of rb (Sb = none)."""
+    row_map[k, rb] = ka * (Sb+1) + beta image of rb (Sb = none); and the
+    row map's parts, each mask's rows (ga, gb) of the alpha map and of the
+    (Kb, Sb) beta image map pb_idx."""
     s, na, nb = _sector(hilbert)
     alpha_packed, beta_packed = _colex_ranks(s, na), _colex_ranks(s, nb)
     sa, sb = len(alpha_packed), len(beta_packed)
@@ -132,7 +136,7 @@ def _flip_maps(terms, hilbert):
     pa_idx = np.stack([_perm_map(alpha_packed, int(f), invalid=sa) for f in ua])
     pb_idx = np.stack([_perm_map(beta_packed, int(f), invalid=sb) for f in ub])
     row_map = (ga[:, None] * (sb + 1) + pb_idx[gb]).astype(np.int32)
-    return s, alpha_packed, beta_packed, pa_idx, row_map
+    return s, alpha_packed, beta_packed, pa_idx, row_map, (ga, gb, pb_idx)
 
 
 def _grid_diagonal(terms, alpha_packed, beta_packed, s) -> np.ndarray:
@@ -195,7 +199,7 @@ class DenseTerms:
         if not DenseTerms.supported(terms, hilbert):
             raise ValueError("DenseTerms does not support this space")
         dev = resolve_device(device)
-        s, alpha_packed, beta_packed, r1_idx, row_map = _flip_maps(terms, hilbert)
+        s, alpha_packed, beta_packed, r1_idx, row_map, _ = _flip_maps(terms, hilbert)
         sa, sb = len(alpha_packed), len(beta_packed)
         state_grid = (_expand_qubits(alpha_packed, 0, s)[None, :]
                       | _expand_qubits(beta_packed, 1, s)[:, None])   # (Sb, Sa)
@@ -215,7 +219,14 @@ class DenseTerms:
 class FactorTerms:
     """Factored grid program for mid-size single-sector spaces: the maps of
     DenseTerms, and per flip mask its flat terms as rank-1 factors
-    H_k = sum_r fcoeff[k, r] * par_a[fa_idx[k, r]] (x) par_b[fb_idx[k, r]]."""
+    H_k = sum_r fcoeff[k, r] * par_a[fa_idx[k, r]] (x) par_b[fb_idx[k, r]].
+
+    Beside the JAX package's fields it keeps what the cells kernel
+    (`grid_kernels.factored_cells_accumulate`) reads: the row map's parts
+    (ga, gb, pb_idx), both image maps transposed so that one cell's alpha
+    images and beta images are each one row, the beta words, and the factor
+    lists packed as (alpha sign word, beta sign word, coefficient bits, 0) per
+    filled slot, mask k's at slots[slot_off[k]:slot_off[k + 1]]."""
 
     pa_idx: torch.Tensor    # (Ka, Sa) int32 into grid rows [0, Sa]
     row_map: torch.Tensor   # (Kxy_pad, Sb) int32: ka * (Sb+1) + rb'
@@ -226,10 +237,20 @@ class FactorTerms:
     fcoeff: torch.Tensor    # (Kxy_pad, R) f32 flat-term coefficients (0 pad)
     e_diag: torch.Tensor    # (Sa*Sb + 1,) f64
     # beside the JAX package's fields, for the kernel:
-    n_fact: torch.Tensor    # (Kxy_pad,) int32 filled slots per mask (the factor loop's end)
+    n_fact: torch.Tensor    # (Kxy_pad,) int32 filled slots per mask
     alpha_words: torch.Tensor  # (Sa,) int32 shell bits of alpha combination ra
     ya_words: torch.Tensor  # (Kya,) int32 alpha sign masks: par_a[j, ra] =
     #                         (-1)^popcount(alpha_words[ra] & ya_words[j])
+    beta_words: torch.Tensor   # (Sb,) int32 shell bits of beta combination rb
+    yb_words: torch.Tensor  # (Kyb,) int32 beta sign masks, as ya_words
+    ga: torch.Tensor        # (Kxy_pad,) int32 row of pa_idx of each mask (0 pad)
+    gb: torch.Tensor        # (Kxy_pad,) int32 row of pb_idx (0 pad)
+    pb_idx: torch.Tensor    # (Kb, Sb) int32 into grid columns [0, Sb]
+    pa_t: torch.Tensor      # (Sa, Ka4) int32 pa_idx transposed, rows padded with Sa
+    #                         to whole 16-byte pieces (Ka4 = Ka rounded up to 4)
+    pb_t: torch.Tensor      # (Sb, Kb4) int32 pb_idx transposed, padded with Sb
+    slot_off: torch.Tensor  # (Kxy_pad + 1,) int32 each mask's first packed slot
+    slots: torch.Tensor     # (n_fact.sum(), 4) int32 packed factors, mask by mask
     sa: int
     sb: int
 
@@ -248,10 +269,25 @@ class FactorTerms:
         if not FactorTerms.supported(terms, hilbert):
             raise ValueError("FactorTerms does not support this space")
         dev = resolve_device(device)
-        s, alpha_packed, beta_packed, pa_idx, row_map = _flip_maps(terms, hilbert)
+        s, alpha_packed, beta_packed, pa_idx, row_map, (ga, gb, pb_idx) = _flip_maps(terms,
+                                                                                     hilbert)
         fa_idx, fb_idx, fcoeff, n_fact, uya, uyb = _flat_factors(terms, s)
         par_a = np_parity_pm1(alpha_packed[None, :] & uya[:, None]).astype(np.float32)
         par_b = np_parity_pm1(beta_packed[None, :] & uyb[:, None]).astype(np.float32)
+        sa, sb = len(alpha_packed), len(beta_packed)
+        ya_words, yb_words = uya.astype(np.int32), uyb.astype(np.int32)
+        filled = np.arange(_FACT_R)[None, :] < n_fact[:, None]      # mask-major, slot order
+        slots = np.zeros((int(n_fact.sum()), 4), np.int32)
+        slots[:, 0] = ya_words[fa_idx[filled]]
+        slots[:, 1] = yb_words[fb_idx[filled]]
+        slots[:, 2] = np.ascontiguousarray(fcoeff[filled]).view(np.int32)
+        n_fact = _pad_rows(n_fact.astype(np.int32), _FACT_CHUNK_PAIRS)
+        slot_off = np.concatenate([[0], np.cumsum(n_fact)]).astype(np.int32)
+
+        def transposed(idx, invalid):
+            t = np.full((idx.shape[1], -(-idx.shape[0] // 4) * 4), invalid, np.int32)
+            t[:, :idx.shape[0]] = idx.T
+            return t
 
         put = lambda a: torch.as_tensor(a, device=dev)
         pad = lambda a: put(_pad_rows(a, _FACT_CHUNK_PAIRS))
@@ -259,8 +295,11 @@ class FactorTerms:
             pa_idx=put(pa_idx), row_map=pad(row_map), par_a=put(par_a), par_b=put(par_b),
             fa_idx=pad(fa_idx), fb_idx=pad(fb_idx), fcoeff=pad(fcoeff),
             e_diag=put(_grid_diagonal(terms, alpha_packed, beta_packed, s)),
-            n_fact=pad(n_fact.astype(np.int32)), alpha_words=put(alpha_packed.astype(np.int32)),
-            ya_words=put(uya.astype(np.int32)), sa=len(alpha_packed), sb=len(beta_packed))
+            n_fact=put(n_fact), alpha_words=put(alpha_packed.astype(np.int32)),
+            ya_words=put(ya_words), beta_words=put(beta_packed.astype(np.int32)),
+            yb_words=put(yb_words), ga=pad(ga.astype(np.int32)), gb=pad(gb.astype(np.int32)),
+            pb_idx=put(pb_idx), pa_t=put(transposed(pa_idx, sa)), pb_t=put(transposed(pb_idx, sb)),
+            slot_off=put(slot_off), slots=put(slots), sa=sa, sb=sb)
 
 
 def _blocked(s: int, n_occ: int, e_max: int):
@@ -549,13 +588,10 @@ def _cell(idx, sa: int, sb: int):
     return ra, rb
 
 
-def _readout(n, e_diag, idx, ref, q_la, q_ph, sa: int, sb: int):
-    """E_loc (re, im) f64 of the rows with rank indices idx from the numerator
-    grid n (Sb, Sa, 2): psi_max / psi(s) * n[s], the log-ratio clipped per row
-    to +-30, plus the f64 diagonal."""
-    ra, rb = _cell(idx, sa, sb)
-    flat = torch.where(idx >= sa * sb, sb * sa, rb * sa + ra)
-    n_s = torch.cat([n.reshape(-1, 2), n.new_zeros((1, 2))])[flat]
+def _readout(n_s, e_diag, idx, ref, q_la, q_ph, sa: int, sb: int):
+    """E_loc (re, im) f64 of the rows with rank indices idx from their
+    numerators n_s (rows, 2): psi_max / psi(s) * n[s], the log-ratio clipped
+    per row to +-30, plus the f64 diagonal."""
     ratio = torch.exp(torch.clamp(ref - q_la, -30.0, 30.0)).to(torch.float32)
     c, s_ = torch.cos(q_ph).to(torch.float32), torch.sin(q_ph).to(torch.float32)
     e_re = (ratio * (n_s[:, 0] * c + n_s[:, 1] * s_)).to(torch.float64)
@@ -563,15 +599,13 @@ def _readout(n, e_diag, idx, ref, q_la, q_ph, sa: int, sb: int):
     return e_diag[torch.clamp(idx, max=sa * sb)] + e_re, e_im
 
 
-def _grid_local_energy(accumulate, prog, rank_spec, states, log_amp, phase, n_valid,
-                       queries):
-    sa, sb = prog.sa, prog.sb
-    grid, ref, idx = value_grid(rank_spec, states, log_amp, phase, n_valid, sa, sb)
-    n = accumulate(prog, grid)
-    if queries is None:
-        return _readout(n, prog.e_diag, idx, ref, log_amp, phase, sa, sb)
-    q_states, q_la, q_ph = queries
-    return _readout(n, prog.e_diag, rank_index(rank_spec, q_states), ref, q_la, q_ph, sa, sb)
+def _count(n, device) -> torch.Tensor:
+    """A row count as the 0-d int64 device tensor the cells kernel reads: a
+    tensor as it is (moved if it must be), a Python int by a fill on the
+    device, which needs no host-to-device copy."""
+    if torch.is_tensor(n):
+        return n.to(device=device, dtype=torch.int64).reshape(())
+    return torch.full((), int(n), dtype=torch.int64, device=device)
 
 
 @torch.no_grad()
@@ -587,17 +621,34 @@ def dense_local_energy(dn: DenseTerms, rank_spec, states, log_amp, phase, n_vali
     `queries=(q_states, q_la, q_ph)` restricts the readout to those rows; the
     grid is built from the full buffer, and its cost does not depend on the
     sample count."""
-    return _grid_local_energy(dense_grid_accumulate, dn, rank_spec, states, log_amp,
-                              phase, n_valid, queries)
+    sa, sb = dn.sa, dn.sb
+    grid, ref, idx = value_grid(rank_spec, states, log_amp, phase, n_valid, sa, sb)
+    n = dense_grid_accumulate(dn, grid)
+    q_la, q_ph = log_amp, phase
+    if queries is not None:
+        q_states, q_la, q_ph = queries
+        idx = rank_index(rank_spec, q_states)
+    ra, rb = _cell(idx, sa, sb)
+    flat = torch.where(idx >= sa * sb, sb * sa, rb * sa + ra)
+    n_s = torch.cat([n.reshape(-1, 2), n.new_zeros((1, 2))])[flat]
+    return _readout(n_s, dn.e_diag, idx, ref, q_la, q_ph, sa, sb)
 
 
 @torch.no_grad()
 def factored_local_energy(fn: FactorTerms, rank_spec, states, log_amp, phase, n_valid,
                           queries=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """E_loc (re, im) f64 via the factored grid program (see FactorTerms);
-    semantics and `queries=` as in dense_local_energy."""
-    return _grid_local_energy(factored_grid_accumulate, fn, rank_spec, states, log_amp,
-                              phase, n_valid, queries)
+    semantics and `queries=` as in dense_local_energy. The numerator is
+    computed only at the cells the readout reads: the first n_valid buffer
+    rows, or every query row (rows past n_valid read 0, their E_loc is
+    their diagonal)."""
+    grid, ref, idx = value_grid(rank_spec, states, log_amp, phase, n_valid, fn.sa, fn.sb)
+    q_la, q_ph, n_rows = log_amp, phase, n_valid
+    if queries is not None:
+        q_states, q_la, q_ph = queries
+        idx, n_rows = rank_index(rank_spec, q_states), q_states.shape[0]
+    n_s = factored_cells_accumulate(fn, grid, idx, _count(n_rows, grid.device))
+    return _readout(n_s, fn.e_diag, idx, ref, q_la, q_ph, fn.sa, fn.sb)
 
 
 def _xl_blocked_idx(fn: FactorTermsXL, rank_spec, states):

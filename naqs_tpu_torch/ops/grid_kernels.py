@@ -1,15 +1,19 @@
-"""The grid E_loc engines' accumulation: sum_k H_k * T_k over the sector grid.
+"""The grid E_loc engines' accumulation: sum_k H_k * T_k over sector-grid cells.
 
 For a grid program `fn` (`ops/dense_engine.py::FactorTerms`) or `dn`
 (`DenseTerms`) and the (Sa+1, Sb+1, 2) f32 value grid of the sampled set
 (psi / max|psi| per cell, zero pad row and column):
 
-* `factored_grid_accumulate(fn, grid)` -> (Sb, Sa, 2) f32,
-  n[rb, ra] = sum_k H_k(rb, ra) T_k(rb, ra) with H_k built on the fly from
-  the mask's rank-1 parity factors and T_k(rb, ra) =
-  grid[pa_idx[ka, ra], pb], row_map[k, rb] = ka (Sb+1) + pb;
-* `dense_grid_accumulate(dn, grid)`: the same with H_k read from
-  `h_dense[k, rb, ra]`;
+* `factored_cells_accumulate(fn, grid, idx, n_rows)` -> (U, 2) f32, one row
+  per entry of the (U,) int64 rank indices idx: for i < n_rows (a 0-d int64
+  tensor on the grid's device) and a cell idx[i] = ra * Sb + rb of the
+  sector, n_i = sum_k H_k(rb, ra) grid[pa_idx[ga_k, ra], pb_idx[gb_k, rb]]
+  with H_k built on the fly from the mask's rank-1 parity factors; (0, 0)
+  for every other row (at or past n_rows, SENTINEL or outside the sector);
+* `dense_grid_accumulate(dn, grid)` -> (Sb, Sa, 2) f32 over the whole grid,
+  n[rb, ra] = sum_k H_k(rb, ra) T_k(rb, ra) with H_k read from
+  `h_dense[k, rb, ra]` and T_k(rb, ra) = grid[r1_idx[ka, ra], pb],
+  row_map[k, rb] = ka (Sb+1) + pb;
 * `xl_grid_accumulate(fn, grid)` for the staircase program `FactorTermsXL`
   and the (Sa*+1, Sb*+1, 2) grid of the restricted rectangle -> (n_cells, 2)
   f32, the numerator on the staircase cells in packed order (cell
@@ -17,31 +21,34 @@ For a grid program `fn` (`ops/dense_engine.py::FactorTerms`) or `dn`
   pb_idx[gb_k, rb]], H_k from the mask's rank-1 factors.
 
 They stand for the alpha gather, the transpose and the term-chunk scan of
-`naqs_tpu/ops/dense_engine.py::factored_local_energy` / `dense_local_energy`
-and the two stages per alpha-flip group of `factored_xl_local_energy`, which
-the JAX package left to XLA. On a CUDA tensor each wrapper launches its
-hand-written kernel in `csrc/grid_engine.cu` (built by nvcc at first use) or
-raises; on a CPU tensor it runs the plain PyTorch version (`*_ref`), which
-keeps the JAX order of steps: materialise R1t = grid[pa_idx] transposed, then
-gather R1t rows by `row_map`, build H (per chunk of masks) and contract. There
-is no fallback from one to the other. `<wrapper>.launches` counts kernel
-launches.
+`naqs_tpu/ops/dense_engine.py::factored_local_energy` (read at the cells its
+readout reads) / `dense_local_energy` and the two stages per alpha-flip group
+of `factored_xl_local_energy`, which the JAX package left to XLA. On a CUDA
+tensor each wrapper launches its hand-written kernel in `csrc/grid_engine.cu`
+(built by nvcc at first use) or raises; on a CPU tensor it runs the plain
+PyTorch version (`*_ref`), which keeps the JAX order of steps: gather the
+images, build H (per chunk of masks) and contract. There is no fallback from
+one to the other. `<wrapper>.launches` counts kernel launches.
+`factored_grid_accumulate_ref` is the factored program's plain version over
+the whole grid, the tests' independent oracle of the cells version.
 
-The factored and dense kernels read T straight from the grid (transposed by
-the wrapper, so a block's reads for one mask fall into one row) and never
-build R1t. The factored kernel does not read `par_a` either: it computes the
-sign (-1)^popcount(alpha_words[ra] & ya_words[fa]) from the program's two word
-tables, which `FactorTerms.build` keeps beside the JAX package's fields. The
-XL kernel reads the grid as it is: its first phase packs the set cells into
-two occupancy bitmaps (`xl_occupancy_ref` is their plain version), and it
-runs a pair's T load and factor loop only where the pair's grid cell is set
-(a clear cell adds exactly zero), walking `FactorTermsXL.prog`, a static
-program of sign words and coefficients, in an order of its own.
-Each thread sums its cells' masks in index order with fused multiply-adds
-and builds H factor by factor, where the plain version builds H by a batched
-matrix product, so the two agree per cell within
-GRID_ATOL + GRID_RTOL * sum_k sum_r |fcoeff| |T_k| (`grid_tolerance`), not
-bitwise; the kernels themselves give the same bits in every run.
+The factored cells kernel gives each live row to one warp, which stages the
+cell's alpha-image and beta-image rows (`FactorTerms.pa_t`, `.pb_t`) in
+shared memory, reads T only where both images lie in the sector and runs a
+mask's factor loop only where T is not zero; the sign of a factor is
+(-1)^popcount(alpha_word & ya ^ beta_word & yb) from the packed slots
+(`FactorTerms.slots`), with no par_a or par_b. The dense kernel reads T
+straight from the grid, transposed by the wrapper so that a block's reads
+for one mask fall into one row. The XL kernel reads the grid as it is: its
+first phase packs the set cells into two occupancy bitmaps
+(`xl_occupancy_ref` is their plain version), and it runs a pair's T load and
+factor loop only where the pair's grid cell is set (a clear cell adds
+exactly zero), walking `FactorTermsXL.prog`, a static program of sign words
+and coefficients, in an order of its own. The kernels sum with fused
+multiply-adds in orders of their own and build H factor by factor, where the
+plain versions build H by a batched product, so the two agree per cell
+within GRID_ATOL + GRID_RTOL * sum_k sum_r |fcoeff| |T_k| (`grid_tolerance`),
+not bitwise; the kernels themselves give the same bits in every run.
 
 The dense kernel cuts the masks into `dense_ranges(K)` contiguous ranges,
 range s holding masks [s K // S, (s + 1) K // S): each range's sums go to a
@@ -68,7 +75,7 @@ FACT_CHUNK_PAIRS = 16
 GRID_ATOL = 1e-6   # of psi / max|psi| = 1: fp32 sums of up to Kxy terms near 0
 GRID_RTOL = 1e-5   # of sum_k |H_k| |T_k|: fp32 order, fma against mul + add
 # staircase cells one tile of the XL kernel covers: its 7 consumer warps of 32
-# lanes with 3 cells each (csrc/grid_engine.cu's kXlWarps, kCells);
+# lanes with 3 cells each (csrc/grid_engine.cu's kXlWarps, kXlTileCells);
 # FactorTermsXL.build cuts its tiles to it
 XL_TILE_CELLS = 672
 # int4s one chunk of the XL kernel's static program holds at most (a stage of
@@ -78,6 +85,9 @@ XL_CHUNK_INT4 = 64
 # set cells of a bitmap row that the XL kernel lists (and maps back through a
 # mask's flip) rather than probing every cell of the tile (its kEnumMax)
 XL_LIST_MAX = 128
+# which design of the factored cells kernel the wrapper launches (csrc/grid_engine.cu:
+# 0, a found pair's factor loop in its lane; 1, found pairs queued, 32 summed at once)
+CELLS_VARIANT = 1
 
 # full-fp32 products in the plain version: TF32 passes cost ~1e-3 Ha on E_loc
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -98,7 +108,8 @@ def _contract(n, h, r1t, rows):
 
 
 def factored_grid_accumulate_ref(fn, grid):
-    """Plain PyTorch version: R1t, then per chunk gather / build H / contract."""
+    """The factored program's plain version over the whole grid, (Sb, Sa, 2):
+    R1t, then per chunk gather / build H / contract (the JAX package's scan)."""
     r1t = _r1t(grid, fn.pa_idx, fn.sa)
     n = torch.zeros((fn.sb, fn.sa, 2), dtype=torch.float32, device=grid.device)
     for c in range(0, fn.row_map.shape[0], FACT_CHUNK_PAIRS):
@@ -107,6 +118,36 @@ def factored_grid_accumulate_ref(fn, grid):
         pb = fn.par_b[fn.fb_idx[sl].long()] * fn.fcoeff[sl, :, None]  # (KC, R, Sb)
         _contract(n, torch.einsum("krb,kra->kba", pb, pa), r1t, fn.row_map[sl].long())
     return n
+
+
+def _live_cells(idx, n_rows, sa, sb):
+    """Rows i < n_rows whose rank index is a cell of the (Sa, Sb) sector, and
+    their (ra, rb)."""
+    live = (torch.arange(idx.shape[0], device=idx.device) < n_rows) & (idx >= 0) & \
+        (idx < sa * sb)
+    rows = torch.nonzero(live).squeeze(1)
+    cell = idx[rows]
+    return rows, cell // sb, cell % sb
+
+
+def factored_cells_accumulate_ref(fn, grid, idx, n_rows):
+    """Plain PyTorch version over the listed cells only: per chunk of masks,
+    gather their T at each live cell, build H there by a batched product of
+    the parity factors and contract; (0, 0) on every other row."""
+    rows, ra, rb = _live_cells(idx, n_rows, fn.sa, fn.sb)
+    pa_c, pb_c = fn.par_a[:, ra], fn.par_b[:, rb]                     # (Kya, V), (Kyb, V)
+    ia, ib = fn.pa_idx[:, ra].long(), fn.pb_idx[:, rb].long()         # (Ka, V), (Kb, V)
+    r = max(1, int(fn.n_fact.max()))
+    n = torch.zeros((rows.shape[0], 2), dtype=torch.float32, device=grid.device)
+    for c in range(0, fn.ga.shape[0], FACT_CHUNK_PAIRS):
+        sl = slice(c, c + FACT_CHUNK_PAIRS)
+        h = torch.einsum("krv,krv->kv", pa_c[fn.fa_idx[sl, :r].long()],
+                         pb_c[fn.fb_idx[sl, :r].long()] * fn.fcoeff[sl, :r, None])  # (KC, V)
+        t = grid[ia[fn.ga[sl].long()], ib[fn.gb[sl].long()]]          # (KC, V, 2)
+        n += torch.einsum("kv,kvc->vc", h, t)
+    out = torch.zeros((idx.shape[0], 2), dtype=torch.float32, device=grid.device)
+    out[rows] = n
+    return out
 
 
 def dense_grid_accumulate_ref(dn, grid):
@@ -173,11 +214,12 @@ def xl_occupancy_ref(grid):
             occ.any(0).to(torch.int32))
 
 
-def grid_tolerance(prog, grid):
-    """Per-cell bound on |kernel - plain version| ((Sb, Sa, 2), or
-    (n_cells, 2) for the staircase): the plain version run on absolute values
-    (|fcoeff| with parities of 1, or |h_dense|, and |grid|), which bounds
-    sum_k |H_k| |T_k| from above."""
+def grid_tolerance(prog, grid, idx=None, n_rows=None):
+    """Per-cell bound on |kernel - plain version|: (Sb, Sa, 2) for the dense
+    program, (n_cells, 2) for the staircase, and for the factored program
+    (U, 2), one per row of the cells call (idx, n_rows): the plain version
+    run on absolute values (|fcoeff| with parities of 1, or |h_dense|, and
+    |grid|), which bounds sum_k |H_k| |T_k| from above."""
     if hasattr(prog, "b_fc"):
         mag = xl_grid_accumulate_ref(
             dataclasses.replace(prog, b_fc=tuple(fc.abs() for fc in prog.b_fc),
@@ -187,10 +229,10 @@ def grid_tolerance(prog, grid):
         mag = dense_grid_accumulate_ref(
             dataclasses.replace(prog, h_dense=prog.h_dense.abs()), grid.abs())
     else:
-        mag = factored_grid_accumulate_ref(
+        mag = factored_cells_accumulate_ref(
             dataclasses.replace(prog, fcoeff=prog.fcoeff.abs(),
                                 par_a=torch.ones_like(prog.par_a),
-                                par_b=torch.ones_like(prog.par_b)), grid.abs())
+                                par_b=torch.ones_like(prog.par_b)), grid.abs(), idx, n_rows)
     return GRID_ATOL + GRID_RTOL * mag
 
 
@@ -199,10 +241,10 @@ def _lib():
     from naqs_tpu_torch.ops import _build
 
     lib = _build.load("grid_engine")
-    lib.factored_grid_accumulate.argtypes = [_PTR] * 11 + [_INT] * 4 + [_PTR]
+    lib.factored_cells_accumulate.argtypes = [_PTR] * 12 + [_INT] * 7 + [_PTR]
     lib.dense_grid_accumulate.argtypes = [_PTR] * 7 + [_INT] * 4 + [_PTR]
     lib.xl_grid_accumulate.argtypes = [_PTR] * 15 + [_INT] * 8 + [_PTR]
-    lib.factored_grid_accumulate.restype = lib.dense_grid_accumulate.restype = _INT
+    lib.factored_cells_accumulate.restype = lib.dense_grid_accumulate.restype = _INT
     lib.xl_grid_accumulate.restype = _INT
     return lib
 
@@ -216,6 +258,8 @@ def _check(name, grid, sa, sb, want):
         raise ValueError(f"{name}: unsupported device {dev}")
     want = dict(want, grid=(grid, torch.float32, (sa + 1, sb + 1, 2)))
     for key, (t, dtype, shape) in want.items():
+        if not torch.is_tensor(t):
+            raise ValueError(f"{name}: {key} must be a tensor, got {type(t).__name__}")
         if t.device != dev:
             raise ValueError(f"{name}: {key} on {t.device}, grid on {dev}")
         dense = t.is_contiguous() or dev.type == "cpu"
@@ -273,26 +317,47 @@ def _launch(name, tensors, ints, grid, scratch=()):
     return out
 
 
-def factored_grid_accumulate(fn, grid: torch.Tensor) -> torch.Tensor:
-    """(Sb, Sa, 2) f32 numerator grid of the factored program `fn`."""
+def _cells_launch(fn, grid, idx, n_rows, variant=CELLS_VARIANT):
+    """Launch the factored cells kernel on grid's current stream: (U, 2) f32.
+    `variant` 0 runs a found pair's factor loop in its own lane, 1 queues the
+    found pairs of a row and sums them 32 at a time. Checks and counts
+    nothing."""
+    out = torch.empty((idx.shape[0], 2), dtype=torch.float32, device=grid.device)
+    if idx.shape[0]:
+        _call("factored_cells_accumulate",
+              (fn.pa_t, fn.pb_t, fn.ga, fn.gb, fn.alpha_words, fn.beta_words, fn.slot_off,
+               fn.slots, grid, idx, n_rows, out),
+              (fn.ga.shape[0], idx.shape[0], fn.sa, fn.sb, fn.pa_t.shape[1], fn.pb_t.shape[1],
+               variant), grid.device)
+    return out
+
+
+def factored_cells_accumulate(fn, grid: torch.Tensor, idx: torch.Tensor,
+                              n_rows: torch.Tensor) -> torch.Tensor:
+    """(U, 2) f32 numerator of the factored program `fn` at the cells of the
+    first n_rows rank indices idx (U,) int64; (0, 0) for every other row.
+    n_rows is a 0-d int64 tensor on the grid's device, read by the kernel."""
     sa, sb = fn.sa, fn.sb
     k, r = fn.fcoeff.shape
+    ka, kb = fn.pa_idx.shape[0], fn.pb_idx.shape[0]
     i32, f32 = torch.int32, torch.float32
-    _check("factored_grid_accumulate", grid, sa, sb, {
-        "pa_idx": (fn.pa_idx, i32, (fn.pa_idx.shape[0], sa)),
-        "row_map": (fn.row_map, i32, (k, sb)),
+    _check("factored_cells_accumulate", grid, sa, sb, {
+        "idx": (idx, torch.int64, (idx.shape[0],)), "n_rows": (n_rows, torch.int64, ()),
+        "pa_idx": (fn.pa_idx, i32, (ka, sa)), "pb_idx": (fn.pb_idx, i32, (kb, sb)),
+        "pa_t": (fn.pa_t, i32, (sa, -(-ka // 4) * 4)),
+        "pb_t": (fn.pb_t, i32, (sb, -(-kb // 4) * 4)),
+        "ga": (fn.ga, i32, (k,)), "gb": (fn.gb, i32, (k,)),
         "par_a": (fn.par_a, f32, (fn.par_a.shape[0], sa)),
         "par_b": (fn.par_b, f32, (fn.par_b.shape[0], sb)),
         "fa_idx": (fn.fa_idx, i32, (k, r)), "fb_idx": (fn.fb_idx, i32, (k, r)),
         "fcoeff": (fn.fcoeff, f32, (k, r)), "n_fact": (fn.n_fact, i32, (k,)),
-        "alpha_words": (fn.alpha_words, i32, (sa,)),
-        "ya_words": (fn.ya_words, i32, (fn.par_a.shape[0],))})
+        "alpha_words": (fn.alpha_words, i32, (sa,)), "beta_words": (fn.beta_words, i32, (sb,)),
+        "slot_off": (fn.slot_off, i32, (k + 1,)),
+        "slots": (fn.slots, i32, (fn.slots.shape[0], 4))})
     if grid.device.type == "cpu":
-        return factored_grid_accumulate_ref(fn, grid)
-    out = _launch("factored_grid_accumulate",
-                  (fn.pa_idx, fn.row_map, fn.alpha_words, fn.ya_words, fn.par_b, fn.fa_idx,
-                   fn.fb_idx, fn.fcoeff, fn.n_fact), (k, r, sa, sb), grid)
-    factored_grid_accumulate.launches += 1
+        return factored_cells_accumulate_ref(fn, grid, idx, n_rows)
+    out = _cells_launch(fn, grid, idx, n_rows)
+    factored_cells_accumulate.launches += 1
     return out
 
 
@@ -358,6 +423,6 @@ def xl_grid_accumulate(fn, grid: torch.Tensor) -> torch.Tensor:
     return out
 
 
-factored_grid_accumulate.launches = 0
+factored_cells_accumulate.launches = 0
 dense_grid_accumulate.launches = 0
 xl_grid_accumulate.launches = 0

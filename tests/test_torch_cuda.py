@@ -8,11 +8,11 @@ of JAX, so it runs on a machine that has only the port's dependencies:
 `rank_gather2` must equal its plain version bitwise; `rank_ratio_rowsum`
 per row within `rowsum_tolerance` (2e-5 Ha + 1e-6 * sum_k |h| |r|: fp32
 summation order over K terms and expf/sincosf ulps); the grid kernels
-`factored_grid_accumulate`, `dense_grid_accumulate` and the staircase's
-`xl_grid_accumulate` per cell within `grid_tolerance` (1e-6 + 1e-5 * sum_k
-sum_r |fcoeff| |T_k|: fp32 order over the masks, fma against mul + add), and
-bitwise equal to themselves run twice (the factored kernel's bits against an
-earlier tree's build are held by `chip_smoke.py --before DIR`); the XL
+`factored_cells_accumulate` (per listed row), `dense_grid_accumulate` and the
+staircase's `xl_grid_accumulate` per cell within `grid_tolerance` (1e-6 +
+1e-5 * sum_k sum_r |fcoeff| |T_k|: fp32 order over the masks, fma against
+mul + add), and bitwise equal to themselves run twice (the cells kernel's
+bits also pinned by sha256 on three grids); the XL
 kernel's occupancy bitmaps bit for bit against `xl_occupancy_ref`;
 the sampler's `multinomial4_split`, `compact_children` and the two fused in
 one launch, `split_and_compact`, bitwise (the split does its plain version's
@@ -49,8 +49,8 @@ from naqs_tpu_torch.ops import dense_engine as de
 from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTermsXL, value_grid,
                                              xl_value_grid)
 from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, dense_grid_accumulate_ref,
-                                             factored_grid_accumulate,
-                                             factored_grid_accumulate_ref, grid_tolerance,
+                                             factored_cells_accumulate,
+                                             factored_cells_accumulate_ref, grid_tolerance,
                                              xl_grid_accumulate, xl_grid_accumulate_ref,
                                              xl_occupancy_ref, _xl_launch)
 from naqs_tpu_torch.ops.multinomial import (_GAUSS_VAR_MIN, _cascade, multinomial4_split,
@@ -174,8 +174,24 @@ def test_rank_ratio_rowsum_rejects_bad_inputs():
 
 GRID_KERNELS = {
     "dense": (DenseTerms, dense_grid_accumulate, dense_grid_accumulate_ref),
-    "factored": (FactorTerms, factored_grid_accumulate, factored_grid_accumulate_ref),
+    "factored": (FactorTerms, factored_cells_accumulate, factored_cells_accumulate_ref),
 }
+
+
+def _every_cell(prog, dev, tail=5):
+    """(idx, n_rows) that list every cell of the grid in order, then `tail`
+    SENTINEL rows past n_rows."""
+    n = prog.sa * prog.sb
+    idx = torch.cat([torch.arange(n), torch.full((tail,), n)]).to(dev)
+    return idx, torch.tensor(n, device=dev)
+
+
+def _full_grid(prog, dev):
+    """Every cell of the grid set at random, the pad row and column zero."""
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2))
+    grid[:-1, :-1] = torch.rand((prog.sa, prog.sb, 2), generator=gen) - 0.5
+    return grid.to(dev)
 _n2_cache = {}
 
 
@@ -220,47 +236,51 @@ def test_grid_kernel_matches_plain(engine, fill, sectors):
     if fill == "sampled":
         m = min(3000, hil.size // 2)
         s, la, ph = _n2_sample(hil, m, 4096, dev)
-        grid, _, _ = value_grid(RankSpec.for_hilbert(hil), s, la, ph, m, prog.sa, prog.sb)
+        grid, _, idx = value_grid(RankSpec.for_hilbert(hil), s, la, ph, m, prog.sa, prog.sb)
     else:   # every cell set, the pad row and column zero
-        gen = torch.Generator(device="cpu").manual_seed(2)
-        grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2))
-        grid[:-1, :-1] = torch.rand((prog.sa, prog.sb, 2), generator=gen) - 0.5
-        grid = grid.to(dev)
+        grid = _full_grid(prog, dev)
+    rows = ()
+    if engine == "factored":   # the buffer's rows, m live, or every cell of the full grid
+        rows = (idx, torch.tensor(m, device=dev)) if fill == "sampled" else _every_cell(prog, dev)
     before = wrapper.launches
-    got = wrapper(prog, grid)
+    got = wrapper(prog, grid, *rows)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
-    want = ref(prog, grid)
-    tol = grid_tolerance(prog, grid)
-    assert got.shape == (prog.sb, prog.sa, 2) and bool(torch.isfinite(got).all())
+    want = ref(prog, grid, *rows)
+    tol = grid_tolerance(prog, grid, *rows)
+    shape = (rows[0].shape[0], 2) if rows else (prog.sb, prog.sa, 2)
+    assert got.shape == shape and bool(torch.isfinite(got).all())
     assert bool(((got - want).abs() <= tol).all()), float(((got - want).abs() / tol).max())
     assert float(want.abs().max()) > 1e-3   # the sums are not all 0
-    assert torch.equal(wrapper(prog, grid), got)   # fixed order, no atomics
+    if rows:   # rows past n_rows, and SENTINEL rows, are exactly 0
+        dead = (torch.arange(rows[0].shape[0], device=dev) >= rows[1]) | \
+            (rows[0] >= prog.sa * prog.sb)
+        assert bool(dead.any()) and not bool(got[dead].any())
+    assert torch.equal(wrapper(prog, grid, *rows), got)   # fixed order, no atomics
 
 
-# sha256 of factored_grid_accumulate's (Sb, Sa, 2) output on N2 STO-3G sectors
-# with the full random grid of test_grid_kernel_matches_plain, from the kernel
-# as built from commit d07998a's source, before it shared its factor program
-# with the staircase kernel (NVIDIA H100 80GB HBM3)
-FACTORED_BITS = {
-    (7, 7): "d8c8b5202c77d45f920862a24b91cb84e2eae0507e946ab3e25b71b667e07253",
-    (3, 6): "f647978c5f453655ad04fb9830f76aa30788ebee11697e89445d6dbdf9adf2ba",
-    (6, 3): "50f3e233bc876fb53fdfae4badf3c249609318b8c168edb2ac496fd674bbc460",
+# sha256 of factored_cells_accumulate's (U, 2) output on N2 STO-3G sectors with
+# the full random grid of test_grid_kernel_matches_plain, every cell listed in
+# order and 5 SENTINEL rows after them, from the kernel as built from this
+# source (NVIDIA H100 80GB HBM3)
+FACTORED_CELLS_BITS = {
+    (7, 7): "b9a5c563424e44fc3d6cf062ced7adf3b230c8649e90d32b2eee9492156adf7c",
+    (3, 6): "089e543b9713fee83ec4e1e356ff1d480b81f4629952b22a8edfb15755a593ad",
+    (6, 3): "9459b65e1c47e970722a7bf4e2f5e0b472c7be6a923bc5fc780a38e4331452d1",
 }
 
 
-@pytest.mark.parametrize("sector", list(FACTORED_BITS))
-def test_factored_grid_kernel_keeps_its_bits(sector):
+@pytest.mark.parametrize("sector", list(FACTORED_CELLS_BITS))
+def test_factored_cells_kernel_keeps_its_bits(sector):
     import hashlib
 
     dev = _card()
     terms, hil = _n2((sector,))
     prog = FactorTerms.build(terms, hil, device=dev)
-    gen = torch.Generator(device="cpu").manual_seed(2)
-    grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2))
-    grid[:-1, :-1] = torch.rand((prog.sa, prog.sb, 2), generator=gen) - 0.5
-    out = factored_grid_accumulate(prog, grid.to(dev))
-    assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() == FACTORED_BITS[sector]
+    out = factored_cells_accumulate(prog, _full_grid(prog, dev), *_every_cell(prog, dev))
+    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    print(f"factored_cells_accumulate {sector}: {digest}")
+    assert digest == FACTORED_CELLS_BITS[sector]
 
 
 def test_dense_grid_kernel_repeatable_and_its_counters_come_back_to_zero():
@@ -310,20 +330,29 @@ def test_grid_engine_matches_rank_engine_on_the_card(engine):
 def test_grid_kernel_rejects_bad_inputs(engine):
     dev = _card()
     terms, hil = _n2()
-    cls, wrapper, _ = GRID_KERNELS[engine]
+    cls, accumulate, _ = GRID_KERNELS[engine]
     prog = cls.build(terms, hil, device=dev)
     grid = torch.zeros((prog.sa + 1, prog.sb + 1, 2), device=dev)
     wide = torch.zeros((prog.sa + 1, prog.sb + 1, 4), device=dev)[..., :2]
-    field = "h_dense" if engine == "dense" else "fcoeff"
-    for bad in (lambda: wrapper(prog, grid.double()),
+    field, maps = ("h_dense", "row_map") if engine == "dense" else ("fcoeff", "pa_t")
+    idx, n = torch.zeros(4, dtype=torch.int64, device=dev), torch.tensor(4, device=dev)
+    wrapper = accumulate if engine == "dense" else lambda p, g: accumulate(p, g, idx, n)
+    bad_rows = [] if engine == "dense" else [
+        lambda: accumulate(prog, grid, idx.cpu(), n), lambda: accumulate(prog, grid, idx, n.cpu()),
+        lambda: accumulate(prog, grid, idx.int(), n),
+        lambda: accumulate(prog, grid, torch.zeros(8, dtype=torch.int64, device=dev)[::2], n),
+        lambda: accumulate(prog, grid, idx, n[None])]
+    for bad in [lambda: wrapper(prog, grid.double()),
                 lambda: wrapper(prog, wide),
                 lambda: wrapper(prog, grid.cpu()),
                 lambda: wrapper(prog, grid[:-1]),
-                lambda: wrapper(dataclasses.replace(prog, row_map=prog.row_map.long()), grid),
-                lambda: wrapper(dataclasses.replace(prog, row_map=prog.row_map.cpu()), grid),
+                lambda: wrapper(dataclasses.replace(prog, **{maps: getattr(prog, maps).long()}),
+                                grid),
+                lambda: wrapper(dataclasses.replace(prog, **{maps: getattr(prog, maps).cpu()}),
+                                grid),
                 lambda: wrapper(dataclasses.replace(prog, sa=prog.sa - 1), grid),
                 lambda: wrapper(dataclasses.replace(
-                    prog, **{field: getattr(prog, field).transpose(0, 1)}), grid)):
+                    prog, **{field: getattr(prog, field).transpose(0, 1)}), grid)] + bad_rows:
         with pytest.raises(ValueError):
             bad()
 

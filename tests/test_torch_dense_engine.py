@@ -5,7 +5,10 @@ tables exactly (same host arithmetic) and the f64 diagonal within 1e-10 Ha.
 E_loc per row within 2e-5 Ha of the JAX engine on the same buffer (the fp32
 numerator sums run in another order: torch's reductions against XLA's) and
 within 2e-4 Ha of the float64 host oracle `local_energy_np` (fp32
-amplitudes and sums; the bar of tests/test_dense_engine.py). The H2O 6-31G
+amplitudes and sums; the bar of tests/test_dense_engine.py). The factored
+engine's numerator at the listed cells (`factored_cells_accumulate`) against
+the whole-grid plain version read at the same cells within 2e-6 (fp32 sums
+in another order), and exactly 0 on every row that lists no cell. The H2O 6-31G
 case through the default dispatch (FactorTerms on both sides, 1,656,369
 cells) is `test_torch_local_energy.py::test_local_energy_matches_jax_engines`,
 so that the JAX engine's minute on this grid runs once.
@@ -35,9 +38,22 @@ ORACLE_TOL = 2e-4   # Ha, against float64 numpy
 ENGINES = {
     "dense": (de_t.DenseTerms, de_t.dense_local_energy, gk.dense_grid_accumulate,
               de_j.DenseTerms, de_j.dense_local_energy),
-    "factored": (de_t.FactorTerms, de_t.factored_local_energy, gk.factored_grid_accumulate,
+    "factored": (de_t.FactorTerms, de_t.factored_local_energy, gk.factored_cells_accumulate,
                  de_j.FactorTerms, de_j.factored_local_energy),
 }
+
+
+def _accumulate(engine, prog, grid, idx, n):
+    """The engine's kernel wrapper on the CPU: the dense program's (Sb, Sa, 2)
+    numerator grid, the factored program's (U, 2) rows of the first n of idx."""
+    if engine == "dense":
+        return gk.dense_grid_accumulate(prog, grid)
+    return gk.factored_cells_accumulate(prog, grid, idx, torch.tensor(n))
+
+
+def _tolerance(engine, prog, grid, idx, n):
+    return gk.grid_tolerance(prog, grid) if engine == "dense" else \
+        gk.grid_tolerance(prog, grid, idx, torch.tensor(n))
 
 
 def _programs(engine, name):
@@ -88,10 +104,34 @@ def test_build_matches_jax_field_by_field(engine, name):
         c = case(name)
         np.testing.assert_array_equal(n_fact[: len(c.terms_t.xy_unique)],
                                       np.bincount(c.terms_t.gxy))
-        # the kernel's sign, computed from the two word tables, is par_a
-        words = prog_t.alpha_words.numpy()[None, :] & prog_t.ya_words.numpy()[:, None]
-        np.testing.assert_array_equal(np_parity_pm1(words).astype(np.float32),
-                                      prog_t.par_a.numpy())
+        # the kernel's signs, computed from the word tables, are par_a and par_b
+        for words, y, par in ((prog_t.alpha_words, prog_t.ya_words, prog_t.par_a),
+                              (prog_t.beta_words, prog_t.yb_words, prog_t.par_b)):
+            np.testing.assert_array_equal(
+                np_parity_pm1(words.numpy()[None, :] & y.numpy()[:, None]).astype(np.float32),
+                par.numpy())
+        # the row map's parts, and the image maps transposed into 16-byte rows
+        sa, sb = prog_t.sa, prog_t.sb
+        ga, gb, pb_idx = prog_t.ga.numpy(), prog_t.gb.numpy(), prog_t.pb_idx.numpy()
+        kxy = len(c.terms_t.xy_unique)
+        np.testing.assert_array_equal(ga[:kxy, None] * (sb + 1) + pb_idx[gb[:kxy]],
+                                      prog_t.row_map.numpy()[:kxy])
+        assert not ga[kxy:].any() and not gb[kxy:].any()
+        for idx, t, n in ((prog_t.pa_idx, prog_t.pa_t, sa), (prog_t.pb_idx, prog_t.pb_t, sb)):
+            k = idx.shape[0]
+            assert t.shape == (n, -(-k // 4) * 4)
+            np.testing.assert_array_equal(t.numpy()[:, :k], idx.numpy().T)
+            assert np.all(t.numpy()[:, k:] == n)
+        # the packed slots: mask by mask, the factor lists' words and coefficients
+        off, slots = prog_t.slot_off.numpy(), prog_t.slots.numpy()
+        np.testing.assert_array_equal(np.diff(off), n_fact)
+        fa, fb, fc = prog_t.fa_idx.numpy(), prog_t.fb_idx.numpy(), prog_t.fcoeff.numpy()
+        for k in range(len(n_fact)):
+            sl = slots[off[k]:off[k + 1]]
+            np.testing.assert_array_equal(sl[:, 0], prog_t.ya_words.numpy()[fa[k, :n_fact[k]]])
+            np.testing.assert_array_equal(sl[:, 1], prog_t.yb_words.numpy()[fb[k, :n_fact[k]]])
+            np.testing.assert_array_equal(sl[:, 2].view(np.float32), fc[k, :n_fact[k]])
+            assert np.all(sl[:, 3] == 0)
 
 
 def test_perm_map_matches_the_dict_walk():
@@ -167,11 +207,17 @@ def test_rectangular_sector_matches_jax_and_oracle(engine):
     e_np = local_energy_np(c.terms_t, s[:m], psi)
     np.testing.assert_allclose(re_t[:m], e_np.real, rtol=0, atol=ORACLE_TOL)
     np.testing.assert_allclose(im_t[:m], e_np.imag, rtol=0, atol=ORACLE_TOL)
-    grid, _, _ = de_t.value_grid(spec_t, torch.as_tensor(s), torch.as_tensor(la),
-                                 torch.as_tensor(ph), m, prog_t.sa, prog_t.sb)
-    want = wrapper(prog_t, grid).numpy()
-    assert want.shape == (21, 35, 2) and np.abs(want).max() > 1e-3
-    np.testing.assert_allclose(_replay_kernel(prog_t, grid), want, rtol=0, atol=2e-6)
+    grid, _, idx = de_t.value_grid(spec_t, torch.as_tensor(s), torch.as_tensor(la),
+                                   torch.as_tensor(ph), m, prog_t.sa, prog_t.sb)
+    want = _accumulate(engine, prog_t, grid, idx, m).numpy()
+    assert np.abs(want).max() > 1e-3
+    if engine == "dense":
+        assert want.shape == (21, 35, 2)
+        np.testing.assert_allclose(_replay_kernel(prog_t, grid), want, rtol=0, atol=2e-6)
+    else:
+        assert want.shape == (cap, 2)
+        np.testing.assert_allclose(_replay_cells_kernel(prog_t, grid, idx, m), want, rtol=0,
+                                   atol=2e-6)
 
 
 def test_host_oracle_matches_jax_oracle():
@@ -231,15 +277,29 @@ def test_wrappers_check_their_inputs_and_count_no_cpu_launch(engine):
     wrapper = ENGINES[engine][2]
     grid = torch.zeros((prog_t.sa + 1, prog_t.sb + 1, 2))
     before = wrapper.launches
-    assert wrapper(prog_t, grid).shape == (prog_t.sb, prog_t.sa, 2)
+    if engine == "dense":
+        call = wrapper
+        field = "row_map"
+        assert wrapper(prog_t, grid).shape == (prog_t.sb, prog_t.sa, 2)
+    else:
+        idx, n = torch.arange(7, dtype=torch.int64), torch.tensor(5)
+        call = lambda prog, g: wrapper(prog, g, idx, n)
+        field = "pa_t"
+        assert wrapper(prog_t, grid, idx, n).shape == (7, 2)
+        for bad in ((idx.int(), n), (idx, n.int()), (idx, torch.tensor([5])),
+                    (idx[None], n), (idx, 5)):
+            with pytest.raises(ValueError):
+                wrapper(prog_t, grid, *bad)
+        with pytest.raises(ValueError):
+            call(dataclasses.replace(prog_t, slots=prog_t.slots[:, :3]), grid)
     assert wrapper.launches == before
     for bad in (grid.double(), grid[:-1], grid[..., :1]):
         with pytest.raises(ValueError):
-            wrapper(prog_t, bad)
+            call(prog_t, bad)
     with pytest.raises(ValueError):
-        wrapper(dataclasses.replace(prog_t, row_map=prog_t.row_map.long()), grid)
+        call(dataclasses.replace(prog_t, **{field: getattr(prog_t, field).long()}), grid)
     with pytest.raises(ValueError):
-        wrapper(dataclasses.replace(prog_t, row_map=prog_t.row_map[:, :-1]), grid)
+        call(dataclasses.replace(prog_t, **{field: getattr(prog_t, field)[:, :-1]}), grid)
 
 
 def test_grid_tolerance_bounds_the_sums():
@@ -248,26 +308,24 @@ def test_grid_tolerance_bounds_the_sums():
     for engine in ENGINES:
         prog_t, _, spec_t, _ = _programs(engine, "H2O")
         s, la, ph = _buffer(c, 200, 208, 5)
-        grid, _, _ = de_t.value_grid(spec_t, torch.as_tensor(s), torch.as_tensor(la),
-                                     torch.as_tensor(ph), 200, prog_t.sa, prog_t.sb)
-        n = ENGINES[engine][2](prog_t, grid)
-        tol = gk.grid_tolerance(prog_t, grid)
+        grid, _, idx = de_t.value_grid(spec_t, torch.as_tensor(s), torch.as_tensor(la),
+                                       torch.as_tensor(ph), 200, prog_t.sa, prog_t.sb)
+        n = _accumulate(engine, prog_t, grid, idx, 200)
+        tol = _tolerance(engine, prog_t, grid, idx, 200)
         assert tol.shape == n.shape
         assert bool((n.abs() * gk.GRID_RTOL <= tol).all()) and float(n.abs().max()) > 1e-3
 
 
 def _replay_kernel(prog, grid, n_ranges=None):
-    """The index arithmetic of csrc/grid_engine.cu in numpy: the transposed
-    grid, (ka, pb) decoded from row_map, masks skipped on an invalid beta
-    image or an empty factor list, the factor loop ended at n_fact[k], the
-    factored sign taken from the word tables (not from par_a), and the zero
-    pad cell read for an invalid alpha image; in float64 over all masks.
-    With n_ranges (dense programs), the dense kernel's partition instead:
-    range s holds masks [s K // S, (s + 1) K // S), each range is summed in
-    float32 in mask order, then the partials in range order."""
+    """The dense kernel's index arithmetic (csrc/grid_engine.cu) in numpy: the
+    transposed grid, (ka, pb) decoded from row_map, masks skipped on an
+    invalid beta image, and the zero pad cell read for an invalid alpha
+    image; in float64 over all masks. With n_ranges, the kernel's partition
+    instead: range s holds masks [s K // S, (s + 1) K // S), each range is
+    summed in float32 in mask order, then the partials in range order."""
     sa, sb = prog.sa, prog.sb
     grid_t = grid.numpy().transpose(1, 0, 2)             # (Sb+1, Sa+1, 2)
-    idx = (prog.pa_idx if hasattr(prog, "pa_idx") else prog.r1_idx).numpy()
+    idx = prog.r1_idx.numpy()
     row_map = prog.row_map.numpy()
     n_masks = row_map.shape[0]
     bounds = [0, n_masks] if n_ranges is None else \
@@ -278,18 +336,7 @@ def _replay_kernel(prog, grid, n_ranges=None):
         acc = np.zeros((sb, sa, 2), dtype)
         for k in range(k_begin, k_end):
             ka, pb = row_map[k] // (sb + 1), row_map[k] % (sb + 1)
-            if hasattr(prog, "h_dense"):
-                h = prog.h_dense.numpy()[k].astype(dtype)
-            else:
-                nf = int(prog.n_fact[k])
-                h = np.zeros((sb, sa))
-                for r in range(nf):
-                    sign = np_parity_pm1(prog.alpha_words.numpy()
-                                         & int(prog.ya_words[prog.fa_idx[k, r]]))
-                    h += (float(prog.fcoeff[k, r])
-                          * prog.par_b.numpy()[prog.fb_idx[k, r]][:, None] * sign[None, :])
-                if nf == 0:
-                    continue
+            h = prog.h_dense.numpy()[k].astype(dtype)
             for rb in np.flatnonzero(pb < sb):
                 acc[rb] += h[rb][:, None] * grid_t[pb[rb], idx[ka[rb]]].astype(dtype)
         partials.append(acc)
@@ -299,15 +346,66 @@ def _replay_kernel(prog, grid, n_ranges=None):
     return out
 
 
+def _popcount_sign(words):
+    """(-1)^popcount of int32 words, as float32 +-1."""
+    bits = np.unpackbits(np.asarray(words, np.int32).reshape(1).view(np.uint8))
+    return np.float32(1.0) - np.float32(2.0) * np.float32(bits.sum() % 2)
+
+
+def _replay_cells_kernel(prog, grid, idx, n_rows):
+    """The factored cells kernel's arithmetic (csrc/grid_engine.cu) in numpy,
+    in float32: the rows below n_rows whose index is a cell of the sector,
+    (ra, rb) decoded from it; the cell's image rows pa_t[ra], pb_t[rb] read at
+    each mask's (ga, gb); T loaded only where both images lie in the sector;
+    a pair whose T is (0, 0) skipped; H_k summed over the mask's packed slots
+    in slot order, each coefficient's sign the parity of (alpha word & ya) ^
+    (beta word & yb); found pair p of the row (in mask order) summed by lane
+    p % 32, each lane's products added in order, then the lanes in the xor
+    tree (16, 8, 4, 2, 1). Every other row 0."""
+    sa, sb = prog.sa, prog.sb
+    g = grid.numpy()
+    idx = idx.numpy()
+    pa_t, pb_t = prog.pa_t.numpy(), prog.pb_t.numpy()
+    ga, gb = prog.ga.numpy(), prog.gb.numpy()
+    off, slots = prog.slot_off.numpy(), prog.slots.numpy()
+    coeff = slots[:, 2].view(np.float32)
+    aw_all, bw_all = prog.alpha_words.numpy(), prog.beta_words.numpy()
+    out = np.zeros((len(idx), 2), np.float32)
+    for i in range(min(int(n_rows), len(idx))):
+        c = int(idx[i])
+        if not 0 <= c < sa * sb:
+            continue
+        ra, rb = c // sb, c % sb
+        ia, ib = pa_t[ra][ga], pb_t[rb][gb]                  # every mask's images
+        ok = (ia < sa) & (ib < sb)
+        t = np.where(ok[:, None], g[np.minimum(ia, sa), np.minimum(ib, sb)], 0)
+        found = np.flatnonzero((t[:, 0] != 0) | (t[:, 1] != 0))
+        lanes = np.zeros((32, 2), np.float32)
+        for p, k in enumerate(found):
+            h = np.float32(0)
+            for j in range(off[k], off[k + 1]):
+                word = (aw_all[ra] & slots[j, 0]) ^ (bw_all[rb] & slots[j, 1])
+                h = np.float32(h + coeff[j] * _popcount_sign(word))
+            lanes[p % 32] = (lanes[p % 32].astype(np.float64) + np.float64(h) * t[k]).astype(
+                np.float32)
+        for d in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[np.arange(32) ^ d]
+        out[i] = lanes[0]
+    return out
+
+
 @pytest.mark.parametrize("engine", ["dense", "factored"])
 def test_kernel_index_arithmetic_replayed_in_numpy(engine):
     c = case("H2O")
     prog_t, _, spec_t, _ = _programs(engine, "H2O")
     s, la, ph = _buffer(c, 200, 208, 9)
-    grid, _, _ = de_t.value_grid(spec_t, torch.as_tensor(s), torch.as_tensor(la),
-                                 torch.as_tensor(ph), 200, prog_t.sa, prog_t.sb)
-    want = ENGINES[engine][2](prog_t, grid).numpy()
-    np.testing.assert_allclose(_replay_kernel(prog_t, grid), want, rtol=0, atol=2e-6)
+    s[17] = 0b111                        # a live row outside the sector
+    grid, _, idx = de_t.value_grid(spec_t, torch.as_tensor(s), torch.as_tensor(la),
+                                   torch.as_tensor(ph), 200, prog_t.sa, prog_t.sb)
+    want = _accumulate(engine, prog_t, grid, idx, 200).numpy()
+    got = _replay_kernel(prog_t, grid) if engine == "dense" else \
+        _replay_cells_kernel(prog_t, grid, idx, 200)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
     assert np.abs(want).max() > 1e-3
 
 
@@ -333,3 +431,83 @@ def test_dense_kernel_partition_replayed_in_numpy(n_ranges):
     tol = gk.grid_tolerance(prog_t, grid).numpy()
     assert np.all(np.abs(got - want) <= tol), float((np.abs(got - want) / tol).max())
     assert np.abs(want).max() > 1e-3
+
+
+@pytest.mark.parametrize("sectors", [None, ((4, 2),)], ids=["square", "rectangular"])
+def test_cells_plain_version_equals_the_whole_grid_read_at_the_cells(sectors):
+    """factored_cells_accumulate_ref is the whole-grid plain version (the JAX
+    package's scan) read at the live rows' cells."""
+    import naqs_tpu_torch as nt
+
+    c = case("H2O")
+    hil = c.h_t if sectors is None else nt.Hilbert(n_qubits=14, sectors=sectors)
+    prog = de_t.FactorTerms.build(c.terms_t, hil, device="cpu")
+    spec = RankSpec.for_hilbert(hil)
+    rng = np.random.default_rng(21)
+    m = min(250, hil.size - 5)
+    s, la, ph, _ = padded_batch(np.sort(rng.choice(hil.basis, size=m, replace=False)), m + 9,
+                                rng)
+    grid, _, idx = de_t.value_grid(spec, torch.as_tensor(s), torch.as_tensor(la),
+                                   torch.as_tensor(ph), m, prog.sa, prog.sb)
+    rows = gk.factored_cells_accumulate_ref(prog, grid, idx, torch.tensor(m))
+    whole = gk.factored_grid_accumulate_ref(prog, grid)
+    ra, rb = idx[:m] // prog.sb, idx[:m] % prog.sb
+    np.testing.assert_allclose(rows[:m].numpy(), whole[rb, ra].numpy(), rtol=0, atol=2e-6)
+    assert float(whole.abs().max()) > 1e-3 and not rows[m:].any()
+
+
+def test_cells_rows_without_a_cell_read_zero():
+    """Rows at or past n_rows, SENTINEL rows and rows outside the sector give
+    exactly (0, 0); the others what the same cells give alone."""
+    c = case("H2O")
+    prog, _, spec, _ = _programs("factored", "H2O")
+    m, cap = 120, 140
+    s, la, ph = _buffer(c, m, cap, 17)
+    grid, _, _ = de_t.value_grid(spec, torch.as_tensor(s), torch.as_tensor(la),
+                                 torch.as_tensor(ph), m, prog.sa, prog.sb)
+    q = s.copy()
+    q[5] = 0b111                                     # outside the sector
+    q[9] = SENTINEL
+    q[m - 1] = np.setdiff1d(c.h_t.basis, s[:m])[0]   # unsampled, but a cell
+    idx = de_t.rank_index(spec, torch.as_tensor(q))
+    n_rows = m - 10
+    out = gk.factored_cells_accumulate(prog, grid, idx, torch.tensor(n_rows)).numpy()
+    dead = np.zeros(cap, bool)
+    dead[[5, 9]] = True
+    dead[n_rows:] = True
+    assert int(idx[5]) == int(idx[9]) == prog.sa * prog.sb
+    assert np.all(out[dead] == 0) and np.abs(out[~dead]).max() > 1e-3
+    alone = gk.factored_cells_accumulate(prog, grid, idx[~dead],
+                                         torch.tensor(int((~dead).sum()))).numpy()
+    np.testing.assert_array_equal(out[~dead], alone)
+    full = gk.factored_grid_accumulate_ref(prog, grid).numpy()
+    live = idx.numpy()[~dead]
+    np.testing.assert_allclose(out[~dead], full[live % prog.sb, live // prog.sb], rtol=0,
+                               atol=2e-6)
+
+
+def test_factored_queries_with_duplicate_and_unsampled_states_match_jax():
+    """queries= rows that repeat sampled states, that were never sampled, and a
+    SENTINEL row, through the port's factored engine and naqs_tpu's."""
+    c = case("H2O")
+    prog_t, prog_j, spec_t, spec_j = _programs("factored", "H2O")
+    m, cap = 200, 216
+    s, la, ph = _buffer(c, m, cap, 23)
+    rng = np.random.default_rng(24)
+    unsampled = rng.choice(np.setdiff1d(c.h_t.basis, s[:m]), size=30, replace=False)
+    q_s = np.concatenate([s[[3, 3, 50, 199, 50]], unsampled, [SENTINEL], s[[0, 0]]])
+    q_la = np.concatenate([la[[3, 3, 50, 199, 50]], rng.normal(size=30) - 2.0, [0.0],
+                           la[[0, 0]]]).astype(np.float32)
+    q_ph = np.concatenate([ph[[3, 3, 50, 199, 50]], rng.uniform(-np.pi, np.pi, 30), [0.0],
+                           ph[[0, 0]]]).astype(np.float32)
+    q_t = tuple(torch.as_tensor(a) for a in (q_s, q_la, q_ph))
+    re_t, im_t = _port(de_t.factored_local_energy, prog_t, spec_t, s, la, ph, m, queries=q_t)
+    q_j = tuple(jnp.asarray(a) for a in (to_u64(q_s), q_la, q_ph))
+    re_j, im_j = de_j.factored_local_energy(prog_j, spec_j, jnp.asarray(to_u64(s)),
+                                            jnp.asarray(la), jnp.asarray(ph), jnp.int32(m),
+                                            queries=q_j)
+    np.testing.assert_allclose(re_t, np.asarray(re_j), rtol=0, atol=ROW_TOL)
+    np.testing.assert_allclose(im_t, np.asarray(im_j), rtol=0, atol=ROW_TOL)
+    assert re_t[0] == re_t[1] and re_t[2] == re_t[4] and re_t[-1] == re_t[-2]
+    assert re_t[35] == 0 and im_t[35] == 0          # the SENTINEL row
+    assert np.abs(im_t[5:35]).max() > 1e-4          # unsampled rows see sampled neighbours

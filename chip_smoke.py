@@ -53,9 +53,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   6. the main path: 5 VMCTrainer.step()s through the default dispatch with
      every launch count set to 0 just before; fails unless
      factored_cells_accumulate ran exactly once per E_loc call (one call per
-     vmc_update) and no other grid kernel ran, split_and_compact ran n_shells = 13 times per sample()
-     call and the standalone multinomial4_split and compact_children never,
-     no rank kernel ran, and every energy is finite;
+     vmc_update) and no other grid kernel ran, split_and_compact ran
+     n_shells = 13 times per sample() call and the standalone
+     multinomial4_split and compact_children never, no rank kernel ran, and
+     every energy is finite;
   7. the earlier main path: 2 more steps of the same trainer on the rank
      engine (dense=None), counts set to 0 just before; fails unless
      rank_ratio_rowsum ran 196 times per E_loc call (capacity 100,000 in
@@ -143,23 +144,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      slice's two-channel rank_gather2 (first held bitwise against this
      tree's), alone and with the eager epilogue, where DIR's rank_gather2
      takes two tables; dense_grid_accumulate (first held against its plain
-     version, per cell within its tolerance) where DIR has
-     csrc/grid_engine.cu; compact_children (first held bitwise against this
+     version, per cell within its tolerance) where DIR's grid_kernels has
+     it; compact_children (first held bitwise against this
      tree's) and its split + compaction (two launches, first held bitwise
      against split_and_compact) where DIR has csrc/sampler_step.cu. Then
-     SLOW_REPEATS repeats of
-     SLOW_LAUNCHES of the factored cells and staircase kernels (the cells
-     kernel also in its other design, variant 0, and on the live rows ordered
-     by beta rank), the staircase kernel also on the grid of every staircase
-     cell and on a fully set grid of the rectangle (with --before, DIR's
-     whole-grid factored_grid_accumulate, first held read at the live cells
-     within grid_tolerance of this tree's rows, and DIR's
+     SLOW_REPEATS repeats of SLOW_LAUNCHES of the factored cells and
+     staircase kernels, the staircase kernel also on the grid of every
+     staircase cell and on a fully set grid of the rectangle (with --before,
+     DIR's factored kernel: its whole-grid factored_grid_accumulate, first
+     held read at the live cells within grid_tolerance of this tree's rows,
+     or its factored_cells_accumulate on the same rows, first held bitwise
+     where its source is this tree's, else within grid_tolerance; a DIR with
+     csrc/grid_engine.cu and neither exits non-zero; DIR's
      factored_local_energy on the same call, and DIR's staircase kernel on
      all three grids), the grid kernels' plain versions, one
      factored_local_energy call and one full local_energy call per engine at
      capacity 100,000 (rank on H2O 6-31G, and FactorTermsXL against rank on
-     Li2O: printed, not asserted), the split's
-     plain version, the fused
+     Li2O: printed, not asserted), the split's plain version, the fused
      shell step's plain version, the (U, 127)
      cumprod/cumsum split the step ran before the kernel, and one whole
      sample() call at capacity 100,000 (with --before, also DIR's sample()
@@ -228,10 +229,10 @@ sampled grid (the grid cells the valid pairs read, the maps, the program and
 the output; the set pairs' operations) and dense_bound_ms the earlier design's
 count over every valid pair, beside its times on the staircase and the fully
 set grid; the cells kernel's bound counts what this call's data needs (the
-valid and found pairs of the live rows, _cells_work), beside its ablations'
-times and one factored_local_energy call's; with --before, "before_ms" and
-"before_spread" of the earlier tree's kernel), and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
-"count": ...}}.
+valid and found pairs of the live rows, _cells_work), beside one
+factored_local_energy call's time; with --before, "before_ms" and
+"before_spread" of the earlier tree's kernel), and last {"ok": true,
+"device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -1173,7 +1174,7 @@ def main(argv) -> int:
                                                rank_ratio_rowsum_ref, ratio_rowsum,
                                                rowsum_tolerance)
     from naqs_tpu_torch.ops.dense_engine import factored_local_energy
-    from naqs_tpu_torch.ops.grid_kernels import (_cells_launch, _live_cells,
+    from naqs_tpu_torch.ops.grid_kernels import (_live_cells,
                                                  dense_grid_accumulate,
                                                  dense_grid_accumulate_ref,
                                                  factored_cells_accumulate,
@@ -1449,9 +1450,10 @@ def main(argv) -> int:
     old_name = "two-channel rank_gather2"
     old_compact = "compact_children (earlier tree)"
     old_two = f"{two_kernels} (earlier tree)"
-    old_mods = {}
+    old_mods, before_dir = {}, None
     if "--before" in argv:
-        old_mods = _before_modules(os.path.abspath(argv[argv.index("--before") + 1]))
+        before_dir = os.path.abspath(argv[argv.index("--before") + 1])
+        old_mods = _before_modules(before_dir)
         print(f"[before] built and bound from the earlier tree: {sorted(old_mods)}", flush=True)
     if "sampler" in old_mods:
         compact_old = old_mods["sampler"]._compact_children
@@ -1625,31 +1627,56 @@ def main(argv) -> int:
     _engines_agree("N2 STO-3G", le, tr2.dt, terms2, batch2, la2, ph2)
 
     old_dense = "dense_grid_accumulate (earlier tree)"
-    old_fact = "factored_grid_accumulate (earlier tree)"
     old_fle = "factored_local_energy (H2O 6-31G, earlier tree)"
     fns["dense_grid_accumulate"] = lambda: dense_grid_accumulate(dn, grid2)
-    if "grid" in old_mods and hasattr(old_mods["grid"], "factored_grid_accumulate"):
-        # the earlier tree's whole-grid numerator, read at the live rows' cells,
-        # against this tree's rows (another order of summation: not bitwise)
-        fact_old = old_mods["grid"].factored_grid_accumulate
+    grid_old, fact_old, old_fact = old_mods.get("grid"), None, None
+    if grid_old is not None:
         l_rows, l_ra, l_rb = _live_cells(g_idx, g_n, fn.sa, fn.sb)
         f_new = factored_cells_accumulate(fn, grid, g_idx, g_n)
-        f_diff = (fact_old(fn, grid)[l_rb, l_ra] - f_new[l_rows]).abs()
-        f_ok = bool((f_diff <= grid_tolerance(fn, grid, g_idx, g_n)[l_rows]).all())
-        print(f"[kernel] {old_fact} on H2O 6-31G's sampled grid, read at the {l_rows.numel()} "
-              f"live cells: within grid_tolerance of this tree's factored_cells_accumulate="
-              f"{f_ok} (max_abs_err={float(f_diff.max()):.3e})", flush=True)
+        if hasattr(grid_old, "factored_grid_accumulate"):
+            # the earlier tree's whole-grid numerator, read at the live rows'
+            # cells, against this tree's rows (another order of summation)
+            old_fact = "factored_grid_accumulate (earlier tree)"
+            fact_old = lambda: grid_old.factored_grid_accumulate(fn, grid)   # noqa: E731
+            f_diff = (fact_old()[l_rb, l_ra] - f_new[l_rows]).abs()
+            f_ok = bool((f_diff <= grid_tolerance(fn, grid, g_idx, g_n)[l_rows]).all())
+            how = f"read at the {l_rows.numel()} live cells, within grid_tolerance"
+        elif hasattr(grid_old, "factored_cells_accumulate"):
+            # the earlier tree's cells kernel on the same rows: bitwise where
+            # the source is this tree's, else within grid_tolerance
+            old_fact = "factored_cells_accumulate (earlier tree)"
+            fact_old = lambda: grid_old.factored_cells_accumulate(  # noqa: E731
+                fn, grid, g_idx, g_n)
+            f_old = fact_old()
+            src = os.path.join("naqs_tpu_torch", "csrc", "grid_engine.cu")
+            with open(os.path.join(before_dir, src), "rb") as f_a, \
+                    open(os.path.join(REPO, src), "rb") as f_b:
+                same_src = f_a.read() == f_b.read()
+            f_diff = (f_old - f_new).abs()
+            f_ok = (torch.equal(f_old, f_new) if same_src else
+                    bool((f_diff <= grid_tolerance(fn, grid, g_idx, g_n)).all()))
+            how = (f"on the same {l_rows.numel()} live rows (same source={same_src}, bitwise "
+                   f"equal={torch.equal(f_old, f_new)}), "
+                   f"{'bitwise' if same_src else 'within grid_tolerance'}")
+            del f_old
+        else:
+            raise SystemExit("the earlier tree has csrc/grid_engine.cu but no factored "
+                             "kernel this script can compare")
+        print(f"[kernel] {old_fact} on H2O 6-31G's sampled grid, {how} of this tree's "
+              f"factored_cells_accumulate={f_ok} (max_abs_err={float(f_diff.max()):.3e})",
+              flush=True)
         if not f_ok:
             raise SystemExit(f"{old_fact} and this tree's factored_cells_accumulate differ")
         del f_new, f_diff
-        dense_old = old_mods["grid"].dense_grid_accumulate
-        d_diff = (dense_old(dn, grid2) - dense_grid_accumulate_ref(dn, grid2)).abs()
-        d_ok = bool((d_diff <= grid_tolerance(dn, grid2)).all())
-        print(f"[kernel] {old_dense}: within its tolerance of the plain version={d_ok} "
-              f"(max_abs_err={float(d_diff.max()):.3e})", flush=True)
-        if not d_ok:
-            raise SystemExit(f"{old_dense} disagrees with its plain version")
-        fns[old_dense] = lambda: dense_old(dn, grid2)
+        if hasattr(grid_old, "dense_grid_accumulate"):
+            dense_old = grid_old.dense_grid_accumulate
+            d_diff = (dense_old(dn, grid2) - dense_grid_accumulate_ref(dn, grid2)).abs()
+            d_ok = bool((d_diff <= grid_tolerance(dn, grid2)).all())
+            print(f"[kernel] {old_dense}: within its tolerance of the plain version={d_ok} "
+                  f"(max_abs_err={float(d_diff.max()):.3e})", flush=True)
+            if not d_ok:
+                raise SystemExit(f"{old_dense} disagrees with its plain version")
+            fns[old_dense] = lambda: dense_old(dn, grid2)
 
     # 10b. the staircase engine: Li2O STO-3G CISDTQ, the paper-scale model
     t1 = time.time()
@@ -2081,18 +2108,9 @@ def main(argv) -> int:
 
     times = time_in_turns(fns, REPEATS, LAUNCHES)
     calls = time_in_turns({n: fns[n] for n in fast}, REPEATS, LAUNCHES, hold=False)
-    # the cells kernel's ablations: its other design (a found pair's factor loop in
-    # the lane that found it), and the live rows ordered by beta rank
-    l_rows, _, l_rb = _live_cells(g_idx, g_n, fn.sa, fn.sb)
-    by_beta = g_idx.clone()
-    by_beta[l_rows] = g_idx[l_rows][torch.argsort(l_rb, stable=True)]
     fle_name = "factored_local_energy (H2O 6-31G)"
     slow_fns = {
         "factored_cells_accumulate": lambda: factored_cells_accumulate(fn, grid, g_idx, g_n),
-        "factored_cells_accumulate (variant 0: factor loop in the finding lane)":
-            lambda: _cells_launch(fn, grid, g_idx, g_n, 0),
-        "factored_cells_accumulate (rows by beta rank)":
-            lambda: factored_cells_accumulate(fn, grid, by_beta, g_n),
         "factored_cells_accumulate_ref": lambda: factored_cells_accumulate_ref(fn, grid, g_idx,
                                                                                g_n),
         "dense_grid_accumulate_ref": lambda: dense_grid_accumulate_ref(dn, grid2),
@@ -2113,8 +2131,8 @@ def main(argv) -> int:
                                                                s_mask),
         "sample() at capacity 100,000": lambda: sampler_mod.sample(tr.model, tr.gen, 1e5, cap),
     }
-    if "grid" in old_mods and hasattr(old_mods["grid"], "factored_grid_accumulate"):
-        slow_fns[old_fact] = lambda: fact_old(fn, grid)
+    if fact_old is not None:
+        slow_fns[old_fact] = fact_old
         slow_fns[old_fle] = lambda: old_mods["dense_engine"].factored_local_energy(
             fn, spec, batch.states, la, ph, batch.n_unique)
     if "grid" in old_mods and hasattr(old_mods["grid"], "xl_grid_accumulate"):
@@ -2469,9 +2487,6 @@ def main(argv) -> int:
               replaces="naqs_tpu/ops/dense_engine.py:496-540", library_note=no_call,
               **before(old_fact), **{k: f_work[k] for k in ("live", "valid_pairs",
                                                             "found_pairs", "factors")},
-              variant0_ms=times[
-                  "factored_cells_accumulate (variant 0: factor loop in the finding lane)"][0],
-              rows_by_beta_rank_ms=times["factored_cells_accumulate (rows by beta rank)"][0],
               local_energy_ms=times[fle_name][0],
               **({"local_energy_before_ms": times[old_fle][0]} if old_fle in times else {}),
               **GRID_SRC),

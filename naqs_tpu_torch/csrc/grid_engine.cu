@@ -40,7 +40,8 @@
 //   complete_tx on the stage's mbarrier: the next row's images land while
 //   this row is summed. The block stages every mask's (ga, gb) once (36 KB for
 //   H2O 6-31G) where it fits beside the stages, else reads them through the
-//   read-only cache.
+//   read-only cache (3.6% slower on H2O 6-31G, PERF.md) and runs as many
+//   warps as the stages leave room for.
 // * Lane j walks masks j, j + 32, ..., kCellsBatch at a time (their grid
 //   loads in flight together): both images from the stage, and one 8-byte
 //   grid load only where both lie in the sector. A pair whose T is (0, 0)
@@ -61,10 +62,10 @@
 // (PERF.md). How that splits between the look-ups with their grid loads from
 // L2 and the found pairs' factor loops is not measured (no ncu there).
 // Timed against variants on the card (PERF.md): running a found pair's
-// factor loop in the lane that found it (kVariant 0, kept for that
-// comparison: the lanes of a warp wait on the longest loop of any round)
-// took twice as long; the live rows ordered by beta rank, so that the warps
-// of a block stage the same beta-image row, gained 1%.
+// factor loop in the lane that found it (the lanes of a warp wait on the
+// longest loop of each round) took twice as long; the live rows ordered by
+// beta rank, so that the warps of a block stage the same beta-image row,
+// gained 1%.
 //
 // xl_grid_accumulate does the factored kernel's sum on the staircase of an
 // n_exc_max-filtered sector (ops/dense_engine.py::FactorTermsXL): alpha and
@@ -823,8 +824,8 @@ __global__ void __launch_bounds__(kXlThreads) xl_grid_accumulate_kernel(const Xl
 
 // ----------------------------------------------------------- factored cells
 
-constexpr int kCellsWarps = 8;     // warps a block at most: one row of the buffer each at a time
-constexpr int kCellsStages = 2;    // image-row stages a warp: the next row lands while one is summed
+constexpr int kCellsWarps = 8;     // warps a block at most, one buffer row each at a time
+constexpr int kCellsStages = 2;    // image-row stages a warp: the next row lands meanwhile
 constexpr int kCellsBatch = 8;     // masks a lane looks up at once: their grid loads in flight
 constexpr int kCellsQueue = 64;    // a warp's ring of found pairs: < 32 pending + 32 new
 constexpr int kCellsFactors = 4;   // factor loads in flight for one found pair
@@ -866,19 +867,17 @@ __device__ __forceinline__ float cells_h(const CellsArgs& x, int k, int aw, int 
 // in kCellsBatch look-ups at a time, reads (ga, gb) (from shared memory where
 // the block staged them) and both images from the stage, and loads T from the
 // grid only where both images lie in the sector. A pair whose T is (0, 0)
-// adds nothing. For the others H_k is built from the packed factors:
-//   kVariant 0: by the lane that found the pair, at once;
-//   kVariant 1: the found pairs join the warp's ring in mask order and every
-//     32 of them (and the rest at the row's end) are summed one a lane, so
-//     found pair p of the row goes to lane p % 32.
-// Each lane adds its pairs in mask order, the lanes' sums are then added in a
-// fixed xor tree: every run gives the same bits. Rows past n_rows, and rows
-// whose index is no cell, get (0, 0).
-template <int kVariant, bool kMasksShared>
+// adds nothing. The others join the warp's ring in mask order, and every 32
+// of them (and the rest at the row's end) are summed one a lane, H_k from the
+// packed factors: found pair p of the row goes to lane p % 32. Each lane adds
+// its pairs in mask order, the lanes' sums are then added in a fixed xor
+// tree: every run gives the same bits. Rows past n_rows, and rows whose index
+// is no cell, get (0, 0).
+template <bool kMasksShared>
 __global__ void __launch_bounds__(kCellsWarps * 32) factored_cells_kernel(const CellsArgs x) {
   extern __shared__ int4 cells_smem[];
   __shared__ uint64_t full[kCellsWarps * kCellsStages];
-  __shared__ int4 ring[kVariant == 1 ? kCellsWarps * kCellsQueue : 1];
+  __shared__ int4 ring[kCellsWarps * kCellsQueue];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
@@ -945,7 +944,7 @@ __global__ void __launch_bounds__(kCellsWarps * 32) factored_cells_kernel(const 
     const int rb = static_cast<int>(c - static_cast<int64_t>(ra) * x.sb);
     const int aw = __ldg(x.alpha_words + ra), bw = __ldg(x.beta_words + rb);
     float re = 0.f, im = 0.f;
-    int4* q = ring + (kVariant == 1 ? warp * kCellsQueue : 0);
+    int4* q = ring + warp * kCellsQueue;
     int head = 0, count = 0;   // the ring's pending pairs, the same in every lane
     // sums the next min(count, 32) pending pairs, one a lane
     const auto flush = [&]() {
@@ -975,26 +974,17 @@ __global__ void __launch_bounds__(kCellsWarps * 32) factored_cells_kernel(const 
       }
 #pragma unroll
       for (int b = 0; b < kCellsBatch; ++b) {
-        const int k = k0 + 32 * b + lane;
         const bool found = t[b].x != 0.f || t[b].y != 0.f;
-        if (kVariant == 0) {
-          if (found) {
-            const float h = cells_h(x, k, aw, bw);
-            re = fmaf(h, t[b].x, re);
-            im = fmaf(h, t[b].y, im);
-          }
-        } else {
-          const unsigned who = __ballot_sync(kFull, found);
-          if (found)
-            q[(head + count + __popc(who & ((1u << lane) - 1u))) & (kCellsQueue - 1)] =
-                make_int4(k, __float_as_int(t[b].x), __float_as_int(t[b].y), 0);
-          count += __popc(who);
-          __syncwarp();
-          if (count >= 32) flush();
-        }
+        const unsigned who = __ballot_sync(kFull, found);
+        if (found)
+          q[(head + count + __popc(who & ((1u << lane) - 1u))) & (kCellsQueue - 1)] =
+              make_int4(k0 + 32 * b + lane, __float_as_int(t[b].x), __float_as_int(t[b].y), 0);
+        count += __popc(who);
+        __syncwarp();
+        if (count >= 32) flush();
       }
     }
-    if (kVariant == 1 && count > 0) flush();
+    if (count > 0) flush();
 #pragma unroll
     for (int d = 16; d; d >>= 1) {
       re += __shfl_xor_sync(kFull, re, d);
@@ -1007,9 +997,9 @@ __global__ void __launch_bounds__(kCellsWarps * 32) factored_cells_kernel(const 
   }
 }
 
-template <int kVariant, bool kMasksShared>
+template <bool kMasksShared>
 int launch_cells(const CellsArgs& x, int warps, int smem, cudaStream_t stream) {
-  const auto kernel = factored_cells_kernel<kVariant, kMasksShared>;
+  const auto kernel = factored_cells_kernel<kMasksShared>;
   cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   // a persistent grid: as many blocks as the card holds at once, no more warps than rows
   int device = 0, per_sm = 0, sms = 0;
@@ -1032,11 +1022,10 @@ extern "C" int factored_cells_accumulate(const void* pa_t, const void* pb_t, con
                                          const void* beta_words, const void* slot_off,
                                          const void* slots, const void* grid, const void* idx,
                                          const void* n_rows, void* out, int n_masks, int n_buf,
-                                         int sa, int sb, int ka4, int kb4, int variant,
-                                         void* stream) {
+                                         int sa, int sb, int ka4, int kb4, void* stream) {
   // an image row is whole 16-byte pieces, for the bulk copies
   if (ka4 <= 0 || kb4 <= 0 || ka4 % 4 || kb4 % 4 || n_masks < 0 || n_buf < 0 ||
-      (variant != 0 && variant != 1) || static_cast<int64_t>(sa + 1) * (sb + 1) >= INT32_MAX)
+      static_cast<int64_t>(sa + 1) * (sb + 1) >= INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_buf == 0) return 0;
   CellsArgs x;
@@ -1071,16 +1060,13 @@ extern "C" int factored_cells_accumulate(const void* pa_t, const void* pb_t, con
   const int64_t warp_bytes = int64_t{4} * (ka4 + kb4) * kCellsStages;
   const int64_t mask_bytes = int64_t{8} * ((n_masks + 1) & ~1);
   const bool masks_shared = mask_bytes + kCellsWarps * warp_bytes <= room;
-  const int64_t fit = room / warp_bytes;
-  const int warps = masks_shared ? kCellsWarps : static_cast<int>(fit < kCellsWarps ? fit : kCellsWarps);
+  const int64_t fit = masks_shared ? kCellsWarps : room / warp_bytes;
+  const int warps = static_cast<int>(fit < kCellsWarps ? fit : kCellsWarps);
   if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>((masks_shared ? mask_bytes : 0) + warps * warp_bytes);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (variant == 0)
-    return masks_shared ? launch_cells<0, true>(x, warps, smem, st)
-                        : launch_cells<0, false>(x, warps, smem, st);
-  return masks_shared ? launch_cells<1, true>(x, warps, smem, st)
-                      : launch_cells<1, false>(x, warps, smem, st);
+  return masks_shared ? launch_cells<true>(x, warps, smem, st)
+                      : launch_cells<false>(x, warps, smem, st);
 }
 
 extern "C" int dense_grid_accumulate(const void* r1_idx, const void* row_map,

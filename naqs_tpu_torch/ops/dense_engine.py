@@ -600,9 +600,9 @@ def _readout(n_s, e_diag, idx, ref, q_la, q_ph, sa: int, sb: int):
 
 
 def _count(n, device) -> torch.Tensor:
-    """A row count as the 0-d int64 device tensor the cells kernel reads: a
-    tensor as it is (moved if it must be), a Python int by a fill on the
-    device, which needs no host-to-device copy."""
+    """A row count as the 0-d int64 device tensor the cells and sort kernels
+    read: a tensor as it is (moved if it must be), a Python int by a fill on
+    the device, which needs no host-to-device copy."""
     if torch.is_tensor(n):
         return n.to(device=device, dtype=torch.int64).reshape(())
     return torch.full((), int(n), dtype=torch.int64, device=device)

@@ -85,9 +85,6 @@ XL_CHUNK_INT4 = 64
 # set cells of a bitmap row that the XL kernel lists (and maps back through a
 # mask's flip) rather than probing every cell of the tile (its kEnumMax)
 XL_LIST_MAX = 128
-# which design of the factored cells kernel the wrapper launches (csrc/grid_engine.cu:
-# 0, a found pair's factor loop in its lane; 1, found pairs queued, 32 summed at once)
-CELLS_VARIANT = 1
 
 # full-fp32 products in the plain version: TF32 passes cost ~1e-3 Ha on E_loc
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -241,7 +238,7 @@ def _lib():
     from naqs_tpu_torch.ops import _build
 
     lib = _build.load("grid_engine")
-    lib.factored_cells_accumulate.argtypes = [_PTR] * 12 + [_INT] * 7 + [_PTR]
+    lib.factored_cells_accumulate.argtypes = [_PTR] * 12 + [_INT] * 6 + [_PTR]
     lib.dense_grid_accumulate.argtypes = [_PTR] * 7 + [_INT] * 4 + [_PTR]
     lib.xl_grid_accumulate.argtypes = [_PTR] * 15 + [_INT] * 8 + [_PTR]
     lib.factored_cells_accumulate.restype = lib.dense_grid_accumulate.restype = _INT
@@ -317,21 +314,6 @@ def _launch(name, tensors, ints, grid, scratch=()):
     return out
 
 
-def _cells_launch(fn, grid, idx, n_rows, variant=CELLS_VARIANT):
-    """Launch the factored cells kernel on grid's current stream: (U, 2) f32.
-    `variant` 0 runs a found pair's factor loop in its own lane, 1 queues the
-    found pairs of a row and sums them 32 at a time. Checks and counts
-    nothing."""
-    out = torch.empty((idx.shape[0], 2), dtype=torch.float32, device=grid.device)
-    if idx.shape[0]:
-        _call("factored_cells_accumulate",
-              (fn.pa_t, fn.pb_t, fn.ga, fn.gb, fn.alpha_words, fn.beta_words, fn.slot_off,
-               fn.slots, grid, idx, n_rows, out),
-              (fn.ga.shape[0], idx.shape[0], fn.sa, fn.sb, fn.pa_t.shape[1], fn.pb_t.shape[1],
-               variant), grid.device)
-    return out
-
-
 def factored_cells_accumulate(fn, grid: torch.Tensor, idx: torch.Tensor,
                               n_rows: torch.Tensor) -> torch.Tensor:
     """(U, 2) f32 numerator of the factored program `fn` at the cells of the
@@ -356,8 +338,13 @@ def factored_cells_accumulate(fn, grid: torch.Tensor, idx: torch.Tensor,
         "slots": (fn.slots, i32, (fn.slots.shape[0], 4))})
     if grid.device.type == "cpu":
         return factored_cells_accumulate_ref(fn, grid, idx, n_rows)
-    out = _cells_launch(fn, grid, idx, n_rows)
-    factored_cells_accumulate.launches += 1
+    out = torch.empty((idx.shape[0], 2), dtype=f32, device=grid.device)
+    if idx.shape[0]:
+        _call("factored_cells_accumulate",
+              (fn.pa_t, fn.pb_t, fn.ga, fn.gb, fn.alpha_words, fn.beta_words, fn.slot_off,
+               fn.slots, grid, idx, n_rows, out),
+              (k, idx.shape[0], sa, sb, fn.pa_t.shape[1], fn.pb_t.shape[1]), grid.device)
+        factored_cells_accumulate.launches += 1
     return out
 
 

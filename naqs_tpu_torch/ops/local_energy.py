@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from naqs_tpu_torch.hamiltonian import PauliTerms
-from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTermsXL,
+from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTermsXL, _count,
                                              dense_local_energy, factored_local_energy,
                                              factored_xl_local_energy)
 from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_ratio_rowsum
@@ -177,11 +177,6 @@ def _chunks(dt, u, chunk_rows):
     return min(c, u)
 
 
-def _count(n_valid, device) -> torch.Tensor:
-    """n_valid as the 0-d int64 tensor the sort kernels read on the device."""
-    return torch.as_tensor(n_valid, dtype=torch.int64, device=device)
-
-
 @torch.no_grad()
 def local_energy(
     dt: DeviceTerms,
@@ -194,7 +189,10 @@ def local_energy(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Local energies (re, im) f64 for a sorted, SENTINEL-padded state buffer.
 
-    Rows beyond n_valid produce garbage values; callers mask by weight.
+    Rows beyond n_valid produce garbage values; callers mask by weight. The
+    factored engine gives such a row its diagonal alone (it sums no
+    numerator there); the other engines compute it as they do a live row,
+    from whatever state the row holds.
     Dispatches to the grid engine (ops/dense_engine.py) when the terms carry
     a grid program; the rank engine below handles everything else that has a
     RankSpec, the sort engine what has none: in one `sorted_local_energy`

@@ -283,6 +283,30 @@ def test_factored_cells_kernel_keeps_its_bits(sector):
     assert digest == FACTORED_CELLS_BITS[sector]
 
 
+def test_factored_cells_kernel_on_image_rows_too_wide_for_eight_warps():
+    """Alpha-image rows padded to 4,096 ints (no mask reads the pad): eight
+    warps' two stages would take 256 KB, more than a block's shared memory,
+    so the launch reads the masks' (ga, gb) through the read-only cache, not
+    from shared memory, and runs fewer warps a block. A row's order of
+    summation depends on neither, so the bits are the unpadded program's."""
+    dev = _card()
+    terms, hil = _n2()
+    prog = FactorTerms.build(terms, hil, device=dev)
+    width = 4096
+    pa_idx = torch.full((width, prog.sa), prog.sa, dtype=torch.int32, device=dev)
+    pa_idx[:prog.pa_idx.shape[0]] = prog.pa_idx
+    wide = dataclasses.replace(prog, pa_idx=pa_idx, pa_t=pa_idx.t().contiguous())
+    m = 3000
+    s, la, ph = _n2_sample(hil, m, 4096, dev, seed=4)
+    grid, _, idx = value_grid(RankSpec.for_hilbert(hil), s, la, ph, m, prog.sa, prog.sb)
+    n = torch.tensor(m, device=dev)
+    got = factored_cells_accumulate(wide, grid, idx, n)
+    assert torch.equal(got, factored_cells_accumulate(prog, grid, idx, n))
+    tol = grid_tolerance(prog, grid, idx, n)
+    assert bool(((got - factored_cells_accumulate_ref(prog, grid, idx, n)).abs() <= tol).all())
+    assert float(got.abs().max()) > 1e-3
+
+
 def test_dense_grid_kernel_repeatable_and_its_counters_come_back_to_zero():
     """Three launches on one set of arrival counters: the same bits each time
     (partials added in range order, whatever order the blocks finish in), and

@@ -209,6 +209,21 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      and controller bitwise equal), and one more step of each (e_loc within
      ENGINE_TOL, whether bitwise equal printed); save_psi on phase 10's N2
      STO-3G trainer (the written amplitudes' squares sum to 1 within 1e-6).
+ 13. the CLI, `naqs_tpu_torch.cli.run` in process at the paper's width, each
+     run into a temporary -o directory with every kernel count set to 0 just
+     before it: run A (CLI_RUN_A: H2O 6-31G on FactorTerms, amp 64, one
+     global phase net 512x512, four LUT shells at -lr_lut 1e-2, training on
+     H + 0.5 S^2, -pretrain_hf 5, -presolveH, 6 steps; exact energies at
+     steps 1 and 5) must write summary.json (no e_exact_final: 1,656,369
+     states), args.json, log.jsonl and checkpoint.pt, change all four LUT
+     tables and launch split_and_compact, factored_cells_accumulate and
+     rank_gather2; -c then resumes it from checkpoint.pt for one step; run B
+     (CLI_RUN_B: N2 STO-3G on DenseTerms, the combined trunk, integer inputs,
+     three LUT shells, -presolveH, -profile, 6 steps) must write those and a
+     Chrome trace, give e_exact_final and launch split_and_compact,
+     dense_grid_accumulate and rank_gather2. Every step's E_loc must be
+     finite. It prints each step's wall time, each run's, the launches of
+     every kernel, and the per-step cost against phases 6 and 10.
 With --profile, the profiled step of each engine (H2O 6-31G factored and
 rank, Li2O staircase) must show one device kernel per wrapper call of the
 sampler's kernels and of the engine's own; it prints the step's device time
@@ -231,7 +246,8 @@ count over every valid pair, beside its times on the staircase and the fully
 set grid; the cells kernel's bound counts what this call's data needs (the
 valid and found pairs of the live rows, _cells_work), beside one
 factored_local_energy call's time; with --before, "before_ms" and
-"before_spread" of the earlier tree's kernel), and last {"ok": true,
+"before_spread" of the earlier tree's kernel), with "launches_cli_a" and "launches_cli_b" from phase 13's runs in every
+entry, and last {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1155,6 +1171,125 @@ def _trainer_extras(dev, mol, hil, terms, cfg, tr2, zero_counts, wrappers):
     return out
 
 
+# phase 13: the CLI at the paper's width; run A's and run B's flags (the
+# temporary output directory and the counts are added per run)
+CLI_RUN_A = ["-m", "H2O_6-31G_gen", "-n_hid", "64", "-single_phase", "-n_hid_phase", "512",
+             "-n_layer_phase", "2", "-n_lut", "4", "-lr_lut", "1e-2", "-s2_penalty", "0.5",
+             "-pretrain_hf", "5", "-presolveH", "-n_train", "6", "-output_freq", "5",
+             "-n_unq_samps_max", "100000", "-s", "7"]
+CLI_RUN_B = ["-m", "N2_STO-3G_gen", "-n_hid", "64", "-comb_amp_phase", "-input_encoding",
+             "integer", "-n_lut", "3", "-presolveH", "-n_train", "6", "-output_freq", "5",
+             "-profile", "-s", "7"]
+
+
+def _cli_runs(zero_counts, wrappers, t_fact, t_dense):
+    """Phase 13: `naqs_tpu_torch.cli.run` in process, run A (H2O 6-31G,
+    FactorTerms, four LUT shells, H + 0.5 S^2) resumed once with -c, and run B
+    (N2 STO-3G, DenseTerms, combined trunk, integer inputs, three LUT shells,
+    -profile). Returns each run's kernel launches by kernel name."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from naqs_tpu_torch import cli
+    from naqs_tpu_torch import trainer as trainer_mod
+
+    names = {w: w.__name__.lstrip("_") for w in wrappers}
+    lut_seen = []
+    step = trainer_mod.VMCTrainer.step
+
+    def watched_step(self):
+        out = step(self)
+        if self.cfg.num_lut:  # the LUT tables after each step, and the groups' LRs
+            tables = [p.detach().clone() for k, p in self.model.named_parameters()
+                      if k.startswith("lut")]
+            lut_seen.append((self.n_steps, tables, [g["lr"] for g in self.optimizer.param_groups]))
+        return out
+
+    def one(label, argv, out_dir, need):
+        zero_counts()
+        lut_seen.clear()
+        torch.cuda.synchronize()
+        t = time.time()
+        summary = cli.run(argv + ["-o", out_dir])["run_0"]
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launched = {names[w]: w.launches for w in wrappers}
+        lines = [json.loads(x) for x in open(os.path.join(out_dir, "log.jsonl"))]
+        e_loc = [x["value"] for x in lines if x["key"] == "E_LOC"]
+        run_time = [x["value"] for x in lines if x["key"] == "TIME"]
+        per_step = np.diff([0.0] + run_time)
+        print(f"[cli] run {label}: {wall:.1f} s in all; {len(e_loc)} steps, E_loc {e_loc}; "
+              f"step wall times {[round(float(v), 4) for v in per_step]} s; kernel launches "
+              f"{launched}", flush=True)
+        if not (e_loc and np.isfinite(e_loc).all()):
+            raise SystemExit(f"CLI run {label}: a step's E_loc is not finite: {e_loc}")
+        missing = [k for k in need if not launched[k]]
+        if missing:
+            raise SystemExit(f"CLI run {label}: {missing} never launched")
+        return summary, launched, per_step, wall
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    trainer_mod.VMCTrainer.step = watched_step
+    counts = {}
+    try:
+        # run A and its resumption
+        dir_a = os.path.join(work, "A")
+        sum_a, counts["A"], steps_a, wall_a = one(
+            "A", CLI_RUN_A, dir_a, ("split_and_compact", "factored_cells_accumulate",
+                                    "rank_gather2"))
+        (n0, first, lrs), (n1, last, _) = lut_seen[0], lut_seen[-1]
+        moved = [not torch.equal(a, b) for a, b in zip(first, last)]
+        print(f"[cli] run A: LUT tables after step {n0} and step {n1}: moved {moved} "
+              f"(4 amplitude tables; group LRs {lrs})", flush=True)
+        if not (n1 == 6 and len(moved) == 4 and all(moved)):
+            raise SystemExit("CLI run A: the LUT tables did not all change in training")
+        if lrs[1] != 1e-2:
+            raise SystemExit(f"CLI run A: the LUT group's LR is {lrs[1]}, not -lr_lut 1e-2")
+        for f in ("summary.json", "args.json", "log.jsonl", "checkpoint.pt"):
+            if not os.path.exists(os.path.join(dir_a, f)):
+                raise SystemExit(f"CLI run A wrote no {f}")
+        if "e_exact_final" in sum_a:
+            raise SystemExit("CLI run A: e_exact_final over a basis above 200,000 states")
+        resume = list(CLI_RUN_A) + ["-c"]
+        resume[resume.index("-n_train") + 1] = "7"
+        _, _, steps_c, wall_c = one("A resumed (-c, -n_train 7)", resume, dir_a,
+                                    ("split_and_compact", "factored_cells_accumulate"))
+        if len(steps_c) != 7 or lut_seen[0][0] != 7:
+            raise SystemExit("CLI run A: -c did not resume for exactly one step")
+        # run B
+        dir_b = os.path.join(work, "B")
+        sum_b, counts["B"], steps_b, wall_b = one(
+            "B", CLI_RUN_B, dir_b, ("split_and_compact", "dense_grid_accumulate",
+                                    "rank_gather2"))
+        trace = os.path.join(dir_b, "profile", "trace.json")
+        for f in ("summary.json", "args.json", "log.jsonl", "checkpoint.pt", trace):
+            if not os.path.exists(os.path.join(dir_b, f)):
+                raise SystemExit(f"CLI run B wrote no {f}")
+        if "e_exact_final" not in sum_b:
+            raise SystemExit("CLI run B: no e_exact_final over N2 STO-3G's 14,400 states")
+        print(f"[cli] run B: exact energy {sum_b['e_exact_final']:.6f} Ha, the sampled "
+              f"subspace's {sum_b['e_vmc_fci_subspace']:.6f} Ha; trace "
+              f"{os.path.getsize(trace)} B", flush=True)
+    finally:
+        trainer_mod.VMCTrainer.step = step
+        shutil.rmtree(work, ignore_errors=True)
+    med = lambda v: float(np.median(v))
+    print(f"[cli] per-step wall, steps 2-6 median: run A {med(steps_a[1:]):.4f} s against phase "
+          f"6's default model (amp 64, phase 512x512, no LUT, H alone) on H2O 6-31G "
+          f"{med(t_fact[1:]):.4f} s: the 4 LUT shells and the H + 0.5 S^2 terms cost "
+          f"{med(steps_a[1:]) - med(t_fact[1:]):+.4f} s a step; run B {med(steps_b[1:]):.4f} s "
+          f"(combined trunk amp 64 with the phase outputs, integer inputs, 3 LUT shells, "
+          f"capacity 100,000, profiled) against phase 10's N2 STO-3G steps (amp 64, phase "
+          f"128x128, capacity 8,192) {med(t_dense[1:]):.4f} s: "
+          f"{med(steps_b[1:]) - med(t_dense[1:]):+.4f} s a step", flush=True)
+    print(f"[cli] phase 13: run A {wall_a:.1f} s, its resumption {wall_c:.1f} s, run B "
+          f"{wall_b:.1f} s", flush=True)
+    return counts
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -1602,7 +1737,7 @@ def main(argv) -> int:
           f"{dn.h_dense.numel() * 4 / 2**20:.1f} MiB, {d_pairs} valid (mask, cell) pairs; "
           f"{time.time() - t1:.1f}s", flush=True)
     zero_counts()
-    n_updates, _, n_draws = _steps(tr2, 3, "dense")
+    n_updates, t_dense, n_draws = _steps(tr2, 3, "dense")
     dense_launches = dense_grid_accumulate.launches
     print(f"[path] N2 default dispatch (DenseTerms): dense_grid_accumulate launches in 3 "
           f"steps: {dense_launches} ({n_updates} vmc_update calls); others "
@@ -2451,6 +2586,9 @@ def main(argv) -> int:
     # 12. the trainer's extras at the paper width on H2O 6-31G
     extras = _trainer_extras(dev, mol, hil, terms, cfg, tr2, zero_counts, wrappers)
 
+    # 13. the CLI at the paper's width
+    cli_counts = _cli_runs(zero_counts, wrappers, t_fact, t_dense)
+
     def entry(name, launches, err, t_plain, bound, t_library,
               source="naqs_tpu_torch/csrc/rank_gather.cu",
               replaces="naqs_tpu/ops/dyn_gather.py:83", **more):
@@ -2469,7 +2607,7 @@ def main(argv) -> int:
     unfused = "rank_gather2 + eager epilogue"
     no_call = "no single PyTorch call computes the gather by two static maps fused with " \
               "the sum over masks"
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("rank_gather2", gather_launches, gather_err, "rank_gather2_ref", g_bound,
               "tab[idx]",
               library_note="tab[idx] on a precomputed idx: skips the rank arithmetic",
@@ -2573,7 +2711,10 @@ def main(argv) -> int:
               run_density_steps=DENSITY_STEPS,
               run_density_sample_density_calls=extras["density_calls"],
               **before(old_compact), **SHELL_SRC),
-    ]}))
+    ]
+    for k in kernels:  # phase 13's launches, each run counted from zero
+        k["launches_cli_a"], k["launches_cli_b"] = (cli_counts[r][k["name"]] for r in "AB")
+    print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 A port of `naqs_tpu` (JAX) that mirrors its module layout. It imports
 neither JAX nor `naqs_tpu`. Entry points run on the CUDA card unless the
-caller passes `device="cpu"`. Its kernels are hand-written CUDA
+caller passes `device="cpu"`; its command line is `python -m
+naqs_tpu_torch.cli` (flag for flag with `naqs_tpu.cli`). Its kernels are hand-written CUDA
 (`csrc/rank_gather.cu`: the rank engine's psi lookup; `csrc/sort_lookup.cu`:
 the sort engine's, for spaces with no rank table, and its whole E_loc call
 in one launch where there is no dense A either; `csrc/offdiag_h.cu`: the H

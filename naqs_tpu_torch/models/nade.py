@@ -6,11 +6,18 @@ Per shell there is an amplitude head (masked log-softmax over 4 occupations,
 optionally spin-exchange-symmetrized from 5 logits) and a phase head.
 
 Port of `naqs_tpu/models/nade.py` with the same parameter layout: every
-shell's input is zero-padded to the common width 2(S-1) and the per-shell
-networks are stacked weights w (S, d_in, d_out), b (S, d_out), so the full
-conditional table of a batch is one batched product over shells. The phase
-head is either one net per shell (`aggregate_phase`) or one global net on
-the final shell's input.
+shell's input is zero-padded to the common width (2(S-1) signed bits, or
+S-1 integers with the integer encoding) and the per-shell networks are
+stacked weights w (S, d_in, d_out), b (S, d_out), so the full conditional
+table of a batch is one batched product over shells. The phase head is
+either one net per shell (`aggregate_phase`) or one global net on the final
+shell's input, or, with `combined_amp_phase`, extra outputs of the amplitude
+trunk. With `num_lut`, the first shells read their raw outputs from
+learnable lookup tables (one row per input pattern) instead of the MLP.
+
+Parameters are held in `param_dtype`; the products run in the type JAX
+promotes float32 inputs and such weights to (float32 for bfloat16 weights,
+float64 for float64 ones), so the outputs have that type too.
 """
 
 from __future__ import annotations
@@ -21,12 +28,16 @@ from typing import Literal, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from naqs_tpu_torch.utils.bits import unpack_bits
 
 # masked-logit value; exp(x/2) underflows to 0
 BIG_NEG = -1e9
+
+PARAM_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+                "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -41,9 +52,9 @@ class NAQSConfig:
     use_amp_spin_sym: bool = True
     use_phase_spin_sym: bool = False
     aggregate_phase: bool = False  # False -> one global phase net (production)
-    num_lut: int = 0
-    combined_amp_phase: bool = False
-    phase_activation: Optional[str] = None
+    num_lut: int = 0               # leading shells use lookup-table conditionals
+    combined_amp_phase: bool = False  # one trunk emits amp+phase outputs
+    phase_activation: Optional[str] = None  # none|softsign|tanh|hardtanh|sin|sigmoid
     input_encoding: Literal["binary", "integer"] = "binary"
     shell_order: Tuple[int, ...] = ()  # model shell j <- state shell order[j]
     param_dtype: str = "float32"
@@ -57,14 +68,13 @@ class NAQSConfig:
                 self, "shell_order", tuple(range(self.n_shells - 1, -1, -1)))
         if sorted(self.shell_order) != list(range(self.n_shells)):
             raise ValueError("shell_order must be a permutation of shells")
-        for name, unported in (("num_lut", self.num_lut != 0),
-                               ("combined_amp_phase", self.combined_amp_phase),
-                               ("phase_activation", self.phase_activation is not None),
-                               ("input_encoding", self.input_encoding != "binary"),
-                               ("param_dtype", self.param_dtype != "float32")):
-            if unported:
-                raise NotImplementedError(
-                    f"NAQSConfig.{name}={getattr(self, name)!r} is not ported yet")
+        if not (0 <= self.num_lut <= min(self.n_shells, 8)):
+            raise ValueError("num_lut must be in [0, min(n_shells, 8)]")
+        if self.num_lut >= self.n_shells and not self.aggregate_phase:
+            raise ValueError("num_lut == n_shells with a single phase net is unsupported")
+        if self.combined_amp_phase and self.use_amp_spin_sym != self.use_phase_spin_sym:
+            # a combined trunk has one input, so one spin-symmetry setting
+            object.__setattr__(self, "use_phase_spin_sym", self.use_amp_spin_sym)
 
     @property
     def n_shells(self) -> int:
@@ -72,6 +82,9 @@ class NAQSConfig:
 
     @property
     def in_width(self) -> int:
+        # binary: 2(S-1) signed bits; integer: one value per previous shell
+        if self.input_encoding == "integer":
+            return max(self.n_shells - 1, 1)
         return 2 * max(self.n_shells - 1, 1)
 
     @property
@@ -82,26 +95,54 @@ class NAQSConfig:
     def n_phase_out(self) -> int:
         return 3 if self.use_phase_spin_sym else 4
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The parameters' torch dtype."""
+        if self.param_dtype not in PARAM_DTYPES:
+            raise ValueError(f"param_dtype must be one of {sorted(PARAM_DTYPES)}, "
+                             f"got {self.param_dtype!r}")
+        return PARAM_DTYPES[self.param_dtype]
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The type of the products: float32 inputs times the parameters,
+        promoted as JAX promotes them."""
+        return torch.promote_types(torch.float32, self.dtype)
+
+
+def _amp_out_dim(cfg: NAQSConfig) -> int:
+    return cfg.n_amp_out + (cfg.n_phase_out if cfg.combined_amp_phase else 0)
+
+
+def _uniform(shape, bound, dtype, generator):
+    draw = torch.float64 if dtype == torch.float64 else torch.float32
+    u = torch.rand(shape, generator=generator, dtype=draw)
+    return ((u * 2 - 1) * bound).to(dtype)
+
 
 class MLPStack(nn.Module):
     """Per-shell-stacked dense layers with ReLU between them:
     w[i] (n_stack, d_in, d_out), b[i] (n_stack, d_out)."""
 
-    def __init__(self, n_stack: int, dims, generator: torch.Generator | None = None):
+    def __init__(self, n_stack: int, dims, generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.w = nn.ParameterList()
         self.b = nn.ParameterList()
+        self.compute_dtype = torch.promote_types(torch.float32, dtype)
         for d_in, d_out in zip(dims[:-1], dims[1:]):
             bound = 1.0 / math.sqrt(max(d_in, 1))
-            u = lambda *shape: (torch.rand(shape, generator=generator) * 2 - 1) * bound
-            self.w.append(nn.Parameter(u(n_stack, d_in, d_out)))
-            self.b.append(nn.Parameter(u(n_stack, d_out)))
+            self.w.append(nn.Parameter(_uniform((n_stack, d_in, d_out), bound, dtype,
+                                                generator)))
+            self.b.append(nn.Parameter(_uniform((n_stack, d_out), bound, dtype, generator)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (..., n_stack, d_in) -> (..., n_stack, d_out)."""
         n = len(self.w)
+        c = self.compute_dtype
+        x = x.to(c)
         for li, (w, b) in enumerate(zip(self.w, self.b)):
-            x = torch.einsum("...si,sio->...so", x, w) + b
+            x = torch.einsum("...si,sio->...so", x, w.to(c)) + b.to(c)
             if li < n - 1:
                 x = torch.relu(x)
         return x
@@ -109,29 +150,63 @@ class MLPStack(nn.Module):
     def single(self, idx: int, x: torch.Tensor) -> torch.Tensor:
         """Apply one stack entry's layers to x (..., d_in)."""
         n = len(self.w)
+        c = self.compute_dtype
+        x = x.to(c)
         for li, (w, b) in enumerate(zip(self.w, self.b)):
             k = idx if w.shape[0] > 1 else 0
-            x = x @ w[k] + b[k]
+            x = x @ w[k].to(c) + b[k].to(c)
             if li < n - 1:
                 x = torch.relu(x)
         return x
 
 
+def _lut_base(cfg: NAQSConfig, canonical: bool) -> int:
+    """Digits per previous shell in a LUT row index."""
+    if cfg.input_encoding == "integer":
+        return 3 if canonical else 4
+    return 4  # two binary bits per shell
+
+
+def _tables_of(n: int, base: int, width: int, dtype, generator) -> nn.ParameterList:
+    """Lookup tables of shells 0..n-1: shell j has base**j rows of `width`."""
+    draw = torch.float64 if dtype == torch.float64 else torch.float32
+    return nn.ParameterList(
+        nn.Parameter(torch.randn((base**j, width), generator=generator, dtype=draw).to(dtype))
+        for j in range(n))
+
+
 class NADE(nn.Module):
-    """Parameters of the ansatz; `forward(states)` is `log_psi`."""
+    """Parameters of the ansatz; `forward(states)` is `log_psi`. Groups:
+    `amp` (the amplitude trunk, with the phase outputs too under
+    `combined_amp_phase`), `phase` (absent under `combined_amp_phase`),
+    `lut` and `lut_phase` (with `num_lut`; `lut_phase` only for per-shell
+    phase nets)."""
 
     def __init__(self, cfg: NAQSConfig, generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
         s = cfg.n_shells
-        self.amp = MLPStack(s, (cfg.in_width, *cfg.amp_hidden, cfg.n_amp_out),
-                            generator)
-        self.phase = MLPStack(s if cfg.aggregate_phase else 1,
-                              (cfg.in_width, *cfg.phase_hidden, cfg.n_phase_out),
-                              generator)
+        dtype = cfg.dtype
+        n_out = _amp_out_dim(cfg)
+        self.amp = MLPStack(s, (cfg.in_width, *cfg.amp_hidden, n_out), generator, dtype)
+        if not cfg.combined_amp_phase:
+            self.phase = MLPStack(s if cfg.aggregate_phase else 1,
+                                  (cfg.in_width, *cfg.phase_hidden, cfg.n_phase_out),
+                                  generator, dtype)
+        if cfg.num_lut:
+            self.lut = _tables_of(cfg.num_lut, _lut_base(cfg, cfg.use_amp_spin_sym), n_out,
+                                  dtype, generator)
+            if cfg.aggregate_phase and not cfg.combined_amp_phase:
+                self.lut_phase = _tables_of(cfg.num_lut,
+                                            _lut_base(cfg, cfg.use_phase_spin_sym),
+                                            cfg.n_phase_out, dtype, generator)
 
     def forward(self, states: torch.Tensor):
         return log_psi(self, states)
+
+
+def count_parameters(model: NADE) -> int:
+    return int(sum(p.numel() for p in model.parameters()))
 
 
 # ------------------------------------------------------------------- features
@@ -165,14 +240,24 @@ def _signed(bits):
     return (2 * bits - 1).to(torch.float32)
 
 
+def _integer_inputs(alpha, beta, canonical: bool):
+    """One value per shell: the exchange-invariant a+b-1 when canonical,
+    else 2a+b."""
+    v = alpha + beta - 1 if canonical else 2 * alpha + beta
+    return v.to(torch.float32)
+
+
 def shell_inputs(cfg: NAQSConfig, alpha, beta, canonical: bool,
                  order3: torch.Tensor | None = None):
-    """(B, S, in_width) inputs for every shell: signed +-1 bits, layout
-    [first substring (S-1 slots), second substring]; with `canonical` the
-    lexicographically smaller spin substring goes first."""
+    """(B, S, in_width) inputs for every shell. Binary encoding: signed +-1
+    bits, layout [first substring (S-1 slots), second substring]; with
+    `canonical` the lexicographically smaller spin substring goes first.
+    Integer encoding: one value per previous shell (`_integer_inputs`)."""
     s = cfg.n_shells
     dev = alpha.device
     causal = torch.arange(s - 1, device=dev)[None, :] < torch.arange(s, device=dev)[:, None]
+    if cfg.input_encoding == "integer":
+        return _integer_inputs(alpha, beta, canonical)[..., None, : s - 1] * causal
     a_in = _signed(alpha)[..., None, : s - 1] * causal
     b_in = _signed(beta)[..., None, : s - 1] * causal
     if canonical:
@@ -214,6 +299,28 @@ def occupation_mask(cfg: NAQSConfig, ca, cb, j=None):
     return mask
 
 
+def scaled_phase_activation(name: str, x: torch.Tensor, mask=None) -> torch.Tensor:
+    """Scaled phase activations: map raw outputs into [-pi, pi]-ish ranges;
+    where the amplitude mask leaves only one option (a deterministic output),
+    the phase is pinned to 0."""
+    if name == "softsign":
+        y = math.pi * x / (1.0 + torch.abs(x))
+    elif name == "tanh":
+        y = math.pi * torch.tanh(x)
+    elif name == "hardtanh":
+        y = math.pi * torch.clamp(x, -1.0, 1.0)
+    elif name == "sin":
+        y = math.pi * torch.sin(x) ** 2
+    elif name == "sigmoid":
+        y = math.pi * torch.sigmoid(x)
+    else:
+        raise ValueError(f"unknown phase activation '{name}'")
+    if mask is not None and y.shape[-1] == mask.shape[-1]:
+        deterministic = mask.sum(dim=-1, keepdim=True) == 1
+        y = torch.where(deterministic & mask, 0.0, y)
+    return y
+
+
 def masked_log_softmax_half(logits4: torch.Tensor, mask) -> torch.Tensor:
     """0.5 * log_softmax(2x) with masked options pushed to BIG_NEG. A row
     with no allowed option emits BIG_NEG/2 amplitudes, not log(1/4)."""
@@ -232,20 +339,65 @@ def _last_shell_only(raw_last: torch.Tensor, s: int) -> torch.Tensor:
     return torch.cat([zeros, raw_last[..., None, :]], dim=-2)
 
 
+# ------------------------------------------------------------------- LUTs
+
+def _lut_index(cfg: NAQSConfig, x: torch.Tensor, j: int, canonical: bool = True):
+    """LUT row index for shell j from one shell's input rows x (..., in_width)."""
+    s = cfg.n_shells
+    if j == 0:
+        return torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
+    if cfg.input_encoding == "integer":
+        base = _lut_base(cfg, canonical)
+        digits = torch.round(x[..., :j]).to(torch.int64) + (1 if canonical else 0)
+        w = base ** torch.arange(j, device=x.device)
+        return torch.sum(digits * w, dim=-1)
+    first = (x[..., :j] > 0).to(torch.int64)
+    second = (x[..., s - 1:s - 1 + j] > 0).to(torch.int64)
+    w = torch.ones((), dtype=torch.int64, device=x.device) << torch.arange(j, device=x.device)
+    return torch.sum(first * w, dim=-1) + torch.sum(second * (w << j), dim=-1)
+
+
+def _lut_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] as an embedding lookup: its backward sums the gradients of
+    rows that share an index after sorting them, where the backward of
+    `table[idx]` accumulates them one after another (a batch maps all its
+    rows to a handful of table rows; tools/variant_cost.py times both)."""
+    return F.embedding(idx, table)
+
+
+def _apply_luts(cfg: NAQSConfig, tables, x, raw, canonical: bool):
+    """raw (..., S, d) with the rows of shells < num_lut read from their
+    tables (cast to raw's dtype) instead."""
+    rows = [_lut_rows(tables[j], _lut_index(cfg, x[..., j, :], j, canonical)).to(raw.dtype)
+            for j in range(cfg.num_lut)]
+    return torch.cat([torch.stack(rows, dim=-2), raw[..., cfg.num_lut:, :]], dim=-2)
+
+
+# ------------------------------------------------------------------- predict
+
 def _tables(model: NADE, alpha, beta, st):
     """Per-shell conditional tables (log_amp4, mask4, phase4), each
     (..., S, 4) in MODEL shell order."""
     cfg = model.cfg
     s = cfg.n_shells
     x_amp = shell_inputs(cfg, alpha, beta, cfg.use_amp_spin_sym, st["order3"])
-    raw_amp = model.amp(x_amp)
-    x_ph = (x_amp if cfg.use_phase_spin_sym == cfg.use_amp_spin_sym
-            else shell_inputs(cfg, alpha, beta, cfg.use_phase_spin_sym, st["order3"]))
-    if cfg.aggregate_phase:
-        raw_phase = model.phase(x_ph)
+    raw = model.amp(x_amp)
+    if cfg.num_lut:
+        raw = _apply_luts(cfg, model.lut, x_amp, raw, cfg.use_amp_spin_sym)
+    if cfg.combined_amp_phase:
+        raw_amp, raw_phase = raw[..., :cfg.n_amp_out], raw[..., cfg.n_amp_out:]
     else:
-        # one global net evaluated on the final shell's input
-        raw_phase = _last_shell_only(model.phase.single(0, x_ph[..., s - 1, :]), s)
+        raw_amp = raw
+        x_ph = (x_amp if cfg.use_phase_spin_sym == cfg.use_amp_spin_sym
+                else shell_inputs(cfg, alpha, beta, cfg.use_phase_spin_sym, st["order3"]))
+        if cfg.aggregate_phase:
+            raw_phase = model.phase(x_ph)
+            if cfg.num_lut:
+                raw_phase = _apply_luts(cfg, model.lut_phase, x_ph, raw_phase,
+                                        cfg.use_phase_spin_sym)
+        else:
+            # one global net evaluated on the final shell's input
+            raw_phase = _last_shell_only(model.phase.single(0, x_ph[..., s - 1, :]), s)
 
     logits4 = symmetrize_amp(raw_amp, st["order3"]) if cfg.use_amp_spin_sym else raw_amp
     if cfg.masking == "none":
@@ -256,6 +408,10 @@ def _tables(model: NADE, alpha, beta, st):
             mask[..., s - 1, :] = True  # last shell unmasked
     log_amp = masked_log_softmax_half(logits4, mask)
 
+    if cfg.phase_activation is not None:
+        # over every shell, the global net's zero rows too: sigmoid puts
+        # pi/2 on those of them whose mask leaves a choice, as in JAX
+        raw_phase = scaled_phase_activation(cfg.phase_activation, raw_phase, mask)
     if cfg.use_phase_spin_sym:
         phase4 = raw_phase[..., [0, 1, 1, 2]]
         # exchange phase shift pi*(N01 mod 2) on the canonical-swapped
@@ -280,7 +436,8 @@ def shell_tables(model: NADE, states: torch.Tensor):
 
 
 def log_psi(model: NADE, states: torch.Tensor):
-    """log|psi| and arg(psi) (f32) for packed int64 states."""
+    """log|psi| and arg(psi) for packed int64 states, in the model's
+    compute dtype (float32 unless the parameters are float64)."""
     alpha, beta = split_spins(model.cfg, states)
     log_amp4, _, phase4 = _tables(model, alpha, beta, prefix_stats(alpha, beta))
     occ = (alpha + 2 * beta)[..., None]
@@ -295,22 +452,34 @@ def amp_conditional_shell(model: NADE, j: int, alpha, beta):
     alpha, beta: (U, S) prefix occupation bits (entries at shells >= j are
     0). Returns (log_amp4, mask4, probs4), each (U, 4); `mask4` is the
     electron-number mask even where partial masking leaves it unapplied.
+    A LUT shell (j < num_lut) reads its table row and skips the MLP.
     """
     cfg = model.cfg
     s = cfg.n_shells
     dev = alpha.device
     before = torch.arange(s, device=dev) < j
-    a_in = _signed(alpha)[..., : s - 1] * before[: s - 1]
-    b_in = _signed(beta)[..., : s - 1] * before[: s - 1]
     w = (torch.ones((), dtype=torch.int64, device=dev)
          << torch.arange(s, device=dev)) * before
     pa = torch.sum(alpha * w, dim=-1)
     pb = torch.sum(beta * w, dim=-1)
     order3 = torch.where(pa > pb, 0, torch.where(pa == pb, 1, 2))
-    if cfg.use_amp_spin_sym:
-        swap = (order3 == 0)[..., None]
-        a_in, b_in = torch.where(swap, b_in, a_in), torch.where(swap, a_in, b_in)
-    raw = model.amp.single(j, torch.cat([a_in, b_in], dim=-1))
+    if cfg.input_encoding == "integer":
+        x = (_integer_inputs(alpha, beta, cfg.use_amp_spin_sym)[..., : s - 1]
+             * before[: s - 1])
+    else:
+        a_in = _signed(alpha)[..., : s - 1] * before[: s - 1]
+        b_in = _signed(beta)[..., : s - 1] * before[: s - 1]
+        if cfg.use_amp_spin_sym:
+            swap = (order3 == 0)[..., None]
+            a_in, b_in = torch.where(swap, b_in, a_in), torch.where(swap, a_in, b_in)
+        x = torch.cat([a_in, b_in], dim=-1)
+    if j < cfg.num_lut:
+        idx = _lut_index(cfg, x, j, cfg.use_amp_spin_sym)
+        raw = _lut_rows(model.lut[j], idx).to(cfg.compute_dtype)
+    else:
+        raw = model.amp.single(j, x)
+    if cfg.combined_amp_phase:
+        raw = raw[..., :cfg.n_amp_out]
     logits4 = symmetrize_amp(raw, order3) if cfg.use_amp_spin_sym else raw
 
     ca = torch.sum(alpha * before, dim=-1)

@@ -24,7 +24,7 @@ def _lib():
     lib = _build.load("sampler_step")
     lib.multinomial4_split.argtypes = [_PTR] * 8 + [_INT, _INT, _PTR]
     lib.compact_children.argtypes = [_PTR] * 10 + [_INT, _INT, _INT, _PTR]
-    lib.split_and_compact.argtypes = [_PTR] * 14 + [_INT, _INT, _INT, _PTR]
+    lib.split_and_compact.argtypes = [_PTR] * 14 + [_INT, _INT, _INT, _INT, _PTR]
     lib.compact_tile_rows.argtypes = lib.split_tile_rows.argtypes = []
     lib.multinomial4_split.restype = lib.compact_children.restype = _INT
     lib.split_and_compact.restype = _INT

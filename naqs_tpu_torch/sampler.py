@@ -138,14 +138,17 @@ def _split_and_compact(a, b, counts, valid, probs, z, u, mask, j: int, cap: int)
     child_counts, child_valid, j, cap)` does, in one launch on the card.
 
     a, b: (cap,) int64; counts: (cap,) f64; valid: (cap,) bool; probs: (cap, 4)
-    f32; z, u: (3, cap) f32 from `split_draws`; mask: (cap, 4) bool. Returns
-    `_compact_children`'s (a_new, b_new, w_new, valid_new, n_children).
+    f32, or f64 (a float64 model's conditionals: the kernel's f64
+    instantiation); z, u: (3, cap) f32 from `split_draws`; mask: (cap, 4)
+    bool. Returns `_compact_children`'s (a_new, b_new, w_new, valid_new,
+    n_children).
     """
     i64, f32, bl = (torch.int64,), (torch.float32,), (torch.bool,)
     check_tensors("split_and_compact", a, {
         "a": (a, i64, (cap,)), "b": (b, i64, (cap,)),
         "counts": (counts, (torch.float64,), (cap,)), "valid": (valid, bl, (cap,)),
-        "probs": (probs, f32, (cap, 4)), "z": (z, f32, (3, cap)), "u": (u, f32, (3, cap)),
+        "probs": (probs, (torch.float32, torch.float64), (cap, 4)),
+        "z": (z, f32, (3, cap)), "u": (u, f32, (3, cap)),
         "mask": (mask, bl, (cap, 4))}, align=16)
     _check_shell("split_and_compact", j, cap)
     if a.device.type == "cpu":
@@ -153,7 +156,7 @@ def _split_and_compact(a, b, counts, valid, probs, z, u, mask, j: int, cap: int)
     out = _fresh_frontier(cap, a.device, split_tile_rows())
     tiles = out[-1]
     launch("split_and_compact", (a, b, counts, valid, probs, z, u, mask, *out, tiles.numel(),
-                                 cap, j), a.device)
+                                 cap, j, int(probs.dtype == torch.float64)), a.device)
     _split_and_compact.launches += 1
     return out[:5]
 

@@ -7,8 +7,10 @@ Port of the single-device `VMCTrainer` of `naqs_tpu/trainer.py`:
     counts or from |psi|^2 (reweight_by_psi);
   * torch.optim.Adam (betas 0.9/0.99, eps 1e-15; its update
     m_hat / (sqrt(v_hat) + eps) equals optax.adam's) with a two-phase LR,
-    optionally behind the adaptive trailing-mean gradient clip
-    (`TrailingClip`, the JAX package's `adaptive_trailing_clip`);
+    and with `num_lut` a second parameter group, the LUT tables, at the
+    constant `lr_lut` (the JAX package's optax.multi_transform), optionally
+    behind the adaptive trailing-mean gradient clip (`TrailingClip`, the JAX
+    package's `adaptive_trailing_clip`) over both groups;
   * the update is withheld on capacity overflow or any non-finite loss,
     gradient norm or energy: the decision is read back with the step's one
     host sync, before the clip or optimizer.step() mutates parameters, Adam
@@ -21,7 +23,7 @@ Port of the single-device `VMCTrainer` of `naqs_tpu/trainer.py`:
     `warm_start_from_solve_h`; density-sampling training (`run_density`);
     training on another operator than the reported one (`train_terms`, e.g.
     H + lam S^2 from `utils/spin.py`); checkpoints (`save`/`load`, which
-    also reads the JAX package's `.msgpack`) and `save_psi`.
+    also reads the JAX package's `.msgpack`), `save_log` and `save_psi`.
 """
 
 from __future__ import annotations
@@ -95,6 +97,7 @@ class TrainConfig:
     n_train: int = 5000
     lr: float = 1e-3
     lr_final: float = 5e-4          # second-phase LR
+    lr_lut: float = 1e-2            # constant LR of the LUT tables
     use_lr_schedule: bool = True
     adam_b1: float = 0.9
     adam_b2: float = 0.99
@@ -124,13 +127,21 @@ class TrainConfig:
             return self.lr_final
         return self.lr
 
-    def make_optimizer(self, params):
+    def make_optimizer(self, params, lut_params=()):
         """(Adam, LambdaLR): step the scheduler once per APPLIED update.
-        The base LR is 1, so the schedule's value is the LR itself."""
-        opt = torch.optim.Adam(params, lr=1.0,
+        The base LR is 1, so the schedule's value is the LR itself. Given
+        `lut_params` (the LUT tables), they form a second group held at the
+        constant lr_lut while `params` follow the two-phase schedule."""
+        groups = [{"params": list(params)}]
+        lambdas = [self.lr_at]
+        lut_params = list(lut_params)
+        if lut_params:
+            groups.append({"params": lut_params})
+            lambdas.append(lambda n_updates: self.lr_lut)
+        opt = torch.optim.Adam(groups, lr=1.0,
                                betas=(self.adam_b1, self.adam_b2),
                                eps=self.adam_eps)
-        return opt, torch.optim.lr_scheduler.LambdaLR(opt, self.lr_at)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambdas)
 
     def make_clip(self, device=None) -> Optional[TrailingClip]:
         """The gradient clip in front of Adam, or None without grad_clip_factor."""
@@ -274,7 +285,10 @@ class VMCTrainer:
         self._ovf_step = -(10 ** 9)
 
     def _new_optimizer(self):
-        self.optimizer, self.scheduler = self.tc.make_optimizer(self.model.parameters())
+        named = list(self.model.named_parameters())
+        self.optimizer, self.scheduler = self.tc.make_optimizer(
+            [p for k, p in named if not k.startswith("lut")],
+            [p for k, p in named if k.startswith("lut")])
         self.clip = self.tc.make_clip(self.device)
 
     def _note_overflow(self):
@@ -673,6 +687,15 @@ class VMCTrainer:
             return float(e0), nu
         return float(eigsh(H, k=1, which="SA")[0][0]), nu
 
+    def save_log(self, fname: str = "log") -> str:
+        """Write the metrics as <fname>.jsonl (and <fname>.pkl where pandas
+        imports; `utils/profiling.save_log`)."""
+        from naqs_tpu_torch.utils.profiling import save_log
+
+        assert self.save_loc, "save_loc not set"
+        os.makedirs(self.save_loc, exist_ok=True)
+        return save_log(self.log, os.path.join(self.save_loc, fname))
+
     # -- checkpoints
     def save(self, fname: str = "checkpoint") -> str:
         """Write <fname>.pt (the model, Adam, LR-schedule and clip state and
@@ -765,21 +788,28 @@ class VMCTrainer:
         if params_only:
             return
         parts = optax_parts(state["opt_state"])
-        if "adam" not in parts or ("clip" in parts) != (self.clip is not None):
+        has_lut = len(self.optimizer.param_groups) > 1
+        if ("adam" not in parts or ("clip" in parts) != (self.clip is not None)
+                or ("adam_lut" in parts) != has_lut):
             raise ValueError("the checkpoint's optimizer chain does not match this trainer's")
-        adam = parts["adam"]
-        count = int(adam["count"])
-        mu = params_from_jax(jax_params(adam["mu"]))
-        nu = params_from_jax(jax_params(adam["nu"]))
+        # optax.multi_transform keeps one Adam a label, "mlp" and "lut"; each
+        # holds moments for its own parameters only
+        mu, nu, steps = {}, {}, {}
+        for adam in [parts["adam"]] + ([parts["adam_lut"]] if has_lut else []):
+            got = params_from_jax(jax_params(adam["mu"]))
+            mu.update(got)
+            nu.update(params_from_jax(jax_params(adam["nu"])))
+            steps.update(dict.fromkeys(got, int(adam["count"])))
         for name, p in named.items():
             self.optimizer.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
+                "step": torch.tensor(float(steps[name]), dtype=torch.float32),
                 "exp_avg": mu[name].to(p.device), "exp_avg_sq": nu[name].to(p.device)}
         # the schedule counts applied updates, as the scheduler's last_epoch
-        applied = int(parts["schedule"]["count"]) if "schedule" in parts else count
+        applied = (int(parts["schedule"]["count"]) if "schedule" in parts
+                   else int(parts["adam"]["count"]))
         self.scheduler.last_epoch = applied
-        for g in self.optimizer.param_groups:
-            g["lr"] = self.tc.lr_at(applied)
+        for g, lr_at in zip(self.optimizer.param_groups, self.scheduler.lr_lambdas):
+            g["lr"] = lr_at(applied)
         self.scheduler._last_lr = [g["lr"] for g in self.optimizer.param_groups]
         if self.clip is not None:
             self.clip.load_state_dict(parts["clip"])

@@ -4,7 +4,8 @@
 `flax.serialization.to_bytes({"params": ..., "opt_state": ...})`: msgpack
 maps, strings, ints, floats, and flax's ext types for arrays (1: an ndarray
 as the msgpack triple (shape, dtype name, C-order bytes); 3: a numpy scalar
-the same way). Arrays over 2^30 bytes are split into a map marked
+the same way; bfloat16 arrays come back as torch.bfloat16 tensors). Arrays
+over 2^30 bytes are split into a map marked
 `__msgpack_chunked_array__`. Tuples and lists arrive as maps keyed "0", "1",
 ... (flax's state-dict form).
 """
@@ -14,16 +15,20 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+import torch
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 _CHUNKED = "__msgpack_chunked_array__"
 
 
-def _ndarray(data: bytes) -> np.ndarray:
+def _ndarray(data: bytes):
+    """The array of an ext payload; a bfloat16 one (numpy has no such dtype)
+    as a torch.bfloat16 tensor of the same bits."""
     shape, dtype, buf = unpackb(data)
     dtype = dtype.decode() if isinstance(dtype, bytes) else dtype
     if dtype == "bfloat16":
-        raise NotImplementedError("bfloat16 checkpoint arrays are not supported")
+        bits = np.frombuffer(buf, dtype=np.uint16).reshape(tuple(shape)).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
     return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(tuple(shape)).copy()
 
 
@@ -126,33 +131,48 @@ def read_flax_msgpack(blob: bytes):
     return _unchunk(unpackb(blob))
 
 
+def _masked(node) -> bool:
+    """True if every leaf of node is an empty map: optax.masked's MaskedNode,
+    the place of a parameter another label's transform owns."""
+    if isinstance(node, dict):
+        return all(_masked(v) for v in node.values())
+    return False
+
+
 def jax_params(state: dict) -> dict:
     """A parameter tree of the state dict (its layer lists as maps keyed "0",
     "1", ...) as the nested dict/list tree `models/convert.params_from_jax`
-    takes."""
-    return {name: [group[str(i)] for i in range(len(group))] for name, group in state.items()}
+    takes. Groups that are masked out (the other label's parameters in one
+    label's Adam moments under optax.multi_transform) are left out."""
+    return {name: [group[str(i)] for i in range(len(group))]
+            for name, group in state.items() if not (group and _masked(group))}
 
 
 def optax_parts(opt_state) -> dict:
     """The parts of an optax chain's state that the port keeps, found by
     their fields: "adam" (count, mu, nu of scale_by_adam), "clip" (norms,
     count of the adaptive trailing clip) and "schedule" (the count of
-    scale_by_schedule)."""
+    scale_by_schedule). Under optax.multi_transform ("inner_states" by
+    label) the "mlp" label's parts keep these names and another label's get
+    its name appended ("adam_lut")."""
     found = {}
 
-    def walk(node):
+    def walk(node, suffix=""):
         if not isinstance(node, dict):
             return
         keys = set(node)
         if {"count", "mu", "nu"} <= keys:
-            found.setdefault("adam", node)
+            found.setdefault("adam" + suffix, node)
         elif keys == {"norms", "count"}:
             found.setdefault("clip", node)
         elif keys == {"count"}:
-            found.setdefault("schedule", node)
+            found.setdefault("schedule" + suffix, node)
+        elif keys == {"inner_states"}:
+            for label, inner in node["inner_states"].items():
+                walk(inner, "" if label == "mlp" else f"_{label}")
         else:
             for k in sorted(node, key=lambda k: (len(k), k)):
-                walk(node[k])
+                walk(node[k], suffix)
 
     walk(opt_state)
     return found

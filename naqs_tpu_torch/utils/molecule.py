@@ -186,9 +186,12 @@ def _resolve(name_or_path: str) -> str:
         f"molecule '{name_or_path}' not found (searched {roots})")
 
 
-def load_molecule(name_or_path: str, load_hamiltonian: bool = True) -> Molecule:
+def load_molecule(name_or_path: str, load_hamiltonian: bool = True,
+                  hamiltonian_fname: str | None = None) -> Molecule:
     """Load a molecule by name (package data, then NAQS_TPU_MOLECULE_DIR) or
-    by path to an `.npz`, an `.hdf5`, or a folder holding either."""
+    by path to an `.npz`, an `.hdf5`, or a folder holding either.
+    `hamiltonian_fname` names a pickled qubit Hamiltonian to use instead of
+    the Jordan-Wigner transform of the integrals."""
     path = _resolve(name_or_path)
     if path.endswith(".hdf5"):
         d = _read_hdf5(path)
@@ -196,4 +199,8 @@ def load_molecule(name_or_path: str, load_hamiltonian: bool = True) -> Molecule:
         with np.load(path, allow_pickle=False) as z:
             d = {k: z[k] for k in z.files}
     d.setdefault("name", os.path.splitext(os.path.basename(path))[0])
-    return molecule_from_fields(d, load_hamiltonian=load_hamiltonian)
+    pickled = load_hamiltonian and hamiltonian_fname is not None
+    mol = molecule_from_fields(d, load_hamiltonian=load_hamiltonian and not pickled)
+    if pickled:
+        mol.qubit_hamiltonian = load_qubit_hamiltonian_pickle(hamiltonian_fname)
+    return mol

@@ -40,20 +40,25 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
-def _cfgs(c):
-    kw = dict(amp_hidden=(16,), phase_hidden=(16,))
+# the model of the LUT cases: tables for the first two shells, with per-shell
+# phase nets and so per-shell phase tables too
+LUT = dict(num_lut=2, aggregate_phase=True)
+
+
+def _cfgs(c, model=None):
+    kw = dict(amp_hidden=(16,), phase_hidden=(16,), **(model or {}))
     n = c.mol_t.n_qubits
     return (nt.NAQSConfig(n_qubits=n, sectors=c.h_t.sectors, **kw),
             nq.NAQSConfig(n_qubits=n, sectors=c.h_j.sectors, **kw))
 
 
-def _port(c, save_loc, **tc):
-    return VMCTrainer(_cfgs(c)[0], c.terms_t, c.h_t, TrainConfig(**dict(TC, **tc)), device="cpu",
-                      save_loc=str(save_loc))
+def _port(c, save_loc, model=None, **tc):
+    return VMCTrainer(_cfgs(c, model)[0], c.terms_t, c.h_t, TrainConfig(**dict(TC, **tc)),
+                      device="cpu", save_loc=str(save_loc))
 
 
-def _jax(c, save_loc, **tc):
-    return trainer_j.VMCTrainer(_cfgs(c)[1], c.terms_j, c.h_j,
+def _jax(c, save_loc, model=None, **tc):
+    return trainer_j.VMCTrainer(_cfgs(c, model)[1], c.terms_j, c.h_j,
                                 trainer_j.TrainConfig(**dict(TC, **tc)), save_loc=str(save_loc))
 
 
@@ -165,10 +170,10 @@ def test_run_saves_every_save_freq_steps(tmp_path):
 
 # ------------------------------------------------------------ across the packages
 
-def _jax_checkpoint(c, tmp_path, **tc):
+def _jax_checkpoint(c, tmp_path, model=None, **tc):
     """A JAX trainer after 3 clipped updates on fixed batches, with a counter,
     saved to tmp_path; returns it."""
-    tr_j = _jax(c, tmp_path, **tc)
+    tr_j = _jax(c, tmp_path, model, **tc)
     for seed in range(3):
         bj, _ = _batches(c, seed)
         tr_j.params, tr_j.opt_state, _ = trainer_j.vmc_update(
@@ -183,20 +188,38 @@ def _jax_checkpoint(c, tmp_path, **tc):
 
 @pytest.mark.parametrize("schedule", [True, False])
 def test_jax_checkpoint_loads_into_the_port(tmp_path, schedule):
+    _check_jax_checkpoint_loads(tmp_path, schedule, None)
+
+
+@pytest.mark.parametrize("schedule", [True, False])
+def test_jax_checkpoint_with_lut_groups_loads_into_the_port(tmp_path, schedule):
+    """optax.multi_transform's two Adams (the MLP group on the schedule, the
+    LUT tables at lr_lut) arrive in the port's two parameter groups."""
+    tr_t = _check_jax_checkpoint_loads(tmp_path, schedule, LUT)
+    assert len(tr_t.optimizer.param_groups) == 2
+    assert [g["lr"] for g in tr_t.optimizer.param_groups][1] == TrainConfig().lr_lut
+
+
+def _check_jax_checkpoint_loads(tmp_path, schedule, model):
     c = case("H2O")
-    tr_j = _jax_checkpoint(c, tmp_path, use_lr_schedule=schedule)
-    tr_t = _port(c, tmp_path, use_lr_schedule=schedule).load()
+    tr_j = _jax_checkpoint(c, tmp_path, model, use_lr_schedule=schedule)
+    tr_t = _port(c, tmp_path, model, use_lr_schedule=schedule).load()
 
     want = params_from_jax(jax.tree_util.tree_map(np.asarray, tr_j.params))
-    for k, p in tr_t.model.named_parameters():
+    named = dict(tr_t.model.named_parameters())
+    assert set(named) == set(want)
+    for k, p in named.items():
         assert torch.equal(p.detach(), want[k]), k
     parts = optax_parts(jax.tree_util.tree_map(np.asarray, _state_dict(tr_j.opt_state)))
-    mu = params_from_jax(jax_params(parts["adam"]["mu"]))
-    nu = params_from_jax(jax_params(parts["adam"]["nu"]))
-    for k, p in tr_t.model.named_parameters():
-        st = tr_t.optimizer.state[p]
-        assert torch.equal(st["exp_avg"], mu[k]) and torch.equal(st["exp_avg_sq"], nu[k]), k
-        assert float(st["step"]) == int(parts["adam"]["count"]) == 3
+    assert ("adam_lut" in parts) == bool(model)
+    for adam in [parts[k] for k in ("adam", "adam_lut") if k in parts]:
+        mu = params_from_jax(jax_params(adam["mu"]))
+        nu = params_from_jax(jax_params(adam["nu"]))
+        assert mu and set(mu) == set(nu)
+        for k in mu:
+            st = tr_t.optimizer.state[named[k]]
+            assert torch.equal(st["exp_avg"], mu[k]) and torch.equal(st["exp_avg_sq"], nu[k]), k
+            assert float(st["step"]) == int(adam["count"]) == 3
     assert torch.equal(tr_t.clip.norms, torch.as_tensor(np.array(parts["clip"]["norms"])))
     assert int(tr_t.clip.count) == 3 and tr_t.scheduler.last_epoch == 3
     assert tr_t.sampled_counter == tr_j.sampled_counter
@@ -214,6 +237,26 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path, schedule):
     for k, p in tr_t.model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[k].numpy(), rtol=0, atol=1e-6,
                                    err_msg=k)
+    return tr_t
+
+
+def test_round_trip_with_lut_groups(tmp_path):
+    """Both parameter groups, their Adam state and LRs, bitwise."""
+    c = case("H2O")
+    tr = _port(c, tmp_path, LUT, n_train=4)
+    for _ in range(3):
+        tr.step()
+    tr.save()
+    back = _port(c, tmp_path, LUT, n_train=4, seed=11).load()
+    sa, sb = tr.optimizer.state_dict(), back.optimizer.state_dict()
+    assert len(sa["param_groups"]) == 2 and sa["param_groups"] == sb["param_groups"]
+    for i in sa["state"]:
+        for k in sa["state"][i]:
+            assert torch.equal(sa["state"][i][k], sb["state"][i][k])
+    for (k, a), (_, b) in zip(tr.model.state_dict().items(), back.model.state_dict().items()):
+        assert torch.equal(a, b), k
+    a, b = tr.step(), back.step()
+    assert (a["e_loc"], a["grad_norm"]) == (b["e_loc"], b["grad_norm"])
 
 
 def test_jax_checkpoint_params_only(tmp_path):

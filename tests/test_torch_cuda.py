@@ -33,15 +33,24 @@ one; `run_density` launches `compact_children` once per shell and never
 `split_and_compact`; a checkpoint round trip restores every tensor and the
 card's generator bitwise, and the next step draws the same batch and gives
 its energy within 2e-4 Ha (the engines' bar).
+
+The CLI on the card (chip_smoke.py phase 13's two runs at a small width,
+3 steps): finite energies, the run's files, and each kernel of its path
+launched. A LUT model's `sample()` with float32 and float64 conditionals:
+every shell's `split_and_compact` (the f64 instantiation for float64)
+bitwise equal to its plain version on that shell's inputs, and the sampled
+frequencies within 4 sqrt(p(1-p)/n) + 5e-5 of |psi|^2.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
 
 import naqs_tpu_torch as nt
+from naqs_tpu_torch.models import nade as nade_t
 from naqs_tpu_torch.ops.dyn_gather import (rank_gather2, rank_gather2_ref, rank_ratio_rowsum,
                                            rank_ratio_rowsum_ref, rowsum_tolerance)
 from naqs_tpu_torch.ops import local_energy as le
@@ -768,7 +777,7 @@ def test_sampler_kernels_reject_bad_inputs():
                 lambda: _compact_children(a, a, w.t().contiguous().t(), mask, 0, n),
                 lambda: _compact_children(a, a, w, mask.cpu(), 0, n),
                 lambda: _compact_children(a, a, w, mask, 0, n - 1),
-                lambda: _split_and_compact(a, a, counts, valid, probs.double(), z, u, mask, 0,
+                lambda: _split_and_compact(a, a, counts, valid, probs.half(), z, u, mask, 0,
                                            n),
                 lambda: _split_and_compact(a, a, counts, valid, wide, z, u, mask, 0, n),
                 lambda: _split_and_compact(a, a, counts, valid.cpu(), probs, z, u, mask, 0, n),
@@ -790,7 +799,7 @@ def test_sampler_kernels_reject_bad_inputs():
         launch("compact_children", args, dev)
     f32 = torch.zeros((cap, 4), device=dev)
     draws = torch.zeros((3, cap), device=dev)
-    fused = (ab, ab, args[6], args[7], f32, draws, draws, args[3], *args[4:])
+    fused = (ab, ab, args[6], args[7], f32, draws, draws, args[3], *args[4:], 0)
     with pytest.raises(RuntimeError, match="invalid argument"):
         launch("split_and_compact", fused, dev)
 
@@ -1182,3 +1191,94 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
     back.gen.set_state(state)
     a, b = tr.step(), back.step()
     assert a["n_unique"] == b["n_unique"] and abs(a["e_loc"] - b["e_loc"]) <= 2e-4
+
+
+# ------------------------------------------------------------ the CLI and the NADE variants
+
+_CLI_RUNS = {
+    # chip_smoke.py phase 13's run A at a small width: H2O 6-31G, FactorTerms,
+    # four LUT shells, the H + 0.5 S^2 training operator, exact energies
+    "A": (["-m", "H2O_6-31G_gen", "-n_hid", "8", "-single_phase", "-n_hid_phase", "16",
+           "-n_layer_phase", "2", "-n_lut", "4", "-lr_lut", "1e-2", "-s2_penalty", "0.5",
+           "-pretrain_hf", "2", "-presolveH", "-n_train", "3", "-output_freq", "5",
+           "-n_unq_samps_max", "100000", "-s", "7"],
+          ("split_and_compact", "factored_cells_accumulate", "rank_gather2")),
+    # run B's: N2 STO-3G, DenseTerms, combined trunk, integer inputs, a trace
+    "B": (["-m", "N2_STO-3G_gen", "-n_hid", "8", "-comb_amp_phase", "-input_encoding",
+           "integer", "-n_lut", "3", "-presolveH", "-n_train", "3", "-output_freq", "5",
+           "-profile", "-s", "7"],
+          ("split_and_compact", "dense_grid_accumulate", "rank_gather2")),
+}
+
+
+@pytest.mark.parametrize("run", sorted(_CLI_RUNS))
+def test_cli_runs_on_the_card(run, tmp_path, monkeypatch):
+    """`naqs_tpu_torch.cli.run` with no -platform (the card), in process: each
+    step's energy finite, the run's files written, and each kernel of its
+    path launched."""
+    _card()
+    from naqs_tpu_torch import cli
+
+    argv, kernels = _CLI_RUNS[run]
+    monkeypatch.chdir(tmp_path)
+    wrappers = {"split_and_compact": _split_and_compact,
+                "factored_cells_accumulate": factored_cells_accumulate,
+                "dense_grid_accumulate": dense_grid_accumulate, "rank_gather2": rank_gather2}
+    for w in wrappers.values():
+        w.launches = 0
+    summary = cli.run(argv + ["-o", "out"])["run_0"]
+    launched = {k: w.launches for k, w in wrappers.items()}
+    assert all(launched[k] > 0 for k in kernels), launched
+    lines = [json.loads(x) for x in open("out/log.jsonl")]
+    e_loc = [x["value"] for x in lines if x["key"] == "E_LOC"]
+    assert len(e_loc) == 3 and np.isfinite(e_loc).all()
+    for name in ("summary.json", "args.json", "checkpoint.pt"):
+        assert (tmp_path / "out" / name).exists(), name
+    assert ("e_exact_final" in summary) == (run == "B")
+    if run == "B":
+        assert (tmp_path / "out" / "profile" / "trace.json").exists()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_lut_sampler_on_the_card_matches_the_plain_path(dtype):
+    """A LUT model's `sample()` on the card: every shell's split_and_compact
+    (the f64 instantiation for float64 conditionals) bitwise equal to its plain
+    version on the shell's inputs, and the sampled frequencies within
+    4 sqrt(p(1-p)/n) + 5e-5 of |psi|^2 over N2 STO-3G's 14,400 states."""
+    dev = _card()
+    _, hil = _n2()
+    cfg = nt.NAQSConfig(n_qubits=20, sectors=hil.sectors, amp_hidden=(16,), phase_hidden=(8,),
+                        masking="full", num_lut=3, param_dtype=dtype)
+    model = nade_t.NADE(cfg, torch.Generator().manual_seed(5)).to(dev)
+    n, cap = 2e6, 16384
+    calls = []
+    kernel = sampler_mod._split_and_compact
+
+    def spy(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    spy.launches = 0  # the wrapper counts its launches under its module name
+    sampler_mod._split_and_compact = spy
+    try:
+        batch = sample(model, torch.Generator(device=dev).manual_seed(9), n, cap)
+    finally:
+        sampler_mod._split_and_compact = kernel
+    assert len(calls) == cfg.n_shells and not bool(batch.overflow)
+    want_dtype = torch.float64 if dtype == "float64" else torch.float32
+    for args in calls:
+        assert args[4].dtype == want_dtype
+        got = kernel(*args)
+        ref = _split_and_compact_ref(*args)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    nu = int(batch.n_unique)
+    basis = torch.as_tensor(hil.basis, device=dev)
+    with torch.no_grad():
+        la = nade_t.log_psi(model, basis)[0].double()
+    p = torch.exp(2 * la)
+    p = (p / p.sum()).cpu().numpy()
+    idx = hil.state_to_index(batch.states[:nu].cpu().numpy())
+    freqs = batch.counts[:nu].cpu().numpy() / n
+    tol = 4.0 * np.sqrt(p[idx] * (1 - p[idx]) / n) + 5e-5
+    assert np.all(np.abs(freqs - p[idx]) < tol)
+    assert freqs.sum() > 0.999

@@ -92,6 +92,9 @@ def test_import_pulls_in_neither_jax_nor_naqs_tpu():
         "import sys, pkgutil, importlib, naqs_tpu_torch\n"
         "for m in pkgutil.walk_packages(naqs_tpu_torch.__path__, 'naqs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from naqs_tpu_torch import cli\n"
+        "from naqs_tpu_torch.utils import plotting, profiling\n"
+        "cli.get_parser().parse_args([])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'naqs_tpu' or m.startswith('naqs_tpu.')]\n"
         "print(bad)\n"

@@ -117,16 +117,3 @@ def test_gradients_match_jax(kw):
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=1e-4, atol=1e-6,
                                    err_msg=k)
-
-
-@pytest.mark.parametrize("kw", [dict(num_lut=2), dict(combined_amp_phase=True),
-                                dict(input_encoding="integer"),
-                                dict(phase_activation="tanh")])
-def test_unported_variants_raise(kw):
-    with pytest.raises(NotImplementedError):
-        nt.NAQSConfig(n_qubits=14, sectors=((5, 5),), **kw)
-
-
-def test_params_from_jax_refuses_lut_groups():
-    with pytest.raises(NotImplementedError):
-        params_from_jax({"amp": [], "phase": [], "lut": []})

@@ -153,3 +153,21 @@ def test_tempered_frequencies_match_tempered_conditionals():
     occ = (alpha + 2 * beta_bits)[..., None]
     q = torch.take_along_dim(cond, occ, dim=-1)[..., 0].prod(-1).numpy()
     _check_freqs(states, counts, n, q, basis)
+
+
+@pytest.mark.parametrize("kw", [dict(num_lut=3), dict(num_lut=2, param_dtype="float64"),
+                                dict(num_lut=2, combined_amp_phase=True,
+                                     input_encoding="integer", param_dtype="bfloat16")],
+                         ids=["lut", "lut-float64", "lut-combined-integer-bfloat16"])
+def test_variant_sampler_frequencies_match_psi2(kw):
+    """The sampler on LUT shells (the table row, no MLP), with float64
+    conditionals (split in float64, as JAX splits them) and bfloat16
+    parameters (float32 conditionals)."""
+    c, cfg_j, params, model = _setup(**kw)
+    n = 2e6
+    states, counts, _ = _live(sample(model, _gen(3), n, capacity=512))
+    basis = c.h_t.basis
+    la, _ = nade_j.log_psi(cfg_j, params, jnp.asarray(to_u64(basis)))
+    p = np.exp(2 * np.asarray(la, dtype=np.float64))
+    p /= p.sum()
+    assert _check_freqs(states, counts, n, p, basis).sum() > 0.999

@@ -385,7 +385,7 @@ def test_wrappers_reject_bad_inputs():
                 lambda: _compact_children(a, a, w, flags, 0, n + 1),
                 lambda: _compact_children(a, a, w, flags, 63, n),
                 lambda: _compact_children(a, a.to("meta"), w, flags, 0, n),
-                lambda: _split_and_compact(a, a, counts, flags[:, 0], probs.double(), z, u,
+                lambda: _split_and_compact(a, a, counts, flags[:, 0], probs.half(), z, u,
                                            flags, 0, n),
                 lambda: _split_and_compact(a, a, counts.float(), flags[:, 0], probs, z, u, flags,
                                            0, n),

@@ -385,3 +385,65 @@ def test_sample_controller_overflow_hysteresis():
     tr.n_samples = 1e7
     tr.n_steps += tr.OVF_RETRY_STEPS
     assert not tr._grow_blocked()
+
+
+def test_lut_groups_step_matches_jax_multi_transform():
+    """num_lut=2: the port's two Adam groups against naqs_tpu's
+    optax.multi_transform chain (the MLP group on the two-phase schedule, the
+    LUT tables at the constant lr_lut), 3 updates across the LR switch
+    (n_train=4: lr for updates 0-1, lr_final from update 2). Each update's
+    gradients are the JAX ones on the same batch at JAX's parameters, fed to
+    both optimizers (the port's own gradients are held to them first); a
+    withheld update moves neither group."""
+    kw = dict(num_lut=2, aggregate_phase=True)
+    c, cfg_j, params, model = _setup(seed=6, **kw)
+    bj, bt = _batches(c)
+    dt_j = DeviceTermsJ.from_terms(c.terms_j, hilbert=c.h_j)
+    dt_t = DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu")
+    _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, False)
+
+    tc_j = trainer_j.TrainConfig(n_train=4, lr=1e-2, lr_final=3e-3, lr_lut=2e-2)
+    tc = TrainConfig(n_train=4, lr=1e-2, lr_final=3e-3, lr_lut=2e-2)
+    opt_j = tc_j.make_optimizer(has_lut=True)
+    state_j = opt_j.init(params)
+    model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    named = dict(model.named_parameters())
+    lut = [k for k in named if k.startswith("lut")]
+    assert sorted(lut) == ["lut.0", "lut.1", "lut_phase.0", "lut_phase.1"]
+    opt_t, sched = tc.make_optimizer([p for k, p in named.items() if k not in lut],
+                                     [named[k] for k in lut])
+    grab = _grab_grads()
+    p_j = params
+    for step in range(3):
+        _, g_j, _ = trainer_j._vmc_update_impl(cfg_j, grab, p_j, grab.init(p_j), dt_j, bj,
+                                               False)
+        upd, state_j = opt_j.update(g_j, state_j, p_j)
+        p_j = optax.apply_updates(p_j, upd)
+        g_t = params_from_jax(jax.tree_util.tree_map(np.asarray, g_j))
+        for k, p in named.items():
+            p.grad = g_t[k].clone()
+        opt_t.step()
+        sched.step()
+        want = params_from_jax(jax.tree_util.tree_map(np.asarray, p_j))
+        for k, p in named.items():
+            np.testing.assert_allclose(p.detach().numpy(), want[k].numpy(), rtol=1e-5,
+                                       atol=1e-7, err_msg=f"{k} step {step}")
+        lrs = [g["lr"] for g in opt_t.param_groups]
+        assert lrs == [tc.lr if step < 1 else tc.lr_final, tc.lr_lut], (step, lrs)
+    # a withheld update (overflow) leaves both groups and their Adam state
+    _, bt_ovf = _batches(c, overflow=True)
+    before = _snapshot(model, opt_t)
+    m = vmc_update(model, opt_t, sched, dt_t, bt_ovf)
+    assert not m["applied"]
+    _same(before, _snapshot(model, opt_t))
+
+
+def test_vmc_update_with_float64_params_matches_jax():
+    """param_dtype float64: log_psi in float64, E_loc from its float32 cast,
+    the loss and gradients in float64."""
+    c, cfg_j, params, model = _setup(seed=8, param_dtype="float64", num_lut=2)
+    assert {p.dtype for p in model.parameters()} == {torch.float64}
+    bj, bt = _batches(c)
+    dt_j = DeviceTermsJ.from_terms(c.terms_j, hilbert=c.h_j)
+    dt_t = DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu")
+    _check_update_matches_jax(c, cfg_j, params, model, bj, bt, dt_j, dt_t, False)

@@ -11,10 +11,12 @@
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. build every CUDA kernel with nvcc (one nvcc per source, started
-     together): csrc/rank_gather.cu, csrc/grid_engine.cu (the factored cells,
-     dense and staircase accumulations), csrc/sampler_step.cu, csrc/sort_lookup.cu
-     (the sort engine's lookups and its one-launch E_loc) and csrc/offdiag_h.cu
-     (the per-term H row);
+     together): csrc/rank_gather.cu (with the rank engine's one-launch E_loc
+     and quadratic form), csrc/grid_engine.cu (the factored cells, dense and
+     staircase accumulations), csrc/sampler_step.cu, csrc/sort_lookup.cu (the
+     sort engine's lookups, its one-launch E_loc and quadratic form; the
+     one-launch kernels' shared body is csrc/row_energy.cuh) and
+     csrc/offdiag_h.cu (the per-term H row);
   2. print the card's name and power limit (nvidia-smi);
   3. set up H2O 6-31G (26 qubits, sector (5, 5), 1,656,369 states) and the
      paper-scale model (amp 64, phase 512x512, global phase net, partial
@@ -103,7 +105,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      rank engine per live row within phase 9's tolerance, and with no dense A
      (a_mat=None: one sorted_local_energy launch, no other kernel) within
      ENGINE_TOL, and quadratic_energy through sorted_gather2 within QUAD_RTOL of
-     phase 8's; each kernel launched once per chunk and no other. Then N2 6-31G
+     phase 8's; each kernel launched once per chunk and no other. The rank
+     engine with no dense A (a_mat=None) on the same batch: local_energy one
+     rank_local_energy launch and nothing else, within ENGINE_TOL of the rank
+     engine with a dense A, and quadratic_energy one rank_quadratic_energy
+     launch, within QUAD_RTOL of phase 8's; rank_quadratic_energy against its
+     plain version per row (num and w within rank_quadratic_energy_tolerance)
+     and twice bitwise. Then N2 6-31G
      (naqs_tpu_torch/data/N2_6-31G_gen.npz: 36 qubits, sector (7, 7) of
      1,012,766,976 states, 137,872 terms; the dispatch must carry no RankSpec,
      no grid program and no dense A) with the paper-scale model of phase 3 and
@@ -121,9 +129,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      local_energy call, split_and_compact 18 times per sample() call, no
      other kernel); 8 rows of a fresh batch against local_energy_np
      (ELOC_TOL); quadratic_energy on that batch with the counts at 0 before
-     (sorted_gather2 and offdiag_h_terms once per chunk, 782 each, no other
-     kernel) within QUAD_RTOL of the same call through sorted_gather2's plain
-     version. The host layer: the native library builds, its COO assembly
+     (one sorted_quadratic_energy launch, no other kernel; the earlier design ran 782
+     chunks of sorted_gather2 and offdiag_h_terms) within QUAD_RTOL of the same
+     call through its plain version, and the kernel against its plain version
+     per row (sorted_quadratic_energy_tolerance) and twice bitwise;
+ 10d. frozen-core N2 6-31G: freeze_core(N2 6-31G's terms of 10c, 4), 32
+     qubits, sector (5, 5) of 19,079,424 states, 87,628 terms; the dispatch
+     must carry a RankSpec, no grid program and no dense A (the rank engine's
+     one-launch rank_local_energy); the paper-scale model of phase 3, capacity
+     100,000: rank_local_energy on a sampled buffer per row within
+     rank_local_energy_tolerance of its plain version, on the live rows within
+     that bound without the H entries' term of this tree's offdiag_h_terms +
+     rank_ratio_rowsum composed over the 391 chunks the parent ran, padding
+     rows their diagonal and 0, twice bitwise; what the call tests and reads
+     (pairs inside a sector, distinct table rows, found pairs); FROZEN_STEPS
+     training steps with the counts at 0 before (rank_local_energy once per
+     local_energy call, split_and_compact once per shell, no other kernel).
+     The host layer: the native library builds, its COO assembly
      of N2 STO-3G's 14,400-state sector equals numpy's, and the ground state of
      assemble_sparse_hamiltonian_np is the stored FCI energy within 1e-6 Ha;
  11. times, in turns: REPEATS repeats of LAUNCHES launches each (median and
@@ -177,6 +199,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      SLOW_REPEATS unheld repeats of one whole N2 6-31G local_energy call,
      through the kernel (first held against the call through its plain
      version within ENGINE_TOL) and, with --before, through DIR's chunk loop.
+     The one-launch kernels of the spaces with no dense A: the chunk loops
+     they replaced first held against them (this tree's kernels composed as
+     the parent ran them; with --before DIR, DIR's own chunk loop and
+     quadratic_energy), REPEATS of ENERGY_LAUNCHES of each kernel held and
+     unheld, then SLOW_REPEATS of 1 in turns of each kernel, the chunk loop it
+     replaced and the whole quadratic_energy calls (N2 6-31G; H2O 6-31G with
+     and without a dense A; with --before, DIR's), held and unheld (each
+     plain version: the wall time of its one call in the checks above, between
+     two synchronizes); SLOW_REPEATS unheld of one whole frozen-core N2
+     local_energy call, this tree's and, with --before, DIR's chunk loop.
      Each is
      timed held (behind a card sleep of twice its unheld run in the warm-up,
      so the launches run back to back: the card's time, reported as "ms");
@@ -225,7 +257,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      finite. It prints each step's wall time, each run's, the launches of
      every kernel, and the per-step cost against phases 6 and 10.
 With --profile, the profiled step of each engine (H2O 6-31G factored and
-rank, Li2O staircase) must show one device kernel per wrapper call of the
+rank, Li2O staircase, N2 6-31G sort, frozen-core N2 6-31G rank with no
+dense A) must show one device kernel per wrapper call of the
 sampler's kernels and of the engine's own; it prints the step's device time
 and the card's busy share of the step before it.
 Prints a {"kernels": [...]} JSON line (launches from phase 6 for
@@ -234,9 +267,12 @@ compact_children (0: the standalone kernels left sample()'s path; their
 launches in phase 5b's sample_density call as "launches_sample_density"), 7
 for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
 for xl_grid_accumulate, 10c's N2 steps for sorted_local_energy,
-sorted_ratio_rowsum and offdiag_h_terms (0: the last two run where a dense A
-exists, and in quadratic_energy, beside which their launches there stand)
-and its N2 quadratic_energy call for sorted_gather2; phase 12's
+sorted_ratio_rowsum and offdiag_h_terms (0: sorted_ratio_rowsum runs where
+the sort engine has a dense A; offdiag_h_terms on no path now,
+beside which its launches in the N2 quadratic_energy call and the
+frozen-core steps stand), its N2 quadratic_energy call for sorted_gather2
+(0: it runs only with a dense A) and sorted_quadratic_energy, 10c's H2O 6-31G call for
+rank_quadratic_energy, 10d's steps for rank_local_energy; phase 12's
 exact_energy call for rank_gather2's "launches_exact_energy" and its
 run_density steps for compact_children's "launches_run_density"; the
 staircase kernel's bound_ms counts what the function needs on the
@@ -274,6 +310,8 @@ N2_STEPS = 2                  # training steps of N2 6-31G on the sort engine
 SORT_LAUNCHES = 10            # timing of the sort engine's kernels: launches per repeat
 ENERGY_LAUNCHES = 5           # timing of sorted_local_energy: launches per repeat
 SEARCH_OPS = 3                # integer operations per level of a search: load, compare, select
+SECTOR_OPS = 6                # per coupled state of a rank kernel: xor, two and + popcount, compare
+FROZEN_STEPS = 3              # training steps of frozen-core N2 6-31G (rank engine, no dense A)
 REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
 SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and more
 CLIP_FACTOR = 1.0             # phase 12: clip to the trailing mean (bites on a rising norm)
@@ -299,6 +337,78 @@ SHELL_SRC = {"source": "naqs_tpu_torch/csrc/sampler_step.cu",
              "note": "no Pallas counterpart: XLA-lowered in JAX"}
 GRID_SRC = {"source": "naqs_tpu_torch/csrc/grid_engine.cu",
             "note": "no Pallas counterpart: XLA-lowered in JAX"}
+
+
+def _rank_work(spec, table, s_live, xy, sizes, found_above, chunk=512):
+    """What the one-launch rank kernels' work is on these live rows' data: the
+    (row, flip mask with terms) pairs, those inside a sector (each reads its
+    table row), the distinct table rows read, the found pairs and the terms
+    of their groups."""
+    import torch
+
+    from naqs_tpu_torch.ops.rank import rank_index
+
+    real = sizes > 0
+    xr, sr = xy[real], sizes[real]
+    seen = torch.zeros(spec.size + 1, dtype=torch.bool, device=xy.device)
+    work = {"pairs": s_live.numel() * xr.numel(), "inside": 0, "found": 0, "terms": 0}
+    for i in range(0, s_live.numel(), chunk):
+        idx = rank_index(spec, s_live[i:i + chunk, None] ^ xr[None, :])
+        inside = idx < spec.size
+        seen[idx[inside]] = True
+        hit = inside & (table[idx, 0] > found_above)
+        work["inside"] += int(inside.sum())
+        work["found"] += int(hit.sum())
+        work["terms"] += int((hit * sr[None, :]).sum())
+    work["rows"] = int(seen.sum())
+    return work
+
+
+def _search_work(table, n_valid, s_live, xy, sizes, chunk=512):
+    """The same for the search kernels: the pairs, the found pairs (a flip
+    mask with terms), the terms of their groups and the distinct table rows
+    found."""
+    import torch
+
+    from naqs_tpu_torch.ops.sort_lookup import lookup
+
+    real = sizes > 0
+    xr, sr = xy[real], sizes[real]
+    work = {"pairs": s_live.numel() * xr.numel(), "found": 0, "terms": 0}
+    rows = []
+    for i in range(0, s_live.numel(), chunk):
+        q = s_live[i:i + chunk, None] ^ xr[None, :]
+        hit = lookup(*table, n_valid, q)[0]
+        work["found"] += int(hit.sum())
+        work["terms"] += int((hit * sr[None, :]).sum())
+        rows.append(torch.searchsorted(table[0], q[hit]))
+    work["rows"] = int(torch.unique(torch.cat(rows)).numel())
+    return work
+
+
+def _row_bound(work, n_live, cap, n_cols, n_terms, n_diag, lookup_ops, lookup_bytes):
+    """bound of a one-launch row kernel: per pair lookup_ops, 3 per walked term,
+    the epilogue per found pair, 3 per diagonal term of a live row; each input
+    read once (lookup_bytes of the table, xy and xy_ptr, the grouped terms (16
+    B a term, at most the n_terms there are), the diagonal terms, every row's
+    state and a live row's la and ph), the two f64 outputs written once."""
+    ops = (lookup_ops + 3 * work["terms"] + EPILOGUE_OPS * work["found"]
+           + 3 * n_live * n_diag)
+    n_bytes = (lookup_bytes + n_cols * 12 + min(work["terms"], n_terms) * 16 + n_diag * 16
+               + cap * 8 + n_live * 8 + cap * 16)
+    return _bound(n_bytes, ops), ops, n_bytes
+
+
+def _timed(fn):
+    """(fn(), ms): one call's wall time between two synchronizes, for plain
+    versions of seconds a call, whose device work hides their enqueue."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.time() - t) * 1e3
 
 
 def _bound(n_bytes, n_ops):
@@ -828,7 +938,8 @@ def _before_modules(before):
     the first slice, {"grid", "dense_engine": its ops/grid_kernels and
     ops/dense_engine} where it has csrc/grid_engine.cu, {"sampler": its sampler, "multinomial": its
     ops/multinomial} where it has csrc/sampler_step.cu, {"sort_lookup",
-    "offdiag_h", "local_energy": its ops/...} where it has csrc/sort_lookup.cu."""
+    "offdiag_h", "local_energy", "dyn_gather": its ops/...} where it has
+    csrc/sort_lookup.cu."""
     import importlib
     import inspect
 
@@ -859,6 +970,8 @@ def _before_modules(before):
                 mods[name] = importlib.import_module(f"naqs_tpu_torch.ops.{name}")
             mods["sort_lookup"]._lib()
             mods["offdiag_h"]._lib()
+            dyn._lib()
+            mods["dyn_gather"] = dyn
     finally:
         sys.path.remove(before)
         for k in [k for k in sys.modules if ours(k)]:
@@ -1304,10 +1417,14 @@ def main(argv) -> int:
     from naqs_tpu_torch.ops import _build
     from naqs_tpu_torch.ops import local_energy as le
     from naqs_tpu_torch.ops.dense_engine import _xl_blocked_idx, value_grid, xl_value_grid
-    from naqs_tpu_torch.ops.dyn_gather import (ROWSUM_ATOL, ROWSUM_RTOL, rank_gather2,
-                                               rank_gather2_ref, rank_ratio_rowsum,
-                                               rank_ratio_rowsum_ref, ratio_rowsum,
-                                               rowsum_tolerance)
+    from naqs_tpu_torch.ops.dyn_gather import (QUAD_MISS, ROWSUM_ATOL, ROWSUM_RTOL,
+                                               rank_gather2, rank_gather2_ref,
+                                               rank_local_energy, rank_local_energy_ref,
+                                               rank_local_energy_tolerance,
+                                               rank_quadratic_energy, rank_quadratic_energy_ref,
+                                               rank_quadratic_energy_tolerance,
+                                               rank_ratio_rowsum, rank_ratio_rowsum_ref,
+                                               ratio_rowsum, rowsum_tolerance)
     from naqs_tpu_torch.ops.dense_engine import factored_local_energy
     from naqs_tpu_torch.ops.grid_kernels import (_live_cells,
                                                  dense_grid_accumulate,
@@ -1321,15 +1438,18 @@ def main(argv) -> int:
 
     from naqs_tpu_torch import native
     from naqs_tpu_torch.hamiltonian import (_assemble_rows_np, assemble_sparse_hamiltonian_np,
-                                            diagonal_energy_np)
+                                            diagonal_energy_np, freeze_core)
     from naqs_tpu_torch.ops.offdiag_h import (OFFDIAG_ATOL, OFFDIAG_RTOL, offdiag_h_terms,
                                               offdiag_h_terms_ref, offdiag_tolerance,
                                               term_group)
     from naqs_tpu_torch.ops.rank import build_value_table, rank_index
-    from naqs_tpu_torch.ops.sort_lookup import (DIAG_RTOL, lookup, pack_table,
+    from naqs_tpu_torch.ops.sort_lookup import (DIAG_RTOL, pack_table,
                                                 sorted_gather2, sorted_gather2_ref,
                                                 sorted_local_energy, sorted_local_energy_ref,
                                                 sorted_local_energy_tolerance, sorted_log_amps,
+                                                sorted_quadratic_energy,
+                                                sorted_quadratic_energy_ref,
+                                                sorted_quadratic_energy_tolerance,
                                                 sorted_ratio_rowsum, sorted_ratio_rowsum_ref)
     from naqs_tpu_torch.ops.sampler_kernels import split_tile_rows
     from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref,
@@ -1342,8 +1462,12 @@ def main(argv) -> int:
     wrappers = (rank_gather2, rank_ratio_rowsum, factored_cells_accumulate,
                 dense_grid_accumulate, multinomial4_split, _compact_children, _split_and_compact,
                 xl_grid_accumulate, sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms,
-                sorted_local_energy)
-    sort_wrappers = (sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms, sorted_local_energy)
+                sorted_local_energy, rank_local_energy, rank_quadratic_energy,
+                sorted_quadratic_energy)
+    # the sort engine's kernels and the one-launch kernels of the spaces with no
+    # dense A: none runs on the grid engines' or the rank engine's step
+    row_wrappers = (sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms, sorted_local_energy,
+                    rank_local_energy, rank_quadratic_energy, sorted_quadratic_energy)
 
     def zero_counts():
         for w in wrappers:
@@ -1645,7 +1769,7 @@ def main(argv) -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if (fact_launches != n_updates or n_updates < 5 or rank_ratio_rowsum.launches
             or rank_gather2.launches or dense_grid_accumulate.launches
-            or xl_grid_accumulate.launches or any(w.launches for w in sort_wrappers)):
+            or xl_grid_accumulate.launches or any(w.launches for w in row_wrappers)):
         raise SystemExit("the main path did not run factored_cells_accumulate once per "
                          "E_loc call, or ran another engine's kernel")
     if not (fused_launches == n_shells * n_draws and n_draws >= 5
@@ -1668,7 +1792,7 @@ def main(argv) -> int:
           flush=True)
     if ratio_launches != per_call * n_updates or n_updates < 2 or \
             factored_cells_accumulate.launches or xl_grid_accumulate.launches or \
-            any(w.launches for w in sort_wrappers):
+            any(w.launches for w in row_wrappers):
         raise SystemExit("the rank path did not run rank_ratio_rowsum once per chunk")
     if not (_split_and_compact.launches == n_shells * n_draws
             and multinomial4_split.launches == _compact_children.launches == 0):
@@ -1746,7 +1870,7 @@ def main(argv) -> int:
           f"multinomial4_split {multinomial4_split.launches}, compact_children "
           f"{_compact_children.launches}", flush=True)
     if (dense_launches != n_updates or n_updates < 3 or any(w.launches for w in wrappers[:3])
-            or xl_grid_accumulate.launches or any(w.launches for w in sort_wrappers)):
+            or xl_grid_accumulate.launches or any(w.launches for w in row_wrappers)):
         raise SystemExit("N2 did not run dense_grid_accumulate once per E_loc call")
     if not (_split_and_compact.launches == cfg2.n_shells * n_draws
             and multinomial4_split.launches == _compact_children.launches == 0):
@@ -1974,6 +2098,56 @@ def main(argv) -> int:
         raise SystemExit("H2O 6-31G: the sort engine disagrees with the rank engine, or ran "
                          "other kernels than its own")
     del e_s, e_g, d_sr
+    # the rank engine with no dense A on the same batch: local_energy one
+    # rank_local_energy launch, against the rank engine with a dense A, and
+    # quadratic_energy one rank_quadratic_energy launch, against phase 8's
+    dt_rank_noa = dataclasses.replace(dt, dense=None, a_mat=None)
+    zero_counts()
+    e_rn = le.local_energy(dt_rank_noa, batch.states, la, ph, batch.n_unique)
+    rn_counts = {w.__name__: w.launches for w in wrappers}
+    zero_counts()
+    q_rn = float(le.quadratic_energy(dt_rank_noa, batch.states, la, ph, batch.n_unique))
+    qrn_counts = {w.__name__: w.launches for w in wrappers}
+    d_rn = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_rn, e_k))
+    q_rel_rn = abs(q_rn - q_k) / abs(q_k)
+    # rank_quadratic_energy against its plain version per row, as quadratic_energy
+    # calls it: the log-amps shifted so that the live maximum is 0
+    terms_h = (dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique, dt.term_coeff)
+    live_h = torch.arange(batch.states.shape[0], device=dev) < batch.n_unique
+    la_qh = torch.where(live_h, la - la[:nu].max(), QUAD_MISS).float().contiguous()
+    ph_qh = ph.float().contiguous()
+    table_qh = build_value_table(spec, batch.states, la_qh, ph_qh, batch.n_unique,
+                                 miss_log_amp=QUAD_MISS)
+    nv_h = le._count(batch.n_unique, dev)
+    rq_args = (spec, table_qh, nv_h, batch.states, la_qh, ph_qh, *terms_h, dt.diag_yz,
+               dt.diag_coeff)
+    rq_got, rq_again = rank_quadratic_energy(*rq_args), rank_quadratic_energy(*rq_args)
+    rq_want, rq_plain_ms = _timed(lambda: rank_quadratic_energy_ref(*rq_args, chunk_rows=chunk))
+    rq_tol = rank_quadratic_energy_tolerance(spec, table_qh, nv_h, batch.states, la_qh,
+                                             *terms_h, dt.diag_coeff, chunk_rows=chunk)
+    rq_diff = [(a - b).abs() for a, b in zip(rq_got, rq_want)]
+    rq_err = float(rq_diff[0].max())
+    rq_ok = all(bool((d <= t).all()) for d, t in zip(rq_diff, rq_tol))
+    rq_same = all(torch.equal(a, b) for a, b in zip(rq_got, rq_again))
+    work_rq = _rank_work(spec, table_qh, batch.states[:nu], dt.xy_unique,
+                         torch.diff(dt.xy_ptr.long()), QUAD_MISS)
+    print(f"[eloc] H2O 6-31G, rank engine with no dense A (a_mat=None): launches {rn_counts}; "
+          f"vs the rank engine with a dense A on {nu} rows {d_rn:.3e} Ha (tol {ENGINE_TOL}); "
+          f"quadratic_energy {q_rn:.10f} vs phase 8's {q_k:.10f}: rel {q_rel_rn:.2e} (tol "
+          f"{QUAD_RTOL}), launches {qrn_counts}", flush=True)
+    print(f"[kernel] rank_quadratic_energy (H2O 6-31G, {batch.states.shape[0]} rows of which "
+          f"{nu} live, Kxy={dt.xy_unique.shape[0]}): vs its plain version num max_abs_err="
+          f"{rq_err:.3e}, worst row at {float((rq_diff[0] / rq_tol[0].clamp_min(1e-300)).max()):.3f} "
+          f"of its tolerance, within (num and w)={rq_ok}, twice bitwise equal={rq_same}; "
+          f"{work_rq}", flush=True)
+    want_rn = dict({w.__name__: 0 for w in wrappers}, rank_local_energy=1)
+    want_qrn = dict({w.__name__: 0 for w in wrappers}, rank_quadratic_energy=1)
+    if not (d_rn <= ENGINE_TOL and q_rel_rn <= QUAD_RTOL and rn_counts == want_rn
+            and qrn_counts == want_qrn and math.isfinite(q_rn) and rq_ok and rq_same):
+        raise SystemExit("H2O 6-31G: the rank engine with no dense A disagrees with the rank "
+                         "engine with one, or ran other kernels than its own one launch, or "
+                         "rank_quadratic_energy disagrees with its plain version")
+    del e_rn
 
     t1 = time.time()
     mol4 = nt.load_molecule("N2_6-31G_gen")
@@ -2114,15 +2288,8 @@ def main(argv) -> int:
     # table rows found
     sizes4 = torch.diff(dt4.xy_ptr.long())
     real4 = sizes4 > 0
-    n_found_pairs, n_found_terms, found_rows = 0, 0, []
-    for c_rows in chunks4[: -(-n_live4 // chunk4)]:
-        s_live = c_rows[1][c_rows[1] != SENTINEL]
-        q_live = s_live[:, None] ^ xy4[real4][None, :]
-        hit = lookup(table4[0], table4[1], table4[2], nv4, q_live)[0]
-        n_found_pairs += int(hit.sum())
-        n_found_terms += int((hit * sizes4[real4][None, :]).sum())
-        found_rows.append(torch.searchsorted(table4[0], q_live[hit]))
-    n_found_rows = int(torch.unique(torch.cat(found_rows)).numel())
+    work4 = _search_work(table4, nv4, table4[0][:n_live4], xy4, sizes4)
+    n_found_pairs, n_found_terms, n_found_rows = (work4[k] for k in ("found", "terms", "rows"))
     torch.cuda.synchronize()
     print(f"[kernel] sorted_local_energy ({cap4} query rows of which {n_live4} live, Kxy="
           f"{xy4.shape[0]} ({int(real4.sum())} with terms), Kd={dt4.diag_yz.shape[0]}): vs its "
@@ -2184,28 +2351,147 @@ def main(argv) -> int:
           flush=True)
     if not (err4 < ELOC_TOL and finite4):
         raise SystemExit("N2 6-31G: the sort engine disagrees with the float64 oracle")
-    # quadratic_energy on the same batch: sorted_gather2 (and the per-term H row)
-    # once per chunk, against the same call through sorted_gather2's plain version
+    # quadratic_energy on the same batch: one sorted_quadratic_energy launch (before:
+    # sorted_gather2 and the per-term H row once per chunk), against the same call
+    # through its plain version; the kernel against its plain version per row
     zero_counts()
     qe4 = float(le.quadratic_energy(dt4, batch4.states, la4, ph4, batch4.n_unique))
     quad4_counts = {w.__name__: w.launches for w in wrappers}
-    le.sorted_gather2 = sorted_gather2_ref
+    le.sorted_quadratic_energy = sorted_quadratic_energy_ref
     try:
         qe4_plain = float(le.quadratic_energy(dt4, batch4.states, la4, ph4, batch4.n_unique))
     finally:
-        le.sorted_gather2 = sorted_gather2
+        le.sorted_quadratic_energy = sorted_quadratic_energy
     qe4_rel = abs(qe4 - qe4_plain) / abs(qe4_plain)
-    want_counts = {w.__name__: 0 for w in wrappers}
-    want_counts.update(sorted_gather2=per_call4, offdiag_h_terms=per_call4)
-    print(f"[quad] N2 6-31G: quadratic_energy through sorted_gather2 {qe4:.10f} vs its plain "
-          f"version {qe4_plain:.10f}: rel {qe4_rel:.2e} (tol {QUAD_RTOL}); launches "
-          f"{quad4_counts}", flush=True)
-    if not (quad4_counts == want_counts and math.isfinite(qe4) and qe4_rel <= QUAD_RTOL):
-        raise SystemExit(f"N2 6-31G: quadratic_energy through sorted_gather2 disagrees with its "
-                         f"plain version, or did not run sorted_gather2 and offdiag_h_terms "
-                         f"once per chunk and nothing else: {quad4_counts} against "
-                         f"{want_counts}")
+    want_counts = dict({w.__name__: 0 for w in wrappers}, sorted_quadratic_energy=1)
+    live4q = torch.arange(cap4, device=dev) < batch4.n_unique
+    la_q4 = torch.where(live4q, la4 - la4[:nu4].max(), QUAD_MISS).float().contiguous()
+    ph_q4 = ph4.float().contiguous()
+    nv4q = le._count(batch4.n_unique, dev)
+    terms4_dev = (dt4.xy_unique, dt4.xy_ptr, dt4.term_yz, dt4.yz_unique, dt4.term_coeff)
+    sq_args = (batch4.states, la_q4, ph_q4, nv4q, *terms4_dev, dt4.diag_yz, dt4.diag_coeff)
+    sq_got, sq_again = sorted_quadratic_energy(*sq_args), sorted_quadratic_energy(*sq_args)
+    sq_want, sq_plain_ms = _timed(lambda: sorted_quadratic_energy_ref(*sq_args,
+                                                                      chunk_rows=chunk4))
+    sq_tol = sorted_quadratic_energy_tolerance(batch4.states, la_q4, ph_q4, nv4q, *terms4_dev,
+                                               dt4.diag_coeff, chunk_rows=chunk4)
+    sq_diff = [(a - b).abs() for a, b in zip(sq_got, sq_want)]
+    sq_err = float(sq_diff[0].max())
+    sq_ok = all(bool((d <= t).all()) for d, t in zip(sq_diff, sq_tol))
+    sq_same = all(torch.equal(a, b) for a, b in zip(sq_got, sq_again))
+    work_sq = _search_work((batch4.states, la_q4, ph_q4), nv4q, batch4.states[:nu4], xy4,
+                           sizes4)
+    print(f"[quad] N2 6-31G: quadratic_energy through sorted_quadratic_energy {qe4:.10f} vs "
+          f"through its plain version {qe4_plain:.10f}: rel {qe4_rel:.2e} (tol {QUAD_RTOL}); "
+          f"launches {quad4_counts}", flush=True)
+    print(f"[kernel] sorted_quadratic_energy ({cap4} rows of which {nu4} live, Kxy="
+          f"{xy4.shape[0]}): vs its plain version num max_abs_err={sq_err:.3e}, worst row at "
+          f"{float((sq_diff[0] / sq_tol[0].clamp_min(1e-300)).max()):.3f} of its tolerance, "
+          f"within (num and w)={sq_ok}, twice bitwise equal={sq_same}; {work_sq}", flush=True)
+    if not (quad4_counts == want_counts and math.isfinite(qe4) and qe4_rel <= QUAD_RTOL
+            and sq_ok and sq_same):
+        raise SystemExit(f"N2 6-31G: quadratic_energy through sorted_quadratic_energy disagrees "
+                         f"with its plain version, or did not run it once and nothing else: "
+                         f"{quad4_counts} against {want_counts}")
     quad_launches = quad4_counts["sorted_gather2"]
+    sq_launches = quad4_counts["sorted_quadratic_energy"]
+
+    # 10d. frozen-core N2 6-31G (32 qubits, a RankSpec, no grid program, no dense A):
+    # the rank engine's one-launch E_loc on the training path
+    t1 = time.time()
+    terms5 = freeze_core(terms4, 4)
+    hil5 = nt.Hilbert(n_qubits=mol4.n_qubits - 4, sectors=((5, 5),))
+    cfg5 = nt.NAQSConfig(n_qubits=hil5.n_qubits, sectors=hil5.sectors,
+                         amp_hidden=(64,), phase_hidden=(512, 512))
+    tr5 = nt.VMCTrainer(cfg5, terms5, hil5, tc, device=dev)
+    dt5 = tr5.dt
+    spec5 = dt5.rank_spec
+    if not (spec5 is not None and dt5.dense is None and dt5.a_mat is None):
+        raise SystemExit("frozen-core N2 6-31G must dispatch to the rank engine with no dense "
+                         "A and no grid program")
+    cap5 = tr5.capacity
+    chunk5 = le._chunks(dt5, cap5, None)
+    per_call5 = -(-cap5 // chunk5)
+    sizes5 = torch.diff(dt5.xy_ptr.long())
+    print(f"[setup] frozen-core N2 6-31G: freeze_core(N2 6-31G's terms, 4): "
+          f"{hil5.n_qubits} qubits, sector {hil5.sectors[0]} of {hil5.sector_size} states (table "
+          f"{(spec5.size + 1) * 8} B); K={len(terms5.coeff)} Kxy={len(terms5.xy_unique)} (pad "
+          f"{dt5.xy_unique.shape[0]}) Kyz={len(terms5.yz_unique)} Kd={len(terms5.diag_yz)}, terms "
+          f"per flip mask max {int(sizes5.max())}; the dispatch: rank engine (RankSpec), no grid "
+          f"program, no dense A ({dt5.yz_unique.shape[0] * dt5.xy_unique.shape[0]} entries): "
+          f"one rank_local_energy launch a local_energy call (the earlier chunk loop: "
+          f"{per_call5} chunks of {chunk5} rows at capacity {cap5}); {time.time() - t1:.1f}s",
+          flush=True)
+    batch5 = tr5._sample()
+    with torch.no_grad():
+        la5, ph5 = log_psi(tr5.model, batch5.states)
+    nu5 = int(batch5.n_unique)
+    table5 = build_value_table(spec5, batch5.states, la5, ph5, batch5.n_unique)
+    q5 = pack_table(batch5.states, la5, ph5)
+    terms5_dev = (dt5.xy_unique, dt5.xy_ptr, dt5.term_yz, dt5.yz_unique, dt5.term_coeff)
+    r5_args = (spec5, table5, *q5, *terms5_dev, dt5.diag_yz, dt5.diag_coeff)
+    e5, e5_twice = rank_local_energy(*r5_args), rank_local_energy(*r5_args)
+    e5_plain, e5_plain_ms = _timed(lambda: rank_local_energy_ref(*r5_args, chunk_rows=chunk5))
+    e5_tol = rank_local_energy_tolerance(spec5, table5, q5[0], q5[1], *terms5_dev,
+                                         dt5.diag_coeff, chunk_rows=chunk5)
+    e5_diff = [(a - b).abs() for a, b in zip(e5, e5_plain)]
+    eloc_err5 = max(float(d.max()) for d in e5_diff)
+    e5_ok = all(bool((d <= e5_tol).all()) for d in e5_diff) and all(
+        bool(torch.isfinite(a).all()) for a in e5)
+    e5_same = all(torch.equal(a, b) for a, b in zip(e5, e5_twice))
+    chunks5 = [(q5[0][i:i + chunk5], q5[1][i:i + chunk5], q5[2][i:i + chunk5])
+               for i in range(0, cap5, chunk5)]
+
+    def composition5(h_fn, r_fn):
+        """the parent's chunk loop's two kernels over the whole buffer: (re, im) f32"""
+        out = [r_fn(spec5, s, dt5.xy_unique, table5, my_la, my_ph,
+                    h_fn(s, dt5.yz_unique, dt5.xy_ptr, dt5.term_yz, dt5.term_coeff))
+               for s, my_la, my_ph in chunks5]
+        return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+    comp5 = composition5(offdiag_h_terms, rank_ratio_rowsum)
+    diag5 = le.diagonal_energy(dt5, q5[0])
+    comp5_tol = rank_local_energy_tolerance(spec5, table5, q5[0], q5[1], *terms5_dev,
+                                            dt5.diag_coeff, chunk_rows=chunk5, h_exact=True)
+    c5_diff = [(e5[0] - diag5 - comp5[0].double()).abs()[:nu5],
+               (e5[1] - comp5[1].double()).abs()[:nu5]]
+    comp_err5 = max(float(d.max()) for d in c5_diff)
+    c5_ok = all(bool((d <= comp5_tol[:nu5]).all()) for d in c5_diff)
+    im5_bits = torch.equal(e5[1][:nu5], comp5[1][:nu5].double())
+    pad5 = q5[0] == SENTINEL
+    pad5_ok = bool((e5[1][pad5] == 0).all()) and float(
+        (e5[0][pad5] - le.diagonal_energy(dt5, q5[0][pad5])).abs().max()) <= DIAG_RTOL * float(
+        dt5.diag_coeff.abs().sum())
+    work5 = _rank_work(spec5, table5, q5[0][:nu5], dt5.xy_unique, sizes5, -1e29)
+    torch.cuda.synchronize()
+    print(f"[kernel] rank_local_energy (frozen-core N2 6-31G, {cap5} query rows of which {nu5} "
+          f"live, Kxy={dt5.xy_unique.shape[0]}): vs its plain version max_abs_err="
+          f"{eloc_err5:.3e} Ha, worst row at {max(float((d / e5_tol).max()) for d in e5_diff):.3f} "
+          f"of its tolerance, within={e5_ok}; vs this tree's offdiag_h_terms + "
+          f"rank_ratio_rowsum composed over {len(chunks5)} chunks on the live rows "
+          f"{comp_err5:.3e} Ha, within (no H term)={c5_ok}, e_im bitwise equal={im5_bits}; "
+          f"padding rows their diagonal and 0={pad5_ok}; twice bitwise equal={e5_same}; the "
+          f"live rows' pairs with terms {work5['pairs']}, inside a sector {work5['inside']} "
+          f"({work5['inside'] / work5['pairs']:.2%}: table rows read, {work5['rows']} distinct), "
+          f"found {work5['found']}, terms walked {work5['terms']}", flush=True)
+    if not (e5_ok and c5_ok and e5_same and pad5_ok):
+        raise SystemExit("rank_local_energy disagrees with its plain version, with the chunk "
+                         "loop's kernels composed or with itself, or mishandles padding rows")
+    zero_counts()
+    n_updates5, t_fc, n_draws5 = _steps(tr5, FROZEN_STEPS, "rank, no A (frozen-core N2 6-31G)")
+    fc_counts = {w.__name__: w.launches for w in wrappers}
+    want_counts = dict({w.__name__: 0 for w in wrappers}, rank_local_energy=n_updates5,
+                       _split_and_compact=cfg5.n_shells * n_draws5)
+    print(f"[path] frozen-core N2 6-31G default dispatch (rank engine, no dense A): launches "
+          f"in {FROZEN_STEPS} steps {fc_counts} ({n_updates5} vmc_update calls: one "
+          f"rank_local_energy launch and no offdiag_h_terms a local_energy call; {n_draws5} "
+          f"sample() calls of {cfg5.n_shells} shells); steps "
+          f"{', '.join(f'{t:.3f}' for t in t_fc)} s", flush=True)
+    if fc_counts != want_counts or n_updates5 < FROZEN_STEPS:
+        raise SystemExit(f"frozen-core N2 6-31G did not run rank_local_energy once per E_loc "
+                         f"call and split_and_compact once per shell, or ran other kernels: "
+                         f"{fc_counts} against {want_counts}")
+    fc_launches = fc_counts["rank_local_energy"]
 
     # the host layer: the native library against numpy, and N2 STO-3G's ground state
     t1 = time.time()
@@ -2308,6 +2594,16 @@ def main(argv) -> int:
     # first held against the kernel) and with the plain version
     e_name = "sorted_local_energy"
     energy_fns = {e_name: lambda: sorted_local_energy(*e_args)}
+    e_old = f"{e_name} (earlier tree)"
+    if "sort_lookup" in old_mods:   # DIR's own build of the kernel
+        e_prev = old_mods["sort_lookup"].sorted_local_energy(*e_args)
+        prev_ok = all(bool(((a - b).abs() <= e_tol).all()) for a, b in zip(e_prev, e_new))
+        print(f"[before] the earlier tree's sorted_local_energy vs this tree's: within "
+              f"sorted_local_energy_tolerance={prev_ok}, bitwise equal="
+              f"{all(torch.equal(a, b) for a, b in zip(e_prev, e_new))}", flush=True)
+        if not prev_ok:
+            raise SystemExit("the earlier tree's sorted_local_energy disagrees with this tree's")
+        energy_fns[e_old] = lambda: old_mods["sort_lookup"].sorted_local_energy(*e_args)
     times.update(time_in_turns(energy_fns, REPEATS, ENERGY_LAUNCHES))
     calls.update(time_in_turns(energy_fns, REPEATS, ENERGY_LAUNCHES, hold=False))
     check_hold(energy_fns, ENERGY_LAUNCHES, calls)
@@ -2363,6 +2659,121 @@ def main(argv) -> int:
             dt4, batch4.states, la4, ph4, batch4.n_unique)
     e2e = time_in_turns(e2e_fns, SLOW_REPEATS, 1, hold=False)
     calls.update(e2e)
+    # the one-launch kernels of the spaces with no dense A, each alone (held
+    # and unheld), then in turns with the chunk loop it replaced (this tree's
+    # kernels composed as the parent's loop ran them and, with --before DIR, DIR's
+    # own call) and with its plain version, held and unheld; one whole call of
+    # each path unheld, this tree's and DIR's
+
+    def quad_loop(dt_q, gather, h_fn, states, la_q, ph_q, nv, c):
+        """quadratic_energy's chunk loop with no dense A in the earlier design: the gather
+        kernel, the per-term H row and the eager epilogue per chunk"""
+        num = torch.zeros((), dtype=torch.float64, device=dev)
+        den = torch.zeros((), dtype=torch.float64, device=dev)
+        live_q = torch.arange(states.shape[0], device=dev) < nv
+        for i in range(0, states.shape[0], c):
+            s, my_la, my_ph, my_live = (states[i:i + c], la_q[i:i + c], ph_q[i:i + c],
+                                        live_q[i:i + c])
+            w_m = torch.where(my_live, torch.exp(2.0 * my_la.double()), 0.0)
+            num += torch.sum(w_m * le.diagonal_energy(dt_q, s))
+            g_la, g_ph = gather(s, my_live)
+            amp = torch.where(my_live[:, None], torch.exp(g_la + my_la[:, None]), 0.0)
+            h_q = h_fn(s, dt_q.yz_unique, dt_q.xy_ptr, dt_q.term_yz, dt_q.term_coeff)
+            num += torch.sum(torch.sum(h_q * (amp * torch.cos(g_ph - my_ph[:, None])),
+                                       dim=-1).double())
+            den += torch.sum(w_m)
+        return num / den
+
+    def sort_gather4(s, live_q):
+        return sorted_gather2(batch4.states, la_q4, ph_q4, nv4q, s, xy4, live_q)
+
+    def rank_gather_h(s, live_q):
+        return rank_gather2(spec, s, dt.xy_unique, table_qh)
+
+    # the loops of before, held against the kernels' totals
+    loop4 = float(quad_loop(dt4, sort_gather4, offdiag_h_terms, batch4.states, la_q4, ph_q4,
+                            nv4q, chunk4))
+    loop_h = float(quad_loop(dt_rank_noa, rank_gather_h, offdiag_h_terms, batch.states, la_qh,
+                             ph_qh, nv_h, chunk))
+    q_sq = float(sq_got[0].sum() / sq_got[1].sum())
+    q_rq = float(rq_got[0].sum() / rq_got[1].sum())
+    print(f"[quad] the chunk loops of before on the same inputs (this tree's gather kernel and "
+          f"offdiag_h_terms): N2 6-31G {loop4:.10f} vs sorted_quadratic_energy's {q_sq:.10f}, "
+          f"H2O 6-31G {loop_h:.10f} vs rank_quadratic_energy's {q_rq:.10f}", flush=True)
+    if not (abs(loop4 - q_sq) <= QUAD_RTOL * abs(loop4)
+            and abs(loop_h - q_rq) <= QUAD_RTOL * abs(loop_h)):
+        raise SystemExit("a one-launch quadratic form disagrees with the chunk loop of before")
+    row_fns = {"rank_local_energy": lambda: rank_local_energy(*r5_args),
+               "sorted_quadratic_energy": lambda: sorted_quadratic_energy(*sq_args),
+               "rank_quadratic_energy": lambda: rank_quadratic_energy(*rq_args)}
+    times.update(time_in_turns(row_fns, REPEATS, ENERGY_LAUNCHES))
+    calls.update(time_in_turns(row_fns, REPEATS, ENERGY_LAUNCHES, hold=False))
+    check_hold(row_fns, ENERGY_LAUNCHES, calls)
+    rcomp = f"offdiag_h_terms + rank_ratio_rowsum ({len(chunks5)} chunks)"
+    qcomp = f"sorted_gather2 + offdiag_h_terms + epilogue ({per_call4} chunks)"
+    hcomp = f"rank_gather2 + offdiag_h_terms + epilogue ({per_call} chunks)"
+    quad_n2 = "quadratic_energy (N2 6-31G)"
+    quad_h2o = "quadratic_energy (H2O 6-31G, no dense A)"
+    quad_h2o_a = "quadratic_energy (H2O 6-31G, dense A)"
+    le_fc = "local_energy (rank engine, no A, frozen-core N2 6-31G)"
+    old_tag = ", earlier tree"
+    row_cmp = {
+        "rank_local_energy": lambda: rank_local_energy(*r5_args),
+        rcomp: lambda: composition5(offdiag_h_terms, rank_ratio_rowsum),
+        "sorted_quadratic_energy": lambda: sorted_quadratic_energy(*sq_args),
+        qcomp: lambda: quad_loop(dt4, sort_gather4, offdiag_h_terms, batch4.states, la_q4,
+                                 ph_q4, nv4q, chunk4),
+        quad_n2: lambda: le.quadratic_energy(dt4, batch4.states, la4, ph4, batch4.n_unique),
+        "rank_quadratic_energy": lambda: rank_quadratic_energy(*rq_args),
+        hcomp: lambda: quad_loop(dt_rank_noa, rank_gather_h, offdiag_h_terms, batch.states,
+                                 la_qh, ph_qh, nv_h, chunk),
+        quad_h2o: lambda: le.quadratic_energy(dt_rank_noa, batch.states, la, ph,
+                                              batch.n_unique),
+        quad_h2o_a: lambda: le.quadratic_energy(dt, batch.states, la, ph, batch.n_unique),
+    }
+    if "dyn_gather" in old_mods:
+        old_le, old_dg, old_oh = (old_mods[k] for k in ("local_energy", "dyn_gather",
+                                                        "offdiag_h"))
+        comp5_old = composition5(old_oh.offdiag_h_terms, old_dg.rank_ratio_rowsum)
+        d5_old = [(e5[0] - diag5 - comp5_old[0].double()).abs()[:nu5],
+                  (e5[1] - comp5_old[1].double()).abs()[:nu5]]
+        q_old = [float(old_le.quadratic_energy(dt4, batch4.states, la4, ph4, batch4.n_unique)),
+                 float(old_le.quadratic_energy(dt_rank_noa, batch.states, la, ph,
+                                               batch.n_unique))]
+        old_ok = (all(bool((d <= comp5_tol[:nu5]).all()) for d in d5_old)
+                  and abs(q_old[0] - q_sq) <= QUAD_RTOL * abs(q_old[0])
+                  and abs(q_old[1] - q_rq) <= QUAD_RTOL * abs(q_old[1]))
+        print(f"[before] the earlier tree's rank chunk loop composed over {len(chunks5)} chunks "
+              f"vs rank_local_energy on the live rows {max(float(d.max()) for d in d5_old):.3e} "
+              f"Ha; its quadratic_energy on N2 6-31G {q_old[0]:.10f}, on H2O 6-31G with no "
+              f"dense A {q_old[1]:.10f}; within={old_ok}", flush=True)
+        if not old_ok:
+            raise SystemExit("the earlier tree's chunk loops disagree with the one-launch "
+                             "kernels")
+        row_cmp[rcomp + old_tag] = lambda: composition5(old_oh.offdiag_h_terms,
+                                                        old_dg.rank_ratio_rowsum)
+        row_cmp[quad_n2 + old_tag] = lambda: old_le.quadratic_energy(
+            dt4, batch4.states, la4, ph4, batch4.n_unique)
+        row_cmp[quad_h2o + old_tag] = lambda: old_le.quadratic_energy(
+            dt_rank_noa, batch.states, la, ph, batch.n_unique)
+    row_times = time_in_turns(row_cmp, SLOW_REPEATS, 1)
+    row_calls = time_in_turns(row_cmp, SLOW_REPEATS, 1, hold=False)
+    # the plain versions (seconds a call): the wall time of their one call above
+    for name, ms in (("rank_local_energy_ref", e5_plain_ms),
+                     ("sorted_quadratic_energy_ref", sq_plain_ms),
+                     ("rank_quadratic_energy_ref", rq_plain_ms)):
+        times[name] = (ms, [ms, ms], 0.0)
+    for n in row_cmp:
+        if n not in row_fns:
+            times[n], calls[n] = row_times[n], row_calls[n]
+    check_hold([n for n in row_cmp if n not in row_fns], 1, calls)
+    fc_fns = {le_fc: lambda: le.local_energy(dt5, batch5.states, la5, ph5, batch5.n_unique)}
+    if "local_energy" in old_mods:
+        fc_fns[le_fc + old_tag] = lambda: old_mods["local_energy"].local_energy(
+            dt5, batch5.states, la5, ph5, batch5.n_unique)
+    fc_e2e = time_in_turns(fc_fns, SLOW_REPEATS, 1, hold=False)
+    calls.update(fc_e2e)
+    e2e.update(fc_e2e)
     print(f"[time] {REPEATS} repeats of {LAUNCHES} launches ({SLOW_REPEATS} of "
           f"{SLOW_LAUNCHES} for the factored and staircase kernels, the grid kernels' plain "
           f"versions, "
@@ -2389,6 +2800,15 @@ def main(argv) -> int:
         print(f"[time] {name}: held ({held:.1f} ms) median {med:.4f} ms, spread "
               f"{spread[0]:.4f}-{spread[1]:.4f} ms; unheld median {comp_calls[name][0]:.4f} "
               f"ms, spread {comp_calls[name][1][0]:.4f}-{comp_calls[name][1][1]:.4f} ms",
+              flush=True)
+    print(f"[time] the one-launch kernels of the spaces with no dense A in turns with the chunk "
+          f"loops they replaced and whole quadratic_energy calls: {SLOW_REPEATS} repeats of 1, "
+          f"held and unheld (their plain versions: the wall time of one call, between two "
+          f"synchronizes, above)", flush=True)
+    for name, (med, spread, held) in row_times.items():
+        print(f"[time] {name}: held ({held:.1f} ms) median {med:.4f} ms, spread "
+              f"{spread[0]:.4f}-{spread[1]:.4f} ms; unheld median {row_calls[name][0]:.4f} "
+              f"ms, spread {row_calls[name][1][0]:.4f}-{row_calls[name][1][1]:.4f} ms",
               flush=True)
     check_hold(fast, LAUNCHES, calls)
     head = s.numel() * 8 + xy.numel() * 8 + n_rows * 8
@@ -2488,6 +2908,40 @@ def main(argv) -> int:
     print(f"[bound] offdiag_h_terms {oh_bound[0]:.5f} ms ({oh_bound[1]}: {oh_bytes} B = h "
           f"{h4.numel() * 4} B, the grouped terms, yz_unique, xy_ptr, s; {oh_ops} integer and "
           f"float32 operations = {chunk4} rows x {dt4.term_yz.numel()} terms x 4)", flush=True)
+    # the one-launch kernels with no dense A, counted over their live rows (a
+    # row not walked costs a load and two stores, in the bytes): rank_local_energy on
+    # the frozen-core N2 call, per pair with terms SECTOR_OPS, per pair inside a
+    # sector RANK_OPS and its table row (8 B, each distinct row once; at 153 MB the
+    # table is out of L2, so these are HBM reads); rank_quadratic_energy the same on
+    # H2O 6-31G's batch; sorted_quadratic_energy on N2 6-31G's, as sorted_local_energy
+    rle_bound, rle_ops, rle_bytes = _row_bound(
+        work5, nu5, cap5, dt5.xy_unique.numel(), dt5.term_yz.numel(), dt5.diag_yz.numel(),
+        work5["pairs"] * SECTOR_OPS + work5["inside"] * RANK_OPS, work5["rows"] * 8)
+    rq_bound, rq_ops, rq_bytes = _row_bound(
+        work_rq, nu, batch.states.shape[0], dt.xy_unique.numel(), dt.term_yz.numel(),
+        dt.diag_yz.numel(),
+        work_rq["pairs"] * SECTOR_OPS + work_rq["inside"] * RANK_OPS, work_rq["rows"] * 8)
+    n_levels_q4 = max(math.ceil(math.log2(max(nu4, 1))), 0)
+    sq_bound, sq_ops, sq_bytes = _row_bound(
+        work_sq, nu4, cap4, xy4.numel(), dt4.term_yz.numel(), dt4.diag_yz.numel(),
+        work_sq["pairs"] * (1 + SEARCH_OPS * n_levels_q4), nu4 * 8 + work_sq["rows"] * 8)
+    for name, (bd, ops, n_bytes), wk, look in (
+            ("rank_local_energy", (rle_bound, rle_ops, rle_bytes), work5,
+             f"{SECTOR_OPS} a pair + {RANK_OPS} a pair inside a sector"),
+            ("rank_quadratic_energy", (rq_bound, rq_ops, rq_bytes), work_rq,
+             f"{SECTOR_OPS} a pair + {RANK_OPS} a pair inside a sector"),
+            ("sorted_quadratic_energy", (sq_bound, sq_ops, sq_bytes), work_sq,
+             f"1 + {SEARCH_OPS} x {n_levels_q4} levels a pair")):
+        print(f"[bound] {name} {bd[0]:.5f} ms ({bd[1]}: {ops} operations = {look} over "
+              f"{wk['pairs']} live (row, flip mask with terms) pairs"
+              f"{' of which ' + str(wk['inside']) + ' inside a sector' if 'inside' in wk else ''}"
+              f", 3 x {wk['terms']} terms of the {wk['found']} found pairs + {EPILOGUE_OPS} a "
+              f"found pair + 3 a diagonal term of a live row, "
+              f"{ops / H100_FP32_OPS_PER_S * 1e3:.5f} ms; {n_bytes} B = the {wk['rows']} distinct "
+              f"table rows read x 8 B{' and the live keys' if name.startswith('sorted') else ''}, "
+              f"xy and xy_ptr, the grouped terms walked (at most all), the diagonal terms, the "
+              f"rows and the outputs, "
+              f"{n_bytes / H100_BYTES_PER_S * 1e3:.5f} ms)", flush=True)
 
     # the sampler's kernels: a dead row reads its count and its flag and writes zeros; a
     # live row also reads its probs, mask and six draws. The compaction reads the flags,
@@ -2538,11 +2992,15 @@ def main(argv) -> int:
                      "sorted_ratio_rowsum_kernel": sorted_ratio_rowsum,
                      "sorted_gather2_kernel": sorted_gather2,
                      "offdiag_h_terms_kernel": offdiag_h_terms,
-                     "sorted_local_energy_kernel": sorted_local_energy}
+                     "SearchLookup, row_energy::LocalEnergy": sorted_local_energy,
+                     "RankLookup, row_energy::LocalEnergy": rank_local_energy,
+                     "SearchLookup, row_energy::Quadratic": sorted_quadratic_energy,
+                     "RankLookup, row_energy::Quadratic": rank_quadratic_energy}
         xl_dt = tr3.dt
         for label, trainer, terms_dev in (("factored", tr, dt), ("rank", tr, dt_rank),
                                           ("staircase (Li2O CISDTQ)", tr3, xl_dt),
-                                          ("sort (N2 6-31G)", tr4, dt4)):
+                                          ("sort (N2 6-31G)", tr4, dt4),
+                                          ("rank, no A (frozen-core N2 6-31G)", tr5, dt5)):
             trainer.dt = terms_dev
             for name, step in (("sample", trainer._sample), ("step", trainer.step)):
                 torch.cuda.synchronize()
@@ -2575,7 +3033,8 @@ def main(argv) -> int:
                 if any(k in e.key for k in ("rank_", "grid_accumulate", "factored_cells",
                                             "multinomial4_split",
                                             "compact_children", "split_and_compact", "cumsum",
-                                            "cumprod", "sorted_", "offdiag_h")) \
+                                            "cumprod", "sorted_", "offdiag_h",
+                                            "row_energy")) \
                         and e.self_device_time_total > 0:
                     print(f"[profile] {label} {e.key}: {e.count} launches, "
                           f"{e.self_device_time_total / 1e3:.3f} ms device time, "
@@ -2651,6 +3110,8 @@ def main(argv) -> int:
               path_note="N2 6-31G (36 qubits, no RankSpec, no dense A): one launch per "
                         "training step's E_loc call",
               **before(e_comp_old), composition_ms=times[e_comp][0],
+              **({"kernel_before_ms": times[e_old][0], "kernel_before_spread": times[e_old][1]}
+                 if e_old in times else {}),
               composition_unheld_ms=calls[e_comp][0],
               in_turns_with_compositions_ms=comp_times[e_name][0],
               found_pairs=n_found_pairs, live_rows=n_live4,
@@ -2670,17 +3131,62 @@ def main(argv) -> int:
               replaces="naqs_tpu/ops/local_energy.py:363",
               library_note="torch.searchsorted of the (C, K) coupled states and two gathers: no "
                            "found test or live mask",
-              path_note="quadratic_energy without a RankSpec; launches: one such call on N2 "
-                        "6-31G's batch (phase 10c), none in the training step"),
+              launches_dense_a_call=h2o_counts["sorted_gather2"],
+              path_note="superseded by sorted_quadratic_energy where there is no dense A (N2 "
+                        "6-31G's quadratic_energy: launches 0); it runs per chunk "
+                        "of quadratic_energy on the sort engine with a dense A "
+                        "(launches_dense_a_call: one H2O 6-31G call, phase 10c)"),
         entry("offdiag_h_terms", offdiag_launches, offdiag_err, "offdiag_h_terms_ref", oh_bound,
               "index_add (precomputed products)", source="naqs_tpu_torch/csrc/offdiag_h.cu",
               replaces="naqs_tpu/ops/local_energy.py:209",
               library_note="Tensor.index_add of the (C, K) products computed beforehand: the "
                            "segment sum alone",
               launches_quadratic_energy=quad4_counts["offdiag_h_terms"],
-              path_note="launches: N2 6-31G's training steps (sorted_local_energy there); it "
-                        "runs per chunk of quadratic_energy where a dense A would exceed 2^26 "
-                        "entries, and of the rank engine with no dense A"),
+              launches_frozen_core_steps=fc_counts["offdiag_h_terms"],
+              path_note="superseded by rank_local_energy, sorted_local_energy, "
+                        "sorted_quadratic_energy and rank_quadratic_energy, which sum H only "
+                        "for found pairs: no path launches it (launches: N2 6-31G's steps; "
+                        "launches_quadratic_energy: its quadratic_energy call; "
+                        "launches_frozen_core_steps: the frozen-core N2 steps); held here on a "
+                        "real chunk"),
+        entry("rank_local_energy", fc_launches, eloc_err5, "rank_local_energy_ref", rle_bound,
+              None, replaces="naqs_tpu/ops/local_energy.py:216-247 + :209 + :164",
+              library_note="none: no single call computes the rank lookup, the per-group H and "
+                           "the row sum",
+              path_note="frozen-core N2 6-31G (32 qubits, a RankSpec, no grid program, no "
+                        "dense A): one launch per training step's E_loc call, where the "
+                        "parent ran offdiag_h_terms + rank_ratio_rowsum per chunk",
+              body="naqs_tpu_torch/csrc/row_energy.cuh", **before(rcomp + old_tag),
+              composition_ms=times[rcomp][0], composition_unheld_ms=calls[rcomp][0],
+              local_energy_ms=calls[le_fc][0],
+              **({"local_energy_before_ms": calls[le_fc + old_tag][0]}
+                 if le_fc + old_tag in calls else {}),
+              live_rows=nu5, pairs=work5["pairs"], pairs_inside_sector=work5["inside"],
+              table_rows_read=work5["rows"], found_pairs=work5["found"]),
+        entry("rank_quadratic_energy", qrn_counts["rank_quadratic_energy"], rq_err,
+              "rank_quadratic_energy_ref", rq_bound, None,
+              replaces="naqs_tpu/ops/local_energy.py:330-381 + :209 + :164",
+              library_note="none: no single call computes the rank lookup, the per-group H and "
+                           "the symmetric row sum",
+              path_note="quadratic_energy with a RankSpec and no dense A (H2O 6-31G's batch "
+                        "with a_mat=None): one launch per call, where the parent ran "
+                        "rank_gather2 + offdiag_h_terms + an eager epilogue per chunk",
+              body="naqs_tpu_torch/csrc/row_energy.cuh", **before(quad_h2o + old_tag),
+              composition_ms=times[hcomp][0], quadratic_energy_ms=times[quad_h2o][0],
+              dense_a_quadratic_energy_ms=times[quad_h2o_a][0],
+              live_rows=nu, pairs=work_rq["pairs"], pairs_inside_sector=work_rq["inside"],
+              found_pairs=work_rq["found"]),
+        entry("sorted_quadratic_energy", sq_launches, sq_err, "sorted_quadratic_energy_ref",
+              sq_bound, None, source="naqs_tpu_torch/csrc/sort_lookup.cu",
+              replaces="naqs_tpu/ops/local_energy.py:330-381 + :209 + :164",
+              library_note="none: no single call computes the search, the per-group H and the "
+                           "symmetric row sum",
+              path_note="quadratic_energy with no RankSpec and no dense A (N2 6-31G): one "
+                        "launch per call, where the parent ran sorted_gather2 + "
+                        "offdiag_h_terms + an eager epilogue per chunk",
+              body="naqs_tpu_torch/csrc/row_energy.cuh", **before(quad_n2 + old_tag),
+              composition_ms=times[qcomp][0], quadratic_energy_ms=times[quad_n2][0],
+              live_rows=nu4, pairs=work_sq["pairs"], found_pairs=work_sq["found"]),
         entry("split_and_compact", fused_launches, fused_totals["err"], "split_and_compact_ref",
               fu_bound, None,
               replaces="naqs_tpu/ops/multinomial.py:76 + naqs_tpu/sampler.py:49",

@@ -1,4 +1,4 @@
-// The rank engine's psi lookup for sm_90a: two kernels on one device core.
+// The rank engine's psi lookup for sm_90a: four kernels on one device core.
 //
 // Replaces the TPU kernel naqs_tpu/ops/dyn_gather.py::table_gather2
 // (_gather2_kernel; pl.pallas_call at :106) together with the rank_index that
@@ -14,6 +14,19 @@
 //
 // rank() is the colex rank of ops/rank.py; states outside every sector map
 // to the sentinel row `size`, which holds the miss marker.
+//
+// rank_local_energy and rank_quadratic_energy are row_energy_kernel
+// (csrc/row_energy.cuh) with RankLookup below: a whole local_energy call of
+// the rank engine with no dense A (replacing the chunk loop of the diagonal,
+// offdiag_h_terms and rank_ratio_rowsum; JAX: naqs_tpu/ops/local_energy.py:
+// 216-247 with _offdiag_h's segment sum :209-213 and diagonal_energy :164),
+// and a whole quadratic_energy call with no dense A (replacing the chunk loop
+// of rank_gather2, offdiag_h_terms and the eager epilogue; JAX: :330-381).
+// What bounds them: the table reads. A coupled state of a live row with terms
+// is tested against the sectors by two popcounts (most leave them) before any
+// rank arithmetic; each one inside a sector reads its 8-byte table row, at
+// random: at 32 qubits the table (19 M rows, 153 MB) is larger than the
+// 50 MB L2, so those reads come from HBM.
 //
 // What bounds them: bytes. At the main path's chunk (C = 512, K = 4,608,
 // H2O 6-31G) rank_gather2 must write 18.9 MB of outputs and read each touched
@@ -50,6 +63,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "row_energy.cuh"
 
 namespace {
 
@@ -271,6 +286,78 @@ int resident_blocks() {
   return per_sm * n_sm > 0 ? per_sm * n_sm : 1;
 }
 
+
+// ------------------------------------------------ the one-launch kernels' lookup
+
+// the largest spec table (16 shells), in int32s
+constexpr int kMaxSpecInts = 4 * (16 + 1) + (1 << 8) + (1 << 8) * (8 + 1);
+
+// row_energy_kernel's lookup in the dense rank table (csrc/row_energy.cuh).
+// A coupled state's sector is tested by two popcounts of its packed bits
+// first; only a state inside a sector is ranked and its table row read (one
+// 8-byte load), and it is found where the row's log-amp is above
+// found_above (the table's miss marker lies at or below it).
+struct RankLookup {
+  struct Table {
+    const int32_t* spec;
+    int n_spec, n_shells, lo_bits;
+    uint32_t qmask;
+    int size;
+    const float2* tab;
+    float found_above;
+  };
+  struct Shared {
+    int4 spec[(kMaxSpecInts + 3) / 4];
+  };
+  Spec sp;
+  const float2* tab;
+  uint32_t qmask;
+  float found_above;
+
+  __device__ void init(Shared& sh, const Table& t, int64_t) {
+    sp = stage_spec(sh.spec, t.spec, t.n_spec, t.n_shells, t.lo_bits, t.size);
+    tab = t.tab;
+    qmask = t.qmask;
+    found_above = t.found_above;
+  }
+  __device__ bool empty() const { return false; }
+  template <int kQ>
+  __device__ void find(const int64_t (&q)[kQ], const bool (&want)[kQ], bool (&found)[kQ],
+                       float2 (&v)[kQ]) const {
+    bool in[kQ];
+    int idx[kQ];
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      const uint32_t x = static_cast<uint32_t>(static_cast<uint64_t>(q[u])) & qmask;
+      in[u] = false;
+      idx[u] = 0;
+      if (want[u]) {
+        const int4 r = sp.sect[__popc(x & 0x55555555u)];
+        if (r.z == __popc(x & 0xAAAAAAAAu)) {  // r.z == -1: no sector with this n_alpha
+          const uint32_t w = even_bits(x) | (even_bits(x >> 1) << 16);
+          idx[u] = r.x + colex(sp, w & 0xFFFFu) * r.y + colex(sp, w >> 16);
+          in[u] = true;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) v[u] = in[u] ? __ldg(tab + idx[u]) : make_float2(kMiss, 0.f);
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) found[u] = in[u] && v[u].x > found_above;
+  }
+};
+
+int row_energy_launch(bool quadratic, const void* spec, int n_spec, int n_shells,
+                      int lo_bits, unsigned qmask, int size, const void* tab, float found_above,
+                      const row_energy::Rows& a, void* stream) {
+  if (n_spec > kMaxSpecInts || n_shells > 16) return static_cast<int>(cudaErrorInvalidValue);
+  const RankLookup::Table t = {static_cast<const int32_t*>(spec), n_spec, n_shells, lo_bits,
+                               qmask, size, static_cast<const float2*>(tab), found_above};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return quadratic ? row_energy::launch<RankLookup, row_energy::Quadratic>(a, t, s)
+                   : row_energy::launch<RankLookup, row_energy::LocalEnergy>(a, t, s);
+}
+
 }  // namespace
 
 extern "C" int rank_gather2(const void* s, int n_rows, const void* xy, int n_cols,
@@ -306,6 +393,39 @@ extern "C" int rank_ratio_rowsum(const void* s, int n_rows, const void* xy, int 
       static_cast<const float*>(my_ph), static_cast<const float*>(h),
       static_cast<float*>(e_re), static_cast<float*>(e_im));
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rank_local_energy(const void* spec, int n_spec, int n_shells, int lo_bits,
+                                 unsigned qmask, int size, const void* tab,
+                                 const void* q_states, int n_rows, const void* q_la,
+                                 const void* q_ph, const void* xy, const void* xy_ptr,
+                                 int n_cols, const void* term_yz, const void* yz_unique,
+                                 const void* term_coeff, const void* diag_yz,
+                                 const void* diag_coeff, int n_diag, void* e_re, void* e_im,
+                                 void* stream) {
+  const row_energy::Rows a = row_energy::make_rows(
+      nullptr, 0, q_states, n_rows, q_la, q_ph, xy, xy_ptr, n_cols, term_yz, yz_unique,
+      term_coeff, diag_yz, diag_coeff, n_diag, e_re, e_im);
+  return row_energy_launch(false, spec, n_spec, n_shells, lo_bits, qmask, size, tab,
+                           kMissThreshold, a, stream);
+}
+
+// quad_miss: the log-amp the table holds for a miss (quadratic_energy's -200);
+// a coupled state at or below it would add exactly 0 and counts as a miss
+extern "C" int rank_quadratic_energy(const void* spec, int n_spec, int n_shells, int lo_bits,
+                                     unsigned qmask, int size, const void* tab,
+                                     float quad_miss, const void* n_valid,
+                                     const void* states, int n_rows, const void* la,
+                                     const void* ph, const void* xy, const void* xy_ptr,
+                                     int n_cols, const void* term_yz, const void* yz_unique,
+                                     const void* term_coeff, const void* diag_yz,
+                                     const void* diag_coeff, int n_diag, void* num, void* w,
+                                     void* stream) {
+  const row_energy::Rows a = row_energy::make_rows(
+      n_valid, n_rows, states, n_rows, la, ph, xy, xy_ptr, n_cols, term_yz, yz_unique,
+      term_coeff, diag_yz, diag_coeff, n_diag, num, w);
+  return row_energy_launch(true, spec, n_spec, n_shells, lo_bits, qmask, size, tab, quad_miss,
+                           a, stream);
 }
 
 extern "C" const char* rank_gather_error_string(int code) {

@@ -1,5 +1,5 @@
 // The sort engine's psi lookup for sm_90a: a binary search in the sorted
-// sample buffer, three kernels on one search core.
+// sample buffer, four kernels on one search core.
 //
 // Replaces the sort-based lookup of naqs_tpu/ops/local_energy.py, which the
 // JAX package runs where no rank table exists (over 32 qubits, or a sector of
@@ -9,7 +9,9 @@
 // _local_energy_chunk (:236-247) for sorted_ratio_rowsum, that epilogue with
 // the segment-sum branch of _offdiag_h (:209-213) and diagonal_energy (:164)
 // for sorted_local_energy, and the lookup of _quadratic_energy_chunk
-// (:363-372) for sorted_gather2. For chunk states s (C,), flip masks xy (K,),
+// (:363-372) for sorted_gather2, with that chunk's epilogue (:330-381), the
+// segment-sum H row and the diagonal for sorted_quadratic_energy. For chunk
+// states s (C,), flip masks xy (K,),
 // q = s[c] ^ xy[k], the sorted int64 buffer states (U,) with la, ph (U,) f32
 // beside it and n = min(*n_valid, U):
 //
@@ -25,6 +27,9 @@
 //                        (-1)^popcount(s & yz) (csrc/offdiag_h.cu's sum),
 //                        plus in f64 sum_d diag_coeff[d] *
 //                        (-1)^popcount(s & diag_yz[d]) on the real part.
+//   sorted_quadratic_energy: for every buffer row m below n, w_m and the
+//                        numerator of <psi|H|psi> (csrc/row_energy.cuh's
+//                        Quadratic epilogue, the same h); (0, 0) elsewhere.
 //
 // found equals JAX's (states[pos'] == q) & (pos' < n_valid) for pos' the
 // searchsorted position in the whole buffer: the padding beyond n_valid is
@@ -55,7 +60,10 @@
 //   warp with an evict-first hint.
 //
 // sorted_local_energy is the whole E_loc call of the sort engine with no
-// dense A in one launch. Its bound is operations: per coupled state of a live
+// dense A in one launch, sorted_quadratic_energy the whole quadratic_energy
+// call; both are row_energy_kernel (csrc/row_energy.cuh) with SearchLookup
+// below, the first with the LocalEnergy epilogue, the second with Quadratic.
+// Their bound is operations: per coupled state of a live
 // row the xor and a search; the bytes (the live keys, xy, the grouped terms,
 // the rows and the outputs) are a few MB. What held the two-kernel chunk loop
 // back, and what this design does about it:
@@ -99,6 +107,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "row_energy.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // threads per block, both kernels
@@ -107,12 +117,7 @@ constexpr int kRows = 4;       // sorted_gather2: rows a block owns
 constexpr int kWarps = kThreads / 32;
 constexpr float kQuadMiss = -200.0f;  // quadratic_energy's miss log-amp
 
-// the number of states the search covers: *n_valid clamped to [0, n_states]
-__device__ __forceinline__ int64_t live_count(const int64_t* __restrict__ n_valid,
-                                              int n_states) {
-  const int64_t n = __ldg(n_valid);
-  return n < 0 ? 0 : (n > n_states ? n_states : n);
-}
+using row_energy::live_count;  // *n_valid clamped to [0, n_states]
 
 // kQ searches at once: base[u] = the last index i < n with states[i] <= q[u]
 // (0 if none) and val[u] = states[base[u]] (~q[u] if n == 0, so that it never
@@ -235,58 +240,10 @@ __global__ void __launch_bounds__(kThreads) sorted_gather2_kernel(
 }
 
 
-// ---------------------------------------------------------------- sorted_local_energy
+// ------------------------------------------- the one-launch kernels' search
 
-constexpr int64_t kSentinel = INT64_MAX;  // naqs_tpu_torch/utils/bits.py's SENTINEL
 constexpr int kTopKeys = 4096;             // keys of the shared-memory top: 32 KB
 constexpr int kMinShift = 4;               // windows of at least 16 keys: one 128-byte line
-constexpr int kLeUnroll = 4;               // coupled states in flight per thread
-
-struct EnergyArgs {
-  const int64_t* states;
-  int n_states;
-  const float* la;
-  const float* ph;
-  const int64_t* n_valid;
-  const int64_t* q_states;
-  int n_rows;
-  const float* q_la;
-  const float* q_ph;
-  const int64_t* xy;
-  const int32_t* xy_ptr;
-  int n_cols;
-  const int32_t* term_yz;
-  const int64_t* yz_unique;
-  const float* term_coeff;
-  const int64_t* diag_yz;
-  const double* diag_coeff;
-  int n_diag;
-  double* e_re;
-  double* e_im;
-};
-
-// this thread's part of s's diagonal: its terms d = tid + j * kThreads, in order
-__device__ __forceinline__ double diag_part(const EnergyArgs& a, int64_t s) {
-  double d = 0.0;
-  for (int k = threadIdx.x; k < a.n_diag; k += kThreads) {
-    const double c = __ldg(a.diag_coeff + k);
-    d += (__popcll(static_cast<uint64_t>(s & __ldg(a.diag_yz + k))) & 1) ? -c : c;
-  }
-  return d;
-}
-
-// h of flip-mask group [lo, hi) for state s: offdiag_h_terms_kernel's adds
-__device__ __forceinline__ float group_h(const EnergyArgs& a, int64_t s, int lo, int hi) {
-  float h = 0.f;
-  for (int t = lo; t < hi; ++t) {
-    const uint64_t yz = static_cast<uint64_t>(__ldg(a.yz_unique + __ldg(a.term_yz + t)));
-    const uint32_t coeff = __float_as_uint(__ldg(a.term_coeff + t));
-    const uint32_t sign = static_cast<uint32_t>(__popcll(static_cast<uint64_t>(s) & yz) & 1)
-                          << 31;
-    h += __uint_as_float(coeff ^ sign);
-  }
-  return h;
-}
 
 // kQ searches at once, as search() above, through the shared top: j = the last
 // index < m with top[j] <= q (0 if none), then within the window of 2^shift
@@ -319,7 +276,7 @@ __device__ __forceinline__ void search_top(const int64_t* top, int m, int shift,
 #pragma unroll
     for (int u = 0; u < kQ; ++u) {
       const uint32_t i = pos[u] + half;
-      const int64_t x = i < end ? __ldg(states + i) : kSentinel;
+      const int64_t x = i < end ? __ldg(states + i) : row_energy::kSentinel;
       if (i < end && x <= q[u]) {
         pos[u] = i;
         val[u] = x;
@@ -329,134 +286,49 @@ __device__ __forceinline__ void search_top(const int64_t* top, int m, int shift,
   }
 }
 
-// the block's sums in a fixed order (each warp's shuffle tree, then the warps
-// in order, as sorted_ratio_rowsum_kernel): valid on thread 0
-struct RowSums {
-  float re, im;
-  double diag;
+// row_energy_kernel's lookup in the sorted sample buffer (csrc/row_energy.cuh):
+// found = the last of the first n states <= q equals q; (la', ph') = (la, ph)
+// there. The block stages the top of the table, every 2^shift-th live key,
+// in shared memory once.
+struct SearchLookup {
+  struct Table {
+    const int64_t* states;
+    const float* la;
+    const float* ph;
+  };
+  struct Shared {
+    int64_t top[kTopKeys];
+  };
+  Table tab;
+  const int64_t* top;
+  int64_t n;
+  int m, shift;
+
+  __device__ void init(Shared& sh, const Table& t, int64_t n_live) {
+    tab = t;
+    top = sh.top;
+    n = n_live;
+    shift = kMinShift;
+    while (n > (static_cast<int64_t>(kTopKeys) << shift)) ++shift;
+    m = static_cast<int>((n + (int64_t{1} << shift) - 1) >> shift);
+    for (int j = threadIdx.x; j < m; j += row_energy::kThreads)
+      sh.top[j] = __ldg(t.states + (static_cast<int64_t>(j) << shift));
+  }
+  __device__ bool empty() const { return n == 0; }
+  template <int kQ>
+  __device__ void find(const int64_t (&q)[kQ], const bool (&want)[kQ], bool (&found)[kQ],
+                       float2 (&v)[kQ]) const {
+    int64_t val[kQ];
+    uint32_t pos[kQ];
+    search_top(top, m, shift, tab.states, n, q, pos, val);
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      found[u] = want[u] && val[u] == q[u];
+      v[u] = found[u] ? make_float2(__ldg(tab.la + pos[u]), __ldg(tab.ph + pos[u]))
+                      : make_float2(0.f, 0.f);
+    }
+  }
 };
-
-__device__ __forceinline__ RowSums block_sums(float re, float im, double diag,
-                                              float (&part)[2][kWarps],
-                                              double (&dpart)[kWarps]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    re += __shfl_xor_sync(0xFFFFFFFFu, re, off);
-    im += __shfl_xor_sync(0xFFFFFFFFu, im, off);
-    diag += __shfl_xor_sync(0xFFFFFFFFu, diag, off);
-  }
-  if (lane == 0) {
-    part[0][warp] = re;
-    part[1][warp] = im;
-    dpart[warp] = diag;
-  }
-  __syncthreads();
-  RowSums out = {0.f, 0.f, 0.0};
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      out.re += part[0][w];
-      out.im += part[1][w];
-      out.diag += dpart[w];
-    }
-  }
-  __syncthreads();  // part and dpart are free for the next row
-  return out;
-}
-
-__global__ void __launch_bounds__(kThreads, 4) sorted_local_energy_kernel(const EnergyArgs a) {
-  __shared__ int64_t top[kTopKeys];
-  __shared__ int64_t batch[kThreads];
-  __shared__ float part[2][kWarps];
-  __shared__ double dpart[kWarps];
-  __shared__ double pad_diag;
-  const int64_t n = live_count(a.n_valid, a.n_states);
-  int shift = kMinShift;
-  while (n > (static_cast<int64_t>(kTopKeys) << shift)) ++shift;
-  const int m = static_cast<int>((n + (int64_t{1} << shift) - 1) >> shift);
-  for (int j = threadIdx.x; j < m; j += kThreads)
-    top[j] = __ldg(a.states + (static_cast<int64_t>(j) << shift));
-  const RowSums pad = block_sums(0.f, 0.f, diag_part(a, kSentinel), part, dpart);
-  if (threadIdx.x == 0) pad_diag = pad.diag;
-  __syncthreads();  // top[] and pad_diag
-
-  const int64_t stride = gridDim.x;
-  for (int64_t i0 = blockIdx.x; i0 < a.n_rows; i0 += stride * kThreads) {
-    // kThreads of this block's rows at once: the padding rows' outputs here
-    const int64_t c = i0 + threadIdx.x * stride;
-    int64_t s = kSentinel;
-    if (c < a.n_rows) {
-      s = __ldg(a.q_states + c);
-      if (s == kSentinel) {
-        a.e_re[c] = pad_diag;
-        a.e_im[c] = 0.0;
-      }
-    }
-    batch[threadIdx.x] = s;
-    __syncthreads();
-    for (int t = 0; t < kThreads; ++t) {
-      const int64_t sc = batch[t];
-      if (sc == kSentinel) continue;  // the same for the whole block
-      const int64_t row = i0 + t * stride;
-      const float la0 = __ldg(a.q_la + row);
-      const float ph0 = __ldg(a.q_ph + row);
-      float acc_re = 0.f, acc_im = 0.f;
-      for (int k0 = threadIdx.x; n > 0 && k0 < a.n_cols; k0 += kThreads * kLeUnroll) {
-        int64_t q[kLeUnroll], val[kLeUnroll];
-        uint32_t pos[kLeUnroll];
-        int lo[kLeUnroll], hi[kLeUnroll];
-#pragma unroll
-        for (int u = 0; u < kLeUnroll; ++u) {
-          const int k = k0 + u * kThreads;
-          const bool in = k < a.n_cols;
-          lo[u] = in ? __ldg(a.xy_ptr + k) : 0;
-          hi[u] = in ? __ldg(a.xy_ptr + k + 1) : 0;
-          q[u] = in ? sc ^ __ldg(a.xy + k) : 0;
-        }
-        search_top(top, m, shift, a.states, n, q, pos, val);
-#pragma unroll
-        for (int u = 0; u < kLeUnroll; ++u) {
-          if (lo[u] < hi[u] && val[u] == q[u]) {
-            const float h = group_h(a, sc, lo[u], hi[u]);
-            const float mag = expf(fminf(fmaxf(__ldg(a.la + pos[u]) - la0, -30.f), 30.f));
-            float sn, cs;
-            sincosf(__ldg(a.ph + pos[u]) - ph0, &sn, &cs);
-            acc_re += h * (mag * cs);
-            acc_im += h * (mag * sn);
-          }
-        }
-      }
-      const RowSums r = block_sums(acc_re, acc_im, diag_part(a, sc), part, dpart);
-      if (threadIdx.x == 0) {
-        a.e_re[row] = r.diag + static_cast<double>(r.re);
-        a.e_im[row] = static_cast<double>(r.im);
-      }
-    }
-    __syncthreads();  // batch[] is rewritten next
-  }
-}
-
-// blocks of sorted_local_energy_kernel the card holds at once, asked once per device
-int resident_blocks(int* out) {
-  static int resident[64] = {};
-  int device = 0;
-  cudaError_t rc = cudaGetDevice(&device);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (resident[device] == 0) {
-    int per_sm = 0, sms = 0;
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sorted_local_energy_kernel,
-                                                       kThreads, 0);
-    if (rc == cudaSuccess)
-      rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    resident[device] = per_sm * sms;
-  }
-  *out = resident[device];
-  return 0;
-}
 
 }  // namespace
 
@@ -496,24 +368,26 @@ extern "C" int sorted_local_energy(const void* states, int n_states, const void*
                                    const void* term_coeff, const void* diag_yz,
                                    const void* diag_coeff, int n_diag, void* e_re, void* e_im,
                                    void* stream) {
-  const EnergyArgs a = {static_cast<const int64_t*>(states), n_states,
-                        static_cast<const float*>(la), static_cast<const float*>(ph),
-                        static_cast<const int64_t*>(n_valid),
-                        static_cast<const int64_t*>(q_states), n_rows,
-                        static_cast<const float*>(q_la), static_cast<const float*>(q_ph),
-                        static_cast<const int64_t*>(xy), static_cast<const int32_t*>(xy_ptr),
-                        n_cols, static_cast<const int32_t*>(term_yz),
-                        static_cast<const int64_t*>(yz_unique),
-                        static_cast<const float*>(term_coeff),
-                        static_cast<const int64_t*>(diag_yz),
-                        static_cast<const double*>(diag_coeff), n_diag,
-                        static_cast<double*>(e_re), static_cast<double*>(e_im)};
-  int blocks = 0;
-  const int rc = resident_blocks(&blocks);
-  if (rc != 0) return rc;
-  if (blocks > n_rows) blocks = n_rows;
-  sorted_local_energy_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const SearchLookup::Table t = {static_cast<const int64_t*>(states),
+                                 static_cast<const float*>(la), static_cast<const float*>(ph)};
+  return row_energy::launch<SearchLookup, row_energy::LocalEnergy>(
+      row_energy::make_rows(n_valid, n_states, q_states, n_rows, q_la, q_ph, xy, xy_ptr, n_cols,
+              term_yz, yz_unique, term_coeff, diag_yz, diag_coeff, n_diag, e_re, e_im),
+      t, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sorted_quadratic_energy(const void* states, int n_states, const void* la,
+                                       const void* ph, const void* n_valid, const void* xy,
+                                       const void* xy_ptr, int n_cols, const void* term_yz,
+                                       const void* yz_unique, const void* term_coeff,
+                                       const void* diag_yz, const void* diag_coeff,
+                                       int n_diag, void* num, void* w, void* stream) {
+  const SearchLookup::Table t = {static_cast<const int64_t*>(states),
+                                 static_cast<const float*>(la), static_cast<const float*>(ph)};
+  return row_energy::launch<SearchLookup, row_energy::Quadratic>(
+      row_energy::make_rows(n_valid, n_states, states, n_states, la, ph, xy, xy_ptr, n_cols,
+              term_yz, yz_unique, term_coeff, diag_yz, diag_coeff, n_diag, num, w),
+      t, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* sort_lookup_error_string(int code) {

@@ -4,7 +4,8 @@ ctypes).
 Each `csrc/<name>.cu` compiles on first use into
 `<repo>/build/naqs_tpu_torch/lib<name>.so` for sm_90a, with a plain C
 interface; nothing here includes PyTorch's headers, so a build takes
-seconds. A library is rebuilt when its source is newer. `build_all` starts
+seconds. A library is rebuilt when its source, or a header of `csrc/`
+(`*.cuh`, which a source may include), is newer. `build_all` starts
 one nvcc per source at once. Every library exports
 `<name>_error_string(int)`, bound as `lib.error_string`; `check_tensors` and
 `launch` are what the kernels' wrappers share.
@@ -48,7 +49,9 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    newest = max(os.path.getmtime(f) for f in [src, *headers])
+    return not os.path.exists(lib) or os.path.getmtime(lib) < newest
 
 
 def _start(name: str):

@@ -15,16 +15,17 @@ membership engine below runs: the rank engine where the space has a RankSpec,
 else the sort engine. `dataclasses.replace(dt, dense=None)` forces the rank
 engine, `dataclasses.replace(dt, rank_spec=None, dense=None)` the sort engine.
 
-Where the sort engine has no dense A either (N2 6-31G: 36 qubits, 736 M
-entries), the whole call is one launch (ops/sort_lookup.py::
-sorted_local_energy: the diagonal, the search, and H only for the found
-pairs, over every query row). Everywhere else, per chunk of C sampled
-states, both membership engines compute:
+Where there is no dense A (over 2^26 entries: N2 6-31G, 736 M; N2 6-31G
+with its 1s core frozen, 287 M), the whole call is one launch over the
+query rows: the diagonal, the lookup, and H summed term by term only for
+the found pairs (ops/sort_lookup.py::sorted_local_energy on the sort
+engine, ops/dyn_gather.py::rank_local_energy on the rank engine), and so is
+`quadratic_energy` (sorted_quadratic_energy, rank_quadratic_energy). With a
+dense A, per chunk of C sampled states, both membership engines compute:
 
   * the diagonal, sum_k coeff_k (-1)^popcount(s & yz_k), in f64;
   * the H row h as parity(s & yz) @ A, a (C, Kyz) x (Kyz, Kxy) fp32 matmul
-    with TF32 off (TF32 costs ~1e-3 Ha), or, when a dense A would be too
-    large, term by term per flip mask (ops/offdiag_h.py::offdiag_h_terms);
+    with TF32 off (TF32 costs ~1e-3 Ha);
   * sum_k h psi(s ^ xy_k)/psi(s) in one kernel that finds psi(s') and sums
     the ratios, writing only (C,) sums: the rank engine reads psi from the
     dense rank-indexed (size+1, 2) value table (ops/dyn_gather.py::
@@ -47,11 +48,12 @@ from naqs_tpu_torch.hamiltonian import PauliTerms
 from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTermsXL, _count,
                                              dense_local_energy, factored_local_energy,
                                              factored_xl_local_energy)
-from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_ratio_rowsum
+from naqs_tpu_torch.ops.dyn_gather import (QUAD_MISS, rank_gather2, rank_local_energy,
+                                           rank_quadratic_energy, rank_ratio_rowsum)
 from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms, term_groups
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
-from naqs_tpu_torch.ops.sort_lookup import (QUAD_MISS, pack_table, sorted_gather2,
-                                            sorted_local_energy, sorted_ratio_rowsum)
+from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_local_energy,
+                                            sorted_quadratic_energy, sorted_ratio_rowsum)
 from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
 from naqs_tpu_torch.utils.device import resolve_device
 
@@ -149,7 +151,8 @@ def diagonal_energy(dt: DeviceTerms, states: torch.Tensor) -> torch.Tensor:
 
 
 def _offdiag_h(dt: DeviceTerms, s: torch.Tensor) -> torch.Tensor:
-    """(C, Kxy) f32 off-diagonal H row entries for chunk states s."""
+    """(C, Kxy) f32 off-diagonal H row entries for chunk states s (the chunk
+    loops run it with a dense A; without one it is the per-term H row)."""
     if dt.a_mat is not None:
         par = parity_pm1(s[:, None] & dt.yz_unique[None, :]).to(torch.float32)
         return torch.matmul(par, dt.a_mat)
@@ -191,12 +194,13 @@ def local_energy(
 
     Rows beyond n_valid produce garbage values; callers mask by weight. The
     factored engine gives such a row its diagonal alone (it sums no
-    numerator there); the other engines compute it as they do a live row,
-    from whatever state the row holds.
+    numerator there), and so do the one-launch kernels (a SENTINEL row: its
+    diagonal and 0); the chunk loops compute it as they do a live row, from
+    whatever state the row holds.
     Dispatches to the grid engine (ops/dense_engine.py) when the terms carry
     a grid program; the rank engine below handles everything else that has a
-    RankSpec, the sort engine what has none: in one `sorted_local_energy`
-    call where there is no dense A, else chunk by chunk.
+    RankSpec, the sort engine what has none: in one launch where there is no
+    dense A (`rank_local_energy`, `sorted_local_energy`), else chunk by chunk.
     `queries=(q_states, q_la, q_ph)` computes E_loc only for those rows,
     while psi(s') is still resolved against the full (states, log_amp,
     phase, n_valid) table.
@@ -216,12 +220,16 @@ def local_energy(
     q_states, q_la, q_ph = (states, log_amp, phase) if queries is None else queries
     u = q_states.shape[0]
     c = _chunks(dt, u, chunk_rows)
-    if dt.rank_spec is None and dt.a_mat is None:
+    terms = (dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique, dt.term_coeff, dt.diag_yz,
+             dt.diag_coeff)
+    if dt.a_mat is None:
+        rows = pack_table(q_states, q_la, q_ph)
+        if dt.rank_spec is not None:
+            table = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
+            return rank_local_energy(dt.rank_spec, table, *rows, *terms, chunk_rows=c)
         table = pack_table(states, log_amp, phase)
-        rows = table if queries is None else pack_table(*queries)
-        return sorted_local_energy(*table, _count(n_valid, states.device), *rows,
-                                   dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique,
-                                   dt.term_coeff, dt.diag_yz, dt.diag_coeff, chunk_rows=c)
+        return sorted_local_energy(*table, _count(n_valid, states.device), *rows, *terms,
+                                   chunk_rows=c)
     if dt.rank_spec is not None:
         table = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
     else:
@@ -258,19 +266,32 @@ def quadratic_energy(
     shifted so the largest is 0: overflow-free for any amplitude range. Miss
     slots hold la = -200, so unsampled pairs contribute exactly 0 (the sort
     engine's lookup returns -200 for a miss). The imaginary part cancels by
-    Hermiticity and is not computed.
+    Hermiticity and is not computed. Where there is no dense A, one launch
+    gives every row's numerator and weight (`rank_quadratic_energy`,
+    `sorted_quadratic_energy`) and their sums' quotient is the result; with
+    one, chunk by chunk: the gather kernel, the eager epilogue and P @ A.
     """
     u = states.shape[0]
     live = torch.arange(u, device=states.device) < n_valid
     ref = torch.max(torch.where(live, log_amp, -torch.inf))
     la = torch.where(live, log_amp - ref, QUAD_MISS).to(torch.float32)
     ph = phase.to(torch.float32)
+    c = _chunks(dt, u, chunk_rows)
     if dt.rank_spec is not None:
         table = build_value_table(dt.rank_spec, states, la, ph, n_valid,
                                   miss_log_amp=QUAD_MISS)
     else:
-        table, n_valid = pack_table(states, la, ph), _count(n_valid, states.device)
-    c = _chunks(dt, u, chunk_rows)
+        table = pack_table(states, la, ph)
+    n_valid = _count(n_valid, states.device)
+    if dt.a_mat is None:
+        terms = (dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique, dt.term_coeff,
+                 dt.diag_yz, dt.diag_coeff)
+        if dt.rank_spec is not None:
+            num, w = rank_quadratic_energy(dt.rank_spec, table, n_valid, states, la, ph,
+                                           *terms, chunk_rows=c)
+        else:
+            num, w = sorted_quadratic_energy(*table, n_valid, *terms, chunk_rows=c)
+        return torch.sum(num) / torch.sum(w)
     num = torch.zeros((), dtype=torch.float64, device=states.device)
     den = torch.zeros((), dtype=torch.float64, device=states.device)
     for i in range(0, u, c):

@@ -32,6 +32,17 @@ from one to the other. `<wrapper>.launches` counts kernel launches.
   engine with no dense A. SENTINEL query rows get their diagonal and an
   off-diagonal part of 0, as every other computation of them does (flip
   masks and live states below 2^62: at most 62 qubits).
+* `sorted_quadratic_energy(states, la, ph, n_valid, xy_unique, ...)` ->
+  (num, w), each (U,) f64: the whole `quadratic_energy` call with no dense A
+  in one launch, row m's w_m = exp(2 la_m) and num_m = w_m diag_m + sum_k h_mk
+  exp(la_k + la_m) cos(ph_k - ph_m) over found k (fp32 row sum) below
+  n_valid, (0, 0) beyond; the caller returns sum num / sum w.
+
+Both are `csrc/row_energy.cuh`'s one kernel body with this module's search
+as its lookup (`rank_local_energy` and `rank_quadratic_energy` in
+`ops/dyn_gather.py` are the same body with the rank lookup); their plain
+versions are `dyn_gather.local_energy_rows_ref` and `quadratic_rows_ref` with
+the sort lookup.
 
 `sorted_gather2` equals its plain version bitwise. `sorted_ratio_rowsum` sums
 each row in another order than `torch.sum` and uses CUDA's `expf`/`sincosf`,
@@ -46,7 +57,8 @@ within `sorted_local_energy_tolerance`: that bound, plus sum_k |r_k| times
 `torch.sum`'s: each order errs by at most (Kd - 1) 2^-53 sum_d |diag_coeff_d|,
 1.7e-13 of it for both at Kd = 768). Against `offdiag_h_terms` +
 `sorted_ratio_rowsum` composed (`h_exact=True`) the h bits are the same, and
-only the first and last terms remain.
+only the first and last terms remain. `sorted_quadratic_energy` is held to
+`sorted_quadratic_energy_tolerance` (`dyn_gather.quadratic_rows_tolerance`).
 """
 
 from __future__ import annotations
@@ -57,13 +69,11 @@ from functools import lru_cache
 import torch
 
 from naqs_tpu_torch.ops import _build
-from naqs_tpu_torch.ops.dyn_gather import ratio_rowsum, rowsum_tolerance
-from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms_ref, offdiag_tolerance
-from naqs_tpu_torch.ops.rank import _MISS, _MISS_THRESHOLD
-from naqs_tpu_torch.utils.bits import parity_pm1
-
-QUAD_MISS = -200.0   # quadratic_energy's log-amp of a miss: exp(-200 + la) is 0 in f32
-DIAG_RTOL = 1e-12    # of sum_d |diag_coeff_d|: the f64 diagonal's add order
+from naqs_tpu_torch.ops.dyn_gather import (DIAG_RTOL, QUAD_MISS, _terms_check,  # noqa: F401
+                                           local_energy_rows_ref, local_energy_rows_tolerance,
+                                           quadratic_rows_ref, quadratic_rows_tolerance,
+                                           ratio_rowsum)
+from naqs_tpu_torch.ops.rank import _MISS
 
 _INT = ctypes.c_int
 _PTR = ctypes.c_void_p
@@ -103,28 +113,23 @@ def sorted_gather2_ref(states, la, ph, n_valid, s, xy, live):
     return torch.where(found, g_la, QUAD_MISS), torch.where(found, g_ph, 0.0)
 
 
-def _row_chunks(n_rows, chunk_rows):
-    c = max(chunk_rows or n_rows, 1)
-    return [slice(i, i + c) for i in range(0, n_rows, c)] or [slice(0, 0)]
+def _sorted_gather(states, la, ph, n_valid, xy):
+    """The sort lookup as `local_energy_rows_ref` reads it: s -> (g_la, g_ph),
+    a miss marked as the rank table marks it."""
+    def gather(s):
+        found, g_la, g_ph = lookup(states, la, ph, n_valid, s[:, None] ^ xy[None, :])
+        return torch.where(found, g_la, _MISS), g_ph
+    return gather
 
 
-def sorted_local_energy_ref(states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique, xy_ptr,
-                            term_yz, yz_unique, term_coeff, diag_yz, diag_coeff,
+def sorted_local_energy_ref(states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique, *terms,
                             chunk_rows=None):
     """Plain PyTorch version, per chunk of `chunk_rows` query rows (all at
-    once if None): the diagonal's parity fold in f64, `offdiag_h_terms_ref`
-    and `sorted_ratio_rowsum_ref`."""
-    e_re, e_im = [], []
-    for rows in _row_chunks(q_states.shape[0], chunk_rows):
-        s = q_states[rows]
-        e_diag = torch.sum(parity_pm1(s[:, None] & diag_yz).to(torch.float64) * diag_coeff,
-                           dim=-1)
-        h = offdiag_h_terms_ref(s, yz_unique, xy_ptr, term_yz, term_coeff)
-        r, i = sorted_ratio_rowsum_ref(states, la, ph, n_valid, s, xy_unique, q_la[rows],
-                                       q_ph[rows], h)
-        e_re.append(e_diag + r.to(torch.float64))
-        e_im.append(i.to(torch.float64))
-    return torch.cat(e_re), torch.cat(e_im)
+    once if None): `local_energy_rows_ref` with the sort lookup, the
+    diagonal's parity fold in f64, `offdiag_h_terms_ref` and
+    `sorted_ratio_rowsum_ref`'s steps."""
+    return local_energy_rows_ref(_sorted_gather(states, la, ph, n_valid, xy_unique), q_states,
+                                 q_la, q_ph, xy_unique, *terms, chunk_rows=chunk_rows)
 
 
 def sorted_local_energy_tolerance(states, la, n_valid, q_states, q_la, xy_unique, xy_ptr,
@@ -132,20 +137,28 @@ def sorted_local_energy_tolerance(states, la, n_valid, q_states, q_la, xy_unique
                                   chunk_rows=None, h_exact=False):
     """(U_q,) f64 bound on |sorted_local_energy - its plain version| per row;
     h_exact: against a composition whose h has the kernel's bits."""
-    h_tol = offdiag_tolerance(xy_ptr, term_coeff)
-    diag = DIAG_RTOL * float(diag_coeff.abs().sum())
-    out = []
-    for rows in _row_chunks(q_states.shape[0], chunk_rows):
-        s, my_la = q_states[rows], q_la[rows]
-        g_la = sorted_log_amps(states, la, n_valid, s, xy_unique)
-        h = offdiag_h_terms_ref(s, yz_unique, xy_ptr, term_yz, term_coeff)
-        tol = rowsum_tolerance(g_la, my_la, h).to(torch.float64) + diag
-        if not h_exact:
-            mag = torch.where(g_la > _MISS_THRESHOLD,
-                              torch.exp(torch.clamp(g_la - my_la[:, None], -30.0, 30.0)), 0.0)
-            tol += torch.sum(mag.to(torch.float64) * h_tol, dim=-1)
-        out.append(tol)
-    return torch.cat(out)
+    return local_energy_rows_tolerance(
+        lambda s: sorted_log_amps(states, la, n_valid, s, xy_unique), q_states, q_la, xy_ptr,
+        term_yz, yz_unique, term_coeff, diag_coeff, chunk_rows=chunk_rows, h_exact=h_exact)
+
+
+def sorted_quadratic_energy_ref(states, la, ph, n_valid, xy_unique, *terms, chunk_rows=None):
+    """Plain version of `sorted_quadratic_energy`: `quadratic_rows_ref` with
+    `sorted_gather2_ref`'s lookup."""
+    return quadratic_rows_ref(
+        lambda s, live: sorted_gather2_ref(states, la, ph, n_valid, s, xy_unique, live),
+        states, la, ph, n_valid, xy_unique, *terms, chunk_rows=chunk_rows)
+
+
+def sorted_quadratic_energy_tolerance(states, la, ph, n_valid, xy_unique, xy_ptr, term_yz,
+                                      yz_unique, term_coeff, diag_coeff, chunk_rows=None,
+                                      h_exact=False):
+    """((U,), (U,)) f64 bounds on |sorted_quadratic_energy - its plain
+    version| per row, of num and of w."""
+    return quadratic_rows_tolerance(
+        lambda s, live: sorted_gather2_ref(states, la, ph, n_valid, s, xy_unique, live),
+        states, la, n_valid, xy_ptr, term_yz, yz_unique, term_coeff, diag_coeff,
+        chunk_rows=chunk_rows, h_exact=h_exact)
 
 
 def sorted_log_amps(states, la, n_valid, s, xy):
@@ -165,8 +178,12 @@ def _lib():
     lib.sorted_local_energy.argtypes = [_PTR, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR,
                                         _PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
                                         _PTR, _PTR, _PTR]
-    lib.sorted_ratio_rowsum.restype = lib.sorted_gather2.restype = _INT
-    lib.sorted_local_energy.restype = _INT
+    lib.sorted_quadratic_energy.argtypes = [_PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
+                                            _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR,
+                                            _PTR]
+    for name in ("sorted_ratio_rowsum", "sorted_gather2", "sorted_local_energy",
+                 "sorted_quadratic_energy"):
+        getattr(lib, name).restype = _INT
     return lib
 
 
@@ -227,17 +244,12 @@ def sorted_local_energy(states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique
     sorted table (0 where not found). `chunk_rows` bounds the plain version's
     (chunk, K) intermediates on a CPU tensor; the kernel has none."""
     u, n_rows, n_cols = states.shape[0], q_states.shape[0], xy_unique.shape[0]
-    i64, i32, f32 = (torch.int64,), (torch.int32,), (torch.float32,)
-    _build.check_tensors("sorted_local_energy", q_states, {
+    i64, f32 = (torch.int64,), (torch.float32,)
+    _build.check_tensors("sorted_local_energy", q_states, _terms_check({
         "states": (states, i64, (u,)), "la": (la, f32, (u,)), "ph": (ph, f32, (u,)),
         "n_valid": (n_valid, i64, ()), "q_states": (q_states, i64, (n_rows,)),
-        "q_la": (q_la, f32, (n_rows,)), "q_ph": (q_ph, f32, (n_rows,)),
-        "xy_unique": (xy_unique, i64, (n_cols,)), "xy_ptr": (xy_ptr, i32, (n_cols + 1,)),
-        "term_yz": (term_yz, i32, (term_yz.shape[0],)),
-        "yz_unique": (yz_unique, i64, (yz_unique.shape[0],)),
-        "term_coeff": (term_coeff, f32, (term_yz.shape[0],)),
-        "diag_yz": (diag_yz, i64, (diag_yz.shape[0],)),
-        "diag_coeff": (diag_coeff, (torch.float64,), (diag_yz.shape[0],))})
+        "q_la": (q_la, f32, (n_rows,)), "q_ph": (q_ph, f32, (n_rows,))}, n_cols, xy_unique,
+        xy_ptr, term_yz, yz_unique, term_coeff, diag_yz, diag_coeff))
     if q_states.device.type == "cpu":
         return sorted_local_energy_ref(states, la, ph, n_valid, q_states, q_la, q_ph,
                                        xy_unique, xy_ptr, term_yz, yz_unique, term_coeff,
@@ -254,6 +266,35 @@ def sorted_local_energy(states, la, ph, n_valid, q_states, q_la, q_ph, xy_unique
     return e_re, e_im
 
 
+def sorted_quadratic_energy(states, la, ph, n_valid, xy_unique, xy_ptr, term_yz, yz_unique,
+                            term_coeff, diag_yz, diag_coeff, chunk_rows=None):
+    """(num, w), each (U,) f64: row m's terms of quadratic_energy's sum num /
+    sum w for the sorted buffer states (U,) with the shifted log-amps la
+    (QUAD_MISS beyond n_valid) and phases ph (U,) f32, psi(s') read from the
+    same buffer (0 where not found); n_valid a 0-d int64 tensor on their
+    device. `chunk_rows` bounds the plain version's intermediates."""
+    u, n_cols = states.shape[0], xy_unique.shape[0]
+    i64, f32 = (torch.int64,), (torch.float32,)
+    _build.check_tensors("sorted_quadratic_energy", states, _terms_check({
+        "states": (states, i64, (u,)), "la": (la, f32, (u,)), "ph": (ph, f32, (u,)),
+        "n_valid": (n_valid, i64, ())}, n_cols, xy_unique, xy_ptr, term_yz, yz_unique,
+        term_coeff, diag_yz, diag_coeff))
+    if states.device.type == "cpu":
+        return sorted_quadratic_energy_ref(states, la, ph, n_valid, xy_unique, xy_ptr, term_yz,
+                                           yz_unique, term_coeff, diag_yz, diag_coeff,
+                                           chunk_rows=chunk_rows)
+    num = torch.empty((u,), dtype=torch.float64, device=states.device)
+    w = torch.empty_like(num)
+    if u == 0:
+        return num, w
+    _build.launch(_lib(), "sorted_quadratic_energy",
+                  (states, u, la, ph, n_valid, xy_unique, xy_ptr, n_cols, term_yz, yz_unique,
+                   term_coeff, diag_yz, diag_coeff, diag_yz.shape[0], num, w), states.device)
+    sorted_quadratic_energy.launches += 1
+    return num, w
+
+
 sorted_ratio_rowsum.launches = 0
 sorted_gather2.launches = 0
 sorted_local_energy.launches = 0
+sorted_quadratic_energy.launches = 0

@@ -25,7 +25,13 @@ fp32 add order), each bitwise equal to itself run twice; the one-launch
 plain version (the row sum's, the H entries' and the f64 diagonal's add
 order), of `offdiag_h_terms` + `sorted_ratio_rowsum` composed within that
 bound without the H entries' term (the same h bits), and bitwise equal to
-itself.
+itself. The same body with the rank lookup, `rank_local_energy`, per row
+within `rank_local_energy_tolerance` (up to frozen-core N2 6-31G's 32-qubit
+table of 19 M rows), and the one-launch quadratic forms
+`rank_quadratic_energy` and `sorted_quadratic_energy` per row (num and w)
+within their `*_tolerance` and their quotient within 1e-6 relative; all four
+give `offdiag_h_terms`' h bits on a row with one found pair, bitwise; the
+dispatch launches each once per call where there is no dense A.
 
 The trainer's extras on the card (N2 STO-3G): clipped steps keep the clip's
 ring on the card and move it once per applied update, never on a withheld
@@ -51,7 +57,11 @@ import torch
 
 import naqs_tpu_torch as nt
 from naqs_tpu_torch.models import nade as nade_t
-from naqs_tpu_torch.ops.dyn_gather import (rank_gather2, rank_gather2_ref, rank_ratio_rowsum,
+from naqs_tpu_torch.ops.dyn_gather import (QUAD_MISS, rank_gather2, rank_gather2_ref,
+                                           rank_local_energy, rank_local_energy_ref,
+                                           rank_local_energy_tolerance, rank_quadratic_energy,
+                                           rank_quadratic_energy_ref,
+                                           rank_quadratic_energy_tolerance, rank_ratio_rowsum,
                                            rank_ratio_rowsum_ref, rowsum_tolerance)
 from naqs_tpu_torch.ops import local_energy as le
 from naqs_tpu_torch.ops import dense_engine as de
@@ -69,6 +79,8 @@ from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
 from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_gather2_ref,
                                             sorted_local_energy, sorted_local_energy_ref,
                                             sorted_local_energy_tolerance, sorted_log_amps,
+                                            sorted_quadratic_energy, sorted_quadratic_energy_ref,
+                                            sorted_quadratic_energy_tolerance,
                                             sorted_ratio_rowsum, sorted_ratio_rowsum_ref)
 from naqs_tpu_torch import sampler as sampler_mod
 from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref, _split_and_compact,
@@ -1007,18 +1019,19 @@ ENERGY_SHAPES = [(1, 1, 3, 5, 12), (300, 0, 17, 33, 20), (300, 1, 17, 33, 20),
                  (600_000, 600_000, 64, 512, 40), (100_000, 20_000, None, 27_392, 36)]
 
 
-def _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev):
+def _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev, pool=None):
     """sorted_local_energy's arguments on the card: a sorted buffer of n_valid
-    random states padded with SENTINEL to u; n_rows query rows drawn from its
-    live states, every fifth SENTINEL (None: the buffer itself); n_cols flip
-    masks below 2^n_qubits, a third joining a live query row to a live state,
-    the last tenth 0 with no terms (padding); groups of 1-6 random terms; 257
-    random diagonal terms."""
+    random states (from `pool` if given) padded with SENTINEL to u; n_rows
+    query rows drawn from its live states, every fifth SENTINEL (None: the
+    buffer itself); n_cols flip masks below 2^n_qubits, a third joining a live
+    query row to a live state, the last tenth 0 with no terms (padding);
+    groups of 1-6 random terms; 257 random diagonal terms."""
     from naqs_tpu_torch.utils.bits import SENTINEL
 
     rng = np.random.default_rng(n_cols + n_valid)
     states = np.full(u, SENTINEL, np.int64)
-    pool = np.unique(rng.integers(0, 1 << n_qubits, size=2 * n_valid + 8, dtype=np.int64))
+    if pool is None:
+        pool = np.unique(rng.integers(0, 1 << n_qubits, size=2 * n_valid + 8, dtype=np.int64))
     states[:n_valid] = np.sort(rng.choice(pool, size=n_valid, replace=False))
     la = (-rng.uniform(0, 3, size=u)).astype(np.float32)
     ph = rng.uniform(-np.pi, np.pi, size=u).astype(np.float32)
@@ -1026,7 +1039,7 @@ def _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev):
         q, q_la, q_ph = states, la, ph
     else:
         q = (states[rng.integers(0, n_valid, size=n_rows)] if n_valid
-             else rng.integers(0, 1 << n_qubits, size=n_rows, dtype=np.int64))
+             else rng.choice(pool, size=n_rows))
         q[::5] = SENTINEL
         q_la = (-rng.uniform(0, 3, size=n_rows)).astype(np.float32)
         q_ph = rng.uniform(-np.pi, np.pi, size=n_rows).astype(np.float32)
@@ -1068,7 +1081,7 @@ def test_sorted_local_energy_kernel_matches_plain(u, n_valid, n_rows, n_cols, n_
     """Per row within the stated tolerance of the plain version and of this
     tree's two kernels composed chunk by chunk (the same h bits); padding rows
     their diagonal and 0; twice bitwise."""
-    from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
+    from naqs_tpu_torch.utils.bits import SENTINEL
 
     dev = _card()
     args = _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev)
@@ -1098,8 +1111,7 @@ def test_sorted_local_energy_kernel_matches_plain(u, n_valid, n_rows, n_cols, n_
         h = offdiag_h_terms(s, yz_unique, ptr, term_yz, term_coeff)
         comp.append(sorted_ratio_rowsum(states, la, ph, nv, s, xy, q_la[i:i + chunk],
                                         q_ph[i:i + chunk], h))
-    diag = torch.sum(torch.where(parity_pm1(q[:, None] & diag_yz[None, :]) < 0, -diag_coeff,
-                                 diag_coeff), dim=-1)
+    diag = _diag(q, diag_yz, diag_coeff)
     exact = _tolerance(args, chunk, h_exact=True)
     for g, w in zip(got, (diag + torch.cat([c[0] for c in comp]).double(),
                           torch.cat([c[1] for c in comp]).double())):
@@ -1123,6 +1135,273 @@ def test_sorted_local_energy_rejects_bad_inputs():
                  bad(7, args[7][:-1])):
         with pytest.raises(ValueError):
             call()
+
+
+def _diag(s, diag_yz, diag_coeff):
+    """The f64 diagonal of states s, as diagonal_energy folds it."""
+    from naqs_tpu_torch.utils.bits import parity_pm1
+
+    return torch.sum(torch.where(parity_pm1(s[:, None] & diag_yz[None, :]) < 0, -diag_coeff,
+                                 diag_coeff), dim=-1)
+
+
+def _sector_pool(sectors, n_qubits, n, seed=0):
+    """At least n distinct states of the space (all of it when it is small),
+    drawn without listing a large basis."""
+    h = nt.Hilbert(n_qubits=n_qubits, sectors=sectors)
+    if h.size <= 4 * n:
+        return h.basis
+    rng = np.random.default_rng(seed)
+    shells = n_qubits // 2
+    out = np.zeros(0, np.int64)
+    while out.size < n:
+        na, nb = sectors[rng.integers(0, len(sectors))]
+        pos = np.argsort(rng.random((2 * n, 2, shells)), axis=-1)
+        bits = np.zeros(2 * n, np.int64)
+        for spin, k in ((0, na), (1, nb)):
+            for j in range(k):
+                bits |= np.int64(1) << (2 * pos[:, spin, j] + spin)
+        out = np.unique(np.concatenate([out, bits]))
+    return out
+
+
+def _rank_energy_inputs(sectors, n_qubits, u, n_valid, n_rows, n_cols, dev):
+    """(spec, rank value table, _energy_inputs(...)) with the buffer's states
+    in the space's sectors."""
+    spec = RankSpec.for_hilbert(nt.Hilbert(n_qubits=n_qubits, sectors=sectors))
+    pool = _sector_pool(sectors, n_qubits, max(n_valid, n_rows or 0, 64))
+    args = _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev, pool=pool)
+    table = build_value_table(spec, args[0], args[1], args[2], args[3])
+    return spec, table, args
+
+
+def _chunk(rows, n_cols):
+    return max(1, min(rows, (1 << 24) // n_cols))
+
+
+# (sectors, qubits, buffer rows U, live n_valid, query rows (None: the buffer),
+# flip masks K): no live state (every lookup a miss), one, three sectors, every
+# state of a space live, H2O 6-31G's table at a main-path buffer, and frozen-core
+# N2 6-31G's 32-qubit table (19,079,425 rows, 153 MB: out of L2) at its padded
+# flip-mask count
+RANK_ENERGY_SHAPES = [(((2, 2),), 8, 36, 0, 17, 33), (((3, 2),), 10, 100, 1, 17, 33),
+                      (((5, 3), (4, 4), (3, 5)), 14, 4096, 2000, 77, 1000),
+                      (((5, 5),), 14, 441, 441, None, 513),
+                      (((5, 5),), 26, 100_000, 26_000, None, 4_608),
+                      (((5, 5),), 32, 100_000, 20_000, None, 17_152)]
+
+
+@pytest.mark.parametrize("sectors,n_qubits,u,n_valid,n_rows,n_cols", RANK_ENERGY_SHAPES)
+def test_rank_local_energy_kernel_matches_plain(sectors, n_qubits, u, n_valid, n_rows, n_cols):
+    """Per row within the stated tolerance of the plain version, and on the
+    live rows of this tree's offdiag_h_terms + rank_ratio_rowsum composed chunk
+    by chunk (the same h bits); padding rows their diagonal and 0; twice
+    bitwise."""
+    from naqs_tpu_torch.utils.bits import SENTINEL
+
+    dev = _card()
+    spec, table, args = _rank_energy_inputs(sectors, n_qubits, u, n_valid, n_rows, n_cols,
+                                            dev)
+    (_, _, _, _, q, q_la, q_ph, xy, ptr, term_yz, yz_unique, term_coeff, diag_yz,
+     diag_coeff) = args
+    call = (spec, table, q, q_la, q_ph, xy, ptr, term_yz, yz_unique, term_coeff, diag_yz,
+            diag_coeff)
+    before = rank_local_energy.launches
+    got = rank_local_energy(*call)
+    torch.cuda.synchronize()
+    assert rank_local_energy.launches == before + 1
+    rows = q.shape[0]
+    chunk = _chunk(rows, n_cols)
+    want = rank_local_energy_ref(*call, chunk_rows=chunk)
+    tol = rank_local_energy_tolerance(spec, table, q, q_la, xy, ptr, term_yz, yz_unique,
+                                      term_coeff, diag_coeff, chunk_rows=chunk)
+    for g, w in zip(got, want):
+        assert g.shape == (rows,) and g.dtype == torch.float64 and bool(torch.isfinite(g).all())
+        assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+    pad = q == SENTINEL
+    assert bool((got[1][pad] == 0).all())
+    if bool(pad.any()):
+        assert bool((got[0][pad] == got[0][pad][0]).all())
+    if n_valid > 1:
+        assert float(want[1].abs().max()) > 1e-3   # hits: the sums are not all 0
+    exact = rank_local_energy_tolerance(spec, table, q, q_la, xy, ptr, term_yz, yz_unique,
+                                        term_coeff, diag_coeff, chunk_rows=chunk, h_exact=True)
+    for i in range(0, rows, chunk):   # the composition gives a SENTINEL row no meaning
+        sl = slice(i, i + chunk)
+        s, lv = q[sl], ~pad[sl]
+        h = offdiag_h_terms(s, yz_unique, ptr, term_yz, term_coeff)
+        r, im = rank_ratio_rowsum(spec, s, xy, table, q_la[sl], q_ph[sl], h)
+        diag = _diag(s, diag_yz, diag_coeff)
+        assert bool(((got[0][sl] - diag - r.double()).abs() <= exact[sl])[lv].all())
+        assert bool(((got[1][sl] - im.double()).abs() <= exact[sl])[lv].all())
+    again = rank_local_energy(*call)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))   # no atomics
+
+
+QUAD_SHAPES = [(((2, 2),), 8, 36, 0, 33), (((3, 2),), 10, 100, 1, 33),
+               (((5, 3), (4, 4), (3, 5)), 14, 4096, 2000, 1000),
+               (((5, 5),), 14, 441, 441, 513), (((5, 5),), 26, 100_000, 26_000, 4_608)]
+
+
+@pytest.mark.parametrize("sectors,n_qubits,u,n_valid,n_cols", QUAD_SHAPES)
+@pytest.mark.parametrize("lookup", ["rank", "sort"])
+def test_quadratic_energy_kernel_matches_plain(lookup, sectors, n_qubits, u, n_valid, n_cols):
+    """The one-launch quadratic form (n_valid a device tensor) per row within
+    the stated tolerance of its plain version, rows at or past n_valid (0, 0),
+    the quotient within 1e-6 relative, twice bitwise."""
+    dev = _card()
+    spec, _, args = _rank_energy_inputs(sectors, n_qubits, u, n_valid, None, n_cols, dev)
+    states, la, ph, nv = args[:4]
+    terms = args[7:]
+    live = torch.arange(u, device=dev) < nv
+    shift = la[:n_valid].max() if n_valid else 0.0
+    la_q = torch.where(live, la - shift, QUAD_MISS).float()
+    chunk = _chunk(u, n_cols)
+    if lookup == "rank":
+        table = build_value_table(spec, states, la_q, ph, nv, miss_log_amp=QUAD_MISS)
+        call = (spec, table, nv, states, la_q, ph, *terms)
+        fn, ref = rank_quadratic_energy, rank_quadratic_energy_ref
+        tol = rank_quadratic_energy_tolerance(spec, table, nv, states, la_q, *terms[:5],
+                                              terms[6], chunk_rows=chunk)
+    else:
+        call = (states, la_q, ph, nv, *terms)
+        fn, ref = sorted_quadratic_energy, sorted_quadratic_energy_ref
+        tol = sorted_quadratic_energy_tolerance(states, la_q, ph, nv, *terms[:5], terms[6],
+                                                chunk_rows=chunk)
+    before = fn.launches
+    got = fn(*call)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = ref(*call, chunk_rows=chunk)
+    for g, w, t in zip(got, want, tol):
+        assert g.shape == (u,) and g.dtype == torch.float64 and bool(torch.isfinite(g).all())
+        assert bool(((g - w).abs() <= t).all()), float((g - w).abs().max())
+        assert bool((g[n_valid:] == 0).all())
+    if n_valid > 1:
+        q_got, q_want = float(got[0].sum() / got[1].sum()), float(want[0].sum() / want[1].sum())
+        assert abs(q_got - q_want) <= 1e-6 * abs(q_want)
+        off = want[0] - want[1] * _diag(states, terms[5], terms[6])
+        assert float(off[:n_valid].abs().max()) > 1e-6   # hits: found pairs add to num
+    again = fn(*call)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))   # no atomics
+
+
+@pytest.mark.parametrize("kernel", ["rank_local_energy", "sorted_local_energy",
+                                    "rank_quadratic_energy", "sorted_quadratic_energy"])
+def test_one_launch_kernels_keep_offdiag_h_terms_bits(kernel):
+    """On rows that find exactly one coupled state, with every log-amp and
+    phase 0 and the diagonal's coefficients 0, each one-launch kernel's row
+    sum is that pair's h: equal bit for bit to offdiag_h_terms' entry (the
+    term walk adds a group's terms in index order, as that kernel does). N2
+    STO-3G's terms, groups of 1 to 46 terms."""
+    from naqs_tpu_torch.utils.bits import SENTINEL
+
+    dev = _card()
+    terms, hil = _n2()
+    dt = le.DeviceTerms.from_terms(terms, dense_a=False, hilbert=hil, device=dev)
+    rng = np.random.default_rng(5)
+    xy = dt.xy_unique.cpu().numpy()
+    real = np.flatnonzero(np.diff(dt.xy_ptr.cpu().numpy()) > 0)
+    rows = rng.choice(hil.basis, size=16, replace=False)
+    partners = []
+    for s in rows:   # one in-sector coupled state of each row
+        cand = s ^ xy[real]
+        partners.append(rng.choice(cand[hil.contains(cand)]))
+    buf = np.unique(np.concatenate([rows, partners]))
+    n = len(buf)
+    states = torch.as_tensor(np.concatenate([buf, np.full(8, SENTINEL)]), device=dev)
+    zeros = torch.zeros(n + 8, device=dev)
+    nv = torch.tensor(n, device=dev)
+    q = states[:n, None] ^ dt.xy_unique[None, real]
+    hit = torch.isin(q, states[:n])
+    one = torch.nonzero(hit.sum(1) == 1).flatten()
+    assert one.numel() >= 4
+    k = torch.as_tensor(real, device=dev)[hit[one].int().argmax(1)]
+    want = offdiag_h_terms(states[one], dt.yz_unique, dt.xy_ptr, dt.term_yz,
+                           dt.term_coeff)[torch.arange(one.numel(), device=dev), k].double()
+    assert float(want.abs().min()) > 0
+    terms_args = (dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique, dt.term_coeff, dt.diag_yz,
+                  torch.zeros_like(dt.diag_coeff))
+    if kernel == "rank_local_energy":
+        table = build_value_table(dt.rank_spec, states, zeros, zeros, nv)
+        out = rank_local_energy(dt.rank_spec, table, states, zeros, zeros, *terms_args)
+    elif kernel == "sorted_local_energy":
+        out = sorted_local_energy(states, zeros, zeros, nv, states, zeros, zeros, *terms_args)
+    elif kernel == "rank_quadratic_energy":
+        table = build_value_table(dt.rank_spec, states, zeros, zeros, nv,
+                                  miss_log_amp=QUAD_MISS)
+        out = rank_quadratic_energy(dt.rank_spec, table, nv, states, zeros, zeros, *terms_args)
+    else:
+        out = sorted_quadratic_energy(states, zeros, zeros, nv, *terms_args)
+    assert torch.equal(out[0][one], want)
+
+
+def test_one_launch_dispatch_on_the_card():
+    """Launch counts on each dispatch branch (N2 STO-3G, 4,096 rows in chunks
+    of 2,048 with a dense A): with no dense A, local_energy and
+    quadratic_energy are one launch each of rank_* (a RankSpec) or sorted_*
+    (none), and never offdiag_h_terms or a chunk kernel; the rank engine with
+    no dense A within 2e-4 Ha per live row of the rank engine with one, and
+    quadratic_energy within 1e-6 relative."""
+    dev = _card()
+    terms, hil = _n2()
+    dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
+    m = 3000
+    s, la, ph = _n2_sample(hil, m, 4096, dev, seed=3)
+    wrappers = (rank_local_energy, rank_quadratic_energy, sorted_local_energy,
+                sorted_quadratic_energy, rank_ratio_rowsum, rank_gather2, sorted_ratio_rowsum,
+                sorted_gather2, offdiag_h_terms)
+    engines = {
+        "rank": (dataclasses.replace(dt, dense=None), {"rank_ratio_rowsum": 2},
+                 {"rank_gather2": 2}),
+        "rank, no A": (dataclasses.replace(dt, dense=None, a_mat=None),
+                       {"rank_local_energy": 1}, {"rank_quadratic_energy": 1}),
+        "sort": (dataclasses.replace(dt, dense=None, rank_spec=None),
+                 {"sorted_ratio_rowsum": 2}, {"sorted_gather2": 2}),
+        "sort, no A": (dataclasses.replace(dt, dense=None, rank_spec=None, a_mat=None),
+                       {"sorted_local_energy": 1}, {"sorted_quadratic_energy": 1}),
+    }
+    out = {}
+    for label, (dt_e, want_le, want_q) in engines.items():
+        before = {w.__name__: w.launches for w in wrappers}
+        e = le.local_energy(dt_e, s, la, ph, m)
+        mid = {w.__name__: w.launches for w in wrappers}
+        qe = float(le.quadratic_energy(dt_e, s, la, ph, torch.tensor(m, device=dev)))
+        after = {w.__name__: w.launches for w in wrappers}
+        assert {k: v - before[k] for k, v in mid.items() if v != before[k]} == want_le, label
+        assert {k: v - mid[k] for k, v in after.items() if v != mid[k]} == want_q, label
+        out[label] = (e, qe)
+    for label in ("rank, no A", "sort", "sort, no A"):
+        for a, b in zip(out[label][0], out["rank"][0]):
+            assert float((a[:m] - b[:m]).abs().max()) < 2e-4, label
+        assert abs(out[label][1] - out["rank"][1]) <= 1e-6 * abs(out["rank"][1]), label
+
+
+def test_one_launch_kernels_reject_bad_inputs():
+    dev = _card()
+    spec, table, args = _rank_energy_inputs(((3, 2),), 10, 100, 60, 8, 16, dev)
+    (states, la, ph, nv, q, q_la, q_ph, *terms) = args
+    good = (spec, table, q, q_la, q_ph, *terms)
+
+    def bad(i, value, call=good, fn=rank_local_energy):
+        return lambda: fn(*call[:i], value, *call[i + 1:])
+
+    quad = (spec, table, nv, states, la, ph, *terms)
+    sq = (states, la, ph, nv, *terms)
+    for call in (bad(1, table[:-1]), bad(1, table.double()), bad(1, table.cpu()),
+                 bad(2, q.cpu()), bad(3, q_la.double()), bad(6, terms[1].long()),
+                 bad(11, terms[6].float()),
+                 bad(2, nv.int(), quad, rank_quadratic_energy),
+                 bad(2, 60, quad, rank_quadratic_energy),
+                 bad(4, la[:-1], quad, rank_quadratic_energy),
+                 bad(3, nv.cpu(), sq, sorted_quadratic_energy),
+                 bad(1, la.double(), sq, sorted_quadratic_energy),
+                 bad(5, terms[1][:-1], sq, sorted_quadratic_energy)):
+        with pytest.raises(ValueError):
+            call()
+    with pytest.raises(ValueError):
+        rank_local_energy(spec, torch.zeros(2 * (spec.size + 1) + 1, device=dev)[1:].view(-1, 2),
+                          *good[2:])
 
 
 # ------------------------------------------------------------ the trainer's extras

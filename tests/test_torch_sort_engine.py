@@ -138,12 +138,39 @@ def test_sort_engine_local_energy_matches_jax(name, m, cap, dense_a):
     np.testing.assert_allclose(q_im, qj_im, rtol=0, atol=ROW_TOL)
 
 
+def _quad_case(name, m, cap, engine="sort", wide=False):
+    tag = "-".join(filter(None, ["rank" if engine == "rank" else "", "wide" if wide else ""]))
+    return pytest.param(name, m, cap, engine, wide,
+                        id="-".join(filter(None, [tag, name, str(m), str(cap)])))
+
+
+# the sort engine's cases, then the rank engine's (a RankSpec: the STO-3G
+# molecules), and untrained wide-range log-amps (in [-80, 0]) through both
+QUAD_CASES = ([_quad_case(*c) for c in CASES]
+              + [_quad_case(*c, engine="rank") for c in CASES[:2]]
+              + [_quad_case(*c, wide=True) for c in (CASES[0], CASES[2])]
+              + [_quad_case(*CASES[0], engine="rank", wide=True)])
+
+
 @pytest.mark.parametrize("dense_a", [True, False])
-@pytest.mark.parametrize("name,m,cap", CASES)
-def test_sort_engine_quadratic_energy_matches_jax(name, m, cap, dense_a):
+@pytest.mark.parametrize("name,m,cap,engine,wide", QUAD_CASES)
+def test_sort_engine_quadratic_energy_matches_jax(name, m, cap, engine, wide, dense_a):
+    """quadratic_energy against JAX's on the same batch: with a dense A the
+    chunk loops, without one the one-launch kernels (sorted_quadratic_energy,
+    or rank_quadratic_energy on the rank engine: a Hilbert space, no grid
+    program)."""
     c = _case(name)
-    dt_j, dt_t = _terms(c, dense_a)
+    if engine == "rank":
+        dt_j = dataclasses.replace(le_j.DeviceTerms.from_terms(
+            c.terms_j, dense_a=dense_a, hilbert=c.h_j), dense=None)
+        dt_t = dataclasses.replace(le_t.DeviceTerms.from_terms(
+            c.terms_t, dense_a=dense_a, hilbert=c.h_t, device="cpu"), dense=None)
+        assert dt_t.rank_spec is not None and (dt_t.a_mat is None) == (not dense_a)
+    else:
+        dt_j, dt_t = _terms(c, dense_a)
     s, la, ph, _ = _batch(c, m, cap, 1)
+    if wide:
+        la[:m] = -np.random.default_rng(12).uniform(0.0, 80.0, size=m)
     q_t = float(le_t.quadratic_energy(dt_t, torch.as_tensor(s), torch.as_tensor(la),
                                       torch.as_tensor(ph), m, chunk_rows=64))
     q_j = float(le_j.quadratic_energy(dt_j, jnp.asarray(to_u64(s)), jnp.asarray(la),

@@ -38,7 +38,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      100,000 (one at the trainer's first n_samples, which overflows, one at
      1e5, the steady state) with the inputs of every shell kept; on each of
      the 26 shells split_and_compact (the shell step sample() runs: split and
-     compaction in one launch) against its plain version, multinomial4_split
+     compaction in one launch, gated on the previous shell's count), with its
+     f32 and its f64 instantiation (the shell's probs as float64), against
+     its plain version and against itself run twice, multinomial4_split
      against its plain version and compact_children against its plain
      version on the plain split's outputs, all bitwise (should a
      transcendental's last bit differ, the split is held instead to: row sums
@@ -49,7 +51,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      = 20..5,000, p from 1e-4 to 0.9, the p > 1/2 flip) plus corner rows (q =
      0 and 1, n = 0 and 1e12, all-zero probs), through both split kernels;
      an overflowing compaction through both compaction kernels; a shell step
-     of 1,000,003 rows, whose blocks own several tiles; and one
+     of 1,000,003 rows, more tiles than the card holds blocks at once; the
+     steady-state shell with the most live rows captured in a CUDA graph and
+     replayed 3 times, bitwise equal to an eager call; and one
      sample_density call (d_p = 1e-6) through compact_children against the
      same call through the plain version: states and masses bitwise;
   6. the main path: 5 VMCTrainer.step()s through the default dispatch with
@@ -64,6 +68,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      rank_ratio_rowsum ran 196 times per E_loc call (capacity 100,000 in
      chunks of 512), split_and_compact 13 times per sample() call and the
      standalone sampler kernels never, and no grid kernel ran;
+ 7b. the sort engine with the dense A at the paper's width: SORT_A_STEPS
+     steps of the same trainer with rank_spec=None and dense=None (as a
+     space over 32 qubits, or NAQS_TPU_RANK_MAX below the sector, gives
+     it), the counts at 0 before; fails unless sorted_local_energy ran once
+     per E_loc call, split_and_compact 13 times per sample() call and
+     nothing else (no sorted_ratio_rowsum); then one step under
+     torch.profiler: its wall and device time;
   8. quadratic_energy over the sampled buffer with the counts set to 0,
      through rank_gather2 and through rank_gather2_ref: within 1e-6
      relative, and rank_gather2 launched;
@@ -101,11 +112,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      8 staircase rows of the sampled buffer against local_energy_np with psi
      zeroed outside the restricted rectangle (ELOC_TOL);
  10c. the sort engine, for spaces with no RankSpec. On phase 8-9's H2O 6-31G
-     batch: local_energy through it (rank_spec=None, dense=None) against the
-     rank engine per live row within phase 9's tolerance, and with no dense A
-     (a_mat=None: one sorted_local_energy launch, no other kernel) within
-     ENGINE_TOL, and quadratic_energy through sorted_gather2 within QUAD_RTOL of
-     phase 8's; each kernel launched once per chunk and no other. The rank
+     batch: local_energy through it with the dense A (rank_spec=None,
+     dense=None) one sorted_local_energy launch, within ENGINE_TOL of the rank
+     engine per live row and bitwise equal to the same call with no dense A
+     (a_mat=None), and quadratic_energy one sorted_quadratic_energy launch
+     within QUAD_RTOL of phase 8's, no other kernel; the chunk loops the
+     engine ran with the dense A before (per chunk of 512, P @ A +
+     sorted_ratio_rowsum, and sorted_gather2 + P @ A + the eager epilogue,
+     this tree's kernels) held against both (the loop within phase 9's
+     per-row tolerance of the rank engine), then both designs of each call in
+     turns, SLOW_REPEATS of 1, held and unheld (with --before DIR, DIR's own
+     calls too, first held against this tree's), and in the same turns the
+     rank engine's two calls with its dense A (the chunk loops it keeps) and
+     with a_mat=None (one launch each); fails unless the sort engine's one
+     launch is the faster. The rank
      engine with no dense A (a_mat=None) on the same batch: local_energy one
      rank_local_energy launch and nothing else, within ENGINE_TOL of the rank
      engine with a dense A, and quadratic_energy one rank_quadratic_energy
@@ -153,9 +173,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      gather tab[idx] on a precomputed idx, rank_ratio_rowsum, its plain
      version, the unfused composition (rank_gather2 kernel + eager epilogue)
      and of the sampler's kernels on the inputs of the steady-state shell
-     with the most live rows (split_and_compact, and in turns with it this
+     with the most live rows (split_and_compact, torch's zero_ of its one
+     allocation (what its clear costs the card), and in turns with it this
      tree's two-kernel composition multinomial4_split + compact_children on
-     the same inputs), the compaction's plain version (the
+     the same inputs; then its wrapper's host side unheld: the input checks,
+     the one allocation, the whole call), the compaction's plain version (the
      cumsum/index_copy_ composition the step ran before the kernel),
      torch.masked_select of the weights, three torch.binomial calls on the
      cascade's (n, p) (another algorithm for the same distribution: a
@@ -168,8 +190,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      takes two tables; dense_grid_accumulate (first held against its plain
      version, per cell within its tolerance) where DIR's grid_kernels has
      it; compact_children (first held bitwise against this
-     tree's) and its split + compaction (two launches, first held bitwise
-     against split_and_compact) where DIR has csrc/sampler_step.cu. Then
+     tree's), its split + compaction (two launches, first held bitwise
+     against split_and_compact) and its own split_and_compact (first held
+     bitwise against this tree's) where DIR has csrc/sampler_step.cu. Then
      SLOW_REPEATS repeats of SLOW_LAUNCHES of the factored cells and
      staircase kernels, the staircase kernel also on the grid of every
      staircase cell and on a fully set grid of the rectangle (with --before,
@@ -267,11 +290,15 @@ compact_children (0: the standalone kernels left sample()'s path; their
 launches in phase 5b's sample_density call as "launches_sample_density"), 7
 for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
 for xl_grid_accumulate, 10c's N2 steps for sorted_local_energy,
-sorted_ratio_rowsum and offdiag_h_terms (0: sorted_ratio_rowsum runs where
-the sort engine has a dense A; offdiag_h_terms on no path now,
+sorted_ratio_rowsum and offdiag_h_terms (0: sorted_ratio_rowsum and
+sorted_gather2 are on no path since the sort engine's dense-A calls are one
+launch too; their launches in the H2O 6-31G dense-A call of 10c and in the
+steps of 7b, 0, stand beside them with the chunk loop's time in turns, and
+sorted_local_energy's and sorted_quadratic_energy's entries hold the one
+launch's times there; offdiag_h_terms on no path now,
 beside which its launches in the N2 quadratic_energy call and the
 frozen-core steps stand), its N2 quadratic_energy call for sorted_gather2
-(0: it runs only with a dense A) and sorted_quadratic_energy, 10c's H2O 6-31G call for
+and sorted_quadratic_energy, 10c's H2O 6-31G call for
 rank_quadratic_energy, 10d's steps for rank_local_energy; phase 12's
 exact_energy call for rank_gather2's "launches_exact_energy" and its
 run_density steps for compact_children's "launches_run_density"; the
@@ -282,7 +309,10 @@ count over every valid pair, beside its times on the staircase and the fully
 set grid; the cells kernel's bound counts what this call's data needs (the
 valid and found pairs of the live rows, _cells_work), beside one
 factored_local_energy call's time; with --before, "before_ms" and
-"before_spread" of the earlier tree's kernel), with "launches_cli_a" and "launches_cli_b" from phase 13's runs in every
+"before_spread" of the earlier tree's kernel; split_and_compact's is DIR's
+fused kernel, with its registers by instantiation, the clear's time, its
+wrapper's host pieces unheld and whether the graph replays were bitwise),
+with "launches_cli_a" and "launches_cli_b" from phase 13's runs in every
 entry, and last {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -307,6 +337,7 @@ LI2O_CELLS = 644_365          # its staircase cells
 XL_QUERIES = 4096             # staircase rows held against the rank engine
 QUAD_RTOL = 1e-6              # quadratic_energy, kernel vs plain gather
 N2_STEPS = 2                  # training steps of N2 6-31G on the sort engine
+SORT_A_STEPS = 2              # training steps of H2O 6-31G on the sort engine with its dense A
 SORT_LAUNCHES = 10            # timing of the sort engine's kernels: launches per repeat
 ENERGY_LAUNCHES = 5           # timing of sorted_local_energy: launches per repeat
 SEARCH_OPS = 3                # integer operations per level of a search: load, compare, select
@@ -708,12 +739,84 @@ def _steps(tr, n, label):
     return calls[0], times, calls[1]
 
 
+def _sort_chunk_loop(le, dt, states, la, ph, n_valid, chunk, ratio_fn):
+    """local_energy on the sort engine with a dense A as its chunk loop ran it: per
+    chunk of `chunk` query rows (the last padded with SENTINEL rows) the
+    diagonal, the H row as P @ A (`le._offdiag_h`) and ratio_fn
+    (sorted_ratio_rowsum) over the sorted buffer. (e_re, e_im) f64."""
+    import torch
+
+    from naqs_tpu_torch.ops.sort_lookup import pack_table
+    from naqs_tpu_torch.utils.bits import SENTINEL
+
+    table, nv = pack_table(states, la, ph), le._count(n_valid, states.device)
+    e_re, e_im = [], []
+    for i in range(0, states.shape[0], chunk):
+        s, my_la, my_ph = (states[i:i + chunk], la[i:i + chunk].float(),
+                           ph[i:i + chunk].float())
+        n = s.shape[0]
+        if n < chunk:
+            s = torch.cat([s, s.new_full((chunk - n,), SENTINEL)])
+            my_la = torch.cat([my_la, my_la.new_zeros(chunk - n)])
+            my_ph = torch.cat([my_ph, my_ph.new_zeros(chunk - n)])
+        r, im = ratio_fn(*table, nv, s, dt.xy_unique, my_la, my_ph, le._offdiag_h(dt, s))
+        e_re.append((le.diagonal_energy(dt, s) + r.to(torch.float64))[:n])
+        e_im.append(im.to(torch.float64)[:n])
+    return torch.cat(e_re), torch.cat(e_im)
+
+
+def _quad_loop(le, dt_q, gather, h_fn, states, la_q, ph_q, nv, c):
+    """quadratic_energy's chunk loop as the earlier designs ran it, on log-amps
+    la_q already shifted to a live maximum of 0: per chunk of c rows the
+    diagonal, gather(s, live) (a gather kernel), h_fn(s, yz_unique, xy_ptr,
+    term_yz, term_coeff) (the H row: the per-term kernel, or P @ A) and the
+    eager epilogue."""
+    import torch
+
+    dev = states.device
+    num = torch.zeros((), dtype=torch.float64, device=dev)
+    den = torch.zeros((), dtype=torch.float64, device=dev)
+    live_q = torch.arange(states.shape[0], device=dev) < nv
+    for i in range(0, states.shape[0], c):
+        s, my_la, my_ph, my_live = (states[i:i + c], la_q[i:i + c], ph_q[i:i + c],
+                                    live_q[i:i + c])
+        w_m = torch.where(my_live, torch.exp(2.0 * my_la.double()), 0.0)
+        num += torch.sum(w_m * le.diagonal_energy(dt_q, s))
+        g_la, g_ph = gather(s, my_live)
+        amp = torch.where(my_live[:, None], torch.exp(g_la + my_la[:, None]), 0.0)
+        h_q = h_fn(s, dt_q.yz_unique, dt_q.xy_ptr, dt_q.term_yz, dt_q.term_coeff)
+        num += torch.sum(torch.sum(h_q * (amp * torch.cos(g_ph - my_ph[:, None])),
+                                   dim=-1).double())
+        den += torch.sum(w_m)
+    return num / den
+
+
+def _profiled_step(tr):
+    """One tr.step() under torch.profiler: (its wall time in s, the device time
+    of its kernels and copies in ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = tr.step()
+        torch.cuda.synchronize()
+    wall = time.time() - t
+    if not math.isfinite(out["e_loc"]):
+        raise SystemExit(f"non-finite energy in the profiled step: {out}")
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    return wall, device / 1e3
+
+
 def _shell_inputs(model, gen, n_samples, cap):
     """sampler.sample's shell loop (beta = 1) through the same calls, keeping
     every shell's inputs: returns (the batch, the arguments of each shell's
-    _split_and_compact call: a, b, counts, valid, probs, z, u, mask, j, cap).
-    The caller holds the batch against sample()'s from the same generator
-    state."""
+    _split_and_compact call: a, b, counts, valid, probs, z, u, mask, j, cap,
+    n_live). The caller holds the batch against sample()'s from the same
+    generator state."""
     import torch
 
     from naqs_tpu_torch.models.nade import amp_conditional_shell
@@ -723,12 +826,12 @@ def _shell_inputs(model, gen, n_samples, cap):
     dev = next(model.parameters()).device
     a, b, counts, valid, overflow = _root(cap, float(n_samples), dev)
     shells = torch.arange(model.cfg.n_shells, device=dev)
-    kept = []
+    kept, n_children = [], 1
     with torch.no_grad():
         for j in range(model.cfg.n_shells):
             _, mask, probs = amp_conditional_shell(model, j, *_prefix_bits(a, b, shells))
             z, u = split_draws(gen, cap, dev)
-            args = (a, b, counts, valid, probs, z, u, mask, j, cap)
+            args = (a, b, counts, valid, probs, z, u, mask, j, cap, n_children)
             a, b, counts, valid, n_children = _split_and_compact(*args)
             overflow = overflow | (n_children > cap)
             kept.append(args)
@@ -738,7 +841,7 @@ def _shell_inputs(model, gen, n_samples, cap):
 def _split_of(args):
     """multinomial4_split's arguments in a shell step's: (counts, probs, z, u,
     mask, valid)."""
-    a, b, counts, valid, probs, z, u, mask, j, cap = args
+    a, b, counts, valid, probs, z, u, mask = args[:8]
     return counts, probs, z, u, mask, valid
 
 
@@ -872,20 +975,65 @@ def _check_split(label, args, totals):
 
 def _check_frontier(label, wrapper, ref, args, totals):
     """A compaction's wrapper (`_compact_children` or `_split_and_compact`)
-    against its plain version on `args`: all five outputs bitwise. Adds the
-    largest difference seen and one case to `totals`; returns n_children."""
+    against its plain version on `args`, and against itself called again: all
+    five outputs bitwise. Adds the largest difference seen and one case to
+    `totals`; returns n_children."""
     import torch
 
     got = wrapper(*args)
+    again = wrapper(*args)
     want = ref(*args)
     torch.cuda.synchronize()
-    same = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+    same = all(g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, x)
+               for g, w, x in zip(got, want, again))
     totals["err"] = max([totals["err"]] + [_max_diff(g, w) for g, w in zip(got, want)])
     totals["cases"] += 1
     if not same:
         raise SystemExit(f"{label}: {wrapper.__name__} disagrees with its plain version "
                          f"(max_abs_err={totals['err']})")
     return int(got[4])
+
+
+def _graph_replays(wrapper, args, replays=3):
+    """`wrapper(*args)` captured in a torch.cuda.CUDAGraph, its outputs
+    overwritten with other values before each of `replays` replays: whether
+    every replay gives the eager call's outputs bitwise, and the launches the
+    capture counted."""
+    import torch
+
+    eager = wrapper(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        wrapper(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = wrapper.launches
+    with torch.cuda.graph(graph):
+        captured = wrapper(*args)
+    captured_launches = wrapper.launches - before
+    same = True
+    for fill in range(replays):
+        for t in captured:
+            t.fill_(fill + 3)
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(c, e) for c, e in zip(captured, eager))
+    del graph
+    return same, captured_launches
+
+
+def _ptxas_registers(build_log, kernel):
+    """{mangled entry name: registers} of each instantiation of `kernel` in
+    nvcc's -Xptxas -v report (the mangled name holds the kernel's name)."""
+    regs, entry = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if kernel in line and "'" in line else None
+        elif entry and "Used" in line and "registers" in line:
+            regs[entry] = int(line.split("Used")[1].split("registers")[0])
+            entry = None
+    return regs
 
 
 def _shell_step(split, cap, dev, seed):
@@ -1404,6 +1552,8 @@ def _cli_runs(zero_counts, wrappers, t_fact, t_dense):
 
 
 def main(argv) -> int:
+    import inspect
+
     import numpy as np
     import torch
 
@@ -1453,7 +1603,8 @@ def main(argv) -> int:
                                                 sorted_ratio_rowsum, sorted_ratio_rowsum_ref)
     from naqs_tpu_torch.ops.sampler_kernels import split_tile_rows
     from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref,
-                                        _split_and_compact, _split_and_compact_ref)
+                                        _split_and_compact, _split_and_compact_ref,
+                                        _split_frontier)
     from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
     from naqs_tpu_torch.utils.cuda_timing import HOLD_CYCLES, time_in_turns
 
@@ -1474,8 +1625,11 @@ def main(argv) -> int:
             w.launches = 0
 
     # 1. build
-    for name, out in _build.build_all().items():
+    build_logs = _build.build_all()
+    for name, out in build_logs.items():
         print(f"[build] {name}: nvcc {time.time() - t0:.1f}s\n{out.strip()}", flush=True)
+    split_regs = {("f64" if "F64Row" in k else "f32"): v for k, v in _ptxas_registers(
+        build_logs.get("sampler_step", ""), "split_and_compact_kernel").items()}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -1586,14 +1740,19 @@ def main(argv) -> int:
               f"keeps its inputs gives the same batch bitwise", flush=True)
         for j, args in enumerate(shells):
             n_fused = check_fused(f"{label} shell {j}", args)
+            # the f64 instantiation on the same shell (a float64 model's conditionals)
+            if check_fused(f"{label} shell {j} f64", (*args[:4], args[4].double(), *args[5:])) \
+                    != n_fused:
+                raise SystemExit(f"{label} shell {j}: the f64 shell step counts other children")
             st = _check_split(f"{label} shell {j}", _split_of(args), totals)
             n_kids = check_compact(f"{label} shell {j}", _compaction_of(args))
             live = cap - st["dead_rows"]
             print(f"[shell] {label} j={j}: live rows {live}, binomials of live rows: "
                   f"{st['gauss']} Gaussian, {st['cdf']} inverse CDF ({st['cdf_steps']} looks, "
                   f"longest {st['cdf_longest']}); dead rows {st['dead_rows']}; n_children="
-                  f"{n_kids}; split_and_compact, split and compaction bitwise equal to their "
-                  f"plain versions", flush=True)
+                  f"{n_kids}; split_and_compact (f32 and f64 probs), split and compaction "
+                  f"bitwise equal to their plain versions and to themselves run twice",
+                  flush=True)
             if n_fused != n_kids:
                 raise SystemExit(f"{label} shell {j}: the fused and the two-kernel shell step "
                                  f"count other children")
@@ -1632,15 +1791,24 @@ def main(argv) -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tile = split_tile_rows()
     wide_tiles, most_blocks = -(-wide // tile), 2048 // tile * sms   # 2,048 threads an SM
-    print(f"[kernel] split_and_compact: bitwise equal to its plain version in "
-          f"{fused_totals['cases']} cases: {2 * n_shells} real shells, the synthetic split, an "
-          f"overflowing step ({n_over} children into {cap} slots) and {wide} rows in "
-          f"{wide_tiles} tiles of {tile} ({n_wide} children; the card holds at most "
-          f"{most_blocks} such blocks at once, so blocks own several tiles); "
-          f"max_abs_err={fused_totals['err']}", flush=True)
+    print(f"[kernel] split_and_compact: bitwise equal to its plain version and to itself run "
+          f"twice in {fused_totals['cases']} cases: {2 * n_shells} real shells with f32 and "
+          f"with f64 probs, the synthetic split, an overflowing step ({n_over} children into "
+          f"{cap} slots) and {wide} rows in {wide_tiles} tiles of {tile} ({n_wide} children; "
+          f"the card holds at most {most_blocks} such blocks at once, so later tiles start as "
+          f"earlier ones finish and look back at them); max_abs_err={fused_totals['err']}; "
+          f"registers by probs dtype {split_regs}", flush=True)
     if not (n_over > cap and wide_tiles > most_blocks):
-        raise SystemExit("the fused cases did not overflow or did not give blocks several tiles")
+        raise SystemExit("the fused cases did not overflow or had no more tiles than the card "
+                         "holds blocks")
     del wide_syn, wide_args
+    graph_same, graph_launches = _graph_replays(_split_and_compact, fullest)
+    print(f"[kernel] split_and_compact captured in a CUDA graph on the steady-state shell with "
+          f"the most live rows ({fullest_live} live), replayed 3 times with its outputs "
+          f"overwritten before each: bitwise equal to the eager call={graph_same} (launches "
+          f"counted at the capture: {graph_launches})", flush=True)
+    if not (graph_same and graph_launches == 1):
+        raise SystemExit("split_and_compact under CUDA-graph replay differs from the eager call")
     print(f"[kernel] compact_children: bitwise equal to its plain version on {2 * n_shells} "
           f"real shells and on {n_kids} valid children into {cap} slots (max_abs_err="
           f"{compact_totals['err']} over a, b, weights, flags and n_children)", flush=True)
@@ -1680,6 +1848,11 @@ def main(argv) -> int:
     }
     step_args = fullest
     split_args, compact_args = _split_of(step_args), _compaction_of(step_args)
+    # what the wrapper's clear costs the card: torch's zero_ of as many bytes
+    clear_name = "zero_ of split_and_compact's one allocation"
+    clear_buf, _, clear_at, clear_words = _split_frontier(cap, dev)
+    clear_buf = clear_buf.view(-1)[:3 * clear_buf.shape[1] + clear_at + clear_words]
+    fast.append(clear_name)
     s_counts, s_probs, s_z, s_u, s_mask, s_valid = split_args
     free = multinomial4_split(s_counts, s_probs, s_z, s_u, None, s_valid)[0]
     p64 = s_probs.double()
@@ -1695,8 +1868,9 @@ def main(argv) -> int:
         "compact_children_ref": lambda: _compact_children_ref(*compact_args),
         "split_and_compact": lambda: _split_and_compact(*step_args),
         two_kernels: lambda: _compact_children(
-            step_args[0], step_args[1], *multinomial4_split(*split_args), *step_args[8:]),
+            step_args[0], step_args[1], *multinomial4_split(*split_args), *step_args[8:10]),
         "masked_select(weights)": lambda: torch.masked_select(flat_w, flat_valid),
+        clear_name: lambda: clear_buf.zero_(),
         "3 x torch.binomial": lambda: [torch.binomial(n, p) for n, p in binom_np],
     })
     before = _split_before(s_counts, s_probs, s_z, s_u, s_mask)
@@ -1709,6 +1883,7 @@ def main(argv) -> int:
     old_name = "two-channel rank_gather2"
     old_compact = "compact_children (earlier tree)"
     old_two = f"{two_kernels} (earlier tree)"
+    old_fused = "split_and_compact (earlier tree)"
     old_mods, before_dir = {}, None
     if "--before" in argv:
         before_dir = os.path.abspath(argv[argv.index("--before") + 1])
@@ -1726,7 +1901,7 @@ def main(argv) -> int:
 
         def two_old():
             return compact_old(step_args[0], step_args[1], *split_old(*split_args),
-                               *step_args[8:])
+                               *step_args[8:10])
 
         same_old = all(torch.equal(g, w) for g, w in zip(two_old(),
                                                          _split_and_compact(*step_args)))
@@ -1736,6 +1911,17 @@ def main(argv) -> int:
             raise SystemExit(f"{old_two} disagrees with this tree's split_and_compact")
         fns[old_two] = two_old
         fast += [old_compact, old_two]
+        # the earlier tree's fused shell step, with n_live where its signature has it
+        fused_old = old_mods["sampler"]._split_and_compact
+        old_args = step_args[:len(inspect.signature(fused_old).parameters)]
+        same_old = all(torch.equal(g, w) for g, w in zip(fused_old(*old_args),
+                                                         _split_and_compact(*step_args)))
+        print(f"[kernel] {old_fused} ({len(old_args)} arguments): bitwise equal to this "
+              f"tree's={same_old}", flush=True)
+        if not same_old:
+            raise SystemExit(f"{old_fused} disagrees with this tree's split_and_compact")
+        fns[old_fused] = lambda: fused_old(*old_args)
+        fast.append(old_fused)
     if "rank_gather2" in old_mods:
         old = old_mods["rank_gather2"]
         la_c, ph_c = table[:, 0].contiguous(), table[:, 1].contiguous()
@@ -1798,10 +1984,37 @@ def main(argv) -> int:
             and multinomial4_split.launches == _compact_children.launches == 0):
         raise SystemExit("the rank path did not run split_and_compact once per shell, or ran "
                          "the standalone sampler kernels")
+
+    # 7b. the sort engine with its dense A at the paper's width: the same trainer
+    # with no RankSpec and no grid program, as a space over 32 qubits (or a rank
+    # cap set below the sector) gives it; one sorted_local_energy launch per E_loc
+    # call, then one step under torch.profiler for its device time
+    dt_sort = dataclasses.replace(dt, rank_spec=None, dense=None)
+    if dt_sort.a_mat is None:
+        raise SystemExit("H2O 6-31G's DeviceTerms must carry a dense A")
+    tr.dt = dt_sort
+    zero_counts()
+    n_updates_s, t_sort, n_draws_s = _steps(tr, SORT_A_STEPS, "sort, dense A")
+    sort_a_counts = {w.__name__: w.launches for w in wrappers}
+    want_sort_a = dict({w.__name__: 0 for w in wrappers}, sorted_local_energy=n_updates_s,
+                       _split_and_compact=n_shells * n_draws_s)
+    print(f"[path] sort engine with the dense A (rank_spec=None, dense=None): launches in "
+          f"{SORT_A_STEPS} steps {sort_a_counts} ({n_updates_s} vmc_update calls, "
+          f"{n_draws_s} sample() calls of {n_shells} shells)", flush=True)
+    if sort_a_counts != want_sort_a or n_updates_s < SORT_A_STEPS:
+        raise SystemExit(f"the sort engine with a dense A did not run one sorted_local_energy "
+                         f"launch per E_loc call and split_and_compact once per shell, or ran "
+                         f"other kernels: {sort_a_counts} against {want_sort_a}")
+    sort_a_wall, sort_a_device = _profiled_step(tr)
+    print(f"[path] sort engine with the dense A, one more step under torch.profiler: "
+          f"{sort_a_wall:.3f} s of wall time (the profiler's own cost included), "
+          f"{sort_a_device:.2f} ms of device time; unprofiled steps "
+          f"{', '.join(f'{t:.3f}' for t in t_sort)} s", flush=True)
     tr.dt = dt
     print(f"[path] step time, same trainer, same call: factored steps 2-5 "
           f"{min(t_fact[1:]):.3f}-{max(t_fact[1:]):.3f} s, rank steps 6-7 "
-          f"{min(t_rank):.3f}-{max(t_rank):.3f} s", flush=True)
+          f"{min(t_rank):.3f}-{max(t_rank):.3f} s, sort steps with the dense A "
+          f"{min(t_sort):.3f}-{max(t_sort):.3f} s", flush=True)
 
     # 8. quadratic_energy through rank_gather2 and through its plain version
     batch = tr._sample()
@@ -2066,10 +2279,7 @@ def main(argv) -> int:
 
     # 10c. the sort engine (no RankSpec): on H2O 6-31G's batch of phases 8-9
     # against the rank engine, then N2 6-31G (36 qubits) at the paper's widths
-    dt_sort = dataclasses.replace(dt, rank_spec=None, dense=None)
     dt_seg = dataclasses.replace(dt_sort, a_mat=None)
-    if dt_sort.a_mat is None:
-        raise SystemExit("H2O 6-31G's DeviceTerms must carry a dense A")
     zero_counts()
     e_g = le.local_energy(dt_seg, batch.states, la, ph, batch.n_unique)
     seg_counts = {w.__name__: w.launches for w in wrappers}
@@ -2077,31 +2287,108 @@ def main(argv) -> int:
     e_s = le.local_energy(dt_sort, batch.states, la, ph, batch.n_unique)
     q_s = float(le.quadratic_energy(dt_sort, batch.states, la, ph, batch.n_unique))
     h2o_counts = {w.__name__: w.launches for w in wrappers}
-    d_sr = [(a[:nu] - b[:nu]).abs() for a, b in zip(e_s, e_k)]
-    sr_ok = all(bool((d <= tol).all()) for d in d_sr)
-    sr_same = all(torch.equal(a[:nu], b[:nu]) for a, b in zip(e_s, e_k))
+    d_sr = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_s, e_k))
+    sr_same = all(torch.equal(a, b) for a, b in zip(e_s, e_g))
     d_seg = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_g, e_k))
     q_rel_s = abs(q_s - q_k) / abs(q_k)
-    print(f"[eloc] H2O 6-31G, sort engine (rank_spec=None, dense=None) vs rank engine on {nu} "
-          f"rows: within the per-row tolerance of phase 9={sr_ok} (bitwise equal={sr_same}), "
-          f"max_abs_diff re {float(d_sr[0].max()):.3e} im {float(d_sr[1].max()):.3e} Ha; "
-          f"with no dense A (a_mat=None: sorted_local_energy, launches {seg_counts}) vs "
-          f"the rank engine: {d_seg:.3e} Ha (tol {ENGINE_TOL}); "
-          f"quadratic_energy through sorted_gather2 {q_s:.10f} vs rank {q_k:.10f}: rel "
-          f"{q_rel_s:.2e} (tol {QUAD_RTOL}); launches with the dense A {h2o_counts}",
+    # the chunk loops the sort engine ran with a dense A before this design, this
+    # tree's kernels composed as they ran them: per chunk of 512 rows P @ A and
+    # sorted_ratio_rowsum, or sorted_gather2, P @ A and the eager epilogue (on the
+    # log-amps quadratic_energy shifts to a live maximum of 0)
+    live_h = torch.arange(batch.states.shape[0], device=dev) < batch.n_unique
+    la_qh = torch.where(live_h, la - la[:nu].max(), QUAD_MISS).float().contiguous()
+    ph_qh = ph.float().contiguous()
+    nv_h = le._count(batch.n_unique, dev)
+
+    def sort_dense_quad_loop():
+        return _quad_loop(
+            le, dt_sort, lambda s, lv: sorted_gather2(batch.states, la_qh, ph_qh, nv_h, s,
+                                                      dt.xy_unique, lv),
+            lambda s, *_: le._offdiag_h(dt_sort, s), batch.states, la_qh, ph_qh, nv_h, chunk)
+
+    e_loop = _sort_chunk_loop(le, dt_sort, batch.states, la, ph, batch.n_unique, chunk,
+                              sorted_ratio_rowsum)
+    q_loop = float(sort_dense_quad_loop())
+    d_loop_k = [(a[:nu] - b[:nu]).abs() for a, b in zip(e_loop, e_k)]
+    loop_ok = all(bool((d <= tol).all()) for d in d_loop_k)
+    d_loop = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_s, e_loop))
+    q_rel_loop = abs(q_s - q_loop) / abs(q_loop)
+    print(f"[eloc] H2O 6-31G, sort engine with the dense A (rank_spec=None, dense=None): one "
+          f"launch, launches {h2o_counts} (with quadratic_energy); vs the rank engine on {nu} "
+          f"rows {d_sr:.3e} Ha (tol {ENGINE_TOL}); bitwise equal to the same call with no dense "
+          f"A (a_mat=None, launches {seg_counts})={sr_same}, which is {d_seg:.3e} Ha from the "
+          f"rank engine; vs the chunk loop of before ({per_call} chunks of P @ A + "
+          f"sorted_ratio_rowsum) {d_loop:.3e} Ha, the loop within phase 9's per-row tolerance "
+          f"of the rank engine={loop_ok}; quadratic_energy {q_s:.10f} vs phase 8's {q_k:.10f}: "
+          f"rel {q_rel_s:.2e} (tol {QUAD_RTOL}), vs the chunk loop of before ({per_call} chunks "
+          f"of sorted_gather2 + P @ A + epilogue) {q_loop:.10f}: rel {q_rel_loop:.2e}",
           flush=True)
     want_counts = {w.__name__: 0 for w in wrappers}
     want_seg = dict(want_counts, sorted_local_energy=1)
-    want_counts.update(sorted_ratio_rowsum=per_call, sorted_gather2=per_call)
-    if not (sr_ok and d_seg <= ENGINE_TOL and q_rel_s <= QUAD_RTOL
-            and h2o_counts == want_counts and seg_counts == want_seg and math.isfinite(q_s)):
-        raise SystemExit("H2O 6-31G: the sort engine disagrees with the rank engine, or ran "
-                         "other kernels than its own")
-    del e_s, e_g, d_sr
+    want_counts.update(sorted_local_energy=1, sorted_quadratic_energy=1)
+    if not (d_sr <= ENGINE_TOL and d_seg <= ENGINE_TOL and sr_same and q_rel_s <= QUAD_RTOL
+            and h2o_counts == want_counts and seg_counts == want_seg and math.isfinite(q_s)
+            and loop_ok and d_loop <= ENGINE_TOL and q_rel_loop <= QUAD_RTOL):
+        raise SystemExit("H2O 6-31G: the sort engine disagrees with the rank engine or with its "
+                         "chunk loop of before, or ran other kernels than its one launch")
+    # the two designs of the dense-A calls in turns, held and unheld (ROADMAP Queue
+    # B 2): the chunk loops of before against the one launch; with --before DIR,
+    # DIR's own calls (its chunk loops) in the same turns. Beside them the rank
+    # engine's calls with its dense A (chunk loops, kept) and with a_mat=None (one
+    # rank_local_energy or rank_quadratic_energy launch), for a later decision
+    dt_rank_noa = dataclasses.replace(dt, dense=None, a_mat=None)
+    le_ra, le_rn = ("local_energy (rank engine, dense A, H2O 6-31G)",
+                    "local_energy (rank engine, no A, H2O 6-31G)")
+    quad_ra, quad_rn = ("quadratic_energy (rank engine, dense A, H2O 6-31G)",
+                        "quadratic_energy (rank engine, no A, H2O 6-31G)")
+    le_sa = "local_energy (sort engine, dense A, H2O 6-31G)"
+    loop_sa = f"P @ A + sorted_ratio_rowsum ({per_call} chunks)"
+    quad_sa = "quadratic_energy (sort engine, dense A, H2O 6-31G)"
+    qloop_sa = f"sorted_gather2 + P @ A + epilogue ({per_call} chunks)"
+    dense_fns = {
+        le_sa: lambda: le.local_energy(dt_sort, batch.states, la, ph, batch.n_unique),
+        loop_sa: lambda: _sort_chunk_loop(le, dt_sort, batch.states, la, ph, batch.n_unique,
+                                          chunk, sorted_ratio_rowsum),
+        quad_sa: lambda: le.quadratic_energy(dt_sort, batch.states, la, ph, batch.n_unique),
+        qloop_sa: sort_dense_quad_loop,
+        le_ra: lambda: le.local_energy(dt_rank, batch.states, la, ph, batch.n_unique),
+        le_rn: lambda: le.local_energy(dt_rank_noa, batch.states, la, ph, batch.n_unique),
+        quad_ra: lambda: le.quadratic_energy(dt_rank, batch.states, la, ph, batch.n_unique),
+        quad_rn: lambda: le.quadratic_energy(dt_rank_noa, batch.states, la, ph,
+                                             batch.n_unique),
+    }
+    if "local_energy" in old_mods:
+        old_le_mod = old_mods["local_energy"]
+        e_old = old_le_mod.local_energy(dt_sort, batch.states, la, ph, batch.n_unique)
+        q_old_sa = float(old_le_mod.quadratic_energy(dt_sort, batch.states, la, ph,
+                                                     batch.n_unique))
+        d_old = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_old, e_s))
+        print(f"[before] the earlier tree's sort engine with the dense A on the same batch: "
+              f"local_energy {d_old:.3e} Ha from this tree's one launch, quadratic_energy "
+              f"{q_old_sa:.10f}", flush=True)
+        if d_old > ENGINE_TOL or abs(q_old_sa - q_s) > QUAD_RTOL * abs(q_s):
+            raise SystemExit("the earlier tree's sort engine with a dense A disagrees")
+        dense_fns[le_sa + ", earlier tree"] = lambda: old_le_mod.local_energy(
+            dt_sort, batch.states, la, ph, batch.n_unique)
+        dense_fns[quad_sa + ", earlier tree"] = lambda: old_le_mod.quadratic_energy(
+            dt_sort, batch.states, la, ph, batch.n_unique)
+        del e_old
+    dense_times = time_in_turns(dense_fns, SLOW_REPEATS, 1)
+    dense_calls = time_in_turns(dense_fns, SLOW_REPEATS, 1, hold=False)
+    for name, (med, spread, held) in dense_times.items():
+        print(f"[time] {name}: held ({held:.1f} ms) median {med:.4f} ms, spread "
+              f"{spread[0]:.4f}-{spread[1]:.4f} ms; unheld median {dense_calls[name][0]:.4f} "
+              f"ms, spread {dense_calls[name][1][0]:.4f}-{dense_calls[name][1][1]:.4f} ms",
+              flush=True)
+        if dense_calls[name][1][1] >= held:
+            raise SystemExit(f"the hold did not cover the enqueue of {name}: held times invalid")
+    if not (dense_times[le_sa][0] < dense_times[loop_sa][0]
+            and dense_times[quad_sa][0] < dense_times[qloop_sa][0]):
+        raise SystemExit("the one launch is not faster than the chunk loop it replaced")
+    del e_s, e_g, e_loop, d_loop_k
     # the rank engine with no dense A on the same batch: local_energy one
     # rank_local_energy launch, against the rank engine with a dense A, and
     # quadratic_energy one rank_quadratic_energy launch, against phase 8's
-    dt_rank_noa = dataclasses.replace(dt, dense=None, a_mat=None)
     zero_counts()
     e_rn = le.local_energy(dt_rank_noa, batch.states, la, ph, batch.n_unique)
     rn_counts = {w.__name__: w.launches for w in wrappers}
@@ -2113,12 +2400,8 @@ def main(argv) -> int:
     # rank_quadratic_energy against its plain version per row, as quadratic_energy
     # calls it: the log-amps shifted so that the live maximum is 0
     terms_h = (dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique, dt.term_coeff)
-    live_h = torch.arange(batch.states.shape[0], device=dev) < batch.n_unique
-    la_qh = torch.where(live_h, la - la[:nu].max(), QUAD_MISS).float().contiguous()
-    ph_qh = ph.float().contiguous()
     table_qh = build_value_table(spec, batch.states, la_qh, ph_qh, batch.n_unique,
                                  miss_log_amp=QUAD_MISS)
-    nv_h = le._count(batch.n_unique, dev)
     rq_args = (spec, table_qh, nv_h, batch.states, la_qh, ph_qh, *terms_h, dt.diag_yz,
                dt.diag_coeff)
     rq_got, rq_again = rank_quadratic_energy(*rq_args), rank_quadratic_energy(*rq_args)
@@ -2529,6 +2812,26 @@ def main(argv) -> int:
 
     times = time_in_turns(fns, REPEATS, LAUNCHES)
     calls = time_in_turns({n: fns[n] for n in fast}, REPEATS, LAUNCHES, hold=False)
+    # the split_and_compact wrapper's host side, piece by piece, unheld: its input
+    # checks (as the wrapper builds them), its one allocation and the whole call
+    a0, b0, c0, v0, p0, z0, u0, m0, j0, cap0, nl0 = step_args
+    i64, f32, bl = (torch.int64,), (torch.float32,), (torch.bool,)
+    host_fns = {
+        "split_and_compact: check_tensors": lambda: _build.check_tensors(
+            "split_and_compact", a0, {
+                "a": (a0, i64, (cap0,)), "b": (b0, i64, (cap0,)),
+                "counts": (c0, (torch.float64,), (cap0,)), "valid": (v0, bl, (cap0,)),
+                "probs": (p0, (torch.float32, torch.float64), (cap0, 4)),
+                "z": (z0, f32, (3, cap0)), "u": (u0, f32, (3, cap0)),
+                "mask": (m0, bl, (cap0, 4)),
+                **({"n_live": (nl0, i64, ())} if torch.is_tensor(nl0) else {})}, align=16),
+        "split_and_compact: its one allocation": lambda: _split_frontier(cap0, dev),
+        "split_and_compact": fns["split_and_compact"],
+    }
+    host_calls = time_in_turns(host_fns, REPEATS, LAUNCHES, hold=False)
+    for name, (med, spread, _) in host_calls.items():
+        print(f"[time] host side, unheld: {name}: median {med:.4f} ms, spread "
+              f"{spread[0]:.4f}-{spread[1]:.4f} ms", flush=True)
     fle_name = "factored_local_energy (H2O 6-31G)"
     slow_fns = {
         "factored_cells_accumulate": lambda: factored_cells_accumulate(fn, grid, g_idx, g_n),
@@ -2665,25 +2968,6 @@ def main(argv) -> int:
     # own call) and with its plain version, held and unheld; one whole call of
     # each path unheld, this tree's and DIR's
 
-    def quad_loop(dt_q, gather, h_fn, states, la_q, ph_q, nv, c):
-        """quadratic_energy's chunk loop with no dense A in the earlier design: the gather
-        kernel, the per-term H row and the eager epilogue per chunk"""
-        num = torch.zeros((), dtype=torch.float64, device=dev)
-        den = torch.zeros((), dtype=torch.float64, device=dev)
-        live_q = torch.arange(states.shape[0], device=dev) < nv
-        for i in range(0, states.shape[0], c):
-            s, my_la, my_ph, my_live = (states[i:i + c], la_q[i:i + c], ph_q[i:i + c],
-                                        live_q[i:i + c])
-            w_m = torch.where(my_live, torch.exp(2.0 * my_la.double()), 0.0)
-            num += torch.sum(w_m * le.diagonal_energy(dt_q, s))
-            g_la, g_ph = gather(s, my_live)
-            amp = torch.where(my_live[:, None], torch.exp(g_la + my_la[:, None]), 0.0)
-            h_q = h_fn(s, dt_q.yz_unique, dt_q.xy_ptr, dt_q.term_yz, dt_q.term_coeff)
-            num += torch.sum(torch.sum(h_q * (amp * torch.cos(g_ph - my_ph[:, None])),
-                                       dim=-1).double())
-            den += torch.sum(w_m)
-        return num / den
-
     def sort_gather4(s, live_q):
         return sorted_gather2(batch4.states, la_q4, ph_q4, nv4q, s, xy4, live_q)
 
@@ -2691,10 +2975,10 @@ def main(argv) -> int:
         return rank_gather2(spec, s, dt.xy_unique, table_qh)
 
     # the loops of before, held against the kernels' totals
-    loop4 = float(quad_loop(dt4, sort_gather4, offdiag_h_terms, batch4.states, la_q4, ph_q4,
-                            nv4q, chunk4))
-    loop_h = float(quad_loop(dt_rank_noa, rank_gather_h, offdiag_h_terms, batch.states, la_qh,
-                             ph_qh, nv_h, chunk))
+    loop4 = float(_quad_loop(le, dt4, sort_gather4, offdiag_h_terms, batch4.states, la_q4,
+                             ph_q4, nv4q, chunk4))
+    loop_h = float(_quad_loop(le, dt_rank_noa, rank_gather_h, offdiag_h_terms, batch.states,
+                              la_qh, ph_qh, nv_h, chunk))
     q_sq = float(sq_got[0].sum() / sq_got[1].sum())
     q_rq = float(rq_got[0].sum() / rq_got[1].sum())
     print(f"[quad] the chunk loops of before on the same inputs (this tree's gather kernel and "
@@ -2721,12 +3005,12 @@ def main(argv) -> int:
         "rank_local_energy": lambda: rank_local_energy(*r5_args),
         rcomp: lambda: composition5(offdiag_h_terms, rank_ratio_rowsum),
         "sorted_quadratic_energy": lambda: sorted_quadratic_energy(*sq_args),
-        qcomp: lambda: quad_loop(dt4, sort_gather4, offdiag_h_terms, batch4.states, la_q4,
-                                 ph_q4, nv4q, chunk4),
+        qcomp: lambda: _quad_loop(le, dt4, sort_gather4, offdiag_h_terms, batch4.states,
+                                  la_q4, ph_q4, nv4q, chunk4),
         quad_n2: lambda: le.quadratic_energy(dt4, batch4.states, la4, ph4, batch4.n_unique),
         "rank_quadratic_energy": lambda: rank_quadratic_energy(*rq_args),
-        hcomp: lambda: quad_loop(dt_rank_noa, rank_gather_h, offdiag_h_terms, batch.states,
-                                 la_qh, ph_qh, nv_h, chunk),
+        hcomp: lambda: _quad_loop(le, dt_rank_noa, rank_gather_h, offdiag_h_terms,
+                                  batch.states, la_qh, ph_qh, nv_h, chunk),
         quad_h2o: lambda: le.quadratic_energy(dt_rank_noa, batch.states, la, ph,
                                               batch.n_unique),
         quad_h2o_a: lambda: le.quadratic_energy(dt, batch.states, la, ph, batch.n_unique),
@@ -2958,12 +3242,18 @@ def main(argv) -> int:
     n_parents, n_kids = int(flags.any(-1).sum()), int(flags.sum())
     cp_bytes = cap * 4 + n_parents * 16 + min(n_kids, cap) * 8 + cap * (24 + 1) + 8
     cp_bound = _bound(cp_bytes, cap * COMPACT_ROW_OPS)
-    # the fused step reads the split's inputs and the parents' prefix bits and writes
-    # the compaction's outputs; the split's outputs never reach device memory
-    fu_bytes = cap * (8 + 1) + fullest_live * (p_size + 4 + 24) + n_parents * 16 + cap * 25 + 8
-    fu_ops_ms = sp_ops_ms + cap * COMPACT_ROW_OPS / H100_FP32_OPS_PER_S * 1e3
+    # the fused step reads the previous count, the count and flag of the rows below
+    # it, the split's other inputs of the live rows and the parents' prefix bits, and
+    # writes the compaction's outputs; the split's outputs never reach device memory.
+    # The earlier design's count read the count and flag of every row.
+    n_gate = min(int(step_args[10]), cap)
+    fu_bytes = (8 + n_gate * (8 + 1) + fullest_live * (p_size + 4 + 24) + n_parents * 16
+                + cap * 25 + 8)
+    fu_ops_ms = sp_ops_ms + n_gate * COMPACT_ROW_OPS / H100_FP32_OPS_PER_S * 1e3
     fu_bytes_ms = fu_bytes / H100_BYTES_PER_S * 1e3
     fu_bound = (max(fu_bytes_ms, fu_ops_ms), "bytes" if fu_bytes_ms >= fu_ops_ms else "operations")
+    fu_every = (cap * (8 + 1) + fullest_live * (p_size + 4 + 24) + n_parents * 16 + cap * 25
+                + 8) / H100_BYTES_PER_S * 1e3
     print(f"[bound] multinomial4_split {sp_bound[0]:.5f} ms ({sp_bound[1]}: {sp_bytes} B = "
           f"{cap} rows x 45 B (count, flag, outputs) + {fullest_live} live rows x "
           f"{p_size + 28} B (probs, mask, six draws); {sp_f64} float64 operations at "
@@ -2974,10 +3264,12 @@ def main(argv) -> int:
           f"{cap * 4} B, a and b of {n_parents} parents, {min(n_kids, cap)} weights, four "
           f"outputs {cap * 25} B; {cap * COMPACT_ROW_OPS} integer operations)", flush=True)
     print(f"[bound] split_and_compact {fu_bound[0]:.5f} ms ({fu_bound[1]}: {fu_bytes} B = "
-          f"{cap} rows x 9 B (count, flag) + {fullest_live} live rows x {p_size + 28} B (probs, "
-          f"mask, six draws) + a and b of {n_parents} parents + four outputs {cap * 25 + 8} B, "
-          f"{fu_bytes_ms:.5f} ms; the split's operations and {cap * COMPACT_ROW_OPS} integer "
-          f"operations: {fu_ops_ms:.5f} ms)", flush=True)
+          f"the previous count + the {n_gate} rows below it x 9 B (count, flag) + "
+          f"{fullest_live} live rows x {p_size + 28} B (probs, mask, six draws) + a and b of "
+          f"{n_parents} parents + four outputs {cap * 25 + 8} B, {fu_bytes_ms:.5f} ms; the "
+          f"split's operations and {n_gate * COMPACT_ROW_OPS} integer operations: "
+          f"{fu_ops_ms:.5f} ms); the earlier count over the count and flag of all {cap} rows "
+          f"{fu_every:.5f} ms", flush=True)
 
     if "--profile" in argv:
         from torch.autograd import DeviceType
@@ -3115,6 +3407,12 @@ def main(argv) -> int:
               composition_unheld_ms=calls[e_comp][0],
               in_turns_with_compositions_ms=comp_times[e_name][0],
               found_pairs=n_found_pairs, live_rows=n_live4,
+              dense_a_call_ms=dense_times[le_sa][0], dense_a_call_unheld_ms=dense_calls[le_sa][0],
+              **({"dense_a_call_before_ms": dense_times[le_sa + ", earlier tree"][0],
+                  "dense_a_call_before_unheld_ms": dense_calls[le_sa + ", earlier tree"][0]}
+                 if le_sa + ", earlier tree" in dense_times else {}),
+              launches_dense_a_steps=sort_a_counts["sorted_local_energy"],
+              dense_a_step_s=t_sort, dense_a_step_device_ms=sort_a_device,
               local_energy_ms=calls[le_name][0],
               **({"local_energy_before_ms": calls[le_old][0]} if le_old in calls else {})),
         entry("sorted_ratio_rowsum", sort_launches, ratio_err4, "sorted_ratio_rowsum_ref",
@@ -3123,19 +3421,29 @@ def main(argv) -> int:
               library_note="torch.searchsorted of the (C, K) coupled states and two gathers: no "
                            "found test, ratio or row sum",
               launches_dense_a_call=h2o_counts["sorted_ratio_rowsum"],
-              path_note="launches: N2 6-31G's training steps (sorted_local_energy there); it "
-                        "runs per chunk where the sort engine has a dense A "
-                        "(launches_dense_a_call: one H2O 6-31G call, phase 10c)"),
+              launches_dense_a_steps=sort_a_counts["sorted_ratio_rowsum"],
+              dense_a_loop_ms=dense_times[loop_sa][0],
+              dense_a_loop_unheld_ms=dense_calls[loop_sa][0],
+              path_note="superseded where A is dense too: no path launches it "
+                        "(launches: N2 6-31G's training steps; launches_dense_a_call: the H2O "
+                        "6-31G call on the sort engine with its dense A, phase 10c; "
+                        "launches_dense_a_steps: that engine's steps, phase 7b); held here on a "
+                        "real chunk; dense_a_loop_ms: the chunk loop it ran there before (P @ A "
+                        "and this kernel per chunk), in turns with sorted_local_energy"),
         entry("sorted_gather2", quad_launches, gather_err4, "sorted_gather2_ref", sg_bound,
               "searchsorted + gather", source="naqs_tpu_torch/csrc/sort_lookup.cu",
               replaces="naqs_tpu/ops/local_energy.py:363",
               library_note="torch.searchsorted of the (C, K) coupled states and two gathers: no "
                            "found test or live mask",
               launches_dense_a_call=h2o_counts["sorted_gather2"],
-              path_note="superseded by sorted_quadratic_energy where there is no dense A (N2 "
-                        "6-31G's quadratic_energy: launches 0); it runs per chunk "
-                        "of quadratic_energy on the sort engine with a dense A "
-                        "(launches_dense_a_call: one H2O 6-31G call, phase 10c)"),
+              dense_a_loop_ms=dense_times[qloop_sa][0],
+              dense_a_loop_unheld_ms=dense_calls[qloop_sa][0],
+              path_note="superseded by sorted_quadratic_energy, where there is no dense A "
+                        "and where A is dense too: no path launches it (launches: "
+                        "N2 6-31G's quadratic_energy; launches_dense_a_call: the H2O 6-31G call "
+                        "on the sort engine with its dense A, phase 10c); held here on a real "
+                        "chunk; dense_a_loop_ms: the chunk loop it ran there before, in turns "
+                        "with sorted_quadratic_energy"),
         entry("offdiag_h_terms", offdiag_launches, offdiag_err, "offdiag_h_terms_ref", oh_bound,
               "index_add (precomputed products)", source="naqs_tpu_torch/csrc/offdiag_h.cu",
               replaces="naqs_tpu/ops/local_energy.py:209",
@@ -3162,7 +3470,10 @@ def main(argv) -> int:
               **({"local_energy_before_ms": calls[le_fc + old_tag][0]}
                  if le_fc + old_tag in calls else {}),
               live_rows=nu5, pairs=work5["pairs"], pairs_inside_sector=work5["inside"],
-              table_rows_read=work5["rows"], found_pairs=work5["found"]),
+              table_rows_read=work5["rows"], found_pairs=work5["found"],
+              h2o_call_ms=dense_times[le_rn][0], h2o_call_unheld_ms=dense_calls[le_rn][0],
+              h2o_dense_a_call_ms=dense_times[le_ra][0],
+              h2o_dense_a_call_unheld_ms=dense_calls[le_ra][0]),
         entry("rank_quadratic_energy", qrn_counts["rank_quadratic_energy"], rq_err,
               "rank_quadratic_energy_ref", rq_bound, None,
               replaces="naqs_tpu/ops/local_energy.py:330-381 + :209 + :164",
@@ -3174,6 +3485,10 @@ def main(argv) -> int:
               body="naqs_tpu_torch/csrc/row_energy.cuh", **before(quad_h2o + old_tag),
               composition_ms=times[hcomp][0], quadratic_energy_ms=times[quad_h2o][0],
               dense_a_quadratic_energy_ms=times[quad_h2o_a][0],
+              h2o_in_turns_ms=dense_times[quad_rn][0],
+              h2o_in_turns_unheld_ms=dense_calls[quad_rn][0],
+              h2o_dense_a_in_turns_ms=dense_times[quad_ra][0],
+              h2o_dense_a_in_turns_unheld_ms=dense_calls[quad_ra][0],
               live_rows=nu, pairs=work_rq["pairs"], pairs_inside_sector=work_rq["inside"],
               found_pairs=work_rq["found"]),
         entry("sorted_quadratic_energy", sq_launches, sq_err, "sorted_quadratic_energy_ref",
@@ -3186,7 +3501,12 @@ def main(argv) -> int:
                         "offdiag_h_terms + an eager epilogue per chunk",
               body="naqs_tpu_torch/csrc/row_energy.cuh", **before(quad_n2 + old_tag),
               composition_ms=times[qcomp][0], quadratic_energy_ms=times[quad_n2][0],
-              live_rows=nu4, pairs=work_sq["pairs"], found_pairs=work_sq["found"]),
+              live_rows=nu4, pairs=work_sq["pairs"], found_pairs=work_sq["found"],
+              dense_a_call_ms=dense_times[quad_sa][0],
+              dense_a_call_unheld_ms=dense_calls[quad_sa][0],
+              **({"dense_a_call_before_ms": dense_times[quad_sa + ", earlier tree"][0],
+                  "dense_a_call_before_unheld_ms": dense_calls[quad_sa + ", earlier tree"][0]}
+                 if quad_sa + ", earlier tree" in dense_times else {})),
         entry("split_and_compact", fused_launches, fused_totals["err"], "split_and_compact_ref",
               fu_bound, None,
               replaces="naqs_tpu/ops/multinomial.py:76 + naqs_tpu/sampler.py:49",
@@ -3195,7 +3515,12 @@ def main(argv) -> int:
               two_kernel_unheld_ms=calls[two_kernels][0],
               sample_call_ms=times["sample() at capacity 100,000"][0],
               **({"sample_call_before_ms": times[old_sample][0]} if old_sample in times else {}),
-              **before(old_two),
+              **before(old_fused),
+              **({"before_two_kernel_ms": times[old_two][0]} if old_two in times else {}),
+              registers=split_regs, clear_ms=times[clear_name][0],
+              host_check_unheld_ms=host_calls["split_and_compact: check_tensors"][0],
+              host_allocation_unheld_ms=host_calls["split_and_compact: its one allocation"][0],
+              bound_ms_every_row=fu_every, graph_replays_bitwise=graph_same,
               **SHELL_SRC),
         entry("multinomial4_split", split_launches, totals["err"], "multinomial4_split_ref",
               sp_bound, "3 x torch.binomial", replaces="naqs_tpu/ops/multinomial.py:76",

@@ -15,6 +15,10 @@ built with nvcc on first use; `csrc/naqs_host.cpp` is the host library
 
 __version__ = "0.1.0"
 
+from naqs_tpu_torch.utils.device import settle_cpu_math
+
+settle_cpu_math()   # before any parallel CPU math: see its docstring
+
 from naqs_tpu_torch.hamiltonian import PauliTerms, compile_pauli_terms  # noqa: F401
 from naqs_tpu_torch.models.nade import NAQSConfig  # noqa: F401
 from naqs_tpu_torch.sampler import SampleBatch, sample, sample_density  # noqa: F401

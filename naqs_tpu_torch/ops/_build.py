@@ -7,8 +7,8 @@ interface; nothing here includes PyTorch's headers, so a build takes
 seconds. A library is rebuilt when its source, or a header of `csrc/`
 (`*.cuh`, which a source may include), is newer. `build_all` starts
 one nvcc per source at once. Every library exports
-`<name>_error_string(int)`, bound as `lib.error_string`; `check_tensors` and
-`launch` are what the kernels' wrappers share.
+`<name>_error_string(int)`, bound as `lib.error_string`; `check_tensors`,
+`launch` and `launch_flat` are what the kernels' wrappers share.
 """
 
 from __future__ import annotations
@@ -97,33 +97,57 @@ def check_tensors(name, anchor, want, align: int = 1):
     """Raise on anything a kernel does not take. `want` maps a field's name to
     (tensor, dtypes, shape); every tensor must lie on `anchor`'s device and,
     on the card, be contiguous, start at a multiple of `align` bytes and hold
-    fewer than 2^31 elements. The plain versions take strided CPU tensors."""
+    fewer than 2^31 elements. The plain versions take strided CPU tensors.
+    The checks run once per tensor in one expression (they sit on the host's
+    side of every launch); a tensor that fails them is checked again step by
+    step for the message."""
     dev = anchor.device
-    if dev.type not in ("cpu", "cuda"):
+    cuda = dev.type == "cuda"
+    if not cuda and dev.type != "cpu":
         raise ValueError(f"{name}: unsupported device {dev}")
     for key, (t, dtypes, shape) in want.items():
-        if not torch.is_tensor(t):
-            raise ValueError(f"{name}: {key} must be a tensor, got {type(t).__name__}")
-        if t.device != dev:
-            raise ValueError(f"{name}: {key} on {t.device}, expected {dev}")
-        dense = t.is_contiguous() or dev.type == "cpu"
-        if t.dtype not in dtypes or tuple(t.shape) != shape or not dense:
-            raise ValueError(
-                f"{name}: {key} must be a contiguous {' or '.join(map(str, dtypes))} of "
-                f"shape {shape}, got {t.dtype} of shape {tuple(t.shape)}"
-                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
-        if dev.type == "cuda" and t.data_ptr() % align:
-            raise ValueError(f"{name}: {key} must be {align}-byte aligned")
-        if t.numel() >= 1 << 31:
-            raise ValueError(f"{name}: {key} must hold fewer than 2^31 elements")
+        try:
+            ok = (t.device == dev and t.dtype in dtypes and t.shape == shape
+                  and (not cuda or (t.is_contiguous() and t.data_ptr() % align == 0))
+                  and t.numel() < 1 << 31)
+        except AttributeError:
+            ok = False
+        if not ok:
+            _explain(name, dev, key, t, dtypes, shape, align)
+
+
+def _explain(name, dev, key, t, dtypes, shape, align):
+    """The step-by-step check of one tensor that failed `check_tensors`."""
+    if not torch.is_tensor(t):
+        raise ValueError(f"{name}: {key} must be a tensor, got {type(t).__name__}")
+    if t.device != dev:
+        raise ValueError(f"{name}: {key} on {t.device}, expected {dev}")
+    dense = t.is_contiguous() or dev.type == "cpu"
+    if t.dtype not in dtypes or tuple(t.shape) != shape or not dense:
+        raise ValueError(
+            f"{name}: {key} must be a contiguous {' or '.join(map(str, dtypes))} of "
+            f"shape {shape}, got {t.dtype} of shape {tuple(t.shape)}"
+            f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+    if dev.type == "cuda" and t.data_ptr() % align:
+        raise ValueError(f"{name}: {key} must be {align}-byte aligned")
+    raise ValueError(f"{name}: {key} must hold fewer than 2^31 elements")
 
 
 def launch(lib, name, args, device):
     """Launch kernel `name` of the loaded library `lib` on the device's current
     stream; tensors among `args` pass as pointers (None as a null pointer),
     ints as they are. Checks and counts nothing: the public wrappers do both."""
-    flat = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
-    with torch.cuda.device(device):
-        rc = getattr(lib, name)(*flat, torch.cuda.current_stream(device).cuda_stream)
+    launch_flat(lib, name, [a.data_ptr() if torch.is_tensor(a) else a for a in args], device)
+
+
+def launch_flat(lib, name, flat, device):
+    """`launch` with every argument already a pointer (an int, or None) or an
+    int, for wrappers that count their host cost."""
+    fn = getattr(lib, name)
+    if device.index == torch.cuda.current_device():   # no device switch to pay for
+        rc = fn(*flat, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*flat, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.error_string(rc).decode()} ({rc})")

@@ -15,23 +15,28 @@ membership engine below runs: the rank engine where the space has a RankSpec,
 else the sort engine. `dataclasses.replace(dt, dense=None)` forces the rank
 engine, `dataclasses.replace(dt, rank_spec=None, dense=None)` the sort engine.
 
-Where there is no dense A (over 2^26 entries: N2 6-31G, 736 M; N2 6-31G
-with its 1s core frozen, 287 M), the whole call is one launch over the
-query rows: the diagonal, the lookup, and H summed term by term only for
-the found pairs (ops/sort_lookup.py::sorted_local_energy on the sort
-engine, ops/dyn_gather.py::rank_local_energy on the rank engine), and so is
-`quadratic_energy` (sorted_quadratic_energy, rank_quadratic_energy). With a
-dense A, per chunk of C sampled states, both membership engines compute:
+The sort engine, for spaces with no RankSpec (over 32 qubits, or a sector
+of more than 2^26 states), runs the whole call in one launch over the query
+rows, with or without a dense A: the diagonal, a binary search of each
+coupled state in the sorted sample buffer, and H summed term by term only for
+the found pairs (ops/sort_lookup.py::sorted_local_energy), and so does its
+`quadratic_energy` (sorted_quadratic_energy). On this card that beats the
+chunk loop's (C, Kyz) x (Kyz, Kxy) fp32 product for the H row, which the JAX
+package keeps because the TPU's matrix unit makes it cheap (PERF.md). The
+rank engine does the same where there is no dense A (over 2^26 entries:
+N2 6-31G with its 1s core frozen, 287 M; ops/dyn_gather.py::
+rank_local_energy, rank_quadratic_energy). With a dense A, per chunk of C
+sampled states, the rank engine computes:
 
   * the diagonal, sum_k coeff_k (-1)^popcount(s & yz_k), in f64;
   * the H row h as parity(s & yz) @ A, a (C, Kyz) x (Kyz, Kxy) fp32 matmul
     with TF32 off (TF32 costs ~1e-3 Ha);
-  * sum_k h psi(s ^ xy_k)/psi(s) in one kernel that finds psi(s') and sums
-    the ratios, writing only (C,) sums: the rank engine reads psi from the
-    dense rank-indexed (size+1, 2) value table (ops/dyn_gather.py::
-    rank_ratio_rowsum); the sort engine, for spaces with no RankSpec (over 32
-    qubits, or a sector of more than 2^26 states), binary-searches the sorted
-    sample buffer itself (ops/sort_lookup.py::sorted_ratio_rowsum).
+  * sum_k h psi(s ^ xy_k)/psi(s) in one kernel that reads psi(s') from the
+    dense rank-indexed (size+1, 2) value table and sums the ratios, writing
+    only (C,) sums (ops/dyn_gather.py::rank_ratio_rowsum).
+
+The sort engine's chunk kernels (ops/sort_lookup.py::sorted_ratio_rowsum,
+sorted_gather2) stay beside their plain versions, on no path.
 """
 
 from __future__ import annotations
@@ -52,8 +57,8 @@ from naqs_tpu_torch.ops.dyn_gather import (QUAD_MISS, rank_gather2, rank_local_e
                                            rank_quadratic_energy, rank_ratio_rowsum)
 from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms, term_groups
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
-from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_local_energy,
-                                            sorted_quadratic_energy, sorted_ratio_rowsum)
+from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_local_energy,
+                                            sorted_quadratic_energy)
 from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
 from naqs_tpu_torch.utils.device import resolve_device
 
@@ -151,26 +156,21 @@ def diagonal_energy(dt: DeviceTerms, states: torch.Tensor) -> torch.Tensor:
 
 
 def _offdiag_h(dt: DeviceTerms, s: torch.Tensor) -> torch.Tensor:
-    """(C, Kxy) f32 off-diagonal H row entries for chunk states s (the chunk
-    loops run it with a dense A; without one it is the per-term H row)."""
+    """(C, Kxy) f32 off-diagonal H row entries for chunk states s (the rank
+    engine's chunk loop runs it with a dense A; without one it is the per-term
+    H row)."""
     if dt.a_mat is not None:
         par = parity_pm1(s[:, None] & dt.yz_unique[None, :]).to(torch.float32)
         return torch.matmul(par, dt.a_mat)
     return offdiag_h_terms(s, dt.yz_unique, dt.xy_ptr, dt.term_yz, dt.term_coeff)
 
 
-def _local_energy_chunk(dt, s, table, n_valid, my_log_amp, my_phase):
-    """(e_re, e_im) f64 of chunk states s: the rank engine's psi lookup where
-    `table` is the rank value table, else the sort engine's in the sorted
-    buffer `table` = (states, la, ph) with n_valid live states."""
+def _local_energy_chunk(dt, s, table, my_log_amp, my_phase):
+    """(e_re, e_im) f64 of chunk states s on the rank engine with a dense A:
+    psi(s') from the rank value table `table`."""
     e_diag = diagonal_energy(dt, s)
-    h = _offdiag_h(dt, s)
-    if dt.rank_spec is not None:
-        e_re, e_im = rank_ratio_rowsum(dt.rank_spec, s, dt.xy_unique, table,
-                                       my_log_amp, my_phase, h)
-    else:
-        e_re, e_im = sorted_ratio_rowsum(*table, n_valid, s, dt.xy_unique,
-                                         my_log_amp, my_phase, h)
+    e_re, e_im = rank_ratio_rowsum(dt.rank_spec, s, dt.xy_unique, table, my_log_amp, my_phase,
+                                   _offdiag_h(dt, s))
     return e_diag + e_re.to(torch.float64), e_im.to(torch.float64)
 
 
@@ -199,8 +199,9 @@ def local_energy(
     whatever state the row holds.
     Dispatches to the grid engine (ops/dense_engine.py) when the terms carry
     a grid program; the rank engine below handles everything else that has a
-    RankSpec, the sort engine what has none: in one launch where there is no
-    dense A (`rank_local_energy`, `sorted_local_energy`), else chunk by chunk.
+    RankSpec, in one launch where there is no dense A (`rank_local_energy`),
+    else chunk by chunk; the sort engine what has none, in one launch
+    (`sorted_local_energy`) whether or not there is a dense A.
     `queries=(q_states, q_la, q_ph)` computes E_loc only for those rows,
     while psi(s') is still resolved against the full (states, log_amp,
     phase, n_valid) table.
@@ -222,18 +223,14 @@ def local_energy(
     c = _chunks(dt, u, chunk_rows)
     terms = (dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique, dt.term_coeff, dt.diag_yz,
              dt.diag_coeff)
-    if dt.a_mat is None:
-        rows = pack_table(q_states, q_la, q_ph)
-        if dt.rank_spec is not None:
-            table = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
-            return rank_local_energy(dt.rank_spec, table, *rows, *terms, chunk_rows=c)
+    if dt.rank_spec is None:
         table = pack_table(states, log_amp, phase)
-        return sorted_local_energy(*table, _count(n_valid, states.device), *rows, *terms,
-                                   chunk_rows=c)
-    if dt.rank_spec is not None:
-        table = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
-    else:
-        table, n_valid = pack_table(states, log_amp, phase), _count(n_valid, states.device)
+        return sorted_local_energy(*table, _count(n_valid, states.device),
+                                   *pack_table(q_states, q_la, q_ph), *terms, chunk_rows=c)
+    table = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
+    if dt.a_mat is None:
+        return rank_local_energy(dt.rank_spec, table, *pack_table(q_states, q_la, q_ph),
+                                 *terms, chunk_rows=c)
     e_re, e_im = [], []
     for i in range(0, u, c):
         s = q_states[i:i + c]
@@ -245,7 +242,7 @@ def local_energy(
             s = torch.cat([s, s.new_full((pad,), SENTINEL)])
             la = torch.cat([la, la.new_zeros(pad)])
             ph = torch.cat([ph, ph.new_zeros(pad)])
-        r, im = _local_energy_chunk(dt, s, table, n_valid, la, ph)
+        r, im = _local_energy_chunk(dt, s, table, la, ph)
         e_re.append(r[:n])
         e_im.append(im[:n])
     return torch.cat(e_re), torch.cat(e_im)
@@ -266,10 +263,11 @@ def quadratic_energy(
     shifted so the largest is 0: overflow-free for any amplitude range. Miss
     slots hold la = -200, so unsampled pairs contribute exactly 0 (the sort
     engine's lookup returns -200 for a miss). The imaginary part cancels by
-    Hermiticity and is not computed. Where there is no dense A, one launch
-    gives every row's numerator and weight (`rank_quadratic_energy`,
-    `sorted_quadratic_energy`) and their sums' quotient is the result; with
-    one, chunk by chunk: the gather kernel, the eager epilogue and P @ A.
+    Hermiticity and is not computed. One launch gives every row's numerator
+    and weight where there is no dense A (`rank_quadratic_energy`) or no
+    RankSpec (`sorted_quadratic_energy`), and their sums' quotient is the
+    result; the rank engine with a dense A goes chunk by chunk: the gather
+    kernel, the eager epilogue and P @ A.
     """
     u = states.shape[0]
     live = torch.arange(u, device=states.device) < n_valid
@@ -283,7 +281,7 @@ def quadratic_energy(
     else:
         table = pack_table(states, la, ph)
     n_valid = _count(n_valid, states.device)
-    if dt.a_mat is None:
+    if dt.a_mat is None or dt.rank_spec is None:
         terms = (dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique, dt.term_coeff,
                  dt.diag_yz, dt.diag_coeff)
         if dt.rank_spec is not None:
@@ -299,10 +297,7 @@ def quadratic_energy(
                                     ph[i:i + c], live[i:i + c])
         w_m = torch.where(my_live, torch.exp(2.0 * my_la.to(torch.float64)), 0.0)
         num += torch.sum(w_m * diagonal_energy(dt, s))
-        if dt.rank_spec is not None:
-            g_la, g_ph = rank_gather2(dt.rank_spec, s, dt.xy_unique, table)
-        else:
-            g_la, g_ph = sorted_gather2(*table, n_valid, s, dt.xy_unique, my_live)
+        g_la, g_ph = rank_gather2(dt.rank_spec, s, dt.xy_unique, table)
         amp = torch.where(my_live[:, None], torch.exp(g_la + my_la[:, None]), 0.0)
         r_re = amp * torch.cos(g_ph - my_ph[:, None])
         num_off = torch.sum(_offdiag_h(dt, s) * r_re, dim=-1)

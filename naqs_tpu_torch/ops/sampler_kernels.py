@@ -24,7 +24,8 @@ def _lib():
     lib = _build.load("sampler_step")
     lib.multinomial4_split.argtypes = [_PTR] * 8 + [_INT, _INT, _PTR]
     lib.compact_children.argtypes = [_PTR] * 10 + [_INT, _INT, _INT, _PTR]
-    lib.split_and_compact.argtypes = [_PTR] * 14 + [_INT, _INT, _INT, _INT, _PTR]
+    lib.split_and_compact.argtypes = ([_PTR] * 9 + [_INT] + [_PTR] * 6
+                                      + [_INT, _PTR, ctypes.c_size_t] + [_INT] * 3 + [_PTR])
     lib.compact_tile_rows.argtypes = lib.split_tile_rows.argtypes = []
     lib.multinomial4_split.restype = lib.compact_children.restype = _INT
     lib.split_and_compact.restype = _INT
@@ -42,10 +43,15 @@ def compact_tile_rows() -> int:
 @lru_cache(maxsize=1)
 def split_tile_rows() -> int:
     """Rows of one split_and_compact tile, as the kernel's library has it: its
-    scratch holds one int32 a tile."""
+    look-back scratch holds one int64 word a tile and one for the ticket."""
     return _lib().split_tile_rows()
 
 
 def launch(name, args, device):
     """Launch kernel `name` of csrc/sampler_step.cu (`_build.launch`)."""
     _build.launch(_lib(), name, args, device)
+
+
+def launch_flat(name, flat, device):
+    """`launch` with pointers already taken (`_build.launch_flat`)."""
+    _build.launch_flat(_lib(), name, flat, device)

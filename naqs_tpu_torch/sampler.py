@@ -13,11 +13,14 @@ keeps every child whose probability mass reaches a threshold.
 
 On the card the shell step is one hand-written kernel of
 `csrc/sampler_step.cu`, `split_and_compact` (`_split_and_compact` here: one
-cooperative launch a shell; tiles of 256 rows split their rows' counts and
-count their children, one grid-wide barrier, then each tile scans and
-scatters), and reads nothing back to the host. `sample_density` launches the
-compaction alone, `compact_children` (`_compact_children`), and the split
-alone is `multinomial4_split` (`ops/multinomial.py`). On a CUDA tensor a
+ordinary launch a shell, a single pass with no grid barrier: tiles of 256
+rows taken by an atomic ticket split their rows and publish their counts of
+children, and each learns the children before it by a decoupled look-back;
+only the rows below the previous shell's `n_children`, read on the device,
+load anything), and reads nothing back to the host. `sample_density`
+launches the compaction alone, `compact_children` (`_compact_children`: one
+cooperative launch with a grid-wide barrier), and the split alone is
+`multinomial4_split` (`ops/multinomial.py`). On a CUDA tensor a
 wrapper launches its kernel or raises; on a CPU tensor it runs its plain
 PyTorch version (`_compact_children_ref`, a cumsum-scatter as in the JAX
 package; `_split_and_compact_ref`, the plain split followed by it). There is
@@ -36,7 +39,7 @@ import torch
 from naqs_tpu_torch.models.nade import NADE, amp_conditional_shell
 from naqs_tpu_torch.ops.multinomial import multinomial4_split_ref, split_draws
 from naqs_tpu_torch.ops._build import check_tensors
-from naqs_tpu_torch.ops.sampler_kernels import (compact_tile_rows, launch,
+from naqs_tpu_torch.ops.sampler_kernels import (compact_tile_rows, launch, launch_flat,
                                                 split_tile_rows)
 from naqs_tpu_torch.utils.bits import SENTINEL
 
@@ -81,16 +84,37 @@ def _check_shell(name, j: int, cap: int):
         raise ValueError(f"{name}: 4 * cap must be positive and below 2^31")
 
 
-def _fresh_frontier(cap: int, dev, tile_rows: int):
-    """The outputs of a compaction kernel, (a_new, b_new, w_new, valid_new,
-    n_children), and its scratch of one int32 a tile of `tile_rows` rows."""
+def _fresh_frontier(cap: int, dev):
+    """The outputs of `compact_children`, (a_new, b_new, w_new, valid_new,
+    n_children), and its scratch of one int32 a tile of `compact_tile_rows()`
+    rows."""
     i64 = torch.int64
     return (torch.empty((cap,), dtype=i64, device=dev),
             torch.empty((cap,), dtype=i64, device=dev),
             torch.empty((cap,), dtype=torch.float64, device=dev),
             torch.empty((cap,), dtype=torch.bool, device=dev),
             torch.empty((), dtype=i64, device=dev),
-            torch.empty((-(-cap // tile_rows),), dtype=torch.int32, device=dev))
+            torch.empty((-(-cap // compact_tile_rows()),), dtype=torch.int32, device=dev))
+
+
+def _split_frontier(cap: int, dev):
+    """The outputs of `split_and_compact`, carved from one (4, row) int64
+    allocation with few host calls: rows 0-2 are a_new, b_new and w_new; row 3
+    holds valid_new (cap bytes in whole 16-byte words), n_children and the
+    look-back scratch (one int64 word a tile of `split_tile_rows()` rows, and
+    one for the ticket). `row` is even, so every row starts at a multiple of
+    16 bytes. Returns (buf, (a_new, b_new, w_new, valid_new, n_children),
+    the scratch's offset in row 3 and its length in words); the library
+    clears buf up to the scratch's end."""
+    tiles = -(-cap // split_tile_rows()) + 1
+    head = -(-cap // 16) * 2
+    row = max(cap + (cap & 1), head + 2 + tiles + (tiles & 1))
+    buf = torch.empty((4, row), dtype=torch.int64, device=dev)
+    a_new, b_new, w_new, rest = buf.unbind(0)
+    if row != cap:
+        a_new, b_new, w_new = a_new[:cap], b_new[:cap], w_new[:cap]
+    return (buf, (a_new, b_new, w_new.view(torch.float64), rest.view(torch.bool)[:cap],
+                  rest[head]), head + 2, tiles)
 
 
 def _compact_children(a, b, child_weights, child_valid, j: int, cap: int):
@@ -113,7 +137,7 @@ def _compact_children(a, b, child_weights, child_valid, j: int, cap: int):
     _check_shell("compact_children", j, cap)
     if a.device.type == "cpu":
         return _compact_children_ref(a, b, child_weights, child_valid, j, cap)
-    out = _fresh_frontier(cap, a.device, compact_tile_rows())
+    out = _fresh_frontier(cap, a.device)
     tiles = out[-1]
     launch("compact_children", (a, b, child_weights, child_valid, *out, tiles.numel(), cap, j),
            a.device)
@@ -124,14 +148,17 @@ def _compact_children(a, b, child_weights, child_valid, j: int, cap: int):
 _compact_children.launches = 0
 
 
-def _split_and_compact_ref(a, b, counts, valid, probs, z, u, mask, j: int, cap: int):
+def _split_and_compact_ref(a, b, counts, valid, probs, z, u, mask, j: int, cap: int,
+                           n_live=None):
     """Plain PyTorch version of `_split_and_compact`: `multinomial4_split_ref`
-    followed by `_compact_children_ref`."""
+    followed by `_compact_children_ref`, on the rows below n_live."""
+    if n_live is not None:
+        valid = valid & (torch.arange(cap, device=a.device) < n_live)
     child_counts, child_valid = multinomial4_split_ref(counts, probs, z, u, mask, valid)
     return _compact_children_ref(a, b, child_counts, child_valid, j, cap)
 
 
-def _split_and_compact(a, b, counts, valid, probs, z, u, mask, j: int, cap: int):
+def _split_and_compact(a, b, counts, valid, probs, z, u, mask, j: int, cap: int, n_live=None):
     """One shell step of `sample`: split every frontier row's count over its
     four children as `multinomial4_split(counts, probs, z, u, mask, valid)`
     does, then compact the children with a count as `_compact_children(a, b,
@@ -140,25 +167,40 @@ def _split_and_compact(a, b, counts, valid, probs, z, u, mask, j: int, cap: int)
     a, b: (cap,) int64; counts: (cap,) f64; valid: (cap,) bool; probs: (cap, 4)
     f32, or f64 (a float64 model's conditionals: the kernel's f64
     instantiation); z, u: (3, cap) f32 from `split_draws`; mask: (cap, 4)
-    bool. Returns `_compact_children`'s (a_new, b_new, w_new, valid_new,
-    n_children).
+    bool. n_live: only rows below it may have children (rows at or past it
+    count as not valid, and the kernel loads nothing for them): the previous
+    shell's n_children, a () int64 on the device that is never read back, or
+    an int (the root's 1); None: every row. Returns `_compact_children`'s
+    (a_new, b_new, w_new, valid_new, n_children), which share one fresh
+    allocation.
     """
     i64, f32, bl = (torch.int64,), (torch.float32,), (torch.bool,)
-    check_tensors("split_and_compact", a, {
-        "a": (a, i64, (cap,)), "b": (b, i64, (cap,)),
-        "counts": (counts, (torch.float64,), (cap,)), "valid": (valid, bl, (cap,)),
-        "probs": (probs, (torch.float32, torch.float64), (cap, 4)),
-        "z": (z, f32, (3, cap)), "u": (u, f32, (3, cap)),
-        "mask": (mask, bl, (cap, 4))}, align=16)
+    want = {"a": (a, i64, (cap,)), "b": (b, i64, (cap,)),
+            "counts": (counts, (torch.float64,), (cap,)), "valid": (valid, bl, (cap,)),
+            "probs": (probs, (torch.float32, torch.float64), (cap, 4)),
+            "z": (z, f32, (3, cap)), "u": (u, f32, (3, cap)), "mask": (mask, bl, (cap, 4))}
+    live = torch.is_tensor(n_live)
+    if live:
+        want["n_live"] = (n_live, i64, ())
+    elif n_live is not None and not isinstance(n_live, int):
+        raise ValueError(f"split_and_compact: n_live must be a tensor, an int or None, "
+                         f"got {type(n_live).__name__}")
+    check_tensors("split_and_compact", a, want, align=16)
     _check_shell("split_and_compact", j, cap)
     if a.device.type == "cpu":
-        return _split_and_compact_ref(a, b, counts, valid, probs, z, u, mask, j, cap)
-    out = _fresh_frontier(cap, a.device, split_tile_rows())
-    tiles = out[-1]
-    launch("split_and_compact", (a, b, counts, valid, probs, z, u, mask, *out, tiles.numel(),
-                                 cap, j, int(probs.dtype == torch.float64)), a.device)
+        return _split_and_compact_ref(a, b, counts, valid, probs, z, u, mask, j, cap, n_live)
+    live_rows = cap if live or n_live is None else min(max(n_live, 0), cap)
+    buf, out, at, words = _split_frontier(cap, a.device)
+    base, row = buf.data_ptr(), buf.shape[1]
+    rest = base + 24 * row
+    launch_flat("split_and_compact", [
+        a.data_ptr(), b.data_ptr(), counts.data_ptr(), valid.data_ptr(), probs.data_ptr(),
+        z.data_ptr(), u.data_ptr(), mask.data_ptr(), n_live.data_ptr() if live else None,
+        live_rows, base, base + 8 * row, base + 16 * row, rest, rest + 8 * (at - 2),
+        rest + 8 * at, words, base, 8 * (3 * row + at + words), cap, j,
+        int(probs.dtype == torch.float64)], a.device)
     _split_and_compact.launches += 1
-    return out[:5]
+    return out
 
 
 _split_and_compact.launches = 0
@@ -222,15 +264,17 @@ def sample(
     dev = next(model.parameters()).device
     a, b, counts, valid, overflow = _root(cap, float(n_samples), dev)
     shells = torch.arange(s, device=dev)
+    n_children = 1   # the root's one live row; then each shell's count, on the device
 
     for j in range(s):
         log_amp4, mask, probs = amp_conditional_shell(model, j, *_prefix_bits(a, b, shells))
         if beta != 1.0:
             probs = _temper(log_amp4, probs, beta)
         z, u = split_draws(gen, cap, dev)
-        # the mask drops unphysical children; valid = (count > 0) on live rows
+        # the mask drops unphysical children; valid = (count > 0) on live rows,
+        # which are the first n_children slots of the frontier
         a, b, counts, valid, n_children = _split_and_compact(
-            a, b, counts, valid, probs, z, u, mask, j, cap)
+            a, b, counts, valid, probs, z, u, mask, j, cap, n_children)
         overflow = overflow | (n_children > cap)
     return _batch(cfg, a, b, counts, valid, overflow, shells)
 

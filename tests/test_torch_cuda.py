@@ -17,7 +17,8 @@ kernel's occupancy bitmaps bit for bit against `xl_occupancy_ref`;
 the sampler's `multinomial4_split`, `compact_children` and the two fused in
 one launch, `split_and_compact`, bitwise (the split does its plain version's
 arithmetic with one rounding per operation, the compaction is an integer
-scan); the sort engine's `sorted_gather2` bitwise and `sorted_ratio_rowsum`
+scan), the fused kernel also with its gate on the previous shell's count and
+under CUDA-graph replay; the sort engine's `sorted_gather2` bitwise and `sorted_ratio_rowsum`
 per row within `rowsum_tolerance`, and `offdiag_h_terms` per entry within
 `offdiag_tolerance` (1e-12 + 1e-5 * sum_k |coeff_k| of the flip mask's group:
 fp32 add order), each bitwise equal to itself run twice; the one-launch
@@ -673,8 +674,8 @@ def _shell_step_inputs(cap, fill, dev):
     return a, b, counts, valid, probs, z, u, mask
 
 
-# 1,000,003 rows are 3,907 tiles, more than the card holds blocks at once: blocks
-# own several tiles and split their later tiles again after the barrier
+# 1,000,003 rows are 3,907 tiles, more than the card holds blocks at once: later
+# tiles start only as earlier ones finish, and look back at them
 @pytest.mark.parametrize("cap", [1, 31, 257, 1027, 4099, 100_000, 1_000_003])
 @pytest.mark.parametrize("fill", [0.0, 0.07, 0.3, 1.0])
 def test_split_and_compact_kernel_matches_plain(cap, fill):
@@ -698,6 +699,58 @@ def test_split_and_compact_kernel_matches_plain(cap, fill):
     if cap == 1_000_003:   # more tiles than blocks of 2,048 threads an SM
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         assert -(-cap // split_tile_rows()) > 2048 // split_tile_rows() * sms
+
+
+@pytest.mark.parametrize("cap", [257, 100_000, 1_000_003])
+@pytest.mark.parametrize("f64", [False, True])
+def test_split_and_compact_kernel_gates_on_the_previous_count(cap, f64):
+    """n_live as a () int64 on the card (the previous shell's n_children) and
+    as an int: 0, 1, a third of cap, cap and past cap, f32 and f64 probs,
+    bitwise against the plain version with the same gate; two calls with
+    other gates in a row, so that the first's cleared outputs and look-back
+    words cannot leak into the second."""
+    dev = _card()
+    a, b, counts, valid, probs, z, u, mask = _shell_step_inputs(cap, 0.9, dev)
+    if f64:
+        probs = probs.double()
+    for gate in (0, 1, cap // 3, cap, 4 * cap):
+        for n_live in (torch.tensor(gate, device=dev), gate):
+            args = (a, b, counts, valid, probs, z, u, mask, 9, cap, n_live)
+            got = _split_and_compact(*args)
+            want = _split_and_compact_ref(*args)
+            assert all(torch.equal(g, x) for g, x in zip(got, want)), (gate, n_live)
+        assert int(got[4]) <= 4 * min(gate, cap)
+        if gate == 0:
+            assert int(got[4]) == 0 and not bool(got[3].any())
+
+
+def test_split_and_compact_under_cuda_graph_replay():
+    """A shell step captured in a torch.cuda.CUDAGraph (the clear, then the
+    kernel) and replayed on the same inputs, its outputs overwritten with
+    other values before each replay: bitwise equal to an eager call every
+    time. No cooperative launch, so nothing stands in the way of a graph."""
+    dev = _card()
+    cap = 100_000
+    args = (*_shell_step_inputs(cap, 0.5, dev), 11, cap,
+            torch.tensor(3 * cap // 4, device=dev))
+    eager = _split_and_compact(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _split_and_compact(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _split_and_compact.launches
+    with torch.cuda.graph(graph):
+        captured = _split_and_compact(*args)
+    assert _split_and_compact.launches == before + 1
+    for fill in (0, 7, 1):
+        for t in captured:
+            t.fill_(fill)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(c, e) for c, e in zip(captured, eager)), fill
+    assert int(eager[4]) > 0
 
 
 @torch.no_grad()
@@ -793,11 +846,15 @@ def test_sampler_kernels_reject_bad_inputs():
                                            n),
                 lambda: _split_and_compact(a, a, counts, valid, wide, z, u, mask, 0, n),
                 lambda: _split_and_compact(a, a, counts, valid.cpu(), probs, z, u, mask, 0, n),
-                lambda: _split_and_compact(a, a.int(), counts, valid, probs, z, u, mask, 0, n)):
+                lambda: _split_and_compact(a, a.int(), counts, valid, probs, z, u, mask, 0, n),
+                lambda: _split_and_compact(a, a, counts, valid, probs, z, u, mask, 0, n,
+                                           torch.tensor(1, device=dev).int()),
+                lambda: _split_and_compact(a, a, counts, valid, probs, z, u, mask, 0, n,
+                                           torch.tensor(1))):
         with pytest.raises(ValueError):
             bad()
     # the library refuses a tile-count scratch shorter than the capacity's tiles
-    from naqs_tpu_torch.ops.sampler_kernels import compact_tile_rows, launch
+    from naqs_tpu_torch.ops.sampler_kernels import compact_tile_rows, launch, split_tile_rows
 
     cap = compact_tile_rows() + 1
     ab = torch.zeros(cap, dtype=torch.int64, device=dev)
@@ -811,7 +868,9 @@ def test_sampler_kernels_reject_bad_inputs():
         launch("compact_children", args, dev)
     f32 = torch.zeros((cap, 4), device=dev)
     draws = torch.zeros((3, cap), device=dev)
-    fused = (ab, ab, args[6], args[7], f32, draws, draws, args[3], *args[4:], 0)
+    tiles = torch.zeros(-(-cap // split_tile_rows()), dtype=torch.int64, device=dev)  # no ticket
+    fused = (ab, ab, args[6], args[7], f32, draws, draws, args[3], None, cap, *args[4:9], tiles,
+             tiles.numel(), tiles, tiles.numel() * 8, cap, 0, 0)
     with pytest.raises(RuntimeError, match="invalid argument"):
         launch("split_and_compact", fused, dev)
 
@@ -952,9 +1011,11 @@ def test_offdiag_h_terms_kernel_matches_plain(name, n_rows):
 
 def test_sort_engine_matches_rank_engine_on_the_card():
     """local_energy and quadratic_energy through the sort engine (rank_spec
-    and dense set to None) against the rank engine on N2 STO-3G, with the dense
-    A (chunk by chunk) and without (one sorted_local_energy launch); the main
-    path's launch counts."""
+    and dense set to None) against the rank engine on N2 STO-3G: with the
+    dense A and without, one sorted_local_energy launch and one
+    sorted_quadratic_energy launch, the two bitwise equal; the chunk loop the
+    engine ran with the dense A before (P @ A and sorted_ratio_rowsum per
+    chunk of 2,048) bitwise equal to the rank engine, which reads the same h."""
     dev = _card()
     terms, hil = _n2()
     dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
@@ -964,21 +1025,29 @@ def test_sort_engine_matches_rank_engine_on_the_card():
     m = 3000
     s, la, ph = _n2_sample(hil, m, 4096, dev, seed=2)
     e_rank = le.local_energy(dt_rank, s, la, ph, m)
-    counts = (sorted_ratio_rowsum.launches, offdiag_h_terms.launches)
+    counts = (sorted_ratio_rowsum.launches, offdiag_h_terms.launches,
+              sorted_local_energy.launches)
     e_sort = le.local_energy(dt_sort, s, la, ph, m)
-    assert sorted_ratio_rowsum.launches == counts[0] + 2   # 4,096 rows in chunks of 2,048
-    assert offdiag_h_terms.launches == counts[1]
-    before = sorted_local_energy.launches
     e_seg = le.local_energy(dt_seg, s, la, ph, m)
-    assert sorted_local_energy.launches == before + 1   # the whole call, no chunks
-    assert (sorted_ratio_rowsum.launches, offdiag_h_terms.launches) == (counts[0] + 2, counts[1])
-    for r, a, b in zip(e_rank, e_sort, e_seg):
-        assert torch.equal(r[:m], a[:m])
-        assert float((a[:m] - b[:m]).abs().max()) < 2e-4
+    assert (sorted_ratio_rowsum.launches, offdiag_h_terms.launches,
+            sorted_local_energy.launches) == (counts[0], counts[1], counts[2] + 2)
+    table, nv = pack_table(s, la, ph), torch.tensor(m, device=dev)
+    loop = []
+    for i in range(0, 4096, 2048):
+        sc = s[i:i + 2048]
+        r, im = sorted_ratio_rowsum(*table, nv, sc, dt.xy_unique, la[i:i + 2048].float(),
+                                    ph[i:i + 2048].float(), le._offdiag_h(dt_sort, sc))
+        loop.append((le.diagonal_energy(dt, sc) + r.double(), im.double()))
+    assert sorted_ratio_rowsum.launches == counts[0] + 2
+    e_loop = tuple(torch.cat([part[k] for part in loop]) for k in (0, 1))
+    for r, a, b, c in zip(e_rank, e_sort, e_seg, e_loop):
+        assert torch.equal(r[:m], c[:m]) and torch.equal(a, b)
+        assert float((a[:m] - r[:m]).abs().max()) < 2e-4
     q_rank = float(le.quadratic_energy(dt_rank, s, la, ph, m))
-    before = sorted_gather2.launches
+    before = (sorted_gather2.launches, sorted_quadratic_energy.launches)
     q_sort = float(le.quadratic_energy(dt_sort, s, la, ph, m))
-    assert sorted_gather2.launches == before + 2
+    assert (sorted_gather2.launches, sorted_quadratic_energy.launches) == (before[0],
+                                                                           before[1] + 1)
     assert abs(q_sort - q_rank) <= 1e-6 * abs(q_rank)
 
 
@@ -1338,11 +1407,12 @@ def test_one_launch_kernels_keep_offdiag_h_terms_bits(kernel):
 
 def test_one_launch_dispatch_on_the_card():
     """Launch counts on each dispatch branch (N2 STO-3G, 4,096 rows in chunks
-    of 2,048 with a dense A): with no dense A, local_energy and
-    quadratic_energy are one launch each of rank_* (a RankSpec) or sorted_*
-    (none), and never offdiag_h_terms or a chunk kernel; the rank engine with
-    no dense A within 2e-4 Ha per live row of the rank engine with one, and
-    quadratic_energy within 1e-6 relative."""
+    of 2,048 with a dense A): local_energy and quadratic_energy are one launch
+    each of rank_* (a RankSpec, no dense A) or sorted_* (no RankSpec, with a
+    dense A or without), and never offdiag_h_terms or a chunk kernel; only the
+    rank engine with a dense A runs chunks. Each within 2e-4 Ha per live row
+    of the rank engine with a dense A, and quadratic_energy within 1e-6
+    relative."""
     dev = _card()
     terms, hil = _n2()
     dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
@@ -1357,7 +1427,7 @@ def test_one_launch_dispatch_on_the_card():
         "rank, no A": (dataclasses.replace(dt, dense=None, a_mat=None),
                        {"rank_local_energy": 1}, {"rank_quadratic_energy": 1}),
         "sort": (dataclasses.replace(dt, dense=None, rank_spec=None),
-                 {"sorted_ratio_rowsum": 2}, {"sorted_gather2": 2}),
+                 {"sorted_local_energy": 1}, {"sorted_quadratic_energy": 1}),
         "sort, no A": (dataclasses.replace(dt, dense=None, rank_spec=None, a_mat=None),
                        {"sorted_local_energy": 1}, {"sorted_quadratic_energy": 1}),
     }

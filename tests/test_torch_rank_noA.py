@@ -88,6 +88,8 @@ def _spies(monkeypatch):
     for name in ("rank_local_energy", "rank_quadratic_energy", "sorted_local_energy",
                  "sorted_quadratic_energy", "rank_ratio_rowsum", "rank_gather2",
                  "sorted_ratio_rowsum", "sorted_gather2", "offdiag_h_terms"):
+        if not hasattr(le_t, name):   # not held by the engine: it cannot call it
+            continue
         real = getattr(le_t, name)
 
         def spy(*args, _real=real, _name=name, **kw):
@@ -236,9 +238,11 @@ def test_quadratic_refs_are_the_chunk_composition(name, m, cap, lookup, wide):
 
 @pytest.mark.parametrize("name", ["H2O", "LiH"])
 def test_one_launch_dispatch(name, monkeypatch):
-    """Which wrapper each engine calls: the one-launch kernels exactly where
-    a_mat is None (rank_* with a RankSpec, sorted_* without), the chunk
-    kernels with a dense A, none of them with a grid program."""
+    """Which wrapper each engine calls: with a RankSpec the one-launch rank_*
+    kernels exactly where a_mat is None and the chunk kernels with a dense A;
+    without one the one-launch sorted_* kernels, with a dense A too (the sort
+    engine's chunk kernels are no longer the engine's to call); none of them
+    with a grid program."""
     c = case(name)
     dt = le_t.DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu")
     assert dt.dense is not None and dt.a_mat is not None
@@ -250,12 +254,13 @@ def test_one_launch_dispatch(name, monkeypatch):
         "rank, no A": (dataclasses.replace(no_a, dense=None), {"rank_local_energy": 1},
                        {"rank_quadratic_energy": 1}),
         "sort": (dataclasses.replace(dt, dense=None, rank_spec=None),
-                 {"sorted_ratio_rowsum": 1}, {"sorted_gather2": 1}),
+                 {"sorted_local_energy": 1}, {"sorted_quadratic_energy": 1}),
         "sort, no A": (dataclasses.replace(no_a, dense=None, rank_spec=None),
                        {"sorted_local_energy": 1}, {"sorted_quadratic_energy": 1}),
     }
     s, la, ph, _ = _batch(c, 60, 64, 4)
     calls = _spies(monkeypatch)
+    assert not hasattr(le_t, "sorted_ratio_rowsum") and not hasattr(le_t, "sorted_gather2")
     for label, (dt_e, want_le, want_q) in engines.items():
         calls.clear()
         _port(dt_e, s, la, ph, 60)

@@ -18,10 +18,12 @@ On the CPU the port's wrappers run their plain versions
 * `sample_density` against the JAX function on H2O STO-3G with converted
   parameters: states, n_unique and overflow equal, masses within 1e-6
   relative (the models' f32 conditionals differ by ulps between XLA and torch);
-* a numpy replay of the cooperative kernels' index arithmetic (tile counts,
-  a grid-wide barrier, tile offsets, warp scans, zero fill, blocks that own
-  several tiles and, in the fused kernel, split their later tiles again after
-  the barrier) against the plain versions;
+* a numpy replay of the compaction kernel's index arithmetic (tile counts, a
+  grid-wide barrier, tile offsets, warp scans, zero fill, blocks that own
+  several tiles) and of the fused kernel's single pass (tickets, each tile's
+  look-back word seen empty, as an aggregate or inclusive by a successor in
+  an interleaving drawn from a seed, the gate on the previous count, the
+  cleared tail) against the plain versions;
 * the wrappers' input checks.
 """
 
@@ -240,18 +242,18 @@ def _block_exclusive_scan(x):
 
 
 def _tiled_replay(row_of, j, cap, block=1024, n_blocks=3, seed=0):
-    """The cooperative kernels of csrc/sampler_step.cu (count_tiles, the grid
-    barrier, scatter_tiles) in numpy: a grid of min(tiles, n_blocks) blocks of
-    `block` threads, tiles of one row a thread, block i owning tiles i, i +
-    n_blocks, ... row_of(rows) gives the rows' (flags (len, 4) bool, a, b,
-    weights (len, 4)). Phase 1 gets the rows of each tile and counts its
-    children into its scratch word, the blocks in a shuffled order, and each
-    block keeps the rows of its first tile; after the barrier each block,
-    again in a shuffled order, takes n_children and its first tile's offset
-    from the tile counts, adds the counts since its previous tile for each
-    later one (whose rows it gets again), scans the threads' counts, scatters
-    the children and writes its tiles' own slots. Returns the five outputs and
-    how often each tile's rows were got."""
+    """compact_children_kernel of csrc/sampler_step.cu (count_tiles, the grid
+    barrier, scatter_tiles) in numpy: a cooperative grid of min(tiles,
+    n_blocks) blocks of `block` threads, tiles of one row a thread, block i
+    owning tiles i, i + n_blocks, ... row_of(rows) gives the rows' (flags
+    (len, 4) bool, a, b, weights (len, 4)). Phase 1 gets the rows of each tile
+    and counts its children into its scratch word, the blocks in a shuffled
+    order, and each block keeps the rows of its first tile; after the barrier
+    each block, again in a shuffled order, takes n_children and its first
+    tile's offset from the tile counts, adds the counts since its previous
+    tile for each later one (whose rows it gets again), scans the threads'
+    counts, scatters the children and writes its tiles' own slots. Returns the
+    five outputs and how often each tile's rows were got."""
     rng = np.random.default_rng(seed)
     n_tiles = -(-cap // block)
     grid = min(n_tiles, n_blocks)
@@ -331,18 +333,129 @@ def test_compaction_kernel_index_arithmetic(cap, fill, block):
         np.testing.assert_array_equal(g, x.numpy())
 
 
-# as above, with the split inside, in the kernel's tiles of 256 rows and in
-# others: (2500, 0.5, 64) overflows
-@pytest.mark.parametrize("cap,fill,block", [(2500, 0.2, 256), (1027, 0.1, 256),
-                                            (5, 0.4, 256), (203, 0.15, 64),
-                                            (2500, 0.2, 64), (2500, 0.5, 64),
-                                            (4099, 0.1, 128), (5000, 0.25, 1024),
-                                            (1030, 0.0, 32)])
-def test_split_and_compact_kernel_index_arithmetic(cap, fill, block):
-    """split_and_compact_kernel: each block splits its first tile's rows once and
-    keeps them across the barrier, and splits its later tiles' rows in both
-    phases, from the same inputs."""
+def _lookback_replay(row_of, j, cap, block=256, gate=None, resident=4, seed=0):
+    """split_and_compact_kernel of csrc/sampler_step.cu in numpy: one block of
+    `block` threads per tile of as many rows, a single pass with decoupled
+    look-back, on outputs and look-back words the library cleared first.
+
+    Blocks start in a shuffled order, at most `resident` at a time (the card
+    holds a few), and the running ones advance one step at a time in an order
+    drawn from `seed`. A block whose tile lies at or past the gate (min(gate,
+    cap), the rows that may be live) returns at once; the others take a ticket
+    (their tile), get their rows below the gate from row_of(rows) ((flags
+    (len, 4) bool, a, b, weights (len, 4)), as `_tiled_replay`), scan the
+    threads' counts, publish the tile's count (tile 0: its inclusive prefix),
+    look back 32 tiles a window as warp 0 does (waiting while any word of the
+    window is empty and then reading again only those, summing down to the
+    nearest inclusive word), publish the inclusive prefix, and scatter the
+    children (one writer a slot). The last tile below the gate writes
+    n_children. Returns the five outputs, how often each tile's rows were got
+    and how many times a look-back read an empty, an aggregate and an
+    inclusive word."""
+    rng = np.random.default_rng(seed)
+    gate = cap if gate is None else min(gate, cap)
+    n_tiles = -(-cap // block)
+    live_tiles = -(-gate // block)
+    a_new, b_new = np.zeros(cap, np.int64), np.zeros(cap, np.int64)
+    w_new, valid_new = np.zeros(cap), np.zeros(cap, bool)
+    written = np.zeros(cap, bool)
+    status, value = np.zeros(n_tiles, np.int64), np.zeros(n_tiles, np.int64)
+    out = {"n_children": 0, "ticket": 0}
+    made = np.zeros(n_tiles, np.int64)
+    seen = np.zeros(3, np.int64)
+
+    def run(block_idx):
+        if block_idx >= live_tiles:
+            return
+        tile = out["ticket"]
+        out["ticket"] += 1
+        yield
+        made[tile] += 1
+        rows = tile * block + np.arange(block)
+        live = rows < gate
+        flags = np.zeros((block, 4), np.int64)
+        ra, rb, rw = (np.zeros(block, np.int64), np.zeros(block, np.int64),
+                      np.zeros((block, 4)))
+        if live.any():
+            f, x, y, w = row_of(rows[live])
+            flags[live], ra[live], rb[live], rw[live] = np.asarray(f, np.int64), x, y, w
+        mine = flags.sum(-1)
+        offset = _block_exclusive_scan(mine)
+        count = int(mine.sum())
+        status[tile], value[tile] = (2, count) if tile == 0 else (1, count)
+        yield
+        before = 0
+        p = tile - 1
+        while tile > 0:
+            t = p - np.arange(32)
+            st = np.where(t >= 0, status[np.maximum(t, 0)], 2)
+            val = np.where(t >= 0, value[np.maximum(t, 0)], 0)
+            while (st == 0).any():
+                seen[0] += int((st == 0).sum())
+                yield
+                again = st == 0
+                st[again] = status[t[again]]
+                val[again] = value[t[again]]
+            seen[1] += int((st == 1).sum())
+            seen[2] += int((st == 2).any())
+            inclusive = np.flatnonzero(st == 2)
+            last = inclusive[0] if len(inclusive) else 31
+            before += int(val[:last + 1].sum())
+            if len(inclusive):
+                break
+            p -= 32
+            yield
+        if tile > 0:
+            status[tile], value[tile] = 2, before + count
+        if tile == live_tiles - 1:
+            out["n_children"] = before + count
+        yield
+        dest = before + offset
+        for t in np.flatnonzero(mine):
+            d = dest[t]
+            for occ in np.flatnonzero(flags[t]):
+                if d < cap:
+                    assert not written[d]                         # one writer per slot
+                    written[d] = True
+                    a_new[d] = ra[t] | ((occ & 1) << j)
+                    b_new[d] = rb[t] | ((occ >> 1) << j)
+                    w_new[d] = rw[t, occ]
+                    valid_new[d] = True
+                d += 1
+
+    pending = list(rng.permutation(n_tiles))
+    running = []
+    for _ in range(100 * n_tiles * (cap + 64)):
+        while pending and len(running) < resident:
+            running.append(run(pending.pop()))
+        if not running:
+            break
+        i = rng.integers(len(running))
+        try:
+            next(running[i])
+        except StopIteration:
+            running.pop(i)
+    assert not running and not pending and out["ticket"] == live_tiles
+    return (a_new, b_new, w_new, valid_new, out["n_children"]), made, seen
+
+
+# the single-pass kernel's index arithmetic, with the split inside, in its tiles
+# of 256 rows and in others: (2500, 0.5, 64) overflows; the last four cases gate
+# the rows: one live row, a gate inside a tile that overflows cap, a gate past
+# cap and a gate of 0
+@pytest.mark.parametrize("cap,fill,block,gate", [
+    (2500, 0.2, 256, None), (1027, 0.1, 256, None), (5, 0.4, 256, None),
+    (203, 0.15, 64, None), (2500, 0.2, 64, None), (2500, 0.5, 64, None),
+    (4099, 0.1, 128, None), (5000, 0.25, 1024, None), (1030, 0.0, 32, None),
+    (2500, 1.0, 256, 1), (2500, 1.0, 64, 1700), (4099, 0.3, 128, 5000), (1030, 1.0, 32, 0)])
+def test_split_and_compact_kernel_index_arithmetic(cap, fill, block, gate):
+    """split_and_compact_kernel: every live tile's rows split once, the
+    look-back in interleavings drawn from a seed (a successor sees empty,
+    aggregate and inclusive words) on a card that holds 4 blocks at a time,
+    the gate, and the cleared tail, bitwise against the plain version."""
     a, b, counts, valid, probs, z, u, mask = _shell_case("cdf", fill, cap, cap)
+    if gate == 1:
+        valid[0] = True
     inputs = tuple(map(torch.as_tensor, (counts, probs, z, u, mask, valid)))
 
     def split_rows(rows):
@@ -351,14 +464,38 @@ def test_split_and_compact_kernel_index_arithmetic(cap, fill, block):
                                               m[rows], v[rows])
         return flags.numpy(), a[rows], b[rows], child.numpy()
 
-    got, made = _tiled_replay(split_rows, 7, cap, block, n_blocks=3, seed=cap)
-    want = _split_and_compact_ref(*map(torch.as_tensor, (a, b, counts, valid, probs, z, u, mask)),
-                                  7, cap)
-    grid = min(len(made), 3)
-    assert np.all(made[:grid] == 1) and np.all(made[grid:] == 2)
-    assert (got[4] > cap) == (fill == 0.5)
+    got, made, seen = _lookback_replay(split_rows, 7, cap, block, gate, resident=4, seed=cap)
+    want = _split_and_compact_ref(*map(torch.as_tensor, (a, b, counts, valid, probs, z, u,
+                                                         mask)), 7, cap, gate)
+    live_tiles = -(-min(cap if gate is None else gate, cap) // block)
+    assert np.all(made[:live_tiles] == 1) and np.all(made[live_tiles:] == 0)
+    assert (got[4] > cap) == (fill == 0.5 or gate == 1700)
+    if live_tiles > 8:
+        assert seen[0] > 0 and seen[1] > 0 and seen[2] > 0
+    if gate == 1:
+        assert 0 < got[4] <= 4
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g, x.numpy())
+    assert _split_and_compact.launches == 0
+
+
+def test_split_and_compact_gate_is_the_live_rows():
+    """n_live as an int, as a () tensor and as None: rows at or past it count
+    as not valid; in sample() every row below the previous n_children is valid,
+    so the gate changes nothing there."""
+    n = 600
+    a, b, counts, valid, probs, z, u, mask = map(torch.as_tensor,
+                                                 _shell_case("gauss", 1.0, n, 5))
+    args = (a, b, counts, valid, probs, z, u, mask, 3, n)
+    cut = valid & (torch.arange(n) < 250)
+    want = _split_and_compact_ref(a, b, counts, cut, probs, z, u, mask, 3, n)
+    for gate in (250, torch.tensor(250)):
+        got = _split_and_compact(*args, gate)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    whole = _split_and_compact_ref(a, b, counts, valid, probs, z, u, mask, 3, n)
+    for gate in (None, n, 10 * n, torch.tensor(10 * n)):
+        got = _split_and_compact(*args, gate)
+        assert all(torch.equal(g, w) for g, w in zip(got, whole))
 
 
 def test_wrappers_reject_bad_inputs():
@@ -399,6 +536,12 @@ def test_wrappers_reject_bad_inputs():
                 lambda: _split_and_compact(a, a, counts, flags[:, 0], probs, z, u, flags, 0,
                                            n + 1),
                 lambda: _split_and_compact(a.to("meta"), a, counts, flags[:, 0], probs, z, u,
-                                           flags, 0, n)):
+                                           flags, 0, n),
+                lambda: _split_and_compact(a, a, counts, flags[:, 0], probs, z, u, flags, 0, n,
+                                           torch.tensor(1.0)),
+                lambda: _split_and_compact(a, a, counts, flags[:, 0], probs, z, u, flags, 0, n,
+                                           torch.tensor([1])),
+                lambda: _split_and_compact(a, a, counts, flags[:, 0], probs, z, u, flags, 0, n,
+                                           1.0)):
         with pytest.raises(ValueError):
             bad()

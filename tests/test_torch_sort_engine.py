@@ -5,7 +5,11 @@ Both packages get the same numpy-seeded sorted, SENTINEL-padded batch and
 RankSpec and both take their sort-based lookup, as `tests/test_rank.py` does
 for the JAX package. Cases: H2O and LiH STO-3G (generated), and a synthetic
 40-qubit term set over random sorted states, a space no rank table covers;
-each with a dense A and with the per-term H row (`dense_a=False`).
+each with a dense A and with the per-term H row (`dense_a=False`). The port
+computes both in one launch (`sorted_local_energy`, `sorted_quadratic_energy`:
+H summed term by term for the found pairs); JAX with a dense A runs its chunk
+loop, whose H row is `P @ A`, the terms of a flip mask summed in another
+order.
 
 Tolerances, as in test_torch_local_energy.py: 2e-5 Ha per E_loc row and 5e-6
 Ha on the weighted mean and on quadratic_energy (fp32 off-diagonal sums in
@@ -181,15 +185,24 @@ def test_sort_engine_quadratic_energy_matches_jax(name, m, cap, engine, wide, de
 @pytest.mark.parametrize("name", ["H2O", "LiH"])
 def test_sort_engine_matches_the_rank_engine(name):
     """On a space that has a RankSpec, the sort engine forced by
-    replace(dt, rank_spec=None, dense=None) gives the rank engine's E_loc."""
+    replace(dt, rank_spec=None, dense=None) gives the rank engine's E_loc:
+    bitwise that of the rank engine's one launch (a_mat=None: the same H row
+    term by term, the same fp32 epilogue on the same hits), with the dense A
+    or without, and within ROW_TOL of the rank engine's chunk loop, whose H
+    row is P @ A."""
     c = case(name)
     dt = le_t.DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu")
     dt_rank = dataclasses.replace(dt, dense=None)
     dt_sort = dataclasses.replace(dt, rank_spec=None, dense=None)
     s, la, ph, _ = _batch(c, 60, 64, 2)
-    a, b = _port(dt_rank, s, la, ph, 60), _port(dt_sort, s, la, ph, 60)
-    np.testing.assert_array_equal(a[0], b[0])  # the same fp32 epilogue on the same hits
-    np.testing.assert_array_equal(a[1], b[1])
+    one = _port(dataclasses.replace(dt_rank, a_mat=None), s, la, ph, 60)
+    for dt_s in (dt_sort, dataclasses.replace(dt_sort, a_mat=None)):
+        b = _port(dt_s, s, la, ph, 60)
+        np.testing.assert_array_equal(one[0], b[0])
+        np.testing.assert_array_equal(one[1], b[1])
+    a = _port(dt_rank, s, la, ph, 60)
+    np.testing.assert_allclose(a[0][:60], b[0][:60], rtol=0, atol=ROW_TOL)
+    np.testing.assert_allclose(a[1][:60], b[1][:60], rtol=0, atol=ROW_TOL)
 
 
 @pytest.mark.parametrize("name", ["H2O", "synthetic"])
@@ -402,9 +415,9 @@ def test_sorted_local_energy_ref_matches_jax(name, m, cap):
 
 @pytest.mark.parametrize("name", ["H2O", "LiH", "synthetic"])
 def test_local_energy_dispatches_to_sorted_local_energy(name, monkeypatch):
-    """local_energy takes sorted_local_energy exactly where rank_spec, dense and
-    a_mat are all None: once per call, with queries= too, and never with a
-    dense A, a RankSpec or a grid program."""
+    """local_energy takes sorted_local_energy exactly where rank_spec and dense
+    are None, with a dense A or without: once per call, with queries= too, and
+    never with a RankSpec or a grid program."""
     c = _case(name)
     calls = []
 
@@ -427,7 +440,36 @@ def test_local_energy_dispatches_to_sorted_local_energy(name, monkeypatch):
         calls.clear()
         _port(dt, s, la, ph, 60)
         _port(dt, s, la, ph, 60, queries=tuple(torch.as_tensor(a[5:20]) for a in (s, la, ph)))
-        assert calls == ([64, 15] if label == "sort" else []), label
+        assert calls == ([64, 15] if label.startswith("sort") else []), label
+
+
+@pytest.mark.parametrize("name,m,cap", [("H2O", 150, 160), ("synthetic", 200, 224)])
+def test_dense_a_one_launch_sums_each_group_term_by_term(name, m, cap):
+    """With a dense A the port's one launch sums a found flip mask's terms one
+    by one, where JAX's chunk loop takes that mask's H entry from P @ A, a sum
+    over every sign mask in another order. On rows whose coupled states are
+    found through several flip masks of several terms each, the two stay
+    within ROW_TOL per row and MEAN_TOL on the weighted mean and on
+    quadratic_energy."""
+    c = _case(name)
+    dt_j, dt_t = _terms(c, True)
+    s, la, ph, w = _batch(c, m, cap, 6)
+    re_t, im_t = _port(dt_t, s, la, ph, m)
+    re_j, im_j = _jax(dt_j, s, la, ph, m, chunk_rows=64)
+    np.testing.assert_allclose(re_t[:m], re_j[:m], rtol=0, atol=ROW_TOL)
+    np.testing.assert_allclose(im_t[:m], im_j[:m], rtol=0, atol=ROW_TOL)
+    assert abs(np.sum(w[:m] * re_t[:m]) - np.sum(w[:m] * re_j[:m])) < MEAN_TOL
+    states = torch.as_tensor(s)
+    found = sorted_log_amps(states, torch.as_tensor(la), torch.tensor(m), states[:m],
+                            dt_t.xy_unique) > -1e29
+    sizes = torch.diff(dt_t.xy_ptr.long())
+    several = (found & (sizes > 1)[None, :] & (dt_t.xy_unique != 0)[None, :]).sum(-1)
+    assert int((several >= 2).sum()) >= 5    # rows where the two orders differ
+    q_t = float(le_t.quadratic_energy(dt_t, states, torch.as_tensor(la), torch.as_tensor(ph),
+                                      m))
+    q_j = float(le_j.quadratic_energy(dt_j, jnp.asarray(to_u64(s)), jnp.asarray(la),
+                                      jnp.asarray(ph), jnp.int32(m), chunk_rows=64))
+    assert abs(q_t - q_j) < MEAN_TOL
 
 
 @pytest.mark.parametrize("name", ["H2O", "synthetic"])

@@ -23,11 +23,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      masking) with random weights from a seed, capacity 100,000. The default
      dispatch must carry a FactorTerms grid program; the rank engine is the
      same DeviceTerms with dense=None;
-  4. the rank engine's kernels on the real packed value table at its chunk
-     shape (C=512, Kxy=4,608): rank_gather2 bitwise against its plain
-     version, rank_ratio_rowsum with the real h per row within ROWSUM_ATOL +
-     ROWSUM_RTOL * sum_k |h| |r| (fp32 summation order over 4,608 terms,
-     expf/sincosf ulps);
+  4. the rank engine's chunk kernels (on no path since the one launch took
+     the dense-A calls) on the real packed value table at their chunk shape
+     (C=512, Kxy=4,608): rank_gather2 bitwise against its plain version,
+     rank_ratio_rowsum with the real h (P @ A, as the chunk loop formed it)
+     per row within ROWSUM_ATOL + ROWSUM_RTOL * sum_k |h| |r| (fp32
+     summation order over 4,608 terms, expf/sincosf ulps);
   5. factored_cells_accumulate on the real sampled grid over the whole
      capacity-100,000 buffer (the rows E_loc reads: the first n_unique)
      against its plain version, per row within GRID_ATOL + GRID_RTOL * sum_k
@@ -55,7 +56,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      steady-state shell with the most live rows captured in a CUDA graph and
      replayed 3 times, bitwise equal to an eager call; and one
      sample_density call (d_p = 1e-6) through compact_children against the
-     same call through the plain version: states and masses bitwise;
+     same call through the plain version: states and masses bitwise. Then
+     the decomposition of the split's time (naqs_tpu_torch/tools/
+     split_timing.py, held, in turns): an empty launch of its grid, every row
+     dead, every live row Gaussian, the steady-state shell with the most live
+     rows and the synthetic all-CDF split through multinomial4_split, and
+     split_and_compact on that shell, this tree's and, with --before, DIR's
+     (first held bitwise against this tree's), with what each input asks of
+     the inverse CDF (looks, the longest chain of a warp); and the proof that
+     the split's division by k (Markstein's correction from RN(1/k) where the
+     dividend is +0 or within 2^-100..2^100, else __fdiv_rn) gives
+     __fdiv_rn's bits on every float and every k = 1..128;
   6. the main path: 5 VMCTrainer.step()s through the default dispatch with
      every launch count set to 0 just before; fails unless
      factored_cells_accumulate ran exactly once per E_loc call (one call per
@@ -64,10 +75,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      multinomial4_split and compact_children never, no rank kernel ran, and
      every energy is finite;
   7. the earlier main path: 2 more steps of the same trainer on the rank
-     engine (dense=None), counts set to 0 just before; fails unless
-     rank_ratio_rowsum ran 196 times per E_loc call (capacity 100,000 in
-     chunks of 512), split_and_compact 13 times per sample() call and the
-     standalone sampler kernels never, and no grid kernel ran;
+     engine (dense=None, its dense A kept), counts set to 0 just before;
+     fails unless rank_local_energy ran once per E_loc call (the chunk loop
+     ran rank_ratio_rowsum 196 times a call), split_and_compact 13 times per
+     sample() call, and nothing else;
  7b. the sort engine with the dense A at the paper's width: SORT_A_STEPS
      steps of the same trainer with rank_spec=None and dense=None (as a
      space over 32 qubits, or NAQS_TPU_RANK_MAX below the sector, gives
@@ -75,11 +86,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      per E_loc call, split_and_compact 13 times per sample() call and
      nothing else (no sorted_ratio_rowsum); then one step under
      torch.profiler: its wall and device time;
-  8. quadratic_energy over the sampled buffer with the counts set to 0,
-     through rank_gather2 and through rank_gather2_ref: within 1e-6
-     relative, and rank_gather2 launched;
-  9. on one batch: local_energy through the rank kernel against the same
-     call through its plain version (per row, the tolerance of phase 4);
+  8. quadratic_energy over the sampled buffer on the rank engine with its
+     dense A, the counts set to 0: one rank_quadratic_energy launch and
+     nothing else, within 1e-6 relative of the chunk loop of before composed
+     through rank_gather2_ref (the plain gather, P @ A, the eager epilogue);
+  9. on one batch: local_energy through the rank kernel (rank_local_energy)
+     against the same call through its plain version (per row within
+     rank_local_energy_tolerance);
      local_energy through FactorTerms against the rank engine per live row
      within 2e-4 Ha (the grid engines clip the amplitude ratio per row, the
      rank engine per pair; the JAX package's own bar between its engines);
@@ -120,16 +133,18 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      engine ran with the dense A before (per chunk of 512, P @ A +
      sorted_ratio_rowsum, and sorted_gather2 + P @ A + the eager epilogue,
      this tree's kernels) held against both (the loop within phase 9's
-     per-row tolerance of the rank engine), then both designs of each call in
+     per-row tolerance of the rank engine), and the rank engine's own chunk
+     loops of before (P @ A + rank_ratio_rowsum, rank_gather2 + P @ A + the
+     epilogue, per chunk of 512) against its one launch (phase 9's per-row
+     tolerance, QUAD_RTOL), then both designs of each engine's two calls in
      turns, SLOW_REPEATS of 1, held and unheld (with --before DIR, DIR's own
-     calls too, first held against this tree's), and in the same turns the
-     rank engine's two calls with its dense A (the chunk loops it keeps) and
-     with a_mat=None (one launch each); fails unless the sort engine's one
-     launch is the faster. The rank
+     calls too, first held against this tree's), with the rank engine's calls
+     with a_mat=None beside them; fails unless each one launch is the
+     faster. The rank
      engine with no dense A (a_mat=None) on the same batch: local_energy one
-     rank_local_energy launch and nothing else, within ENGINE_TOL of the rank
-     engine with a dense A, and quadratic_energy one rank_quadratic_energy
-     launch, within QUAD_RTOL of phase 8's; rank_quadratic_energy against its
+     rank_local_energy launch and nothing else and quadratic_energy one
+     rank_quadratic_energy launch, both bitwise equal to the calls with the
+     dense A; rank_quadratic_energy against its
      plain version per row (num and w within rank_quadratic_energy_tolerance)
      and twice bitwise. Then N2 6-31G
      (naqs_tpu_torch/data/N2_6-31G_gen.npz: 36 qubits, sector (7, 7) of
@@ -252,8 +267,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      which are the record steps' batches; solve_h over the counter's top
      SOLVE_K states, E0 at or below the lowest diagonal element and within
      1e-8 Ha of the ground state of H assembled by numpy and by the native
-     library; exact_energy over the basis (rank_gather2 alone, its launches
-     counted) before and after warm_start_from_solve_h (WS_EPOCHS epochs,
+     library; exact_energy over the basis (one rank_quadratic_energy launch
+     and nothing else), timed whole and in its two parts, log_psi over the
+     basis and quadratic_energy, before and after warm_start_from_solve_h
+     (WS_EPOCHS epochs,
      overlap loss); a trainer with train_terms = H + S2_PENALTY S^2 (built
      with NAQS_TPU_DENSE=0) whose exact_energy equals the plain trainer's
      within 1e-9 Ha on the same parameters; pre_train_hf for
@@ -272,11 +289,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      steps 1 and 5) must write summary.json (no e_exact_final: 1,656,369
      states), args.json, log.jsonl and checkpoint.pt, change all four LUT
      tables and launch split_and_compact, factored_cells_accumulate and
-     rank_gather2; -c then resumes it from checkpoint.pt for one step; run B
+     rank_quadratic_energy; -c then resumes it from checkpoint.pt for one
+     step; run B
      (CLI_RUN_B: N2 STO-3G on DenseTerms, the combined trunk, integer inputs,
      three LUT shells, -presolveH, -profile, 6 steps) must write those and a
      Chrome trace, give e_exact_final and launch split_and_compact,
-     dense_grid_accumulate and rank_gather2. Every step's E_loc must be
+     dense_grid_accumulate and rank_quadratic_energy. Every step's E_loc must be
      finite. It prints each step's wall time, each run's, the launches of
      every kernel, and the per-step cost against phases 6 and 10.
 With --profile, the profiled step of each engine (H2O 6-31G factored and
@@ -288,7 +306,9 @@ Prints a {"kernels": [...]} JSON line (launches from phase 6 for
 factored_cells_accumulate, split_and_compact, multinomial4_split and
 compact_children (0: the standalone kernels left sample()'s path; their
 launches in phase 5b's sample_density call as "launches_sample_density"), 7
-for rank_ratio_rowsum, 8 for rank_gather2, 10 for dense_grid_accumulate, 10b
+for rank_ratio_rowsum (0: on no path, beside its chunk loop's time in turns
+with the one launch, 10c), 8 for rank_gather2 (0, likewise), 7's steps for
+rank_local_energy's "launches_dense_a_steps", 10 for dense_grid_accumulate, 10b
 for xl_grid_accumulate, 10c's N2 steps for sorted_local_energy,
 sorted_ratio_rowsum and offdiag_h_terms (0: sorted_ratio_rowsum and
 sorted_gather2 are on no path since the sort engine's dense-A calls are one
@@ -300,7 +320,8 @@ beside which its launches in the N2 quadratic_energy call and the
 frozen-core steps stand), its N2 quadratic_energy call for sorted_gather2
 and sorted_quadratic_energy, 10c's H2O 6-31G call for
 rank_quadratic_energy, 10d's steps for rank_local_energy; phase 12's
-exact_energy call for rank_gather2's "launches_exact_energy" and its
+exact_energy call for rank_gather2's and rank_quadratic_energy's
+"launches_exact_energy" and its
 run_density steps for compact_children's "launches_run_density"; the
 staircase kernel's bound_ms counts what the function needs on the
 sampled grid (the grid cells the valid pairs read, the maps, the program and
@@ -311,7 +332,9 @@ valid and found pairs of the live rows, _cells_work), beside one
 factored_local_energy call's time; with --before, "before_ms" and
 "before_spread" of the earlier tree's kernel; split_and_compact's is DIR's
 fused kernel, with its registers by instantiation, the clear's time, its
-wrapper's host pieces unheld and whether the graph replays were bitwise),
+wrapper's host pieces unheld and whether the graph replays were bitwise;
+multinomial4_split's carries the decomposition, DIR's beside it, and the
+division proof),
 with "launches_cli_a" and "launches_cli_b" from phase 13's runs in every
 entry, and last {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -739,17 +762,28 @@ def _steps(tr, n, label):
     return calls[0], times, calls[1]
 
 
-def _sort_chunk_loop(le, dt, states, la, ph, n_valid, chunk, ratio_fn):
-    """local_energy on the sort engine with a dense A as its chunk loop ran it: per
-    chunk of `chunk` query rows (the last padded with SENTINEL rows) the
-    diagonal, the H row as P @ A (`le._offdiag_h`) and ratio_fn
-    (sorted_ratio_rowsum) over the sorted buffer. (e_re, e_im) f64."""
+def _dense_h(dt, s):
+    """(C, Kxy) f32 H row of chunk states s as the chunk loops formed it with a
+    dense A: parity(s & yz_unique) @ A, a full-fp32 product. No engine forms
+    it since the one-launch kernels took the dense-A calls."""
     import torch
 
-    from naqs_tpu_torch.ops.sort_lookup import pack_table
+    from naqs_tpu_torch.utils.bits import parity_pm1
+
+    return torch.matmul(parity_pm1(s[:, None] & dt.yz_unique[None, :]).to(torch.float32),
+                        dt.a_mat)
+
+
+def _dense_chunk_loop(le, dt, states, la, ph, chunk, ratio_fn):
+    """local_energy with a dense A as the engines' chunk loops ran it: per chunk
+    of `chunk` query rows (the last padded with SENTINEL rows) the diagonal,
+    the H row as P @ A (`_dense_h`) and ratio_fn(s, my_la, my_ph, h) -> (re,
+    im) f32 (rank_ratio_rowsum or sorted_ratio_rowsum over the table).
+    (e_re, e_im) f64."""
+    import torch
+
     from naqs_tpu_torch.utils.bits import SENTINEL
 
-    table, nv = pack_table(states, la, ph), le._count(n_valid, states.device)
     e_re, e_im = [], []
     for i in range(0, states.shape[0], chunk):
         s, my_la, my_ph = (states[i:i + chunk], la[i:i + chunk].float(),
@@ -759,7 +793,7 @@ def _sort_chunk_loop(le, dt, states, la, ph, n_valid, chunk, ratio_fn):
             s = torch.cat([s, s.new_full((chunk - n,), SENTINEL)])
             my_la = torch.cat([my_la, my_la.new_zeros(chunk - n)])
             my_ph = torch.cat([my_ph, my_ph.new_zeros(chunk - n)])
-        r, im = ratio_fn(*table, nv, s, dt.xy_unique, my_la, my_ph, le._offdiag_h(dt, s))
+        r, im = ratio_fn(s, my_la, my_ph, _dense_h(dt, s))
         e_re.append((le.diagonal_energy(dt, s) + r.to(torch.float64))[:n])
         e_im.append(im.to(torch.float64)[:n])
     return torch.cat(e_re), torch.cat(e_im)
@@ -1050,34 +1084,6 @@ def _shell_step(split, cap, dev, seed):
     return a, b, counts, ones[:, 0].clone(), probs, z, u, ones, 12, cap
 
 
-def _synthetic_split(n_rows, dev):
-    """(counts, probs, z, u) that take the inverse CDF on every binomial: n from
-    20 to 5,000, conditional p log-uniform in [1e-4, 0.9] (so the p > 1/2 flip
-    too), cut to 20 / n where the variance would pass 25; and 64 rows of
-    corners at the end: q = 0 and 1, n = 0 and 1e12 (both branches), all-zero
-    probs."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(4)
-    n = np.floor(10 ** rng.uniform(np.log10(20), np.log10(5000), n_rows))
-    c = 10 ** rng.uniform(-4, np.log10(0.9), (n_rows, 4))
-    c = np.where(n[:, None] * c * (1 - c) > 24.0, 20.0 / n[:, None], c)
-    keep = np.cumprod(1 - c[:, ::-1], axis=1)[:, ::-1]    # prod_{i' >= i} (1 - c[i'])
-    probs = c * np.concatenate([keep[:, 1:], np.ones((n_rows, 1))], axis=1)
-    probs[:, 0] = keep[:, 1]
-    corners = [(17.0, [0, 0, 1, 0]), (1e12, [0, 0, 0, 1]), (1e12, [1, 1e-11, 2e-11, 3e-12]),
-               (1e12, [0.1, 0.2, 0.3, 0.4]), (0.0, [0.25] * 4), (5e3, [0, 0, 0, 0]),
-               (1.0, [0.5, 0.5, 0, 0]), (1e12, [1e-13, 0, 1, 1e-12])]
-    n[-64:] = [corners[i % 8][0] for i in range(64)]
-    probs[-64:] = [corners[i % 8][1] for i in range(64)]
-    gen = torch.Generator(device=dev).manual_seed(5)
-    z = torch.randn((3, n_rows), generator=gen, device=dev)
-    u = torch.rand((3, n_rows), generator=gen, device=dev)
-    return (torch.as_tensor(n, device=dev), torch.as_tensor(probs.astype(np.float32), device=dev),
-            z, u)
-
-
 def _before_modules(before):
     """The kernel wrappers of the port's tree unpacked at `before`, imported
     beside this tree's, each library built from that tree's own source into
@@ -1145,11 +1151,13 @@ def _trainer_extras(dev, mol, hil, terms, cfg, tr2, zero_counts, wrappers):
     from naqs_tpu_torch import trainer as trainer_mod
     from naqs_tpu_torch.hamiltonian import _assemble_rows_np, diagonal_energy_np
     from naqs_tpu_torch.models.nade import log_psi
+    from naqs_tpu_torch.ops import local_energy as le
     from naqs_tpu_torch.utils.spin import penalized_termdict
 
     walls, out = {}, {}
     kern = {w.__name__: w for w in wrappers}
-    rank_gather2, _compact_children = kern["rank_gather2"], kern["_compact_children"]
+    rank_quadratic_energy = kern["rank_quadratic_energy"]
+    _compact_children = kern["_compact_children"]
     _split_and_compact = kern["_split_and_compact"]
 
     def lap(name, t):
@@ -1306,22 +1314,40 @@ def _trainer_extras(dev, mol, hil, terms, cfg, tr2, zero_counts, wrappers):
             raise SystemExit("solve_h: E0 above the lowest diagonal element, or the numpy and "
                              "native assemblies disagree")
 
-        # 4. warm start on those states; exact_energy before and after
+        # 4. warm start on those states; exact_energy before and after: one
+        # rank_quadratic_energy launch a call (the dense A is not read), timed
+        # whole and in its two parts, log_psi over the basis and quadratic_energy
         t = time.time()
         zero_counts()
         e_before = tr.exact_energy()
-        out["gather_launches_exact_energy"] = rank_gather2.launches
+        out["quad_launches_exact_energy"] = rank_quadratic_energy.launches
+        out["gather_launches_exact_energy"] = kern["rank_gather2"].launches
         lap(f"exact_energy over the {hil.size}-state basis", t)
-        if others({"rank_gather2"}) or not rank_gather2.launches:
-            raise SystemExit(f"exact_energy did not run rank_gather2 alone: {others(set())}")
+        if others({"rank_quadratic_energy"}) or rank_quadratic_energy.launches != 1:
+            raise SystemExit(f"exact_energy did not run one rank_quadratic_energy launch and "
+                             f"nothing else: {others(set())}")
+        out["exact_energy_s"] = walls[f"exact_energy over the {hil.size}-state basis"]
+        basis = torch.as_tensor(hil.basis, device=dev)
+        t = time.time()
+        with torch.no_grad():
+            la_b, ph_b = log_psi(tr.model, basis)
+        lap("its log_psi over the basis", t)
+        t = time.time()
+        e_parts = float(le.quadratic_energy(tr.dt_h, basis, la_b, ph_b, basis.shape[0]))
+        lap("its quadratic_energy over the basis", t)
+        if abs(e_parts - e_before) > 1e-12 * abs(e_before):
+            raise SystemExit("exact_energy differs from log_psi + quadratic_energy")
+        out["exact_energy_log_psi_s"] = walls["its log_psi over the basis"]
+        out["exact_energy_quadratic_s"] = walls["its quadratic_energy over the basis"]
+        del basis, la_b, ph_b
         t = time.time()
         e0w, nw = tr.warm_start_from_solve_h(WS_EPOCHS, k_max=SOLVE_K, loss="overlap")
         lap(f"warm_start_from_solve_h, {WS_EPOCHS} epochs over {nw} states", t)
         t = time.time()
         e_after = tr.exact_energy()
         lap("exact_energy after the warm start", t)
-        print(f"[extras] exact_energy (rank_gather2 launched "
-              f"{out['gather_launches_exact_energy']} times a call): {e_before:.8f} Ha before "
+        print(f"[extras] exact_energy (rank_quadratic_energy launched "
+              f"{out['quad_launches_exact_energy']} time a call): {e_before:.8f} Ha before "
               f"the warm start, {e_after:.8f} after "
               f"(its subspace E0 {e0w:.8f})", flush=True)
         if not (math.isfinite(e_before) and math.isfinite(e_after) and abs(e0w - e0) <= 1e-8):
@@ -1500,7 +1526,7 @@ def _cli_runs(zero_counts, wrappers, t_fact, t_dense):
         dir_a = os.path.join(work, "A")
         sum_a, counts["A"], steps_a, wall_a = one(
             "A", CLI_RUN_A, dir_a, ("split_and_compact", "factored_cells_accumulate",
-                                    "rank_gather2"))
+                                    "rank_quadratic_energy"))
         (n0, first, lrs), (n1, last, _) = lut_seen[0], lut_seen[-1]
         moved = [not torch.equal(a, b) for a, b in zip(first, last)]
         print(f"[cli] run A: LUT tables after step {n0} and step {n1}: moved {moved} "
@@ -1524,7 +1550,7 @@ def _cli_runs(zero_counts, wrappers, t_fact, t_dense):
         dir_b = os.path.join(work, "B")
         sum_b, counts["B"], steps_b, wall_b = one(
             "B", CLI_RUN_B, dir_b, ("split_and_compact", "dense_grid_accumulate",
-                                    "rank_gather2"))
+                                    "rank_quadratic_energy"))
         trace = os.path.join(dir_b, "profile", "trace.json")
         for f in ("summary.json", "args.json", "log.jsonl", "checkpoint.pt", trace):
             if not os.path.exists(os.path.join(dir_b, f)):
@@ -1601,7 +1627,9 @@ def main(argv) -> int:
                                                 sorted_quadratic_energy_ref,
                                                 sorted_quadratic_energy_tolerance,
                                                 sorted_ratio_rowsum, sorted_ratio_rowsum_ref)
+    from naqs_tpu_torch.ops.sampler_kernels import launch as sampler_launch
     from naqs_tpu_torch.ops.sampler_kernels import split_tile_rows
+    from naqs_tpu_torch.tools import split_timing
     from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref,
                                         _split_and_compact, _split_and_compact_ref,
                                         _split_frontier)
@@ -1630,6 +1658,8 @@ def main(argv) -> int:
         print(f"[build] {name}: nvcc {time.time() - t0:.1f}s\n{out.strip()}", flush=True)
     split_regs = {("f64" if "F64Row" in k else "f32"): v for k, v in _ptxas_registers(
         build_logs.get("sampler_step", ""), "split_and_compact_kernel").items()}
+    split_alone_regs = list(_ptxas_registers(build_logs.get("sampler_step", ""),
+                                             "multinomial4_split_kernel").values())
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -1674,7 +1704,7 @@ def main(argv) -> int:
     s = batch.states[:chunk].contiguous()
     my_la, my_ph = la[:chunk].float().contiguous(), ph[:chunk].float().contiguous()
     xy = dt.xy_unique
-    h = le._offdiag_h(dt, s)
+    h = _dense_h(dt, s)
     got = rank_gather2(spec, s, xy, table)
     want = rank_gather2_ref(spec, s, xy, table)
     torch.cuda.synchronize()
@@ -1758,7 +1788,7 @@ def main(argv) -> int:
                                  f"count other children")
             if label == "steady" and live > fullest_live:
                 fullest, fullest_live, fullest_stats = args, live, st
-    syn = _synthetic_split(cap, dev)
+    syn = split_timing.synthetic_split(cap, dev)
     st = _check_split("synthetic", (*syn, None, None), totals)
     n_syn = check_fused("synthetic", _shell_step(syn, cap, dev, 7))
     print(f"[shell] synthetic split of {cap} rows: {st['gauss']} Gaussian, {st['cdf']} inverse "
@@ -1783,7 +1813,7 @@ def main(argv) -> int:
          torch.randn((3, cap), generator=gen5, device=dev),
          torch.rand((3, cap), generator=gen5, device=dev)), cap, dev, 9))
     wide = 1_000_003   # more tiles than the card holds blocks at once
-    wide_syn = _synthetic_split(wide, dev)
+    wide_syn = split_timing.synthetic_split(wide, dev)
     wide_args = list(_shell_step(wide_syn, wide, dev, 10))
     wide_args[3] = torch.rand(wide, generator=gen5, device=dev) < 0.3      # valid
     wide_args[7] = torch.rand((wide, 4), generator=gen5, device=dev) < 0.8  # mask
@@ -1889,6 +1919,36 @@ def main(argv) -> int:
         before_dir = os.path.abspath(argv[argv.index("--before") + 1])
         old_mods = _before_modules(before_dir)
         print(f"[before] built and bound from the earlier tree: {sorted(old_mods)}", flush=True)
+    # 5b, continued: the decomposition of the split's time on the steady-state
+    # shell with the most live rows (tools/split_timing.py: an empty launch of its
+    # grid, every row dead, every live row Gaussian, the real shell, the synthetic
+    # all-CDF split; split_and_compact on the real shell), this tree's kernels and,
+    # with --before, DIR's in the same turns (first held bitwise against this
+    # tree's); then the proof that the split's division by k is __fdiv_rn's
+    trees = {"this tree": (multinomial4_split, _split_and_compact)}
+    if "sampler" in old_mods:
+        trees["earlier tree"] = (old_mods["multinomial"].multinomial4_split,
+                                 old_mods["sampler"]._split_and_compact)
+    decomp, decomp_tally = split_timing.decomposition(trees, step_args,
+                                                      split_timing.synthetic_split(cap, dev), dev)
+    for name, t in decomp_tally.items():
+        print(f"[split] {name}: {t} (looks of the inverse CDF; warp_chain: the longest chain of "
+              f"a warp of 32 rows)", flush=True)
+    for name, (med, spread, held) in decomp.items():
+        print(f"[split] {name}: held ({held:.1f} ms) median {med:.4f} ms, spread "
+              f"{spread[0]:.4f}-{spread[1]:.4f} ms", flush=True)
+    proof = torch.zeros(4, dtype=torch.int64, device=dev)
+    t1 = time.time()
+    sampler_launch("split_division_mismatches", (proof,), dev)
+    proof = proof.tolist()
+    t_proof = time.time() - t1
+    n_pairs = (1 << 32) * 128
+    print(f"[split] the division by k of the inverse CDF (fast_div by Markstein's correction "
+          f"from RN(1/k), else __fdiv_rn) against __fdiv_rn on every float x and every k = "
+          f"1..128, {n_pairs} pairs of which {proof[1]} took fast_div: {proof[0]} differ "
+          f"(first: {proof[2]:#x}); {t_proof:.2f} s", flush=True)
+    if proof[0] != 0 or proof[1] < n_pairs // 2:
+        raise SystemExit("the split's division by k differs from __fdiv_rn")
     if "sampler" in old_mods:
         compact_old = old_mods["sampler"]._compact_children
         same_old = all(torch.equal(g, w) for g, w in zip(compact_old(*compact_args),
@@ -1963,27 +2023,25 @@ def main(argv) -> int:
         raise SystemExit("the main path did not run split_and_compact once per shell, or ran "
                          "the standalone sampler kernels")
 
-    # 7. the earlier main path: the same trainer on the rank engine
+    # 7. the earlier main path: the same trainer on the rank engine, with its
+    # dense A: one rank_local_energy launch per E_loc call (the parent ran
+    # rank_ratio_rowsum per chunk of 512)
     per_call = -(-tr.capacity // chunk)
     tr.dt = dt_rank
     zero_counts()
     n_updates, t_rank, n_draws = _steps(tr, 2, "rank")
-    ratio_launches = rank_ratio_rowsum.launches
-    print(f"[path] rank engine (dense=None): rank_ratio_rowsum launches in 2 steps: "
-          f"{ratio_launches} ({per_call} per local_energy call, {n_updates} vmc_update calls); "
-          f"rank_gather2: {rank_gather2.launches}; factored_cells_accumulate: "
-          f"{factored_cells_accumulate.launches}; split_and_compact "
-          f"{_split_and_compact.launches} ({n_draws} sample() calls), multinomial4_split "
-          f"{multinomial4_split.launches}, compact_children {_compact_children.launches}",
-          flush=True)
-    if ratio_launches != per_call * n_updates or n_updates < 2 or \
-            factored_cells_accumulate.launches or xl_grid_accumulate.launches or \
-            any(w.launches for w in row_wrappers):
-        raise SystemExit("the rank path did not run rank_ratio_rowsum once per chunk")
-    if not (_split_and_compact.launches == n_shells * n_draws
-            and multinomial4_split.launches == _compact_children.launches == 0):
-        raise SystemExit("the rank path did not run split_and_compact once per shell, or ran "
-                         "the standalone sampler kernels")
+    rank_a_counts = {w.__name__: w.launches for w in wrappers}
+    want_rank_a = dict({w.__name__: 0 for w in wrappers}, rank_local_energy=n_updates,
+                       _split_and_compact=n_shells * n_draws)
+    ratio_launches = rank_a_counts["rank_ratio_rowsum"]
+    print(f"[path] rank engine (dense=None, its dense A kept): launches in 2 steps "
+          f"{rank_a_counts} ({n_updates} vmc_update calls: one rank_local_energy launch a "
+          f"local_energy call, where the chunk loop ran {per_call} rank_ratio_rowsum launches; "
+          f"{n_draws} sample() calls of {n_shells} shells)", flush=True)
+    if rank_a_counts != want_rank_a or n_updates < 2:
+        raise SystemExit(f"the rank path did not run one rank_local_energy launch per E_loc "
+                         f"call and split_and_compact once per shell, or ran other kernels: "
+                         f"{rank_a_counts} against {want_rank_a}")
 
     # 7b. the sort engine with its dense A at the paper's width: the same trainer
     # with no RankSpec and no grid program, as a space over 32 qubits (or a rank
@@ -2016,41 +2074,52 @@ def main(argv) -> int:
           f"{min(t_rank):.3f}-{max(t_rank):.3f} s, sort steps with the dense A "
           f"{min(t_sort):.3f}-{max(t_sort):.3f} s", flush=True)
 
-    # 8. quadratic_energy through rank_gather2 and through its plain version
+    # 8. quadratic_energy on the rank engine with its dense A: one
+    # rank_quadratic_energy launch, against the chunk loop of before composed
+    # through the plain gather (rank_gather2_ref, P @ A, the eager epilogue)
     batch = tr._sample()
     with torch.no_grad():
         la, ph = log_psi(tr.model, batch.states)
     zero_counts()
     q_k = float(le.quadratic_energy(dt, batch.states, la, ph, batch.n_unique))
-    gather_launches = rank_gather2.launches
-    le.rank_gather2 = rank_gather2_ref
-    q_p = float(le.quadratic_energy(dt, batch.states, la, ph, batch.n_unique))
-    le.rank_gather2 = rank_gather2
+    quad_a_counts = {w.__name__: w.launches for w in wrappers}
+    gather_launches = quad_a_counts["rank_gather2"]
+    nu = int(batch.n_unique)
+    live_h = torch.arange(batch.states.shape[0], device=dev) < batch.n_unique
+    la_qh = torch.where(live_h, la - la[:nu].max(), QUAD_MISS).float().contiguous()
+    ph_qh = ph.float().contiguous()
+    nv_h = le._count(batch.n_unique, dev)
+    table_qh = build_value_table(spec, batch.states, la_qh, ph_qh, batch.n_unique,
+                                 miss_log_amp=QUAD_MISS)
+    q_p = float(_quad_loop(le, dt, lambda sc, lv: rank_gather2_ref(spec, sc, xy, table_qh),
+                           lambda sc, *_: _dense_h(dt, sc), batch.states, la_qh, ph_qh, nv_h,
+                           chunk))
     q_rel = abs(q_k - q_p) / abs(q_p)
-    print(f"[quad] quadratic_energy kernel {q_k:.10f} vs plain {q_p:.10f}: rel {q_rel:.2e} "
-          f"(tol {QUAD_RTOL}); rank_gather2 launches {gather_launches}", flush=True)
-    if not (q_rel <= QUAD_RTOL and gather_launches > 0 and math.isfinite(q_k)
-            and not sorted_gather2.launches):
-        raise SystemExit("quadratic_energy through rank_gather2 disagrees or never launched it")
+    want_quad_a = dict({w.__name__: 0 for w in wrappers}, rank_quadratic_energy=1)
+    print(f"[quad] quadratic_energy (rank engine, dense A) {q_k:.10f} vs the chunk loop of "
+          f"before through rank_gather2_ref ({per_call} chunks of the plain gather + P @ A + "
+          f"epilogue) {q_p:.10f}: rel {q_rel:.2e} (tol {QUAD_RTOL}); launches {quad_a_counts}",
+          flush=True)
+    if not (q_rel <= QUAD_RTOL and quad_a_counts == want_quad_a and math.isfinite(q_k)):
+        raise SystemExit(f"quadratic_energy on the rank engine with a dense A disagrees with "
+                         f"the chunk loop of before, or did not run one rank_quadratic_energy "
+                         f"launch and nothing else: {quad_a_counts}")
 
     # 9. local_energy: rank kernel vs its plain version, grid engine vs rank
     # engine, both vs the host oracle
     e_k = _engines_agree("H2O 6-31G", le, dt, terms, batch, la, ph)
-    le.rank_ratio_rowsum = rank_ratio_rowsum_ref
+    le.rank_local_energy = rank_local_energy_ref
     e_p = le.local_energy(dt_rank, batch.states, la, ph, batch.n_unique)
-    le.rank_ratio_rowsum = rank_ratio_rowsum
-    nu = int(batch.n_unique)
+    le.rank_local_energy = rank_local_energy
     table2 = build_value_table(spec, batch.states, la, ph, batch.n_unique)
-    tol = []
-    for i in range(0, nu, chunk):
-        sc = batch.states[i:min(i + chunk, nu)]
-        g_la = rank_gather2_ref(spec, sc, xy, table2)[0]
-        tol.append(rowsum_tolerance(g_la, la[i:i + sc.shape[0]].float(), le._offdiag_h(dt, sc)))
-    tol = torch.cat(tol).double()
+    tol = rank_local_energy_tolerance(spec, table2, batch.states, la.float(), xy, dt.xy_ptr,
+                                      dt.term_yz, dt.yz_unique, dt.term_coeff, dt.diag_coeff,
+                                      chunk_rows=chunk)[:nu]
     d_re, d_im = ((a[:nu] - b[:nu]).abs() for a, b in zip(e_k, e_p))
     eq = bool((d_re <= tol).all() and (d_im <= tol).all())
-    print(f"[eloc] rank kernel vs plain on {nu} rows: within the per-row tolerance={eq}, "
-          f"max_abs_diff re {float(d_re.max()):.3e} im {float(d_im.max()):.3e} Ha", flush=True)
+    print(f"[eloc] rank kernel (rank_local_energy) vs plain on {nu} rows: within the per-row "
+          f"tolerance (rank_local_energy_tolerance)={eq}, max_abs_diff re "
+          f"{float(d_re.max()):.3e} im {float(d_im.max()):.3e} Ha", flush=True)
     if not eq:
         raise SystemExit("local_energy through the kernel differs from the plain version")
     del table2
@@ -2291,28 +2360,52 @@ def main(argv) -> int:
     sr_same = all(torch.equal(a, b) for a, b in zip(e_s, e_g))
     d_seg = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_g, e_k))
     q_rel_s = abs(q_s - q_k) / abs(q_k)
-    # the chunk loops the sort engine ran with a dense A before this design, this
+    # the chunk loops the engines ran with a dense A before the one launch, this
     # tree's kernels composed as they ran them: per chunk of 512 rows P @ A and
-    # sorted_ratio_rowsum, or sorted_gather2, P @ A and the eager epilogue (on the
-    # log-amps quadratic_energy shifts to a live maximum of 0)
-    live_h = torch.arange(batch.states.shape[0], device=dev) < batch.n_unique
-    la_qh = torch.where(live_h, la - la[:nu].max(), QUAD_MISS).float().contiguous()
-    ph_qh = ph.float().contiguous()
-    nv_h = le._count(batch.n_unique, dev)
+    # the ratio kernel (sorted_ratio_rowsum over the sorted buffer,
+    # rank_ratio_rowsum over the rank table), or the gather kernel, P @ A and the
+    # eager epilogue (on phase 8's log-amps, shifted to a live maximum of 0)
+    sort_table = pack_table(batch.states, la, ph)
+    rank_table = build_value_table(spec, batch.states, la, ph, batch.n_unique)
+
+    def sort_dense_loop():
+        return _dense_chunk_loop(le, dt_sort, batch.states, la, ph, chunk,
+                                 lambda sc, m_la, m_ph, h_c: sorted_ratio_rowsum(
+                                     *sort_table, nv_h, sc, xy, m_la, m_ph, h_c))
+
+    def rank_dense_loop():
+        return _dense_chunk_loop(le, dt, batch.states, la, ph, chunk,
+                                 lambda sc, m_la, m_ph, h_c: rank_ratio_rowsum(
+                                     spec, sc, xy, rank_table, m_la, m_ph, h_c))
 
     def sort_dense_quad_loop():
         return _quad_loop(
-            le, dt_sort, lambda s, lv: sorted_gather2(batch.states, la_qh, ph_qh, nv_h, s,
-                                                      dt.xy_unique, lv),
-            lambda s, *_: le._offdiag_h(dt_sort, s), batch.states, la_qh, ph_qh, nv_h, chunk)
+            le, dt_sort, lambda sc, lv: sorted_gather2(batch.states, la_qh, ph_qh, nv_h, sc,
+                                                       xy, lv),
+            lambda sc, *_: _dense_h(dt_sort, sc), batch.states, la_qh, ph_qh, nv_h, chunk)
 
-    e_loop = _sort_chunk_loop(le, dt_sort, batch.states, la, ph, batch.n_unique, chunk,
-                              sorted_ratio_rowsum)
+    def rank_dense_quad_loop():
+        return _quad_loop(le, dt, lambda sc, lv: rank_gather2(spec, sc, xy, table_qh),
+                          lambda sc, *_: _dense_h(dt, sc), batch.states, la_qh, ph_qh, nv_h,
+                          chunk)
+
+    zero_counts()
+    e_loop = sort_dense_loop()
     q_loop = float(sort_dense_quad_loop())
+    e_rloop = rank_dense_loop()
+    q_rloop = float(rank_dense_quad_loop())
+    loop_counts = {w.__name__: w.launches for w in wrappers}
     d_loop_k = [(a[:nu] - b[:nu]).abs() for a, b in zip(e_loop, e_k)]
     loop_ok = all(bool((d <= tol).all()) for d in d_loop_k)
     d_loop = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_s, e_loop))
     q_rel_loop = abs(q_s - q_loop) / abs(q_loop)
+    d_rloop_k = [(a[:nu] - b[:nu]).abs() for a, b in zip(e_rloop, e_k)]
+    rloop_ok = all(bool((d <= tol).all()) for d in d_rloop_k)
+    d_rloop = max(float(d.max()) for d in d_rloop_k)
+    q_rel_rloop = abs(q_k - q_rloop) / abs(q_rloop)
+    want_loops = dict({w.__name__: 0 for w in wrappers}, sorted_ratio_rowsum=per_call,
+                      sorted_gather2=per_call, rank_ratio_rowsum=per_call,
+                      rank_gather2=per_call)
     print(f"[eloc] H2O 6-31G, sort engine with the dense A (rank_spec=None, dense=None): one "
           f"launch, launches {h2o_counts} (with quadratic_energy); vs the rank engine on {nu} "
           f"rows {d_sr:.3e} Ha (tol {ENGINE_TOL}); bitwise equal to the same call with no dense "
@@ -2323,6 +2416,16 @@ def main(argv) -> int:
           f"rel {q_rel_s:.2e} (tol {QUAD_RTOL}), vs the chunk loop of before ({per_call} chunks "
           f"of sorted_gather2 + P @ A + epilogue) {q_loop:.10f}: rel {q_rel_loop:.2e}",
           flush=True)
+    print(f"[eloc] H2O 6-31G, rank engine with the dense A: the chunk loop it ran before "
+          f"({per_call} chunks of P @ A + rank_ratio_rowsum) vs its one rank_local_energy "
+          f"launch (phase 9) {d_rloop:.3e} Ha, within phase 9's per-row tolerance={rloop_ok}; "
+          f"its quadratic_energy loop ({per_call} chunks of rank_gather2 + P @ A + epilogue) "
+          f"{q_rloop:.10f} vs phase 8's one launch: rel {q_rel_rloop:.2e} (tol {QUAD_RTOL}); "
+          f"the four loops' launches {loop_counts}", flush=True)
+    if not (rloop_ok and d_rloop <= ENGINE_TOL and q_rel_rloop <= QUAD_RTOL
+            and loop_counts == want_loops):
+        raise SystemExit("H2O 6-31G: the rank engine's dense-A chunk loop of before disagrees "
+                         "with its one launch, or the loops ran other kernels")
     want_counts = {w.__name__: 0 for w in wrappers}
     want_seg = dict(want_counts, sorted_local_energy=1)
     want_counts.update(sorted_local_energy=1, sorted_quadratic_energy=1)
@@ -2331,11 +2434,10 @@ def main(argv) -> int:
             and loop_ok and d_loop <= ENGINE_TOL and q_rel_loop <= QUAD_RTOL):
         raise SystemExit("H2O 6-31G: the sort engine disagrees with the rank engine or with its "
                          "chunk loop of before, or ran other kernels than its one launch")
-    # the two designs of the dense-A calls in turns, held and unheld (ROADMAP Queue
-    # B 2): the chunk loops of before against the one launch; with --before DIR,
-    # DIR's own calls (its chunk loops) in the same turns. Beside them the rank
-    # engine's calls with its dense A (chunk loops, kept) and with a_mat=None (one
-    # rank_local_energy or rank_quadratic_energy launch), for a later decision
+    # the two designs of the dense-A calls of both engines in turns, held and
+    # unheld: the chunk loops of before against the one launch; with --before DIR,
+    # DIR's own calls in the same turns. Beside them the rank engine's calls with
+    # a_mat=None (the same one launch)
     dt_rank_noa = dataclasses.replace(dt, dense=None, a_mat=None)
     le_ra, le_rn = ("local_energy (rank engine, dense A, H2O 6-31G)",
                     "local_energy (rank engine, no A, H2O 6-31G)")
@@ -2345,13 +2447,16 @@ def main(argv) -> int:
     loop_sa = f"P @ A + sorted_ratio_rowsum ({per_call} chunks)"
     quad_sa = "quadratic_energy (sort engine, dense A, H2O 6-31G)"
     qloop_sa = f"sorted_gather2 + P @ A + epilogue ({per_call} chunks)"
+    loop_ra = f"P @ A + rank_ratio_rowsum ({per_call} chunks)"
+    qloop_ra = f"rank_gather2 + P @ A + epilogue ({per_call} chunks)"
     dense_fns = {
         le_sa: lambda: le.local_energy(dt_sort, batch.states, la, ph, batch.n_unique),
-        loop_sa: lambda: _sort_chunk_loop(le, dt_sort, batch.states, la, ph, batch.n_unique,
-                                          chunk, sorted_ratio_rowsum),
+        loop_sa: sort_dense_loop,
         quad_sa: lambda: le.quadratic_energy(dt_sort, batch.states, la, ph, batch.n_unique),
         qloop_sa: sort_dense_quad_loop,
         le_ra: lambda: le.local_energy(dt_rank, batch.states, la, ph, batch.n_unique),
+        loop_ra: rank_dense_loop,
+        qloop_ra: rank_dense_quad_loop,
         le_rn: lambda: le.local_energy(dt_rank_noa, batch.states, la, ph, batch.n_unique),
         quad_ra: lambda: le.quadratic_energy(dt_rank, batch.states, la, ph, batch.n_unique),
         quad_rn: lambda: le.quadratic_energy(dt_rank_noa, batch.states, la, ph,
@@ -2372,6 +2477,21 @@ def main(argv) -> int:
             dt_sort, batch.states, la, ph, batch.n_unique)
         dense_fns[quad_sa + ", earlier tree"] = lambda: old_le_mod.quadratic_energy(
             dt_sort, batch.states, la, ph, batch.n_unique)
+        # the earlier tree's rank engine with the dense A (chunk loops, in a tree
+        # before the one launch took its dense-A calls)
+        e_old = old_le_mod.local_energy(dt_rank, batch.states, la, ph, batch.n_unique)
+        q_old_ra = float(old_le_mod.quadratic_energy(dt_rank, batch.states, la, ph,
+                                                     batch.n_unique))
+        d_old = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_old, e_k))
+        print(f"[before] the earlier tree's rank engine with the dense A on the same batch: "
+              f"local_energy {d_old:.3e} Ha from this tree's one launch, quadratic_energy "
+              f"{q_old_ra:.10f} against {q_k:.10f}", flush=True)
+        if d_old > ENGINE_TOL or abs(q_old_ra - q_k) > QUAD_RTOL * abs(q_k):
+            raise SystemExit("the earlier tree's rank engine with a dense A disagrees")
+        dense_fns[le_ra + ", earlier tree"] = lambda: old_le_mod.local_energy(
+            dt_rank, batch.states, la, ph, batch.n_unique)
+        dense_fns[quad_ra + ", earlier tree"] = lambda: old_le_mod.quadratic_energy(
+            dt_rank, batch.states, la, ph, batch.n_unique)
         del e_old
     dense_times = time_in_turns(dense_fns, SLOW_REPEATS, 1)
     dense_calls = time_in_turns(dense_fns, SLOW_REPEATS, 1, hold=False)
@@ -2383,12 +2503,15 @@ def main(argv) -> int:
         if dense_calls[name][1][1] >= held:
             raise SystemExit(f"the hold did not cover the enqueue of {name}: held times invalid")
     if not (dense_times[le_sa][0] < dense_times[loop_sa][0]
-            and dense_times[quad_sa][0] < dense_times[qloop_sa][0]):
+            and dense_times[quad_sa][0] < dense_times[qloop_sa][0]
+            and dense_times[le_ra][0] < dense_times[loop_ra][0]
+            and dense_times[quad_ra][0] < dense_times[qloop_ra][0]):
         raise SystemExit("the one launch is not faster than the chunk loop it replaced")
-    del e_s, e_g, e_loop, d_loop_k
+    del e_s, e_g, e_loop, d_loop_k, e_rloop, d_rloop_k
     # the rank engine with no dense A on the same batch: local_energy one
-    # rank_local_energy launch, against the rank engine with a dense A, and
-    # quadratic_energy one rank_quadratic_energy launch, against phase 8's
+    # rank_local_energy launch, bitwise the rank engine's with its dense A (the
+    # kernel does not read A), and quadratic_energy one rank_quadratic_energy
+    # launch, bitwise phase 8's
     zero_counts()
     e_rn = le.local_energy(dt_rank_noa, batch.states, la, ph, batch.n_unique)
     rn_counts = {w.__name__: w.launches for w in wrappers}
@@ -2396,12 +2519,11 @@ def main(argv) -> int:
     q_rn = float(le.quadratic_energy(dt_rank_noa, batch.states, la, ph, batch.n_unique))
     qrn_counts = {w.__name__: w.launches for w in wrappers}
     d_rn = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_rn, e_k))
+    rn_same = all(torch.equal(a, b) for a, b in zip(e_rn, e_k)) and q_rn == q_k
     q_rel_rn = abs(q_rn - q_k) / abs(q_k)
     # rank_quadratic_energy against its plain version per row, as quadratic_energy
-    # calls it: the log-amps shifted so that the live maximum is 0
+    # calls it: the log-amps shifted so that the live maximum is 0 (phase 8's table)
     terms_h = (dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique, dt.term_coeff)
-    table_qh = build_value_table(spec, batch.states, la_qh, ph_qh, batch.n_unique,
-                                 miss_log_amp=QUAD_MISS)
     rq_args = (spec, table_qh, nv_h, batch.states, la_qh, ph_qh, *terms_h, dt.diag_yz,
                dt.diag_coeff)
     rq_got, rq_again = rank_quadratic_energy(*rq_args), rank_quadratic_energy(*rq_args)
@@ -2417,7 +2539,8 @@ def main(argv) -> int:
     print(f"[eloc] H2O 6-31G, rank engine with no dense A (a_mat=None): launches {rn_counts}; "
           f"vs the rank engine with a dense A on {nu} rows {d_rn:.3e} Ha (tol {ENGINE_TOL}); "
           f"quadratic_energy {q_rn:.10f} vs phase 8's {q_k:.10f}: rel {q_rel_rn:.2e} (tol "
-          f"{QUAD_RTOL}), launches {qrn_counts}", flush=True)
+          f"{QUAD_RTOL}), launches {qrn_counts}; both bitwise equal to the calls with the "
+          f"dense A={rn_same}", flush=True)
     print(f"[kernel] rank_quadratic_energy (H2O 6-31G, {batch.states.shape[0]} rows of which "
           f"{nu} live, Kxy={dt.xy_unique.shape[0]}): vs its plain version num max_abs_err="
           f"{rq_err:.3e}, worst row at {float((rq_diff[0] / rq_tol[0].clamp_min(1e-300)).max()):.3f} "
@@ -2426,7 +2549,8 @@ def main(argv) -> int:
     want_rn = dict({w.__name__: 0 for w in wrappers}, rank_local_energy=1)
     want_qrn = dict({w.__name__: 0 for w in wrappers}, rank_quadratic_energy=1)
     if not (d_rn <= ENGINE_TOL and q_rel_rn <= QUAD_RTOL and rn_counts == want_rn
-            and qrn_counts == want_qrn and math.isfinite(q_rn) and rq_ok and rq_same):
+            and qrn_counts == want_qrn and math.isfinite(q_rn) and rq_ok and rq_same
+            and rn_same):
         raise SystemExit("H2O 6-31G: the rank engine with no dense A disagrees with the rank "
                          "engine with one, or ran other kernels than its own one launch, or "
                          "rank_quadratic_energy disagrees with its plain version")
@@ -3363,6 +3487,15 @@ def main(argv) -> int:
               "tab[idx]",
               library_note="tab[idx] on a precomputed idx: skips the rank arithmetic",
               launches_exact_energy=extras["gather_launches_exact_energy"],
+              launches_dense_a_loop=loop_counts["rank_gather2"],
+              dense_a_loop_ms=dense_times[qloop_ra][0],
+              dense_a_loop_unheld_ms=dense_calls[qloop_ra][0],
+              path_note="superseded where A is dense too: no path launches it (launches: "
+                        "quadratic_energy on the rank engine with its dense A, phase 8; "
+                        "launches_exact_energy: exact_energy(), phase 12); held here on a real "
+                        "chunk; dense_a_loop_ms: the chunk loop it ran there before (it, P @ A "
+                        "and the eager epilogue per chunk, launches_dense_a_loop launches), in "
+                        "turns with rank_quadratic_energy's one launch",
               **before(old_name)),
         entry("rank_ratio_rowsum", ratio_launches, rowsum_err, "rank_ratio_rowsum_ref",
               r_bound, None,
@@ -3370,7 +3503,15 @@ def main(argv) -> int:
                            "row sum",
               unfused_ms=times[unfused][0], unfused_spread=times[unfused][1],
               **({"before_composition_ms": times[f"{old_name} + eager epilogue"][0]}
-                 if old_name in times else {})),
+                 if old_name in times else {}),
+              launches_dense_a_loop=loop_counts["rank_ratio_rowsum"],
+              dense_a_loop_ms=dense_times[loop_ra][0],
+              dense_a_loop_unheld_ms=dense_calls[loop_ra][0],
+              path_note="superseded where A is dense too: no path launches it (launches: the "
+                        "rank engine's training steps with the dense A, phase 7); held here on "
+                        "a real chunk; dense_a_loop_ms: the chunk loop it ran there before (P @ "
+                        "A and this kernel per chunk, launches_dense_a_loop launches), in turns "
+                        "with rank_local_energy's one launch"),
         entry("factored_cells_accumulate", fact_launches, factored_err,
               "factored_cells_accumulate_ref", f_bound, None,
               replaces="naqs_tpu/ops/dense_engine.py:496-540", library_note=no_call,
@@ -3473,15 +3614,34 @@ def main(argv) -> int:
               table_rows_read=work5["rows"], found_pairs=work5["found"],
               h2o_call_ms=dense_times[le_rn][0], h2o_call_unheld_ms=dense_calls[le_rn][0],
               h2o_dense_a_call_ms=dense_times[le_ra][0],
-              h2o_dense_a_call_unheld_ms=dense_calls[le_ra][0]),
+              h2o_dense_a_call_unheld_ms=dense_calls[le_ra][0],
+              **({"h2o_dense_a_call_before_ms": dense_times[le_ra + ", earlier tree"][0],
+                  "h2o_dense_a_call_before_unheld_ms": dense_calls[le_ra + ", earlier tree"][0]}
+                 if le_ra + ", earlier tree" in dense_times else {}),
+              launches_dense_a_steps=rank_a_counts["rank_local_energy"],
+              dense_a_step_s=t_rank),
         entry("rank_quadratic_energy", qrn_counts["rank_quadratic_energy"], rq_err,
               "rank_quadratic_energy_ref", rq_bound, None,
               replaces="naqs_tpu/ops/local_energy.py:330-381 + :209 + :164",
               library_note="none: no single call computes the rank lookup, the per-group H and "
                            "the symmetric row sum",
-              path_note="quadratic_energy with a RankSpec and no dense A (H2O 6-31G's batch "
-                        "with a_mat=None): one launch per call, where the parent ran "
-                        "rank_gather2 + offdiag_h_terms + an eager epilogue per chunk",
+              path_note="quadratic_energy with a RankSpec, with a dense A or without: "
+                        "one launch per call (launches: H2O 6-31G's batch with a_mat=None; "
+                        "launches_dense_a_call: with its dense A, phase 8; "
+                        "launches_exact_energy: exact_energy(), phase 12), where the chunk "
+                        "loops ran rank_gather2 + offdiag_h_terms (no dense A) or rank_gather2 "
+                        "+ P @ A (dense A) + an eager epilogue per chunk",
+              launches_dense_a_call=quad_a_counts["rank_quadratic_energy"],
+              launches_exact_energy=extras["quad_launches_exact_energy"],
+              exact_energy_s=extras["exact_energy_s"],
+              exact_energy_log_psi_s=extras["exact_energy_log_psi_s"],
+              exact_energy_quadratic_s=extras["exact_energy_quadratic_s"],
+              dense_a_loop_ms=dense_times[qloop_ra][0],
+              dense_a_loop_unheld_ms=dense_calls[qloop_ra][0],
+              **({"h2o_dense_a_call_before_ms": dense_times[quad_ra + ", earlier tree"][0],
+                  "h2o_dense_a_call_before_unheld_ms":
+                      dense_calls[quad_ra + ", earlier tree"][0]}
+                 if quad_ra + ", earlier tree" in dense_times else {}),
               body="naqs_tpu_torch/csrc/row_energy.cuh", **before(quad_h2o + old_tag),
               composition_ms=times[hcomp][0], quadratic_energy_ms=times[quad_h2o][0],
               dense_a_quadratic_energy_ms=times[quad_h2o_a][0],
@@ -3528,8 +3688,16 @@ def main(argv) -> int:
                            "distribution by another algorithm, without the mask",
               path_note="not on the main path: sample() runs split_and_compact, which does "
                         "this kernel's arithmetic (one device function)",
-              before_ms=times["(U, 127) cumprod/cumsum split"][0],
-              rows_differing=totals["differ"], **SHELL_SRC),
+              cumprod_split_ms=times["(U, 127) cumprod/cumsum split"][0],
+              rows_differing=totals["differ"],
+              decomposition_ms={k.split(": ", 1)[-1]: v[0] for k, v in decomp.items()
+                                if not k.startswith("earlier tree")},
+              decomposition_before_ms={k.split(": ", 1)[1]: v[0] for k, v in decomp.items()
+                                       if k.startswith("earlier tree")},
+              decomposition_tally=decomp_tally, registers=split_alone_regs,
+              division_proof={"pairs": n_pairs, "fast_div_pairs": proof[1],
+                              "differ": proof[0], "seconds": t_proof},
+              **SHELL_SRC),
         entry("compact_children", compact_launches, compact_totals["err"],
               "compact_children_ref", cp_bound, "masked_select(weights)",
               replaces="naqs_tpu/sampler.py:49",

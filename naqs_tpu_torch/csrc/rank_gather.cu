@@ -17,11 +17,12 @@
 //
 // rank_local_energy and rank_quadratic_energy are row_energy_kernel
 // (csrc/row_energy.cuh) with RankLookup below: a whole local_energy call of
-// the rank engine with no dense A (replacing the chunk loop of the diagonal,
-// offdiag_h_terms and rank_ratio_rowsum; JAX: naqs_tpu/ops/local_energy.py:
-// 216-247 with _offdiag_h's segment sum :209-213 and diagonal_energy :164),
-// and a whole quadratic_energy call with no dense A (replacing the chunk loop
-// of rank_gather2, offdiag_h_terms and the eager epilogue; JAX: :330-381).
+// the rank engine, with a dense A or without (replacing the chunk loop of the
+// diagonal, the H row and rank_ratio_rowsum; JAX: naqs_tpu/ops/
+// local_energy.py:216-247 with _offdiag_h :199-213 and diagonal_energy :164),
+// and a whole quadratic_energy call (replacing the chunk loop of
+// rank_gather2, the H row and the eager epilogue; JAX: :330-381). The two
+// chunk kernels above run on no path.
 // What bounds them: the table reads. A coupled state of a live row with terms
 // is tested against the sectors by two popcounts (most leave them) before any
 // rank arithmetic; each one inside a sector reads its 8-byte table row, at

@@ -14,6 +14,10 @@ chunk states s (C,) and flip masks xy (K,), both int64:
   ratio and row-sum epilogue of `naqs_tpu/ops/local_energy.py::
   _local_energy_chunk`, so the (C, K) gathers never reach device memory.
 
+Both ran in the rank engine's chunk loop with a dense A; no path runs them
+now (the one-launch kernels below take those calls), and they stay beside
+their plain versions.
+
 On a CUDA tensor each wrapper launches its hand-written kernel in
 `csrc/rank_gather.cu` (built by nvcc at first use) or raises; on a CPU tensor
 it runs the plain PyTorch version (`rank_gather2_ref`, `rank_ratio_rowsum_ref`).
@@ -24,15 +28,15 @@ The fused kernel sums each row in another order than `torch.sum` and uses
 CUDA's `expf`/`sincosf`, so it agrees with its plain version per row within
 ROWSUM_ATOL + ROWSUM_RTOL * sum_k |h| * |r| (`rowsum_tolerance`), not bitwise.
 
-Where there is no dense A, a whole call is one launch over query rows
-(`csrc/row_energy.cuh`'s body with the rank lookup; its search-lookup
-instantiations are in `ops/sort_lookup.py`), H summed term by term only for
-the pairs whose coupled state is found:
+A whole call of the rank engine, with a dense A or without, is one launch
+over query rows (`csrc/row_energy.cuh`'s body with the rank lookup; its
+search-lookup instantiations are in `ops/sort_lookup.py`), H summed term by
+term only for the pairs whose coupled state is found:
 
 * `rank_local_energy(spec, table, q_states, q_la, q_ph, xy_unique, xy_ptr,
   term_yz, yz_unique, term_coeff, diag_yz, diag_coeff)` -> (e_re, e_im), each
   (U_q,) f64: the E_loc of every query row, what `local_energy` computes on
-  the rank engine with no dense A. A SENTINEL row gets its diagonal and an
+  the rank engine. A SENTINEL row gets its diagonal and an
   imaginary part of 0, as the sort engine's rows do; JAX's rank engine
   computes such a padding row from the low bits of SENTINEL, which is
   garbage, and every caller masks it.

@@ -15,28 +15,21 @@ membership engine below runs: the rank engine where the space has a RankSpec,
 else the sort engine. `dataclasses.replace(dt, dense=None)` forces the rank
 engine, `dataclasses.replace(dt, rank_spec=None, dense=None)` the sort engine.
 
-The sort engine, for spaces with no RankSpec (over 32 qubits, or a sector
-of more than 2^26 states), runs the whole call in one launch over the query
-rows, with or without a dense A: the diagonal, a binary search of each
-coupled state in the sorted sample buffer, and H summed term by term only for
-the found pairs (ops/sort_lookup.py::sorted_local_energy), and so does its
-`quadratic_energy` (sorted_quadratic_energy). On this card that beats the
-chunk loop's (C, Kyz) x (Kyz, Kxy) fp32 product for the H row, which the JAX
-package keeps because the TPU's matrix unit makes it cheap (PERF.md). The
-rank engine does the same where there is no dense A (over 2^26 entries:
-N2 6-31G with its 1s core frozen, 287 M; ops/dyn_gather.py::
-rank_local_energy, rank_quadratic_energy). With a dense A, per chunk of C
-sampled states, the rank engine computes:
-
-  * the diagonal, sum_k coeff_k (-1)^popcount(s & yz_k), in f64;
-  * the H row h as parity(s & yz) @ A, a (C, Kyz) x (Kyz, Kxy) fp32 matmul
-    with TF32 off (TF32 costs ~1e-3 Ha);
-  * sum_k h psi(s ^ xy_k)/psi(s) in one kernel that reads psi(s') from the
-    dense rank-indexed (size+1, 2) value table and sums the ratios, writing
-    only (C,) sums (ops/dyn_gather.py::rank_ratio_rowsum).
-
-The sort engine's chunk kernels (ops/sort_lookup.py::sorted_ratio_rowsum,
+Both membership engines run the whole call in one launch over the query
+rows, with or without a dense A: the diagonal, the lookup of each coupled
+state, and H summed term by term only for the found pairs. The sort engine,
+for spaces with no RankSpec (over 32 qubits, or a sector of more than 2^26
+states), looks up by a binary search of the sorted sample buffer
+(ops/sort_lookup.py::sorted_local_energy, sorted_quadratic_energy); the rank
+engine by the rank index into the dense value table of `build_value_table`
+(ops/dyn_gather.py::rank_local_energy, rank_quadratic_energy). On this card
+that beats the JAX package's chunk loop, whose H row is a (C, Kyz) x (Kyz,
+Kxy) fp32 product with the dense A, cheap on the TPU's matrix unit
+(PERF.md). The chunk kernels that loop ran (ops/dyn_gather.py::
+rank_ratio_rowsum, rank_gather2; ops/sort_lookup.py::sorted_ratio_rowsum,
 sorted_gather2) stay beside their plain versions, on no path.
+`DeviceTerms.a_mat` is still built as the JAX package builds it, and no
+engine reads it.
 """
 
 from __future__ import annotations
@@ -53,13 +46,12 @@ from naqs_tpu_torch.hamiltonian import PauliTerms
 from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTermsXL, _count,
                                              dense_local_energy, factored_local_energy,
                                              factored_xl_local_energy)
-from naqs_tpu_torch.ops.dyn_gather import (QUAD_MISS, rank_gather2, rank_local_energy,
-                                           rank_quadratic_energy, rank_ratio_rowsum)
-from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms, term_groups
+from naqs_tpu_torch.ops.dyn_gather import QUAD_MISS, rank_local_energy, rank_quadratic_energy
+from naqs_tpu_torch.ops.offdiag_h import term_groups
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
 from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_local_energy,
                                             sorted_quadratic_energy)
-from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
+from naqs_tpu_torch.utils.bits import parity_pm1
 from naqs_tpu_torch.utils.device import resolve_device
 
 # full-fp32 products: TF32 passes put ~1e-3 Ha of error on E_loc
@@ -68,7 +60,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 # target elements per (chunk x term) intermediate; bounds peak memory
 _CHUNK_BUDGET = 1 << 25
-# above this many dense A entries, sum the H row term by term instead
+# above this many entries no dense A is built, as in the JAX package (no
+# engine of the port reads A: the H row is summed term by term)
 _DENSE_A_MAX = 1 << 26
 
 
@@ -79,7 +72,8 @@ class DeviceTerms:
     Pad entries are exact no-ops: xy=0 couples the diagonal with
     coefficient 0, yz=0 has parity +1 and coefficient 0. The off-diagonal
     terms are kept grouped by flip mask (`ops/offdiag_h.py::term_groups`),
-    for the H row where there is no dense A.
+    for the one-launch kernels' H row; `a_mat` is built as the JAX package
+    builds it and read by no engine.
     """
 
     diag_yz: torch.Tensor     # (Kd,) int64
@@ -89,7 +83,7 @@ class DeviceTerms:
     xy_ptr: torch.Tensor      # (Kxy + 1,) int32: group g's terms at xy_ptr[g] .. xy_ptr[g+1]-1
     term_yz: torch.Tensor     # (K,) int32 sign-mask index of each grouped term
     term_coeff: torch.Tensor  # (K,) float32 coefficient of each grouped term
-    a_mat: torch.Tensor | None  # (Kyz, Kxy) f32 dense coupling matrix, or None
+    a_mat: torch.Tensor | None  # (Kyz, Kxy) f32 dense coupling matrix, or None (unread)
     rank_spec: RankSpec | None = None
     dense: DenseTerms | FactorTerms | FactorTermsXL | None = None  # None: rank or sort engine
 
@@ -155,25 +149,6 @@ def diagonal_energy(dt: DeviceTerms, states: torch.Tensor) -> torch.Tensor:
     return torch.sum(par * dt.diag_coeff, dim=-1)
 
 
-def _offdiag_h(dt: DeviceTerms, s: torch.Tensor) -> torch.Tensor:
-    """(C, Kxy) f32 off-diagonal H row entries for chunk states s (the rank
-    engine's chunk loop runs it with a dense A; without one it is the per-term
-    H row)."""
-    if dt.a_mat is not None:
-        par = parity_pm1(s[:, None] & dt.yz_unique[None, :]).to(torch.float32)
-        return torch.matmul(par, dt.a_mat)
-    return offdiag_h_terms(s, dt.yz_unique, dt.xy_ptr, dt.term_yz, dt.term_coeff)
-
-
-def _local_energy_chunk(dt, s, table, my_log_amp, my_phase):
-    """(e_re, e_im) f64 of chunk states s on the rank engine with a dense A:
-    psi(s') from the rank value table `table`."""
-    e_diag = diagonal_energy(dt, s)
-    e_re, e_im = rank_ratio_rowsum(dt.rank_spec, s, dt.xy_unique, table, my_log_amp, my_phase,
-                                   _offdiag_h(dt, s))
-    return e_diag + e_re.to(torch.float64), e_im.to(torch.float64)
-
-
 def _chunks(dt, u, chunk_rows):
     c = chunk_rows or _chunk_rows(int(dt.xy_unique.shape[0]),
                                   int(dt.yz_unique.shape[0]))
@@ -195,13 +170,11 @@ def local_energy(
     Rows beyond n_valid produce garbage values; callers mask by weight. The
     factored engine gives such a row its diagonal alone (it sums no
     numerator there), and so do the one-launch kernels (a SENTINEL row: its
-    diagonal and 0); the chunk loops compute it as they do a live row, from
-    whatever state the row holds.
+    diagonal and 0).
     Dispatches to the grid engine (ops/dense_engine.py) when the terms carry
-    a grid program; the rank engine below handles everything else that has a
-    RankSpec, in one launch where there is no dense A (`rank_local_energy`),
-    else chunk by chunk; the sort engine what has none, in one launch
-    (`sorted_local_energy`) whether or not there is a dense A.
+    a grid program; everything else is one launch, whether or not there is a
+    dense A: the rank engine where there is a RankSpec (`rank_local_energy`),
+    else the sort engine (`sorted_local_energy`).
     `queries=(q_states, q_la, q_ph)` computes E_loc only for those rows,
     while psi(s') is still resolved against the full (states, log_amp,
     phase, n_valid) table.
@@ -228,24 +201,8 @@ def local_energy(
         return sorted_local_energy(*table, _count(n_valid, states.device),
                                    *pack_table(q_states, q_la, q_ph), *terms, chunk_rows=c)
     table = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
-    if dt.a_mat is None:
-        return rank_local_energy(dt.rank_spec, table, *pack_table(q_states, q_la, q_ph),
-                                 *terms, chunk_rows=c)
-    e_re, e_im = [], []
-    for i in range(0, u, c):
-        s = q_states[i:i + c]
-        la = q_la[i:i + c].to(torch.float32)
-        ph = q_ph[i:i + c].to(torch.float32)
-        n = s.shape[0]
-        if n < c:  # the JAX engine pads the last chunk with SENTINEL rows
-            pad = c - n
-            s = torch.cat([s, s.new_full((pad,), SENTINEL)])
-            la = torch.cat([la, la.new_zeros(pad)])
-            ph = torch.cat([ph, ph.new_zeros(pad)])
-        r, im = _local_energy_chunk(dt, s, table, la, ph)
-        e_re.append(r[:n])
-        e_im.append(im[:n])
-    return torch.cat(e_re), torch.cat(e_im)
+    return rank_local_energy(dt.rank_spec, table, *pack_table(q_states, q_la, q_ph), *terms,
+                             chunk_rows=c)
 
 
 @torch.no_grad()
@@ -264,10 +221,9 @@ def quadratic_energy(
     slots hold la = -200, so unsampled pairs contribute exactly 0 (the sort
     engine's lookup returns -200 for a miss). The imaginary part cancels by
     Hermiticity and is not computed. One launch gives every row's numerator
-    and weight where there is no dense A (`rank_quadratic_energy`) or no
-    RankSpec (`sorted_quadratic_energy`), and their sums' quotient is the
-    result; the rank engine with a dense A goes chunk by chunk: the gather
-    kernel, the eager epilogue and P @ A.
+    and weight, whether or not there is a dense A: `rank_quadratic_energy`
+    where there is a RankSpec, else `sorted_quadratic_energy`; their sums'
+    quotient is the result.
     """
     u = states.shape[0]
     live = torch.arange(u, device=states.device) < n_valid
@@ -275,35 +231,17 @@ def quadratic_energy(
     la = torch.where(live, log_amp - ref, QUAD_MISS).to(torch.float32)
     ph = phase.to(torch.float32)
     c = _chunks(dt, u, chunk_rows)
+    terms = (dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique, dt.term_coeff, dt.diag_yz,
+             dt.diag_coeff)
+    nv = _count(n_valid, states.device)
     if dt.rank_spec is not None:
         table = build_value_table(dt.rank_spec, states, la, ph, n_valid,
                                   miss_log_amp=QUAD_MISS)
+        num, w = rank_quadratic_energy(dt.rank_spec, table, nv, states, la, ph, *terms,
+                                       chunk_rows=c)
     else:
-        table = pack_table(states, la, ph)
-    n_valid = _count(n_valid, states.device)
-    if dt.a_mat is None or dt.rank_spec is None:
-        terms = (dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique, dt.term_coeff,
-                 dt.diag_yz, dt.diag_coeff)
-        if dt.rank_spec is not None:
-            num, w = rank_quadratic_energy(dt.rank_spec, table, n_valid, states, la, ph,
-                                           *terms, chunk_rows=c)
-        else:
-            num, w = sorted_quadratic_energy(*table, n_valid, *terms, chunk_rows=c)
-        return torch.sum(num) / torch.sum(w)
-    num = torch.zeros((), dtype=torch.float64, device=states.device)
-    den = torch.zeros((), dtype=torch.float64, device=states.device)
-    for i in range(0, u, c):
-        s, my_la, my_ph, my_live = (states[i:i + c], la[i:i + c],
-                                    ph[i:i + c], live[i:i + c])
-        w_m = torch.where(my_live, torch.exp(2.0 * my_la.to(torch.float64)), 0.0)
-        num += torch.sum(w_m * diagonal_energy(dt, s))
-        g_la, g_ph = rank_gather2(dt.rank_spec, s, dt.xy_unique, table)
-        amp = torch.where(my_live[:, None], torch.exp(g_la + my_la[:, None]), 0.0)
-        r_re = amp * torch.cos(g_ph - my_ph[:, None])
-        num_off = torch.sum(_offdiag_h(dt, s) * r_re, dim=-1)
-        num += torch.sum(num_off.to(torch.float64))
-        den += torch.sum(w_m)
-    return num / den
+        num, w = sorted_quadratic_energy(*pack_table(states, la, ph), nv, *terms, chunk_rows=c)
+    return torch.sum(num) / torch.sum(w)
 
 
 @torch.no_grad()

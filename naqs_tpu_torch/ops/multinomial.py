@@ -24,7 +24,11 @@ inside the fused shell step `sampler._split_and_compact`.
 The kernel does the plain version's arithmetic in the same order with no
 fused multiply-add (it names the rounding of every product and sum), leaves
 the CDF loop once u <= cdf (the CDF never falls, so no later step can count)
-and skips dead rows, whose result is zero in the plain version too.
+and skips dead rows, whose result is zero in the plain version too. Its CDF
+loop computes four looks ahead of their tests and divides by k from a table
+of correctly rounded reciprocals with an FMA correction, which gives the
+correctly rounded quotient of every dividend it takes (held to `__fdiv_rn`
+on every float on the card); the others take `__fdiv_rn`.
 """
 
 from __future__ import annotations

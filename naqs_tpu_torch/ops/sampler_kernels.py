@@ -26,6 +26,9 @@ def _lib():
     lib.compact_children.argtypes = [_PTR] * 10 + [_INT, _INT, _INT, _PTR]
     lib.split_and_compact.argtypes = ([_PTR] * 9 + [_INT] + [_PTR] * 6
                                       + [_INT, _PTR, ctypes.c_size_t] + [_INT] * 3 + [_PTR])
+    lib.split_grid_empty.argtypes = [_INT, _PTR]
+    lib.split_division_mismatches.argtypes = [_PTR, _PTR]
+    lib.split_grid_empty.restype = lib.split_division_mismatches.restype = _INT
     lib.compact_tile_rows.argtypes = lib.split_tile_rows.argtypes = []
     lib.multinomial4_split.restype = lib.compact_children.restype = _INT
     lib.split_and_compact.restype = _INT

@@ -29,12 +29,12 @@ from one to the other. `<wrapper>.launches` counts kernel launches.
   launch, the diagonal in f64 plus sum_k h[c, k] psi(s ^ xy_k) / psi(s) with
   h summed per flip mask from the grouped terms (`ops/offdiag_h.py`) only
   where the coupled state is found: what `local_energy` computes on the sort
-  engine with no dense A. SENTINEL query rows get their diagonal and an
+  engine, with a dense A or without. SENTINEL query rows get their diagonal and an
   off-diagonal part of 0, as every other computation of them does (flip
   masks and live states below 2^62: at most 62 qubits).
 * `sorted_quadratic_energy(states, la, ph, n_valid, xy_unique, ...)` ->
-  (num, w), each (U,) f64: the whole `quadratic_energy` call with no dense A
-  in one launch, row m's w_m = exp(2 la_m) and num_m = w_m diag_m + sum_k h_mk
+  (num, w), each (U,) f64: the whole `quadratic_energy` call, with a dense
+  A or without, in one launch, row m's w_m = exp(2 la_m) and num_m = w_m diag_m + sum_k h_mk
   exp(la_k + la_m) cos(ph_k - ph_m) over found k (fp32 row sum) below
   n_valid, (0, 0) beyond; the caller returns sum num / sum w.
 

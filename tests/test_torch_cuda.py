@@ -32,7 +32,7 @@ table of 19 M rows), and the one-launch quadratic forms
 `rank_quadratic_energy` and `sorted_quadratic_energy` per row (num and w)
 within their `*_tolerance` and their quotient within 1e-6 relative; all four
 give `offdiag_h_terms`' h bits on a row with one found pair, bitwise; the
-dispatch launches each once per call where there is no dense A.
+dispatch launches each once per call, with a dense A or without.
 
 The trainer's extras on the card (N2 STO-3G): clipped steps keep the clip's
 ring on the card and move it once per applied update, never on a withheld
@@ -86,6 +86,7 @@ from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_g
 from naqs_tpu_torch import sampler as sampler_mod
 from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref, _split_and_compact,
                                     _split_and_compact_ref, sample)
+from naqs_tpu_torch.utils.bits import parity_pm1
 
 pytestmark = pytest.mark.cuda
 
@@ -589,6 +590,21 @@ def split_branches(counts, probs, z, u, valid=None):
     return tally
 
 
+def test_split_division_is_fdiv_rn_on_every_float():
+    """The split's division by k (Markstein's correction from RN(1/k) where the
+    dividend is +0 or within 2^-100..2^100, else __fdiv_rn) gives __fdiv_rn's
+    bits for every float and every k = 1..128 (a NaN matches any NaN); most
+    pairs take the fast division."""
+    dev = _card()
+    from naqs_tpu_torch.ops.sampler_kernels import launch
+
+    out = torch.zeros(4, dtype=torch.int64, device=dev)
+    launch("split_division_mismatches", (out,), dev)
+    differ, fast, first, _ = out.tolist()
+    assert differ == 0, hex(first)
+    assert fast > (1 << 32) * 128 // 2
+
+
 @pytest.mark.parametrize("n", [1, 31, 257, 100_000])
 @pytest.mark.parametrize("kind,f64,masked", [("mixed", False, True), ("mixed", True, False),
                                              ("cdf", False, False), ("dead", False, True)])
@@ -1013,9 +1029,11 @@ def test_sort_engine_matches_rank_engine_on_the_card():
     """local_energy and quadratic_energy through the sort engine (rank_spec
     and dense set to None) against the rank engine on N2 STO-3G: with the
     dense A and without, one sorted_local_energy launch and one
-    sorted_quadratic_energy launch, the two bitwise equal; the chunk loop the
-    engine ran with the dense A before (P @ A and sorted_ratio_rowsum per
-    chunk of 2,048) bitwise equal to the rank engine, which reads the same h."""
+    sorted_quadratic_energy launch, the two bitwise equal; the rank engine
+    one rank_local_energy launch, bitwise equal with the dense A and without
+    (it does not read A); the chunk loop the engines ran with the dense A
+    before (P @ A and sorted_ratio_rowsum per chunk of 2,048) within 2e-4 Ha
+    per live row of the rank engine."""
     dev = _card()
     terms, hil = _n2()
     dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
@@ -1024,7 +1042,10 @@ def test_sort_engine_matches_rank_engine_on_the_card():
     dt_seg = dataclasses.replace(dt_sort, a_mat=None)
     m = 3000
     s, la, ph = _n2_sample(hil, m, 4096, dev, seed=2)
+    before = rank_local_energy.launches
     e_rank = le.local_energy(dt_rank, s, la, ph, m)
+    e_rank_noa = le.local_energy(dataclasses.replace(dt_rank, a_mat=None), s, la, ph, m)
+    assert rank_local_energy.launches == before + 2
     counts = (sorted_ratio_rowsum.launches, offdiag_h_terms.launches,
               sorted_local_energy.launches)
     e_sort = le.local_energy(dt_sort, s, la, ph, m)
@@ -1035,14 +1056,16 @@ def test_sort_engine_matches_rank_engine_on_the_card():
     loop = []
     for i in range(0, 4096, 2048):
         sc = s[i:i + 2048]
+        h = parity_pm1(sc[:, None] & dt.yz_unique[None, :]).float() @ dt.a_mat   # P @ A
         r, im = sorted_ratio_rowsum(*table, nv, sc, dt.xy_unique, la[i:i + 2048].float(),
-                                    ph[i:i + 2048].float(), le._offdiag_h(dt_sort, sc))
+                                    ph[i:i + 2048].float(), h)
         loop.append((le.diagonal_energy(dt, sc) + r.double(), im.double()))
     assert sorted_ratio_rowsum.launches == counts[0] + 2
     e_loop = tuple(torch.cat([part[k] for part in loop]) for k in (0, 1))
-    for r, a, b, c in zip(e_rank, e_sort, e_seg, e_loop):
-        assert torch.equal(r[:m], c[:m]) and torch.equal(a, b)
+    for r, r0, a, b, c in zip(e_rank, e_rank_noa, e_sort, e_seg, e_loop):
+        assert torch.equal(r, r0) and torch.equal(a, b)
         assert float((a[:m] - r[:m]).abs().max()) < 2e-4
+        assert float((c[:m] - r[:m]).abs().max()) < 2e-4
     q_rank = float(le.quadratic_energy(dt_rank, s, la, ph, m))
     before = (sorted_gather2.launches, sorted_quadratic_energy.launches)
     q_sort = float(le.quadratic_energy(dt_sort, s, la, ph, m))
@@ -1406,12 +1429,11 @@ def test_one_launch_kernels_keep_offdiag_h_terms_bits(kernel):
 
 
 def test_one_launch_dispatch_on_the_card():
-    """Launch counts on each dispatch branch (N2 STO-3G, 4,096 rows in chunks
-    of 2,048 with a dense A): local_energy and quadratic_energy are one launch
-    each of rank_* (a RankSpec, no dense A) or sorted_* (no RankSpec, with a
-    dense A or without), and never offdiag_h_terms or a chunk kernel; only the
-    rank engine with a dense A runs chunks. Each within 2e-4 Ha per live row
-    of the rank engine with a dense A, and quadratic_energy within 1e-6
+    """Launch counts on each dispatch branch (N2 STO-3G, 4,096 rows):
+    local_energy and quadratic_energy are one launch each of rank_* (a
+    RankSpec) or sorted_* (none), with a dense A or without, and never
+    offdiag_h_terms or a chunk kernel. Each within 2e-4 Ha per live row of
+    the rank engine with a dense A, and quadratic_energy within 1e-6
     relative."""
     dev = _card()
     terms, hil = _n2()
@@ -1422,8 +1444,8 @@ def test_one_launch_dispatch_on_the_card():
                 sorted_quadratic_energy, rank_ratio_rowsum, rank_gather2, sorted_ratio_rowsum,
                 sorted_gather2, offdiag_h_terms)
     engines = {
-        "rank": (dataclasses.replace(dt, dense=None), {"rank_ratio_rowsum": 2},
-                 {"rank_gather2": 2}),
+        "rank": (dataclasses.replace(dt, dense=None), {"rank_local_energy": 1},
+                 {"rank_quadratic_energy": 1}),
         "rank, no A": (dataclasses.replace(dt, dense=None, a_mat=None),
                        {"rank_local_energy": 1}, {"rank_quadratic_energy": 1}),
         "sort": (dataclasses.replace(dt, dense=None, rank_spec=None),
@@ -1551,12 +1573,12 @@ _CLI_RUNS = {
            "-n_layer_phase", "2", "-n_lut", "4", "-lr_lut", "1e-2", "-s2_penalty", "0.5",
            "-pretrain_hf", "2", "-presolveH", "-n_train", "3", "-output_freq", "5",
            "-n_unq_samps_max", "100000", "-s", "7"],
-          ("split_and_compact", "factored_cells_accumulate", "rank_gather2")),
+          ("split_and_compact", "factored_cells_accumulate", "rank_quadratic_energy")),
     # run B's: N2 STO-3G, DenseTerms, combined trunk, integer inputs, a trace
     "B": (["-m", "N2_STO-3G_gen", "-n_hid", "8", "-comb_amp_phase", "-input_encoding",
            "integer", "-n_lut", "3", "-presolveH", "-n_train", "3", "-output_freq", "5",
            "-profile", "-s", "7"],
-          ("split_and_compact", "dense_grid_accumulate", "rank_gather2")),
+          ("split_and_compact", "dense_grid_accumulate", "rank_quadratic_energy")),
 }
 
 
@@ -1572,7 +1594,8 @@ def test_cli_runs_on_the_card(run, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     wrappers = {"split_and_compact": _split_and_compact,
                 "factored_cells_accumulate": factored_cells_accumulate,
-                "dense_grid_accumulate": dense_grid_accumulate, "rank_gather2": rank_gather2}
+                "dense_grid_accumulate": dense_grid_accumulate,
+                "rank_quadratic_energy": rank_quadratic_energy}
     for w in wrappers.values():
         w.launches = 0
     summary = cli.run(argv + ["-o", "out"])["run_0"]

@@ -1,14 +1,16 @@
 """Port local_energy against naqs_tpu on one shared sorted batch.
 
 `_engines` gives the port's rank engine (`dataclasses.replace(dt, dense=None)`,
-as for JAX); the port's default dispatch (the grid engines) is held against
-both JAX engines in `test_local_energy_matches_jax_engines`, and module by
-module in test_torch_dense_engine.py.
+as for JAX: with its dense A, which the port's one launch does not read);
+the port's default dispatch (the grid engines) is held against both JAX
+engines in `test_local_energy_matches_jax_engines`, and module by module in
+test_torch_dense_engine.py.
 
 Tolerances: 1e-10 Ha for the f64 diagonal; 2e-5 Ha per E_loc row and 5e-6
 Ha on the weighted mean, because the fp32 off-diagonal sums run in another
-order (matmul blocking) than XLA's. The chunk epilogue's plain version
-(`rank_ratio_rowsum_ref`) is held to the same 2e-5 Ha per row against the
+order (the port sums H term by term, JAX as P @ A) than XLA's. The chunk
+epilogue's plain version (`rank_ratio_rowsum_ref`, on no path of the port,
+fed JAX's P @ A row) is held to the same 2e-5 Ha per row against the
 off-diagonal part of JAX's `_local_energy_chunk`.
 """
 
@@ -26,7 +28,7 @@ from naqs_tpu.ops import rank as rank_j
 from naqs_tpu_torch.ops import local_energy as le_t
 from naqs_tpu_torch.ops import rank as rank_t
 from naqs_tpu_torch.ops.dyn_gather import rank_ratio_rowsum, rank_ratio_rowsum_ref
-from test_torch_support import case, near_hf_states, padded_batch, to_u64
+from test_torch_support import case, h_row, near_hf_states, padded_batch, to_u64
 
 ROW_TOL = 2e-5
 MEAN_TOL = 5e-6
@@ -232,7 +234,7 @@ def test_rank_ratio_rowsum_ref_matches_jax_chunk(name, sectors, n_rows):
                                      torch.as_tensor(la), torch.as_tensor(ph), m)
     s_t = torch.as_tensor(s)
     args = (dt_t.rank_spec, s_t, dt_t.xy_unique, tab_t, torch.as_tensor(my_la),
-            torch.as_tensor(my_ph), le_t._offdiag_h(dt_t, s_t))
+            torch.as_tensor(my_ph), h_row(dt_t, s_t))
     e_re, e_im = rank_ratio_rowsum_ref(*args)
     assert e_re.dtype == e_im.dtype == torch.float32 and e_re.shape == (n_rows,)
     np.testing.assert_allclose(e_re.numpy(), off_j, rtol=0, atol=ROW_TOL)

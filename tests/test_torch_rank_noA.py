@@ -239,9 +239,8 @@ def test_quadratic_refs_are_the_chunk_composition(name, m, cap, lookup, wide):
 @pytest.mark.parametrize("name", ["H2O", "LiH"])
 def test_one_launch_dispatch(name, monkeypatch):
     """Which wrapper each engine calls: with a RankSpec the one-launch rank_*
-    kernels exactly where a_mat is None and the chunk kernels with a dense A;
-    without one the one-launch sorted_* kernels, with a dense A too (the sort
-    engine's chunk kernels are no longer the engine's to call); none of them
+    kernels, with a dense A too; without one the one-launch sorted_* kernels,
+    with a dense A too (no engine holds a chunk kernel to call); none of them
     with a grid program."""
     c = case(name)
     dt = le_t.DeviceTerms.from_terms(c.terms_t, hilbert=c.h_t, device="cpu")
@@ -249,8 +248,8 @@ def test_one_launch_dispatch(name, monkeypatch):
     no_a = dataclasses.replace(dt, a_mat=None)
     engines = {
         "grid": (dt, {}, None),
-        "rank": (dataclasses.replace(dt, dense=None), {"rank_ratio_rowsum": 1},
-                 {"rank_gather2": 1}),
+        "rank": (dataclasses.replace(dt, dense=None), {"rank_local_energy": 1},
+                 {"rank_quadratic_energy": 1}),
         "rank, no A": (dataclasses.replace(no_a, dense=None), {"rank_local_energy": 1},
                        {"rank_quadratic_energy": 1}),
         "sort": (dataclasses.replace(dt, dense=None, rank_spec=None),
@@ -260,7 +259,8 @@ def test_one_launch_dispatch(name, monkeypatch):
     }
     s, la, ph, _ = _batch(c, 60, 64, 4)
     calls = _spies(monkeypatch)
-    assert not hasattr(le_t, "sorted_ratio_rowsum") and not hasattr(le_t, "sorted_gather2")
+    assert not any(hasattr(le_t, k) for k in ("sorted_ratio_rowsum", "sorted_gather2",
+                                              "rank_ratio_rowsum", "rank_gather2"))
     for label, (dt_e, want_le, want_q) in engines.items():
         calls.clear()
         _port(dt_e, s, la, ph, 60)

@@ -24,6 +24,10 @@ On the CPU the port's wrappers run their plain versions
   look-back word seen empty, as an aggregate or inclusive by a successor in
   an interleaving drawn from a seed, the gate on the previous count, the
   cleared tail) against the plain versions;
+* a numpy replay of the split kernel's inverse-CDF loop (blocks of four looks
+  computed ahead of their tests, then the block's tests at once) against the
+  plain loop's count, and the inputs of the decomposition of the split's
+  time (`tools/split_timing.py`);
 * the wrappers' input checks.
 """
 
@@ -37,8 +41,9 @@ from naqs_tpu import sampler as sampler_j
 from naqs_tpu.ops import multinomial as multinomial_j
 from naqs_tpu_torch import sample_density
 from naqs_tpu_torch import sampler as sampler_t
-from naqs_tpu_torch.ops.multinomial import (multinomial4, multinomial4_split,
-                                            multinomial4_split_ref, split_draws)
+from naqs_tpu_torch.ops.multinomial import (_binomial_from_draws, multinomial4,
+                                            multinomial4_split, multinomial4_split_ref,
+                                            split_draws)
 from naqs_tpu_torch.sampler import (_compact_children, _compact_children_ref,
                                     _split_and_compact, _split_and_compact_ref, sample)
 from test_torch_cuda import split_branches
@@ -545,3 +550,97 @@ def test_wrappers_reject_bad_inputs():
                                            1.0)):
         with pytest.raises(ValueError):
             bad()
+
+
+def _cdf_replay(n, p, u, block=4):
+    """The split kernel's inverse-CDF count (csrc/sampler_step.cu::cdf_looks)
+    replayed in numpy f32 for binomials (n, p, u), pmf_0 and the odds as the
+    plain version forms them: `block` looks at a time, the block's pmf and cdf
+    first, then all of its tests at once, counted (the CDF never falls, so the
+    looks that pass are the first ones); the run ends at the first block with
+    a look that fails or that holds k = 128. The quotient is the correctly
+    rounded one (the kernel's division, which the card proves bitwise equal
+    to it)."""
+    p64 = torch.clamp(p, 0.0, 1.0)
+    q = torch.where(p64 > 0.5, 1.0 - p64, p64)
+    pmf = torch.exp((n * torch.log1p(-torch.clamp(q, max=1.0 - 1e-15))).float()).numpy()
+    qf = q.float()
+    odds = (qf / torch.clamp(1.0 - qf, min=1e-30)).numpy()
+    nf, u = n.float().numpy(), u.numpy()
+    small = np.zeros(len(nf), np.int64)
+    cdf, live = pmf.copy(), np.ones(len(nf), bool)
+    for i in range(1, 128, block):
+        p_b, c_b = pmf, cdf
+        passes = (u > cdf).astype(np.int64)
+        for t in range(block):
+            left = np.maximum(nf - np.float32(i + t) + np.float32(1), np.float32(0))
+            p_b = p_b * left / np.float32(i + t) * odds
+            c_b = c_b + p_b
+            if t + 1 < block:
+                passes += (u > c_b) & (i + t + 1 < 128)
+        small += np.where(live, passes, 0)
+        live &= passes == block
+        pmf, cdf = np.where(live, p_b, pmf), np.where(live, c_b, cdf)
+    assert not live.any()
+    return small
+
+
+def test_cdf_block_replay_matches_the_plain_loop():
+    """The kernel's inverse-CDF loop, replayed, counts what the plain loop
+    counts on every binomial: runs that end in each of a block's four looks,
+    that reach k = 127, that go past k = n + 1, counts that are not integers
+    or of 2^24 and more, q = 0."""
+    rng = np.random.default_rng(11)
+    m = 60_000
+    n = np.floor(10 ** rng.uniform(0, 3.7, m))
+    p = 10 ** rng.uniform(-4, np.log10(0.5), m)
+    p[::3] = rng.uniform(0, 1, m)[::3] * 25.0 / np.maximum(n[::3], 1.0)
+    n[::11] = rng.uniform(0, 100, m)[::11]                    # not integers
+    n[::13] = np.floor(10 ** rng.uniform(7.3, 12, m))[::13]   # 2^24 and more
+    p[::13] = 10.0 / n[::13]
+    n[::17] = rng.integers(0, 4, m)[::17]                     # counts 0..3
+    p[::19] = 0.0
+    u = rng.uniform(0, 1, m).astype(np.float32)
+    u[::7] = np.float32(0.99999994)                           # runs to k = 127
+    n_t, p_t, u_t = torch.as_tensor(n), torch.as_tensor(p), torch.as_tensor(u)
+    want = _binomial_from_draws(n_t, p_t, torch.zeros_like(u_t), u_t)[2].numpy()
+    got = _cdf_replay(n_t, p_t, u_t)
+    np.testing.assert_array_equal(got, want)
+    assert all((want % 4 == e).any() for e in range(4)) and (want == 127).sum() > 100
+    assert ((want > n + 1) & (n < 4)).any()
+
+
+def test_split_timing_inputs_isolate_each_part():
+    """The decomposition's inputs (tools/split_timing.py) ask what their names
+    say of the split: no live row; every binomial of a live row Gaussian; the
+    real shell's branches; the inverse CDF on every binomial of the synthetic
+    split but its corner rows. The tally's warp chain is at least the longest
+    loop."""
+    from naqs_tpu_torch.tools import split_timing
+
+    gen = torch.Generator().manual_seed(4)
+    cap = 4096
+    counts = torch.where(torch.rand(cap, generator=gen) < 0.7,
+                         torch.floor(torch.rand(cap, generator=gen) * 60) + 1, 0.0).double()
+    valid = counts > 0
+    probs = torch.rand((cap, 4), generator=gen)
+    z, u = split_draws(gen, cap, "cpu")
+    mask = torch.ones((cap, 4), dtype=torch.bool)
+    step = (torch.zeros(cap, dtype=torch.int64), torch.zeros(cap, dtype=torch.int64), counts,
+            valid, probs, z, u, mask, 3, cap, cap)
+    inputs = split_timing.decomposition_inputs(step, split_timing.synthetic_split(cap, "cpu"))
+    assert list(inputs) == ["every row dead", "every live row Gaussian", "real shell",
+                            "synthetic all-CDF"]
+    tally = {k: split_timing.split_tally(a[0], a[1], a[2], a[3], a[5]) for k, a in inputs.items()}
+    live = int(valid.sum())
+    assert tally["every row dead"]["live_rows"] == 0
+    assert float(multinomial4_split(*inputs["every row dead"])[0].abs().sum()) == 0.0
+    gauss = tally["every live row Gaussian"]
+    assert gauss["live_rows"] == live and gauss["gauss"] == 3 * live and gauss["cdf"] == 0
+    real = tally["real shell"]
+    assert real["live_rows"] == live and real["gauss"] + real["cdf"] == 3 * live
+    syn = tally["synthetic all-CDF"]   # all but its 64 corner rows
+    assert syn["cdf"] >= 3 * (cap - 64) and syn["gauss"] <= 3 * 64 and syn["longest"] >= 40
+    for t in (real, syn):
+        assert t["longest"] <= t["warp_chain"] <= 3 * t["longest"] and t["looks"] >= t["cdf"]
+

@@ -36,7 +36,7 @@ from naqs_tpu_torch.ops.sort_lookup import (QUAD_MISS, lookup, pack_table, sorte
                                             sorted_local_energy_tolerance, sorted_log_amps,
                                             sorted_ratio_rowsum, sorted_ratio_rowsum_ref)
 from naqs_tpu_torch.utils.bits import SENTINEL
-from test_torch_support import case, near_hf_states, padded_batch, to_u64
+from test_torch_support import case, h_row, near_hf_states, padded_batch, to_u64
 
 ROW_TOL = 2e-5
 MEAN_TOL = 5e-6
@@ -250,7 +250,7 @@ def test_sorted_ratio_rowsum_ref_matches_jax_chunk(name, dense_a):
     table = pack_table(torch.as_tensor(s), torch.as_tensor(la), torch.as_tensor(ph))
     s_t = torch.as_tensor(s[rows])
     nv = torch.tensor(m)
-    h = le_t._offdiag_h(dt_t, s_t)
+    h = h_row(dt_t, s_t)
     args = (*table, nv, s_t, dt_t.xy_unique, torch.as_tensor(la[rows]),
             torch.as_tensor(ph[rows]), h)
     e_re, e_im = sorted_ratio_rowsum_ref(*args)
@@ -316,7 +316,7 @@ def test_offdiag_h_terms_ref_matches_jax_segment_sum(name):
     assert h_t.shape == h_j.shape == (64, dt_t.xy_unique.shape[0])
     assert np.all(np.abs(h_t.numpy() - h_j) <= tol[None, :])
     assert np.abs(h_j).max() > 1e-2
-    h_dense = le_t._offdiag_h(dt_td, torch.as_tensor(s)).numpy()
+    h_dense = h_row(dt_td, torch.as_tensor(s)).numpy()
     np.testing.assert_allclose(h_dense, h_j, rtol=0, atol=1e-5)
     before = offdiag_h_terms.launches
     assert torch.equal(offdiag_h_terms(*args), h_t) and offdiag_h_terms.launches == before

@@ -133,3 +133,19 @@ def to_u64(states: np.ndarray) -> np.ndarray:
     out = states.astype(np.uint64)
     out[states == SENTINEL] = np.uint64(0xFFFFFFFFFFFFFFFF)
     return out
+
+
+def h_row(dt, s):
+    """(C, Kxy) f32 off-diagonal H row of states s as the JAX package's chunk
+    loop forms it: parity(s & yz_unique) @ A in fp32 where dt carries a dense
+    A, else the per-term segment sum (`offdiag_h_terms_ref`). The port's
+    engines form neither: their one launch sums H term by term."""
+    import torch
+
+    from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms_ref
+    from naqs_tpu_torch.utils.bits import parity_pm1
+
+    if dt.a_mat is None:
+        return offdiag_h_terms_ref(s, dt.yz_unique, dt.xy_ptr, dt.term_yz, dt.term_coeff)
+    return torch.matmul(parity_pm1(s[:, None] & dt.yz_unique[None, :]).to(torch.float32),
+                        dt.a_mat)

@@ -297,6 +297,43 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      dense_grid_accumulate and rank_quadratic_energy. Every step's E_loc must be
      finite. It prints each step's wall time, each run's, the launches of
      every kernel, and the per-step cost against phases 6 and 10.
+ 14. exact mode at the paper width (phase 3's model and configuration,
+     random weights from seed 0), with every count set to 0 before each
+     driven call and its launches summed into "launches_exact": 14a a
+     VMCTrainer with exact_eloc (eloc_fwd_chunk EXACT_CHUNK: the sector
+     table of 26 x 65,536 rows for H2O 6-31G's 1,656,369 states) through
+     the default dispatch (FactorTerms), EXACT_STEPS steps (one
+     factored_cells_accumulate launch an update), the log_psi_table time, one
+     profiled step's device time and busy share; on one recorded batch
+     (capacity 100,000) local_energy(queries=) against the full-sector
+     table: factored_cells_accumulate on the full-sector grid at the query
+     rows against its plain version (grid_tolerance per row; the SENTINEL
+     query rows exactly 0; twice bitwise), the call through the plain
+     version within the row's tolerance times its amplitude ratio, 8 rows
+     against a float64 oracle over the whole basis (ENGINE_TOL); 14b the
+     same call on the rank engine (one rank_local_energy) and the sort
+     engine (one sorted_local_energy), each against its plain version
+     (rank_/sorted_local_energy_tolerance) and within ENGINE_TOL of 14a's,
+     the found pairs and bounds recounted (_rank_work, _search_work), the
+     three kernels timed in turns (REPEATS x LAUNCHES), EXACT_RANK_STEPS
+     steps on the rank engine; 14c Li2O STO-3G CISDTQ with exact_eloc,
+     EXACT_XL_STEPS steps (xl_grid_accumulate once an update), the kernel
+     on the sector table's grid against its plain version and timed; 14d
+     run_exact over the whole basis: vmc_update_scan(n_live=3, length=4)
+     against 3 vmc_update calls from the same state (parameters and Adam
+     moments within WINDOW_RTOL / WINDOW_ATOL, whether bitwise printed, step
+     counts and LR position equal), a window of 2 steps under
+     torch.cuda.set_sync_debug_mode("error") (any host sync raises),
+     run_exact(EXACT_RUN), a profiled window step's device time, the peak
+     device memory, and factored_cells_accumulate on the 1,656,369 live rows
+     against its plain version and timed (SLOW_REPEATS x SLOW_LAUNCHES); 14e
+     run_exact(EXACT_MINI_STEPS, batch_size=EXACT_BATCH) with exact local
+     energies, its minibatches those of np.random.default_rng(seed + 1).
+     Then the CLI's run C (CLI_RUN_C: N2 STO-3G, -exact_sampling, 30 steps
+     at run A's width): one window of 25 and one of 5, E_LOC for steps 1-30,
+     the summary's exact <psi|H|psi> at or above the basis ground state
+     (its subspace energy), dense_grid_accumulate once a step; then that
+     kernel on the whole basis's grid against its plain version and timed.
 With --profile, the profiled step of each engine (H2O 6-31G factored and
 rank, Li2O staircase, N2 6-31G sort, frozen-core N2 6-31G rank with no
 dense A) must show one device kernel per wrapper call of the
@@ -335,8 +372,14 @@ fused kernel, with its registers by instantiation, the clear's time, its
 wrapper's host pieces unheld and whether the graph replays were bitwise;
 multinomial4_split's carries the decomposition, DIR's beside it, and the
 division proof),
-with "launches_cli_a" and "launches_cli_b" from phase 13's runs in every
-entry, and last {"ok": true,
+with "launches_cli_a" and "launches_cli_b" from phase 13's runs,
+"launches_exact" from phase 14 and "launches_cli_c" from run C in every
+entry, and for the five kernels phase 14 and run C drive at new shapes
+(factored_cells_accumulate at the query rows of the full-sector grid,
+"exact_queries_*", and on the whole basis, "full_basis_*";
+rank_local_energy, sorted_local_energy, xl_grid_accumulate and
+dense_grid_accumulate, "exact_*") the held time, the plain version's, the
+error and a bound recounted for that shape's data; and last {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -825,9 +868,9 @@ def _quad_loop(le, dt_q, gather, h_fn, states, la_q, ph_q, nv, c):
     return num / den
 
 
-def _profiled_step(tr):
-    """One tr.step() under torch.profiler: (its wall time in s, the device time
-    of its kernels and copies in ms)."""
+def _profiled_call(fn):
+    """fn() under torch.profiler: (its result, its wall time in s, the device
+    time of its kernels and copies in ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -835,14 +878,21 @@ def _profiled_step(tr):
     torch.cuda.synchronize()
     t = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = tr.step()
+        out = fn()
         torch.cuda.synchronize()
     wall = time.time() - t
-    if not math.isfinite(out["e_loc"]):
-        raise SystemExit(f"non-finite energy in the profiled step: {out}")
     device = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA)
-    return wall, device / 1e3
+    return out, wall, device / 1e3
+
+
+def _profiled_step(tr):
+    """One tr.step() under torch.profiler: (its wall time in s, the device time
+    of its kernels and copies in ms)."""
+    out, wall, device = _profiled_call(tr.step)
+    if not math.isfinite(out["e_loc"]):
+        raise SystemExit(f"non-finite energy in the profiled step: {out}")
+    return wall, device
 
 
 def _shell_inputs(model, gen, n_samples, cap):
@@ -1575,6 +1625,558 @@ def _cli_runs(zero_counts, wrappers, t_fact, t_dense):
     print(f"[cli] phase 13: run A {wall_a:.1f} s, its resumption {wall_c:.1f} s, run B "
           f"{wall_b:.1f} s", flush=True)
     return counts
+
+
+# phase 14: exact mode at the paper width (phase 3's model and configuration)
+EXACT_CHUNK = 65_536          # eloc_fwd_chunk: 26 chunks over H2O 6-31G's sector
+EXACT_STEPS = 3               # 14a: exact_eloc training steps (FactorTerms)
+EXACT_RANK_STEPS = 2          # 14b: the same on the rank engine
+EXACT_XL_STEPS = 2            # 14c: Li2O STO-3G CISDTQ exact_eloc steps
+EXACT_RUN = 5                 # 14d: run_exact full-basis steps
+EXACT_BATCH = 100_000         # 14e: run_exact minibatch size
+EXACT_MINI_STEPS = 2          # 14e: its steps
+WINDOW_RTOL, WINDOW_ATOL = 1e-5, 1e-7   # 14d: window against sequential updates
+FULL_SLICE = 1 << 18          # 14d: rows a slice when holding the whole basis's kernel
+CLI_RUN_C = ["-m", "N2_STO-3G_gen", "-exact_sampling", "-n_train", "30", "-s", "7",
+             "-n_hid", "64", "-single_phase", "-n_hid_phase", "512", "-n_layer_phase", "2"]
+
+
+def _exact_mode(dev, hil, terms, cfg, tc, li2o, x_touched, zero_counts, wrappers):
+    """Phase 14: exact mode at the paper width. 14a exact_eloc training on H2O
+    6-31G (FactorTerms), 14b the rank and sort engines on the same batch and
+    table, 14c Li2O STO-3G CISDTQ with exact_eloc, 14d run_exact over the
+    whole basis (the window against sequential updates, a window under
+    set_sync_debug_mode("error"), run_exact), 14e run_exact on minibatches.
+    `li2o` is (hil3, terms3, cfg3). Returns {"launches": phase 14's launches
+    of every kernel (the driven calls; not the holds against the plain
+    versions nor the timings), "kernels": per kernel the exact-mode shape's
+    hold, held time and bound}."""
+    import numpy as np
+    import torch
+
+    import naqs_tpu_torch as nt
+    from naqs_tpu_torch import trainer as trainer_mod
+    from naqs_tpu_torch.models.nade import log_psi
+    from naqs_tpu_torch.ops import dense_engine as de
+    from naqs_tpu_torch.ops import local_energy as le
+    from naqs_tpu_torch.ops.dyn_gather import rank_local_energy_ref, rank_local_energy_tolerance
+    from naqs_tpu_torch.ops.grid_kernels import (factored_cells_accumulate,
+                                                 factored_cells_accumulate_ref, grid_tolerance,
+                                                 xl_grid_accumulate, xl_grid_accumulate_ref)
+    from naqs_tpu_torch.ops.rank import build_value_table, rank_index
+    from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_local_energy_ref,
+                                                sorted_local_energy_tolerance)
+    from naqs_tpu_torch.utils.bits import SENTINEL
+    from naqs_tpu_torch.utils.cuda_timing import time_in_turns
+
+    names = {w: w.__name__ for w in wrappers}
+    kern = {w.__name__: w for w in wrappers}
+    launches = dict.fromkeys(names.values(), 0)
+    out = {}
+
+    def counted(label, fn, want):
+        """fn() with every count at 0 before; its launches join phase 14's.
+        `want` maps a kernel's name to its expected launches (None: any
+        number above 0); every other kernel must not launch."""
+        zero_counts()
+        res = fn()
+        got = {names[w]: w.launches for w in wrappers}
+        for k, v in got.items():
+            launches[k] += v
+        bad = {k: v for k, v in got.items()
+               if (k in want and ((want[k] is None and v == 0)
+                                  or (want[k] is not None and v != want[k])))
+               or (k not in want and v)}
+        print(f"[exact] {label}: launches {({k: v for k, v in got.items() if v})}", flush=True)
+        if bad:
+            raise SystemExit(f"{label}: unexpected launches {bad} (expected {want})")
+        return res
+
+    def stepped(tr, n, label, kernel):
+        zero_counts()
+        n_upd, times, n_draws = _steps(tr, n, label)
+        got = {names[w]: w.launches for w in wrappers}
+        for k, v in got.items():
+            launches[k] += v
+        want = {kernel: n_upd, "_split_and_compact": tr.cfg.n_shells * n_draws}
+        print(f"[exact] {label}: {n} steps, {n_upd} vmc_update calls, {n_draws} sample() "
+              f"calls; launches {({k: v for k, v in got.items() if v})}; step wall times "
+              f"{[round(t, 4) for t in times]} s", flush=True)
+        if {k: v for k, v in got.items() if v} != want or n_upd < n:
+            raise SystemExit(f"{label}: launches {got}, expected {want}")
+        return times
+
+    # 14a. exact_eloc on H2O 6-31G through the default dispatch (FactorTerms)
+    t = time.time()
+    tc_x = dataclasses.replace(tc, exact_eloc=True, eloc_fwd_chunk=EXACT_CHUNK)
+    tr = nt.VMCTrainer(cfg, terms, hil, tc_x, device=dev)
+    t_setup = time.time() - t
+    fn, spec, dt = tr.dt.dense, tr.dt.rank_spec, tr.dt
+    t_states, t_n = tr._table
+    n_basis = hil.size
+    if not (t_states.shape[0] == -(-n_basis // EXACT_CHUNK) * EXACT_CHUNK
+            and int(t_n) == n_basis and type(fn).__name__ == "FactorTerms"
+            and bool((t_states[n_basis:] == SENTINEL).all())):
+        raise SystemExit("the exact_eloc trainer's sector table or dispatch is not as expected")
+    print(f"[exact] 14a: H2O 6-31G exact_eloc trainer in {t_setup:.1f} s: sector table "
+          f"{t_states.shape[0]} rows ({t_states.shape[0] // EXACT_CHUNK} chunks of "
+          f"{EXACT_CHUNK}), {n_basis} states", flush=True)
+    t_exact = stepped(tr, EXACT_STEPS, "exact_eloc factored", "factored_cells_accumulate")
+    lpt = [_timed(lambda: trainer_mod.log_psi_table(tr.model, t_states, EXACT_CHUNK))[1]
+           for _ in range(3)]
+    _, prof_wall, prof_dev = _profiled_call(tr.step)
+    step_wall = float(np.median(t_exact[1:]))
+    print(f"[exact] 14a: log_psi_table over the {t_states.shape[0]}-row table {lpt} ms; one "
+          f"step under torch.profiler: {prof_dev:.2f} ms of device time, {prof_wall:.3f} s of "
+          f"wall (the profiler's own cost included); the card busy {prof_dev / 1e3 / step_wall:.0%} "
+          f"of an unprofiled step's {step_wall:.3f} s (median of steps 2-{EXACT_STEPS})",
+          flush=True)
+    out.update(exact_eloc_step_s=t_exact, log_psi_table_ms=float(np.median(lpt)),
+               exact_eloc_step_device_ms=prof_dev, exact_eloc_busy=prof_dev / 1e3 / step_wall)
+    # one recorded batch, the table's psi, the queries
+    batch = tr._sample()
+    nu, cap = int(batch.n_unique), batch.states.shape[0]
+    with torch.no_grad():
+        q_la, q_ph = log_psi(tr.model, batch.states)
+        t_la, t_ph = trainer_mod.log_psi_table(tr.model, t_states, EXACT_CHUNK)
+    queries = (batch.states, q_la, q_ph)
+    table_args = (t_states, t_la, t_ph, t_n)
+    e_f = counted("14a local_energy(queries=), FactorTerms",
+                  lambda: le.local_energy(dt, *table_args, queries=queries),
+                  {"factored_cells_accumulate": 1})
+    # the kernel against its plain version on the full-sector grid, read at the
+    # query rows (SENTINEL rows past n_unique read exactly 0)
+    grid_x, ref_x, _ = de.value_grid(spec, t_states, t_la, t_ph, t_n, fn.sa, fn.sb)
+    q_idx = rank_index(spec, batch.states)
+    n_q = le._count(cap, dev)
+    set_cells = int((grid_x != 0).any(-1).sum())
+    if set_cells != n_basis:
+        raise SystemExit(f"the sector table's grid sets {set_cells} cells, not {n_basis}")
+    f_err = _check_grid_kernel("factored_cells_accumulate (exact: every sector cell set, "
+                               "the query rows)", factored_cells_accumulate,
+                               factored_cells_accumulate_ref, fn, grid_x, q_idx, n_q)
+    de.factored_cells_accumulate = factored_cells_accumulate_ref
+    e_fp, t_fp = _timed(lambda: le.local_energy(dt, *table_args, queries=queries))
+    de.factored_cells_accumulate = factored_cells_accumulate
+    ratio = torch.exp(torch.clamp(ref_x - q_la, -30.0, 30.0)).double()
+    tol_e = ratio * grid_tolerance(fn, grid_x, q_idx, n_q).double().sum(-1)
+    d_fp = max(float(((a - b).abs() - tol_e).max()) for a, b in zip(e_f, e_fp))
+    live = slice(0, nu)
+    rows = np.sort(np.random.default_rng(0).choice(nu, size=min(8, nu), replace=False))
+    basis = hil.basis
+    la_np, ph_np = (x[:n_basis].double().cpu().numpy() for x in (t_la, t_ph))
+    e_or = _oracle_rows(terms, basis, la_np, ph_np,
+                        np.searchsorted(basis, batch.states[:nu].cpu().numpy()[rows]))
+    or_err = float(np.abs(e_f[0][live].cpu().numpy()[rows] - e_or).max())
+    pad_im = bool((e_f[1][nu:] == 0).all())
+    finite = bool(torch.isfinite(e_f[0]).all() and torch.isfinite(e_f[1]).all())
+    print(f"[exact] 14a: local_energy(queries=) on {cap} query rows ({nu} live) against the "
+          f"{n_basis}-state table: through factored_cells_accumulate_ref ({t_fp:.0f} ms) "
+          f"within ratio x (the row's two grid tolerances) on every row={d_fp <= 0}; {len(rows)} rows "
+          f"against the float64 oracle over the whole basis max |dE| {or_err:.3e} Ha (tol "
+          f"{ENGINE_TOL}); padding query rows e_im exactly 0={pad_im}; finite={finite}",
+          flush=True)
+    if not (d_fp <= 0 and or_err <= ENGINE_TOL and pad_im and finite):
+        raise SystemExit("14a: exact local energies disagree with the plain version or the "
+                         "oracle, or a padding row read a numerator")
+    f_work = _cells_work(fn, grid_x, q_idx, n_q)
+    out["factored_exact"] = dict(err=f_err, work=f_work, plain_ms=t_fp)
+
+    # 14b. the rank and the sort engine on the same batch and table
+    dt_rank = dataclasses.replace(dt, dense=None)
+    dt_sort = dataclasses.replace(dt, rank_spec=None, dense=None)
+    c = le._chunks(dt, cap, None)
+    e_r = counted("14b local_energy(queries=), rank engine",
+                  lambda: le.local_energy(dt_rank, *table_args, queries=queries),
+                  {"rank_local_energy": 1})
+    le.rank_local_energy = rank_local_energy_ref
+    e_rp, t_rp = _timed(lambda: le.local_energy(dt_rank, *table_args, queries=queries))
+    le.rank_local_energy = kern["rank_local_energy"]
+    table_r = build_value_table(spec, *table_args)
+    terms_t = (dt.xy_unique, dt.xy_ptr, dt.term_yz, dt.yz_unique, dt.term_coeff)
+    tol_r = rank_local_energy_tolerance(spec, table_r, batch.states, q_la.float(), *terms_t,
+                                        dt.diag_coeff, chunk_rows=c)
+    e_s = counted("14b local_energy(queries=), sort engine",
+                  lambda: le.local_energy(dt_sort, *table_args, queries=queries),
+                  {"sorted_local_energy": 1})
+    le.sorted_local_energy = sorted_local_energy_ref
+    e_sp, t_sp = _timed(lambda: le.local_energy(dt_sort, *table_args, queries=queries))
+    le.sorted_local_energy = kern["sorted_local_energy"]
+    packed = pack_table(t_states, t_la, t_ph)
+    tol_s = sorted_local_energy_tolerance(packed[0], packed[1], t_n, batch.states, q_la.float(),
+                                          *terms_t, dt.diag_coeff, chunk_rows=c)
+    errs = {}
+    for label, got, want, tol in (("rank_local_energy", e_r, e_rp, tol_r),
+                                  ("sorted_local_energy", e_s, e_sp, tol_s)):
+        diff = [(a[live] - b[live]).abs() for a, b in zip(got, want)]
+        within = all(bool((d <= tol[live]).all()) for d in diff)
+        vs_f = max(float((a[live] - b[live]).abs().max()) for a, b in zip(got, e_f))
+        errs[label] = max(float(d.max()) for d in diff)
+        print(f"[exact] 14b: {label} on the {n_basis}-state table: vs its plain version "
+              f"max_abs_err={errs[label]:.3e} Ha, within its per-row tolerance={within}; vs "
+              f"14a's factored result {vs_f:.3e} Ha (tol {ENGINE_TOL})", flush=True)
+        if not (within and vs_f <= ENGINE_TOL):
+            raise SystemExit(f"14b: {label} disagrees with its plain version or with the "
+                             f"factored engine on the full-sector table")
+    sizes = torch.diff(dt.xy_ptr.long())
+    work_r = _rank_work(spec, table_r, batch.states[:nu], dt.xy_unique, sizes, -1e29)
+    work_s = _search_work(packed, t_n, batch.states[:nu], dt.xy_unique, sizes)
+    r_bound = _row_bound(work_r, nu, cap, dt.xy_unique.numel(), dt.term_yz.numel(),
+                         dt.diag_yz.numel(),
+                         work_r["pairs"] * SECTOR_OPS + work_r["inside"] * RANK_OPS,
+                         work_r["rows"] * 8)
+    n_levels = math.ceil(math.log2(n_basis))
+    s_bound = _row_bound(work_s, nu, cap, dt.xy_unique.numel(), dt.term_yz.numel(),
+                         dt.diag_yz.numel(), work_s["pairs"] * (1 + SEARCH_OPS * n_levels),
+                         n_basis * 8 + work_s["rows"] * 8)
+    print(f"[exact] 14b: found pairs: rank {work_r['found']} of {work_r['pairs']} pairs "
+          f"({work_r['inside']} inside a sector, {work_r['rows']} distinct table rows); sort "
+          f"{work_s['found']} ({work_s['rows']} distinct rows); bounds rank "
+          f"{r_bound[0][0]:.5f} ms ({r_bound[0][1]}), sort {s_bound[0][0]:.5f} ms "
+          f"({s_bound[0][1]}, {n_levels} search levels)", flush=True)
+    tr.dt = dt_rank
+    t_rank_x = stepped(tr, EXACT_RANK_STEPS, "exact_eloc rank engine", "rank_local_energy")
+    tr.dt = dt
+    q_packed = pack_table(*queries)
+    nv_t = le._count(t_n, dev)
+    ker = {
+        "factored_cells_accumulate (exact)": lambda: factored_cells_accumulate(
+            fn, grid_x, q_idx, n_q),
+        "rank_local_energy (exact)": lambda: kern["rank_local_energy"](
+            spec, table_r, *q_packed, *terms_t, dt.diag_yz, dt.diag_coeff, chunk_rows=c),
+        "sorted_local_energy (exact)": lambda: kern["sorted_local_energy"](
+            *packed, nv_t, *q_packed, *terms_t, dt.diag_yz, dt.diag_coeff, chunk_rows=c),
+    }
+    times = time_in_turns(ker, REPEATS, LAUNCHES)
+    for k, v in times.items():
+        print(f"[time] {k}: {v[0]:.4f} ms held (spread {v[1][0]:.4f}-{v[1][1]:.4f})",
+              flush=True)
+    out["rank_exact"] = dict(err=errs["rank_local_energy"], work=work_r, bound=r_bound,
+                             plain_ms=t_rp, time=times["rank_local_energy (exact)"],
+                             step_s=t_rank_x)
+    out["sort_exact"] = dict(err=errs["sorted_local_energy"], work=work_s, bound=s_bound,
+                             plain_ms=t_sp, time=times["sorted_local_energy (exact)"],
+                             levels=n_levels)
+    out["factored_exact"]["time"] = times["factored_cells_accumulate (exact)"]
+    del table_r, packed, grid_x, e_rp, e_sp, e_fp
+
+    # 14c. Li2O STO-3G CISDTQ with exact_eloc (FactorTermsXL, queries= with the
+    # true diagonal)
+    hil3, terms3, cfg3 = li2o
+    t = time.time()
+    tr3 = nt.VMCTrainer(cfg3, terms3, hil3, tc_x, device=dev)
+    xl, spec3 = tr3.dt.dense, tr3.dt.rank_spec
+    print(f"[exact] 14c: Li2O STO-3G CISDTQ exact_eloc trainer in {time.time() - t:.1f} s, "
+          f"sector table {tr3._table[0].shape[0]} rows for {hil3.size} states", flush=True)
+    t_xl = stepped(tr3, EXACT_XL_STEPS, "exact_eloc staircase", "xl_grid_accumulate")
+    with torch.no_grad():
+        t3_la, t3_ph = trainer_mod.log_psi_table(tr3.model, tr3._table[0], EXACT_CHUNK)
+    grid3, _ = de.xl_value_grid(xl, spec3, tr3._table[0], t3_la, t3_ph, tr3._table[1])
+    set3 = int((grid3 != 0).any(-1).sum())
+    print(f"[exact] 14c: the sector table's grid sets {set3} of the {LI2O_CELLS} staircase "
+          f"cells (a cell reads 0 only where |psi| underflows)", flush=True)
+    if set3 < 0.99 * LI2O_CELLS:
+        raise SystemExit(f"Li2O's sector table sets {set3} grid cells of {LI2O_CELLS}")
+    xl_err = _check_grid_kernel("xl_grid_accumulate (exact: the sector table's grid)",
+                                xl_grid_accumulate, xl_grid_accumulate_ref, xl, grid3)
+    _, t_xp = _timed(lambda: xl_grid_accumulate_ref(xl, grid3))
+    t_x = time_in_turns({"xl": lambda: xl_grid_accumulate(xl, grid3)}, SLOW_REPEATS,
+                        SLOW_LAUNCHES)["xl"]
+    x_work = _xl_sampled_work(xl, grid3, x_touched)
+    print(f"[time] xl_grid_accumulate (exact: the sector table's grid): {t_x[0]:.4f} ms held "
+          f"(spread {t_x[1][0]:.4f}-{t_x[1][1]:.4f}); plain version {t_xp:.0f} ms; "
+          f"{x_work['set_pairs']} set (mask, cell) pairs", flush=True)
+    out["xl_exact"] = dict(err=xl_err, work=x_work, plain_ms=t_xp, step_s=t_xl, time=t_x)
+    del tr3, grid3
+
+    # 14d. run_exact over the whole basis
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = tr._basis_batch(basis)
+
+    def snapshot():
+        return ({k: v.detach().clone() for k, v in tr.model.state_dict().items()},
+                {i: {k: v.clone() for k, v in s.items()}
+                 for i, s in enumerate(tr.optimizer.state.values())},
+                tr.scheduler.last_epoch)
+
+    s0 = ({k: v.clone() for k, v in tr.model.state_dict().items()},
+          {"state": {k: {kk: vv.clone() for kk, vv in v.items()}
+                     for k, v in tr.optimizer.state_dict()["state"].items()},
+           "param_groups": tr.optimizer.state_dict()["param_groups"]},
+          tr.scheduler.state_dict())
+    ms_w, applied = counted("14d vmc_update_scan(n_live=3, length=4) over the basis",
+                            lambda: trainer_mod.vmc_update_scan(
+                                tr.model, tr.optimizer, tr.scheduler, dt, full, 3, length=4,
+                                clip=tr.clip),
+                            {"factored_cells_accumulate": 3})
+    after_w = snapshot()
+    tr.model.load_state_dict(s0[0])
+    tr.optimizer.load_state_dict(s0[1])
+    tr.scheduler.load_state_dict(s0[2])
+    seq = counted("14d 3 vmc_update calls over the basis",
+                  lambda: [trainer_mod.vmc_update(tr.model, tr.optimizer, tr.scheduler, dt, full,
+                                                  True, clip=tr.clip) for _ in range(3)],
+                  {"factored_cells_accumulate": 3})
+    after_s = snapshot()
+    worst, bitwise = 0.0, True
+    pairs = [(after_w[0][k], after_s[0][k]) for k in after_w[0]]
+    for i in after_w[1]:
+        pairs += [(after_w[1][i][k], after_s[1][i][k]) for k in ("exp_avg", "exp_avg_sq")]
+    for a, b in pairs:
+        bitwise = bitwise and torch.equal(a, b)
+        worst = max(worst, float(((a - b).abs() - WINDOW_RTOL * b.abs()).max()))
+    steps_w = [float(s["step"]) for s in after_w[1].values()]
+    steps_s = [float(s["step"]) for s in after_s[1].values()]
+    e_seq = [m["e_loc"] for m in seq]
+    print(f"[exact] 14d: vmc_update_scan(n_live=3, length=4) against 3 vmc_update calls from "
+          f"the same state: parameters and Adam moments within rtol {WINDOW_RTOL} / atol "
+          f"{WINDOW_ATOL}={worst <= WINDOW_ATOL} (worst excess {worst:.3e}), bitwise equal="
+          f"{bitwise}; step counts {sorted(set(steps_w))} vs {sorted(set(steps_s))}; LR "
+          f"positions {after_w[2]} vs {after_s[2]}; applied {applied.tolist()}; e_loc "
+          f"{ms_w[:3, 0].tolist()} vs {e_seq}", flush=True)
+    if not (worst <= WINDOW_ATOL and steps_w == steps_s and after_w[2] == after_s[2]
+            and applied.tolist() == [True, True, True, False] and np.isnan(ms_w[3]).all()):
+        raise SystemExit("14d: the window and the sequential updates disagree")
+    # a window with no host sync inside: torch raises on any synchronizing call
+    window = trainer_mod.UpdateWindow(tr.model, tr.optimizer, tr.scheduler, 2, tr.clip)
+
+    def no_sync_window():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(2):
+                window.step(dt, full)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return window.close()
+
+    ms_ns, applied_ns = counted("14d a window of 2 under set_sync_debug_mode('error')",
+                                no_sync_window, {"factored_cells_accumulate": 2})
+    print(f"[exact] 14d: 2 window steps under torch.cuda.set_sync_debug_mode('error'): no "
+          f"host sync; e_loc {ms_ns[:, 0].tolist()}, applied {applied_ns.tolist()}", flush=True)
+    if not (applied_ns.all() and np.isfinite(ms_ns).all()):
+        raise SystemExit("14d: the window under the sync check did not apply finite steps")
+    n0 = tr.n_steps
+    t = time.time()
+    counted(f"14d run_exact({EXACT_RUN}) over the basis", lambda: tr.run_exact(EXACT_RUN),
+            {"factored_cells_accumulate": EXACT_RUN})
+    torch.cuda.synchronize()
+    t_run = time.time() - t
+    e_run = [v for s, v in tr.log["E_LOC"] if s > n0]
+    if not (len(e_run) == EXACT_RUN and np.isfinite(e_run).all()):
+        raise SystemExit(f"14d: run_exact({EXACT_RUN}) logged {e_run}")
+    _, w_wall, w_dev = _profiled_call(lambda: trainer_mod.vmc_update_scan(
+        tr.model, tr.optimizer, tr.scheduler, dt, full, 1, length=1, clip=tr.clip))
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        grid_b, _, idx_b = de.value_grid(spec, full.states, *log_psi(tr.model, full.states),
+                                         full.n_unique, fn.sa, fn.sb)
+    n_b = le._count(full.n_unique, dev)
+    # held against its plain version in slices of rows (a row's sum reads only
+    # its own cell; the plain version over every row at once holds 45 GiB)
+    got_b = factored_cells_accumulate(fn, grid_b, idx_b, n_b)
+    same_b = torch.equal(got_b, factored_cells_accumulate(fn, grid_b, idx_b, n_b))
+    fb_err, fb_ok, t_fbp = 0.0, True, 0.0
+    for i in range(0, n_basis, FULL_SLICE):
+        rows_i = idx_b[i:i + FULL_SLICE]
+        n_i = le._count(rows_i.shape[0], dev)
+        want_i, t_i = _timed(lambda: factored_cells_accumulate_ref(fn, grid_b, rows_i, n_i))
+        t_fbp += t_i
+        diff_i = (got_b[i:i + FULL_SLICE] - want_i).abs()
+        fb_ok = fb_ok and bool((diff_i <= grid_tolerance(fn, grid_b, rows_i, n_i)).all())
+        fb_err = max(fb_err, float(diff_i.max()))
+    print(f"[kernel] factored_cells_accumulate (exact: the whole basis as the batch, "
+          f"{n_basis} live rows) against its plain version in slices of {FULL_SLICE} rows: "
+          f"max_abs_err={fb_err:.3e}, within grid_tolerance={fb_ok}, twice bitwise equal="
+          f"{same_b}, finite={bool(torch.isfinite(got_b).all())}", flush=True)
+    if not (fb_ok and same_b and bool(torch.isfinite(got_b).all())):
+        raise SystemExit("factored_cells_accumulate on the whole basis disagrees with its "
+                         "plain version or with itself")
+    del got_b
+    times_b = time_in_turns({"factored_cells_accumulate (whole basis)":
+                             lambda: factored_cells_accumulate(fn, grid_b, idx_b, n_b)},
+                            SLOW_REPEATS, SLOW_LAUNCHES)
+    t_b = times_b["factored_cells_accumulate (whole basis)"]
+    fb_work = _cells_work(fn, grid_b, idx_b, n_b, chunk=32)
+    print(f"[exact] 14d: run_exact({EXACT_RUN}) {t_run:.2f} s, {t_run / EXACT_RUN:.3f} s a "
+          f"step over {n_basis} rows (E_loc {e_run}); one window step under torch.profiler "
+          f"{w_dev:.2f} ms of device time, {w_wall:.3f} s of wall; peak device memory "
+          f"{peak / 2**30:.2f} GiB; factored_cells_accumulate on the {n_basis} live rows "
+          f"{t_b[0]:.4f} ms held (spread {t_b[1][0]:.4f}-{t_b[1][1]:.4f}; its plain version "
+          f"{t_fbp:.0f} ms)", flush=True)
+    out["full_basis"] = dict(step_s=t_run / EXACT_RUN, device_ms=w_dev, peak_gib=peak / 2**30,
+                             err=fb_err, work=fb_work, time=t_b, plain_ms=t_fbp,
+                             bitwise=bitwise)
+    del grid_b, idx_b
+
+    # 14e. run_exact on minibatches of the basis with exact local energies
+    drawn, update = [], trainer_mod.vmc_update
+
+    def spy(*args, **kw):
+        drawn.append(args[4].states.cpu().numpy())
+        return update(*args, **kw)
+
+    trainer_mod.vmc_update = spy
+    try:
+        n0 = tr.n_steps
+        counted(f"14e run_exact({EXACT_MINI_STEPS}, batch_size={EXACT_BATCH})",
+                lambda: tr.run_exact(EXACT_MINI_STEPS, batch_size=EXACT_BATCH),
+                {"factored_cells_accumulate": EXACT_MINI_STEPS})
+    finally:
+        trainer_mod.vmc_update = update
+    rng = np.random.default_rng(tc_x.seed + 1)
+    same = all(np.array_equal(d, np.sort(basis[rng.choice(n_basis, size=EXACT_BATCH,
+                                                            replace=False)]))
+               for d in drawn)
+    e_mini = [v for s, v in tr.log["E_LOC"] if s > n0]
+    print(f"[exact] 14e: run_exact({EXACT_MINI_STEPS}, batch_size={EXACT_BATCH}): minibatches "
+          f"those of np.random.default_rng(seed + 1)={same}; E_loc {e_mini}", flush=True)
+    if not (same and len(drawn) == EXACT_MINI_STEPS and np.isfinite(e_mini).all()):
+        raise SystemExit("14e: the minibatches or their energies are not as expected")
+    out["launches"] = {k.lstrip("_"): v for k, v in launches.items()}
+    return out
+
+
+def _cli_run_c(zero_counts, wrappers):
+    """Run C: `naqs_tpu_torch.cli.run` in process with -exact_sampling on N2
+    STO-3G at run A's width, 30 steps: one window of 25 and one of 5, E_LOC for
+    steps 1..30, the summary's exact <psi|H|psi> at or above the basis ground
+    state; then dense_grid_accumulate held against its plain version on the
+    run's shape and timed. Returns (its launches by kernel, its numbers)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from naqs_tpu_torch import cli
+    from naqs_tpu_torch import trainer as trainer_mod
+
+    made, windows = [], []
+    init, scan = trainer_mod.VMCTrainer.__init__, trainer_mod.vmc_update_scan
+
+    def spy_init(self, *args, **kw):
+        init(self, *args, **kw)
+        made.append(self)
+
+    def spy_scan(*args, **kw):
+        windows.append(args[5])
+        return scan(*args, **kw)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_c_")
+    trainer_mod.VMCTrainer.__init__, trainer_mod.vmc_update_scan = spy_init, spy_scan
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        summary = cli.run(CLI_RUN_C + ["-o", work])["run_0"]
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        counts = {w.__name__.lstrip("_"): w.launches for w in wrappers}
+        lines = [json.loads(x) for x in open(os.path.join(work, "log.jsonl"))]
+        have_summary = os.path.exists(os.path.join(work, "summary.json"))
+    finally:
+        trainer_mod.VMCTrainer.__init__, trainer_mod.vmc_update_scan = init, scan
+        shutil.rmtree(work, ignore_errors=True)
+    e_loc = [(x["step"], x["value"]) for x in lines if x["key"] == "E_LOC"]
+    e_exact, e_sub = summary.get("e_exact_final"), summary.get("e_vmc_fci_subspace")
+    print(f"[cli] run C (-exact_sampling, N2 STO-3G, 30 steps): {wall:.1f} s; windows "
+          f"{windows}; E_loc at steps {[s for s, _ in e_loc][:3]}..{e_loc[-1][0]}, last "
+          f"{e_loc[-1][1]:.6f}; exact <psi|H|psi> {e_exact} Ha against the basis ground state "
+          f"{e_sub} Ha ({summary.get('vmc_estimator')}); kernel launches "
+          f"{({k: v for k, v in counts.items() if v})}", flush=True)
+    if not (have_summary and windows == [25, 5]
+            and [s for s, _ in e_loc] == list(range(1, 31))
+            and np.isfinite([v for _, v in e_loc]).all()
+            and summary.get("vmc_estimator") == "exact_psi_H_psi"
+            and e_exact is not None and math.isfinite(e_exact) and e_exact >= e_sub - 1e-6
+            and counts["dense_grid_accumulate"] == 30):
+        raise SystemExit("CLI run C: windows, log, summary or launches not as expected")
+    # dense_grid_accumulate at the run's shape: the whole basis as the batch
+    from naqs_tpu_torch.models.nade import log_psi
+    from naqs_tpu_torch.ops.dense_engine import value_grid
+    from naqs_tpu_torch.ops.grid_kernels import dense_grid_accumulate, dense_grid_accumulate_ref
+    from naqs_tpu_torch.utils.cuda_timing import time_in_turns
+
+    tr = made[0]
+    dn = tr.dt.dense
+    basis = torch.as_tensor(tr.hilbert.basis, device=tr.device)
+    with torch.no_grad():
+        grid, _, _ = value_grid(tr.dt.rank_spec, basis, *log_psi(tr.model, basis),
+                                basis.shape[0], dn.sa, dn.sb)
+    err = _check_grid_kernel(f"dense_grid_accumulate (run C: the whole {basis.shape[0]}-state "
+                             f"basis as the batch)", dense_grid_accumulate,
+                             dense_grid_accumulate_ref, dn, grid)
+    _, t_plain = _timed(lambda: dense_grid_accumulate_ref(dn, grid))
+    t_k = time_in_turns({"dense": lambda: dense_grid_accumulate(dn, grid)}, REPEATS,
+                        LAUNCHES)["dense"]
+    print(f"[time] dense_grid_accumulate (run C's shape): {t_k[0]:.4f} ms held (spread "
+          f"{t_k[1][0]:.4f}-{t_k[1][1]:.4f}); plain version {t_plain:.1f} ms", flush=True)
+    return counts, dict(wall=wall, err=err, time=t_k, plain_ms=t_plain,
+                        step_s=float(np.median(np.diff([0.0] + [x["value"] for x in lines
+                                                               if x["key"] == "TIME"]))))
+
+
+def _exact_entries(exact, cli_c, d_bound):
+    """The kernels line's exact-mode keys of the five kernels phase 14 and
+    run C drive at new shapes: each held time beside its plain version's and
+    a bound recounted for that shape's data. Prints the bounds."""
+    fq, fb = exact["factored_exact"], exact["full_basis"]
+    q_bound = _bound(fq["work"]["bytes"], fq["work"]["ops"])
+    b_bound = _bound(fb["work"]["bytes"], fb["work"]["ops"])
+    x = exact["xl_exact"]
+    x_bound = _bound(x["work"]["bytes"], x["work"]["ops"])
+    cells = lambda w: {k: w[k] for k in ("live", "valid_pairs", "found_pairs", "factors")}
+    for label, bd, w in (("factored_cells_accumulate, exact queries", q_bound, fq["work"]),
+                         ("factored_cells_accumulate, the whole basis", b_bound, fb["work"]),
+                         ("xl_grid_accumulate, the sector table's grid", x_bound, x["work"])):
+        print(f"[bound] {label}: {bd[0]:.5f} ms ({bd[1]}: {w['bytes']} B, {w['ops']} "
+              f"operations)", flush=True)
+    rows = {}
+    for name, key in (("rank_local_energy", "rank_exact"), ("sorted_local_energy", "sort_exact")):
+        e = exact[key]
+        rows[name] = dict(
+            exact_ms=e["time"][0], exact_spread=e["time"][1], exact_plain_ms=e["plain_ms"],
+            exact_max_abs_err=e["err"], exact_bound_ms=e["bound"][0][0],
+            exact_bound_by=e["bound"][0][1], exact_pairs=e["work"]["pairs"],
+            exact_found_pairs=e["work"]["found"], exact_table_rows_read=e["work"]["rows"],
+            exact_note="local_energy(queries=) of phase 14b: H2O 6-31G, the 1,656,369-state "
+                       "sector table, 100,000 query rows")
+        print(f"[bound] {name}, exact queries: {e['bound'][0][0]:.5f} ms ({e['bound'][0][1]}: "
+              f"{e['bound'][2]} B, {e['bound'][1]} operations)", flush=True)
+    rows["rank_local_energy"]["exact_pairs_inside_sector"] = exact["rank_exact"]["work"]["inside"]
+    rows["rank_local_energy"]["exact_rank_step_s"] = exact["rank_exact"]["step_s"]
+    rows["sorted_local_energy"]["exact_search_levels"] = exact["sort_exact"]["levels"]
+    rows["factored_cells_accumulate"] = dict(
+        exact_queries_ms=fq["time"][0], exact_queries_spread=fq["time"][1],
+        exact_queries_plain_ms=fq["plain_ms"], exact_queries_max_abs_err=fq["err"],
+        exact_queries_bound_ms=q_bound[0], exact_queries_bound_by=q_bound[1],
+        exact_queries_work=cells(fq["work"]),
+        full_basis_ms=fb["time"][0], full_basis_spread=fb["time"][1],
+        full_basis_plain_ms=fb["plain_ms"], full_basis_max_abs_err=fb["err"],
+        full_basis_bound_ms=b_bound[0], full_basis_bound_by=b_bound[1],
+        full_basis_work=cells(fb["work"]), exact_eloc_step_s=exact["exact_eloc_step_s"],
+        exact_eloc_step_device_ms=exact["exact_eloc_step_device_ms"],
+        exact_eloc_busy=exact["exact_eloc_busy"], log_psi_table_ms=exact["log_psi_table_ms"],
+        run_exact_step_s=fb["step_s"], run_exact_step_device_ms=fb["device_ms"],
+        run_exact_peak_gib=fb["peak_gib"], window_bitwise=fb["bitwise"],
+        exact_note="exact_queries: phase 14a's local_energy(queries=) on H2O 6-31G, every "
+                   "sector cell set, 100,000 query rows; full_basis: phase 14d, the "
+                   "1,656,369-state basis as the batch")
+    rows["xl_grid_accumulate"] = dict(
+        exact_ms=x["time"][0], exact_spread=x["time"][1], exact_plain_ms=x["plain_ms"],
+        exact_max_abs_err=x["err"], exact_bound_ms=x_bound[0], exact_bound_by=x_bound[1],
+        exact_set_pairs=x["work"]["set_pairs"], exact_step_s=x["step_s"],
+        exact_note="phase 14c: Li2O STO-3G CISDTQ, the sector table's grid")
+    rows["dense_grid_accumulate"] = dict(
+        exact_ms=cli_c["time"][0], exact_spread=cli_c["time"][1],
+        exact_plain_ms=cli_c["plain_ms"], exact_max_abs_err=cli_c["err"],
+        exact_bound_ms=d_bound[0], exact_bound_by=d_bound[1], cli_c_step_s=cli_c["step_s"],
+        cli_c_s=cli_c["wall"],
+        exact_note="run C: N2 STO-3G, the whole 14,400-state basis as the batch; the bound "
+                   "counts every valid (mask, cell) pair, as phase 10's, whatever the data")
+    return rows
 
 
 def main(argv) -> int:
@@ -3464,6 +4066,14 @@ def main(argv) -> int:
     # 13. the CLI at the paper's width
     cli_counts = _cli_runs(zero_counts, wrappers, t_fact, t_dense)
 
+    # 14. exact mode at the paper width, then the CLI's run C (-exact_sampling)
+    print(f"[exact] phase 14 starts with {torch.cuda.memory_allocated() / 2**30:.2f} GiB of "
+          f"device memory allocated", flush=True)
+    exact = _exact_mode(dev, hil, terms, cfg, tc, (hil3, terms3, cfg3), x_touched, zero_counts,
+                        wrappers)
+    cli_counts["C"], cli_c = _cli_run_c(zero_counts, wrappers)
+    exact_extra = _exact_entries(exact, cli_c, d_bound)
+
     def entry(name, launches, err, t_plain, bound, t_library,
               source="naqs_tpu_torch/csrc/rank_gather.cu",
               replaces="naqs_tpu/ops/dyn_gather.py:83", **more):
@@ -3711,8 +4321,11 @@ def main(argv) -> int:
               run_density_sample_density_calls=extras["density_calls"],
               **before(old_compact), **SHELL_SRC),
     ]
-    for k in kernels:  # phase 13's launches, each run counted from zero
-        k["launches_cli_a"], k["launches_cli_b"] = (cli_counts[r][k["name"]] for r in "AB")
+    for k in kernels:  # phase 13's and 14's launches, each run counted from zero
+        k["launches_cli_a"], k["launches_cli_b"], k["launches_cli_c"] = (
+            cli_counts[r][k["name"]] for r in "ABC")
+        k["launches_exact"] = exact["launches"][k["name"]]
+        k.update(exact_extra.get(k["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

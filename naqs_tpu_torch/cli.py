@@ -9,9 +9,13 @@ It runs on the CUDA card unless `-platform` names another torch device
 Usage:
     python -m naqs_tpu_torch.cli -m LiH -n_train 2000 -n_hid 64 -single_phase
 
-Flags whose paths are not ported yet (`-exact_eloc`, `-exact_sampling`,
-`-sr`, `-kfac`, `-devices` above 1) exit with an error that names the
-`ROADMAP.md` item that ports them.
+Exact mode runs as in the JAX package: `-exact_eloc` resolves every
+coupled state against psi over the whole enumerated sector, and
+`-exact_sampling` trains over the whole basis with |psi|^2 weights
+(`VMCTrainer.run_exact`), with `-ws_solve_h` re-targeting the model at the
+basis ground state in between and the final `solve_h` over the basis.
+Flags whose paths are not ported yet (`-sr`, `-kfac`, `-devices` above 1)
+exit with an error that names the `ROADMAP.md` item that ports them.
 """
 
 from __future__ import annotations
@@ -25,11 +29,9 @@ import numpy as np
 
 # flag -> the ROADMAP.md item that ports its path
 UNPORTED = {
-    "exact_eloc": "Queue A item 4 (exact mode)",
-    "exact_sampling": "Queue A item 4 (exact mode)",
-    "sr": "Queue A item 5 (natural-gradient optimizers: SR)",
-    "kfac": "Queue A item 5 (natural-gradient optimizers: K-FAC)",
-    "devices": "Queue A item 6 (multi-GPU)",
+    "sr": "Queue A item 1 (natural-gradient optimizers: SR)",
+    "kfac": "Queue A item 1 (natural-gradient optimizers: K-FAC)",
+    "devices": "Queue A item 2 (multi-GPU)",
 }
 
 
@@ -129,11 +131,11 @@ def get_parser() -> argparse.ArgumentParser:
                    help="train on H + lambda*S^2 instead of H; reported "
                         "energies stay pure <H>. 0 = off")
     p.add_argument("-exact_eloc", action="store_true",
-                   help="exact local energies over the whole enumerated "
-                        "sector each step (not ported yet)")
+                   help="exact local energies: evaluate psi over the whole "
+                        "enumerated sector each step and resolve every "
+                        "coupled state against it")
     p.add_argument("-exact_sampling", action="store_true",
-                   help="train over the entire restricted basis with |psi|^2 "
-                        "weights (not ported yet)")
+                   help="train over the entire restricted basis with |psi|^2 weights")
     p.add_argument("-sample_dP", type=float, default=-1,
                    help="density sampling: train on all states with "
                         "|psi|^2 >= dP (adaptive)")
@@ -285,6 +287,7 @@ def run(args=None) -> dict:
             n_unq_samples_max=args.n_unq_samps_max,
             reweight_by_psi=args.weight_by_psi,
             sample_beta=args.sample_beta,
+            exact_eloc=args.exact_eloc,
             seed=seed + run_i,
         )
         trainer = VMCTrainer(cfg, terms, hilbert, tc, device=device, save_loc=out_dir,
@@ -340,7 +343,20 @@ def run(args=None) -> dict:
         # profiled steps count towards the budget, so the LR boundary stays
         # where a run without -profile puts it
         n_remaining = max(args.n_train - trainer.n_steps, 0)
-        if args.sample_dP > 0:
+        if args.exact_sampling:
+            if args.ws_solve_h > 0 and trainer.n_steps < args.ws_solve_h:
+                trainer.run_exact(args.ws_solve_h - trainer.n_steps,
+                                  output_freq=args.output_freq, save_freq=save_freq)
+                # exact mode feeds no sampled counter: the warm start solves
+                # over the whole (enumerable) basis
+                e_sub, n_sub = trainer.warm_start_from_solve_h(
+                    states=hilbert.basis, target_s2=target_s2, n_epochs=args.ws_epochs,
+                    loss=args.ws_loss)
+                print(f"solve_H warm start (exact mode): E0={e_sub:.6f} Ha over {n_sub} "
+                      "basis states", flush=True)
+            trainer.run_exact(max(args.n_train - trainer.n_steps, 0),
+                              output_freq=args.output_freq, save_freq=save_freq)
+        elif args.sample_dP > 0:
             trainer.run_density(n_remaining, output_freq=args.output_freq, d_p=args.sample_dP)
         elif args.ws_solve_h > 0 and trainer.n_steps < args.ws_solve_h:
             # train, re-target at the sampled-subspace ground state, polish
@@ -363,9 +379,12 @@ def run(args=None) -> dict:
         try:
             # a full-basis warm start's result (kept in the checkpoint)
             # depends only on (H, basis): reuse it
-            if trainer.ws_result is not None and args.ws_full_basis:
+            if trainer.ws_result is not None and (args.exact_sampling or args.ws_full_basis):
                 e_fci_sub, n_unq = trainer.ws_result
                 n_unq = int(n_unq)
+            elif args.exact_sampling:
+                # no sampled counter in exact mode: solve over the basis
+                e_fci_sub, n_unq = trainer.solve_h(states=hilbert.basis, target_s2=target_s2)
             else:
                 e_fci_sub, n_unq = trainer.solve_h(n_samps=trainer.n_samples,
                                                    k_max=args.solve_h_kmax,

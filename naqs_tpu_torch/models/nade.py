@@ -24,9 +24,9 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Literal, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -211,10 +211,18 @@ def count_parameters(model: NADE) -> int:
 
 # ------------------------------------------------------------------- features
 
+@lru_cache(maxsize=64)
+def _index(values: tuple, device: torch.device) -> torch.Tensor:
+    """An int64 index tensor of constant values on the device, made once per
+    device: an index given as a list or a numpy array is copied to the card
+    at every call, a host sync that a window of updates must not take."""
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
 def split_spins(cfg: NAQSConfig, states: torch.Tensor):
     """Packed states -> (alpha, beta) occupation bits (B, S) in MODEL order."""
     bits = unpack_bits(states, cfg.n_qubits)
-    order = torch.as_tensor(cfg.shell_order, device=states.device)
+    order = _index(tuple(cfg.shell_order), states.device)
     return bits[..., 0::2][..., order], bits[..., 1::2][..., order]
 
 
@@ -271,14 +279,14 @@ def shell_inputs(cfg: NAQSConfig, alpha, beta, canonical: bool,
 # _SYM_GATHER[order3] maps the 5 raw amp logits onto 4 occupations
 # [00, a, b, ab] (occ index = alpha + 2*beta). Logits: [l00, l_sym01, l11,
 # d1, d2]; symmetrized output = (base + gathered) / 2.
-_SYM_BASE = [0, 1, 1, 2]
-_SYM_GATHER = np.array([[0, 3, 4, 2], [0, 1, 1, 2], [0, 4, 3, 2]])
+_SYM_BASE = (0, 1, 1, 2)
+_SYM_GATHER = ((0, 3, 4, 2), (0, 1, 1, 2), (0, 4, 3, 2))
 
 
 def symmetrize_amp(logits5: torch.Tensor, order3: torch.Tensor) -> torch.Tensor:
     """(..., 5) + order flag -> (..., 4) exchange-symmetric amp logits."""
-    base = logits5[..., _SYM_BASE]
-    gidx = torch.as_tensor(_SYM_GATHER, device=logits5.device)[order3]
+    base = logits5[..., _index(_SYM_BASE, logits5.device)]
+    gidx = _index(_SYM_GATHER, logits5.device)[order3]
     return 0.5 * (base + torch.take_along_dim(logits5, gidx, dim=-1))
 
 
@@ -413,7 +421,7 @@ def _tables(model: NADE, alpha, beta, st):
         # pi/2 on those of them whose mask leaves a choice, as in JAX
         raw_phase = scaled_phase_activation(cfg.phase_activation, raw_phase, mask)
     if cfg.use_phase_spin_sym:
-        phase4 = raw_phase[..., [0, 1, 1, 2]]
+        phase4 = raw_phase[..., _index(_SYM_BASE, raw_phase.device)]
         # exchange phase shift pi*(N01 mod 2) on the canonical-swapped
         # partner, applied at the last shell
         full_pa = st["pa"][..., s - 1] + alpha[..., s - 1] * (1 << (s - 1))

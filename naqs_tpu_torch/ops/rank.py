@@ -167,8 +167,10 @@ def build_value_table(
     table = torch.zeros((spec.size + 1, 2), dtype=torch.float32, device=states.device)
     table[:, 0] = miss_log_amp
     table[idx] = torch.stack([log_amp.to(torch.float32), phase.to(torch.float32)], dim=1)
-    table[spec.size, 0] = miss_log_amp
-    table[spec.size, 1] = 0.0
+    # one-row slices: a fill on the device (a single element set from a Python
+    # number is copied from the host, a sync)
+    table[spec.size:, 0] = miss_log_amp
+    table[spec.size:, 1] = 0.0
     return table
 
 

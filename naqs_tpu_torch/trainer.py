@@ -15,6 +15,13 @@ Port of the single-device `VMCTrainer` of `naqs_tpu/trainer.py`:
     gradient norm or energy: the decision is read back with the step's one
     host sync, before the clip or optimizer.step() mutates parameters, Adam
     state or the clip's ring;
+  * exact mode: local energies resolved against psi over the whole
+    enumerated sector (`TrainConfig.exact_eloc`: the SENTINEL-padded sector
+    table, `log_psi_table`, `table=` of the update), and exact-sampling
+    training over the whole basis with |psi|^2 weights (`run_exact`), whose
+    full-basis windows of steps run on the card with the withholding, Adam,
+    the LR schedule and the clip decided there, and one readback a window
+    (`UpdateWindow`, `vmc_update_scan`);
   * the host sample-count controller: x10 when too few unique samples,
     /10 on too many or on overflow, with overflow hysteresis;
   * the sampled-state counter (every RECORD_FREQ-th step) that feeds
@@ -46,7 +53,7 @@ from naqs_tpu_torch.models.convert import params_from_jax
 from naqs_tpu_torch.models.nade import NADE, NAQSConfig, log_psi
 from naqs_tpu_torch.ops.local_energy import DeviceTerms, local_energy, quadratic_energy
 from naqs_tpu_torch.sampler import SampleBatch, sample, sample_density
-from naqs_tpu_torch.utils.bits import np_unpack_bits
+from naqs_tpu_torch.utils.bits import SENTINEL, np_unpack_bits
 from naqs_tpu_torch.utils.checkpoint import jax_params, optax_parts, read_flax_msgpack
 from naqs_tpu_torch.utils.device import resolve_device
 from naqs_tpu_torch.utils.hilbert import Hilbert
@@ -64,7 +71,8 @@ class TrailingClip:
     `scale(norm)` gives the factor to multiply the gradients by and the norm
     the ring keeps, as device tensors; `commit(kept)` writes it. The caller
     commits only an applied update, so a withheld one leaves the ring as it
-    was (JAX withholds the clip state with the Adam state)."""
+    was (JAX withholds the clip state with the Adam state); `commit(kept,
+    ok)` with a device bool writes it only where ok holds, with no readback."""
 
     def __init__(self, factor: float, memory: int = 50, device=None):
         self.factor, self.memory = float(factor), int(memory)
@@ -79,10 +87,16 @@ class TrailingClip:
         scale = torch.where(norm > max_norm, max_norm / (norm + 1e-12), 1.0)
         return scale, torch.minimum(norm, max_norm)
 
-    def commit(self, kept: torch.Tensor):
+    def commit(self, kept: torch.Tensor, ok: Optional[torch.Tensor] = None):
         slot = torch.remainder(self.count, self.memory).to(torch.int64).reshape(1)
-        self.norms.index_copy_(0, slot, kept.reshape(1).to(torch.float32))
-        self.count += 1
+        kept = kept.reshape(1).to(torch.float32)
+        if ok is None:
+            self.norms.index_copy_(0, slot, kept)
+            self.count += 1
+            return
+        self.norms.index_copy_(0, slot, torch.where(ok, kept,
+                                                    torch.index_select(self.norms, 0, slot)))
+        self.count += ok.to(torch.int32)
 
     def state_dict(self) -> dict:
         return {"norms": self.norms.clone(), "count": self.count.clone()}
@@ -110,13 +124,17 @@ class TrainConfig:
     n_unq_samples_max: int = 4096   # also the device buffer capacity
     reweight_by_psi: bool = False
     sample_beta: float = 1.0        # tempered sampling; pair with reweight_by_psi
+    # exact local energies: psi over the whole enumerated sector each step
+    # (log_psi_table), every coupled state resolved against it, in place of
+    # the truncated psi(s') = 0 of unsampled states
     exact_eloc: bool = False
+    eloc_fwd_chunk: int = 65536     # rows per log_psi_table chunk
     use_sr: bool = False
     use_kfac: bool = False
     seed: int = 0
 
     def __post_init__(self):
-        for name in ("exact_eloc", "use_sr", "use_kfac"):
+        for name in ("use_sr", "use_kfac"):
             if getattr(self, name) not in (None, False):
                 raise NotImplementedError(f"TrainConfig.{name} is not ported yet")
 
@@ -155,10 +173,51 @@ def _grad_norm(params) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+@torch.no_grad()
+def log_psi_table(model: NADE, states: torch.Tensor, chunk: int = 65536):
+    """(log_amp, phase) of a large SENTINEL-padded state buffer, chunk rows
+    at a time, so that the activations of one chunk are alive at once (the
+    whole H2O 6-31G sector is 1,656,369 rows). A buffer longer than `chunk`
+    must be a multiple of it (`sector_table` pads it so). Each chunk's
+    outputs go into one preallocated pair of tensors; nothing is read back."""
+    n = states.shape[0]
+    if n <= chunk:
+        return log_psi(model, states)
+    if n % chunk:
+        raise ValueError(f"log_psi_table: {n} rows is not a multiple of the chunk {chunk}")
+    la = ph = None
+    for i in range(0, n, chunk):
+        a, p = log_psi(model, states[i:i + chunk])
+        if la is None:
+            la, ph = a.new_empty(n), p.new_empty(n)
+        la[i:i + chunk], ph[i:i + chunk] = a, p
+    return la, ph
+
+
+def sector_table(basis: np.ndarray, chunk: int, device=None):
+    """The exact-E_loc sector table (t_states, t_n): the sorted basis as int64
+    on the device, SENTINEL-padded up to a multiple of `chunk` when it is
+    longer than one chunk, and its length as a 0-d int64 device tensor."""
+    n = len(basis)
+    n_pad = -(-n // chunk) * chunk if n > chunk else n
+    buf = np.full((n_pad,), SENTINEL, dtype=np.int64)
+    buf[:n] = basis
+    return (torch.as_tensor(buf, device=device),
+            torch.full((), n, dtype=torch.int64, device=device))
+
+
 def vmc_loss(model: NADE, dt: DeviceTerms, batch: SampleBatch,
-             reweight_by_psi: bool = False):
-    """Surrogate loss of one batch. Returns (loss, e_mean, e_var)."""
+             reweight_by_psi: bool = False, table=None, fwd_chunk: int = 65536):
+    """Surrogate loss of one batch. Returns (loss, e_mean, e_var).
+
+    With `table=(t_states, t_n)` (`sector_table`) the local energies are
+    exact: psi over the whole sector (`log_psi_table`, outside autograd), and
+    every coupled state resolved against it; without, against the batch
+    itself (psi(s') = 0 for unsampled states)."""
     live = torch.arange(batch.states.shape[0], device=batch.states.device) < batch.n_unique
+    if table is not None:
+        t_states, t_n = table
+        t_la, t_ph = log_psi_table(model, t_states, fwd_chunk)
     la, ph = log_psi(model, batch.states)
     la_d, ph_d = la.detach(), ph.detach()
     if reweight_by_psi:
@@ -167,7 +226,11 @@ def vmc_loss(model: NADE, dt: DeviceTerms, batch: SampleBatch,
         w = torch.where(live, batch.counts, 0.0)
     # an empty batch gives 0-weights (a no-op step), not 0/0
     w = w / torch.clamp(w.sum(), min=1e-300)
-    e_re, e_im = local_energy(dt, batch.states, la_d, ph_d, batch.n_unique)
+    if table is not None:
+        e_re, e_im = local_energy(dt, t_states, t_la, t_ph, t_n,
+                                  queries=(batch.states, la_d, ph_d))
+    else:
+        e_re, e_im = local_energy(dt, batch.states, la_d, ph_d, batch.n_unique)
     e_re = torch.where(live, e_re, 0.0)
     e_im = torch.where(live, e_im, 0.0)
     e_mean = torch.sum(w * e_re)
@@ -179,27 +242,42 @@ def vmc_loss(model: NADE, dt: DeviceTerms, batch: SampleBatch,
     return loss, e_mean, e_var
 
 
+def _gradients(model: NADE, optimizer, dt: DeviceTerms, batch: SampleBatch,
+               reweight_by_psi: bool, table, fwd_chunk: int):
+    """Backward of the surrogate loss into the parameters' .grad. Returns
+    (params, loss, e_mean, e_var, gradient norm, bad): device tensors, bad a
+    bool that holds where the update must be withheld (capacity overflow, or
+    a non-finite loss, gradient norm or energy)."""
+    optimizer.zero_grad(set_to_none=True)
+    loss, e_mean, e_var = vmc_loss(model, dt, batch, reweight_by_psi, table, fwd_chunk)
+    loss.backward()
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    gnorm = _grad_norm(params)
+    bad = (batch.overflow | ~torch.isfinite(loss) | ~torch.isfinite(gnorm)
+           | ~torch.isfinite(e_mean))
+    return params, loss.detach(), e_mean, e_var, gnorm, bad
+
+
 def vmc_update(model: NADE, optimizer, scheduler, dt: DeviceTerms,
                batch: SampleBatch, reweight_by_psi: bool = False,
-               clip: Optional[TrailingClip] = None) -> dict:
+               clip: Optional[TrailingClip] = None, table=None,
+               fwd_chunk: int = 65536) -> dict:
     """One Adam step on a sampled batch, withheld when the batch overflowed
     or anything went non-finite (one NaN would poison the parameters and
     the Adam moments for good). Does the step's one host readback and
     returns host scalars: e_loc, e_loc_var, loss, grad_norm (before the
-    clip), clip_scale (1 without a clip), n_unique, overflow, applied."""
-    optimizer.zero_grad(set_to_none=True)
-    loss, e_mean, e_var = vmc_loss(model, dt, batch, reweight_by_psi)
-    loss.backward()
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    gnorm = _grad_norm(params)
-    scalars = [e_mean, e_var, loss.detach().to(torch.float64), gnorm.to(torch.float64),
-               batch.n_unique.to(torch.float64), batch.overflow.to(torch.float64)]
+    clip), clip_scale (1 without a clip), n_unique, overflow, applied.
+    `table=` and `fwd_chunk` as in `vmc_loss` (exact local energies)."""
+    params, loss, e_mean, e_var, gnorm, bad = _gradients(
+        model, optimizer, dt, batch, reweight_by_psi, table, fwd_chunk)
+    scalars = [e_mean, e_var, loss.to(torch.float64), gnorm.to(torch.float64),
+               batch.n_unique.to(torch.float64), batch.overflow.to(torch.float64),
+               bad.to(torch.float64)]
     if clip is not None:
         scale, kept = clip.scale(gnorm)
         scalars.append(scale.to(torch.float64))
     vals = torch.stack(scalars).cpu().tolist()
-    e_loc, e_loc_var, loss_v, gnorm_v, n_unq, ovf = vals[:6]
-    bad = bool(ovf) or not all(np.isfinite([loss_v, gnorm_v, e_loc]))
+    e_loc, e_loc_var, loss_v, gnorm_v, n_unq, ovf, bad = vals[:7]
     if not bad:
         if clip is not None:
             for p in params:
@@ -210,8 +288,149 @@ def vmc_update(model: NADE, optimizer, scheduler, dt: DeviceTerms,
         scheduler.step()
     optimizer.zero_grad(set_to_none=True)
     return {"e_loc": e_loc, "e_loc_var": e_loc_var, "loss": loss_v,
-            "grad_norm": gnorm_v, "clip_scale": vals[6] if clip is not None else 1.0,
+            "grad_norm": gnorm_v, "clip_scale": vals[7] if clip is not None else 1.0,
             "n_unique": int(n_unq), "overflow": bool(ovf), "applied": not bad}
+
+
+def _set_schedule(optimizer, scheduler, applied: int):
+    """Put the LR schedule where `applied` applied updates leave it: the
+    scheduler's count and each group's LR (the base LR times its lambda)."""
+    scheduler.last_epoch = applied
+    for g, base, lr_at in zip(optimizer.param_groups, scheduler.base_lrs,
+                              scheduler.lr_lambdas):
+        g["lr"] = base * lr_at(applied)
+    scheduler._last_lr = [g["lr"] for g in optimizer.param_groups]
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A window's one device-to-host copy."""
+    return t.cpu().numpy()
+
+
+class UpdateWindow:
+    """Consecutive `vmc_update` steps with no host sync between them.
+
+    Everything the host decides per step in `vmc_update` is decided on the
+    card: the withholding (a device bool from the batch's overflow and the
+    finiteness of the loss, gradient norm and energy), Adam (the update of
+    torch.optim.Adam's formula on the optimizer's own `exp_avg` and
+    `exp_avg_sq`, with each parameter's step count on the card; the moments
+    and parameters are replaced by where(ok, new, old)), the LR (each
+    group's schedule tabulated on the host before the window for every
+    count of applied updates it can reach, read by the device count) and
+    the clip (`TrailingClip.commit(kept, ok)`). A withheld step changes no
+    parameter, moment, step count, LR position or clip ring.
+
+    `step()` runs one update; `close()` does the window's one readback (the
+    per-step (e_loc, e_loc_var) rows and whether each step was applied) and
+    leaves the optimizer's step counts and the scheduler where the same
+    applied updates through `vmc_update` leave them. The optimizer must be
+    torch.optim.Adam as `TrainConfig.make_optimizer` makes it (no weight
+    decay, amsgrad or maximize) and the scheduler its LambdaLR."""
+
+    def __init__(self, model: NADE, optimizer, scheduler, length: int,
+                 clip: Optional[TrailingClip] = None):
+        for g in optimizer.param_groups:
+            if g["weight_decay"] or g["amsgrad"] or g["maximize"]:
+                raise ValueError("UpdateWindow runs plain Adam only")
+        dev = next(model.parameters()).device
+        self.model, self.optimizer, self.scheduler, self.clip = model, optimizer, scheduler, clip
+        self.length, self.i = int(length), 0
+        start = scheduler.last_epoch
+        self.lr = torch.tensor([[base * lr_at(start + k) for k in range(self.length)]
+                                for base, lr_at in zip(scheduler.base_lrs, scheduler.lr_lambdas)],
+                               dtype=torch.float64, device=dev)
+        self.n_applied = torch.zeros((), dtype=torch.int64, device=dev)
+        self.metrics = torch.full((self.length, 2), float("nan"), dtype=torch.float64,
+                                  device=dev)
+        self.applied = torch.zeros((self.length,), dtype=torch.float64, device=dev)
+        # parameter -> its Adam step count on the card (f64); a parameter with
+        # no Adam state yet gets it at its first step, as in torch.optim.Adam
+        self.steps = {p: torch.full((), float(optimizer.state[p]["step"]),
+                                    dtype=torch.float64, device=dev)
+                      for g in optimizer.param_groups for p in g["params"]
+                      if optimizer.state.get(p)}
+        self.created = []   # parameters whose Adam state this window created
+
+    def _adam_state(self, p):
+        state = self.optimizer.state[p]
+        if not state:   # as torch.optim.Adam makes it on a parameter's first step
+            state["step"] = torch.tensor(0.0, dtype=torch.float32)
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            self.created.append(p)
+            self.steps[p] = torch.zeros((), dtype=torch.float64, device=p.device)
+        return state
+
+    def step(self, dt: DeviceTerms, batch: SampleBatch, reweight_by_psi: bool = True):
+        if self.i >= self.length:
+            raise ValueError(f"the window holds {self.length} steps")
+        params, _, e_mean, e_var, gnorm, bad = _gradients(
+            self.model, self.optimizer, dt, batch, reweight_by_psi, None, 0)
+        ok = ~bad
+        with torch.no_grad():
+            if self.clip is not None:
+                scale, kept = self.clip.scale(gnorm)
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.mul_(scale)
+                self.clip.commit(kept, ok)
+            lrs = torch.index_select(self.lr, 1, self.n_applied.reshape(1))
+            for g_i, group in enumerate(self.optimizer.param_groups):
+                lr = lrs[g_i, 0]
+                b1, b2 = group["betas"]
+                for p in group["params"]:
+                    if p.grad is None:
+                        continue
+                    state = self._adam_state(p)
+                    grad, m, v, st = p.grad, state["exp_avg"], state["exp_avg_sq"], self.steps[p]
+                    st_new = st + 1
+                    m_new = m.lerp(grad, 1 - b1)
+                    v_new = v.mul(b2).addcmul_(grad, grad, value=1 - b2)
+                    step_size = lr / (1 - torch.pow(b1, st_new))
+                    denom = (v_new.sqrt() / torch.sqrt(1 - torch.pow(b2, st_new))).add_(
+                        group["eps"])
+                    p_new = p.addcdiv(m_new * -step_size, denom)
+                    p.copy_(torch.where(ok, p_new, p))
+                    m.copy_(torch.where(ok, m_new, m))
+                    v.copy_(torch.where(ok, v_new, v))
+                    st.copy_(torch.where(ok, st_new, st))
+            self.metrics[self.i] = torch.stack([e_mean, e_var])
+            self.applied[self.i] = ok.to(torch.float64)
+            self.n_applied += ok.to(torch.int64)
+        self.optimizer.zero_grad(set_to_none=True)
+        self.i += 1
+
+    def close(self):
+        """The window's one readback: ((length, 2) f64 e_loc and e_loc_var of
+        each step, NaN past the steps run; (length,) bool, applied)."""
+        host = _to_host(torch.cat([self.metrics.reshape(-1), self.applied]))
+        ms, applied = host[:2 * self.length].reshape(self.length, 2), host[2 * self.length:] > 0
+        n = int(applied.sum())
+        if n == 0:
+            for p in self.created:
+                del self.optimizer.state[p]
+        else:
+            for p in self.steps:
+                self.optimizer.state[p]["step"] += n
+        _set_schedule(self.optimizer, self.scheduler, self.scheduler.last_epoch + n)
+        return ms, applied
+
+
+def vmc_update_scan(model: NADE, optimizer, scheduler, dt: DeviceTerms, batch: SampleBatch,
+                    n_live: int, reweight_by_psi: bool = True, length: int = 25,
+                    clip: Optional[TrailingClip] = None):
+    """`length` updates on one fixed batch (exact-sampling training's
+    full-basis batch) as one `UpdateWindow`: no host sync between them and
+    one readback after them. Steps from `n_live` on are masked: the JAX
+    package computes them and keeps nothing (one compiled program serves
+    every window); here they are not run. Returns ((length, 2) f64 host
+    array of each step's (e_loc, e_loc_var), NaN past n_live; (length,) bool,
+    whether each step was applied)."""
+    window = UpdateWindow(model, optimizer, scheduler, length, clip)
+    for _ in range(min(int(n_live), window.length)):
+        window.step(dt, batch, reweight_by_psi)
+    return window.close()
 
 
 def _adam_step(model: NADE, opt, loss_fn) -> torch.Tensor:
@@ -237,6 +456,8 @@ class VMCTrainer:
     COUNTER_MAX = 2_000_000
     # counter entries persisted per checkpoint (its top ones)
     COUNTER_SAVE_MAX = 200_000
+    # run_exact's full-basis steps per window (one readback each)
+    EXACT_FLUSH = 25
 
     def __init__(
         self,
@@ -261,6 +482,16 @@ class VMCTrainer:
                                          hilbert=hilbert, device=self.device)
         self.dt_h = (self.dt if train_terms is None
                      else DeviceTerms.from_terms(terms, hilbert=hilbert, device=self.device))
+        # the exact-E_loc sector table (single card: one chunk is the padding unit)
+        self._table = None
+        if train_cfg.exact_eloc:
+            # as in the JAX package, whose K-FAC update has no table= path;
+            # unreachable until the natural-gradient optimizers are ported
+            # (TrainConfig refuses use_sr and use_kfac)
+            if train_cfg.use_kfac:
+                raise ValueError("exact_eloc is implemented for the Adam update paths "
+                                 "and single-chip SR")
+            self._table = sector_table(hilbert.basis, int(train_cfg.eloc_fwd_chunk), self.device)
         init_gen = torch.Generator().manual_seed(train_cfg.seed)
         self.model = NADE(model_cfg, init_gen).to(self.device)
         self.gen = torch.Generator(device=self.device).manual_seed(train_cfg.seed + 1)
@@ -306,7 +537,8 @@ class VMCTrainer:
 
     def _update(self, batch: SampleBatch, reweight_by_psi: bool) -> dict:
         return vmc_update(self.model, self.optimizer, self.scheduler, self.dt, batch,
-                          reweight_by_psi, clip=self.clip)
+                          reweight_by_psi, clip=self.clip, table=self._table,
+                          fwd_chunk=self.tc.eloc_fwd_chunk)
 
     def _record_samples(self, batch: SampleBatch, n_unq: int):
         """Every RECORD_FREQ-th step, add the batch's n_unq live states to the
@@ -481,6 +713,66 @@ class VMCTrainer:
                 print(f"step {self.n_steps}: <E>={m['e_loc']:.6f} "
                       f"var={m['e_loc_var']:.6f} unq={n_unq} d_p={self.d_p:.2e}",
                       flush=True)
+        return self
+
+    def _basis_batch(self, states: np.ndarray) -> SampleBatch:
+        """A batch of the given basis states, sorted, each with count 1."""
+        states = np.sort(states)
+        n = len(states)
+        return SampleBatch(states=torch.as_tensor(states, device=self.device),
+                           counts=torch.ones((n,), dtype=torch.float64, device=self.device),
+                           n_unique=torch.full((), n, dtype=torch.int64, device=self.device),
+                           overflow=torch.zeros((), dtype=torch.bool, device=self.device))
+
+    def _log_exact(self, e: float, v: float, nu: int, output_freq: int):
+        self._log_step(e, v, nu)
+        if self.n_steps % output_freq == 0 or self.n_steps == 1:
+            print(f"step {self.n_steps}: <E>={e:.6f} var={v:.6f}", flush=True)
+
+    def run_exact(self, n_epochs: int, output_freq: int = 25,
+                  batch_size: Optional[int] = None, save_freq: Optional[int] = None):
+        """Train with exact |psi|^2 weights over the whole restricted basis
+        (exact-sampling training). Full-basis mode (no `batch_size`, or one
+        not below the basis): the batch is the sorted basis, each state with
+        count 1, and the steps run EXACT_FLUSH at a time in `vmc_update_scan`
+        windows, one readback each; a checkpoint is written after a window
+        that reached a multiple of save_freq. With `batch_size`, each step is
+        one `vmc_update` on a minibatch of basis states drawn without
+        replacement by np.random.default_rng(seed + 1) (the same draws as the
+        JAX package), with exact local energies where the trainer has its
+        sector table. The JAX package caps a window at 3e6 state-steps and
+        halves it after a run that died inside one (its in-flight sentinel
+        file): both work around a fault of a TPU worker, and neither is
+        kept here."""
+        basis = self.hilbert.basis
+        rng = np.random.default_rng(self.tc.seed + 1)
+        if not batch_size or batch_size >= len(basis):
+            full = self._basis_batch(basis)
+            done = 0
+            while done < n_epochs:
+                k = min(self.EXACT_FLUSH, n_epochs - done)
+                t0 = time.time()
+                ms, _ = vmc_update_scan(self.model, self.optimizer, self.scheduler, self.dt,
+                                        full, k, length=self.EXACT_FLUSH, clip=self.clip)
+                wall = (time.time() - t0) / k
+                for i in range(k):
+                    self.n_steps += 1
+                    self.run_time += wall
+                    self._log_exact(float(ms[i, 0]), float(ms[i, 1]), len(basis), output_freq)
+                done += k
+                if save_freq and self.save_loc and (self.n_steps % save_freq) < k:
+                    self.save()
+            return self
+        for _ in range(n_epochs):
+            t0 = time.time()
+            batch = self._basis_batch(basis[rng.choice(len(basis), size=batch_size,
+                                                       replace=False)])
+            m = self._update(batch, True)
+            self.n_steps += 1
+            self.run_time += time.time() - t0
+            self._log_exact(m["e_loc"], m["e_loc_var"], batch_size, output_freq)
+            if save_freq and self.save_loc and self.n_steps % save_freq == 0:
+                self.save()
         return self
 
     # -- warm starts (each with its own plain Adam, optax.adam(lr)'s defaults)
@@ -805,12 +1097,9 @@ class VMCTrainer:
                 "step": torch.tensor(float(steps[name]), dtype=torch.float32),
                 "exp_avg": mu[name].to(p.device), "exp_avg_sq": nu[name].to(p.device)}
         # the schedule counts applied updates, as the scheduler's last_epoch
-        applied = (int(parts["schedule"]["count"]) if "schedule" in parts
-                   else int(parts["adam"]["count"]))
-        self.scheduler.last_epoch = applied
-        for g, lr_at in zip(self.optimizer.param_groups, self.scheduler.lr_lambdas):
-            g["lr"] = lr_at(applied)
-        self.scheduler._last_lr = [g["lr"] for g in self.optimizer.param_groups]
+        _set_schedule(self.optimizer, self.scheduler,
+                      int(parts["schedule"]["count"]) if "schedule" in parts
+                      else int(parts["adam"]["count"]))
         if self.clip is not None:
             self.clip.load_state_dict(parts["clip"])
 

@@ -41,6 +41,11 @@ one; `run_density` launches `compact_children` once per shell and never
 card's generator bitwise, and the next step draws the same batch and gives
 its energy within 2e-4 Ha (the engines' bar).
 
+Exact mode on the card (N2 STO-3G): a window of updates over the whole
+basis runs under torch.cuda.set_sync_debug_mode("error") and ends within
+rtol 1e-5 / atol 1e-7 of the same sequential updates; `run_exact` in both
+modes with exact local energies.
+
 The CLI on the card (chip_smoke.py phase 13's two runs at a small width,
 3 steps): finite energies, the run's files, and each kernel of its path
 launched. A LUT model's `sample()` with float32 and float64 conditionals:
@@ -1535,6 +1540,62 @@ def test_run_density_on_the_card_runs_compact_children():
     assert (_compact_children.launches - before[0]) % tr.cfg.n_shells == 0
     assert _compact_children.launches > before[0]
     assert tr.n_steps == 1 and tr.sampled_counter and np.isfinite(tr.log["E_LOC"][-1][1])
+
+
+@pytest.mark.parametrize("engine", ["dense", "rank", "sort"])
+def test_exact_window_on_the_card_has_no_host_sync(engine):
+    """Exact-sampling windows on N2 STO-3G's whole basis (clipped, n_train 4:
+    the LR switches inside the window): after one window that warms the
+    caches, a window of 3 steps under torch.cuda.set_sync_debug_mode("error")
+    (any synchronizing call raises) ends within rtol 1e-5 / atol 1e-7 of 3
+    vmc_update calls from the same state, with the same Adam step counts,
+    LR position and clip count."""
+    dev = _card()
+    a, b = (_n2_trainer(dev, grad_clip_factor=2.0, n_train=4) for _ in range(2))
+    if engine != "dense":
+        off = dict(dense=None) if engine == "rank" else dict(rank_spec=None, dense=None)
+        a.dt = b.dt = dataclasses.replace(a.dt, **off)
+    full = a._basis_batch(a.hilbert.basis)
+    for tr in (a, b):
+        nt.trainer.vmc_update_scan(tr.model, tr.optimizer, tr.scheduler, tr.dt, full, 1,
+                                   length=1, clip=tr.clip)
+    window = nt.trainer.UpdateWindow(a.model, a.optimizer, a.scheduler, 3, a.clip)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            window.step(a.dt, full)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ms, applied = window.close()
+    rows = [nt.trainer.vmc_update(b.model, b.optimizer, b.scheduler, b.dt, full, True,
+                                  clip=b.clip) for _ in range(3)]
+    assert applied.all() and np.isfinite(ms).all()
+    np.testing.assert_allclose(ms[:, 0], [m["e_loc"] for m in rows], rtol=1e-6)
+    for (k, p), (_, q) in zip(a.model.named_parameters(), b.model.named_parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-7, msg=k)
+    for sa, sb in zip(a.optimizer.state.values(), b.optimizer.state.values()):
+        assert float(sa["step"]) == float(sb["step"]) == 4
+        torch.testing.assert_close(sa["exp_avg"], sb["exp_avg"], rtol=1e-5, atol=1e-7)
+    assert a.scheduler.last_epoch == b.scheduler.last_epoch == 4
+    assert a.optimizer.param_groups[0]["lr"] == b.optimizer.param_groups[0]["lr"]
+    assert int(a.clip.count) == int(b.clip.count) == 4
+
+
+def test_run_exact_on_the_card():
+    """run_exact on N2 STO-3G with exact local energies: 3 full-basis steps
+    (one window, one dense_grid_accumulate launch a step) and 2 minibatch
+    steps of 2,000 states against the sector table; finite energies."""
+    dev = _card()
+    tr = _n2_trainer(dev, exact_eloc=True, eloc_fwd_chunk=4096)
+    assert tr._table[0].shape[0] == 16_384 and int(tr._table[1]) == 14_400
+    before = dense_grid_accumulate.launches
+    tr.run_exact(3)
+    assert dense_grid_accumulate.launches - before == 3
+    tr.run_exact(2, batch_size=2000)
+    assert dense_grid_accumulate.launches - before == 5
+    assert [s for s, _ in tr.log["E_LOC"]] == [1, 2, 3, 4, 5]
+    assert np.isfinite([v for _, v in tr.log["E_LOC"]]).all()
 
 
 def test_checkpoint_round_trip_on_the_card(tmp_path):

@@ -361,7 +361,7 @@ def _check_h2_trains(rank_engine):
 
 
 def test_unported_train_options_raise():
-    for kw in (dict(use_sr=True), dict(use_kfac=True), dict(exact_eloc=True)):
+    for kw in (dict(use_sr=True), dict(use_kfac=True)):
         with pytest.raises(NotImplementedError):
             TrainConfig(**kw)
     assert TrainConfig(grad_clip_factor=2.0).make_clip() is not None  # ported

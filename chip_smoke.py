@@ -334,6 +334,29 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      the summary's exact <psi|H|psi> at or above the basis ground state
      (its subspace energy), dense_grid_accumulate once a step; then that
      kernel on the whole basis's grid against its plain version and timed.
+ 15. the natural-gradient optimizers at the paper width (phase 3's model and
+     configuration, random weights from seed 0), every count set to 0 before
+     each driven call and its launches summed into "launches_natgrad": 15a
+     NATGRAD_STEPS SR steps at the JAX package's defaults (cg_iters 50,
+     damping 1e-3; the last with sr_kl_clip SR_KL_CLIP) through FactorTerms,
+     one factored_cells_accumulate launch an update and split_and_compact once
+     a shell of every sample() call, nothing else; each step's wall time, CG
+     iterations, jvp and vjp_fn calls (cg_iters + 1 jvp, one more vjp_fn for
+     the gradient, one more of each with the clip), sr_dx_norm and
+     grad_norm, step 2 under torch.profiler (its device time and its kernels
+     by time), the peak device memory; one sr_update from the batch to its
+     readback under torch.cuda.set_sync_debug_mode("error"); the card's S v of
+     a seeded v, gradient and update after CUT_CG_ITERS iterations on
+     CUT_ROWS live rows against the CPU port's (SV_RTOL, SR_UPDATE_RTOL); 15b
+     NATGRAD_EXACT_STEPS SR steps with exact_eloc (the sector table of 26 x
+     65,536 rows, factored_cells_accumulate at the query rows once an update);
+     15c NATGRAD_STEPS K-FAC steps at its defaults, the factor Grams and solves
+     of one update timed on a real batch's taps and their share of a step's
+     device time, one kfac_update under the sync check, and the card's factors,
+     nu and update on CUT_ROWS rows against the CPU port's (KFAC_RTOL); 15d
+     run D of the CLI (CLI_RUN_D: N2 STO-3G on DenseTerms at run A's width),
+     -sr for 3 steps, -kfac for 3 and -c resumed for a 4th: finite energies,
+     log.jsonl, the K-FAC state read back from checkpoint.pt at step 4.
 With --profile, the profiled step of each engine (H2O 6-31G factored and
 rank, Li2O staircase, N2 6-31G sort, frozen-core N2 6-31G rank with no
 dense A) must show one device kernel per wrapper call of the
@@ -373,8 +396,9 @@ wrapper's host pieces unheld and whether the graph replays were bitwise;
 multinomial4_split's carries the decomposition, DIR's beside it, and the
 division proof),
 with "launches_cli_a" and "launches_cli_b" from phase 13's runs,
-"launches_exact" from phase 14 and "launches_cli_c" from run C in every
-entry, and for the five kernels phase 14 and run C drive at new shapes
+"launches_exact" from phase 14, "launches_cli_c" from run C and
+"launches_natgrad" from phase 15 in every entry, and for the five kernels
+phase 14 and run C drive at new shapes
 (factored_cells_accumulate at the query rows of the full-sector grid,
 "exact_queries_*", and on the whole basis, "full_basis_*";
 rank_local_energy, sorted_local_energy, xl_grid_accumulate and
@@ -2116,6 +2140,413 @@ def _cli_run_c(zero_counts, wrappers):
     return counts, dict(wall=wall, err=err, time=t_k, plain_ms=t_plain,
                         step_s=float(np.median(np.diff([0.0] + [x["value"] for x in lines
                                                                if x["key"] == "TIME"]))))
+
+
+# phase 15: the natural-gradient optimizers at the paper width (phase 3's model
+# and configuration)
+NATGRAD_STEPS = 3             # 15a SR steps (the last with SR_KL_CLIP), 15c K-FAC steps
+NATGRAD_EXACT_STEPS = 2       # 15b SR steps with exact_eloc
+SR_KL_CLIP = 1e-3             # 15a: sr_kl_clip of the last step
+CUT_ROWS = 4_096              # 15a/15c: live rows of the batch held against the CPU port
+CUT_CG_ITERS = 5              # 15a: cg_iters of that comparison
+# card against CPU, |card - CPU| / |CPU|; measured (H100, PR 18): S v 5.2e-7, the SR
+# update after CUT_CG_ITERS iterations 3.9e-5 (float32 CG magnifies the last bits of
+# the gradient, 7.2e-7 apart), K-FAC's factors 4.4e-6 and update 8.8e-5 (float32 LU
+# solves of the damped 512 x 512 factors)
+SV_RTOL = 1e-5                # 15a: S v of a seeded v
+SR_UPDATE_RTOL = 2e-4         # 15a: the update after CUT_CG_ITERS iterations
+KFAC_RTOL = 2e-4              # 15c: factors, nu and the update
+CLI_RUN_D = ["-m", "N2_STO-3G_gen", "-n_hid", "64", "-single_phase", "-n_hid_phase", "512",
+             "-n_layer_phase", "2", "-n_unq_samps_min", "1000", "-n_train", "3",
+             "-output_freq", "5", "-s", "7"]
+
+
+def _norm_err(got, want):
+    """|got - want| / |want| of two tensors (any devices), in float64."""
+    import torch
+
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float(torch.linalg.norm(got - want) / torch.clamp(torch.linalg.norm(want),
+                                                              min=1e-300))
+
+
+def _natgrad(dev, hil, terms, cfg, tc, zero_counts, wrappers):
+    """Phase 15: the natural-gradient optimizers at the paper width on H2O
+    6-31G (FactorTerms). 15a SR at the JAX defaults (cg_iters 50, damping
+    1e-3), the last step with sr_kl_clip; 15b SR with exact_eloc; 15c K-FAC at
+    its defaults; each with its step times, a profiled step's device time,
+    the peak memory, one update under set_sync_debug_mode("error") and the
+    card's update held against the CPU port's on a CUT_ROWS-row batch; 15d
+    run D of the CLI (-sr, then -kfac with a resumption) on N2 STO-3G.
+    Returns {"launches": phase 15's launches by kernel (the driven steps,
+    updates and CLI runs; not the card-against-CPU holds), and its numbers}."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import naqs_tpu_torch as nt
+    from naqs_tpu_torch import cli
+    from naqs_tpu_torch import kfac as kfac_mod
+    from naqs_tpu_torch import sr as sr_mod
+    from naqs_tpu_torch import trainer as trainer_mod
+    from naqs_tpu_torch.models.nade import log_psi_taps, make_zero_eps
+    from naqs_tpu_torch.ops.local_energy import DeviceTerms
+    from naqs_tpu_torch.sampler import SampleBatch
+    from naqs_tpu_torch.utils.cuda_timing import time_in_turns
+
+    names = {w: w.__name__.lstrip("_") for w in wrappers}
+    launches = dict.fromkeys(names.values(), 0)
+    out = {}
+    ad = {"jvp": 0, "vjp_fn": 0}
+    calls = {"update": 0, "sample": 0}
+    jvp0, vjp0 = sr_mod.jvp, sr_mod.vjp
+    sr0, kfac0, sample0 = trainer_mod.sr_update, trainer_mod.kfac_update, trainer_mod.sample
+
+    def jvp_counted(*args, **kw):
+        ad["jvp"] += 1
+        return jvp0(*args, **kw)
+
+    def vjp_counted(*args, **kw):
+        primal, fn = vjp0(*args, **kw)
+
+        def fn_counted(*a, **k):
+            ad["vjp_fn"] += 1
+            return fn(*a, **k)
+
+        return primal, fn_counted
+
+    def count_call(fn, key):
+        def counted_fn(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+
+        return counted_fn
+
+    def read_launches():
+        got = {names[w]: w.launches for w in wrappers}
+        for k, v in got.items():
+            launches[k] += v
+        return {k: v for k, v in got.items() if v}
+
+    def profiled(fn):
+        """fn() under torch.profiler: (its result, wall s, device ms, the device
+        time by kernel name, ms)."""
+        torch.cuda.synchronize()
+        t = time.time()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = fn()
+            torch.cuda.synchronize()
+        wall = time.time() - t
+        by_name = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        return res, wall, sum(by_name.values()), by_name
+
+    def stepped(tr, n, label, kernel, before_step=None, profile_step=None):
+        """n trainer steps with every count at 0 before; fails unless `kernel`
+        ran once per update and split_and_compact once per shell of every
+        sample() call, and nothing else."""
+        zero_counts()
+        calls.update(update=0, sample=0)
+        ad.update(jvp=0, vjp_fn=0)
+        rows = []
+        for i in range(n):
+            if before_step:
+                before_step(i)
+            ad_before = dict(ad)
+            if i == profile_step:
+                res, wall, dev_ms, by_name = profiled(tr.step)
+            else:
+                torch.cuda.synchronize()
+                t = time.time()
+                res = tr.step()
+                torch.cuda.synchronize()
+                wall, dev_ms, by_name = time.time() - t, None, None
+            if not (math.isfinite(res["e_loc"]) and math.isfinite(res["e_loc_var"])):
+                raise SystemExit(f"{label}: non-finite energy at step {i + 1}: {res}")
+            res.update(wall=wall, device_ms=dev_ms, jvp=ad["jvp"] - ad_before["jvp"],
+                       vjp_fn=ad["vjp_fn"] - ad_before["vjp_fn"])
+            rows.append(res)
+            keep = {k: (round(v, 6) if isinstance(v, float) else v) for k, v in res.items()
+                    if k not in ("time", "n_samples")}
+            print(f"[natgrad] {label} step {i + 1}: {wall:.3f} s"
+                  + (" (profiled)" if i == profile_step else "") + f"; {keep}", flush=True)
+            if by_name:
+                top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+                print(f"[natgrad] {label} step {i + 1} under torch.profiler: {dev_ms:.2f} ms of "
+                      f"device time; by kernel (ms): "
+                      f"{json.dumps({k[:60]: round(v, 3) for k, v in top})}", flush=True)
+        got = read_launches()
+        want = {kernel: calls["update"], "split_and_compact": tr.cfg.n_shells * calls["sample"]}
+        print(f"[natgrad] {label}: {n} steps, {calls['update']} updates, {calls['sample']} "
+              f"sample() calls; launches {got}", flush=True)
+        if got != want or calls["update"] != n:
+            raise SystemExit(f"{label}: launches {got}, expected {want}")
+        return rows, got
+
+    def no_sync(label, fn, kernel):
+        """fn() under torch.cuda.set_sync_debug_mode("error") (any host sync
+        raises), its counts at 0 before: one `kernel` launch."""
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = read_launches()
+        print(f"[natgrad] {label} under torch.cuda.set_sync_debug_mode('error'): no host sync; "
+              f"launches {got}", flush=True)
+        if got != {kernel: 1}:
+            raise SystemExit(f"{label}: launches {got}, expected one {kernel}")
+        return res
+
+    def live_rows(tr):
+        """A sampled batch through the trainer's controller, cut to its live
+        rows as step() cuts it."""
+        batch, n_unq = tr._get_samples()
+        return SampleBatch(batch.states[:n_unq], batch.counts[:n_unq], batch.n_unique,
+                           batch.overflow), n_unq
+
+    def cut(batch, device):
+        """The first CUT_ROWS live rows of a batch as a batch of their own."""
+        return SampleBatch(batch.states[:CUT_ROWS].to(device),
+                           batch.counts[:CUT_ROWS].to(device),
+                           torch.full((), CUT_ROWS, dtype=torch.int64, device=device),
+                           torch.zeros((), dtype=torch.bool, device=device))
+
+    sr_mod.jvp, sr_mod.vjp = jvp_counted, vjp_counted
+    trainer_mod.sr_update = count_call(sr0, "update")
+    trainer_mod.kfac_update = count_call(kfac0, "update")
+    trainer_mod.sample = count_call(sample0, "sample")
+    work = tempfile.mkdtemp(prefix="chip_smoke_natgrad_")
+    try:
+        # 15a. SR at the JAX defaults
+        t = time.time()
+        tc_sr = dataclasses.replace(tc, use_sr=True)
+        tr = nt.VMCTrainer(cfg, terms, hil, tc_sr, device=dev)
+        if not (tr.tc.sr_cg_iters == 50 and tr.tc.sr_damping == 1e-3
+                and type(tr.dt.dense).__name__ == "FactorTerms"):
+            raise SystemExit("15a: the SR trainer's defaults or dispatch are not as expected")
+        torch.cuda.reset_peak_memory_stats()
+        start_a = torch.cuda.memory_allocated() / 2**30
+
+        def kl_on_last(i):
+            if i == NATGRAD_STEPS - 1:
+                tr.tc = dataclasses.replace(tr.tc, sr_kl_clip=SR_KL_CLIP)
+
+        rows_a, _ = stepped(tr, NATGRAD_STEPS, "15a SR", "factored_cells_accumulate",
+                            kl_on_last, profile_step=1)
+        peak_a = torch.cuda.max_memory_allocated() / 2**30
+        cg = tr.tc.sr_cg_iters
+        for i, r in enumerate(rows_a):
+            kl = i == NATGRAD_STEPS - 1
+            if not (r["jvp"] == cg + 1 + kl and r["vjp_fn"] == r["jvp"] + 1
+                    and 0 < r["cg_iters"] <= cg):
+                raise SystemExit(f"15a step {i + 1}: {r['jvp']} jvp and {r['vjp_fn']} vjp_fn "
+                                 f"calls, {r['cg_iters']} CG iterations (cg_iters {cg})")
+        print(f"[natgrad] 15a: SR on H2O 6-31G at cg_iters {cg}, damping {tr.tc.sr_damping} "
+              f"(sr_kl_clip {SR_KL_CLIP} on step {NATGRAD_STEPS}): step wall times "
+              f"{[round(r['wall'], 3) for r in rows_a]} s, step 2's device time "
+              f"{rows_a[1]['device_ms']:.2f} ms; peak device memory {peak_a:.2f} GiB "
+              f"({start_a:.2f} GiB allocated before the steps); trainer and steps "
+              f"{time.time() - t:.1f} s", flush=True)
+        live, n_unq = live_rows(tr)
+        lr = tr._current_lr()
+        m = no_sync("15a one sr_update (the batch to its readback)",
+                    lambda: sr_mod.sr_update(tr.model, tr.dt, live, lr, tr.tc.sr_damping,
+                                             cg_iters=cg, kl_clip=SR_KL_CLIP),
+                    "factored_cells_accumulate")
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"[natgrad] 15a: that update over {n_unq} live rows: {vals}", flush=True)
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise SystemExit(f"15a: the update under the sync check gave {vals}")
+        # the card's update against the CPU port's on CUT_ROWS live rows
+        t = time.time()
+        dt_cpu = DeviceTerms.from_terms(terms, hilbert=hil, device="cpu")
+        t_cpu_terms = time.time() - t
+        b_dev, b_cpu = cut(live, dev), cut(live, "cpu")
+        m_dev, m_cpu = copy.deepcopy(tr.model), copy.deepcopy(tr.model).cpu()
+        s_dev = sr_mod.sr_system(m_dev, tr.dt, b_dev, tr.tc.sr_damping)
+        s_cpu = sr_mod.sr_system(m_cpu, dt_cpu, b_cpu, tr.tc.sr_damping)
+        v = torch.randn(s_cpu[0].numel(), generator=torch.Generator().manual_seed(0))
+        sv_err = _norm_err(s_dev[3](v.to(dev)), s_cpu[3](v))
+        g_err = _norm_err(s_dev[2], s_cpu[2])
+        del s_dev, s_cpu
+        old = torch.cat([p.detach().reshape(-1).cpu() for p in m_cpu.parameters()])
+        t = time.time()
+        sr_mod.sr_update(m_dev, tr.dt, b_dev, lr, tr.tc.sr_damping, cg_iters=CUT_CG_ITERS)
+        torch.cuda.synchronize()
+        t_dev = time.time() - t
+        t = time.time()
+        sr_mod.sr_update(m_cpu, dt_cpu, b_cpu, lr, tr.tc.sr_damping, cg_iters=CUT_CG_ITERS)
+        t_cpu = time.time() - t
+        new_dev = torch.cat([p.detach().reshape(-1).cpu() for p in m_dev.parameters()])
+        new_cpu = torch.cat([p.detach().reshape(-1) for p in m_cpu.parameters()])
+        upd_err = _norm_err(new_dev - old, new_cpu - old)
+        print(f"[natgrad] 15a: the card against the CPU port on {CUT_ROWS} live rows, full "
+              f"width: S v of a seeded v {sv_err:.3e} (tol {SV_RTOL}), the gradient "
+              f"{g_err:.3e}, the update after {CUT_CG_ITERS} CG iterations {upd_err:.3e} (tol "
+              f"{SR_UPDATE_RTOL}) relative; the update {t_dev:.2f} s on the card, {t_cpu:.2f} s "
+              f"on the CPU (its DeviceTerms built in {t_cpu_terms:.1f} s)", flush=True)
+        if not (sv_err <= SV_RTOL and upd_err <= SR_UPDATE_RTOL):
+            raise SystemExit("15a: the card's SR update disagrees with the CPU port's")
+        del m_dev, m_cpu
+        out["sr"] = dict(step_s=[r["wall"] for r in rows_a], device_ms=rows_a[1]["device_ms"],
+                         peak_gib=peak_a, start_gib=start_a,
+                         cg_iters=[r["cg_iters"] for r in rows_a],
+                         jvp=[r["jvp"] for r in rows_a], vjp_fn=[r["vjp_fn"] for r in rows_a],
+                         sr_dx_norm=[r["sr_dx_norm"] for r in rows_a],
+                         grad_norm=[r["grad_norm"] for r in rows_a], sv_err=sv_err,
+                         grad_err=g_err, update_err=upd_err)
+
+        # 15b. SR with exact local energies against the whole sector
+        tc_x = dataclasses.replace(tc_sr, exact_eloc=True, eloc_fwd_chunk=EXACT_CHUNK)
+        tr_x = nt.VMCTrainer(cfg, terms, hil, tc_x, device=dev)
+        tr_x.model.load_state_dict(tr.model.state_dict())
+        t_states = tr_x._table[0]
+        torch.cuda.reset_peak_memory_stats()
+        start_b = torch.cuda.memory_allocated() / 2**30
+        rows_b, _ = stepped(tr_x, NATGRAD_EXACT_STEPS, "15b SR exact_eloc",
+                            "factored_cells_accumulate", profile_step=1)
+        peak_b = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[natgrad] 15b: SR with exact_eloc (the sector table of "
+              f"{t_states.shape[0] // EXACT_CHUNK} chunks of {EXACT_CHUNK} rows): step wall "
+              f"times {[round(r['wall'], 3) for r in rows_b]} s, step 2's device time "
+              f"{rows_b[1]['device_ms']:.2f} ms; peak device memory {peak_b:.2f} GiB "
+              f"({start_b:.2f} GiB allocated before the steps)", flush=True)
+        out["sr_exact"] = dict(step_s=[r["wall"] for r in rows_b],
+                               device_ms=rows_b[1]["device_ms"], peak_gib=peak_b,
+                               start_gib=start_b)
+        del tr_x
+
+        # 15c. K-FAC at its defaults
+        tr_k = nt.VMCTrainer(cfg, terms, hil, dataclasses.replace(tc, use_kfac=True),
+                             device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        start_c = torch.cuda.memory_allocated() / 2**30
+        rows_c, _ = stepped(tr_k, NATGRAD_STEPS, "15c K-FAC", "factored_cells_accumulate",
+                            profile_step=1)
+        peak_c = torch.cuda.max_memory_allocated() / 2**30
+        # the factor Grams and the solves of one update, on a real batch's taps
+        live_k, n_k = live_rows(tr_k)
+        with torch.no_grad():
+            w = live_k.counts / live_k.counts.sum()
+        eps = make_zero_eps(tr_k.model, n_k)
+        for layers in eps.values():
+            for e in layers:
+                e.requires_grad_(True)
+        (la, ph), taps = log_psi_taps(tr_k.model, live_k.states, eps)
+        leaves = [e for name in eps for e in eps[name]]
+        g_eps = torch.autograd.grad(torch.sum(w.float() * (la + ph)), leaves)
+        layers = [(name, li) for name in eps for li in range(len(eps[name]))]
+        # the parameters stand in for their gradients (the same shapes)
+        gw = {(n, li): getattr(tr_k.model, n).w[li].detach() for n, li in layers}
+        gb = {(n, li): getattr(tr_k.model, n).b[li].detach() for n, li in layers}
+        damp = torch.full((), tr_k.tc.kfac_damping, dtype=torch.float32, device=dev)
+
+        def grams_and_solves():
+            with torch.no_grad():
+                for (n, li), g in zip(layers, g_eps):
+                    A, G = kfac_mod._factor_stats(taps[n][li], g, w)
+                    kfac_mod._precondition({"A": A, "G": G}, gw[n, li], gb[n, li], damp)
+
+        def grams():
+            with torch.no_grad():
+                for (n, li), g in zip(layers, g_eps):
+                    kfac_mod._factor_stats(taps[n][li], g, w)
+
+        gs = time_in_turns({"grams and solves": grams_and_solves, "grams": grams},
+                           SLOW_REPEATS, SLOW_LAUNCHES)
+        share = gs["grams and solves"][0] / max(rows_c[1]["device_ms"], 1e-9)
+        print(f"[natgrad] 15c: K-FAC on H2O 6-31G (damping {tr_k.tc.kfac_damping}, decay "
+              f"{tr_k.tc.kfac_decay}, kl_clip {tr_k.tc.kfac_kl_clip}): step wall times "
+              f"{[round(r['wall'], 3) for r in rows_c]} s, step 2's device time "
+              f"{rows_c[1]['device_ms']:.2f} ms; peak device memory {peak_c:.2f} GiB "
+              f"({start_c:.2f} GiB allocated before the steps); the "
+              f"factor Grams and solves of one update over {n_k} rows "
+              f"{gs['grams and solves'][0]:.3f} ms held (the Grams alone "
+              f"{gs['grams'][0]:.3f}): {share:.1%} of the step's device time", flush=True)
+        del taps, g_eps, eps, la, ph
+        ks, m = no_sync("15c one kfac_update (the batch to its readback)",
+                        lambda: kfac_mod.kfac_update(tr_k.model, tr_k.kfac_state, tr_k.dt, live_k,
+                                                     tr_k._current_lr(), tr_k.tc.kfac_damping,
+                                                     tr_k.tc.kfac_decay, tr_k.tc.kfac_kl_clip),
+                        "factored_cells_accumulate")
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"[natgrad] 15c: that update over {n_k} live rows: {vals}, factor step "
+              f"{int(ks['step'])}", flush=True)
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise SystemExit(f"15c: the update under the sync check gave {vals}")
+        tr_k.kfac_state = ks
+        # the card's update against the CPU port's on CUT_ROWS live rows
+        b_dev, b_cpu = cut(live_k, dev), cut(live_k, "cpu")
+        m_dev, m_cpu = copy.deepcopy(tr_k.model), copy.deepcopy(tr_k.model).cpu()
+        ks_cpu = trainer_mod._to_device(ks, "cpu")
+        old = torch.cat([p.detach().reshape(-1).cpu() for p in m_cpu.parameters()])
+        k_dev, mk_dev = kfac_mod.kfac_update(m_dev, ks, tr_k.dt, b_dev, tr_k._current_lr())
+        k_cpu, mk_cpu = kfac_mod.kfac_update(m_cpu, ks_cpu, dt_cpu, b_cpu, tr_k._current_lr())
+        fac_err = max(_norm_err(fd[x], fc[x]) for name in ("amp", "phase")
+                      for fd, fc in zip(k_dev[name], k_cpu[name]) for x in ("A", "G"))
+        nu_err = abs(float(mk_dev["nu"]) - float(mk_cpu["nu"])) / float(mk_cpu["nu"])
+        new_dev = torch.cat([p.detach().reshape(-1).cpu() for p in m_dev.parameters()])
+        new_cpu = torch.cat([p.detach().reshape(-1) for p in m_cpu.parameters()])
+        kupd_err = _norm_err(new_dev - old, new_cpu - old)
+        print(f"[natgrad] 15c: the card against the CPU port on {CUT_ROWS} live rows: the "
+              f"factors {fac_err:.3e} (worst layer), nu {nu_err:.3e} ({float(mk_cpu['nu']):.4e}), "
+              f"the update {kupd_err:.3e} relative (tol {KFAC_RTOL})", flush=True)
+        if not max(fac_err, nu_err, kupd_err) <= KFAC_RTOL:
+            raise SystemExit("15c: the card's K-FAC update disagrees with the CPU port's")
+        out["kfac"] = dict(step_s=[r["wall"] for r in rows_c], device_ms=rows_c[1]["device_ms"],
+                           peak_gib=peak_c, start_gib=start_c,
+                           grams_solves_ms=gs["grams and solves"][0],
+                           grams_ms=gs["grams"][0], share=share, factor_err=fac_err,
+                           nu_err=nu_err, update_err=kupd_err)
+        del m_dev, m_cpu, tr_k, tr, dt_cpu
+
+        # 15d. run D of the CLI: -sr, then -kfac with a resumption
+        def run_d(label, argv, out_dir):
+            zero_counts()
+            torch.cuda.synchronize()
+            t = time.time()
+            summary = cli.run(argv + ["-o", out_dir])["run_0"]
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            got = read_launches()
+            lines = [json.loads(x) for x in open(os.path.join(out_dir, "log.jsonl"))]
+            e_loc = [x["value"] for x in lines if x["key"] == "E_LOC"]
+            print(f"[natgrad] 15d run D {label}: {wall:.1f} s; E_loc {e_loc}; exact energy "
+                  f"{summary.get('e_exact_final')}; launches {got}", flush=True)
+            need = ("split_and_compact", "dense_grid_accumulate")
+            if not (e_loc and np.isfinite(e_loc).all() and all(got.get(k) for k in need)):
+                raise SystemExit(f"run D {label}: energies {e_loc} or launches {got}")
+            return e_loc, wall
+
+        dir_sr, dir_k = os.path.join(work, "D_sr"), os.path.join(work, "D_kfac")
+        e_sr, wall_sr = run_d("-sr", CLI_RUN_D + ["-sr"], dir_sr)
+        e_k, wall_k = run_d("-kfac", CLI_RUN_D + ["-kfac"], dir_k)
+        resume = CLI_RUN_D + ["-kfac", "-c"]
+        resume[resume.index("-n_train") + 1] = "4"
+        e_kc, wall_kc = run_d("-kfac -c (-n_train 4)", resume, dir_k)
+        ckpt = torch.load(os.path.join(dir_k, "checkpoint.pt"), map_location="cpu")
+        kstep = int(ckpt["kfac"]["step"])
+        facs_ok = all(bool(torch.isfinite(f[x]).all()) for name in ("amp", "phase")
+                      for f in ckpt["kfac"][name] for x in ("A", "G"))
+        print(f"[natgrad] 15d: run D -kfac resumed for one step: E_LOC for {len(e_kc)} steps; "
+              f"checkpoint.pt's K-FAC state at step {kstep}, finite={facs_ok}", flush=True)
+        if not (len(e_sr) == 3 and len(e_kc) == 4 and kstep == 4 and facs_ok):
+            raise SystemExit("run D: the steps or the K-FAC state read back are not as expected")
+        out["cli_d"] = dict(sr_s=wall_sr, kfac_s=wall_k, kfac_resume_s=wall_kc)
+    finally:
+        sr_mod.jvp, sr_mod.vjp = jvp0, vjp0
+        trainer_mod.sr_update, trainer_mod.kfac_update, trainer_mod.sample = sr0, kfac0, sample0
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = launches
+    return out
 
 
 def _exact_entries(exact, cli_c, d_bound):
@@ -4074,6 +4505,13 @@ def main(argv) -> int:
     cli_counts["C"], cli_c = _cli_run_c(zero_counts, wrappers)
     exact_extra = _exact_entries(exact, cli_c, d_bound)
 
+    # 15. the natural-gradient optimizers at the paper width, and run D
+    print(f"[natgrad] phase 15 starts with {torch.cuda.memory_allocated() / 2**30:.2f} GiB of "
+          f"device memory allocated", flush=True)
+    t15 = time.time()
+    natgrad = _natgrad(dev, hil, terms, cfg, tc, zero_counts, wrappers)
+    print(f"[natgrad] phase 15: {time.time() - t15:.1f} s in all", flush=True)
+
     def entry(name, launches, err, t_plain, bound, t_library,
               source="naqs_tpu_torch/csrc/rank_gather.cu",
               replaces="naqs_tpu/ops/dyn_gather.py:83", **more):
@@ -4321,10 +4759,11 @@ def main(argv) -> int:
               run_density_sample_density_calls=extras["density_calls"],
               **before(old_compact), **SHELL_SRC),
     ]
-    for k in kernels:  # phase 13's and 14's launches, each run counted from zero
+    for k in kernels:  # phase 13's to 15's launches, each run counted from zero
         k["launches_cli_a"], k["launches_cli_b"], k["launches_cli_c"] = (
             cli_counts[r][k["name"]] for r in "ABC")
         k["launches_exact"] = exact["launches"][k["name"]]
+        k["launches_natgrad"] = natgrad["launches"][k["name"]]
         k.update(exact_extra.get(k["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)

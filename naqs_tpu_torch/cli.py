@@ -14,8 +14,9 @@ coupled state against psi over the whole enumerated sector, and
 `-exact_sampling` trains over the whole basis with |psi|^2 weights
 (`VMCTrainer.run_exact`), with `-ws_solve_h` re-targeting the model at the
 basis ground state in between and the final `solve_h` over the basis.
-Flags whose paths are not ported yet (`-sr`, `-kfac`, `-devices` above 1)
-exit with an error that names the `ROADMAP.md` item that ports them.
+`-sr` and `-kfac` train with the natural-gradient updates (matrix-free SR,
+K-FAC). A flag whose path is not ported yet (`-devices` above 1) exits with
+an error that names the `ROADMAP.md` item that ports it.
 """
 
 from __future__ import annotations
@@ -27,12 +28,8 @@ import time
 
 import numpy as np
 
-# flag -> the ROADMAP.md item that ports its path
-UNPORTED = {
-    "sr": "Queue A item 1 (natural-gradient optimizers: SR)",
-    "kfac": "Queue A item 1 (natural-gradient optimizers: K-FAC)",
-    "devices": "Queue A item 2 (multi-GPU)",
-}
+# the ROADMAP.md item that ports -devices above 1
+MULTI_GPU_ITEM = "Queue A item 2 (multi-GPU)"
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -94,8 +91,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-no_restrictedH", action="store_true",
                    help="do not hard-restrict the ansatz to valid electron counts")
     p.add_argument("-sr", action="store_true",
-                   help="stochastic-reconfiguration (natural gradient) updates "
-                        "(not ported yet)")
+                   help="stochastic-reconfiguration (natural gradient) updates")
     p.add_argument("-sr_damping", type=float, default=1e-3)
     p.add_argument("-sr_cg_iters", type=int, default=50)
     p.add_argument("-sr_fisher_mix", type=float, default=0.0,
@@ -105,7 +101,7 @@ def get_parser() -> argparse.ArgumentParser:
                    help="SR trust region: cap the natural step's quadratic "
                         "length dx^T S dx at this many nats (<=0 = off)")
     p.add_argument("-kfac", action="store_true",
-                   help="K-FAC natural-gradient updates (not ported yet)")
+                   help="K-FAC natural-gradient updates")
     p.add_argument("-kfac_damping", type=float, default=1e-2)
     p.add_argument("-ws_solve_h", type=int, default=0,
                    help="after this many steps, re-target the model at the "
@@ -175,10 +171,9 @@ def _exp_name(args) -> str:
 
 
 def _refuse_unported(parser, args):
-    for flag, item in UNPORTED.items():
-        value = getattr(args, flag)
-        if value is True or (flag == "devices" and value > 1):
-            parser.error(f"-{flag} is not ported to naqs_tpu_torch yet: see ROADMAP.md {item}")
+    if args.devices > 1:
+        parser.error(f"-devices is not ported to naqs_tpu_torch yet: see ROADMAP.md "
+                     f"{MULTI_GPU_ITEM}")
 
 
 def run(args=None) -> dict:
@@ -288,6 +283,13 @@ def run(args=None) -> dict:
             reweight_by_psi=args.weight_by_psi,
             sample_beta=args.sample_beta,
             exact_eloc=args.exact_eloc,
+            use_sr=args.sr,
+            sr_damping=args.sr_damping,
+            sr_cg_iters=args.sr_cg_iters,
+            sr_kl_clip=args.sr_kl_clip if args.sr_kl_clip > 0 else None,
+            sr_fisher_mix=args.sr_fisher_mix,
+            use_kfac=args.kfac,
+            kfac_damping=args.kfac_damping,
             seed=seed + run_i,
         )
         trainer = VMCTrainer(cfg, terms, hilbert, tc, device=device, save_loc=out_dir,

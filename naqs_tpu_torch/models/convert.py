@@ -1,4 +1,5 @@
-"""Parameters of the JAX package's NADE as a state_dict of the port's NADE.
+"""Parameters of the JAX package's NADE as a state_dict of the port's NADE,
+and its K-FAC state as the port's (`kfac_state_from_jax`).
 
 The JAX parameter tree is {"amp": [{"w", "b"}, ...], "phase": [...],
 "lut": [table, ...], "lut_phase": [...]} with per-shell stacked weights
@@ -42,4 +43,22 @@ def params_from_jax(tree: dict) -> dict:
     for name in _LUT_GROUPS:
         for j, table in enumerate(tree.get(name, ())):
             out[f"{name}.{j}"] = _tensor(table)
+    return out
+
+
+def kfac_state_from_jax(state: dict) -> dict:
+    """The JAX package's K-FAC state ({"step", "amp": [{"A", "G"}, ...],
+    "phase": [...]}, as `kfac_init` makes it; layer lists as nested lists
+    or, from a checkpoint's state dict, maps keyed "0", "1", ...) as the
+    port's: the same factors as float32 tensors and the step as a 0-d int32
+    tensor, on the CPU."""
+    out = {"step": torch.tensor(np.asarray(state["step"]), dtype=torch.int32).reshape(())}
+    for name in _MLP_GROUPS:
+        if name not in state:
+            continue
+        layers = state[name]
+        if isinstance(layers, dict):
+            layers = [layers[str(i)] for i in range(len(layers))]
+        out[name] = [{k: torch.tensor(np.asarray(layer[k]), dtype=torch.float32)
+                      for k in ("A", "G")} for layer in layers]
     return out

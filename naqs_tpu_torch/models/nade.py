@@ -136,25 +136,39 @@ class MLPStack(nn.Module):
                                                 generator)))
             self.b.append(nn.Parameter(_uniform((n_stack, d_out), bound, dtype, generator)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (..., n_stack, d_in) -> (..., n_stack, d_out)."""
+    def forward(self, x: torch.Tensor, eps=None, taps=None) -> torch.Tensor:
+        """x: (..., n_stack, d_in) -> (..., n_stack, d_out).
+
+        `eps`: optional per-layer perturbations added to each pre-activation
+        (zeros: the gradient w.r.t. eps[li] is the per-example pre-activation
+        gradient); `taps`: a list that collects each layer's input. Both
+        serve K-FAC's factors (`naqs_tpu_torch/kfac.py`)."""
         n = len(self.w)
         c = self.compute_dtype
         x = x.to(c)
         for li, (w, b) in enumerate(zip(self.w, self.b)):
+            if taps is not None:
+                taps.append(x)
             x = torch.einsum("...si,sio->...so", x, w.to(c)) + b.to(c)
+            if eps is not None:
+                x = x + eps[li]
             if li < n - 1:
                 x = torch.relu(x)
         return x
 
-    def single(self, idx: int, x: torch.Tensor) -> torch.Tensor:
-        """Apply one stack entry's layers to x (..., d_in)."""
+    def single(self, idx: int, x: torch.Tensor, eps=None, taps=None) -> torch.Tensor:
+        """Apply one stack entry's layers to x (..., d_in); `eps` and `taps` as
+        in `forward`."""
         n = len(self.w)
         c = self.compute_dtype
         x = x.to(c)
         for li, (w, b) in enumerate(zip(self.w, self.b)):
+            if taps is not None:
+                taps.append(x)
             k = idx if w.shape[0] > 1 else 0
             x = x @ w[k].to(c) + b[k].to(c)
+            if eps is not None:
+                x = x + eps[li]
             if li < n - 1:
                 x = torch.relu(x)
         return x
@@ -383,13 +397,19 @@ def _apply_luts(cfg: NAQSConfig, tables, x, raw, canonical: bool):
 
 # ------------------------------------------------------------------- predict
 
-def _tables(model: NADE, alpha, beta, st):
+def _tables(model: NADE, alpha, beta, st, eps=None, taps=None):
     """Per-shell conditional tables (log_amp4, mask4, phase4), each
-    (..., S, 4) in MODEL shell order."""
+    (..., S, 4) in MODEL shell order.
+
+    eps/taps: optional K-FAC instrumentation dicts keyed "amp"/"phase" (see
+    `MLPStack.forward`); only the dense layers are tapped, not the LUT
+    shells."""
     cfg = model.cfg
     s = cfg.n_shells
+    eps = eps or {}
     x_amp = shell_inputs(cfg, alpha, beta, cfg.use_amp_spin_sym, st["order3"])
-    raw = model.amp(x_amp)
+    raw = model.amp(x_amp, eps.get("amp"),
+                    None if taps is None else taps.setdefault("amp", []))
     if cfg.num_lut:
         raw = _apply_luts(cfg, model.lut, x_amp, raw, cfg.use_amp_spin_sym)
     if cfg.combined_amp_phase:
@@ -398,14 +418,16 @@ def _tables(model: NADE, alpha, beta, st):
         raw_amp = raw
         x_ph = (x_amp if cfg.use_phase_spin_sym == cfg.use_amp_spin_sym
                 else shell_inputs(cfg, alpha, beta, cfg.use_phase_spin_sym, st["order3"]))
+        ph_taps = None if taps is None else taps.setdefault("phase", [])
         if cfg.aggregate_phase:
-            raw_phase = model.phase(x_ph)
+            raw_phase = model.phase(x_ph, eps.get("phase"), ph_taps)
             if cfg.num_lut:
                 raw_phase = _apply_luts(cfg, model.lut_phase, x_ph, raw_phase,
                                         cfg.use_phase_spin_sym)
         else:
             # one global net evaluated on the final shell's input
-            raw_phase = _last_shell_only(model.phase.single(0, x_ph[..., s - 1, :]), s)
+            raw_phase = _last_shell_only(
+                model.phase.single(0, x_ph[..., s - 1, :], eps.get("phase"), ph_taps), s)
 
     logits4 = symmetrize_amp(raw_amp, st["order3"]) if cfg.use_amp_spin_sym else raw_amp
     if cfg.masking == "none":
@@ -443,15 +465,48 @@ def shell_tables(model: NADE, states: torch.Tensor):
     return log_amp, phase
 
 
-def log_psi(model: NADE, states: torch.Tensor):
-    """log|psi| and arg(psi) for packed int64 states, in the model's
-    compute dtype (float32 unless the parameters are float64)."""
+def _log_psi(model: NADE, states: torch.Tensor, eps=None, taps=None):
     alpha, beta = split_spins(model.cfg, states)
-    log_amp4, _, phase4 = _tables(model, alpha, beta, prefix_stats(alpha, beta))
+    log_amp4, _, phase4 = _tables(model, alpha, beta, prefix_stats(alpha, beta), eps, taps)
     occ = (alpha + 2 * beta)[..., None]
     la = torch.take_along_dim(log_amp4, occ, dim=-1)[..., 0]
     ph = torch.take_along_dim(phase4, occ, dim=-1)[..., 0]
     return la.sum(dim=-1), ph.sum(dim=-1)
+
+
+def log_psi(model: NADE, states: torch.Tensor):
+    """log|psi| and arg(psi) for packed int64 states, in the model's
+    compute dtype (float32 unless the parameters are float64)."""
+    return _log_psi(model, states)
+
+
+def make_zero_eps(model: NADE, batch_size: int) -> dict:
+    """Zero pre-activation perturbations matching `log_psi_taps`'s forward,
+    keyed "amp"/"phase", one per dense layer: (B, n_stack, d_out), or (B,
+    d_out) for the global phase net, in each bias's dtype on its device.
+    Differentiating w.r.t. them gives the per-example pre-activation
+    gradients (the g of K-FAC's G = E[g g^T])."""
+    eps = {}
+    for name in ("amp", "phase"):
+        if not hasattr(model, name):
+            continue
+        layers = []
+        for b in getattr(model, name).b:
+            n_stack, d_out = b.shape
+            shape = ((batch_size, d_out) if name == "phase" and not model.cfg.aggregate_phase
+                     else (batch_size, n_stack, d_out))
+            layers.append(torch.zeros(shape, dtype=b.dtype, device=b.device))
+        eps[name] = layers
+    return eps
+
+
+def log_psi_taps(model: NADE, states: torch.Tensor, eps: dict):
+    """`log_psi` with K-FAC instrumentation: adds `eps` (`make_zero_eps`) to
+    every dense pre-activation and keeps each dense layer's input. Returns
+    ((log_amp, phase), taps), taps[name][li] the input of layer li of stack
+    `name`."""
+    taps: dict = {}
+    return _log_psi(model, states, eps, taps), taps
 
 
 def amp_conditional_shell(model: NADE, j: int, alpha, beta):

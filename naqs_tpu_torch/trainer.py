@@ -1,4 +1,5 @@
-"""VMC training: surrogate loss, Adam, adaptive sample-count controller.
+"""VMC training: surrogate loss, Adam or a natural gradient, adaptive
+sample-count controller.
 
 Port of the single-device `VMCTrainer` of `naqs_tpu/trainer.py`:
 
@@ -22,6 +23,11 @@ Port of the single-device `VMCTrainer` of `naqs_tpu/trainer.py`:
     full-basis windows of steps run on the card with the withholding, Adam,
     the LR schedule and the clip decided there, and one readback a window
     (`UpdateWindow`, `vmc_update_scan`);
+  * the natural-gradient updates in place of Adam (`TrainConfig.use_sr`:
+    matrix-free SR, `sr.py`; `use_kfac`: K-FAC, `kfac.py`, its running
+    factors in `VMCTrainer.kfac_state` and in checkpoints): `step()` then
+    samples through the controller, updates at the LR of `_current_lr()`
+    (keyed on the steps taken) and reads back once;
   * the host sample-count controller: x10 when too few unique samples,
     /10 on too many or on overflow, with overflow hysteresis;
   * the sampled-state counter (every RECORD_FREQ-th step) that feeds
@@ -49,10 +55,12 @@ import numpy as np
 import torch
 
 from naqs_tpu_torch.hamiltonian import PauliTerms, assemble_sparse_hamiltonian_np
-from naqs_tpu_torch.models.convert import params_from_jax
+from naqs_tpu_torch.kfac import kfac_init, kfac_update
+from naqs_tpu_torch.models.convert import kfac_state_from_jax, params_from_jax
 from naqs_tpu_torch.models.nade import NADE, NAQSConfig, log_psi
 from naqs_tpu_torch.ops.local_energy import DeviceTerms, local_energy, quadratic_energy
 from naqs_tpu_torch.sampler import SampleBatch, sample, sample_density
+from naqs_tpu_torch.sr import sr_update
 from naqs_tpu_torch.utils.bits import SENTINEL, np_unpack_bits
 from naqs_tpu_torch.utils.checkpoint import jax_params, optax_parts, read_flax_msgpack
 from naqs_tpu_torch.utils.device import resolve_device
@@ -129,14 +137,16 @@ class TrainConfig:
     # the truncated psi(s') = 0 of unsampled states
     exact_eloc: bool = False
     eloc_fwd_chunk: int = 65536     # rows per log_psi_table chunk
-    use_sr: bool = False
-    use_kfac: bool = False
+    use_sr: bool = False            # stochastic-reconfiguration natural gradient
+    sr_damping: float = 1e-3
+    sr_cg_iters: int = 50
+    sr_kl_clip: Optional[float] = None  # trust-region cap on lr^2 x^T S x
+    sr_fisher_mix: float = 0.0      # uniform-support mixing in the metric
+    use_kfac: bool = False          # Kronecker-factored natural gradient
+    kfac_damping: float = 1e-2
+    kfac_decay: float = 0.95
+    kfac_kl_clip: float = 1e-3
     seed: int = 0
-
-    def __post_init__(self):
-        for name in ("use_sr", "use_kfac"):
-            if getattr(self, name) not in (None, False):
-                raise NotImplementedError(f"TrainConfig.{name} is not ported yet")
 
     def lr_at(self, n_updates: int) -> float:
         """LR of the update after `n_updates` applied ones (optax's
@@ -300,6 +310,15 @@ def _set_schedule(optimizer, scheduler, applied: int):
                               scheduler.lr_lambdas):
         g["lr"] = base * lr_at(applied)
     scheduler._last_lr = [g["lr"] for g in optimizer.param_groups]
+
+
+def _to_device(tree, device):
+    """A nested dict/list of tensors (K-FAC's state) moved to the device."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree if tree is None else tree.to(device)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -485,13 +504,14 @@ class VMCTrainer:
         # the exact-E_loc sector table (single card: one chunk is the padding unit)
         self._table = None
         if train_cfg.exact_eloc:
-            # as in the JAX package, whose K-FAC update has no table= path;
-            # unreachable until the natural-gradient optimizers are ported
-            # (TrainConfig refuses use_sr and use_kfac)
+            # as in the JAX package, whose K-FAC update has no table= path
             if train_cfg.use_kfac:
                 raise ValueError("exact_eloc is implemented for the Adam update paths "
                                  "and single-chip SR")
             self._table = sector_table(hilbert.basis, int(train_cfg.eloc_fwd_chunk), self.device)
+        if train_cfg.use_sr and train_cfg.use_kfac:
+            raise ValueError("use_sr and use_kfac are mutually exclusive")
+        self.kfac_state = None  # K-FAC's running factors, made at its first step
         init_gen = torch.Generator().manual_seed(train_cfg.seed)
         self.model = NADE(model_cfg, init_gen).to(self.device)
         self.gen = torch.Generator(device=self.device).manual_seed(train_cfg.seed + 1)
@@ -571,6 +591,11 @@ class VMCTrainer:
     def get_samples(self, max_retries: int = 12) -> SampleBatch:
         """Sample with the adaptive controller until the unique count sits
         inside the window (or a bound on n_samples is reached)."""
+        return self._get_samples(max_retries)[0]
+
+    def _get_samples(self, max_retries: int = 12):
+        """`get_samples`, with the batch's unique count as read back: (batch,
+        n_unique)."""
         last_action = 0
         for _ in range(max_retries):
             batch = self._sample()
@@ -593,7 +618,7 @@ class VMCTrainer:
                         self._note_overflow()
                     self.n_samples = max(self.n_samples / 10, self.tc.n_unq_samples_min)
             if action == 0:
-                return batch
+                return batch, n_unq
             last_action = action
         raise RuntimeError(
             "sample-count controller did not converge: capacity "
@@ -644,8 +669,46 @@ class VMCTrainer:
         self._log_step(out["e_loc"], out["e_loc_var"], n_unq)
         return out
 
+    def _current_lr(self) -> float:
+        """The natural-gradient updates' LR: the two-phase schedule keyed on
+        the steps taken (Adam's counts applied updates)."""
+        if not self.tc.use_lr_schedule:
+            return self.tc.lr
+        return self.tc.lr if self.n_steps < max(self.tc.n_train // 2, 1) else self.tc.lr_final
+
     def step(self) -> dict:
-        return self._step_fused()
+        if not (self.tc.use_sr or self.tc.use_kfac):
+            return self._step_fused()
+        t0 = time.time()
+        batch, n_unq = self._get_samples()
+        self._record_samples(batch, n_unq)
+        # the rows past n_unique carry zero weight in every sum: the update's
+        # model passes run over the live rows only
+        n = max(n_unq, 1)
+        live = SampleBatch(batch.states[:n], batch.counts[:n], batch.n_unique, batch.overflow)
+        tc = self.tc
+        if tc.use_sr:
+            m = sr_update(self.model, self.dt, live, self._current_lr(), tc.sr_damping,
+                          cg_iters=tc.sr_cg_iters, reweight_by_psi=tc.reweight_by_psi,
+                          kl_clip=tc.sr_kl_clip, fisher_mix=tc.sr_fisher_mix,
+                          table=self._table, fwd_chunk=tc.eloc_fwd_chunk)
+        else:
+            if self.kfac_state is None:
+                self.kfac_state = kfac_init(self.model)
+            self.kfac_state, m = kfac_update(self.model, self.kfac_state, self.dt, live,
+                                             self._current_lr(), tc.kfac_damping,
+                                             tc.kfac_decay, tc.kfac_kl_clip)
+        self.n_steps += 1
+        # the step's one readback
+        vals = torch.stack([v.to(torch.float64) for v in m.values()]).cpu().tolist()
+        dt_step = time.time() - t0
+        self.run_time += dt_step
+        out = {**dict(zip(m, vals)), "n_unique": n_unq, "n_samples": self.n_samples,
+               "time": dt_step}
+        if "cg_iters" in out:
+            out["cg_iters"] = int(out["cg_iters"])
+        self._log_step(out["e_loc"], out["e_loc_var"], n_unq)
+        return out
 
     @torch.no_grad()
     def exact_energy(self) -> float:
@@ -990,8 +1053,8 @@ class VMCTrainer:
 
     # -- checkpoints
     def save(self, fname: str = "checkpoint") -> str:
-        """Write <fname>.pt (the model, Adam, LR-schedule and clip state and
-        the generator's state, torch.save), then <fname>_counter.npz and
+        """Write <fname>.pt (the model, Adam, LR-schedule and clip state, K-FAC's
+        running factors and the generator's state, torch.save), then <fname>_counter.npz and
         <fname>_log.npz, then <fname>.json, which commits the checkpoint. The
         last three have the JAX package's layout, so either package reads
         them."""
@@ -1002,6 +1065,7 @@ class VMCTrainer:
                     "optimizer": self.optimizer.state_dict(),
                     "scheduler": self.scheduler.state_dict(),
                     "clip": None if self.clip is None else self.clip.state_dict(),
+                    "kfac": self.kfac_state,
                     "generator": self.gen.get_state()}, path)
         if self.sampled_counter:
             keys, vals = self._counter_arrays()
@@ -1026,7 +1090,8 @@ class VMCTrainer:
         """Restore a checkpoint: the port's <fname>.pt, or where there is none
         the JAX package's <fname>.msgpack (its parameters, and unless
         params_only its Adam moments and count, LR-schedule count and clip
-        ring). `params_only` restores the model alone and starts fresh
+        ring, and K-FAC's running factors from <fname>_kfac.msgpack where
+        that exists). `params_only` restores the model alone and starts fresh
         optimizer state. A JAX checkpoint's PRNG key cannot seed a torch
         generator: after loading one, the generator keeps its own state."""
         pt = os.path.join(self.save_loc, f"{fname}.pt")
@@ -1042,6 +1107,7 @@ class VMCTrainer:
                 raise ValueError("the checkpoint's gradient clip does not match this trainer's")
             if self.clip is not None:
                 self.clip.load_state_dict(ckpt["clip"])
+            self.kfac_state = _to_device(ckpt.get("kfac"), self.device)
             self.gen.set_state(ckpt["generator"])
         else:
             with open(os.path.join(self.save_loc, f"{fname}.msgpack"), "rb") as f:
@@ -1049,6 +1115,11 @@ class VMCTrainer:
             self._load_jax_state(state, params_only)
             if params_only:
                 return self
+            kfac_path = os.path.join(self.save_loc, f"{fname}_kfac.msgpack")
+            if os.path.exists(kfac_path):
+                with open(kfac_path, "rb") as f:
+                    self.kfac_state = _to_device(
+                        kfac_state_from_jax(read_flax_msgpack(f.read())), self.device)
         counter_path = os.path.join(self.save_loc, f"{fname}_counter.npz")
         if os.path.exists(counter_path):
             with np.load(counter_path) as z:

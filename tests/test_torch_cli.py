@@ -132,7 +132,6 @@ def test_cli_profiles_and_resumes_in_process(h2_npz, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-sr"], "Queue A item 1"), (["-kfac"], "Queue A item 1"),
     (["-devices", "2"], "Queue A item 2")], ids=lambda v: v[0] if isinstance(v, list) else "")
 def test_unported_flags_exit_with_their_roadmap_item(argv, item, capsys):
     with pytest.raises(SystemExit) as e:

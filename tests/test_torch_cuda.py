@@ -46,6 +46,10 @@ basis runs under torch.cuda.set_sync_debug_mode("error") and ends within
 rtol 1e-5 / atol 1e-7 of the same sequential updates; `run_exact` in both
 modes with exact local energies.
 
+The natural-gradient updates on the card (N2 STO-3G): one `sr_update` (with
+its KL clip) and one `kfac_update` on a sampled batch's live rows run under
+torch.cuda.set_sync_debug_mode("error"), one E_loc launch each.
+
 The CLI on the card (chip_smoke.py phase 13's two runs at a small width,
 3 steps): finite energies, the run's files, and each kernel of its path
 launched. A LUT model's `sample()` with float32 and float64 conditionals:
@@ -1715,3 +1719,40 @@ def test_lut_sampler_on_the_card_matches_the_plain_path(dtype):
     tol = 4.0 * np.sqrt(p[idx] * (1 - p[idx]) / n) + 5e-5
     assert np.all(np.abs(freqs - p[idx]) < tol)
     assert freqs.sum() > 0.999
+
+
+@pytest.mark.parametrize("optimizer", ["sr", "kfac"])
+def test_natural_gradient_update_on_the_card_has_no_host_sync(optimizer):
+    """On N2 STO-3G (DenseTerms): after two trainer steps, one sr_update (with
+    kl_clip) or kfac_update on a sampled batch cut to its live rows runs
+    under torch.cuda.set_sync_debug_mode("error") (any synchronizing call
+    raises), launches dense_grid_accumulate once, and gives finite metrics;
+    a K-FAC update advances the factors' step on the card."""
+    from naqs_tpu_torch import kfac as kfac_mod
+    from naqs_tpu_torch import sr as sr_mod
+    from naqs_tpu_torch.sampler import SampleBatch
+
+    dev = _card()
+    tr = _n2_trainer(dev, **({"use_sr": True, "sr_cg_iters": 10} if optimizer == "sr"
+                             else {"use_kfac": True}))
+    for _ in range(2):
+        assert np.isfinite(tr.step()["e_loc"])
+    batch, n = tr._get_samples()
+    live = SampleBatch(batch.states[:n], batch.counts[:n], batch.n_unique, batch.overflow)
+    before = dense_grid_accumulate.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if optimizer == "sr":
+            m = sr_mod.sr_update(tr.model, tr.dt, live, tr._current_lr(), tr.tc.sr_damping,
+                                 cg_iters=10, kl_clip=1e-3)
+        else:
+            ks, m = kfac_mod.kfac_update(tr.model, tr.kfac_state, tr.dt, live, tr._current_lr())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dense_grid_accumulate.launches == before + 1
+    assert all(np.isfinite(float(v)) for v in m.values())
+    if optimizer == "kfac":
+        assert ks["step"].device.type == "cuda" and int(ks["step"]) == 3
+    else:
+        assert int(m["cg_iters"]) == 10

@@ -361,9 +361,14 @@ def _check_h2_trains(rank_engine):
 
 
 def test_unported_train_options_raise():
+    """The natural-gradient options are ported: each constructs alone, and a
+    trainer refuses both at once, as the JAX package's does."""
     for kw in (dict(use_sr=True), dict(use_kfac=True)):
-        with pytest.raises(NotImplementedError):
-            TrainConfig(**kw)
+        TrainConfig(**kw)
+    c = case("H2")
+    cfg = nt.NAQSConfig(n_qubits=4, sectors=c.h_t.sectors, amp_hidden=(8,), phase_hidden=(8,))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        VMCTrainer(cfg, c.terms_t, c.h_t, TrainConfig(use_sr=True, use_kfac=True), device="cpu")
     assert TrainConfig(grad_clip_factor=2.0).make_clip() is not None  # ported
 
 

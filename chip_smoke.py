@@ -357,6 +357,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      run D of the CLI (CLI_RUN_D: N2 STO-3G on DenseTerms at run A's width),
      -sr for 3 steps, -kfac for 3 and -c resumed for a 4th: finite energies,
      log.jsonl, the K-FAC state read back from checkpoint.pt at step 4.
+ 16. data parallelism (naqs_tpu_torch/parallel/) at the paper width
+     (phase 3's model and configuration), its launches summed over every
+     rank into "launches_sharded": 16a a process group of one rank over
+     NCCL in this process, one sharded Adam, SR (CUT_CG_ITERS iterations) and
+     K-FAC update on a batch at capacity 100,000, each under
+     torch.cuda.set_sync_debug_mode("error") with one
+     factored_cells_accumulate launch, held against the single-device update
+     from the same state on the same batch (SHARD_ADAM_RTOL, SR_UPDATE_RTOL,
+     KFAC_RTOL); 16b SHARD_RANKS ranks that share the card over gloo, started
+     by naqs_tpu_torch/parallel/launch.spawn and running
+     naqs_tpu_torch/tools/shard_drill.rank_run: VMCTrainer(n_devices=2) at
+     50,000 rows a rank, SHARD_PLAN's Adam, SR (cg_iters 50) and K-FAC steps,
+     each under torch.profiler (wall and device time) with its collectives
+     timed on the host's clock and their bytes; the ranks' parameters bitwise
+     equal; a fixed pair of batches' Adam update against a one-process
+     composition over the merged rows (SHARD_GRAD_RTOL, SHARD_UPDATE_RTOL,
+     SHARD_E_TOL); at that pair's merged table, whose states drawn on both
+     ranks lie in it twice (there must be some), rank 0's query rows through
+     the E_loc kernels of the factored, rank and sort engines
+     (factored_cells_accumulate, rank_local_energy, sorted_local_energy)
+     against their plain versions per row within phase 9's tolerances
+     (grid_tolerance, rank_/sorted_local_energy_tolerance), and against the
+     same table without the repeats (the same grid; the row kernels within
+     those tolerances); only factored_cells_accumulate and split_and_compact
+     launched on each rank in its steps; 16c the same over NCCL across min(count,
+     SHARD_MAX_CARDS) cards where torch.cuda.device_count() >= 2, else one line
+     saying that it was not run.
 With --profile, the profiled step of each engine (H2O 6-31G factored and
 rank, Li2O staircase, N2 6-31G sort, frozen-core N2 6-31G rank with no
 dense A) must show one device kernel per wrapper call of the
@@ -396,8 +423,9 @@ wrapper's host pieces unheld and whether the graph replays were bitwise;
 multinomial4_split's carries the decomposition, DIR's beside it, and the
 division proof),
 with "launches_cli_a" and "launches_cli_b" from phase 13's runs,
-"launches_exact" from phase 14, "launches_cli_c" from run C and
-"launches_natgrad" from phase 15 in every entry, and for the five kernels
+"launches_exact" from phase 14, "launches_cli_c" from run C,
+"launches_natgrad" from phase 15 and "launches_sharded" from phase 16 in every
+entry, and for the five kernels
 phase 14 and run C drive at new shapes
 (factored_cells_accumulate at the query rows of the full-sector grid,
 "exact_queries_*", and on the whole basis, "full_basis_*";
@@ -2549,6 +2577,237 @@ def _natgrad(dev, hil, terms, cfg, tc, zero_counts, wrappers):
     return out
 
 
+# phase 16: data parallelism at the paper width (phase 3's model and configuration)
+SHARD_PLAN = (("adam", 3), ("sr", 2), ("kfac", 2))   # 16b/16c: steps of each optimizer
+SHARD_RANKS = 2               # 16b: ranks that share the card over gloo
+SHARD_MAX_CARDS = 4           # 16c: NCCL across at most this many cards
+SHARD_ADAM_RTOL = 1e-5        # 16a: the world of one's Adam update against vmc_update's
+SHARD_GRAD_RTOL = 1e-5        # 16b: the summed gradient against the one-process composition's
+SHARD_UPDATE_RTOL = 1e-4      # 16b: the update against the composition's (Adam's 4th step)
+SHARD_E_TOL = 1e-8            # Ha, 16b: the pair's e_loc against the composition's
+SHARD_TIMEOUT = 600           # s: 16b's and 16c's ranks
+
+
+def _sharded(dev, hil, terms, cfg, tc, zero_counts, wrappers, smi):
+    """Phase 16: data parallelism (naqs_tpu_torch/parallel/) at the paper width
+    on H2O 6-31G (FactorTerms). 16a: a process group of one rank over NCCL in
+    this process; one sharded Adam, SR and K-FAC update on a sampled batch at
+    capacity 100,000, each under set_sync_debug_mode("error") and held
+    against the single-device update on the same batch from the same state.
+    16b: SHARD_RANKS ranks share the card over gloo (parallel/launch.spawn,
+    tools/shard_drill.rank_run): VMCTrainer(n_devices=2), 50,000 rows a rank,
+    SHARD_PLAN's steps each under torch.profiler with its collectives timed;
+    the ranks' parameters bitwise equal; a fixed pair of batches' Adam update
+    against a one-process composition over the merged rows; rank 0's E_loc
+    kernels at that pair's merged table, repeated keys and all, against
+    their plain versions; each rank's launches. 16c: the same over NCCL
+    across min(count, SHARD_MAX_CARDS) cards where the machine has two or
+    more. Returns {"launches": every rank's
+    launches of the driven updates and steps, summed, and the numbers}."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import naqs_tpu_torch as nt
+    from naqs_tpu_torch import kfac as kfac_mod
+    from naqs_tpu_torch import sr as sr_mod
+    from naqs_tpu_torch import trainer as trainer_mod
+    from naqs_tpu_torch.parallel import comm, initialize_distributed
+    from naqs_tpu_torch.parallel import step as pstep
+    from naqs_tpu_torch.parallel.launch import spawn
+    from naqs_tpu_torch.sampler import sample
+    from naqs_tpu_torch.tools import shard_drill
+
+    names = {w: w.__name__.lstrip("_") for w in wrappers}
+    launches = dict.fromkeys(names.values(), 0)
+    out = {}
+
+    def flat(model):
+        return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+    def no_sync(label, fn):
+        """fn() under set_sync_debug_mode("error"), the counts at 0 before:
+        one factored_cells_accumulate launch and no other kernel."""
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = {names[w]: w.launches for w in wrappers if w.launches}
+        for k, v in got.items():
+            launches[k] += v
+        if got != {"factored_cells_accumulate": 1}:
+            raise SystemExit(f"16a {label}: launches {got}")
+        return res
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        # 16a. NCCL, a world of one, in this process
+        t = time.time()
+        torch.cuda.set_device(dev.index or 0)
+        if not initialize_distributed(f"file://{work}/store", 1, 0, backend="nccl"):
+            raise SystemExit("16a: the NCCL process group of one rank did not come up")
+        print(f"[sharded] route: {comm.ROUTE}; 16a backend {dist.get_backend()}, world "
+              f"{comm.world()}", flush=True)
+        tr = nt.VMCTrainer(cfg, terms, hil, tc, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        b0 = sample(tr.model, gen, 1e5, tr.capacity)
+        batch = sample(tr.model, gen, 1e5, tr.capacity)
+        if bool(b0.overflow) or bool(batch.overflow):
+            raise SystemExit("16a: the batches overflowed")
+        comm.all_reduce_sum(torch.ones(1, device=dev))   # NCCL's communicator, made once
+        # Adam: one shared vmc_update first, so the compared step is not Adam's
+        # first (whose ~lr * sign(g) would flip on a gradient within rounding of 0)
+        opt0, sched0 = tc.make_optimizer(tr.model.parameters())
+        trainer_mod.vmc_update(tr.model, opt0, sched0, tr.dt, b0)
+        m_s, m_1 = copy.deepcopy(tr.model), copy.deepcopy(tr.model)
+        (o_s, s_s), (o_1, s_1) = (tc.make_optimizer(m.parameters()) for m in (m_s, m_1))
+        for o in (o_s, o_1):   # a copy each: load_state_dict keeps the tensors it is given
+            o.load_state_dict(copy.deepcopy(opt0.state_dict()))
+        for s in (s_s, s_1):
+            trainer_mod._set_schedule(s.optimizer, s, sched0.last_epoch)
+        old = flat(tr.model)
+        window = trainer_mod.UpdateWindow(m_s, o_s, s_s, 1)
+        m = no_sync("sharded Adam", lambda: pstep.sharded_adam_update(m_s, window, tr.dt, batch))
+        window.settle(0 if bool(m["overflow"]) else 1)
+        m1 = trainer_mod.vmc_update(m_1, o_1, s_1, tr.dt, batch)
+        adam_err = _norm_err(flat(m_s) - old, flat(m_1) - old)
+        adam_de = abs(float(m["e_loc"]) - m1["e_loc"])
+        # SR at CUT_CG_ITERS iterations, K-FAC from fresh factors
+        lr, damp = tr._current_lr(), tc.sr_damping
+        m_s, m_1 = copy.deepcopy(tr.model), copy.deepcopy(tr.model)
+        old = flat(tr.model)
+        ms = no_sync("sharded SR", lambda: pstep.sharded_sr_update(m_s, tr.dt, batch, lr, damp,
+                                                                  CUT_CG_ITERS))
+        m1 = sr_mod.sr_update(m_1, tr.dt, batch, lr, damp, cg_iters=CUT_CG_ITERS)
+        sr_err = _norm_err(flat(m_s) - old, flat(m_1) - old)
+        sr_de = abs(float(ms["e_loc"]) - float(m1["e_loc"]))
+        m_s, m_1 = copy.deepcopy(tr.model), copy.deepcopy(tr.model)
+        ks_s, ks_1 = kfac_mod.kfac_init(m_s), kfac_mod.kfac_init(m_1)
+        ks_s, mk = no_sync("sharded K-FAC", lambda: pstep.sharded_kfac_update(m_s, ks_s, tr.dt,
+                                                                             batch, lr))
+        ks_1, mk1 = kfac_mod.kfac_update(m_1, ks_1, tr.dt, batch, lr)
+        kfac_err = max(_norm_err(flat(m_s) - old, flat(m_1) - old),
+                       max(_norm_err(fs[x], f1[x]) for name in ("amp", "phase")
+                           for fs, f1 in zip(ks_s[name], ks_1[name]) for x in ("A", "G")),
+                       abs(float(mk["nu"]) - float(mk1["nu"])) / float(mk1["nu"]))
+        dist.destroy_process_group()
+        print(f"[sharded] 16a: NCCL, one rank, H2O 6-31G at capacity {tr.capacity} "
+              f"({int(batch.n_unique)} live rows), each update under "
+              f"set_sync_debug_mode('error'): no host sync; against the single-device update "
+              f"on the same batch: Adam {adam_err:.3e} (tol {SHARD_ADAM_RTOL}, e_loc "
+              f"{adam_de:.1e} Ha apart), SR at {CUT_CG_ITERS} CG iterations {sr_err:.3e} (tol "
+              f"{SR_UPDATE_RTOL}, e_loc {sr_de:.1e}), K-FAC {kfac_err:.3e} (worst of the "
+              f"update, the factors and nu; tol {KFAC_RTOL}); {time.time() - t:.1f} s; {smi}",
+              flush=True)
+        if not (adam_err <= SHARD_ADAM_RTOL and sr_err <= SR_UPDATE_RTOL
+                and kfac_err <= KFAC_RTOL):
+            raise SystemExit("16a: a sharded update of one rank disagrees with the "
+                             "single-device update")
+        out["world_of_one"] = dict(adam_err=adam_err, sr_err=sr_err, kfac_err=kfac_err,
+                                   adam_e_diff=adam_de, sr_e_diff=sr_de)
+        del tr, m_s, m_1, window, opt0, o_s, o_1
+
+        # 16b. two ranks share the card over gloo; 16c. NCCL across cards
+        count = torch.cuda.device_count()
+        runs = [("16b", SHARD_RANKS, "gloo", f"cuda:{dev.index or 0}")]
+        if count >= 2:
+            runs.append(("16c", min(count, SHARD_MAX_CARDS), "nccl", None))
+        for label, world, backend, device in runs:
+            t = time.time()
+            res = spawn(shard_drill.rank_run, world,
+                        (hil, terms, cfg, tc, SHARD_PLAN, device), workdir=work,
+                        backend=backend, timeout=SHARD_TIMEOUT)
+            wall = time.time() - t
+            out[label] = _check_sharded(label, res, wall, smi, cfg.n_shells)
+            for r in res:
+                for k, v in r["launches"].items():
+                    launches[k] += v
+        if count < 2:
+            print(f"[sharded] 16c: NCCL across cards was not run: torch.cuda.device_count() "
+                  f"= {count}", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
+def _check_sharded(label, res, wall, smi, n_shells):
+    """16b's or 16c's rank results: printed, then held to the phase's checks
+    (split_and_compact n_shells times a sample() call); returns the numbers
+    kept."""
+    world = len(res)
+    for r in res:
+        for row in r["rows"]:
+            print(f"[sharded] {label} rank {r['rank']} ({r['backend']}, {r['device']}) "
+                  f"{row['optimizer']} step {row['step']}: {row['wall_s']:.3f} s wall, "
+                  f"{row['device_ms']:.2f} ms of device time (under torch.profiler); "
+                  f"{row['collectives']} collectives, {row['collective_s'] * 1e3:.1f} ms on the "
+                  f"host's clock, {row['collective_bytes']} B; e_loc {row['e_loc']:.6f}, "
+                  f"n_unique {row['n_unique']}, n_samples {row['n_samples']:.0e}"
+                  + (f", cg_iters {row['cg_iters']}" if row["cg_iters"] is not None else ""),
+                  flush=True)
+        print(f"[sharded] {label} rank {r['rank']}: launches {r['launches']}; the fixed pair's "
+              f"Adam update against the one-process composition over the merged rows: "
+              f"gradient {r['check']['grad_err']:.3e} (tol {SHARD_GRAD_RTOL}), update "
+              f"{r['check']['update_err']:.3e} (tol {SHARD_UPDATE_RTOL}), e_loc "
+              f"{r['check']['e_loc']:.9f} vs {r['check']['e_loc_composed']:.9f}; "
+              f"n_unique {r['check']['n_unique']}; peak {r['peak_gib']:.2f} GiB", flush=True)
+    keys = res[0]["repeated_keys"]
+    for eng, k in keys["engines"].items():
+        print(f"[sharded] {label} rank 0: the {eng} engine's E_loc kernel at the pair's merged "
+              f"table ({keys['n_valid']} live rows, {keys['repeats']} of them a second copy of "
+              f"a state) for its {keys['rows']} query rows against its plain version: "
+              f"max_abs_err={k['max_abs_err']:.3e}, worst row at {k['worst']:.3f} of its "
+              f"tolerance, within={k['within']}; against the same table without the repeats "
+              f"{k['dedup_diff']:.3e} ({'grids equal' if eng == 'fact' else 'within'}="
+              f"{k['dedup_within']})", flush=True)
+    digests = {r["digest"] for r in res}
+    after = {r["digest_after_check"] for r in res}
+    steps = sum(n for _, n in SHARD_PLAN)
+    print(f"[sharded] {label}: {world} ranks, {wall:.1f} s in all (start-up, DeviceTerms, "
+          f"{steps} steps a rank, the check); parameters bitwise equal across ranks after the "
+          f"steps: {len(digests) == 1}, after the check: {len(after) == 1}; {smi}", flush=True)
+    bad = []
+    if len(digests) != 1 or len(after) != 1:
+        bad.append("the ranks' parameters differ")
+    if keys["repeats"] <= 0:
+        bad.append("the pair's merged table holds no repeated state")
+    for eng, k in keys["engines"].items():
+        if not (k["within"] and k["dedup_within"]):
+            bad.append(f"the {eng} engine's kernel at repeated keys: {k}")
+    for r in res:
+        c = r["check"]
+        if not (c["grad_err"] <= SHARD_GRAD_RTOL and c["update_err"] <= SHARD_UPDATE_RTOL
+                and abs(c["e_loc"] - c["e_loc_composed"]) <= SHARD_E_TOL and not c["overflow"]):
+            bad.append(f"rank {r['rank']}'s pair disagrees with the composition: {c}")
+        got = r["launches"]
+        updates = len(r["rows"])
+        if not (set(got) == {"factored_cells_accumulate", "split_and_compact"}
+                and got["factored_cells_accumulate"] >= updates
+                and got["split_and_compact"] % n_shells == 0):
+            bad.append(f"rank {r['rank']}'s launches {got}")
+        if not all(math.isfinite(x["e_loc"]) for x in r["rows"]):
+            bad.append(f"rank {r['rank']}: a non-finite energy")
+    if bad:
+        raise SystemExit(f"{label}: " + "; ".join(bad))
+    rows0 = res[0]["rows"]
+    return dict(world=world, wall_s=wall, route=res[0]["route"],
+                steps={f"{x['optimizer']}{x['step']}": dict(
+                    wall_s=x["wall_s"], device_ms=x["device_ms"], collectives=x["collectives"],
+                    collective_s=x["collective_s"], collective_bytes=x["collective_bytes"])
+                    for x in rows0},
+                checks=[r["check"] for r in res], launches_by_rank=[r["launches"] for r in res],
+                repeated_keys=keys)
+
+
 def _exact_entries(exact, cli_c, d_bound):
     """The kernels line's exact-mode keys of the five kernels phase 14 and
     run C drive at new shapes: each held time beside its plain version's and
@@ -4512,6 +4771,11 @@ def main(argv) -> int:
     natgrad = _natgrad(dev, hil, terms, cfg, tc, zero_counts, wrappers)
     print(f"[natgrad] phase 15: {time.time() - t15:.1f} s in all", flush=True)
 
+    # 16. data parallelism at the paper width
+    t16 = time.time()
+    sharded = _sharded(dev, hil, terms, cfg, tc, zero_counts, wrappers, smi)
+    print(f"[sharded] phase 16: {time.time() - t16:.1f} s in all", flush=True)
+
     def entry(name, launches, err, t_plain, bound, t_library,
               source="naqs_tpu_torch/csrc/rank_gather.cu",
               replaces="naqs_tpu/ops/dyn_gather.py:83", **more):
@@ -4759,11 +5023,12 @@ def main(argv) -> int:
               run_density_sample_density_calls=extras["density_calls"],
               **before(old_compact), **SHELL_SRC),
     ]
-    for k in kernels:  # phase 13's to 15's launches, each run counted from zero
+    for k in kernels:  # phase 13's to 16's launches, each run counted from zero
         k["launches_cli_a"], k["launches_cli_b"], k["launches_cli_c"] = (
             cli_counts[r][k["name"]] for r in "ABC")
         k["launches_exact"] = exact["launches"][k["name"]]
         k["launches_natgrad"] = natgrad["launches"][k["name"]]
+        k["launches_sharded"] = sharded["launches"][k["name"]]
         k.update(exact_extra.get(k["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)

@@ -15,21 +15,28 @@ coupled state against psi over the whole enumerated sector, and
 (`VMCTrainer.run_exact`), with `-ws_solve_h` re-targeting the model at the
 basis ground state in between and the final `solve_h` over the basis.
 `-sr` and `-kfac` train with the natural-gradient updates (matrix-free SR,
-K-FAC). A flag whose path is not ported yet (`-devices` above 1) exits with
-an error that names the `ROADMAP.md` item that ports it.
+K-FAC).
+
+`-devices D` above 1 trains data-parallel over D ranks (`parallel/`), one
+process each: under `torchrun` (its environment names the group) the
+processes are torchrun's; otherwise this process starts D ranks
+(`parallel/launch.py`, a `file://` store in the output folder) and waits for
+them. Rank r runs on the card cuda:r (NCCL), or with `-platform cpu` on the
+CPU (gloo). Rank 0 alone prints and writes files. `-devices 0` means every
+card, or one process with `-platform cpu`; more devices than cards is an
+error.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import sys
 import time
 
 import numpy as np
-
-# the ROADMAP.md item that ports -devices above 1
-MULTI_GPU_ITEM = "Queue A item 2 (multi-GPU)"
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -136,8 +143,7 @@ def get_parser() -> argparse.ArgumentParser:
                    help="density sampling: train on all states with "
                         "|psi|^2 >= dP (adaptive)")
     p.add_argument("-devices", type=int, default=0,
-                   help="data-parallel devices (0 = all available; above 1 "
-                        "not ported yet)")
+                   help="data-parallel devices (0 = all available)")
     p.add_argument("-profile", action="store_true",
                    help="capture a torch.profiler trace (Chrome trace in "
                         "<out>/profile) of the first 20 steps")
@@ -170,28 +176,69 @@ def _exp_name(args) -> str:
     return out
 
 
-def _refuse_unported(parser, args):
-    if args.devices > 1:
-        parser.error(f"-devices is not ported to naqs_tpu_torch yet: see ROADMAP.md "
-                     f"{MULTI_GPU_ITEM}")
+def _n_devices(parser, args, device) -> int:
+    """-devices as a count of ranks: 0 is every card (one process on the
+    CPU); more than the cards seen is an error."""
+    import torch
+
+    if device.type != "cuda":
+        return args.devices or 1
+    count = torch.cuda.device_count()
+    if args.devices > count:
+        parser.error(f"-devices {args.devices}: this machine has {count} CUDA card(s)")
+    return args.devices or count
 
 
 def run(args=None) -> dict:
     parser = get_parser()
-    args = parser.parse_args(args)
+    argv = sys.argv[1:] if args is None else list(args)
+    args = parser.parse_args(argv)
     if args.no_mask_psi and args.full_mask_psi:
         parser.error("at most one of -no_mask_psi / -full_mask_psi")
-    _refuse_unported(parser, args)
 
+    import torch.distributed as dist
+
+    from naqs_tpu_torch.parallel import initialize_distributed, rank_device
+    from naqs_tpu_torch.parallel.multihost import backend_for
+    from naqs_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.platform)
+    n_dev = _n_devices(parser, args, device)
+    out_root = args.out or _exp_name(args)
+    seed = args.seed if args.seed >= 0 else int(time.time()) % 100000
+    rank = 0
+    if n_dev > 1:
+        if not initialize_distributed(device=device):
+            from naqs_tpu_torch.parallel.launch import spawn
+
+            # the ranks take this process's seed: their models start the same
+            return spawn(run, n_dev, (argv + ["-s", str(seed)],), workdir=out_root,
+                         backend=backend_for(device), show_rank0=True)[0]
+        if dist.get_world_size() != n_dev:
+            parser.error(f"-devices {n_dev} in a process group of {dist.get_world_size()} ranks")
+        rank = dist.get_rank()
+        device = rank_device("cpu" if device.type == "cpu" else None)
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.set_device(device)
+        seeds = [seed]
+        dist.broadcast_object_list(seeds, src=0)   # rank 0's, under torchrun too
+        seed = seeds[0]
+    with contextlib.ExitStack() as quiet:
+        if rank:   # rank 0 alone prints
+            quiet.enter_context(contextlib.redirect_stdout(
+                quiet.enter_context(open(os.devnull, "w"))))
+        return _train(args, device, n_dev, rank == 0, out_root, seed)
+
+
+def _train(args, device, n_dev: int, writer: bool, out_root: str, seed: int) -> dict:
+    """The runs of `run` on this process's device; only the writer (rank 0)
+    writes files."""
     import naqs_tpu_torch as nt
     from naqs_tpu_torch.models.nade import NAQSConfig, count_parameters
     from naqs_tpu_torch.trainer import TrainConfig, VMCTrainer
-    from naqs_tpu_torch.utils.device import resolve_device
     from naqs_tpu_torch.utils.plotting import CHEM_ACC, plot_training
-
-    device = resolve_device(args.platform)
-    out_root = args.out or _exp_name(args)
-    seed = args.seed if args.seed >= 0 else int(time.time()) % 100000
 
     mol = nt.load_molecule(args.molecule, hamiltonian_fname=args.hamiltonian_fname)
     print(f"Loaded {mol.name}: {mol.n_qubits} qubits, {mol.n_electrons} electrons, "
@@ -205,8 +252,9 @@ def run(args=None) -> dict:
     for run_i in range(args.number):
         out_dir = out_root if args.number == 1 else f"{out_root}_{run_i}"
         os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "args.json"), "w") as f:
-            json.dump({**vars(args), "resolved_seed": seed + run_i}, f, indent=2)
+        if writer:
+            with open(os.path.join(out_dir, "args.json"), "w") as f:
+                json.dump({**vars(args), "resolved_seed": seed + run_i}, f, indent=2)
 
         n_exc = args.n_excitations_max if args.n_excitations_max >= 0 else None
         if args.no_restrictedH:
@@ -250,7 +298,7 @@ def run(args=None) -> dict:
             input_encoding=args.input_encoding,
         )
 
-        terms = _load_or_compile_terms(args, mol, n_exc)
+        terms = _load_or_compile_terms(args, mol, n_exc, writer)
         train_terms = None
         if args.s2_penalty > 0:
             # training operator H + lam * S^2; `terms` stays pure H for
@@ -293,7 +341,7 @@ def run(args=None) -> dict:
             seed=seed + run_i,
         )
         trainer = VMCTrainer(cfg, terms, hilbert, tc, device=device, save_loc=out_dir,
-                             train_terms=train_terms)
+                             train_terms=train_terms, n_devices=n_dev)
         print(f"Model parameters: {count_parameters(trainer.model)}")
         target_s2 = args.ws_spin * (args.ws_spin + 1.0) if args.ws_spin >= 0 else None
 
@@ -434,13 +482,14 @@ def run(args=None) -> dict:
         print("\n---------- Summary ----------")
         for k, v in summary.items():
             print(f"  {k}: {v}")
-        with open(os.path.join(out_dir, "summary.json"), "w") as f:
-            json.dump(summary, f, indent=2)
         trainer.save_log()
-        try:
-            plot_training(trainer, mol, fname=os.path.join(out_dir, "training.png"))
-        except Exception as exc:  # plotting must never kill a finished run
-            print(f"(plotting failed: {exc})")
+        if writer:
+            with open(os.path.join(out_dir, "summary.json"), "w") as f:
+                json.dump(summary, f, indent=2)
+            try:
+                plot_training(trainer, mol, fname=os.path.join(out_dir, "training.png"))
+            except Exception as exc:  # plotting must never kill a finished run
+                print(f"(plotting failed: {exc})")
         results[f"run_{run_i}"] = summary
     return results
 
@@ -449,7 +498,7 @@ _TERM_ARRAYS = ("diag_yz", "diag_coeff", "xy", "yz", "coeff", "xy_unique", "gxy"
                 "yz_unique", "gyz")
 
 
-def _load_or_compile_terms(args, mol, n_exc):
+def _load_or_compile_terms(args, mol, n_exc, writer: bool = True):
     """The compiled terms, from data/terms_cache/ with -loadH where the
     cache's fingerprint (the molecule's HF energy) matches, else compiled
     (and cached with -overwriteH)."""
@@ -483,7 +532,7 @@ def _load_or_compile_terms(args, mol, n_exc):
             print(f"Cache {cache} fingerprint mismatch ({cached_fp} != {fp}); recompiling")
     terms = nt.compile_pauli_terms(mol.qubit_hamiltonian, mol.n_qubits,
                                    n_excitations_max=n_exc)
-    if args.overwriteH and cache:
+    if args.overwriteH and cache and writer:
         os.makedirs(os.path.dirname(cache), exist_ok=True)
         np.savez(cache, n_qubits=terms.n_qubits, fingerprint=fp,
                  **{k: getattr(terms, k) for k in _TERM_ARRAYS})

@@ -85,10 +85,15 @@ def _precondition(fac: dict, gw: torch.Tensor, gb: torch.Tensor, damping: torch.
 
 def kfac_apply(model: NADE, kstate: dict, states: torch.Tensor, w: torch.Tensor,
                d_re: torch.Tensor, d_im: torch.Tensor, lr: float, damping: float,
-               decay: float, kl_clip: float):
+               decay: float, kl_clip: float, psum=lambda t: t):
     """The K-FAC step given the normalized weights w and the centred local
     energies (d_re, d_im): the model's parameters are updated in place.
-    Returns (new kstate, {"loss", "nu"} as device scalars)."""
+    Returns (new kstate, {"loss", "nu"} as device scalars).
+
+    Data parallel (`parallel/step.py`, as the JAX package's `kfac_apply`):
+    `w` is normalized over every rank and `psum` sums a tensor over the ranks
+    (the identity on one device): the loss, the parameter gradients and each
+    layer's A and G are summed, so every rank applies the same update."""
     dev = states.device
     f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
     lr, damping, decay, kl_clip = f32(lr), f32(damping), f32(decay), f32(kl_clip)
@@ -104,7 +109,8 @@ def kfac_apply(model: NADE, kstate: dict, states: torch.Tensor, w: torch.Tensor,
     names, params = zip(*model.named_parameters())
     eps_leaves = [e for name in eps for e in eps[name]]
     grads = torch.autograd.grad(loss, [*params, *eps_leaves])
-    g_params = dict(zip(names, grads[:len(params)]))
+    loss = psum(loss.detach())
+    g_params = dict(zip(names, map(psum, grads[:len(params)])))
     g_eps = iter(grads[len(params):])
     with torch.no_grad():
         step = kstate["step"] + 1
@@ -116,7 +122,7 @@ def kfac_apply(model: NADE, kstate: dict, states: torch.Tensor, w: torch.Tensor,
         for name, stack in _layers(model):
             facs = []
             for li in range(len(stack.w)):
-                A, G = _factor_stats(taps[name][li], next(g_eps), w)
+                A, G = map(psum, _factor_stats(taps[name][li], next(g_eps), w))
                 fac = kstate[name][li]
                 A_ema = decay * fac["A"] + (1.0 - decay) * A
                 G_ema = decay * fac["G"] + (1.0 - decay) * G
@@ -135,7 +141,7 @@ def kfac_apply(model: NADE, kstate: dict, states: torch.Tensor, w: torch.Tensor,
                     if n.split(".")[0] not in _STACKS]
         for p, u in updates:
             p.copy_(p - scale * u)
-    return new_state, {"loss": loss.detach(), "nu": nu}
+    return new_state, {"loss": loss, "nu": nu}
 
 
 def kfac_update(model: NADE, kstate: dict, dt: DeviceTerms, batch: SampleBatch, lr: float,

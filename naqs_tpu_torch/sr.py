@@ -63,14 +63,22 @@ def conjugate_gradient(matvec, b: torch.Tensor, x0: torch.Tensor, maxiter: int,
 
 def sr_system(model: NADE, dt: DeviceTerms, batch: SampleBatch, damping,
               reweight_by_psi: bool = False, fisher_mix: float = 0.0, table=None,
-              fwd_chunk: int = 65536):
+              fwd_chunk: int = 65536, psum=lambda t: t, centred=None):
     """The pieces of one SR update: (flat0, the parameters in order, grad,
     s_matvec, e_mean, e_var). flat0 is every parameter flattened into one
     vector (`model.named_parameters()` order), grad the energy gradient
     2 Re <conj(O) dE> and s_matvec(v) = (S + damping I) v, both in the
     parameters' dtype. Weights, local energies and the centring are float64.
     `table=(t_states, t_n)` gives exact local energies against the whole
-    sector, as in `trainer.vmc_loss`."""
+    sector, as in `trainer.vmc_loss`.
+
+    Data parallel (`parallel/step.py`, the JAX package's
+    `make_sharded_sr_step`): `psum` sums a tensor over the ranks (the
+    identity on one device) in the gradient, in both centring sums and in S v
+    itself, and in fisher_mix's count of live rows; `centred=(w, d_re, d_im,
+    e_mean, e_var)` gives the weights, normalized over every rank, and the
+    local energies centred on the global mean (dt, reweight_by_psi and table
+    then go unused)."""
     names, params = zip(*model.named_parameters())
     shapes = [p.shape for p in params]
     flat0 = torch.cat([p.detach().reshape(-1) for p in params])
@@ -84,7 +92,33 @@ def sr_system(model: NADE, dt: DeviceTerms, batch: SampleBatch, damping,
         return la.to(torch.float64), ph.to(torch.float64)
 
     (la, ph), vjp_fn = vjp(f, flat0)
-    la, ph = la.detach(), ph.detach()
+    if centred is None:
+        centred = _centred(model, dt, batch, live, la.detach(), ph.detach(), reweight_by_psi,
+                           table, fwd_chunk)
+    w, d_re, d_im, e_mean, e_var = centred
+    grad = psum((2.0 * vjp_fn((w * d_re, w * d_im))[0]).to(flat0.dtype))
+    if fisher_mix > 0.0:
+        n_live = torch.clamp(psum(torch.sum(live.to(torch.float64))), min=1.0)
+        w_f = (1.0 - fisher_mix) * w + fisher_mix * live.to(torch.float64) / n_live
+    else:
+        w_f = w
+
+    def s_matvec(v):
+        # centring the jvp's output also removes the <O> outer product: the
+        # weighted cotangents then sum to zero
+        u_la, u_ph = jvp(f, (flat0,), (v,))[1]
+        mean = psum(torch.stack([torch.sum(w_f * u_la), torch.sum(w_f * u_ph)]))
+        u_la, u_ph = u_la - mean[0], u_ph - mean[1]
+        return psum(vjp_fn((w_f * u_la, w_f * u_ph))[0].to(flat0.dtype)) + damping * v
+
+    return flat0, params, grad, s_matvec, e_mean, e_var
+
+
+def _centred(model, dt, batch, live, la, ph, reweight_by_psi, table, fwd_chunk):
+    """One device's (w, d_re, d_im, e_mean, e_var) from the batch's float64
+    (log_amp, phase): the normalized weights and the local energies centred
+    on their weighted mean."""
+    states = batch.states
     if reweight_by_psi:
         w = torch.where(live, torch.exp(2.0 * la), 0.0)
     else:
@@ -105,24 +139,30 @@ def sr_system(model: NADE, dt: DeviceTerms, batch: SampleBatch, damping,
     e_im = torch.where(live, e_im, 0.0)
     e_mean = torch.sum(w * e_re)
     e_var = torch.sum(w * (e_re - e_mean) ** 2)
-    d_re = e_re - e_mean
-    d_im = e_im - torch.sum(w * e_im)
-    grad = (2.0 * vjp_fn((w * d_re, w * d_im))[0]).to(flat0.dtype)
-    if fisher_mix > 0.0:
-        n_live = torch.clamp(torch.sum(live.to(torch.float64)), min=1.0)
-        w_f = (1.0 - fisher_mix) * w + fisher_mix * live.to(torch.float64) / n_live
-    else:
-        w_f = w
+    return w, e_re - e_mean, e_im - torch.sum(w * e_im), e_mean, e_var
 
-    def s_matvec(v):
-        # centring the jvp's output also removes the <O> outer product: the
-        # weighted cotangents then sum to zero
-        u_la, u_ph = jvp(f, (flat0,), (v,))[1]
-        u_la = u_la - torch.sum(w_f * u_la)
-        u_ph = u_ph - torch.sum(w_f * u_ph)
-        return vjp_fn((w_f * u_la, w_f * u_ph))[0].to(flat0.dtype) + damping * v
 
-    return flat0, params, grad, s_matvec, e_mean, e_var
+def sr_step(flat0, params, grad, s_matvec, e_mean, lr: float, cg_iters: int,
+            kl_clip: Optional[float], overflow: torch.Tensor):
+    """The rest of an SR update after `sr_system`: solve (S + damping I) x =
+    grad by CG from x0 = grad, cap the step by the KL clip, and write flat0 -
+    lr x into the parameters, unless the batch overflowed (it is truncated,
+    so biased) or the energy or the new parameters are not finite (one NaN
+    would poison them for good); both decided on the device. Returns (x, the
+    CG iterations that ran)."""
+    x, n_iter = conjugate_gradient(s_matvec, grad, grad, cg_iters)
+    lr_t = torch.full((), lr, dtype=flat0.dtype, device=flat0.device)
+    if kl_clip is not None:
+        # the step lr x moves the distribution ~ 0.5 lr^2 x^T S x nats
+        q = torch.clamp(_dot(x, s_matvec(x)), min=1e-300)
+        lr_t = lr_t * torch.clamp(torch.sqrt(kl_clip / (lr_t * lr_t * q)), max=1.0)
+    new_flat = flat0 - lr_t * x
+    bad = overflow | ~torch.isfinite(e_mean) | ~torch.isfinite(torch.sum(new_flat))
+    new_flat = torch.where(bad, flat0, new_flat)
+    with torch.no_grad():
+        for p, piece in zip(params, torch.split(new_flat, [p.numel() for p in params])):
+            p.copy_(piece.view_as(p))
+    return x, n_iter
 
 
 def sr_update(model: NADE, dt: DeviceTerms, batch: SampleBatch, lr: float, damping: float,
@@ -141,19 +181,7 @@ def sr_update(model: NADE, dt: DeviceTerms, batch: SampleBatch, lr: float, dampi
     vector."""
     flat0, params, grad, s_matvec, e_mean, e_var = sr_system(
         model, dt, batch, damping, reweight_by_psi, fisher_mix, table, fwd_chunk)
-    x, n_iter = conjugate_gradient(s_matvec, grad, grad, cg_iters)
-    lr_t = torch.full((), lr, dtype=flat0.dtype, device=flat0.device)
-    if kl_clip is not None:
-        # the step lr x moves the distribution ~ 0.5 lr^2 x^T S x nats
-        q = torch.clamp(_dot(x, s_matvec(x)), min=1e-300)
-        lr_t = lr_t * torch.clamp(torch.sqrt(kl_clip / (lr_t * lr_t * q)), max=1.0)
-    new_flat = flat0 - lr_t * x
-    # one NaN would poison the parameters for good; an overflowed batch is
-    # truncated, so biased
-    bad = batch.overflow | ~torch.isfinite(e_mean) | ~torch.isfinite(torch.sum(new_flat))
-    new_flat = torch.where(bad, flat0, new_flat)
-    with torch.no_grad():
-        for p, piece in zip(params, torch.split(new_flat, [p.numel() for p in params])):
-            p.copy_(piece.view_as(p))
+    x, n_iter = sr_step(flat0, params, grad, s_matvec, e_mean, lr, cg_iters, kl_clip,
+                        batch.overflow)
     return {"e_loc": e_mean, "e_loc_var": e_var, "sr_dx_norm": torch.linalg.norm(x),
             "grad_norm": torch.linalg.norm(grad), "cg_iters": n_iter}

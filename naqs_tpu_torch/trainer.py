@@ -28,6 +28,12 @@ Port of the single-device `VMCTrainer` of `naqs_tpu/trainer.py`:
     factors in `VMCTrainer.kfac_state` and in checkpoints): `step()` then
     samples through the controller, updates at the LR of `_current_lr()`
     (keyed on the steps taken) and reads back once;
+  * data parallelism (`n_devices=D`, the JAX package's sharded trainer): one
+    process a rank in a `torch.distributed` group of D
+    (`parallel.initialize_distributed`), each rank sampling its share and
+    every update summed over the ranks (`parallel/step.py`), withheld on the
+    card when any rank overflowed, one readback a step (`_step_sharded`);
+    the state stays bitwise equal on every rank, and rank 0 alone writes;
   * the host sample-count controller: x10 when too few unique samples,
     /10 on too many or on overflow, with overflow hysteresis;
   * the sampled-state counter (every RECORD_FREQ-th step) that feeds
@@ -204,12 +210,15 @@ def log_psi_table(model: NADE, states: torch.Tensor, chunk: int = 65536):
     return la, ph
 
 
-def sector_table(basis: np.ndarray, chunk: int, device=None):
+def sector_table(basis: np.ndarray, chunk: int, device=None, n_devices: int = 1):
     """The exact-E_loc sector table (t_states, t_n): the sorted basis as int64
-    on the device, SENTINEL-padded up to a multiple of `chunk` when it is
-    longer than one chunk, and its length as a 0-d int64 device tensor."""
+    on the device, SENTINEL-padded up to a multiple of `chunk` x n_devices
+    when it is longer than one chunk, else of n_devices, so that it splits
+    into one slice a rank whose forward runs in whole chunks (the data-parallel
+    step's table forward), and its length as a 0-d int64 device tensor."""
     n = len(basis)
-    n_pad = -(-n // chunk) * chunk if n > chunk else n
+    unit = chunk * n_devices if n > chunk else n_devices
+    n_pad = -(-n // unit) * unit
     buf = np.full((n_pad,), SENTINEL, dtype=np.int64)
     buf[:n] = basis
     return (torch.as_tensor(buf, device=device),
@@ -382,11 +391,19 @@ class UpdateWindow:
         return state
 
     def step(self, dt: DeviceTerms, batch: SampleBatch, reweight_by_psi: bool = True):
-        if self.i >= self.length:
-            raise ValueError(f"the window holds {self.length} steps")
         params, _, e_mean, e_var, gnorm, bad = _gradients(
             self.model, self.optimizer, dt, batch, reweight_by_psi, None, 0)
-        ok = ~bad
+        self.apply(params, gnorm, ~bad, e_mean, e_var)
+
+    def apply(self, params, gnorm: torch.Tensor, ok: torch.Tensor, e_mean: torch.Tensor,
+              e_var: torch.Tensor):
+        """The window's next update from the gradients in the parameters'
+        .grad (`params` in the optimizer's order; gnorm their global norm):
+        the clip, then Adam where the device bool `ok` holds; (e_mean, e_var)
+        are kept as the step's metrics. The data-parallel step
+        (`parallel/step.py`) gives it gradients summed over the ranks."""
+        if self.i >= self.length:
+            raise ValueError(f"the window holds {self.length} steps")
         with torch.no_grad():
             if self.clip is not None:
                 scale, kept = self.clip.scale(gnorm)
@@ -425,7 +442,14 @@ class UpdateWindow:
         each step, NaN past the steps run; (length,) bool, applied)."""
         host = _to_host(torch.cat([self.metrics.reshape(-1), self.applied]))
         ms, applied = host[:2 * self.length].reshape(self.length, 2), host[2 * self.length:] > 0
-        n = int(applied.sum())
+        self.settle(int(applied.sum()))
+        return ms, applied
+
+    def settle(self, n: int):
+        """With `n`, the count of applied steps as read back, leave the
+        optimizer's step counts and the scheduler where n applied updates
+        through `vmc_update` leave them (`close` does this after its
+        readback)."""
         if n == 0:
             for p in self.created:
                 del self.optimizer.state[p]
@@ -433,7 +457,6 @@ class UpdateWindow:
             for p in self.steps:
                 self.optimizer.state[p]["step"] += n
         _set_schedule(self.optimizer, self.scheduler, self.scheduler.last_epoch + n)
-        return ms, applied
 
 
 def vmc_update_scan(model: NADE, optimizer, scheduler, dt: DeviceTerms, batch: SampleBatch,
@@ -450,6 +473,28 @@ def vmc_update_scan(model: NADE, optimizer, scheduler, dt: DeviceTerms, batch: S
     for _ in range(min(int(n_live), window.length)):
         window.step(dt, batch, reweight_by_psi)
     return window.close()
+
+
+def _group_rank(n_devices: int) -> int:
+    """This process's rank in the default process group, which must hold
+    n_devices ranks (`parallel.initialize_distributed`)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() != n_devices:
+        have = dist.get_world_size() if dist.is_initialized() else "no process group"
+        raise RuntimeError(
+            f"n_devices={n_devices} needs an initialized process group of {n_devices} "
+            f"ranks (naqs_tpu_torch.parallel.initialize_distributed), found {have}")
+    return dist.get_rank()
+
+
+def _leaves(tree) -> list:
+    """The tensors of a nested dict/list (K-FAC's state), in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
 
 
 def _adam_step(model: NADE, opt, loss_fn) -> torch.Tensor:
@@ -487,7 +532,14 @@ class VMCTrainer:
         device=None,
         save_loc: Optional[str] = None,
         train_terms: Optional[PauliTerms] = None,
+        n_devices: int = 1,
     ):
+        self.n_devices = int(n_devices)
+        self.rank = 0
+        if self.n_devices > 1:
+            from naqs_tpu_torch.parallel.multihost import rank_device
+
+            self.rank, device = _group_rank(self.n_devices), rank_device(device)
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.tc = train_cfg
@@ -501,23 +553,35 @@ class VMCTrainer:
                                          hilbert=hilbert, device=self.device)
         self.dt_h = (self.dt if train_terms is None
                      else DeviceTerms.from_terms(terms, hilbert=hilbert, device=self.device))
-        # the exact-E_loc sector table (single card: one chunk is the padding unit)
+        # the exact-E_loc sector table, padded so that each rank's slice runs
+        # in whole chunks
         self._table = None
         if train_cfg.exact_eloc:
-            # as in the JAX package, whose K-FAC update has no table= path
-            if train_cfg.use_kfac:
+            # as in the JAX package: its K-FAC update has no table= path, and
+            # its sharded SR step none either
+            if train_cfg.use_kfac or (train_cfg.use_sr and self.n_devices > 1):
                 raise ValueError("exact_eloc is implemented for the Adam update paths "
                                  "and single-chip SR")
-            self._table = sector_table(hilbert.basis, int(train_cfg.eloc_fwd_chunk), self.device)
+            self._table = sector_table(hilbert.basis, int(train_cfg.eloc_fwd_chunk),
+                                       self.device, self.n_devices)
         if train_cfg.use_sr and train_cfg.use_kfac:
             raise ValueError("use_sr and use_kfac are mutually exclusive")
         self.kfac_state = None  # K-FAC's running factors, made at its first step
+        # the same seed on every rank: the parameters start replicated
         init_gen = torch.Generator().manual_seed(train_cfg.seed)
         self.model = NADE(model_cfg, init_gen).to(self.device)
-        self.gen = torch.Generator(device=self.device).manual_seed(train_cfg.seed + 1)
+        if self.n_devices > 1:
+            from naqs_tpu_torch.parallel.multihost import rank_generator
+
+            self.gen = rank_generator(train_cfg.seed + 1, self.rank, self.device)
+        else:
+            self.gen = torch.Generator(device=self.device).manual_seed(train_cfg.seed + 1)
         self._new_optimizer()
         self.n_samples = float(train_cfg.n_samples)
         self.capacity = int(train_cfg.n_unq_samples_max)
+        self._sharded = None
+        if self.n_devices > 1:
+            self._sharded = self._make_sharded_step()
         self.n_steps = 0
         self.run_time = 0.0
         self.save_loc = save_loc
@@ -669,6 +733,112 @@ class VMCTrainer:
         self._log_step(out["e_loc"], out["e_loc_var"], n_unq)
         return out
 
+    def _make_sharded_step(self):
+        """The data-parallel step of this trainer's optimizer
+        (`parallel/step.py`) on this rank's share of the capacity; the
+        kernels are built by rank 0 first, while the others wait."""
+        import torch.distributed as dist
+
+        from naqs_tpu_torch.parallel import step as pstep
+
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+            if self.rank == 0:
+                from naqs_tpu_torch.ops._build import build_all
+
+                build_all()
+            dist.barrier()
+        tc = self.tc
+        cap = max(64, self.capacity // self.n_devices)
+        if tc.use_sr:
+            return pstep.make_sharded_sr_step(self.model, cap, tc.sr_cg_iters,
+                                              tc.reweight_by_psi, tc.sr_kl_clip,
+                                              tc.sr_fisher_mix)
+        if tc.use_kfac:
+            return pstep.make_sharded_kfac_step(self.model, cap)
+        return pstep.make_sharded_train_step(self.model, cap, self._table, tc.eloc_fwd_chunk,
+                                             tc.reweight_by_psi, tc.sample_beta)
+
+    def _step_sharded(self, max_retries: int = 12) -> dict:
+        """One data-parallel step: each rank samples its share, cut to the
+        longest live prefix of any rank, and the update runs over every
+        rank's rows (`parallel/step.py`); one readback after the sampling
+        (overflow, the cut) and one of the update's metrics. Where any rank
+        overflowed no update runs: the controller backs n_samples off and
+        the step is redone. The merged buffer feeds the sampled-state
+        counter every RECORD_FREQ steps."""
+        t0 = time.time()
+        tc = self.tc
+        for _ in range(max_retries):
+            window = None
+            if tc.use_sr:
+                m = self._sharded(self.dt, self.gen, self.n_samples, self._current_lr(),
+                                  tc.sr_damping)
+            elif tc.use_kfac:
+                if self.kfac_state is None:
+                    self.kfac_state = kfac_init(self.model)
+                self.kfac_state, m = self._sharded(
+                    self.kfac_state, self.dt, self.gen, self.n_samples, self._current_lr(),
+                    tc.kfac_damping, tc.kfac_decay, tc.kfac_kl_clip)
+            else:
+                window = UpdateWindow(self.model, self.optimizer, self.scheduler, 1, self.clip)
+                m = self._sharded(window, self.dt, self.gen, self.n_samples)
+            if m is not None:   # else some rank overflowed, and no update ran
+                scalars = {k: v for k, v in m.items() if not k.startswith("rec_")}
+                keys = [*scalars, "rec_n_valid"]
+                vals = dict(zip(keys, torch.stack(
+                    [m[k].to(torch.float64) for k in keys]).cpu().tolist()))
+            overflow = m is None or bool(vals["overflow"])
+            if window is not None:
+                window.settle(0 if overflow else 1)
+            if not overflow:
+                break
+            self._note_overflow()
+            self.n_samples = max(self.n_samples / 10, tc.n_unq_samples_min)
+        else:
+            raise RuntimeError(
+                "sharded sample-count controller did not converge: capacity "
+                f"{self.capacity} too small for this wavefunction's support?")
+        n_unq = int(vals["n_unique"])
+        if (n_unq < tc.n_unq_samples_min and self.n_samples < tc.n_samples_max
+                and not self._grow_blocked()):
+            self.n_samples = min(self.n_samples * 10, tc.n_samples_max)
+        elif n_unq > tc.n_unq_samples_max:
+            self.n_samples = max(self.n_samples / 10, tc.n_unq_samples_min)
+        if self.n_steps % self.RECORD_FREQ == 0:
+            nv = int(vals["rec_n_valid"])
+            both = torch.stack([m["rec_states"][:nv],
+                                m["rec_counts"][:nv].view(torch.int64)]).cpu().numpy()
+            self._record_arrays(both[0], both[1].view(np.float64))
+        self.n_steps += 1
+        dt_step = time.time() - t0
+        self.run_time += dt_step
+        out = {**{k: vals[k] for k in scalars if k not in ("overflow", "n_unique")},
+               "n_unique": n_unq, "n_samples": self.n_samples, "time": dt_step}
+        if "cg_iters" in out:
+            out["cg_iters"] = int(out["cg_iters"])
+        self._log_step(out["e_loc"], out["e_loc_var"], n_unq)
+        return out
+
+    def _replicate(self):
+        """Make every rank's model, optimizer state and clip ring rank 0's:
+        after work that each rank does on its own (warm starts, exact and
+        density training), which may round differently on each card, or, for
+        a warm start from a sampled subspace, draw another subspace."""
+        if self.n_devices == 1:
+            return
+        import torch.distributed as dist
+
+        tensors = [p.data for p in self.model.parameters()]
+        tensors += [v for st in self.optimizer.state.values() for k, v in sorted(st.items())
+                    if torch.is_tensor(v) and v.device == self.device]
+        if self.clip is not None:
+            tensors += [self.clip.norms, self.clip.count]
+        if self.kfac_state is not None:
+            tensors += _leaves(self.kfac_state)
+        for t in tensors:
+            dist.broadcast(t, src=0)
+
     def _current_lr(self) -> float:
         """The natural-gradient updates' LR: the two-phase schedule keyed on
         the steps taken (Adam's counts applied updates)."""
@@ -677,6 +847,8 @@ class VMCTrainer:
         return self.tc.lr if self.n_steps < max(self.tc.n_train // 2, 1) else self.tc.lr_final
 
     def step(self) -> dict:
+        if self._sharded is not None:
+            return self._step_sharded()
         if not (self.tc.use_sr or self.tc.use_kfac):
             return self._step_fused()
         t0 = time.time()
@@ -729,10 +901,11 @@ class VMCTrainer:
                     self.log["E"].append((self.n_steps, out["e_exact"]))
                 recent = [v for _, v in self.log["E_LOC"][-output_freq:]]
                 e_part = f"E={out['e_exact']:.6f}, " if "e_exact" in out else ""
-                print(f"step {self.n_steps}: <E_loc>={np.mean(recent):.6f} "
-                      f"+/- {np.std(recent):.6f}, var={out['e_loc_var']:.6f}, "
-                      f"unq={out['n_unique']}, n_samp={out['n_samples']:.2e}, "
-                      f"{e_part}t={out['time']*1000:.0f}ms", flush=True)
+                if self.rank == 0:   # the ranks' logs are the same
+                    print(f"step {self.n_steps}: <E_loc>={np.mean(recent):.6f} "
+                          f"+/- {np.std(recent):.6f}, var={out['e_loc_var']:.6f}, "
+                          f"unq={out['n_unique']}, n_samp={out['n_samples']:.2e}, "
+                          f"{e_part}t={out['time']*1000:.0f}ms", flush=True)
             if save_freq and self.save_loc and self.n_steps % save_freq == 0:
                 self.save()
             if callback is not None:
@@ -776,6 +949,7 @@ class VMCTrainer:
                 print(f"step {self.n_steps}: <E>={m['e_loc']:.6f} "
                       f"var={m['e_loc_var']:.6f} unq={n_unq} d_p={self.d_p:.2e}",
                       flush=True)
+        self._replicate()
         return self
 
     def _basis_batch(self, states: np.ndarray) -> SampleBatch:
@@ -825,6 +999,7 @@ class VMCTrainer:
                 done += k
                 if save_freq and self.save_loc and (self.n_steps % save_freq) < k:
                     self.save()
+            self._replicate()
             return self
         for _ in range(n_epochs):
             t0 = time.time()
@@ -836,6 +1011,7 @@ class VMCTrainer:
             self._log_exact(m["e_loc"], m["e_loc_var"], batch_size, output_freq)
             if save_freq and self.save_loc and self.n_steps % save_freq == 0:
                 self.save()
+        self._replicate()
         return self
 
     # -- warm starts (each with its own plain Adam, optax.adam(lr)'s defaults)
@@ -861,6 +1037,7 @@ class VMCTrainer:
             if (ep + 1) % report == 0 or ep + 1 == n_epochs:
                 print(f"pre_flatten: epoch {ep + 1}/{n_epochs}, loss={float(loss):.6f}",
                       flush=True)
+        self._replicate()
         return self
 
     def pre_train_hf(self, n_epochs: int, lr: float = 5e-3):
@@ -877,6 +1054,7 @@ class VMCTrainer:
 
         for _ in range(n_epochs):
             _adam_step(self.model, opt, bce)
+        self._replicate()
         return self
 
     def pre_train_targets(self, states: np.ndarray, target_psi: np.ndarray,
@@ -927,6 +1105,7 @@ class VMCTrainer:
             if (ep + 1) % report == 0 or ep + 1 == n_epochs:
                 print(f"pre_train_targets: epoch {ep + 1}/{n_epochs}, "
                       f"loss={float(loss_v):.6f}", flush=True)
+        self._replicate()
         return float(loss_v)
 
     def _subspace(self, states, use_counter: bool, k_max: int, n_samps):
@@ -980,7 +1159,7 @@ class VMCTrainer:
         else:
             H = assemble_sparse_hamiltonian_np(self.terms, states)
             e0, vec = self._lowest_state(H, states, target_s2)
-            if cache:
+            if cache and self.rank == 0:
                 os.makedirs(os.path.dirname(cache), exist_ok=True)
                 np.savez(cache, e0=e0, vec=vec)
         if loss in ("overlap", "wmse"):
@@ -1048,25 +1227,38 @@ class VMCTrainer:
         from naqs_tpu_torch.utils.profiling import save_log
 
         assert self.save_loc, "save_loc not set"
+        path = os.path.join(self.save_loc, fname)
+        if self.rank:   # rank 0 alone writes
+            return path + ".jsonl"
         os.makedirs(self.save_loc, exist_ok=True)
-        return save_log(self.log, os.path.join(self.save_loc, fname))
+        return save_log(self.log, path)
 
     # -- checkpoints
     def save(self, fname: str = "checkpoint") -> str:
         """Write <fname>.pt (the model, Adam, LR-schedule and clip state, K-FAC's
         running factors and the generator's state, torch.save), then <fname>_counter.npz and
-        <fname>_log.npz, then <fname>.json, which commits the checkpoint. The
-        last three have the JAX package's layout, so either package reads
+        <fname>_log.npz, then <fname>.json, which commits the checkpoint. In
+        a group every rank calls it: the ranks' generator states are gathered
+        (each rank draws its own batches, and resumes its own stream), and
+        rank 0 writes. The last three have the JAX package's layout, so either package reads
         them."""
         assert self.save_loc, "save_loc not set"
-        os.makedirs(self.save_loc, exist_ok=True)
         path = os.path.join(self.save_loc, f"{fname}.pt")
+        gens = None
+        if self.n_devices > 1:   # every rank's own stream, gathered (a collective)
+            from naqs_tpu_torch.parallel.comm import all_gather_rows
+
+            gens = [g.clone() for g in   # each a tensor of its own (set_state needs it)
+                    all_gather_rows(self.gen.get_state()[None].to(self.device)).cpu()]
+        if self.rank:   # rank 0 alone writes: the ranks' other states are the same
+            return path
+        os.makedirs(self.save_loc, exist_ok=True)
         torch.save({"model": self.model.state_dict(),
                     "optimizer": self.optimizer.state_dict(),
                     "scheduler": self.scheduler.state_dict(),
                     "clip": None if self.clip is None else self.clip.state_dict(),
                     "kfac": self.kfac_state,
-                    "generator": self.gen.get_state()}, path)
+                    "generator": self.gen.get_state(), "generators": gens}, path)
         if self.sampled_counter:
             keys, vals = self._counter_arrays()
             if len(keys) > self.COUNTER_SAVE_MAX:
@@ -1085,6 +1277,21 @@ class VMCTrainer:
         with open(os.path.join(self.save_loc, f"{fname}.json"), "w") as f:
             json.dump(meta, f)
         return path
+
+    def _load_generator(self, state: torch.Tensor, ranks_states) -> None:
+        """This rank's generator from a checkpoint: its own saved stream where
+        the checkpoint holds one a rank of a group this size; else, in a
+        group, a stream per rank drawn from the saved one (`rank_generator`),
+        so that the ranks never draw the same batches."""
+        if self.n_devices == 1:
+            self.gen.set_state(state)
+        elif ranks_states is not None and len(ranks_states) == self.n_devices:
+            self.gen.set_state(ranks_states[self.rank])
+        else:
+            from naqs_tpu_torch.parallel.multihost import rank_generator
+
+            seed = int.from_bytes(hashlib.sha256(state.numpy().tobytes()).digest()[:8], "little")
+            self.gen = rank_generator(seed, self.rank, self.device)
 
     def load(self, fname: str = "checkpoint", params_only: bool = False):
         """Restore a checkpoint: the port's <fname>.pt, or where there is none
@@ -1108,7 +1315,7 @@ class VMCTrainer:
             if self.clip is not None:
                 self.clip.load_state_dict(ckpt["clip"])
             self.kfac_state = _to_device(ckpt.get("kfac"), self.device)
-            self.gen.set_state(ckpt["generator"])
+            self._load_generator(ckpt["generator"], ckpt.get("generators"))
         else:
             with open(os.path.join(self.save_loc, f"{fname}.msgpack"), "rb") as f:
                 state = read_flax_msgpack(f.read())
@@ -1184,6 +1391,8 @@ def save_psi(trainer: VMCTrainer, fname: str, normalise: bool = True,
     basis = trainer.hilbert.basis
     if len(basis) > max_states:
         raise ValueError(f"basis too large to dump ({len(basis)} > {max_states})")
+    if trainer.rank:   # rank 0 alone writes
+        return fname
     la, ph = log_psi(trainer.model, torch.as_tensor(basis, device=trainer.device))
     la = la.cpu().numpy().astype(np.float64)
     ph = ph.cpu().numpy().astype(np.float64)

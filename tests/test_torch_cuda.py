@@ -32,7 +32,10 @@ table of 19 M rows), and the one-launch quadratic forms
 `rank_quadratic_energy` and `sorted_quadratic_energy` per row (num and w)
 within their `*_tolerance` and their quotient within 1e-6 relative; all four
 give `offdiag_h_terms`' h bits on a row with one found pair, bitwise; the
-dispatch launches each once per call, with a dense A or without.
+dispatch launches each once per call, with a dense A or without. Every
+engine's E_loc kernel at a data-parallel step's merged table, where states
+drawn on both ranks lie twice, against its plain version (per row within
+its tolerance) and against the table without the repeats.
 
 The trainer's extras on the card (N2 STO-3G): clipped steps keep the clip's
 ring on the card and move it once per applied update, never on a withheld
@@ -518,6 +521,63 @@ def test_xl_engine_matches_rank_engine_on_the_card(monkeypatch):
     rows = torch.arange(5, m, 11, device=dev)
     e_q = le.local_energy(dt, s, la, ph, m, queries=(s[rows], la[rows], ph[rows]))
     assert torch.equal(e_q[0], e_grid[0][rows]) and torch.equal(e_q[1], e_grid[1][rows])
+
+
+def _overlapping_shards(basis, dev, n_per=4096, live=(3000, 2600), shared=1200, seed=6):
+    """Two ranks' sorted, SENTINEL-padded shards of n_per rows, `shared` live
+    states on both (each distinct state carries one (la, ph) wherever it
+    lies), and their merged table: both shards end to end, sorted stably,
+    as `parallel/step.merge_shards` gathers and sorts them."""
+    from naqs_tpu_torch.utils.bits import SENTINEL
+
+    rng = np.random.default_rng(seed)
+    pool = rng.choice(basis, size=live[0] + live[1] - shared, replace=False)
+    la = (rng.normal(size=len(pool)) - 1.0).astype(np.float32)
+    ph = rng.uniform(-np.pi, np.pi, size=len(pool)).astype(np.float32)
+    shards = []
+    for sel in (np.arange(live[0]), np.arange(live[0] - shared, len(pool))):
+        sel = sel[np.argsort(pool[sel])]
+        s = np.full(n_per, SENTINEL, np.int64)
+        a, p = np.zeros(n_per, np.float32), np.zeros(n_per, np.float32)
+        s[:len(sel)], a[:len(sel)], p[:len(sel)] = pool[sel], la[sel], ph[sel]
+        shards.append(tuple(torch.as_tensor(x, device=dev) for x in (s, a, p)))
+    cat = [torch.cat([sh[i] for sh in shards]) for i in range(3)]
+    order = torch.sort(cat[0], stable=True)[1]
+    return shards, (cat[0][order], cat[1][order], cat[2][order], live[0] + live[1])
+
+
+@pytest.mark.parametrize("engine", ["fact", "dense", "rank", "sort", "xl"])
+def test_engines_at_a_merged_table_with_repeated_keys(engine, monkeypatch):
+    """The E_loc kernel of every engine at a data-parallel step's merged
+    table, where 1,200 states drawn on both ranks lie twice, for each rank's
+    query rows (N2 STO-3G; the staircase engine at 4 excitations with its
+    caps forced): against its plain version on the same card tensors, per
+    row within the kernel's own tolerance, and against the same table
+    without the repeats (the grid engines' grids equal; the row kernels
+    within that tolerance). `tools/shard_drill.repeated_keys` is the check
+    that chip_smoke.py phase 16b makes at the paper width."""
+    from naqs_tpu_torch.tools.shard_drill import repeated_keys
+
+    dev = _card()
+    if engine == "xl":
+        monkeypatch.setattr(de, "DENSE_SIZE_MAX", 1)
+        monkeypatch.setattr(de, "FACT_SIZE_MAX", 1)
+        terms, hil, _ = _staircase("N2_STO-3G_gen", 4, dev)
+    else:
+        terms, hil = _n2()
+    dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
+    if engine == "fact":
+        dt = dataclasses.replace(dt, dense=FactorTerms.build(terms, hil, device=dev))
+    elif engine in ("rank", "sort"):
+        dt = dataclasses.replace(dt, dense=None,
+                                 rank_spec=dt.rank_spec if engine == "rank" else None)
+    want = {"fact": "FactorTerms", "dense": "DenseTerms", "xl": "FactorTermsXL"}.get(engine)
+    assert type(dt.dense).__name__ == want if want else dt.dense is None
+    shards, table = _overlapping_shards(hil.basis, dev)
+    assert int(torch.unique(table[0][:table[3]]).numel()) == table[3] - 1200
+    for r, (live, q) in enumerate(zip((3000, 2600), shards)):
+        got = repeated_keys({engine: dt}, table, q, live)[engine]
+        assert got["within"] and got["dedup_within"], (r, got)
 
 
 def test_xl_grid_kernel_rejects_bad_inputs():

@@ -105,6 +105,28 @@ def test_import_pulls_in_neither_jax_nor_naqs_tpu():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_parallel_modules_and_their_rank_code_pull_in_neither_jax_nor_naqs_tpu():
+    """The data-parallel package, the drill its card phase runs on each rank and
+    the module the parallel tests' ranks run: a rank process loads none of JAX
+    or naqs_tpu."""
+    mods = ["naqs_tpu_torch.parallel", "naqs_tpu_torch.parallel.comm",
+            "naqs_tpu_torch.parallel.multihost", "naqs_tpu_torch.parallel.step",
+            "naqs_tpu_torch.parallel.launch", "naqs_tpu_torch.tools.shard_drill",
+            "test_torch_parallel_ranks"]
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'naqs_tpu')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    parallel = os.listdir(os.path.join(REPO, "naqs_tpu_torch", "parallel"))
+    assert {"comm.py", "multihost.py", "step.py", "launch.py"} <= set(parallel)
+
+
 def _imported_modules(path):
     tree = ast.parse(open(path).read(), filename=path)
     for node in ast.walk(tree):
@@ -115,10 +137,12 @@ def _imported_modules(path):
 
 
 def test_no_jax_or_naqs_tpu_imports_in_port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests",
+                                                              "test_torch_parallel_ranks.py")]
     for root, _, names in os.walk(os.path.join(REPO, "naqs_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    assert os.path.join(REPO, "naqs_tpu_torch", "parallel", "step.py") in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

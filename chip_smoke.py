@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      staircase accumulations), csrc/sampler_step.cu, csrc/sort_lookup.cu (the
      sort engine's lookups, its one-launch E_loc and quadratic form; the
      one-launch kernels' shared body is csrc/row_energy.cuh) and
-     csrc/offdiag_h.cu (the per-term H row);
+     csrc/offdiag_h.cu (the per-term H row) and csrc/eri.cu (the
+     two-electron integrals, one kernel per angular class);
   2. print the card's name and power limit (nvidia-smi);
   3. set up H2O 6-31G (26 qubits, sector (5, 5), 1,656,369 states) and the
      paper-scale model (amp 64, phase 512x512, global phase net, partial
@@ -384,6 +385,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      launched on each rank in its steps; 16c the same over NCCL across min(count,
      SHARD_MAX_CARDS) cards where torch.cuda.device_count() >= 2, else one line
      saying that it was not run.
+ 17. the chemistry pipeline (naqs_tpu_torch/chem/): 17a the ERI kernel
+     (eri_tensor, csrc/eri.cu) on H2O 6-31G at the committed molecule's
+     geometry against eri_tensor_ref (the JAX package's loops on the host)
+     on every entry within ERI_ATOL, bitwise on a second launch, one launch
+     per angular class; the kernels' Boys routine (boys_tensor) against
+     boys_ref within BOYS_RTOL for n_max 0..8; its held time, the plain
+     version's and the bound (_eri_work: f64 operations at
+     H100_FP64_OPS_PER_S); registers and spills from -Xptxas -v; 17b
+     generate_molecule_data on the card for CHEM_RUNS (H2O and N2 6-31G,
+     Li2O STO-3G, N2 STO-3G with CISD and FCI) against the committed .npz
+     (the JAX package's outputs): HF within CHEM_HF_TOL, MP2, CCSD, CISD,
+     FCI and every orbital energy within CHEM_E_TOL, each run's wall time;
+     17c `python -m naqs_tpu_torch.chem.generate`'s main writes N2 STO-3G
+     to a temporary folder, load_molecule reads it (its energies within
+     CHEM_E_TOL of the committed .npz) and CHEM_STEPS VMCTrainer steps run
+     on it at the paper width (DenseTerms: dense_grid_accumulate and
+     split_and_compact launched).
 With --profile, the profiled step of each engine (H2O 6-31G factored and
 rank, Li2O staircase, N2 6-31G sort, frozen-core N2 6-31G rank with no
 dense A) must show one device kernel per wrapper call of the
@@ -424,8 +442,10 @@ multinomial4_split's carries the decomposition, DIR's beside it, and the
 division proof),
 with "launches_cli_a" and "launches_cli_b" from phase 13's runs,
 "launches_exact" from phase 14, "launches_cli_c" from run C,
-"launches_natgrad" from phase 15 and "launches_sharded" from phase 16 in every
-entry, and for the five kernels
+"launches_natgrad" from phase 15, "launches_sharded" from phase 16 and
+"launches_chem" from phase 17's 17b and 17c in every entry (the ERI
+kernel's entry, eri_tensor, takes its "launches" from there too), and for
+the five kernels
 phase 14 and run C drive at new shapes
 (factored_cells_accumulate at the query rows of the full-sector grid,
 "exact_queries_*", and on the whole basis, "full_basis_*";
@@ -441,6 +461,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -560,8 +581,8 @@ def _timed(fn):
     return out, (time.time() - t) * 1e3
 
 
-def _bound(n_bytes, n_ops):
-    b, o = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_FP32_OPS_PER_S * 1e3
+def _bound(n_bytes, n_ops, ops_per_s=H100_FP32_OPS_PER_S):
+    b, o = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
     return max(b, o), ("bytes" if b >= o else "operations")
 
 
@@ -1160,16 +1181,24 @@ def _graph_replays(wrapper, args, replays=3):
 
 
 def _ptxas_registers(build_log, kernel):
-    """{mangled entry name: registers} of each instantiation of `kernel` in
-    nvcc's -Xptxas -v report (the mangled name holds the kernel's name)."""
-    regs, entry = {}, None
+    """{mangled entry name: {"registers", "stack", "spill_stores", "spill_loads"}}
+    of each instantiation of `kernel` in nvcc's -Xptxas -v report (the mangled
+    name holds the kernel's name; stack and spills from the entry's own
+    "Function properties" line)."""
+    usage, entry, props = {}, None, None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if kernel in line and "'" in line else None
+        elif "Function properties for" in line:
+            props = line.split("for")[-1].strip()
+        elif entry and props == entry and "bytes stack frame" in line:
+            stack, stores, loads = (int(w) for w in line.replace(",", " ").split() if w.isdigit())
+            usage.setdefault(entry, {}).update(stack=stack, spill_stores=stores, spill_loads=loads)
         elif entry and "Used" in line and "registers" in line:
-            regs[entry] = int(line.split("Used")[1].split("registers")[0])
+            usage.setdefault(entry, {})["registers"] = int(
+                line.split("Used")[1].split("registers")[0])
             entry = None
-    return regs
+    return usage
 
 
 def _shell_step(split, cap, dev, seed):
@@ -2869,6 +2898,265 @@ def _exact_entries(exact, cli_c, d_bound):
     return rows
 
 
+# phase 17: the chemistry pipeline on the card
+CHEM_H2O = (["O", "H", "H"], [[0.0, 0.0, 0.0], [0.2774, 0.8929, 0.2544],
+                              [0.6068, -0.2383, -0.7169]])
+# (committed .npz the JAX package wrote, symbols, positions (Angstrom), basis, do_fci)
+CHEM_RUNS = (("H2O_6-31G_gen", *CHEM_H2O, "6-31g", False),
+             ("N2_6-31G_gen", ["N", "N"], [[0.0, 0.0, 0.0], [0.0, 0.0, 1.0977]], "6-31g", False),
+             ("Li2O_STO-3G_gen", ["Li", "O", "Li"],
+              [[0.0, 0.0, -1.6], [0.0, 0.0, 0.0], [0.0, 0.0, 1.6]], "sto-3g", False),
+             ("N2_STO-3G_gen", ["N", "N"], [[0.0, 0.0, 0.0], [0.0, 0.0, 1.05]], "sto-3g", True))
+CHEM_HF_TOL = 1e-9            # Ha, HF against the committed .npz (the JAX package's)
+CHEM_E_TOL = 1e-8             # Ha, MP2, CCSD, CISD and FCI; and each orbital energy
+CHEM_STEPS = 2                # trainer steps on the molecule the CLI wrote
+CHEM_CAPACITY = 8_192         # their capacity (N2 STO-3G's sector holds 14,400 states)
+
+
+def _eri_work(pb):
+    """(f64 operations, bytes, primitive quartets) that the ERI function needs
+    on the packed basis pb (CPU tensors), counted from csrc/eri.cu's
+    McMurchie-Davidson recursions at the least these inputs need (an FMA two
+    operations; exp, erf, sqrt and a division one each):
+    * once per primitive pair of a quartet's bra and once per pair of its ket:
+      p, the centre P, the three E rows, the coefficient product and the
+      products of the E rows that are not zero (a row is zero where the two
+      centres share a coordinate and t has the other parity);
+    * once per primitive quartet: alpha, P - Q and x, the Boys function, the
+      scaling (-2 alpha)^n F_n, R over the box, the contraction (each nonzero
+      bra row against each nonzero ket row, then the bra row's weight), the
+      prefactor, the weight and the sum;
+    * the Boys function by the primitive quartet's x: below BOYS_SERIES_MAX
+      the series' terms up to its last one of at least 2^-53 of its sum (3
+      operations a term past the first) and the downward recursion; at and
+      above it, erf and the upward recursion.
+    Bytes: each input once, the n^4 f64 output once."""
+    import numpy as np
+
+    from naqs_tpu_torch.chem.integrals import BOYS_SERIES_MAX, BOYS_SERIES_TERMS
+
+    centers = pb.centers.numpy()
+    lmn = pb.lmn.numpy()
+    ptr = pb.prim_ptr.numpy()
+    alphas = pb.alphas.numpy()
+
+    def e_ops(la, lb):
+        ops = 11
+        for s in range(1, la + lb + 1):
+            ops += sum((1 if t >= 1 else 0) + (2 if t >= 1 else 1) + (2 if t <= s - 2 else 0)
+                       for t in range(s + 1))
+        return ops
+
+    def pair(f, g):
+        """(operations a primitive pair, nonzero E rows, the pair's box) of functions f, g"""
+        same = [bool(centers[f][d] == centers[g][d]) for d in range(3)]
+        box = [int(lmn[f][d] + lmn[g][d]) for d in range(3)]
+        rows = int(np.prod([sum(1 for t in range(box[d] + 1)
+                                if not same[d] or (box[d] - t) % 2 == 0) for d in range(3)]))
+        ops = sum(e_ops(lmn[f][d], lmn[g][d]) for d in range(3)) + 1 + 9 + 1 + 2 * rows
+        return ops, rows, box
+
+    def r_ops(tm, um, vm):
+        L, ops = tm + um + vm, 0
+        for n in range(L - 1, -1, -1):                   # R over the box, level by level
+            for s in range(1, L - n + 1):
+                for t in range(min(s, tm) + 1):
+                    for u in range(min(s - t, um) + 1):
+                        if s - t - u <= vm:
+                            idx = t if t else (u if u else s - t - u)
+                            ops += 3 if idx > 1 else 1
+        return ops
+
+    def series_terms(L, x):
+        """terms of F_L's series up to its last one of at least 2^-53 of the sum"""
+        ratio = 2.0 * x[:, None] / (2 * L + 2 * np.arange(1, BOYS_SERIES_TERMS) + 1)
+        terms = np.concatenate([np.ones((x.size, 1)), np.cumprod(ratio, axis=1)], axis=1)
+        kept = terms >= 2.0 ** -53 * terms.sum(axis=1, keepdims=True)
+        return BOYS_SERIES_TERMS - np.argmax(kept[:, ::-1], axis=1)
+
+    total, n_prim, xs = 0, 0, {}
+    for q in pb.quartets.numpy():
+        (bra_ops, nb, bb), (ket_ops, nk, kb) = pair(q[0], q[1]), pair(q[2], q[3])
+        L = sum(bb) + sum(kb)
+        al = [alphas[ptr[f]:ptr[f + 1]] for f in q]
+        c = [centers[f] for f in q]
+        a, b_, cc, d = np.meshgrid(*al, indexing="ij")
+        p, qq = a + b_, cc + d
+        pc = ((a[..., None] * c[0] + b_[..., None] * c[1]) / p[..., None]
+              - (cc[..., None] * c[2] + d[..., None] * c[3]) / qq[..., None])
+        x = (p * qq / (p + qq) * (pc ** 2).sum(-1)).ravel()
+        xs.setdefault(L, []).append(x)
+        per_quartet = (3 + 3 + 6 + 2 * (L + 1) + r_ops(bb[0] + kb[0], bb[1] + kb[1], bb[2] + kb[2])
+                       + nb * (2 * nk + 2) + 6 + 4)
+        total += (bra_ops * al[0].size * al[1].size + ket_ops * al[2].size * al[3].size
+                  + x.size * per_quartet)
+        n_prim += x.size
+    for L, parts in xs.items():                          # the Boys function
+        x = np.concatenate(parts)
+        series = x < BOYS_SERIES_MAX
+        total += int((4 + 3 * (series_terms(L, x[series]) - 1)).sum()) \
+            + 8 * int((~series).sum()) + 3 * L * x.size
+    n, n_q = pb.n, pb.quartets.shape[0]
+    n_bytes = 40 * n + 4 + 16 * pb.alphas.shape[0] + 16 * n_q + 8 * n ** 4
+    return int(total), int(n_bytes), int(n_prim)
+
+
+def _chem(dev, zero_counts, wrappers, smi, build_log):
+    """Phase 17: the chemistry pipeline on the card. (a) the ERI kernel on H2O
+    6-31G at the committed molecule's geometry against eri_tensor_ref (every
+    entry within ERI_ATOL), bitwise on a second launch, the kernel's Boys
+    routine against boys_ref (BOYS_RTOL), held time, the plain version's and
+    the bound; (b) generate_molecule_data on the card for each of CHEM_RUNS
+    against the committed .npz (the JAX package's outputs): HF within
+    CHEM_HF_TOL, MP2, CCSD, CISD, FCI and every orbital energy within
+    CHEM_E_TOL, each run's wall time, eri_tensor launched once per angular
+    class; (c) the generate command line writes N2 STO-3G to a temporary
+    folder, load_molecule reads it, and CHEM_STEPS VMCTrainer steps run on it
+    at the paper width. Returns {"launches": the launches of (b) and (c) by
+    kernel, "entry": the ERI kernel's JSON keys}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import naqs_tpu_torch as nt
+    from naqs_tpu_torch.chem import generate as gen
+    from naqs_tpu_torch.chem.basis import build_basis
+    from naqs_tpu_torch.chem.integrals import (ANGSTROM_TO_BOHR, BOYS_RTOL, ERI_ATOL, ERI_MAX_L,
+                                               PackedBasis, boys_ref, boys_tensor, eri_tensor,
+                                               eri_tensor_ref)
+    from naqs_tpu_torch.utils.cuda_timing import time_in_turns
+    from naqs_tpu_torch.utils.molecule import DATA_DIR
+
+    names = {w: w.__name__.lstrip("_") for w in wrappers}
+    t17 = time.time()
+
+    # (a) the kernel on H2O 6-31G
+    t = time.time()
+    centers = np.asarray(CHEM_H2O[1]) * ANGSTROM_TO_BOHR
+    pb = PackedBasis.from_basis(build_basis(CHEM_H2O[0], centers, "6-31g"), dev)
+    pb_cpu = PackedBasis.from_basis(build_basis(CHEM_H2O[0], centers, "6-31g"), "cpu")
+    t_pack = time.time() - t
+    zero_counts()
+    got = eri_tensor(pb)
+    again = eri_tensor(pb)
+    torch.cuda.synchronize()
+    n_classes = len(pb.classes)
+    if eri_tensor.launches != 2 * n_classes:
+        raise SystemExit(f"17a: eri_tensor launched {eri_tensor.launches} times for two calls "
+                         f"over {n_classes} angular classes")
+    plain, plain_ms = _timed(lambda: eri_tensor_ref(pb_cpu))
+    err = float((got.cpu() - plain).abs().max())
+    same = bool(torch.equal(got, again))
+    x = torch.cat([torch.zeros(1, dtype=torch.float64), torch.logspace(-14, 3, 2000,
+                                                                         dtype=torch.float64),
+                   torch.linspace(11.5, 12.5, 101, dtype=torch.float64)]).to(dev)
+    boys_err = 0.0
+    for n_max in range(ERI_MAX_L + 1):
+        fk, fr = boys_tensor(n_max, x), boys_ref(n_max, x)
+        boys_err = max(boys_err, float(((fk - fr).abs() / fr.abs()).max()))
+    work = _eri_work(pb_cpu)
+    bound = _bound(work[1], work[0], H100_FP64_OPS_PER_S)
+    times = time_in_turns({"eri_tensor": lambda: eri_tensor(pb)}, SLOW_REPEATS, SLOW_LAUNCHES)
+    usage = _ptxas_registers(build_log, "eri_class_kernel")  # by class: kernel<L>
+    report = {"L" + re.search(r"ILi(\d+)E", k).group(1): v for k, v in sorted(usage.items())}
+    print(f"[chem] 17a: ERI kernel on H2O 6-31G ({pb.n} functions, {pb.quartets.shape[0]} "
+          f"unique quartets in {n_classes} classes, {work[2]} primitive quartets): "
+          f"max_abs_err {err:.3e} against eri_tensor_ref (tol {ERI_ATOL}), bitwise on a second "
+          f"launch={same}; Boys routine against boys_ref rel {boys_err:.3e} (tol {BOYS_RTOL}); "
+          f"held {times['eri_tensor'][0]:.4f} ms (spread {times['eri_tensor'][1]}), plain "
+          f"version {plain_ms:.1f} ms (host), bound {bound[0]:.5f} ms ({bound[1]}: {work[0]} "
+          f"f64 operations, {work[1]} B); packing {t_pack:.2f} s; {smi}", flush=True)
+    print(f"[chem] ptxas eri_class_kernel: {json.dumps(report)}", flush=True)
+    if not (err <= ERI_ATOL and same and boys_err <= BOYS_RTOL):
+        raise SystemExit("17a: the ERI kernel disagrees with its plain version")
+
+    # (b) generate_molecule_data on the card against the committed molecules
+    zero_counts()
+    runs = {}
+    for name, syms, pos, basis_name, do_fci in CHEM_RUNS:
+        before = eri_tensor.launches
+        torch.cuda.synchronize()
+        t = time.time()
+        data = gen.generate_molecule_data(syms, np.asarray(pos), name=name, do_fci=do_fci,
+                                          basis_name=basis_name, device=dev)
+        wall = time.time() - t
+        with np.load(os.path.join(DATA_DIR, f"{name}.npz"), allow_pickle=False) as z:
+            ref = {k: z[k] for k in z.files}
+        diffs = {k: abs(data[k] - float(ref[k])) for k in
+                 ("hf_energy", "mp2_energy", "ccsd_energy", "cisd_energy", "fci_energy")
+                 if data.get(k) is not None and k in ref}
+        eps = float(np.abs(data["orbital_energies"] - ref["orbital_energies"]).max())
+        n_cls = eri_tensor.launches - before
+        print(f"[chem] 17b: {name}: {wall:.2f} s; {data['n_qubits']} qubits; "
+              + ", ".join(f"{k} {data[k]:.10f} ({v:.1e} from the .npz)" for k, v in diffs.items())
+              + f"; orbital energies within {eps:.1e}; eri_tensor launches {n_cls}",
+              flush=True)
+        need = {"hf_energy", "mp2_energy", "ccsd_energy"} | (
+            {"cisd_energy", "fci_energy"} if do_fci else set())
+        ok = (set(diffs) == need and diffs["hf_energy"] <= CHEM_HF_TOL and eps <= CHEM_E_TOL
+              and all(v <= CHEM_E_TOL for k, v in diffs.items() if k != "hf_energy")
+              and n_cls >= 1)
+        if not ok:
+            raise SystemExit(f"17b: {name} generated on the card disagrees with the committed "
+                             f".npz")
+        runs[name] = dict(wall_s=wall, eri_launches=n_cls, orbital_energy_err=eps,
+                          **{f"{k}_err": v for k, v in diffs.items()})
+
+    # (c) the command line writes N2 STO-3G; train on it
+    work_dir = tempfile.mkdtemp(prefix="chem_")
+    try:
+        out = os.path.join(work_dir, "N2_STO-3G_cli")
+        t = time.time()
+        path = gen.main(["--atoms", "N", "N", "--positions", "0", "0", "0", "0", "0", "1.05",
+                         "--out", out])
+        wall_cli = time.time() - t
+        mol = nt.load_molecule(out)
+        with np.load(os.path.join(DATA_DIR, "N2_STO-3G_gen.npz"), allow_pickle=False) as z:
+            cli_err = max(abs(getattr(mol, k) - float(z[k])) for k in
+                          ("hf_energy", "mp2_energy", "ccsd_energy", "cisd_energy", "fci_energy"))
+        hil = nt.Hilbert.for_molecule(mol)
+        terms = nt.compile_pauli_terms(mol.qubit_hamiltonian, mol.n_qubits)
+        cfg = nt.NAQSConfig(n_qubits=mol.n_qubits, sectors=hil.sectors, amp_hidden=(64,),
+                            phase_hidden=(512, 512))
+        tc = nt.TrainConfig(n_samples=1e5, n_unq_samples_min=1_000,
+                            n_unq_samples_max=CHEM_CAPACITY, seed=0)
+        tr = nt.VMCTrainer(cfg, terms, hil, tc, device=dev)
+        e_loc = []
+        t = time.time()
+        for _ in range(CHEM_STEPS):
+            e_loc.append(float(tr.step()["e_loc"]))
+        torch.cuda.synchronize()
+        wall_steps = time.time() - t
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    launches = {names[w]: w.launches for w in wrappers}
+    print(f"[chem] 17c: the command line wrote {os.path.basename(path)} in {wall_cli:.2f} s "
+          f"(energies within {cli_err:.1e} of the committed .npz); {CHEM_STEPS} VMCTrainer steps "
+          f"on it (amp 64, phase 512x512, capacity {CHEM_CAPACITY}, {type(tr.dt.dense).__name__})"
+          f" in {wall_steps:.2f} s, e_loc {e_loc}; phase 17's launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; {time.time() - t17:.1f} s "
+          f"in all", flush=True)
+    if not (cli_err <= CHEM_E_TOL and all(np.isfinite(e_loc))
+            and launches["eri_tensor"] >= len(CHEM_RUNS) + 1
+            and launches["dense_grid_accumulate"] >= CHEM_STEPS
+            and launches["split_and_compact"] >= CHEM_STEPS):
+        raise SystemExit("17c: the generated molecule did not train on the card's kernels")
+    entry = dict(
+        name="eri_tensor", route="cuda", source="naqs_tpu_torch/csrc/eri.cu",
+        replaces="none: host numpy in the JAX package (naqs_tpu/chem/integrals.py:251-325)",
+        launches=launches["eri_tensor"], max_abs_err=err, ms=times["eri_tensor"][0],
+        spread=times["eri_tensor"][1], plain_ms=plain_ms, bound_ms=bound[0],
+        bound_by=bound[1], library_ms=None,
+        library_note="no PyTorch call computes electron repulsion integrals",
+        shape=f"H2O 6-31G: {pb.n} functions, {pb.quartets.shape[0]} unique quartets, "
+              f"{work[2]} primitive quartets -> ({pb.n},)*4 f64",
+        f64_operations=work[0], bytes=work[1], bitwise_repeat=same, boys_max_rel_err=boys_err,
+        ptxas=report, generate_runs=runs, cli_wall_s=wall_cli, cli_steps_wall_s=wall_steps)
+    return {"launches": launches, "entry": entry}
+
+
 def main(argv) -> int:
     import inspect
 
@@ -2927,6 +3215,7 @@ def main(argv) -> int:
                                         _split_frontier)
     from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
     from naqs_tpu_torch.utils.cuda_timing import HOLD_CYCLES, time_in_turns
+    from naqs_tpu_torch.chem.integrals import eri_tensor
 
     dev = torch.device("cuda")
     t0 = time.time()
@@ -2934,7 +3223,7 @@ def main(argv) -> int:
                 dense_grid_accumulate, multinomial4_split, _compact_children, _split_and_compact,
                 xl_grid_accumulate, sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms,
                 sorted_local_energy, rank_local_energy, rank_quadratic_energy,
-                sorted_quadratic_energy)
+                sorted_quadratic_energy, eri_tensor)
     # the sort engine's kernels and the one-launch kernels of the spaces with no
     # dense A: none runs on the grid engines' or the rank engine's step
     row_wrappers = (sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms, sorted_local_energy,
@@ -2948,10 +3237,11 @@ def main(argv) -> int:
     build_logs = _build.build_all()
     for name, out in build_logs.items():
         print(f"[build] {name}: nvcc {time.time() - t0:.1f}s\n{out.strip()}", flush=True)
-    split_regs = {("f64" if "F64Row" in k else "f32"): v for k, v in _ptxas_registers(
-        build_logs.get("sampler_step", ""), "split_and_compact_kernel").items()}
-    split_alone_regs = list(_ptxas_registers(build_logs.get("sampler_step", ""),
-                                             "multinomial4_split_kernel").values())
+    split_regs = {("f64" if "F64Row" in k else "f32"): v["registers"] for k, v in
+                  _ptxas_registers(build_logs.get("sampler_step", ""),
+                                   "split_and_compact_kernel").items()}
+    split_alone_regs = [v["registers"] for v in _ptxas_registers(
+        build_logs.get("sampler_step", ""), "multinomial4_split_kernel").values()]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -4776,6 +5066,9 @@ def main(argv) -> int:
     sharded = _sharded(dev, hil, terms, cfg, tc, zero_counts, wrappers, smi)
     print(f"[sharded] phase 16: {time.time() - t16:.1f} s in all", flush=True)
 
+    # 17. the chemistry pipeline: the ERI kernel, generation on the card, training on it
+    chem = _chem(dev, zero_counts, wrappers, smi, build_logs.get("eri", ""))
+
     def entry(name, launches, err, t_plain, bound, t_library,
               source="naqs_tpu_torch/csrc/rank_gather.cu",
               replaces="naqs_tpu/ops/dyn_gather.py:83", **more):
@@ -5023,12 +5316,14 @@ def main(argv) -> int:
               run_density_sample_density_calls=extras["density_calls"],
               **before(old_compact), **SHELL_SRC),
     ]
-    for k in kernels:  # phase 13's to 16's launches, each run counted from zero
+    kernels.append(chem["entry"])
+    for k in kernels:  # phase 13's to 17's launches, each run counted from zero
         k["launches_cli_a"], k["launches_cli_b"], k["launches_cli_c"] = (
             cli_counts[r][k["name"]] for r in "ABC")
         k["launches_exact"] = exact["launches"][k["name"]]
         k["launches_natgrad"] = natgrad["launches"][k["name"]]
         k["launches_sharded"] = sharded["launches"][k["name"]]
+        k["launches_chem"] = chem["launches"][k["name"]]
         k.update(exact_extra.get(k["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)

@@ -8,9 +8,10 @@ naqs_tpu_torch.cli` (flag for flag with `naqs_tpu.cli`). Its kernels are hand-wr
 the sort engine's, for spaces with no rank table, and its whole E_loc call
 in one launch where there is no dense A either; `csrc/offdiag_h.cu`: the H
 row term by term; `csrc/grid_engine.cu`: the grid engines' accumulation;
-`csrc/sampler_step.cu`: the sampler's count split and frontier compaction),
-built with nvcc on first use; `csrc/naqs_host.cpp` is the host library
-(`native.py`), built with g++.
+`csrc/sampler_step.cu`: the sampler's count split and frontier compaction;
+`csrc/eri.cu`: the two-electron integrals of `chem/`, which generates a
+molecule's `.npz` from a geometry), built with nvcc on first use;
+`csrc/naqs_host.cpp` is the host library (`native.py`), built with g++.
 """
 
 __version__ = "0.1.0"

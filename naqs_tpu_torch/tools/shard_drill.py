@@ -51,11 +51,12 @@ def wrappers():
     from naqs_tpu_torch.ops.sort_lookup import (sorted_gather2, sorted_local_energy,
                                                 sorted_quadratic_energy, sorted_ratio_rowsum)
     from naqs_tpu_torch.sampler import _compact_children, _split_and_compact
+    from naqs_tpu_torch.chem.integrals import eri_tensor
 
     return (rank_gather2, rank_ratio_rowsum, factored_cells_accumulate, dense_grid_accumulate,
             multinomial4_split, _compact_children, _split_and_compact, xl_grid_accumulate,
             sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms, sorted_local_energy,
-            rank_local_energy, rank_quadratic_energy, sorted_quadratic_energy)
+            rank_local_energy, rank_quadratic_energy, sorted_quadratic_energy, eri_tensor)
 
 
 class CollectiveClock:

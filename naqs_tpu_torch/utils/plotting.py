@@ -1,7 +1,8 @@
 """Training-curve plots with HF/CCSD/FCI/chemical-accuracy reference lines.
 
-Port of `naqs_tpu/utils/plotting.py`; matplotlib is imported inside the
-function, so the package imports without it.
+Port of `naqs_tpu/utils/plotting.py` (`plot_training`, `plot_wavefunction`);
+matplotlib is imported inside the functions, so the package imports without
+it.
 """
 
 from __future__ import annotations
@@ -63,6 +64,27 @@ def plot_training(trainer, molecule=None, window: int = 50, fname: Optional[str]
     ax_n.set_ylabel("unique samples")
     ax_n.set_xlabel("step")
 
+    fig.tight_layout()
+    if fname:
+        fig.savefig(fname, dpi=150)
+    return fig
+
+
+def plot_wavefunction(amps, phases=None, top_k: int = 50, fname: Optional[str] = None):
+    """Bar plot of the top-k amplitudes |psi| (an array or a tensor), log
+    scale; `phases` is accepted as in the JAX package and not drawn."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    amps = np.asarray(amps.detach().cpu() if hasattr(amps, "detach") else amps)
+    order = np.argsort(amps)[::-1][:top_k]
+    fig, ax = plt.subplots(figsize=(9, 3.5))
+    ax.bar(np.arange(len(order)), amps[order], color="C0")
+    ax.set_ylabel("|psi|")
+    ax.set_xlabel("basis state (sorted by amplitude)")
+    ax.set_yscale("log")
     fig.tight_layout()
     if fname:
         fig.savefig(fname, dpi=150)

@@ -59,6 +59,13 @@ launched. A LUT model's `sample()` with float32 and float64 conditionals:
 every shell's `split_and_compact` (the f64 instantiation for float64)
 bitwise equal to its plain version on that shell's inputs, and the sampled
 frequencies within 4 sqrt(p(1-p)/n) + 5e-5 of |psi|^2.
+
+The chemistry pipeline on the card: the ERI kernel (`eri_tensor`,
+`csrc/eri.cu`) within ERI_ATOL (1e-11) of `eri_tensor_ref` on every entry
+(H2O STO-3G and 6-31G, a basis with d sextets on two centres: angular
+classes up to L = 8), bitwise equal to itself, one launch per class; the
+kernels' Boys routine within BOYS_RTOL of `boys_ref`; LiH STO-3G generated
+on the card against the same on the CPU (every energy within 1e-8 Ha).
 """
 
 import dataclasses
@@ -1816,3 +1823,80 @@ def test_natural_gradient_update_on_the_card_has_no_host_sync(optimizer):
         assert ks["step"].device.type == "cuda" and int(ks["step"]) == 3
     else:
         assert int(m["cg_iters"]) == 10
+
+
+def _eri_bases():
+    """H2O STO-3G and 6-31G at the committed molecule's geometry, and a basis
+    with a d sextet on each of two centres (angular classes up to L = 8)."""
+    from naqs_tpu_torch.chem.basis import build_basis
+    from naqs_tpu_torch.chem.integrals import ANGSTROM_TO_BOHR, D_CART_ORDER, ContractedGaussian
+
+    h2o = np.array([[0.0, 0.0, 0.0], [0.2774, 0.8929, 0.2544],
+                    [0.6068, -0.2383, -0.7169]]) * ANGSTROM_TO_BOHR
+    a, b = np.zeros(3), np.array([0.3, -0.4, 1.9])
+    d = ([ContractedGaussian(a, (0, 0, 0), [3.1, 0.6], [0.4, 0.7])]
+         + [ContractedGaussian(a, lmn, [0.9], [1.0]) for lmn in D_CART_ORDER]
+         + [ContractedGaussian(b, lmn, [1.7], [1.0]) for lmn in ((1, 0, 0), (0, 1, 0), (0, 0, 1))]
+         + [ContractedGaussian(b, lmn, [1.2, 0.4], [0.6, 0.5]) for lmn in D_CART_ORDER])
+    return {"H2O sto-3g": build_basis(["O", "H", "H"], h2o, "sto-3g"),
+            "H2O 6-31g": build_basis(["O", "H", "H"], h2o, "6-31g"), "d sextets": d}
+
+
+@pytest.mark.parametrize("name", ["H2O sto-3g", "H2O 6-31g", "d sextets"])
+def test_eri_kernel_matches_plain(name):
+    """The ERI kernel within ERI_ATOL of eri_tensor_ref on every entry,
+    bitwise equal to itself run twice, one launch per angular class."""
+    from naqs_tpu_torch.chem.integrals import ERI_ATOL, PackedBasis, eri_tensor, eri_tensor_ref
+
+    dev = _card()
+    basis = _eri_bases()[name]
+    pb = PackedBasis.from_basis(basis, dev)
+    before = eri_tensor.launches
+    got = eri_tensor(pb)
+    again = eri_tensor(pb)
+    torch.cuda.synchronize()
+    assert eri_tensor.launches - before == 2 * len(pb.classes)
+    want = eri_tensor_ref(PackedBasis.from_basis(basis, "cpu"))
+    assert got.dtype == torch.float64 and got.shape == (pb.n,) * 4
+    assert float((got.cpu() - want).abs().max()) <= ERI_ATOL
+    assert torch.equal(got, again)
+
+
+def test_boys_kernel_matches_boys_ref():
+    from naqs_tpu_torch.chem.integrals import BOYS_RTOL, boys_ref, boys_tensor
+
+    dev = _card()
+    x = torch.cat([torch.zeros(1, dtype=torch.float64),
+                   torch.logspace(-14, 3, 3000, dtype=torch.float64),
+                   torch.linspace(11.9, 12.1, 201, dtype=torch.float64)]).to(dev)
+    for n_max in range(9):
+        got, want = boys_tensor(n_max, x), boys_ref(n_max, x)
+        assert float(((got - want).abs() / want.abs()).max()) <= BOYS_RTOL
+
+
+def test_eri_kernel_rejects_bad_inputs():
+    import dataclasses
+
+    from naqs_tpu_torch.chem.integrals import PackedBasis, eri_tensor
+
+    dev = _card()
+    pb = PackedBasis.from_basis(_eri_bases()["H2O sto-3g"], dev)
+    with pytest.raises(ValueError, match="cn"):
+        eri_tensor(dataclasses.replace(pb, cn=pb.cn.cpu()))
+    with pytest.raises(ValueError, match="quartets"):
+        eri_tensor(dataclasses.replace(pb, quartets=pb.quartets.long()))
+
+
+def test_generate_on_the_card_matches_the_cpu_port():
+    """LiH STO-3G (with CISD and FCI) generated on the card against the same
+    on the CPU: every energy within 1e-8 Ha, orbital energies within 1e-9."""
+    from naqs_tpu_torch.chem.generate import generate_molecule_data
+
+    dev = _card()
+    geo = (["Li", "H"], np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 1.5949]]))
+    got = generate_molecule_data(*geo, device=dev)
+    want = generate_molecule_data(*geo, device="cpu")
+    for k in ("hf_energy", "mp2_energy", "ccsd_energy", "cisd_energy", "fci_energy"):
+        assert abs(got[k] - want[k]) < 1e-8, k
+    np.testing.assert_allclose(got["orbital_energies"], want["orbital_energies"], rtol=0,
+                               atol=1e-9)

@@ -7,7 +7,8 @@
                                      # staircase, sort)
     python3 chip_smoke.py --before DIR  # also time an earlier slice's
                                         # kernels, unpacked at DIR, in turns
-                                        # with this tree's
+                                        # with this tree's (the four row
+                                        # kernels compared bit for bit)
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. build every CUDA kernel with nvcc (one nvcc per source, started
@@ -160,7 +161,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      tree's offdiag_h_terms + sorted_ratio_rowsum composed over the 782 chunks,
      twice bitwise, and through local_energy(queries=) with two SENTINEL rows
      after each of 2,048 live ones (those rows e_im 0 and e_re their diagonal,
-     the live rows bitwise as in the whole call, one launch); N2_STEPS training
+     the live rows bitwise as in the whole call, one launch); what the call
+     tests, from the plain filter (ops/live_filter.py) on the same buffer: the
+     pairs, the filter's hits, the found pairs ([filter] line); N2_STEPS training
      steps with the counts at 0 before (sorted_local_energy once per
      local_energy call, split_and_compact 18 times per sample() call, no
      other kernel); 8 rows of a fresh batch against local_energy_np
@@ -168,7 +171,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      (one sorted_quadratic_energy launch, no other kernel; the earlier design ran 782
      chunks of sorted_gather2 and offdiag_h_terms) within QUAD_RTOL of the same
      call through its plain version, and the kernel against its plain version
-     per row (sorted_quadratic_energy_tolerance) and twice bitwise;
+     per row (sorted_quadratic_energy_tolerance) and twice bitwise, and its
+     [filter] line;
  10d. frozen-core N2 6-31G: freeze_core(N2 6-31G's terms of 10c, 4), 32
      qubits, sector (5, 5) of 19,079,424 states, 87,628 terms; the dispatch
      must carry a RankSpec, no grid program and no dense A (the rank engine's
@@ -178,7 +182,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      that bound without the H entries' term of this tree's offdiag_h_terms +
      rank_ratio_rowsum composed over the 391 chunks the parent ran, padding
      rows their diagonal and 0, twice bitwise; what the call tests and reads
-     (pairs inside a sector, distinct table rows, found pairs); FROZEN_STEPS
+     (pairs inside a sector, the filter's hits among them, distinct table rows,
+     found pairs: a [filter] line); FROZEN_STEPS
      training steps with the counts at 0 before (rank_local_energy once per
      local_energy call, split_and_compact once per shell, no other kernel).
      The host layer: the native library builds, its COO assembly
@@ -316,7 +321,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      engine (one sorted_local_energy), each against its plain version
      (rank_/sorted_local_energy_tolerance) and within ENGINE_TOL of 14a's,
      the found pairs and bounds recounted (_rank_work, _search_work), the
-     three kernels timed in turns (REPEATS x LAUNCHES), EXACT_RANK_STEPS
+     three kernels and rank_quadratic_energy over the whole sector table
+     (exact_energy()'s call: tables of more than 262,144 rows, so each row
+     kernel takes its unfiltered instantiation) timed in turns (REPEATS x LAUNCHES,
+     the full-basis call SLOW_REPEATS x SLOW_LAUNCHES; with
+     --before DIR, DIR's own rank_local_energy, sorted_local_energy and
+     rank_quadratic_energy on the same inputs in the same turns, first
+     compared bit for bit), EXACT_RANK_STEPS
      steps on the rank engine; 14c Li2O STO-3G CISDTQ with exact_eloc,
      EXACT_XL_STEPS steps (xl_grid_accumulate once an update), the kernel
      on the sector table's grid against its plain version and timed; 14d
@@ -481,6 +492,9 @@ SORT_LAUNCHES = 10            # timing of the sort engine's kernels: launches pe
 ENERGY_LAUNCHES = 5           # timing of sorted_local_energy: launches per repeat
 SEARCH_OPS = 3                # integer operations per level of a search: load, compare, select
 SECTOR_OPS = 6                # per coupled state of a rank kernel: xor, two and + popcount, compare
+CAPACITY_NOTE = "262,144 rows"
+FILTER_OPS = 12               # per probe of the row kernels' filter: the multiply's 3, the word
+                              # and two bit fields 5, the mask's or, the load, the and, the test
 FROZEN_STEPS = 3              # training steps of frozen-core N2 6-31G (rank engine, no dense A)
 REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
 SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and more
@@ -509,46 +523,69 @@ GRID_SRC = {"source": "naqs_tpu_torch/csrc/grid_engine.cu",
             "note": "no Pallas counterpart: XLA-lowered in JAX"}
 
 
-def _rank_work(spec, table, s_live, xy, sizes, found_above, chunk=512):
+def _rank_work(spec, table, s_live, xy, sizes, found_above, keys=None, rows=None,
+               chunk=512):
     """What the one-launch rank kernels' work is on these live rows' data: the
-    (row, flip mask with terms) pairs, those inside a sector (each reads its
-    table row), the distinct table rows read, the found pairs and the terms
-    of their groups."""
+    (row, flip mask with terms) pairs, those inside a sector, those the
+    kernels' filter of the table's live `keys` (default: the rows, which the
+    table was built from) in a buffer of `rows` rows (default: the keys)
+    passes among them (every one inside a sector where
+    the filter is not built), the distinct table rows those read, the found
+    pairs and the terms of their groups; rows_inside: the distinct rows of
+    the pairs inside a sector (what the unfiltered kernel read)."""
     import torch
 
+    from naqs_tpu_torch.ops import live_filter as lf
     from naqs_tpu_torch.ops.rank import rank_index
 
+    keys = s_live if keys is None else keys
+    mask = lf.key_mask(spec.n_qubits)
+    rows = keys.numel() if rows is None else rows
+    words = lf.build(keys & mask) if lf.screened(keys.numel(), rows) else None
     real = sizes > 0
     xr, sr = xy[real], sizes[real]
     seen = torch.zeros(spec.size + 1, dtype=torch.bool, device=xy.device)
-    work = {"pairs": s_live.numel() * xr.numel(), "inside": 0, "found": 0, "terms": 0}
+    seen_hit = torch.zeros_like(seen)
+    work = {"pairs": s_live.numel() * xr.numel(), "inside": 0, "hits": 0, "found": 0,
+            "terms": 0, "filtered": words is not None}
     for i in range(0, s_live.numel(), chunk):
-        idx = rank_index(spec, s_live[i:i + chunk, None] ^ xr[None, :])
+        q = s_live[i:i + chunk, None] ^ xr[None, :]
+        idx = rank_index(spec, q)
         inside = idx < spec.size
+        hit = inside & lf.contains(words, q & mask) if words is not None else inside
         seen[idx[inside]] = True
-        hit = inside & (table[idx, 0] > found_above)
+        seen_hit[idx[hit]] = True
+        found = inside & (table[idx, 0] > found_above)
         work["inside"] += int(inside.sum())
-        work["found"] += int(hit.sum())
-        work["terms"] += int((hit * sr[None, :]).sum())
-    work["rows"] = int(seen.sum())
+        work["hits"] += int(hit.sum())
+        work["found"] += int(found.sum())
+        work["terms"] += int((found * sr[None, :]).sum())
+    work["rows_inside"] = int(seen.sum())
+    work["rows"] = int(seen_hit.sum())
     return work
 
 
 def _search_work(table, n_valid, s_live, xy, sizes, chunk=512):
-    """The same for the search kernels: the pairs, the found pairs (a flip
-    mask with terms), the terms of their groups and the distinct table rows
-    found."""
+    """The same for the search kernels: the pairs, those the filter of the
+    table's n_valid live keys passes (every pair where it is not built), the
+    found pairs (a flip mask with terms), the terms of their groups and the
+    distinct table rows found."""
     import torch
 
+    from naqs_tpu_torch.ops import live_filter as lf
     from naqs_tpu_torch.ops.sort_lookup import lookup
 
+    n = int(n_valid)
+    words = lf.build(table[0][:n]) if lf.screened(n, table[0].numel()) else None
     real = sizes > 0
     xr, sr = xy[real], sizes[real]
-    work = {"pairs": s_live.numel() * xr.numel(), "found": 0, "terms": 0}
+    work = {"pairs": s_live.numel() * xr.numel(), "hits": 0, "found": 0, "terms": 0,
+            "filtered": words is not None}
     rows = []
     for i in range(0, s_live.numel(), chunk):
         q = s_live[i:i + chunk, None] ^ xr[None, :]
         hit = lookup(*table, n_valid, q)[0]
+        work["hits"] += int(lf.contains(words, q).sum()) if words is not None else q.numel()
         work["found"] += int(hit.sum())
         work["terms"] += int((hit * sr[None, :]).sum())
         rows.append(torch.searchsorted(table[0], q[hit]))
@@ -556,8 +593,47 @@ def _search_work(table, n_valid, s_live, xy, sizes, chunk=512):
     return work
 
 
+def _rank_lookup_cost(work, n_keys):
+    """(operations, table bytes) of the rank kernels' lookups: per pair the
+    sector test; where the filter is built its build (a probe's operations a
+    live key) and a probe per pair inside a sector, and the rank and a table
+    row (8 B, each distinct row once) per pair it passes; else the rank and
+    the row of every pair inside a sector."""
+    ops = work["pairs"] * SECTOR_OPS + work["hits"] * RANK_OPS
+    if work["filtered"]:
+        ops += (n_keys + work["inside"]) * FILTER_OPS
+        return ops, work["rows"] * 8 + n_keys * 8
+    return ops, work["rows"] * 8
+
+
+def _search_lookup_cost(work, n_keys, n_levels):
+    """The same for the search kernels: per pair the xor; where the filter is
+    built its build and a probe per pair, and a search of n_levels levels per
+    pair it passes; else a search per pair. Bytes: the live keys and la, ph
+    of the rows found."""
+    ops = work["pairs"] + work["hits"] * SEARCH_OPS * n_levels
+    if work["filtered"]:
+        ops += (n_keys + work["pairs"]) * FILTER_OPS
+    return ops, n_keys * 8 + work["rows"] * 8
+
+
+def _filter_line(name, work):
+    """The line that says what a row kernel's call tests, from the plain
+    filter (ops/live_filter.py) on the same inputs."""
+    inside = (f", inside a sector {work['inside']} ({work['inside'] / work['pairs']:.2%})"
+              if "inside" in work else "")
+    if work["filtered"]:
+        hits = (f"filter hits {work['hits']} ({work['hits'] / work['pairs']:.3%} of the "
+                f"pairs, {work['hits'] - work['found']} of them not found)")
+    else:
+        hits = f"no filter (over {CAPACITY_NOTE}): all {work['hits']} looked up"
+    return (f"[filter] {name}: (row, flip mask with terms) pairs {work['pairs']}{inside}, "
+            f"{hits}, found {work['found']}")
+
+
 def _row_bound(work, n_live, cap, n_cols, n_terms, n_diag, lookup_ops, lookup_bytes):
-    """bound of a one-launch row kernel: per pair lookup_ops, 3 per walked term,
+    """bound of a one-launch row kernel: lookup_ops for the lookups (the
+    _*_lookup_cost of its kind), 3 per walked term,
     the epilogue per found pair, 3 per diagonal term of a live row; each input
     read once (lookup_bytes of the table, xy and xy_ptr, the grouped terms (16
     B a term, at most the n_terms there are), the diagonal terms, every row's
@@ -1722,16 +1798,20 @@ CLI_RUN_C = ["-m", "N2_STO-3G_gen", "-exact_sampling", "-n_train", "30", "-s", "
              "-n_hid", "64", "-single_phase", "-n_hid_phase", "512", "-n_layer_phase", "2"]
 
 
-def _exact_mode(dev, hil, terms, cfg, tc, li2o, x_touched, zero_counts, wrappers):
+def _exact_mode(dev, hil, terms, cfg, tc, li2o, x_touched, zero_counts, wrappers, old=None):
     """Phase 14: exact mode at the paper width. 14a exact_eloc training on H2O
     6-31G (FactorTerms), 14b the rank and sort engines on the same batch and
     table, 14c Li2O STO-3G CISDTQ with exact_eloc, 14d run_exact over the
     whole basis (the window against sequential updates, a window under
     set_sync_debug_mode("error"), run_exact), 14e run_exact on minibatches.
-    `li2o` is (hil3, terms3, cfg3). Returns {"launches": phase 14's launches
+    `li2o` is (hil3, terms3, cfg3); `old`: the --before tree's modules
+    (_before_modules), whose row kernels 14b times beside this tree's.
+    Returns {"launches": phase 14's launches
     of every kernel (the driven calls; not the holds against the plain
     versions nor the timings), "kernels": per kernel the exact-mode shape's
     hold, held time and bound}."""
+    import inspect
+
     import numpy as np
     import torch
 
@@ -1740,7 +1820,8 @@ def _exact_mode(dev, hil, terms, cfg, tc, li2o, x_touched, zero_counts, wrappers
     from naqs_tpu_torch.models.nade import log_psi
     from naqs_tpu_torch.ops import dense_engine as de
     from naqs_tpu_torch.ops import local_energy as le
-    from naqs_tpu_torch.ops.dyn_gather import rank_local_energy_ref, rank_local_energy_tolerance
+    from naqs_tpu_torch.ops.dyn_gather import (QUAD_MISS, rank_local_energy_ref,
+                                               rank_local_energy_tolerance)
     from naqs_tpu_torch.ops.grid_kernels import (factored_cells_accumulate,
                                                  factored_cells_accumulate_ref, grid_tolerance,
                                                  xl_grid_accumulate, xl_grid_accumulate_ref)
@@ -1900,16 +1981,16 @@ def _exact_mode(dev, hil, terms, cfg, tc, li2o, x_touched, zero_counts, wrappers
             raise SystemExit(f"14b: {label} disagrees with its plain version or with the "
                              f"factored engine on the full-sector table")
     sizes = torch.diff(dt.xy_ptr.long())
-    work_r = _rank_work(spec, table_r, batch.states[:nu], dt.xy_unique, sizes, -1e29)
+    work_r = _rank_work(spec, table_r, batch.states[:nu], dt.xy_unique, sizes, -1e29,
+                        keys=t_states[:n_basis], rows=t_states.shape[0])
     work_s = _search_work(packed, t_n, batch.states[:nu], dt.xy_unique, sizes)
     r_bound = _row_bound(work_r, nu, cap, dt.xy_unique.numel(), dt.term_yz.numel(),
-                         dt.diag_yz.numel(),
-                         work_r["pairs"] * SECTOR_OPS + work_r["inside"] * RANK_OPS,
-                         work_r["rows"] * 8)
+                         dt.diag_yz.numel(), *_rank_lookup_cost(work_r, n_basis))
     n_levels = math.ceil(math.log2(n_basis))
     s_bound = _row_bound(work_s, nu, cap, dt.xy_unique.numel(), dt.term_yz.numel(),
-                         dt.diag_yz.numel(), work_s["pairs"] * (1 + SEARCH_OPS * n_levels),
-                         n_basis * 8 + work_s["rows"] * 8)
+                         dt.diag_yz.numel(), *_search_lookup_cost(work_s, n_basis, n_levels))
+    print(_filter_line("14b rank_local_energy (the full-sector table)", work_r), flush=True)
+    print(_filter_line("14b sorted_local_energy (the full-sector table)", work_s), flush=True)
     print(f"[exact] 14b: found pairs: rank {work_r['found']} of {work_r['pairs']} pairs "
           f"({work_r['inside']} inside a sector, {work_r['rows']} distinct table rows); sort "
           f"{work_s['found']} ({work_s['rows']} distinct rows); bounds rank "
@@ -1920,24 +2001,64 @@ def _exact_mode(dev, hil, terms, cfg, tc, li2o, x_touched, zero_counts, wrappers
     tr.dt = dt
     q_packed = pack_table(*queries)
     nv_t = le._count(t_n, dev)
+    # exact_energy()'s rank_quadratic_energy over the whole basis (the sector
+    # table's rows, log-amps shifted to a live maximum of 0): no filter either
+    live_t = torch.arange(t_states.shape[0], device=dev) < n_basis
+    la_tq = torch.where(live_t, t_la - t_la[:n_basis].max(), QUAD_MISS).float().contiguous()
+    ph_tq = t_ph.float().contiguous()
+    table_tq = build_value_table(spec, t_states, la_tq, ph_tq, nv_t, miss_log_amp=QUAD_MISS)
+    quad_args = (spec, table_tq, nv_t, t_states, la_tq, ph_tq, *terms_t, dt.diag_yz,
+                 dt.diag_coeff)
     ker = {
         "factored_cells_accumulate (exact)": lambda: factored_cells_accumulate(
             fn, grid_x, q_idx, n_q),
         "rank_local_energy (exact)": lambda: kern["rank_local_energy"](
-            spec, table_r, *q_packed, *terms_t, dt.diag_yz, dt.diag_coeff, chunk_rows=c),
+            spec, table_r, t_states, nv_t, *q_packed, *terms_t, dt.diag_yz, dt.diag_coeff,
+            chunk_rows=c),
         "sorted_local_energy (exact)": lambda: kern["sorted_local_energy"](
             *packed, nv_t, *q_packed, *terms_t, dt.diag_yz, dt.diag_coeff, chunk_rows=c),
     }
+    quad_ker = {"rank_quadratic_energy (full basis)": lambda: kern["rank_quadratic_energy"](
+        *quad_args)}
+    # with --before DIR, DIR's own build of the three row kernels on the same
+    # inputs in the same turns, first compared bit for bit
+    if old and "dyn_gather" in old:
+        old_dg, old_sl = old["dyn_gather"], old["sort_lookup"]
+        old_rank = ((lambda: old_dg.rank_local_energy(
+            spec, table_r, t_states, nv_t, *q_packed, *terms_t, dt.diag_yz, dt.diag_coeff))
+            if "n_valid" in inspect.signature(old_dg.rank_local_energy).parameters else
+            (lambda: old_dg.rank_local_energy(spec, table_r, *q_packed, *terms_t, dt.diag_yz,
+                                              dt.diag_coeff)))
+        earlier = {
+            "rank_local_energy (exact), earlier tree": old_rank,
+            "sorted_local_energy (exact), earlier tree": lambda: old_sl.sorted_local_energy(
+                *packed, nv_t, *q_packed, *terms_t, dt.diag_yz, dt.diag_coeff),
+            "rank_quadratic_energy (full basis), earlier tree":
+                lambda: old_dg.rank_quadratic_energy(*quad_args)}
+        for name, fn_old in earlier.items():
+            this = name.replace(", earlier tree", "")
+            got, want = (ker.get(this) or quad_ker[this])(), fn_old()
+            print(f"[before] 14b {name}: bitwise equal to this tree's="
+                  f"{all(torch.equal(a, b) for a, b in zip(got, want))}", flush=True)
+            (ker if this in ker else quad_ker)[name] = fn_old
     times = time_in_turns(ker, REPEATS, LAUNCHES)
+    # a call of ~70 ms: SLOW_REPEATS of SLOW_LAUNCHES
+    times.update(time_in_turns(quad_ker, SLOW_REPEATS, SLOW_LAUNCHES))
     for k, v in times.items():
         print(f"[time] {k}: {v[0]:.4f} ms held (spread {v[1][0]:.4f}-{v[1][1]:.4f})",
               flush=True)
+    del table_tq, la_tq, ph_tq
     out["rank_exact"] = dict(err=errs["rank_local_energy"], work=work_r, bound=r_bound,
                              plain_ms=t_rp, time=times["rank_local_energy (exact)"],
-                             step_s=t_rank_x)
+                             step_s=t_rank_x,
+                             before=times.get("rank_local_energy (exact), earlier tree"))
     out["sort_exact"] = dict(err=errs["sorted_local_energy"], work=work_s, bound=s_bound,
                              plain_ms=t_sp, time=times["sorted_local_energy (exact)"],
-                             levels=n_levels)
+                             levels=n_levels,
+                             before=times.get("sorted_local_energy (exact), earlier tree"))
+    out["quad_full_basis"] = dict(
+        time=times["rank_quadratic_energy (full basis)"],
+        before=times.get("rank_quadratic_energy (full basis), earlier tree"))
     out["factored_exact"]["time"] = times["factored_cells_accumulate (exact)"]
     del table_r, packed, grid_x, e_rp, e_sp, e_fp
 
@@ -2864,6 +2985,17 @@ def _exact_entries(exact, cli_c, d_bound):
                        "sector table, 100,000 query rows")
         print(f"[bound] {name}, exact queries: {e['bound'][0][0]:.5f} ms ({e['bound'][0][1]}: "
               f"{e['bound'][2]} B, {e['bound'][1]} operations)", flush=True)
+    for name, key in (("rank_local_energy", "rank_exact"), ("sorted_local_energy", "sort_exact")):
+        if exact[key]["before"]:
+            rows[name].update(exact_before_ms=exact[key]["before"][0],
+                              exact_before_spread=exact[key]["before"][1])
+    qf = exact["quad_full_basis"]
+    rows["rank_quadratic_energy"] = dict(
+        full_basis_ms=qf["time"][0], full_basis_spread=qf["time"][1],
+        **({"full_basis_before_ms": qf["before"][0], "full_basis_before_spread": qf["before"][1]}
+           if qf["before"] else {}),
+        full_basis_note="phase 14b: exact_energy()'s call shape, the 1,656,369-state sector "
+                        "table as rows and table (the unfiltered kernel above 262,144 rows)")
     rows["rank_local_energy"]["exact_pairs_inside_sector"] = exact["rank_exact"]["work"]["inside"]
     rows["rank_local_energy"]["exact_rank_step_s"] = exact["rank_exact"]["step_s"]
     rows["sorted_local_energy"]["exact_search_levels"] = exact["sort_exact"]["levels"]
@@ -3242,6 +3374,16 @@ def main(argv) -> int:
                                    "split_and_compact_kernel").items()}
     split_alone_regs = [v["registers"] for v in _ptxas_registers(
         build_logs.get("sampler_step", ""), "multinomial4_split_kernel").values()]
+    # the four row kernels' registers, stack and spills (row_energy_kernel<Lookup, Epilogue>)
+    row_usage = {}
+    for lib, look, kinds in (("sort_lookup", "SearchLookup", ("sorted_local_energy",
+                                                               "sorted_quadratic_energy")),
+                             ("rank_gather", "RankLookup", ("rank_local_energy",
+                                                            "rank_quadratic_energy"))):
+        for mangled, use in _ptxas_registers(build_logs.get(lib, ""),
+                                             "row_energy_kernel").items():
+            if look in mangled:
+                row_usage[kinds["Quadratic" in mangled]] = use
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -4117,7 +4259,8 @@ def main(argv) -> int:
     rq_ok = all(bool((d <= t).all()) for d, t in zip(rq_diff, rq_tol))
     rq_same = all(torch.equal(a, b) for a, b in zip(rq_got, rq_again))
     work_rq = _rank_work(spec, table_qh, batch.states[:nu], dt.xy_unique,
-                         torch.diff(dt.xy_ptr.long()), QUAD_MISS)
+                         torch.diff(dt.xy_ptr.long()), QUAD_MISS, rows=batch.states.shape[0])
+    print(_filter_line("rank_quadratic_energy (H2O 6-31G)", work_rq), flush=True)
     print(f"[eloc] H2O 6-31G, rank engine with no dense A (a_mat=None): launches {rn_counts}; "
           f"vs the rank engine with a dense A on {nu} rows {d_rn:.3e} Ha (tol {ENGINE_TOL}); "
           f"quadratic_energy {q_rn:.10f} vs phase 8's {q_k:.10f}: rel {q_rel_rn:.2e} (tol "
@@ -4279,6 +4422,7 @@ def main(argv) -> int:
     real4 = sizes4 > 0
     work4 = _search_work(table4, nv4, table4[0][:n_live4], xy4, sizes4)
     n_found_pairs, n_found_terms, n_found_rows = (work4[k] for k in ("found", "terms", "rows"))
+    print(_filter_line("sorted_local_energy (N2 6-31G)", work4), flush=True)
     torch.cuda.synchronize()
     print(f"[kernel] sorted_local_energy ({cap4} query rows of which {n_live4} live, Kxy="
           f"{xy4.shape[0]} ({int(real4.sum())} with terms), Kd={dt4.diag_yz.shape[0]}): vs its "
@@ -4370,6 +4514,7 @@ def main(argv) -> int:
     sq_same = all(torch.equal(a, b) for a, b in zip(sq_got, sq_again))
     work_sq = _search_work((batch4.states, la_q4, ph_q4), nv4q, batch4.states[:nu4], xy4,
                            sizes4)
+    print(_filter_line("sorted_quadratic_energy (N2 6-31G)", work_sq), flush=True)
     print(f"[quad] N2 6-31G: quadratic_energy through sorted_quadratic_energy {qe4:.10f} vs "
           f"through its plain version {qe4_plain:.10f}: rel {qe4_rel:.2e} (tol {QUAD_RTOL}); "
           f"launches {quad4_counts}", flush=True)
@@ -4417,8 +4562,9 @@ def main(argv) -> int:
     nu5 = int(batch5.n_unique)
     table5 = build_value_table(spec5, batch5.states, la5, ph5, batch5.n_unique)
     q5 = pack_table(batch5.states, la5, ph5)
+    nv5 = le._count(batch5.n_unique, dev)
     terms5_dev = (dt5.xy_unique, dt5.xy_ptr, dt5.term_yz, dt5.yz_unique, dt5.term_coeff)
-    r5_args = (spec5, table5, *q5, *terms5_dev, dt5.diag_yz, dt5.diag_coeff)
+    r5_args = (spec5, table5, q5[0], nv5, *q5, *terms5_dev, dt5.diag_yz, dt5.diag_coeff)
     e5, e5_twice = rank_local_energy(*r5_args), rank_local_energy(*r5_args)
     e5_plain, e5_plain_ms = _timed(lambda: rank_local_energy_ref(*r5_args, chunk_rows=chunk5))
     e5_tol = rank_local_energy_tolerance(spec5, table5, q5[0], q5[1], *terms5_dev,
@@ -4451,7 +4597,9 @@ def main(argv) -> int:
     pad5_ok = bool((e5[1][pad5] == 0).all()) and float(
         (e5[0][pad5] - le.diagonal_energy(dt5, q5[0][pad5])).abs().max()) <= DIAG_RTOL * float(
         dt5.diag_coeff.abs().sum())
-    work5 = _rank_work(spec5, table5, q5[0][:nu5], dt5.xy_unique, sizes5, -1e29)
+    work5 = _rank_work(spec5, table5, q5[0][:nu5], dt5.xy_unique, sizes5, -1e29,
+                       rows=cap5)
+    print(_filter_line("rank_local_energy (frozen-core N2 6-31G)", work5), flush=True)
     torch.cuda.synchronize()
     print(f"[kernel] rank_local_energy (frozen-core N2 6-31G, {cap5} query rows of which {nu5} "
           f"live, Kxy={dt5.xy_unique.shape[0]}): vs its plain version max_abs_err="
@@ -4696,6 +4844,23 @@ def main(argv) -> int:
     row_fns = {"rank_local_energy": lambda: rank_local_energy(*r5_args),
                "sorted_quadratic_energy": lambda: sorted_quadratic_energy(*sq_args),
                "rank_quadratic_energy": lambda: rank_quadratic_energy(*rq_args)}
+    # with --before DIR, DIR's own build of each on the same inputs in the same
+    # turns, first compared bit for bit (sorted_local_energy's is in energy_fns)
+    if "dyn_gather" in old_mods:
+        old_dg, old_sl = old_mods["dyn_gather"], old_mods["sort_lookup"]
+        if "n_valid" in inspect.signature(old_dg.rank_local_energy).parameters:
+            old_rle = lambda: old_dg.rank_local_energy(*r5_args)
+        else:   # a tree before the filter: no table keys
+            old_rle = lambda: old_dg.rank_local_energy(spec5, table5, *r5_args[4:])
+        earlier = {"rank_local_energy": old_rle,
+                   "sorted_quadratic_energy": lambda: old_sl.sorted_quadratic_energy(*sq_args),
+                   "rank_quadratic_energy": lambda: old_dg.rank_quadratic_energy(*rq_args)}
+        for name, fn_old in earlier.items():
+            got, want = row_fns[name](), fn_old()
+            print(f"[before] the earlier tree's {name} vs this tree's on the same inputs: "
+                  f"bitwise equal={all(torch.equal(a, b) for a, b in zip(got, want))}",
+                  flush=True)
+            row_fns[f"{name} (earlier tree)"] = fn_old
     times.update(time_in_turns(row_fns, REPEATS, ENERGY_LAUNCHES))
     calls.update(time_in_turns(row_fns, REPEATS, ENERGY_LAUNCHES, hold=False))
     check_hold(row_fns, ENERGY_LAUNCHES, calls)
@@ -4881,20 +5046,23 @@ def main(argv) -> int:
     # and la, ph of the rows found; the terms of the groups walked), each output
     # written once
     n_real4 = int(real4.sum())
-    le_ops = (n_live4 * n_real4 * (1 + SEARCH_OPS * n_levels4) + 3 * n_found_terms
-              + EPILOGUE_OPS * n_found_pairs + 3 * n_live4 * dt4.diag_yz.numel())
-    le_bytes = (n_live4 * 8 + n_found_rows * 8 + xy4.numel() * 12 + n_found_terms * 16
-                + dt4.diag_yz.numel() * 16 + cap4 * 8 + n_live4 * 8 + cap4 * 16)
-    le_bound = _bound(le_bytes, le_ops)
+    look4_ops, look4_bytes = _search_lookup_cost(work4, n_live4, n_levels4)
+    le_bound, le_ops, le_bytes = _row_bound(
+        work4, n_live4, cap4, xy4.numel(), dt4.term_yz.numel(), dt4.diag_yz.numel(),
+        look4_ops, look4_bytes)
+    unfiltered4 = _bound(le_bytes, le_ops - look4_ops
+                         + n_live4 * n_real4 * (1 + SEARCH_OPS * n_levels4))[0]
     print(f"[bound] sorted_local_energy {le_bound[0]:.5f} ms ({le_bound[1]}: {le_ops} "
           f"operations = {n_live4} live rows x {n_real4} flip masks with terms x (1 + "
-          f"{SEARCH_OPS} x {n_levels4} levels) + 3 x {n_found_terms} terms of the "
-          f"{n_found_pairs} found pairs + {EPILOGUE_OPS} a found pair + 3 x "
-          f"{dt4.diag_yz.numel()} diagonal terms a live row, "
+          f"{FILTER_OPS} for the filter's probe) + {FILTER_OPS} x {n_live4} live keys hashed + "
+          f"{work4['hits']} filter hits x {SEARCH_OPS} x {n_levels4} levels + 3 x "
+          f"{n_found_terms} terms of the {n_found_pairs} found pairs + {EPILOGUE_OPS} a found "
+          f"pair + 3 x {dt4.diag_yz.numel()} diagonal terms a live row, "
           f"{le_ops / H100_FP32_OPS_PER_S * 1e3:.5f} ms; {le_bytes} B = the live keys, la and "
           f"ph of the {n_found_rows} rows found, xy and xy_ptr, the walked terms, the "
           f"diagonal terms, the query rows and the outputs, "
-          f"{le_bytes / H100_BYTES_PER_S * 1e3:.5f} ms)", flush=True)
+          f"{le_bytes / H100_BYTES_PER_S * 1e3:.5f} ms); counted as before the filter (a "
+          f"search a pair): {unfiltered4:.5f} ms", flush=True)
     print(f"[bound] offdiag_h_terms {oh_bound[0]:.5f} ms ({oh_bound[1]}: {oh_bytes} B = h "
           f"{h4.numel() * 4} B, the grouped terms, yz_unique, xy_ptr, s; {oh_ops} integer and "
           f"float32 operations = {chunk4} rows x {dt4.term_yz.numel()} terms x 4)", flush=True)
@@ -4906,29 +5074,29 @@ def main(argv) -> int:
     # H2O 6-31G's batch; sorted_quadratic_energy on N2 6-31G's, as sorted_local_energy
     rle_bound, rle_ops, rle_bytes = _row_bound(
         work5, nu5, cap5, dt5.xy_unique.numel(), dt5.term_yz.numel(), dt5.diag_yz.numel(),
-        work5["pairs"] * SECTOR_OPS + work5["inside"] * RANK_OPS, work5["rows"] * 8)
+        *_rank_lookup_cost(work5, nu5))
     rq_bound, rq_ops, rq_bytes = _row_bound(
         work_rq, nu, batch.states.shape[0], dt.xy_unique.numel(), dt.term_yz.numel(),
-        dt.diag_yz.numel(),
-        work_rq["pairs"] * SECTOR_OPS + work_rq["inside"] * RANK_OPS, work_rq["rows"] * 8)
+        dt.diag_yz.numel(), *_rank_lookup_cost(work_rq, nu))
     n_levels_q4 = max(math.ceil(math.log2(max(nu4, 1))), 0)
     sq_bound, sq_ops, sq_bytes = _row_bound(
         work_sq, nu4, cap4, xy4.numel(), dt4.term_yz.numel(), dt4.diag_yz.numel(),
-        work_sq["pairs"] * (1 + SEARCH_OPS * n_levels_q4), nu4 * 8 + work_sq["rows"] * 8)
+        *_search_lookup_cost(work_sq, nu4, n_levels_q4))
+    rank_look = (f"{SECTOR_OPS} a pair + {FILTER_OPS} a live key hashed and a pair inside a "
+                 f"sector probed + {RANK_OPS} a filter hit")
     for name, (bd, ops, n_bytes), wk, look in (
-            ("rank_local_energy", (rle_bound, rle_ops, rle_bytes), work5,
-             f"{SECTOR_OPS} a pair + {RANK_OPS} a pair inside a sector"),
-            ("rank_quadratic_energy", (rq_bound, rq_ops, rq_bytes), work_rq,
-             f"{SECTOR_OPS} a pair + {RANK_OPS} a pair inside a sector"),
+            ("rank_local_energy", (rle_bound, rle_ops, rle_bytes), work5, rank_look),
+            ("rank_quadratic_energy", (rq_bound, rq_ops, rq_bytes), work_rq, rank_look),
             ("sorted_quadratic_energy", (sq_bound, sq_ops, sq_bytes), work_sq,
-             f"1 + {SEARCH_OPS} x {n_levels_q4} levels a pair")):
+             f"1 + {FILTER_OPS} a pair, {FILTER_OPS} a live key hashed, {SEARCH_OPS} x "
+             f"{n_levels_q4} levels a filter hit")):
         print(f"[bound] {name} {bd[0]:.5f} ms ({bd[1]}: {ops} operations = {look} over "
               f"{wk['pairs']} live (row, flip mask with terms) pairs"
               f"{' of which ' + str(wk['inside']) + ' inside a sector' if 'inside' in wk else ''}"
-              f", 3 x {wk['terms']} terms of the {wk['found']} found pairs + {EPILOGUE_OPS} a "
-              f"found pair + 3 a diagonal term of a live row, "
+              f", {wk['hits']} filter hits, 3 x {wk['terms']} terms of the {wk['found']} found "
+              f"pairs + {EPILOGUE_OPS} a found pair + 3 a diagonal term of a live row, "
               f"{ops / H100_FP32_OPS_PER_S * 1e3:.5f} ms; {n_bytes} B = the {wk['rows']} distinct "
-              f"table rows read x 8 B{' and the live keys' if name.startswith('sorted') else ''}, "
+              f"table rows read x 8 B and the live keys, "
               f"xy and xy_ptr, the grouped terms walked (at most all), the diagonal terms, the "
               f"rows and the outputs, "
               f"{n_bytes / H100_BYTES_PER_S * 1e3:.5f} ms)", flush=True)
@@ -5050,7 +5218,7 @@ def main(argv) -> int:
     print(f"[exact] phase 14 starts with {torch.cuda.memory_allocated() / 2**30:.2f} GiB of "
           f"device memory allocated", flush=True)
     exact = _exact_mode(dev, hil, terms, cfg, tc, (hil3, terms3, cfg3), x_touched, zero_counts,
-                        wrappers)
+                        wrappers, old_mods)
     cli_counts["C"], cli_c = _cli_run_c(zero_counts, wrappers)
     exact_extra = _exact_entries(exact, cli_c, d_bound)
 
@@ -5147,9 +5315,11 @@ def main(argv) -> int:
                            "the row sum",
               path_note="N2 6-31G (36 qubits, no RankSpec, no dense A): one launch per "
                         "training step's E_loc call",
-              **before(e_comp_old), composition_ms=times[e_comp][0],
-              **({"kernel_before_ms": times[e_old][0], "kernel_before_spread": times[e_old][1]}
-                 if e_old in times else {}),
+              **before(e_old), composition_ms=times[e_comp][0],
+              usage=row_usage.get("sorted_local_energy"),
+              **({"composition_before_ms": times[e_comp_old][0]}
+                 if e_comp_old in times else {}),
+              live_keys=n_live4, filter_hits=work4["hits"], pairs=work4["pairs"],
               composition_unheld_ms=calls[e_comp][0],
               in_turns_with_compositions_ms=comp_times[e_name][0],
               found_pairs=n_found_pairs, live_rows=n_live4,
@@ -5210,8 +5380,13 @@ def main(argv) -> int:
               path_note="frozen-core N2 6-31G (32 qubits, a RankSpec, no grid program, no "
                         "dense A): one launch per training step's E_loc call, where the "
                         "parent ran offdiag_h_terms + rank_ratio_rowsum per chunk",
-              body="naqs_tpu_torch/csrc/row_energy.cuh", **before(rcomp + old_tag),
+              body="naqs_tpu_torch/csrc/row_energy.cuh",
+              **before("rank_local_energy (earlier tree)"),
+              usage=row_usage.get("rank_local_energy"),
+              **({"composition_before_ms": times[rcomp + old_tag][0]}
+                 if rcomp + old_tag in times else {}),
               composition_ms=times[rcomp][0], composition_unheld_ms=calls[rcomp][0],
+              filter_hits=work5["hits"],
               local_energy_ms=calls[le_fc][0],
               **({"local_energy_before_ms": calls[le_fc + old_tag][0]}
                  if le_fc + old_tag in calls else {}),
@@ -5247,8 +5422,13 @@ def main(argv) -> int:
                   "h2o_dense_a_call_before_unheld_ms":
                       dense_calls[quad_ra + ", earlier tree"][0]}
                  if quad_ra + ", earlier tree" in dense_times else {}),
-              body="naqs_tpu_torch/csrc/row_energy.cuh", **before(quad_h2o + old_tag),
+              body="naqs_tpu_torch/csrc/row_energy.cuh",
+              **before("rank_quadratic_energy (earlier tree)"),
+              usage=row_usage.get("rank_quadratic_energy"),
+              **({"quadratic_energy_before_ms": times[quad_h2o + old_tag][0]}
+                 if quad_h2o + old_tag in times else {}),
               composition_ms=times[hcomp][0], quadratic_energy_ms=times[quad_h2o][0],
+              filter_hits=work_rq["hits"],
               dense_a_quadratic_energy_ms=times[quad_h2o_a][0],
               h2o_in_turns_ms=dense_times[quad_rn][0],
               h2o_in_turns_unheld_ms=dense_calls[quad_rn][0],
@@ -5264,9 +5444,14 @@ def main(argv) -> int:
               path_note="quadratic_energy with no RankSpec and no dense A (N2 6-31G): one "
                         "launch per call, where the parent ran sorted_gather2 + "
                         "offdiag_h_terms + an eager epilogue per chunk",
-              body="naqs_tpu_torch/csrc/row_energy.cuh", **before(quad_n2 + old_tag),
+              body="naqs_tpu_torch/csrc/row_energy.cuh",
+              **before("sorted_quadratic_energy (earlier tree)"),
+              usage=row_usage.get("sorted_quadratic_energy"),
+              **({"quadratic_energy_before_ms": times[quad_n2 + old_tag][0]}
+                 if quad_n2 + old_tag in times else {}),
               composition_ms=times[qcomp][0], quadratic_energy_ms=times[quad_n2][0],
               live_rows=nu4, pairs=work_sq["pairs"], found_pairs=work_sq["found"],
+              filter_hits=work_sq["hits"],
               dense_a_call_ms=dense_times[quad_sa][0],
               dense_a_call_unheld_ms=dense_calls[quad_sa][0],
               **({"dense_a_call_before_ms": dense_times[quad_sa + ", earlier tree"][0],

@@ -23,15 +23,22 @@
 // and a whole quadratic_energy call (replacing the chunk loop of
 // rank_gather2, the H row and the eager epilogue; JAX: :330-381). The two
 // chunk kernels above run on no path.
-// What bounds them: the table reads. A coupled state of a live row with terms
+// What bounded them: the table reads. A coupled state of a live row with terms
 // is tested against the sectors by two popcounts (most leave them) before any
-// rank arithmetic; each one inside a sector reads its 8-byte table row, at
+// rank arithmetic; each one inside a sector read its 8-byte table row, at
 // random: at 32 qubits the table (19 M rows, 153 MB) is larger than the
-// 50 MB L2, so those reads come from HBM.
+// 50 MB L2, so those reads came from HBM (frozen-core N2 6-31G: 101 M reads
+// a call for 2.47 M found states). Now a state inside a sector is first
+// probed in the block's filter of the table's live keys (csrc/row_energy.cuh):
+// only its hits, the found states and ~1% of the rest, are ranked and read,
+// so what bounds them is the sector test and the probe, integer operations
+// on every pair. A table of more than 262,144 rows (exact mode's full-sector
+// tables) takes the unfiltered kernel: every state inside a sector reads its
+// row, as before.
 //
-// What bounds them: bytes. At the main path's chunk (C = 512, K = 4,608,
-// H2O 6-31G) rank_gather2 must write 18.9 MB of outputs and read each touched
-// table row (8 B) once, about 20.5 MB; rank_ratio_rowsum must read h
+// The two chunk kernels' bound: bytes. At the main path's chunk (C = 512,
+// K = 4,608, H2O 6-31G) rank_gather2 must write 18.9 MB of outputs and read
+// each touched table row (8 B) once, about 20.5 MB; rank_ratio_rowsum must read h
 // (9.4 MB) and the touched rows and write 8 B per row, about 11.1 MB. The
 // table (13.3 MB) stays resident in the 50 MB L2. The rank arithmetic is a
 // few dozen integer operations per element, under the byte time.
@@ -295,11 +302,15 @@ constexpr int kMaxSpecInts = 4 * (16 + 1) + (1 << 8) + (1 << 8) * (8 + 1);
 
 // row_energy_kernel's lookup in the dense rank table (csrc/row_energy.cuh).
 // A coupled state's sector is tested by two popcounts of its packed bits
-// first; only a state inside a sector is ranked and its table row read (one
+// first (screen); then, where the body keeps a filter of the live keys, its
+// probe; only a state that passes both is ranked and its table row read (one
 // 8-byte load), and it is found where the row's log-amp is above
-// found_above (the table's miss marker lies at or below it).
+// found_above (the table's miss marker lies at or below it). The filter's
+// keys are the table's own states (their low 2S bits, as the rank reads
+// them), so it passes every state the table finds.
 struct RankLookup {
   struct Table {
+    const int64_t* states;  // the states the table was built from: the filter's keys
     const int32_t* spec;
     int n_spec, n_shells, lo_bits;
     uint32_t qmask;
@@ -310,18 +321,28 @@ struct RankLookup {
   struct Shared {
     int4 spec[(kMaxSpecInts + 3) / 4];
   };
+  static constexpr int kSpareBytes = 0;
+  static constexpr int kPlainSpareBytes = 0;
   Spec sp;
   const float2* tab;
   uint32_t qmask;
   float found_above;
 
-  __device__ void init(Shared& sh, const Table& t, int64_t) {
+  __device__ void init(Shared& sh, const Table& t, int64_t, void*, int) {
     sp = stage_spec(sh.spec, t.spec, t.n_spec, t.n_shells, t.lo_bits, t.size);
     tab = t.tab;
     qmask = t.qmask;
     found_above = t.found_above;
   }
   __device__ bool empty() const { return false; }
+  __device__ uint64_t key(int64_t q) const {
+    return static_cast<uint32_t>(static_cast<uint64_t>(q)) & qmask;
+  }
+  // q lies in a sector (r.z == -1: no sector with its n_alpha)
+  __device__ bool screen(int64_t q) const {
+    const uint32_t x = static_cast<uint32_t>(static_cast<uint64_t>(q)) & qmask;
+    return sp.sect[__popc(x & 0x55555555u)].z == __popc(x & 0xAAAAAAAAu);
+  }
   template <int kQ>
   __device__ void find(const int64_t (&q)[kQ], const bool (&want)[kQ], bool (&found)[kQ],
                        float2 (&v)[kQ]) const {
@@ -350,9 +371,10 @@ struct RankLookup {
 
 int row_energy_launch(bool quadratic, const void* spec, int n_spec, int n_shells,
                       int lo_bits, unsigned qmask, int size, const void* tab, float found_above,
-                      const row_energy::Rows& a, void* stream) {
+                      const void* states, const row_energy::Rows& a, void* stream) {
   if (n_spec > kMaxSpecInts || n_shells > 16) return static_cast<int>(cudaErrorInvalidValue);
-  const RankLookup::Table t = {static_cast<const int32_t*>(spec), n_spec, n_shells, lo_bits,
+  const RankLookup::Table t = {static_cast<const int64_t*>(states),
+                               static_cast<const int32_t*>(spec), n_spec, n_shells, lo_bits,
                                qmask, size, static_cast<const float2*>(tab), found_above};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return quadratic ? row_energy::launch<RankLookup, row_energy::Quadratic>(a, t, s)
@@ -396,8 +418,11 @@ extern "C" int rank_ratio_rowsum(const void* s, int n_rows, const void* xy, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// states (n_states,) and n_valid: what the table was built from (its first
+// n_valid states), the filter's keys
 extern "C" int rank_local_energy(const void* spec, int n_spec, int n_shells, int lo_bits,
                                  unsigned qmask, int size, const void* tab,
+                                 const void* states, int n_states, const void* n_valid,
                                  const void* q_states, int n_rows, const void* q_la,
                                  const void* q_ph, const void* xy, const void* xy_ptr,
                                  int n_cols, const void* term_yz, const void* yz_unique,
@@ -405,10 +430,10 @@ extern "C" int rank_local_energy(const void* spec, int n_spec, int n_shells, int
                                  const void* diag_coeff, int n_diag, void* e_re, void* e_im,
                                  void* stream) {
   const row_energy::Rows a = row_energy::make_rows(
-      nullptr, 0, q_states, n_rows, q_la, q_ph, xy, xy_ptr, n_cols, term_yz, yz_unique,
+      n_valid, n_states, q_states, n_rows, q_la, q_ph, xy, xy_ptr, n_cols, term_yz, yz_unique,
       term_coeff, diag_yz, diag_coeff, n_diag, e_re, e_im);
   return row_energy_launch(false, spec, n_spec, n_shells, lo_bits, qmask, size, tab,
-                           kMissThreshold, a, stream);
+                           kMissThreshold, states, a, stream);
 }
 
 // quad_miss: the log-amp the table holds for a miss (quadratic_energy's -200);
@@ -426,7 +451,7 @@ extern "C" int rank_quadratic_energy(const void* spec, int n_spec, int n_shells,
       n_valid, n_rows, states, n_rows, la, ph, xy, xy_ptr, n_cols, term_yz, yz_unique,
       term_coeff, diag_yz, diag_coeff, n_diag, num, w);
   return row_energy_launch(true, spec, n_spec, n_shells, lo_bits, qmask, size, tab, quad_miss,
-                           a, stream);
+                           states, a, stream);
 }
 
 extern "C" const char* rank_gather_error_string(int code) {

@@ -63,10 +63,13 @@
 // dense A in one launch, sorted_quadratic_energy the whole quadratic_energy
 // call; both are row_energy_kernel (csrc/row_energy.cuh) with SearchLookup
 // below, the first with the LocalEnergy epilogue, the second with Quadratic.
-// Their bound is operations: per coupled state of a live
-// row the xor and a search; the bytes (the live keys, xy, the grouped terms,
-// the rows and the outputs) are a few MB. What held the two-kernel chunk loop
-// back, and what this design does about it:
+// What bounds them now: operations, per coupled state of a live row the xor
+// and the filter's probe (csrc/row_energy.cuh), and a search only for the
+// ~1% the filter passes; the bytes (the live keys, xy, the grouped terms, the
+// rows and the outputs) are a few MB. Before the filter every coupled state
+// was searched (568 M searches of 15 dependent loads a call on N2 6-31G, for
+// 122,206 found states): the misses set the time. What held the two-kernel
+// chunk loop back, and what this design does about it:
 // * Padding rows. About four fifths of a capacity-100,000 buffer is SENTINEL,
 //   and their off-diagonal part is exactly 0: for xy != 0, SENTINEL ^ xy has
 //   bit 62 set, which no state of at most 62 qubits has, and xy == 0 is a
@@ -84,18 +87,23 @@
 //   sums are that kernel's bits on the same h. An empty group (a padded flip
 //   mask) is never looked up. Real hits are rare (a few per row of 27,257
 //   flip masks on N2 6-31G), so a finding lane walks its group alone.
+// * The filter. Each block hashes the n live keys into a 64 KB bitmap in
+//   shared memory (csrc/row_energy.cuh); a coupled state that no sample holds
+//   is dropped after one probe, and only the filter's hits are searched: at
+//   N2 6-31G's ~20,850 live keys about 1% of the 27,257 flip masks a row,
+//   against every one of them before. A table of more than 262,144 rows (the
+//   full sector's table of exact mode) takes the unfiltered kernel, which
+//   searches every pair, as before.
 // * The search. The block stages the top of the table in shared memory once:
-//   every 2^shift-th of the n live keys, at most kTopKeys (32 KB), with
-//   2^shift >= 16 the smallest power of two that fits (16 keys, one
-//   128-byte line, up to 65,536 live keys; 32 up to 131,072; any n < 2^31
-//   fits). A query searches the top there, then the one window of 2^shift
-//   keys of the global table below it, which L1 and L2 hold: at N2 6-31G's
-//   ~20,000 live keys 11 levels in shared memory and 4 in one line, against
-//   15 dependent loads from L2. The keys are strided, so the staging is a
-//   gather by plain loads, all in flight at once, not a bulk copy. Lanes of
-//   a warp take consecutive flip masks, which are sorted, so their queries
-//   share high bits and mostly the same path through the top (broadcast
-//   reads).
+//   every 2^shift-th of the n live keys, with 2^shift >= 16 the smallest
+//   power of two that fits the space it has (16 keys, one 128-byte line).
+//   Beside the filter that is kTopKeys (16 KB: 16 up to 32,768 live keys,
+//   128 at 262,144); in the unfiltered kernel kPlainTopKeys (32 KB, 2^9 at
+//   the 1,656,369 keys of H2O 6-31G's sector). A query searches the top
+//   there, then the one window of 2^shift keys of the global table below it,
+//   which L1 and L2 hold: at N2 6-31G's ~20,000 live keys 11 levels in shared
+//   memory and 4 in one line. The keys are strided, so the staging is a
+//   gather by plain loads, all in flight at once, not a bulk copy.
 // * No host loop. The diagonal is summed in f64 in the same launch, each
 //   thread its terms d = tid + j * 256 in order, then a shuffle tree and the
 //   warps in order; n_valid is read through its pointer. One launch per call.
@@ -242,8 +250,9 @@ __global__ void __launch_bounds__(kThreads) sorted_gather2_kernel(
 
 // ------------------------------------------- the one-launch kernels' search
 
-constexpr int kTopKeys = 4096;             // keys of the shared-memory top: 32 KB
-constexpr int kMinShift = 4;               // windows of at least 16 keys: one 128-byte line
+constexpr int kTopKeys = 2048;       // keys of the shared-memory top beside the filter: 16 KB
+constexpr int kPlainTopKeys = 4096;  // the unfiltered kernel's top: 32 KB
+constexpr int kMinShift = 4;         // windows of at least 16 keys: one 128-byte line
 
 // kQ searches at once, as search() above, through the shared top: j = the last
 // index < m with top[j] <= q (0 if none), then within the window of 2^shift
@@ -289,32 +298,39 @@ __device__ __forceinline__ void search_top(const int64_t* top, int m, int shift,
 // row_energy_kernel's lookup in the sorted sample buffer (csrc/row_energy.cuh):
 // found = the last of the first n states <= q equals q; (la', ph') = (la, ph)
 // there. The block stages the top of the table, every 2^shift-th live key,
-// in shared memory once.
+// in the shared memory it is given once: kTopKeys (16 KB) beside the filter,
+// where the filter's hits are the only searches (about one a thread and
+// row); kPlainTopKeys (32 KB) in the unfiltered kernel. (The filtered kernel
+// builds no filter only where n is 0: then nothing is staged or searched.)
 struct SearchLookup {
   struct Table {
-    const int64_t* states;
+    const int64_t* states;  // the sorted buffer: the filter's keys
     const float* la;
     const float* ph;
   };
-  struct Shared {
-    int64_t top[kTopKeys];
-  };
+  struct Shared {};
+  static constexpr int kSpareBytes = kTopKeys * 8;
+  static constexpr int kPlainSpareBytes = kPlainTopKeys * 8;
   Table tab;
   const int64_t* top;
   int64_t n;
   int m, shift;
 
-  __device__ void init(Shared& sh, const Table& t, int64_t n_live) {
+  __device__ void init(Shared&, const Table& t, int64_t n_live, void* spare, int spare_bytes) {
     tab = t;
-    top = sh.top;
     n = n_live;
+    int64_t* sh = static_cast<int64_t*>(spare);
+    top = sh;
+    const int64_t cap = spare_bytes / 8;
     shift = kMinShift;
-    while (n > (static_cast<int64_t>(kTopKeys) << shift)) ++shift;
+    while (n > (cap << shift)) ++shift;
     m = static_cast<int>((n + (int64_t{1} << shift) - 1) >> shift);
     for (int j = threadIdx.x; j < m; j += row_energy::kThreads)
-      sh.top[j] = __ldg(t.states + (static_cast<int64_t>(j) << shift));
+      sh[j] = __ldg(t.states + (static_cast<int64_t>(j) << shift));
   }
   __device__ bool empty() const { return n == 0; }
+  __device__ uint64_t key(int64_t q) const { return static_cast<uint64_t>(q); }
+  __device__ bool screen(int64_t) const { return true; }
   template <int kQ>
   __device__ void find(const int64_t (&q)[kQ], const bool (&want)[kQ], bool (&found)[kQ],
                        float2 (&v)[kQ]) const {

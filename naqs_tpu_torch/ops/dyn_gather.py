@@ -33,10 +33,12 @@ over query rows (`csrc/row_energy.cuh`'s body with the rank lookup; its
 search-lookup instantiations are in `ops/sort_lookup.py`), H summed term by
 term only for the pairs whose coupled state is found:
 
-* `rank_local_energy(spec, table, q_states, q_la, q_ph, xy_unique, xy_ptr,
-  term_yz, yz_unique, term_coeff, diag_yz, diag_coeff)` -> (e_re, e_im), each
-  (U_q,) f64: the E_loc of every query row, what `local_energy` computes on
-  the rank engine. A SENTINEL row gets its diagonal and an
+* `rank_local_energy(spec, table, states, n_valid, q_states, q_la, q_ph,
+  xy_unique, xy_ptr, term_yz, yz_unique, term_coeff, diag_yz, diag_coeff)` ->
+  (e_re, e_im), each (U_q,) f64: the E_loc of every query row, what
+  `local_energy` computes on the rank engine, with `table` built from the
+  first n_valid of `states` (`build_value_table(spec, states, ..., n_valid)`).
+  A SENTINEL row gets its diagonal and an
   imaginary part of 0, as the sort engine's rows do; JAX's rank engine
   computes such a padding row from the low bits of SENTINEL, which is
   garbage, and every caller masks it.
@@ -44,6 +46,12 @@ term only for the pairs whose coupled state is found:
   ...)` -> (num, w), each (U,) f64: row m's terms of `quadratic_energy`'s
   sum num / sum w, table built with `miss_log_amp=QUAD_MISS` from the
   shifted log-amps la.
+
+The kernels keep a filter of the table's live keys (`states`, n_valid; the
+plain version is `ops/live_filter.py`) and rank and read the table only for
+a coupled state it passes; it passes every state the table holds, so the
+table alone decides what is found, and the plain versions read the table
+alone (they take `states` and n_valid and do not read them).
 
 Their plain versions (`local_energy_rows_ref`, `quadratic_rows_ref`, each
 with a lookup's gather) run per chunk of rows: the diagonal's parity fold in
@@ -161,7 +169,8 @@ def _lib():
     lib.rank_ratio_rowsum.argtypes = [_PTR, _INT, _PTR, _INT, *_SPEC_ARGS,
                                       _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
     terms = [_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR]
-    lib.rank_local_energy.argtypes = [*_SPEC_ARGS, _PTR, _PTR, _INT, _PTR, _PTR, *terms]
+    lib.rank_local_energy.argtypes = [*_SPEC_ARGS, _PTR, _PTR, _INT, _PTR, _PTR, _INT, _PTR,
+                                      _PTR, *terms]
     lib.rank_quadratic_energy.argtypes = [*_SPEC_ARGS, _PTR, ctypes.c_float, _PTR, _PTR, _INT,
                                           _PTR, _PTR, *terms]
     for name in ("rank_gather2", "rank_ratio_rowsum", "rank_local_energy",
@@ -346,10 +355,11 @@ def quadratic_rows_tolerance(gather, states, la, n_valid, xy_ptr, term_yz, yz_un
     return torch.cat(t_num), torch.cat(t_w)
 
 
-def rank_local_energy_ref(spec: RankSpec, table, q_states, q_la, q_ph, xy_unique, *terms,
-                          chunk_rows=None):
+def rank_local_energy_ref(spec: RankSpec, table, states, n_valid, q_states, q_la, q_ph,
+                          xy_unique, *terms, chunk_rows=None):
     """Plain version of `rank_local_energy`: `local_energy_rows_ref` with the
-    rank table's gather (`rank_gather2_ref`)."""
+    rank table's gather (`rank_gather2_ref`); `states` and n_valid, the
+    kernel's filter keys, are not read."""
     return local_energy_rows_ref(lambda s: rank_gather2_ref(spec, s, xy_unique, table),
                                  q_states, q_la, q_ph, xy_unique, *terms, chunk_rows=chunk_rows)
 
@@ -404,32 +414,37 @@ def _rank_rows_check(name, spec, table, anchor, want):
         raise ValueError(f"{name}: at most 32 qubits")
 
 
-def rank_local_energy(spec: RankSpec, table, q_states, q_la, q_ph, xy_unique, xy_ptr, term_yz,
-                      yz_unique, term_coeff, diag_yz, diag_coeff, chunk_rows=None):
+def rank_local_energy(spec: RankSpec, table, states, n_valid, q_states, q_la, q_ph, xy_unique,
+                      xy_ptr, term_yz, yz_unique, term_coeff, diag_yz, diag_coeff,
+                      chunk_rows=None):
     """(e_re, e_im), each (U_q,) f64: the local energy of every query row
     q_states (U_q,) with psi(s) = exp(q_la + i q_ph), psi(s') read from the
-    rank table (0 where it holds a miss). `chunk_rows` bounds the plain
-    version's (chunk, K) intermediates on a CPU tensor; the kernel has none."""
+    rank table (0 where it holds a miss), built from the first n_valid (a 0-d
+    int64 tensor on their device) of `states` (U,) int64, the kernel's filter
+    keys. `chunk_rows` bounds the plain version's (chunk, K) intermediates on
+    a CPU tensor; the kernel has none."""
     n_rows, n_cols = q_states.shape[0], xy_unique.shape[0]
-    f32 = (torch.float32,)
-    want = _terms_check({"q_states": (q_states, (torch.int64,), (n_rows,)),
+    f32, i64 = (torch.float32,), (torch.int64,)
+    want = _terms_check({"states": (states, i64, (states.shape[0],)),
+                         "n_valid": (n_valid, i64, ()),
+                         "q_states": (q_states, i64, (n_rows,)),
                          "q_la": (q_la, f32, (n_rows,)), "q_ph": (q_ph, f32, (n_rows,))},
                         n_cols, xy_unique, xy_ptr, term_yz, yz_unique, term_coeff, diag_yz,
                         diag_coeff)
     _rank_rows_check("rank_local_energy", spec, table, q_states, want)
     if q_states.device.type == "cpu":
-        return rank_local_energy_ref(spec, table, q_states, q_la, q_ph, xy_unique, xy_ptr,
-                                     term_yz, yz_unique, term_coeff, diag_yz, diag_coeff,
-                                     chunk_rows=chunk_rows)
+        return rank_local_energy_ref(spec, table, states, n_valid, q_states, q_la, q_ph,
+                                     xy_unique, xy_ptr, term_yz, yz_unique, term_coeff, diag_yz,
+                                     diag_coeff, chunk_rows=chunk_rows)
     e_re = torch.empty((n_rows,), dtype=torch.float64, device=q_states.device)
     e_im = torch.empty_like(e_re)
     if n_rows == 0:
         return e_re, e_im
     spec_args, _ = _spec_device(spec, q_states.device)
     _build.launch(_lib(), "rank_local_energy",
-                  (*spec_args, table, q_states, n_rows, q_la, q_ph, xy_unique, xy_ptr, n_cols,
-                   term_yz, yz_unique, term_coeff, diag_yz, diag_coeff, diag_yz.shape[0], e_re,
-                   e_im), q_states.device)
+                  (*spec_args, table, states, states.shape[0], n_valid, q_states, n_rows, q_la,
+                   q_ph, xy_unique, xy_ptr, n_cols, term_yz, yz_unique, term_coeff, diag_yz,
+                   diag_coeff, diag_yz.shape[0], e_re, e_im), q_states.device)
     rank_local_energy.launches += 1
     return e_re, e_im
 

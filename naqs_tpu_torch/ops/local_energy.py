@@ -17,7 +17,8 @@ engine, `dataclasses.replace(dt, rank_spec=None, dense=None)` the sort engine.
 
 Both membership engines run the whole call in one launch over the query
 rows, with or without a dense A: the diagonal, the lookup of each coupled
-state, and H summed term by term only for the found pairs. The sort engine,
+state that passes a filter of the sampled states (`ops/live_filter.py`), and
+H summed term by term only for the found pairs. The sort engine,
 for spaces with no RankSpec (over 32 qubits, or a sector of more than 2^26
 states), looks up by a binary search of the sorted sample buffer
 (ops/sort_lookup.py::sorted_local_energy, sorted_quadratic_energy); the rank
@@ -201,8 +202,9 @@ def local_energy(
         return sorted_local_energy(*table, _count(n_valid, states.device),
                                    *pack_table(q_states, q_la, q_ph), *terms, chunk_rows=c)
     table = build_value_table(dt.rank_spec, states, log_amp, phase, n_valid)
-    return rank_local_energy(dt.rank_spec, table, *pack_table(q_states, q_la, q_ph), *terms,
-                             chunk_rows=c)
+    return rank_local_energy(dt.rank_spec, table, states.contiguous(),
+                             _count(n_valid, states.device), *pack_table(q_states, q_la, q_ph),
+                             *terms, chunk_rows=c)
 
 
 @torch.no_grad()

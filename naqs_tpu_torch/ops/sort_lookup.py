@@ -42,7 +42,9 @@ Both are `csrc/row_energy.cuh`'s one kernel body with this module's search
 as its lookup (`rank_local_energy` and `rank_quadratic_energy` in
 `ops/dyn_gather.py` are the same body with the rank lookup); their plain
 versions are `dyn_gather.local_energy_rows_ref` and `quadratic_rows_ref` with
-the sort lookup.
+the sort lookup. The kernels search only the coupled states that pass a
+filter of the n_valid live keys (`ops/live_filter.py`), which passes every
+live key: the plain versions search every pair and find the same states.
 
 `sorted_gather2` equals its plain version bitwise. `sorted_ratio_rowsum` sums
 each row in another order than `torch.sum` and uses CUDA's `expf`/`sincosf`,

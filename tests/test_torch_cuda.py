@@ -1185,28 +1185,65 @@ ENERGY_SHAPES = [(1, 1, 3, 5, 12), (300, 0, 17, 33, 20), (300, 1, 17, 33, 20),
                  (300, 31, 40, 64, 20), (300, 32, 40, 64, 20), (300, 33, 40, 64, 20),
                  (4096, 3000, 77, 1000, 40), (100_000, 100_000, 300, 2048, 36),
                  (600_000, 600_000, 64, 512, 40), (100_000, 20_000, None, 27_392, 36)]
+# (the shape, the live keys): "random" as above; "foreign", query rows drawn
+# from states the table does not hold; "one_word", every live key in one word
+# of the row kernels' filter (ops/live_filter.py), so that the word's bits
+# pass many states the table does not hold. With n_valid 0, 1, 70,000 (7.5
+# bits a key), a table at the filter's capacity (262,144 rows) and one row
+# above it (the unfiltered kernel: every pair is looked up).
+ENERGY_CASES = [(*shape, "random") for shape in ENERGY_SHAPES] + [
+    (300, 1, 17, 33, 20, "foreign"), (4096, 3000, 77, 1000, 40, "foreign"),
+    (100_000, 20_000, 2048, 27_392, 36, "foreign"), (300, 64, None, 2048, 36, "one_word"),
+    (300, 64, 300, 2048, 36, "foreign_one_word"), (100_000, 70_000, 512, 4096, 36, "random"),
+    (262_144, 262_144, 512, 4096, 36, "random"), (262_145, 262_145, 512, 4096, 36, "random")]
 
 
-def _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev, pool=None):
+def _one_word(pool, k):
+    """The states of `pool` whose keys fall in the most crowded word of the
+    row kernels' filter, at least k + 8 of them."""
+    from naqs_tpu_torch.ops.live_filter import filter_bits
+
+    word = filter_bits(torch.as_tensor(pool))[0].numpy()
+    same = pool[word == np.bincount(word).argmax()]
+    assert same.size >= k + 8, same.size
+    return same
+
+
+def _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev, pool=None, keys="random"):
     """sorted_local_energy's arguments on the card: a sorted buffer of n_valid
     random states (from `pool` if given) padded with SENTINEL to u; n_rows
     query rows drawn from its live states, every fifth SENTINEL (None: the
     buffer itself); n_cols flip masks below 2^n_qubits, a third joining a live
     query row to a live state, the last tenth 0 with no terms (padding);
-    groups of 1-6 random terms; 257 random diagonal terms."""
+    groups of 1-6 random terms; 257 random diagonal terms. keys="foreign"
+    draws the query rows from states outside the table, "one_word" takes the
+    live states from one filter word of a large pool and joins another third
+    of the query rows to states of that word the table does not hold (the
+    filter passes them, the lookup must not find them), "foreign_one_word"
+    both."""
     from naqs_tpu_torch.utils.bits import SENTINEL
 
     rng = np.random.default_rng(n_cols + n_valid)
     states = np.full(u, SENTINEL, np.int64)
     if pool is None:
-        pool = np.unique(rng.integers(0, 1 << n_qubits, size=2 * n_valid + 8, dtype=np.int64))
-    states[:n_valid] = np.sort(rng.choice(pool, size=n_valid, replace=False))
+        size = (2_000_000 if "one_word" in keys
+                else 2 * n_valid + 8 + (4 * n_rows if "foreign" in keys else 0))
+        pool = np.unique(rng.integers(0, 1 << n_qubits, size=size, dtype=np.int64))
+    decoys = None
+    if "one_word" in keys:
+        same = _one_word(pool, n_valid)
+        live, decoys = same[:n_valid], same[n_valid:]
+    else:
+        live = rng.choice(pool, size=n_valid, replace=False)
+    states[:n_valid] = np.sort(live)
     la = (-rng.uniform(0, 3, size=u)).astype(np.float32)
     ph = rng.uniform(-np.pi, np.pi, size=u).astype(np.float32)
     if n_rows is None:
         q, q_la, q_ph = states, la, ph
     else:
-        q = (states[rng.integers(0, n_valid, size=n_rows)] if n_valid
+        outside = pool[~np.isin(pool, states[:n_valid])]
+        q = (rng.choice(outside, size=n_rows) if "foreign" in keys
+             else states[rng.integers(0, n_valid, size=n_rows)] if n_valid
              else rng.choice(pool, size=n_rows))
         q[::5] = SENTINEL
         q_la = (-rng.uniform(0, 3, size=n_rows)).astype(np.float32)
@@ -1219,6 +1256,9 @@ def _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev, pool=None):
         xy[:third] = live_q[rng.integers(0, len(live_q), size=third)] ^ states[
             rng.integers(0, n_valid, size=third)]
         xy[:third] = np.where(xy[:third] == 0, 1, xy[:third])
+        if decoys is not None:
+            xy[third:2 * third] = live_q[rng.integers(0, len(live_q), size=third)] ^ decoys[
+                rng.integers(0, len(decoys), size=third)]
     xy[:n_cols - n_pad] = np.sort(xy[:n_cols - n_pad])
     xy[n_cols - n_pad:] = 0
     sizes = rng.integers(1, 7, size=n_cols)
@@ -1244,15 +1284,15 @@ def _tolerance(args, chunk, h_exact=False):
                                          h_exact=h_exact)
 
 
-@pytest.mark.parametrize("u,n_valid,n_rows,n_cols,n_qubits", ENERGY_SHAPES)
-def test_sorted_local_energy_kernel_matches_plain(u, n_valid, n_rows, n_cols, n_qubits):
+@pytest.mark.parametrize("u,n_valid,n_rows,n_cols,n_qubits,keys", ENERGY_CASES)
+def test_sorted_local_energy_kernel_matches_plain(u, n_valid, n_rows, n_cols, n_qubits, keys):
     """Per row within the stated tolerance of the plain version and of this
     tree's two kernels composed chunk by chunk (the same h bits); padding rows
     their diagonal and 0; twice bitwise."""
     from naqs_tpu_torch.utils.bits import SENTINEL
 
     dev = _card()
-    args = _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev)
+    args = _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev, keys=keys)
     before = sorted_local_energy.launches
     got = sorted_local_energy(*args)
     torch.cuda.synchronize()
@@ -1333,12 +1373,15 @@ def _sector_pool(sectors, n_qubits, n, seed=0):
     return out
 
 
-def _rank_energy_inputs(sectors, n_qubits, u, n_valid, n_rows, n_cols, dev):
+def _rank_energy_inputs(sectors, n_qubits, u, n_valid, n_rows, n_cols, dev, keys="random"):
     """(spec, rank value table, _energy_inputs(...)) with the buffer's states
     in the space's sectors."""
     spec = RankSpec.for_hilbert(nt.Hilbert(n_qubits=n_qubits, sectors=sectors))
-    pool = _sector_pool(sectors, n_qubits, max(n_valid, n_rows or 0, 64))
-    args = _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev, pool=pool)
+    want = (400_000 if "one_word" in keys
+            else max(n_valid + (4 * n_rows if n_rows and "foreign" in keys else 0),
+                     n_rows or 0, 64))
+    pool = _sector_pool(sectors, n_qubits, want)
+    args = _energy_inputs(u, n_valid, n_rows, n_cols, n_qubits, dev, pool=pool, keys=keys)
     table = build_value_table(spec, args[0], args[1], args[2], args[3])
     return spec, table, args
 
@@ -1357,10 +1400,22 @@ RANK_ENERGY_SHAPES = [(((2, 2),), 8, 36, 0, 17, 33), (((3, 2),), 10, 100, 1, 17,
                       (((5, 5),), 14, 441, 441, None, 513),
                       (((5, 5),), 26, 100_000, 26_000, None, 4_608),
                       (((5, 5),), 32, 100_000, 20_000, None, 17_152)]
+# as ENERGY_CASES: query rows outside the table, every live key in one filter
+# word, a table at the filter's capacity and one row above it
+RANK_ENERGY_CASES = [(*shape, "random") for shape in RANK_ENERGY_SHAPES] + [
+    (((3, 2),), 10, 100, 1, 17, 33, "foreign"),
+    (((5, 3), (4, 4), (3, 5)), 14, 4096, 2000, 77, 1000, "foreign"),
+    (((5, 5),), 32, 100_000, 20_000, 4096, 17_152, "foreign"),
+    (((5, 5),), 26, 300, 32, None, 4_608, "one_word"),
+    (((5, 5),), 26, 300, 32, 300, 4_608, "foreign_one_word"),
+    (((5, 5),), 26, 100_000, 70_000, None, 4_608, "random"),
+    (((5, 5),), 26, 262_144, 262_144, 512, 4_608, "random"),
+    (((5, 5),), 26, 262_145, 262_145, 512, 4_608, "random")]
 
 
-@pytest.mark.parametrize("sectors,n_qubits,u,n_valid,n_rows,n_cols", RANK_ENERGY_SHAPES)
-def test_rank_local_energy_kernel_matches_plain(sectors, n_qubits, u, n_valid, n_rows, n_cols):
+@pytest.mark.parametrize("sectors,n_qubits,u,n_valid,n_rows,n_cols,keys", RANK_ENERGY_CASES)
+def test_rank_local_energy_kernel_matches_plain(sectors, n_qubits, u, n_valid, n_rows, n_cols,
+                                                keys):
     """Per row within the stated tolerance of the plain version, and on the
     live rows of this tree's offdiag_h_terms + rank_ratio_rowsum composed chunk
     by chunk (the same h bits); padding rows their diagonal and 0; twice
@@ -1369,11 +1424,11 @@ def test_rank_local_energy_kernel_matches_plain(sectors, n_qubits, u, n_valid, n
 
     dev = _card()
     spec, table, args = _rank_energy_inputs(sectors, n_qubits, u, n_valid, n_rows, n_cols,
-                                            dev)
-    (_, _, _, _, q, q_la, q_ph, xy, ptr, term_yz, yz_unique, term_coeff, diag_yz,
+                                            dev, keys=keys)
+    (states, _, _, nv, q, q_la, q_ph, xy, ptr, term_yz, yz_unique, term_coeff, diag_yz,
      diag_coeff) = args
-    call = (spec, table, q, q_la, q_ph, xy, ptr, term_yz, yz_unique, term_coeff, diag_yz,
-            diag_coeff)
+    call = (spec, table, states, nv, q, q_la, q_ph, xy, ptr, term_yz, yz_unique, term_coeff,
+            diag_yz, diag_coeff)
     before = rank_local_energy.launches
     got = rank_local_energy(*call)
     torch.cuda.synchronize()
@@ -1409,16 +1464,25 @@ def test_rank_local_energy_kernel_matches_plain(sectors, n_qubits, u, n_valid, n
 QUAD_SHAPES = [(((2, 2),), 8, 36, 0, 33), (((3, 2),), 10, 100, 1, 33),
                (((5, 3), (4, 4), (3, 5)), 14, 4096, 2000, 1000),
                (((5, 5),), 14, 441, 441, 513), (((5, 5),), 26, 100_000, 26_000, 4_608)]
+# the rows are the table, so no query row lies outside it: every live key in
+# one filter word, a table at the filter's capacity and one row above it
+QUAD_CASES = [(*shape, "random") for shape in QUAD_SHAPES] + [
+    (((5, 5),), 26, 300, 32, 4_608, "one_word"),
+    (((5, 5),), 26, 100_000, 70_000, 4_608, "random"),
+    (((5, 5),), 26, 262_144, 262_144, 4_608, "random"),
+    (((5, 5),), 26, 262_145, 262_145, 4_608, "random")]
 
 
-@pytest.mark.parametrize("sectors,n_qubits,u,n_valid,n_cols", QUAD_SHAPES)
+@pytest.mark.parametrize("sectors,n_qubits,u,n_valid,n_cols,keys", QUAD_CASES)
 @pytest.mark.parametrize("lookup", ["rank", "sort"])
-def test_quadratic_energy_kernel_matches_plain(lookup, sectors, n_qubits, u, n_valid, n_cols):
+def test_quadratic_energy_kernel_matches_plain(lookup, sectors, n_qubits, u, n_valid, n_cols,
+                                               keys):
     """The one-launch quadratic form (n_valid a device tensor) per row within
     the stated tolerance of its plain version, rows at or past n_valid (0, 0),
     the quotient within 1e-6 relative, twice bitwise."""
     dev = _card()
-    spec, _, args = _rank_energy_inputs(sectors, n_qubits, u, n_valid, None, n_cols, dev)
+    spec, _, args = _rank_energy_inputs(sectors, n_qubits, u, n_valid, None, n_cols, dev,
+                                        keys=keys)
     states, la, ph, nv = args[:4]
     terms = args[7:]
     live = torch.arange(u, device=dev) < nv
@@ -1492,7 +1556,8 @@ def test_one_launch_kernels_keep_offdiag_h_terms_bits(kernel):
                   torch.zeros_like(dt.diag_coeff))
     if kernel == "rank_local_energy":
         table = build_value_table(dt.rank_spec, states, zeros, zeros, nv)
-        out = rank_local_energy(dt.rank_spec, table, states, zeros, zeros, *terms_args)
+        out = rank_local_energy(dt.rank_spec, table, states, nv, states, zeros, zeros,
+                                *terms_args)
     elif kernel == "sorted_local_energy":
         out = sorted_local_energy(states, zeros, zeros, nv, states, zeros, zeros, *terms_args)
     elif kernel == "rank_quadratic_energy":
@@ -1549,7 +1614,7 @@ def test_one_launch_kernels_reject_bad_inputs():
     dev = _card()
     spec, table, args = _rank_energy_inputs(((3, 2),), 10, 100, 60, 8, 16, dev)
     (states, la, ph, nv, q, q_la, q_ph, *terms) = args
-    good = (spec, table, q, q_la, q_ph, *terms)
+    good = (spec, table, states, nv, q, q_la, q_ph, *terms)
 
     def bad(i, value, call=good, fn=rank_local_energy):
         return lambda: fn(*call[:i], value, *call[i + 1:])
@@ -1557,8 +1622,9 @@ def test_one_launch_kernels_reject_bad_inputs():
     quad = (spec, table, nv, states, la, ph, *terms)
     sq = (states, la, ph, nv, *terms)
     for call in (bad(1, table[:-1]), bad(1, table.double()), bad(1, table.cpu()),
-                 bad(2, q.cpu()), bad(3, q_la.double()), bad(6, terms[1].long()),
-                 bad(11, terms[6].float()),
+                 bad(4, q.cpu()), bad(5, q_la.double()), bad(8, terms[1].long()),
+                 bad(13, terms[6].float()), bad(2, states.cpu()), bad(3, 60),
+                 bad(3, nv.int()),
                  bad(2, nv.int(), quad, rank_quadratic_energy),
                  bad(2, 60, quad, rank_quadratic_energy),
                  bad(4, la[:-1], quad, rank_quadratic_energy),

@@ -148,7 +148,8 @@ def test_rank_local_energy_ref_is_the_chunk_composition(name, m, cap):
     spec = dt_t.rank_spec
     table = build_value_table(spec, states, la_t, ph_t, m)
     terms = (dt_t.xy_unique, dt_t.xy_ptr, dt_t.term_yz, dt_t.yz_unique, dt_t.term_coeff)
-    e_re, e_im = dg.rank_local_energy_ref(spec, table, states, la_t, ph_t, *terms,
+    nv = torch.tensor(m)
+    e_re, e_im = dg.rank_local_energy_ref(spec, table, states, nv, states, la_t, ph_t, *terms,
                                           dt_t.diag_yz, dt_t.diag_coeff, chunk_rows=32)
     for i in range(0, m, 32):
         rows = slice(i, min(i + 32, m))
@@ -164,8 +165,8 @@ def test_rank_local_energy_ref_is_the_chunk_composition(name, m, cap):
                                            *terms[1:], dt_t.diag_coeff, h_exact=True)
     assert tol.shape == (cap,) and bool((tol >= exact).all()) and bool((tol > exact).any())
     before = dg.rank_local_energy.launches
-    got = dg.rank_local_energy(spec, table, states, la_t, ph_t, *terms, dt_t.diag_yz,
-                               dt_t.diag_coeff, chunk_rows=32)
+    got = dg.rank_local_energy(spec, table, states, nv, states, la_t, ph_t, *terms,
+                               dt_t.diag_yz, dt_t.diag_coeff, chunk_rows=32)
     assert dg.rank_local_energy.launches == before   # CPU tensors: the plain version
     assert torch.equal(got[0], e_re) and torch.equal(got[1], e_im)
 

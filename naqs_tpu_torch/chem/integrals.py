@@ -9,15 +9,17 @@ the (n, n, n, n) ERI tensor as float64 tensors on the device, the ERIs from
 `eri_tensor`:
 
 * on a CUDA tensor it launches the hand-written kernel of `csrc/eri.cu`
-  (built by nvcc at first use), one warp per unique quartet, one launch per
-  angular class of quartets, or raises: there is no fallback;
+  (built by nvcc at first use), one launch a call over the basis'
+  primitive-pair table and work list (`PackedBasis`), or raises: there is no
+  fallback;
 * on a CPU tensor it runs the plain version, `eri_tensor_ref`: the JAX
   package's loops (`eri`, `_prim_eri`, `_e_coeffs`, `_hermite_coulomb`,
   `boys`) on the host, entry for entry the JAX package's ERIs.
 
-`boys_ref` is the plain torch twin of the kernel's Boys routine (series and
-downward recursion below BOYS_SERIES_MAX, F_0 from erf and upward recursion
-at and above it); `boys_tensor` runs the kernel's own routine on a CUDA
+`boys_ref` is the plain torch twin of the kernel's Boys routine (series,
+stopped at its first term below 2^-53 of the sum so far, and downward
+recursion below BOYS_SERIES_MAX, F_0 from erf and upward recursion at and
+above it); `boys_tensor` runs the kernel's own routine on a CUDA
 tensor. `eri_tensor.launches` and `boys_tensor.launches` count kernel
 launches.
 
@@ -310,10 +312,11 @@ def eri(g1, g2, g3, g4) -> float:
     return s
 
 
-# --- the ERI tensor: packed basis, quartet list, plain version, kernel
+# --- the ERI tensor: packed basis, pair table, work list, plain version, kernel
 
 BOYS_SERIES_MAX = 12.0  # x below: F_L by its series, then downward; at and above: erf, upward
-BOYS_SERIES_TERMS = 56  # the series' terms: the last is below 2^-60 of the sum at x = 12, L = 0
+BOYS_SERIES_TERMS = 56  # the series' most terms: the 56th is below 2^-60 of the sum at x = 12
+BOYS_SERIES_STOP = 2.0 ** -53  # the series stops before its first term below this of the sum so far
 ERI_MAX_L = 8           # a quartet's total angular momentum (d functions, l <= 2 each)
 _INV_ODD_LEN = 64       # 1/(2m+1), m < 64: the kernel's kInvOdd table
 _HALF_SQRT_PI = 0.5 * math.sqrt(math.pi)
@@ -322,6 +325,33 @@ BOYS_RTOL = 1e-14       # kernel's Boys routine against boys_ref, relative: a fe
                         # 1.14x by the upward recursion
 ERI_ATOL = 1e-11        # Ha, kernel against eri_tensor_ref per entry: another order of
                         # the same f64 sums and the Boys routine above
+ERI_ROW = 16            # doubles a primitive-pair row: p, P, the pair's Hermite weights (<= 12)
+ERI_WARP = 32           # lanes a warp: the kernel keeps two partial sums a warp
+ERI_CHUNK_SCALE = 1 << 17  # a chunk is sqrt(primitive quartets / this), at least 1: on the
+                           # H100 the best of 1-4 for H2O, N2 and C2H4 6-31G and H2 cc-pVTZ
+_SHAPE_BITS = 3         # bits of one exponent sum in a quartet's shape code (eri.cu kShapeBits)
+# the shapes (t, u, v) of a bra or ket of exponent sum at most 2, in the order
+# of eri.cu's ERI_PAIR_SHAPES: an s/p quartet's descriptor names its bra's and
+# ket's by their place here
+ERI_PAIR_SHAPES = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (2, 0, 0), (0, 2, 0), (0, 0, 2),
+                   (1, 1, 0), (1, 0, 1), (0, 1, 1))
+_NK_MAX = 255           # ket primitive pairs a quartet descriptor holds (its low 8 bits)
+
+# C2H4 at its experimental structure (NIST CCCBDB: C=C 1.339, C-H 1.086 Angstrom, HCC 121.2
+# degrees), in the xy plane, the C=C bond on x
+_CC, _CH, _HCC = 1.339, 1.086, math.radians(121.2)
+_C2H4 = (["C", "C", "H", "H", "H", "H"],
+         [[-_CC / 2, 0.0, 0.0], [_CC / 2, 0.0, 0.0]]
+         + [[sx * (_CC / 2 - _CH * math.cos(_HCC)), sy * _CH * math.sin(_HCC), 0.0]
+            for sx in (-1, 1) for sy in (-1, 1)])
+# the molecules the ERI kernel is held and timed on (chip_smoke.py phase 17a,
+# tools/eri_timing.py): (label, symbols, positions (Angstrom), basis, held
+# against eri_tensor_ref); H2O at the committed molecule's geometry
+ERI_SHAPES = (("H2O 6-31G", ["O", "H", "H"], [[0.0, 0.0, 0.0], [0.2774, 0.8929, 0.2544],
+                                               [0.6068, -0.2383, -0.7169]], "6-31g", True),
+              ("N2 6-31G", ["N", "N"], [[0.0, 0.0, 0.0], [0.0, 0.0, 1.0977]], "6-31g", False),
+              ("H2 cc-pVTZ", ["H", "H"], [[0.0, 0.0, 0.0], [0.0, 0.0, 0.7414]], "cc-pvtz", True),
+              ("C2H4 6-31G", *_C2H4, "6-31g", False))
 
 _INT = ctypes.c_int
 _PTR = ctypes.c_void_p
@@ -330,8 +360,9 @@ _PTR = ctypes.c_void_p
 def boys_ref(n_max: int, x: torch.Tensor) -> torch.Tensor:
     """F_0..F_n_max, shape (n_max+1,) + x.shape, float64: the plain torch twin
     of `csrc/eri.cu`'s Boys routine, step for step. Below BOYS_SERIES_MAX,
-    F_n_max = e^-x sum_k (2x)^k / ((2 n_max + 1) ... (2 n_max + 2k + 1)) over
-    BOYS_SERIES_TERMS positive terms, then F_n = (2x F_{n+1} + e^-x) / (2n+1)
+    F_n_max = e^-x sum_k (2x)^k / ((2 n_max + 1) ... (2 n_max + 2k + 1)), the
+    positive terms added until the first below BOYS_SERIES_STOP of the sum so
+    far (at most BOYS_SERIES_TERMS), then F_n = (2x F_{n+1} + e^-x) / (2n+1)
     downward; at and above it, F_0 = sqrt(pi)/2 erf(sqrt x) / sqrt x, then
     F_{n+1} = ((2n+1) F_n - e^-x) / 2x upward."""
     if not 0 <= n_max <= ERI_MAX_L:
@@ -342,9 +373,11 @@ def boys_ref(n_max: int, x: torch.Tensor) -> torch.Tensor:
     ex = torch.exp(-x)
     term = inv_odd[n_max].expand_as(x)
     total = term
+    live = torch.ones_like(x, dtype=torch.bool)
     for k in range(1, BOYS_SERIES_TERMS):
         term = term * (two_x * inv_odd[n_max + k])
-        total = total + term
+        live = live & ~(term < BOYS_SERIES_STOP * total)
+        total = torch.where(live, total + term, total)
     low = [None] * (n_max + 1)
     low[n_max] = ex * total
     for n in range(n_max - 1, -1, -1):
@@ -374,6 +407,135 @@ def quartet_images(q) -> list:
             (k, l, i, j), (l, k, i, j), (k, l, j, i), (l, k, j, i)]
 
 
+def _e_row(la: int, lb: int, a, b, ab: float) -> np.ndarray:
+    """E^{la lb}_t, t <= la + lb, of one direction for arrays of exponents a
+    and b: `_e_coeffs`' recurrences term for term (up in i at j = 0, then up in
+    j at i = la); shape (la + lb + 1,) + the shape of a + b."""
+    p = a + b
+    mu = a * b / p
+    cur = [np.exp(-mu * ab * ab)]
+    for s in range(1, la + lb + 1):
+        x = -(b / p) * ab if s <= la else (a / p) * ab
+        prev = cur + [0.0]
+        cur = []
+        for t in range(s + 1):
+            v = 0.0
+            if t >= 1:
+                v = v + prev[t - 1] / (2 * p)
+            v = v + x * prev[t]
+            if t + 1 <= s - 1:
+                v = v + (t + 1) * prev[t + 1]
+            cur.append(v)
+    return np.stack(np.broadcast_arrays(*cur))
+
+
+def pair_id(i, j):
+    """The number of function pair (i, j <= i) in the pair table."""
+    return i * (i + 1) // 2 + j
+
+
+def pair_table(centers: np.ndarray, lmn: np.ndarray, prim_ptr: np.ndarray,
+               alphas: np.ndarray, cn: np.ndarray):
+    """The ERI kernel's primitive-pair table: (rows (R, ERI_ROW) float64,
+    row0 (n (n+1)/2,) int64). Function pair (i, j <= i), number pair_id(i, j),
+    holds rows row0[pair] .. row0[pair] + np_i np_j - 1, primitive pair (a, b)
+    at a np_j + b: p = a + b, the centre P = (a A + b B) / p, then the Hermite
+    weights c_a c_b / p E^x_t E^y_u E^z_v over t <= lx_i + lx_j,
+    u <= ly_i + ly_j, v <= lz_i + lz_j (t outer, v inner; zeros after), each
+    direction's E from `_e_row`, whose E_0 holds exp(-ab/p (A - B)^2) of that
+    direction."""
+    n = len(lmn)
+    row0 = np.zeros(n * (n + 1) // 2, dtype=np.int64)
+    blocks, at = [], 0
+    for i in range(n):
+        a = alphas[prim_ptr[i]:prim_ptr[i + 1], None]
+        ca = cn[prim_ptr[i]:prim_ptr[i + 1], None]
+        for j in range(i + 1):
+            b = alphas[None, prim_ptr[j]:prim_ptr[j + 1]]
+            cb = cn[None, prim_ptr[j]:prim_ptr[j + 1]]
+            p = a + b
+            ex, ey, ez = (_e_row(int(lmn[i, d]), int(lmn[j, d]), a, b,
+                                 centers[i, d] - centers[j, d]) for d in range(3))
+            w = (ca * cb / p) * ex[:, None, None] * ey[None, :, None] * ez[None, None, :]
+            nb = w.shape[0] * w.shape[1] * w.shape[2]
+            block = np.zeros(p.shape + (ERI_ROW,))
+            block[..., 0] = p
+            block[..., 1:4] = (a[..., None] * centers[i] + b[..., None] * centers[j]) / p[..., None]
+            block[..., 4:4 + nb] = np.moveaxis(w.reshape((nb,) + p.shape), 0, -1)
+            row0[pair_id(i, j)] = at
+            at += p.size
+            blocks.append(block.reshape(-1, ERI_ROW))
+    rows = np.concatenate(blocks) if blocks else np.zeros((0, ERI_ROW))
+    return rows, row0
+
+
+def pair_shape(t, u, v):
+    """The place of the exponent sums (t, u, v) of a bra or ket in
+    ERI_PAIR_SHAPES, on arrays; -1 for a sum above 2."""
+    t, u, v = (np.asarray(a, dtype=np.int64) for a in (t, u, v))
+    lut = np.full(27, -1)
+    for i, (a, b, c) in enumerate(ERI_PAIR_SHAPES):
+        lut[9 * a + 3 * b + c] = i
+    return np.where(t + u + v <= 2, lut[np.minimum(9 * t + 3 * u + v, 26)], -1)
+
+
+def work_list(quartets: np.ndarray, lmn: np.ndarray, n_prim: np.ndarray, row0: np.ndarray,
+              chunk=None):
+    """The ERI kernel's quartet descriptors and work items for the (Q, 4)
+    unique quartets: (qdesc (Q, 4) int32: bra row, ket row, primitive
+    quartets, ket primitive pairs | shape << 8; qitems (Q, 2) int32:
+    first item, items; items (n_items, 2) int32: quartet, first primitive
+    quartet; chunk; the largest exponent sum of a bra or ket; the largest R
+    box). Quartet (i, j, k, l)
+    has bra (i, j) and ket (k, l), but where both have exponent sums of at
+    most 2 and the bra's pair_shape exceeds the ket's, bra (k, l) and ket
+    (i, j) ((ij|kl) = (kl|ij); the kernel unrolls each pair of shapes in that
+    order only). With bra (i, j), primitive quartets m = ((a np_j + b) np_k
+    + c) np_l + d (JAX's loop order), bra row m // nk and ket row m % nk past
+    its pairs' first rows (nk = np_k np_l). Its shape code packs lx_i + lx_j,
+    ly_i + ly_j, lz_i + lz_j of the bra, then the ket's, _SHAPE_BITS each; the
+    descriptor's shape is that code where some bra or ket has an exponent sum
+    above 2, else the bra's and ket's pair_shape, bs | ks << 4 (the kernel's
+    unrolled path reads only those). An item is `chunk`
+    consecutive m (the quartet's last fewer; by default the integer part of
+    sqrt(primitive quartets / ERI_CHUNK_SCALE), at least 1: more items than
+    the card holds at once, few serial primitive quartets an item); a
+    quartet's items are consecutive, the quartets
+    visited by class, largest first, then by shape code, then in their order."""
+    q = quartets.astype(np.int64)
+    n_q = q.shape[0]
+    sums = np.concatenate([lmn[q[:, 0]] + lmn[q[:, 1]], lmn[q[:, 2]] + lmn[q[:, 3]]], axis=1)
+    bs, ks = pair_shape(*sums[:, :3].T), pair_shape(*sums[:, 3:].T)
+    swap = (bs >= 0) & (ks >= 0) & (bs > ks)
+    q = np.where(swap[:, None], q[:, [2, 3, 0, 1]], q)
+    sums = np.where(swap[:, None], sums[:, [3, 4, 5, 0, 1, 2]], sums)
+    nk = n_prim[q[:, 2]] * n_prim[q[:, 3]]
+    nq_prim = n_prim[q[:, 0]] * n_prim[q[:, 1]] * nk
+    code = (sums.astype(np.int64) << (_SHAPE_BITS * np.arange(6))).sum(axis=1)
+    cls = sums.sum(axis=1)
+    pair_l = max(sums[:, :3].sum(axis=1).max(initial=0), sums[:, 3:].sum(axis=1).max(initial=0))
+    boxes = (sums[:, :3] + sums[:, 3:] + 1).prod(axis=1)
+    if n_q and (nk.max() > _NK_MAX or nq_prim.max() >= 1 << 31):
+        raise ValueError(f"eri work list: at most {_NK_MAX} primitive pairs a ket and 2^31 "
+                         "primitive quartets a quartet")
+    if chunk is None:
+        chunk = max(1, math.isqrt(int(nq_prim.sum()) // ERI_CHUNK_SCALE))
+    counts = -(-nq_prim // chunk)
+    order = np.lexsort((np.arange(n_q), code, -cls))
+    first = np.zeros(n_q, dtype=np.int64)
+    first[order] = np.cumsum(counts[order]) - counts[order]
+    item_q = np.repeat(order, counts[order])
+    item_m0 = (np.arange(item_q.size) - first[item_q]) * chunk
+    if item_q.size >= 1 << 31:
+        raise ValueError("eri work list: more than 2^31 work items")
+    shape = code if pair_l > 2 else np.minimum(bs, ks) | np.maximum(bs, ks) << 4
+    qdesc = np.stack([row0[pair_id(q[:, 0], q[:, 1])], row0[pair_id(q[:, 2], q[:, 3])],
+                      nq_prim, nk | (shape << 8)], axis=1)
+    return (qdesc.astype(np.int32), np.stack([first, counts], axis=1).astype(np.int32),
+            np.stack([item_q, item_m0], axis=1).astype(np.int32), int(chunk), int(pair_l),
+            int(boxes.max(initial=1)))
+
+
 @dataclass(frozen=True)
 class PackedBasis:
     """A contracted basis and its unique quartets as flat tensors on one device:
@@ -381,7 +543,13 @@ class PackedBasis:
     prim_ptr[i+1]-1; `cn` holds `ContractedGaussian.cn` (normalised contraction
     coefficients). The quartets are sorted by angular class L (the sum of the
     four functions' exponents), the most primitive quartets first within a
-    class; class L's are rows class_ptr[L] .. class_ptr[L+1]-1."""
+    class; class L's are rows class_ptr[L] .. class_ptr[L+1]-1. `pairs` is
+    the primitive-pair table (`pair_table`) stored by column, (ERI_ROW, R),
+    so that lanes reading neighbouring rows read neighbouring words; `qdesc`,
+    `qitems`, `items`, `chunk`, `pair_l` and `box` the work list
+    (`work_list`): a basis whose bras and kets all have exponent sums of at
+    most 2 (every s/p basis, `pair_l` <= 2) takes the kernel's shape-unrolled
+    path, any other its loops over R in shared memory."""
 
     centers: torch.Tensor    # (n, 3) float64, bohr
     lmn: torch.Tensor        # (n, 3) int32
@@ -390,6 +558,13 @@ class PackedBasis:
     cn: torch.Tensor         # (P,) float64
     quartets: torch.Tensor   # (Q, 4) int32
     class_ptr: Tuple[int, ...]  # (ERI_MAX_L + 2,) host ints
+    pairs: torch.Tensor      # (ERI_ROW, R) float64: pair_table's rows as columns
+    qdesc: torch.Tensor      # (Q, 4) int32
+    qitems: torch.Tensor     # (Q, 2) int32
+    items: torch.Tensor      # (n_items, 2) int32
+    chunk: int               # primitive quartets a work item
+    pair_l: int              # the largest exponent sum of a quartet's bra or ket
+    box: int                 # the largest R box (tm + 1)(um + 1)(vm + 1) of a quartet
 
     @property
     def n(self) -> int:
@@ -397,13 +572,13 @@ class PackedBasis:
 
     @property
     def classes(self) -> List[Tuple[int, int, int]]:
-        """(L, q0, q1) of each angular class that has quartets: one kernel
-        launch each."""
+        """(L, q0, q1) of each angular class that has quartets."""
         return [(c, self.class_ptr[c], self.class_ptr[c + 1]) for c in range(ERI_MAX_L + 1)
                 if self.class_ptr[c + 1] > self.class_ptr[c]]
 
     @staticmethod
     def from_basis(basis: List[ContractedGaussian], device) -> "PackedBasis":
+        """The packed basis on `device`."""
         dev = torch.device(device)
         n = len(basis)
         lmn = np.asarray([g.lmn for g in basis], dtype=np.int32).reshape(n, 3)
@@ -419,17 +594,22 @@ class PackedBasis:
         order = np.lexsort((-work, cls))
         quartets = np.ascontiguousarray(quartets[order])
         class_ptr = np.searchsorted(cls[order], np.arange(ERI_MAX_L + 2))
+        centers = np.asarray([g.center for g in basis], dtype=np.float64).reshape(n, 3)
+        alphas = np.concatenate([g.alphas for g in basis]) if n else np.zeros(0)
+        cn = np.concatenate([g.cn for g in basis]) if n else np.zeros(0)
+        pairs, row0 = pair_table(centers, lmn, prim_ptr, alphas, cn)
+        qdesc, qitems, items, chunk, pair_l, box = work_list(quartets, lmn, n_prim, row0)
 
         def put(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
 
         return PackedBasis(
-            centers=put(np.asarray([g.center for g in basis]).reshape(n, 3), torch.float64),
-            lmn=put(lmn, torch.int32), prim_ptr=put(prim_ptr, torch.int32),
-            alphas=put(np.concatenate([g.alphas for g in basis]), torch.float64),
-            cn=put(np.concatenate([g.cn for g in basis]), torch.float64),
-            quartets=put(quartets, torch.int32),
-            class_ptr=tuple(int(c) for c in class_ptr))
+            centers=put(centers, torch.float64), lmn=put(lmn, torch.int32),
+            prim_ptr=put(prim_ptr, torch.int32), alphas=put(alphas, torch.float64),
+            cn=put(cn, torch.float64), quartets=put(quartets, torch.int32),
+            class_ptr=tuple(int(c) for c in class_ptr), pairs=put(pairs.T, torch.float64),
+            qdesc=put(qdesc, torch.int32), qitems=put(qitems, torch.int32),
+            items=put(items, torch.int32), chunk=chunk, pair_l=pair_l, box=box)
 
 
 class _Function(NamedTuple):
@@ -462,8 +642,8 @@ def eri_tensor_ref(pb: PackedBasis) -> torch.Tensor:
 @lru_cache(maxsize=1)
 def _lib():
     lib = _build.load("eri")
-    lib.eri_class.argtypes = [_PTR] * 6 + [_INT] * 4 + [_PTR, _PTR]
-    lib.eri_class.restype = _INT
+    lib.eri_launch.argtypes = [_PTR, _INT] + [_PTR] * 4 + [_INT] * 5 + [_PTR] * 4
+    lib.eri_launch.restype = _INT
     lib.eri_boys.argtypes = [_PTR, _INT, _INT, _PTR, _PTR]
     lib.eri_boys.restype = _INT
     return lib
@@ -475,30 +655,40 @@ def _check_packed(name, pb: PackedBasis):
     _build.check_tensors(name, pb.centers, {
         "centers": (pb.centers, f64, (n, 3)), "lmn": (pb.lmn, i32, (n, 3)),
         "prim_ptr": (pb.prim_ptr, i32, (n + 1,)), "alphas": (pb.alphas, f64, (n_p,)),
-        "cn": (pb.cn, f64, (n_p,)), "quartets": (pb.quartets, i32, (n_q, 4))})
+        "cn": (pb.cn, f64, (n_p,)), "quartets": (pb.quartets, i32, (n_q, 4)),
+        "pairs": (pb.pairs, f64, (ERI_ROW, pb.pairs.shape[-1])),
+        "qdesc": (pb.qdesc, i32, (n_q, 4)), "qitems": (pb.qitems, i32, (n_q, 2)),
+        "items": (pb.items, i32, (pb.items.shape[0], 2))}, align=16)
     if len(pb.class_ptr) != ERI_MAX_L + 2 or pb.class_ptr[0] != 0 \
             or pb.class_ptr[-1] != n_q or list(pb.class_ptr) != sorted(pb.class_ptr):
         raise ValueError(f"{name}: class_ptr must rise from 0 to the {n_q} quartets in "
                          f"{ERI_MAX_L + 2} entries, got {pb.class_ptr}")
+    if not (pb.chunk >= 1 and 0 <= pb.pair_l <= ERI_MAX_L // 2 and 1 <= pb.box <= 64):
+        raise ValueError(f"{name}: chunk {pb.chunk}, pair_l {pb.pair_l} or box {pb.box} out of "
+                         f"range")
+
+
+_arrivals: dict = {}   # the kernel's arrival counters, one a quartet, by device and stream
 
 
 def eri_tensor(pb: PackedBasis) -> torch.Tensor:
     """(n, n, n, n) float64 ERIs (ij|kl), chemist order, over pb's contracted
     Cartesian functions, on pb's device: the kernel on a CUDA tensor (one
-    launch per angular class that has quartets), `eri_tensor_ref` on a CPU
-    tensor."""
+    launch), `eri_tensor_ref` on a CPU tensor."""
     _check_packed("eri_tensor", pb)
     if pb.centers.device.type == "cpu":
         return eri_tensor_ref(pb)
-    n = pb.n
-    out = torch.empty((n, n, n, n), dtype=torch.float64, device=pb.centers.device)
-    lib = _lib()
-    ptrs = [t.data_ptr() for t in (pb.centers, pb.lmn, pb.prim_ptr, pb.alphas, pb.cn,
-                                   pb.quartets)]
-    for cls, q0, q1 in pb.classes:
-        _build.launch_flat(lib, "eri_class", [*ptrs, n, q0, q1, cls, out.data_ptr()],
-                           pb.centers.device)
-        eri_tensor.launches += 1
+    n, dev = pb.n, pb.centers.device
+    out = torch.empty((n, n, n, n), dtype=torch.float64, device=dev)
+    n_items = pb.items.shape[0]
+    partial = torch.empty(2 * -(-n_items // ERI_WARP), dtype=torch.float64, device=dev)
+    arrivals = _build.zeroed_counters(_arrivals, dev, pb.quartets.shape[0])
+    flat = [t.data_ptr() for t in (pb.qdesc, pb.qitems, pb.quartets, pb.items)]
+    _build.launch_flat(_lib(), "eri_launch",
+                       [pb.pairs.data_ptr(), pb.pairs.shape[1], *flat, n_items, pb.chunk, n,
+                        int(pb.pair_l > 2), pb.box, partial.data_ptr(),
+                        arrivals.data_ptr(), out.data_ptr()], dev)
+    eri_tensor.launches += 1
     return out
 
 
@@ -507,7 +697,7 @@ eri_tensor.launches = 0
 
 def boys_tensor(n_max: int, x: torch.Tensor) -> torch.Tensor:
     """F_0..F_n_max (n_max+1, N) float64 at the (N,) float64 points x: the
-    kernels' own Boys routine on a CUDA tensor, `boys_ref` on a CPU tensor."""
+    kernel's own Boys routine on a CUDA tensor, `boys_ref` on a CPU tensor."""
     if not 0 <= n_max <= ERI_MAX_L:
         raise ValueError(f"boys_tensor: n_max must lie in [0, {ERI_MAX_L}], got {n_max}")
     _build.check_tensors("boys_tensor", x, {"x": (x, (torch.float64,), (x.shape[0],))})

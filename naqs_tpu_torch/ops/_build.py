@@ -8,7 +8,8 @@ seconds. A library is rebuilt when its source, or a header of `csrc/`
 (`*.cuh`, which a source may include), is newer. `build_all` starts
 one nvcc per source at once. Every library exports
 `<name>_error_string(int)`, bound as `lib.error_string`; `check_tensors`,
-`launch` and `launch_flat` are what the kernels' wrappers share.
+`launch`, `launch_flat` and `zeroed_counters` are what the kernels' wrappers
+share.
 """
 
 from __future__ import annotations
@@ -131,6 +132,17 @@ def _explain(name, dev, key, t, dtypes, shape, align):
     if dev.type == "cuda" and t.data_ptr() % align:
         raise ValueError(f"{name}: {key} must be {align}-byte aligned")
     raise ValueError(f"{name}: {key} must hold fewer than 2^31 elements")
+
+
+def zeroed_counters(cache: dict, device, n: int) -> torch.Tensor:
+    """At least n int32 counters on the device's current stream, from `cache`
+    (one set per device and stream), zero between launches: made zero once,
+    and again only to grow; a kernel that counts on them sets each counter
+    it used back to 0 before it ends."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    if key not in cache or cache[key].numel() < n:
+        cache[key] = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+    return cache[key]
 
 
 def launch(lib, name, args, device):

@@ -282,11 +282,9 @@ def _arrival_counters(device, sb, sa):
     """The dense kernel's int32 arrival counters for an (Sb, Sa) grid on the
     device's current stream: one per (rb, tile of ra), at most one tile per
     warp. Zero between launches; made zero once, and again only to grow."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    need = sb * -(-sa // 32)
-    if key not in _arrivals or _arrivals[key].numel() < need:
-        _arrivals[key] = torch.zeros(need, dtype=torch.int32, device=device)
-    return _arrivals[key]
+    from naqs_tpu_torch.ops import _build
+
+    return _build.zeroed_counters(_arrivals, device, sb * -(-sa // 32))
 
 
 def _call(name, tensors, ints, device):

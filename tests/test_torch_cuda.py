@@ -62,8 +62,9 @@ frequencies within 4 sqrt(p(1-p)/n) + 5e-5 of |psi|^2.
 
 The chemistry pipeline on the card: the ERI kernel (`eri_tensor`,
 `csrc/eri.cu`) within ERI_ATOL (1e-11) of `eri_tensor_ref` on every entry
-(H2O STO-3G and 6-31G, a basis with d sextets on two centres: angular
-classes up to L = 8), bitwise equal to itself, one launch per class; the
+(H2O STO-3G and 6-31G, a basis with d sextets on two centres and H2
+cc-pVTZ: angular classes up to L = 8; H2O 6-31G also at other chunks of its
+work list), bitwise equal to itself, one launch a call; the
 kernels' Boys routine within BOYS_RTOL of `boys_ref`; LiH STO-3G generated
 on the card against the same on the CPU (every energy within 1e-8 Ha).
 """
@@ -1904,25 +1905,45 @@ def _eri_bases():
          + [ContractedGaussian(a, lmn, [0.9], [1.0]) for lmn in D_CART_ORDER]
          + [ContractedGaussian(b, lmn, [1.7], [1.0]) for lmn in ((1, 0, 0), (0, 1, 0), (0, 0, 1))]
          + [ContractedGaussian(b, lmn, [1.2, 0.4], [0.6, 0.5]) for lmn in D_CART_ORDER])
+    h2 = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 0.7414]]) * ANGSTROM_TO_BOHR
     return {"H2O sto-3g": build_basis(["O", "H", "H"], h2o, "sto-3g"),
-            "H2O 6-31g": build_basis(["O", "H", "H"], h2o, "6-31g"), "d sextets": d}
+            "H2O 6-31g": build_basis(["O", "H", "H"], h2o, "6-31g"), "d sextets": d,
+            "H2 cc-pvtz": build_basis(["H", "H"], h2, "cc-pvtz")}
 
 
-@pytest.mark.parametrize("name", ["H2O sto-3g", "H2O 6-31g", "d sextets"])
-def test_eri_kernel_matches_plain(name):
+_ERI_PLAIN = {}
+
+
+def _eri_plain(name):
+    """eri_tensor_ref of one of _eri_bases(), once a process (H2O 6-31G and H2
+    cc-pVTZ take 10-20 s on the host)."""
+    from naqs_tpu_torch.chem.integrals import PackedBasis, eri_tensor_ref
+
+    if name not in _ERI_PLAIN:
+        _ERI_PLAIN[name] = eri_tensor_ref(PackedBasis.from_basis(_eri_bases()[name], "cpu"))
+    return _ERI_PLAIN[name]
+
+
+@pytest.mark.parametrize("name,chunk", [("H2O sto-3g", None), ("H2O 6-31g", None),
+                                        ("H2O 6-31g", 1), ("H2O 6-31g", 7), ("d sextets", None),
+                                        ("H2 cc-pvtz", None)])
+def test_eri_kernel_matches_plain(name, chunk):
     """The ERI kernel within ERI_ATOL of eri_tensor_ref on every entry,
-    bitwise equal to itself run twice, one launch per angular class."""
-    from naqs_tpu_torch.chem.integrals import ERI_ATOL, PackedBasis, eri_tensor, eri_tensor_ref
+    bitwise equal to itself run twice, one launch a call."""
+    from naqs_tpu_torch.chem.integrals import ERI_ATOL, PackedBasis, eri_tensor
+    from naqs_tpu_torch.tools.eri_timing import with_chunk
 
     dev = _card()
     basis = _eri_bases()[name]
     pb = PackedBasis.from_basis(basis, dev)
+    if chunk is not None:
+        pb = with_chunk(pb, chunk)
     before = eri_tensor.launches
     got = eri_tensor(pb)
     again = eri_tensor(pb)
     torch.cuda.synchronize()
-    assert eri_tensor.launches - before == 2 * len(pb.classes)
-    want = eri_tensor_ref(PackedBasis.from_basis(basis, "cpu"))
+    assert eri_tensor.launches - before == 2
+    want = _eri_plain(name)
     assert got.dtype == torch.float64 and got.shape == (pb.n,) * 4
     assert float((got.cpu() - want).abs().max()) <= ERI_ATOL
     assert torch.equal(got, again)

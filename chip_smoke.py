@@ -17,8 +17,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      staircase accumulations), csrc/sampler_step.cu, csrc/sort_lookup.cu (the
      sort engine's lookups, its one-launch E_loc and quadratic form; the
      one-launch kernels' shared body is csrc/row_energy.cuh) and
-     csrc/offdiag_h.cu (the per-term H row) and csrc/eri.cu (the
-     two-electron integrals, one kernel per angular class);
+     csrc/offdiag_h.cu (the per-term H row), csrc/eri.cu (the
+     two-electron integrals) and csrc/nade_glue.cu (the model's fused glue:
+     the sampler's shell head and tail, log_psi's features and its tables'
+     epilogue in three modes);
   2. print the card's name and power limit (nvidia-smi);
   3. set up H2O 6-31G (26 qubits, sector (5, 5), 1,656,369 states) and the
      paper-scale model (amp 64, phase 512x512, global phase net, partial
@@ -75,7 +77,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      vmc_update) and no other grid kernel ran, split_and_compact ran
      n_shells = 13 times per sample() call and the standalone
      multinomial4_split and compact_children never, no rank kernel ran, and
-     every energy is finite;
+     every energy is finite; and unless shell_features and shell_epilogue
+     ran once a shell of every sample() call, state_features,
+     tables_epilogue and tables_epilogue_vjp once a vmc_update call and
+     tables_epilogue_jvp never;
   7. the earlier main path: 2 more steps of the same trainer on the rank
      engine (dense=None, its dense A kept), counts set to 0 just before;
      fails unless rank_local_energy ran once per E_loc call (the chunk loop
@@ -420,10 +425,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      CHEM_E_TOL of the committed .npz) and CHEM_STEPS VMCTrainer steps run
      on it at the paper width (DenseTerms: dense_grid_accumulate and
      split_and_compact launched).
+ 18. the model's fused glue (naqs_tpu_torch/ops/nade_glue.py, csrc/nade_glue.cu)
+     at H2O 6-31G's full width (phase 3's model, capacity 100,000): one
+     sample() call's 13 shells through the same calls, shell_features and
+     shell_epilogue launched once a shell and held on every shell's frontier
+     against their plain versions (the features and the mask bitwise,
+     log_amp4 and probs4 within nade_glue.GLUE_TOL, the same zeros), each
+     bitwise on a repeat; on a sampled batch at capacity (SENTINEL rows past
+     n_unique) state_features bitwise and tables_epilogue's forward, vjp and
+     jvp within GLUE_TOL of their plain versions, bitwise on a repeat and
+     finite; one SR update (GLUE_SR_CG CG iterations) whose every torch.func
+     jvp launches tables_epilogue_jvp and every vjp_fn call
+     tables_epilogue_vjp; each kernel held in turns with its plain version
+     and the nearest one PyTorch call (torch.log_softmax, its backward; none
+     where none exists) with a bound from the bytes it moves. With --before
+     DIR, DIR's VMCTrainer and this tree's on the same weights in turns
+     (GLUE_TURNS rounds): one sample() call's wall time and its device
+     kernels and copies, one factored step's wall time, device time and
+     busy share.
 With --profile, the profiled step of each engine (H2O 6-31G factored and
 rank, Li2O staircase, N2 6-31G sort, frozen-core N2 6-31G rank with no
 dense A) must show one device kernel per wrapper call of the
-sampler's kernels and of the engine's own; it prints the step's device time
+sampler's kernels, of the model's glue and of the engine's own; it prints the step's device time
 and the card's busy share of the step before it.
 Prints a {"kernels": [...]} JSON line (launches from phase 6 for
 factored_cells_accumulate, split_and_compact, multinomial4_split and
@@ -470,7 +493,11 @@ phase 14 and run C drive at new shapes
 "exact_queries_*", and on the whole basis, "full_basis_*";
 rank_local_energy, sorted_local_energy, xl_grid_accumulate and
 dense_grid_accumulate, "exact_*") the held time, the plain version's, the
-error and a bound recounted for that shape's data; and last {"ok": true,
+error and a bound recounted for that shape's data; then phase 18's six
+entries of the model's glue (launches from phase 6, "launches_sample_call"
+and "launches_sr_update" from phase 18, registers by instantiation, and
+with --before the sample() and step numbers of both trees under
+tables_epilogue's "before"); and last {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -506,6 +533,7 @@ FILTER_OPS = 12               # per probe of the row kernels' filter: the multip
 FROZEN_STEPS = 3              # training steps of frozen-core N2 6-31G (rank engine, no dense A)
 REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
 SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and more
+PROFILE_WARMUP = 200          # spin kernels of the dropped warm-up cycle of a trace (_traced)
 CLIP_FACTOR = 1.0             # phase 12: clip to the trailing mean (bites on a rising norm)
 EXTRAS_STEPS = 11             # phase 12: clipped steps (the counter records steps 1, 6, 11)
 HF_EPOCHS, WS_EPOCHS = 5, 20  # phase 12: pre_train_hf and warm-start epochs
@@ -1025,22 +1053,53 @@ def _quad_loop(le, dt_q, gather, h_fn, states, la_q, ph_q, nv, c):
     return num / den
 
 
-def _profiled_call(fn):
-    """fn() under torch.profiler: (its result, its wall time in s, the device
-    time of its kernels and copies in ms)."""
+def _traced(fn):
+    """fn() under torch.profiler after a warm-up cycle that is traced and
+    dropped (PROFILE_WARMUP spin kernels): a trace started right before the
+    work drops device events near its start (a step's first shells lost
+    their kernels). Returns (fn's result, its wall time in s, the key
+    averages of its own cycle)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    t = time.time()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    got = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
+        for _ in range(PROFILE_WARMUP):
+            torch.cuda._sleep(10_000)
+        torch.cuda.synchronize()
+        prof.step()
+        t = time.time()
         out = fn()
         torch.cuda.synchronize()
-    wall = time.time() - t
-    device = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-    return out, wall, device / 1e3
+        wall = time.time() - t
+        prof.step()
+    return out, wall, got[-1]
+
+
+def _device_events(events):
+    """The device events (kernels and copies) among a trace's key averages:
+    not the ranges annotated on the device's timeline (the trace's own
+    ProfilerStep, record_function ranges), which span kernels counted
+    already, nor the warm-up's spin kernels, whose records can arrive in the
+    traced cycle."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key
+            and not e.key.startswith("ProfilerStep")
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _profiled_call(fn, launches=False):
+    """fn() under torch.profiler (`_traced`): (its result, its wall time in s,
+    the device time of its kernels and copies in ms), and with `launches`
+    the count of those kernels and copies."""
+    out, wall, events = _traced(fn)
+    dev = _device_events(events)
+    device = sum(e.self_device_time_total for e in dev) / 1e3
+    return (out, wall, device) + ((sum(e.count for e in dev),) if launches else ())
 
 
 def _profiled_step(tr):
@@ -1062,21 +1121,20 @@ def _shell_inputs(model, gen, n_samples, cap):
 
     from naqs_tpu_torch.models.nade import amp_conditional_shell
     from naqs_tpu_torch.ops.multinomial import split_draws
-    from naqs_tpu_torch.sampler import _batch, _prefix_bits, _root, _split_and_compact
+    from naqs_tpu_torch.sampler import _batch, _root, _split_and_compact
 
     dev = next(model.parameters()).device
     a, b, counts, valid, overflow = _root(cap, float(n_samples), dev)
-    shells = torch.arange(model.cfg.n_shells, device=dev)
     kept, n_children = [], 1
     with torch.no_grad():
         for j in range(model.cfg.n_shells):
-            _, mask, probs = amp_conditional_shell(model, j, *_prefix_bits(a, b, shells))
+            _, mask, probs = amp_conditional_shell(model, j, a, b)
             z, u = split_draws(gen, cap, dev)
             args = (a, b, counts, valid, probs, z, u, mask, j, cap, n_children)
             a, b, counts, valid, n_children = _split_and_compact(*args)
             overflow = overflow | (n_children > cap)
             kept.append(args)
-    return _batch(model.cfg, a, b, counts, valid, overflow, shells), kept
+    return _batch(model.cfg, a, b, counts, valid, overflow), kept
 
 
 def _split_of(args):
@@ -1338,6 +1396,11 @@ def _before_modules(before):
         if has("eri.cu"):
             mods["chem"] = importlib.import_module("naqs_tpu_torch.chem.integrals")
             mods["chem"]._lib()
+        if has("nade_glue.cu"):
+            mods["nade_glue"] = importlib.import_module("naqs_tpu_torch.ops.nade_glue")
+            mods["nade_glue"]._lib()
+        mods["nade"] = importlib.import_module("naqs_tpu_torch.models.nade")
+        mods["trainer"] = importlib.import_module("naqs_tpu_torch.trainer")
         if has("sort_lookup.cu"):
             for name in ("sort_lookup", "offdiag_h", "local_energy"):
                 mods[name] = importlib.import_module(f"naqs_tpu_torch.ops.{name}")
@@ -2108,49 +2171,63 @@ def _exact_mode(dev, hil, terms, cfg, tc, li2o, x_touched, zero_counts, wrappers
     torch.cuda.reset_peak_memory_stats()
     full = tr._basis_batch(basis)
 
-    def snapshot():
-        return ({k: v.detach().clone() for k, v in tr.model.state_dict().items()},
-                {i: {k: v.clone() for k, v in s.items()}
-                 for i, s in enumerate(tr.optimizer.state.values())},
-                tr.scheduler.last_epoch)
+    # each of a window's steps against one vmc_update from the window's own state
+    # before it (its parameters and moments, the step counts and schedule
+    # position it has reached): one step from one state differs by the two Adam
+    # implementations' ulps (torch's foreach kernels, the window's own ops).
+    # Over several steps those ulps cross ReLU boundaries among the basis's
+    # 1.6 M rows and the two trajectories part by more than that, and by how
+    # much depends on the state.
+    import copy
 
-    s0 = ({k: v.clone() for k, v in tr.model.state_dict().items()},
-          {"state": {k: {kk: vv.clone() for kk, vv in v.items()}
-                     for k, v in tr.optimizer.state_dict()["state"].items()},
-           "param_groups": tr.optimizer.state_dict()["param_groups"]},
-          tr.scheduler.state_dict())
-    ms_w, applied = counted("14d vmc_update_scan(n_live=3, length=4) over the basis",
-                            lambda: trainer_mod.vmc_update_scan(
-                                tr.model, tr.optimizer, tr.scheduler, dt, full, 3, length=4,
-                                clip=tr.clip),
-                            {"factored_cells_accumulate": 3})
-    after_w = snapshot()
-    tr.model.load_state_dict(s0[0])
-    tr.optimizer.load_state_dict(s0[1])
-    tr.scheduler.load_state_dict(s0[2])
-    seq = counted("14d 3 vmc_update calls over the basis",
-                  lambda: [trainer_mod.vmc_update(tr.model, tr.optimizer, tr.scheduler, dt, full,
-                                                  True, clip=tr.clip) for _ in range(3)],
-                  {"factored_cells_accumulate": 3})
-    after_s = snapshot()
-    worst, bitwise = 0.0, True
-    pairs = [(after_w[0][k], after_s[0][k]) for k in after_w[0]]
-    for i in after_w[1]:
-        pairs += [(after_w[1][i][k], after_s[1][i][k]) for k in ("exp_avg", "exp_avg_sq")]
-    for a, b in pairs:
-        bitwise = bitwise and torch.equal(a, b)
-        worst = max(worst, float(((a - b).abs() - WINDOW_RTOL * b.abs()).max()))
-    steps_w = [float(s["step"]) for s in after_w[1].values()]
-    steps_s = [float(s["step"]) for s in after_s[1].values()]
-    e_seq = [m["e_loc"] for m in seq]
-    print(f"[exact] 14d: vmc_update_scan(n_live=3, length=4) against 3 vmc_update calls from "
-          f"the same state: parameters and Adam moments within rtol {WINDOW_RTOL} / atol "
-          f"{WINDOW_ATOL}={worst <= WINDOW_ATOL} (worst excess {worst:.3e}), bitwise equal="
-          f"{bitwise}; step counts {sorted(set(steps_w))} vs {sorted(set(steps_s))}; LR "
-          f"positions {after_w[2]} vs {after_s[2]}; applied {applied.tolist()}; e_loc "
-          f"{ms_w[:3, 0].tolist()} vs {e_seq}", flush=True)
-    if not (worst <= WINDOW_ATOL and steps_w == steps_s and after_w[2] == after_s[2]
-            and applied.tolist() == [True, True, True, False] and np.isnan(ms_w[3]).all()):
+    ref_model = copy.deepcopy(tr.model)
+    ref_opt, ref_sched = tr.tc.make_optimizer(list(ref_model.parameters()))
+    step0 = {i: float(v["step"]) for i, v in tr.optimizer.state_dict()["state"].items()}
+    epoch0 = tr.scheduler.last_epoch
+    worst, bitwise, e_ref = 0.0, True, []
+
+    def window_steps():
+        nonlocal worst, bitwise
+        window = trainer_mod.UpdateWindow(tr.model, tr.optimizer, tr.scheduler, 4, tr.clip)
+        for k in range(3):
+            params_k = {n: v.detach().clone() for n, v in tr.model.state_dict().items()}
+            sd = tr.optimizer.state_dict()   # the counts settle at close(): the window's start's
+            sd = {"param_groups": sd["param_groups"],
+                  "state": {i: {"step": torch.tensor(step0[i] + k),
+                                "exp_avg": v["exp_avg"].clone(),
+                                "exp_avg_sq": v["exp_avg_sq"].clone()}
+                            for i, v in sd["state"].items()}}
+            clip_k = copy.deepcopy(tr.clip)
+            window.step(dt, full)
+            ref_model.load_state_dict(params_k)
+            ref_opt.load_state_dict(sd)
+            trainer_mod._set_schedule(ref_opt, ref_sched, epoch0 + k)
+            e_ref.append(trainer_mod.vmc_update(ref_model, ref_opt, ref_sched, dt, full, True,
+                                                clip=clip_k)["e_loc"])
+            got, want = tr.model.state_dict(), ref_model.state_dict()
+            pairs = [(got[n], want[n]) for n in want]
+            got, want = tr.optimizer.state_dict()["state"], ref_opt.state_dict()["state"]
+            pairs += [(got[i][m], want[i][m]) for i in want for m in ("exp_avg", "exp_avg_sq")]
+            for a, b in pairs:
+                bitwise = bitwise and torch.equal(a, b)
+                worst = max(worst, float(((a - b).abs() - WINDOW_RTOL * b.abs()).max()))
+        return window.close()
+
+    ms_w, applied = counted("14d a window of 3 steps over the basis, each step against one "
+                            "vmc_update from the window's state before it", window_steps,
+                            {"factored_cells_accumulate": 6})
+    steps_w = sorted({float(v["step"]) for v in tr.optimizer.state_dict()["state"].values()})
+    steps_want = sorted({v + 3 for v in step0.values()})
+    print(f"[exact] 14d: a window of 3 steps (n_live=3, length=4), each step against one "
+          f"vmc_update from the window's state before it: parameters and Adam moments within "
+          f"rtol {WINDOW_RTOL} / atol {WINDOW_ATOL}={worst <= WINDOW_ATOL} (worst excess "
+          f"{worst:.3e}), bitwise equal={bitwise}; step counts {steps_w} (expected "
+          f"{steps_want}); LR position {tr.scheduler.last_epoch} (expected {epoch0 + 3}); "
+          f"applied {applied.tolist()}; e_loc {ms_w[:3, 0].tolist()} vs {e_ref}", flush=True)
+    if not (worst <= WINDOW_ATOL and steps_w == steps_want
+            and tr.scheduler.last_epoch == epoch0 + 3
+            and applied.tolist() == [True, True, True, False] and np.isnan(ms_w[3]).all()
+            and ms_w[:3, 0].tolist() == e_ref):
         raise SystemExit("14d: the window and the sequential updates disagree")
     # a window with no host sync inside: torch raises on any synchronizing call
     window = trainer_mod.UpdateWindow(tr.model, tr.optimizer, tr.scheduler, 2, tr.clip)
@@ -3360,6 +3437,349 @@ def _chem(dev, zero_counts, wrappers, smi, build_log, old=None):
     return {"launches": launches, "entry": entry}
 
 
+# phase 18: the model's fused glue (csrc/nade_glue.cu) at the paper width
+GLUE_SRC = "naqs_tpu_torch/csrc/nade_glue.cu"
+GLUE_TURNS = 3                # --before: rounds of (this, earlier, earlier, this)
+GLUE_SR_CG = 5                # 18c: CG iterations of the one SR update
+GLUE_BIG = 1e8                # max_abs_err: entries below this magnitude (see _glue)
+
+
+def _glue_abs_err(got, want):
+    """The largest |got - want| over the entries of one output or a tuple of
+    them whose |want| is below GLUE_BIG (a masked option's log-amplitude, and
+    a row with one, sits near -5e8 k, where one float32 ulp is 32-256;
+    glue_error holds those relatively)."""
+    import torch
+
+    if isinstance(got, (tuple, list)):
+        return max([_glue_abs_err(g, w) for g, w in zip(got, want)], default=0.0)
+    if got is None or not got.numel():
+        return 0.0
+    small = want.double().abs() < GLUE_BIG
+    d = (got.double() - want.double()).abs()[small]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, old=None):
+    """Phase 18: the model's fused glue at H2O 6-31G's full width (13 shells,
+    in_width 24, amp 64, phase 512x512, capacity 100,000). (a) one sample()
+    call's shells through the same calls (_shell_inputs): shell_features and
+    shell_epilogue launched once a shell, and on every shell's frontier
+    shell_features bitwise against its plain version and shell_epilogue's
+    mask bitwise and log_amp4, probs4 within GLUE_TOL (nade_glue.glue_error),
+    the same zeros, each bitwise on a repeat; (b) a sampled batch at capacity
+    (SENTINEL rows past n_unique): state_features bitwise, tables_epilogue's
+    forward, vjp (seeded cotangents) and jvp (seeded tangents of the raw
+    outputs) within GLUE_TOL of their plain versions and bitwise on a repeat;
+    (c) one SR update (GLUE_SR_CG CG iterations) on a copy of the model and
+    the batch's live rows: one tables_epilogue_jvp launch per torch.func jvp
+    and one tables_epilogue_vjp per vjp_fn call; (d) each kernel held in turns
+    with its plain version and the nearest one PyTorch call, at the
+    steady-state shell with the most live rows and at the batch, with a bound
+    from the bytes each moves; (e) with --before DIR (old: DIR's modules),
+    one sample() call's wall time and device launches and one factored step's
+    wall time, device time and busy share, DIR's trainer and this tree's on
+    the same weights, in turns. `path_counts`: phase 6's launches of the six
+    wrappers. Returns the six kernels' JSON entries."""
+    import copy
+
+    import torch
+    from naqs_tpu_torch import sr as sr_mod
+    from naqs_tpu_torch.models import nade as nade_mod
+    from naqs_tpu_torch.ops import nade_glue as g
+    from naqs_tpu_torch.sampler import SampleBatch
+    from naqs_tpu_torch.utils.cuda_timing import time_in_turns
+
+    t18 = time.time()
+    model, cap, s = tr.model, tr.capacity, cfg.n_shells
+    tr.n_samples = 1e5   # the steady state's sample count (5b's)
+    names = [w.__name__ for w in glue]
+
+    def counts():
+        return {w.__name__: w.launches for w in glue}
+
+    # (a) the shells of one sample() call
+    zero_counts()
+    batch_a, shells = _shell_inputs(model, tr.gen, 1e5, cap)
+    got = counts()
+    want = dict.fromkeys(names, 0) | {"shell_features": s, "shell_epilogue": s}
+    print(f"[glue] one sample() call's shells at capacity {cap}: launches {got}", flush=True)
+    if got != want:
+        raise SystemExit(f"sample() did not launch shell_features and shell_epilogue once a "
+                         f"shell: {got} against {want}")
+    err = {"shell_features": 0.0, "shell_epilogue": 0.0}
+    ratio = {"shell_features": 0.0, "shell_epilogue": 0.0}
+    fullest, fullest_live = None, -1
+    for args in shells:
+        a, b, j = args[0], args[1], args[8]
+        x, meta = g.shell_features(cfg, a, b, j)
+        x_r, meta_r = g.shell_features_ref(cfg, a, b, j)
+        again = g.shell_features(cfg, a, b, j)
+        same = (torch.equal(x, x_r) and torch.equal(meta, meta_r) and torch.equal(x, again[0])
+                and torch.equal(meta, again[1]))
+        with torch.no_grad():
+            raw = model.amp.single(j, x)
+        e_got = g.shell_epilogue(cfg, raw, meta, j)
+        e_want = g.shell_epilogue_ref(cfg, raw, meta, j)
+        e_again = g.shell_epilogue(cfg, raw, meta, j)
+        r = g.glue_error(e_got, e_want)
+        ok = (same and r <= 1.0 and torch.equal(e_got[1], e_want[1])
+              and torch.equal(e_got[2] == 0, e_want[2] == 0)
+              and all(torch.equal(p, q) for p, q in zip(e_got, e_again)))
+        err["shell_epilogue"] = max(err["shell_epilogue"], _glue_abs_err(e_got, e_want))
+        ratio["shell_epilogue"] = max(ratio["shell_epilogue"], r)
+        live = int(args[3].sum())
+        print(f"[glue] shell {j}: {live} live rows; shell_features bitwise equal to its plain "
+              f"version and to itself={same}; shell_epilogue at {r:.3f} of GLUE_TOL, mask and "
+              f"zeros equal, bitwise on a repeat", flush=True)
+        if not ok:
+            raise SystemExit(f"shell {j}: shell_features or shell_epilogue disagrees with its "
+                             f"plain version")
+        if live > fullest_live:
+            fullest, fullest_live = (a, b, j, x, meta, raw), live
+
+    # (b) a sampled batch at capacity: the features and the epilogue's three modes
+    batch = tr._sample()
+    states = batch.states
+    n_live = int(batch.n_unique)
+    feats = g.state_features(cfg, states)
+    feats_r = g.state_features_ref(cfg, states)
+    same = all((p is None and q is None) or torch.equal(p, q) for p, q in zip(feats, feats_r)) \
+        and all(p is None or torch.equal(p, q) for p, q in
+                zip(feats, g.state_features(cfg, states)))
+    print(f"[glue] state_features on the batch ({states.shape[0]} rows, {n_live} live, the rest "
+          f"SENTINEL): bitwise equal to its plain version and to itself={same}", flush=True)
+    if not same:
+        raise SystemExit("state_features disagrees with its plain version")
+    x, x2, code = feats
+    with torch.no_grad():   # as log_psi_epilogue hands them over: contiguous
+        raw, raw_phase = nade_mod._raw(model, x, x2)
+        raw = raw.contiguous()
+        raw_phase = None if raw_phase is None else raw_phase.contiguous()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cot = [torch.randn(states.shape[0], generator=gen, device=dev, dtype=raw.dtype)
+           for _ in range(2)]
+    tan = [None if t is None else torch.randn(t.shape, generator=gen, device=dev,
+                                              dtype=raw.dtype) for t in (raw, raw_phase)]
+    args = (cfg, raw, raw_phase, code)
+    modes = {"tables_epilogue": (lambda: g.tables_epilogue(*args),
+                                 lambda: g.tables_epilogue_ref(*args)),
+             "tables_epilogue_vjp": (lambda: g.tables_epilogue_vjp(*args, *cot),
+                                     lambda: g.tables_epilogue_vjp_ref(*args, *cot)),
+             "tables_epilogue_jvp": (lambda: g.tables_epilogue_jvp(*args, *tan),
+                                     lambda: g.tables_epilogue_jvp_ref(*args, *tan))}
+    for name, (fn, ref) in modes.items():
+        o, o2, w = fn(), fn(), ref()
+        r = g.glue_error(o, w)
+        err[name], ratio[name] = _glue_abs_err(o, w), r
+        rep = all(p is None or torch.equal(p, q) for p, q in zip(o, o2))
+        fin = all(p is None or bool(torch.isfinite(p).all()) for p in o)
+        print(f"[glue] {name} on the batch: max_abs_err {err[name]:.3e} (entries below "
+              f"{GLUE_BIG:.0e}), {r:.3f} of GLUE_TOL {g.GLUE_TOL[raw.dtype]}, bitwise on a "
+              f"repeat={rep}, finite={fin}", flush=True)
+        if not (r <= 1.0 and rep and fin):
+            raise SystemExit(f"{name} disagrees with its plain version")
+    err["shell_features"] = err["state_features"] = 0.0
+
+    # (c) one SR update: its jvps and vjp_fn calls launch the epilogue's kernel modes
+    ad = {"jvp": 0, "vjp_fn": 0}
+    jvp0, vjp0 = sr_mod.jvp, sr_mod.vjp
+
+    def jvp_counted(*a, **k):
+        ad["jvp"] += 1
+        return jvp0(*a, **k)
+
+    def vjp_counted(*a, **k):
+        primal, fn = vjp0(*a, **k)
+
+        def fn_counted(*x, **y):
+            ad["vjp_fn"] += 1
+            return fn(*x, **y)
+
+        return primal, fn_counted
+
+    live = SampleBatch(states=states[:n_live], counts=batch.counts[:n_live],
+                       n_unique=batch.n_unique, overflow=batch.overflow)
+    m_sr = copy.deepcopy(model)
+    sr_mod.jvp, sr_mod.vjp = jvp_counted, vjp_counted
+    zero_counts()
+    try:
+        res = sr_mod.sr_update(m_sr, tr.dt, live, 0.01, 1e-3, cg_iters=GLUE_SR_CG)
+        torch.cuda.synchronize()
+    finally:
+        sr_mod.jvp, sr_mod.vjp = jvp0, vjp0
+    sr_counts = counts()
+    print(f"[glue] one SR update ({GLUE_SR_CG} CG iterations, {n_live} live rows): "
+          f"{ad['jvp']} jvp and {ad['vjp_fn']} vjp_fn calls; launches {sr_counts}; e_loc "
+          f"{float(res['e_loc']):.6f}", flush=True)
+    if not (sr_counts["tables_epilogue_jvp"] == ad["jvp"] >= 1
+            and sr_counts["tables_epilogue_vjp"] == ad["vjp_fn"] >= 1
+            and sr_counts["tables_epilogue"] == sr_counts["state_features"] == 1 + ad["jvp"]
+            and math.isfinite(float(res["e_loc"]))):
+        raise SystemExit(f"the SR update did not run tables_epilogue_jvp once per jvp and "
+                         f"tables_epilogue_vjp once per vjp_fn call: {sr_counts}, {ad}")
+    del m_sr
+
+    # (d) held times, bounds, plain versions and the nearest one PyTorch call
+    fa, fb, fj, fx, fmeta, fraw = fullest
+    f_logits = (g.symmetrize_amp(fraw[:, :cfg.n_amp_out], fmeta[0].long())
+                if cfg.use_amp_spin_sym else fraw[:, :4])
+    f_mask = g.occupation_mask(cfg, fmeta[1].long(), fmeta[2].long(),
+                               j=torch.full_like(fmeta[1].long(), fj))
+    f_z = torch.where(f_mask, 2.0 * f_logits, g.BIG_NEG).contiguous()
+    f_code = g.unpack_code(code)
+    t_logits = (g.symmetrize_amp(raw[..., :cfg.n_amp_out], f_code["order3"])
+                if cfg.use_amp_spin_sym else raw[..., :4])
+    t_mask = g._applied_mask(cfg, f_code)
+    if t_mask is None:
+        t_mask = torch.ones(t_logits.shape, dtype=torch.bool, device=dev)
+    t_z = torch.where(t_mask, 2.0 * t_logits, g.BIG_NEG).contiguous()
+    t_out = torch.log_softmax(t_z, dim=-1)
+    t_grad = torch.randn(t_out.shape, generator=gen, device=dev)
+    fns = {
+        "shell_features": lambda: g.shell_features(cfg, fa, fb, fj),
+        "shell_features_ref": lambda: g.shell_features_ref(cfg, fa, fb, fj),
+        "shell_epilogue": lambda: g.shell_epilogue(cfg, fraw, fmeta, fj),
+        "shell_epilogue_ref": lambda: g.shell_epilogue_ref(cfg, fraw, fmeta, fj),
+        "log_softmax (shell)": lambda: torch.log_softmax(f_z, dim=-1),
+        "state_features": lambda: g.state_features(cfg, states),
+        "state_features_ref": lambda: g.state_features_ref(cfg, states),
+        "log_softmax (tables)": lambda: torch.log_softmax(t_z, dim=-1),
+        "log_softmax backward (tables)": lambda: torch._log_softmax_backward_data(
+            t_grad, t_out, -1, t_out.dtype),
+    }
+    for name, (fn, ref) in modes.items():
+        fns[name], fns[f"{name}_ref"] = fn, ref
+    times = time_in_turns(fns, REPEATS, LAUNCHES)
+    for name, (med, spread, held) in times.items():
+        print(f"[glue] held ({held:.1f} ms) {name}: median {med:.4f} ms, spread "
+              f"{spread[0]:.4f}-{spread[1]:.4f} ms", flush=True)
+    # bytes each must move (each input read once, each output written once) and
+    # its operations: the bound is the larger time
+    esz = raw.element_size()
+    n_out, n_ph = raw.shape[-1], (0 if raw_phase is None else raw_phase[0].numel())
+    rows = states.shape[0]
+    x2_el = 0 if x2 is None else x2[0].numel()
+    k1_bytes = cap * (16 + cfg.in_width * esz + 12)
+    k2_bytes = cap * (n_out * esz + 12 + 4 * esz + 4 + 4 * esz)
+    k3_bytes = rows * (8 + (s * cfg.in_width + x2_el) * esz + 4 * s)
+    fw_bytes = rows * (s * n_out * esz + n_ph * esz + 4 * s + 2 * esz)
+    vjp_bytes = rows * (2 * (s * n_out + n_ph) * esz + 4 * s + 2 * esz)
+    jvp_bytes = rows * (2 * (s * n_out + n_ph) * esz + 4 * s + 2 * esz)
+    # operations: per shell of a row, the symmetrized logits (8), the mask over
+    # the sectors (12 a sector), the log-softmax (4 exp, 1 log, 16), the phase
+    # (activation, shift: 4) and the sums (2); the vjp and jvp about 20 more
+    shell_ops = 8 + 12 * len(cfg.sectors) + 21 + 4 + 2
+    bounds = {"shell_features": _bound(k1_bytes, cap * cfg.in_width * 12),
+              "shell_epilogue": _bound(k2_bytes, cap * (shell_ops + 4)),
+              "state_features": _bound(k3_bytes, rows * (4 * s + s * (cfg.in_width + 12))),
+              "tables_epilogue": _bound(fw_bytes, rows * s * shell_ops),
+              "tables_epilogue_vjp": _bound(vjp_bytes, rows * s * (shell_ops + 20)),
+              "tables_epilogue_jvp": _bound(jvp_bytes, rows * s * (shell_ops + 20))}
+    for name, (ms, by) in bounds.items():
+        print(f"[bound] {name} {ms:.5f} ms ({by})", flush=True)
+    library = {"shell_features": None, "shell_epilogue": "log_softmax (shell)",
+               "state_features": None, "tables_epilogue": "log_softmax (tables)",
+               "tables_epilogue_vjp": "log_softmax backward (tables)",
+               "tables_epilogue_jvp": None}
+    library_note = {
+        "shell_features": "none: no one PyTorch call forms a shell's inputs from packed ints",
+        "shell_epilogue": "torch.log_softmax on the shell's masked logits (cap, 4): a part "
+                          "of the kernel's work (no symmetrizing, mask, exp)",
+        "state_features": "none: no one PyTorch call unpacks, permutes and scans the bits",
+        "tables_epilogue": "torch.log_softmax on the batch's masked logits (B, S, 4): a part "
+                           "of the kernel's work (no symmetrizing, phase, gather, sum)",
+        "tables_epilogue_vjp": "torch._log_softmax_backward_data on (B, S, 4): a part of "
+                               "the kernel's work",
+        "tables_epilogue_jvp": "none: no one PyTorch call computes the tangents"}
+    replaces = {"shell_features": "naqs_tpu/models/nade.py:522",
+                "shell_epilogue": "naqs_tpu/models/nade.py:556",
+                "state_features": "naqs_tpu/models/nade.py:209",
+                "tables_epilogue": "naqs_tpu/models/nade.py:423",
+                "tables_epilogue_vjp": "naqs_tpu/models/nade.py:423",
+                "tables_epilogue_jvp": "naqs_tpu/models/nade.py:423"}
+
+    # (e) with --before: one sample() call and one factored step, DIR's and this tree's
+    before = {}
+    if old and "trainer" in old:
+        import dataclasses as dc
+
+        t_old = time.time()
+        cfg_old = old["nade"].NAQSConfig(**{f.name: getattr(cfg, f.name)
+                                            for f in dc.fields(cfg)})
+        tr_old = old["trainer"].VMCTrainer(cfg_old, tr.terms, tr.hilbert, tr.tc, device=dev)
+        tr_old.model.load_state_dict(model.state_dict())
+        for t in (tr, tr_old):
+            t.n_samples = 1e5
+        print(f"[before] the earlier tree's trainer made in {time.time() - t_old:.1f} s",
+              flush=True)
+        walls = {"this tree": {"sample": [], "step": []}, "earlier tree": {"sample": [],
+                                                                           "step": []}}
+        both = {"this tree": tr, "earlier tree": tr_old}
+        for t in both.values():   # warm up: the earlier tree builds its kernels here
+            t._sample()
+            t.step()
+        for _ in range(GLUE_TURNS):
+            for label in ("this tree", "earlier tree", "earlier tree", "this tree"):
+                t = both[label]
+                t.gen.manual_seed(7)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                t._sample()
+                torch.cuda.synchronize()
+                walls[label]["sample"].append(time.time() - t0)
+                t0 = time.time()
+                t.step()
+                torch.cuda.synchronize()
+                walls[label]["step"].append(time.time() - t0)
+        for label, t in both.items():
+            # a trace can come back empty (seen once for the earlier tree's
+            # sample(), with the step's trace right after it whole): up to 3 tries
+            for tries in range(1, 4):
+                t.gen.manual_seed(7)
+                _, s_wall, s_dev, n_dev = _profiled_call(t._sample, launches=True)
+                if n_dev:
+                    break
+            out, p_wall, p_dev = _profiled_call(t.step)
+            med = {k: sorted(v)[len(v) // 2] for k, v in walls[label].items()}
+            before[label] = {"sample_wall_s": med["sample"], "sample_walls_s": walls[label][
+                "sample"], "sample_device_launches": n_dev, "sample_device_ms": s_dev, "sample_traces": tries,
+                "step_wall_s": med["step"], "step_walls_s": walls[label]["step"],
+                "step_device_ms": p_dev, "step_profiled_wall_s": p_wall,
+                "busy_share": p_dev / 1e3 / med["step"]}
+            print(f"[before] {label}: one sample() call {med['sample']:.4f} s of wall (median "
+                  f"of {len(walls[label]['sample'])} in turns), {n_dev} device kernels and "
+                  f"copies, {s_dev:.2f} ms of device time (trace {tries} of 3); one factored step {med['step']:.4f} "
+                  f"s of wall, {p_dev:.2f} ms of device time under torch.profiler: the card "
+                  f"busy {p_dev / 1e3 / med['step']:.0%} of the unprofiled step ({smi})",
+                  flush=True)
+        del tr_old
+
+    entries = []
+    for name in names:
+        t_plain = f"{name}_ref"
+        entries.append({
+            "name": name, "route": "cuda", "source": GLUE_SRC,
+            "replaces": replaces[name], "launches": path_counts[name],
+            "max_abs_err": err[name], "tolerance_ratio": ratio.get(name, 0.0),
+            "ms": times[name][0], "spread": times[name][1], "plain_ms": times[t_plain][0],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": times[library[name]][0] if library[name] else None,
+            "library_note": library_note[name],
+            "launches_sample_call": {"shell_features": s, "shell_epilogue": s}.get(name, 0),
+            "launches_sr_update": sr_counts[name],
+            "note": "no Pallas counterpart: XLA-lowered in JAX; launches: phase 6's 5 "
+                    "factored steps; max_abs_err over entries below 1e8 in magnitude, "
+                    "tolerance_ratio the worst |got - want| / GLUE_TOL of every entry",
+            **({"path_note": "on the SR step's path, not the Adam step's: phase 18's SR "
+                             "update, every count at 0 just before it, launched it "
+                             "launches_sr_update times, once a torch.func jvp"}
+               if name == "tables_epilogue_jvp" else {}),
+            **({"before": before} if before and name == "tables_epilogue" else {})})
+    print(f"[glue] phase 18: {time.time() - t18:.1f} s in all", flush=True)
+    return entries
+
+
 def main(argv) -> int:
     import inspect
 
@@ -3419,6 +3839,9 @@ def main(argv) -> int:
     from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
     from naqs_tpu_torch.utils.cuda_timing import HOLD_CYCLES, time_in_turns
     from naqs_tpu_torch.chem.integrals import eri_tensor
+    from naqs_tpu_torch.ops.nade_glue import (shell_epilogue, shell_features, state_features,
+                                              tables_epilogue, tables_epilogue_jvp,
+                                              tables_epilogue_vjp)
 
     dev = torch.device("cuda")
     t0 = time.time()
@@ -3432,8 +3855,13 @@ def main(argv) -> int:
     row_wrappers = (sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms, sorted_local_energy,
                     rank_local_energy, rank_quadratic_energy, sorted_quadratic_energy)
 
+    # the model's glue (phase 18): every step launches them, so they stay out of
+    # `wrappers`, whose other phases hold every launch they do not expect to 0
+    glue = (shell_features, shell_epilogue, state_features, tables_epilogue,
+            tables_epilogue_vjp, tables_epilogue_jvp)
+
     def zero_counts():
-        for w in wrappers:
+        for w in wrappers + glue:
             w.launches = 0
 
     # 1. build
@@ -3817,6 +4245,16 @@ def main(argv) -> int:
             and split_launches == compact_launches == 0):
         raise SystemExit("the main path did not run split_and_compact once per shell, or ran "
                          "the standalone sampler kernels")
+    glue_path = {w.__name__: w.launches for w in glue}
+    want_glue = {"shell_features": n_shells * n_draws, "shell_epilogue": n_shells * n_draws,
+                 "state_features": n_updates, "tables_epilogue": n_updates,
+                 "tables_epilogue_vjp": n_updates, "tables_epilogue_jvp": 0}
+    print(f"[path] the model's glue in the 5 steps: {glue_path} (expected {want_glue}: "
+          f"shell_features and shell_epilogue once a shell of every sample() call, "
+          f"state_features, tables_epilogue and its vjp once a vmc_update)", flush=True)
+    if glue_path != want_glue:
+        raise SystemExit(f"the main path did not run the glue kernels as expected: "
+                         f"{glue_path} against {want_glue}")
 
     # 7. the earlier main path: the same trainer on the rank engine, with its
     # dense A: one rank_local_energy launch per E_loc call (the parent ran
@@ -5217,9 +5655,6 @@ def main(argv) -> int:
           f"{fu_every:.5f} ms", flush=True)
 
     if "--profile" in argv:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
         kernel_of = {"split_and_compact_kernel": _split_and_compact,
                      "compact_children_kernel": _compact_children,
                      "multinomial4_split_kernel": multinomial4_split,
@@ -5232,7 +5667,13 @@ def main(argv) -> int:
                      "SearchLookup, row_energy::LocalEnergy": sorted_local_energy,
                      "RankLookup, row_energy::LocalEnergy": rank_local_energy,
                      "SearchLookup, row_energy::Quadratic": sorted_quadratic_energy,
-                     "RankLookup, row_energy::Quadratic": rank_quadratic_energy}
+                     "RankLookup, row_energy::Quadratic": rank_quadratic_energy,
+                     "shell_features_kernel": shell_features,
+                     "shell_epilogue_kernel": shell_epilogue,
+                     "state_features_kernel": state_features,
+                     # its three modes are three instantiations of one template
+                     "tables_epilogue_kernel": (tables_epilogue, tables_epilogue_vjp,
+                                                tables_epilogue_jvp)}
         xl_dt = tr3.dt
         for label, trainer, terms_dev in (("factored", tr, dt), ("rank", tr, dt_rank),
                                           ("staircase (Li2O CISDTQ)", tr3, xl_dt),
@@ -5247,13 +5688,12 @@ def main(argv) -> int:
                 wall = time.time() - t
                 print(f"[profile] {label} {name}: {wall:.3f} s", flush=True)
             zero_counts()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                trainer.step()
-                torch.cuda.synchronize()
-            events = prof.key_averages()
-            seen = {name: sum(e.count for e in events if e.device_type == DeviceType.CUDA
-                              and name in e.key) for name in kernel_of}
-            launched = {name: w.launches for name, w in kernel_of.items()}
+            _, _, events = _traced(trainer.step)
+            dev_events = _device_events(events)
+            seen = {name: sum(e.count for e in dev_events if name in e.key)
+                    for name in kernel_of}
+            launched = {name: sum(x.launches for x in (w if isinstance(w, tuple) else (w,)))
+                        for name, w in kernel_of.items()}
             print(f"[profile] {label}: device kernels {seen}, wrapper calls {launched}",
                   flush=True)
             if seen != launched or not launched["split_and_compact_kernel"]:
@@ -5261,8 +5701,7 @@ def main(argv) -> int:
                                  f"call")
             print(f"[profile] one step on the {label} path", flush=True)
             print(events.table(sort_by="cuda_time_total", row_limit=25), flush=True)
-            total = sum(e.self_device_time_total for e in events
-                        if e.device_type == DeviceType.CUDA)
+            total = sum(e.self_device_time_total for e in dev_events)
             print(f"[profile] {label}: {total / 1e3:.1f} ms device time in the step; the step "
                   f"before it (not profiled) took {wall:.3f} s of wall time: the card busy "
                   f"{total / 1e6 / wall:.0%} of it", flush=True)
@@ -5271,7 +5710,8 @@ def main(argv) -> int:
                                             "multinomial4_split",
                                             "compact_children", "split_and_compact", "cumsum",
                                             "cumprod", "sorted_", "offdiag_h",
-                                            "row_energy")) \
+                                            "row_energy", "shell_", "state_features",
+                                            "tables_epilogue")) \
                         and e.self_device_time_total > 0:
                     print(f"[profile] {label} {e.key}: {e.count} launches, "
                           f"{e.self_device_time_total / 1e3:.3f} ms device time, "
@@ -5307,6 +5747,16 @@ def main(argv) -> int:
 
     # 17. the chemistry pipeline: the ERI kernel, generation on the card, training on it
     chem = _chem(dev, zero_counts, wrappers, smi, build_logs.get("eri", ""), old_mods.get("chem"))
+
+    # 18. the model's fused glue at the paper width (and, with --before, one sample()
+    # call and one factored step of the earlier tree's trainer in turns with this one's)
+    tr.dt = dt
+    glue_entries = _glue(dev, tr, cfg, zero_counts, glue, glue_path, smi, old_mods)
+    glue_regs = _ptxas_registers(build_logs.get("nade_glue", ""), "_kernel")
+    for e in glue_entries:
+        e["registers"] = {k: v for k, v in glue_regs.items() if e["name"] + "_kernel" in k
+                          or (e["name"].startswith("tables_epilogue")
+                              and "tables_epilogue_kernel" in k)}
 
     def entry(name, launches, err, t_plain, bound, t_library,
               source="naqs_tpu_torch/csrc/rank_gather.cu",
@@ -5581,6 +6031,7 @@ def main(argv) -> int:
         k["launches_sharded"] = sharded["launches"][k["name"]]
         k["launches_chem"] = chem["launches"][k["name"]]
         k.update(exact_extra.get(k["name"], {}))
+    kernels += glue_entries
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

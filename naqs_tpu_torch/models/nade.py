@@ -18,23 +18,29 @@ learnable lookup tables (one row per input pattern) instead of the MLP.
 Parameters are held in `param_dtype`; the products run in the type JAX
 promotes float32 inputs and such weights to (float32 for bfloat16 weights,
 float64 for float64 ones), so the outputs have that type too.
+
+Around the nets, the glue is four hand kernels (`ops/nade_glue.py`,
+`csrc/nade_glue.cu`): the sampler's shell head and tail
+(`amp_conditional_shell`), and `log_psi`'s features and the tables' tail
+with the gather and sum over shells, whose vjp and jvp are kernels too.
+The plain helpers of the features and tables live there and are
+re-exported here.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from functools import lru_cache
 from typing import Literal, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from naqs_tpu_torch.utils.bits import unpack_bits
-
-# masked-logit value; exp(x/2) underflows to 0
-BIG_NEG = -1e9
+from naqs_tpu_torch.ops.nade_glue import (  # noqa: F401  (the features' helpers, re-exported)
+    BIG_NEG, _index, epilogue_tables_ref, log_psi_epilogue, masked_log_softmax_half,
+    occupation_mask, prefix_stats, scaled_phase_activation, shell_epilogue, shell_features,
+    shell_inputs, split_spins, state_features, symmetrize_amp)
 
 PARAM_DTYPES = {"float32": torch.float32, "float64": torch.float64,
                 "bfloat16": torch.bfloat16}
@@ -223,144 +229,6 @@ def count_parameters(model: NADE) -> int:
     return int(sum(p.numel() for p in model.parameters()))
 
 
-# ------------------------------------------------------------------- features
-
-@lru_cache(maxsize=64)
-def _index(values: tuple, device: torch.device) -> torch.Tensor:
-    """An int64 index tensor of constant values on the device, made once per
-    device: an index given as a list or a numpy array is copied to the card
-    at every call, a host sync that a window of updates must not take."""
-    return torch.tensor(values, dtype=torch.int64, device=device)
-
-
-def split_spins(cfg: NAQSConfig, states: torch.Tensor):
-    """Packed states -> (alpha, beta) occupation bits (B, S) in MODEL order."""
-    bits = unpack_bits(states, cfg.n_qubits)
-    order = _index(tuple(cfg.shell_order), states.device)
-    return bits[..., 0::2][..., order], bits[..., 1::2][..., order]
-
-
-def _excl_cumsum(x):
-    return torch.cumsum(x, dim=-1) - x
-
-
-def prefix_stats(alpha: torch.Tensor, beta: torch.Tensor) -> dict:
-    """Per-shell prefix statistics (exclusive over shells < j): counts
-    (ca, cb), prefix integers (pa, pb) with shell t weighted 2^t, and the
-    exchange order flag (0: pa > pb, 1: equal, 2: pa < pb)."""
-    s = alpha.shape[-1]
-    w = torch.ones((), dtype=torch.int64, device=alpha.device) << torch.arange(
-        s, device=alpha.device)
-    pa = _excl_cumsum(alpha * w)
-    pb = _excl_cumsum(beta * w)
-    order3 = torch.where(pa > pb, 0, torch.where(pa == pb, 1, 2))
-    return {"ca": _excl_cumsum(alpha), "cb": _excl_cumsum(beta),
-            "pa": pa, "pb": pb, "order3": order3}
-
-
-def _signed(bits):
-    return (2 * bits - 1).to(torch.float32)
-
-
-def _integer_inputs(alpha, beta, canonical: bool):
-    """One value per shell: the exchange-invariant a+b-1 when canonical,
-    else 2a+b."""
-    v = alpha + beta - 1 if canonical else 2 * alpha + beta
-    return v.to(torch.float32)
-
-
-def shell_inputs(cfg: NAQSConfig, alpha, beta, canonical: bool,
-                 order3: torch.Tensor | None = None):
-    """(B, S, in_width) inputs for every shell. Binary encoding: signed +-1
-    bits, layout [first substring (S-1 slots), second substring]; with
-    `canonical` the lexicographically smaller spin substring goes first.
-    Integer encoding: one value per previous shell (`_integer_inputs`)."""
-    s = cfg.n_shells
-    dev = alpha.device
-    causal = torch.arange(s - 1, device=dev)[None, :] < torch.arange(s, device=dev)[:, None]
-    if cfg.input_encoding == "integer":
-        return _integer_inputs(alpha, beta, canonical)[..., None, : s - 1] * causal
-    a_in = _signed(alpha)[..., None, : s - 1] * causal
-    b_in = _signed(beta)[..., None, : s - 1] * causal
-    if canonical:
-        if order3 is None:
-            order3 = prefix_stats(alpha, beta)["order3"]
-        swap = (order3 == 0)[..., None]
-        a_in, b_in = torch.where(swap, b_in, a_in), torch.where(swap, a_in, b_in)
-    return torch.cat([a_in, b_in], dim=-1)
-
-
-# _SYM_GATHER[order3] maps the 5 raw amp logits onto 4 occupations
-# [00, a, b, ab] (occ index = alpha + 2*beta). Logits: [l00, l_sym01, l11,
-# d1, d2]; symmetrized output = (base + gathered) / 2.
-_SYM_BASE = (0, 1, 1, 2)
-_SYM_GATHER = ((0, 3, 4, 2), (0, 1, 1, 2), (0, 4, 3, 2))
-
-
-def symmetrize_amp(logits5: torch.Tensor, order3: torch.Tensor) -> torch.Tensor:
-    """(..., 5) + order flag -> (..., 4) exchange-symmetric amp logits."""
-    base = logits5[..., _index(_SYM_BASE, logits5.device)]
-    gidx = _index(_SYM_GATHER, logits5.device)[order3]
-    return 0.5 * (base + torch.take_along_dim(logits5, gidx, dim=-1))
-
-
-def occupation_mask(cfg: NAQSConfig, ca, cb, j=None):
-    """(..., 4) bool mask of occupations allowed by the electron-number
-    budgets, OR'd over sectors. ca, cb: prefix up-counts; j: shell index."""
-    s = cfg.n_shells
-    if j is None:
-        j = torch.arange(s, device=ca.device).expand(ca.shape)
-    da, db = j - ca, j - cb  # prefix down-counts
-    mask = torch.zeros((*ca.shape, 4), dtype=torch.bool, device=ca.device)
-    for (na, nb) in cfg.sectors:
-        ok = (ca <= na) & (da <= s - na) & (cb <= nb) & (db <= s - nb)
-        a1, a0 = ca < na, da < s - na
-        b1, b0 = cb < nb, db < s - nb
-        m = torch.stack([a0 & b0, a1 & b0, a0 & b1, a1 & b1], dim=-1)
-        mask = mask | (m & ok[..., None])
-    return mask
-
-
-def scaled_phase_activation(name: str, x: torch.Tensor, mask=None) -> torch.Tensor:
-    """Scaled phase activations: map raw outputs into [-pi, pi]-ish ranges;
-    where the amplitude mask leaves only one option (a deterministic output),
-    the phase is pinned to 0."""
-    if name == "softsign":
-        y = math.pi * x / (1.0 + torch.abs(x))
-    elif name == "tanh":
-        y = math.pi * torch.tanh(x)
-    elif name == "hardtanh":
-        y = math.pi * torch.clamp(x, -1.0, 1.0)
-    elif name == "sin":
-        y = math.pi * torch.sin(x) ** 2
-    elif name == "sigmoid":
-        y = math.pi * torch.sigmoid(x)
-    else:
-        raise ValueError(f"unknown phase activation '{name}'")
-    if mask is not None and y.shape[-1] == mask.shape[-1]:
-        deterministic = mask.sum(dim=-1, keepdim=True) == 1
-        y = torch.where(deterministic & mask, 0.0, y)
-    return y
-
-
-def masked_log_softmax_half(logits4: torch.Tensor, mask) -> torch.Tensor:
-    """0.5 * log_softmax(2x) with masked options pushed to BIG_NEG. A row
-    with no allowed option emits BIG_NEG/2 amplitudes, not log(1/4)."""
-    z = 2.0 * logits4
-    if mask is not None:
-        z = torch.where(mask, z, BIG_NEG)
-    out = 0.5 * torch.log_softmax(z, dim=-1)
-    if mask is not None:
-        out = torch.where(mask.any(dim=-1, keepdim=True), out, 0.5 * BIG_NEG)
-    return out
-
-
-def _last_shell_only(raw_last: torch.Tensor, s: int) -> torch.Tensor:
-    """(..., d) -> (..., S, d), zero at every shell but the last."""
-    zeros = raw_last.new_zeros((*raw_last.shape[:-1], s - 1, raw_last.shape[-1]))
-    return torch.cat([zeros, raw_last[..., None, :]], dim=-2)
-
-
 # ------------------------------------------------------------------- LUTs
 
 def _lut_index(cfg: NAQSConfig, x: torch.Tensor, j: int, canonical: bool = True):
@@ -397,86 +265,55 @@ def _apply_luts(cfg: NAQSConfig, tables, x, raw, canonical: bool):
 
 # ------------------------------------------------------------------- predict
 
-def _tables(model: NADE, alpha, beta, st, eps=None, taps=None):
-    """Per-shell conditional tables (log_amp4, mask4, phase4), each
-    (..., S, 4) in MODEL shell order.
+def _raw(model: NADE, x, x_ph, eps=None, taps=None):
+    """The nets' raw outputs from `state_features`' inputs: (the amp trunk's
+    (..., S, n_out), the phase net's (..., S, P) with `aggregate_phase`, the
+    global net's (..., P) on the last shell's input, or None with a combined
+    trunk), LUT shells read from their tables.
 
     eps/taps: optional K-FAC instrumentation dicts keyed "amp"/"phase" (see
     `MLPStack.forward`); only the dense layers are tapped, not the LUT
     shells."""
     cfg = model.cfg
-    s = cfg.n_shells
     eps = eps or {}
-    x_amp = shell_inputs(cfg, alpha, beta, cfg.use_amp_spin_sym, st["order3"])
-    raw = model.amp(x_amp, eps.get("amp"),
-                    None if taps is None else taps.setdefault("amp", []))
+    raw = model.amp(x, eps.get("amp"), None if taps is None else taps.setdefault("amp", []))
     if cfg.num_lut:
-        raw = _apply_luts(cfg, model.lut, x_amp, raw, cfg.use_amp_spin_sym)
+        raw = _apply_luts(cfg, model.lut, x, raw, cfg.use_amp_spin_sym)
     if cfg.combined_amp_phase:
-        raw_amp, raw_phase = raw[..., :cfg.n_amp_out], raw[..., cfg.n_amp_out:]
-    else:
-        raw_amp = raw
-        x_ph = (x_amp if cfg.use_phase_spin_sym == cfg.use_amp_spin_sym
-                else shell_inputs(cfg, alpha, beta, cfg.use_phase_spin_sym, st["order3"]))
-        ph_taps = None if taps is None else taps.setdefault("phase", [])
-        if cfg.aggregate_phase:
-            raw_phase = model.phase(x_ph, eps.get("phase"), ph_taps)
-            if cfg.num_lut:
-                raw_phase = _apply_luts(cfg, model.lut_phase, x_ph, raw_phase,
-                                        cfg.use_phase_spin_sym)
-        else:
-            # one global net evaluated on the final shell's input
-            raw_phase = _last_shell_only(
-                model.phase.single(0, x_ph[..., s - 1, :], eps.get("phase"), ph_taps), s)
-
-    logits4 = symmetrize_amp(raw_amp, st["order3"]) if cfg.use_amp_spin_sym else raw_amp
-    if cfg.masking == "none":
-        mask = None
-    else:
-        mask = occupation_mask(cfg, st["ca"], st["cb"])
-        if cfg.masking == "partial":
-            mask[..., s - 1, :] = True  # last shell unmasked
-    log_amp = masked_log_softmax_half(logits4, mask)
-
-    if cfg.phase_activation is not None:
-        # over every shell, the global net's zero rows too: sigmoid puts
-        # pi/2 on those of them whose mask leaves a choice, as in JAX
-        raw_phase = scaled_phase_activation(cfg.phase_activation, raw_phase, mask)
-    if cfg.use_phase_spin_sym:
-        phase4 = raw_phase[..., _index(_SYM_BASE, raw_phase.device)]
-        # exchange phase shift pi*(N01 mod 2) on the canonical-swapped
-        # partner, applied at the last shell
-        full_pa = st["pa"][..., s - 1] + alpha[..., s - 1] * (1 << (s - 1))
-        full_pb = st["pb"][..., s - 1] + beta[..., s - 1] * (1 << (s - 1))
-        n01 = torch.sum((alpha == 0) & (beta == 1), dim=-1)
-        shift = torch.where(full_pa < full_pb, math.pi * (n01 % 2), 0.0)
-        phase4 = phase4 + _last_shell_only(
-            shift[..., None].expand(*shift.shape, 4).to(phase4.dtype), s)
-    else:
-        phase4 = raw_phase
-    return log_amp, mask, phase4
+        return raw, None
+    x_ph = x if x_ph is None else x_ph
+    ph_taps = None if taps is None else taps.setdefault("phase", [])
+    if cfg.aggregate_phase:
+        raw_phase = model.phase(x_ph, eps.get("phase"), ph_taps)
+        if cfg.num_lut:
+            raw_phase = _apply_luts(cfg, model.lut_phase, x_ph, raw_phase,
+                                    cfg.use_phase_spin_sym)
+        return raw, raw_phase
+    # one global net evaluated on the final shell's input
+    x_last = x_ph if x_ph.dim() == 2 else x_ph[..., cfg.n_shells - 1, :]
+    return raw, model.phase.single(0, x_last, eps.get("phase"), ph_taps)
 
 
 def shell_tables(model: NADE, states: torch.Tensor):
     """(log_amp, phase) conditional tables for packed states, each (B, S, 4)
-    in MODEL shell order."""
-    alpha, beta = split_spins(model.cfg, states)
-    log_amp, _, phase = _tables(model, alpha, beta, prefix_stats(alpha, beta))
+    in MODEL shell order. On no training path: the features come from the
+    `state_features` kernel and the tables from the plain tail
+    (`epilogue_tables_ref`), which `log_psi`'s kernel folds into its sums."""
+    x, x_ph, code = state_features(model.cfg, states)
+    log_amp, _, phase = epilogue_tables_ref(model.cfg, *_raw(model, x, x_ph), code)
     return log_amp, phase
 
 
 def _log_psi(model: NADE, states: torch.Tensor, eps=None, taps=None):
-    alpha, beta = split_spins(model.cfg, states)
-    log_amp4, _, phase4 = _tables(model, alpha, beta, prefix_stats(alpha, beta), eps, taps)
-    occ = (alpha + 2 * beta)[..., None]
-    la = torch.take_along_dim(log_amp4, occ, dim=-1)[..., 0]
-    ph = torch.take_along_dim(phase4, occ, dim=-1)[..., 0]
-    return la.sum(dim=-1), ph.sum(dim=-1)
+    x, x_ph, code = state_features(model.cfg, states)
+    return log_psi_epilogue(model.cfg, *_raw(model, x, x_ph, eps, taps), code)
 
 
 def log_psi(model: NADE, states: torch.Tensor):
     """log|psi| and arg(psi) for packed int64 states, in the model's
-    compute dtype (float32 unless the parameters are float64)."""
+    compute dtype (float32 unless the parameters are float64): the features
+    (`state_features`), the nets, and the tables' tail with the gather and
+    sum over shells (`log_psi_epilogue`, whose vjp and jvp are kernels too)."""
     return _log_psi(model, states)
 
 
@@ -509,47 +346,22 @@ def log_psi_taps(model: NADE, states: torch.Tensor, eps: dict):
     return _log_psi(model, states, eps, taps), taps
 
 
-def amp_conditional_shell(model: NADE, j: int, alpha, beta):
+def amp_conditional_shell(model: NADE, j: int, a, b):
     """Masked amp table for ONE shell j over a frontier.
 
-    alpha, beta: (U, S) prefix occupation bits (entries at shells >= j are
-    0). Returns (log_amp4, mask4, probs4), each (U, 4); `mask4` is the
-    electron-number mask even where partial masking leaves it unapplied.
-    A LUT shell (j < num_lut) reads its table row and skips the MLP.
+    a, b: (U,) int64 packed prefix occupations, bit t the alpha (beta)
+    occupation of model shell t (bits at shells >= j are not read). Returns
+    (log_amp4, mask4, probs4), each (U, 4); `mask4` is the electron-number
+    mask even where partial masking leaves it unapplied. The shell's head and
+    tail are the kernels `shell_features` and `shell_epilogue`, the MLP
+    between them two dense products; a LUT shell (j < num_lut) reads its
+    table row instead of the MLP.
     """
     cfg = model.cfg
-    s = cfg.n_shells
-    dev = alpha.device
-    before = torch.arange(s, device=dev) < j
-    w = (torch.ones((), dtype=torch.int64, device=dev)
-         << torch.arange(s, device=dev)) * before
-    pa = torch.sum(alpha * w, dim=-1)
-    pb = torch.sum(beta * w, dim=-1)
-    order3 = torch.where(pa > pb, 0, torch.where(pa == pb, 1, 2))
-    if cfg.input_encoding == "integer":
-        x = (_integer_inputs(alpha, beta, cfg.use_amp_spin_sym)[..., : s - 1]
-             * before[: s - 1])
-    else:
-        a_in = _signed(alpha)[..., : s - 1] * before[: s - 1]
-        b_in = _signed(beta)[..., : s - 1] * before[: s - 1]
-        if cfg.use_amp_spin_sym:
-            swap = (order3 == 0)[..., None]
-            a_in, b_in = torch.where(swap, b_in, a_in), torch.where(swap, a_in, b_in)
-        x = torch.cat([a_in, b_in], dim=-1)
+    x, meta = shell_features(cfg, a, b, j)
     if j < cfg.num_lut:
         idx = _lut_index(cfg, x, j, cfg.use_amp_spin_sym)
         raw = _lut_rows(model.lut[j], idx).to(cfg.compute_dtype)
     else:
         raw = model.amp.single(j, x)
-    if cfg.combined_amp_phase:
-        raw = raw[..., :cfg.n_amp_out]
-    logits4 = symmetrize_amp(raw, order3) if cfg.use_amp_spin_sym else raw
-
-    ca = torch.sum(alpha * before, dim=-1)
-    cb = torch.sum(beta * before, dim=-1)
-    mask = occupation_mask(cfg, ca, cb, j=torch.full_like(ca, j))
-    if cfg.masking == "none" or (cfg.masking == "partial" and j == s - 1):
-        log_amp = masked_log_softmax_half(logits4, None)
-    else:
-        log_amp = masked_log_softmax_half(logits4, mask)
-    return log_amp, mask, torch.exp(2.0 * log_amp)
+    return shell_epilogue(cfg, raw, meta, j)

@@ -11,9 +11,12 @@ shrinking the sample count. The shell loop is a Python loop; sampling is
 gradient-free. `sample_density` walks the same shells deterministically and
 keeps every child whose probability mass reaches a threshold.
 
-On the card the shell step is one hand-written kernel of
-`csrc/sampler_step.cu`, `split_and_compact` (`_split_and_compact` here: one
-ordinary launch a shell, a single pass with no grid barrier: tiles of 256
+Each shell's conditional is `amp_conditional_shell` on the frontier's packed
+prefix ints (on the card the kernels `shell_features` and `shell_epilogue` of
+`ops/nade_glue.py` around the MLP's two products), and the shell step is one
+hand-written kernel of `csrc/sampler_step.cu`, `split_and_compact`
+(`_split_and_compact` here: one ordinary launch a shell, a single pass with
+no grid barrier: tiles of 256
 rows taken by an atomic ticket split their rows and publish their counts of
 children, and each learns the children before it by a decoupled look-back;
 only the rows below the previous shell's `n_children`, read on the device,
@@ -33,10 +36,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
-from naqs_tpu_torch.models.nade import NADE, amp_conditional_shell
+from naqs_tpu_torch.models.nade import NADE, _index, amp_conditional_shell
 from naqs_tpu_torch.ops.multinomial import multinomial4_split_ref, split_draws
 from naqs_tpu_torch.ops._build import check_tensors
 from naqs_tpu_torch.ops.sampler_kernels import (compact_tile_rows, launch, launch_flat,
@@ -216,15 +218,13 @@ def _root(cap: int, weight: float, dev):
     return a, torch.zeros_like(a), w, valid, torch.zeros((), dtype=torch.bool, device=dev)
 
 
-def _prefix_bits(a, b, shells):
-    return (a[:, None] >> shells) & 1, (b[:, None] >> shells) & 1
-
-
-def _batch(cfg, a, b, weights, valid, overflow, shells) -> SampleBatch:
-    """Pack model-order spin bits into state-order int64 bitstrings and sort."""
-    order = np.asarray(cfg.shell_order, dtype=np.int64)
-    wa = torch.as_tensor(np.int64(1) << (2 * order), device=a.device)
-    alpha, beta_bits = _prefix_bits(a, b, shells)
+def _batch(cfg, a, b, weights, valid, overflow) -> SampleBatch:
+    """Pack model-order spin bits into state-order int64 bitstrings and sort.
+    The shells and their weights are device constants made once per device
+    (`_index`): nothing is copied to the card."""
+    shells = _index(tuple(range(cfg.n_shells)), a.device)
+    wa = _index(tuple(1 << (2 * o) for o in cfg.shell_order), a.device)
+    alpha, beta_bits = (a[:, None] >> shells) & 1, (b[:, None] >> shells) & 1
     states = torch.sum(alpha * wa + beta_bits * (wa << 1), dim=-1)
     states = torch.where(valid, states, SENTINEL)
 
@@ -263,11 +263,10 @@ def sample(
     cap = capacity
     dev = next(model.parameters()).device
     a, b, counts, valid, overflow = _root(cap, float(n_samples), dev)
-    shells = torch.arange(s, device=dev)
     n_children = 1   # the root's one live row; then each shell's count, on the device
 
     for j in range(s):
-        log_amp4, mask, probs = amp_conditional_shell(model, j, *_prefix_bits(a, b, shells))
+        log_amp4, mask, probs = amp_conditional_shell(model, j, a, b)
         if beta != 1.0:
             probs = _temper(log_amp4, probs, beta)
         z, u = split_draws(gen, cap, dev)
@@ -276,7 +275,7 @@ def sample(
         a, b, counts, valid, n_children = _split_and_compact(
             a, b, counts, valid, probs, z, u, mask, j, cap, n_children)
         overflow = overflow | (n_children > cap)
-    return _batch(cfg, a, b, counts, valid, overflow, shells)
+    return _batch(cfg, a, b, counts, valid, overflow)
 
 
 @torch.no_grad()
@@ -293,13 +292,12 @@ def sample_density(model: NADE, d_p: float, capacity: int) -> SampleBatch:
     cap = capacity
     dev = next(model.parameters()).device
     a, b, prob, valid, overflow = _root(cap, 1.0, dev)
-    shells = torch.arange(s, device=dev)
 
     for j in range(s):
-        _, mask, probs = amp_conditional_shell(model, j, *_prefix_bits(a, b, shells))
+        _, mask, probs = amp_conditional_shell(model, j, a, b)
         child_prob = prob[:, None] * probs.to(torch.float64) * mask
         child_valid = (child_prob >= d_p) & valid[:, None]
         a, b, prob, valid, n_children = _compact_children(
             a, b, child_prob, child_valid, j, cap)
         overflow = overflow | (n_children > cap)
-    return _batch(cfg, a, b, prob, valid, overflow, shells)
+    return _batch(cfg, a, b, prob, valid, overflow)

@@ -854,10 +854,8 @@ def _two_kernel_sample(model, gen, n_samples, cap, beta):
 
     dev = next(model.parameters()).device
     a, b, counts, valid, overflow = sampler_mod._root(cap, float(n_samples), dev)
-    shells = torch.arange(model.cfg.n_shells, device=dev)
     for j in range(model.cfg.n_shells):
-        log_amp4, mask, probs = amp_conditional_shell(
-            model, j, *sampler_mod._prefix_bits(a, b, shells))
+        log_amp4, mask, probs = amp_conditional_shell(model, j, a, b)
         if beta != 1.0:
             probs = sampler_mod._temper(log_amp4, probs, beta)
         z, u = split_draws(gen, cap, dev)
@@ -865,7 +863,7 @@ def _two_kernel_sample(model, gen, n_samples, cap, beta):
         a, b, counts, valid, n_children = _compact_children(a, b, child_counts, child_valid, j,
                                                             cap)
         overflow = overflow | (n_children > cap)
-    return sampler_mod._batch(model.cfg, a, b, counts, valid, overflow, shells)
+    return sampler_mod._batch(model.cfg, a, b, counts, valid, overflow)
 
 
 @pytest.mark.parametrize("beta,cap", [(1.0, 512), (0.5, 512), (1.0, 64)])
@@ -1987,3 +1985,205 @@ def test_generate_on_the_card_matches_the_cpu_port():
         assert abs(got[k] - want[k]) < 1e-8, k
     np.testing.assert_allclose(got["orbital_energies"], want["orbital_energies"], rtol=0,
                                atol=1e-9)
+
+
+# ------------------------------------------------------------ the model's glue
+
+GLUE_CONFIGS = [
+    dict(),
+    dict(masking="full", use_phase_spin_sym=True),
+    dict(use_amp_spin_sym=False, aggregate_phase=True, use_phase_spin_sym=True,
+         phase_activation="sigmoid"),
+    dict(combined_amp_phase=True, num_lut=2, input_encoding="integer"),
+    dict(input_encoding="integer", use_amp_spin_sym=False, use_phase_spin_sym=True,
+         phase_activation="hardtanh", masking="none"),
+    dict(param_dtype="float64", aggregate_phase=True, phase_activation="sin", masking="full",
+         shell_order=(0, 2, 4, 6, 1, 3, 5)),
+    dict(sectors=((5, 3), (4, 4), (3, 5)), phase_activation="softsign", num_lut=3),
+    dict(param_dtype="bfloat16", phase_activation="tanh"),
+]
+
+
+def _glue_case(kw, n, seed=0):
+    """A small model on the card and n states: sector states, random 14-bit
+    states (masks with no option at some shells) and 3 SENTINEL rows."""
+    from naqs_tpu_torch.utils.bits import SENTINEL
+
+    kw = dict(kw)
+    sectors = kw.pop("sectors", ((5, 5),))
+    dev = _card()
+    cfg = nt.NAQSConfig(n_qubits=14, sectors=sectors, amp_hidden=(16,), phase_hidden=(32, 32),
+                        **kw)
+    model = nade_t.NADE(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    rng = np.random.default_rng(seed)
+    basis = nt.Hilbert(n_qubits=14, sectors=sectors).basis
+    states = np.concatenate([rng.choice(basis, size=n - n // 4 - 3),
+                             rng.integers(0, 1 << 14, size=n // 4), [SENTINEL] * 3])
+    return cfg, model, torch.as_tensor(states, dtype=torch.int64, device=dev)
+
+
+def _glue_ids(kw):
+    return ",".join(f"{k}={v}" for k, v in kw.items()) or "default"
+
+
+@pytest.mark.parametrize("kw", GLUE_CONFIGS, ids=_glue_ids)
+@pytest.mark.parametrize("n", [1, 37, 5000])
+def test_state_features_kernel_matches_plain(kw, n):
+    """x, the phase net's second input and the codes bitwise, twice."""
+    from naqs_tpu_torch.ops import nade_glue as g
+
+    cfg, _, states = _glue_case(kw, max(n, 4))
+    states = states[:n]
+    before = g.state_features.launches
+    got, again = g.state_features(cfg, states), g.state_features(cfg, states)
+    want = g.state_features_ref(cfg, states)
+    assert g.state_features.launches == before + 2
+    for a, b, w in zip(got, again, want):
+        assert (a is None) == (w is None)
+        if w is not None:
+            assert a.dtype == w.dtype and torch.equal(a, w) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", GLUE_CONFIGS, ids=_glue_ids)
+def test_shell_kernels_match_plain(kw):
+    """shell_features (x and meta bitwise) and shell_epilogue (mask bitwise,
+    log_amp4 and probs4 within GLUE_TOL, the same zeros) on every shell, on
+    prefixes with bits at and above the shell set too; both bitwise on a
+    repeat; amp_conditional_shell launches each once a shell."""
+    from naqs_tpu_torch.ops import nade_glue as g
+
+    cfg, model, _ = _glue_case(kw, 8)
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randint(0, 1 << 7, (3001,), generator=gen, device=dev)
+    b = torch.randint(0, 1 << 7, (3001,), generator=gen, device=dev)
+    for j in range(cfg.n_shells):
+        x, meta = g.shell_features(cfg, a, b, j)
+        x_r, meta_r = g.shell_features_ref(cfg, a, b, j)
+        assert torch.equal(x, x_r) and torch.equal(meta, meta_r), j
+        assert torch.equal(x, g.shell_features(cfg, a, b, j)[0])
+        with torch.no_grad():
+            raw = model.amp.single(j, x) * 4   # wide logits: masked and clamped rows show
+        got, want = g.shell_epilogue(cfg, raw, meta, j), g.shell_epilogue_ref(cfg, raw, meta, j)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2] == 0, want[2] == 0), j
+        assert g.glue_error(got, want) <= 1.0, j
+        assert all(torch.equal(p, q) for p, q in zip(got, g.shell_epilogue(cfg, raw, meta, j)))
+        counts = (g.shell_features.launches, g.shell_epilogue.launches)
+        with torch.no_grad():
+            nade_t.amp_conditional_shell(model, j, a, b)
+        assert (g.shell_features.launches, g.shell_epilogue.launches) == (counts[0] + 1,
+                                                                          counts[1] + 1)
+
+
+@pytest.mark.parametrize("kw", GLUE_CONFIGS, ids=_glue_ids)
+@pytest.mark.parametrize("mode", ["forward", "vjp", "jvp"])
+def test_tables_epilogue_kernel_matches_plain(kw, mode):
+    """Each of tables_epilogue's three modes within GLUE_TOL of its plain
+    version on raw outputs widened 4x (masked options, pinned phases, the
+    hardtanh's flat parts), and bitwise on a repeat; the jvp with no tangent
+    gives zeros."""
+    from naqs_tpu_torch.ops import nade_glue as g
+
+    cfg, model, states = _glue_case(kw, 20_003, seed=1)
+    x, x2, code = g.state_features(cfg, states)
+    with torch.no_grad():
+        raw, raw_phase = nade_t._raw(model, x, x2)
+    raw = (4 * raw).contiguous()
+    raw_phase = None if raw_phase is None else (4 * raw_phase).contiguous()
+    gen = torch.Generator(device=raw.device).manual_seed(2)
+    args = (cfg, raw, raw_phase, code)
+    if mode == "forward":
+        fn, ref = (lambda: g.tables_epilogue(*args)), (lambda: g.tables_epilogue_ref(*args))
+    elif mode == "vjp":
+        cot = [torch.randn(len(states), generator=gen, device=raw.device, dtype=raw.dtype)
+               for _ in range(2)]
+        fn = lambda: g.tables_epilogue_vjp(*args, *cot)  # noqa: E731
+        ref = lambda: g.tables_epilogue_vjp_ref(*args, *cot)  # noqa: E731
+    else:
+        tan = [None if t is None else torch.randn(t.shape, generator=gen, device=raw.device,
+                                                  dtype=raw.dtype) for t in (raw, raw_phase)]
+        fn = lambda: g.tables_epilogue_jvp(*args, *tan)  # noqa: E731
+        ref = lambda: g.tables_epilogue_jvp_ref(*args, *tan)  # noqa: E731
+        zeros = g.tables_epilogue_jvp(*args, None, None)
+        assert all(not bool(z.any()) for z in zeros)
+    got, again, want = fn(), fn(), ref()
+    assert g.glue_error(got, want) <= 1.0, g.glue_error(got, want)
+    assert all(p is None or torch.equal(p, q) for p, q in zip(got, again))
+    assert all(p is None or bool(torch.isfinite(p).all()) for p in got)
+
+
+def test_log_psi_and_sampling_on_the_card_launch_the_glue_kernels():
+    """One log_psi: one state_features and one tables_epilogue launch; its
+    backward one tables_epilogue_vjp; torch.func's jvp one
+    tables_epilogue_jvp; the values and the parameters' gradients within
+    GLUE_TOL-sized bounds of the same model on the CPU (the plain versions);
+    sample() and sample_density() one shell_features and one shell_epilogue
+    a shell, and a shell's step captured in a CUDA graph replays bitwise."""
+    from torch.func import functional_call, jvp
+
+    from naqs_tpu_torch.ops import nade_glue as g
+    from naqs_tpu_torch.sampler import sample_density
+
+    cfg, model, states = _glue_case(dict(masking="full"), 4000, seed=4)
+    kernels = (g.state_features, g.tables_epilogue, g.tables_epilogue_vjp,
+               g.tables_epilogue_jvp, g.shell_features, g.shell_epilogue)
+    counts = [k.launches for k in kernels]
+    la, ph = nade_t.log_psi(model, states)
+    (la.sum() + ph.sum()).backward()
+    primals = {k: p.detach() for k, p in model.named_parameters()}
+    tangents = {k: torch.ones_like(p) for k, p in primals.items()}
+    dots = jvp(lambda p: functional_call(model, p, (states,)), (primals,), (tangents,))[1]
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [2, 2, 1, 1, 0, 0]
+    cpu = nade_t.NADE(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    la_c, ph_c = nade_t.log_psi(cpu, states.cpu())
+    (la_c.sum() + ph_c.sum()).backward()
+    assert g.glue_error((la.detach().cpu(), ph.detach().cpu()), (la_c.detach(), ph_c.detach())) <= 1
+    for (k, p), q in zip(model.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, rtol=1e-4, atol=1e-4, msg=k)
+    assert all(bool(torch.isfinite(d).all()) for d in dots)
+    counts = [k.launches for k in kernels]
+    sample(model, torch.Generator(device=states.device).manual_seed(0), 1e5, 4096)
+    sample_density(model, 1e-4, 4096)
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [0, 0, 0, 0, 2 * cfg.n_shells,
+                                                                 2 * cfg.n_shells]
+    a = torch.randint(0, 1 << 6, (4096,), device=states.device)
+    with torch.no_grad():
+        eager = nade_t.amp_conditional_shell(model, 6, a, a)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            nade_t.amp_conditional_shell(model, 6, a, a)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = nade_t.amp_conditional_shell(model, 6, a, a)
+    for t in captured:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, e) for c, e in zip(captured, eager))
+
+
+def test_glue_kernels_reject_bad_inputs():
+    from naqs_tpu_torch.ops import nade_glue as g
+
+    cfg, _, states = _glue_case({}, 64)
+    x, x2, code = g.state_features(cfg, states)
+    raw = torch.zeros((64, cfg.n_shells, 5), device=states.device)
+    phase = torch.zeros((64, 4), device=states.device)
+    with pytest.raises(ValueError):
+        g.state_features(cfg, states.int())
+    with pytest.raises(ValueError):
+        g.state_features(cfg, states[::2])           # not contiguous
+    with pytest.raises(ValueError):
+        g.tables_epilogue(cfg, raw.double(), phase, code)
+    with pytest.raises(ValueError):
+        g.tables_epilogue(cfg, raw, phase.cpu(), code)
+    with pytest.raises(ValueError):
+        g.tables_epilogue_vjp(cfg, raw, phase, code, phase[:, 0], phase[:10, 0])
+    with pytest.raises(ValueError):
+        g.shell_features(cfg, states, states, cfg.n_shells)
+    with pytest.raises(ValueError):
+        g.shell_epilogue(cfg, raw[:, 0, :4].contiguous(), torch.zeros(
+            (3, 64), dtype=torch.int32, device=states.device), 0)

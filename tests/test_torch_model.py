@@ -14,6 +14,7 @@ import naqs_tpu_torch as nt
 from naqs_tpu.models import nade as nade_j
 from naqs_tpu_torch.models import nade as nade_t
 from naqs_tpu_torch.models.convert import params_from_jax
+from naqs_tpu_torch.utils.bits import pack_bits
 from test_torch_support import case, to_u64
 
 TOL = 1e-5
@@ -68,7 +69,7 @@ def _check_all(cfg_j, params, model, states):
         a, b = alpha_t * keep, beta_t * keep
         la4_j, m_j, p_j = nade_j.amp_conditional_shell(
             cfg_j, params, jnp.int32(j), jnp.asarray(a.numpy()), jnp.asarray(b.numpy()))
-        la4_t, m_t, p_t = nade_t.amp_conditional_shell(model, j, a, b)
+        la4_t, m_t, p_t = nade_t.amp_conditional_shell(model, j, pack_bits(a), pack_bits(b))
         np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
         np.testing.assert_allclose(p_t.detach().numpy(), np.asarray(p_j), rtol=0, atol=TOL)
         live = np.asarray(la4_j) > -1e8

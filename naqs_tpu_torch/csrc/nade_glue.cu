@@ -52,6 +52,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,7 +60,7 @@ namespace {
 constexpr int kMaxSectors = 16;
 constexpr int kMaxShells = 31;       // int64 states of at most 62 qubits
 constexpr int kThreads = 256;
-constexpr int kFeatureRows = 32;     // state_features: rows a block
+constexpr int kTileRows = 256;       // shell_features, state_features: rows a block
 constexpr double kBigNeg = -1e9;     // models/nade.py::BIG_NEG
 constexpr double kPi = 3.14159265358979323846;
 
@@ -96,6 +97,16 @@ __host__ __device__ inline double f_sin(double x) { return sin(x); }
 __host__ __device__ inline float f_cos(float x) { return cosf(x); }
 __host__ __device__ inline double f_cos(double x) { return cos(x); }
 
+__host__ __device__ inline double bits_to_double(uint64_t u) {
+#ifdef __CUDA_ARCH__
+  return __longlong_as_double(static_cast<long long>(u));
+#else
+  double d;
+  memcpy(&d, &u, sizeof d);
+  return d;
+#endif
+}
+
 __host__ __device__ inline int popc64(int64_t x) {
 #ifdef __CUDA_ARCH__
   return __popcll(static_cast<unsigned long long>(x));
@@ -104,13 +115,14 @@ __host__ __device__ inline int popc64(int64_t x) {
 #endif
 }
 
-__host__ __device__ inline int64_t low_bits(int j) { return (int64_t(1) << j) - 1; }
-
-// 0: pa > pb (the spin substrings swap), 1: pa == pb, 2: pa < pb, over the
-// shells before j
-__host__ __device__ inline int order3_of(int64_t a, int64_t b, int j) {
-  const int64_t pa = a & low_bits(j), pb = b & low_bits(j);
-  return pa > pb ? 0 : (pa == pb ? 1 : 2);
+__host__ __device__ inline float bits_to_float(uint32_t u) {
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(u);
+#else
+  float f;
+  memcpy(&f, &u, sizeof f);
+  return f;
+#endif
 }
 
 // _SYM_BASE = (0, 1, 1, 2) and _SYM_GATHER[order3] = ((0, 3, 4, 2), (0, 1, 1,
@@ -121,37 +133,6 @@ __host__ __device__ inline int sym_gather(int order3, int k) {
   if (k == 3) return 2;
   if (order3 == 1) return 1;
   return ((k == 1) == (order3 == 0)) ? 3 : 4;
-}
-
-// Input `col` of shell j from the row's model-order bits (shell_inputs): the
-// signed bits of the shells before j, first substring then second (the smaller
-// one first when canonical), or one integer a row with the integer encoding;
-// times 0 or 1 as the plain version's causal mask multiplies (so -0.0 too).
-template <typename T>
-__host__ __device__ inline T input_value(const GlueConfig& c, int64_t a, int64_t b, int j,
-                                         int col, bool canonical) {
-  if (c.integer_inputs) {
-    const int av = static_cast<int>((a >> col) & 1), bv = static_cast<int>((b >> col) & 1);
-    const int v = canonical ? av + bv - 1 : 2 * av + bv;
-    return T(static_cast<float>(v)) * T(col < j);
-  }
-  const int half = c.n_shells - 1;
-  const bool second = col >= half;
-  const int t = second ? col - half : col;
-  const bool swap = canonical && order3_of(a, b, j) == 0;
-  const int64_t src = (second != swap) ? b : a;
-  return T(static_cast<float>(2 * static_cast<int>((src >> t) & 1) - 1)) * T(t < j);
-}
-
-// state_features' code of (row, shell j), from the row's model-order bits
-__host__ __device__ inline int32_t shell_code(const GlueConfig& c, int64_t a, int64_t b,
-                                              int j) {
-  const int64_t lo = low_bits(j);
-  const int occ = static_cast<int>((a >> j) & 1) | static_cast<int>((b >> j) & 1) << 1;
-  // the exchange phase shift pi (N01 mod 2) where the full pa < pb
-  const int shift = (j == c.n_shells - 1 && a < b && (popc64(~a & b) & 1)) ? 1 : 0;
-  return order3_of(a, b, j) | occ << 2 | shift << 4 | popc64(a & lo) << 8 |
-         popc64(b & lo) << 16;
 }
 
 // occupation_mask: bit k (k = alpha + 2 beta) where some sector's electron
@@ -230,6 +211,184 @@ __host__ __device__ inline T activate_grad(int act, T x) {
   }
 }
 
+// ------------------------------------------------- the features' building blocks
+//
+// A row's model-order bits a, b (bit t = the alpha / beta occupation of model
+// shell t) make one 64-bit word of line bits, the same for every shell of the
+// row: with the binary encoding the first substring's S - 1 bits at [0, h) and
+// the second's at [h, 2h) (h = S - 1), with the integer encoding a's at [0, h)
+// and b's at [32, 32 + h). A line of in_width values (one (row, shell) of x) is
+// that word, swapped where the canonical input puts b first (order3 == 0 at
+// the shell: one bit of the row's swap mask), read at position t under the
+// shell's causal mask.
+
+// 0: pa > pb (the spin substrings swap), 1: pa == pb, 2: pa < pb, for the
+// prefixes pa, pb of the shells before j
+__host__ __device__ inline int order3_of(uint32_t pa, uint32_t pb) {
+  return pa > pb ? 0 : (pa == pb ? 1 : 2);
+}
+
+__host__ __device__ inline uint64_t low64(int n) { return (uint64_t(1) << n) - 1; }
+
+// The row's line bits, and the same with the two substrings swapped (the
+// integer encoding has no swap: both the same)
+struct alignas(16) RowBits {
+  uint64_t plain, swapped;
+};
+
+__host__ __device__ inline RowBits row_bits(const GlueConfig& c, uint32_t a, uint32_t b) {
+  const int h = c.n_shells - 1;
+  const uint64_t m = low64(h), ma = a & m, mb = b & m;
+  if (c.integer_inputs) return {ma | mb << 32, ma | mb << 32};
+  return {ma | mb << h, mb | ma << h};
+}
+
+// Where a stream of lines finds its bits: per row of the tile its RowBits and
+// a swap mask (bit j: order3 == 0 at shell j); the line (r, j) is shell
+// shell0 + j of row r.
+struct Source {
+  const RowBits* bits;
+  const uint32_t* swaps;
+  int shell0, h;
+  bool integer, canonical;
+};
+
+// +-1 as the binary encoding's (2 bit - 1) times the causal mask gives it
+// (-0.0 where the bit is 0 and the value masked), built from its bits
+template <typename T>
+__host__ __device__ inline T signed_bit(uint32_t bit, uint32_t on);
+template <>
+__host__ __device__ inline float signed_bit<float>(uint32_t bit, uint32_t on) {
+  return bits_to_float((bit ^ 1u) << 31 | (on ? 0x3F800000u : 0u));
+}
+template <>
+__host__ __device__ inline double signed_bit<double>(uint32_t bit, uint32_t on) {
+  return bits_to_double(uint64_t((bit ^ 1u) << 31 | (on ? 0x3FF00000u : 0u)) << 32);
+}
+
+// One line's bits, swapped as its input asks, and its shell's causal mask
+struct Line {
+  uint64_t p, live;
+
+  __host__ __device__ Line(const Source& s, int r, int j) {
+    const int shell = s.shell0 + j;
+    p = s.canonical && ((s.swaps[r] >> shell) & 1u) ? s.bits[r].swapped : s.bits[r].plain;
+    const uint64_t lo = low64(shell);
+    live = s.integer ? lo : lo | lo << s.h;
+  }
+
+  // the bits of values t, t + 1, ... at bits 0, 1, ...: the binary encoding's
+  // bit (or the integer encoding's a), the integer encoding's b, the mask
+  __host__ __device__ void at(const Source& s, int t, uint32_t& pa, uint32_t& pb,
+                              uint32_t& on) const {
+    pa = static_cast<uint32_t>(p >> t);
+    pb = s.integer ? static_cast<uint32_t>(p >> (32 + t)) : 0u;
+    on = static_cast<uint32_t>(live >> t);
+  }
+};
+
+// N values from the bits `Line::at` gives, as the plain version computes
+// them: (2 bit - 1) times the causal mask, or the integer a + b - 1
+// (canonical) / 2a + b times the mask
+template <typename T, int N>
+__host__ __device__ inline void emit(const Source& s, uint32_t pa, uint32_t pb, uint32_t on,
+                                     T* v) {
+  if (s.integer) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int av = (pa >> k) & 1, bv = (pb >> k) & 1;
+      v[k] = T(static_cast<float>(s.canonical ? av + bv - 1 : 2 * av + bv) *
+               static_cast<float>((on >> k) & 1u));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = signed_bit<T>((pa >> k) & 1u, (on >> k) & 1u);
+  }
+}
+
+// A tile's output as lines of w values, `period` lines a row (S for every
+// shell's input, 1 for one shell's). Thread i of a block emits the 16-byte
+// chunks i, i + kThreads, ...; `Walk` holds the step between them, computed
+// once on the host, so that no thread divides: d_t, d_j, d_row advance
+// (t, j, row) by kThreads chunks, and magic_w, magic_p are ceil(2^32 / w) and
+// ceil(2^32 / period), exact quotients of the first chunk's offset (below
+// 2^10) by multiplication.
+struct Walk {
+  int w, period, d_t, d_j, d_row;
+  uint64_t magic_w, magic_p;
+};
+
+// A thread's position at the start of its current chunk; V values a chunk
+template <typename T>
+struct Cursor {
+  static constexpr int V = 16 / static_cast<int>(sizeof(T));
+  int row, j, t;
+
+  __host__ __device__ Cursor(const Walk& wk, uint32_t e0) {
+    const uint32_t line = static_cast<uint32_t>((e0 * wk.magic_w) >> 32);
+    t = static_cast<int>(e0 - line * wk.w);
+    row = static_cast<int>((line * wk.magic_p) >> 32);
+    j = static_cast<int>(line) - row * wk.period;
+  }
+
+  // the chunk's V values; a line ends inside it when w is not a multiple of
+  // V (the next line's bits are loaded only inside the tile's rows)
+  __host__ __device__ void values(const Walk& wk, const Source& s, int rows, T v[V]) const {
+    uint32_t pa, pb, on;
+    if (wk.w >= V - 1) {   // the chunk lies in at most two lines
+      Line(s, row, j).at(s, t, pa, pb, on);
+      const int m = wk.w - t;
+      if (m < V) {   // it runs into the next line: that line's bits from bit m on
+        int r = row, jj = j + 1;
+        if (jj == wk.period) {
+          jj = 0;
+          ++r;
+        }
+        if (r < rows) {
+          uint32_t na, nb, non;
+          Line(s, r, jj).at(s, 0, na, nb, non);
+          const uint32_t keep = (1u << m) - 1u;
+          pa = (pa & keep) | na << m;
+          pb = (pb & keep) | nb << m;
+          on = (on & keep) | non << m;
+        }
+      }
+      emit<T, V>(s, pa, pb, on, v);
+      return;
+    }
+    int r = row, jj = j, tt = t;   // lines of fewer than V - 1 values
+    Line ln(s, r, jj);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (tt == wk.w) {
+        tt = 0;
+        if (++jj == wk.period) {
+          jj = 0;
+          ++r;
+        }
+        if (r < rows) ln = Line(s, r, jj);
+      }
+      ln.at(s, tt, pa, pb, on);
+      emit<T, 1>(s, pa, pb, on, v + k);
+      ++tt;
+    }
+  }
+
+  __host__ __device__ void advance(const Walk& wk) {
+    t += wk.d_t;
+    j += wk.d_j;
+    row += wk.d_row;
+    if (t >= wk.w) {
+      t -= wk.w;
+      ++j;
+    }
+    if (j >= wk.period) {
+      j -= wk.period;
+      ++row;
+    }
+  }
+};
+
 template <typename T> struct Vec4;
 template <> struct Vec4<float> {
   __device__ static void store(float* p, const float v[4]) {
@@ -244,24 +403,6 @@ template <> struct Vec4<double> {
 };
 
 // ---------------------------------------------------------------- kernels
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-shell_features_kernel(GlueConfig c, const int64_t* __restrict__ a,
-                      const int64_t* __restrict__ b, int j, int n_rows, T* __restrict__ x,
-                      int32_t* __restrict__ meta) {
-  const int n = n_rows * c.in_width;   // below 2^31: the C entry's check
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
-    const int r = e / c.in_width, col = e - r * c.in_width;
-    const int64_t ar = a[r], br = b[r];
-    x[e] = input_value<T>(c, ar, br, j, col, c.amp_sym);
-    if (col == 0) {
-      meta[r] = order3_of(ar, br, j);
-      meta[n_rows + r] = popc64(ar & low_bits(j));
-      meta[2 * int64_t(n_rows) + r] = popc64(br & low_bits(j));
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -285,45 +426,215 @@ shell_epilogue_kernel(GlueConfig c, const T* __restrict__ raw, const int32_t* __
       make_uchar4(m & 1, (m >> 1) & 1, (m >> 2) & 1, (m >> 3) & 1);
 }
 
-// second: 0 no second input; 1 the phase net's, the last shell's only (rows,
-// in_width); 2 every shell's (rows, S, in_width)
+// A 16-byte store of a chunk's values
+__device__ inline void store16(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ inline void store16(double* p, const double v[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+// The tile's n values of lines, from out (16-byte aligned): each thread its
+// chunks, computed in registers and stored as one 16-byte store each, so a
+// warp writes 512 contiguous bytes; the tile's last chunk, where n is not a
+// multiple of V, value by value.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-state_features_kernel(GlueConfig c, const int64_t* __restrict__ states, int n_rows,
-                      T* __restrict__ x, T* __restrict__ x2, int second,
-                      int32_t* __restrict__ code) {
-  __shared__ int64_t sa[kFeatureRows], sb[kFeatureRows];
-  const int s = c.n_shells, w = c.in_width, sw = s * w;
-  const int row0 = blockIdx.x * kFeatureRows;
-  const int rows = min(kFeatureRows, n_rows - row0);
-  const int t = threadIdx.x;
-  if (t < rows) {   // the row's bits in model order: bit j = shell shell_order[j]
-    const int64_t st = states[row0 + t];
-    int64_t a = 0, b = 0;
-    for (int j = 0; j < s; ++j) {
-      const int q = 2 * c.shell_order[j];
-      a |= ((st >> q) & 1) << j;
-      b |= ((st >> (q + 1)) & 1) << j;
+__device__ void stream_lines(const Walk& wk, const Source& s, int rows, T* out, int n) {
+  constexpr int V = Cursor<T>::V;
+  Cursor<T> cur(wk, threadIdx.x * V);
+  for (int e = threadIdx.x * V; e < n; e += kThreads * V, cur.advance(wk)) {
+    T v[V];
+    cur.values(wk, s, rows, v);
+    if (e + V <= n) {
+      store16(out + e, v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (k < n - e) out[e + k] = v[k];
     }
-    sa[t] = a;
-    sb[t] = b;
+  }
+}
+
+// n int32 words from shared memory to out (16-byte aligned), 16 bytes a thread
+__device__ void copy_words(const int32_t* src, int32_t* out, int n) {
+  const int n4 = n / 4;
+  for (int i = threadIdx.x; i < n4; i += kThreads)
+    reinterpret_cast<int4*>(out)[i] = reinterpret_cast<const int4*>(src)[i];
+  for (int i = 4 * n4 + threadIdx.x; i < n; i += kThreads) out[i] = src[i];
+}
+
+// The shell_order permutation into shared memory, each entry by a constant
+// index (a runtime index into the kernel's parameter would copy it to the stack)
+__device__ void load_order(const GlueConfig& c, int* order) {
+#pragma unroll
+  for (int i = 0; i < kMaxShells + 1; ++i)
+    if (threadIdx.x == i) order[i] = c.shell_order[i];
+}
+
+// ---------------------------------------- the bulk-store route (timed, see PERF.md)
+
+constexpr int kStageChunks = 2;                      // chunks a thread a staged piece
+constexpr int kPiece = kThreads * kStageChunks;      // 16-byte chunks a piece (8 KB)
+
+__device__ inline uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ inline void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// one bulk copy of `bytes` (a multiple of 16) from shared memory to out
+__device__ inline void bulk_store(void* out, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(out), "r"(shared_address(src)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// wait until at most N bulk groups still read shared memory
+template <int N>
+__device__ inline void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// stream_lines through shared memory: a piece of kPiece chunks is written to
+// one of two staging buffers, then leaves by one bulk store issued by thread 0
+// while the block computes the next piece into the other buffer
+template <typename T>
+__device__ void stream_lines_bulk(const Walk& wk, const Source& s, int rows, T* out, int n,
+                                  uint4* stage) {
+  constexpr int V = Cursor<T>::V;
+  Cursor<T> cur(wk, threadIdx.x * V);
+  const int whole = n / V;
+  int e = threadIdx.x * V;
+  for (int base = 0, piece = 0; base < n; base += kPiece * V, ++piece) {
+    uint4* buf = stage + (piece & 1) * kPiece;
+    for (int k = 0; k < kStageChunks; ++k, e += kThreads * V, cur.advance(wk)) {
+      if (e >= n) continue;
+      T v[Cursor<T>::V];
+      cur.values(wk, s, rows, v);
+      if (e + V <= n) {
+        store16(reinterpret_cast<T*>(buf + k * kThreads + threadIdx.x), v);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          if (i < n - e) out[e + i] = v[i];
+      }
+    }
+    fence_async_shared();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int chunks = min(whole - base / V, kPiece);
+      if (chunks > 0) bulk_store(out + base, buf, 16u * chunks);
+      bulk_wait_read<1>();   // the piece before has left: its buffer is free
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) bulk_wait_read<0>();
+  __syncthreads();
+}
+
+// One block a tile of kTileRows frontier rows, one thread a row: a, b are read
+// once, order3, ca and cb written to meta's three rows (coalesced), the line
+// bits and the swap flag kept in shared memory; then the tile's x (rows x
+// in_width, contiguous) leaves in 16-byte chunks (stream_lines).
+template <typename T, bool kBulk>
+__global__ void __launch_bounds__(kThreads)
+shell_features_kernel(GlueConfig c, Walk wk, const int64_t* __restrict__ a,
+                      const int64_t* __restrict__ b, int j, int n_rows, T* __restrict__ x,
+                      int32_t* __restrict__ meta) {
+  __shared__ RowBits s_bits[kTileRows];
+  __shared__ uint32_t s_swap[kTileRows];
+  __shared__ uint4 stage[kBulk ? 2 * kPiece : 1];
+  const int64_t row0 = int64_t(blockIdx.x) * kTileRows;
+  const int rows = n_rows - row0 < kTileRows ? static_cast<int>(n_rows - row0) : kTileRows;
+  const int r = threadIdx.x;
+  if (r < rows) {
+    const uint32_t ar = static_cast<uint32_t>(a[row0 + r]), br = static_cast<uint32_t>(b[row0 + r]);
+    const uint32_t lo = (1u << j) - 1u, pa = ar & lo, pb = br & lo;
+    const int order3 = order3_of(pa, pb);
+    meta[row0 + r] = order3;
+    meta[n_rows + row0 + r] = popc64(pa);
+    meta[2 * int64_t(n_rows) + row0 + r] = popc64(pb);
+    s_bits[r] = row_bits(c, ar, br);
+    s_swap[r] = static_cast<uint32_t>(order3 == 0) << j;
   }
   __syncthreads();
-  for (int e = t; e < rows * s; e += blockDim.x) {
-    const int r = e / s;
-    code[int64_t(row0) * s + e] = shell_code(c, sa[r], sb[r], e - r * s);
-  }
-  for (int e = t; e < rows * sw; e += blockDim.x) {
-    const int r = e / sw, k = e - r * sw, j = k / w;
-    x[int64_t(row0) * sw + e] = input_value<T>(c, sa[r], sb[r], j, k - j * w, c.amp_sym);
-    if (second == 2)
-      x2[int64_t(row0) * sw + e] = input_value<T>(c, sa[r], sb[r], j, k - j * w, c.phase_sym);
-  }
-  if (second == 1)
-    for (int e = t; e < rows * w; e += blockDim.x) {
-      const int r = e / w;
-      x2[int64_t(row0) * w + e] = input_value<T>(c, sa[r], sb[r], s - 1, e - r * w, c.phase_sym);
+  const Source s{s_bits, s_swap, j, c.n_shells - 1, c.integer_inputs != 0, c.amp_sym != 0};
+  if constexpr (kBulk)
+    stream_lines_bulk(wk, s, rows, x + row0 * c.in_width, rows * c.in_width, stage);
+  else
+    stream_lines(wk, s, rows, x + row0 * c.in_width, rows * c.in_width);
+}
+
+// One block a tile of kTileRows states, one thread a row: the row's bits in
+// model order (bit j = state shell shell_order[j]), its S codes into shared
+// memory, its line bits and swap mask; then the codes (rows x S int32) and x
+// (rows x S x in_width), and x2 as `second` says, leave in 16-byte chunks.
+// second: 0 no second input; 1 the phase net's, the last shell's only (rows,
+// in_width); 2 every shell's (rows, S, in_width). Dynamic shared memory:
+// kTileRows x (16 + 4 + 4 S) bytes.
+template <typename T, bool kBulk>
+__global__ void __launch_bounds__(kThreads)
+state_features_kernel(GlueConfig c, Walk wk_all, Walk wk_last,
+                      const int64_t* __restrict__ states, int n_rows, T* __restrict__ x,
+                      T* __restrict__ x2, int second, int32_t* __restrict__ code) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_order[kMaxShells + 1];
+  RowBits* s_bits = reinterpret_cast<RowBits*>(smem);
+  uint32_t* s_swap = reinterpret_cast<uint32_t*>(s_bits + kTileRows);
+  int32_t* s_code = reinterpret_cast<int32_t*>(s_swap + kTileRows);
+  const int s = c.n_shells, w = c.in_width;
+  const int64_t row0 = int64_t(blockIdx.x) * kTileRows;
+  const int rows = n_rows - row0 < kTileRows ? static_cast<int>(n_rows - row0) : kTileRows;
+  const int r = threadIdx.x;
+  load_order(c, s_order);
+  __syncthreads();
+  if (r < rows) {
+    const int64_t st = states[row0 + r];
+    uint32_t a = 0, b = 0, swaps = 0;
+    for (int j = 0; j < s; ++j) {
+      const uint32_t pair = static_cast<uint32_t>(st >> (2 * s_order[j])) & 3u;
+      a |= (pair & 1u) << j;
+      b |= (pair >> 1) << j;
     }
+    int32_t* cd = s_code + r * s;
+    for (int j = 0; j < s; ++j) {
+      const uint32_t lo = (1u << j) - 1u, pa = a & lo, pb = b & lo;
+      const int order3 = order3_of(pa, pb);
+      swaps |= static_cast<uint32_t>(order3 == 0) << j;
+      cd[j] = order3 | static_cast<int>((a >> j) & 1u) << 2 | static_cast<int>((b >> j) & 1u) << 3 |
+              popc64(pa) << 8 | popc64(pb) << 16;
+    }
+    // the exchange phase shift pi (N01 mod 2) where the full pa < pb
+    if (a < b && (popc64(~a & b) & 1)) cd[s - 1] |= 1 << 4;
+    s_bits[r] = row_bits(c, a, b);
+    s_swap[r] = swaps;
+  }
+  __syncthreads();
+  const int h = s - 1;
+  const bool integer = c.integer_inputs != 0;
+  const Source amp{s_bits, s_swap, 0, h, integer, c.amp_sym != 0};
+  const Source all2{s_bits, s_swap, 0, h, integer, c.phase_sym != 0};
+  const Source last2{s_bits, s_swap, s - 1, h, integer, c.phase_sym != 0};
+  if constexpr (kBulk) {
+    // the codes leave by one bulk store (and the tail of a ragged tile by hand)
+    uint4* stage = reinterpret_cast<uint4*>(s_code + kTileRows * s);
+    const int n_code = rows * s, whole = n_code / 4 * 4;
+    fence_async_shared();
+    __syncthreads();
+    if (r == 0 && whole) bulk_store(code + row0 * s, s_code, 4u * whole);
+    for (int i = whole + r; i < n_code; i += kThreads) code[row0 * s + i] = s_code[i];
+    stream_lines_bulk(wk_all, amp, rows, x + row0 * s * w, rows * s * w, stage);
+    if (second == 2)
+      stream_lines_bulk(wk_all, all2, rows, x2 + row0 * s * w, rows * s * w, stage);
+    else if (second == 1)
+      stream_lines_bulk(wk_last, last2, rows, x2 + row0 * w, rows * w, stage);
+  } else {
+    copy_words(s_code, code + row0 * s, rows * s);
+    stream_lines(wk_all, amp, rows, x + row0 * s * w, rows * s * w);
+    if (second == 2)
+      stream_lines(wk_all, all2, rows, x2 + row0 * s * w, rows * s * w);
+    else if (second == 1)
+      stream_lines(wk_last, last2, rows, x2 + row0 * w, rows * w);
+  }
 }
 
 template <typename T>
@@ -448,6 +759,44 @@ int blocks_for(int64_t n, int per_block) {
   return static_cast<int>((n + per_block - 1) / per_block);
 }
 
+// ceil(2^32 / d): (x * magic(d)) >> 32 is x / d for every x with x d < 2^32
+uint64_t magic(int d) { return ((uint64_t(1) << 32) + d - 1) / d; }
+
+// the step of kThreads chunks of v values over lines of w values, `period` a row
+Walk make_walk(int w, int period, int v) {
+  const int step = kThreads * v, lines = step / w;
+  return {w, period, step % w, lines % period, lines / period, magic(w), magic(period)};
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <typename T, bool kBulk>
+int shell_features_as(const GlueConfig& c, const int64_t* a, const int64_t* b, int j,
+                      int n_rows, void* x, void* meta, cudaStream_t s) {
+  const Walk wk = make_walk(c.in_width, 1, Cursor<T>::V);
+  shell_features_kernel<T, kBulk><<<blocks_for(n_rows, kTileRows), kThreads, 0, s>>>(
+      c, wk, a, b, j, n_rows, static_cast<T*>(x), static_cast<int32_t*>(meta));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kBulk>
+int state_features_as(const GlueConfig& c, const int64_t* states, int n_rows, void* x,
+                      void* x2, int second, void* code, cudaStream_t s) {
+  const Walk all = make_walk(c.in_width, c.n_shells, Cursor<T>::V);
+  const Walk last = make_walk(c.in_width, 1, Cursor<T>::V);
+  const int smem = kTileRows * (16 + 4 + 4 * c.n_shells) + (kBulk ? 2 * kPiece * 16 : 0);
+  const auto kernel = state_features_kernel<T, kBulk>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  kernel<<<blocks_for(n_rows, kTileRows), kThreads, smem, s>>>(
+      c, all, last, states, n_rows, static_cast<T*>(x), static_cast<T*>(x2), second,
+      static_cast<int32_t*>(code));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int tables_epilogue_as(const GlueConfig& c, int mode, const TablesArgs<T>& q, cudaStream_t s) {
   const int rows_per_block = kThreads / c.n_shells;
@@ -479,25 +828,31 @@ TablesArgs<T> tables_args(const void* raw, const void* phase, int layout, const 
 // launch; f64 selects the double instantiation (a float64 model), else float;
 // n_rows = 0 launches nothing. Returns a cudaError_t.
 
-// x: (n_rows, in_width); meta: (3, n_rows) int32 rows order3, ca, cb.
-extern "C" int shell_features(const void* cfg, const void* a, const void* b, int j, int n_rows,
-                              void* x, void* meta, int f64, void* stream) {
+// x: (n_rows, in_width), 16-byte aligned; meta: (3, n_rows) int32 rows order3,
+// ca, cb.
+template <bool kBulk>
+int shell_features_route(const void* cfg, const void* a, const void* b, int j, int n_rows,
+                         void* x, void* meta, int f64, void* stream) {
   const GlueConfig& c = *static_cast<const GlueConfig*>(cfg);
-  if (!config_ok(c) || j < 0 || j >= c.n_shells || n_rows < 0 ||
+  if (!config_ok(c) || j < 0 || j >= c.n_shells || n_rows < 0 || !aligned16(x) ||
       int64_t(n_rows) * c.in_width >= (int64_t(1) << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
-  const int blocks = blocks_for(int64_t(n_rows) * c.in_width, kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* pa = static_cast<const int64_t*>(a);
   const int64_t* pb = static_cast<const int64_t*>(b);
-  if (f64)
-    shell_features_kernel<double><<<blocks, kThreads, 0, s>>>(
-        c, pa, pb, j, n_rows, static_cast<double*>(x), static_cast<int32_t*>(meta));
-  else
-    shell_features_kernel<float><<<blocks, kThreads, 0, s>>>(
-        c, pa, pb, j, n_rows, static_cast<float*>(x), static_cast<int32_t*>(meta));
-  return static_cast<int>(cudaGetLastError());
+  return f64 ? shell_features_as<double, kBulk>(c, pa, pb, j, n_rows, x, meta, s)
+             : shell_features_as<float, kBulk>(c, pa, pb, j, n_rows, x, meta, s);
+}
+
+extern "C" int shell_features(const void* cfg, const void* a, const void* b, int j, int n_rows,
+                              void* x, void* meta, int f64, void* stream) {
+  return shell_features_route<false>(cfg, a, b, j, n_rows, x, meta, f64, stream);
+}
+
+extern "C" int shell_features_bulk(const void* cfg, const void* a, const void* b, int j,
+                                   int n_rows, void* x, void* meta, int f64, void* stream) {
+  return shell_features_route<true>(cfg, a, b, j, n_rows, x, meta, f64, stream);
 }
 
 // raw: (n_rows, n_out), the amp columns first; log_amp, probs: (n_rows, 4);
@@ -524,24 +879,30 @@ extern "C" int shell_epilogue(const void* cfg, const void* raw, const void* meta
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (n_rows, S, in_width); x2 as `second` says (null for 0); code: (n_rows, S).
-extern "C" int state_features(const void* cfg, const void* states, int n_rows, void* x,
-                              void* x2, int second, void* code, int f64, void* stream) {
+// x: (n_rows, S, in_width); x2 as `second` says (null for 0); code: (n_rows, S);
+// each 16-byte aligned.
+template <bool kBulk>
+int state_features_route(const void* cfg, const void* states, int n_rows, void* x, void* x2,
+                         int second, void* code, int f64, void* stream) {
   const GlueConfig& c = *static_cast<const GlueConfig*>(cfg);
-  if (!config_ok(c) || n_rows < 0 || second < 0 || second > 2 || (second && !x2))
+  if (!config_ok(c) || n_rows < 0 || second < 0 || second > 2 || (second && !x2) ||
+      !aligned16(x) || !aligned16(x2) || !aligned16(code))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
-  const int blocks = blocks_for(n_rows, kFeatureRows);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* st = static_cast<const int64_t*>(states);
-  int32_t* pc = static_cast<int32_t*>(code);
-  if (f64)
-    state_features_kernel<double><<<blocks, kThreads, 0, s>>>(
-        c, st, n_rows, static_cast<double*>(x), static_cast<double*>(x2), second, pc);
-  else
-    state_features_kernel<float><<<blocks, kThreads, 0, s>>>(
-        c, st, n_rows, static_cast<float*>(x), static_cast<float*>(x2), second, pc);
-  return static_cast<int>(cudaGetLastError());
+  return f64 ? state_features_as<double, kBulk>(c, st, n_rows, x, x2, second, code, s)
+             : state_features_as<float, kBulk>(c, st, n_rows, x, x2, second, code, s);
+}
+
+extern "C" int state_features(const void* cfg, const void* states, int n_rows, void* x,
+                              void* x2, int second, void* code, int f64, void* stream) {
+  return state_features_route<false>(cfg, states, n_rows, x, x2, second, code, f64, stream);
+}
+
+extern "C" int state_features_bulk(const void* cfg, const void* states, int n_rows, void* x,
+                                   void* x2, int second, void* code, int f64, void* stream) {
+  return state_features_route<true>(cfg, states, n_rows, x, x2, second, code, f64, stream);
 }
 
 // mode 0 forward: out0, out1 = log|psi|, arg psi (n_rows,); 1 vjp: from the

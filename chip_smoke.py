@@ -429,20 +429,26 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      at H2O 6-31G's full width (phase 3's model, capacity 100,000): one
      sample() call's 13 shells through the same calls, shell_features and
      shell_epilogue launched once a shell and held on every shell's frontier
-     against their plain versions (the features and the mask bitwise,
-     log_amp4 and probs4 within nade_glue.GLUE_TOL, the same zeros), each
-     bitwise on a repeat; on a sampled batch at capacity (SENTINEL rows past
-     n_unique) state_features bitwise and tables_epilogue's forward, vjp and
+     against their plain versions (the features and the mask bitwise, signed
+     zeros included, log_amp4 and probs4 within nade_glue.GLUE_TOL, the same
+     zeros), each bitwise on a repeat; on a sampled batch at capacity
+     (SENTINEL rows past n_unique) state_features bitwise (signed zeros
+     included) and tables_epilogue's forward, vjp and
      jvp within GLUE_TOL of their plain versions, bitwise on a repeat and
      finite; one SR update (GLUE_SR_CG CG iterations) whose every torch.func
      jvp launches tables_epilogue_jvp and every vjp_fn call
      tables_epilogue_vjp; each kernel held in turns with its plain version
      and the nearest one PyTorch call (torch.log_softmax, its backward; none
-     where none exists) with a bound from the bytes it moves. With --before
-     DIR, DIR's VMCTrainer and this tree's on the same weights in turns
-     (GLUE_TURNS rounds): one sample() call's wall time and its device
-     kernels and copies, one factored step's wall time, device time and
-     busy share.
+     where none exists) with a bound from the bytes it moves, and its
+     registers, stack and static shared memory (ptxas), state_features' dynamic
+     shared memory from its C entry. With --before
+     DIR, DIR's shell_features and state_features on the same inputs
+     (bitwise this tree's) in those turns ("before_ms"), and DIR's
+     VMCTrainer and this tree's on the same weights in turns (GLUE_TURNS
+     rounds): one sample() call's wall time and its device kernels and
+     copies (the same count in both trees, or the phase fails), one factored
+     step's wall time, device time and busy share, one SR update's
+     (GLUE_SR_CG CG iterations) wall and device time.
 With --profile, the profiled step of each engine (H2O 6-31G factored and
 rank, Li2O staircase, N2 6-31G sort, frozen-core N2 6-31G rank with no
 dense A) must show one device kernel per wrapper call of the
@@ -496,8 +502,9 @@ dense_grid_accumulate, "exact_*") the held time, the plain version's, the
 error and a bound recounted for that shape's data; then phase 18's six
 entries of the model's glue (launches from phase 6, "launches_sample_call"
 and "launches_sr_update" from phase 18, registers by instantiation, and
-with --before the sample() and step numbers of both trees under
-tables_epilogue's "before"); and last {"ok": true,
+with --before shell_features' and state_features' "before_ms" and the
+sample(), step and SR numbers of both trees under tables_epilogue's
+"before"); and last {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1323,10 +1330,10 @@ def _graph_replays(wrapper, args, replays=3):
 
 
 def _ptxas_registers(build_log, kernel):
-    """{mangled entry name: {"registers", "stack", "spill_stores", "spill_loads"}}
-    of each instantiation of `kernel` in nvcc's -Xptxas -v report (the mangled
-    name holds the kernel's name; stack and spills from the entry's own
-    "Function properties" line)."""
+    """{mangled entry name: {"registers", "stack", "spill_stores", "spill_loads",
+    "static_smem"}} of each instantiation of `kernel` in nvcc's -Xptxas -v
+    report (the mangled name holds the kernel's name; stack and spills from the
+    entry's own "Function properties" line; static shared memory in bytes)."""
     usage, entry, props = {}, None, None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -1339,6 +1346,8 @@ def _ptxas_registers(build_log, kernel):
         elif entry and "Used" in line and "registers" in line:
             usage.setdefault(entry, {})["registers"] = int(
                 line.split("Used")[1].split("registers")[0])
+            usage[entry]["static_smem"] = (int(line.split("bytes smem")[0].split()[-1])
+                                           if "bytes smem" in line else 0)
             entry = None
     return usage
 
@@ -1367,7 +1376,9 @@ def _before_modules(before):
     ops/multinomial} where it has csrc/sampler_step.cu, {"sort_lookup",
     "offdiag_h", "local_energy", "dyn_gather": its ops/...} where it has
     csrc/sort_lookup.cu, {"chem": its chem/integrals} where it has
-    csrc/eri.cu."""
+    csrc/eri.cu, {"nade_glue": its ops/nade_glue} where it has
+    csrc/nade_glue.cu, and always {"nade", "trainer", "sr": its models/nade,
+    trainer and sr}."""
     import importlib
     import inspect
 
@@ -1401,6 +1412,7 @@ def _before_modules(before):
             mods["nade_glue"]._lib()
         mods["nade"] = importlib.import_module("naqs_tpu_torch.models.nade")
         mods["trainer"] = importlib.import_module("naqs_tpu_torch.trainer")
+        mods["sr"] = importlib.import_module("naqs_tpu_torch.sr")
         if has("sort_lookup.cu"):
             for name in ("sort_lookup", "offdiag_h", "local_energy"):
                 mods[name] = importlib.import_module(f"naqs_tpu_torch.ops.{name}")
@@ -3460,28 +3472,34 @@ def _glue_abs_err(got, want):
     return float(d.max()) if d.numel() else 0.0
 
 
-def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, old=None):
+def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None):
     """Phase 18: the model's fused glue at H2O 6-31G's full width (13 shells,
     in_width 24, amp 64, phase 512x512, capacity 100,000). (a) one sample()
     call's shells through the same calls (_shell_inputs): shell_features and
     shell_epilogue launched once a shell, and on every shell's frontier
-    shell_features bitwise against its plain version and shell_epilogue's
-    mask bitwise and log_amp4, probs4 within GLUE_TOL (nade_glue.glue_error),
-    the same zeros, each bitwise on a repeat; (b) a sampled batch at capacity
-    (SENTINEL rows past n_unique): state_features bitwise, tables_epilogue's
-    forward, vjp (seeded cotangents) and jvp (seeded tangents of the raw
-    outputs) within GLUE_TOL of their plain versions and bitwise on a repeat;
-    (c) one SR update (GLUE_SR_CG CG iterations) on a copy of the model and
-    the batch's live rows: one tables_epilogue_jvp launch per torch.func jvp
-    and one tables_epilogue_vjp per vjp_fn call; (d) each kernel held in turns
-    with its plain version and the nearest one PyTorch call, at the
+    shell_features bitwise (signed zeros included: `nade_glue.same_bits`)
+    against its plain version and shell_epilogue's mask bitwise and log_amp4, probs4
+    within GLUE_TOL (nade_glue.glue_error), the same zeros, each bitwise on a
+    repeat; (b) a sampled batch at capacity (SENTINEL rows past n_unique):
+    state_features bitwise, tables_epilogue's forward, vjp (seeded
+    cotangents) and jvp (seeded tangents of the raw outputs) within GLUE_TOL
+    of their plain versions and bitwise on a repeat; (c) one SR update
+    (GLUE_SR_CG CG iterations) on a copy of the model and the batch's live
+    rows: one tables_epilogue_jvp launch per torch.func jvp and one
+    tables_epilogue_vjp per vjp_fn call; (d) each kernel held in turns with its
+    plain version and the nearest one PyTorch call (with --before also DIR's
+    shell_features and state_features, bitwise this tree's first), at the
     steady-state shell with the most live rows and at the batch, with a bound
-    from the bytes each moves; (e) with --before DIR (old: DIR's modules),
-    one sample() call's wall time and device launches and one factored step's
-    wall time, device time and busy share, DIR's trainer and this tree's on
-    the same weights, in turns. `path_counts`: phase 6's launches of the six
+    from the bytes each moves, and its registers, stack and static shared
+    memory (`build_log`: nvcc's -Xptxas -v report of nade_glue.cu) and
+    state_features' dynamic shared memory (`nade_glue.state_features_smem`); (e) with --before DIR (old: DIR's modules), one sample()
+    call's wall time and device launches (the same in both trees), one
+    factored step's wall time, device time and busy share, and one SR
+    update's wall and device time, DIR's trainer and this tree's on the same
+    weights, in turns. `path_counts`: phase 6's launches of the six
     wrappers. Returns the six kernels' JSON entries."""
     import copy
+    import dataclasses
 
     import torch
     from naqs_tpu_torch import sr as sr_mod
@@ -3515,8 +3533,7 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, old=None):
         x, meta = g.shell_features(cfg, a, b, j)
         x_r, meta_r = g.shell_features_ref(cfg, a, b, j)
         again = g.shell_features(cfg, a, b, j)
-        same = (torch.equal(x, x_r) and torch.equal(meta, meta_r) and torch.equal(x, again[0])
-                and torch.equal(meta, again[1]))
+        same = g.same_bits((x, meta), (x_r, meta_r)) and g.same_bits((x, meta), again)
         with torch.no_grad():
             raw = model.amp.single(j, x)
         e_got = g.shell_epilogue(cfg, raw, meta, j)
@@ -3529,9 +3546,9 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, old=None):
         err["shell_epilogue"] = max(err["shell_epilogue"], _glue_abs_err(e_got, e_want))
         ratio["shell_epilogue"] = max(ratio["shell_epilogue"], r)
         live = int(args[3].sum())
-        print(f"[glue] shell {j}: {live} live rows; shell_features bitwise equal to its plain "
-              f"version and to itself={same}; shell_epilogue at {r:.3f} of GLUE_TOL, mask and "
-              f"zeros equal, bitwise on a repeat", flush=True)
+        print(f"[glue] shell {j}: {live} live rows; shell_features bitwise (signed zeros "
+              f"included) equal to its plain version and to itself={same}; shell_epilogue "
+              f"at {r:.3f} of GLUE_TOL, mask and zeros equal, bitwise on a repeat", flush=True)
         if not ok:
             raise SystemExit(f"shell {j}: shell_features or shell_epilogue disagrees with its "
                              f"plain version")
@@ -3544,11 +3561,10 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, old=None):
     n_live = int(batch.n_unique)
     feats = g.state_features(cfg, states)
     feats_r = g.state_features_ref(cfg, states)
-    same = all((p is None and q is None) or torch.equal(p, q) for p, q in zip(feats, feats_r)) \
-        and all(p is None or torch.equal(p, q) for p, q in
-                zip(feats, g.state_features(cfg, states)))
+    same = g.same_bits(feats, feats_r) and g.same_bits(feats, g.state_features(cfg, states))
     print(f"[glue] state_features on the batch ({states.shape[0]} rows, {n_live} live, the rest "
-          f"SENTINEL): bitwise equal to its plain version and to itself={same}", flush=True)
+          f"SENTINEL): bitwise (signed zeros included) equal to its plain version and to "
+          f"itself={same}", flush=True)
     if not same:
         raise SystemExit("state_features disagrees with its plain version")
     x, x2, code = feats
@@ -3650,6 +3666,21 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, old=None):
     }
     for name, (fn, ref) in modes.items():
         fns[name], fns[f"{name}_ref"] = fn, ref
+    # with --before: DIR's two feature kernels on the same inputs, bitwise this
+    # tree's first, then in turns with this tree's
+    earlier = {}
+    cfg_old = None if not old else old["nade"].NAQSConfig(
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+    if old and "nade_glue" in old:
+        og = old["nade_glue"]
+        for name, call in (("shell_features", lambda: og.shell_features(cfg_old, fa, fb, fj)),
+                           ("state_features", lambda: og.state_features(cfg_old, states))):
+            if not g.same_bits(call(), fns[name]()):
+                raise SystemExit(f"the earlier tree's {name} differs from this tree's")
+            earlier[name] = f"{name} (earlier tree)"
+            fns[earlier[name]] = call
+        print(f"[before] the earlier tree's shell_features and state_features bitwise equal to "
+              f"this tree's on the same inputs", flush=True)
     times = time_in_turns(fns, REPEATS, LAUNCHES)
     for name, (med, spread, held) in times.items():
         print(f"[glue] held ({held:.1f} ms) {name}: median {med:.4f} ms, spread "
@@ -3678,6 +3709,22 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, old=None):
               "tables_epilogue_jvp": _bound(jvp_bytes, rows * s * (shell_ops + 20))}
     for name, (ms, by) in bounds.items():
         print(f"[bound] {name} {ms:.5f} ms ({by})", flush=True)
+    # registers, stack and static shared memory by instantiation (-Xptxas -v);
+    # state_features' dynamic shared memory as its C entry sizes it (the only
+    # glue kernel launched with any)
+    usage = _ptxas_registers(build_log, "_kernel")
+    dynamic = {"state_features": g.state_features_smem(cfg)}
+    regs = {}
+    for name in names:
+        kernel = "tables_epilogue_kernel" if name.startswith("tables_epilogue") else \
+            f"{name}_kernel"
+        extra = {"dynamic_smem": dynamic[name]} if name in dynamic else {}
+        regs[name] = {k: dict(v, **extra) for k, v in usage.items() if kernel in k}
+        for k, v in regs[name].items():
+            print(f"[glue] {name} {k}: {v.get('registers')} registers, {v.get('stack')} B "
+                  f"stack, {v.get('spill_stores')} B spill stores, {v.get('static_smem')} B "
+                  f"static shared memory a block"
+                  + (f" + {v['dynamic_smem']} B dynamic" if extra else ""), flush=True)
     library = {"shell_features": None, "shell_epilogue": "log_softmax (shell)",
                "state_features": None, "tables_epilogue": "log_softmax (tables)",
                "tables_epilogue_vjp": "log_softmax backward (tables)",
@@ -3699,23 +3746,28 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, old=None):
                 "tables_epilogue_vjp": "naqs_tpu/models/nade.py:423",
                 "tables_epilogue_jvp": "naqs_tpu/models/nade.py:423"}
 
-    # (e) with --before: one sample() call and one factored step, DIR's and this tree's
+    # (e) with --before: one sample() call, one factored step and one SR update
+    # (GLUE_SR_CG CG iterations on the batch's live rows), DIR's and this tree's
     before = {}
     if old and "trainer" in old:
-        import dataclasses as dc
-
         t_old = time.time()
-        cfg_old = old["nade"].NAQSConfig(**{f.name: getattr(cfg, f.name)
-                                            for f in dc.fields(cfg)})
         tr_old = old["trainer"].VMCTrainer(cfg_old, tr.terms, tr.hilbert, tr.tc, device=dev)
         tr_old.model.load_state_dict(model.state_dict())
         for t in (tr, tr_old):
             t.n_samples = 1e5
         print(f"[before] the earlier tree's trainer made in {time.time() - t_old:.1f} s",
               flush=True)
-        walls = {"this tree": {"sample": [], "step": []}, "earlier tree": {"sample": [],
-                                                                           "step": []}}
+        walls = {label: {"sample": [], "step": [], "sr": []}
+                 for label in ("this tree", "earlier tree")}
         both = {"this tree": tr, "earlier tree": tr_old}
+        sr_of = {"this tree": sr_mod, "earlier tree": old["sr"]}
+
+        def sr_update(label):
+            """one SR update of the tree's model (a copy: the trainers go on
+            stepping) on the batch's live rows"""
+            m, t = copy.deepcopy(both[label].model), both[label]
+            return lambda: sr_of[label].sr_update(m, t.dt, live, 0.01, 1e-3, cg_iters=GLUE_SR_CG)
+
         for t in both.values():   # warm up: the earlier tree builds its kernels here
             t._sample()
             t.step()
@@ -3732,6 +3784,12 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, old=None):
                 t.step()
                 torch.cuda.synchronize()
                 walls[label]["step"].append(time.time() - t0)
+                fn = sr_update(label)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                fn()
+                torch.cuda.synchronize()
+                walls[label]["sr"].append(time.time() - t0)
         for label, t in both.items():
             # a trace can come back empty (seen once for the earlier tree's
             # sample(), with the step's trace right after it whole): up to 3 tries
@@ -3740,20 +3798,31 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, old=None):
                 _, s_wall, s_dev, n_dev = _profiled_call(t._sample, launches=True)
                 if n_dev:
                     break
+            else:
+                raise SystemExit(f"{label}: the sample() call's trace came back empty 3 times")
             out, p_wall, p_dev = _profiled_call(t.step)
+            _, r_wall, r_dev, r_n = _profiled_call(sr_update(label), launches=True)
             med = {k: sorted(v)[len(v) // 2] for k, v in walls[label].items()}
             before[label] = {"sample_wall_s": med["sample"], "sample_walls_s": walls[label][
                 "sample"], "sample_device_launches": n_dev, "sample_device_ms": s_dev, "sample_traces": tries,
                 "step_wall_s": med["step"], "step_walls_s": walls[label]["step"],
                 "step_device_ms": p_dev, "step_profiled_wall_s": p_wall,
-                "busy_share": p_dev / 1e3 / med["step"]}
+                "busy_share": p_dev / 1e3 / med["step"], "sr_wall_s": med["sr"],
+                "sr_walls_s": walls[label]["sr"], "sr_device_ms": r_dev,
+                "sr_device_launches": r_n, "sr_profiled_wall_s": r_wall}
             print(f"[before] {label}: one sample() call {med['sample']:.4f} s of wall (median "
                   f"of {len(walls[label]['sample'])} in turns), {n_dev} device kernels and "
                   f"copies, {s_dev:.2f} ms of device time (trace {tries} of 3); one factored step {med['step']:.4f} "
                   f"s of wall, {p_dev:.2f} ms of device time under torch.profiler: the card "
-                  f"busy {p_dev / 1e3 / med['step']:.0%} of the unprofiled step ({smi})",
-                  flush=True)
+                  f"busy {p_dev / 1e3 / med['step']:.0%} of the unprofiled step; one SR update "
+                  f"({GLUE_SR_CG} CG iterations) {med['sr']:.4f} s of wall, {r_dev:.2f} ms of "
+                  f"device time, {r_n} device kernels and copies ({smi})", flush=True)
         del tr_old
+        n_mine, n_old = (before[k]["sample_device_launches"] for k in ("this tree",
+                                                                        "earlier tree"))
+        if n_mine != n_old:
+            raise SystemExit(f"one sample() call ran {n_mine} device kernels and copies, the "
+                             f"earlier tree's {n_old}")
 
     entries = []
     for name in names:
@@ -3775,6 +3844,9 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, old=None):
                              "update, every count at 0 just before it, launched it "
                              "launches_sr_update times, once a torch.func jvp"}
                if name == "tables_epilogue_jvp" else {}),
+            "registers": regs[name],
+            **({"before_ms": times[earlier[name]][0], "before_spread": times[earlier[name]][1]}
+               if name in earlier else {}),
             **({"before": before} if before and name == "tables_epilogue" else {})})
     print(f"[glue] phase 18: {time.time() - t18:.1f} s in all", flush=True)
     return entries
@@ -5751,12 +5823,8 @@ def main(argv) -> int:
     # 18. the model's fused glue at the paper width (and, with --before, one sample()
     # call and one factored step of the earlier tree's trainer in turns with this one's)
     tr.dt = dt
-    glue_entries = _glue(dev, tr, cfg, zero_counts, glue, glue_path, smi, old_mods)
-    glue_regs = _ptxas_registers(build_logs.get("nade_glue", ""), "_kernel")
-    for e in glue_entries:
-        e["registers"] = {k: v for k, v in glue_regs.items() if e["name"] + "_kernel" in k
-                          or (e["name"].startswith("tables_epilogue")
-                              and "tables_epilogue_kernel" in k)}
+    glue_entries = _glue(dev, tr, cfg, zero_counts, glue, glue_path, smi,
+                         build_logs.get("nade_glue", ""), old_mods)
 
     def entry(name, launches, err, t_plain, bound, t_library,
               source="naqs_tpu_torch/csrc/rank_gather.cu",

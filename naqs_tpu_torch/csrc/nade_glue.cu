@@ -38,17 +38,33 @@
 // What bounds them: bytes. At H2O 6-31G's full width (13 shells, in_width 24)
 // and 100,000 rows state_features writes x, 124.8 MB in float32 (about 37 us
 // at 3.35 TB/s), tables_epilogue reads 32 B of raw outputs and 4 B of code a
-// (row, shell), and the sampler's two kernels move 9-12 MB a shell; their
-// operations are a few tens a value. Design: one thread a value of x in
-// shell_features (coalesced stores), one a row in shell_epilogue; in
-// state_features a block of 32 rows first packs each row's model-order
-// alpha and beta bits into shared memory (the shell order is a permutation),
-// then its threads write the block's codes and inputs in storage order; in
-// tables_epilogue one thread a (row, shell), rows whole inside a block of
-// floor(256 / S) rows, and the forward and jvp sum a row's shells in order
-// from shared memory (no atomics: bitwise repeatable). No kernel allocates,
-// synchronizes or reads anything back: each is one launch on the caller's
-// stream, so a CUDA graph can capture it.
+// (row, shell), and the sampler's two kernels move 7-12 MB a shell.
+//
+// The two feature kernels write dense outputs of a few values a byte of input,
+// so what held their first design (one thread a value) back was instructions:
+// two run-time divisions, two shared-memory loads and the order flag again for
+// every 4-byte value, and one store of 4 bytes. Their design since: one block
+// a tile of kTileRows = 256 rows, one thread a row. The row's model-order bits
+// are packed once (state_features: every thread its own row's permutation
+// loop) into one 64-bit word of line bits and its swapped twin, the same for
+// every shell of the row, and a swap mask (bit j: order3 == 0 at shell j); the
+// codes (or meta) are computed once a (row, shell) and written coalesced. Then
+// the tile's x, contiguous (rows x S x in_width, or rows x in_width), leaves
+// as 16-byte chunks, thread i taking chunks i, i + 256, ...: a chunk's values
+// come from at most two lines' words by shifts under the shell's causal mask,
+// each value's bits built directly (no division: the step between a thread's
+// chunks is precomputed on the host, `Walk`), and one 16-byte store each, so
+// a warp writes 512 contiguous bytes. A route that staged the values in shared
+// memory and wrote them by bulk asynchronous stores (cp.async.bulk, two
+// buffers, one thread issuing) was as fast or slower at every shape timed
+// (PERF.md), and was removed.
+//
+// In the others: one thread a row in shell_epilogue; in tables_epilogue one
+// thread a (row, shell), rows whole inside a block of floor(256 / S) rows,
+// and the forward and jvp sum a row's shells in order from shared memory (no
+// atomics: bitwise repeatable). No kernel allocates, synchronizes or reads
+// anything back: each is one launch on the caller's stream, so a CUDA graph
+// can capture it.
 
 #include <cmath>
 #include <cstdint>
@@ -471,78 +487,17 @@ __device__ void load_order(const GlueConfig& c, int* order) {
     if (threadIdx.x == i) order[i] = c.shell_order[i];
 }
 
-// ---------------------------------------- the bulk-store route (timed, see PERF.md)
-
-constexpr int kStageChunks = 2;                      // chunks a thread a staged piece
-constexpr int kPiece = kThreads * kStageChunks;      // 16-byte chunks a piece (8 KB)
-
-__device__ inline uint32_t shared_address(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ inline void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-// one bulk copy of `bytes` (a multiple of 16) from shared memory to out
-__device__ inline void bulk_store(void* out, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-               ::"l"(out), "r"(shared_address(src)), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-// wait until at most N bulk groups still read shared memory
-template <int N>
-__device__ inline void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-}
-
-// stream_lines through shared memory: a piece of kPiece chunks is written to
-// one of two staging buffers, then leaves by one bulk store issued by thread 0
-// while the block computes the next piece into the other buffer
-template <typename T>
-__device__ void stream_lines_bulk(const Walk& wk, const Source& s, int rows, T* out, int n,
-                                  uint4* stage) {
-  constexpr int V = Cursor<T>::V;
-  Cursor<T> cur(wk, threadIdx.x * V);
-  const int whole = n / V;
-  int e = threadIdx.x * V;
-  for (int base = 0, piece = 0; base < n; base += kPiece * V, ++piece) {
-    uint4* buf = stage + (piece & 1) * kPiece;
-    for (int k = 0; k < kStageChunks; ++k, e += kThreads * V, cur.advance(wk)) {
-      if (e >= n) continue;
-      T v[Cursor<T>::V];
-      cur.values(wk, s, rows, v);
-      if (e + V <= n) {
-        store16(reinterpret_cast<T*>(buf + k * kThreads + threadIdx.x), v);
-      } else {
-#pragma unroll
-        for (int i = 0; i < V; ++i)
-          if (i < n - e) out[e + i] = v[i];
-      }
-    }
-    fence_async_shared();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const int chunks = min(whole - base / V, kPiece);
-      if (chunks > 0) bulk_store(out + base, buf, 16u * chunks);
-      bulk_wait_read<1>();   // the piece before has left: its buffer is free
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) bulk_wait_read<0>();
-  __syncthreads();
-}
-
 // One block a tile of kTileRows frontier rows, one thread a row: a, b are read
 // once, order3, ca and cb written to meta's three rows (coalesced), the line
 // bits and the swap flag kept in shared memory; then the tile's x (rows x
 // in_width, contiguous) leaves in 16-byte chunks (stream_lines).
-template <typename T, bool kBulk>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 shell_features_kernel(GlueConfig c, Walk wk, const int64_t* __restrict__ a,
                       const int64_t* __restrict__ b, int j, int n_rows, T* __restrict__ x,
                       int32_t* __restrict__ meta) {
   __shared__ RowBits s_bits[kTileRows];
   __shared__ uint32_t s_swap[kTileRows];
-  __shared__ uint4 stage[kBulk ? 2 * kPiece : 1];
   const int64_t row0 = int64_t(blockIdx.x) * kTileRows;
   const int rows = n_rows - row0 < kTileRows ? static_cast<int>(n_rows - row0) : kTileRows;
   const int r = threadIdx.x;
@@ -558,10 +513,7 @@ shell_features_kernel(GlueConfig c, Walk wk, const int64_t* __restrict__ a,
   }
   __syncthreads();
   const Source s{s_bits, s_swap, j, c.n_shells - 1, c.integer_inputs != 0, c.amp_sym != 0};
-  if constexpr (kBulk)
-    stream_lines_bulk(wk, s, rows, x + row0 * c.in_width, rows * c.in_width, stage);
-  else
-    stream_lines(wk, s, rows, x + row0 * c.in_width, rows * c.in_width);
+  stream_lines(wk, s, rows, x + row0 * c.in_width, rows * c.in_width);
 }
 
 // One block a tile of kTileRows states, one thread a row: the row's bits in
@@ -570,8 +522,8 @@ shell_features_kernel(GlueConfig c, Walk wk, const int64_t* __restrict__ a,
 // (rows x S x in_width), and x2 as `second` says, leave in 16-byte chunks.
 // second: 0 no second input; 1 the phase net's, the last shell's only (rows,
 // in_width); 2 every shell's (rows, S, in_width). Dynamic shared memory:
-// kTileRows x (16 + 4 + 4 S) bytes.
-template <typename T, bool kBulk>
+// state_features_smem_bytes.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 state_features_kernel(GlueConfig c, Walk wk_all, Walk wk_last,
                       const int64_t* __restrict__ states, int n_rows, T* __restrict__ x,
@@ -609,32 +561,17 @@ state_features_kernel(GlueConfig c, Walk wk_all, Walk wk_last,
     s_swap[r] = swaps;
   }
   __syncthreads();
+  copy_words(s_code, code + row0 * s, rows * s);
   const int h = s - 1;
   const bool integer = c.integer_inputs != 0;
-  const Source amp{s_bits, s_swap, 0, h, integer, c.amp_sym != 0};
-  const Source all2{s_bits, s_swap, 0, h, integer, c.phase_sym != 0};
-  const Source last2{s_bits, s_swap, s - 1, h, integer, c.phase_sym != 0};
-  if constexpr (kBulk) {
-    // the codes leave by one bulk store (and the tail of a ragged tile by hand)
-    uint4* stage = reinterpret_cast<uint4*>(s_code + kTileRows * s);
-    const int n_code = rows * s, whole = n_code / 4 * 4;
-    fence_async_shared();
-    __syncthreads();
-    if (r == 0 && whole) bulk_store(code + row0 * s, s_code, 4u * whole);
-    for (int i = whole + r; i < n_code; i += kThreads) code[row0 * s + i] = s_code[i];
-    stream_lines_bulk(wk_all, amp, rows, x + row0 * s * w, rows * s * w, stage);
-    if (second == 2)
-      stream_lines_bulk(wk_all, all2, rows, x2 + row0 * s * w, rows * s * w, stage);
-    else if (second == 1)
-      stream_lines_bulk(wk_last, last2, rows, x2 + row0 * w, rows * w, stage);
-  } else {
-    copy_words(s_code, code + row0 * s, rows * s);
-    stream_lines(wk_all, amp, rows, x + row0 * s * w, rows * s * w);
-    if (second == 2)
-      stream_lines(wk_all, all2, rows, x2 + row0 * s * w, rows * s * w);
-    else if (second == 1)
-      stream_lines(wk_last, last2, rows, x2 + row0 * w, rows * w);
-  }
+  stream_lines(wk_all, Source{s_bits, s_swap, 0, h, integer, c.amp_sym != 0}, rows,
+               x + row0 * s * w, rows * s * w);
+  if (second == 2)
+    stream_lines(wk_all, Source{s_bits, s_swap, 0, h, integer, c.phase_sym != 0}, rows,
+                 x2 + row0 * s * w, rows * s * w);
+  else if (second == 1)
+    stream_lines(wk_last, Source{s_bits, s_swap, s - 1, h, integer, c.phase_sym != 0}, rows,
+                 x2 + row0 * w, rows * w);
 }
 
 template <typename T>
@@ -770,28 +707,29 @@ Walk make_walk(int w, int period, int v) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T, bool kBulk>
+template <typename T>
 int shell_features_as(const GlueConfig& c, const int64_t* a, const int64_t* b, int j,
                       int n_rows, void* x, void* meta, cudaStream_t s) {
   const Walk wk = make_walk(c.in_width, 1, Cursor<T>::V);
-  shell_features_kernel<T, kBulk><<<blocks_for(n_rows, kTileRows), kThreads, 0, s>>>(
+  shell_features_kernel<T><<<blocks_for(n_rows, kTileRows), kThreads, 0, s>>>(
       c, wk, a, b, j, n_rows, static_cast<T*>(x), static_cast<int32_t*>(meta));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kBulk>
+// state_features_kernel's dynamic shared memory a block: each row's RowBits,
+// swap mask and S codes; below 48 KB for S <= 31.
+int state_features_smem_bytes(const GlueConfig& c) {
+  return kTileRows * static_cast<int>(sizeof(RowBits) + sizeof(uint32_t) +
+                                      sizeof(int32_t) * c.n_shells);
+}
+
+template <typename T>
 int state_features_as(const GlueConfig& c, const int64_t* states, int n_rows, void* x,
                       void* x2, int second, void* code, cudaStream_t s) {
   const Walk all = make_walk(c.in_width, c.n_shells, Cursor<T>::V);
   const Walk last = make_walk(c.in_width, 1, Cursor<T>::V);
-  const int smem = kTileRows * (16 + 4 + 4 * c.n_shells) + (kBulk ? 2 * kPiece * 16 : 0);
-  const auto kernel = state_features_kernel<T, kBulk>;
-  if (smem > 48 * 1024) {
-    const cudaError_t rc =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
-  kernel<<<blocks_for(n_rows, kTileRows), kThreads, smem, s>>>(
+  const int smem = state_features_smem_bytes(c);
+  state_features_kernel<T><<<blocks_for(n_rows, kTileRows), kThreads, smem, s>>>(
       c, all, last, states, n_rows, static_cast<T*>(x), static_cast<T*>(x2), second,
       static_cast<int32_t*>(code));
   return static_cast<int>(cudaGetLastError());
@@ -830,9 +768,8 @@ TablesArgs<T> tables_args(const void* raw, const void* phase, int layout, const 
 
 // x: (n_rows, in_width), 16-byte aligned; meta: (3, n_rows) int32 rows order3,
 // ca, cb.
-template <bool kBulk>
-int shell_features_route(const void* cfg, const void* a, const void* b, int j, int n_rows,
-                         void* x, void* meta, int f64, void* stream) {
+extern "C" int shell_features(const void* cfg, const void* a, const void* b, int j, int n_rows,
+                              void* x, void* meta, int f64, void* stream) {
   const GlueConfig& c = *static_cast<const GlueConfig*>(cfg);
   if (!config_ok(c) || j < 0 || j >= c.n_shells || n_rows < 0 || !aligned16(x) ||
       int64_t(n_rows) * c.in_width >= (int64_t(1) << 31))
@@ -841,18 +778,8 @@ int shell_features_route(const void* cfg, const void* a, const void* b, int j, i
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* pa = static_cast<const int64_t*>(a);
   const int64_t* pb = static_cast<const int64_t*>(b);
-  return f64 ? shell_features_as<double, kBulk>(c, pa, pb, j, n_rows, x, meta, s)
-             : shell_features_as<float, kBulk>(c, pa, pb, j, n_rows, x, meta, s);
-}
-
-extern "C" int shell_features(const void* cfg, const void* a, const void* b, int j, int n_rows,
-                              void* x, void* meta, int f64, void* stream) {
-  return shell_features_route<false>(cfg, a, b, j, n_rows, x, meta, f64, stream);
-}
-
-extern "C" int shell_features_bulk(const void* cfg, const void* a, const void* b, int j,
-                                   int n_rows, void* x, void* meta, int f64, void* stream) {
-  return shell_features_route<true>(cfg, a, b, j, n_rows, x, meta, f64, stream);
+  return f64 ? shell_features_as<double>(c, pa, pb, j, n_rows, x, meta, s)
+             : shell_features_as<float>(c, pa, pb, j, n_rows, x, meta, s);
 }
 
 // raw: (n_rows, n_out), the amp columns first; log_amp, probs: (n_rows, 4);
@@ -881,9 +808,8 @@ extern "C" int shell_epilogue(const void* cfg, const void* raw, const void* meta
 
 // x: (n_rows, S, in_width); x2 as `second` says (null for 0); code: (n_rows, S);
 // each 16-byte aligned.
-template <bool kBulk>
-int state_features_route(const void* cfg, const void* states, int n_rows, void* x, void* x2,
-                         int second, void* code, int f64, void* stream) {
+extern "C" int state_features(const void* cfg, const void* states, int n_rows, void* x,
+                              void* x2, int second, void* code, int f64, void* stream) {
   const GlueConfig& c = *static_cast<const GlueConfig*>(cfg);
   if (!config_ok(c) || n_rows < 0 || second < 0 || second > 2 || (second && !x2) ||
       !aligned16(x) || !aligned16(x2) || !aligned16(code))
@@ -891,18 +817,16 @@ int state_features_route(const void* cfg, const void* states, int n_rows, void* 
   if (n_rows == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* st = static_cast<const int64_t*>(states);
-  return f64 ? state_features_as<double, kBulk>(c, st, n_rows, x, x2, second, code, s)
-             : state_features_as<float, kBulk>(c, st, n_rows, x, x2, second, code, s);
+  return f64 ? state_features_as<double>(c, st, n_rows, x, x2, second, code, s)
+             : state_features_as<float>(c, st, n_rows, x, x2, second, code, s);
 }
 
-extern "C" int state_features(const void* cfg, const void* states, int n_rows, void* x,
-                              void* x2, int second, void* code, int f64, void* stream) {
-  return state_features_route<false>(cfg, states, n_rows, x, x2, second, code, f64, stream);
-}
-
-extern "C" int state_features_bulk(const void* cfg, const void* states, int n_rows, void* x,
-                                   void* x2, int second, void* code, int f64, void* stream) {
-  return state_features_route<true>(cfg, states, n_rows, x, x2, second, code, f64, stream);
+// The bytes of dynamic shared memory a block of state_features' kernel
+// launches with (the other three kernels launch with none); -1 for a
+// configuration the entries refuse.
+extern "C" int state_features_smem(const void* cfg) {
+  const GlueConfig& c = *static_cast<const GlueConfig*>(cfg);
+  return config_ok(c) ? state_features_smem_bytes(c) : -1;
 }
 
 // mode 0 forward: out0, out1 = log|psi|, arg psi (n_rows,); 1 vjp: from the

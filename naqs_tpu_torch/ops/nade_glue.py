@@ -94,6 +94,22 @@ def glue_error(got, want) -> float:
     return float(torch.nan_to_num(err, nan=math.inf).max())
 
 
+def same_bits(got, want) -> bool:
+    """Whether two outputs, or tuples of them (None pairs with None), hold the
+    same bits: float tensors compared as integers of their width, so that
+    -0.0 and +0.0 differ (the features' exactness, signed zeros included)."""
+    if isinstance(got, (tuple, list)):
+        return len(got) == len(want) and all(same_bits(g, w) for g, w in zip(got, want))
+    if got is None or want is None:
+        return got is None and want is None
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.is_floating_point():
+        width = {8: torch.int64, 4: torch.int32, 2: torch.int16}[got.element_size()]
+        got, want = got.view(width), want.view(width)
+    return torch.equal(got, want)
+
+
 @lru_cache(maxsize=64)
 def _index(values: tuple, device: torch.device) -> torch.Tensor:
     """An int64 index tensor of constant values on the device, made once per
@@ -302,8 +318,9 @@ def _lib():
     lib.state_features.argtypes = [ptr, ptr, i32, ptr, ptr, i32, ptr, i32, ptr]
     lib.tables_epilogue.argtypes = [ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                     i32, i32, ptr]
+    lib.state_features_smem.argtypes = [ptr]
     for fn in (lib.shell_features, lib.shell_epilogue, lib.state_features,
-               lib.tables_epilogue):
+               lib.tables_epilogue, lib.state_features_smem):
         fn.restype = i32
     return lib
 
@@ -519,6 +536,13 @@ def state_features(cfg, states):
 
 
 state_features.launches = 0
+
+
+def state_features_smem(cfg) -> int:
+    """The bytes of dynamic shared memory a block of `state_features`' kernel
+    launches with for this configuration, as its C entry sizes it (the other
+    glue kernels launch with none)."""
+    return _lib().state_features_smem(ctypes.addressof(_config(cfg)))
 
 
 # ------------------------------------------------------------ K4

@@ -1,19 +1,13 @@
-"""Time the model's two feature kernels of several trees in turns.
+"""Time the model's two feature kernels over the shapes their design handles.
 
-    python -m naqs_tpu_torch.tools.glue_timing [--before DIR ...] [--variant DIR ...]
+    python -m naqs_tpu_torch.tools.glue_timing
 
 On the card: `shell_features` (one shell of a `sample()` call's frontier) and
 `state_features` (`log_psi`'s features of a batch) of `csrc/nade_glue.cu`,
-built from each tree's own source into that tree's `build/` (only
-`nade_glue.cu`, all trees at once) and called through its own wrapper on the
-same inputs, held, in turns (`utils/cuda_timing.py`: 5 repeats of 50
-launches). Where this tree's library also exports a `*_bulk` entry (the same
-kernel with its output leaving through shared memory by bulk asynchronous
-stores), that route is timed beside it. DIR is the root of a tree that holds
-`naqs_tpu_torch/` (an unpacked `git archive` of an earlier commit, or a copy
-changed to time one design choice), inside a directory `.gitignore` lists;
-every --before tree and route is held bit for bit (signed zeros included) to
-this tree's plain versions, --variant trees only compared.
+each held bit for bit (signed zeros included) to its plain version, twice,
+then held in turns with it (`utils/cuda_timing.py`: 5 repeats of 50
+launches). `chip_smoke.py --before DIR` is the harness that times them
+against an earlier tree, at H2O 6-31G's shapes.
 
 The cases are H2O 6-31G's model (26 qubits, 13 shells, in_width 24, sector
 (5, 5)) at capacity 100,000: shell 12 of a frontier of 100,000 random prefix
@@ -28,16 +22,13 @@ power limit first and one JSON line last.
 
 from __future__ import annotations
 
-import importlib
 import json
-import os
 import subprocess
 import sys
 
 import numpy as np
 import torch
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SENTINEL = np.iinfo(np.int64).max
 HBM_BYTES_PER_S = 3.35e12
 ROWS, LIVE, SHELL = 100_000, 26_000, 12
@@ -87,74 +78,6 @@ def cases(dev):
     }
 
 
-def load_trees(trees):
-    """{label: (ops.nade_glue, models.nade)} of each tree root, its glue
-    library built at once (one nvcc each) into the tree's own build/ and bound
-    while its package is loaded."""
-    ours = lambda name: name.split(".")[0] == "naqs_tpu_torch"  # noqa: E731
-    jobs = [subprocess.Popen([sys.executable, "-c", "from naqs_tpu_torch.ops import _build; "
-                              "_build.build_all(('nade_glue',))"], cwd=d)
-            for d in trees.values()]
-    if any(j.wait() for j in jobs):
-        raise SystemExit("glue_timing: a tree's kernels did not build")
-    mods = {}
-    for label, d in trees.items():
-        saved = {k: sys.modules.pop(k) for k in list(sys.modules) if ours(k)}
-        sys.path.insert(0, d)
-        try:
-            g = importlib.import_module("naqs_tpu_torch.ops.nade_glue")
-            g._lib()
-            mods[label] = (g, importlib.import_module("naqs_tpu_torch.models.nade"))
-        finally:
-            sys.path.remove(d)
-            for k in [k for k in sys.modules if ours(k)]:
-                del sys.modules[k]
-            sys.modules.update(saved)
-    return mods
-
-
-def bulk_route(g, kernel):
-    """This tree's `<kernel>_bulk` entry behind the wrapper's own allocation,
-    or None where the library has none."""
-    lib = g._lib()
-    if not hasattr(lib, f"{kernel}_bulk"):
-        return None
-    entry = getattr(lib, f"{kernel}_bulk")
-    entry.argtypes, entry.restype = getattr(lib, kernel).argtypes, getattr(lib, kernel).restype
-
-    def shell(cfg, a, b, j):
-        n = a.shape[0]
-        x = torch.empty((n, cfg.in_width), dtype=cfg.compute_dtype, device=a.device)
-        meta = torch.empty((3, n), dtype=torch.int32, device=a.device)
-        g._launch(f"{kernel}_bulk", cfg, (a, b, j, n, x, meta, g._f64(cfg)), a.device)
-        return x, meta
-
-    def state(cfg, states):
-        n, s, w, dev = states.shape[0], cfg.n_shells, cfg.in_width, states.device
-        second = g._second_input(cfg)
-        x = torch.empty((n, s, w), dtype=cfg.compute_dtype, device=dev)
-        x2 = (None if not second else
-              torch.empty((n, s, w) if second == 2 else (n, w), dtype=x.dtype, device=dev))
-        code = torch.empty((n, s), dtype=torch.int32, device=dev)
-        g._launch(f"{kernel}_bulk", cfg, (states, n, x, x2, second, code, g._f64(cfg)), dev)
-        return x, x2, code
-
-    return shell if kernel == "shell_features" else state
-
-
-def bits(t):
-    """A tensor's bits: a float tensor viewed as integers of its width."""
-    if t is None or not t.is_floating_point():
-        return t
-    return t.view({8: torch.int64, 4: torch.int32, 2: torch.int16}[t.element_size()])
-
-
-def bitwise(got, want) -> bool:
-    return all((p is None and q is None) or (p is not None and q is not None and p.shape == q.shape
-                                             and torch.equal(bits(p), bits(q)))
-               for p, q in zip(got, want))
-
-
 def bound_ms(kernel, cfg, args, out) -> float:
     """The bytes the kernel must move (inputs read once, outputs written once)
     at the card's memory rate, in ms."""
@@ -163,10 +86,12 @@ def bound_ms(kernel, cfg, args, out) -> float:
     return (n_in + n_out) / HBM_BYTES_PER_S * 1e3
 
 
-def main(argv) -> int:
+def main() -> int:
     if not torch.cuda.is_available():
         print("glue_timing: no CUDA device available", file=sys.stderr)
         return 2
+    from naqs_tpu_torch.models.nade import NAQSConfig
+    from naqs_tpu_torch.ops import nade_glue as g
     from naqs_tpu_torch.utils.cuda_timing import time_in_turns
 
     dev = torch.device("cuda")
@@ -174,34 +99,18 @@ def main(argv) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"[card] {smi}", flush=True)
-    trees, held = {"this tree": REPO}, {"this tree"}
-    for i, arg in enumerate(argv):
-        if arg in ("--before", "--variant"):
-            label = ("variant " if arg == "--variant" else "") + argv[i + 1]
-            trees[label] = os.path.abspath(argv[i + 1])
-            if arg == "--before":
-                held.add(label)
-    mods = load_trees(trees)
     out = {}
     for name, (kernel, kw, args) in cases(dev).items():
-        base = dict(sectors=((5, 5),), amp_hidden=(64,), phase_hidden=(512, 512), **kw)
-        fns = {}
-        for label, (g, nade) in mods.items():
-            cfg = nade.NAQSConfig(**base)
-            fns[label] = (lambda g=g, cfg=cfg: getattr(g, kernel)(cfg, *args))
-        g, nade = mods["this tree"]
-        cfg = nade.NAQSConfig(**base)
-        route = bulk_route(g, kernel)
-        if route is not None:
-            fns["this tree, bulk stores"] = lambda: route(cfg, *args)
-            held.add("this tree, bulk stores")
-        want = getattr(g, f"{kernel}_ref")(cfg, *args)
-        same = {label: bitwise(fn(), want) and bitwise(fn(), want) for label, fn in fns.items()}
+        cfg = NAQSConfig(sectors=((5, 5),), amp_hidden=(64,), phase_hidden=(512, 512), **kw)
+        fns = {"kernel": lambda: getattr(g, kernel)(cfg, *args),
+               "plain version": lambda: getattr(g, f"{kernel}_ref")(cfg, *args)}
+        want = fns["plain version"]()
+        same = g.same_bits(fns["kernel"](), want) and g.same_bits(fns["kernel"](), want)
         bound = bound_ms(kernel, cfg, args, want)
         print(f"[case] {name}: bitwise the plain version's, twice: {same}; bound "
               f"{bound:.5f} ms (bytes)", flush=True)
-        if not all(same[label] for label in held if label in same):
-            raise SystemExit(f"glue_timing: a tree's {kernel} differs from the plain version")
+        if not same:
+            raise SystemExit(f"glue_timing: {kernel} differs from its plain version")
         times = time_in_turns(fns, REPEATS, LAUNCHES)
         for label, (med, spread, _) in times.items():
             print(f"[time] {name} | {label}: {med:.4f} ms (spread {spread[0]:.4f}-"
@@ -216,4 +125,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

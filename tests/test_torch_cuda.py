@@ -67,6 +67,13 @@ cc-pVTZ: angular classes up to L = 8; H2O 6-31G also at other chunks of its
 work list), bitwise equal to itself, one launch a call; the
 kernels' Boys routine within BOYS_RTOL of `boys_ref`; LiH STO-3G generated
 on the card against the same on the CPU (every energy within 1e-8 Ha).
+
+The model's glue (`csrc/nade_glue.cu`): the two feature kernels bit for bit
+(signed zeros included) against their plain versions and on a repeat, at 14
+qubits in every configuration of GLUE_CONFIGS and at the widths of
+GLUE_WIDE (H2O 6-31G's 26 qubits, 28 with a 104-byte line of x and the
+integer encoding's odd in_width, 56 with 28 shells), on 1, 37, 5,000 and
+99,841 rows (one past a 256-row tile); the epilogues within GLUE_TOL.
 """
 
 import dataclasses
@@ -2004,21 +2011,50 @@ GLUE_CONFIGS = [
 ]
 
 
+# other widths for the feature kernels: H2O 6-31G's (13 shells, in_width 24),
+# a 104-byte line of x (14 shells, in_width 26) with a permuted shell order,
+# the integer encoding at an even shell count (in_width 13), 28 shells, and
+# lines of 2 values (shorter than a 16-byte chunk less one value)
+GLUE_WIDE = [
+    dict(n_qubits=26),
+    dict(n_qubits=28, shell_order=(3, 0, 13, 7, 1, 12, 5, 9, 2, 11, 4, 8, 6, 10)),
+    dict(n_qubits=28, input_encoding="integer", use_phase_spin_sym=True),
+    dict(n_qubits=56, use_phase_spin_sym=True, aggregate_phase=True),
+    dict(n_qubits=56, input_encoding="integer", param_dtype="float64"),
+    dict(n_qubits=4, sectors=((1, 1),)),
+    dict(n_qubits=6, sectors=((2, 1),), input_encoding="integer"),
+]
+
+
+def _placed_states(n_qubits, sector, n, rng):
+    """n states of `sector` (n_alpha, n_beta), each spin's electrons placed at
+    random shells: no basis is enumerated (56 qubits has too many states)."""
+    out = np.zeros(n, np.int64)
+    for spin, k in enumerate(sector):
+        pos = np.argsort(rng.random((n, n_qubits // 2)), axis=1)[:, :k]
+        for i in range(k):
+            out |= np.int64(1) << (2 * pos[:, i] + spin)
+    return out
+
+
 def _glue_case(kw, n, seed=0):
-    """A small model on the card and n states: sector states, random 14-bit
-    states (masks with no option at some shells) and 3 SENTINEL rows."""
+    """A small model on the card and n states: sector states (drawn from the
+    basis at 14 qubits, placed wider), random states of n_qubits bits (masks
+    with no option at some shells) and 3 SENTINEL rows."""
     from naqs_tpu_torch.utils.bits import SENTINEL
 
     kw = dict(kw)
     sectors = kw.pop("sectors", ((5, 5),))
+    n_qubits = kw.pop("n_qubits", 14)
     dev = _card()
-    cfg = nt.NAQSConfig(n_qubits=14, sectors=sectors, amp_hidden=(16,), phase_hidden=(32, 32),
-                        **kw)
+    cfg = nt.NAQSConfig(n_qubits=n_qubits, sectors=sectors, amp_hidden=(16,),
+                        phase_hidden=(32, 32), **kw)
     model = nade_t.NADE(cfg, torch.Generator().manual_seed(seed)).to(dev)
     rng = np.random.default_rng(seed)
-    basis = nt.Hilbert(n_qubits=14, sectors=sectors).basis
-    states = np.concatenate([rng.choice(basis, size=n - n // 4 - 3),
-                             rng.integers(0, 1 << 14, size=n // 4), [SENTINEL] * 3])
+    n_sector = n - n // 4 - 3
+    live = (rng.choice(nt.Hilbert(n_qubits=14, sectors=sectors).basis, size=n_sector)
+            if n_qubits == 14 else _placed_states(n_qubits, sectors[0], n_sector, rng))
+    states = np.concatenate([live, rng.integers(0, 1 << n_qubits, size=n // 4), [SENTINEL] * 3])
     return cfg, model, torch.as_tensor(states, dtype=torch.int64, device=dev)
 
 
@@ -2026,10 +2062,11 @@ def _glue_ids(kw):
     return ",".join(f"{k}={v}" for k, v in kw.items()) or "default"
 
 
-@pytest.mark.parametrize("kw", GLUE_CONFIGS, ids=_glue_ids)
-@pytest.mark.parametrize("n", [1, 37, 5000])
+@pytest.mark.parametrize("kw", GLUE_CONFIGS + GLUE_WIDE, ids=_glue_ids)
+@pytest.mark.parametrize("n", [1, 37, 5000, 99_841])
 def test_state_features_kernel_matches_plain(kw, n):
-    """x, the phase net's second input and the codes bitwise, twice."""
+    """x, the phase net's second input and the codes bitwise (signed zeros
+    included), twice; 99,841 rows leave one row in the last 256-row tile."""
     from naqs_tpu_torch.ops import nade_glue as g
 
     cfg, _, states = _glue_case(kw, max(n, 4))
@@ -2041,13 +2078,14 @@ def test_state_features_kernel_matches_plain(kw, n):
     for a, b, w in zip(got, again, want):
         assert (a is None) == (w is None)
         if w is not None:
-            assert a.dtype == w.dtype and torch.equal(a, w) and torch.equal(a, b)
+            assert g.same_bits(a, w) and g.same_bits(a, b)
 
 
-@pytest.mark.parametrize("kw", GLUE_CONFIGS, ids=_glue_ids)
+@pytest.mark.parametrize("kw", GLUE_CONFIGS + GLUE_WIDE, ids=_glue_ids)
 def test_shell_kernels_match_plain(kw):
-    """shell_features (x and meta bitwise) and shell_epilogue (mask bitwise,
-    log_amp4 and probs4 within GLUE_TOL, the same zeros) on every shell, on
+    """shell_features (x, signed zeros included, and meta bitwise) on 1, 37,
+    5,000 and 99,841 rows and shell_epilogue (mask bitwise, log_amp4 and
+    probs4 within GLUE_TOL, the same zeros) on 3,001, on every shell, on
     prefixes with bits at and above the shell set too; both bitwise on a
     repeat; amp_conditional_shell launches each once a shell."""
     from naqs_tpu_torch.ops import nade_glue as g
@@ -2055,13 +2093,21 @@ def test_shell_kernels_match_plain(kw):
     cfg, model, _ = _glue_case(kw, 8)
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(3)
-    a = torch.randint(0, 1 << 7, (3001,), generator=gen, device=dev)
-    b = torch.randint(0, 1 << 7, (3001,), generator=gen, device=dev)
+    top = 1 << cfg.n_shells
+    for n in (1, 37, 5000, 99_841):
+        a = torch.randint(0, top, (n,), generator=gen, device=dev)
+        b = torch.randint(0, top, (n,), generator=gen, device=dev)
+        for j in range(cfg.n_shells):
+            got, again = g.shell_features(cfg, a, b, j), g.shell_features(cfg, a, b, j)
+            want = g.shell_features_ref(cfg, a, b, j)
+            assert g.same_bits(got, want) and g.same_bits(got, again), (n, j)
+    a = torch.randint(0, top, (3001,), generator=gen, device=dev)
+    b = torch.randint(0, top, (3001,), generator=gen, device=dev)
     for j in range(cfg.n_shells):
         x, meta = g.shell_features(cfg, a, b, j)
         x_r, meta_r = g.shell_features_ref(cfg, a, b, j)
-        assert torch.equal(x, x_r) and torch.equal(meta, meta_r), j
-        assert torch.equal(x, g.shell_features(cfg, a, b, j)[0])
+        assert g.same_bits((x, meta), (x_r, meta_r)), j
+        assert g.same_bits(x, g.shell_features(cfg, a, b, j)[0])
         with torch.no_grad():
             raw = model.amp.single(j, x) * 4   # wide logits: masked and clamped rows show
         got, want = g.shell_epilogue(cfg, raw, meta, j), g.shell_epilogue_ref(cfg, raw, meta, j)

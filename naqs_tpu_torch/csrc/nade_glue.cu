@@ -37,7 +37,7 @@
 //
 // What bounds them: bytes. At H2O 6-31G's full width (13 shells, in_width 24)
 // and 100,000 rows state_features writes x, 124.8 MB in float32 (about 37 us
-// at 3.35 TB/s), tables_epilogue reads 32 B of raw outputs and 4 B of code a
+// at 3.35 TB/s), tables_epilogue reads 20 B of raw outputs and 4 B of code a
 // (row, shell), and the sampler's two kernels move 7-12 MB a shell.
 //
 // The two feature kernels write dense outputs of a few values a byte of input,
@@ -59,12 +59,32 @@
 // buffers, one thread issuing) was as fast or slower at every shape timed
 // (PERF.md), and was removed.
 //
-// In the others: one thread a row in shell_epilogue; in tables_epilogue one
-// thread a (row, shell), rows whole inside a block of floor(256 / S) rows,
-// and the forward and jvp sum a row's shells in order from shared memory (no
-// atomics: bitwise repeatable). No kernel allocates, synchronizes or reads
-// anything back: each is one launch on the caller's stream, so a CUDA graph
-// can capture it.
+// shell_epilogue takes one thread a row. tables_epilogue too, since its
+// redesign: its first design (one thread a (row, shell), floor(256 / S) rows
+// a block, the forward's and jvp's sums by 1 thread of S after a barrier,
+// local arrays indexed at run time on the stack) ran at 47% of its bound.
+// Now a block takes a tile of kEpiRows rows, its codes come into shared
+// memory by 16-byte loads, and each thread walks its row's shells in order,
+// loading a group of shells' inputs at once before their arithmetic, and
+// sums in registers, shell 0 first, as the first design's shared-memory sum
+// did: the same bits. The run-time choices (the occupation's entry, the order
+// flag's gather, the vjp's five-way scatter) are selects; the forward and the
+// jvp read the applied mask of (shell, ca, cb) from a table the wrapper makes
+// once per configuration in place of the sectors' loop (the forward 14%
+// faster with it, the vjp slower: the vjp keeps the loop). What is left of
+// the gap to the byte bound is most likely instructions (four expf and a
+// logf a (row, shell), eight expf in the vjp), which no counter here
+// separates (PERF.md). It reads the raw outputs where the nets leave them,
+// at a row and a shell stride (the per-shell products give (rows, S, n_out)
+// shell major, strides (n_out, rows n_out, 1)), and the vjp writes the
+// gradient at the strides of the tensor its wrapper allocates like raw: one
+// thread a row where a shell's rows lie together, one thread a (row, shell)
+// in memory order where a row's shells do (row-major, the LUT shells'
+// layout), so that a warp's stores are contiguous in both. Timed and not
+// kept (PERF.md): stores through a warp's shared-memory slab and loads
+// staged by cp.async, both slower. No kernel allocates, synchronizes or
+// reads anything back: each is one launch on the caller's stream, so a CUDA
+// graph can capture it.
 
 #include <cmath>
 #include <cstdint>
@@ -77,6 +97,25 @@ constexpr int kMaxSectors = 16;
 constexpr int kMaxShells = 31;       // int64 states of at most 62 qubits
 constexpr int kThreads = 256;
 constexpr int kTileRows = 256;       // shell_features, state_features: rows a block
+// tables_epilogue: rows a block (one thread a row), the shells a thread has
+// in flight at once in float and in double, and whether the forward and the
+// jvp read a (row, shell)'s applied mask from the wrapper's table by (shell,
+// ca, cb) (1) or loop over the sectors as the vjp and shell_epilogue do (0).
+// A build may set them (-D): tools/epilogue_timing.py builds such variants
+// beside the default.
+#ifndef NAQS_EPI_ROWS
+#define NAQS_EPI_ROWS 128
+#endif
+#ifndef NAQS_EPI_GROUP
+#define NAQS_EPI_GROUP 2
+#endif
+#ifndef NAQS_EPI_GROUP_F64
+#define NAQS_EPI_GROUP_F64 1
+#endif
+#ifndef NAQS_EPI_MASK_TABLE
+#define NAQS_EPI_MASK_TABLE 1
+#endif
+constexpr int kEpiRows = NAQS_EPI_ROWS;
 constexpr double kBigNeg = -1e9;     // models/nade.py::BIG_NEG
 constexpr double kPi = 3.14159265358979323846;
 
@@ -574,113 +613,260 @@ state_features_kernel(GlueConfig c, Walk wk_all, Walk wk_last,
                  x2 + row0 * w, rows * w);
 }
 
+// An operand of tables_epilogue at (row, shell): elements at p + row * row_stride
+// + shell * shell_stride + k, the last stride 1. The nets' outputs come shell
+// major, (rows, S, w) with strides (w, rows * w, 1), as the per-shell products
+// leave them; the LUT shells' and the tests' are row major. A global phase
+// net's (rows, P) is read at the last shell only (its shell stride unused).
+template <typename T>
+struct Strided {
+  T* p;
+  int64_t row, shell;
+
+  __host__ __device__ T* at(int64_t r, int j) const { return p + r * row + j * shell; }
+};
+
 template <typename T>
 struct TablesArgs {
-  const T* raw;         // the amp trunk's outputs (rows, S, n_out)
-  const T* phase;       // the phase outputs: in raw (kPhaseInAmp), (rows, S, P) or (rows, P)
-  int phase_layout;     // PhaseLayout
-  const int32_t* code;  // (rows, S)
-  const T* cot_la;      // vjp: cotangents (rows,)
+  Strided<const T> raw;    // the amp trunk's outputs (rows, S, n_out)
+  Strided<const T> phase;  // the phase outputs: raw's columns from n_amp_out on
+                           // (kPhaseInAmp), (rows, S, P) or (rows, P)
+  int phase_layout;        // PhaseLayout
+  const int32_t* code;     // (rows, S), contiguous, 16-byte aligned
+  const uint8_t* masks;    // (S, S, S): the applied mask of shell j after ca, cb up-spins at
+                           // [(j S + ca) S + cb], bit k occupation k
+  const T* cot_la;         // vjp: cotangents (rows,)
   const T* cot_ph;
-  const T* tan_raw;     // jvp: tangents laid out as raw and phase; null: zero
-  const T* tan_phase;
-  T* out0;              // forward, jvp: (rows,) of log|psi| and arg psi or their tangents;
-  T* out1;              // vjp: the gradients, laid out as raw and phase
+  Strided<const T> tan_raw;    // jvp: tangents laid out as raw and phase; p null: zero
+  Strided<const T> tan_phase;
+  Strided<T> out0;         // forward, jvp: (rows,) of log|psi| and arg psi or their tangents;
+  Strided<T> out1;         // vjp: the gradients of phase (out0) and raw (out1), each at its
+                           // own strides
   int n_rows;
 };
 
-// the offset of (row, shell j)'s first raw phase output, or -1 where the
-// global net has none (every shell but the last)
-__host__ __device__ inline int64_t phase_offset(const GlueConfig& c, int layout, int64_t row,
-                                                int j) {
-  const int s = c.n_shells, p = c.phase_sym ? 3 : 4;
-  switch (layout) {
-    case kPhaseInAmp: return (row * s + j) * c.n_out + c.n_amp_out;
-    case kPhasePerShell: return (row * s + j) * p;
-    default: return j == s - 1 ? row * p : -1;
+// v[k] for a run-time k in 0..3, by selects: an array indexed at run time
+// would live on the stack
+template <typename T>
+__host__ __device__ inline T pick4(const T v[4], int k) {
+  return k == 0 ? v[0] : (k == 1 ? v[1] : (k == 2 ? v[2] : v[3]));
+}
+
+// amp_logits on five values held in registers: the gather of order3 by selects
+template <typename T>
+__host__ __device__ inline void amp_logits_of(bool sym, const T a[5], int order3, T l[4]) {
+  if (!sym) {
+    for (int k = 0; k < 4; ++k) l[k] = a[k];
+    return;
+  }
+  const T g1 = order3 == 1 ? a[1] : (order3 == 0 ? a[3] : a[4]);
+  const T g2 = order3 == 1 ? a[1] : (order3 == 0 ? a[4] : a[3]);
+  l[0] = T(0.5) * (a[0] + a[0]);
+  l[1] = T(0.5) * (a[1] + g1);
+  l[2] = T(0.5) * (a[1] + g2);
+  l[3] = T(0.5) * (a[2] + a[2]);
+}
+
+// The five raw amp gradients from the four logits' dl, each half added to
+// its base and its gathered raw entry in the order of the scatter over k =
+// 0..3 into zeros (0 + x, not x: a -0 gradient sums to +0 there too)
+template <typename T>
+__host__ __device__ inline void amp_grads_of(const T dl[4], int order3, T d[5]) {
+  const T h0 = T(0.5) * dl[0], h1 = T(0.5) * dl[1], h2 = T(0.5) * dl[2], h3 = T(0.5) * dl[3];
+  d[0] = (T(0) + h0) + h0;
+  d[2] = (T(0) + h3) + h3;
+  if (order3 == 1) {
+    d[1] = (((T(0) + h1) + h1) + h2) + h2;
+    d[3] = T(0);
+    d[4] = T(0);
+  } else {
+    d[1] = (T(0) + h1) + h2;
+    d[3] = T(0) + (order3 == 0 ? h1 : h2);
+    d[4] = T(0) + (order3 == 0 ? h2 : h1);
   }
 }
 
+// A read of memory no kernel writes while it runs (the read-only path)
+template <typename T>
+__device__ __forceinline__ T load_ro(const T* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// One (row, shell)'s inputs: the code word, the amp outputs, the one phase
+// entry the occupation reads (xp, with ph_ok where there is one) and, for the
+// jvp, their tangents
 template <typename T, int kMode>
-__global__ void __launch_bounds__(kThreads)
+struct ShellIn {
+  int32_t code;
+  T a[5], xp;
+  T ta[5], txp;
+  bool ph_ok;
+
+  __device__ __forceinline__ void load(const GlueConfig& c, const TablesArgs<T>& q, int64_t row,
+                                      int j, int32_t cd) {
+    code = cd;
+    const int occ = (cd >> 2) & 3, pk = c.phase_sym ? sym_base(occ) : occ;
+    const T* r = q.raw.at(row, j);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a[k] = r[k];
+    a[4] = c.amp_sym ? r[4] : T(0);
+    ph_ok = q.phase_layout != kPhaseGlobal || j == c.n_shells - 1;
+    xp = ph_ok ? q.phase.at(row, j)[pk] : T(0);
+    if constexpr (kMode == kJvp) {
+      if (q.tan_raw.p) {
+        const T* t = q.tan_raw.at(row, j);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ta[k] = t[k];
+        ta[4] = c.amp_sym ? t[4] : T(0);
+      }
+      txp = ph_ok && q.tan_phase.p ? q.tan_phase.at(row, j)[pk] : T(0);
+    }
+  }
+};
+
+// One (row, shell)'s share of the forward (va, vb: log|psi| and arg psi) or
+// of the jvp (their tangents), or its gradients written at the vjp's output
+// strides (h = cot_la / 2, cot_ph: the row's cotangents)
+template <typename T, int kMode>
+__device__ __forceinline__ void shell_epilogue_of(const GlueConfig& c, const TablesArgs<T>& q,
+                                         const ShellIn<T, kMode>& x, int64_t row, int j, T h,
+                                         T cot_ph, T& va, T& vb) {
+  const int s = c.n_shells;
+  const int order3 = x.code & 3, occ = (x.code >> 2) & 3;
+  const bool shifted = (x.code >> 4) & 1;
+  const int ca = (x.code >> 8) & 0xFF, cb = (x.code >> 16) & 0xFF;
+  // the table where the mode reads it (the vjp computes the mask: timed faster)
+  const unsigned m = NAQS_EPI_MASK_TABLE && kMode != kVjp && ca < s && cb < s
+                         ? load_ro(q.masks + (j * s + ca) * s + cb)
+                         : applied_mask(c, occupation_mask(c, ca, cb, j), j);
+  T l[4], lsm[4] = {T(0), T(0), T(0), T(0)};
+  amp_logits_of(c.amp_sym != 0, x.a, order3, l);
+  const bool any = log_softmax4(l, m, lsm);
+  // the raw phase entry that occupation occ reads, and whether the
+  // activation pins it to 0 (its shell's mask leaves occ as the one option)
+  const int pk = c.phase_sym ? sym_base(occ) : occ;
+  const bool pinned = c.activation != kActNone && !c.phase_sym && popc64(m) == 1 &&
+                      ((m >> pk) & 1);
+  va = T(0);
+  vb = T(0);
+  if constexpr (kMode == kForward) {
+    va = any ? T(0.5) * pick4(lsm, occ) : T(0.5 * kBigNeg);
+    vb = pinned ? T(0) : activate(c.activation, x.xp);
+    if (c.phase_sym && j == s - 1 && shifted) vb = vb + T(kPi);
+  } else if constexpr (kMode == kJvp) {
+    if (any && q.tan_raw.p) {
+      T tl[4], sum = T(0), dz[4];
+      amp_logits_of(c.amp_sym != 0, x.ta, order3, tl);
+      for (int k = 0; k < 4; ++k) {
+        dz[k] = ((m >> k) & 1) ? T(2) * tl[k] : T(0);
+        sum += f_exp(lsm[k]) * dz[k];
+      }
+      va = T(0.5) * (pick4(dz, occ) - sum);
+    }
+    if (x.ph_ok && q.tan_phase.p && !pinned) vb = activate_grad(c.activation, x.xp) * x.txp;
+  } else {   // kVjp: write the gradients of this (row, shell)'s raw outputs
+    T dl[4] = {T(0), T(0), T(0), T(0)};
+    if (any)
+      for (int k = 0; k < 4; ++k)
+        if ((m >> k) & 1) dl[k] = T(2) * ((k == occ ? h : T(0)) - f_exp(lsm[k]) * h);
+    T* d = q.out1.at(row, j);
+    if (c.amp_sym) {
+      T d5[5];
+      amp_grads_of(dl, order3, d5);
+      for (int k = 0; k < 5; ++k) d[k] = d5[k];
+    } else {
+      for (int k = 0; k < 4; ++k) d[k] = dl[k];
+    }
+    if (x.ph_ok) {
+      T* dp = q.phase_layout == kPhaseInAmp ? d + c.n_amp_out : q.out0.at(row, j);
+      const T g = pinned ? T(0) : cot_ph * activate_grad(c.activation, x.xp);
+      for (int k = 0; k < 3; ++k) dp[k] = k == pk ? g : T(0);
+      if (!c.phase_sym) dp[3] = pk == 3 ? g : T(0);
+    }
+  }
+}
+
+// Shells a thread has in flight together
+template <typename T>
+constexpr int kEpiGroup = sizeof(T) == 8 ? NAQS_EPI_GROUP_F64 : NAQS_EPI_GROUP;
+
+// One block a tile of kEpiRows rows, one thread a row: the tile's codes
+// ((rows, S) int32, contiguous) come into shared memory by 16-byte loads,
+// then each thread walks its row's shells in order, loading a group of
+// kEpiGroup shells' inputs at once before their arithmetic. The forward and
+// the jvp sum a row's shells in registers, shell 0 first (the order of the
+// first design's shared-memory sum: the same bits). The vjp writes each
+// (row, shell)'s gradients where the rows of a shell lie together (the nets'
+// shell-major layout: a warp's 32 rows at one shell are contiguous). No
+// barrier after the codes, no local array indexed at run time, no atomics.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kEpiRows)
 tables_epilogue_kernel(GlueConfig c, TablesArgs<T> q) {
+  __shared__ __align__(16) int32_t s_code[kEpiRows * kMaxShells];
+  constexpr int G = kEpiGroup<T>;
+  const int s = c.n_shells;
+  const int64_t row0 = int64_t(blockIdx.x) * kEpiRows;
+  const int rows = q.n_rows - row0 < kEpiRows ? static_cast<int>(q.n_rows - row0) : kEpiRows;
+  {
+    const int n = rows * s, n4 = n / 4;
+    const int32_t* src = q.code + row0 * s;
+    for (int i = threadIdx.x; i < n4; i += kEpiRows)
+      reinterpret_cast<int4*>(s_code)[i] = reinterpret_cast<const int4*>(src)[i];
+    for (int i = 4 * n4 + threadIdx.x; i < n; i += kEpiRows) s_code[i] = src[i];
+  }
+  __syncthreads();
+  const int r = threadIdx.x;
+  if (r >= rows) return;
+  const int64_t row = row0 + r;
+  const int32_t* cd = s_code + r * s;
+  T sum_a = T(0), sum_b = T(0);
+  T h = T(0), cot_ph = T(0);
+  if constexpr (kMode == kVjp) {
+    h = T(0.5) * q.cot_la[row];
+    cot_ph = q.cot_ph[row];
+  }
+  for (int j0 = 0; j0 < s; j0 += G) {
+    ShellIn<T, kMode> in[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+      if (j0 + u < s) in[u].load(c, q, row, j0 + u, cd[j0 + u]);
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int j = j0 + u;
+      if (j >= s) break;
+      T va, vb;
+      shell_epilogue_of(c, q, in[u], row, j, h, cot_ph, va, vb);
+      if constexpr (kMode != kVjp) {
+        sum_a = j == 0 ? va : sum_a + va;
+        sum_b = j == 0 ? vb : sum_b + vb;
+      }
+    }
+  }
+  if constexpr (kMode != kVjp) {
+    q.out0.p[row] = sum_a;
+    q.out1.p[row] = sum_b;
+  }
+}
+
+// The vjp where each row's entries lie together (row-major outputs, as the
+// LUT shells' raw gives them): one thread a (row, shell) in that order,
+// floor(kThreads / S) rows a block, so that a warp's stores and its code words
+// are contiguous. The vjp has no sum over shells to keep in one thread.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tables_epilogue_kernel_pairs(GlueConfig c, TablesArgs<T> q) {
   const int s = c.n_shells, rows_per_block = kThreads / s;
   const int t = threadIdx.x, rr = t / s, j = t - rr * s;
   const int64_t row = int64_t(blockIdx.x) * rows_per_block + rr;
-  T va = T(0), vb = T(0);
-  if (rr < rows_per_block && row < q.n_rows) {
-    const int32_t code = q.code[row * s + j];
-    const int order3 = code & 3, occ = (code >> 2) & 3;
-    const bool shifted = (code >> 4) & 1;
-    const unsigned m = applied_mask(c, occupation_mask(c, (code >> 8) & 0xFF,
-                                                       (code >> 16) & 0xFF, j), j);
-    const int64_t at = (row * s + j) * c.n_out;
-    T l[4], lsm[4] = {T(0), T(0), T(0), T(0)};
-    amp_logits(c, q.raw + at, order3, l);
-    const bool any = log_softmax4(l, m, lsm);
-    // the raw phase entry that occupation occ reads, and whether the
-    // activation pins it to 0 (its shell's mask leaves occ as the one option)
-    const int pk = c.phase_sym ? sym_base(occ) : occ;
-    const bool pinned = c.activation != kActNone && !c.phase_sym && popc64(m) == 1 &&
-                        ((m >> pk) & 1);
-    const int64_t ph_at = phase_offset(c, q.phase_layout, row, j);
-    const T xp = ph_at >= 0 ? q.phase[ph_at + pk] : T(0);
-    if constexpr (kMode == kForward) {
-      va = log_amp_of(any, lsm, occ);
-      vb = pinned ? T(0) : activate(c.activation, xp);
-      if (c.phase_sym && j == s - 1 && shifted) vb = vb + T(kPi);
-    } else if constexpr (kMode == kJvp) {
-      if (any && q.tan_raw) {
-        T tl[4], sum = T(0), dz[4];
-        amp_logits(c, q.tan_raw + at, order3, tl);
-        for (int k = 0; k < 4; ++k) {
-          dz[k] = ((m >> k) & 1) ? T(2) * tl[k] : T(0);
-          sum += f_exp(lsm[k]) * dz[k];
-        }
-        va = T(0.5) * (dz[occ] - sum);
-      }
-      if (ph_at >= 0 && q.tan_phase && !pinned)
-        vb = activate_grad(c.activation, xp) * q.tan_phase[ph_at + pk];
-    } else {   // kVjp: write the gradients of this (row, shell)'s raw outputs
-      const T h = T(0.5) * q.cot_la[row];
-      T dl[4] = {T(0), T(0), T(0), T(0)};
-      if (any)
-        for (int k = 0; k < 4; ++k)
-          if ((m >> k) & 1) dl[k] = T(2) * ((k == occ ? h : T(0)) - f_exp(lsm[k]) * h);
-      T* d = q.out1 + at;
-      if (c.amp_sym) {
-        T d5[5] = {T(0), T(0), T(0), T(0), T(0)};
-        for (int k = 0; k < 4; ++k) {
-          d5[sym_base(k)] += T(0.5) * dl[k];
-          d5[sym_gather(order3, k)] += T(0.5) * dl[k];
-        }
-        for (int k = 0; k < 5; ++k) d[k] = d5[k];
-      } else {
-        for (int k = 0; k < 4; ++k) d[k] = dl[k];
-      }
-      if (ph_at >= 0) {
-        T* dp = (q.phase_layout == kPhaseInAmp ? q.out1 : q.out0) + ph_at;
-        const T g = pinned ? T(0) : q.cot_ph[row] * activate_grad(c.activation, xp);
-        for (int k = 0; k < (c.phase_sym ? 3 : 4); ++k) dp[k] = k == pk ? g : T(0);
-      }
-    }
-  }
-  if constexpr (kMode != kVjp) {   // sum each row's shells in order
-    __shared__ T sa[kThreads], sb[kThreads];
-    sa[t] = va;
-    sb[t] = vb;
-    __syncthreads();
-    const int64_t r = int64_t(blockIdx.x) * rows_per_block + t;
-    if (t < rows_per_block && r < q.n_rows) {
-      T suma = sa[t * s], sumb = sb[t * s];
-      for (int k = 1; k < s; ++k) {
-        suma += sa[t * s + k];
-        sumb += sb[t * s + k];
-      }
-      q.out0[r] = suma;
-      q.out1[r] = sumb;
-    }
-  }
+  if (rr >= rows_per_block || row >= q.n_rows) return;
+  ShellIn<T, kVjp> x;
+  x.load(c, q, row, j, q.code[row * s + j]);
+  T va, vb;
+  shell_epilogue_of(c, q, x, row, j, T(0.5) * q.cot_la[row], q.cot_ph[row], va, vb);
 }
 
 bool config_ok(const GlueConfig& c) {
@@ -737,26 +923,46 @@ int state_features_as(const GlueConfig& c, const int64_t* states, int n_rows, vo
 
 template <typename T>
 int tables_epilogue_as(const GlueConfig& c, int mode, const TablesArgs<T>& q, cudaStream_t s) {
-  const int rows_per_block = kThreads / c.n_shells;
-  const int blocks = blocks_for(q.n_rows, rows_per_block), threads = rows_per_block * c.n_shells;
-  if (mode == kForward)
-    tables_epilogue_kernel<T, kForward><<<blocks, threads, 0, s>>>(c, q);
-  else if (mode == kVjp)
-    tables_epilogue_kernel<T, kVjp><<<blocks, threads, 0, s>>>(c, q);
-  else
-    tables_epilogue_kernel<T, kJvp><<<blocks, threads, 0, s>>>(c, q);
+  const int blocks = blocks_for(q.n_rows, kEpiRows);
+  if (mode == kForward) {
+    tables_epilogue_kernel<T, kForward><<<blocks, kEpiRows, 0, s>>>(c, q);
+  } else if (mode == kJvp) {
+    tables_epilogue_kernel<T, kJvp><<<blocks, kEpiRows, 0, s>>>(c, q);
+  } else if (q.out1.shell >= q.out1.row) {   // a shell's rows together: one thread a row
+    tables_epilogue_kernel<T, kVjp><<<blocks, kEpiRows, 0, s>>>(c, q);
+  } else {   // a row's shells together: one thread a (row, shell)
+    const int per_block = kThreads / c.n_shells;
+    tables_epilogue_kernel_pairs<T><<<blocks_for(q.n_rows, per_block), per_block * c.n_shells, 0,
+                                 s>>>(c, q);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// strides: (row, shell) pairs of raw, phase, tan_raw, tan_phase, out0 and
+// out1, in elements; a pointer that is null, or an output the mode does not
+// write at strides, has its pair unread
 template <typename T>
-TablesArgs<T> tables_args(const void* raw, const void* phase, int layout, const void* code,
-                          const void* cot_la, const void* cot_ph, const void* tan_raw,
-                          const void* tan_phase, void* out0, void* out1, int n_rows) {
-  return {static_cast<const T*>(raw),    static_cast<const T*>(phase),
-          layout,                        static_cast<const int32_t*>(code),
-          static_cast<const T*>(cot_la), static_cast<const T*>(cot_ph),
-          static_cast<const T*>(tan_raw), static_cast<const T*>(tan_phase),
-          static_cast<T*>(out0),         static_cast<T*>(out1),
+TablesArgs<T> tables_args(const GlueConfig& c, const void* raw, const void* phase, int layout,
+                          const void* code, const void* masks, const void* cot_la,
+                          const void* cot_ph,
+                          const void* tan_raw, const void* tan_phase, void* out0, void* out1,
+                          const int64_t* st, int n_rows) {
+  const Strided<const T> r{static_cast<const T*>(raw), st[0], st[1]};
+  const Strided<const T> tr{static_cast<const T*>(tan_raw), st[4], st[5]};
+  const bool in_amp = layout == kPhaseInAmp;
+  return {r,
+          in_amp ? Strided<const T>{r.p + c.n_amp_out, r.row, r.shell}
+                 : Strided<const T>{static_cast<const T*>(phase), st[2], st[3]},
+          layout,
+          static_cast<const int32_t*>(code),
+          static_cast<const uint8_t*>(masks),
+          static_cast<const T*>(cot_la),
+          static_cast<const T*>(cot_ph),
+          tr,
+          in_amp ? Strided<const T>{tr.p ? tr.p + c.n_amp_out : nullptr, tr.row, tr.shell}
+                 : Strided<const T>{static_cast<const T*>(tan_phase), st[6], st[7]},
+          Strided<T>{static_cast<T*>(out0), st[8], st[9]},
+          Strided<T>{static_cast<T*>(out1), st[10], st[11]},
           n_rows};
 }
 
@@ -831,33 +1037,39 @@ extern "C" int state_features_smem(const void* cfg) {
 
 // mode 0 forward: out0, out1 = log|psi|, arg psi (n_rows,); 1 vjp: from the
 // cotangents cot_la, cot_ph (n_rows,) the gradients of raw into out1 and of a
-// separate phase into out0, each laid out as its input (every entry written);
-// 2 jvp: from tan_raw, tan_phase (laid out as raw and phase; null: zero) the
-// tangents of both into out0, out1. raw: (n_rows, S, n_out); phase_layout 0:
-// the phase outputs are raw's columns from n_amp_out on (phase unused), 1:
-// phase is (n_rows, S, P), 2: phase is the global net's (n_rows, P), read at
-// the last shell.
+// separate phase into out0, every entry written; 2 jvp: from tan_raw,
+// tan_phase (null: zero) the tangents of both into out0, out1. raw: (n_rows,
+// S, n_out); phase_layout 0: the phase outputs are raw's columns from
+// n_amp_out on (phase and tan_phase unused), 1: phase is (n_rows, S, P), 2:
+// phase is the global net's (n_rows, P), read at the last shell. strides: 12
+// int64 in host memory, the (row, shell) strides in elements of raw, phase,
+// tan_raw, tan_phase, out0 and out1 (the vjp's; the forward's and the jvp's
+// outputs are contiguous (n_rows,)), each operand's last stride 1 and its
+// pairs such that no two written entries meet. code: (n_rows, S)
+// contiguous, 16-byte aligned; masks: (S, S, S) uint8, the applied mask of
+// shell j after ca, cb up-spins at [j, ca, cb] (bit k occupation k).
 extern "C" int tables_epilogue(const void* cfg, int mode, const void* raw, const void* phase,
-                               int phase_layout, const void* code, const void* cot_la,
+                               int phase_layout, const void* code, const void* masks,
+                               const void* cot_la,
                                const void* cot_ph, const void* tan_raw, const void* tan_phase,
-                               void* out0, void* out1, int n_rows, int f64, void* stream) {
+                               void* out0, void* out1, const int64_t* strides, int n_rows,
+                               int f64, void* stream) {
   const GlueConfig& c = *static_cast<const GlueConfig*>(cfg);
   if (!config_ok(c) || mode < kForward || mode > kJvp || phase_layout < kPhaseInAmp ||
-      phase_layout > kPhaseGlobal || n_rows < 0 || (mode == kVjp && (!cot_la || !cot_ph)))
+      phase_layout > kPhaseGlobal || n_rows < 0 || (mode == kVjp && (!cot_la || !cot_ph)) ||
+      !strides || !masks || !aligned16(code))
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
-  if (phase_layout == kPhaseInAmp) {
-    phase = raw;
-    if (tan_raw) tan_phase = tan_raw;
-  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f64)
     return tables_epilogue_as<double>(c, mode, tables_args<double>(
-        raw, phase, phase_layout, code, cot_la, cot_ph, tan_raw, tan_phase, out0, out1,
-        n_rows), s);
+        c, raw, phase, phase_layout, code, masks, cot_la, cot_ph, tan_raw, tan_phase, out0,
+        out1, strides, n_rows), s);
   return tables_epilogue_as<float>(c, mode, tables_args<float>(
-      raw, phase, phase_layout, code, cot_la, cot_ph, tan_raw, tan_phase, out0, out1, n_rows),
-      s);
+      c, raw, phase, phase_layout, code, masks, cot_la, cot_ph, tan_raw, tan_phase, out0, out1,
+      strides, n_rows), s);
 }
 
 extern "C" const char* nade_glue_error_string(int code) {

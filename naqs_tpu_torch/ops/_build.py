@@ -7,9 +7,9 @@ interface; nothing here includes PyTorch's headers, so a build takes
 seconds. A library is rebuilt when its source, or a header of `csrc/`
 (`*.cuh`, which a source may include), is newer. `build_all` starts
 one nvcc per source at once. Every library exports
-`<name>_error_string(int)`, bound as `lib.error_string`; `check_tensors`,
-`launch`, `launch_flat` and `zeroed_counters` are what the kernels' wrappers
-share.
+`<name>_error_string(int)`, bound as `lib.error_string`; `check_tensors`
+(with `strided_ok`), `launch`, `launch_flat` and `zeroed_counters` are what
+the kernels' wrappers share.
 """
 
 from __future__ import annotations
@@ -82,6 +82,29 @@ def build_all(names=SOURCES) -> dict:
     return {n: _finish(j) for n, j in jobs.items()}
 
 
+def ptxas_usage(build_log, kernel):
+    """{mangled entry name: {"registers", "stack", "spill_stores", "spill_loads",
+    "static_smem"}} of each instantiation of `kernel` in nvcc's -Xptxas -v
+    report (the mangled name holds the kernel's name; stack and spills from the
+    entry's own "Function properties" line; static shared memory in bytes)."""
+    usage, entry, props = {}, None, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if kernel in line and "'" in line else None
+        elif "Function properties for" in line:
+            props = line.split("for")[-1].strip()
+        elif entry and props == entry and "bytes stack frame" in line:
+            stack, stores, loads = (int(w) for w in line.replace(",", " ").split() if w.isdigit())
+            usage.setdefault(entry, {}).update(stack=stack, spill_stores=stores, spill_loads=loads)
+        elif entry and "Used" in line and "registers" in line:
+            usage.setdefault(entry, {})["registers"] = int(
+                line.split("Used")[1].split("registers")[0])
+            usage[entry]["static_smem"] = (int(line.split("bytes smem")[0].split()[-1])
+                                           if "bytes smem" in line else 0)
+            entry = None
+    return usage
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if missing or stale."""
     if name not in _loaded:
@@ -95,41 +118,63 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
-def check_tensors(name, anchor, want, align: int = 1):
+def strided_ok(t) -> bool:
+    """Whether a kernel that reads or writes t at its strides takes it: the
+    last stride 1 (or a last dimension of one entry) and no two entries at
+    one address (ordered by stride, each dimension's stride at least the
+    span of the ones inside it). A row-major or shell-major (rows, S, w), or a
+    view of some of each row's entries, qualifies; an expanded or transposed
+    one does not."""
+    if t.dim() and t.shape[-1] > 1 and t.stride(-1) != 1:
+        return False
+    span = 1
+    for stride, size in sorted((st, n) for st, n in zip(t.stride(), t.shape) if n > 1):
+        if stride < span:
+            return False
+        span = stride * size
+    return True
+
+
+def check_tensors(name, anchor, want, align=1, strided=()):
     """Raise on anything a kernel does not take. `want` maps a field's name to
     (tensor, dtypes, shape); every tensor must lie on `anchor`'s device and,
-    on the card, be contiguous, start at a multiple of `align` bytes and hold
-    fewer than 2^31 elements. The plain versions take strided CPU tensors.
-    The checks run once per tensor in one expression (they sit on the host's
-    side of every launch); a tensor that fails them is checked again step by
-    step for the message."""
+    on the card, be contiguous (a field named in `strided` may instead be laid
+    out as `strided_ok` allows), start at a multiple of `align` bytes (an int,
+    or a dict by field, 1 for a field it does not name) and hold fewer than
+    2^31 elements. The plain versions take strided CPU tensors. The checks run
+    once per tensor in one expression (they sit on the host's side of every
+    launch); a tensor that fails them is checked again step by step for the
+    message."""
     dev = anchor.device
     cuda = dev.type == "cuda"
     if not cuda and dev.type != "cpu":
         raise ValueError(f"{name}: unsupported device {dev}")
     for key, (t, dtypes, shape) in want.items():
+        a = align.get(key, 1) if isinstance(align, dict) else align
         try:
             ok = (t.device == dev and t.dtype in dtypes and t.shape == shape
-                  and (not cuda or (t.is_contiguous() and t.data_ptr() % align == 0))
+                  and (not cuda or ((t.is_contiguous() or key in strided and strided_ok(t))
+                                    and t.data_ptr() % a == 0))
                   and t.numel() < 1 << 31)
         except AttributeError:
             ok = False
         if not ok:
-            _explain(name, dev, key, t, dtypes, shape, align)
+            _explain(name, dev, key, t, dtypes, shape, a, key in strided)
 
 
-def _explain(name, dev, key, t, dtypes, shape, align):
+def _explain(name, dev, key, t, dtypes, shape, align, strided):
     """The step-by-step check of one tensor that failed `check_tensors`."""
     if not torch.is_tensor(t):
         raise ValueError(f"{name}: {key} must be a tensor, got {type(t).__name__}")
     if t.device != dev:
         raise ValueError(f"{name}: {key} on {t.device}, expected {dev}")
-    dense = t.is_contiguous() or dev.type == "cpu"
+    laid = "with a unit last stride and no overlap" if strided else "contiguous"
+    dense = t.is_contiguous() or dev.type == "cpu" or strided and strided_ok(t)
     if t.dtype not in dtypes or tuple(t.shape) != shape or not dense:
         raise ValueError(
-            f"{name}: {key} must be a contiguous {' or '.join(map(str, dtypes))} of "
+            f"{name}: {key} must be a {laid} {' or '.join(map(str, dtypes))} of "
             f"shape {shape}, got {t.dtype} of shape {tuple(t.shape)}"
-            f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+            f"{'' if dense else f' (strides {tuple(t.stride())})'}")
     if dev.type == "cuda" and t.data_ptr() % align:
         raise ValueError(f"{name}: {key} must be {align}-byte aligned")
     raise ValueError(f"{name}: {key} must hold fewer than 2^31 elements")

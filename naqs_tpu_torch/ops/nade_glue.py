@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from naqs_tpu_torch.ops import _build
-from naqs_tpu_torch.ops._build import check_tensors
+from naqs_tpu_torch.ops._build import check_tensors, strided_ok
 
 # masked-logit value; exp(x/2) underflows to 0
 BIG_NEG = -1e9
@@ -311,13 +311,18 @@ def _config(cfg) -> _Config:
 
 @lru_cache(maxsize=1)
 def _lib():
-    lib = _build.load("nade_glue")
+    return _bind(_build.load("nade_glue"))
+
+
+def _bind(lib):
+    """The C entries' argument and result types on a loaded build of
+    csrc/nade_glue.cu (the default one, or a timing tool's variant)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.shell_features.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, i32, ptr]
     lib.shell_epilogue.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, i32, ptr]
     lib.state_features.argtypes = [ptr, ptr, i32, ptr, ptr, i32, ptr, i32, ptr]
     lib.tables_epilogue.argtypes = [ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                    i32, i32, ptr]
+                                    ptr, ptr, i32, i32, ptr]
     lib.state_features_smem.argtypes = [ptr]
     for fn in (lib.shell_features, lib.shell_epilogue, lib.state_features,
                lib.tables_epilogue, lib.state_features_smem):
@@ -694,6 +699,11 @@ def tables_epilogue_jvp_ref(cfg, raw, raw_phase, code, tan_raw, tan_phase):
     return la_dot, torch.take_along_dim(dy, occ, dim=-1)[..., 0].sum(dim=-1)
 
 
+# the operands tables_epilogue reads (and the vjp's outputs, made like two of
+# them) at their strides, with no copy: the nets' shell-major outputs
+_STRIDED = ("raw", "raw_phase", "tan_raw", "tan_phase")
+
+
 def _check_tables(name, cfg, raw, raw_phase, code, extra=None):
     n = code.shape[0] if code.dim() == 2 else -1
     s, (_, p, n_out) = cfg.n_shells, _n_out(cfg)
@@ -704,8 +714,43 @@ def _check_tables(name, cfg, raw, raw_phase, code, extra=None):
     if raw_phase is not None:
         want["raw_phase"] = (raw_phase, t, (n, s, p) if cfg.aggregate_phase else (n, p))
     want.update(extra or {})
-    check_tensors(name, raw, want, align=8)
+    esz = raw.element_size() if torch.is_tensor(raw) else 1
+    check_tensors(name, raw, want, align={k: 16 if k == "code" else esz for k in want},
+                  strided=_STRIDED)
     return n
+
+
+@lru_cache(maxsize=64)
+def _mask_table(cfg, device) -> torch.Tensor:
+    """The mask tables_epilogue applies at shell j after ca, cb up-spins,
+    (S, S, S) uint8 at [j, ca, cb], bit k occupation k: `occupation_mask`,
+    every option where masking is "none" and at partial masking's last
+    shell. Made once per configuration and device; the kernel reads it in
+    place of the loop over the sectors. The plain versions do not read it."""
+    s = cfg.n_shells
+    j, ca, cb = torch.meshgrid(*(torch.arange(s),) * 3, indexing="ij")
+    mask = occupation_mask(cfg, ca, cb, j)
+    if cfg.masking == "none":
+        mask[:] = True
+    elif cfg.masking == "partial":
+        mask[s - 1] = True
+    bits = (mask.long() << torch.arange(4)).sum(dim=-1)
+    # made inside torch.func's transforms (a jvp's first call, say) the
+    # tensors are wrapped at its level: cache what they wrap
+    return _plain(bits.to(torch.uint8).to(device))
+
+
+def _pair(t):
+    """(row, shell) strides in elements of a (rows, S, w) operand, (row, 0)
+    of a (rows, w) one (read at the last shell), (0, 0) for None."""
+    if t is None:
+        return 0, 0
+    return (t.stride(0), t.stride(1)) if t.dim() == 3 else (t.stride(0), 0)
+
+
+def _strides(*ts):
+    """The C entry's 12 strides: raw, phase, tan_raw, tan_phase, out0, out1."""
+    return (ctypes.c_int64 * 12)(*(x for t in ts for x in _pair(t)))
 
 
 def tables_epilogue(cfg, raw, raw_phase, code):
@@ -713,8 +758,11 @@ def tables_epilogue(cfg, raw, raw_phase, code):
     and `state_features`' codes: raw the amp trunk's outputs (rows, S, n_out);
     raw_phase the phase net's (rows, S, P) with `aggregate_phase`, the global
     net's (rows, P) (read at the last shell, zeros before), or None with a
-    combined trunk (its columns from n_amp_out on). No gradient: see
-    `log_psi_epilogue`."""
+    combined trunk (its columns from n_amp_out on). On the card raw and
+    raw_phase are read at their strides: contiguous, shell-major as the nets
+    give them, or any view with a unit last stride and no overlap
+    (`_build.strided_ok`); code contiguous and 16-byte aligned. No gradient:
+    see `log_psi_epilogue`."""
     raw, raw_phase, code = _for_kernel(raw, raw, raw_phase, code)
     n = _check_tables("tables_epilogue", cfg, raw, raw_phase, code)
     if raw.device.type == "cpu":
@@ -723,8 +771,10 @@ def tables_epilogue(cfg, raw, raw_phase, code):
     ph = torch.empty_like(la)
     if n:
         _launch("tables_epilogue", cfg, (FORWARD, raw, raw_phase, _phase_layout(cfg, raw_phase),
-                                         code, None, None, None, None, la, ph, n, _f64(cfg)),
-                raw.device)
+                                         code, _mask_table(cfg, raw.device), None, None, None,
+                                         None, la, ph,
+                                         _strides(raw, raw_phase, None, None, None, None), n,
+                                         _f64(cfg)), raw.device)
         tables_epilogue.launches += 1
     return la, ph
 
@@ -735,7 +785,9 @@ tables_epilogue.launches = 0
 def tables_epilogue_vjp(cfg, raw, raw_phase, code, cot_la, cot_ph):
     """The gradients (of raw, of raw_phase or None) of sum(cot_la log|psi| +
     cot_ph arg psi), for cotangents (rows,) in the compute dtype; each laid
-    out as its input. A row with no allowed option has a zero gradient."""
+    out as `torch.empty_like` lays out its input (the nets' shell-major raw
+    gets a shell-major gradient). A row with no allowed option has a zero
+    gradient."""
     n = code.shape[0]
     t = (cfg.compute_dtype,)
     raw, raw_phase, code, cot_la, cot_ph = _for_kernel(raw, raw, raw_phase, code, cot_la, cot_ph)
@@ -747,7 +799,9 @@ def tables_epilogue_vjp(cfg, raw, raw_phase, code, cot_la, cot_ph):
     d_phase = None if raw_phase is None else torch.empty_like(raw_phase)
     if n:
         _launch("tables_epilogue", cfg, (VJP, raw, raw_phase, _phase_layout(cfg, raw_phase),
-                                         code, cot_la, cot_ph, None, None, d_phase, d_raw, n,
+                                         code, _mask_table(cfg, raw.device), cot_la, cot_ph, None,
+                                         None, d_phase, d_raw,
+                                         _strides(raw, raw_phase, None, None, d_phase, d_raw), n,
                                          _f64(cfg)), raw.device)
         tables_epilogue_vjp.launches += 1
     return d_raw, d_phase
@@ -758,7 +812,8 @@ tables_epilogue_vjp.launches = 0
 
 def tables_epilogue_jvp(cfg, raw, raw_phase, code, tan_raw, tan_phase):
     """The tangents (rows,) of log|psi| and arg psi along tangents of raw and
-    raw_phase, each laid out as its primal or None (zero)."""
+    raw_phase (each of its primal's shape, in any layout the forward takes)
+    or None (zero)."""
     n = code.shape[0]
     raw, raw_phase, code, tan_raw, tan_phase = _for_kernel(raw, raw, raw_phase, code, tan_raw,
                                                            tan_phase)
@@ -776,7 +831,9 @@ def tables_epilogue_jvp(cfg, raw, raw_phase, code, tan_raw, tan_phase):
     ph_dot = torch.empty_like(la_dot)
     if n:
         _launch("tables_epilogue", cfg, (JVP, raw, raw_phase, _phase_layout(cfg, raw_phase),
-                                         code, None, None, tan_raw, tan_phase, la_dot, ph_dot,
+                                         code, _mask_table(cfg, raw.device), None, None, tan_raw,
+                                         tan_phase, la_dot, ph_dot,
+                                         _strides(raw, raw_phase, tan_raw, tan_phase, None, None),
                                          n, _f64(cfg)), raw.device)
         tables_epilogue_jvp.launches += 1
     return la_dot, ph_dot
@@ -785,11 +842,18 @@ def tables_epilogue_jvp(cfg, raw, raw_phase, code, tan_raw, tan_phase):
 tables_epilogue_jvp.launches = 0
 
 
+def _readable(t):
+    """t itself where the kernels read it at its strides (`strided_ok`: the
+    nets' outputs, shell-major or not, and their tangents), else a contiguous
+    copy (an expanded tangent or cotangent, say)."""
+    return t if t is None or strided_ok(t) else t.contiguous()
+
+
 def _dense(t, dtype):
-    """A cotangent or tangent as the kernels take it: plain, contiguous, in
-    the compute dtype (torch hands expanded or strided ones)."""
+    """A cotangent or tangent as the kernels take it: plain, in the compute
+    dtype, in its own layout where the kernels read that (`_readable`)."""
     t = _plain(t)
-    return None if t is None else t.to(dtype).contiguous()
+    return None if t is None else _readable(t.to(dtype))
 
 
 class TablesEpilogue(torch.autograd.Function):
@@ -833,7 +897,7 @@ class TablesEpilogue(torch.autograd.Function):
 
 
 def log_psi_epilogue(cfg, raw, raw_phase, code):
-    """`tables_epilogue` under autograd (`TablesEpilogue`): raw and raw_phase
-    are made contiguous first (a no-op for the nets' outputs)."""
-    return TablesEpilogue.apply(raw.contiguous(),
-                                None if raw_phase is None else raw_phase.contiguous(), code, cfg)
+    """`tables_epilogue` under autograd (`TablesEpilogue`) on the nets' raw
+    outputs as they lie: shell-major from the per-shell products, row-major
+    from the LUT shells; no copy of either (`_readable`)."""
+    return TablesEpilogue.apply(_readable(raw), _readable(raw_phase), code, cfg)

@@ -73,7 +73,10 @@ The model's glue (`csrc/nade_glue.cu`): the two feature kernels bit for bit
 qubits in every configuration of GLUE_CONFIGS and at the widths of
 GLUE_WIDE (H2O 6-31G's 26 qubits, 28 with a 104-byte line of x and the
 integer encoding's odd in_width, 56 with 28 shells), on 1, 37, 5,000 and
-99,841 rows (one past a 256-row tile); the epilogues within GLUE_TOL.
+99,841 rows (one past a 256-row tile); the epilogues within GLUE_TOL,
+tables_epilogue's three modes on the raw outputs row-major, shell-major (as
+the nets give them) and as a view with a wider row, read at their strides,
+the vjp's gradients laid out as their inputs.
 """
 
 import dataclasses
@@ -2121,13 +2124,32 @@ def test_shell_kernels_match_plain(kw):
                                                                           counts[1] + 1)
 
 
+def _laid_out(t, layout):
+    """t (rows, S, w) or (rows, w) in one of the layouts tables_epilogue reads
+    at its strides: row-major ("contiguous"), "shell-major" as the per-shell
+    products leave the nets' outputs (strides (w, rows w, 1)), or "sliced":
+    the first w entries of each row of a wider tensor (a larger row stride)."""
+    if t is None or layout == "contiguous":
+        return None if t is None else t.contiguous()
+    if layout == "shell-major":
+        return t.transpose(0, 1).contiguous().transpose(0, 1) if t.dim() == 3 else t.contiguous()
+    wide = torch.zeros((*t.shape[:-1], t.shape[-1] + 3), dtype=t.dtype, device=t.device)
+    wide[..., : t.shape[-1]] = t
+    return wide[..., : t.shape[-1]]
+
+
 @pytest.mark.parametrize("kw", GLUE_CONFIGS, ids=_glue_ids)
 @pytest.mark.parametrize("mode", ["forward", "vjp", "jvp"])
-def test_tables_epilogue_kernel_matches_plain(kw, mode):
+@pytest.mark.parametrize("layout", ["contiguous", "shell-major", "sliced"])
+def test_tables_epilogue_kernel_matches_plain(kw, mode, layout):
     """Each of tables_epilogue's three modes within GLUE_TOL of its plain
     version on raw outputs widened 4x (masked options, pinned phases, the
-    hardtanh's flat parts), and bitwise on a repeat; the jvp with no tangent
-    gives zeros."""
+    hardtanh's flat parts), read at the strides of each layout (`_laid_out`;
+    the tangents laid out as their primals), and bitwise on a repeat and
+    across the layouts; the vjp's gradients laid out as `torch.empty_like`
+    lays out their inputs (raw's own strides where raw is dense); the jvp
+    with no tangent gives zeros; an expanded raw or one whose last stride is
+    not 1 raises."""
     from naqs_tpu_torch.ops import nade_glue as g
 
     cfg, model, states = _glue_case(kw, 20_003, seed=1)
@@ -2136,26 +2158,44 @@ def test_tables_epilogue_kernel_matches_plain(kw, mode):
         raw, raw_phase = nade_t._raw(model, x, x2)
     raw = (4 * raw).contiguous()
     raw_phase = None if raw_phase is None else (4 * raw_phase).contiguous()
+    laid, laid_phase = _laid_out(raw, layout), _laid_out(raw_phase, layout)
     gen = torch.Generator(device=raw.device).manual_seed(2)
-    args = (cfg, raw, raw_phase, code)
+    cot = tan = None
     if mode == "forward":
-        fn, ref = (lambda: g.tables_epilogue(*args)), (lambda: g.tables_epilogue_ref(*args))
+        fn = lambda r, p, c: g.tables_epilogue(cfg, r, p, c)  # noqa: E731
+        ref = lambda: g.tables_epilogue_ref(cfg, raw, raw_phase, code)  # noqa: E731
     elif mode == "vjp":
         cot = [torch.randn(len(states), generator=gen, device=raw.device, dtype=raw.dtype)
                for _ in range(2)]
-        fn = lambda: g.tables_epilogue_vjp(*args, *cot)  # noqa: E731
-        ref = lambda: g.tables_epilogue_vjp_ref(*args, *cot)  # noqa: E731
+        fn = lambda r, p, c: g.tables_epilogue_vjp(cfg, r, p, c, *cot)  # noqa: E731
+        ref = lambda: g.tables_epilogue_vjp_ref(cfg, raw, raw_phase, code, *cot)  # noqa: E731
     else:
         tan = [None if t is None else torch.randn(t.shape, generator=gen, device=raw.device,
                                                   dtype=raw.dtype) for t in (raw, raw_phase)]
-        fn = lambda: g.tables_epilogue_jvp(*args, *tan)  # noqa: E731
-        ref = lambda: g.tables_epilogue_jvp_ref(*args, *tan)  # noqa: E731
-        zeros = g.tables_epilogue_jvp(*args, None, None)
+        laid_tan = [_laid_out(t, layout) for t in tan]
+        fn = lambda r, p, c: g.tables_epilogue_jvp(cfg, r, p, c, *laid_tan)  # noqa: E731
+        ref = lambda: g.tables_epilogue_jvp_ref(cfg, raw, raw_phase, code, *tan)  # noqa: E731
+        zeros = g.tables_epilogue_jvp(cfg, laid, laid_phase, code, None, None)
         assert all(not bool(z.any()) for z in zeros)
-    got, again, want = fn(), fn(), ref()
+    got, again, want = fn(laid, laid_phase, code), fn(laid, laid_phase, code), ref()
     assert g.glue_error(got, want) <= 1.0, g.glue_error(got, want)
     assert all(p is None or torch.equal(p, q) for p, q in zip(got, again))
     assert all(p is None or bool(torch.isfinite(p).all()) for p in got)
+    if layout != "contiguous":   # the same bits as from the row-major inputs
+        plain_layout = fn(raw, raw_phase, code) if mode != "jvp" else g.tables_epilogue_jvp(
+            cfg, raw, raw_phase, code, *tan)
+        assert all(p is None or torch.equal(p, q) for p, q in zip(got, plain_layout))
+    if mode == "vjp":
+        for grad, primal in zip(got, (laid, laid_phase)):
+            if primal is not None:
+                assert grad.stride() == torch.empty_like(primal).stride()
+                if layout != "sliced":
+                    assert grad.stride() == primal.stride()
+    with pytest.raises(ValueError):
+        fn(raw[:1].expand(raw.shape), raw_phase, code)
+    wide = torch.zeros((*raw.shape[:-1], 2 * raw.shape[-1]), dtype=raw.dtype, device=raw.device)
+    with pytest.raises(ValueError):
+        fn(wide[..., ::2], raw_phase, code)
 
 
 def test_log_psi_and_sampling_on_the_card_launch_the_glue_kernels():

@@ -437,27 +437,36 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      (SENTINEL rows past n_unique) state_features bitwise (signed zeros
      included) and tables_epilogue's forward, vjp and
      jvp within GLUE_TOL of their plain versions, bitwise on a repeat and
-     finite; one SR update (GLUE_SR_CG CG iterations) whose every torch.func
+     finite, on the nets' shell-major raw and on the same values row-major,
+     through the row tiles and through one thread a (row, shell) (the two
+     mappings nade_glue.ROW_TILES_MIN chooses between), bitwise equal across
+     layouts and mappings, the vjp's gradients at raw's strides; one
+     profiled log_psi forward and backward with its copies, and log_psi
+     handing the epilogue the nets' own tensors; one SR update (GLUE_SR_CG CG iterations) whose every torch.func
      jvp launches tables_epilogue_jvp and every vjp_fn call
      tables_epilogue_vjp; each kernel held in turns with its plain version
      and the nearest one PyTorch call (torch.log_softmax, its backward; none
      where none exists) with a bound from the bytes it moves, and its
      registers, stack and static shared memory (ptxas), state_features' dynamic
-     shared memory from its C entry. With --before
-     DIR, DIR's shell_features and state_features on the same inputs
-     (bitwise this tree's) in those turns ("before_ms"), and DIR's
+     shared memory from its C entry; the epilogue's modes also on row-major
+     inputs and on the batch's live rows alone (an SR update's rows). With
+     --before DIR, DIR's shell_features, state_features and tables_epilogue
+     modes on the same inputs (bitwise this tree's; row-major, as DIR's
+     epilogue takes them) in those turns ("before_ms", "live_rows_before_ms"),
+     and DIR's
      VMCTrainer and this tree's on the same weights in turns (GLUE_TURNS
      rounds): one sample() call's wall time and its device kernels and
      copies (the same count in both trees, or the phase fails), one factored
      step's wall time, device time and busy share, one SR update's
-     (GLUE_SR_CG CG iterations) wall and device time.
+     (GLUE_SR_CG CG iterations) wall and device time, and the SR update's
+     SR_DIFF_KERNELS device kernels whose time differs most between the trees.
 With --profile, the profiled step of each engine (H2O 6-31G factored and
 rank, Li2O staircase, N2 6-31G sort, frozen-core N2 6-31G rank with no
 dense A) must show one device kernel per wrapper call of the
-sampler's kernels, of the model's glue and of the engine's own (a trace
-that shows fewer of some and more of none has dropped device events: the
-step is traced again, PROFILE_TRACES times at most); it prints the step's
-device time and the card's busy share of the step before it.
+sampler's kernels, of the model's glue and of the engine's own (the trace's
+window padded with PROFILE_PAD cycles of card sleep at each end: `_traced`);
+it prints the step's device time and the card's busy share of the step
+before it.
 Prints a {"kernels": [...]} JSON line (launches from phase 6 for
 factored_cells_accumulate, split_and_compact, multinomial4_split and
 compact_children (0: the standalone kernels left sample()'s path; their
@@ -546,7 +555,6 @@ REPEATS, LAUNCHES = 5, 50     # timing: repeats in turns, launches per repeat
 SLOW_REPEATS, SLOW_LAUNCHES = 3, 4   # the same for calls of milliseconds and more
 PROFILE_WARMUP = 200          # spin kernels of the dropped warm-up cycle of a trace (_traced)
 PROFILE_PAD = 40_000_000      # cycles (~20 ms) of card sleep at each end of a kept trace cycle
-PROFILE_TRACES = 3            # --profile: traces of a step, while one drops device events
 CLIP_FACTOR = 1.0             # phase 12: clip to the trailing mean (bites on a rising norm)
 EXTRAS_STEPS = 11             # phase 12: clipped steps (the counter records steps 1, 6, 11)
 HF_EPOCHS, WS_EPOCHS = 5, 20  # phase 12: pre_train_hf and warm-start epochs
@@ -1345,11 +1353,26 @@ def _graph_replays(wrapper, args, replays=3):
 
 
 def _ptxas_registers(build_log, kernel):
-    """`_build.ptxas_usage`: each instantiation's registers, stack, spills and
-    static shared memory from nvcc's -Xptxas -v report."""
-    from naqs_tpu_torch.ops._build import ptxas_usage
-
-    return ptxas_usage(build_log, kernel)
+    """{mangled entry name: {"registers", "stack", "spill_stores", "spill_loads",
+    "static_smem"}} of each instantiation of `kernel` in nvcc's -Xptxas -v
+    report (the mangled name holds the kernel's name; stack and spills from the
+    entry's own "Function properties" line; static shared memory in bytes)."""
+    usage, entry, props = {}, None, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if kernel in line and "'" in line else None
+        elif "Function properties for" in line:
+            props = line.split("for")[-1].strip()
+        elif entry and props == entry and "bytes stack frame" in line:
+            stack, stores, loads = (int(w) for w in line.replace(",", " ").split() if w.isdigit())
+            usage.setdefault(entry, {}).update(stack=stack, spill_stores=stores, spill_loads=loads)
+        elif entry and "Used" in line and "registers" in line:
+            usage.setdefault(entry, {})["registers"] = int(
+                line.split("Used")[1].split("registers")[0])
+            usage[entry]["static_smem"] = (int(line.split("bytes smem")[0].split()[-1])
+                                           if "bytes smem" in line else 0)
+            entry = None
+    return usage
 
 
 def _shell_step(split, cap, dev, seed):
@@ -3453,6 +3476,7 @@ def _chem(dev, zero_counts, wrappers, smi, build_log, old=None):
 GLUE_SRC = "naqs_tpu_torch/csrc/nade_glue.cu"
 GLUE_TURNS = 3                # --before: rounds of (this, earlier, earlier, this)
 GLUE_SR_CG = 5                # 18c: CG iterations of the one SR update
+SR_DIFF_KERNELS = 12          # 18e: kernels listed by their SR device time's difference
 GLUE_BIG = 1e8                # max_abs_err: entries below this magnitude (see _glue)
 
 
@@ -3470,6 +3494,17 @@ def _glue_abs_err(got, want):
     small = want.double().abs() < GLUE_BIG
     d = (got.double() - want.double()).abs()[small]
     return float(d.max()) if d.numel() else 0.0
+
+
+def _row_tiles_min(g, least, fn):
+    """fn() with nade_glue.ROW_TILES_MIN at `least`: 0 sends tables_epilogue
+    through its row tiles wherever raw is shell-major, a count past the rows
+    through one thread a (row, shell)."""
+    saved, g.ROW_TILES_MIN = g.ROW_TILES_MIN, least
+    try:
+        return fn()
+    finally:
+        g.ROW_TILES_MIN = saved
 
 
 def _log_psi_copies(log_psi, model, states, raw_shape):
@@ -3521,7 +3556,8 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
     repeat; (b) a sampled batch at capacity (SENTINEL rows past n_unique):
     state_features bitwise, tables_epilogue's forward, vjp (seeded
     cotangents) and jvp (seeded tangents of the raw outputs) within GLUE_TOL
-    of their plain versions and bitwise on a repeat; (c) one SR update
+    of their plain versions and bitwise on a repeat, across the two layouts
+    and across the two mappings; (c) one SR update
     (GLUE_SR_CG CG iterations) on a copy of the model and the batch's live
     rows: one tables_epilogue_jvp launch per torch.func jvp and one
     tables_epilogue_vjp per vjp_fn call; (d) each kernel held in turns with its
@@ -3534,7 +3570,8 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
     call's wall time and device launches (the same in both trees), one
     factored step's wall time, device time and busy share, and one SR
     update's wall and device time, DIR's trainer and this tree's on the same
-    weights, in turns. `path_counts`: phase 6's launches of the six
+    weights, in turns, and the SR update's kernels whose device time differs
+    most between them. `path_counts`: phase 6's launches of the six
     wrappers. Returns the six kernels' JSON entries."""
     import copy
     import dataclasses
@@ -3633,20 +3670,25 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
              "tables_epilogue_jvp": lambda: g.tables_epilogue_jvp_ref(*args_c, *tan_c)}
     modes = {name: ((lambda c=call: c(args, tan)), plain[name]) for name, call in calls.items()}
     row_major = {name: (lambda c=call: c(args_c, tan_c)) for name, call in calls.items()}
+    rows_b = states.shape[0]
     for name, (fn, ref) in modes.items():
         o, o2, w = fn(), fn(), ref()
         o_c = row_major[name]()
+        # the batch's rows take the row tiles; the same inputs through one
+        # thread a (row, shell), the mapping of fewer rows (an SR update's)
+        o_p = _row_tiles_min(g, rows_b + 1, fn)
         r = max(g.glue_error(o, w), g.glue_error(o_c, w))
         err[name], ratio[name] = max(_glue_abs_err(o, w), _glue_abs_err(o_c, w)), r
         rep = all(p is None or torch.equal(p, q) for p, q in zip(o, o2))
-        across = all(p is None or torch.equal(p, q) for p, q in zip(o, o_c))
+        across = all(p is None or (torch.equal(p, q) and torch.equal(p, u))
+                     for p, q, u in zip(o, o_c, o_p))
         fin = all(p is None or bool(torch.isfinite(p).all()) for p in o)
         laid = name != "tables_epilogue_vjp" or all(
             d is None or d.stride() == p.stride() for d, p in zip(o, (raw, raw_phase)))
         print(f"[glue] {name} on the batch, the nets' layout and row-major: max_abs_err "
               f"{err[name]:.3e} (entries below {GLUE_BIG:.0e}), {r:.3f} of GLUE_TOL "
-              f"{g.GLUE_TOL[raw.dtype]}, bitwise on a repeat={rep}, the two layouts bitwise "
-              f"equal={across}, finite={fin}"
+              f"{g.GLUE_TOL[raw.dtype]}, bitwise on a repeat={rep}, the two layouts and "
+              f"the two mappings bitwise equal={across}, finite={fin}"
               + (f", gradients at their inputs' strides={laid}"
                  if name == "tables_epilogue_vjp" else ""), flush=True)
         if not (r <= 1.0 and rep and across and fin and laid):
@@ -3764,6 +3806,24 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
     for name, (fn, ref) in modes.items():
         fns[name], fns[f"{name}_ref"] = fn, ref
         fns[f"{name} (row-major inputs)"] = row_major[name]
+    # an SR update's rows: the batch's live rows alone and the nets' outputs on
+    # them (shell-major), which take one thread a (row, shell) below
+    # ROW_TILES_MIN
+    x_l, x2_l, code_l = g.state_features(cfg, states[:n_live])
+    with torch.no_grad():
+        raw_l, ph_l = nade_mod._raw(model, x_l, x2_l)
+    cot_l = [c[:n_live] for c in cot]
+    tan_l = [None if t is None else torch.empty_like(p).copy_(t[:n_live])
+             for t, p in zip(tan_c, (raw_l, ph_l))]
+    args_l = (cfg, raw_l, ph_l, code_l)
+    live_calls = {"tables_epilogue": lambda: g.tables_epilogue(*args_l),
+                  "tables_epilogue_vjp": lambda: g.tables_epilogue_vjp(*args_l, *cot_l),
+                  "tables_epilogue_jvp": lambda: g.tables_epilogue_jvp(*args_l, *tan_l)}
+    for name, call in live_calls.items():
+        fns[f"{name} (live rows)"] = call
+    print(f"[glue] the epilogue on the {n_live} live rows: "
+          f"{'row tiles' if n_live >= g.ROW_TILES_MIN else 'one thread a (row, shell)'} "
+          f"(ROW_TILES_MIN {g.ROW_TILES_MIN})", flush=True)
     # with --before: DIR's two feature kernels on the same inputs, bitwise this
     # tree's first, then in turns with this tree's
     earlier = {}
@@ -3798,6 +3858,22 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
                                  f"both sum a row's shells in order")
             earlier[name] = f"{name} (earlier tree)"
             fns[earlier[name]] = call
+        # and on the live rows, row-major as it takes them
+        raw_lc, ph_lc = raw_l.contiguous(), None if ph_l is None else ph_l.contiguous()
+        tan_lc = [None if t is None else t[:n_live] for t in tan_c]
+        old_live = {"tables_epilogue": lambda: og.tables_epilogue(cfg_old, raw_lc, ph_lc, code_l),
+                    "tables_epilogue_vjp": lambda: og.tables_epilogue_vjp(
+                        cfg_old, raw_lc, ph_lc, code_l, *cot_l),
+                    "tables_epilogue_jvp": lambda: og.tables_epilogue_jvp(
+                        cfg_old, raw_lc, ph_lc, code_l, *tan_lc)}
+        for name, call in old_live.items():
+            if not all(p is None or torch.equal(p.contiguous(), q.contiguous())
+                       for p, q in zip(live_calls[name](), call())):
+                raise SystemExit(f"the earlier tree's {name} differs from this tree's on the "
+                                 f"live rows")
+            fns[f"{name} (earlier tree, live rows)"] = call
+        print(f"[before] the earlier tree's tables_epilogue modes on the {n_live} live rows "
+              f"bitwise equal to this tree's", flush=True)
     times = time_in_turns(fns, REPEATS, LAUNCHES)
     for name, (med, spread, held) in times.items():
         print(f"[glue] held ({held:.1f} ms) {name}: median {med:.4f} ms, spread "
@@ -3878,6 +3954,7 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
                  for label in ("this tree", "earlier tree")}
         both = {"this tree": tr, "earlier tree": tr_old}
         sr_of = {"this tree": sr_mod, "earlier tree": old["sr"]}
+        sr_kernels = {}   # by tree: {device kernel: (launches, ms)} of its traced SR update
 
         def sr_update(label):
             """one SR update of the tree's model (a copy: the trainers go on
@@ -3918,7 +3995,11 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
             else:
                 raise SystemExit(f"{label}: the sample() call's trace came back empty 3 times")
             out, p_wall, p_dev = _profiled_call(t.step)
-            _, r_wall, r_dev, r_n = _profiled_call(sr_update(label), launches=True)
+            _, r_wall, r_events = _traced(sr_update(label))
+            sr_kernels[label] = {e.key[:100]: (e.count, e.self_device_time_total / 1e3)
+                                 for e in _device_events(r_events)}
+            r_dev = sum(v[1] for v in sr_kernels[label].values())
+            r_n = sum(v[0] for v in sr_kernels[label].values())
             med = {k: sorted(v)[len(v) // 2] for k, v in walls[label].items()}
             before[label] = {"sample_wall_s": med["sample"], "sample_walls_s": walls[label][
                 "sample"], "sample_device_launches": n_dev, "sample_device_ms": s_dev, "sample_traces": tries,
@@ -3935,6 +4016,17 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
                   f"({GLUE_SR_CG} CG iterations) {med['sr']:.4f} s of wall, {r_dev:.2f} ms of "
                   f"device time, {r_n} device kernels and copies ({smi})", flush=True)
         del tr_old
+        # the SR update's kernels whose device time differs most between the trees
+        mine, theirs = sr_kernels["this tree"], sr_kernels["earlier tree"]
+        diffs = sorted(set(mine) | set(theirs), key=lambda k: -abs(
+            mine.get(k, (0, 0.0))[1] - theirs.get(k, (0, 0.0))[1]))[:SR_DIFF_KERNELS]
+        for k in diffs:
+            a, b = mine.get(k, (0, 0.0)), theirs.get(k, (0, 0.0))
+            print(f"[before] SR update, {a[1] - b[1]:+.4f} ms: this tree {a[0]} launches "
+                  f"{a[1]:.4f} ms, the earlier tree {b[0]} launches {b[1]:.4f} ms: {k}",
+                  flush=True)
+        before["sr_kernel_diffs"] = {k: {"this tree": mine.get(k, (0, 0.0)),
+                                         "earlier tree": theirs.get(k, (0, 0.0))} for k in diffs}
         n_mine, n_old = (before[k]["sample_device_launches"] for k in ("this tree",
                                                                         "earlier tree"))
         if n_mine != n_old:
@@ -3965,8 +4057,12 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
             **({"before_ms": times[earlier[name]][0], "before_spread": times[earlier[name]][1]}
                if name in earlier else {}),
             **({"row_major_ms": times[f"{name} (row-major inputs)"][0],
-                "row_major_spread": times[f"{name} (row-major inputs)"][1]}
+                "row_major_spread": times[f"{name} (row-major inputs)"][1],
+                "live_rows": n_live, "live_rows_ms": times[f"{name} (live rows)"][0],
+                "live_rows_spread": times[f"{name} (live rows)"][1]}
                if name in modes else {}),
+            **({"live_rows_before_ms": times[f"{name} (earlier tree, live rows)"][0]}
+               if f"{name} (earlier tree, live rows)" in times else {}),
             **({"log_psi_copies": copies} if name == "tables_epilogue" else {}),
             **({"before": before} if before and name == "tables_epilogue" else {})})
     print(f"[glue] phase 18: {time.time() - t18:.1f} s in all", flush=True)
@@ -5886,22 +5982,15 @@ def main(argv) -> int:
                 torch.cuda.synchronize()
                 wall = time.time() - t
                 print(f"[profile] {label} {name}: {wall:.3f} s", flush=True)
-            # one device kernel per wrapper call in a step's trace; a trace that
-            # shows fewer of some and more of none has dropped events: another
-            # step is traced, PROFILE_TRACES at most
-            for tries in range(1, PROFILE_TRACES + 1):
-                zero_counts()
-                _, _, events = _traced(trainer.step)
-                dev_events = _device_events(events)
-                seen = {name: sum(e.count for e in dev_events if name in e.key)
-                        for name in kernel_of}
-                launched = {name: sum(x.launches for x in (w if isinstance(w, tuple) else (w,)))
-                            for name, w in kernel_of.items()}
-                print(f"[profile] {label} (trace {tries} of {PROFILE_TRACES}): device kernels "
-                      f"{seen}, wrapper calls {launched}", flush=True)
-                dropped = seen != launched and all(seen[n] <= launched[n] for n in seen)
-                if not dropped:
-                    break
+            zero_counts()
+            _, _, events = _traced(trainer.step)
+            dev_events = _device_events(events)
+            seen = {name: sum(e.count for e in dev_events if name in e.key)
+                    for name in kernel_of}
+            launched = {name: sum(x.launches for x in (w if isinstance(w, tuple) else (w,)))
+                        for name, w in kernel_of.items()}
+            print(f"[profile] {label}: device kernels {seen}, wrapper calls {launched}",
+                  flush=True)
             if seen != launched or not launched["split_and_compact_kernel"]:
                 raise SystemExit(f"the {label} step's device kernels are not one per wrapper "
                                  f"call")

@@ -59,32 +59,31 @@
 // buffers, one thread issuing) was as fast or slower at every shape timed
 // (PERF.md), and was removed.
 //
-// shell_epilogue takes one thread a row. tables_epilogue too, since its
-// redesign: its first design (one thread a (row, shell), floor(256 / S) rows
-// a block, the forward's and jvp's sums by 1 thread of S after a barrier,
-// local arrays indexed at run time on the stack) ran at 47% of its bound.
-// Now a block takes a tile of kEpiRows rows, its codes come into shared
+// shell_epilogue takes one thread a row. tables_epilogue has two mappings,
+// chosen at launch from the row count and raw's layout, with the same bits.
+// Its first design (one thread a (row, shell), floor(256 / S) rows a block,
+// the forward's and jvp's sums by 1 thread of S after a barrier, local arrays
+// indexed at run time on the stack) ran at 47% of its bound on 100,000 rows.
+// The row tiles: a block takes kEpiRows rows, its codes come into shared
 // memory by 16-byte loads, and each thread walks its row's shells in order,
 // loading a group of shells' inputs at once before their arithmetic, and
-// sums in registers, shell 0 first, as the first design's shared-memory sum
-// did: the same bits. The run-time choices (the occupation's entry, the order
-// flag's gather, the vjp's five-way scatter) are selects; the forward and the
-// jvp read the applied mask of (shell, ca, cb) from a table the wrapper makes
-// once per configuration in place of the sectors' loop (the forward 14%
-// faster with it, the vjp slower: the vjp keeps the loop). What is left of
-// the gap to the byte bound is most likely instructions (four expf and a
-// logf a (row, shell), eight expf in the vjp), which no counter here
-// separates (PERF.md). It reads the raw outputs where the nets leave them,
-// at a row and a shell stride (the per-shell products give (rows, S, n_out)
-// shell major, strides (n_out, rows n_out, 1)), and the vjp writes the
-// gradient at the strides of the tensor its wrapper allocates like raw: one
-// thread a row where a shell's rows lie together, one thread a (row, shell)
-// in memory order where a row's shells do (row-major, the LUT shells'
-// layout), so that a warp's stores are contiguous in both. Timed and not
-// kept (PERF.md): stores through a warp's shared-memory slab and loads
-// staged by cp.async, both slower. No kernel allocates, synchronizes or
-// reads anything back: each is one launch on the caller's stream, so a CUDA
-// graph can capture it.
+// sums in registers, shell 0 first, as the shared-memory sum does: the same
+// bits. On fewer rows than the wrapper's threshold (an SR update's live rows)
+// one thread a row leaves most of the card idle, and on row-major raw a
+// warp's loads would be strided: there one thread a (row, shell) in raw's
+// memory order, the sums from shared memory in the same order. The run-time
+// choices (the occupation's entry, the order flag's gather, the vjp's
+// five-way scatter) are selects; the forward and the jvp read the applied
+// mask of (shell, ca, cb) from a table the wrapper makes once per
+// configuration in place of the sectors' loop (the vjp keeps the loop: timed
+// faster). It reads the raw outputs where the nets leave them, at a row and
+// a shell stride (the per-shell products give (rows, S, n_out) shell major,
+// strides (n_out, rows n_out, 1)), and the vjp writes the gradient at the
+// strides of the tensor its wrapper allocates like raw. Timed and not kept
+// (PERF.md): stores through a warp's shared-memory slab and loads staged by
+// cp.async, both slower. No kernel allocates, synchronizes or reads anything
+// back: each is one launch on the caller's stream, so a CUDA graph can
+// capture it.
 
 #include <cmath>
 #include <cstdint>
@@ -97,25 +96,7 @@ constexpr int kMaxSectors = 16;
 constexpr int kMaxShells = 31;       // int64 states of at most 62 qubits
 constexpr int kThreads = 256;
 constexpr int kTileRows = 256;       // shell_features, state_features: rows a block
-// tables_epilogue: rows a block (one thread a row), the shells a thread has
-// in flight at once in float and in double, and whether the forward and the
-// jvp read a (row, shell)'s applied mask from the wrapper's table by (shell,
-// ca, cb) (1) or loop over the sectors as the vjp and shell_epilogue do (0).
-// A build may set them (-D): tools/epilogue_timing.py builds such variants
-// beside the default.
-#ifndef NAQS_EPI_ROWS
-#define NAQS_EPI_ROWS 128
-#endif
-#ifndef NAQS_EPI_GROUP
-#define NAQS_EPI_GROUP 2
-#endif
-#ifndef NAQS_EPI_GROUP_F64
-#define NAQS_EPI_GROUP_F64 1
-#endif
-#ifndef NAQS_EPI_MASK_TABLE
-#define NAQS_EPI_MASK_TABLE 1
-#endif
-constexpr int kEpiRows = NAQS_EPI_ROWS;
+constexpr int kEpiRows = 128;        // tables_epilogue's row tiles: rows a block, one thread a row
 constexpr double kBigNeg = -1e9;     // models/nade.py::BIG_NEG
 constexpr double kPi = 3.14159265358979323846;
 
@@ -740,7 +721,7 @@ __device__ __forceinline__ void shell_epilogue_of(const GlueConfig& c, const Tab
   const bool shifted = (x.code >> 4) & 1;
   const int ca = (x.code >> 8) & 0xFF, cb = (x.code >> 16) & 0xFF;
   // the table where the mode reads it (the vjp computes the mask: timed faster)
-  const unsigned m = NAQS_EPI_MASK_TABLE && kMode != kVjp && ca < s && cb < s
+  const unsigned m = kMode != kVjp && ca < s && cb < s
                          ? load_ro(q.masks + (j * s + ca) * s + cb)
                          : applied_mask(c, occupation_mask(c, ca, cb, j), j);
   T l[4], lsm[4] = {T(0), T(0), T(0), T(0)};
@@ -761,6 +742,7 @@ __device__ __forceinline__ void shell_epilogue_of(const GlueConfig& c, const Tab
     if (any && q.tan_raw.p) {
       T tl[4], sum = T(0), dz[4];
       amp_logits_of(c.amp_sym != 0, x.ta, order3, tl);
+#pragma unroll
       for (int k = 0; k < 4; ++k) {
         dz[k] = ((m >> k) & 1) ? T(2) * tl[k] : T(0);
         sum += f_exp(lsm[k]) * dz[k];
@@ -771,6 +753,7 @@ __device__ __forceinline__ void shell_epilogue_of(const GlueConfig& c, const Tab
   } else {   // kVjp: write the gradients of this (row, shell)'s raw outputs
     T dl[4] = {T(0), T(0), T(0), T(0)};
     if (any)
+#pragma unroll
       for (int k = 0; k < 4; ++k)
         if ((m >> k) & 1) dl[k] = T(2) * ((k == occ ? h : T(0)) - f_exp(lsm[k]) * h);
     T* d = q.out1.at(row, j);
@@ -790,9 +773,10 @@ __device__ __forceinline__ void shell_epilogue_of(const GlueConfig& c, const Tab
   }
 }
 
-// Shells a thread has in flight together
+// Shells a thread of the row tiles has in flight together: 2 in float, 1 in
+// double (more were slower, PERF.md)
 template <typename T>
-constexpr int kEpiGroup = sizeof(T) == 8 ? NAQS_EPI_GROUP_F64 : NAQS_EPI_GROUP;
+constexpr int kEpiGroup = sizeof(T) == 8 ? 1 : 2;
 
 // One block a tile of kEpiRows rows, one thread a row: the tile's codes
 // ((rows, S) int32, contiguous) come into shared memory by 16-byte loads,
@@ -852,21 +836,47 @@ tables_epilogue_kernel(GlueConfig c, TablesArgs<T> q) {
   }
 }
 
-// The vjp where each row's entries lie together (row-major outputs, as the
-// LUT shells' raw gives them): one thread a (row, shell) in that order,
-// floor(kThreads / S) rows a block, so that a warp's stores and its code words
-// are contiguous. The vjp has no sum over shells to keep in one thread.
-template <typename T>
+// One thread a (row, shell), floor(kThreads / S) rows whole in a block, the
+// threads in the order of raw's entries: shell by shell where a shell's rows
+// lie together (the nets' shell-major layout), row by row where a row's
+// shells do (row-major: the LUT shells', the tests'), so that a warp's loads
+// and the vjp's stores are contiguous in both. The forward and the jvp sum a
+// row's shells from shared memory, one thread a row, shell 0 first: the row
+// tiles' bits. Launched below the wrapper's row count for the row tiles, where
+// one thread a row would leave most of the card idle, and on row-major raw.
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
-tables_epilogue_kernel_pairs(GlueConfig c, TablesArgs<T> q) {
-  const int s = c.n_shells, rows_per_block = kThreads / s;
-  const int t = threadIdx.x, rr = t / s, j = t - rr * s;
-  const int64_t row = int64_t(blockIdx.x) * rows_per_block + rr;
-  if (rr >= rows_per_block || row >= q.n_rows) return;
-  ShellIn<T, kVjp> x;
-  x.load(c, q, row, j, q.code[row * s + j]);
-  T va, vb;
-  shell_epilogue_of(c, q, x, row, j, T(0.5) * q.cot_la[row], q.cot_ph[row], va, vb);
+tables_epilogue_kernel_pairs(GlueConfig c, TablesArgs<T> q, bool shell_order) {
+  const int s = c.n_shells, per_block = kThreads / s, t = threadIdx.x;
+  const int rr = shell_order ? t % per_block : t / s, j = shell_order ? t / per_block : t % s;
+  const int64_t row0 = int64_t(blockIdx.x) * per_block, row = row0 + rr;
+  T va = T(0), vb = T(0);
+  if (row < q.n_rows) {
+    ShellIn<T, kMode> x;
+    x.load(c, q, row, j, q.code[row * s + j]);
+    T h = T(0), cot_ph = T(0);
+    if constexpr (kMode == kVjp) {
+      h = T(0.5) * q.cot_la[row];
+      cot_ph = q.cot_ph[row];
+    }
+    shell_epilogue_of(c, q, x, row, j, h, cot_ph, va, vb);
+  }
+  if constexpr (kMode != kVjp) {
+    __shared__ T sa[kThreads], sb[kThreads];
+    sa[t] = va;
+    sb[t] = vb;
+    __syncthreads();
+    if (t < per_block && row0 + t < q.n_rows) {
+      const int first = shell_order ? t : t * s, step = shell_order ? per_block : 1;
+      T sum_a = sa[first], sum_b = sb[first];
+      for (int k = 1; k < s; ++k) {
+        sum_a += sa[first + k * step];
+        sum_b += sb[first + k * step];
+      }
+      q.out0.p[row0 + t] = sum_a;
+      q.out1.p[row0 + t] = sum_b;
+    }
+  }
 }
 
 bool config_ok(const GlueConfig& c) {
@@ -921,19 +931,30 @@ int state_features_as(const GlueConfig& c, const int64_t* states, int n_rows, vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// The row tiles where the wrapper asks for them (row_tiles: enough rows to
+// fill the card one thread a row) and raw is shell-major; else one thread a
+// (row, shell). Both give the same bits.
 template <typename T>
-int tables_epilogue_as(const GlueConfig& c, int mode, const TablesArgs<T>& q, cudaStream_t s) {
-  const int blocks = blocks_for(q.n_rows, kEpiRows);
-  if (mode == kForward) {
-    tables_epilogue_kernel<T, kForward><<<blocks, kEpiRows, 0, s>>>(c, q);
-  } else if (mode == kJvp) {
-    tables_epilogue_kernel<T, kJvp><<<blocks, kEpiRows, 0, s>>>(c, q);
-  } else if (q.out1.shell >= q.out1.row) {   // a shell's rows together: one thread a row
-    tables_epilogue_kernel<T, kVjp><<<blocks, kEpiRows, 0, s>>>(c, q);
-  } else {   // a row's shells together: one thread a (row, shell)
-    const int per_block = kThreads / c.n_shells;
-    tables_epilogue_kernel_pairs<T><<<blocks_for(q.n_rows, per_block), per_block * c.n_shells, 0,
-                                 s>>>(c, q);
+int tables_epilogue_as(const GlueConfig& c, int mode, const TablesArgs<T>& q, bool row_tiles,
+                       cudaStream_t s) {
+  const bool shell_major = q.raw.shell >= q.raw.row;
+  if (row_tiles && shell_major) {
+    const int blocks = blocks_for(q.n_rows, kEpiRows);
+    if (mode == kForward)
+      tables_epilogue_kernel<T, kForward><<<blocks, kEpiRows, 0, s>>>(c, q);
+    else if (mode == kJvp)
+      tables_epilogue_kernel<T, kJvp><<<blocks, kEpiRows, 0, s>>>(c, q);
+    else
+      tables_epilogue_kernel<T, kVjp><<<blocks, kEpiRows, 0, s>>>(c, q);
+  } else {
+    const int per_block = kThreads / c.n_shells, threads = per_block * c.n_shells;
+    const int blocks = blocks_for(q.n_rows, per_block);
+    if (mode == kForward)
+      tables_epilogue_kernel_pairs<T, kForward><<<blocks, threads, 0, s>>>(c, q, shell_major);
+    else if (mode == kJvp)
+      tables_epilogue_kernel_pairs<T, kJvp><<<blocks, threads, 0, s>>>(c, q, shell_major);
+    else
+      tables_epilogue_kernel_pairs<T, kVjp><<<blocks, threads, 0, s>>>(c, q, shell_major);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1048,12 +1069,14 @@ extern "C" int state_features_smem(const void* cfg) {
 // pairs such that no two written entries meet. code: (n_rows, S)
 // contiguous, 16-byte aligned; masks: (S, S, S) uint8, the applied mask of
 // shell j after ca, cb up-spins at [j, ca, cb] (bit k occupation k).
+// row_tiles: one thread a row where raw is shell-major (the caller's choice
+// from n_rows), else one thread a (row, shell); the same bits.
 extern "C" int tables_epilogue(const void* cfg, int mode, const void* raw, const void* phase,
                                int phase_layout, const void* code, const void* masks,
                                const void* cot_la,
                                const void* cot_ph, const void* tan_raw, const void* tan_phase,
                                void* out0, void* out1, const int64_t* strides, int n_rows,
-                               int f64, void* stream) {
+                               int row_tiles, int f64, void* stream) {
   const GlueConfig& c = *static_cast<const GlueConfig*>(cfg);
   if (!config_ok(c) || mode < kForward || mode > kJvp || phase_layout < kPhaseInAmp ||
       phase_layout > kPhaseGlobal || n_rows < 0 || (mode == kVjp && (!cot_la || !cot_ph)) ||
@@ -1066,10 +1089,10 @@ extern "C" int tables_epilogue(const void* cfg, int mode, const void* raw, const
   if (f64)
     return tables_epilogue_as<double>(c, mode, tables_args<double>(
         c, raw, phase, phase_layout, code, masks, cot_la, cot_ph, tan_raw, tan_phase, out0,
-        out1, strides, n_rows), s);
+        out1, strides, n_rows), row_tiles != 0, s);
   return tables_epilogue_as<float>(c, mode, tables_args<float>(
       c, raw, phase, phase_layout, code, masks, cot_la, cot_ph, tan_raw, tan_phase, out0, out1,
-      strides, n_rows), s);
+      strides, n_rows), row_tiles != 0, s);
 }
 
 extern "C" const char* nade_glue_error_string(int code) {

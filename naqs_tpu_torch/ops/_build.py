@@ -82,29 +82,6 @@ def build_all(names=SOURCES) -> dict:
     return {n: _finish(j) for n, j in jobs.items()}
 
 
-def ptxas_usage(build_log, kernel):
-    """{mangled entry name: {"registers", "stack", "spill_stores", "spill_loads",
-    "static_smem"}} of each instantiation of `kernel` in nvcc's -Xptxas -v
-    report (the mangled name holds the kernel's name; stack and spills from the
-    entry's own "Function properties" line; static shared memory in bytes)."""
-    usage, entry, props = {}, None, None
-    for line in build_log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if kernel in line and "'" in line else None
-        elif "Function properties for" in line:
-            props = line.split("for")[-1].strip()
-        elif entry and props == entry and "bytes stack frame" in line:
-            stack, stores, loads = (int(w) for w in line.replace(",", " ").split() if w.isdigit())
-            usage.setdefault(entry, {}).update(stack=stack, spill_stores=stores, spill_loads=loads)
-        elif entry and "Used" in line and "registers" in line:
-            usage.setdefault(entry, {})["registers"] = int(
-                line.split("Used")[1].split("registers")[0])
-            usage[entry]["static_smem"] = (int(line.split("bytes smem")[0].split()[-1])
-                                           if "bytes smem" in line else 0)
-            entry = None
-    return usage
-
-
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if missing or stale."""
     if name not in _loaded:

@@ -311,18 +311,13 @@ def _config(cfg) -> _Config:
 
 @lru_cache(maxsize=1)
 def _lib():
-    return _bind(_build.load("nade_glue"))
-
-
-def _bind(lib):
-    """The C entries' argument and result types on a loaded build of
-    csrc/nade_glue.cu (the default one, or a timing tool's variant)."""
+    lib = _build.load("nade_glue")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.shell_features.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, i32, ptr]
     lib.shell_epilogue.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, i32, ptr]
     lib.state_features.argtypes = [ptr, ptr, i32, ptr, ptr, i32, ptr, i32, ptr]
     lib.tables_epilogue.argtypes = [ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                    ptr, ptr, i32, i32, ptr]
+                                    ptr, ptr, i32, i32, i32, ptr]
     lib.state_features_smem.argtypes = [ptr]
     for fn in (lib.shell_features, lib.shell_epilogue, lib.state_features,
                lib.tables_epilogue, lib.state_features_smem):
@@ -748,6 +743,14 @@ def _pair(t):
     return (t.stride(0), t.stride(1)) if t.dim() == 3 else (t.stride(0), 0)
 
 
+# tables_epilogue on at least this many rows takes one thread a row (its row
+# tiles, where raw is shell-major), on fewer one thread a (row, shell): below
+# it one thread a row leaves too much of the card idle. On the H100 the two
+# cross between 70,000 and 100,000 rows at H2O 6-31G's width
+# (tools/epilogue_timing.py, PERF.md). Both give the same bits.
+ROW_TILES_MIN = 80_000
+
+
 def _strides(*ts):
     """The C entry's 12 strides: raw, phase, tan_raw, tan_phase, out0, out1."""
     return (ctypes.c_int64 * 12)(*(x for t in ts for x in _pair(t)))
@@ -774,7 +777,7 @@ def tables_epilogue(cfg, raw, raw_phase, code):
                                          code, _mask_table(cfg, raw.device), None, None, None,
                                          None, la, ph,
                                          _strides(raw, raw_phase, None, None, None, None), n,
-                                         _f64(cfg)), raw.device)
+                                         int(n >= ROW_TILES_MIN), _f64(cfg)), raw.device)
         tables_epilogue.launches += 1
     return la, ph
 
@@ -802,7 +805,7 @@ def tables_epilogue_vjp(cfg, raw, raw_phase, code, cot_la, cot_ph):
                                          code, _mask_table(cfg, raw.device), cot_la, cot_ph, None,
                                          None, d_phase, d_raw,
                                          _strides(raw, raw_phase, None, None, d_phase, d_raw), n,
-                                         _f64(cfg)), raw.device)
+                                         int(n >= ROW_TILES_MIN), _f64(cfg)), raw.device)
         tables_epilogue_vjp.launches += 1
     return d_raw, d_phase
 
@@ -834,7 +837,7 @@ def tables_epilogue_jvp(cfg, raw, raw_phase, code, tan_raw, tan_phase):
                                          code, _mask_table(cfg, raw.device), None, None, tan_raw,
                                          tan_phase, la_dot, ph_dot,
                                          _strides(raw, raw_phase, tan_raw, tan_phase, None, None),
-                                         n, _f64(cfg)), raw.device)
+                                         n, int(n >= ROW_TILES_MIN), _f64(cfg)), raw.device)
         tables_epilogue_jvp.launches += 1
     return la_dot, ph_dot
 

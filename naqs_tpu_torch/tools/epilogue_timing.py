@@ -1,138 +1,78 @@
-"""Time tables_epilogue's three modes, and builds of it with other tiles.
+"""Time tables_epilogue's two mappings across row counts, and the amp trunk's
+last product's backward on a gradient in each layout.
 
-    python -m naqs_tpu_torch.tools.epilogue_timing [--variants "MASK_TABLE=0;GROUP=4,GROUP_F64=2"]
+    python -m naqs_tpu_torch.tools.epilogue_timing
 
 On the card, at H2O 6-31G's full width (26 qubits, 13 shells, amp 64, phase
-512x512, random weights from seed 0), on a batch of 100,000 rows (26,000
-sector states, SENTINEL after them): the nets' raw outputs as `log_psi` makes
-them (shell-major), and the same values row-major. Each mode of
-`tables_epilogue` (forward, vjp, jvp) is held in turns (`utils/cuda_timing.py`:
-5 repeats of 50 launches) with itself on the row-major inputs, with the one
-PyTorch call that does part of its work (`torch.log_softmax` and its backward
-on the masked logits (B, S, 4)), and with each variant: a build of
-`csrc/nade_glue.cu` with other values of its constants (`-DNAQS_EPI_ROWS`,
-`NAQS_EPI_GROUP`, `NAQS_EPI_GROUP_F64`, `NAQS_EPI_MASK_TABLE`: rows a block,
-shells a thread loads at once in float and in double, the forward's and jvp's
-mask read from a table or computed) into `build/naqs_tpu_torch/variants/`, whose
-outputs are compared bit for bit with the default build's (printed; the two
-layouts must agree). Then the forward and vjp of
-a float64 model the same way. Prints each build's registers, stack and
-spills of every `tables_epilogue_kernel` instantiation, each case's bound
-(the bytes it must move at 3.35 TB/s), the card's name and power limit first,
-and one JSON line last.
+512x512, random weights from seed 0), for each row count in ROWS (rows of
+(5, 5) sector states drawn from seed 0; an SR update's live rows are about
+27,000, the Adam step's batch 100,000): the nets' raw outputs as `log_psi`
+makes them (shell-major) and the same values row-major. Each mode of
+`tables_epilogue` (forward, vjp, jvp) is held in turns
+(`utils/cuda_timing.py`: 5 repeats of 50 launches) through its row tiles and
+through one thread a (row, shell) (the wrapper's ROW_TILES_MIN set to 0, and
+past the row count), on both layouts, beside the one PyTorch call that does
+part of its work (`torch.log_softmax` and its backward on the masked logits
+(rows, S, 4)); every mapping and layout must give the bits of the row tiles
+on the nets' layout. Then the amp trunk's last product
+(`einsum("...si,sio->...so")` plus its bias) and its backward through
+autograd, on a gradient shell-major (as the vjp writes it) and row-major (as
+the first design of the vjp wrote it): held in turns, and one profiled
+backward of each with its device kernels. Prints the card's name and power
+limit first and one JSON line last.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
-import os
 import subprocess
 import sys
 
 import numpy as np
 import torch
 
-SENTINEL = np.iinfo(np.int64).max
 HBM_BYTES_PER_S = 3.35e12
-ROWS, LIVE = 100_000, 26_000
+ROWS = (16_000, 27_000, 40_000, 55_000, 70_000, 100_000)
 REPEATS, LAUNCHES = 5, 50
 
 
-def parse_variants(text: str) -> dict:
-    """"ROWS=256;GROUP=4,GROUP_F64=2" -> {"ROWS256": {"ROWS": "256"},
-    "GROUP4_GROUP_F642": {"GROUP": "4", "GROUP_F64": "2"}}."""
-    out = {}
-    for item in filter(None, (v.strip() for v in text.split(";"))):
-        defines = dict(kv.split("=") for kv in item.split(","))
-        out["_".join(f"{k}{v}" for k, v in sorted(defines.items()))] = defines
-    return out
-
-
-def build_variants(variants: dict) -> dict:
-    """Each variant's library (one nvcc each, all at once), bound as the
-    wrappers bind the default one: {tag: (ctypes library, nvcc's report)}."""
-    from naqs_tpu_torch.ops import _build
-    from naqs_tpu_torch.ops import nade_glue as g
-
-    out_dir = os.path.join(_build.BUILD_DIR, "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(_build.CSRC, "nade_glue.cu")
-    jobs = {}
-    for tag, defines in variants.items():
-        lib = os.path.join(out_dir, f"libnade_glue_{tag}.so")
-        flags = [f"-DNAQS_EPI_{k}={v}" for k, v in defines.items()]
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o", lib, src]
-        jobs[tag] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True), lib, cmd)
-    built = {}
-    for tag, (proc, lib, cmd) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for variant {tag}: {' '.join(cmd)}\n{log}")
-        cdll = g._bind(ctypes.CDLL(lib))
-        cdll.error_string = cdll.nade_glue_error_string
-        cdll.error_string.argtypes = [ctypes.c_int]
-        cdll.error_string.restype = ctypes.c_char_p
-        built[tag] = (cdll, log)
-    return built
-
-
-def through(lib, fn):
-    """fn with the glue wrappers launching from `lib` (a variant's build)."""
-    from naqs_tpu_torch.ops import nade_glue as g
-
-    def call():
-        saved = g._lib
-        g._lib = lambda: lib
-        try:
-            return fn()
-        finally:
-            g._lib = saved
-
-    return call
-
-
-def batch(dev, rng):
-    st = np.full(ROWS, SENTINEL, np.int64)
-    shells, out = 13, np.zeros(LIVE, np.int64)
+def batch(dev, n, rng):
+    """n packed states of 13 shells with 5 up- and 5 down-spins each."""
+    out = np.zeros(n, np.int64)
     for spin in (0, 1):
-        pos = np.argsort(rng.random((LIVE, shells)), axis=1)[:, :5]
+        pos = np.argsort(rng.random((n, 13)), axis=1)[:, :5]
         for i in range(5):
             out |= np.int64(1) << (2 * pos[:, i] + spin)
-    st[:LIVE] = out
-    return torch.as_tensor(st, device=dev)
+    return torch.as_tensor(out, device=dev)
 
 
-def case(dev, param_dtype):
-    """(cfg, args on the nets' layout, args row-major, cotangents, tangents laid
-    out as each args' primals, the masked logits (B, S, 4) and a gradient of
-    their log-softmax for the library calls)."""
+def case(model, cfg, dev, n):
+    """(args on the nets' layout, args row-major, cotangents, (tangents laid out
+    as each args' primals), (the masked logits (rows, S, 4), their log-softmax
+    and a gradient of it for the library calls), the trunk's last input)."""
     from naqs_tpu_torch.models import nade
     from naqs_tpu_torch.ops import nade_glue as g
 
-    cfg = nade.NAQSConfig(n_qubits=26, sectors=((5, 5),), amp_hidden=(64,),
-                          phase_hidden=(512, 512), param_dtype=param_dtype)
-    model = nade.NADE(cfg, torch.Generator().manual_seed(0)).to(dev)
-    states = batch(dev, np.random.default_rng(0))
+    states = batch(dev, n, np.random.default_rng(0))
     x, x2, code = g.state_features(cfg, states)
+    taps = {}
     with torch.no_grad():
-        raw, raw_phase = nade._raw(model, x, x2)
+        raw, raw_phase = nade._raw(model, x, x2, taps=taps)
     raw_c = raw.contiguous()
     ph_c = None if raw_phase is None else raw_phase.contiguous()
     gen = torch.Generator(device=dev).manual_seed(1)
-    cot = [torch.randn(ROWS, generator=gen, device=dev, dtype=raw.dtype) for _ in range(2)]
+    cot = [torch.randn(n, generator=gen, device=dev, dtype=raw.dtype) for _ in range(2)]
     tan_c = [None if t is None else torch.randn(t.shape, generator=gen, device=dev,
                                                 dtype=raw.dtype) for t in (raw_c, ph_c)]
     tan = [None if t is None else torch.empty_like(p).copy_(t)
            for t, p in zip(tan_c, (raw, raw_phase))]
     f = g.unpack_code(code)
     logits = g.symmetrize_amp(raw[..., :cfg.n_amp_out], f["order3"])
-    mask = g._applied_mask(cfg, f)
-    z = torch.where(mask, 2.0 * logits, g.BIG_NEG).contiguous()
+    z = torch.where(g._applied_mask(cfg, f), 2.0 * logits, g.BIG_NEG).contiguous()
     lsm = torch.log_softmax(z, dim=-1)
     grad = torch.randn(lsm.shape, generator=gen, device=dev, dtype=lsm.dtype)
-    return cfg, (raw, raw_phase, code), (raw_c, ph_c, code), cot, (tan, tan_c), (z, lsm, grad)
+    return ((raw, raw_phase, code), (raw_c, ph_c, code), cot, (tan, tan_c), (z, lsm, grad),
+            taps["amp"][-1])
 
 
 def bound_ms(args, outs) -> float:
@@ -140,66 +80,110 @@ def bound_ms(args, outs) -> float:
     return n / HBM_BYTES_PER_S * 1e3
 
 
+def through(row_tiles_min, fn):
+    """fn with the wrappers' ROW_TILES_MIN set to row_tiles_min."""
+    from naqs_tpu_torch.ops import nade_glue as g
+
+    def call():
+        saved, g.ROW_TILES_MIN = g.ROW_TILES_MIN, row_tiles_min
+        try:
+            return fn()
+        finally:
+            g.ROW_TILES_MIN = saved
+
+    return call
+
+
+def last_product(model, h, layouts):
+    """{layout: a function running the amp trunk's last product on h and its
+    backward (the gradients of h, w and b) from a gradient in that layout}."""
+    w, b = model.amp.w[-1], model.amp.b[-1]
+    h = h.detach().requires_grad_()
+    y = torch.einsum("...si,sio->...so", h, w) + b
+    g_sm = torch.randn(y.shape[1], y.shape[0], y.shape[2], device=y.device,
+                       generator=torch.Generator(device=y.device).manual_seed(3)).transpose(0, 1)
+    grads = {"shell-major": g_sm, "row-major": g_sm.contiguous()}
+
+    def run(gr):
+        out = torch.einsum("...si,sio->...so", h, w) + b
+        return torch.autograd.grad(out, (h, w, b), gr)
+
+    return {k: (lambda gr=grads[k]: run(gr)) for k in layouts}
+
+
+def kernels_of(fn):
+    """{device kernel name: (launches, device ms)} of one fn() under
+    torch.profiler, after one untraced call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:100]: (e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("epilogue_timing: no CUDA device available", file=sys.stderr)
         return 2
-    from naqs_tpu_torch.ops import _build
+    from naqs_tpu_torch.models import nade
     from naqs_tpu_torch.ops import nade_glue as g
     from naqs_tpu_torch.utils.cuda_timing import time_in_turns
 
-    variants = parse_variants(argv[argv.index("--variants") + 1]) if "--variants" in argv \
-        else {}
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"[card] {smi}", flush=True)
-    # the default build beside the variants, for its -Xptxas -v report (the
-    # wrappers' own library may have been built before, without one kept)
-    built = build_variants({"default": {}, **variants})
-    reports = {tag: _build.ptxas_usage(log, "tables_epilogue") for tag, (_, log) in built.items()}
-    del built["default"]
-    for tag, rep in reports.items():
-        for k, v in rep.items():
-            print(f"[ptxas] {tag} {k}: {v.get('registers')} registers, {v.get('stack')} B "
-                  f"stack, {v.get('spill_stores')} B spill stores, {v.get('spill_loads')} B "
-                  f"spill loads, {v.get('static_smem')} B static shared memory", flush=True)
-    result = {"card": smi, "variants": variants, "ptxas": reports, "cases": {}}
-    for param_dtype, modes in (("float32", ("forward", "vjp", "jvp")),
-                               ("float64", ("forward", "vjp"))):
-        cfg, args, args_c, cot, (tan, tan_c), (z, lsm, grad) = case(dev, param_dtype)
+    cfg = nade.NAQSConfig(n_qubits=26, sectors=((5, 5),), amp_hidden=(64,),
+                          phase_hidden=(512, 512))
+    model = nade.NADE(cfg, torch.Generator().manual_seed(0)).to(dev)
+    result = {"card": smi, "epilogue": {}, "last_product": {}}
+    for n in ROWS:
+        args, args_c, cot, (tan, tan_c), (z, lsm, grad), h = case(model, cfg, dev, n)
         calls = {"forward": lambda a, t: g.tables_epilogue(cfg, *a),
                  "vjp": lambda a, t: g.tables_epilogue_vjp(cfg, *a, *cot),
                  "jvp": lambda a, t: g.tables_epilogue_jvp(cfg, *a, *t)}
         library = {"forward": lambda: torch.log_softmax(z, dim=-1),
                    "vjp": lambda: torch._log_softmax_backward_data(grad, lsm, -1, lsm.dtype)}
-        for mode in modes:
-            name = f"{mode}, {param_dtype}"
-            fns = {"the nets' layout": lambda c=calls[mode]: c(args, tan),
-                   "row-major": lambda c=calls[mode]: c(args_c, tan_c)}
-            want = fns["the nets' layout"]()
+        for mode, call in calls.items():
+            name = f"{mode}, {n} rows"
+            fns = {}
+            for tag, least in (("row tiles", 0), ("a thread a (row, shell)", n + 1)):
+                fns[f"{tag}, the nets' layout"] = through(least, lambda c=call: c(args, tan))
+                fns[f"{tag}, row-major"] = through(least, lambda c=call: c(args_c, tan_c))
+            want = fns["row tiles, the nets' layout"]()
+            same = {label: g.same_bits(tuple(fn()), tuple(want)) for label, fn in fns.items()}
+            print(f"[case] {name}: bitwise the row tiles' on the nets' layout: {same}",
+                  flush=True)
+            if not all(same.values()):
+                raise SystemExit(f"epilogue_timing: {name} differs between mappings or layouts")
             if mode in library:
                 fns["library call"] = library[mode]
-            for tag, (lib, _) in built.items():
-                fns[f"variant {tag}"] = through(lib, fns["the nets' layout"])
-            same = {label: g.same_bits(tuple(fn()), tuple(want)) for label, fn in fns.items()
-                    if label != "library call"}
-            print(f"[case] {name}: bitwise the default build's on the nets' layout: {same}",
-                  flush=True)
-            if not same["row-major"]:
-                raise SystemExit(f"epilogue_timing: {name} differs between the layouts")
-            extra = ((*cot,) if mode == "vjp" else (*tan,) if mode == "jvp" else ())
+            extra = (*cot,) if mode == "vjp" else (*tan,) if mode == "jvp" else ()
             bound = bound_ms((*args, *extra), want)
             times = time_in_turns(fns, REPEATS, LAUNCHES)
             for label, (med, spread, _) in times.items():
                 print(f"[time] {name} | {label}: {med:.4f} ms (spread {spread[0]:.4f}-"
                       f"{spread[1]:.4f}), {bound / med:.0%} of its bound {bound:.5f} ms",
                       flush=True)
-            result["cases"][name] = {"bound_ms": bound,
-                                     "ms": {k: v[0] for k, v in times.items()},
-                                     "spread": {k: v[1] for k, v in times.items()}}
-        del args, args_c, cot, tan, tan_c, z, lsm, grad
+            result["epilogue"][name] = {"bound_ms": bound,
+                                        "ms": {k: v[0] for k, v in times.items()},
+                                        "spread": {k: v[1] for k, v in times.items()}}
+        back = last_product(model, h, ("shell-major", "row-major"))
+        times = time_in_turns(back, REPEATS, LAUNCHES)
+        kernels = {k: kernels_of(fn) for k, fn in back.items()}
+        for label, (med, spread, _) in times.items():
+            print(f"[back] {n} rows, the last product and its backward on a {label} gradient: "
+                  f"{med:.4f} ms (spread {spread[0]:.4f}-{spread[1]:.4f}); kernels "
+                  f"{kernels[label]}", flush=True)
+        result["last_product"][n] = {"ms": {k: v[0] for k, v in times.items()},
+                                     "kernels": kernels}
+        del args, args_c, cot, tan, tan_c, z, lsm, grad, h, back
         torch.cuda.empty_cache()
     print(json.dumps(result))
     return 0

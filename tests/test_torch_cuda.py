@@ -2141,15 +2141,16 @@ def _laid_out(t, layout):
 @pytest.mark.parametrize("kw", GLUE_CONFIGS, ids=_glue_ids)
 @pytest.mark.parametrize("mode", ["forward", "vjp", "jvp"])
 @pytest.mark.parametrize("layout", ["contiguous", "shell-major", "sliced"])
-def test_tables_epilogue_kernel_matches_plain(kw, mode, layout):
+def test_tables_epilogue_kernel_matches_plain(kw, mode, layout, monkeypatch):
     """Each of tables_epilogue's three modes within GLUE_TOL of its plain
     version on raw outputs widened 4x (masked options, pinned phases, the
     hardtanh's flat parts), read at the strides of each layout (`_laid_out`;
-    the tangents laid out as their primals), and bitwise on a repeat and
-    across the layouts; the vjp's gradients laid out as `torch.empty_like`
-    lays out their inputs (raw's own strides where raw is dense); the jvp
-    with no tangent gives zeros; an expanded raw or one whose last stride is
-    not 1 raises."""
+    the tangents laid out as their primals), and bitwise on a repeat, across
+    the layouts and across the two mappings (20,003 rows take one thread a
+    (row, shell); with ROW_TILES_MIN at 0 shell-major raw takes the row
+    tiles); the vjp's gradients laid out as `torch.empty_like` lays out their
+    inputs (raw's own strides where raw is dense); the jvp with no tangent
+    gives zeros; an expanded raw or one whose last stride is not 1 raises."""
     from naqs_tpu_torch.ops import nade_glue as g
 
     cfg, model, states = _glue_case(kw, 20_003, seed=1)
@@ -2185,6 +2186,12 @@ def test_tables_epilogue_kernel_matches_plain(kw, mode, layout):
         plain_layout = fn(raw, raw_phase, code) if mode != "jvp" else g.tables_epilogue_jvp(
             cfg, raw, raw_phase, code, *tan)
         assert all(p is None or torch.equal(p, q) for p, q in zip(got, plain_layout))
+    assert len(states) < g.ROW_TILES_MIN
+    with monkeypatch.context() as m:
+        m.setattr(g, "ROW_TILES_MIN", 0)
+        tiles = fn(laid, laid_phase, code)
+    assert all(p is None or (torch.equal(p, q) and p.stride() == q.stride())
+               for p, q in zip(got, tiles))
     if mode == "vjp":
         for grad, primal in zip(got, (laid, laid_phase)):
             if primal is not None:

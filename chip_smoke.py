@@ -18,9 +18,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      sort engine's lookups, its one-launch E_loc and quadratic form; the
      one-launch kernels' shared body is csrc/row_energy.cuh) and
      csrc/offdiag_h.cu (the per-term H row), csrc/eri.cu (the
-     two-electron integrals) and csrc/nade_glue.cu (the model's fused glue:
+     two-electron integrals), csrc/nade_glue.cu (the model's fused glue:
      the sampler's shell head and tail, log_psi's features and its tables'
-     epilogue in three modes);
+     epilogue in three modes) and csrc/grid_glue.cu (the grid and rank
+     engines' E_loc glue: the rank index, the value grid or table scatter,
+     the readout with the staircase's true diagonal);
   2. print the card's name and power limit (nvidia-smi);
   3. set up H2O 6-31G (26 qubits, sector (5, 5), 1,656,369 states) and the
      paper-scale model (amp 64, phase 512x512, global phase net, partial
@@ -460,13 +462,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      step's wall time, device time and busy share, one SR update's
      (GLUE_SR_CG CG iterations) wall and device time, and the SR update's
      SR_DIFF_KERNELS device kernels whose time differs most between the trees.
+The E_loc glue (ops/rank.py's rank_index, ops/grid_glue.py's grid_scatter
+and grid_readout; csrc/grid_glue.cu) runs on every grid-engine and
+rank-engine call: every phase that reads the engines' launch counts also
+holds the glue's (_eloc_glue_check: per grid-engine call rank_index once,
+twice with queries=, grid_scatter twice (its fill and scatter launches),
+grid_readout once; per rank-engine call rank_index once and grid_scatter
+twice; the sort engine none), phases 6 to 18. Phases 6, 7, 10, 10b and 10d
+hold its kernels on the engine's real batch (H2O 6-31G factored and its rank
+table, N2 STO-3G dense, Li2O CISDTQ staircase with the true diagonal of the
+rows outside the staircase, frozen-core N2 6-31G's 19 M-row table) against
+their plain versions, rank_index and grid_scatter bitwise, grid_readout
+within READOUT_RELTOL of its off-diagonal part + DIAG_ATOL (bitwise
+printed), each bitwise equal to itself; phase 11 times them in turns with
+the plain versions and index_put_ of the scatter's precomputed values and
+prints their bounds.
 With --profile, the profiled step of each engine (H2O 6-31G factored and
 rank, Li2O staircase, N2 6-31G sort, frozen-core N2 6-31G rank with no
 dense A) must show one device kernel per wrapper call of the
-sampler's kernels, of the model's glue and of the engine's own (the trace's
-window padded with PROFILE_PAD cycles of card sleep at each end: `_traced`);
-it prints the step's device time and the card's busy share of the step
-before it.
+sampler's kernels, of the model's glue, of the E_loc glue and of the
+engine's own (the trace's window padded with PROFILE_PAD cycles of card
+sleep at each end: `_traced`); it prints the step's device time and the
+card's busy share of the step before it; then one traced E_loc call of the
+H2O factored and the Li2O staircase engine, its device kernels and copies
+and how many of them the glue's, with --before DIR's engine functions on
+the same inputs beside it and both trees' H2O factored and Li2O staircase
+steps in turns (DIR's trainer over this tree's DeviceTerms): wall, device
+time and busy share (_glue_profile).
 Prints a {"kernels": [...]} JSON line (launches from phase 6 for
 factored_cells_accumulate, split_and_compact, multinomial4_split and
 compact_children (0: the standalone kernels left sample()'s path; their
@@ -517,7 +539,9 @@ entries of the model's glue (launches from phase 6, "launches_sample_call"
 and "launches_sr_update" from phase 18, registers by instantiation, and
 with --before shell_features' and state_features' "before_ms" and the
 sample(), step and SR numbers of both trees under tables_epilogue's
-"before"); and last {"ok": true,
+"before"); then the E_loc glue's three entries (launches from phase 6,
+the main path's shape H2O 6-31G factored, the other engines' shapes under
+"shapes"); and last {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1643,6 +1667,7 @@ def _trainer_extras(dev, mol, hil, terms, cfg, tr2, zero_counts, wrappers):
         if others({"rank_quadratic_energy"}) or rank_quadratic_energy.launches != 1:
             raise SystemExit(f"exact_energy did not run one rank_quadratic_energy launch and "
                              f"nothing else: {others(set())}")
+        _eloc_glue_check("phase 12: exact_energy()", {"rank_quadratic_energy": 1})
         out["exact_energy_s"] = walls[f"exact_energy over the {hil.size}-state basis"]
         basis = torch.as_tensor(hil.basis, device=dev)
         t = time.time()
@@ -1728,6 +1753,7 @@ def _trainer_extras(dev, mol, hil, terms, cfg, tr2, zero_counts, wrappers):
                 and not others({"_compact_children", eloc.__name__})):
             raise SystemExit(f"run_density did not run compact_children once per shell and "
                              f"nothing else of the sampler: {others(set())}")
+        _eloc_glue_check("phase 12: run_density", {eloc.__name__: eloc.launches})
 
         # 7. save, load into a fresh trainer, one more step of each
         t = time.time()
@@ -1821,6 +1847,7 @@ def _cli_runs(zero_counts, wrappers, t_fact, t_dense):
         torch.cuda.synchronize()
         wall = time.time() - t
         launched = {names[w]: w.launches for w in wrappers}
+        _eloc_glue_check(f"phase 13: CLI run {label}", launched)
         lines = [json.loads(x) for x in open(os.path.join(out_dir, "log.jsonl"))]
         e_loc = [x["value"] for x in lines if x["key"] == "E_LOC"]
         run_time = [x["value"] for x in lines if x["key"] == "TIME"]
@@ -1946,13 +1973,15 @@ def _exact_mode(dev, hil, terms, cfg, tc, li2o, x_touched, zero_counts, wrappers
     launches = dict.fromkeys(names.values(), 0)
     out = {}
 
-    def counted(label, fn, want):
+    def counted(label, fn, want, queries=False):
         """fn() with every count at 0 before; its launches join phase 14's.
         `want` maps a kernel's name to its expected launches (None: any
-        number above 0); every other kernel must not launch."""
+        number above 0); every other kernel must not launch; the E_loc glue
+        as its E_loc calls imply (`queries`: they read queries= rows)."""
         zero_counts()
         res = fn()
         got = {names[w]: w.launches for w in wrappers}
+        _eloc_glue_check(f"phase 14: {label}", got, queries)
         for k, v in got.items():
             launches[k] += v
         bad = {k: v for k, v in got.items()
@@ -1968,6 +1997,8 @@ def _exact_mode(dev, hil, terms, cfg, tc, li2o, x_touched, zero_counts, wrappers
         zero_counts()
         n_upd, times, n_draws = _steps(tr, n, label)
         got = {names[w]: w.launches for w in wrappers}
+        # an exact_eloc trainer's E_loc calls read the batch as queries= rows
+        _eloc_glue_check(f"phase 14: {label}", got, queries=tr._table is not None)
         for k, v in got.items():
             launches[k] += v
         want = {kernel: n_upd, "_split_and_compact": tr.cfg.n_shells * n_draws}
@@ -2015,7 +2046,7 @@ def _exact_mode(dev, hil, terms, cfg, tc, li2o, x_touched, zero_counts, wrappers
     table_args = (t_states, t_la, t_ph, t_n)
     e_f = counted("14a local_energy(queries=), FactorTerms",
                   lambda: le.local_energy(dt, *table_args, queries=queries),
-                  {"factored_cells_accumulate": 1})
+                  {"factored_cells_accumulate": 1}, queries=True)
     # the kernel against its plain version on the full-sector grid, read at the
     # query rows (SENTINEL rows past n_unique read exactly 0)
     grid_x, ref_x, _ = de.value_grid(spec, t_states, t_la, t_ph, t_n, fn.sa, fn.sb)
@@ -2348,7 +2379,7 @@ def _exact_mode(dev, hil, terms, cfg, tc, li2o, x_touched, zero_counts, wrappers
         n0 = tr.n_steps
         counted(f"14e run_exact({EXACT_MINI_STEPS}, batch_size={EXACT_BATCH})",
                 lambda: tr.run_exact(EXACT_MINI_STEPS, batch_size=EXACT_BATCH),
-                {"factored_cells_accumulate": EXACT_MINI_STEPS})
+                {"factored_cells_accumulate": EXACT_MINI_STEPS}, queries=True)
     finally:
         trainer_mod.vmc_update = update
     rng = np.random.default_rng(tc_x.seed + 1)
@@ -2400,6 +2431,7 @@ def _cli_run_c(zero_counts, wrappers):
         torch.cuda.synchronize()
         wall = time.time() - t
         counts = {w.__name__.lstrip("_"): w.launches for w in wrappers}
+        _eloc_glue_check("phase 14: CLI run C", counts)
         lines = [json.loads(x) for x in open(os.path.join(work, "log.jsonl"))]
         have_summary = os.path.exists(os.path.join(work, "summary.json"))
     finally:
@@ -2583,6 +2615,8 @@ def _natgrad(dev, hil, terms, cfg, tc, zero_counts, wrappers):
                       f"device time; by kernel (ms): "
                       f"{json.dumps({k[:60]: round(v, 3) for k, v in top})}", flush=True)
         got = read_launches()
+        # an exact_eloc trainer's E_loc calls read the batch as queries= rows
+        _eloc_glue_check(f"phase 15: {label}", got, queries=tr._table is not None)
         want = {kernel: calls["update"], "split_and_compact": tr.cfg.n_shells * calls["sample"]}
         print(f"[natgrad] {label}: {n} steps, {calls['update']} updates, {calls['sample']} "
               f"sample() calls; launches {got}", flush=True)
@@ -2601,6 +2635,7 @@ def _natgrad(dev, hil, terms, cfg, tc, zero_counts, wrappers):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         got = read_launches()
+        _eloc_glue_check(f"phase 15: {label}", got)
         print(f"[natgrad] {label} under torch.cuda.set_sync_debug_mode('error'): no host sync; "
               f"launches {got}", flush=True)
         if got != {kernel: 1}:
@@ -2819,6 +2854,7 @@ def _natgrad(dev, hil, terms, cfg, tc, zero_counts, wrappers):
             torch.cuda.synchronize()
             wall = time.time() - t
             got = read_launches()
+            _eloc_glue_check(f"phase 15: CLI run D {label}", got)
             lines = [json.loads(x) for x in open(os.path.join(out_dir, "log.jsonl"))]
             e_loc = [x["value"] for x in lines if x["key"] == "E_LOC"]
             print(f"[natgrad] 15d run D {label}: {wall:.1f} s; E_loc {e_loc}; exact energy "
@@ -2917,6 +2953,8 @@ def _sharded(dev, hil, terms, cfg, tc, zero_counts, wrappers, smi):
             launches[k] += v
         if got != {"factored_cells_accumulate": 1}:
             raise SystemExit(f"16a {label}: launches {got}")
+        # shard_energy: the rank's rows are queries= rows of the merged buffer
+        _eloc_glue_check(f"phase 16a: {label}", got, queries=True)
         return res
 
     work = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
@@ -3064,6 +3102,9 @@ def _check_sharded(label, res, wall, smi, n_shells):
             bad.append(f"rank {r['rank']}'s pair disagrees with the composition: {c}")
         got = r["launches"]
         updates = len(r["rows"])
+        # shard_energy: the rank's rows are queries= rows of the merged buffer
+        _eloc_glue_check(f"phase {label} rank {r['rank']}", got, queries=True,
+                         got=r["eloc_launches"])
         if not (set(got) == {"factored_cells_accumulate", "split_and_compact"}
                 and got["factored_cells_accumulate"] >= updates
                 and got["split_and_compact"] % n_shells == 0):
@@ -3442,6 +3483,7 @@ def _chem(dev, zero_counts, wrappers, smi, build_log, old=None):
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     launches = {names[w]: w.launches for w in wrappers}
+    _eloc_glue_check("phase 17: the generated molecule's steps", launches)
     print(f"[chem] 17c: the command line wrote {os.path.basename(path)} in {wall_cli:.2f} s "
           f"(energies within {cli_err:.1e} of the committed .npz); {CHEM_STEPS} VMCTrainer steps "
           f"on it (amp 64, phase 512x512, capacity {CHEM_CAPACITY}, {type(tr.dt.dense).__name__})"
@@ -3580,6 +3622,7 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
     from naqs_tpu_torch import sr as sr_mod
     from naqs_tpu_torch.models import nade as nade_mod
     from naqs_tpu_torch.ops import nade_glue as g
+    from naqs_tpu_torch.ops.grid_kernels import factored_cells_accumulate
     from naqs_tpu_torch.sampler import SampleBatch
     from naqs_tpu_torch.utils.cuda_timing import time_in_turns
 
@@ -3595,6 +3638,7 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
     zero_counts()
     batch_a, shells = _shell_inputs(model, tr.gen, 1e5, cap)
     got = counts()
+    _eloc_glue_check("phase 18: one sample() call", {})
     want = dict.fromkeys(names, 0) | {"shell_features": s, "shell_epilogue": s}
     print(f"[glue] one sample() call's shells at capacity {cap}: launches {got}", flush=True)
     if got != want:
@@ -3708,8 +3752,11 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
         print(f"[glue] {label}: one log_psi forward and backward on the batch: copying "
               f"operators {c['ops']}, device copy kernels {c['kernels']}; "
               f"{c['raw_sized']} copies of raw's shape", flush=True)
-    if old and not copies["this tree"]["raw_sized"] < copies["earlier tree"]["raw_sized"]:
-        raise SystemExit("log_psi copies raw as often as the earlier tree")
+    # none of raw's shape, and never more than the earlier tree's (a tree whose
+    # epilogue took raw made contiguous made one)
+    if copies["this tree"]["raw_sized"] or (
+            old and copies["this tree"]["raw_sized"] > copies["earlier tree"]["raw_sized"]):
+        raise SystemExit(f"log_psi copies raw: {copies}")
     # what log_psi_epilogue hands the autograd Function: the nets' own outputs
     made, handed = [], []
     raw_of, apply0 = nade_mod._raw, g.TablesEpilogue.apply
@@ -3764,6 +3811,8 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
     finally:
         sr_mod.jvp, sr_mod.vjp = jvp0, vjp0
     sr_counts = counts()
+    _eloc_glue_check("phase 18: one SR update",
+                     {"factored_cells_accumulate": factored_cells_accumulate.launches})
     print(f"[glue] one SR update ({GLUE_SR_CG} CG iterations, {n_live} live rows): "
           f"{ad['jvp']} jvp and {ad['vjp_fn']} vjp_fn calls; launches {sr_counts}; e_loc "
           f"{float(res['e_loc']):.6f}", flush=True)
@@ -4069,6 +4118,315 @@ def _glue(dev, tr, cfg, zero_counts, glue, path_counts, smi, build_log, old=None
     return entries
 
 
+# the grid and rank engines' E_loc glue (csrc/grid_glue.cu): rank_index, the value
+# grid or table scatter and the readout, one hand kernel each (the scatter two
+# launches), on every grid-engine and rank-engine call
+ELOC_GLUE_SRC = "naqs_tpu_torch/csrc/grid_glue.cu"
+ELOC_GLUE_REPLACES = {"rank_index": "naqs_tpu/ops/rank.py:99",
+                      "grid_scatter": "naqs_tpu/ops/dense_engine.py:477",
+                      "grid_readout": "naqs_tpu/ops/dense_engine.py:526"}
+GRID_ENGINE_KERNELS = ("factored_cells_accumulate", "dense_grid_accumulate",
+                       "xl_grid_accumulate")
+RANK_ENGINE_KERNELS = ("rank_local_energy", "rank_quadratic_energy")
+# integer operations a state of the rank index takes (two spin-word compactions
+# of 10, two popcounts, the sector record, two colex lookups of 4, the
+# product and sums), and with the staircase's maps one division, one
+# remainder (about 20 each for int32) and two table reads more
+RANK_INDEX_OPS, RANK_INDEX_XL_OPS = 36, 80
+# float operations of a scattered or read-out row, one libdevice exp, cos and
+# sin counted at 20 each; the readout's rotation and clamp 9 more
+GLUE_ROW_OPS = 65
+READOUT_RELTOL = 1e-6         # the readout against its plain version, of its off-diagonal part
+_ELOC_GLUE = ()               # (rank_index, grid_scatter, grid_readout), set by main
+
+
+def _dir_trainer(old, tr):
+    """DIR's VMCTrainer at `tr`'s configuration over `tr`'s DeviceTerms (DIR's
+    dataclasses made from this tree's fields, which both trees share: no
+    second build) with `tr`'s weights."""
+    import dataclasses
+
+    le_o, de_o = old["local_energy"], old["dense_engine"]
+    dense = tr.dt.dense
+    if dense is not None:
+        cls = getattr(de_o, type(dense).__name__)
+        dense = cls(**{f.name: getattr(dense, f.name) for f in dataclasses.fields(cls)})
+    conv = le_o.DeviceTerms(**{f.name: dense if f.name == "dense" else getattr(tr.dt, f.name)
+                               for f in dataclasses.fields(le_o.DeviceTerms)})
+    cfg_o = old["nade"].NAQSConfig(**{f.name: getattr(tr.cfg, f.name)
+                                      for f in dataclasses.fields(tr.cfg)})
+    made = old["trainer"].DeviceTerms
+    build = made.__dict__["from_terms"]
+    made.from_terms = staticmethod(lambda *a, **k: conv)
+    try:
+        tr_o = old["trainer"].VMCTrainer(cfg_o, tr.terms, tr.hilbert, tr.tc, device=tr.device)
+    finally:
+        made.from_terms = build
+    tr_o.model.load_state_dict(tr.model.state_dict())
+    return tr_o
+
+
+def _glue_profile(old, tr, tr3, h2o, li2o, smi):
+    """--profile: one E_loc call of the H2O 6-31G factored engine and of the Li2O
+    CISDTQ staircase engine on their batches, each traced: its device kernels
+    and copies, of them the engine's accumulation and the rest, the glue, and
+    their device time; with --before DIR's engine functions on the same inputs
+    too. Then, with --before, the two engines' training steps of both trees
+    (DIR's trainer over this tree's DeviceTerms and weights) in turns
+    (this, DIR, DIR, this) x GLUE_TURNS: each step's wall time, then one
+    traced step of each: its device time and the card's busy share of the
+    median unheld step."""
+    import torch
+
+    from naqs_tpu_torch.ops import dense_engine as de
+
+    fn, spec, batch, la, ph = h2o
+    xl, spec3, batch3, la3, ph3 = li2o
+    diag = (tr3.dt.diag_yz, tr3.dt.diag_coeff)
+    trees = {"this tree": de}
+    if old and "dense_engine" in old:
+        trees["earlier tree"] = old["dense_engine"]
+    calls = {}
+    for tree, mod in trees.items():
+        calls[("H2O 6-31G factored", tree)] = ("factored_cells_kernel", lambda m=mod: (
+            m.factored_local_energy(fn, spec, batch.states, la, ph, batch.n_unique)))
+        calls[("Li2O CISDTQ staircase", tree)] = ("xl_grid_accumulate_kernel", lambda m=mod: (
+            m.factored_xl_local_energy(xl, spec3, batch3.states, la3, ph3, batch3.n_unique,
+                                       diag=diag)))
+    out = {}
+    for (engine, tree), (main, call) in calls.items():
+        call()
+        _, wall, events = _traced(call)
+        dev = _device_events(events)
+        n = sum(e.count for e in dev)
+        n_main = sum(e.count for e in dev if main in e.key)
+        ms = sum(e.self_device_time_total for e in dev) / 1e3
+        ms_main = sum(e.self_device_time_total for e in dev if main in e.key) / 1e3
+        out[(engine, tree)] = dict(device_launches=n, glue_launches=n - n_main, device_ms=ms,
+                                   glue_device_ms=ms - ms_main, wall_s=wall)
+        print(f"[profile] one E_loc call, {engine}, {tree}: {n} device kernels and copies, "
+              f"{n_main} of them the accumulation and {n - n_main} the glue; {ms:.3f} ms of "
+              f"device time, the glue {ms - ms_main:.3f} ms; {wall * 1e3:.2f} ms of wall under "
+              f"the profiler ({smi})", flush=True)
+    if len(trees) < 2:
+        return out
+    steps = {}
+    for engine, t in (("H2O 6-31G factored", tr), ("Li2O CISDTQ staircase", tr3)):
+        t0 = time.time()
+        both = {"this tree": t, "earlier tree": _dir_trainer(old, t)}
+        print(f"[before] {engine}: the earlier tree's trainer over this tree's DeviceTerms in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        walls = {k: [] for k in both}
+        for x in both.values():   # warm up
+            x.step()
+        for _ in range(GLUE_TURNS):
+            for label in ("this tree", "earlier tree", "earlier tree", "this tree"):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                both[label].step()
+                torch.cuda.synchronize()
+                walls[label].append(time.time() - t0)
+        for label, x in both.items():
+            _, p_wall, p_dev = _profiled_call(x.step)
+            med = sorted(walls[label])[len(walls[label]) // 2]
+            steps[(engine, label)] = dict(step_wall_s=med, step_walls_s=walls[label],
+                                          step_device_ms=p_dev, busy_share=p_dev / 1e3 / med)
+            print(f"[before] {engine} step, {label}: {med:.4f} s of wall (median of "
+                  f"{len(walls[label])} in turns), {p_dev:.2f} ms of device time under "
+                  f"torch.profiler: the card busy {p_dev / 1e3 / med:.0%} of the unprofiled "
+                  f"step ({smi})", flush=True)
+        del both
+    out["steps"] = steps
+    return out
+
+
+# the engines' labels in _hold_eloc_glue's calls, by glue_held key
+_GLUE_LABELS = {"factored": "H2O 6-31G, factored", "rank": "H2O 6-31G, rank engine's table",
+                "dense": "N2 STO-3G, dense", "xl": "Li2O CISDTQ, staircase",
+                "rank_fc": "frozen-core N2 6-31G, rank engine's table"}
+
+
+def _glue_bound(h):
+    """(ms, "bytes" or "operations"): a glue kernel's least time on the card
+    from what _hold_eloc_glue counted: its bytes at the memory rate, its float32
+    and integer operations at the float32 rate, its float64 ones at the float64
+    rate."""
+    b = _bound(h["bytes"], h["ops"])
+    f64 = h["fp64_ops"] / H100_FP64_OPS_PER_S * 1e3
+    return (f64, "operations") if f64 > b[0] else b
+
+
+def _print_glue_bounds(glue_held, times, smi):
+    """Phase 11: each E_loc glue kernel's bound on each engine's batch, beside
+    its held time where it was timed."""
+    for eng, held in glue_held.items():
+        for name, work in held.items():
+            bound, by = _glue_bound(work)
+            key = f"{name} ({_GLUE_LABELS[eng]})"
+            print(f"[bound] {key} {bound:.5f} ms ({by}: {work['bytes']} B, {work['ops']} float32 "
+                  f"and integer operations, {work['fp64_ops']} float64)"
+                  + (f"; held {times[key][0]:.5f} ms: {bound / times[key][0]:.0%} of the bound"
+                     if key in times else "") + f" ({smi})", flush=True)
+
+
+def _eloc_glue_check(label, counts, queries=False, got=None):
+    """Hold the E_loc glue's launches since the counts were last set to 0 to
+    what the engine kernels' launches in `counts` (by kernel name) imply: per
+    grid-engine call one rank_index (two with queries=: the buffer's and the
+    queries'), two grid_scatter and one grid_readout; per rank-engine call (a
+    local_energy or a quadratic_energy) one rank_index and two grid_scatter;
+    the sort engine none. `got`: the glue's counts where they were read
+    elsewhere (another process's), else the wrappers' own. Raises SystemExit
+    on any other count."""
+    g = sum(counts.get(k, 0) for k in GRID_ENGINE_KERNELS)
+    r = sum(counts.get(k, 0) for k in RANK_ENGINE_KERNELS)
+    want = {"rank_index": (2 if queries else 1) * g + r, "grid_scatter": 2 * (g + r),
+            "grid_readout": g}
+    got = {w.__name__: w.launches for w in _ELOC_GLUE} if got is None else got
+    print(f"[glue] {label}: the E_loc glue's launches {got} (expected {want}: {g} grid-engine "
+          f"call(s){' with queries=' if queries else ''}, {r} rank-engine call(s))",
+          flush=True)
+    if got != want:
+        raise SystemExit(f"{label}: the E_loc glue launched {got}, expected {want}")
+    return got
+
+
+def _hold_eloc_glue(label, engine, prog, spec, states, la, ph, n_valid, dt=None):
+    """The E_loc glue's kernels on an engine's real batch (phases 6, 7, 10 and
+    10b) against their plain versions on the card: rank_index and
+    grid_scatter bitwise, grid_readout per row within READOUT_RELTOL of its
+    off-diagonal part + DIAG_ATOL (whether bitwise is printed), each bitwise
+    equal to itself run twice. engine: "factored", "dense", "xl" (with dt,
+    the true diagonal's terms) or "rank" (the table, no readout). Returns
+    {kernel: {"err", "bitwise", "bytes", "ops", "fp64_ops"}} and the timing
+    closures {name: fn} (kernel, plain version, and index_put_ of precomputed
+    values for the scatter)."""
+    import torch
+
+    from naqs_tpu_torch.ops import grid_glue as gg
+    from naqs_tpu_torch.ops import grid_kernels as gk
+    from naqs_tpu_torch.ops.rank import rank_index, rank_index_ref, spec_table
+
+    dev = states.device
+    u = states.shape[0]
+    eb = la.element_size()
+    nv = gg._count(n_valid, dev)
+    n_live = int(nv)
+    out, fns = {}, {}
+
+    def twice(fn):
+        """(fn(), whether a second call gives the same tensors bit for bit)"""
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        flat = lambda x: [t for t in (x if isinstance(x, tuple) else (x,)) if t is not None]
+        return a, all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+
+    # rank_index
+    perm = (prog.perm_a, prog.perm_b) if engine == "xl" else None
+    idx, same = twice(lambda: rank_index(spec, states, perm=perm))
+    want = rank_index_ref(spec, states, perm)
+    pairs = list(zip(idx, want)) if perm else [(idx, want)]
+    bitwise = all(torch.equal(g, w) for g, w in pairs)
+    out["rank_index"] = dict(
+        err=max(float((g - w).abs().max()) for g, w in pairs), bitwise=bitwise,
+        bytes=u * 8 * (3 if perm else 2) + 4 * spec_table(spec)[0].size +
+        (4 * (prog.sa_full + prog.sb_full + 2) if perm else 0),
+        ops=u * (RANK_INDEX_XL_OPS if perm else RANK_INDEX_OPS), fp64_ops=0)
+    fns[f"rank_index ({label})"] = lambda: rank_index(spec, states, perm=perm)
+    fns[f"rank_index_ref ({label})"] = lambda: rank_index_ref(spec, states, perm)
+    if not (bitwise and same):
+        raise SystemExit(f"rank_index ({label}) disagrees with its plain version or itself")
+
+    # grid_scatter
+    mode = {"xl": "xl", "rank": "table"}.get(engine, "grid")
+    sa, sb = (spec.size, 0) if mode == "table" else (prog.sa, prog.sb)
+    miss = -1.0e30
+    (grid, ref), same = twice(lambda: gg.grid_scatter(mode, idx, la, ph, nv, sa, sb, miss=miss))
+    grid_w, ref_w = gg.grid_scatter_ref(mode, idx, la, ph, nv, sa, sb, miss=miss)
+    bitwise = torch.equal(grid, grid_w) and (ref is None or torch.equal(ref, ref_w))
+    # the writes index_put_ makes, on precomputed cells and values (part of the work)
+    if mode == "table":
+        live = (torch.arange(u, device=dev) < nv) & (idx < sa)
+        at, vals = (idx[live],), torch.stack([la[live].float(), ph[live].float()], 1)
+    else:
+        c0, c1 = (idx[0], idx[1]) if mode == "xl" else (idx // sb, idx % sb)
+        live = (torch.arange(u, device=dev) < nv) & (
+            (c0 < sa) & (c1 < sb) if mode == "xl" else (idx < sa * sb))
+        at, vals = (c0[live], c1[live]), grid_w[c0[live], c1[live]]
+    target = grid_w.clone()
+    out["grid_scatter"] = dict(
+        err=float((grid - grid_w).abs().max()), bitwise=bitwise,
+        bytes=grid.numel() * 4 + n_live * ((16 if mode == "xl" else 8) + 2 * eb),
+        ops=0 if mode == "table" else int(live.sum()) * GLUE_ROW_OPS + n_live,
+        fp64_ops=0, written=int(live.sum()))
+    if eb == 8 and mode != "table":
+        out["grid_scatter"]["fp64_ops"], out["grid_scatter"]["ops"] = \
+            out["grid_scatter"]["ops"], n_live
+    fns[f"grid_scatter ({label})"] = lambda: gg.grid_scatter(mode, idx, la, ph, nv, sa, sb,
+                                                             miss=miss)
+    fns[f"grid_scatter_ref ({label})"] = lambda: gg.grid_scatter_ref(mode, idx, la, ph, nv, sa,
+                                                                     sb, miss=miss)
+    fns[f"index_put_ ({label})"] = lambda: target.index_put_(at, vals)
+    print(f"[kernel] grid_scatter ({label}, mode {mode!r}, {u} rows, {n_live} below n_valid, "
+          f"{out['grid_scatter']['written']} written, {tuple(grid.shape)} output of "
+          f"{grid.numel() * 4} B; {la.dtype}): bitwise equal to its plain version={bitwise}, "
+          f"twice bitwise equal={same}; rank_index ({'the blocked pair' if perm else 'rank'}): "
+          f"bitwise={out['rank_index']['bitwise']}", flush=True)
+    if not (bitwise and same):
+        raise SystemExit(f"grid_scatter ({label}) disagrees with its plain version or itself")
+    if mode == "table":
+        return out, fns
+
+    # grid_readout on the engine's numerator
+    kw = {}
+    if engine == "factored":
+        num = gk.factored_cells_accumulate(prog, grid, idx, nv)
+        read = "rows"
+    elif engine == "dense":
+        num, read = gk.dense_grid_accumulate(prog, grid), "dense"
+    else:
+        num, read = gk.xl_grid_accumulate(prog, grid), "xl"
+        kw = dict(width=prog.width, cells_off=prog.cells_off, q_states=states,
+                  diag_yz=dt.diag_yz, diag_coeff=dt.diag_coeff)
+    e_diag = prog.e_diag
+    got, same = twice(lambda: gg.grid_readout(read, num, e_diag, idx, ref, la, ph, sa, sb, **kw))
+    want = gg.grid_readout_ref(read, num, e_diag, idx, ref, la, ph, sa, sb, **kw)
+    off = gg.grid_readout_ref(read, num, torch.zeros_like(e_diag), idx, ref, la, ph, sa, sb,
+                              width=kw.get("width"), cells_off=kw.get("cells_off"))
+    diffs = [(g - w).abs() for g, w in zip(got, want)]
+    ok = all(bool((d <= READOUT_RELTOL * o.abs() + gg.DIAG_ATOL).all()) for d, o in
+             zip(diffs, off)) and all(bool(torch.isfinite(g).all()) for g in got)
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    valid = torch.ones(u, dtype=torch.bool, device=dev)
+    if engine == "xl":
+        a_, b_ = idx
+        valid = (a_ < sa) & (b_ < prog.width[torch.clamp(a_, max=sa)])
+    n_diag = int((~valid).sum())
+    kd = 0 if dt is None else dt.diag_yz.shape[0]
+    out["grid_readout"] = dict(
+        err=max(float(d.max()) for d in diffs), bitwise=bitwise,
+        off_err=max(float(d[valid].max()) if n_diag < u else 0.0 for d in diffs),
+        diag_err=float(diffs[0][~valid].max()) if n_diag else 0.0, diag_rows=n_diag,
+        bytes=u * ((16 if engine == "xl" else 8) + 2 * eb + 8 + 8 + 16) + eb +
+        (u * 8 + 16 * kd + n_diag * 8 if engine == "xl" else 0),
+        ops=u * GLUE_ROW_OPS + n_diag * kd * 3, fp64_ops=n_diag * kd + u)
+    fns[f"grid_readout ({label})"] = lambda: gg.grid_readout(read, num, e_diag, idx, ref, la, ph,
+                                                             sa, sb, **kw)
+    fns[f"grid_readout_ref ({label})"] = lambda: gg.grid_readout_ref(read, num, e_diag, idx, ref,
+                                                                     la, ph, sa, sb, **kw)
+    outside = (f", {n_diag} of them outside the staircase with their true diagonal over {kd} "
+               f"terms" if engine == "xl" else "")
+    print(f"[kernel] grid_readout ({label}, mode {read!r}, {u} rows{outside}): "
+          f"max_abs_err={out['grid_readout']['err']:.3e} Ha (off-diagonal part "
+          f"{out['grid_readout']['off_err']:.3e}, true diagonal "
+          f"{out['grid_readout']['diag_err']:.3e}), within {READOUT_RELTOL} of the "
+          f"off-diagonal part + {gg.DIAG_ATOL} Ha={ok}, bitwise equal to its plain "
+          f"version={bitwise}, twice bitwise equal={same}", flush=True)
+    if not (ok and same):
+        raise SystemExit(f"grid_readout ({label}) disagrees with its plain version or itself")
+    return out, fns
+
+
 def main(argv) -> int:
     import inspect
 
@@ -4131,6 +4489,7 @@ def main(argv) -> int:
     from naqs_tpu_torch.ops.nade_glue import (shell_epilogue, shell_features, state_features,
                                               tables_epilogue, tables_epilogue_jvp,
                                               tables_epilogue_vjp)
+    from naqs_tpu_torch.ops.grid_glue import grid_readout, grid_scatter
 
     dev = torch.device("cuda")
     t0 = time.time()
@@ -4148,9 +4507,15 @@ def main(argv) -> int:
     # `wrappers`, whose other phases hold every launch they do not expect to 0
     glue = (shell_features, shell_epilogue, state_features, tables_epilogue,
             tables_epilogue_vjp, tables_epilogue_jvp)
+    # the grid and rank engines' E_loc glue: every grid-engine and rank-engine call
+    # launches them, so they too stay out of `wrappers`; _eloc_glue_check holds
+    # their counts to the engine kernels' on every path
+    global _ELOC_GLUE
+    eloc_glue = _ELOC_GLUE = (rank_index, grid_scatter, grid_readout)
+    glue_fns, glue_held = {}, {}   # the glue's timing closures and holds, by engine
 
     def zero_counts():
-        for w in wrappers + glue:
+        for w in wrappers + glue + eloc_glue:
             w.launches = 0
 
     # 1. build
@@ -4544,6 +4909,12 @@ def main(argv) -> int:
     if glue_path != want_glue:
         raise SystemExit(f"the main path did not run the glue kernels as expected: "
                          f"{glue_path} against {want_glue}")
+    eloc_path = _eloc_glue_check("phase 6: the 5 factored steps",
+                                 {"factored_cells_accumulate": fact_launches})
+    # the E_loc glue's kernels on the engine's real batch (phase 4's, capacity 100,000)
+    glue_held["factored"], more = _hold_eloc_glue("H2O 6-31G, factored", "factored", fn, spec,
+                                                  batch.states, la, ph, batch.n_unique)
+    glue_fns.update(more)
 
     # 7. the earlier main path: the same trainer on the rank engine, with its
     # dense A: one rank_local_energy launch per E_loc call (the parent ran
@@ -4564,6 +4935,10 @@ def main(argv) -> int:
         raise SystemExit(f"the rank path did not run one rank_local_energy launch per E_loc "
                          f"call and split_and_compact once per shell, or ran other kernels: "
                          f"{rank_a_counts} against {want_rank_a}")
+    eloc_rank = _eloc_glue_check("phase 7: the 2 rank-engine steps", rank_a_counts)
+    glue_held["rank"], more = _hold_eloc_glue("H2O 6-31G, rank engine's table", "rank", None,
+                                              spec, batch.states, la, ph, batch.n_unique)
+    glue_fns.update(more)
 
     # 7b. the sort engine with its dense A at the paper's width: the same trainer
     # with no RankSpec and no grid program, as a space over 32 qubits (or a rank
@@ -4585,6 +4960,7 @@ def main(argv) -> int:
         raise SystemExit(f"the sort engine with a dense A did not run one sorted_local_energy "
                          f"launch per E_loc call and split_and_compact once per shell, or ran "
                          f"other kernels: {sort_a_counts} against {want_sort_a}")
+    _eloc_glue_check("phase 7b: the sort engine's steps", sort_a_counts)
     sort_a_wall, sort_a_device = _profiled_step(tr)
     print(f"[path] sort engine with the dense A, one more step under torch.profiler: "
           f"{sort_a_wall:.3f} s of wall time (the profiler's own cost included), "
@@ -4605,6 +4981,7 @@ def main(argv) -> int:
     zero_counts()
     q_k = float(le.quadratic_energy(dt, batch.states, la, ph, batch.n_unique))
     quad_a_counts = {w.__name__: w.launches for w in wrappers}
+    _eloc_glue_check("phase 8: quadratic_energy on the rank engine", quad_a_counts)
     gather_launches = quad_a_counts["rank_gather2"]
     nu = int(batch.n_unique)
     live_h = torch.arange(batch.states.shape[0], device=dev) < batch.n_unique
@@ -4680,9 +5057,13 @@ def main(argv) -> int:
             and multinomial4_split.launches == _compact_children.launches == 0):
         raise SystemExit("N2 did not run split_and_compact once per shell, or ran the "
                          "standalone sampler kernels")
+    _eloc_glue_check("phase 10: N2 STO-3G's dense steps",
+                     {"dense_grid_accumulate": dense_launches})
     batch2 = tr2._sample()
     with torch.no_grad():
         la2, ph2 = log_psi(tr2.model, batch2.states)
+    glue_held["dense"], _ = _hold_eloc_glue("N2 STO-3G, dense", "dense", dn, tr2.dt.rank_spec,
+                                            batch2.states, la2, ph2, batch2.n_unique)
     grid2, _, _ = value_grid(tr2.dt.rank_spec, batch2.states, la2, ph2, batch2.n_unique,
                              dn.sa, dn.sb)
     dense_err = _check_grid_kernel("dense_grid_accumulate", dense_grid_accumulate,
@@ -4788,9 +5169,14 @@ def main(argv) -> int:
                          "another engine's or the standalone sampler kernels")
     if _split_and_compact.launches != cfg3.n_shells * n_draws:
         raise SystemExit("Li2O did not run split_and_compact once per shell")
+    eloc_xl = _eloc_glue_check("phase 10b: Li2O's staircase steps",
+                               {"xl_grid_accumulate": xl_launches})
     batch3 = tr3._sample()
     with torch.no_grad():
         la3, ph3 = log_psi(tr3.model, batch3.states)
+    glue_held["xl"], more = _hold_eloc_glue("Li2O CISDTQ, staircase", "xl", xl, spec3,
+                                            batch3.states, la3, ph3, batch3.n_unique, tr3.dt)
+    glue_fns.update(more)
     nu3 = int(batch3.n_unique)
     st3 = batch3.states[:nu3].cpu().numpy()
     stair = hil3.contains(st3)
@@ -4874,10 +5260,13 @@ def main(argv) -> int:
     zero_counts()
     e_g = le.local_energy(dt_seg, batch.states, la, ph, batch.n_unique)
     seg_counts = {w.__name__: w.launches for w in wrappers}
+    _eloc_glue_check("phase 10c: the sort engine's local_energy, no dense A", seg_counts)
     zero_counts()
     e_s = le.local_energy(dt_sort, batch.states, la, ph, batch.n_unique)
     q_s = float(le.quadratic_energy(dt_sort, batch.states, la, ph, batch.n_unique))
     h2o_counts = {w.__name__: w.launches for w in wrappers}
+    _eloc_glue_check("phase 10c: the sort engine's local_energy and quadratic_energy",
+                     h2o_counts)
     d_sr = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_s, e_k))
     sr_same = all(torch.equal(a, b) for a, b in zip(e_s, e_g))
     d_seg = max(float((a[:nu] - b[:nu]).abs().max()) for a, b in zip(e_g, e_k))
@@ -5254,6 +5643,7 @@ def main(argv) -> int:
         raise SystemExit(f"N2 6-31G did not run sorted_local_energy once per E_loc call and "
                          f"split_and_compact once per shell, or ran other kernels: "
                          f"{n2_counts} against {want_counts}")
+    _eloc_glue_check("phase 10c: N2 6-31G's sort-engine steps", n2_counts)
     sort_launches = n2_counts["sorted_ratio_rowsum"]
     offdiag_launches = n2_counts["offdiag_h_terms"]
     energy_launches = n2_counts["sorted_local_energy"]
@@ -5427,6 +5817,12 @@ def main(argv) -> int:
         raise SystemExit(f"frozen-core N2 6-31G did not run rank_local_energy once per E_loc "
                          f"call and split_and_compact once per shell, or ran other kernels: "
                          f"{fc_counts} against {want_counts}")
+    eloc_fc = _eloc_glue_check("phase 10d: frozen-core N2 6-31G's rank-engine steps",
+                               fc_counts)
+    glue_held["rank_fc"], more = _hold_eloc_glue(
+        "frozen-core N2 6-31G, rank engine's table", "rank", None, spec5, batch5.states, la5,
+        ph5, batch5.n_unique)
+    glue_fns.update(more)
     fc_launches = fc_counts["rank_local_energy"]
 
     # the host layer: the native library against numpy, and N2 STO-3G's ground state
@@ -5521,10 +5917,21 @@ def main(argv) -> int:
         slow_fns[old_xl] = lambda: xl_old(xl, grid3)
         slow_fns[f"{old_xl} (full grid)"] = lambda: xl_old(xl, full3)
         slow_fns[f"{old_xl} (staircase grid)"] = lambda: xl_old(xl, stair3)
+    old_xle = "local_energy (FactorTermsXL, Li2O), earlier tree"
+    if "dense_engine" in old_mods:   # DIR's staircase engine, its own glue, on this batch
+        slow_fns[old_xle] = lambda: old_mods["dense_engine"].factored_xl_local_energy(
+            xl, spec3, batch3.states, la3, ph3, batch3.n_unique,
+            diag=(tr3.dt.diag_yz, tr3.dt.diag_coeff))
     old_sample = "sample() at capacity 100,000 (earlier tree)"
     if "sampler" in old_mods:
         slow_fns[old_sample] = lambda: old_mods["sampler"].sample(tr.model, tr.gen, 1e5, cap)
     times.update(time_in_turns(slow_fns, SLOW_REPEATS, SLOW_LAUNCHES, uncovered=misses))
+    # the E_loc glue's kernels on each engine's real batch (phases 6, 7, 10b and 10d),
+    # their plain versions (the engines' chains) and index_put_ of the scatter's
+    # precomputed cells and values (a part of its work), in turns
+    times.update(time_in_turns(glue_fns, REPEATS, LAUNCHES, uncovered=misses))
+    check_hold([n for n in glue_fns if n.split(" (")[0] in ELOC_GLUE_REPLACES])
+    _print_glue_bounds(glue_held, times, smi)
     # the sort engine's kernels on N2 6-31G's chunk, their plain versions and the
     # library calls (each computes less than its kernel: no found test, no ratio,
     # no row sum; the segment sum of products computed beforehand)
@@ -5968,7 +6375,11 @@ def main(argv) -> int:
                      "state_features_kernel": state_features,
                      # its three modes are three instantiations of one template
                      "tables_epilogue_kernel": (tables_epilogue, tables_epilogue_vjp,
-                                                tables_epilogue_jvp)}
+                                                tables_epilogue_jvp),
+                     "glue_rank_index_kernel": rank_index,
+                     # the scatter's fill and scatter kernels: two launches a call
+                     "glue_scatter": grid_scatter,
+                     "glue_readout_kernel": grid_readout}
         xl_dt = tr3.dt
         for label, trainer, terms_dev in (("factored", tr, dt), ("rank", tr, dt_rank),
                                           ("staircase (Li2O CISDTQ)", tr3, xl_dt),
@@ -6006,13 +6417,18 @@ def main(argv) -> int:
                                             "compact_children", "split_and_compact", "cumsum",
                                             "cumprod", "sorted_", "offdiag_h",
                                             "row_energy", "shell_", "state_features",
-                                            "tables_epilogue")) \
+                                            "tables_epilogue", "glue_")) \
                         and e.self_device_time_total > 0:
                     print(f"[profile] {label} {e.key}: {e.count} launches, "
                           f"{e.self_device_time_total / 1e3:.3f} ms device time, "
                           f"{e.self_device_time_total / e.count:.2f} us each", flush=True)
         tr.dt = dt
         tr3.dt = xl_dt
+        # the E_loc call's device launches from its trace (the glue: all but the
+        # engine's accumulation) and, with --before, DIR's on the same inputs; then
+        # the H2O factored and Li2O staircase steps of both trees in turns
+        _glue_profile(old_mods, tr, tr3, (fn, spec, batch, la, ph),
+                      (xl, spec3, batch3, la3, ph3), smi)
 
     # 12. the trainer's extras at the paper width on H2O 6-31G
     extras = _trainer_extras(dev, mol, hil, terms, cfg, tr2, zero_counts, wrappers)
@@ -6323,6 +6739,42 @@ def main(argv) -> int:
         k["launches_chem"] = chem["launches"][k["name"]]
         k.update(exact_extra.get(k["name"], {}))
     kernels += glue_entries
+
+    def glue_entry(name):
+        """the E_loc glue kernel's entry: the main path's shape (phase 6's H2O
+        6-31G factored batch), the other engines' shapes under `shapes`"""
+        def shape(eng):
+            h, label = glue_held[eng][name], _GLUE_LABELS[eng]
+            b = _glue_bound(h)
+            lib = times.get(f"index_put_ ({label})") if name == "grid_scatter" else None
+            return dict(ms=times[f"{name} ({label})"][0],
+                        spread=times[f"{name} ({label})"][1],
+                        plain_ms=times[f"{name}_ref ({label})"][0], bound_ms=b[0], bound_by=b[1],
+                        library_ms=lib[0] if lib else None, max_abs_err=h["err"],
+                        bitwise=h["bitwise"], bytes=h["bytes"],
+                        **({"true_diagonal_rows": h["diag_rows"], "diag_err": h["diag_err"],
+                            "off_diagonal_err": h["off_err"]} if "diag_rows" in h else {}))
+        main = shape("factored")
+        return dict(
+            name=name, route="cuda", source=ELOC_GLUE_SRC, replaces=ELOC_GLUE_REPLACES[name],
+            launches=eloc_path[name], max_abs_err=main["max_abs_err"], ms=main["ms"],
+            spread=main["spread"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=main["library_ms"],
+            library_note=("index_put_ of the scatter's precomputed cells and values: the "
+                          "writes alone, no fill, no maximum, no exp, cos or sin"
+                          if name == "grid_scatter" else
+                          "no single PyTorch call computes it"),
+            bitwise=main["bitwise"],
+            shapes={eng: shape(eng) for eng in glue_held if name in glue_held[eng] and
+                    eng != "factored" and f"{name} ({_GLUE_LABELS[eng]})" in times},
+            launches_rank_steps=eloc_rank[name], launches_xl_steps=eloc_xl[name],
+            launches_frozen_core_steps=eloc_fc[name],
+            note="no Pallas counterpart: XLA-lowered in JAX; launches: phase 6's 5 factored "
+                 "steps (per E_loc call: rank_index 1, two with queries=; grid_scatter 2; "
+                 "grid_readout 1; the rank engine 1, 2, 0), every phase's held by "
+                 "_eloc_glue_check")
+
+    kernels += [glue_entry(n) for n in ELOC_GLUE_REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}; total {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

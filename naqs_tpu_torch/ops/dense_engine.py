@@ -32,9 +32,12 @@ depend on the sample count.
   sector grid): alpha and beta combinations ordered by (excitations, colex),
   so the kept cells form a staircase of alpha blocks, each over a beta prefix.
 
-The accumulation over masks is the hand-written part
-(ops/grid_kernels.py -> csrc/grid_engine.cu); the scatter into the grid and
-the readout are single PyTorch indexing calls, as in the JAX package.
+The accumulation over masks is the hand-written part of
+ops/grid_kernels.py (csrc/grid_engine.cu); the rank index, the scatter into
+the grid and the readout are the hand-written glue of ops/rank.py and
+ops/grid_glue.py (csrc/grid_glue.cu): one E_loc call is the rank index (two
+with `queries=`), the scatter's two launches, the accumulation and the
+readout, where the JAX package leaves the glue to XLA.
 """
 
 from __future__ import annotations
@@ -54,8 +57,9 @@ from naqs_tpu_torch.ops.grid_kernels import XL_CHUNK_INT4 as _XL_CHUNK_INT4
 from naqs_tpu_torch.ops.grid_kernels import XL_TILE_CELLS as _XL_TILE_CELLS
 from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, factored_cells_accumulate,
                                              xl_grid_accumulate)
+from naqs_tpu_torch.ops.grid_glue import _count, grid_readout, grid_scatter
 from naqs_tpu_torch.ops.rank import rank_index
-from naqs_tpu_torch.utils.bits import np_parity_pm1, parity_pm1
+from naqs_tpu_torch.utils.bits import np_parity_pm1
 from naqs_tpu_torch.utils.device import resolve_device
 
 # The caps below are read at import from the JAX package's environment
@@ -565,47 +569,11 @@ def value_grid(rank_spec, states, log_amp, phase, n_valid, sa: int, sb: int):
     (Sa+1, Sb+1, 2) f32 holds psi / max|psi| (re, im) at [ra, rb] and zeros
     elsewhere, pad row Sa and pad column Sb included; ref is the live
     maximum of log_amp; idx the rank index of every buffer row (Sa*Sb for
-    SENTINEL rows).
-
-    Rows at or beyond n_valid, and rows outside the sector, carry the value
-    0 and land on the pad row, so it stays zero."""
+    SENTINEL rows). Rows at or beyond n_valid, and rows outside the sector,
+    set nothing (`grid_scatter`'s mode "grid")."""
     idx = rank_index(rank_spec, states)
-    live = (torch.arange(states.shape[0], device=states.device) < n_valid) & (idx < sa * sb)
-    ref = torch.max(torch.where(live, log_amp, -torch.inf))
-    w = torch.where(live, torch.exp(log_amp - ref), 0.0).to(torch.float32)
-    u = torch.stack([w * torch.cos(phase).to(torch.float32),
-                     w * torch.sin(phase).to(torch.float32)], dim=-1)
-    ra, rb = _cell(idx, sa, sb)
-    grid = torch.zeros((sa + 1, sb + 1, 2), dtype=torch.float32, device=states.device)
-    grid[ra, rb] = u
+    grid, ref = grid_scatter("grid", idx, log_amp, phase, n_valid, sa, sb)
     return grid, ref, idx
-
-
-def _cell(idx, sa: int, sb: int):
-    """(ra, rb) of rank indices; the sentinel Sa*Sb maps to the pad row (Sa, 0)."""
-    ra = torch.clamp(idx // sb, max=sa)
-    rb = torch.where(idx >= sa * sb, 0, idx % sb)
-    return ra, rb
-
-
-def _readout(n_s, e_diag, idx, ref, q_la, q_ph, sa: int, sb: int):
-    """E_loc (re, im) f64 of the rows with rank indices idx from their
-    numerators n_s (rows, 2): psi_max / psi(s) * n[s], the log-ratio clipped
-    per row to +-30, plus the f64 diagonal."""
-    ratio = torch.exp(torch.clamp(ref - q_la, -30.0, 30.0)).to(torch.float32)
-    c, s_ = torch.cos(q_ph).to(torch.float32), torch.sin(q_ph).to(torch.float32)
-    e_re = (ratio * (n_s[:, 0] * c + n_s[:, 1] * s_)).to(torch.float64)
-    e_im = (ratio * (n_s[:, 1] * c - n_s[:, 0] * s_)).to(torch.float64)
-    return e_diag[torch.clamp(idx, max=sa * sb)] + e_re, e_im
-
-
-def _count(n, device) -> torch.Tensor:
-    """A row count as the 0-d int64 device tensor the cells and sort kernels
-    read: a tensor as it is (moved if it must be), a Python int by a fill on
-    the device, which needs no host-to-device copy."""
-    if torch.is_tensor(n):
-        return n.to(device=device, dtype=torch.int64).reshape(())
-    return torch.full((), int(n), dtype=torch.int64, device=device)
 
 
 @torch.no_grad()
@@ -628,10 +596,7 @@ def dense_local_energy(dn: DenseTerms, rank_spec, states, log_amp, phase, n_vali
     if queries is not None:
         q_states, q_la, q_ph = queries
         idx = rank_index(rank_spec, q_states)
-    ra, rb = _cell(idx, sa, sb)
-    flat = torch.where(idx >= sa * sb, sb * sa, rb * sa + ra)
-    n_s = torch.cat([n.reshape(-1, 2), n.new_zeros((1, 2))])[flat]
-    return _readout(n_s, dn.e_diag, idx, ref, q_la, q_ph, sa, sb)
+    return grid_readout("dense", n, dn.e_diag, idx, ref, q_la, q_ph, sa, sb)
 
 
 @torch.no_grad()
@@ -648,40 +613,27 @@ def factored_local_energy(fn: FactorTerms, rank_spec, states, log_amp, phase, n_
         q_states, q_la, q_ph = queries
         idx, n_rows = rank_index(rank_spec, q_states), q_states.shape[0]
     n_s = factored_cells_accumulate(fn, grid, idx, _count(n_rows, grid.device))
-    return _readout(n_s, fn.e_diag, idx, ref, q_la, q_ph, fn.sa, fn.sb)
+    return grid_readout("rows", n_s, fn.e_diag, idx, ref, q_la, q_ph, fn.sa, fn.sb)
 
 
 def _xl_blocked_idx(fn: FactorTermsXL, rank_spec, states):
     """(a_hat, b_hat) blocked combination indices of packed states: Sa* and
     Sb* for states outside the restricted rectangle, the sector or the
-    buffer (SENTINEL)."""
-    idx = rank_index(rank_spec, states)
-    full = fn.sa_full * fn.sb_full
-    ra = torch.clamp(idx // fn.sb_full, max=fn.sa_full)
-    rb = torch.where(idx >= full, fn.sb_full, idx % fn.sb_full)
-    return fn.perm_a[ra].long(), fn.perm_b[rb].long()
+    buffer (SENTINEL). One `rank_index` call with the maps perm_a, perm_b."""
+    return rank_index(rank_spec, states, perm=(fn.perm_a, fn.perm_b))
 
 
-def xl_value_grid(fn: FactorTermsXL, rank_spec, states, log_amp, phase, n_valid):
+def xl_value_grid(fn: FactorTermsXL, rank_spec, states, log_amp, phase, n_valid,
+                  blocked=None):
     """The sampled set on the restricted rectangle: (grid, ref), grid
     (Sa*+1, Sb*+1, 2) f32 psi / max|psi| (re, im) at [a_hat, b_hat], zero
     elsewhere and on the pad row and column; ref the live maximum of log_amp.
     Every live state inside the rectangle is set, inside the staircase or
-    not, as in the JAX package."""
-    sa, sb = fn.sa, fn.sb
-    live = torch.arange(states.shape[0], device=states.device) < n_valid
-    ref = torch.max(torch.where(live, log_amp, -torch.inf))
-    w = torch.where(live, torch.exp(log_amp - ref), 0.0).to(torch.float32)
-    u = torch.stack([w * torch.cos(phase).to(torch.float32),
-                     w * torch.sin(phase).to(torch.float32)], dim=-1)
-    ah, bh = _xl_blocked_idx(fn, rank_spec, states)
-    ah = torch.where(live, ah, sa)
-    bh = torch.where(live, bh, sb)
-    grid = torch.zeros((sa + 1, sb + 1, 2), dtype=torch.float32, device=states.device)
-    grid[ah, bh] = u
-    grid[sa] = 0.0       # the pad row and column read as psi = 0 (SENTINEL rows land there)
-    grid[:, sb] = 0.0
-    return grid, ref
+    not, as in the JAX package. `blocked`: the states' (a_hat, b_hat), if
+    already computed (`_xl_blocked_idx`)."""
+    if blocked is None:
+        blocked = _xl_blocked_idx(fn, rank_spec, states)
+    return grid_scatter("xl", blocked, log_amp, phase, n_valid, fn.sa, fn.sb)
 
 
 @torch.no_grad()
@@ -692,24 +644,18 @@ def factored_xl_local_energy(fn: FactorTermsXL, rank_spec, states, log_amp, phas
     Semantics as in dense_local_energy: psi = 0 outside the sampled set and
     outside the restricted rectangle, rows past n_valid are garbage.
     `diag=(diag_yz, diag_coeff)`: queries outside the staircase get their
-    true diagonal (their off-diagonal sum stays 0); without it, 0."""
-    q_states, q_la, q_ph = (states, log_amp, phase) if queries is None else queries
-    sa = fn.sa
-    grid, ref = xl_value_grid(fn, rank_spec, states, log_amp, phase, n_valid)
+    true diagonal (their off-diagonal sum stays 0); without it, 0. Without
+    `queries`, the buffer's blocked index serves the grid and the readout
+    (the JAX package computes it twice, to the same result)."""
+    blocked = _xl_blocked_idx(fn, rank_spec, states)
+    grid, ref = xl_value_grid(fn, rank_spec, states, log_amp, phase, n_valid, blocked)
     n = xl_grid_accumulate(fn, grid)                                 # (n_cells, 2)
-    n_pack = torch.cat([n, n.new_zeros((1, 2))])
-    ahq, bhq = _xl_blocked_idx(fn, rank_spec, q_states)
-    row = torch.clamp(ahq, max=sa)
-    valid = (ahq < sa) & (bhq < fn.width[row])
-    cell = torch.where(valid, fn.cells_off[row] + bhq, fn.n_cells)
-    n_s = n_pack[cell]
-    ratio = torch.exp(torch.clamp(ref - q_la, -30.0, 30.0)).to(torch.float32)
-    c, s_ = torch.cos(q_ph).to(torch.float32), torch.sin(q_ph).to(torch.float32)
-    e_re = (ratio * (n_s[:, 0] * c + n_s[:, 1] * s_)).to(torch.float64)
-    e_im = (ratio * (n_s[:, 1] * c - n_s[:, 0] * s_)).to(torch.float64)
-    e_diag = fn.e_diag[cell]
-    if diag is not None:
-        diag_yz, diag_coeff = diag
-        par = parity_pm1(q_states[:, None] & diag_yz).to(torch.float64)
-        e_diag = torch.where(valid, e_diag, torch.sum(par * diag_coeff, dim=-1))
-    return e_diag + e_re, e_im
+    if queries is None:
+        q_states, q_la, q_ph = states, log_amp, phase
+    else:
+        q_states, q_la, q_ph = queries
+        blocked = _xl_blocked_idx(fn, rank_spec, q_states)
+    diag_yz, diag_coeff = (None, None) if diag is None else diag
+    return grid_readout("xl", n, fn.e_diag, blocked, ref, q_la, q_ph, fn.sa, fn.sb,
+                        width=fn.width, cells_off=fn.cells_off, q_states=q_states,
+                        diag_yz=diag_yz, diag_coeff=diag_coeff)

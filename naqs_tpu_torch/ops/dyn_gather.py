@@ -71,14 +71,12 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from math import comb
 
-import numpy as np
 import torch
 
 from naqs_tpu_torch.ops import _build
 from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms_ref, offdiag_tolerance
-from naqs_tpu_torch.ops.rank import _MISS_THRESHOLD, RankSpec, rank_index
+from naqs_tpu_torch.ops.rank import _MISS_THRESHOLD, RankSpec, _spec_device, rank_index_ref
 from naqs_tpu_torch.utils.bits import SENTINEL, parity_pm1
 
 ROWSUM_ATOL = 2e-5   # Ha: fp32 summation order over K terms
@@ -93,8 +91,8 @@ _SPEC_ARGS = [_PTR, _INT, _INT, _INT, ctypes.c_uint, _INT]
 
 
 def rank_gather2_ref(spec: RankSpec, s, xy, table):
-    """Plain PyTorch version: rank_index of every coupled state, then index."""
-    g = table[rank_index(spec, s[:, None] ^ xy[None, :])]
+    """Plain PyTorch version: the rank index of every coupled state, then index."""
+    g = table[rank_index_ref(spec, s[:, None] ^ xy[None, :])]
     return g[..., 0], g[..., 1]
 
 
@@ -123,42 +121,6 @@ def rowsum_tolerance(g_la, my_la, h):
     mag = torch.where(g_la > _MISS_THRESHOLD,
                       torch.exp(torch.clamp(g_la - my_la[:, None], -30.0, 30.0)), 0.0)
     return ROWSUM_ATOL + ROWSUM_RTOL * torch.sum(h.abs() * mag, dim=-1)
-
-
-def spec_table(spec: RankSpec):
-    """(int32 array, lo_bits, qmask): the kernels' rank tables.
-
-    Layout (csrc/rank_gather.cu): (S+1, 4) records (offset, stride,
-    expected_nb, 0) per n_alpha; lo[w], the colex rank of a word w of the
-    low L = ceil(S/2) bits; hi[w_h, p], the colex rank of the high S-L bits
-    w_h when p bits are set below them. colex(w) = lo[w & (2^L-1)] +
-    hi[w >> L, popcount(w & (2^L-1))]. qmask keeps the low 2S bits.
-    """
-    n = spec.n_shells
-    lo_bits = (n + 1) // 2
-
-    def colex(w, below):  # sum over set bits p (the i-th, 1-based) of C(p, i)
-        out, i = 0, below
-        for p in range(n):
-            if w >> p & 1:
-                i += 1
-                out += comb(p, i)
-        return out
-
-    sect = np.zeros((n + 1, 4), np.int64)
-    sect[:, 0], sect[:, 1], sect[:, 2] = spec.offset, spec.stride, spec.expected_nb
-    lo = [colex(w, 0) for w in range(1 << lo_bits)]
-    hi = [colex(w << lo_bits, p) for w in range(1 << (n - lo_bits))
-          for p in range(lo_bits + 1)]
-    flat = np.concatenate([sect.ravel(), lo, hi]).astype(np.int32)
-    return flat, lo_bits, (1 << 2 * n) - 1
-
-
-@lru_cache(maxsize=16)
-def _spec_device(spec: RankSpec, device: torch.device):
-    flat, lo_bits, qmask = spec_table(spec)
-    t = torch.as_tensor(flat, device=device)
-    return (t.data_ptr(), flat.size, spec.n_shells, lo_bits, qmask, spec.size), t
 
 
 @lru_cache(maxsize=1)

@@ -44,10 +44,11 @@ import numpy as np
 import torch
 
 from naqs_tpu_torch.hamiltonian import PauliTerms
-from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTermsXL, _count,
+from naqs_tpu_torch.ops.dense_engine import (DenseTerms, FactorTerms, FactorTermsXL,
                                              dense_local_energy, factored_local_energy,
                                              factored_xl_local_energy)
 from naqs_tpu_torch.ops.dyn_gather import QUAD_MISS, rank_local_energy, rank_quadratic_energy
+from naqs_tpu_torch.ops.grid_glue import _count
 from naqs_tpu_torch.ops.offdiag_h import term_groups
 from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
 from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_local_energy,

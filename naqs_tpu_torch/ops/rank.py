@@ -6,9 +6,16 @@ The index of a packed state inside its (n_alpha, n_beta) sector is
 
 where colex is the colexicographic combination rank ``sum_i C(p_i, i+1)``
 over the i-th lowest set bit p_i. Membership lookups then become direct
-reads of a dense |basis|-sized value table. Port of `naqs_tpu/ops/rank.py`;
-the torch `rank_index` reads its binomials from a small table instead of
-unrolling them as constants, with the same integer results.
+reads of a dense |basis|-sized value table. Port of `naqs_tpu/ops/rank.py`.
+
+`rank_index` and `build_value_table` launch hand-written kernels of
+`csrc/grid_glue.cu` on a CUDA tensor (`rank_index`: one thread a state, the
+colex rank of `csrc/rank.cuh` from the tables of `spec_table`, staged in
+shared memory; the table: `ops/grid_glue.py::grid_scatter`) and run their
+plain versions on a CPU tensor: `rank_index_ref`, which reads its binomials
+from a small table instead of unrolling them as constants, with the same
+integer results, and the scatter's chain. There is no fallback from one to
+the other; `rank_index.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from naqs_tpu_torch.ops import _build
+from naqs_tpu_torch.ops.grid_glue import _lib, grid_scatter
 
 # dense (|basis|+1, 2) f32 value table: 8 B * 2^26 = 537 MB. Read at import
 # from NAQS_TPU_RANK_MAX, the JAX package's switch (a smaller cap sends a space
@@ -99,12 +109,46 @@ def _spec_tensors(spec: RankSpec, device: torch.device):
                  for a in spec_arrays(spec))
 
 
-def rank_index(spec: RankSpec, states: torch.Tensor) -> torch.Tensor:
-    """Dense-table index (int64) of packed int64 states; spec.size for invalid.
+def spec_table(spec: RankSpec):
+    """(int32 array, lo_bits, qmask): the kernels' rank tables.
 
-    Only the low spec.n_qubits bits are read. Invalid states (electron counts
-    matching no sector) map to the sentinel slot spec.size.
+    Layout (csrc/rank.cuh): (S+1, 4) records (offset, stride, expected_nb,
+    0) per n_alpha; lo[w], the colex rank of a word w of the low L =
+    ceil(S/2) bits; hi[w_h, p], the colex rank of the high S-L bits w_h when
+    p bits are set below them. colex(w) = lo[w & (2^L-1)] + hi[w >> L,
+    popcount(w & (2^L-1))]. qmask keeps the low 2S bits.
     """
+    n = spec.n_shells
+    lo_bits = (n + 1) // 2
+
+    def colex(w, below):  # sum over set bits p (the i-th, 1-based) of C(p, i)
+        out, i = 0, below
+        for p in range(n):
+            if w >> p & 1:
+                i += 1
+                out += comb(p, i)
+        return out
+
+    sect = np.zeros((n + 1, 4), np.int64)
+    sect[:, 0], sect[:, 1], sect[:, 2] = spec.offset, spec.stride, spec.expected_nb
+    lo = [colex(w, 0) for w in range(1 << lo_bits)]
+    hi = [colex(w << lo_bits, p) for w in range(1 << (n - lo_bits))
+          for p in range(lo_bits + 1)]
+    flat = np.concatenate([sect.ravel(), lo, hi]).astype(np.int32)
+    return flat, lo_bits, (1 << 2 * n) - 1
+
+
+@lru_cache(maxsize=16)
+def _spec_device(spec: RankSpec, device: torch.device):
+    """The kernels' spec arguments (pointer, n_spec, n_shells, lo_bits, qmask,
+    size) and the device table they point into, cached per device."""
+    flat, lo_bits, qmask = spec_table(spec)
+    t = torch.as_tensor(flat, device=device)
+    return (t.data_ptr(), flat.size, spec.n_shells, lo_bits, qmask, spec.size), t
+
+
+def rank_index_ref(spec: RankSpec, states: torch.Tensor, perm=None):
+    """Plain version of `rank_index`: a loop over the shells."""
     s = spec.n_shells
     binom, off, stride, exp_nb = _spec_tensors(spec, states.device)
     x = states.to(torch.int64)
@@ -121,7 +165,51 @@ def rank_index(spec: RankSpec, states: torch.Tensor) -> torch.Tensor:
     e = exp_nb[na]
     valid = (e >= 0) & (e == c_b)
     idx = off[na] + r_a * stride[na] + r_b
-    return torch.where(valid, idx, spec.size)
+    idx = torch.where(valid, idx, spec.size)
+    if perm is None:
+        return idx
+    perm_a, perm_b = perm
+    sa_full, sb_full = perm_a.shape[0] - 1, perm_b.shape[0] - 1
+    ra = torch.clamp(idx // sb_full, max=sa_full)
+    rb = torch.where(idx >= sa_full * sb_full, sb_full, idx % sb_full)
+    return perm_a[ra].long(), perm_b[rb].long()
+
+
+def rank_index(spec: RankSpec, states: torch.Tensor, perm=None):
+    """Dense-table index (int64, states' shape) of packed int64 states;
+    spec.size for invalid ones.
+
+    Only the low spec.n_qubits bits are read. Invalid states (electron counts
+    matching no sector) map to the sentinel slot spec.size. With
+    `perm=(perm_a, perm_b)`, the staircase engine's int32 maps from a
+    single sector's alpha and beta colex ranks to its blocked indices
+    (`FactorTermsXL.perm_a`, `.perm_b`, Sa_full + 1 and Sb_full + 1 long), it
+    returns instead the pair (a_hat, b_hat) of (U,) int64 for 1-D states:
+    perm_a[min(idx // Sb_full, Sa_full)] and perm_b[idx % Sb_full, or Sb_full
+    for the sentinel]."""
+    want = {"states": (states, (torch.int64,), tuple(states.shape))}
+    if perm is not None:
+        perm_a, perm_b = perm
+        if states.dim() != 1 or perm_a.dim() != 1 or perm_b.dim() != 1 or perm_b.shape[0] < 2:
+            raise ValueError("rank_index: the blocked pair takes 1-D states and 1-D maps of "
+                             "at least 2 entries")
+        want.update(perm_a=(perm_a, (torch.int32,), (perm_a.shape[0],)),
+                    perm_b=(perm_b, (torch.int32,), (perm_b.shape[0],)))
+    _build.check_tensors("rank_index", states, want)
+    if spec.n_shells > 16:
+        raise ValueError("rank_index: at most 32 qubits")
+    if states.device.type == "cpu":
+        return rank_index_ref(spec, states, perm)
+    n = states.numel()
+    out = torch.empty((1 if perm is None else 2, n), dtype=torch.int64, device=states.device)
+    if n:
+        spec_args, _ = _spec_device(spec, states.device)
+        maps = (None, None, 0, 0) if perm is None else (
+            perm_a, perm_b, perm_a.shape[0] - 1, perm_b.shape[0] - 1)
+        _build.launch(_lib(), "rank_index", (*spec_args, states, n, *maps, out[0],
+                                             None if perm is None else out[1]), states.device)
+        rank_index.launches += 1
+    return out[0].view(states.shape) if perm is None else (out[0], out[1])
 
 
 def np_rank_index(spec: RankSpec, states: np.ndarray) -> np.ndarray:
@@ -158,19 +246,11 @@ def build_value_table(
 
     Returns (size+1, 2) f32, column 0 log_amp and column 1 phase; empty
     slots and the sentinel slot hold (miss_log_amp, 0). Rows at or beyond
-    n_valid land on the sentinel slot, which is restored afterwards.
-    """
-    n = states.shape[0]
-    idx = rank_index(spec, states)
-    live = torch.arange(n, device=states.device) < n_valid
-    idx = torch.where(live, idx, spec.size)
-    table = torch.zeros((spec.size + 1, 2), dtype=torch.float32, device=states.device)
-    table[:, 0] = miss_log_amp
-    table[idx] = torch.stack([log_amp.to(torch.float32), phase.to(torch.float32)], dim=1)
-    # one-row slices: a fill on the device (a single element set from a Python
-    # number is copied from the host, a sync)
-    table[spec.size:, 0] = miss_log_amp
-    table[spec.size:, 1] = 0.0
+    n_valid, and states outside every sector, write nothing. The rank index,
+    then `grid_scatter` in its table mode (on the card two launches: the
+    fill, the scatter)."""
+    table, _ = grid_scatter("table", rank_index(spec, states), log_amp, phase, n_valid,
+                            spec.size, miss=miss_log_amp)
     return table
 
 
@@ -180,3 +260,6 @@ def lookup(spec: RankSpec, table: torch.Tensor, queries: torch.Tensor):
     g_la = g[..., 0]
     g_ph = g[..., 1]
     return g_la > _MISS_THRESHOLD, g_la, g_ph
+
+
+rank_index.launches = 0

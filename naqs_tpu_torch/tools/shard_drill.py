@@ -41,22 +41,36 @@ CHECK_SEED = 11
 
 
 def wrappers():
-    """Every kernel wrapper of the port: each counts its launches."""
+    """The port's kernel wrappers, each counting its launches, in the three
+    groups chip_smoke.py keeps: (the engines', sampler's and chemistry's
+    kernels, whose launches a phase holds to 0 where it does not expect them;
+    the model's glue, ops/nade_glue.py, which every step launches; the grid
+    and rank engines' E_loc glue, ops/rank.py's rank_index and
+    ops/grid_glue.py's grid_scatter and grid_readout, which every grid-engine
+    and rank-engine call launches)."""
     from naqs_tpu_torch.ops.dyn_gather import (rank_gather2, rank_local_energy,
                                                rank_quadratic_energy, rank_ratio_rowsum)
+    from naqs_tpu_torch.ops.grid_glue import grid_readout, grid_scatter
     from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate,
                                                  factored_cells_accumulate, xl_grid_accumulate)
     from naqs_tpu_torch.ops.multinomial import multinomial4_split
+    from naqs_tpu_torch.ops.nade_glue import (shell_epilogue, shell_features, state_features,
+                                              tables_epilogue, tables_epilogue_jvp,
+                                              tables_epilogue_vjp)
     from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms
+    from naqs_tpu_torch.ops.rank import rank_index
     from naqs_tpu_torch.ops.sort_lookup import (sorted_gather2, sorted_local_energy,
                                                 sorted_quadratic_energy, sorted_ratio_rowsum)
     from naqs_tpu_torch.sampler import _compact_children, _split_and_compact
     from naqs_tpu_torch.chem.integrals import eri_tensor
 
-    return (rank_gather2, rank_ratio_rowsum, factored_cells_accumulate, dense_grid_accumulate,
-            multinomial4_split, _compact_children, _split_and_compact, xl_grid_accumulate,
-            sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms, sorted_local_energy,
-            rank_local_energy, rank_quadratic_energy, sorted_quadratic_energy, eri_tensor)
+    return ((rank_gather2, rank_ratio_rowsum, factored_cells_accumulate, dense_grid_accumulate,
+             multinomial4_split, _compact_children, _split_and_compact, xl_grid_accumulate,
+             sorted_ratio_rowsum, sorted_gather2, offdiag_h_terms, sorted_local_energy,
+             rank_local_energy, rank_quadratic_energy, sorted_quadratic_energy, eri_tensor),
+            (shell_features, shell_epilogue, state_features, tables_epilogue,
+             tables_epilogue_vjp, tables_epilogue_jvp),
+            (rank_index, grid_scatter, grid_readout))
 
 
 class CollectiveClock:
@@ -253,15 +267,16 @@ def rank_run(hilbert, terms, cfg: NAQSConfig, tc: TrainConfig, plan, device=None
     """One rank's drill: `plan` is ((optimizer, steps), ...) with optimizer
     "adam", "sr" or "kfac". Returns the rows of every step (wall s and device
     ms under torch.profiler, the step's collectives: count, host s, bytes;
-    e_loc, n_unique, n_samples, cg_iters), the launches of every kernel in
-    those steps, a digest of the parameters after them, and the fixed pair's
-    check (e_loc, the summed gradient's and the update's distance from the
-    composition's, relative)."""
+    e_loc, n_unique, n_samples, cg_iters), the launches in those steps of
+    every kernel of the first group of `wrappers()` that ran and of each of
+    the E_loc glue's kernels, a digest of the parameters after them, and the
+    fixed pair's check (e_loc, the summed gradient's and the update's
+    distance from the composition's, relative)."""
     rank, world = comm.rank(), comm.world()
     tr = VMCTrainer(cfg, terms, hilbert, tc, device=device, n_devices=world)
     dev = tr.device
-    ws = wrappers()
-    for w in ws:
+    ws, model_glue, eloc_glue = wrappers()
+    for w in ws + model_glue + eloc_glue:
         w.launches = 0
     rows = []
     with CollectiveClock() as clock:
@@ -276,6 +291,7 @@ def rank_run(hilbert, terms, cfg: NAQSConfig, tc: TrainConfig, plan, device=None
                                  **clock.take(), e_loc=out["e_loc"], n_unique=out["n_unique"],
                                  n_samples=out["n_samples"], cg_iters=out.get("cg_iters")))
         launches = {w.__name__.lstrip("_"): w.launches for w in ws if w.launches}
+        eloc_launches = {w.__name__: w.launches for w in eloc_glue}
         digest = _digest(tr.model)
         # the fixed pair: one data-parallel Adam update, held against the composition
         tr.tc = dataclasses.replace(tr.tc, use_sr=False, use_kfac=False)
@@ -317,7 +333,8 @@ def rank_run(hilbert, terms, cfg: NAQSConfig, tc: TrainConfig, plan, device=None
     after = {k: p.detach() for k, p in tr.model.named_parameters()}
     return dict(
         rank=rank, world=world, device=str(dev), backend=dist.get_backend(), route=comm.ROUTE,
-        rows=rows, launches=launches, digest=digest, digest_after_check=_digest(tr.model),
+        rows=rows, launches=launches, eloc_launches=eloc_launches, digest=digest,
+        digest_after_check=_digest(tr.model),
         repeated_keys=keys,
         check=dict(n_unique=int(m["n_unique"]), overflow=overflow, e_loc=float(m["e_loc"]),
                    e_loc_composed=float(ref[2]), grad_err=_rel(grads, ref[0]),

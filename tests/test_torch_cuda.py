@@ -77,6 +77,16 @@ integer encoding's odd in_width, 56 with 28 shells), on 1, 37, 5,000 and
 tables_epilogue's three modes on the raw outputs row-major, shell-major (as
 the nets give them) and as a view with a wider row, read at their strides,
 the vjp's gradients laid out as their inputs.
+
+The grid and rank engines' E_loc glue (`csrc/grid_glue.cu`): `rank_index`
+(plain and with the XL engine's blocked maps) and `grid_scatter` (grid, XL
+grid, table with both miss values; float32 and float64 inputs; full, partial
+and empty batches) bitwise against their plain versions on the card and on
+a repeat; `grid_readout` per row within 1e-6 relative of the off-diagonal
+part and gg.DIAG_ATOL on the diagonal (the XL true diagonal's f64 sum in
+term order) and bitwise on a repeat; one E_loc call of each engine launches
+them 1 (2 with queries=), 2 and 1 times (the rank engine: 1, 2, 0; the sort
+engine none); the wrappers reject what the kernels do not take.
 """
 
 import dataclasses
@@ -106,7 +116,8 @@ from naqs_tpu_torch.ops.grid_kernels import (dense_grid_accumulate, dense_grid_a
 from naqs_tpu_torch.ops.multinomial import (_GAUSS_VAR_MIN, _cascade, multinomial4_split,
                                             multinomial4_split_ref, split_draws)
 from naqs_tpu_torch.ops.offdiag_h import offdiag_h_terms, offdiag_h_terms_ref, offdiag_tolerance
-from naqs_tpu_torch.ops.rank import RankSpec, build_value_table
+from naqs_tpu_torch.ops import grid_glue as gg
+from naqs_tpu_torch.ops.rank import RankSpec, build_value_table, rank_index, rank_index_ref
 from naqs_tpu_torch.ops.sort_lookup import (pack_table, sorted_gather2, sorted_gather2_ref,
                                             sorted_local_energy, sorted_local_energy_ref,
                                             sorted_local_energy_tolerance, sorted_log_amps,
@@ -2280,3 +2291,240 @@ def test_glue_kernels_reject_bad_inputs():
     with pytest.raises(ValueError):
         g.shell_epilogue(cfg, raw[:, 0, :4].contiguous(), torch.zeros(
             (3, 64), dtype=torch.int32, device=states.device), 0)
+
+
+# ---------------------------------------------------------------- the E_loc glue
+
+# the rank index on N2 STO-3G's sector, a rectangular one, three sectors of 14
+# qubits and a 32-qubit space (16 shells, the most a RankSpec has)
+GLUE_RANK_SPACES = [(((7, 7),), 20), (((3, 6),), 20), (((5, 3), (4, 4), (3, 5)), 14),
+                    (((4, 4),), 32)]
+
+
+def _glue_states(hil, n_qubits, rng, n=20_000):
+    """Basis states, random states of the qubits (mostly outside every sector),
+    random 62-bit words and SENTINEL, as int64."""
+    from naqs_tpu_torch.utils.bits import SENTINEL
+
+    basis = hil.basis if hil.size <= n else rng.choice(hil.basis, n, replace=False)
+    return np.concatenate([basis, rng.integers(0, 1 << n_qubits, 5000),
+                           rng.integers(0, 1 << 62, 500), [SENTINEL] * 7]).astype(np.int64)
+
+
+@pytest.mark.parametrize("sectors,n_qubits", GLUE_RANK_SPACES)
+def test_grid_glue_rank_index_matches_plain(sectors, n_qubits):
+    dev = _card()
+    hil = nt.Hilbert(n_qubits=n_qubits, sectors=sectors)
+    spec = RankSpec.for_hilbert(hil)
+    x = torch.as_tensor(_glue_states(hil, n_qubits, np.random.default_rng(1)), device=dev)
+    before = rank_index.launches
+    got = rank_index(spec, x)
+    assert rank_index.launches == before + 1
+    want = rank_index_ref(spec, x)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert torch.equal(rank_index(spec, x), got)
+    assert int((got < spec.size).sum()) >= min(hil.size, 20_000)
+    x2 = x[:4096].reshape(64, 64)                       # any shape, as the chunk kernels' plain
+    assert torch.equal(rank_index(spec, x2), rank_index_ref(spec, x2))
+
+
+@pytest.mark.parametrize("e", [2, 4])
+def test_grid_glue_xl_blocked_index_matches_plain(e, monkeypatch):
+    dev = _card()
+    monkeypatch.setattr(de, "DENSE_SIZE_MAX", 1)
+    monkeypatch.setattr(de, "FACT_SIZE_MAX", 1)
+    _, hil, prog = _staircase("N2_STO-3G_gen", e, dev)
+    spec = RankSpec.for_hilbert(hil)
+    full = nt.Hilbert(n_qubits=hil.n_qubits, sectors=hil.sectors)   # the rectangle and past it
+    x = torch.as_tensor(_glue_states(full, hil.n_qubits, np.random.default_rng(2)), device=dev)
+    perm = (prog.perm_a, prog.perm_b)
+    got = rank_index(spec, x, perm=perm)
+    want = rank_index_ref(spec, x, perm)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(rank_index(spec, x, perm=perm), got))
+    assert bool((got[0] < prog.sa).any() and (got[0] == prog.sa).any())
+
+
+def _eloc_case(mode, dev, dtype, e=2):
+    """(cells, la, ph, m, sa, sb, spec, prog, terms, hil, s) of N2 STO-3G's sampled
+    buffer: the dense grid's rank indices (a live row outside the sector
+    among them), the XL staircase's blocked pair (states of the rectangle
+    outside the staircase among them), or the table's rank indices."""
+    from naqs_tpu_torch.utils.bits import SENTINEL
+
+    rng = np.random.default_rng(7)
+    if mode == "xl":
+        terms, hil, prog = _staircase("N2_STO-3G_gen", e, dev)
+        n_shells = hil.n_qubits // 2
+        words = lambda w, n: rng.choice(w.cpu().numpy().astype(np.int64), n)
+        rect = (de._expand_qubits(words(prog.alpha_words, 600), 0, n_shells)
+                | de._expand_qubits(words(prog.beta_words, 600), 1, n_shells))
+        states = np.unique(np.concatenate([rng.choice(hil.basis, min(2000, hil.size // 2),
+                                                      replace=False), rect]))
+    else:
+        terms, hil = _n2()
+        prog = DenseTerms.build(terms, hil, device=dev)
+        states = np.sort(rng.choice(hil.basis, 3000, replace=False))
+        states[5] = 0b111                      # live, outside the sector
+    m = len(states)
+    s = np.full(m + 200, SENTINEL, np.int64)
+    s[:m] = states
+    la = rng.normal(size=len(s)) - 1.0
+    ph = rng.uniform(-np.pi, np.pi, size=len(s))
+    t = lambda a, d=None: torch.as_tensor(a, device=dev, dtype=d)
+    spec = RankSpec.for_hilbert(hil)
+    s_d = t(s)
+    if mode == "xl":
+        cells, sa, sb = de._xl_blocked_idx(prog, spec, s_d), prog.sa, prog.sb
+    else:
+        cells = rank_index(spec, s_d)
+        sa, sb = (spec.size, 0) if mode.startswith("table") else (prog.sa, prog.sb)
+    return cells, t(la, dtype), t(ph, dtype), m, sa, sb, spec, prog, terms, hil, s_d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fill", ["sampled", "partial", "empty"])
+@pytest.mark.parametrize("mode", ["grid", "xl", "table", "table_quad"])
+def test_grid_scatter_matches_plain(mode, fill, dtype, monkeypatch):
+    dev = _card()
+    monkeypatch.setattr(de, "DENSE_SIZE_MAX", 1 if mode == "xl" else de.DENSE_SIZE_MAX)
+    monkeypatch.setattr(de, "FACT_SIZE_MAX", 1 if mode == "xl" else de.FACT_SIZE_MAX)
+    cells, la, ph, m, sa, sb, *_ = _eloc_case(mode, dev, dtype)
+    n_valid = {"sampled": m, "partial": m // 3, "empty": 0}[fill]
+    kind = "table" if mode.startswith("table") else mode
+    miss = QUAD_MISS if mode == "table_quad" else -1.0e30
+    for nv in (n_valid, torch.tensor(n_valid, device=dev)):
+        before = gg.grid_scatter.launches
+        got, ref = gg.grid_scatter(kind, cells, la, ph, nv, sa, sb, miss=miss)
+        assert gg.grid_scatter.launches == before + 2
+        want, ref_w = gg.grid_scatter_ref(kind, cells, la, ph, nv, sa, sb, miss=miss)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want)
+        again, ref_a = gg.grid_scatter(kind, cells, la, ph, nv, sa, sb, miss=miss)
+        assert torch.equal(again, got)
+        if kind == "table":
+            assert ref is None
+            assert int((got[:, 0] > miss).sum()) == (0 if fill == "empty" else
+                                                    int((cells[:n_valid] < sa).sum()))
+        else:
+            assert ref.dtype == dtype and torch.equal(ref, ref_w) and torch.equal(ref_a, ref)
+            assert (fill == "empty") == (float(ref) == -float("inf"))
+            assert bool(got.any()) == (fill != "empty")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["dense", "rows", "xl", "xl_nodiag", "empty"])
+def test_grid_readout_matches_plain(mode, dtype, monkeypatch):
+    """Each readout on a real numerator (the engine's accumulation of the
+    sampled grid), for the buffer's rows and for queries outside the sector
+    and SENTINEL; "empty": an empty batch's ref of -inf."""
+    dev = _card()
+    xl = mode.startswith("xl")
+    monkeypatch.setattr(de, "DENSE_SIZE_MAX", 1 if xl else de.DENSE_SIZE_MAX)
+    monkeypatch.setattr(de, "FACT_SIZE_MAX", 1 if xl else de.FACT_SIZE_MAX)
+    cells, la, ph, m, sa, sb, spec, prog, terms, hil, s = _eloc_case("xl" if xl else "grid",
+                                                                       dev, dtype)
+    kw = {}
+    if xl:
+        dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
+        grid, ref = xl_value_grid(prog, spec, s, la, ph, m, cells)
+        num = xl_grid_accumulate(prog, grid)
+        kw = dict(width=prog.width, cells_off=prog.cells_off)
+        if mode == "xl":
+            kw.update(q_states=s, diag_yz=dt.diag_yz, diag_coeff=dt.diag_coeff)
+    else:
+        grid, ref = gg.grid_scatter("grid", cells, la, ph, 0 if mode == "empty" else m, sa, sb)
+        if mode == "rows":
+            num = factored_cells_accumulate(FactorTerms.build(terms, hil, device=dev), grid,
+                                            cells, torch.tensor(m, device=dev))
+        else:
+            num = dense_grid_accumulate(prog, grid)
+    read = {"rows": "rows", "dense": "dense", "empty": "dense"}.get(mode, "xl")
+    before = gg.grid_readout.launches
+    got = gg.grid_readout(read, num, prog.e_diag, cells, ref, la, ph, sa, sb, **kw)
+    assert gg.grid_readout.launches == before + 1
+    want = gg.grid_readout_ref(read, num, prog.e_diag, cells, ref, la, ph, sa, sb, **kw)
+    torch.cuda.synchronize()
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+    # the off-diagonal part alone: the plain readout with a zero diagonal
+    off = gg.grid_readout_ref(read, num, torch.zeros_like(prog.e_diag), cells, ref, la, ph, sa,
+                              sb, width=kw.get("width"), cells_off=kw.get("cells_off"))
+    for g, w, o in zip(got, want, off):
+        if mode == "empty":
+            torch.testing.assert_close(g, w, rtol=0, atol=gg.DIAG_ATOL, equal_nan=True)
+        else:
+            assert bool(torch.isfinite(g).all())
+            assert bool(((g - w).abs() <= 1e-6 * o.abs() + gg.DIAG_ATOL).all())
+    if read != "xl" or mode == "xl_nodiag":
+        assert all(same), same          # no sum in another order: the chain's bits
+    again = gg.grid_readout(read, num, prog.e_diag, cells, ref, la, ph, sa, sb, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("engine", ["dense", "factored", "xl", "rank", "sort"])
+def test_grid_glue_launches_per_eloc_call(engine, monkeypatch):
+    """One local_energy call: rank_index once (twice with queries=),
+    grid_scatter's two launches, grid_readout once; the rank engine has no
+    readout; the sort engine runs none. Within 2e-4 Ha of the rank engine."""
+    dev = _card()
+    if engine in ("factored", "xl"):
+        monkeypatch.setattr(de, "DENSE_SIZE_MAX", 1)
+    if engine == "xl":
+        monkeypatch.setattr(de, "FACT_SIZE_MAX", 1)
+        terms, hil, _ = _staircase("N2_STO-3G_gen", 4, dev)
+    else:
+        terms, hil = _n2()
+    dt = le.DeviceTerms.from_terms(terms, hilbert=hil, device=dev)
+    want_type = {"dense": "DenseTerms", "factored": "FactorTerms", "xl": "FactorTermsXL"}
+    if engine in want_type:
+        assert type(dt.dense).__name__ == want_type[engine]
+    elif engine == "rank":
+        dt = dataclasses.replace(dt, dense=None)
+    else:
+        dt = dataclasses.replace(dt, dense=None, rank_spec=None)
+    glue = (rank_index, gg.grid_scatter, gg.grid_readout)
+    m = 3000
+    s, la, ph = _n2_sample(hil, m, 4096, dev, seed=3)
+    per_call = {"rank": (1, 2, 0), "sort": (0, 0, 0)}.get(engine, (1, 2, 1))
+    q = (s[:500], la[:500], ph[:500])
+    for queries, extra in ((None, 0), (q, 0 if engine in ("rank", "sort") else 1)):
+        before = [w.launches for w in glue]
+        e = le.local_energy(dt, s, la, ph, m, queries=queries)
+        got = tuple(w.launches - b for w, b in zip(glue, before))
+        assert got == (per_call[0] + extra, *per_call[1:]), (engine, queries is None, got)
+        assert all(bool(torch.isfinite(x[:500]).all()) for x in e)
+    rank = le.local_energy(dataclasses.replace(dt, dense=None, rank_spec=RankSpec.for_hilbert(
+        hil)), s, la, ph, m)
+    full = le.local_energy(dt, s, la, ph, m)
+    for a, b in zip(full, rank):
+        assert float((a[:m] - b[:m]).abs().max()) < 2e-4, engine
+
+
+def test_grid_glue_rejects_bad_inputs():
+    dev = _card()
+    cells, la, ph, m, sa, sb, spec, prog, _, _, s = _eloc_case("grid", dev, torch.float32)
+    with pytest.raises(ValueError):
+        rank_index(spec, s.int())
+    with pytest.raises(ValueError):
+        rank_index(spec, s[::2])                      # not contiguous
+    with pytest.raises(ValueError):
+        rank_index(spec, s, perm=(torch.zeros(3, dtype=torch.int32),
+                                  torch.zeros(3, dtype=torch.int32, device=dev)))  # on the host
+    with pytest.raises(ValueError):
+        gg.grid_scatter("grid", cells.cpu(), la, ph, m, sa, sb)
+    with pytest.raises(ValueError):
+        gg.grid_scatter("grid", cells, la.half(), ph.half(), m, sa, sb)
+    with pytest.raises(ValueError):
+        gg.grid_scatter("grid", cells, la, ph.double(), m, sa, sb)
+    grid, ref = gg.grid_scatter("grid", cells, la, ph, m, sa, sb)
+    num = dense_grid_accumulate(prog, grid)
+    flat = torch.zeros(num.numel() + 1, device=dev)
+    odd = flat[1:].view(num.shape)                    # 4-byte aligned: not one float2
+    with pytest.raises(ValueError):
+        gg.grid_readout("dense", odd, prog.e_diag, cells, ref, la, ph, sa, sb)
+    with pytest.raises(ValueError):
+        gg.grid_readout("dense", num, prog.e_diag, cells, ref.double(), la, ph, sa, sb)
+    with pytest.raises(ValueError):
+        gg.grid_readout("rows", num, prog.e_diag, cells, ref, la, ph, sa, sb)   # not (U, 2)
+    with pytest.raises(ValueError):
+        gg.grid_readout("dense", num, prog.e_diag.float(), cells, ref, la, ph, sa, sb)

@@ -3,7 +3,7 @@
 Integers and gathered floats must agree bitwise. The JAX gather is the
 Pallas kernel `table_gather2` run in interpret mode, fed JAX's rank_index.
 The CUDA kernels' rank arithmetic (spin-word compaction and the two-lookup
-colex tables of `dyn_gather.spec_table`) is replayed here in numpy.
+colex tables of `rank.spec_table`) is replayed here in numpy.
 """
 
 import jax.numpy as jnp
@@ -16,7 +16,8 @@ import naqs_tpu_torch as nt
 from naqs_tpu.ops import rank as rank_j
 from naqs_tpu.ops.dyn_gather import pad_tables, table_gather2
 from naqs_tpu_torch.ops import rank as rank_t
-from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_gather2_ref, spec_table
+from naqs_tpu_torch.ops.dyn_gather import rank_gather2, rank_gather2_ref
+from naqs_tpu_torch.ops.rank import spec_table
 from naqs_tpu_torch.utils.bits import SENTINEL
 from test_torch_support import case, to_u64
 
